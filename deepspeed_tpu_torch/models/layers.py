@@ -1,10 +1,11 @@
 """Building blocks of the port's Llama model and its paged KV pool.
 
-Counterparts of ``deepspeed_tpu/models/layers.py`` for the serving path:
+Counterparts of ``deepspeed_tpu/models/layers.py``. For the serving path:
 RMSNorm, rotary embeddings, int8 KV quantization, the paged pool, its
 index bundle, the packed append and the multi-position logit harvest.
 JAX arrays are immutable, so the JAX pool update returns a new pool; here
-the pool tensors are updated in place.
+the pool tensors are updated in place. For the training path:
+``repeat_kv``, the attention core, the loss and the LM head.
 """
 
 from typing import Optional, Tuple
@@ -12,6 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops.flash_attention import flash_attention
 
 
 class RMSNorm(nn.Module):
@@ -184,3 +187,59 @@ def harvest_packed_logits(logits, token_rows, num_rows: int):
     bad_tok = ~torch.isfinite(lg).all(dim=-1) & valid
     bad = torch.zeros(num_rows, dtype=torch.int32, device=lg.device)
     return lg, bad.index_add_(0, safe, bad_tok.int()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the dense training path
+# ---------------------------------------------------------------------------
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """GQA: expand kv heads ``[B, T, Hkv, D] -> [B, T, Hkv * n_rep, D]``
+    (head ``h`` of the result reads kv head ``h // n_rep``)."""
+    if n_rep == 1:
+        return x
+    b, t, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, t, h, n_rep, d).reshape(
+        b, t, h * n_rep, d)
+
+
+def dot_product_attention(q, k, v, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None):
+    """``[B, T, H, D]`` attention core of the training path (kv heads
+    repeated): bottom-right-aligned causality and an optional window,
+    through the flash-attention wrapper (kernels K1/K2 on CUDA tensors,
+    their plain versions on CPU tensors). A padding bias is not ported."""
+    return flash_attention(q, k, v, causal=causal, sm_scale=scale,
+                           window=window)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Token-mean cross entropy in fp32; labels equal to ``ignore_index``
+    count nowhere."""
+    logits = logits.float()
+    mask = (labels != ignore_index).float()
+    safe = torch.where(labels == ignore_index, torch.zeros_like(labels),
+                       labels)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None].long()).squeeze(-1)
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def shift_labels(input_ids: torch.Tensor,
+                 ignore_index: int = -100) -> torch.Tensor:
+    """HF convention: labels == input_ids, shifted left, the last position
+    ignored."""
+    return torch.cat([input_ids[:, 1:],
+                      torch.full_like(input_ids[:, :1], ignore_index)], dim=1)
+
+
+def lm_head_output(hidden: torch.Tensor, embed_weight: torch.Tensor,
+                   lm_head=None) -> torch.Tensor:
+    """Logits through the untied head, or the embedding matrix when tied
+    (``lm_head is None``). The chunked loss (``loss_chunk > 0``) is not
+    ported."""
+    if lm_head is None:
+        return hidden @ embed_weight.T
+    return lm_head(hidden)

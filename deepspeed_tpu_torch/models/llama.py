@@ -1,19 +1,29 @@
-"""Llama-family decoder for the serving path (RoPE + RMSNorm + SwiGLU + GQA).
+"""Llama-family decoder (RoPE + RMSNorm + SwiGLU + GQA).
 
-Counterpart of ``deepspeed_tpu/models/llama.py``. This slice ports the
-paged MIXED step only: ``forward`` takes a packed ragged token batch
-``[1, T]``, appends its KV into the paged pool through each token's row
-of the block tables, and runs ragged paged attention over the pool through
-``ops.ragged_attention.ragged_paged_attention``: the hand-written kernel on
-CUDA tensors, its plain PyTorch version on CPU tensors. The JAX config's
-``decode_attention_impl`` has no counterpart here, since the device decides.
-The dense, contiguous-cache and training paths arrive with later slices and
-raise here.
+Counterpart of ``deepspeed_tpu/models/llama.py``. Two of its paths are
+ported:
+
+- the paged MIXED step of the serving engine: ``forward(input_ids [1, T],
+  cache=pool, cache_index=...)`` appends the packed batch's KV into the
+  paged pool and runs ragged paged attention through
+  ``ops.ragged_attention.ragged_paged_attention`` (kernel K6);
+- the dense training forward: ``forward(input_ids [B, T], labels)``
+  returns the fp32 token-mean cross entropy over shifted labels (logits
+  without labels), with kv heads repeated before causal (optionally
+  windowed) flash attention through ``ops.flash_attention`` (kernels K1
+  and K2), and with ``remat`` each block recomputed in the backward
+  (``torch.utils.checkpoint``, the JAX ``"nothing"`` policy).
+
+Each wrapper launches its hand-written kernel on CUDA tensors and its
+plain PyTorch version on CPU tensors: the device decides, so the JAX
+config's ``attention_impl`` and ``decode_attention_impl`` have no
+counterpart here. The contiguous-cache decode path, a padding mask, other
+remat policies and the chunked loss raise.
 
 As with a flax module, the model object is a definition: its parameters
-are built on the ``meta`` device (shapes only, no memory), and
-``init_inference`` binds real weights to it (``init_params`` makes seeded
-random ones; ``checkpoint.from_flax`` converts a JAX param tree).
+are built on the ``meta`` device (shapes only, no memory), and an engine
+binds real weights to it (``init_params`` makes seeded random ones;
+``checkpoint.from_flax`` converts a JAX param tree).
 """
 
 import dataclasses
@@ -22,10 +32,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.ragged_attention import ragged_paged_attention
-from .layers import (RMSNorm, apply_rotary, init_paged_kv_cache,
-                     is_paged_index, rotary_embedding, update_paged_kv_cache)
+from .layers import (RMSNorm, apply_rotary, cross_entropy_loss,
+                     dot_product_attention, init_paged_kv_cache,
+                     is_paged_index, lm_head_output, repeat_kv,
+                     rotary_embedding, shift_labels, update_paged_kv_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +63,23 @@ class LlamaConfig:
     head_dim_override: Optional[int] = None
     mlp_activation: str = "silu"  # "silu" | "gelu_tanh"
     embed_scale: Optional[float] = None
+    #: training: recompute each block in the backward instead of keeping
+    #: its activations
+    remat: bool = True
+    #: what a rematerialized block keeps; only "nothing" is ported
+    remat_policy: str = "nothing"
+    #: >0: the chunked training loss (not ported); 0 = plain loss
+    loss_chunk: int = 0
 
     def __post_init__(self):
         if self.mlp_activation not in ("silu", "gelu_tanh"):
             raise ValueError(f"mlp_activation must be 'silu' or "
                              f"'gelu_tanh', got {self.mlp_activation!r}")
+        if self.remat_policy != "nothing" or self.loss_chunk:
+            raise NotImplementedError(
+                "remat policies other than 'nothing' and loss_chunk > 0 "
+                "arrive with the rest of the Llama training subset "
+                "(ROADMAP.md Queue 1, item 5)")
 
     @property
     def head_dim(self) -> int:
@@ -104,6 +129,12 @@ class LlamaAttention(nn.Module):
         q = apply_rotary(self.q_proj(x).view(B, T, H, D), cos, sin)
         k = apply_rotary(self.k_proj(x).view(B, T, Hkv, D), cos, sin)
         v = self.v_proj(x).view(B, T, Hkv, D)
+        if layer_cache is None:
+            # dense training path: kv heads repeated, causal flash
+            out = dot_product_attention(q, repeat_kv(k, H // Hkv),
+                                        repeat_kv(v, H // Hkv), causal=True,
+                                        window=cfg.sliding_window)
+            return self.o_proj(out.reshape(B, T, H * D))
         # the pool is updated in place (the JAX model returns a new one)
         update_paged_kv_cache(layer_cache, k, v, cache_index)
         out = ragged_paged_attention(
@@ -157,30 +188,42 @@ class LlamaModel(nn.Module):
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
-    def forward(self, input_ids, cache, cache_index):
+    def forward(self, input_ids, cache=None, cache_index=None):
         cfg = self.cfg
-        if cache is None or not is_paged_index(cache_index) or \
-                "token_rows" not in cache_index:
+        if cache is not None and (not is_paged_index(cache_index) or
+                                  "token_rows" not in cache_index):
             raise NotImplementedError(
-                "the port runs the packed paged mixed step only (cache + a "
-                "paged_cache_index with token_rows); dense inference and "
-                "training arrive with later slices (ROADMAP.md Queue 1)")
+                "with a cache the port runs the packed paged mixed step only "
+                "(a paged_cache_index with token_rows); the contiguous-cache "
+                "path arrives with dense inference (ROADMAP.md Queue 1)")
         x = self.embed_tokens(input_ids)
         if cfg.embed_scale is not None:
             x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
-        # each packed token's position IS its append slot (pads are -1)
-        positions = cache_index["append_pos"].clamp_min(0)
+        if cache is None:
+            B, T = input_ids.shape
+            positions = torch.arange(T, device=x.device)[None].expand(B, T)
+        else:
+            # each packed token's position IS its append slot (pads are -1)
+            positions = cache_index["append_pos"].clamp_min(0)
         cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta,
                                     dtype=x.dtype)
         for i, layer in enumerate(self.layers):
-            layer_cache = {name: t[i] for name, t in cache.items()}
-            x = layer(x, cos, sin, layer_cache, cache_index)
+            if cache is not None:
+                x = layer(x, cos, sin, {name: t[i] for name, t in
+                                        cache.items()}, cache_index)
+            elif cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, cos, sin, None, None,
+                               use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, None, None)
         return self.norm(x)
 
 
 class LlamaForCausalLM(nn.Module):
-    """``forward(input_ids [1, T], cache, cache_index) -> (logits, cache)``
-    over a packed token batch; see the module docstring."""
+    """``forward(input_ids [1, T], cache=, cache_index=) -> (logits,
+    cache)`` over a packed token batch, or ``forward(input_ids [B, T],
+    labels) -> loss`` (logits without labels); see the module
+    docstring."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -190,13 +233,21 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = None if config.tie_word_embeddings else \
                 nn.Linear(config.hidden_size, config.vocab_size, bias=False)
 
-    def forward(self, input_ids, cache=None, cache_index=None):
+    def forward(self, input_ids, labels=None, cache=None, cache_index=None,
+                attention_mask=None):
+        if attention_mask is not None:
+            raise NotImplementedError(
+                "a training attention_mask (padding bias) arrives with the "
+                "rest of the Llama training subset (ROADMAP.md Queue 1, "
+                "item 5); drop padding through the labels (-100)")
         hidden = self.model(input_ids, cache, cache_index)
-        if self.lm_head is None:
-            logits = hidden @ self.model.embed_tokens.weight.T
-        else:
-            logits = self.lm_head(hidden)
-        return logits, cache
+        logits = lm_head_output(hidden, self.model.embed_tokens.weight,
+                                self.lm_head)
+        if cache is not None:
+            return logits, cache
+        if labels is None:
+            return logits
+        return cross_entropy_loss(logits, shift_labels(labels))
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          dtype=torch.bfloat16, device=None):

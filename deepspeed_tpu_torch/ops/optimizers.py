@@ -1,0 +1,138 @@
+"""Optimizers and their registry.
+
+Counterpart of ``deepspeed_tpu/ops/optimizers.py``. Both optimizers update
+lists of fp32 tensors in place through kernel K3 (``ops/fused_adam.py``):
+one launch over the whole list on CUDA, the plain version on the CPU. The
+device decides, so the JAX config's ``pallas=True`` is accepted and
+changes nothing. ``step(grads, grad_scale)`` takes the gradients and an
+optional fp32 device scalar that multiplies them first (the engine's clip
+factor, computed on the card). The schedule sees the step count before
+the increment; bias correction uses the count after it.
+"""
+
+import math
+from typing import Callable, Dict, List, Optional, Union
+
+import torch
+
+from ..runtime.config_utils import unported
+from .fused_adam import fused_adam
+
+ScalarOrSchedule = Union[float, Callable]
+
+
+class _AdamBase:
+    def __init__(self, params: List[torch.Tensor], lr: ScalarOrSchedule,
+                 betas, eps: float):
+        self.params = list(params)
+        self.lr = lr
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps = float(eps)
+        #: optimizer steps taken (skipped fp16 steps do not count)
+        self.count = 0
+        self.exp_avg = [torch.zeros_like(p, dtype=torch.float32)
+                        for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p, dtype=torch.float32)
+                           for p in self.params]
+
+    def lr_at(self, count: int) -> float:
+        return float(self.lr(count) if callable(self.lr) else self.lr)
+
+    def _scalars(self, lr: float):
+        """``(step_size, inv_bc2)`` for the next step; advances the count."""
+        self.count += 1
+        t = self.count
+        return lr / (1.0 - self.b1 ** t), 1.0 / math.sqrt(1.0 - self.b2 ** t)
+
+
+class FusedAdam(_AdamBase):
+    """Adam (``adam_w_mode=False``: L2 decay folded into the gradient) or
+    AdamW (decoupled decay scaled by the uncorrected lr)."""
+
+    def __init__(self, params, lr: ScalarOrSchedule = 1e-3,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, adam_w_mode: bool = True,
+                 bias_correction: bool = True, amsgrad: bool = False,
+                 pallas: bool = False, **_):
+        if amsgrad:
+            raise ValueError("FusedAdam does not support the AMSGrad variant "
+                             "(reference parity)")
+        super().__init__(params, lr, betas, eps)
+        self.weight_decay = float(weight_decay)
+        self.adam_w_mode = bool(adam_w_mode)
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor],
+             grad_scale: Optional[torch.Tensor] = None) -> None:
+        lr = self.lr_at(self.count)
+        step_size, inv_bc2 = self._scalars(lr)
+        fused_adam(self.params, grads, self.exp_avg, self.exp_avg_sq,
+                   b1=self.b1, b2=self.b2, eps=self.eps,
+                   weight_decay=self.weight_decay,
+                   adam_w_mode=self.adam_w_mode, step_size=step_size, lr=lr,
+                   inv_bc2=inv_bc2, grad_scale=grad_scale)
+
+
+class FusedLamb(_AdamBase):
+    """LAMB: the bias-corrected Adam direction from K3 (run with lr 1 and no
+    decay, written into the gradient buffers), plus the decay, scaled per
+    tensor by the trust ratio ``|p| / |direction|`` clipped to
+    ``[min_coeff, max_coeff]`` (1 where either norm is 0)."""
+
+    def __init__(self, params, lr: ScalarOrSchedule = 1e-3,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, max_coeff: float = 10.0,
+                 min_coeff: float = 0.01, pallas: bool = False, **_):
+        super().__init__(params, lr, betas, eps)
+        self.weight_decay = float(weight_decay)
+        self.min_coeff, self.max_coeff = float(min_coeff), float(max_coeff)
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor],
+             grad_scale: Optional[torch.Tensor] = None) -> None:
+        lr = self.lr_at(self.count)
+        step_size, inv_bc2 = self._scalars(1.0)
+        # u = -adam_direction lands in the gradient buffers
+        fused_adam(self.params, grads, self.exp_avg, self.exp_avg_sq,
+                   b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=0.0,
+                   adam_w_mode=True, step_size=step_size, lr=1.0,
+                   inv_bc2=inv_bc2, grad_scale=grad_scale, write_update=True)
+        for p, u in zip(self.params, grads):
+            direction = -u + self.weight_decay * p
+            p_norm = torch.linalg.vector_norm(p)
+            d_norm = torch.linalg.vector_norm(direction)
+            ratio = torch.where((p_norm > 0) & (d_norm > 0),
+                                p_norm / d_norm.clamp_min(1e-12),
+                                torch.ones_like(p_norm))
+            ratio = ratio.clamp(self.min_coeff, self.max_coeff)
+            p.add_(-lr * ratio * direction)
+
+
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
+ADAGRAD_OPTIMIZER = "adagrad"
+ONEBIT_OPTIMIZERS = ("onebitadam", "onebitlamb", "zerooneadam")
+
+
+def get_optimizer(name: str, params: List[torch.Tensor],
+                  opt_params: Dict, lr_schedule: Optional[Callable] = None):
+    """Engine dispatch by config name; ``lr_schedule`` replaces the scalar
+    lr with a ``step -> lr`` callable."""
+    key = name.lower()
+    p = dict(opt_params)
+    lr = lr_schedule if lr_schedule is not None else p.pop("lr", 1e-3)
+    p.pop("lr", None)
+    if key == ADAM_OPTIMIZER:
+        return FusedAdam(params, lr,
+                         adam_w_mode=bool(p.pop("adam_w_mode", True)), **p)
+    if key == ADAMW_OPTIMIZER:
+        return FusedAdam(params, lr, adam_w_mode=True, **p)
+    if key == LAMB_OPTIMIZER:
+        return FusedLamb(params, lr, **p)
+    if key == ADAGRAD_OPTIMIZER:
+        raise unported("the Adagrad optimizer", "the optimizer slice (item 6)")
+    if key in ONEBIT_OPTIMIZERS:
+        raise unported(f"the {name} optimizer", "the auxiliary subsystems "
+                       "(item 11)")
+    raise ValueError(f"Unknown optimizer: {name}")

@@ -1,0 +1,219 @@
+"""The single-JSON training config.
+
+Counterpart of ``deepspeed_tpu/runtime/config.py`` (``DeepSpeedConfig``):
+one JSON file or dict sets the batch triangulation (train = micro x gas x
+dp), precision, optimizer, scheduler, clipping and the reporting knobs.
+This slice trains on one device (dp = 1). Every block it does not
+implement raises ``NotImplementedError`` when it is switched on, naming
+the ``ROADMAP.md`` Queue 1 entry that brings it; keys that neither package
+knows raise ``ValueError``. Nothing is silently ignored.
+"""
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Optional, Union
+
+from .config_utils import (AUTO, ConfigBlock, auto_none,
+                           dict_raise_error_on_duplicate_keys, unported)
+from .zero.config import DeepSpeedZeroConfig
+
+GRADIENT_CLIPPING_DEFAULT = 0.0
+STEPS_PER_PRINT_DEFAULT = 10
+
+
+@dataclasses.dataclass
+class FP16Config(ConfigBlock):
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0  # 0 = dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+
+
+@dataclasses.dataclass
+class BF16Config(ConfigBlock):
+    enabled: bool = False
+
+
+@dataclasses.dataclass
+class OptimizerConfig(ConfigBlock):
+    type: str = "Adam"
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    legacy_fusion: bool = False
+
+
+@dataclasses.dataclass
+class SchedulerConfig(ConfigBlock):
+    type: Optional[str] = None
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def _enabled(block) -> bool:
+    return isinstance(block, dict) and bool(block.get("enabled", False))
+
+
+def _nonempty(block) -> bool:
+    return bool(block)
+
+
+def _parallel(block) -> bool:
+    return isinstance(block, dict) and any(
+        v not in (1, -1, None, AUTO) for v in block.values())
+
+
+#: top-level keys of the JAX config that this slice does not implement:
+#: (is it switched on?, the Queue 1 entry that brings it)
+UNPORTED_BLOCKS = {
+    "sparse_gradients": (bool, "the distributed and ZeRO slice (item 9)"),
+    "progressive_layer_drop": (_enabled, "the Llama training subset "
+                               "(item 5)"),
+    "curriculum_learning": (_enabled, "the auxiliary subsystems (item 11)"),
+    "quantize_training": (_enabled, "the auxiliary subsystems (item 11)"),
+    "compression_training": (_nonempty, "the auxiliary subsystems "
+                             "(item 11)"),
+    "elasticity": (_enabled, "the auxiliary subsystems (item 11)"),
+    "fault_tolerance": (_enabled, "the checkpoint slice (item 8)"),
+    "flops_profiler": (_enabled, "the auxiliary subsystems (item 11)"),
+    "autotuning": (_enabled, "the auxiliary subsystems (item 11)"),
+    "tensorboard": (_enabled, "the monitor backends (item 7)"),
+    "wandb": (_enabled, "the monitor backends (item 7)"),
+    "csv_monitor": (_enabled, "the monitor backends (item 7)"),
+    "comms_logger": (_enabled, "the distributed and ZeRO slice (item 9)"),
+    "tracing": (_enabled, "the monitor backends (item 7)"),
+    "amp": (_enabled, "no slice: use bf16 or fp16"),
+    "parallel": (_parallel, "the distributed and ZeRO slice (item 9)"),
+    "pipeline": (_nonempty, "the pipeline slice (item 10)"),
+    "activation_checkpointing": (_nonempty, "the Llama training subset "
+                                 "(item 5); the model's remat is set in "
+                                 "LlamaConfig"),
+    "checkpoint": (_nonempty, "the checkpoint slice (item 8)"),
+    "aio": (_nonempty, "the offload slice (item 11)"),
+    "prescale_gradients": (bool, "the distributed and ZeRO slice (item 9)"),
+    "gradient_predivide_factor": (lambda v: v != 1.0,
+                                  "the distributed and ZeRO slice (item 9)"),
+    "communication_data_type": (lambda v: v is not None,
+                                "the distributed and ZeRO slice (item 9)"),
+    "disable_allgather": (bool, "the distributed and ZeRO slice (item 9)"),
+    "memory_breakdown": (bool, "the monitor backends (item 7)"),
+    "dump_state": (bool, "the monitor backends (item 7)"),
+}
+
+PORTED_KEYS = {
+    "train_batch_size", "train_micro_batch_size_per_gpu",
+    "gradient_accumulation_steps", "steps_per_print", "gradient_clipping",
+    "wall_clock_breakdown", "fp16", "bf16", "bfloat16", "optimizer",
+    "scheduler", "zero_optimization", "seed",
+}
+
+
+class DeepSpeedConfig:
+    """``config``: a path to JSON or a dict. ``world_size`` is the
+    data-parallel world used for batch triangulation (1 in this slice)."""
+
+    def __init__(self, config: Union[str, os.PathLike, Dict],
+                 world_size: Optional[int] = None):
+        if isinstance(config, (str, os.PathLike)):
+            with open(config, "r") as f:
+                self._param_dict = json.load(
+                    f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
+        elif isinstance(config, dict):
+            self._param_dict = dict(config)
+        else:
+            raise ValueError(f"Expected a string path or dict, got: "
+                             f"{config!r}")
+        self.world_size = world_size if world_size is not None else 1
+        if self.world_size != 1:
+            raise unported(f"data-parallel world size {self.world_size}",
+                           "the distributed and ZeRO slice (item 9)")
+        self._check_keys(self._param_dict)
+        self._initialize_params(self._param_dict)
+        self._configure_train_batch_size()
+        self._do_sanity_check()
+
+    @staticmethod
+    def _check_keys(pd: Dict) -> None:
+        unknown = sorted(set(pd) - PORTED_KEYS - set(UNPORTED_BLOCKS))
+        if unknown:
+            raise ValueError(f"unknown DeepSpeed config keys {unknown}")
+        for key, (switched_on, entry) in UNPORTED_BLOCKS.items():
+            if key in pd and switched_on(pd[key]):
+                raise unported(f"config block {key!r}", entry)
+
+    def _initialize_params(self, pd: Dict) -> None:
+        get = pd.get
+        self.train_batch_size = auto_none(get("train_batch_size"))
+        self.train_micro_batch_size_per_gpu = auto_none(
+            get("train_micro_batch_size_per_gpu"))
+        self.gradient_accumulation_steps = auto_none(
+            get("gradient_accumulation_steps"))
+        self.steps_per_print = get("steps_per_print", STEPS_PER_PRINT_DEFAULT)
+        clip = auto_none(get("gradient_clipping"))
+        self.gradient_clipping = GRADIENT_CLIPPING_DEFAULT if clip is None \
+            else clip
+        self.wall_clock_breakdown = get("wall_clock_breakdown", False)
+        self.fp16 = FP16Config.from_dict(get("fp16"), "fp16")
+        self.bf16 = BF16Config.from_dict(get("bf16", get("bfloat16")), "bf16")
+        self.optimizer = OptimizerConfig.from_dict(get("optimizer"),
+                                                   "optimizer") \
+            if get("optimizer") else None
+        self.scheduler = SchedulerConfig.from_dict(get("scheduler"),
+                                                   "scheduler") \
+            if get("scheduler") else None
+        self.zero_config = DeepSpeedZeroConfig.from_dict(
+            get("zero_optimization"), "zero_optimization")
+        self.zero_optimization_stage = self.zero_config.stage
+        self.seed = get("seed", 1234)
+
+    def _configure_train_batch_size(self) -> None:
+        """Triangulation (the JAX ``config.py:363-401``)."""
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        dp = max(1, self.world_size)
+        if train is not None and micro is not None and gas is not None:
+            pass
+        elif train is not None and micro is not None:
+            gas = train // (micro * dp)
+        elif train is not None and gas is not None:
+            micro = train // (dp * gas)
+        elif micro is not None and gas is not None:
+            train = micro * gas * dp
+        elif train is not None:
+            gas = 1
+            micro = train // dp
+        elif micro is not None:
+            train = micro * dp
+            gas = 1
+        else:
+            raise ValueError("Either train_batch_size or "
+                             "train_micro_batch_size_per_gpu needs to be "
+                             "provided")
+        self.train_batch_size = train
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = gas
+
+    def _do_sanity_check(self) -> None:
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        if not (train > 0 and micro > 0 and gas > 0):
+            raise ValueError(f"batch sizes must be positive: train {train}, "
+                             f"micro {micro}, gas {gas}")
+        if train != micro * gas * self.world_size:
+            raise ValueError(
+                f"Check batch related parameters. train_batch_size is not "
+                f"equal to micro_batch_per_gpu * gradient_acc_step * "
+                f"world_size {train} != {micro} * {gas} * {self.world_size}")
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
+
+    @property
+    def precision(self) -> str:
+        if self.bf16.enabled:
+            return "bf16"
+        if self.fp16.enabled:
+            return "fp16"
+        return "fp32"

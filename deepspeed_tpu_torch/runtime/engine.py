@@ -1,0 +1,368 @@
+"""The training engine.
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``
+and ``initialize``) for one device without sharding. One JSON config sets
+precision, optimizer, schedule, gradient accumulation, clipping and loss
+scaling. The engine keeps fp32 master weights; each micro-step binds them
+to the model cast to the compute dtype (an explicit cast, not autocast, so
+the math matches the JAX step, which casts every floating param inside
+the step), so autograd returns fp32 gradients into the masters.
+
+A step (``train_batch``): for each of the ``gas`` microbatches, the loss
+times the loss scale goes backward and the gradients add up in the
+masters; the sum is divided by ``gas`` and by the scale; the global norm
+is taken; an fp16 overflow (a non-finite norm, read on the host once per
+fp16 step) skips the whole update and advances the scale automaton;
+otherwise clipping (``g * clip / norm`` when the norm exceeds ``clip``,
+as a device scalar) and the optimizer (kernel K3) update the masters in
+place. bf16 and fp32 steps read nothing back from the card.
+
+The micro-step API (``engine(batch)``, ``backward``, ``step``) queues
+microbatches and runs ``train_batch`` at the accumulation boundary, as the
+JAX engine does.
+"""
+
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..inference.engine import resolve_device
+from ..ops.optimizers import FusedAdam, get_optimizer
+from ..utils.logging import log_dist
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
+from .config import DeepSpeedConfig
+from .config_utils import unported
+from .fp16.loss_scaler import create_loss_scaler, update_scale
+from .lr_schedules import get_lr_schedule
+
+_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
+           "fp32": torch.float32}
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+
+
+def _bind(module: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+    """Put ``tensors`` in place of the module's parameters, by
+    ``state_dict`` name. They stay bound until the next bind, so a
+    rematerialized block recomputes its forward in the backward on the
+    same tensors."""
+    for name, t in tensors.items():
+        owner, _, attr = name.rpartition(".")
+        module.get_submodule(owner)._parameters[attr] = t
+
+
+class DeepSpeedEngine:
+    """See the module docstring. Construct through :func:`initialize`."""
+
+    def __init__(self, model: nn.Module, config=None,
+                 model_parameters: Optional[Dict[str, Any]] = None,
+                 lr_scheduler=None, device=None):
+        self.device = resolve_device(device)
+        if not isinstance(model, nn.Module) or \
+                not hasattr(model, "init_params"):
+            raise NotImplementedError(
+                "initialize takes a port model (deepspeed_tpu_torch.models); "
+                "wrapping other torch modules arrives with the training "
+                "engine's remaining parts (ROADMAP.md Queue 1, item 7)")
+        self.module = model
+        self.client_lr_scheduler = lr_scheduler
+        self.global_steps = 0
+        self.micro_steps = 0
+        self.skipped_steps = 0
+
+        self._config = DeepSpeedConfig(config or {}, world_size=1)
+        self.dp_world_size = 1
+        self.train_batch_size = self._config.train_batch_size
+        self.micro_batch_size = self._config.train_micro_batch_size_per_gpu
+        self.gradient_accumulation_steps = \
+            self._config.gradient_accumulation_steps
+        self.compute_dtype = _DTYPES[self._config.precision]
+        self.fp16_enabled = self._config.fp16.enabled
+        self.bfloat16_enabled = self._config.bf16.enabled
+
+        # ---- fp32 masters ------------------------------------------------
+        params = model_parameters if model_parameters is not None else \
+            model.init_params(seed=self._config.seed, device=self.device)
+        want = set(model.state_dict().keys())
+        if set(params) != want:
+            raise ValueError(
+                f"model_parameters must be the model's state_dict: missing "
+                f"{sorted(want - set(params))}, unexpected "
+                f"{sorted(set(params) - want)}")
+        self.master: Dict[str, torch.Tensor] = {}
+        for name, p in params.items():
+            p = _as_tensor(p).detach()
+            if p.is_floating_point():
+                p = p.to(device=self.device, dtype=torch.float32,
+                         copy=True).requires_grad_(True)
+            else:
+                p = p.to(self.device)
+            self.master[name] = p
+        self._trainable = [p for p in self.master.values() if p.requires_grad]
+
+        self.lr_scheduler = self._build_lr_scheduler()
+        self.optimizer = self._build_optimizer()
+        self.loss_scaler = create_loss_scaler(self._config.fp16) \
+            if self.fp16_enabled else None
+
+        self.timers = SynchronizedWallClockTimer()
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_batch_size,
+            steps_per_output=self._config.steps_per_print)
+        self.wall_clock_breakdown = self._config.wall_clock_breakdown
+        self._pending_microbatches = []
+        self._last_loss = None
+        self._last_grad_norm = None
+        log_dist(f"DeepSpeedEngine initialized: device={self.device}, "
+                 f"precision={self._config.precision}, batch="
+                 f"{self.train_batch_size} (micro={self.micro_batch_size} x "
+                 f"gas={self.gradient_accumulation_steps})", ranks=[0])
+
+    # ------------------------------------------------------------------
+    # construction helpers
+    # ------------------------------------------------------------------
+
+    def _build_lr_scheduler(self):
+        if self.client_lr_scheduler is not None:
+            return self.client_lr_scheduler
+        sched = self._config.scheduler
+        if sched is None or sched.type is None:
+            return None
+        return get_lr_schedule(sched.type, sched.params)
+
+    def _build_optimizer(self):
+        opt = self._config.optimizer
+        if opt is None:
+            return FusedAdam(self._trainable, self.lr_scheduler or 1e-3)
+        return get_optimizer(opt.type, self._trainable, opt.params,
+                             self.lr_scheduler)
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+
+    def _bind_params(self) -> None:
+        """Bind the masters cast to the compute dtype (a differentiable
+        cast when grad mode is on)."""
+        dt = self.compute_dtype
+        _bind(self.module, {n: p.to(dt) if p.is_floating_point() else p
+                            for n, p in self.master.items()})
+
+    def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        self._bind_params()
+        out = self.module(**batch)
+        if isinstance(out, tuple):
+            out = out[0]
+        if isinstance(out, dict):
+            out = out["loss"]
+        return out
+
+    def _train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        gas = self.gradient_accumulation_steps
+        scale = self.loss_scaler.cur_scale if self.fp16_enabled else 1.0
+        total = None
+        for i in range(gas):
+            loss = self._loss({k: v[i] for k, v in batch.items()})
+            (loss.float() * scale).backward()
+            total = loss.detach().float() if total is None \
+                else total + loss.detach().float()
+        loss = total / gas
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._trainable]
+        if gas > 1:
+            torch._foreach_div_(grads, float(gas))
+        if scale != 1.0:
+            torch._foreach_div_(grads, scale)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self._last_grad_norm = norm
+        overflow = False
+        if self.fp16_enabled:
+            overflow = not bool(torch.isfinite(norm))
+            self.loss_scaler = update_scale(self.loss_scaler, overflow)
+        if overflow:
+            self.skipped_steps += 1
+        else:
+            clip = self._config.gradient_clipping
+            factor = None
+            if clip and clip > 0:
+                factor = torch.where(norm < clip, torch.ones_like(norm),
+                                     clip / norm)
+            self.optimizer.step(grads, grad_scale=factor)
+        for p in self._trainable:
+            p.grad = None
+        return loss
+
+    # ------------------------------------------------------------------
+    # public training API
+    # ------------------------------------------------------------------
+
+    def _shape_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """``[train_batch, ...] -> [gas, micro, ...]`` on the device."""
+        gas = self.gradient_accumulation_steps
+        out = {}
+        for k, x in batch.items():
+            if k == "attention_mask":
+                raise unported("a training attention_mask (padding bias)",
+                               "the Llama training subset (item 5)")
+            x = _as_tensor(x)
+            if x.shape[0] == self.train_batch_size:
+                x = x.reshape((gas, self.train_batch_size // gas)
+                              + tuple(x.shape[1:]))
+            elif x.shape[0] != gas:
+                raise ValueError(
+                    f"batch leading dim {x.shape[0]} != train_batch_size "
+                    f"{self.train_batch_size} (or gas {gas})")
+            out[k] = x.to(self.device, non_blocking=True)
+        return out
+
+    def train_batch(self, data_iter: Optional[Iterator] = None,
+                    batch: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """One optimizer step over ``gas`` microbatches. Pass a global batch
+        (leading dim ``train_batch_size``) or an iterator of microbatches.
+        Returns the mean loss as a device scalar (reading it waits for the
+        step)."""
+        if batch is None:
+            if data_iter is None:
+                raise ValueError("train_batch needs a batch or a data "
+                                 "iterator")
+            micro = [next(data_iter)
+                     for _ in range(self.gradient_accumulation_steps)]
+            batch = {k: torch.cat([_as_tensor(m[k]) for m in micro])
+                     for k in micro[0]}
+        if self.wall_clock_breakdown:
+            self.timers("train_batch").start()
+        self.tput_timer.start()
+        loss = self._train_step(self._shape_batch(batch))
+        self.global_steps += 1
+        self.micro_steps += self.gradient_accumulation_steps
+        self.tput_timer.stop()
+        if self.wall_clock_breakdown:
+            self.timers("train_batch").stop()
+        if self._config.steps_per_print and \
+                self.global_steps % self._config.steps_per_print == 0:
+            log_dist(f"step={self.global_steps}, skipped="
+                     f"{self.get_skipped_steps()}, lr={self.get_lr()}, "
+                     f"loss={float(loss):.6f}", ranks=[0])
+        self._last_loss = loss
+        return loss
+
+    def forward(self, batch: Dict[str, Any]):
+        """``engine(batch)`` queues a microbatch and returns a lazy loss;
+        the step runs at the accumulation boundary in ``step()``, and the
+        loss costs an extra forward only if the caller reads it."""
+        self._pending_microbatches.append(batch)
+        return _LazyLoss(self, batch)
+
+    __call__ = forward
+
+    def backward(self, loss=None, **_):
+        """No-op: the gradients are computed in ``step()``."""
+        return loss
+
+    def step(self):
+        """Take the optimizer step once ``gas`` microbatches are queued."""
+        gas = self.gradient_accumulation_steps
+        if len(self._pending_microbatches) < gas:
+            return None
+        micro = self._pending_microbatches[:gas]
+        self._pending_microbatches = self._pending_microbatches[gas:]
+        batch = {k: torch.cat([_as_tensor(m[k]) for m in micro])
+                 for k in micro[0]}
+        return self.train_batch(batch=batch)
+
+    def eval_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The loss of ``batch`` (one forward, no gradients)."""
+        mb = {k: _as_tensor(v).to(self.device) for k, v in batch.items()}
+        with torch.no_grad():
+            return self._loss(mb)
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+
+    @property
+    def config(self) -> DeepSpeedConfig:
+        return self._config
+
+    def zero_optimization_stage(self) -> int:
+        return self._config.zero_optimization_stage
+
+    def get_global_grad_norm(self) -> Optional[float]:
+        """The global (pre-clip) gradient norm of the last step; None
+        before the first and for a non-finite (skipped) one."""
+        if self._last_grad_norm is None:
+            return None
+        norm = float(self._last_grad_norm)
+        return norm if np.isfinite(norm) else None
+
+    @property
+    def loss_scale(self) -> float:
+        return 1.0 if self.loss_scaler is None else self.loss_scaler.cur_scale
+
+    def get_lr(self):
+        if self.lr_scheduler is None:
+            opt = self._config.optimizer
+            return [opt.params.get("lr", 1e-3) if opt else 1e-3]
+        return [float(self.lr_scheduler(self.optimizer.count))]
+
+    def get_skipped_steps(self) -> int:
+        return self.skipped_steps
+
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The fp32 master weights by ``state_dict`` name."""
+        return {n: p.detach() for n, p in self.master.items()}
+
+
+class _LazyLoss:
+    """The loss handle of ``engine(batch)``: reading it (``float``) runs
+    one eval forward; handing it to ``backward`` costs nothing."""
+
+    def __init__(self, engine: DeepSpeedEngine, batch):
+        self._engine = engine
+        self._batch = batch
+        self._value = None
+
+    def __float__(self):
+        if self._value is None:
+            self._value = self._engine.eval_batch(self._batch)
+        return float(self._value)
+
+    def __repr__(self):
+        return f"LazyLoss({float(self) if self._value is not None else 'unevaluated'})"
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, loss_fn=None, example_batch=None,
+               device=None) -> Tuple[DeepSpeedEngine, Any, None, Any]:
+    """Build a :class:`DeepSpeedEngine`. Returns ``(engine, optimizer,
+    None, lr_scheduler)``. ``model_parameters`` is a ``state_dict`` (the
+    JAX param tree goes through ``checkpoint.from_flax`` first); without
+    it the weights are ``model.init_params(seed=config["seed"])``, so
+    ``example_batch`` is not needed. Runs on ``cuda`` unless ``device``
+    says otherwise."""
+    if config is None and config_params is not None:
+        config = config_params
+    if config is None and args is not None and \
+            getattr(args, "deepspeed_config", None):
+        config = args.deepspeed_config
+    if optimizer is not None:
+        raise unported("a client optimizer", "the training engine's "
+                       "remaining parts (item 7)")
+    if loss_fn is not None:
+        raise unported("a custom loss_fn", "the training engine's remaining "
+                       "parts (item 7)")
+    if training_data is not None:
+        raise unported("training_data (the data loader)", "the training "
+                       "engine's remaining parts (item 7)")
+    if mpu is not None:
+        raise unported("an mpu", "the distributed and ZeRO slice (item 9)")
+    engine = DeepSpeedEngine(model, config=config,
+                             model_parameters=model_parameters,
+                             lr_scheduler=lr_scheduler, device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler

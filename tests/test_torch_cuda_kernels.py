@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops.fused_adam import fused_adam, fused_adam_plain
 from deepspeed_tpu_torch.ops.ragged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
 
@@ -22,6 +24,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -71,3 +74,76 @@ def test_ragged_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, window):
     rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
                                atol=1e-5 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Tq,Tk,causal,window", [
+    (256, 256, True, None), (200, 200, True, None), (100, 100, False, None),
+    (256, 256, True, 48), (40, 130, True, None), (130, 40, True, None)],
+    ids=["causal", "uneven", "full", "window", "tq<tk", "tq>tk"])
+def test_flash_kernels_match_plain(cuda, dtype, D, Tq, Tk, causal, window):
+    """K1 and both K2 kernels against the plain forward and backward on the
+    same inputs (rows that see no key included, for Tq > Tk)."""
+    g = torch.Generator(device=cuda).manual_seed(D + Tq)
+    B, H = 2, 3
+    q, do = (torch.randn(B, Tq, H, D, generator=g, device=cuda, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Tk, H, D, generator=g, device=cuda, dtype=dtype)
+            for _ in range(2))
+    counts = [f.launches for f in (fa.flash_attention_fwd,
+                                   fa.flash_attention_bwd_dq,
+                                   fa.flash_attention_bwd_dkv)]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, window=window)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal,
+                                                window=window)
+    dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal,
+                                   window=window)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, causal,
+                                        window=window)
+    # both backward versions from the kernel's forward: the same inputs
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.flash_attention_fwd,
+                                 fa.flash_attention_bwd_dq,
+                                 fa.flash_attention_bwd_dkv)] == \
+        [c + 1 for c in counts]
+    fp32 = dtype == torch.float32
+    tol = dict(rtol=1e-5 if fp32 else 2 ** -7, atol=1e-5 if fp32 else 2e-2)
+    torch.testing.assert_close(out.float(), ref_out.float(), **tol)
+    seen = torch.isfinite(ref_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    torch.testing.assert_close(lse[seen], ref_lse[seen], rtol=1e-5,
+                               atol=1e-4)
+    for got, want in zip((dq, dk, dv), ref):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+@pytest.mark.parametrize("write_update", [False, True])
+def test_fused_adam_kernel_matches_plain(cuda, adam_w_mode, write_update):
+    """K3 over a list of odd-sized tensors (tails, several chunks), three
+    steps with a device clip factor, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shapes = [(3,), (1000, 7), (70001,), (64, 1024), (5, 3)]
+    state = [[torch.randn(s, generator=g, device=cuda) for _ in range(4)]
+             for s in shapes]
+    for quad in state:
+        quad[3].abs_()
+    ref = [[t.clone() for t in quad] for quad in state]
+    scale = torch.tensor(0.5, device=cuda)
+    before = fused_adam.launches
+    for t in range(1, 4):
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1,
+                  adam_w_mode=adam_w_mode, step_size=1e-3 / (1 - 0.9 ** t),
+                  lr=1e-3, inv_bc2=1 / (1 - 0.999 ** t) ** 0.5,
+                  grad_scale=scale, write_update=write_update)
+        fused_adam(*zip(*state), **kw)
+        fused_adam_plain(*zip(*ref), **kw)
+    torch.cuda.synchronize()
+    assert fused_adam.launches == before + 3
+    for got, want in zip(state, ref):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

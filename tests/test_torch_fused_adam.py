@@ -1,0 +1,130 @@
+"""The port's optimizers (K3's plain version) against the JAX Pallas sweep.
+
+The same numpy-seeded params and per-step gradients go through the JAX
+``scale_by_fused_adam`` / ``scale_by_fused_lamb`` in Pallas interpret
+mode (params updated as the JAX engine does, ``p + u``) and through the
+port's ``FusedAdam`` / ``FusedLamb`` on CPU tensors, for six steps with a
+schedule lr. Tolerance: 1e-6 (relative, and absolute on values of order
+1); the two run the same fp32 element ops, with the scalars (step size,
+bias corrections) rounded once on each side.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.pallas.fused_adam import (scale_by_fused_adam,
+                                                 scale_by_fused_lamb)
+from deepspeed_tpu_torch.ops.fused_adam import fused_adam
+from deepspeed_tpu_torch.ops.optimizers import (FusedAdam, FusedLamb,
+                                                get_optimizer)
+from deepspeed_tpu_torch.runtime.lr_schedules import WarmupDecayLR
+
+SHAPES = {"w": (33, 17), "b": (17,), "e": (8200,)}
+STEPS = 6
+
+
+def _schedule():
+    return WarmupDecayLR(warmup_min_lr=1e-4, warmup_max_lr=3e-3,
+                         warmup_num_steps=3, total_num_steps=8,
+                         warmup_type="linear")
+
+
+def _trajectory(seed=0):
+    rs = np.random.RandomState(seed)
+    params = {n: rs.randn(*s).astype(np.float32) for n, s in SHAPES.items()}
+    grads = [{n: (rs.randn(*s) * 10 ** rs.uniform(-3, 1)).astype(np.float32)
+              for n, s in SHAPES.items()} for _ in range(STEPS)]
+    return params, grads
+
+
+def _run_jax(tx, params, grads):
+    params = {n: jnp.asarray(p) for n, p in params.items()}
+    state = tx.init(params)
+    for g in grads:
+        u, state = tx.update({n: jnp.asarray(x) for n, x in g.items()},
+                             state, params)
+        params = jax.tree_util.tree_map(lambda p, d: p + d, params, u)
+    return params, state
+
+
+def _run_port(opt_cls, params, grads, **kw):
+    ts = {n: torch.from_numpy(p.copy()) for n, p in params.items()}
+    opt = opt_cls(list(ts.values()), **kw)
+    for g in grads:
+        opt.step([torch.from_numpy(g[n].copy()) for n in ts])
+    return ts, opt
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False], ids=["adamw", "l2"])
+def test_fused_adam_matches_the_pallas_sweep(adam_w_mode):
+    params, grads = _trajectory()
+    sched = _schedule()
+    want, jstate = _run_jax(scale_by_fused_adam(
+        lr=lambda c: jnp.asarray(jax.pure_callback(
+            lambda s: np.float32(sched(int(s))),
+            jax.ShapeDtypeStruct((), jnp.float32), c)),
+        weight_decay=0.1, adam_w_mode=adam_w_mode, interpret=True),
+        params, grads)
+    got, opt = _run_port(FusedAdam, params, grads, lr=sched,
+                         weight_decay=0.1, adam_w_mode=adam_w_mode)
+    assert opt.count == int(jstate.count) == STEPS
+    for i, n in enumerate(SHAPES):
+        np.testing.assert_allclose(got[n].numpy(), np.asarray(want[n]),
+                                   rtol=1e-6, atol=1e-6, err_msg=n)
+        np.testing.assert_allclose(opt.exp_avg[i].numpy(),
+                                   np.asarray(jstate.mu[n]), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(opt.exp_avg_sq[i].numpy(),
+                                   np.asarray(jstate.nu[n]), rtol=1e-6,
+                                   atol=1e-9)
+
+
+def test_fused_lamb_matches_the_pallas_sweep():
+    params, grads = _trajectory(seed=1)
+    want, _ = _run_jax(scale_by_fused_lamb(lr=2e-3, weight_decay=0.01,
+                                           interpret=True), params, grads)
+    got, _ = _run_port(FusedLamb, params, grads, lr=2e-3, weight_decay=0.01)
+    for n in SHAPES:
+        np.testing.assert_allclose(got[n].numpy(), np.asarray(want[n]),
+                                   rtol=1e-6, atol=1e-6, err_msg=n)
+
+
+def test_grad_scale_multiplies_the_gradients_first():
+    """The engine's clip factor rides into the sweep as a scalar tensor:
+    a step with ``grad_scale = s`` equals a step on ``s * g``."""
+    params, grads = _trajectory(seed=2)
+    scaled = [{n: g[n] * np.float32(0.25) for n in g} for g in grads]
+    a, _ = _run_port(FusedAdam, params, scaled, lr=1e-3, weight_decay=0.1)
+    ts = {n: torch.from_numpy(p.copy()) for n, p in params.items()}
+    opt = FusedAdam(list(ts.values()), lr=1e-3, weight_decay=0.1)
+    for g in grads:
+        opt.step([torch.from_numpy(g[n].copy()) for n in ts],
+                 grad_scale=torch.tensor(0.25))
+    for n in SHAPES:
+        torch.testing.assert_close(ts[n], a[n], rtol=1e-6, atol=1e-6)
+
+
+def test_registry_and_knobs_that_raise():
+    ps = [torch.zeros(4)]
+    assert get_optimizer("Adam", ps, {"lr": 1e-3}).adam_w_mode
+    assert not get_optimizer("Adam", ps, {"adam_w_mode": False}).adam_w_mode
+    assert isinstance(get_optimizer("AdamW", ps, {"pallas": True}), FusedAdam)
+    assert isinstance(get_optimizer("Lamb", ps, {}), FusedLamb)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        get_optimizer("Adagrad", ps, {})
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        get_optimizer("OneBitAdam", ps, {})
+    with pytest.raises(ValueError, match="AMSGrad"):
+        FusedAdam(ps, amsgrad=True)
+    with pytest.raises(ValueError, match="Unknown optimizer"):
+        get_optimizer("sgd", ps, {})
+    meta = [torch.zeros(4, device="meta")]
+    before = fused_adam.launches
+    with pytest.raises(ValueError, match="not on meta"):
+        fused_adam(meta, meta, meta, meta, b1=0.9, b2=0.999, eps=1e-8,
+                   weight_decay=0.0, adam_w_mode=True, step_size=1e-3,
+                   lr=1e-3, inv_bc2=1.0)
+    assert fused_adam.launches == before

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone.
 
-``deepspeed_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor flax
-nor the JAX package (checked on the source with ``ast``: the test process
-itself imports JAX, so ``sys.modules`` proves nothing). Its entry points
+``deepspeed_tpu_torch`` and ``chip_smoke.py`` import neither JAX, flax,
+optax nor pydantic, and nothing of the JAX package (checked on the source
+with ``ast``: the test process itself imports JAX, so ``sys.modules``
+proves nothing). The card's machine has none of them installed. Its entry points
 run on CUDA unless the caller asks for the CPU, and its kernel wrapper
 raises instead of falling back when it cannot serve a call.
 """
@@ -20,7 +21,7 @@ from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.ragged_attention import ragged_paged_attention
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "flax", "deepspeed_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "pydantic", "deepspeed_tpu"}
 
 
 def _port_sources():
@@ -68,6 +69,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
         dt.init_serving(model, params=params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine_mod.resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dt.initialize(model=model, config={"train_batch_size": 2})
     srv = dt.init_serving(model, params=params, device="cpu",
                           serving_config=dt.ServingConfig(
                               block_size=8, num_blocks=8, max_model_len=32))

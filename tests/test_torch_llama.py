@@ -99,24 +99,72 @@ def test_packed_step_matches_jax(case):
 
 def test_bridge_maps_every_parameter():
     """The bridge fills the port's state_dict exactly: every key, every
-    shape (kernels transposed to Linear's [out, in])."""
-    for over, scan in ((CASES["family_knobs"], False), ({}, True)):
-        jcfg = JaxConfig.tiny(remat=False, scan_layers=scan, **over)
+    shape (kernels transposed to Linear's [out, in]). Cases: GQA scanned,
+    the family knobs unscanned, and the llama_400m layout (MHA, untied
+    head, scanned layers) at narrow width."""
+    narrow_400m = dict(hidden_size=64, intermediate_size=176,
+                       num_attention_heads=4, num_key_value_heads=4,
+                       vocab_size=320, num_hidden_layers=3)
+    for make, over, scan in ((JaxConfig.tiny, CASES["family_knobs"], False),
+                             (JaxConfig.tiny, {}, True),
+                             (JaxConfig.llama_400m, narrow_400m, True)):
+        jcfg = make(remat=False, scan_layers=scan, **over)
         params = jax.jit(JaxLlama(jcfg).init)(
             jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
-        cfg = LlamaConfig.tiny(**over)
+        cfg = getattr(LlamaConfig, make.__name__)(**over)
         sd = flax_to_torch_state_dict(jax.device_get(params), cfg)
         want = {k: tuple(v.shape)
                 for k, v in LlamaForCausalLM(cfg).state_dict().items()}
         assert {k: tuple(v.shape) for k, v in sd.items()} == want
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("remat", [False, True])
+def test_dense_training_forward_matches_jax(case, remat):
+    """The dense path: logits and the shifted-label loss of a [2, 12]
+    batch against the JAX model at 1e-4 (fp32), with the blocks run
+    directly or through the recompute wrapper."""
+    over = CASES[case]
+    jcfg = JaxConfig.tiny(remat=False, scan_layers=case != "family_knobs",
+                          **over)
+    model = JaxLlama(jcfg)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 8), jnp.int32))["params"]
+    ids = np.random.RandomState(2).randint(0, jcfg.vocab_size, (2, 12))
+    want_logits = model.apply({"params": params}, jnp.asarray(ids))
+    want_loss = model.apply({"params": params}, jnp.asarray(ids),
+                            labels=jnp.asarray(ids))
+    cfg = LlamaConfig.tiny(remat=remat, **over)
+    torch_model = LlamaForCausalLM(cfg)
+    torch_model.load_state_dict(flax_to_torch_state_dict(
+        jax.device_get(params), cfg), assign=True)
+    tids = torch.from_numpy(ids)
+    loss = torch_model(tids, labels=tids)
+    loss.backward()      # through the recompute wrapper when remat
+    with torch.no_grad():
+        logits = torch_model(tids)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
+
+
 def test_model_runs_only_the_packed_paged_step():
+    """With a cache the model runs only the packed paged mixed step; the
+    dense path takes no padding mask and only the ported remat policy."""
     cfg = LlamaConfig.tiny()
     model = LlamaForCausalLM(cfg)
     engine = init_inference(model, params=model.init_params(seed=0),
                             dtype="fp32", device="cpu")
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    pool = model.init_paged_cache(4, 8, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="packed paged mixed step"):
-        engine.module(torch.zeros((1, 4), dtype=torch.long))
+        engine.module(ids, cache=pool, cache_index=paged_cache_index(
+            np.zeros((1, 1)), np.zeros((1, 4)), np.zeros(1)))
+    with pytest.raises(NotImplementedError, match="attention_mask"):
+        engine.module(ids, labels=ids, attention_mask=torch.ones_like(ids))
+    assert engine.module(ids).shape == (1, 4, cfg.vocab_size)
     with pytest.raises(ValueError, match="mlp_activation"):
         LlamaConfig.tiny(mlp_activation="relu")
+    for knob in ({"remat_policy": "dots"}, {"loss_chunk": 64}):
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            LlamaConfig.tiny(**knob)

@@ -1,0 +1,368 @@
+"""The port's training stack against the JAX package's.
+
+- Config: the batch triangulation of both ``DeepSpeedConfig`` classes on
+  the same dicts, and every block this slice does not implement raising
+  ``NotImplementedError`` that names its ``ROADMAP.md`` queue entry.
+- LR schedules over 50 steps and the fp16 loss-scale automaton over an
+  overflow sequence, against the JAX ones (fp32 schedules at 1e-6
+  relative; the automaton exactly).
+- The engine: the flax params of ``LlamaConfig.tiny`` go to the JAX engine
+  as ``model_parameters`` and, through ``checkpoint/from_flax.py``, to the
+  port's engine; both train five steps in fp32 on the same numpy-seeded
+  batches. The JAX engine gets a one-device mesh, so it triangulates the
+  same batch as the port (the global-mean loss is the same math at any
+  data-parallel width). Tolerances: losses 1e-5 relative and final params
+  1e-4 (absolute and relative); the two differ only in fp32 summation
+  order, compounded over five Adam steps. Then ``eval_batch``, the
+  ``forward``/``backward``/``step`` micro-step API and an fp16 step that
+  overflows and is skipped.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu as ds
+from deepspeed_tpu.models import LlamaConfig as JaxConfig
+from deepspeed_tpu.models import LlamaForCausalLM as JaxLlama
+from deepspeed_tpu.parallel import topology
+from deepspeed_tpu.runtime import lr_schedules as jax_lr
+from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxDSConfig
+from deepspeed_tpu.runtime.fp16 import loss_scaler as jax_ls
+import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
+from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from deepspeed_tpu_torch.runtime import lr_schedules
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, FP16Config
+from deepspeed_tpu_torch.runtime.fp16 import loss_scaler
+
+STEPS = 5
+BATCH, SEQ = 4, 16
+
+# ---------------------------------------------------------------------------
+# config
+# ---------------------------------------------------------------------------
+
+BATCH_CONFIGS = {
+    "train": {"train_batch_size": 8},
+    "micro": {"train_micro_batch_size_per_gpu": 4},
+    "train_micro": {"train_batch_size": 8,
+                    "train_micro_batch_size_per_gpu": 2},
+    "train_gas": {"train_batch_size": 12, "gradient_accumulation_steps": 3},
+    "micro_gas": {"train_micro_batch_size_per_gpu": 2,
+                  "gradient_accumulation_steps": 4},
+    "all_auto": {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+                 "gradient_accumulation_steps": "auto"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CONFIGS))
+def test_batch_triangulation_matches_jax(case):
+    pd = BATCH_CONFIGS[case]
+    got, want = DeepSpeedConfig(dict(pd)), JaxDSConfig(dict(pd), world_size=1)
+    for key in ("train_batch_size", "train_micro_batch_size_per_gpu",
+                "gradient_accumulation_steps"):
+        assert getattr(got, key) == getattr(want, key), key
+    assert got.precision == want.precision == "fp32"
+
+
+def test_config_checks(tmp_path):
+    with pytest.raises((ValueError, AssertionError)):
+        JaxDSConfig({"train_batch_size": 8, "train_micro_batch_size_per_gpu": 3,
+                     "gradient_accumulation_steps": 2})
+    with pytest.raises(ValueError, match="train_batch_size is not equal"):
+        DeepSpeedConfig({"train_batch_size": 8,
+                         "train_micro_batch_size_per_gpu": 3,
+                         "gradient_accumulation_steps": 2})
+    with pytest.raises(ValueError, match="needs to be provided"):
+        DeepSpeedConfig({})
+    with pytest.raises(ValueError, match="unknown DeepSpeed config keys"):
+        DeepSpeedConfig({"train_batch_size": 2, "trian_batch": 1})
+    with pytest.raises(ValueError, match="fp16: unknown keys"):
+        DeepSpeedConfig({"train_batch_size": 2, "fp16": {"enable": True}})
+    with pytest.raises(ValueError, match="cannot both"):
+        DeepSpeedConfig({"train_batch_size": 2, "fp16": {"enabled": True},
+                         "bf16": {"enabled": True}})
+    path = tmp_path / "ds.json"
+    path.write_text('{"train_batch_size": 2, "train_batch_size": 4}')
+    with pytest.raises(ValueError, match="Duplicate keys"):
+        DeepSpeedConfig(str(path))
+    path.write_text(json.dumps({"train_batch_size": 4, "bf16": {
+        "enabled": True}, "gradient_clipping": "auto"}))
+    cfg = DeepSpeedConfig(str(path))
+    assert (cfg.precision, cfg.gradient_clipping) == ("bf16", 0.0)
+    assert FP16Config.from_dict({"loss_scale": "auto"}).loss_scale == 0.0
+
+
+UNPORTED = {
+    "zero_stage1": {"zero_optimization": {"stage": 1}},
+    "offload_optimizer": {"zero_optimization": {
+        "offload_optimizer": {"device": "cpu"}}},
+    "offload_param": {"zero_optimization": {"offload_param": {
+        "device": "cpu"}}},
+    "overlap_grad_sync": {"zero_optimization": {"overlap_grad_sync": True}},
+    "sparse_gradients": {"sparse_gradients": True},
+    "progressive_layer_drop": {"progressive_layer_drop": {"enabled": True}},
+    "curriculum_learning": {"curriculum_learning": {"enabled": True}},
+    "quantize_training": {"quantize_training": {"enabled": True}},
+    "compression_training": {"compression_training": {
+        "weight_quantization": {}}},
+    "pipeline": {"pipeline": {"stages": 2}},
+    "parallel": {"parallel": {"tensor": 2}},
+    "flops_profiler": {"flops_profiler": {"enabled": True}},
+    "elasticity": {"elasticity": {"enabled": True}},
+    "fault_tolerance": {"fault_tolerance": {"enabled": True}},
+    "adagrad": {"optimizer": {"type": "Adagrad", "params": {}}},
+    "onebit": {"optimizer": {"type": "OneBitAdam", "params": {}}},
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_knobs_raise(case):
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        dt.initialize(model=model, config={"train_batch_size": 2,
+                                           **UNPORTED[case]}, device="cpu")
+
+
+def test_unported_initialize_arguments_raise():
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    cfg = {"train_batch_size": 2}
+    for kw in ({"optimizer": object()}, {"loss_fn": lambda *a: 0},
+               {"training_data": [1]}, {"mpu": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+            dt.initialize(model=model, config=cfg, device="cpu", **kw)
+    engine, *_ = dt.initialize(model=model, config=cfg, device="cpu")
+    ids = np.zeros((2, 8), np.int64)
+    with pytest.raises(NotImplementedError, match="attention_mask"):
+        engine.train_batch(batch={"input_ids": ids, "labels": ids,
+                                  "attention_mask": np.ones_like(ids)})
+
+
+# ---------------------------------------------------------------------------
+# lr schedules and the loss scaler
+# ---------------------------------------------------------------------------
+
+SCHEDULES = {
+    "WarmupLR_log": ("WarmupLR", {"warmup_min_lr": 1e-5,
+                                  "warmup_max_lr": 3e-3,
+                                  "warmup_num_steps": 20}),
+    "WarmupLR_linear": ("WarmupLR", {"warmup_min_lr": 0.0,
+                                     "warmup_max_lr": 1e-3,
+                                     "warmup_num_steps": 15,
+                                     "warmup_type": "linear"}),
+    "WarmupDecayLR": ("WarmupDecayLR", {"warmup_min_lr": 1e-5,
+                                        "warmup_max_lr": 2e-3,
+                                        "warmup_num_steps": 10,
+                                        "total_num_steps": 40}),
+    "OneCycle": ("OneCycle", {"cycle_min_lr": 1e-4, "cycle_max_lr": 1e-2,
+                              "cycle_first_step_size": 12,
+                              "cycle_second_step_size": 18,
+                              "decay_step_size": 5, "decay_lr_rate": 0.3}),
+    "OneCycle_nodecay": ("OneCycle", {"cycle_min_lr": 1e-4,
+                                      "cycle_max_lr": 1e-2,
+                                      "cycle_first_step_size": 20}),
+    "LRRangeTest": ("LRRangeTest", {"lr_range_test_min_lr": 1e-4,
+                                    "lr_range_test_step_size": 7,
+                                    "lr_range_test_step_rate": 0.5}),
+    "LRRangeTest_stair": ("LRRangeTest", {"lr_range_test_min_lr": 1e-4,
+                                          "lr_range_test_step_size": 7,
+                                          "lr_range_test_staircase": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULES))
+def test_lr_schedule_matches_jax(case):
+    """50 steps; the JAX schedule computes in fp32, the port in Python
+    floats: 1e-6 relative."""
+    name, params = SCHEDULES[case]
+    got_s = lr_schedules.get_lr_schedule(name, dict(params))
+    want_s = jax_lr.get_lr_schedule(name, dict(params))
+    got = [got_s(s) for s in range(50)]
+    want = [float(want_s(s)) for s in range(50)]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
+    if name == "OneCycle":
+        np.testing.assert_allclose([got_s.get_mom(s) for s in range(50)],
+                                   [float(want_s.get_mom(s))
+                                    for s in range(50)], rtol=1e-6)
+    with pytest.raises(ValueError, match="Unknown lr schedule"):
+        lr_schedules.get_lr_schedule("Cosine", {})
+
+
+@pytest.mark.parametrize("fp16", [
+    {"initial_scale_power": 4, "loss_scale_window": 3, "hysteresis": 2},
+    {"initial_scale_power": 3, "loss_scale_window": 2, "hysteresis": 1,
+     "min_loss_scale": 2.0},
+    {"loss_scale": 128.0}], ids=["hysteresis2", "hysteresis1_min", "static"])
+def test_loss_scaler_matches_jax(fp16):
+    """The automaton over an overflow sequence with clean runs, single
+    overflows between clean steps and overflow bursts: scale, iteration
+    and hysteresis agree exactly after every step."""
+    from deepspeed_tpu.runtime.config import FP16Config as JaxFP16Config
+
+    got = loss_scaler.create_loss_scaler(FP16Config(enabled=True, **fp16))
+    want = jax_ls.create_loss_scaler(JaxFP16Config(enabled=True, **fp16))
+    overflows = [0, 0, 0, 1, 0, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 1, 1, 1, 1,
+                 1, 0, 0, 0, 0, 0, 0, 0]
+    for o in overflows:
+        got = loss_scaler.update_scale(got, bool(o))
+        want = jax_ls.update_scale(want, jnp.bool_(o))
+        assert (got.cur_scale, got.cur_iter, got.cur_hysteresis) == (
+            float(want.cur_scale), int(want.cur_iter),
+            int(want.cur_hysteresis))
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+CASES = {
+    # GQA 2, untied head; AdamW, gas 2, clipping that triggers, WarmupLR
+    "adamw_gas_clip_warmup": (
+        {},
+        {"train_batch_size": BATCH, "gradient_accumulation_steps": 2,
+         "optimizer": {"type": "AdamW",
+                       "params": {"lr": 3e-3, "weight_decay": 0.1}},
+         "scheduler": {"type": "WarmupLR",
+                       "params": {"warmup_min_lr": 1e-4,
+                                  "warmup_max_lr": 3e-3,
+                                  "warmup_num_steps": 3,
+                                  "warmup_type": "linear"}},
+         "gradient_clipping": 0.05, "steps_per_print": 0}),
+    # sliding window, tied head; Adam with L2 decay folded into the grads
+    "l2adam_window_tied": (
+        {"sliding_window": 4, "tie_word_embeddings": True},
+        {"train_batch_size": BATCH,
+         "optimizer": {"type": "Adam",
+                       "params": {"lr": 2e-3, "weight_decay": 0.05,
+                                  "adam_w_mode": False}},
+         "gradient_clipping": 1.0, "steps_per_print": 0}),
+}
+
+
+@pytest.fixture
+def one_device_mesh():
+    saved = topology.get_mesh(), topology.get_topology()
+    mesh = topology.build_mesh(devices=jax.devices()[:1])
+    yield mesh
+    topology.set_mesh(*saved)
+
+
+def _engines(over, config, mesh):
+    """The JAX engine and the port's on the same flax params."""
+    jcfg = JaxConfig.tiny(remat=False, **over)
+    params = jax.device_get(jax.jit(JaxLlama(jcfg).init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    cfg = LlamaConfig.tiny(**over)
+    jeng, *_ = ds.initialize(model=JaxLlama(jcfg), config=dict(config),
+                             model_parameters=params, mesh=mesh)
+    out = dt.initialize(model=LlamaForCausalLM(cfg), config=dict(config),
+                        model_parameters=flax_to_torch_state_dict(params, cfg),
+                        device="cpu")
+    return jeng, out, cfg
+
+
+def _batches(vocab, n=STEPS, seed=0):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, vocab, (BATCH, SEQ)).astype(np.int32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_train_trajectory_matches_the_jax_engine(case, one_device_mesh):
+    over, config = CASES[case]
+    jeng, (peng, opt, none, sched), cfg = _engines(over, config,
+                                                   one_device_mesh)
+    assert opt is peng.optimizer and none is None
+    assert sched is peng.lr_scheduler
+    assert peng.gradient_accumulation_steps == \
+        jeng.gradient_accumulation_steps
+    for ids in _batches(cfg.vocab_size):
+        want = float(jeng.train_batch(batch={"input_ids": ids,
+                                             "labels": ids}))
+        got = float(peng.train_batch(batch={"input_ids": ids,
+                                            "labels": ids}))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        np.testing.assert_allclose(peng.get_global_grad_norm(),
+                                   jeng.get_global_grad_norm(), rtol=1e-4)
+        # the clipping of both cases triggers on every step
+        assert peng.get_global_grad_norm() > config["gradient_clipping"]
+    assert peng.get_lr() == pytest.approx(jeng.get_lr(), rel=1e-6)
+    want = flax_to_torch_state_dict(jax.device_get(jeng.state.params), cfg)
+    got = peng.module_state_dict()
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_eval_batch_and_micro_step_api(one_device_mesh):
+    """``eval_batch`` against the JAX engine's (1e-5); the micro-step API
+    (``engine(mb)``, ``backward``, ``step``) takes the same optimizer step
+    as ``train_batch`` on the concatenated microbatches, bit for bit."""
+    over, config = CASES["adamw_gas_clip_warmup"]
+    jeng, (peng, *_), cfg = _engines(over, config, one_device_mesh)
+    ids = _batches(cfg.vocab_size, n=1, seed=3)[0]
+    batch = {"input_ids": ids, "labels": ids}
+    np.testing.assert_allclose(float(peng.eval_batch(batch)),
+                               float(jeng.eval_batch(batch)), rtol=1e-5)
+
+    twin, *_ = dt.initialize(model=LlamaForCausalLM(cfg), config=dict(config),
+                             model_parameters=peng.module_state_dict(),
+                             device="cpu")
+    halves = [{k: v[i * 2:(i + 1) * 2] for k, v in batch.items()}
+              for i in range(2)]
+    losses, stepped = [], []
+    for mb in halves:
+        losses.append(twin(mb))
+        twin.backward(losses[-1])
+        stepped.append(twin.step())
+    assert stepped[0] is None and stepped[1] is not None
+    assert twin.global_steps == 1 and twin.micro_steps == 2
+    want_loss = peng.train_batch(batch=batch)
+    # the lazy loss of a microbatch is one eval forward on the weights of
+    # the moment it is read
+    np.testing.assert_allclose(float(losses[0]), float(twin.eval_batch(
+        halves[0])), rtol=1e-6)
+    assert np.isfinite(float(want_loss))
+    for name, p in peng.module_state_dict().items():
+        torch.testing.assert_close(twin.module_state_dict()[name], p,
+                                   rtol=0, atol=0, msg=name)
+
+
+def test_fp16_overflow_skips_the_step(one_device_mesh):
+    """A loss scale of 2**40 overflows the fp16 backward in both engines:
+    params, optimizer state and step count stay, the skip is counted and
+    the scale automaton moves (hysteresis 2: the first overflow spends it,
+    the second halves the scale). A scale of 2**8 then trains."""
+    config = {"train_batch_size": BATCH, "steps_per_print": 0,
+              "fp16": {"enabled": True, "initial_scale_power": 40},
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+    jeng, (peng, *_), cfg = _engines({}, config, one_device_mesh)
+    before = {n: p.clone() for n, p in peng.module_state_dict().items()}
+    scales = []
+    for ids in _batches(cfg.vocab_size, n=2):
+        for eng in (jeng, peng):
+            assert np.isfinite(float(eng.train_batch(
+                batch={"input_ids": ids, "labels": ids})))
+        assert peng.get_global_grad_norm() is None
+        scales.append((peng.loss_scale, jeng.loss_scale))
+    assert scales == [(2.0 ** 40, 2.0 ** 40), (2.0 ** 39, 2.0 ** 39)]
+    assert peng.get_skipped_steps() == jeng.get_skipped_steps() == 2
+    assert peng.optimizer.count == int(jeng.state.step) == 0
+    assert all(torch.equal(peng.module_state_dict()[n], p)
+               for n, p in before.items())
+    assert all(not m.any() for m in peng.optimizer.exp_avg)
+
+    peng.loss_scaler = loss_scaler.create_loss_scaler(
+        FP16Config(enabled=True, initial_scale_power=8))
+    ids = _batches(cfg.vocab_size, n=1, seed=1)[0]
+    peng.train_batch(batch={"input_ids": ids, "labels": ids})
+    assert peng.get_skipped_steps() == 2 and peng.optimizer.count == 1
+    assert np.isfinite(peng.get_global_grad_norm())
+    assert not torch.equal(peng.module_state_dict()["model.norm.weight"],
+                           before["model.norm.weight"])

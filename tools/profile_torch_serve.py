@@ -33,15 +33,15 @@ CLASSES = (("ragged_attention", re.compile(r"ragged_kernel")),
                                  re.I)))
 
 
-def _kernel_summary(trace_path, wall_s):
+def _kernel_summary(trace_path, wall_s, classes=CLASSES):
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "kernel" and "dur" in e]
-    by_class = {name: 0.0 for name, _ in CLASSES}
+    by_class = {name: 0.0 for name, _ in classes}
     by_class["other"] = 0.0
     top = {}
     for e in events:
-        cls = next((n for n, rx in CLASSES if rx.search(e["name"])), "other")
+        cls = next((n for n, rx in classes if rx.search(e["name"])), "other")
         by_class[cls] += e["dur"] / 1e3
         top[e["name"][:80]] = top.get(e["name"][:80], 0.0) + e["dur"] / 1e3
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
