@@ -16,25 +16,40 @@ Phases, each printed on its own line; any failure exits non-zero:
    K6 ragged paged attention at the serving step's shapes; K1/K2 flash
    attention forward, dQ and dK/dV at the training step's (B 8, H 16,
    T 1024, D 64, bf16, causal), with gradients through the autograd
-   function; K3 fused Adam over the whole Llama-400M parameter list;
-4. small references: a 2-layer fp32 model served with K6 and with its
-   plain version (identical tokens), and trained 5 steps with K1/K2/K3
-   and with their plain versions (losses within 1e-4 relative);
+   function; K3 fused Adam over the whole Llama-400M parameter list; K4
+   decode attention at the generate step's shapes (B 8, H 32, Hkv 8,
+   D 128, cache 576, bf16, left-padded key masks) and an int8 cache, a
+   window and an fp32 case; K5 quantized matmul at Llama-3-8B projection
+   shapes (decode M 8 and prefill M 4096, int8 per-column and int4 group
+   64) plus fp32 and ragged cases; K8 per-column int8 matmul;
+4. small references: a 2-layer fp32 model served with K6 (and K5, with
+   int8 weights) and with their plain versions (identical tokens),
+   generating with K4/K5 and with their plain versions (identical
+   tokens; fp32, int8 and int4 weights, int8 cache, window 64), and
+   trained 5 steps with K1/K2/K3 and with their plain versions (losses
+   within 1e-4 relative);
 5. serve: init_inference + ServingEngine on full-width Llama-3-8B (random
    bf16 weights from a seed, all 32 layers), 16 seeded requests to
    completion; asserts every request finished, no logit was flagged, no
    page leaked, and the kernel ran once per layer per mixed step;
-6. train: initialize + train_batch on full-width Llama-400M (random
+6. generate: init_inference + InferenceEngine.generate on full-width
+   Llama-3-8B (random bf16 weights from seed 0), batch 8, left-padded
+   prompts of seeded lengths 128-512 (bucket 512), 64 greedy new tokens,
+   once with bf16 weights and once with quantize_weights="int8"; asserts
+   the output shape, finite logits, K4 launched 32 x 63 times and, with
+   int8 weights, K5 launched 7 x 32 x 64 times;
+7. train: initialize + train_batch on full-width Llama-400M (random
    weights from seed 0, all 24 layers), the JAX package's bench config
    (batch 8 x 1024, AdamW, bf16, clipping 1.0), 2 warm-up and 10 timed
    steps on one batch; asserts finite, falling losses and the launch
    counts of K1 (forward and recompute), K2 and K3;
-7. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
+8. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
+import contextlib
 import gc
 import json
 import statistics
@@ -461,11 +476,248 @@ def check_fused_adam():
 
 
 # ---------------------------------------------------------------------------
+# kernel K4: decode attention over the contiguous cache
+# ---------------------------------------------------------------------------
+
+# the generate step's attention: Llama-3-8B heads, batch 8, prompts
+# bucketed to 512 plus 64 new tokens
+GEN_B, GEN_PROMPT, GEN_NEW = 8, 512, 64
+DECODE_MAIN = "c575"
+DECODE_CASES = {
+    # name: (B, H, Hkv, S, D, dtype, int8 cache, window, cache_index)
+    "c0": (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D, torch.bfloat16, False,
+           None, 0),
+    "c15": (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D, torch.bfloat16, False,
+            None, 15),
+    "c300": (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D, torch.bfloat16, False,
+             None, 300),
+    DECODE_MAIN: (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D, torch.bfloat16,
+                  False, None, 575),
+    "int8_c575": (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D, torch.bfloat16,
+                  True, None, 575),
+    "window256_c575": (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D,
+                       torch.bfloat16, False, 256, 575),
+    "fp32_d64_g1_c777": (4, 8, 8, 1000, 64, torch.float32, False, None, 777),
+}
+
+
+def decode_case(B, Hq, Hkv, S, Dh, dtype, int8, seed):
+    """q, caches and a key mask with seeded left-padding holes (each row's
+    first 0-199 positions masked)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Hq, Dh), generator=g, device="cuda", dtype=dtype)
+    shape = (B, Hkv, S, Dh)
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+        scales = {n: torch.rand(shape[:3], generator=g, device="cuda") / 64
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+                for _ in range(2))
+        scales = {}
+    pads = np.random.RandomState(seed).randint(0, 200, B)
+    mask = (np.arange(S)[None] >= pads[:, None]).astype(np.int32)
+    return q, k, v, torch.from_numpy(mask).cuda(), scales
+
+
+def decode_bound(mask, Hq, Hkv, Dh, elem, int8, window, cidx, q_elem):
+    """``(ms, "bytes" | "operations")``: the K/V (and scales) of the keys
+    each row can see (inside the filled prefix or window and not masked)
+    read once per kv head, the mask's prefix, q and the output, over HBM
+    bandwidth; 4 D FLOPs per (query head, visible key) at the bf16 peak."""
+    B, S = mask.shape
+    hi = min(cidx, S - 1)
+    lo = 0 if window is None else max(0, cidx - window + 1)
+    prefix = max(0, hi - lo + 1)
+    keys = int((mask[:, lo:hi + 1] > 0).sum()) if prefix else 0
+    nbytes = Hkv * keys * (2 * Dh * elem + (8 if int8 else 0)) \
+        + B * prefix * 4 + 2 * B * Hq * Dh * q_elem
+    return bound(nbytes, 4 * Hq * Dh * keys, BF16_FLOP_PER_S)
+
+
+def check_decode_attention():
+    """K4 against its plain version. Tolerance: fp32 1e-5 (summation
+    order only); bf16 |kernel - plain| <= 2**-7 * |plain| + 1e-3 (both are
+    bf16 roundings of fp32 results that differ only in summation order:
+    one bf16 ulp). Library yardstick: SDPA over the filled prefix with a
+    boolean key mask and enable_gqa, for the bf16 cases without a window
+    or int8 cache."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain)
+
+    results = {}
+    for name, (B, Hq, Hkv, S, Dh, dtype, int8, window, cidx) in \
+            DECODE_CASES.items():
+        q, k, v, mask, scales = decode_case(B, Hq, Hkv, S, Dh, dtype, int8,
+                                            seed=len(results) + 11)
+        ci = torch.tensor(cidx, dtype=torch.int32, device="cuda")
+        kw = dict(key_mask=mask, window=window, **scales)
+        got = decode_attention(q, k, v, ci, **kw)
+        ref = decode_attention_plain(q, k, v, ci, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else \
+            (2 ** -7, 1e-3)
+        if not bool((err <= rtol * ref.float().abs() + atol).all()):
+            raise AssertionError(f"decode_attention {name} disagrees with "
+                                 f"its plain version (max |err| "
+                                 f"{float(err.max()):.3e})")
+        ms = cuda_time_ms(lambda: decode_attention(q, k, v, ci, **kw))
+        plain_ms = cuda_time_ms(
+            lambda: decode_attention_plain(q, k, v, ci, **kw), reps=5,
+            warmup=1)
+        library_ms = None
+        if dtype == torch.bfloat16 and window is None and not int8:
+            n = min(cidx, S - 1) + 1
+            q4 = q[:, :, None]
+            kf, vf = k[:, :, :n], v[:, :, :n]
+            am = (mask[:, :n] > 0)[:, None, None, :]
+            library_ms = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q4, kf, vf, attn_mask=am, enable_gqa=True))
+        bms, by = decode_bound(mask, Hq, Hkv, Dh, k.element_size(), int8,
+                               window, cidx, q.element_size())
+        results[name] = dict(max_abs_err=float(err.max()), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=library_ms)
+        log(f"parity decode_attention {name} (B {B} H {Hq} Hkv {Hkv} S {S} "
+            f"D {Dh} {str(dtype)[6:]} int8 {int8} window {window} "
+            f"cache_index {cidx}): ok max_abs_err={float(err.max()):.3e} "
+            f"(tolerance {rtol:g}*|plain|+{atol:g}) | kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={bms:.4f} ({by}) "
+            f"library_ms={library_ms}")
+        del q, k, v, mask, scales, got, ref
+    return results
+
+
+# ---------------------------------------------------------------------------
+# kernels K5 and K8: quantized matmuls
+# ---------------------------------------------------------------------------
+
+# Llama-3-8B projections: gate/up (4096 -> 14336), down (14336 -> 4096),
+# q/o (4096 -> 4096); decode M = batch 8, prefill M = 8 x 512
+QUANT_MAIN = "decode_up_int8"
+QUANT_CASES = {
+    # name: (M, K, N, mode, group, dtype)
+    "decode_up_int8": (8, 4096, 14336, "int8", 0, torch.bfloat16),
+    "decode_up_int4g64": (8, 4096, 14336, "int4", 64, torch.bfloat16),
+    "decode_down_int8": (8, 14336, 4096, "int8", 0, torch.bfloat16),
+    "decode_down_int4g64": (8, 14336, 4096, "int4", 64, torch.bfloat16),
+    "prefill_q_int8": (4096, 4096, 4096, "int8", 0, torch.bfloat16),
+    "prefill_q_int4g64": (4096, 4096, 4096, "int4", 64, torch.bfloat16),
+    "fp32_m8_int4g64": (8, 4096, 4096, "int4", 64, torch.float32),
+    "fp32_m300_int8g128": (300, 4096, 1024, "int8", 128, torch.float32),
+    "ragged_m8_int4g8": (8, 264, 1000, "int4", 8, torch.bfloat16),
+    "ragged_m37_int8": (37, 264, 1000, "int8", 0, torch.bfloat16),
+}
+INT8_COL_MAIN = "decode_up"
+INT8_COL_CASES = {
+    # name: (M, K, N, dtype)
+    "decode_up": (8, 4096, 14336, torch.bfloat16),
+    "prefill_q": (4096, 4096, 4096, torch.bfloat16),
+    "ragged_m37_fp32": (37, 264, 1000, torch.float32),
+}
+
+
+def _matmul_tolerance(x, w, dtype):
+    """Per-element bound on |kernel - plain|: a reordered fp32 sum of K
+    products errs by far less than 1e-5 of the sum of their magnitudes
+    (|x| @ |W|); a bf16 output adds one bf16 ulp (2**-7 |plain|), as both
+    sides round nearly equal fp32 sums."""
+    mag = x.float().abs() @ w.float().abs()
+    return mag * 1e-5, 2 ** -7 if dtype == torch.bfloat16 else 0.0
+
+
+def check_quant_matmul():
+    """K5 against its plain version at Llama-3-8B projection shapes (and
+    fp32, ragged cases), then K8 likewise. Library yardstick: torch.matmul
+    on the pre-dequantized weight in x's type (it reads 2x the int8 or 4x
+    the int4 weight bytes)."""
+    from deepspeed_tpu_torch.ops import quant_matmul as qm
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    results = {}
+    for name, (M, K, N, mode, group, dtype) in QUANT_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(len(results) + 21)
+        x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
+        w = torch.randn((K, N), generator=g, device="cuda") * 0.02
+        codes, scale = qm.quantize_linear_weight(w, mode, group)
+        del w
+        got = qm.quant_matmul(x, codes, scale, mode)
+        ref = qm.quant_matmul_plain(x, codes, scale, mode)
+        wd = qm.dequantize_linear_weight(codes, scale, mode, dtype)
+        abs_tol, rel = _matmul_tolerance(x, wd, dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= rel * ref.float().abs() + abs_tol).all()):
+            raise AssertionError(f"quant_matmul {name} disagrees with its "
+                                 f"plain version (max |err| "
+                                 f"{float(err.max()):.3e})")
+        del abs_tol
+        ms = cuda_time_ms(lambda: qm.quant_matmul(x, codes, scale, mode))
+        plain_ms = cuda_time_ms(
+            lambda: qm.quant_matmul_plain(x, codes, scale, mode), reps=5,
+            warmup=1)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, wd))
+        nbytes = codes.numel() + scale.numel() * 4 \
+            + (M * K + M * N) * x.element_size()
+        bms, by = bound(nbytes, 2 * M * K * N,
+                        BF16_FLOP_PER_S if dtype == torch.bfloat16
+                        else FP32_FLOP_PER_S)
+        results[name] = dict(max_abs_err=float(err.max()), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=library_ms)
+        log(f"parity quant_matmul {name} (M {M} K {K} N {N} {mode} group "
+            f"{K // scale.shape[0]} {str(dtype)[6:]}): ok max_abs_err="
+            f"{float(err.max()):.3e} (tolerance {rel:g}*|plain|+1e-5*"
+            f"(|x|@|W|)) | kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={bms:.4f} ({by}) library_ms={library_ms:.4f} "
+            f"(torch.matmul on the pre-dequantized weight)")
+        del x, codes, scale, got, ref, wd
+    col = {}
+    for name, (M, K, N, dtype) in INT8_COL_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(len(col) + 41)
+        x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
+        codes, scale = qm.quantize_weight_per_col(
+            torch.randn((K, N), generator=g, device="cuda") * 0.02)
+        got = qm.int8_matmul(x, codes, scale)
+        ref = qm.int8_matmul_plain(x, codes, scale)
+        wd = (codes.float() * scale).to(dtype)
+        abs_tol, rel = _matmul_tolerance(x, wd, dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= rel * ref.float().abs() + abs_tol).all()):
+            raise AssertionError(f"int8_matmul {name} disagrees with its "
+                                 f"plain version (max |err| "
+                                 f"{float(err.max()):.3e})")
+        ms = cuda_time_ms(lambda: qm.int8_matmul(x, codes, scale))
+        plain_ms = cuda_time_ms(lambda: qm.int8_matmul_plain(x, codes, scale),
+                                reps=5, warmup=1)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, wd))
+        nbytes = codes.numel() + N * 4 + (M * K + M * N) * x.element_size()
+        bms, by = bound(nbytes, 2 * M * K * N,
+                        BF16_FLOP_PER_S if dtype == torch.bfloat16
+                        else FP32_FLOP_PER_S)
+        col[name] = dict(max_abs_err=float(err.max()), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=library_ms)
+        log(f"parity int8_matmul {name} (M {M} K {K} N {N} "
+            f"{str(dtype)[6:]}): ok max_abs_err={float(err.max()):.3e} | "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
+            f"{bms:.4f} ({by}) library_ms={library_ms:.4f}")
+        del x, codes, scale, got, ref, wd
+    return results, col
+
+
+# ---------------------------------------------------------------------------
 # the serving path
 # ---------------------------------------------------------------------------
 
 def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
-          dtype, device="cuda"):
+          dtype, device="cuda", quantize_weights=None):
     """init_inference + ServingEngine on ``cfg`` with seeded random
     weights; serves seeded traffic to completion and returns the engine,
     the request ids, the outputs, the wall time and the kernel launches
@@ -477,7 +729,8 @@ def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
     model = LlamaForCausalLM(cfg)
     params = model.init_params(seed=params_seed, dtype=dtype, device=device)
     engine = dt.init_inference(model, params=params, dtype=dtype,
-                               device=device)
+                               device=device,
+                               quantize_weights=quantize_weights)
     srv = dt.ServingEngine(engine, dt.ServingConfig(**scfg))
     rs = np.random.RandomState(params_seed)
     rids = []
@@ -495,42 +748,216 @@ def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
     return srv, rids, res, wall, ragged_paged_attention.launches
 
 
+#: the small fp32 reference model: 2 layers, head_dim 128, GQA group 2
+SMALL_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                 num_hidden_layers=2, num_attention_heads=2,
+                 num_key_value_heads=1)
+
+
+class plain_route:
+    """Inside the block, the model's kernel wrappers are swapped for their
+    plain versions (K6, K4 and K5 calls run the plain PyTorch code)."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.models import layers as layers_mod
+        from deepspeed_tpu_torch.models import llama as llama_mod
+        from deepspeed_tpu_torch.ops import decode_attention as da
+        from deepspeed_tpu_torch.ops import quant_matmul as qm
+        from deepspeed_tpu_torch.ops import ragged_attention as ra
+
+        self.saved = [(llama_mod, "ragged_paged_attention",
+                       ra.ragged_paged_attention_plain),
+                      (llama_mod, "decode_attention",
+                       da.decode_attention_plain),
+                      (layers_mod, "quant_matmul", qm.quant_matmul_plain)]
+        self.saved = [(mod, name, getattr(mod, name), plain)
+                      for mod, name, plain in self.saved]
+        for mod, name, _, plain in self.saved:
+            setattr(mod, name, plain)
+
+    def __exit__(self, *exc):
+        for mod, name, kernel, _ in self.saved:
+            setattr(mod, name, kernel)
+
+
 def check_small_reference():
     """The same seeded traffic through a 2-layer model (head_dim 128, GQA
-    group 2) in fp32, once as shipped (the kernel) and once with the
-    model's attention swapped for the plain version: greedy tokens must
-    be identical (the two differ by fp32 summation order)."""
+    group 2) in fp32, with fp32 and with int8 weights, each once as
+    shipped (the kernels) and once with the model's kernel wrappers
+    swapped for their plain versions: greedy tokens must be identical
+    (the two differ by fp32 summation order)."""
     from deepspeed_tpu_torch.models import LlamaConfig
-    from deepspeed_tpu_torch.models import llama as llama_mod
-    from deepspeed_tpu_torch.ops.ragged_attention import \
-        ragged_paged_attention_plain
+    from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
 
-    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
-                      num_hidden_layers=2, num_attention_heads=2,
-                      num_key_value_heads=1)
-    kernel = llama_mod.ragged_paged_attention
-    tokens, launches = {}, {}
-    for attention in ("kernel", "plain"):
-        llama_mod.ragged_paged_attention = kernel \
-            if attention == "kernel" else ragged_paged_attention_plain
-        try:
-            srv, rids, res, _, launches[attention] = serve(
-                cfg, 3, 6, (5, 90), (4, 12),
-                dict(max_batch_size=4, block_size=16, num_blocks=64,
-                     max_model_len=128, prefill_token_budget=32),
-                torch.float32)
-        finally:
-            llama_mod.ragged_paged_attention = kernel
-        tokens[attention] = [(res[r].state, res[r].tokens) for r in rids]
-    ok = tokens["kernel"] == tokens["plain"] and \
-        all(s == "finished" for s, _ in tokens["kernel"]) and \
-        launches["kernel"] > 0 and launches["plain"] == 0
-    log(f"reference: 2-layer fp32 model, kernel vs plain attention, "
-        f"{len(tokens['kernel'])} requests: tokens identical={ok} "
-        f"(kernel launches {launches['kernel']} / {launches['plain']})")
-    if not ok:
-        raise AssertionError("kernel and plain attention served different "
-                             "tokens on the small fp32 model")
+    cfg = LlamaConfig(**SMALL_CFG)
+    for weights in (None, "int8"):
+        tokens, launches = {}, {}
+        for route in ("kernel", "plain"):
+            quant_matmul.launches = 0
+            with plain_route() if route == "plain" else \
+                    contextlib.nullcontext():
+                srv, rids, res, _, k6 = serve(
+                    cfg, 3, 6, (5, 90), (4, 12),
+                    dict(max_batch_size=4, block_size=16, num_blocks=64,
+                         max_model_len=128, prefill_token_budget=32),
+                    torch.float32, quantize_weights=weights)
+            launches[route] = (k6, quant_matmul.launches)
+            tokens[route] = [(res[r].state, res[r].tokens) for r in rids]
+        ok = tokens["kernel"] == tokens["plain"] and \
+            all(s == "finished" for s, _ in tokens["kernel"]) and \
+            launches["kernel"][0] > 0 and \
+            (launches["kernel"][1] > 0) == (weights is not None) and \
+            launches["plain"] == (0, 0)
+        log(f"reference: 2-layer fp32 model served, weights "
+            f"{weights or 'fp32'}, kernels vs plain versions, "
+            f"{len(tokens['kernel'])} requests: tokens identical={ok} "
+            f"(K6, K5 launches {launches['kernel']} / {launches['plain']})")
+        if not ok:
+            raise AssertionError(f"kernels and plain versions served "
+                                 f"different tokens on the small fp32 model "
+                                 f"(weights {weights or 'fp32'})")
+
+
+# ---------------------------------------------------------------------------
+# the dense generate path
+# ---------------------------------------------------------------------------
+
+def left_padded_prompts(vocab, batch, lo, hi, seed):
+    """``(ids, mask)`` int numpy ``[batch, max_len]``: seeded prompt
+    lengths in ``[lo, hi]``, left-padded with 0 (mask 0)."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(lo, hi + 1, batch)
+    T = int(lens.max())
+    ids = np.zeros((batch, T), np.int64)
+    mask = np.zeros((batch, T), np.int32)
+    for b, n in enumerate(lens):
+        ids[b, T - n:] = rs.randint(1, vocab, n)
+        mask[b, T - n:] = 1
+    return ids, mask
+
+
+def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
+                 device="cuda", kv_cache_int8=False):
+    """init_inference on seeded random weights (seed 0), two ``generate``
+    calls of one token (prefill and the first sample; the first pays the
+    engine's first-use costs, the second's time is the prefill's), then
+    the counted ``generate``: the kernel counts are set to 0 just before
+    it. Returns the tokens, the engine, the prefill and total seconds, the
+    launches of K4 and K5 in the counted run, and whether every logit of
+    it was finite."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
+
+    model = LlamaForCausalLM(cfg)
+    params = model.init_params(seed=0, dtype=dtype, device=device)
+    engine = dt.init_inference(model, params=params, dtype=dtype,
+                               device=device,
+                               quantize_weights=quantize_weights,
+                               kv_cache_int8=kv_cache_int8)
+    del params
+    finite = []
+    engine.module.register_forward_hook(
+        lambda mod, args, out: finite.append(torch.isfinite(out[0]).all()))
+    engine.generate(ids, attention_mask=mask, max_new_tokens=1)
+    engine.profile_model_time()
+    engine.generate(ids, attention_mask=mask, max_new_tokens=1)
+    finite.clear()
+    decode_attention.launches = quant_matmul.launches = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = engine.generate(ids, attention_mask=mask,
+                          max_new_tokens=max_new_tokens)
+    prefill_s, total_s = engine.model_times()
+    return out, engine, prefill_s, total_s, \
+        (decode_attention.launches, quant_matmul.launches), \
+        bool(torch.stack(finite).all())
+
+
+def check_small_generate_reference(device="cuda"):
+    """A 2-layer fp32 model (head_dim 128, GQA group 2) generating 24
+    greedy tokens for 4 left-padded prompts, once through the kernels and
+    once with the model's kernel wrappers swapped for their plain
+    versions: tokens must be identical (fp32 summation order is the only
+    difference), the kernel route must launch K4 (and K5 with quantized
+    weights), the plain route nothing. Cases: fp32 weights, int8 and int4
+    weights, an int8 cache, window 64."""
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    ids, mask = left_padded_prompts(SMALL_CFG["vocab_size"], 4, 5, 90, 7)
+    cases = {"fp32": ({}, {}), "int8": ({}, {"quantize_weights": "int8"}),
+             "int4": ({}, {"quantize_weights": "int4"}),
+             "kv_int8": ({}, {"kv_cache_int8": True}),
+             "window64": ({"sliding_window": 64}, {})}
+    for name, (over, kw) in cases.items():
+        cfg = LlamaConfig(**SMALL_CFG, **over)
+        got = {}
+        for route in ("kernel", "plain"):
+            with plain_route() if route == "plain" else \
+                    contextlib.nullcontext():
+                out, _, _, _, launches, finite = generate_run(
+                    cfg, torch.float32, kw.get("quantize_weights"), ids,
+                    mask, 24, device=device,
+                    kv_cache_int8=kw.get("kv_cache_int8", False))
+            got[route] = (out.cpu().tolist(), launches, finite)
+        quant = "quantize_weights" in kw
+        ok = got["kernel"][0] == got["plain"][0] and got["kernel"][2] and \
+            got["kernel"][1][0] > 0 and \
+            (got["kernel"][1][1] > 0) == quant and got["plain"][1] == (0, 0)
+        log(f"reference: 2-layer fp32 model generate {name}, kernels vs "
+            f"plain versions, 4 prompts x 24 tokens: tokens identical="
+            f"{got['kernel'][0] == got['plain'][0]} ok={ok} (K4, K5 "
+            f"launches {got['kernel'][1]} / {got['plain'][1]})")
+        if not ok:
+            raise AssertionError(f"small generate {name}: kernels and plain "
+                                 f"versions disagree or a route launched "
+                                 f"the wrong kernels")
+
+
+def check_generate():
+    """Full-width Llama-3-8B (all 32 layers, random bf16 weights from seed
+    0) through init_inference -> generate: batch 8, left-padded prompts of
+    seeded lengths 128-512 (bucketed to 512), 64 greedy new tokens, no
+    EOS; once with bf16 weights and once with int8 weights."""
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b()
+    L = cfg.num_hidden_layers
+    ids, mask = left_padded_prompts(cfg.vocab_size, GEN_B, 128, GEN_PROMPT,
+                                    0)
+    launches = {}
+    for weights in (None, "int8"):
+        t = time.perf_counter()
+        out, engine, prefill_s, total_s, (k4, k5), finite = generate_run(
+            cfg, torch.bfloat16, weights, ids, mask, GEN_NEW)
+        setup = time.perf_counter() - t - prefill_s - total_s
+        decode_ms = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"generate: llama3_8b x{L} layers, weights {weights or 'bf16'}, "
+            f"batch {GEN_B}, prompts {int(mask.sum(1).min())}-"
+            f"{int(mask.sum(1).max())} tokens (bucket {GEN_PROMPT}), "
+            f"{GEN_NEW} new tokens: prefill {1e3 * prefill_s:.2f} ms, mean "
+            f"decode step {decode_ms:.3f} ms, total {1e3 * total_s:.2f} ms "
+            f"= {GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
+            f"{peak:.1f} GiB, setup {setup:.1f} s, launches K4 {k4} K5 {k5}, "
+            f"quant {engine.quant_summary or None}")
+        want = (L * (GEN_NEW - 1), 7 * L * GEN_NEW if weights else 0)
+        problems = []
+        if tuple(out.shape) != (GEN_B, GEN_NEW):
+            problems.append(f"output shape {tuple(out.shape)}")
+        if not finite:
+            problems.append("a logit is not finite")
+        if (k4, k5) != want:
+            problems.append(f"launches K4, K5 {(k4, k5)} != {want}")
+        if problems:
+            raise AssertionError(f"generate ({weights or 'bf16'}): "
+                                 + "; ".join(problems))
+        launches[weights or "bf16"] = (k4, k5)
+        del out, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
 
 
 def check_serving():
@@ -740,9 +1167,15 @@ def main() -> int:
     ragged = check_ragged_attention()
     flash = check_flash_attention()
     adam = check_fused_adam()
+    decode = check_decode_attention()
+    quant, int8_col = check_quant_matmul()
     check_small_reference()
+    check_small_generate_reference()
     check_small_train_reference()
     serve_launches = check_serving()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen_launches = check_generate()
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = check_training()
@@ -773,6 +1206,22 @@ def main() -> int:
         source="deepspeed_tpu_torch/csrc/fused_adam.cu",
         replaces="deepspeed_tpu/ops/pallas/fused_adam.py:37",
         launches=train_launches["fused_adam"], **adam))
+    # K4 and K5: launches of the int8-weight 8B generate (K4 runs the same
+    # count in the bf16 run); K8 has no path to run on
+    for name, csrc, replaces, results, main_name, launches in (
+            ("decode_attention", "decode_attention", "decode_attention.py:36",
+             decode, DECODE_MAIN, gen_launches["int8"][0]),
+            ("quant_matmul", "quant_matmul", "quant_matmul.py:151", quant,
+             QUANT_MAIN, gen_launches["int8"][1]),
+            ("int8_matmul", "quant_matmul", "int8_matmul.py:41", int8_col,
+             INT8_COL_MAIN, 0)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"deepspeed_tpu_torch/csrc/{csrc}.cu",
+            replaces=f"deepspeed_tpu/ops/pallas/{replaces}",
+            launches=launches,
+            **dict(results[main_name], max_abs_err=max(
+                r["max_abs_err"] for r in results.values()))))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of deepspeed_tpu.
 
-Two paths are ported. Serving: Llama-family models through the
+Three paths are ported. Serving: Llama-family models through the
 continuous-batching engine's unified mixed step on a hand-written ragged
-paged-attention CUDA kernel. Training: ``initialize`` -> ``train_batch``
-on one device, with hand-written flash-attention (forward and backward)
-and fused-Adam CUDA kernels. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+paged-attention CUDA kernel. Dense generation: ``init_inference`` ->
+``InferenceEngine.generate`` over a contiguous KV cache, on hand-written
+decode-attention and, with ``quantize_weights`` ("int8" / "int4"),
+quantized-matmul CUDA kernels (the serving step takes quantized weights
+too). Training: ``initialize`` -> ``train_batch`` on one device, with
+hand-written flash-attention (forward and backward) and fused-Adam CUDA
+kernels. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from .inference.engine import init_inference  # noqa: F401

@@ -9,7 +9,11 @@ params); nothing here imports JAX. Layout of the tree:
   ``[out, in]``; a Dense ``bias`` and an RMSNorm ``scale`` map as they are;
 - ``model/embed_tokens/embedding`` is ``[V, hidden]``, like
   ``nn.Embedding.weight``;
-- ``lm_head/kernel`` is absent with tied embeddings.
+- ``lm_head/kernel`` is absent with tied embeddings;
+- a quantized tree (the JAX ``quantize_param_tree``'s output) holds int8
+  or packed-int4 codes under a projection's ``kernel`` and fp32 scales
+  under its ``wscale``: they map to ``qweight`` (NOT transposed: the codes
+  keep the ``[K, N]`` layout ``QuantLinear`` reads) and ``wscale``.
 """
 
 from typing import Any, Dict
@@ -50,8 +54,13 @@ def flax_to_torch_state_dict(params_np: Dict[str, Any],
         for group, names in _PROJ.items():
             for name in names:
                 dense = layer[group][name]
-                sd[f"{pre}{group}.{name}.weight"] = _t(dense["kernel"]).T \
-                    .contiguous()
+                if "wscale" in dense:
+                    sd[f"{pre}{group}.{name}.qweight"] = _t(dense["kernel"])
+                    sd[f"{pre}{group}.{name}.wscale"] = \
+                        _t(dense["wscale"]).float()
+                else:
+                    sd[f"{pre}{group}.{name}.weight"] = \
+                        _t(dense["kernel"]).T.contiguous()
                 if "bias" in dense:
                     sd[f"{pre}{group}.{name}.bias"] = _t(dense["bias"])
     if not config.tie_word_embeddings:

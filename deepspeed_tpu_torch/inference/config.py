@@ -2,8 +2,8 @@
 
 Counterpart of ``deepspeed_tpu/inference/config.py``: the keyword surface
 of ``init_inference``. ``dtype`` resolves to a torch dtype. Knobs that
-this slice of the port does not implement raise ``NotImplementedError``
-naming the slice that brings them (ROADMAP.md Queue 1).
+this port does not implement yet raise ``NotImplementedError`` naming the
+slice that brings them (ROADMAP.md Queue 1).
 """
 
 import dataclasses
@@ -36,29 +36,58 @@ class DeepSpeedInferenceConfig:
     mp_size: int = 1
     dtype: Any = None
     checkpoint: Optional[str] = None
+    #: static KV-cache capacity (accepted as in the JAX package; generate
+    #: sizes its cache from the request)
+    max_out_tokens: int = 1024
     #: legacy grouped int8 weight quantization
     quantize: bool = False
-    #: int8 KV pool: absmax-quantized per (position, kv head) at append,
-    #: dequantized per page inside the attention kernel
+    #: with the legacy quantize: dequantize inside the decode loop
+    dequant_per_step: bool = False
+    #: int8 KV cache / pool: absmax-quantized per (position, kv head) at
+    #: append, dequantized per tile inside the attention kernels
     kv_cache_int8: bool = False
-    #: quantized projection weights ("int8" | "int4" | None)
+    #: quantized projection weights ("int8" | "int4" | None): quantized at
+    #: init_inference (inference/quant.py), multiplied by kernel K5
     quantize_weights: Optional[str] = None
+    #: scale-group length along K for quantize_weights (0 = per-column for
+    #: int8, 64 for int4)
+    quantize_group_size: int = 0
     #: int8 payloads for the tensor-parallel all-reduce
     quantized_collectives: bool = False
+    #: bucket generate() shapes to powers of two (prompts left-padded, new
+    #: tokens over-generated and trimmed)
+    bucket_shapes: bool = True
+    #: shapes <= this run exactly; larger ones pad to the next power of two
+    bucket_min: int = 8
+    #: "while" stops decoding the step every row has emitted EOS (with an
+    #: eos_token_id); "scan" always runs every step
+    decode_loop: str = "while"
 
     def __post_init__(self):
+        if self.decode_loop not in ("while", "scan"):
+            raise ValueError(f"decode_loop must be 'while' or 'scan', got "
+                             f"{self.decode_loop!r}")
+        if self.quantize_weights not in (None, "int8", "int4"):
+            raise ValueError(
+                f"quantize_weights must be None, 'int8' or 'int4', got "
+                f"{self.quantize_weights!r}")
         self.dtype = resolve_dtype(self.dtype)
         if self.mp_size != 1:
             raise NotImplementedError(
                 "mp_size > 1 (tensor parallelism) arrives with the "
-                "distributed slice of the port (ROADMAP.md Queue 1)")
-        if self.quantize or self.dtype == torch.int8 or \
-                self.quantize_weights or self.quantized_collectives:
+                "distributed slice of the port (ROADMAP.md Queue 1, item 9)")
+        if self.quantize or self.dtype == torch.int8 or self.dequant_per_step:
             raise NotImplementedError(
-                "quantize / dtype=int8 / quantize_weights / "
-                "quantized_collectives arrive with the quantized-inference "
-                "slice of the port (ROADMAP.md Queue 1)")
+                "the legacy grouped quantize / dtype=int8 / "
+                "dequant_per_step arrive with the legacy-quantization slice "
+                "of the port (ROADMAP.md Queue 1, item 2); use "
+                "quantize_weights")
+        if self.quantized_collectives:
+            raise NotImplementedError(
+                "quantized_collectives arrives with the distributed slice "
+                "of the port (ROADMAP.md Queue 1, item 9)")
         if self.checkpoint is not None:
             raise NotImplementedError(
-                "checkpoint= arrives with the checkpoint slice of the port "
-                "(ROADMAP.md Queue 1); pass params= (a state_dict)")
+                "checkpoint= arrives with the module-injection slice of the "
+                "port (ROADMAP.md Queue 1, item 4); pass params= (a "
+                "state_dict)")

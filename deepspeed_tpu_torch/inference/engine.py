@@ -1,15 +1,25 @@
 """Inference engine: a model definition bound to its weights on one device.
 
-Counterpart of ``deepspeed_tpu/inference/engine.py`` for the serving
-path: ``init_inference`` casts the params to ``dtype``, binds them to the
-model on the chosen device, and hands the engine to the serving layer.
-The entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; without a CUDA device they raise rather than quietly
-running on the CPU.
+Counterpart of ``deepspeed_tpu/inference/engine.py``: ``init_inference``
+quantizes the projection weights when ``quantize_weights`` asks for it,
+casts the rest to ``dtype``, and binds them to the model on the chosen
+device. The engine runs the dense forward (``forward``), autoregressive
+generation over a contiguous KV cache (``generate``), and hands itself to
+the serving layer. The entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; without a CUDA device they raise rather than
+quietly running on the CPU.
+
+PyTorch runs eagerly, so ``generate`` is a Python loop of one prefill and
+one forward per new token where the JAX engine compiles one program per
+shape bucket; the bucketing itself (pow2 prompt and token counts above
+``bucket_min``) is kept, so both engines see the same shapes and pads.
 """
 
-from typing import Dict, Optional
+import dataclasses
+import time
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -61,26 +71,189 @@ def _sample_logits(logits, generator: Optional[torch.Generator],
 
 
 class InferenceEngine:
-    """A model with its weights cast to ``config.dtype`` on ``device``.
-    Construct via :func:`init_inference`."""
+    """A model with its weights (quantized where asked, the rest cast to
+    ``config.dtype``) on ``device``. Construct via :func:`init_inference`."""
 
     def __init__(self, module: nn.Module, params: Dict[str, torch.Tensor],
                  config: DeepSpeedInferenceConfig, device=None):
         self.device = resolve_device(device)
         self.config = config
         dtype = config.dtype
-        cast = {name: p.to(device=self.device,
-                           dtype=dtype if p.is_floating_point() else p.dtype)
-                for name, p in params.items()}
-        module.load_state_dict(cast, strict=True, assign=True)
+        self.quant_report = None
+        self.quant_summary: Dict[str, Any] = {}
+        qw = config.quantize_weights
+        if qw:
+            from .quant import quant_report_summary, quantize_state_dict
+
+            mcfg = getattr(module, "config", None)
+            if not dataclasses.is_dataclass(mcfg) or \
+                    not hasattr(mcfg, "quantize_weights") or \
+                    not hasattr(module, "quantizable_projections"):
+                raise ValueError(
+                    f"quantize_weights needs a model whose config carries "
+                    f"the quant knobs and which declares its quantizable "
+                    f"projections (the Llama family), got "
+                    f"{type(module).__name__}")
+            module = type(module)(dataclasses.replace(
+                mcfg, quantize_weights=qw,
+                quantize_group_size=config.quantize_group_size,
+                quantize_row_shards=1))
+            # quantized one tensor at a time on the engine's device
+            params, self.quant_report = quantize_state_dict(
+                {n: p.to(self.device) for n, p in params.items()}, module,
+                qw, config.quantize_group_size)
+            self.quant_summary = quant_report_summary(self.quant_report)
+            log_dist(
+                f"quantize_weights={qw}: {self.quant_summary['leaves']} "
+                f"projection weights -> "
+                f"{self.quant_summary['quant_weight_bytes']} B "
+                f"({self.quant_summary['bytes_ratio']:.2f}x of bf16), max "
+                f"rel err {self.quant_summary['max_rel_err']:.3e} "
+                f"({self.quant_summary['worst_param']})", ranks=[0])
+
+        def cast(name, p):
+            # codes keep their integer type; scales stay fp32 (they carry
+            # the whole range of their codes)
+            if name.endswith("wscale"):
+                to = torch.float32
+            else:
+                to = dtype if p.is_floating_point() else p.dtype
+            return p.to(device=self.device, dtype=to)
+
+        module.load_state_dict({n: cast(n, p) for n, p in params.items()},
+                               strict=True, assign=True)
         module.eval().requires_grad_(False)
         self.module = module
-        log_dist(f"InferenceEngine: device={self.device}, dtype={dtype}",
-                 ranks=[0])
+        self._profile_model_time = False
+        self._model_times = []
+        log_dist(f"InferenceEngine: device={self.device}, dtype={dtype}, "
+                 f"quantize_weights={qw}", ranks=[0])
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.config.dtype
+
+    def _tensor(self, x, dtype):
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
+                               else x).to(device=self.device, dtype=dtype)
+
+    def forward(self, input_ids, **kwargs):
+        """The dense forward: ``input_ids [B, T]`` -> logits (kernels K1
+        and, with quantized weights, K5 on the card)."""
+        with torch.inference_mode():
+            return self.module(self._tensor(input_ids, torch.long), **kwargs)
+
+    __call__ = forward
+
+    # ------------------------------------------------------------------
+
+    def generate(self, input_ids, attention_mask=None,
+                 max_new_tokens: int = 32, do_sample: bool = False,
+                 temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 **_ignored) -> torch.Tensor:
+        """Autoregressive generation: ``[B, max_new_tokens]`` token ids.
+
+        Prompts of differing lengths must be LEFT-padded
+        (``attention_mask`` zeros on the left), so the last column is each
+        row's newest token; positions and key masking handle the pads.
+        Sampling draws from a ``torch.Generator`` seeded with ``seed``
+        (it cannot reproduce ``jax.random``'s draws)."""
+        ids = self._tensor(input_ids, torch.long)
+        if ids.dim() == 1:
+            ids = ids[None]
+        B, T = ids.shape
+        mask = torch.ones((B, T), dtype=torch.int32, device=self.device) \
+            if attention_mask is None \
+            else self._tensor(attention_mask, torch.int32).reshape(B, T)
+
+        # pow2 shape buckets above bucket_min, as the JAX engine compiles
+        # them: prompts pad on the left, extra new tokens are trimmed
+        requested_new = max_new_tokens
+        if self.config.bucket_shapes:
+            lo = max(1, self.config.bucket_min)
+            Tb = T if T <= lo else next_pow2(T)
+            if max_new_tokens > lo:
+                max_new_tokens = next_pow2(max_new_tokens)
+            if Tb > T:
+                ids = torch.nn.functional.pad(ids, (Tb - T, 0))
+                mask = torch.nn.functional.pad(mask, (Tb - T, 0))
+                T = Tb
+        if self._profile_model_time:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = self._generate(ids, mask, max_new_tokens, do_sample,
+                                 temperature, top_k, top_p, eos_token_id,
+                                 seed)
+        if self._profile_model_time:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._model_times.append(time.perf_counter() - t0)
+        return out[:, :requested_new]
+
+    def _generate(self, ids, mask, max_new_tokens, do_sample, temperature,
+                  top_k, top_p, eos_token_id, seed):
+        module, dev = self.module, self.device
+        B, T = ids.shape
+        cache_len = T + max_new_tokens
+        cache = module.init_cache(
+            B, cache_len, dtype=torch.int8 if self.config.kv_cache_int8
+            else self.compute_dtype, device=dev)
+        key_mask = torch.zeros((B, cache_len), dtype=torch.int32, device=dev)
+        key_mask[:, :T] = mask
+        # left-padding-aware positions: pads get 0, real tokens 0..n-1
+        positions = (mask.cumsum(dim=-1) - 1).clamp_min(0)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def sample(lg):
+            return _sample_logits(lg, gen, do_sample, temperature, top_k,
+                                  top_p)
+
+        # the cache index lives on the device, so no step waits on the host
+        cache_index = torch.zeros((), dtype=torch.int32, device=dev)
+        logits, cache = module(ids, cache=cache, cache_index=cache_index,
+                               positions=positions, attention_mask=key_mask)
+        tok = sample(logits[:, -1])
+        eos = eos_token_id if eos_token_id is not None else -1
+        done = tok == eos if eos_token_id is not None else \
+            torch.zeros((B,), dtype=torch.bool, device=dev)
+        out = torch.full((B, max_new_tokens), eos, dtype=torch.long,
+                         device=dev)
+        out[:, 0] = tok
+        cache_index = cache_index + T
+        early_exit = self.config.decode_loop == "while" and \
+            eos_token_id is not None
+        for i in range(1, max_new_tokens):
+            if early_exit and bool(done.all()):
+                break           # the tail keeps its EOS fill
+            key_mask.index_fill_(1, cache_index.long().reshape(1), 1)
+            pos = key_mask.sum(dim=-1, keepdim=True) - 1
+            logits, cache = module(tok[:, None], cache=cache,
+                                   cache_index=cache_index, positions=pos,
+                                   attention_mask=key_mask)
+            nxt = sample(logits[:, 0])
+            if eos_token_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+                done = done | (nxt == eos)
+            out[:, i] = nxt
+            tok = nxt
+            cache_index = cache_index + 1
+        return out
+
+    def profile_model_time(self, use_cuda_events: bool = True) -> None:
+        """Start collecting per-``generate`` wall latencies, fenced with
+        ``torch.cuda.synchronize`` on the card (``use_cuda_events`` is
+        accepted for parity with the JAX engine)."""
+        self._profile_model_time = True
+        self._model_times = []
+
+    def model_times(self):
+        """Latencies collected since :meth:`profile_model_time`, in
+        seconds; returns and resets them."""
+        times, self._model_times = list(self._model_times), []
+        return times
 
 
 def init_inference(model=None, config=None, mp_size: Optional[int] = None,
@@ -111,8 +284,8 @@ def init_inference(model=None, config=None, mp_size: Optional[int] = None,
             not hasattr(model, "init_paged_cache"):
         raise NotImplementedError(
             "init_inference takes a port model (deepspeed_tpu_torch.models); "
-            "HF module injection arrives with the dense-inference slice "
-            "(ROADMAP.md Queue 1)")
+            "HF module injection arrives with the module-injection slice of "
+            "the port (ROADMAP.md Queue 1, item 4)")
     if params is None:
         raise ValueError("init_inference needs params (a state_dict)")
     return InferenceEngine(model, params, cfg, device=device)

@@ -1,13 +1,17 @@
-"""Building blocks of the port's Llama model and its paged KV pool.
+"""Building blocks of the port's Llama model and its KV caches.
 
 Counterparts of ``deepspeed_tpu/models/layers.py``. For the serving path:
 RMSNorm, rotary embeddings, int8 KV quantization, the paged pool, its
 index bundle, the packed append and the multi-position logit harvest.
-JAX arrays are immutable, so the JAX pool update returns a new pool; here
-the pool tensors are updated in place. For the training path:
-``repeat_kv``, the attention core, the loss and the LM head.
+For dense generation: the contiguous head-major cache, its append, the
+cached attention of a prefill and the cache bias. JAX arrays are
+immutable, so the JAX cache updates return new caches; here the cache
+tensors are updated in place. For the training path: ``repeat_kv``, the
+attention core, the loss and the LM head. For every path: the projection
+factory ``model_dense`` and its quantized layer ``QuantLinear``.
 """
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -15,6 +19,57 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.quant_matmul import effective_group_size, quant_matmul
+
+
+class QuantLinear(nn.Module):
+    """A linear layer whose weight is stored quantized: the counterpart of
+    the JAX ``QuantDense`` without its tensor-parallel reduction.
+
+    Buffers: ``qweight``, the codes in the JAX layout (int8 ``[K, N]``, or
+    uint8 ``[K//2, N]`` with two int4 codes per byte along K; never
+    transposed), ``wscale``, fp32 scales ``[G, N]``, and an optional fp
+    ``bias``. The product runs through ``ops.quant_matmul.quant_matmul``
+    (kernel K5 on CUDA tensors, its plain version on CPU tensors).
+    ``init_inference`` fills the buffers from fp weights
+    (``inference/quant.py``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 mode: str, group_size: int = 0, shards: int = 1):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.mode = mode
+        g = effective_group_size(in_features, mode, group_size, shards)
+        rows = in_features // 2 if mode == "int4" else in_features
+        self.register_buffer("qweight", torch.zeros(
+            rows, out_features,
+            dtype=torch.uint8 if mode == "int4" else torch.int8))
+        self.register_buffer("wscale", torch.ones(in_features // g,
+                                                  out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        y = quant_matmul(x.reshape(-1, self.in_features), self.qweight,
+                         self.wscale, self.mode)
+        y = y.reshape(*lead, self.out_features)
+        return y if self.bias is None else y + self.bias
+
+
+def model_dense(cfg, in_features: int, out_features: int, bias: bool = False,
+                row_parallel: bool = False) -> nn.Module:
+    """The projection factory every family shares: ``nn.Linear`` unless
+    ``cfg.quantize_weights`` asks for a :class:`QuantLinear`. Row-parallel
+    projections (o_proj, down_proj) align their scale groups to
+    ``cfg.quantize_row_shards``, the tensor-parallel width the weights
+    were quantized for (1 in this port)."""
+    mode = getattr(cfg, "quantize_weights", None)
+    if mode is None:
+        return nn.Linear(in_features, out_features, bias=bias)
+    return QuantLinear(in_features, out_features, bias, mode,
+                       getattr(cfg, "quantize_group_size", 0),
+                       getattr(cfg, "quantize_row_shards", 1)
+                       if row_parallel else 1)
 
 
 class RMSNorm(nn.Module):
@@ -65,6 +120,113 @@ def _quantize_kv(x):
 def dequantize_kv(q, scale, dtype=torch.float32):
     """Inverse of ``_quantize_kv`` (the per-row scale broadcasts over D)."""
     return (q.float() * scale[..., None]).to(dtype)
+
+
+def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
+                  n_layers: Optional[int] = None, dtype=torch.bfloat16,
+                  device=None):
+    """An empty contiguous KV cache, head-major ``[L?, B, Hkv, S, D]``.
+    ``dtype=torch.int8`` stores absmax-quantized values with fp32 scales
+    ``[L?, B, Hkv, S]`` beside them (quantized per position and kv head at
+    append)."""
+    shape = (batch, num_kv_heads, max_len, head_dim)
+    sshape = (batch, num_kv_heads, max_len)
+    if n_layers is not None:
+        shape = (n_layers,) + shape
+        sshape = (n_layers,) + sshape
+    if dtype == torch.int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, device=device),
+                "v_scale": torch.zeros(sshape, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _positions_from(cache_index, T: int, device) -> torch.Tensor:
+    """``cache_index + [0, T)`` as int64 on ``device`` (``cache_index`` an
+    int or a device scalar; no host sync either way)."""
+    start = torch.as_tensor(cache_index, device=device).reshape(()).long()
+    return start + torch.arange(T, device=device)
+
+
+def update_kv_cache(layer_cache, k, v, cache_index):
+    """Append ``[B, T, Hkv, D]`` keys/values at positions ``cache_index ..
+    cache_index + T - 1`` of one layer's head-major cache, in place (only
+    the new tokens are transposed). An int8 cache quantizes at append.
+    Returns ``layer_cache``."""
+    pos = _positions_from(cache_index, k.shape[1], k.device)
+    k = k.transpose(1, 2)                       # [B, Hkv, T, D]
+    v = v.transpose(1, 2)
+    if "k_scale" in layer_cache:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        layer_cache["k"].index_copy_(2, pos, kq)
+        layer_cache["v"].index_copy_(2, pos, vq)
+        layer_cache["k_scale"].index_copy_(2, pos, ks)
+        layer_cache["v_scale"].index_copy_(2, pos, vs)
+    else:
+        layer_cache["k"].index_copy_(2, pos, k.to(layer_cache["k"].dtype))
+        layer_cache["v"].index_copy_(2, pos, v.to(layer_cache["v"].dtype))
+    return layer_cache
+
+
+def key_mask_to_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """``[B, S]`` 1/0 key mask -> additive fp32 ``[B, 1, 1, S]`` bias (0
+    keep, -1e9 drop)."""
+    return torch.where(attention_mask[:, None, None, :] > 0, 0.0,
+                       -1e9).float()
+
+
+def cache_attention_bias(q_len: int, cache_len: int, cache_index,
+                         key_mask: Optional[torch.Tensor] = None,
+                         window: Optional[int] = None, device=None
+                         ) -> torch.Tensor:
+    """Additive fp32 bias ``[B or 1, 1, q_len, cache_len]`` for attention
+    over a partially filled cache: query ``t`` sits at ``cache_index + t``
+    and sees key ``j`` iff ``j <= cache_index + t`` and, with a window,
+    ``cache_index + t - j < window``; ``key_mask`` (1 = real token) also
+    hides padding. Masked entries get -1e9, not -inf, so a query that sees
+    no key (a left-padding row) softmaxes to finite values."""
+    q_pos = _positions_from(cache_index, q_len, device)
+    kv_pos = torch.arange(cache_len, device=device)
+    visible = q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        visible = visible & (q_pos[:, None] - kv_pos[None, :] < window)
+    bias = torch.where(visible, 0.0, -1e9)[None, None]
+    if key_mask is not None:
+        bias = bias + torch.where(key_mask > 0, 0.0,
+                                  -1e9)[:, None, None, :]
+    return bias.float()
+
+
+def cached_attention(q, layer_cache, cache_index, key_mask=None,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None):
+    """Plain attention of ``q [B, T, H, D]`` over one layer's head-major
+    cache (``cached_attention_xla``: GQA by broadcasting kv heads, fp32
+    logits plus :func:`cache_attention_bias`, probabilities cast to q's
+    dtype). The prefill of ``generate`` takes it; the JAX package leaves
+    the same math to XLA. Returns ``[B, T, H, D]``."""
+    B, T, H, D = q.shape
+    if "k_scale" in layer_cache:
+        k = dequantize_kv(layer_cache["k"], layer_cache["k_scale"], q.dtype)
+        v = dequantize_kv(layer_cache["v"], layer_cache["v_scale"], q.dtype)
+    else:
+        k = layer_cache["k"].to(q.dtype)
+        v = layer_cache["v"].to(q.dtype)
+    Hkv, S = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    if rep > 1:
+        k = k[:, :, None].expand(B, Hkv, rep, S, D).reshape(B, H, S, D)
+        v = v[:, :, None].expand(B, Hkv, rep, S, D).reshape(B, H, S, D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bhkd->bhqk", q, k).float() * scale
+    logits = logits + cache_attention_bias(T, S, cache_index, key_mask,
+                                           window, device=q.device)
+    probs = logits.softmax(dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bqhd", probs, v)
 
 
 def init_paged_kv_cache(num_blocks: int, block_size: int, num_kv_heads: int,

@@ -1,24 +1,32 @@
 """Llama-family decoder (RoPE + RMSNorm + SwiGLU + GQA).
 
-Counterpart of ``deepspeed_tpu/models/llama.py``. Two of its paths are
+Counterpart of ``deepspeed_tpu/models/llama.py``. Three of its paths are
 ported:
 
 - the paged MIXED step of the serving engine: ``forward(input_ids [1, T],
-  cache=pool, cache_index=...)`` appends the packed batch's KV into the
-  paged pool and runs ragged paged attention through
+  cache=pool, cache_index=paged bundle)`` appends the packed batch's KV
+  into the paged pool and runs ragged paged attention through
   ``ops.ragged_attention.ragged_paged_attention`` (kernel K6);
-- the dense training forward: ``forward(input_ids [B, T], labels)``
-  returns the fp32 token-mean cross entropy over shifted labels (logits
-  without labels), with kv heads repeated before causal (optionally
-  windowed) flash attention through ``ops.flash_attention`` (kernels K1
-  and K2), and with ``remat`` each block recomputed in the backward
+- the contiguous-cache path of dense generation: ``forward(input_ids
+  [B, T], cache=init_cache(...), cache_index=position, positions=...,
+  attention_mask=[B, S] key mask)`` appends into the head-major cache,
+  then attends one new token per row through
+  ``ops.decode_attention.decode_attention`` (kernel K4) or a prefill
+  through the plain ``cached_attention``;
+- the dense forward: ``forward(input_ids [B, T], labels)`` returns the
+  fp32 token-mean cross entropy over shifted labels (logits without
+  labels), with kv heads repeated before causal (optionally windowed)
+  flash attention through ``ops.flash_attention`` (kernels K1 and K2),
+  and with ``remat`` each block recomputed in the backward
   (``torch.utils.checkpoint``, the JAX ``"nothing"`` policy).
 
+Every projection comes from ``layers.model_dense``: ``nn.Linear``, or with
+``quantize_weights`` a ``QuantLinear`` over int8/int4 codes (kernel K5).
 Each wrapper launches its hand-written kernel on CUDA tensors and its
 plain PyTorch version on CPU tensors: the device decides, so the JAX
 config's ``attention_impl`` and ``decode_attention_impl`` have no
-counterpart here. The contiguous-cache decode path, a padding mask, other
-remat policies and the chunked loss raise.
+counterpart here. A training padding mask, other remat policies, the
+chunked loss and the from-empty flash prefill raise.
 
 As with a flax module, the model object is a definition: its parameters
 are built on the ``meta`` device (shapes only, no memory), and an engine
@@ -34,11 +42,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.decode_attention import decode_attention
 from ..ops.ragged_attention import ragged_paged_attention
-from .layers import (RMSNorm, apply_rotary, cross_entropy_loss,
-                     dot_product_attention, init_paged_kv_cache,
-                     is_paged_index, lm_head_output, repeat_kv,
-                     rotary_embedding, shift_labels, update_paged_kv_cache)
+from .layers import (RMSNorm, apply_rotary, cached_attention,
+                     cross_entropy_loss, dot_product_attention, init_kv_cache,
+                     init_paged_kv_cache, is_paged_index, lm_head_output,
+                     model_dense, repeat_kv, rotary_embedding, shift_labels,
+                     update_kv_cache, update_paged_kv_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,16 +80,39 @@ class LlamaConfig:
     remat_policy: str = "nothing"
     #: >0: the chunked training loss (not ported); 0 = plain loss
     loss_chunk: int = 0
+    #: cached prefill from an empty cache through the flash kernel with a
+    #: key mask (not ported: K1 takes no key mask yet)
+    prefill_flash_from_empty: bool = False
+    # -- quantized weights (set by init_inference, which rewrites the fp
+    # state_dict to match) ---------------------------------------------
+    #: attention/MLP projections stored as "int8" per-column codes or
+    #: "int4" codes packed two per byte with grouped scales
+    #: (layers.QuantLinear, kernel K5); embeddings, norms and the LM head
+    #: stay fp
+    quantize_weights: Optional[str] = None
+    #: scale-group length along K (0 = per-column for int8, 64 for int4)
+    quantize_group_size: int = 0
+    #: the tensor-parallel width the weights were quantized for
+    #: (row-parallel scale groups align to it; 1 in this port)
+    quantize_row_shards: int = 1
 
     def __post_init__(self):
         if self.mlp_activation not in ("silu", "gelu_tanh"):
             raise ValueError(f"mlp_activation must be 'silu' or "
                              f"'gelu_tanh', got {self.mlp_activation!r}")
+        if self.quantize_weights not in (None, "int8", "int4"):
+            raise ValueError(f"quantize_weights must be None, 'int8' or "
+                             f"'int4', got {self.quantize_weights!r}")
         if self.remat_policy != "nothing" or self.loss_chunk:
             raise NotImplementedError(
                 "remat policies other than 'nothing' and loss_chunk > 0 "
                 "arrive with the rest of the Llama training subset "
                 "(ROADMAP.md Queue 1, item 5)")
+        if self.prefill_flash_from_empty:
+            raise NotImplementedError(
+                "prefill_flash_from_empty needs the flash kernel's key mask "
+                "(K1, ROADMAP.md Queue 2); the cached prefill runs the plain "
+                "cached_attention")
 
     @property
     def head_dim(self) -> int:
@@ -116,12 +149,13 @@ class LlamaAttention(nn.Module):
         H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
             cfg.head_dim
         qb = cfg.attention_qkv_bias
-        self.q_proj = nn.Linear(cfg.hidden_size, H * D, bias=qb)
-        self.k_proj = nn.Linear(cfg.hidden_size, Hkv * D, bias=qb)
-        self.v_proj = nn.Linear(cfg.hidden_size, Hkv * D, bias=qb)
-        self.o_proj = nn.Linear(H * D, cfg.hidden_size, bias=False)
+        self.q_proj = model_dense(cfg, cfg.hidden_size, H * D, qb)
+        self.k_proj = model_dense(cfg, cfg.hidden_size, Hkv * D, qb)
+        self.v_proj = model_dense(cfg, cfg.hidden_size, Hkv * D, qb)
+        self.o_proj = model_dense(cfg, H * D, cfg.hidden_size,
+                                  row_parallel=True)
 
-    def forward(self, x, cos, sin, layer_cache, cache_index):
+    def forward(self, x, cos, sin, layer_cache, cache_index, mask=None):
         cfg = self.cfg
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, \
@@ -134,16 +168,30 @@ class LlamaAttention(nn.Module):
             out = dot_product_attention(q, repeat_kv(k, H // Hkv),
                                         repeat_kv(v, H // Hkv), causal=True,
                                         window=cfg.sliding_window)
-            return self.o_proj(out.reshape(B, T, H * D))
-        # the pool is updated in place (the JAX model returns a new one)
-        update_paged_kv_cache(layer_cache, k, v, cache_index)
-        out = ragged_paged_attention(
-            q[0], layer_cache["k"], layer_cache["v"],
-            cache_index["block_tables"], cache_index["query_start"],
-            cache_index["query_len"], cache_index["chunk_start"],
-            cache_index["context_len"], window=cfg.sliding_window,
-            k_scale=layer_cache.get("k_scale"),
-            v_scale=layer_cache.get("v_scale"))
+        elif is_paged_index(cache_index):
+            # the pool is updated in place (the JAX model returns a new one)
+            update_paged_kv_cache(layer_cache, k, v, cache_index)
+            out = ragged_paged_attention(
+                q[0], layer_cache["k"], layer_cache["v"],
+                cache_index["block_tables"], cache_index["query_start"],
+                cache_index["query_len"], cache_index["chunk_start"],
+                cache_index["context_len"], window=cfg.sliding_window,
+                k_scale=layer_cache.get("k_scale"),
+                v_scale=layer_cache.get("v_scale"))
+        else:
+            # contiguous cache (dense generation), updated in place; mask
+            # is the [B, S] key mask
+            update_kv_cache(layer_cache, k, v, cache_index)
+            if T == 1:
+                out = decode_attention(
+                    q[:, 0], layer_cache["k"], layer_cache["v"], cache_index,
+                    key_mask=mask, window=cfg.sliding_window,
+                    k_scale=layer_cache.get("k_scale"),
+                    v_scale=layer_cache.get("v_scale"))[:, None]
+            else:
+                out = cached_attention(q, layer_cache, cache_index,
+                                       key_mask=mask,
+                                       window=cfg.sliding_window)
         return self.o_proj(out.reshape(B, T, H * D))
 
 
@@ -151,12 +199,12 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.gelu = cfg.mlp_activation == "gelu_tanh"
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                                   bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                                 bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                                   bias=False)
+        self.gate_proj = model_dense(cfg, cfg.hidden_size,
+                                     cfg.intermediate_size)
+        self.up_proj = model_dense(cfg, cfg.hidden_size,
+                                   cfg.intermediate_size)
+        self.down_proj = model_dense(cfg, cfg.intermediate_size,
+                                     cfg.hidden_size, row_parallel=True)
 
     def forward(self, x):
         gate = self.gate_proj(x)
@@ -173,9 +221,9 @@ class LlamaBlock(nn.Module):
                                                 cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, x, cos, sin, layer_cache, cache_index):
+    def forward(self, x, cos, sin, layer_cache, cache_index, mask=None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin,
-                               layer_cache, cache_index)
+                               layer_cache, cache_index, mask)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -188,29 +236,32 @@ class LlamaModel(nn.Module):
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
-    def forward(self, input_ids, cache=None, cache_index=None):
+    def forward(self, input_ids, cache=None, cache_index=None, positions=None,
+                attention_mask=None):
+        """With ``cache`` and a contiguous ``cache_index``,
+        ``attention_mask`` is the ``[B, cache_len]`` key mask."""
         cfg = self.cfg
-        if cache is not None and (not is_paged_index(cache_index) or
-                                  "token_rows" not in cache_index):
-            raise NotImplementedError(
-                "with a cache the port runs the packed paged mixed step only "
-                "(a paged_cache_index with token_rows); the contiguous-cache "
-                "path arrives with dense inference (ROADMAP.md Queue 1)")
         x = self.embed_tokens(input_ids)
         if cfg.embed_scale is not None:
             x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
-        if cache is None:
-            B, T = input_ids.shape
-            positions = torch.arange(T, device=x.device)[None].expand(B, T)
-        else:
-            # each packed token's position IS its append slot (pads are -1)
-            positions = cache_index["append_pos"].clamp_min(0)
+        B, T = input_ids.shape
+        if positions is None:
+            if cache is not None and is_paged_index(cache_index):
+                # each packed token's position IS its append slot (pads
+                # are -1)
+                positions = cache_index["append_pos"].clamp_min(0)
+            else:
+                start = 0 if cache is None else torch.as_tensor(
+                    cache_index, device=x.device).long()
+                positions = (start + torch.arange(T, device=x.device))[
+                    None].expand(B, T)
         cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta,
                                     dtype=x.dtype)
         for i, layer in enumerate(self.layers):
             if cache is not None:
                 x = layer(x, cos, sin, {name: t[i] for name, t in
-                                        cache.items()}, cache_index)
+                                        cache.items()}, cache_index,
+                          attention_mask)
             elif cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, cos, sin, None, None,
                                use_reentrant=False)
@@ -220,9 +271,10 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """``forward(input_ids [1, T], cache=, cache_index=) -> (logits,
-    cache)`` over a packed token batch, or ``forward(input_ids [B, T],
-    labels) -> loss`` (logits without labels); see the module
+    """``forward(input_ids, cache=, cache_index=[, positions,
+    attention_mask]) -> (logits, cache)`` over a packed token batch (paged
+    pool) or a ``[B, T]`` batch (contiguous cache), or ``forward(input_ids
+    [B, T], labels) -> loss`` (logits without labels); see the module
     docstring."""
 
     def __init__(self, config: LlamaConfig):
@@ -234,13 +286,14 @@ class LlamaForCausalLM(nn.Module):
                 nn.Linear(config.hidden_size, config.vocab_size, bias=False)
 
     def forward(self, input_ids, labels=None, cache=None, cache_index=None,
-                attention_mask=None):
-        if attention_mask is not None:
+                attention_mask=None, positions=None):
+        if attention_mask is not None and cache is None:
             raise NotImplementedError(
                 "a training attention_mask (padding bias) arrives with the "
                 "rest of the Llama training subset (ROADMAP.md Queue 1, "
                 "item 5); drop padding through the labels (-100)")
-        hidden = self.model(input_ids, cache, cache_index)
+        hidden = self.model(input_ids, cache, cache_index, positions,
+                            attention_mask)
         logits = lm_head_output(hidden, self.model.embed_tokens.weight,
                                 self.lm_head)
         if cache is not None:
@@ -248,6 +301,25 @@ class LlamaForCausalLM(nn.Module):
         if labels is None:
             return logits
         return cross_entropy_loss(logits, shift_labels(labels))
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None):
+        """Empty contiguous KV cache for incremental decoding."""
+        cfg = self.config
+        return init_kv_cache(batch, max_len, cfg.num_key_value_heads,
+                             cfg.head_dim, n_layers=cfg.num_hidden_layers,
+                             dtype=dtype, device=device)
+
+    @staticmethod
+    def quantizable_projections(config: LlamaConfig):
+        """``(state_dict regex, role)`` of every weight ``init_inference``
+        may store quantized: "col" = output features split under tensor
+        parallelism, "row" = input features split (see
+        ``inference/quant.py``)."""
+        return [
+            (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$", "col"),
+            (r"(o_proj|down_proj)\.weight$", "row"),
+        ]
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          dtype=torch.bfloat16, device=None):
@@ -259,11 +331,16 @@ class LlamaForCausalLM(nn.Module):
                                    dtype=dtype, device=device)
 
     def init_params(self, seed: int = 0, dtype=torch.float32, device=None):
-        """Seeded random weights as a ``state_dict`` made on ``device``:
-        norms one, biases zero, every other weight N(0, 0.02)."""
+        """Seeded random fp weights as a ``state_dict`` made on ``device``:
+        norms one, biases zero, every other weight N(0, 0.02). For a
+        quantized config these are the fp weights that ``init_inference``
+        quantizes."""
         g = torch.Generator(device=device).manual_seed(seed)
         params = {}
-        for name, p in self.state_dict(keep_vars=True).items():
+        fp = self if self.config.quantize_weights is None else \
+            LlamaForCausalLM(dataclasses.replace(self.config,
+                                                 quantize_weights=None))
+        for name, p in fp.state_dict(keep_vars=True).items():
             t = torch.empty(p.shape, dtype=dtype, device=device)
             if name.endswith("layernorm.weight") or name == "model.norm.weight":
                 t.fill_(1.0)

@@ -1,0 +1,306 @@
+"""Quantized-weight matmuls (kernels K5 and K8).
+
+``quant_matmul(x, codes, scale, mode)`` is what ``models.layers.QuantLinear``
+calls: ``y = x @ dequant(codes, scale)`` with int8 codes ``[K, N]`` or
+int4 codes packed two to a byte along K (uint8 ``[K//2, N]``: byte ``r``
+holds K-row ``2r`` in its low nibble and ``2r + 1`` in its high nibble),
+and fp32 scales ``[G, N]``, one per ``K / G`` contiguous rows of each
+output column. ``int8_matmul(x, codes, scale)`` is the per-column case
+with the scale ``[N]`` applied once to the fp32 sum. The layouts are the
+JAX package's, so codes and scales carry across unchanged.
+
+On CUDA tensors the wrappers launch the hand-written Hopper kernels of
+``csrc/quant_matmul.cu``; on CPU tensors they compute the same function
+with ``quant_matmul_plain`` / ``int8_matmul_plain``. Any other placement
+raises: there is no fallback from a kernel to a plain version.
+
+The kernels replace ``deepspeed_tpu/ops/pallas/quant_matmul.py::_kernel``
+(K5) and ``deepspeed_tpu/ops/pallas/int8_matmul.py::_kernel`` (K8). A
+decode step's product (a few rows) is bound by the bytes of the codes; a
+prefill's (thousands of rows) by operations. The design note is at the
+top of the CUDA source.
+"""
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+#: weight-quantization modes; int4 packs two codes per byte along K
+MODES = ("int8", "int4")
+
+#: int4 per-output-column scales are lossy (~7% max weight error on
+#: gaussian weights against ~2.5% grouped at 64); int8 per-column is
+#: already at its rounding floor, so grouping defaults off there
+DEFAULT_INT4_GROUP = 64
+
+#: rows of x up to which the kernel streams the weights as a GEMV
+GEMV_MAX_ROWS = 8
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"quantize mode must be one of {MODES}, got {mode!r}")
+
+
+def pack_int4(vals: torch.Tensor) -> torch.Tensor:
+    """Pack int4 codes (range [-8, 7]) ``[K, N]`` -> uint8 ``[K//2, N]``:
+    byte ``r`` = K-row ``2r`` in the low nibble, ``2r + 1`` in the high
+    nibble. K must be even."""
+    if vals.shape[0] % 2:
+        raise ValueError(f"int4 packing needs an even K, got {vals.shape[0]}")
+    v = vals.to(torch.int32) & 0xF
+    return (v[0::2] | (v[1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 ``[K//2, N]`` -> int8 ``[K, N]``
+    (sign-extended nibbles)."""
+    w = packed.to(torch.int32)
+    lo = ((w & 0xF) ^ 8) - 8
+    hi = ((w >> 4) ^ 8) - 8
+    K2, N = packed.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * K2, N).to(torch.int8)
+
+
+def effective_group_size(k: int, mode: str, group_size: int,
+                         shards: int = 1) -> int:
+    """The scale-group length used for a ``[K, N]`` weight: ``group_size``
+    (0 = per-column, except int4, which defaults to
+    :data:`DEFAULT_INT4_GROUP`) resolved against the per-shard K. Shared by
+    ``inference/quant.py`` (which writes the scales) and
+    ``models/layers.QuantLinear`` (whose buffer shapes must agree)."""
+    if group_size <= 0:
+        group_size = DEFAULT_INT4_GROUP if mode == "int4" else 0
+    align = k // shards if shards > 1 and k % shards == 0 else k
+    return resolve_group_size(align, mode, group_size)
+
+
+def resolve_group_size(k: int, mode: str, group_size: int) -> int:
+    """Scale-group length along K: ``group_size`` shrunk to the largest
+    divisor of ``k`` at most that big (0 = one group over all of K, i.e.
+    per-column scales). int4 groups are even, so a nibble pair never
+    straddles a scale boundary."""
+    if mode == "int4" and k % 2:
+        raise ValueError(f"int4 quantization needs an even K, got {k}")
+    g = k if group_size <= 0 else min(group_size, k)
+    while k % g:
+        g -= 1
+    if mode == "int4" and g % 2:
+        # K is even (checked above), so an even divisor >= 2 exists
+        g = 2 if g == 1 else g - 1
+        while k % g or g % 2:
+            g -= 1
+    return g
+
+
+def quantize_linear_weight(w: torch.Tensor, mode: str = "int8",
+                           group_size: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absmax-quantize a linear weight ``[K, N]`` (K = input features).
+
+    Returns ``(codes, scale)``: int8 ``[K, N]`` (int8) or packed uint8
+    ``[K//2, N]`` (int4), and fp32 scales ``[G, N]``, one per ``group``
+    contiguous K rows of each output column (``group_size <= 0`` = one
+    group = per-column). Symmetric ranges: ±127 (int8), ±7 (int4). The
+    arithmetic is the JAX package's op for op (fp32 division, round half
+    to even), so the codes are bit-identical."""
+    _check_mode(mode)
+    k, n = w.shape
+    if mode == "int4" and k % 2:
+        raise ValueError(f"int4 quantization needs an even K, got {k}")
+    g = resolve_group_size(k, mode, group_size)
+    qmax = 127.0 if mode == "int8" else 7.0
+    # contiguous: a transposed view (nn.Linear's weight.T) must not hand
+    # its strides on to the codes
+    wg = w.float().contiguous().reshape(k // g, g, n)
+    amax = wg.abs().amax(dim=1)
+    scale = (amax / qmax).clamp_min(1e-12)                 # [G, N]
+    q = torch.round(wg / scale[:, None, :]).clamp(-qmax, qmax).reshape(k, n)
+    if mode == "int4":
+        return pack_int4(q), scale
+    return q.to(torch.int8), scale
+
+
+def dequantize_linear_weight(q: torch.Tensor, scale: torch.Tensor, mode: str,
+                             dtype=torch.float32) -> torch.Tensor:
+    """Rebuild the dense ``[K, N]`` weight: codes times their group's
+    scale in fp32, then cast to ``dtype``."""
+    _check_mode(mode)
+    codes = unpack_int4(q) if mode == "int4" else q
+    k, n = codes.shape
+    gcount = scale.shape[0]
+    wg = codes.float().reshape(gcount, k // gcount, n)
+    return (wg * scale[:, None, :].float()).reshape(k, n).to(dtype)
+
+
+def quant_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
+                       scale: torch.Tensor, mode: str = "int8"
+                       ) -> torch.Tensor:
+    """Plain version of K5: dequantize to ``x.dtype``, then matmul
+    (``[M, K] @ [K, N] -> [M, N]`` in ``x.dtype``)."""
+    return x @ dequantize_linear_weight(codes, scale, mode, x.dtype)
+
+
+def quantize_weight_per_col(w: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[K, N]`` float -> (int8 ``[K, N]``, fp32 scale ``[N]``) with
+    absmax/127 per output column (K8's layout; no clip, as in the JAX
+    package: the absmax element maps to exactly ±127)."""
+    w32 = w.float().contiguous()
+    scale = (w32.abs().amax(dim=0) / 127.0).clamp_min(1e-12)
+    return torch.round(w32 / scale[None, :]).to(torch.int8), scale
+
+
+def int8_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: ``x @ codes`` with the codes cast to
+    ``x.dtype`` (exact for ±127), summed in fp32, times the per-column
+    scale once at the end, cast to ``x.dtype``."""
+    acc = x.float() @ codes.to(x.dtype).float()
+    return (acc * scale[None, :].float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.load("quant_matmul").quant_matmul
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # x codes scale out workspace | M K N G mode x_bf16 splits | stream
+    fn.argtypes = [P] * 5 + [I] * 7 + [P]
+    fn.restype = I
+    return fn
+
+
+#: kernel modes of the C entry
+_KERNEL_MODE = {"int8": 0, "int4": 1, "int8_col": 2}
+
+
+#: blocks the decode path (M <= 8) aims for: four per SM of an H100
+_GEMV_BLOCKS = 528
+
+
+def _gemv_splits(M: int, K: int, N: int, G: int, int4: bool,
+                 tensor_cores: bool) -> int:
+    """K-splits of the decode path (M <= 8): enough blocks to give every
+    SM four, each split at least 256 rows, so the fp32 partials stay small
+    beside the codes. The tensor-core kernel (bf16 x) tiles 128 columns
+    and splits whole 32-row tiles; the CUDA-core GEMV (fp32 x) tiles 256
+    columns and splits whole scale groups (or nibble pairs). The kernels
+    split the same way."""
+    if M > GEMV_MAX_ROWS:
+        return 1
+    if tensor_cores:
+        tiles, units = -(-N // 128), -(-K // 32)
+    else:
+        unit = K // G if G > 1 else (2 if int4 else 1)
+        tiles, units = -(-N // 256), K // unit
+    want = max(1, min(units, -(-_GEMV_BLOCKS // tiles), K // 256))
+    per = -(-units // want)
+    return -(-units // per)
+
+
+def _launch(name, x, codes, scale, mode, N, G):
+    x = x.contiguous()
+    if x.data_ptr() % 16:       # a view at an odd offset: vector loads
+        x = x.clone()
+    M, K = x.shape
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    splits = _gemv_splits(M, K, N, G, mode == "int4",
+                          x.dtype == torch.bfloat16)
+    work = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) \
+        if M <= GEMV_MAX_ROWS else out
+    with torch.cuda.device(x.device):
+        rc = _entry()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                      out.data_ptr(), work.data_ptr(), M, K, N, G,
+                      _KERNEL_MODE[mode], int(x.dtype == torch.bfloat16),
+                      splits, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+    return out
+
+
+def _check(name, x, codes, scale):
+    tensors = (x, codes, scale)
+    dev = x.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on {dev}, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs its kernel on cuda and its plain "
+                         f"version on cpu, not on {dev.type}")
+    if x.dim() != 2 or codes.dim() != 2:
+        raise ValueError(f"{name}: x must be [M, K] and the codes 2-D, got "
+                         f"{tuple(x.shape)} and {tuple(codes.shape)}")
+    if dev.type == "cuda":
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"{name}: the kernel takes bf16 or fp32 x, got "
+                             f"{x.dtype}")
+        # a weight is never copied per call: strided codes are a caller bug
+        if not (codes.is_contiguous() and scale.is_contiguous()) \
+                or codes.data_ptr() % 16:
+            raise ValueError(f"{name}: codes and scales must be contiguous "
+                             f"and the codes 16-byte aligned")
+    return dev
+
+
+def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                 mode: str = "int8") -> torch.Tensor:
+    """``x [M, K] @ dequant(codes, scale)`` in ``x.dtype`` (kernel K5; see
+    the plain version). CUDA tensors launch the kernel on the current
+    stream and add one to ``quant_matmul.launches``; CPU tensors take
+    :func:`quant_matmul_plain`; anything else raises."""
+    _check_mode(mode)
+    dev = _check("quant_matmul", x, codes, scale)
+    M, K = x.shape
+    want = (K // 2 if mode == "int4" else K, scale.shape[-1])
+    want_dtype = torch.uint8 if mode == "int4" else torch.int8
+    if tuple(codes.shape) != want or codes.dtype != want_dtype \
+            or (mode == "int4" and K % 2):
+        raise ValueError(f"quant_matmul: {mode} codes for x {tuple(x.shape)} "
+                         f"must be {want_dtype} {want}, got {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    G = scale.shape[0]
+    if scale.dim() != 2 or scale.dtype != torch.float32 or G == 0 or K % G \
+            or (mode == "int4" and (K // G) % 2):
+        raise ValueError(f"quant_matmul: scales must be fp32 [G, N] with G "
+                         f"dividing K = {K} into groups (even for int4), "
+                         f"got {scale.dtype} {tuple(scale.shape)}")
+    if dev.type == "cpu":
+        return quant_matmul_plain(x, codes, scale, mode)
+    out = _launch("quant_matmul", x, codes, scale, mode, scale.shape[1], G)
+    quant_matmul.launches += 1
+    return out
+
+
+def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """``(x [M, K] @ codes [K, N]) * scale [N]`` in ``x.dtype`` (kernel K8;
+    see the plain version). CUDA tensors launch the kernel and add one to
+    ``int8_matmul.launches``; CPU tensors take :func:`int8_matmul_plain`;
+    anything else raises."""
+    dev = _check("int8_matmul", x, codes, scale)
+    if codes.dtype != torch.int8 or codes.shape[0] != x.shape[1] \
+            or scale.dtype != torch.float32 \
+            or tuple(scale.shape) != (codes.shape[1],):
+        raise ValueError(f"int8_matmul: codes must be int8 [K, N] and the "
+                         f"scale fp32 [N], got {codes.dtype} "
+                         f"{tuple(codes.shape)}, {scale.dtype} "
+                         f"{tuple(scale.shape)} for x {tuple(x.shape)}")
+    if dev.type == "cpu":
+        return int8_matmul_plain(x, codes, scale)
+    out = _launch("int8_matmul", x, codes, scale, "int8_col",
+                  codes.shape[1], 1)
+    int8_matmul.launches += 1
+    return out
+
+
+quant_matmul.launches = 0
+int8_matmul.launches = 0

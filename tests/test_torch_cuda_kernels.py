@@ -5,7 +5,8 @@ present. On a machine with one, run them with
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 Tolerance: fp32 inputs differ only by summation order (1e-5); bf16
 outputs are roundings of nearly equal fp32 values, so they agree to one
-bf16 ulp (2**-7 relative).
+bf16 ulp (2**-7 relative). The quantized matmuls' absolute slack is
+1e-5 of the sum of the products' magnitudes (|x| @ |W|).
 """
 
 import numpy as np
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import quant_matmul as qm
+from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam, fused_adam_plain
 from deepspeed_tpu_torch.ops.ragged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
@@ -147,3 +151,98 @@ def test_fused_adam_kernel_matches_plain(cuda, adam_w_mode, write_update):
     for got, want in zip(state, ref):
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["cache", "int8cache"])
+@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
+@pytest.mark.parametrize("S,cidx,window", [
+    (200, 0, None), (200, 130, None), (77, 76, None), (300, 250, 64)],
+    ids=["first", "mid_tile", "uneven_full", "window"])
+def test_decode_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, S, cidx,
+                                     window):
+    """K4 against its plain version: GQA groups, left-padding holes (row 0
+    sees no key at position 0), a cache index mid-tile, S no multiple of
+    the tile, a window, an int8 cache."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    B = 3
+    q = torch.randn(B, Hkv * G, D, generator=g, device=cuda, dtype=dtype)
+    shape = (B, Hkv, S, D)
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device=cuda,
+                              dtype=torch.int8) for _ in range(2))
+        scales = {n: torch.rand(shape[:3], generator=g, device=cuda) / 64
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+                for _ in range(2))
+        scales = {}
+    mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    mask[0, :5] = 0
+    mask[1, 40:43] = 0
+    ci = torch.tensor(cidx, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, ci, key_mask=mask, window=window,
+                           **scales)
+    ref = decode_attention_plain(q, k, v, ci, key_mask=mask, window=window,
+                                 **scales)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    fp32 = dtype == torch.float32
+    torch.testing.assert_close(got.float(), ref.float(),
+                               rtol=1e-5 if fp32 else 2 ** -7,
+                               atol=1e-5 if fp32 else 1e-3)
+
+
+def _assert_matmul_close(got, ref, x, w):
+    mag = x.float().abs() @ w.float().abs()
+    rel = 0.0 if x.dtype == torch.float32 else 2 ** -7
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= rel * ref.float().abs() + 1e-5 * mag).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode,group", [("int8", 0), ("int8", 64),
+                                        ("int4", 64), ("int4", 8)])
+@pytest.mark.parametrize("M,K,N", [(1, 512, 768), (8, 2048, 1000),
+                                   (5, 264, 1000), (37, 264, 1000),
+                                   (300, 1024, 520)])
+def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
+                                           N):
+    """K5's GEMV path (M <= 8, split K, ragged N) and tiled path (M > 8,
+    ragged M/N/K tails) against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(M * K + N)
+    x = torch.randn(M, K, generator=g, device=cuda, dtype=dtype)
+    codes, scale = qm.quantize_linear_weight(
+        torch.randn(K, N, generator=g, device=cuda) * 0.02, mode, group)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    before = qm.quant_matmul.launches
+    got = qm.quant_matmul(x, codes, scale, mode)
+    ref = qm.quant_matmul_plain(x, codes, scale, mode)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == before + 1
+    _assert_matmul_close(got, ref, x,
+                         qm.dequantize_linear_weight(codes, scale, mode,
+                                                     dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (3, 264, 1000),
+                                   (130, 640, 384)])
+def test_int8_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
+    """K8 (the per-column epilogue) against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda, dtype=dtype)
+    codes, scale = qm.quantize_weight_per_col(
+        torch.randn(K, N, generator=g, device=cuda))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    before = qm.int8_matmul.launches
+    got = qm.int8_matmul(x, codes, scale)
+    ref = qm.int8_matmul_plain(x, codes, scale)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches == before + 1
+    _assert_matmul_close(got, ref, x, (codes.float() * scale).to(dtype))

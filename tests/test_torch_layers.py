@@ -4,7 +4,8 @@ Same numpy-seeded inputs through ``deepspeed_tpu.models.layers`` and
 ``deepspeed_tpu_torch.models.layers``: the packed paged append (pads and
 sentinel targets dropped, never written; bf16 and int8 pools), RMSNorm,
 rotary embeddings, int8 KV quantization, the multi-position logit
-harvest, and the engine's sampling helpers. fp32 results agree to a few
+harvest, the contiguous cache's append, bias and cached attention, and
+the engine's sampling helpers. fp32 results agree to a few
 ulps (``1e-6``); the int8 codes and every dropped/kept decision agree
 exactly.
 """
@@ -168,3 +169,47 @@ def test_sampling_helpers():
         assert all(s[i] in top3[i] for i in range(6))
     assert [next_pow2(n) for n in (1, 2, 3, 64, 65)] == \
         [jax_next_pow2(n) for n in (1, 2, 3, 64, 65)]
+
+
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("int8", [False, True])
+def test_contiguous_cache_append_bias_and_attention_match_jax(window, int8):
+    """The contiguous cache of dense generation: an append at a cache
+    index (int8 quantized at append), the additive -1e9 cache bias with a
+    left-padded key mask (a pad row that sees no key stays finite), and
+    the plain cached attention of a prefill, against the JAX functions."""
+    rs = np.random.RandomState(11)
+    B, T, H, Hkv, S, D, start = 2, 5, 4, 2, 12, 8, 3
+    q = rs.randn(B, T, H, D).astype(np.float32)
+    k = rs.randn(B, T, Hkv, D).astype(np.float32)
+    v = rs.randn(B, T, Hkv, D).astype(np.float32)
+    mask = np.ones((B, S), np.int32)
+    mask[0, :start + 2] = 0              # row 0: the first two new tokens pad
+    dtype = jnp.int8 if int8 else jnp.float32
+    jcache = jl.update_kv_cache(
+        jl.init_kv_cache(B, S, Hkv, D, dtype=dtype), jnp.asarray(k),
+        jnp.asarray(v), start)
+    tcache = tl.init_kv_cache(B, S, Hkv, D,
+                              dtype=torch.int8 if int8 else torch.float32)
+    tl.update_kv_cache(tcache, torch.from_numpy(k), torch.from_numpy(v),
+                       torch.tensor(start, dtype=torch.int32))
+    for name in tcache:
+        np.testing.assert_allclose(tcache[name].numpy(),
+                                   np.asarray(jcache[name]), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+    want_bias = jl.cache_attention_bias(T, S, start,
+                                        key_mask=jnp.asarray(mask),
+                                        window=window)
+    got_bias = tl.cache_attention_bias(T, S, start, torch.from_numpy(mask),
+                                       window)
+    np.testing.assert_array_equal(got_bias.numpy(), np.asarray(want_bias))
+    np.testing.assert_array_equal(
+        tl.key_mask_to_bias(torch.from_numpy(mask)).numpy(),
+        np.asarray(jl.key_mask_to_bias(jnp.asarray(mask))))
+    want = jl.cached_attention_xla(jnp.asarray(q), jcache, start,
+                                   key_mask=jnp.asarray(mask), window=window)
+    got = tl.cached_attention(torch.from_numpy(q), tcache, start,
+                              key_mask=torch.from_numpy(mask), window=window)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

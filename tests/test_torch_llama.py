@@ -149,22 +149,31 @@ def test_dense_training_forward_matches_jax(case, remat):
 
 
 def test_model_runs_only_the_packed_paged_step():
-    """With a cache the model runs only the packed paged mixed step; the
-    dense path takes no padding mask and only the ported remat policy."""
+    """What the model still refuses: the per-row paged append (the legacy
+    engine's), a training padding mask, unported remat policies and loss
+    chunking; the contiguous cache and the packed step both run."""
     cfg = LlamaConfig.tiny()
     model = LlamaForCausalLM(cfg)
     engine = init_inference(model, params=model.init_params(seed=0),
                             dtype="fp32", device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
     pool = model.init_paged_cache(4, 8, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="packed paged mixed step"):
+    with pytest.raises(NotImplementedError, match="per-row paged append"):
         engine.module(ids, cache=pool, cache_index=paged_cache_index(
             np.zeros((1, 1)), np.zeros((1, 4)), np.zeros(1)))
     with pytest.raises(NotImplementedError, match="attention_mask"):
         engine.module(ids, labels=ids, attention_mask=torch.ones_like(ids))
     assert engine.module(ids).shape == (1, 4, cfg.vocab_size)
+    cache = engine.module.init_cache(1, 6, dtype=torch.float32)
+    logits, out = engine.module(ids, cache=cache, cache_index=0,
+                                attention_mask=torch.ones(1, 6))
+    assert out is cache and logits.shape == (1, 4, cfg.vocab_size)
+    assert cache["k"][:, :, :, :4].abs().sum() > 0
+    assert not cache["k"][:, :, :, 4:].abs().sum(), "appended in place"
     with pytest.raises(ValueError, match="mlp_activation"):
         LlamaConfig.tiny(mlp_activation="relu")
     for knob in ({"remat_policy": "dots"}, {"loss_chunk": 64}):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             LlamaConfig.tiny(**knob)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        LlamaConfig.tiny(prefill_flash_from_empty=True)

@@ -187,7 +187,7 @@ def test_knobs_of_later_slices_raise(knob):
 
 @pytest.mark.parametrize("knob", [
     {"mp_size": 2}, {"quantize": True}, {"dtype": "int8"},
-    {"quantize_weights": "int8"}, {"quantized_collectives": True},
+    {"dequant_per_step": True}, {"quantized_collectives": True},
     {"checkpoint": "/nonexistent"}])
 def test_inference_knobs_of_later_slices_raise(knob):
     model = LlamaForCausalLM(LlamaConfig.tiny())

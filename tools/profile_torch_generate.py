@@ -1,0 +1,128 @@
+"""Where the port's dense generate spends its time on a GPU.
+
+    python3 tools/profile_torch_generate.py [--layers 32] [--weights bf16 int8]
+
+Builds the generate configuration of ``chip_smoke.py`` (Llama-3-8B at
+full width, random bf16 weights from seed 0, batch 8, left-padded
+prompts of seeded lengths 128-512 bucketed to 512, greedy) once per
+weight format, warms it, then runs under ``torch.profiler`` a
+``generate`` of one new token (the prefill window: the prompt's forward
+and the first sample) and one of 64 new tokens. The decode window is the
+difference of the two (63 decode steps). For each window it prints the
+device time per kernel class (K4 decode attention, K5 quantized matmul,
+other matrix products, everything else), the host wall time, and the
+device's idle share (1 - union of kernel intervals / window wall time,
+profiler overhead included). Writes the summary to
+``chiprun_out/generate_profile.json``; needs a CUDA device.
+"""
+
+import argparse
+import gc
+import json
+import os
+import re
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+# first match wins: K5's tc_decode_kernel must not count as K4's
+# decode_kernel
+CLASSES = (("quant_matmul", re.compile(
+               r"anonymous namespace\)::(tc_prefill|tc_decode|gemv|gemm|finalize)"
+               r"_kernel")),
+           ("decode_attention", re.compile(
+               r"anonymous namespace\)::decode_kernel")),
+           ("matmul", re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas",
+                                 re.I)))
+NEW = 64
+
+
+def _profiled(engine, ids, mask, new, trace):
+    from profile_torch_serve import _kernel_summary
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(ids, attention_mask=mask, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(trace)
+    summary = _kernel_summary(trace, wall, CLASSES)
+    os.remove(trace)
+    # the operators that launched the device time, by name
+    ops = sorted(prof.key_averages(),
+                 key=lambda e: -getattr(e, "self_device_time_total", 0))
+    summary["top_ops_device_ms"] = {
+        e.key: getattr(e, "self_device_time_total", 0) / 1e3
+        for e in ops[:10]}
+    return summary
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--weights", nargs="+", default=["bf16", "int8"],
+                    choices=["bf16", "int8", "int4"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_generate: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=args.layers)
+    ids, mask = chip_smoke.left_padded_prompts(
+        cfg.vocab_size, chip_smoke.GEN_B, 128, chip_smoke.GEN_PROMPT, 0)
+    out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
+           "batch": chip_smoke.GEN_B, "prompt_bucket": chip_smoke.GEN_PROMPT,
+           "new_tokens": NEW, "runs": {}}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    trace = os.path.join(ROOT, "chiprun_out", "generate_trace.json")
+    for weights in args.weights:
+        model = LlamaForCausalLM(cfg)
+        params = model.init_params(seed=0, dtype=torch.bfloat16,
+                                   device="cuda")
+        engine = dt.init_inference(
+            model, params=params, dtype=torch.bfloat16,
+            quantize_weights=None if weights == "bf16" else weights)
+        del params
+        engine.generate(ids, attention_mask=mask, max_new_tokens=4)  # warm
+        prefill = _profiled(engine, ids, mask, 1, trace)
+        full = _profiled(engine, ids, mask, NEW, trace)
+        steps = NEW - 1
+        decode = {
+            "kernel_ms_per_step": {
+                k: (full["kernel_ms"][k] - prefill["kernel_ms"][k]) / steps
+                for k in full["kernel_ms"]},
+            "device_busy_ms_per_step": (full["device_busy_ms"]
+                                        - prefill["device_busy_ms"]) / steps,
+            "wall_ms_per_step": (full["wall_ms"] - prefill["wall_ms"]) / steps,
+        }
+        decode["idle_share"] = 1.0 - decode["device_busy_ms_per_step"] \
+            / decode["wall_ms_per_step"]
+        out["runs"][weights] = {"prefill": prefill, "full": full,
+                                "decode": decode}
+        print(f"{weights} prefill: {json.dumps(prefill)}", flush=True)
+        print(f"{weights} decode (per step): {json.dumps(decode)}",
+              flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(ROOT, "chiprun_out", "generate_profile.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    print(out["device"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
