@@ -13,31 +13,52 @@ Phases, each printed on its own line; any failure exits non-zero:
    flushed before each run as the step finds it cold), the bound (the
    larger of bytes / 3.35 TB/s and FLOPs over the type's peak) and, where
    one PyTorch call computes the same function, that call's time:
-   K6 ragged paged attention at the serving step's shapes; K1/K2 flash
-   attention forward, dQ and dK/dV at the training step's (B 8, H 16,
-   T 1024, D 64, bf16, causal), with gradients through the autograd
-   function; K3 fused Adam over the whole Llama-400M parameter list; K4
+   K6 ragged paged attention at the serving step's shapes; K7a paged
+   decode attention (B 8, H 32, Hkv 8, D 128, 1024 pages of 16 tokens, a
+   table 128 wide, seeded contexts up to 2048, bf16, plus an int8 pool, a
+   window, idle sentinel rows and fp32) and K7b paged chunked-prefill
+   attention (B 1, T 64 on the same pool: chunk_start 0, mid-prompt,
+   behind a 512-token prefix, a padded tail, int8, window) of the
+   two-program serving engine; K1/K2 flash attention forward, dQ and
+   dK/dV at the training step's (B 8, H 16, T 1024, D 64, bf16, causal),
+   with gradients through the autograd function, and K1's masked,
+   GQA-native forward at the generate prefill's shapes (B 8, T 512, H 32,
+   Hkv 8, D 128, bf16, left-padded masks) and at a bucketed serving
+   prompt (B 1, T 1024); K3 fused Adam over the whole Llama-400M parameter list; K4
    decode attention at the generate step's shapes (B 8, H 32, Hkv 8,
    D 128, cache 576, bf16, left-padded key masks) and an int8 cache, a
    window and an fp32 case; K5 quantized matmul at Llama-3-8B projection
    shapes (decode M 8 and prefill M 4096, int8 per-column and int4 group
    64) plus fp32 and ragged cases; K8 per-column int8 matmul;
 4. small references: a 2-layer fp32 model served with K6 (and K5, with
-   int8 weights) and with their plain versions (identical tokens),
-   generating with K4/K5 and with their plain versions (identical
-   tokens; fp32, int8 and int4 weights, int8 cache, window 64), and
+   int8 weights) and with their plain versions (identical tokens), served
+   through the two-program engine with K7a/K7b (chunked, with the prefix
+   cache) and with K7a and the masked K1 (monolithic prefill) and with
+   their plain versions (identical tokens), generating with K4/K5 and with their plain versions (identical
+   tokens; fp32, int8 and int4 weights, int8 cache, window 64, and the
+   masked K1 prefill), and
    trained 5 steps with K1/K2/K3 and with their plain versions (losses
    within 1e-4 relative);
 5. serve: init_inference + ServingEngine on full-width Llama-3-8B (random
    bf16 weights from a seed, all 32 layers), 16 seeded requests to
    completion; asserts every request finished, no logit was flagged, no
-   page leaked, and the kernel ran once per layer per mixed step;
+   page leaked, and the kernel ran once per layer per mixed step; then
+   the two-program engine (mixed_step=False) on the same model and
+   weights: 16 seeded requests, 4 shared 512-token prefixes x 4, suffixes
+   64-512, 32-64 new tokens, with the prefix cache and 64-token chunks
+   under a 256-token budget (asserts >= 12 prefix hits, K7a launched 32 x
+   decode forwards, K7b 32 x chunk forwards, K6 never), then the same
+   requests without the cache through the monolithic bucketed prefill
+   with prefill_flash_from_empty (asserts the masked K1 launched 32 x
+   prefills);
 6. generate: init_inference + InferenceEngine.generate on full-width
    Llama-3-8B (random bf16 weights from seed 0), batch 8, left-padded
    prompts of seeded lengths 128-512 (bucket 512), 64 greedy new tokens,
-   once with bf16 weights and once with quantize_weights="int8"; asserts
-   the output shape, finite logits, K4 launched 32 x 63 times and, with
-   int8 weights, K5 launched 7 x 32 x 64 times;
+   once with bf16 weights, once with quantize_weights="int8" and once
+   with bf16 weights and prefill_flash_from_empty; asserts the output
+   shape, finite logits, K4 launched 32 x 63 times, with int8 weights K5
+   launched 7 x 32 x 64 times, and with the flag the masked K1 launched
+   32 times;
 7. train: initialize + train_batch on full-width Llama-400M (random
    weights from seed 0, all 24 layers), the JAX package's bench config
    (batch 8 x 1024, AdamW, bf16, clipping 1.0), 2 warm-up and 10 timed
@@ -248,6 +269,165 @@ def check_ragged_attention():
 
 
 # ---------------------------------------------------------------------------
+# kernels K7a and K7b: paged decode and paged chunked-prefill attention
+# ---------------------------------------------------------------------------
+
+PAGED_CHUNK = 64
+PAGED_DECODE_MAIN = "bf16"
+PAGED_PREFILL_MAIN = "behind_prefix512"
+_DECODE_CONTEXTS = (2048, 1536, 1100, 777, 512, 300, 64, 17)
+PAGED_CASES = {
+    # name: (T, Hq, Hkv, Dh, dtype, int8 pool, window, rows); rows are
+    # (chunk_start, context_len) per sequence, None = an idle slot (a
+    # sentinel table row with context 1); T == 1 is the decode kernel
+    "decode": {
+        "bf16": (1, H, HKV, D, torch.bfloat16, False, None,
+                 [(c - 1, c) for c in _DECODE_CONTEXTS]),
+        "int8": (1, H, HKV, D, torch.bfloat16, True, None,
+                 [(c - 1, c) for c in _DECODE_CONTEXTS]),
+        "window256": (1, H, HKV, D, torch.bfloat16, False, 256,
+                      [(c - 1, c) for c in _DECODE_CONTEXTS]),
+        "idle_sentinel": (1, H, HKV, D, torch.bfloat16, False, None,
+                          [None, (99, 100), None, (1039, 1040), (0, 0),
+                           (15, 16), None, (2047, 2048)]),
+        "fp32_d64_g1": (1, 8, 8, 64, torch.float32, False, None,
+                        [(c - 1, c) for c in (1000, 333, 16, 1)]),
+    },
+    "prefill": {
+        "start0": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, False, None,
+                   [(0, 64)]),
+        "mid_prompt": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, False, None,
+                       [(960, 1024)]),
+        "behind_prefix512": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, False,
+                             None, [(512, 576)]),
+        "padded_tail": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, False, None,
+                        [(1024, 1047)]),
+        "int8": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, True, None,
+                 [(512, 576)]),
+        "window256": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, False, 256,
+                      [(960, 1024)]),
+        "fp32_d64_b3": (40, 8, 4, 64, torch.float32, False, None,
+                        [(0, 40), (100, 117), (2008, 2048)]),
+    },
+}
+
+
+def paged_case(T, Hq, Hkv, Dh, dtype, int8, rows, seed):
+    """q ``[B, T, Hq, Dh]``, a pool of ``N_PAGES`` pages, a table ``NB``
+    wide whose rows own distinct seeded pages covering their context (the
+    rest is the sentinel ``N_PAGES``), and the chunk starts and context
+    lengths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(rows)
+    bt = torch.full((B, NB), N_PAGES, dtype=torch.int32)
+    cs = torch.zeros(B, dtype=torch.int32)
+    cl = torch.ones(B, dtype=torch.int32)
+    perm = np.random.RandomState(seed).permutation(N_PAGES)
+    used = 0
+    for b, row in enumerate(rows):
+        if row is None:
+            continue
+        cs[b], cl[b] = row
+        pages = -(-row[1] // BS)
+        bt[b, :pages] = torch.from_numpy(perm[used:used + pages]
+                                         .astype(np.int32))
+        used += pages
+    assert used <= N_PAGES
+    shape = (N_PAGES, Hkv, BS, Dh)
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+        scales = {n: torch.rand(shape[:3], generator=g, device="cuda") / 64
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+                for _ in range(2))
+        scales = {}
+    q = torch.randn((B, T, Hq, Dh), generator=g, device="cuda", dtype=dtype)
+    return q, k, v, bt.cuda(), cs.cuda(), cl.cuda(), scales
+
+
+def paged_bound(T, Hq, Hkv, Dh, dtype, int8, window, rows):
+    """``(ms, "bytes" | "operations")``: least time for the function on
+    these inputs. Bytes: the K/V (and scales) of every key some row of the
+    chunk sees, once per kv head, the q rows inside the context, the whole
+    output, the table and the descriptors, over HBM bandwidth. FLOPs: 4 D
+    per (query head, visible key) of every row, at the peak of q's type."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    key_bytes = Hkv * (2 * Dh * (1 if int8 else e) + (8 if int8 else 0))
+    B = len(rows)
+    nbytes = B * T * Hq * Dh * e + 4 * (B * NB + 2 * B)
+    pairs = 0
+    for row in rows:
+        start, clen = row if row is not None else (0, 1)
+        pos = start + np.arange(T)
+        pos = pos[pos < clen]
+        if not len(pos):
+            continue
+        lo = np.maximum(pos - window + 1, 0) if window is not None \
+            else 0 * pos
+        pairs += int((pos - lo + 1).sum())
+        nbytes += (int(pos[-1]) - int(lo[0]) + 1) * key_bytes \
+            + len(pos) * Hq * Dh * e
+    return bound(nbytes, 4 * Hq * Dh * pairs,
+                 BF16_FLOP_PER_S if dtype == torch.bfloat16
+                 else FP32_FLOP_PER_S)
+
+
+def check_paged_attention():
+    """K7a and K7b against their plain versions. Tolerance: fp32 1e-5
+    (summation order only); bf16 |kernel - plain| <= 2**-7 * |plain| + 1e-3
+    (both are bf16 roundings of fp32 results that differ only in summation
+    order: one bf16 ulp). No library yardstick: no single PyTorch call
+    reads a paged pool through a block table."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+
+    results = {"decode": {}, "prefill": {}}
+    for kind, cases in PAGED_CASES.items():
+        for name, (T, Hq, Hkv, Dh, dtype, int8, window, rows) in \
+                cases.items():
+            q, k, v, bt, cs, cl, scales = paged_case(
+                T, Hq, Hkv, Dh, dtype, int8, rows,
+                seed=len(results[kind]) + (61 if kind == "decode" else 71))
+            kw = dict(window=window, **scales)
+            if kind == "decode":
+                args = (q[:, 0].contiguous(), k, v, bt, cl)
+                kernel, plain = da.paged_decode_attention, \
+                    da.paged_decode_attention_plain
+            else:
+                args = (q, k, v, bt, cs, cl)
+                kernel, plain = da.paged_prefill_attention, \
+                    da.paged_prefill_attention_plain
+            got = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs()
+            rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else \
+                (2 ** -7, 1e-3)
+            if not bool((err <= rtol * ref.float().abs() + atol).all()) \
+                    or not bool(torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"paged_{kind}_attention {name} disagrees with its "
+                    f"plain version (max |err| {float(err.max()):.3e})")
+            ms = cuda_time_ms(lambda: kernel(*args, **kw))
+            plain_ms = cuda_time_ms(lambda: plain(*args, **kw), reps=5,
+                                    warmup=1)
+            bms, by = paged_bound(T, Hq, Hkv, Dh, dtype, int8, window, rows)
+            results[kind][name] = dict(
+                max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
+            log(f"parity paged_{kind}_attention {name} (B {len(rows)} T {T} "
+                f"H {Hq} Hkv {Hkv} D {Dh} {str(dtype)[6:]} int8 {int8} "
+                f"window {window} (chunk_start, context) {rows}): ok "
+                f"max_abs_err={float(err.max()):.3e} (tolerance "
+                f"{rtol:g}*|plain|+{atol:g}) | kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.3f} bound_ms={bms:.4f} ({by}) "
+                f"library_ms=None")
+            del q, k, v, got, ref, args, scales
+    return results
+
+
+# ---------------------------------------------------------------------------
 # kernels K1 and K2: flash attention forward, dQ, dK/dV
 # ---------------------------------------------------------------------------
 
@@ -262,6 +442,94 @@ FLASH_CASES = {
     "uneven_t1000": (2, 8, 1000, 1000, 64, torch.bfloat16, True, None),
     "full_fp32": (2, 4, 300, 300, 64, torch.float32, False, None),
 }
+
+
+# K1's masked, GQA-native forward: the generate prefill's shapes, and a
+# serving prompt of 777 tokens in its 1024 bucket
+FLASH_MASKED_MAIN = "generate_prefill"
+FLASH_MASKED_CASES = {
+    # name: (B, Hq, Hkv, T, Dh, dtype, window, real tokens per row, left pad)
+    "generate_prefill": (8, H, HKV, 512, D, torch.bfloat16, None,
+                         (175, 487, 300, 512, 128, 401, 256, 350), True),
+    "serving_bucket1024": (1, H, HKV, 1024, D, torch.bfloat16, None, (777,),
+                           False),
+    "fp32_window128": (2, 8, 2, 300, 64, torch.float32, 128, (300, 190),
+                       True),
+}
+
+
+def check_masked_flash_attention():
+    """K1's key-mask mode (un-repeated kv heads, causal, a key mask that
+    hides left or right padding) against the plain version. Tolerances as
+    for the unmasked forward. Library yardstick: SDPA with a boolean mask
+    (causal and key mask) and enable_gqa. Bound: q, k, v, the mask, out
+    and lse moved once; 4 D FLOPs per (query head, visible pair)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    for case, (B, Hq, Hkv, T, Dh, dtype, window, lens, left) in \
+            FLASH_MASKED_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(len(results) + 81)
+        q = torch.randn(B, T, Hq, Dh, generator=g, device="cuda", dtype=dtype)
+        k, v = (torch.randn(B, T, Hkv, Dh, generator=g, device="cuda",
+                            dtype=dtype) for _ in range(2))
+        ar = np.arange(T)[None]
+        n = np.asarray(lens)[:, None]
+        mask_np = (ar >= T - n) if left else (ar < n)
+        mask = torch.from_numpy(mask_np.astype(np.int32)).cuda()
+        kw = dict(causal=True, window=window)
+        out, lse = fa.flash_attention_fwd_masked(q, k, v, mask, **kw)
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, key_mask=mask,
+                                                    **kw)
+        torch.cuda.synchronize()
+        fp32 = dtype == torch.float32
+        rtol, atol = (1e-5, 1e-5) if fp32 else (2 ** -7, 2e-2)
+        seen = torch.isfinite(ref_lse)
+        errs = {"out": (out.float() - ref_out.float()).abs(),
+                "lse": (lse[seen] - ref_lse[seen]).abs()}
+        ok = torch.equal(seen, torch.isfinite(lse)) and \
+            bool((errs["out"] <= rtol * ref_out.float().abs() + atol).all()) \
+            and bool((errs["lse"] <= 1e-5 * ref_lse[seen].abs() + 1e-4).all())
+        errs = {name: float(e.max()) for name, e in errs.items()}
+        if not ok:
+            raise AssertionError(f"masked flash attention {case} disagrees "
+                                 f"with the plain version (max |err| {errs})")
+        ms = cuda_time_ms(
+            lambda: fa.flash_attention_fwd_masked(q, k, v, mask, **kw))
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, key_mask=mask, **kw), reps=5, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        i = torch.arange(T, device="cuda")
+        am = (i[:, None] >= i[None, :])[None, None] & \
+            (mask > 0)[:, None, None, :]
+        if window is not None:
+            am = am & (i[:, None] - i[None, :] < window)[None, None]
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=am, enable_gqa=True))
+        pairs = 0
+        for row in mask_np:
+            vis = np.tril(np.ones((T, T), bool)) & row[None, :]
+            if window is not None:
+                vis &= (ar.T - ar) < window
+            pairs += int(vis.sum())
+        e = q.element_size()
+        bms, by = bound(2 * B * T * Hq * Dh * e + 2 * B * T * Hkv * Dh * e
+                        + B * Hq * T * 4 + B * T * 4, 4 * Hq * Dh * pairs,
+                        FP32_FLOP_PER_S if fp32 else BF16_FLOP_PER_S)
+        results[case] = dict(max_abs_err=max(errs.values()), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=library_ms)
+        log(f"parity flash_attention_fwd_masked {case} (B {B} H {Hq} Hkv "
+            f"{Hkv} T {T} D {Dh} {str(dtype)[6:]} window {window} real "
+            f"tokens {lens} {'left' if left else 'right'}-padded): ok "
+            f"max_abs_err out={errs['out']:.3e} lse={errs['lse']:.3e} "
+            f"(tolerance {rtol:g}*|plain|+{atol:g}) | kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={bms:.4f} ({by}) "
+            f"library_ms={library_ms:.4f}")
+        del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt, am
+    return results
 
 
 def visible_pairs(Tq, Tk, causal, window):
@@ -300,7 +568,8 @@ def check_flash_attention():
     |kernel - plain| <= 2**-7 |plain| + 2e-2 (both are bf16 roundings of
     fp32 results that differ in summation order: one bf16 ulp). Times and
     library yardsticks (SDPA forward, and its autograd backward for both
-    K2 kernels) on every case."""
+    K2 kernels) on every case. Then the forward's masked, GQA-native
+    cases. Returns ``(results, masked results)``."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -389,7 +658,7 @@ def check_flash_attention():
                 f"({r['bound_by']}) library_ms={r['library_ms']}"
                 for part, r in results[case].items()))
         del q, k, v, do, out, lse, dq, dk, dv, ref, pairs
-    return results
+    return results, check_masked_flash_attention()
 
 
 # ---------------------------------------------------------------------------
@@ -716,36 +985,60 @@ def check_quant_matmul():
 # the serving path
 # ---------------------------------------------------------------------------
 
-def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
-          dtype, device="cuda", quantize_weights=None):
-    """init_inference + ServingEngine on ``cfg`` with seeded random
-    weights; serves seeded traffic to completion and returns the engine,
-    the request ids, the outputs, the wall time and the kernel launches
-    of the run."""
-    import deepspeed_tpu_torch as dt
-    from deepspeed_tpu_torch.models import LlamaForCausalLM
+def serving_kernels():
+    """The wrappers of the serving paths' attention kernels, by name: K6,
+    K7a, K7b and the masked K1."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd_masked
     from deepspeed_tpu_torch.ops.ragged_attention import ragged_paged_attention
 
+    return {"ragged_paged_attention": ragged_paged_attention,
+            "paged_decode_attention": da.paged_decode_attention,
+            "paged_prefill_attention": da.paged_prefill_attention,
+            "flash_attention_fwd_masked": flash_attention_fwd_masked}
+
+
+def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
+          dtype, device="cuda", quantize_weights=None, phases=None,
+          params=None):
+    """init_inference + ServingEngine on ``cfg`` with seeded random
+    weights (or ``params``, a state_dict already on the device); serves
+    seeded traffic to completion and returns the engine, the request ids,
+    the outputs, the wall time and the launches of each serving kernel in
+    the run. ``phases``, a list of lists of ``(prompt, max_new_tokens)``,
+    replaces the seeded traffic: each phase is submitted together and
+    drained before the next."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+
     model = LlamaForCausalLM(cfg)
-    params = model.init_params(seed=params_seed, dtype=dtype, device=device)
+    if params is None:
+        params = model.init_params(seed=params_seed, dtype=dtype,
+                                   device=device)
     engine = dt.init_inference(model, params=params, dtype=dtype,
                                device=device,
                                quantize_weights=quantize_weights)
     srv = dt.ServingEngine(engine, dt.ServingConfig(**scfg))
-    rs = np.random.RandomState(params_seed)
-    rids = []
-    for _ in range(n_requests):
-        n = int(rs.randint(prompt_range[0], prompt_range[1] + 1))
-        rids.append(srv.submit(rs.randint(0, cfg.vocab_size, n),
-                               max_new_tokens=int(rs.randint(
-                                   new_range[0], new_range[1] + 1))))
-    torch.cuda.synchronize()
-    ragged_paged_attention.launches = 0
+    if phases is None:
+        rs = np.random.RandomState(params_seed)
+        phases = [[(rs.randint(0, cfg.vocab_size, int(rs.randint(
+            prompt_range[0], prompt_range[1] + 1))), int(rs.randint(
+                new_range[0], new_range[1] + 1))) for _ in range(n_requests)]]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernels = serving_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    rids, res = [], {}
     t0 = time.perf_counter()
-    res = srv.run()
-    torch.cuda.synchronize()
+    for phase in phases:
+        rids += [srv.submit(prompt, max_new_tokens=n) for prompt, n in phase]
+        res = srv.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return srv, rids, res, wall, ragged_paged_attention.launches
+    return srv, rids, res, wall, {n: fn.launches for n, fn in kernels.items()}
 
 
 #: the small fp32 reference model: 2 layers, head_dim 128, GQA group 2
@@ -756,19 +1049,31 @@ SMALL_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
 
 class plain_route:
     """Inside the block, the model's kernel wrappers are swapped for their
-    plain versions (K6, K4 and K5 calls run the plain PyTorch code)."""
+    plain versions (K6, K7a, K7b, K4, K5 and masked K1 calls run the plain
+    PyTorch code)."""
 
     def __enter__(self):
         from deepspeed_tpu_torch.models import layers as layers_mod
         from deepspeed_tpu_torch.models import llama as llama_mod
         from deepspeed_tpu_torch.ops import decode_attention as da
+        from deepspeed_tpu_torch.ops import flash_attention as fa
         from deepspeed_tpu_torch.ops import quant_matmul as qm
         from deepspeed_tpu_torch.ops import ragged_attention as ra
 
+        def masked_plain(q, k, v, causal=True, sm_scale=None, window=None,
+                         key_mask=None):
+            return fa.flash_attention_plain(q, k, v, causal, sm_scale,
+                                            window, key_mask=key_mask)[0]
+
         self.saved = [(llama_mod, "ragged_paged_attention",
                        ra.ragged_paged_attention_plain),
+                      (llama_mod, "paged_decode_attention",
+                       da.paged_decode_attention_plain),
+                      (llama_mod, "paged_prefill_attention",
+                       da.paged_prefill_attention_plain),
                       (llama_mod, "decode_attention",
                        da.decode_attention_plain),
+                      (layers_mod, "flash_attention", masked_plain),
                       (layers_mod, "quant_matmul", qm.quant_matmul_plain)]
         self.saved = [(mod, name, getattr(mod, name), plain)
                       for mod, name, plain in self.saved]
@@ -796,12 +1101,13 @@ def check_small_reference():
             quant_matmul.launches = 0
             with plain_route() if route == "plain" else \
                     contextlib.nullcontext():
-                srv, rids, res, _, k6 = serve(
+                srv, rids, res, _, counts = serve(
                     cfg, 3, 6, (5, 90), (4, 12),
                     dict(max_batch_size=4, block_size=16, num_blocks=64,
                          max_model_len=128, prefill_token_budget=32),
                     torch.float32, quantize_weights=weights)
-            launches[route] = (k6, quant_matmul.launches)
+            launches[route] = (counts["ragged_paged_attention"],
+                               quant_matmul.launches)
             tokens[route] = [(res[r].state, res[r].tokens) for r in rids]
         ok = tokens["kernel"] == tokens["plain"] and \
             all(s == "finished" for s, _ in tokens["kernel"]) and \
@@ -816,6 +1122,77 @@ def check_small_reference():
             raise AssertionError(f"kernels and plain versions served "
                                  f"different tokens on the small fp32 model "
                                  f"(weights {weights or 'fp32'})")
+
+
+def shared_prefix_phases(vocab, n_prefixes, per_prefix, prefix_len,
+                         suffix_range, new_range, seed):
+    """Seeded shared-prefix traffic in two phases: the first request of
+    every prefix, then all the others (pages index as chunks land, so a
+    request hits only what an earlier one has written). Each prompt is its
+    group's ``prefix_len`` tokens plus a unique suffix."""
+    rs = np.random.RandomState(seed)
+    prefixes = [rs.randint(0, vocab, prefix_len) for _ in range(n_prefixes)]
+    reqs = [(np.concatenate([prefixes[g], rs.randint(0, vocab, int(
+        rs.randint(suffix_range[0], suffix_range[1] + 1)))]),
+        int(rs.randint(new_range[0], new_range[1] + 1)))
+        for _ in range(per_prefix) for g in range(n_prefixes)]
+    return [reqs[:n_prefixes], reqs[n_prefixes:]]
+
+
+def check_small_legacy_reference(device="cuda"):
+    """The two-program engine on the 2-layer fp32 model, once as shipped
+    (the kernels) and once with the model's kernel wrappers swapped for
+    their plain versions: identical greedy tokens. Two configurations:
+    chunked prefill with the prefix cache on shared-prefix traffic (K7a
+    and K7b), and the monolithic prefill with prefill_flash_from_empty
+    (K7a and the masked K1)."""
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    phases = shared_prefix_phases(SMALL_CFG["vocab_size"], 2, 3, 32, (3, 40),
+                                  (4, 12), 5)
+    base = dict(max_batch_size=4, block_size=16, num_blocks=64,
+                max_model_len=128, mixed_step=False)
+    cases = {
+        "chunked+prefix_cache": (
+            {}, dict(base, prefix_cache=True, prefill_chunk_tokens=16,
+                     prefill_token_budget=32),
+            ("paged_decode_attention", "paged_prefill_attention")),
+        "monolithic+flash": (
+            {"prefill_flash_from_empty": True}, base,
+            ("paged_decode_attention", "flash_attention_fwd_masked")),
+    }
+    for name, (over, scfg, expected) in cases.items():
+        cfg = LlamaConfig(**SMALL_CFG, **over)
+        tokens, launches, hits = {}, {}, {}
+        for route in ("kernel", "plain"):
+            with plain_route() if route == "plain" else \
+                    contextlib.nullcontext():
+                srv, rids, res, _, launches[route] = serve(
+                    cfg, 3, 0, None, None, scfg, torch.float32,
+                    device=device, phases=phases)
+            tokens[route] = [(res[r].state, res[r].tokens) for r in rids]
+            hits[route] = srv.metrics.prefix_hits
+            srv.block_pool.check_consistent()
+            if srv.block_pool.used_count:
+                raise AssertionError(f"small two-program serve {name}: "
+                                     f"{srv.block_pool.used_count} pages "
+                                     f"leaked")
+        ran = {n for n, c in launches["kernel"].items() if c}
+        ok = tokens["kernel"] == tokens["plain"] and \
+            all(st == "finished" for st, _ in tokens["kernel"]) and \
+            ran == set(expected) and not any(launches["plain"].values()) \
+            and hits["kernel"] == hits["plain"] and \
+            (hits["kernel"] >= 4) == scfg.get("prefix_cache", False)
+        log(f"reference: 2-layer fp32 model served by the two-program "
+            f"engine, {name}, kernels vs plain versions, "
+            f"{len(tokens['kernel'])} requests: tokens identical="
+            f"{tokens['kernel'] == tokens['plain']} ok={ok} (prefix hits "
+            f"{hits['kernel']}, launches {launches['kernel']} / "
+            f"{launches['plain']})")
+        if not ok:
+            raise AssertionError(f"small two-program serve {name}: kernels "
+                                 f"and plain versions disagree or a route "
+                                 f"launched the wrong kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -843,11 +1220,13 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     engine's first-use costs, the second's time is the prefill's), then
     the counted ``generate``: the kernel counts are set to 0 just before
     it. Returns the tokens, the engine, the prefill and total seconds, the
-    launches of K4 and K5 in the counted run, and whether every logit of
-    it was finite."""
+    launches of K4, K5 and the masked K1 in the counted run, and whether
+    every logit of it was finite."""
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import LlamaForCausalLM
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.flash_attention import \
+        flash_attention_fwd_masked
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
 
     model = LlamaForCausalLM(cfg)
@@ -865,13 +1244,15 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     engine.generate(ids, attention_mask=mask, max_new_tokens=1)
     finite.clear()
     decode_attention.launches = quant_matmul.launches = 0
+    flash_attention_fwd_masked.launches = 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out = engine.generate(ids, attention_mask=mask,
                           max_new_tokens=max_new_tokens)
     prefill_s, total_s = engine.model_times()
     return out, engine, prefill_s, total_s, \
-        (decode_attention.launches, quant_matmul.launches), \
+        (decode_attention.launches, quant_matmul.launches,
+         flash_attention_fwd_masked.launches), \
         bool(torch.stack(finite).all())
 
 
@@ -881,15 +1262,17 @@ def check_small_generate_reference(device="cuda"):
     once with the model's kernel wrappers swapped for their plain
     versions: tokens must be identical (fp32 summation order is the only
     difference), the kernel route must launch K4 (and K5 with quantized
-    weights), the plain route nothing. Cases: fp32 weights, int8 and int4
-    weights, an int8 cache, window 64."""
+    weights, the masked K1 once per layer with the flash prefill), the
+    plain route nothing. Cases: fp32 weights, int8 and int4 weights, an
+    int8 cache, window 64, prefill_flash_from_empty."""
     from deepspeed_tpu_torch.models import LlamaConfig
 
     ids, mask = left_padded_prompts(SMALL_CFG["vocab_size"], 4, 5, 90, 7)
     cases = {"fp32": ({}, {}), "int8": ({}, {"quantize_weights": "int8"}),
              "int4": ({}, {"quantize_weights": "int4"}),
              "kv_int8": ({}, {"kv_cache_int8": True}),
-             "window64": ({"sliding_window": 64}, {})}
+             "window64": ({"sliding_window": 64}, {}),
+             "flash_prefill": ({"prefill_flash_from_empty": True}, {})}
     for name, (over, kw) in cases.items():
         cfg = LlamaConfig(**SMALL_CFG, **over)
         got = {}
@@ -902,13 +1285,15 @@ def check_small_generate_reference(device="cuda"):
                     kv_cache_int8=kw.get("kv_cache_int8", False))
             got[route] = (out.cpu().tolist(), launches, finite)
         quant = "quantize_weights" in kw
+        flash = cfg.num_hidden_layers * cfg.prefill_flash_from_empty
         ok = got["kernel"][0] == got["plain"][0] and got["kernel"][2] and \
             got["kernel"][1][0] > 0 and \
-            (got["kernel"][1][1] > 0) == quant and got["plain"][1] == (0, 0)
+            (got["kernel"][1][1] > 0) == quant and \
+            got["kernel"][1][2] == flash and got["plain"][1] == (0, 0, 0)
         log(f"reference: 2-layer fp32 model generate {name}, kernels vs "
             f"plain versions, 4 prompts x 24 tokens: tokens identical="
-            f"{got['kernel'][0] == got['plain'][0]} ok={ok} (K4, K5 "
-            f"launches {got['kernel'][1]} / {got['plain'][1]})")
+            f"{got['kernel'][0] == got['plain'][0]} ok={ok} (K4, K5, masked "
+            f"K1 launches {got['kernel'][1]} / {got['plain'][1]})")
         if not ok:
             raise AssertionError(f"small generate {name}: kernels and plain "
                                  f"versions disagree or a route launched "
@@ -919,41 +1304,46 @@ def check_generate():
     """Full-width Llama-3-8B (all 32 layers, random bf16 weights from seed
     0) through init_inference -> generate: batch 8, left-padded prompts of
     seeded lengths 128-512 (bucketed to 512), 64 greedy new tokens, no
-    EOS; once with bf16 weights and once with int8 weights."""
+    EOS; once with bf16 weights, once with int8 weights, and once with
+    bf16 weights and prefill_flash_from_empty (the prefill through the
+    masked K1 instead of the plain cached attention)."""
     from deepspeed_tpu_torch.models import LlamaConfig
 
-    cfg = LlamaConfig.llama3_8b()
-    L = cfg.num_hidden_layers
-    ids, mask = left_padded_prompts(cfg.vocab_size, GEN_B, 128, GEN_PROMPT,
-                                    0)
+    L = LlamaConfig.llama3_8b().num_hidden_layers
+    ids, mask = left_padded_prompts(LlamaConfig.llama3_8b().vocab_size,
+                                    GEN_B, 128, GEN_PROMPT, 0)
     launches = {}
-    for weights in (None, "int8"):
+    for weights, flash in ((None, False), ("int8", False), (None, True)):
+        cfg = LlamaConfig.llama3_8b(prefill_flash_from_empty=flash)
         t = time.perf_counter()
-        out, engine, prefill_s, total_s, (k4, k5), finite = generate_run(
-            cfg, torch.bfloat16, weights, ids, mask, GEN_NEW)
+        out, engine, prefill_s, total_s, (k4, k5, k1m), finite = \
+            generate_run(cfg, torch.bfloat16, weights, ids, mask, GEN_NEW)
         setup = time.perf_counter() - t - prefill_s - total_s
         decode_ms = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"generate: llama3_8b x{L} layers, weights {weights or 'bf16'}, "
-            f"batch {GEN_B}, prompts {int(mask.sum(1).min())}-"
+            f"prefill_flash_from_empty {flash}, batch {GEN_B}, prompts {int(mask.sum(1).min())}-"
             f"{int(mask.sum(1).max())} tokens (bucket {GEN_PROMPT}), "
             f"{GEN_NEW} new tokens: prefill {1e3 * prefill_s:.2f} ms, mean "
             f"decode step {decode_ms:.3f} ms, total {1e3 * total_s:.2f} ms "
             f"= {GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
-            f"{peak:.1f} GiB, setup {setup:.1f} s, launches K4 {k4} K5 {k5}, "
-            f"quant {engine.quant_summary or None}")
-        want = (L * (GEN_NEW - 1), 7 * L * GEN_NEW if weights else 0)
+            f"{peak:.1f} GiB, setup {setup:.1f} s, launches K4 {k4} K5 {k5} "
+            f"masked K1 {k1m}, quant {engine.quant_summary or None}")
+        want = (L * (GEN_NEW - 1), 7 * L * GEN_NEW if weights else 0,
+                L if flash else 0)
         problems = []
         if tuple(out.shape) != (GEN_B, GEN_NEW):
             problems.append(f"output shape {tuple(out.shape)}")
         if not finite:
             problems.append("a logit is not finite")
-        if (k4, k5) != want:
-            problems.append(f"launches K4, K5 {(k4, k5)} != {want}")
+        if (k4, k5, k1m) != want:
+            problems.append(f"launches K4, K5, masked K1 {(k4, k5, k1m)} "
+                            f"!= {want}")
         if problems:
-            raise AssertionError(f"generate ({weights or 'bf16'}): "
-                                 + "; ".join(problems))
-        launches[weights or "bf16"] = (k4, k5)
+            raise AssertionError(f"generate ({weights or 'bf16'}, flash "
+                                 f"{flash}): " + "; ".join(problems))
+        launches[(weights or "bf16") + ("_flash" if flash else "")] = \
+            (k4, k5, k1m)
         del out, engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -994,12 +1384,103 @@ def check_serving():
         problems.append(f"{m.logit_quarantines} rows flagged NaN/Inf")
     if srv.block_pool.used_count:
         problems.append(f"{srv.block_pool.used_count} pages leaked")
-    if launches == 0 or launches != cfg.num_hidden_layers * steps:
+    k6 = launches["ragged_paged_attention"]
+    if k6 == 0 or k6 != cfg.num_hidden_layers * steps or \
+            sum(launches.values()) != k6:
         problems.append(f"kernel launches {launches} != "
-                        f"{cfg.num_hidden_layers} x {steps} mixed steps")
+                        f"{cfg.num_hidden_layers} x {steps} mixed steps of "
+                        f"K6 alone")
     if problems:
         raise AssertionError("serve: " + "; ".join(problems))
-    return launches
+    return k6
+
+
+#: the two-program engine's full-width run: slots, pages and lengths of
+#: check_serving, 64-token chunks under a 256-token budget
+LEGACY_SCFG = dict(max_batch_size=8, block_size=16, num_blocks=1024,
+                   max_model_len=2048, mixed_step=False, trace=True,
+                   trace_capacity=1 << 16)
+
+
+def check_serving_legacy():
+    """Full-width Llama-3-8B (all 32 layers, random bf16 weights from seed
+    0) through the two-program engine: 16 seeded requests, 4 shared
+    512-token prefixes x 4 requests, unique suffixes of 64-512 tokens,
+    32-64 new tokens. First with the prefix cache, 64-token chunks and a
+    256-token budget (K7a and K7b; the first request of each prefix is
+    served before the other twelve arrive, so those hit its pages), then
+    the same requests at once without the cache through the monolithic
+    bucketed prefill with prefill_flash_from_empty (K7a and the masked
+    K1). Returns the launches of each run."""
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    base = LlamaConfig.llama3_8b()
+    L = base.num_hidden_layers
+    phases = shared_prefix_phases(base.vocab_size, 4, 4, 512, (64, 512),
+                                  (32, 64), 0)
+    params = LlamaForCausalLM(base).init_params(
+        seed=0, dtype=torch.bfloat16, device="cuda")
+    runs = {
+        "chunked+prefix_cache": (
+            base, dict(LEGACY_SCFG, prefix_cache=True,
+                       prefill_chunk_tokens=PAGED_CHUNK,
+                       prefill_token_budget=256), phases),
+        "monolithic+flash": (
+            LlamaConfig.llama3_8b(prefill_flash_from_empty=True),
+            LEGACY_SCFG, [phases[0] + phases[1]]),
+    }
+    out = {}
+    for name, (cfg, scfg, traffic) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        srv, rids, res, wall, launches = serve(
+            cfg, 0, 0, None, None, scfg, torch.bfloat16, phases=traffic,
+            params=params)
+        m = srv.metrics
+        snap = m.snapshot()
+        finished = sum(res[r].state == "finished" for r in rids)
+        log(f"serve two-program {name}: llama3_8b x{L} layers bf16, "
+            f"{len(rids)} requests (4 x 4 sharing 512-token prefixes), "
+            f"{finished} finished, {m.steps} steps, {srv.decode_calls} "
+            f"decode forwards, {srv.prefill_chunk_calls} chunk forwards, "
+            f"{srv.prefill_calls} monolithic prefills, wall {wall:.3f} s, "
+            f"generated {m.tokens_generated} tokens = "
+            f"{m.tokens_generated / wall:.1f} tok/s, prefill "
+            f"{m.prefill_tokens} tokens ({m.prefill_tokens_computed} "
+            f"computed, {m.cached_prefill_tokens} cached, hit rate "
+            f"{m.prefix_hit_rate:.3f}, {m.prefix_hits} prefix hits, "
+            f"{m.cow_copies} page copies), ttft_p50 "
+            f"{snap.get('ttft_p50_s', float('nan')):.3f} s, mean step "
+            f"{1e3 * wall / max(m.steps, 1):.2f} ms, preemptions "
+            f"{m.preemptions}, quarantines {m.logit_quarantines}, launches "
+            f"{launches}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        srv.block_pool.check_consistent()
+        cached = scfg.get("prefix_cache", False)
+        want = {"ragged_paged_attention": 0,
+                "paged_decode_attention": L * srv.decode_calls,
+                "paged_prefill_attention": L * srv.prefill_chunk_calls,
+                "flash_attention_fwd_masked": L * srv.prefill_calls}
+        problems = []
+        if finished != len(rids):
+            problems.append(f"{len(rids) - finished} requests did not finish")
+        if m.logit_quarantines:
+            problems.append(f"{m.logit_quarantines} rows flagged NaN/Inf")
+        if srv.block_pool.used_count:
+            problems.append(f"{srv.block_pool.used_count} pages leaked")
+        if launches != want or not srv.decode_calls or \
+                bool(srv.prefill_chunk_calls) != cached or \
+                bool(srv.prefill_calls) == cached:
+            problems.append(f"launches {launches} != {want}")
+        if cached and m.prefix_hits < 12:
+            problems.append(f"{m.prefix_hits} prefix hits < 12")
+        if problems:
+            raise AssertionError(f"serve two-program {name}: "
+                                 + "; ".join(problems))
+        out[name] = launches
+        del srv, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1165,14 +1646,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ragged = check_ragged_attention()
-    flash = check_flash_attention()
+    paged = check_paged_attention()
+    flash, flash_masked = check_flash_attention()
     adam = check_fused_adam()
     decode = check_decode_attention()
     quant, int8_col = check_quant_matmul()
     check_small_reference()
+    check_small_legacy_reference()
     check_small_generate_reference()
     check_small_train_reference()
     serve_launches = check_serving()
+    gc.collect()
+    torch.cuda.empty_cache()
+    legacy_launches = check_serving_legacy()
     gc.collect()
     torch.cuda.empty_cache()
     gen_launches = check_generate()
@@ -1191,7 +1677,29 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
     }]
+    # K7a and K7b: launches of the two-program serve with the prefix cache
+    decode_src = "deepspeed_tpu/ops/pallas/decode_attention.py"
+    for name, kind, main_name, line in (
+            ("paged_decode_attention", "decode", PAGED_DECODE_MAIN, 254),
+            ("paged_prefill_attention", "prefill", PAGED_PREFILL_MAIN, 425)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/paged_attention.cu",
+            replaces=f"{decode_src}:{line}",
+            launches=legacy_launches["chunked+prefix_cache"][name],
+            **dict(paged[kind][main_name], max_abs_err=max(
+                r["max_abs_err"] for r in paged[kind].values()))))
     flash_src = "deepspeed_tpu/ops/pallas/flash_attention.py"
+    # K1's masked mode: launches of the two-program serve's monolithic
+    # prefills (the 8B generate with the flag adds one per layer)
+    kernels.append(dict(
+        name="flash_attention_fwd_masked", route="cuda",
+        source="deepspeed_tpu_torch/csrc/flash_attention.cu",
+        replaces=f"{flash_src}:41",
+        launches=legacy_launches["monolithic+flash"][
+            "flash_attention_fwd_masked"],
+        **dict(flash_masked[FLASH_MASKED_MAIN], max_abs_err=max(
+            r["max_abs_err"] for r in flash_masked.values()))))
     for name, part, line in (("flash_attention_fwd", "fwd", 41),
                              ("flash_attention_bwd_dq", "dq", 175),
                              ("flash_attention_bwd_dkv", "dkv", 221)):

@@ -8,7 +8,10 @@
 //   _bwd_dkv_kernel -> dkv_kernel  (dK and dV, looping over query tiles)
 // and computes the same function over q/k/v in the model layout
 // [B, T, H, D] (kv heads already repeated): out = softmax(q k^T * scale +
-// mask) v with fp32 softmax. Causality is bottom-right aligned: row i sees
+// mask) v with fp32 softmax. The forward also has the TPU kernel's masked,
+// GQA-native mode (flash_attention_fwd_masked): k/v keep their Hkv heads
+// (query head h reads kv head h / (H / Hkv)) and a key mask [B, Tk] int32
+// (1 = real token) hides padded keys; it is forward-only. Causality is bottom-right aligned: row i sees
 // column j iff i + (Tk - Tq) >= j; a window also needs
 // i + (Tk - Tq) - j < window. lse = m + log(l) is [B, H, Tq] fp32. The
 // backward recomputes P = exp(S - lse): dV = P^T dO, dP = dO V^T,
@@ -59,7 +62,9 @@ struct Params {
   void* out;           // forward: out; dq kernel: dq; dkv kernel: dk
   void* out2;          // dkv kernel: dv
   float* lse_out;      // forward only
-  int B, H, Tq, Tk, causal, window;  // window <= 0: none
+  const int* kmask;    // forward only: [B, Tk] key mask, or null
+  int B, H, Hkv, Tq, Tk, causal, window;  // window <= 0: none; Hkv: heads
+                                          // of k and v (H unless masked)
   float sm_scale;
 };
 
@@ -174,6 +179,8 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   float* ks = qs + BT * (D + 1);
   float* vs = ks + BT * (D + 1);
   float* ps = vs + BT * (D + 1);
+  int* km = reinterpret_cast<int*>(ps + BT * PS);  // this tile's key mask
+  const int hk = h / (p.H / p.Hkv);
 
   int t_lo, t_hi;
   key_tiles(p, row0, &t_lo, &t_hi);
@@ -192,8 +199,12 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int c0 = t * BT;
     __syncthreads();  // the last tile's P.V is done with ks, vs and ps
-    load_tile<E, D>(ks, p.k, b, h, c0, p.Tk, p.H);
-    load_tile<E, D>(vs, p.v, b, h, c0, p.Tk, p.H);
+    load_tile<E, D>(ks, p.k, b, hk, c0, p.Tk, p.Hkv);
+    load_tile<E, D>(vs, p.v, b, hk, c0, p.Tk, p.Hkv);
+    if (tid < BT)
+      km[tid] = p.kmask == nullptr ||
+                (c0 + tid < p.Tk &&
+                 p.kmask[static_cast<size_t>(b) * p.Tk + c0 + tid] > 0);
     __syncthreads();
     float s[4][4];
     tile_scores<D>(s, qs, ks, ty, tx);
@@ -203,8 +214,9 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = visible(p, row, c0 + tx + 16 * j) ? s[i][j] * p.sm_scale
-                                                     : -INFINITY;
+        s[i][j] = visible(p, row, c0 + tx + 16 * j) && km[tx + 16 * j]
+                      ? s[i][j] * p.sm_scale
+                      : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m_run[i], row_max(mx));
@@ -403,7 +415,7 @@ int launch(Which which, const Params& p, cudaStream_t stream) {
   int bytes, tiles;
   if (which == FWD) {
     kernel = fwd_kernel<E, D>;
-    bytes = 3 * tile + score;
+    bytes = 3 * tile + score + BT * 4;
     tiles = (p.Tq + BT - 1) / BT;
   } else if (which == DQ) {
     kernel = dq_kernel<E, D>;
@@ -441,6 +453,7 @@ Params make(const void* q, const void* k, const void* v, int B, int H,
   p.v = v;
   p.B = B;
   p.H = H;
+  p.Hkv = H;
   p.Tq = Tq;
   p.Tk = Tk;
   p.causal = causal;
@@ -462,6 +475,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int causal, int window, float sm_scale,
                                    int bf16, void* stream) {
   Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale);
+  p.out = out;
+  p.lse_out = lse;
+  return dispatch(FWD, p, D, bf16, stream);
+}
+
+// The masked, GQA-native forward: k/v [B, Tk, Hkv, D] with H % Hkv == 0,
+// key_mask int32 [B, Tk] (> 0 = real key). Forward only.
+extern "C" int flash_attention_fwd_masked(const void* q, const void* k,
+                                          const void* v, const void* key_mask,
+                                          void* out, float* lse, int B, int H,
+                                          int Hkv, int Tq, int Tk, int D,
+                                          int causal, int window,
+                                          float sm_scale, int bf16,
+                                          void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale);
+  p.Hkv = Hkv;
+  p.kmask = static_cast<const int*>(key_mask);
   p.out = out;
   p.lse_out = lse;
   return dispatch(FWD, p, D, bf16, stream);

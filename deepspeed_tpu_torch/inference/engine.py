@@ -157,7 +157,10 @@ class InferenceEngine:
         Prompts of differing lengths must be LEFT-padded
         (``attention_mask`` zeros on the left), so the last column is each
         row's newest token; positions and key masking handle the pads.
-        Sampling draws from a ``torch.Generator`` seeded with ``seed``
+        The prefill attends through the plain cached attention, or, when
+        the model's ``prefill_flash_from_empty`` is set, through the flash
+        kernel's masked forward over the fresh K/V (kernel K1). Sampling
+        draws from a ``torch.Generator`` seeded with ``seed``
         (it cannot reproduce ``jax.random``'s draws)."""
         ids = self._tensor(input_ids, torch.long)
         if ids.dim() == 1:

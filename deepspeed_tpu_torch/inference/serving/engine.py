@@ -1,13 +1,27 @@
 """Continuous-batching serving engine over a paged KV-cache pool.
 
-Counterpart of ``deepspeed_tpu/inference/serving/engine.py`` with its
-unified MIXED step: each :meth:`ServingEngine.step` packs one decode token
-per running resident plus this step's budgeted prefill chunks into one
-flat token batch of fixed width (``max_batch_size - 1 + budget``), and
-raggedness (segment offsets/lengths, chunk starts, context lengths, block
-tables) rides as data. The model appends every packed token's KV into the
-pool through its row's block table and attends decode rows and chunk rows
-with the same ragged paged attention kernel.
+Counterpart of ``deepspeed_tpu/inference/serving/engine.py``. By default
+it runs the unified MIXED step: each :meth:`ServingEngine.step` packs one
+decode token per running resident plus this step's budgeted prefill chunks
+into one flat token batch of fixed width (``max_batch_size - 1 + budget``),
+and raggedness (segment offsets/lengths, chunk starts, context lengths,
+block tables) rides as data. The model appends every packed token's KV
+into the pool through its row's block table and attends decode rows and
+chunk rows with the same ragged paged attention kernel (K6).
+
+``ServingConfig(mixed_step=False)`` is the two-program engine the unified
+step replaced, kept for comparison: the prefill half of a step runs up to
+``prefill_token_budget`` prompt tokens as ``[1, chunk]`` forwards that
+attend the pool (kernel K7b), or, with chunking off, each admitted prompt
+as one monolithic forward padded to a power of two (the masked flash
+kernel when the model's ``prefill_flash_from_empty`` is set); then one
+decode forward over ALL slots (kernel K7a), where idle and mid-prefill
+slots ride as sentinel rows that read and append nothing.
+
+``prefix_cache=True`` works in both: full pages are content-indexed as
+they fill, admission reuses each prompt's longest cached prefix, shared
+pages are copied on write before any append, and a page's hash commits
+only after the logit guard passed the tokens that fill it.
 
 Per step:
 
@@ -35,20 +49,19 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ...models.layers import harvest_packed_logits, paged_cache_index
+from ...models.layers import (copy_paged_blocks, harvest_packed_logits,
+                              paged_cache_index)
 from ...monitor.tracing import Tracer
 from ...utils.logging import log_dist
-from ..engine import InferenceEngine, _sample_logits
-from .block_pool import BlockPool
+from ..engine import InferenceEngine, _sample_logits, next_pow2
+from .block_pool import BlockPool, chain_hash
 from .metrics import ServingMetrics
 from .scheduler import RejectedError, Request, RequestState, Scheduler
 
 #: ServingConfig knobs of the JAX engine that later slices bring, with the
 #: value that means "off" and the slice (ROADMAP.md Queue 1) that adds them
 _DEFERRED = {
-    "mixed_step": (True, "the legacy two-program engine"),
     "mixed_step_buckets": (False, "the CUDA-graph step widths"),
-    "prefix_cache": (False, "the prefix cache with copy-on-write"),
     "spec_tokens": (0, "speculative decoding"),
     "host_cache_blocks": (0, "the host KV tier"),
     "step_watchdog_s": (0.0, "the step watchdog and fault injection"),
@@ -76,11 +89,28 @@ class ServingConfig:
     top_p: float = 1.0
     #: seeds the engine's torch.Generator (sampling draws)
     seed: int = 0
-    #: per-row per-round granularity of prefill budget packing (0 = 4 *
-    #: block_size); a row may take several rounds in one step
+    #: True: the unified packed step (one forward per step). False: the
+    #: two-program engine (chunked or monolithic prefill forwards, then a
+    #: decode forward over all slots), kept for comparison
+    mixed_step: bool = True
+    #: smallest prefill bucket: the two-program engine's monolithic
+    #: prefill pads prompt lengths up to powers of two from here
+    prefill_bucket_min: int = 8
+    #: content-addressed KV reuse: full pages are indexed by a key chained
+    #: over the token prefix; admission reuses each prompt's longest
+    #: cached prefix (copy-on-write on divergence) and prefills only the
+    #: suffix; unreferenced pages stay warm and are evicted LRU. Implies
+    #: chunked prefill (the from-empty monolithic prefill cannot attend a
+    #: cached prefix)
+    prefix_cache: bool = False
+    #: prefill chunk length in tokens. Unified step: the per-row per-round
+    #: granularity of budget packing (0 = 4 * block_size; a row may take
+    #: several rounds in one step). Two-program engine: the ``[1, chunk]``
+    #: shape of a chunked-prefill forward (0 = monolithic bucketed
+    #: prefill, or 4 * block_size with ``prefix_cache``)
     prefill_chunk_tokens: int = 0
-    #: prompt tokens per step; also sizes the packed batch
-    #: (max_batch_size - 1 + budget). 0 = one chunk's worth per step
+    #: prompt tokens per step; on the unified step it also sizes the
+    #: packed batch (max_batch_size - 1 + budget). 0 = one chunk's worth
     prefill_token_budget: int = 0
     # -- overload control ---------------------------------------------
     #: queued requests beyond this are rejected (0 = unbounded); a
@@ -103,9 +133,7 @@ class ServingConfig:
     trace: bool = False
     trace_capacity: int = 8192
     # -- knobs later slices implement (see _DEFERRED) ------------------
-    mixed_step: bool = True
     mixed_step_buckets: bool = False
-    prefix_cache: bool = False
     spec_tokens: int = 0
     host_cache_blocks: int = 0
     step_watchdog_s: float = 0.0
@@ -149,8 +177,15 @@ class ServingEngine:
             raise ValueError(
                 "prefill_chunk_tokens and prefill_token_budget must be "
                 ">= 0 (0 = default)")
-        chunk = cfg.prefill_chunk_tokens or 4 * cfg.block_size
-        self._chunk = min(chunk, cfg.max_model_len)
+        # chunk length (unified: the budget-packing granularity;
+        # two-program: the chunked-prefill shape, 0 = monolithic bucketed
+        # prefill) and the per-step prefill token budget: derived, never
+        # written back into the caller's config
+        self._mixed = bool(cfg.mixed_step)
+        chunk = cfg.prefill_chunk_tokens
+        if chunk <= 0 and (self._mixed or cfg.prefix_cache):
+            chunk = 4 * cfg.block_size
+        self._chunk = min(chunk, cfg.max_model_len) if chunk > 0 else 0
         self._chunk_budget = cfg.prefill_token_budget or self._chunk
         # packed token capacity: every slot may decode (1 token each) OR,
         # with a slot mid-prefill, max_batch_size - 1 decoders plus the
@@ -160,9 +195,11 @@ class ServingEngine:
 
         self.tracer = Tracer(capacity=cfg.trace_capacity, enabled=cfg.trace)
         self.nb_max = cfg.max_model_len // cfg.block_size
-        self.block_pool = BlockPool(cfg.num_blocks, cfg.block_size)
+        self.block_pool = BlockPool(cfg.num_blocks, cfg.block_size,
+                                    tracer=self.tracer)
         self.sched = Scheduler(cfg.max_batch_size, self.block_pool,
-                               self.nb_max, tracer=self.tracer)
+                               self.nb_max, prefix_cache=cfg.prefix_cache,
+                               tracer=self.tracer)
         self.metrics = ServingMetrics(blocks_total=cfg.num_blocks)
 
         kv_dtype = torch.int8 if engine.config.kv_cache_int8 \
@@ -174,15 +211,23 @@ class ServingEngine:
         B = cfg.max_batch_size
         self._tables = np.full((B, self.nb_max), self.block_pool.sentinel,
                                np.int32)
+        #: tokens in the pool per decoding slot (0 for idle and mid-prefill
+        #: slots): the two-program engine's decode reads it for every slot
+        self._seq_lens = np.zeros((B,), np.int32)
         self._last_tok = np.zeros((B,), np.int32)
         self._requests: Dict[str, Request] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._step_no = 0
+        #: forwards the two-program engine has run, by kind
+        self.decode_calls = 0
+        self.prefill_chunk_calls = 0
+        self.prefill_calls = 0
         self._draining = False
         #: manual brownout override: None = automatic (occupancy), else forced
         self._brownout_forced: Optional[bool] = None
-        #: the packed step has one fixed shape, so it is "built" once
-        self.compile_counts = {"mixed_step": 0}
+        #: the packed step has one fixed shape, so it is "built" once; the
+        #: two-program engine's plain methods have nothing to count
+        self.compile_counts = {"mixed_step": 0} if self._mixed else {}
         log_dist(f"ServingEngine: slots={B}, pool={cfg.num_blocks}x"
                  f"{cfg.block_size} ({kv_dtype}), max_len="
                  f"{cfg.max_model_len}, device={self.device}", ranks=[0])
@@ -239,12 +284,17 @@ class ServingEngine:
         # gate — a reject must never destroy queued work.
         victims: List[Request] = []
         displaceable = self.sched.displaceable(priority)
+        # hash the newcomer's full blocks ONCE: the headroom gate and the
+        # Request both consume these keys
+        prompt_hashes = self.block_pool.prefix_block_hashes(prompt) \
+            if cfg.prefix_cache else None
         if cfg.kv_headroom_blocks is not None:
             budget = self.block_pool.num_blocks - cfg.kv_headroom_blocks
             it = iter(displaceable)
             while True:
                 charges, newcomer = self.sched.admission_charges(
                     newcomer_len=len(prompt),
+                    newcomer_hashes=prompt_hashes,
                     exclude={v.rid for v in victims})
                 demand = (self.block_pool.used_count
                           + sum(charges.values()) + newcomer)
@@ -291,7 +341,7 @@ class ServingEngine:
             else time.perf_counter() + float(deadline_s)
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       eos_token_id=eos_token_id, priority=priority,
-                      deadline=deadline)
+                      deadline=deadline, block_hashes=prompt_hashes or [])
         if not self.sched.has_work():
             # traffic resuming after a drain (or first ever): re-anchor the
             # throughput window
@@ -417,13 +467,39 @@ class ServingEngine:
     def has_work(self) -> bool:
         return self.sched.has_work()
 
+    def defrag(self) -> int:
+        """Compact live pages (referenced and cached) to the low end of
+        the pool, moving their contents on the device and rewriting the
+        block tables. Returns the number of pages that moved."""
+        mapping, src = self.block_pool.defrag_plan()
+        moved = sum(1 for old, new in mapping.items() if old != new)
+        if moved:
+            idx = torch.as_tensor(src, dtype=torch.long, device=self.device)
+            for t in self.pool.values():
+                t.copy_(t[:, idx])     # the gather is a copy: no aliasing
+        for _, req in self.sched.active():
+            req.blocks = [mapping[b] for b in req.blocks]
+            if self._mixed or not req.prefilling:
+                # the two-program engine keeps a sentinel decode row for a
+                # mid-prefill resident until its last chunk lands
+                self._write_table_row(req)
+        return moved
+
+    @property
+    def prefill_chunk_tokens(self) -> int:
+        """The effective prefill chunk length (0 = the two-program
+        engine's monolithic prefill); it may differ from the config field,
+        which is never mutated."""
+        return self._chunk
+
     # ------------------------------------------------------------------
     # one scheduler step
     # ------------------------------------------------------------------
 
     def step(self) -> None:
-        """Shed expired requests, admit from the queue, then run one packed
-        mixed step over every running resident."""
+        """Shed expired requests, admit from the queue, then run the
+        device half: one packed mixed step, or the two-program engine's
+        prefill forwards and its decode over all slots."""
         t0 = time.perf_counter()
         now = time.perf_counter()
         self.sched.expire_queued(now)
@@ -442,12 +518,30 @@ class ServingEngine:
                 if capped < req.max_new_tokens:
                     req.max_new_tokens = capped
                     self.metrics.brownout_admissions += 1
-            # the request's table row is live from admission: its packed
-            # segments carry their own query_len, so an un-granted row is
-            # inert
-            self._write_table_row(req)
+            if req.prefix_len:
+                # prefix-cache hit: these tokens are served without being
+                # recomputed (their pages were acquired, not refilled)
+                self.metrics.prefix_hits += 1
+                self.metrics.cached_prefill_tokens += req.prefix_len
+                self.metrics.prefill_tokens += req.prefix_len
+            if self._mixed:
+                # the request's table row is live from admission: its
+                # packed segments carry their own query_len, so an
+                # un-granted row is inert
+                self._write_table_row(req)
+            elif not self._chunk:
+                self._prefill(req)
+            # chunked two-program prefill runs below, under the budget;
+            # the slot keeps a sentinel decode row until its last chunk
         self._account_reaped()
-        self._step_mixed(t0, brownout)
+        if self._mixed:
+            self._step_mixed(t0, brownout)
+            return
+        if self._chunk:
+            self._run_prefill_chunks()
+        self._grow_decode_pages()
+        self._decode_step()
+        self._finish_step_bookkeeping(t0, brownout)
 
     def _finish_step_bookkeeping(self, t0: float, brownout: bool) -> None:
         if self.tracer.enabled:
@@ -460,6 +554,8 @@ class ServingEngine:
         m.queue_depth = self.sched.queue_depth
         m.active_seqs = len(self.sched.active())
         m.blocks_used = self.block_pool.used_count
+        m.blocks_cached = self.block_pool.cached_count
+        m.prefix_evictions = self.block_pool.evictions
         prefilling = [r for _, r in self.sched.active() if r.prefilling]
         m.prefill_waiting = len(prefilling)
         m.prefill_queue_age_s = 0.0 if not prefilling else \
@@ -469,7 +565,8 @@ class ServingEngine:
     def _grow_decode_pages(self) -> None:
         """Guarantee every decoding resident a page for the token this step
         appends, preempting (lowest priority, newest first) when the pool
-        runs dry."""
+        runs dry; a shared append target is copied on write."""
+        bs = self.block_pool.block_size
         for _, req in list(self.sched.active()):
             if req.state is not RequestState.RUNNING or req.prefilling:
                 continue  # preempted below while growing an earlier slot
@@ -485,6 +582,8 @@ class ServingEngine:
                     break
                 self._preempt(victim)
             else:
+                # never append into a page other sequences still reference
+                self._ensure_exclusive(req, req.seq_len // bs)
                 self._write_table_row(req)  # growth may have added a page
                 continue
             break
@@ -500,8 +599,14 @@ class ServingEngine:
         self._grow_decode_pages()
         grants = self.sched.plan_prefill_grants(self._chunk_budget,
                                                 self._chunk)
+        bs = self.block_pool.block_size
         for _, req in self.sched.active():
             if req.prefilling and req.rid in grants:
+                # copy-on-write every chunk-spanned page another sequence
+                # still references, before this step's appends
+                start, n = req.prefill_done, grants[req.rid]
+                for idx in range(start // bs, (start + n - 1) // bs + 1):
+                    self._ensure_exclusive(req, idx)
                 self._write_table_row(req)
 
         # pack segments slot-ascending: decode rows are 1 token, granted
@@ -562,9 +667,12 @@ class ServingEngine:
             self.metrics.prefill_tokens += n
             self.metrics.prefill_tokens_computed += n
             self.metrics.window_tokens += n
+            # guard every chunk, and BEFORE content-indexing: poisoned KV
+            # must never park on the prefix cache's LRU
             if cfg.logit_guard and bad[slot]:
                 self._quarantine(slot, req, step_no, where="prefill")
                 continue
+            self._commit_full_blocks(req)
             if final:
                 # last chunk: token one (TTFT ends here) is the row's last
                 # packed position; the slot decodes from the next step
@@ -574,6 +682,9 @@ class ServingEngine:
                 self._quarantine(slot, req, step_no, where="decode")
                 continue
             req.seq_len += 1
+            # a generated token may have just filled a page: index it so
+            # identical continuations (multi-turn replays) reuse it
+            self._commit_full_blocks(req)
             self._harvest(req, int(toks[row_start[slot]]))
         self._finish_step_bookkeeping(t0, brownout)
 
@@ -600,6 +711,219 @@ class ServingEngine:
                                  cfg.temperature, cfg.top_k, cfg.top_p)
         return tok.cpu().numpy(), bad.cpu().numpy()
 
+    # ------------------------------------------------------------------
+    # the two-program engine (mixed_step=False)
+    # ------------------------------------------------------------------
+
+    def _forward_last(self, ids: np.ndarray, idx, last_pos):
+        """One model forward over ``ids [B, T]`` with the paged bundle
+        ``idx`` (the pool is appended in place); samples each row's
+        position ``last_pos`` (a ``[B]`` tensor, or None for ``T == 1``).
+        Returns host ``(tokens [B], bad [B])``, ``bad`` flagging rows
+        whose sampled logits hold a NaN/Inf."""
+        cfg = self.config
+        with torch.inference_mode():
+            ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+            logits, self.pool = self.engine.module(ids_t, cache=self.pool,
+                                                   cache_index=idx)
+            if last_pos is None:
+                last = logits[:, 0]
+            else:
+                last = logits[torch.arange(logits.shape[0],
+                                           device=self.device), last_pos]
+            bad = ~torch.isfinite(last).all(dim=-1)
+            tok = _sample_logits(last, self._gen, cfg.do_sample,
+                                 cfg.temperature, cfg.top_k, cfg.top_p)
+        return tok.cpu().numpy(), bad.cpu().numpy()
+
+    def _prefill(self, req: Request) -> None:
+        """The monolithic prefill: the admitted request's (resume-)prompt
+        as one forward padded to a power of two, which appends its KV into
+        its pages and samples token one. It attends the fresh K/V only, so
+        it needs a from-empty sequence and never runs with the prefix
+        cache on. The pads (``append_pos = -1``) are what the key mask of
+        the from-empty attention hides."""
+        tokens = req.resume_tokens
+        L = len(tokens)
+        Tb = next_pow2(max(L, self.config.prefill_bucket_min))
+        self._write_table_row(req)
+        ids = np.zeros((1, Tb), np.int32)
+        ids[0, :L] = tokens
+        ar = np.arange(Tb)[None, :]
+        idx = paged_cache_index(self._tables[req.slot][None],
+                                np.where(ar < L, ar, -1), [L],
+                                device=self.device)
+        tr = self.tracer
+        t_pf = time.perf_counter()
+        tok, bad = self._forward_last(
+            ids, idx, torch.tensor([L - 1], device=self.device))
+        if tr.enabled:
+            tr.complete("prefill", t_pf, time.perf_counter(), cat="engine",
+                        args={"rid": req.rid, "tokens": L, "bucket": Tb})
+        self.prefill_calls += 1
+        req.seq_len = L
+        req.prefill_done = L
+        self._seq_lens[req.slot] = L
+        self.metrics.prefill_tokens += L
+        self.metrics.prefill_tokens_computed += L
+        self.metrics.window_tokens += L
+        if self.config.logit_guard and bool(bad[0]):
+            self._quarantine(req.slot, req, self._step_no, where="prefill")
+            return
+        self._harvest(req, int(tok[0]))
+
+    def _run_prefill_chunks(self) -> None:
+        """Spend this step's prefill token budget: round-robin one chunk at
+        a time across mid-prefill residents (admission order) until the
+        budget is gone or nobody is owed prefill. The decode always runs
+        after: the budget is what bounds prefill's share of the step."""
+        budget = self._chunk_budget
+        while budget > 0:
+            pending = sorted((r for _, r in self.sched.active()
+                              if r.prefilling), key=lambda r: r.admit_order)
+            if not pending:
+                return
+            progressed = False
+            for req in pending:
+                if budget <= 0:
+                    return
+                n = min(self._chunk, budget,
+                        req.prefill_target - req.prefill_done)
+                if n <= 0:
+                    continue
+                self._prefill_chunk(req, n)
+                budget -= n
+                progressed = True
+            if not progressed:
+                return
+
+    def _prefill_chunk(self, req: Request, n: int) -> None:
+        """Run ``n`` prompt tokens (<= the chunk length) as one ``[1,
+        chunk]`` forward that attends the pool: the cached prefix and the
+        earlier chunks live only there. The chunk's offset, valid length
+        and table ride as data. The final chunk samples token one (TTFT)
+        and activates the slot for the decode step."""
+        tokens = req.resume_tokens
+        start = req.prefill_done
+        bs = self.block_pool.block_size
+        # copy-on-write any target page another sequence still references
+        for idx in range(start // bs, (start + n - 1) // bs + 1):
+            self._ensure_exclusive(req, idx)
+        ids = np.zeros((1, self._chunk), np.int32)
+        ids[0, :n] = tokens[start:start + n]
+        ar = np.arange(self._chunk)[None, :]
+        cidx = paged_cache_index(self._table_row(req),
+                                 np.where(ar < n, start + ar, -1),
+                                 [start + n], chunk_start=[start],
+                                 device=self.device)
+        tr = self.tracer
+        t_ck = time.perf_counter()
+        tok, bad = self._forward_last(
+            ids, cidx, torch.tensor([n - 1], device=self.device))
+        if tr.enabled:
+            tr.complete("prefill_chunk", t_ck, time.perf_counter(),
+                        cat="engine",
+                        args={"rid": req.rid, "start": start, "tokens": n})
+        self.prefill_chunk_calls += 1
+        req.prefill_done = start + n
+        req.seq_len = start + n
+        self.metrics.prefill_tokens += n
+        self.metrics.prefill_tokens_computed += n
+        self.metrics.window_tokens += n
+        # guard every chunk (its last position attends everything before
+        # it) and BEFORE content-indexing: a quarantined request's pages
+        # must blank on release, never park on the LRU
+        if self.config.logit_guard and bool(bad[0]):
+            self._quarantine(req.slot, req, self._step_no,
+                             where="prefill_chunk")
+            return
+        self._commit_full_blocks(req)
+        if req.prefill_done < req.prefill_target:
+            return  # mid-prompt: no token sampled, the slot stays idle
+        self._write_table_row(req)
+        self._seq_lens[req.slot] = req.seq_len
+        self._harvest(req, int(tok[0]))
+
+    def _decode_step(self) -> None:
+        """The decode forward over ALL slots: every decoding resident
+        appends its last token at ``seq_len`` and attends ``seq_len + 1``
+        keys. Idle and mid-prefill slots carry a sentinel table row and
+        ``seq_len`` 0: their append is dropped, they read no allocated
+        page, and their output is never harvested."""
+        active = [(s, r) for s, r in self.sched.active()
+                  if r.state is RequestState.RUNNING and not r.prefilling]
+        if not active:
+            return
+        idx = paged_cache_index(self._tables, self._seq_lens[:, None],
+                                self._seq_lens + 1, device=self.device)
+        tr = self.tracer
+        t_dec = time.perf_counter()
+        toks, bad = self._forward_last(self._last_tok[:, None], idx, None)
+        step_no = self._step_no
+        if tr.enabled:
+            tr.complete("decode_step", t_dec, time.perf_counter(),
+                        cat="engine",
+                        args={"step": step_no, "active": len(active)})
+        self.decode_calls += 1
+        for slot, req in active:
+            if self.config.logit_guard and bad[slot]:
+                self._quarantine(slot, req, step_no, where="decode")
+                continue
+            req.seq_len += 1
+            self._seq_lens[slot] = req.seq_len
+            # a generated token may have just filled a page: index it so
+            # identical continuations (multi-turn replays) reuse it
+            self._commit_full_blocks(req)
+            self._harvest(req, int(toks[slot]))
+
+    # ------------------------------------------------------------------
+    # prefix cache: copy-on-write and hash commits (both engines)
+    # ------------------------------------------------------------------
+
+    def _ensure_exclusive(self, req: Request, block_idx: int) -> None:
+        """Copy-on-write guard for append paths: the page at ``block_idx``
+        of the request's table must be referenced only by this request
+        before anything scatters into it. Shared pages are forked
+        (``BlockPool.cow``) and copied on the device, before this step's
+        appends on the same stream; the table is rewritten by the
+        caller."""
+        if block_idx >= len(req.blocks):
+            return  # page not allocated yet (growth allocates exclusively)
+        bid = req.blocks[block_idx]
+        if not self.block_pool.is_shared(bid):
+            return
+        new = self.block_pool.cow(bid, req.rid)
+        copy_paged_blocks(self.pool, [bid], [new])
+        req.blocks[block_idx] = new
+        self.metrics.cow_copies += 1
+        if self.tracer.enabled:
+            self.tracer.instant("cow", cat="pool",
+                                args={"rid": req.rid, "src": bid,
+                                      "dst": new})
+
+    def _commit_full_blocks(self, req: Request) -> None:
+        """Content-index every COMPLETELY written page of this sequence
+        (key chained over the prefix) so later identical prompts reuse it.
+        Cheap and idempotent: already-indexed pages return at once. The
+        callers run it only after the logit guard passed."""
+        if not self.config.prefix_cache:
+            return
+        bs = self.block_pool.block_size
+        full = req.seq_len // bs
+        tokens = None
+        while len(req.block_hashes) < full:
+            # generated tokens filled pages past the admission-time keys
+            j = len(req.block_hashes)
+            if tokens is None:
+                tokens = req.resume_tokens
+            prev = req.block_hashes[j - 1] if j else None
+            req.block_hashes.append(self.block_pool.canonical_key(
+                chain_hash(prev, tokens[j * bs:(j + 1) * bs])))
+        for idx in range(req.committed_blocks, full):
+            self.block_pool.commit_hash(req.blocks[idx],
+                                        req.block_hashes[idx])
+        req.committed_blocks = max(req.committed_blocks, full)
+
     def _quarantine(self, slot: int, req: Request, step_no: int,
                     where: str) -> None:
         """NaN/Inf logits on one packed row: quarantine THAT request
@@ -624,15 +948,20 @@ class ServingEngine:
             self.metrics.requests_timeout += len(self.sched.reaped)
             self.sched.reaped.clear()
 
+    def _table_row(self, req: Request) -> np.ndarray:
+        """``[1, nb_max]``: the request's pages, then the sentinel."""
+        row = np.full((1, self.nb_max), self.block_pool.sentinel, np.int32)
+        row[0, :len(req.blocks)] = req.blocks
+        return row
+
     def _write_table_row(self, req: Request) -> None:
-        row = np.full((self.nb_max,), self.block_pool.sentinel, np.int32)
-        row[:len(req.blocks)] = req.blocks
-        self._tables[req.slot] = row
+        self._tables[req.slot] = self._table_row(req)[0]
 
     def _clear_slot_arrays(self, slot: Optional[int]) -> None:
         if slot is None:
             return
         self._tables[slot] = self.block_pool.sentinel
+        self._seq_lens[slot] = 0
         self._last_tok[slot] = 0
 
     def _harvest(self, req: Request, token: int) -> None:

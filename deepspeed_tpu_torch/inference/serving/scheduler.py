@@ -1,9 +1,9 @@
 """Continuous-batching scheduler: FIFO admission, slot recycling, preemption.
 
 Counterpart of ``deepspeed_tpu/inference/serving/scheduler.py``, cut to
-what this slice of the port runs: the prefix-cache matching, host-tier
-promotion, speculative-decoding and SLO-hook state of the JAX scheduler
-arrive with the slices that port those features (ROADMAP.md Queue 1).
+what the port runs: the host-tier promotion, speculative-decoding and
+SLO-hook state of the JAX scheduler arrive with the slices that port those
+features (ROADMAP.md Queue 1).
 
 Pure host-side bookkeeping (no torch): which request sits in which decode
 slot, which pool pages it owns, and who gets evicted when the pool runs
@@ -37,7 +37,7 @@ from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
 from ...monitor.tracing import NULL_TRACER, Tracer
-from .block_pool import BlockPool
+from .block_pool import BlockPool, ChainKey
 
 
 class RequestState(enum.Enum):
@@ -82,6 +82,9 @@ class Request:
     slot: Optional[int] = None
     blocks: List[int] = field(default_factory=list)
     seq_len: int = 0          # tokens whose KV sits in the pool
+    #: tokens served from the prefix cache at the LATEST admission (their
+    #: KV was never recomputed); block-aligned by construction
+    prefix_len: int = 0
     #: resume tokens whose KV is in the pool so far — between admission and
     #: the last prefill chunk this trails ``prefill_target`` and the
     #: request sits in a slot WITHOUT decoding (chunked prefill)
@@ -91,6 +94,13 @@ class Request:
     #: comparing against it live would make a decoding request look
     #: perpetually mid-prefill)
     prefill_target: int = 0
+    #: chained content KEYS (block_pool.ChainKey) of the full blocks of
+    #: resume_tokens, set at submit/preempt and extended as generated
+    #: tokens fill further blocks
+    block_hashes: List[ChainKey] = field(default_factory=list)
+    #: watermark over ``blocks``: pages [0, committed_blocks) are already
+    #: content-indexed (commit is idempotent; this keeps it O(1) per step)
+    committed_blocks: int = 0
     submit_time: float = field(default_factory=time.perf_counter)
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
@@ -137,7 +147,7 @@ class Request:
     def resume_len(self) -> int:
         """len(resume_tokens) without materializing the concat — the
         admission gates scan the whole queue per submit and only need
-        lengths."""
+        lengths + the memoized block keys."""
         return len(self.prompt) + len(self.tokens)
 
     @property
@@ -153,10 +163,15 @@ class Request:
 
 class Scheduler:
     def __init__(self, num_slots: int, pool: BlockPool,
-                 max_blocks_per_seq: int, tracer: Optional[Tracer] = None):
+                 max_blocks_per_seq: int, prefix_cache: bool = False,
+                 tracer: Optional[Tracer] = None):
         self.num_slots = num_slots
         self.pool = pool
         self.max_blocks_per_seq = max_blocks_per_seq
+        #: content-addressed KV reuse: admission matches each prompt's
+        #: longest cached prefix and acquires those pages instead of
+        #: recomputing them
+        self.prefix_cache = prefix_cache
         #: span sink for the per-request timeline (NULL_TRACER = free).
         #: Identity check, not truthiness — an EMPTY tracer is len() 0
         #: and would falsely read as "no tracer"
@@ -220,20 +235,53 @@ class Scheduler:
                 f"cap; the pool serves at most "
                 f"{min(self.max_blocks_per_seq, self.pool.num_blocks)} per "
                 f"sequence (raise num_blocks/max_model_len)")
+        if self.prefix_cache and not req.block_hashes:
+            # hash ONCE per lifetime-segment (submit and preempt, when
+            # resume_tokens changes) — the headroom gate rescans the whole
+            # queue per submit, and rehashing every queued prompt there
+            # would make admission O(queue x prompt_len). The engine's
+            # submit already sets the keys; this covers direct scheduler
+            # users
+            req.block_hashes = self.pool.prefix_block_hashes(
+                req.resume_tokens)
         self.queue.append(req)
 
     def admission_charges(self, newcomer_len: Optional[int] = None,
+                          newcomer_hashes: Optional[List[ChainKey]] = None,
                           exclude=()):
         """Per-request KV-headroom charges for the whole queue (plus an
-        optional not-yet-queued newcomer), as ``({rid: blocks}, newcomer)``:
-        the pages each prefill would claim. ``exclude`` drops requests (by
-        rid) from the scan: the engine's displacement loop re-runs the
-        scan without its victims."""
-        charges = {r.rid: self.pool.blocks_for_tokens(r.resume_len)
-                   for r in self.queue if r.rid not in exclude}
-        newcomer = None if newcomer_len is None \
-            else self.pool.blocks_for_tokens(newcomer_len)
+        optional not-yet-queued newcomer), as ``({rid: blocks}, newcomer)``.
+
+        With the prefix cache on each charge is the request's
+        admission_charge_len — uncached suffix + cached pages it would
+        newly PIN — with one ``pinned_seen`` set threaded through the
+        whole scan, so a page shared by N queued sharers is charged once,
+        not N times. ``exclude`` drops requests (by rid) from the scan:
+        the engine's displacement loop re-runs the scan without its
+        victims rather than subtracting their charges — a shared pin
+        charged to a shed victim would otherwise be credited even though
+        a SURVIVING sharer still pins that page."""
+        pinned: set = set()
+        charges = {}
+        for r in self.queue:
+            if r.rid in exclude:
+                continue
+            charges[r.rid] = self.pool.admission_charge_len(
+                r.resume_len, r.block_hashes, pinned) if self.prefix_cache \
+                else self.pool.blocks_for_tokens(r.resume_len)
+        newcomer = None
+        if newcomer_len is not None:
+            newcomer = self.pool.admission_charge_len(
+                newcomer_len, newcomer_hashes, pinned) if self.prefix_cache \
+                else self.pool.blocks_for_tokens(newcomer_len)
         return charges, newcomer
+
+    def queued_block_demand(self) -> int:
+        """Prefill pages the queue would NEWLY claim if admitted right now
+        — the KV-headroom admission signal (sum of
+        :meth:`admission_charges`)."""
+        charges, _ = self.admission_charges()
+        return sum(charges.values())
 
     def expire_queued(self, now: Optional[float] = None) -> List[Request]:
         """Shed every queued request past its deadline (any position, not
@@ -266,14 +314,29 @@ class Scheduler:
         if slot is None:
             return None
         req = self.queue[0]
-        need_total = self.pool.blocks_for_tokens(req.resume_len)
-        if not self.pool.can_allocate(need_total):
+        tokens = req.resume_tokens
+        need_total = self.pool.blocks_for_tokens(len(tokens))
+        matched: List[int] = []
+        if self.prefix_cache:
+            # longest cached prefix (full blocks, chained content keys —
+            # computed once at submit/preempt — at least one token left to
+            # compute); acquire BEFORE the headroom check so the matched
+            # pages cannot be evicted from under us — on a failed admit
+            # they are released straight back to cached
+            matched = self.pool.match_prefix(tokens, req.block_hashes)
+            if matched:
+                self.pool.acquire(matched, req.rid)
+        if not self.pool.can_allocate(need_total - len(matched)):
+            if matched:
+                self.pool.free(matched, req.rid)
             return None
         self.queue.popleft()
-        req.blocks = self.pool.allocate(need_total, req.rid)
-        req.prefill_done = 0
-        req.prefill_target = req.resume_len
-        req.seq_len = 0
+        req.blocks = matched + self.pool.allocate(need_total - len(matched),
+                                                  req.rid)
+        req.prefix_len = len(matched) * self.pool.block_size
+        req.prefill_done = req.prefix_len
+        req.prefill_target = len(tokens)
+        req.seq_len = req.prefix_len
         req.slot = slot
         req.state = RequestState.RUNNING
         req.admit_order = next(self._admit_stamp)
@@ -284,6 +347,7 @@ class Scheduler:
         if self.tracer.enabled:
             self.tracer.instant("admit", cat="sched",
                                 args={"rid": req.rid,
+                                      "prefix_tokens": req.prefix_len,
                                       "queue_depth": len(self.queue)})
         self.slots[slot] = req
         return req
@@ -353,15 +417,24 @@ class Scheduler:
                       key=lambda r: (r.priority, -r.submit_time))
 
     def preempt(self, req: Request) -> None:
-        """Evict: free pages + slot, requeue at the FRONT carrying progress
-        (re-admission re-prefills ``resume_tokens``)."""
+        """Evict: free pages + slot, requeue at the FRONT carrying progress.
+        With the prefix cache on, the freed pages whose content was hashed
+        park on the cached LRU — re-admission matches them back and the
+        "recompute-style" resume recomputes almost nothing."""
         self.pool.free(req.blocks, req.rid)
         self.slots[req.slot] = None
         req.blocks = []
         req.slot = None
         req.seq_len = 0
+        req.prefix_len = 0
         req.prefill_done = 0
         req.prefill_target = 0
+        req.committed_blocks = 0
+        if self.prefix_cache:
+            # resume_tokens changed (generated tokens fold into the
+            # replayed prompt): re-key the full blocks once, here
+            req.block_hashes = self.pool.prefix_block_hashes(
+                req.resume_tokens)
         req.state = RequestState.QUEUED
         req.preemptions += 1
         # back to the queue: whatever phase was open (prefill or decode)

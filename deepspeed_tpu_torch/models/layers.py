@@ -2,7 +2,9 @@
 
 Counterparts of ``deepspeed_tpu/models/layers.py``. For the serving path:
 RMSNorm, rotary embeddings, int8 KV quantization, the paged pool, its
-index bundle, the packed append and the multi-position logit harvest.
+index bundle, the packed and the per-row append, the page copy of
+copy-on-write, the from-empty prefill attention and the multi-position
+logit harvest.
 For dense generation: the contiguous head-major cache, its append, the
 cached attention of a prefill and the cache bias. JAX arrays are
 immutable, so the JAX cache updates return new caches; here the cache
@@ -308,17 +310,19 @@ def _packed_write_targets(cache_index, num_blocks: int, block_size: int):
 
 
 def update_paged_kv_cache(layer_cache, k, v, cache_index):
-    """Append the packed step's ``[1, T, Hkv, D]`` keys/values into one
-    layer's pool ``{"k", "v"[, "k_scale", "v_scale"]}`` in place: token
-    ``t`` lands at ``pool[table[row[t], pos // bs], :, pos % bs]``. Pads and
-    sentinel targets are dropped, never written. An int8 pool quantizes
-    at append (absmax per token and kv head). Returns ``layer_cache``."""
-    if "token_rows" not in cache_index:
-        raise NotImplementedError(
-            "only the packed mixed step's append (token_rows) is ported; "
-            "the legacy per-row paged append arrives with the legacy "
-            "two-program engine (ROADMAP.md Queue 1)")
+    """Append ``[B, T, Hkv, D]`` keys/values into one layer's pool ``{"k",
+    "v"[, "k_scale", "v_scale"]}`` in place: a token at position ``pos``
+    lands at ``pool[table[row, pos // bs], :, pos % bs]``, where ``row`` is
+    the token's batch row (the two-program engine's decode step and
+    prefills) or, in the packed mixed step, ``token_rows`` names it. Pads
+    (``append_pos < 0``), positions past the table width and sentinel
+    targets are dropped, never written. An int8 pool quantizes at append
+    (absmax per token and kv head). Returns ``layer_cache``."""
     num_blocks, Hkv, bs, D = layer_cache["k"].shape
+    if "token_rows" not in cache_index:
+        B, T = cache_index["append_pos"].shape
+        cache_index = dict(cache_index, token_rows=torch.arange(
+            B, device=k.device, dtype=torch.int32)[:, None].expand(B, T))
     tok, bids, off = _packed_write_targets(cache_index, num_blocks, bs)
     k = k.reshape(-1, Hkv, D)[tok]
     v = v.reshape(-1, Hkv, D)[tok]
@@ -333,6 +337,62 @@ def update_paged_kv_cache(layer_cache, k, v, cache_index):
         layer_cache["k"][bids, :, off] = k.to(layer_cache["k"].dtype)
         layer_cache["v"][bids, :, off] = v.to(layer_cache["v"].dtype)
     return layer_cache
+
+
+def copy_paged_blocks(pool, src_ids, dst_ids):
+    """Page copy ``pool[:, dst] = pool[:, src]`` across every pool tensor
+    (K, V, int8 scales), in place: the copy half of copy-on-write when a
+    sequence must append into a page other sequences still reference. Pool
+    tensors carry the leading layer axis ``[L, N, ...]``; ``src_ids`` and
+    ``dst_ids`` are equal-length page id lists. It runs on the pool's
+    stream, so a copy issued before a step's appends lands before them.
+    Returns ``pool``."""
+    dev = pool["k"].device
+    src = torch.as_tensor(src_ids, dtype=torch.long, device=dev)
+    dst = torch.as_tensor(dst_ids, dtype=torch.long, device=dev)
+    for t in pool.values():
+        t[:, dst] = t[:, src]
+    return pool
+
+
+def flash_prefill_from_empty(q, k, v, key_mask=None,
+                             sm_scale: Optional[float] = None,
+                             window: Optional[int] = None):
+    """From-empty cached prefill through the masked flash kernel (K1's
+    key-mask mode). ``q``: ``[B, T, H, D]``; ``k``/``v`` are the fresh,
+    un-repeated projections ``[B, T, Hkv, D]``; ``key_mask`` is the full
+    ``[B, S]`` cache mask or None (sliced to the prompt span here).
+    Attention over the fresh K/V equals cache attention when nothing
+    precedes the prompt. A query row that sees no key (a left-padding row)
+    returns zeros."""
+    B, T = q.shape[0], q.shape[1]
+    local = torch.ones((B, T), dtype=torch.int32, device=q.device) \
+        if key_mask is None else key_mask[:, :T]
+    return flash_attention(q, k, v, causal=True, sm_scale=sm_scale,
+                           window=window, key_mask=local)
+
+
+def masked_prefill_attention(q, k, v, key_mask, window: Optional[int] = None,
+                             scale: Optional[float] = None):
+    """Plain causal attention over fresh ``[B, T, Hkv, D]`` keys/values
+    with a ``[B, T]`` key mask (1 = real token) as an additive -1e9 bias:
+    the from-empty paged prefill without ``prefill_flash_from_empty`` (the
+    JAX package leaves the same math to XLA). GQA by repeating kv heads,
+    fp32 logits, probabilities cast to q's dtype. Returns ``[B, T, H,
+    D]``."""
+    B, T, H, D = q.shape
+    k, v = repeat_kv(k, H // k.shape[2]), repeat_kv(v, H // v.shape[2])
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    i = torch.arange(T, device=q.device)
+    seen = i[:, None] >= i[None, :]
+    if window is not None:
+        seen = seen & (i[:, None] - i[None, :] < window)
+    logits = logits + torch.where(seen, 0.0, -1e9)[None, None] \
+        + key_mask_to_bias(key_mask)
+    probs = logits.softmax(dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def harvest_packed_logits(logits, token_rows, num_rows: int):

@@ -1,18 +1,28 @@
 """Llama-family decoder (RoPE + RMSNorm + SwiGLU + GQA).
 
-Counterpart of ``deepspeed_tpu/models/llama.py``. Three of its paths are
+Counterpart of ``deepspeed_tpu/models/llama.py``. Four of its paths are
 ported:
 
 - the paged MIXED step of the serving engine: ``forward(input_ids [1, T],
-  cache=pool, cache_index=paged bundle)`` appends the packed batch's KV
-  into the paged pool and runs ragged paged attention through
-  ``ops.ragged_attention.ragged_paged_attention`` (kernel K6);
+  cache=pool, cache_index=paged bundle with token_rows)`` appends the
+  packed batch's KV into the paged pool and runs ragged paged attention
+  through ``ops.ragged_attention.ragged_paged_attention`` (kernel K6);
+- the paged steps of the two-program serving engine, ``forward(input_ids
+  [B, T], cache=pool, cache_index=paged bundle)``: with ``T == 1`` the
+  decode over all slots through
+  ``ops.decode_attention.paged_decode_attention`` (kernel K7a); with
+  ``chunk_start`` in the bundle a prefill chunk that attends the pool
+  through ``paged_prefill_attention`` (kernel K7b); otherwise the
+  from-empty prefill over the fresh K/V, through the masked flash kernel
+  (K1's key mask) when ``prefill_flash_from_empty``, else a plain masked
+  attention;
 - the contiguous-cache path of dense generation: ``forward(input_ids
   [B, T], cache=init_cache(...), cache_index=position, positions=...,
   attention_mask=[B, S] key mask)`` appends into the head-major cache,
   then attends one new token per row through
   ``ops.decode_attention.decode_attention`` (kernel K4) or a prefill
-  through the plain ``cached_attention``;
+  through the plain ``cached_attention`` (the masked flash kernel when
+  ``prefill_flash_from_empty``);
 - the dense forward: ``forward(input_ids [B, T], labels)`` returns the
   fp32 token-mean cross entropy over shifted labels (logits without
   labels), with kv heads repeated before causal (optionally windowed)
@@ -25,8 +35,8 @@ Every projection comes from ``layers.model_dense``: ``nn.Linear``, or with
 Each wrapper launches its hand-written kernel on CUDA tensors and its
 plain PyTorch version on CPU tensors: the device decides, so the JAX
 config's ``attention_impl`` and ``decode_attention_impl`` have no
-counterpart here. A training padding mask, other remat policies, the
-chunked loss and the from-empty flash prefill raise.
+counterpart here. A training padding mask, other remat policies and the
+chunked loss raise.
 
 As with a flax module, the model object is a definition: its parameters
 are built on the ``meta`` device (shapes only, no memory), and an engine
@@ -42,13 +52,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import (decode_attention, paged_decode_attention,
+                                    paged_prefill_attention)
 from ..ops.ragged_attention import ragged_paged_attention
 from .layers import (RMSNorm, apply_rotary, cached_attention,
-                     cross_entropy_loss, dot_product_attention, init_kv_cache,
+                     cross_entropy_loss, dot_product_attention,
+                     flash_prefill_from_empty, init_kv_cache,
                      init_paged_kv_cache, is_paged_index, lm_head_output,
-                     model_dense, repeat_kv, rotary_embedding, shift_labels,
-                     update_kv_cache, update_paged_kv_cache)
+                     masked_prefill_attention, model_dense, repeat_kv,
+                     rotary_embedding, shift_labels, update_kv_cache,
+                     update_paged_kv_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +93,10 @@ class LlamaConfig:
     remat_policy: str = "nothing"
     #: >0: the chunked training loss (not ported); 0 = plain loss
     loss_chunk: int = 0
-    #: cached prefill from an empty cache through the flash kernel with a
-    #: key mask (not ported: K1 takes no key mask yet)
+    #: a prefill that starts from an EMPTY cache (generate's, and the
+    #: serving engine's monolithic paged prefill) attends its fresh K/V
+    #: through the masked, GQA-native flash kernel instead of the plain
+    #: cached attention, which materializes [B, H, T, S] logits
     prefill_flash_from_empty: bool = False
     # -- quantized weights (set by init_inference, which rewrites the fp
     # state_dict to match) ---------------------------------------------
@@ -108,11 +123,6 @@ class LlamaConfig:
                 "remat policies other than 'nothing' and loss_chunk > 0 "
                 "arrive with the rest of the Llama training subset "
                 "(ROADMAP.md Queue 1, item 5)")
-        if self.prefill_flash_from_empty:
-            raise NotImplementedError(
-                "prefill_flash_from_empty needs the flash kernel's key mask "
-                "(K1, ROADMAP.md Queue 2); the cached prefill runs the plain "
-                "cached_attention")
 
     @property
     def head_dim(self) -> int:
@@ -171,13 +181,41 @@ class LlamaAttention(nn.Module):
         elif is_paged_index(cache_index):
             # the pool is updated in place (the JAX model returns a new one)
             update_paged_kv_cache(layer_cache, k, v, cache_index)
-            out = ragged_paged_attention(
-                q[0], layer_cache["k"], layer_cache["v"],
-                cache_index["block_tables"], cache_index["query_start"],
-                cache_index["query_len"], cache_index["chunk_start"],
-                cache_index["context_len"], window=cfg.sliding_window,
-                k_scale=layer_cache.get("k_scale"),
-                v_scale=layer_cache.get("v_scale"))
+            pool_args = (layer_cache["k"], layer_cache["v"],
+                         cache_index["block_tables"])
+            scales = dict(k_scale=layer_cache.get("k_scale"),
+                          v_scale=layer_cache.get("v_scale"))
+            if "token_rows" in cache_index:
+                # the unified mixed step: a packed ragged token batch
+                out = ragged_paged_attention(
+                    q[0], *pool_args, cache_index["query_start"],
+                    cache_index["query_len"], cache_index["chunk_start"],
+                    cache_index["context_len"], window=cfg.sliding_window,
+                    **scales)
+            elif T == 1:
+                # the two-program engine's decode over all slots
+                out = paged_decode_attention(
+                    q[:, 0], *pool_args, cache_index["context_len"],
+                    window=cfg.sliding_window, **scales)[:, None]
+            elif "chunk_start" in cache_index:
+                # a prefill chunk mid-prompt: the cached prefix (prefix-
+                # cache hits and earlier chunks) lives only in the pool
+                out = paged_prefill_attention(
+                    q, *pool_args, cache_index["chunk_start"],
+                    cache_index["context_len"], window=cfg.sliding_window,
+                    **scales)
+            else:
+                # a prefill from an empty span of pages: attention over
+                # the fresh K/V equals cache attention; pads carry
+                # append_pos = -1
+                key_mask = (cache_index["append_pos"] >= 0).int()
+                if cfg.prefill_flash_from_empty:
+                    out = flash_prefill_from_empty(
+                        q, k, v, key_mask=key_mask,
+                        window=cfg.sliding_window)
+                else:
+                    out = masked_prefill_attention(
+                        q, k, v, key_mask, window=cfg.sliding_window)
         else:
             # contiguous cache (dense generation), updated in place; mask
             # is the [B, S] key mask
@@ -188,6 +226,11 @@ class LlamaAttention(nn.Module):
                     key_mask=mask, window=cfg.sliding_window,
                     k_scale=layer_cache.get("k_scale"),
                     v_scale=layer_cache.get("v_scale"))[:, None]
+            elif cfg.prefill_flash_from_empty:
+                # from-empty prefill over the fresh K/V (the flag's
+                # contract: nothing precedes the prompt in the cache)
+                out = flash_prefill_from_empty(q, k, v, key_mask=mask,
+                                               window=cfg.sliding_window)
             else:
                 out = cached_attention(q, layer_cache, cache_index,
                                        key_mask=mask,

@@ -1,16 +1,20 @@
-"""One-position attention over the contiguous KV cache (kernel K4).
+"""Decode-time attention: the contiguous cache (kernel K4) and the paged
+pool (kernels K7a and K7b).
 
 ``decode_attention`` is the wrapper the model calls at every decode step
-of ``InferenceEngine.generate``. On CUDA tensors it launches the
-hand-written Hopper kernel ``csrc/decode_attention.cu``; on CPU tensors it
-computes the same function with ``decode_attention_plain``. Any other
-placement raises: there is no fallback from the kernel to the plain
-version.
+of ``InferenceEngine.generate``; ``paged_decode_attention`` and
+``paged_prefill_attention`` are what the two-program serving engine's
+decode step and chunked prefill call. On CUDA tensors each launches its
+hand-written Hopper kernel (``csrc/decode_attention.cu``,
+``csrc/paged_attention.cu``); on CPU tensors it computes the same function
+with its ``*_plain`` version. Any other placement raises: there is no
+fallback from a kernel to a plain version.
 
-The kernel replaces ``deepspeed_tpu/ops/pallas/decode_attention.py
-::_decode_kernel``. Its bound on an H100 is bytes: the filled prefix of
-each row's K/V (and int8 scales) read once, against 3.35 TB/s. The design
-note is at the top of the CUDA source.
+The kernels replace ``deepspeed_tpu/ops/pallas/decode_attention.py``
+(``_decode_kernel``, ``_paged_decode_kernel``, ``_paged_prefill_kernel``).
+Their bound on an H100 is bytes: the visible part of each row's K/V (and
+int8 scales) read once, against 3.35 TB/s. The design notes are at the top
+of the CUDA sources.
 """
 
 import ctypes
@@ -25,6 +29,10 @@ from . import _build
 KERNEL_HEAD_DIMS = (64, 128)
 #: most query heads one kv head may serve (GQA group)
 KERNEL_MAX_GROUP = 8
+#: pool page size the paged kernels are compiled for
+KERNEL_BLOCK_SIZE = 16
+#: query rows one block of the paged prefill kernel holds (tokens x G)
+KERNEL_TILE_ROWS = 32
 
 
 def _visible(cache_index, S: int, key_mask, window: Optional[int], device):
@@ -198,3 +206,260 @@ def decode_attention(q, k_cache, v_cache, cache_index, key_mask=None,
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the paged pool: K7a (one query per sequence) and K7b (a chunk per sequence)
+# ---------------------------------------------------------------------------
+
+def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables,
+                                  chunk_start, context_lens,
+                                  sm_scale: Optional[float] = None,
+                                  window: Optional[int] = None,
+                                  k_scale=None, v_scale=None):
+    """Plain PyTorch version of the paged chunked-prefill kernel.
+
+    ``q``: ``[B, T, H, D]`` (one chunk per sequence, KV already appended);
+    ``k_pages``/``v_pages``: ``[N, Hkv, bs, D]``; ``block_tables``: int32
+    ``[B, nb]`` (an entry outside ``[0, N)`` is unallocated; it reads page
+    ``N - 1``, which the length mask hides); ``chunk_start``,
+    ``context_lens``: int32 ``[B]``; ``k_scale``/``v_scale``: fp32
+    ``[N, Hkv, bs]`` for an int8 pool. Row ``t`` sits at ``chunk_start +
+    t`` and sees keys ``p <= `` its position with ``p < context_len`` and,
+    with a window, ``position - p < window``. Math in fp32; returns
+    ``[B, T, H, D]`` in q's dtype, zeros for rows at or past
+    ``context_len`` and rows that see no key. Masked keys' V never reaches
+    the sum (zeroed, not only weighted by 0)."""
+    B, T, H, D = q.shape
+    N, Hkv, bs, _ = k_pages.shape
+    G = H // Hkv
+    nb = block_tables.shape[1]
+    S = nb * bs
+    if sm_scale is None:
+        sm_scale = 1.0 / D ** 0.5
+    bt = block_tables.long()
+    bt = torch.where((bt < 0) | (bt >= N), torch.full_like(bt, N - 1), bt)
+    k, v = k_pages[bt].float(), v_pages[bt].float()    # [B, nb, Hkv, bs, D]
+    if k_scale is not None:
+        k = k * k_scale[bt].float()[..., None]
+        v = v * v_scale[bt].float()[..., None]
+    k = k.transpose(1, 2).reshape(B, Hkv, S, D)
+    v = v.transpose(1, 2).reshape(B, Hkv, S, D)
+    cs = chunk_start.long()[:, None, None]
+    cl = context_lens.long()[:, None, None]
+    pos = cs + torch.arange(T, device=q.device)[None, :, None]   # [B, T, 1]
+    col = torch.arange(S, device=q.device)[None, None, :]
+    seen = (col <= pos) & (col < cl) & (pos < cl)                # [B, T, S]
+    if window is not None:
+        seen = seen & (pos - col < window)
+    s = torch.einsum("bthgd,bhsd->bhgts",
+                     q.float().reshape(B, T, Hkv, G, D), k) * sm_scale
+    s = s.masked_fill(~seen[:, None, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    v = v.masked_fill(~seen.any(dim=1)[:, None, :, None], 0.0)
+    o = torch.einsum("bhgts,bhsd->bthgd", p / torch.where(
+        l == 0, torch.ones_like(l), l), v)
+    return o.reshape(B, T, H, D).to(q.dtype)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
+                                 context_lens,
+                                 sm_scale: Optional[float] = None,
+                                 window: Optional[int] = None,
+                                 k_scale=None, v_scale=None):
+    """Plain PyTorch version of the paged decode kernel: ``q [B, H, D]`` is
+    one new token per sequence (already appended) at ``context_lens - 1``;
+    key ``p`` is visible iff ``p < context_len`` and, with a window,
+    ``context_len - 1 - p < window``. The other arguments are those of
+    :func:`paged_prefill_attention_plain`, of which this is the chunk of
+    one token. Returns ``[B, H, D]``, zeros for a row that sees no key."""
+    return paged_prefill_attention_plain(
+        q[:, None], k_pages, v_pages, block_tables, context_lens - 1,
+        context_lens, sm_scale=sm_scale, window=window, k_scale=k_scale,
+        v_scale=v_scale)[:, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_entries():
+    lib = _build.load("paged_attention")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    tail = [ctypes.c_float, I, I, I, P]   # sm_scale window q_bf16 kv_int8 stream
+    dec = lib.paged_decode_attention
+    # q k v k_scale v_scale tables context_lens out | B H Hkv D N nb
+    dec.argtypes = [P] * 8 + [I] * 6 + tail
+    pre = lib.paged_prefill_attention
+    # q k v k_scale v_scale tables chunk_start context_lens out |
+    # B T H Hkv D N nb
+    pre.argtypes = [P] * 9 + [I] * 7 + tail
+    dec.restype = pre.restype = I
+    return dec, pre
+
+
+def _check_paged_args(name, q, k_pages, v_pages, block_tables, descriptors,
+                      k_scale, v_scale, window, max_group=None,
+                      tile_rows=None):
+    """Raise on anything the paged kernels do not take; returns
+    ``(B, H, D, N, Hkv, nb)``."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: q must be bf16 or fp32, got {q.dtype}")
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: k_pages and v_pages must both be "
+                         f"[N, Hkv, bs, D]")
+    N, Hkv, bs, Dk = k_pages.shape
+    if Dk != D or D not in KERNEL_HEAD_DIMS or bs != KERNEL_BLOCK_SIZE:
+        raise ValueError(f"{name}: the kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS} and pages of "
+                         f"{KERNEL_BLOCK_SIZE} tokens, got head_dim "
+                         f"{D}/{Dk}, block_size {bs}")
+    G = H // max(Hkv, 1)
+    if H % Hkv or (max_group and G > max_group) \
+            or (tile_rows and tile_rows % G):
+        raise ValueError(f"{name}: query heads {H} over kv heads {Hkv} is "
+                         f"a group the kernel does not take")
+    int8 = k_scale is not None
+    want = torch.int8 if int8 else q.dtype
+    if k_pages.dtype != want or v_pages.dtype != want:
+        raise ValueError(f"{name}: pages must be {want} (q is {q.dtype}, "
+                         f"int8 pool: {int8}), got {k_pages.dtype}/"
+                         f"{v_pages.dtype}")
+    if int8:
+        for s in (k_scale, v_scale):
+            if s.dtype != torch.float32 or tuple(s.shape) != (N, Hkv, bs) \
+                    or not s.is_contiguous():
+                raise ValueError(f"{name}: k_scale/v_scale must be "
+                                 f"contiguous fp32 [N, Hkv, bs]")
+    if block_tables.dim() != 2 or block_tables.dtype != torch.int32 \
+            or block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block_tables must be int32 [B, nb]")
+    for d in descriptors:
+        if d.dtype != torch.int32 or tuple(d.shape) != (B,) \
+                or not d.is_contiguous():
+            raise ValueError(f"{name}: chunk_start/context_lens must be "
+                             f"contiguous int32 [B]")
+    for t in (q, k_pages, v_pages, block_tables):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: q, pages and block_tables must be "
+                             f"contiguous")
+    for t in (k_pages, v_pages) + ((k_scale, v_scale) if int8 else ()):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: pages and scales must be 16-byte "
+                             f"aligned")
+    if window is not None and int(window) <= 0:
+        raise ValueError("window must be a positive int or None")
+    return B, H, D, N, Hkv, block_tables.shape[1]
+
+
+def _paged_device(name, tensors, k_scale, v_scale):
+    """The one device of a paged call's tensors ("cpu" or "cuda")."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale (int8 pool) or "
+                         "neither")
+    if k_scale is not None:
+        tensors += (k_scale, v_scale)
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on {dev}, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs its kernel on cuda and its plain "
+                         f"version on cpu, not on {dev.type}")
+    return dev
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
+                           sm_scale: Optional[float] = None,
+                           window: Optional[int] = None,
+                           k_scale=None, v_scale=None):
+    """One query per sequence over the paged pool (kernel K7a; see the
+    plain version for the arguments). CUDA tensors launch the kernel on the
+    current stream and add one to ``paged_decode_attention.launches``; CPU
+    tensors take the plain version; anything else raises."""
+    dev = _paged_device("paged_decode_attention",
+                        (q, k_pages, v_pages, block_tables, context_lens),
+                        k_scale, v_scale)
+    if dev.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, block_tables, context_lens,
+            sm_scale=sm_scale, window=window, k_scale=k_scale,
+            v_scale=v_scale)
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B, H, D], got {tuple(q.shape)}")
+    B, H, D, N, Hkv, nb = _check_paged_args(
+        "paged_decode_attention", q, k_pages, v_pages, block_tables,
+        (context_lens,), k_scale, v_scale, window,
+        max_group=KERNEL_MAX_GROUP)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if N == 0 or nb == 0:
+        return out.zero_()
+    if sm_scale is None:
+        sm_scale = 1.0 / D ** 0.5
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
+        else (None, None)
+    with torch.cuda.device(dev):
+        rc = _paged_entries()[0](
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+            B, H, Hkv, D, N, nb, float(sm_scale),
+            0 if window is None else int(window),
+            int(q.dtype == torch.bfloat16), int(k_scale is not None),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention: kernel launch failed "
+                           f"with CUDA error {rc}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
+                            context_lens, sm_scale: Optional[float] = None,
+                            window: Optional[int] = None,
+                            k_scale=None, v_scale=None):
+    """One prefill chunk per sequence over the paged pool (kernel K7b; see
+    the plain version for the arguments). CUDA tensors launch the kernel on
+    the current stream and add one to ``paged_prefill_attention.launches``;
+    CPU tensors take the plain version; anything else raises."""
+    dev = _paged_device("paged_prefill_attention",
+                        (q, k_pages, v_pages, block_tables, chunk_start,
+                         context_lens), k_scale, v_scale)
+    if dev.type == "cpu":
+        return paged_prefill_attention_plain(
+            q, k_pages, v_pages, block_tables, chunk_start, context_lens,
+            sm_scale=sm_scale, window=window, k_scale=k_scale,
+            v_scale=v_scale)
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
+    B, H, D, N, Hkv, nb = _check_paged_args(
+        "paged_prefill_attention", q, k_pages, v_pages, block_tables,
+        (chunk_start, context_lens), k_scale, v_scale, window,
+        tile_rows=KERNEL_TILE_ROWS)
+    T = q.shape[1]
+    out = torch.zeros_like(q)
+    if out.numel() == 0 or N == 0 or nb == 0:
+        return out
+    if sm_scale is None:
+        sm_scale = 1.0 / D ** 0.5
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
+        else (None, None)
+    with torch.cuda.device(dev):
+        rc = _paged_entries()[1](
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            block_tables.data_ptr(), chunk_start.data_ptr(),
+            context_lens.data_ptr(), out.data_ptr(), B, T, H, Hkv, D, N, nb,
+            float(sm_scale), 0 if window is None else int(window),
+            int(q.dtype == torch.bfloat16), int(k_scale is not None),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_prefill_attention: kernel launch failed "
+                           f"with CUDA error {rc}")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+paged_prefill_attention.launches = 0

@@ -1,9 +1,14 @@
-"""Flash attention for training (kernels K1 and K2).
+"""Flash attention for training and the from-empty prefill (kernels K1
+and K2).
 
 ``flash_attention(q, k, v, causal, sm_scale, window)`` is what the model
 calls: a ``torch.autograd.Function`` over ``[B, T, H, D]`` tensors (kv heads
 already repeated) whose forward saves ``(q, k, v, out, lse)`` and whose
-backward recomputes the probabilities from the logsumexp. On CUDA tensors
+backward recomputes the probabilities from the logsumexp. With
+``key_mask=`` (``[B, Tk]``, 1 = real key) it is the forward-only, GQA-native
+mode the serving and generate prefills use: k/v keep their ``Hkv`` heads
+(query head ``h`` reads kv head ``h // (H // Hkv)``), padded keys are
+masked in the kernel, and a gradient through it raises. On CUDA tensors
 each pass launches the hand-written Hopper kernels of
 ``csrc/flash_attention.cu``; on CPU tensors the same passes run their plain
 PyTorch versions. Any other placement raises: there is no fallback from a
@@ -42,21 +47,33 @@ def _mask(Tq: int, Tk: int, causal: bool, window: Optional[int], device):
     return seen
 
 
-def _scores(q, k, sm_scale, causal, window):
+def _scores(q, k, sm_scale, causal, window, key_mask=None):
     """fp32 ``[B, H, Tq, Tk]`` scaled scores, -inf where masked."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     seen = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if key_mask is not None:
+        seen = seen[None, None] & (key_mask > 0)[:, None, None, :]
     return s.masked_fill(~seen, float("-inf"))
+
+
+def _repeat_heads(x, H: int):
+    """``[B, T, Hkv, D] -> [B, T, H, D]``: head ``h`` reads kv head
+    ``h // (H // Hkv)``."""
+    Hkv = x.shape[2]
+    return x if Hkv == H else x.repeat_interleave(H // Hkv, dim=2)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True,
                           sm_scale: Optional[float] = None,
-                          window: Optional[int] = None):
-    """Plain PyTorch attention, differentiable by autograd. Returns
-    ``(out [B, Tq, H, D] in q's dtype, lse [B, H, Tq] fp32)``."""
+                          window: Optional[int] = None, key_mask=None):
+    """Plain PyTorch attention, differentiable by autograd. ``k``/``v`` may
+    keep ``Hkv < H`` heads (GQA), and ``key_mask [B, Tk]`` (1 = real key)
+    hides padded keys. Returns ``(out [B, Tq, H, D] in q's dtype, lse
+    [B, H, Tq] fp32)``; a row that sees no key gets zeros and ``-inf``."""
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1] ** 0.5
-    s = _scores(q, k, sm_scale, causal, window)
+    k, v = _repeat_heads(k, q.shape[2]), _repeat_heads(v, q.shape[2])
+    s = _scores(q, k, sm_scale, causal, window, key_mask)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
@@ -96,9 +113,12 @@ def _entries():
     dq.argtypes = [P] * 7 + shape
     dkv = lib.flash_attention_bwd_dkv
     dkv.argtypes = [P] * 8 + shape
-    for fn in (fwd, dq, dkv):
+    masked = lib.flash_attention_fwd_masked
+    # q k v key_mask out lse | B H Hkv Tq Tk D | causal window scale bf16 stream
+    masked.argtypes = [P] * 6 + [I] * 6 + [I, I, F, I, P]
+    for fn in (fwd, dq, dkv, masked):
         fn.restype = I
-    return fwd, dq, dkv
+    return fwd, dq, dkv, masked
 
 
 def _check(name, tensors, window):
@@ -229,7 +249,75 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, causal: bool = True,
     return dk, dv
 
 
+def flash_attention_fwd_masked(q, k, v, key_mask, causal: bool = True,
+                               sm_scale: Optional[float] = None,
+                               window: Optional[int] = None):
+    """The masked, GQA-native forward (K1's key-mask mode): ``q [B, Tq, H,
+    D]``, un-repeated ``k``/``v [B, Tk, Hkv, D]``, ``key_mask [B, Tk]``
+    (1 = real key). Returns ``(out, lse)``. CUDA tensors launch the kernel
+    and add one to ``flash_attention_fwd_masked.launches``; CPU tensors
+    take ``flash_attention_plain``; anything else raises. Forward only."""
+    tensors = (q, k, v, key_mask)
+    dev = q.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"flash_attention_fwd_masked: every tensor must be "
+                         f"on {dev}, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_fwd_masked runs its kernel on "
+                         f"cuda and its plain version on cpu, not on "
+                         f"{dev.type}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
+            or k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_attention_fwd_masked: q [B, Tq, H, D] and "
+                         f"k, v [B, Tk, Hkv, D] with H a multiple of Hkv, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if tuple(key_mask.shape) != (k.shape[0], k.shape[1]):
+        raise ValueError(f"key_mask must be [B, Tk] = "
+                         f"{(k.shape[0], k.shape[1])}, got "
+                         f"{tuple(key_mask.shape)}")
+    if window is not None and int(window) <= 0:
+        raise ValueError("window must be a positive int or None")
+    if sm_scale is None:
+        sm_scale = 1.0 / q.shape[-1] ** 0.5
+    if dev.type == "cpu":
+        with torch.no_grad():
+            return flash_attention_plain(q, k, v, causal, sm_scale, window,
+                                         key_mask=key_mask)
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or any(t.dtype != q.dtype for t in (k, v)):
+        raise ValueError(f"flash_attention_fwd_masked: the kernel takes q, "
+                         f"k, v all bf16 or all fp32, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd_masked: the kernel takes "
+                         f"head_dim in {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    key_mask = key_mask.to(torch.int32).contiguous()
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=dev)
+    if out.numel() == 0 or Tk == 0:
+        return out.zero_(), lse.fill_(float("-inf"))
+    with torch.cuda.device(dev):
+        rc = _entries()[3](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tk, D,
+            int(causal), 0 if window is None else int(window),
+            float(sm_scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd_masked: kernel launch "
+                           f"failed with CUDA error {rc}")
+    flash_attention_fwd_masked.launches += 1
+    return out, lse
+
+
 flash_attention_fwd.launches = 0
+flash_attention_fwd_masked.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
@@ -261,10 +349,24 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: Optional[float] = None,
-                    window: Optional[int] = None):
-    """Differentiable attention over ``[B, T, H, D]`` tensors with kv heads
-    already repeated: K1 forward, K2 backward on CUDA tensors, the plain
-    versions on CPU tensors. Returns ``out`` in q's dtype."""
+                    window: Optional[int] = None, key_mask=None):
+    """Attention over ``[B, T, H, D]`` tensors: K1 forward, K2 backward on
+    CUDA tensors, the plain versions on CPU tensors. Without ``key_mask``
+    it is differentiable and takes kv heads already repeated. With
+    ``key_mask [B, Tk]`` (1 = real key) it takes un-repeated kv heads
+    ``[B, Tk, Hkv, D]`` and is forward-only: a gradient cannot be taken
+    through the masked kernel, so inputs that require one raise (drop
+    padding through the loss mask when training). Returns ``out`` in q's
+    dtype."""
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1] ** 0.5
+    if key_mask is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise RuntimeError(
+                "flash_attention(key_mask=...) is forward-only: the masked "
+                "kernel has no backward; call it under torch.no_grad() or "
+                "drop padding through the loss mask")
+        return flash_attention_fwd_masked(q, k, v, key_mask, causal,
+                                          float(sm_scale), window)[0]
     return _FlashAttention.apply(q, k, v, causal, float(sm_scale), window)

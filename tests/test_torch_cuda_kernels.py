@@ -15,8 +15,10 @@ import torch
 
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import quant_matmul as qm
-from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+from deepspeed_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_plain, paged_decode_attention,
+    paged_decode_attention_plain, paged_prefill_attention,
+    paged_prefill_attention_plain)
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam, fused_adam_plain
 from deepspeed_tpu_torch.ops.ragged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
@@ -246,3 +248,147 @@ def test_int8_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     torch.cuda.synchronize()
     assert qm.int8_matmul.launches == before + 1
     _assert_matmul_close(got, ref, x, (codes.float() * scale).to(dtype))
+
+
+def _paged_case(dev, dtype, int8, D, Hkv, G, T, seed=0):
+    """A pool whose unused pages hold NaN (a kernel that touches a page it
+    must not read poisons its row), a table with sentinel tails, and
+    sequences with a partial last page, a mid-prompt chunk, an idle row
+    (context 1 behind a sentinel row: it reads the clamped last page) and
+    an empty row."""
+    rs = np.random.RandomState(seed)
+    N, bs, nb = 48, 16, 10
+    #            (chunk_start, context_len) per sequence
+    rows = [(0, T), (70, 70 + T), (33, 33 + max(1, T // 2)), (0, 1), (0, 0),
+            (nb * bs - T, nb * bs)]
+    B = len(rows)
+    bt = np.full((B, nb), N, np.int32)
+    pages = iter(rs.permutation(N - 1))     # page N - 1 stays unowned
+    used = [N - 1]
+    for r, (_, clen) in enumerate(rows):
+        if r == 3:
+            continue                        # the idle row keeps its sentinels
+        for i in range(-(-clen // bs)):
+            bt[r, i] = next(pages)
+            used.append(bt[r, i])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (N, Hkv, bs, D)
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        scales = {n: torch.rand(shape[:3], generator=g, device=dev) / 64
+                  for n in ("k_scale", "v_scale")}
+        free = torch.ones(N, dtype=torch.bool, device=dev)
+        free[torch.as_tensor(np.array(used), device=dev)] = False
+        for t in scales.values():
+            t[free] = float("nan")
+    else:
+        k, v = (torch.randn(shape, generator=g, device=dev, dtype=dtype)
+                for _ in range(2))
+        free = torch.ones(N, dtype=torch.bool, device=dev)
+        free[torch.as_tensor(np.array(used), device=dev)] = False
+        k[free] = float("nan")
+        v[free] = float("nan")
+        scales = {}
+    q = torch.randn((B, T, Hkv * G, D), generator=g, device=dev, dtype=dtype)
+    cs, cl = (torch.tensor([r[i] for r in rows], dtype=torch.int32,
+                           device=dev) for i in (0, 1))
+    return q, k, v, torch.from_numpy(bt).to(dev), cs, cl, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
+@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
+@pytest.mark.parametrize("window", [None, 24, 100])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G,
+                                           window):
+    """K7a against its plain version: ragged contexts with a partial last
+    page, a full table, an idle sentinel row, an empty row, windows that
+    start mid-tile, an int8 pool."""
+    q, k, v, bt, _, cl, scales = _paged_case(cuda, dtype, int8, D, Hkv, G, 1)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q[:, 0], k, v, bt, cl, window=window,
+                                 **scales)
+    ref = paged_decode_attention_plain(q[:, 0], k, v, bt, cl, window=window,
+                                       **scales)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    assert torch.isfinite(got).all() and not got[4].any()
+    fp32 = dtype == torch.float32
+    torch.testing.assert_close(got.float(), ref.float(),
+                               rtol=1e-5 if fp32 else 2 ** -7,
+                               atol=1e-5 if fp32 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
+@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
+@pytest.mark.parametrize("T,window", [(64, None), (37, None), (64, 24),
+                                      (1, None)])
+def test_paged_prefill_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, T,
+                                            window):
+    """K7b against its plain version: chunks at 0, mid-prompt and at the
+    table's end, a padded tail (zeros), rows with no context, a chunk
+    length that is no multiple of the tile, a window, an int8 pool, and
+    the chunk of one token (the decode kernel's function)."""
+    q, k, v, bt, cs, cl, scales = _paged_case(cuda, dtype, int8, D, Hkv, G, T)
+    before = paged_prefill_attention.launches
+    got = paged_prefill_attention(q, k, v, bt, cs, cl, window=window,
+                                  **scales)
+    ref = paged_prefill_attention_plain(q, k, v, bt, cs, cl, window=window,
+                                        **scales)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert not got[2, max(1, T // 2):].any(), "padded tail rows are zeros"
+    fp32 = dtype == torch.float32
+    torch.testing.assert_close(got.float(), ref.float(),
+                               rtol=1e-5 if fp32 else 2 ** -7,
+                               atol=1e-5 if fp32 else 1e-3)
+    if T == 1:
+        dec = paged_decode_attention(q[:, 0], k, v, bt, cl, window=window,
+                                     **scales)
+        torch.testing.assert_close(dec.float(), got[:, 0].float(),
+                                   rtol=1e-5 if fp32 else 2 ** -7,
+                                   atol=1e-5 if fp32 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (64, 1, 8)])
+@pytest.mark.parametrize("T,window", [(256, None), (200, None), (130, 48)])
+def test_masked_flash_kernel_matches_plain(cuda, dtype, D, Hkv, G, T, window):
+    """K1's key-mask mode against the plain version: un-repeated kv heads,
+    left padding (rows that see no key return zeros and lse = -inf), a
+    hole inside a row, a window."""
+    g = torch.Generator(device=cuda).manual_seed(D + T)
+    B = 3
+    q = torch.randn(B, T, Hkv * G, D, generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn(B, T, Hkv, D, generator=g, device=cuda, dtype=dtype)
+            for _ in range(2))
+    mask = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    mask[0, :70] = 0
+    mask[1, :5] = 0
+    mask[1, 90:93] = 0
+    before = fa.flash_attention_fwd_masked.launches
+    out, lse = fa.flash_attention_fwd_masked(q, k, v, mask, True,
+                                             window=window)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, True, window=window,
+                                                key_mask=mask)
+    same = fa.flash_attention(q, k, v, window=window, key_mask=mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_masked.launches == before + 2
+    assert torch.equal(same, out)
+    assert not out[0, :70].any()
+    fp32 = dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               rtol=1e-5 if fp32 else 2 ** -7,
+                               atol=1e-5 if fp32 else 2e-2)
+    seen = torch.isfinite(ref_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    torch.testing.assert_close(lse[seen], ref_lse[seen], rtol=1e-5,
+                               atol=1e-4)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_attention(q.requires_grad_(), k, v, key_mask=mask)

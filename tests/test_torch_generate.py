@@ -15,6 +15,8 @@ yields the tokens of the same engine's ``generate`` (the JAX package's
 invariant), and those of the JAX engine.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,6 +115,52 @@ def test_sliding_window_tokens_identical_to_jax():
     got, want, _ = _both(jmodel, jparams, sd, cfg, ids, mask,
                          dict(max_new_tokens=11))
     np.testing.assert_array_equal(got, want)
+
+
+FLASH_PREFILL = {
+    # name: (model overrides, prompt lengths, engine kwargs)
+    "left_padded_bucketed": ({}, (5, 11, 3), {}),
+    "bucketing_off": ({}, (7, 2, 13), dict(bucket_shapes=False)),
+    "window": ({"sliding_window": 4}, (9, 3, 12), {}),
+    "int8_kv_cache": ({}, (9, 4), dict(kv_cache_int8=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_PREFILL))
+def test_flash_prefill_from_empty_tokens_identical_to_jax(case, monkeypatch):
+    """``prefill_flash_from_empty=True``: the prefill of ``generate``
+    attends its fresh, un-repeated K/V through the masked flash wrapper
+    (once per layer; the decode steps stay on the K4 wrapper) and the
+    greedy tokens of a left-padded batch equal the JAX engine's with the
+    same flag, and the port's without it."""
+    over, lens, engine_kw = FLASH_PREFILL[case]
+    over = dict(over, prefill_flash_from_empty=True)
+    jmodel, jparams = _params(over)
+    cfg = LlamaConfig.tiny(**over)
+    sd = flax_to_torch_state_dict(jax.device_get(jparams), cfg)
+    ids, mask = _prompts(lens, seed=3)
+    calls = []
+    real = llama_mod.flash_prefill_from_empty
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(llama_mod, "flash_prefill_from_empty", spy)
+    got, want, _ = _both(jmodel, jparams, sd, cfg, ids, mask,
+                         dict(max_new_tokens=9), **engine_kw)
+    np.testing.assert_array_equal(got, want)
+    assert len(calls) == cfg.num_hidden_layers, "one prefill, every layer"
+    T = calls[0][0][1]
+    assert calls[0] == ((len(lens), T, 4, 16), (len(lens), T, 2, 16)), \
+        "kv heads are not repeated"
+    plain_cfg = dataclasses.replace(cfg, prefill_flash_from_empty=False)
+    plain = dt.init_inference(LlamaForCausalLM(plain_cfg), params=sd,
+                              dtype="fp32", device="cpu", **engine_kw)
+    np.testing.assert_array_equal(
+        plain.generate(ids, attention_mask=mask, max_new_tokens=9).numpy(),
+        got)
+    assert len(calls) == cfg.num_hidden_layers
 
 
 @pytest.mark.parametrize("decode_loop", ["while", "scan"])

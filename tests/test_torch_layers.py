@@ -1,8 +1,10 @@
 """Building blocks of the PyTorch port against their JAX counterparts.
 
 Same numpy-seeded inputs through ``deepspeed_tpu.models.layers`` and
-``deepspeed_tpu_torch.models.layers``: the packed paged append (pads and
-sentinel targets dropped, never written; bf16 and int8 pools), RMSNorm,
+``deepspeed_tpu_torch.models.layers``: the packed and the per-row paged
+append (pads and sentinel targets dropped, never written; bf16 and int8
+pools), the page copy of copy-on-write, the from-empty prefill attention,
+RMSNorm,
 rotary embeddings, int8 KV quantization, the multi-position logit
 harvest, the contiguous cache's append, bias and cached attention, and
 the engine's sampling helpers. fp32 results agree to a few
@@ -213,3 +215,120 @@ def test_contiguous_cache_append_bias_and_attention_match_jax(window, int8):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_per_row_append_matches_jax_and_drops_pads_and_sentinels(int8):
+    """The two-program engine's append (no ``token_rows``: a token's row
+    is its batch row): a prefill with right padding, a row whose table
+    ends in sentinels, a position past the table width, an idle slot
+    (sentinel row, position 0). int8 codes and scales are bit-identical
+    to the JAX append's; exactly the real targets change."""
+    rs = np.random.RandomState(4)
+    N, Hkv, bs, D, B, nb, T = 12, 2, 4, 8, 4, 3, 6
+    bt = np.full((B, nb), N, np.int32)
+    bt[0] = [3, 7, 1]
+    bt[1, :1] = [5]                      # pages 1.. are the sentinel
+    bt[2] = [0, 9, 2]                    # row 3: an idle slot, all sentinel
+    pos = np.array([[2, 3, 4, 5, -1, -1], [1, 2, 3, 4, 5, -1],
+                    [10, 11, 12, -1, -1, -1], [0, -1, -1, -1, -1, -1]],
+                   np.int32)
+    k = rs.randn(B, T, Hkv, D).astype(np.float32)
+    v = rs.randn(B, T, Hkv, D).astype(np.float32)
+    if int8:
+        pool = {"k": rs.randint(-127, 128, (N, Hkv, bs, D)).astype(np.int8),
+                "v": rs.randint(-127, 128, (N, Hkv, bs, D)).astype(np.int8),
+                "k_scale": rs.rand(N, Hkv, bs).astype(np.float32),
+                "v_scale": rs.rand(N, Hkv, bs).astype(np.float32)}
+    else:
+        pool = {"k": rs.randn(N, Hkv, bs, D).astype(np.float32),
+                "v": rs.randn(N, Hkv, bs, D).astype(np.float32)}
+    desc = dict(block_tables=bt, append_pos=pos,
+                context_len=np.array([6, 6, 13, 1], np.int32))
+    want = jax.device_get(jl.update_paged_kv_cache(
+        {n: jnp.asarray(a) for n, a in pool.items()}, jnp.asarray(k),
+        jnp.asarray(v), jl.paged_cache_index(**desc)))
+    tpool = {n: torch.from_numpy(a.copy()) for n, a in pool.items()}
+    tidx = tl.paged_cache_index(**desc)
+    assert tl.update_paged_kv_cache(tpool, torch.from_numpy(k),
+                                    torch.from_numpy(v), tidx) is tpool
+    assert "token_rows" not in tidx, "the caller's bundle is not rewritten"
+    for name in pool:
+        if int8:
+            np.testing.assert_array_equal(tpool[name].numpy(), want[name],
+                                          err_msg=name)
+        else:
+            np.testing.assert_allclose(tpool[name].numpy(), want[name],
+                                       rtol=1e-6, atol=1e-6, err_msg=name)
+    changed = (tpool["k"].numpy() != pool["k"]).any(axis=(1, 3))
+    written = {(int(b), int(o)) for b, o in zip(*np.nonzero(changed))}
+    assert written == {(3, 2), (3, 3), (7, 0), (7, 1),      # row 0
+                       (5, 1), (5, 2), (5, 3),              # row 1's page 0
+                       (2, 2), (2, 3)}                      # row 2: 10, 11
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_copy_paged_blocks_matches_jax(int8):
+    """``pool[:, dst] = pool[:, src]`` over every pool tensor with a layer
+    axis, in place; every other page keeps its content."""
+    rs = np.random.RandomState(6)
+    L, N, Hkv, bs, D = 2, 6, 2, 4, 8
+    if int8:
+        pool = {"k": rs.randint(-127, 128, (L, N, Hkv, bs, D)).astype(np.int8),
+                "v": rs.randint(-127, 128, (L, N, Hkv, bs, D)).astype(np.int8),
+                "k_scale": rs.rand(L, N, Hkv, bs).astype(np.float32),
+                "v_scale": rs.rand(L, N, Hkv, bs).astype(np.float32)}
+    else:
+        pool = {"k": rs.randn(L, N, Hkv, bs, D).astype(np.float32),
+                "v": rs.randn(L, N, Hkv, bs, D).astype(np.float32)}
+    want = jax.device_get(jl.copy_paged_blocks(
+        {n: jnp.asarray(a) for n, a in pool.items()}, [4, 1], [0, 5]))
+    tpool = {n: torch.from_numpy(a.copy()) for n, a in pool.items()}
+    assert tl.copy_paged_blocks(tpool, [4, 1], [0, 5]) is tpool
+    for name in pool:
+        np.testing.assert_array_equal(tpool[name].numpy(), want[name])
+        np.testing.assert_array_equal(tpool[name][:, 0].numpy(),
+                                      pool[name][:, 4])
+        np.testing.assert_array_equal(tpool[name][:, [1, 2, 3, 4]].numpy(),
+                                      pool[name][:, [1, 2, 3, 4]])
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_from_empty_prefill_attention_matches_jax(window):
+    """Both from-empty prefill attentions over fresh, un-repeated K/V with
+    right padding (the serving prefill's key mask) against the JAX ones,
+    at the real positions, 1e-5; the flash route also with the left
+    padding of generate, where pad rows come back zero."""
+    rs = np.random.RandomState(8)
+    B, T, H, Hkv, D = 2, 16, 4, 2, 16
+    q = rs.randn(B, T, H, D).astype(np.float32)
+    k = rs.randn(B, T, Hkv, D).astype(np.float32)
+    v = rs.randn(B, T, Hkv, D).astype(np.float32)
+    for mask in (np.array([[1] * 11 + [0] * 5, [1] * 16], np.int32),
+                 np.array([[0] * 6 + [1] * 10, [1] * 16], np.int32)):
+        real = mask.astype(bool)
+        tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
+        want = np.asarray(jl.flash_prefill_from_empty(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            key_mask=jnp.asarray(mask), window=window))
+        got = tl.flash_prefill_from_empty(tq, tk, tv, key_mask=tm,
+                                          window=window).numpy()
+        np.testing.assert_allclose(got[real], want[real], rtol=1e-5,
+                                   atol=1e-5)
+        left = ~real & (np.cumsum(mask, axis=1) == 0)
+        assert not got[left].any(), "a row that sees no key returns zeros"
+        want = np.asarray(jl.dot_product_attention(
+            jnp.asarray(q), jl.repeat_kv(jnp.asarray(k), H // Hkv),
+            jl.repeat_kv(jnp.asarray(v), H // Hkv),
+            bias=jl.key_mask_to_bias(jnp.asarray(mask)), causal=True,
+            window=window))
+        got = tl.masked_prefill_attention(tq, tk, tv, tm,
+                                          window=window).numpy()
+        np.testing.assert_allclose(got[real], want[real], rtol=1e-5,
+                                   atol=1e-5)
+    # no mask: every key is real
+    np.testing.assert_allclose(
+        tl.flash_prefill_from_empty(tq, tk, tv, window=window).numpy(),
+        np.asarray(jl.flash_prefill_from_empty(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window)),
+        rtol=1e-5, atol=1e-5)

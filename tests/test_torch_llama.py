@@ -149,18 +149,22 @@ def test_dense_training_forward_matches_jax(case, remat):
 
 
 def test_model_runs_only_the_packed_paged_step():
-    """What the model still refuses: the per-row paged append (the legacy
-    engine's), a training padding mask, unported remat policies and loss
-    chunking; the contiguous cache and the packed step both run."""
+    """What the model still refuses: a training padding mask, unported
+    remat policies and loss chunking; the contiguous cache, the packed
+    step and the per-row paged append (the two-program engine's) all run,
+    and the from-empty flash prefill is a config the model takes."""
     cfg = LlamaConfig.tiny()
     model = LlamaForCausalLM(cfg)
     engine = init_inference(model, params=model.init_params(seed=0),
                             dtype="fp32", device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
     pool = model.init_paged_cache(4, 8, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="per-row paged append"):
-        engine.module(ids, cache=pool, cache_index=paged_cache_index(
-            np.zeros((1, 1)), np.zeros((1, 4)), np.zeros(1)))
+    logits, out = engine.module(ids, cache=pool, cache_index=paged_cache_index(
+        np.full((1, 1), 2), np.array([[0, 1, 2, -1]]), np.array([3])))
+    assert out is pool and logits.shape == (1, 4, cfg.vocab_size)
+    assert pool["k"][:, 2, :, :3].abs().sum() > 0, "appended through the row"
+    assert not pool["k"][:, 2, :, 3:].abs().sum(), "the pad is dropped"
+    assert not pool["k"][:, [0, 1, 3]].abs().sum()
     with pytest.raises(NotImplementedError, match="attention_mask"):
         engine.module(ids, labels=ids, attention_mask=torch.ones_like(ids))
     assert engine.module(ids).shape == (1, 4, cfg.vocab_size)
@@ -175,5 +179,5 @@ def test_model_runs_only_the_packed_paged_step():
     for knob in ({"remat_policy": "dots"}, {"loss_chunk": 64}):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             LlamaConfig.tiny(**knob)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        LlamaConfig.tiny(prefill_flash_from_empty=True)
+    assert LlamaConfig.tiny(
+        prefill_flash_from_empty=True).prefill_flash_from_empty

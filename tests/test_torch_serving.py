@@ -177,9 +177,8 @@ def test_admission_control_cancel_and_drain(engines):
 
 
 @pytest.mark.parametrize("knob", [
-    {"mixed_step": False}, {"mixed_step_buckets": True},
-    {"prefix_cache": True}, {"spec_tokens": 2}, {"host_cache_blocks": 8},
-    {"step_watchdog_s": 1.0}])
+    {"mixed_step_buckets": True}, {"spec_tokens": 2},
+    {"host_cache_blocks": 8}, {"step_watchdog_s": 1.0}])
 def test_knobs_of_later_slices_raise(knob):
     with pytest.raises(NotImplementedError, match="slice of the port"):
         dt.ServingConfig(**knob)

@@ -1,6 +1,6 @@
 """Where the port's serving step spends its time on a GPU.
 
-    python3 tools/profile_torch_serve.py [--layers 32]
+    python3 tools/profile_torch_serve.py [--layers 32] [--legacy]
 
 Builds the serving configuration of ``chip_smoke.py`` (Llama-3-8B at
 full width, random bf16 weights from a seed, 8 slots, 16-token pages,
@@ -8,11 +8,15 @@ a 256-token prefill budget), warms it with a short run, then serves 8
 requests of 1024-token prompts and 48 new tokens under
 ``torch.profiler`` in two windows: the steps that carry prefill chunks,
 and the decode-only steps after them. For each window it prints the
-device time per kernel class (the ragged attention kernel, matrix
-products, everything else), the steps, the host wall time, and the
-device's idle share (1 - union of kernel intervals / window wall time,
-profiler overhead included). Writes the summary to
-``chiprun_out/serve_profile.json``; needs a CUDA device.
+device time per kernel class (the attention kernels, each its own class,
+matrix products, everything else), the steps, the forwards, the host wall
+time, and the device's idle share (1 - union of kernel intervals / window
+wall time, profiler overhead included). With ``--legacy`` the engine is
+the two-program one (``mixed_step=False``, 64-token chunks under the same
+budget): its prefill window runs the paged chunked-prefill kernel and its
+decode window the paged decode kernel, on the same traffic. Writes the
+summary to ``chiprun_out/serve_profile.json`` (``serve_profile_legacy.json``
+with ``--legacy``); needs a CUDA device.
 """
 
 import argparse
@@ -29,6 +33,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CLASSES = (("ragged_attention", re.compile(r"ragged_kernel")),
+           ("paged_decode_attention", re.compile(r"paged_decode_kernel")),
+           ("paged_prefill_attention", re.compile(r"paged_prefill_kernel")),
            ("matmul", re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas",
                                  re.I)))
 
@@ -61,6 +67,8 @@ def _kernel_summary(trace_path, wall_s, classes=CLASSES):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--legacy", action="store_true",
+                    help="profile the two-program engine (mixed_step=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -72,12 +80,15 @@ def main() -> int:
     cfg = LlamaConfig.llama3_8b(num_hidden_layers=args.layers)
     scfg = dict(max_batch_size=8, block_size=16, num_blocks=1024,
                 max_model_len=2048, prefill_token_budget=256)
+    if args.legacy:
+        scfg.update(mixed_step=False, prefill_chunk_tokens=64)
     srv, *_ = chip_smoke.serve(cfg, 0, 4, (64, 300), (4, 8), scfg,
                                torch.bfloat16)
     rs = np.random.RandomState(1)
     for _ in range(8):
         srv.submit(rs.randint(0, cfg.vocab_size, 1024), max_new_tokens=48)
     out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
+           "engine": "two-program" if args.legacy else "unified",
            "windows": {}}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     trace = os.path.join(ROOT, "chiprun_out", "serve_trace.json")
@@ -88,6 +99,7 @@ def main() -> int:
             return prefilling if window == "prefill" else srv.has_work()
 
         steps = 0
+        forwards = srv.decode_calls + srv.prefill_chunk_calls
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -101,13 +113,17 @@ def main() -> int:
         summary = _kernel_summary(trace, wall)
         os.remove(trace)
         summary["steps"] = steps
+        # forwards of the model: one per step on the unified engine
+        summary["forwards"] = srv.decode_calls + srv.prefill_chunk_calls \
+            - forwards if args.legacy else steps
         summary["ms_per_step"] = wall * 1e3 / max(steps, 1)
         out["windows"][window] = summary
         print(f"{window}: {json.dumps(summary)}", flush=True)
     srv.block_pool.check_consistent()
     assert srv.block_pool.used_count == 0
-    with open(os.path.join(ROOT, "chiprun_out", "serve_profile.json"),
-              "w") as f:
+    name = "serve_profile_legacy.json" if args.legacy else \
+        "serve_profile.json"
+    with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(out["device"])
     return 0
