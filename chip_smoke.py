@@ -29,7 +29,14 @@ Phases, each printed on its own line; any failure exits non-zero:
    D 128, cache 576, bf16, left-padded key masks) and an int8 cache, a
    window and an fp32 case; K5 quantized matmul at Llama-3-8B projection
    shapes (decode M 8 and prefill M 4096, int8 per-column and int4 group
-   64) plus fp32 and ragged cases; K8 per-column int8 matmul;
+   64) plus fp32 and ragged cases; K8 per-column int8 matmul; K9
+   block-sparse attention forward, dQ and dK/dV at the long-context
+   path's main shape (B 1, T 16384, H 32, D 128, bf16, causal, block 128,
+   BSLongformer and BigBird, the plain versions head by head) and at
+   T 4096 / 8192, fp32 D 64 block 64, non-causal BigBird and a per-head
+   Fixed layout, with FlexAttention (compiled, on a BlockMask from the
+   layout; main shape only) and SDPA with the layout's bool mask as
+   yardsticks;
 4. small references: a 2-layer fp32 model served with K6 (and K5, with
    int8 weights) and with their plain versions (identical tokens), served
    through the two-program engine with K7a/K7b (chunked, with the prefix
@@ -64,7 +71,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    (batch 8 x 1024, AdamW, bf16, clipping 1.0), 2 warm-up and 10 timed
    steps on one batch; asserts finite, falling losses and the launch
    counts of K1 (forward and recompute), K2 and K3;
-8. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
+8. long context: ``ops.sparse_attention.sparse_attention`` forward and
+   backward (loss ``(out * dout).sum()``) at T 4096, 8192 and 16384, 32
+   heads of 128, bf16, causal, BSLongformer and BigBird at block 128 (the
+   layouts of the JAX package's tools/bench_longctx.py), beside causal
+   flash attention on the same q/k/v; asserts finite gradients and the
+   launch counts (K9 6 x each kernel, K1/K2 once per yardstick), then
+   prints one ``long context {...}`` JSON line per length with
+   bench_longctx's fields and the backward times;
+9. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -659,6 +674,390 @@ def check_flash_attention():
                 for part, r in results[case].items()))
         del q, k, v, do, out, lse, dq, dk, dv, ref, pairs
     return results, check_masked_flash_attention()
+
+
+# ---------------------------------------------------------------------------
+# kernel K9: block-sparse attention forward, dQ, dK/dV
+# ---------------------------------------------------------------------------
+
+def sparse_config(name, H, block):
+    """The long-context layouts of the JAX package's
+    ``tools/bench_longctx.py`` (BSLongformer window 7 + global block 0,
+    BigBird 3 random + window 3 + 1 global), and a per-head Fixed one."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    if name == "bslongformer":
+        return sa.BSLongformerSparsityConfig(
+            num_heads=H, block=block, num_sliding_window_blocks=7,
+            global_block_indices=[0])
+    if name == "bigbird":
+        return sa.BigBirdSparsityConfig(
+            num_heads=H, block=block, num_random_blocks=3,
+            num_sliding_window_blocks=3, num_global_blocks=1)
+    return sa.FixedSparsityConfig(
+        num_heads=H, block=block, num_local_blocks=4, num_global_blocks=1,
+        different_layout_per_head=True, num_different_global_patterns=2)
+
+
+# the long-context path: Llama-3-8B's 32 query heads of 128, block 128
+SPARSE_MAIN = "bslongformer_t16384"
+SPARSE_CASES = {
+    # name: (B, T, H, D, dtype, block, layout, causal)
+    SPARSE_MAIN: (1, 16384, H, D, torch.bfloat16, 128, "bslongformer", True),
+    "bigbird_t16384": (1, 16384, H, D, torch.bfloat16, 128, "bigbird", True),
+    "bslongformer_t4096": (1, 4096, H, D, torch.bfloat16, 128,
+                           "bslongformer", True),
+    "bigbird_t8192": (1, 8192, H, D, torch.bfloat16, 128, "bigbird", True),
+    "fp32_d64_block64": (2, 2048, 8, 64, torch.float32, 64, "bigbird", True),
+    "bigbird_noncausal_t4096": (1, 4096, H, D, torch.bfloat16, 128,
+                                "bigbird", False),
+    "fixed_per_head_t4096": (1, 4096, H, D, torch.bfloat16, 128,
+                             "fixed_per_head", True),
+}
+# FlexAttention (compiled) is timed at the main width only: one compile
+SPARSE_FLEX = (SPARSE_MAIN, "bigbird_t16384")
+
+
+def sparse_pairs(layout, block, causal):
+    """(query, key) pairs per batch row that the (causally cut) layout
+    lets through: a diagonal block holds block (block + 1) / 2 of them."""
+    layout = np.asarray(layout) != 0
+    n = int(layout.sum())
+    if not causal:
+        return n * block * block
+    diag = int(np.trace(layout, axis1=1, axis2=2).sum())
+    return (n - diag) * block * block + diag * block * (block + 1) // 2
+
+
+def sparse_bounds(B, T, Hh, Dh, dtype, layout, block, causal):
+    """Bound of K9 fwd, dq and dkv: each input read once, each output
+    written once; FLOPs over the pairs the layout lets through (4 D each
+    for the forward, 6 D for dQ, 8 D for dK/dV), at the type's peak."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    x, row = B * T * Hh * Dh * e, B * Hh * T * 4
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    f1 = 4 * Dh * B * sparse_pairs(layout, block, causal)
+    return {"fwd": bound(4 * x + row, f1, rate),
+            "dq": bound(5 * x + 2 * row, 1.5 * f1, rate),
+            "dkv": bound(6 * x + 2 * row, 2 * f1, rate)}
+
+
+def sparse_library(q, k, v, do, out, layout, block, causal, flex):
+    """Yardstick times ``{part: ms}`` of one PyTorch call for the same
+    function: SDPA with the layout's boolean mask (``[1, 1, T, T]`` when
+    every head has the same layout), and with ``flex`` FlexAttention on a
+    ``BlockMask`` built from the layout's lists, compiled, its first call
+    excluded, its output held against the kernel's ``out``. A yardstick
+    that does not run is recorded as None with its error: the port never
+    calls either."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    T = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    res = {}
+    same = bool((layout == layout[:1]).all())
+    seen = torch.as_tensor((layout[:1] if same else layout) != 0,
+                           device="cuda")
+    mask = seen.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        mask &= torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+    mask = mask[None]
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            res["sdpa_fwd"] = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=mask),
+                reps=5)
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=mask)
+            res["sdpa_bwd"] = cuda_time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True), reps=5)
+        del lib_out
+    except Exception as err:  # a yardstick only: recorded, never gating
+        log(f"  sdpa yardstick did not run: {type(err).__name__}: "
+            f"{str(err)[:300]}")
+    del mask
+    if flex:
+        try:
+            res.update(flex_times(qt, kt, vt, dot, out, layout, block,
+                                  causal))
+        except Exception as err:  # a yardstick only: recorded, never gating
+            log(f"  flex_attention yardstick did not run: "
+                f"{type(err).__name__}: {str(err)[:500]}")
+    return res
+
+
+def flex_times(qt, kt, vt, dot, want, layout, block, causal):
+    """FlexAttention forward and backward on ``[B, H, T, D]`` tensors with
+    a BlockMask from the layout: blocks below the diagonal are full, the
+    diagonal block (causal) is partial; the ``mask_mod`` reads the layout
+    too, so that the function does not depend on how the blocks are
+    visited. Its
+    output must agree with ``want`` (the kernel's ``[B, T, H, D]`` out) to
+    K1's bf16 tolerance, or the yardstick is not the same function."""
+    import torch._functorch.config as functorch_config
+    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+
+    # the timed backward runs with retain_graph, which donated buffers
+    # forbid
+    functorch_config.donated_buffer = False
+
+    B, Hh, T, _ = qt.shape
+    nb = T // block
+    lay = torch.as_tensor(np.asarray(layout) != 0, device="cuda")
+    diag = torch.eye(nb, dtype=torch.bool, device="cuda")[None]
+    full, part = (lay & ~diag, lay & diag) if causal else \
+        (lay, torch.zeros_like(lay))
+
+    def lists(m):
+        cnt = m.sum(-1).to(torch.int32)
+        idx = torch.argsort((~m).to(torch.int8), dim=-1, stable=True)
+        return (cnt[None].expand(B, -1, -1).contiguous(),
+                idx.to(torch.int32)[None].expand(B, -1, -1, -1).contiguous())
+
+    def layout_mod(b, h, q_idx, kv_idx):
+        seen = lay[h, q_idx // block, kv_idx // block]
+        return seen & (q_idx >= kv_idx) if causal else seen
+
+    kv_num, kv_idx = lists(part)
+    full_num, full_idx = lists(full)
+    bm = BlockMask.from_kv_blocks(kv_num, kv_idx, full_num, full_idx,
+                                  BLOCK_SIZE=block, mask_mod=layout_mod)
+    flex = torch.compile(flex_attention, dynamic=False)
+    t = time.perf_counter()
+    out = flex(qt, kt, vt, block_mask=bm)
+    torch.autograd.grad(out, (qt, kt, vt), dot)
+    torch.cuda.synchronize()
+    err = (out.transpose(1, 2).float() - want.float()).abs()
+    log(f"  flex_attention compiled (forward + backward) in "
+        f"{time.perf_counter() - t:.1f} s; max |flex - kernel| "
+        f"{float(err.max()):.3e}")
+    if not bool((err <= 2 ** -7 * want.float().abs() + 2e-2).all()):
+        raise ValueError("flex_attention's BlockMask computes another "
+                         "function than the layout")
+    res = {"flex_fwd": cuda_time_ms(lambda: flex(qt, kt, vt, block_mask=bm),
+                                    reps=10)}
+    out = flex(qt, kt, vt, block_mask=bm)
+    res["flex_bwd"] = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), reps=10)
+    return res
+
+
+def check_block_sparse_attention():
+    """K9 forward, dQ and dK/dV against their plain versions on the same
+    inputs (the backward ones from the kernel's out and lse), head by head
+    (one head's dense fp32 scores at T 16384 are 1 GiB), which computes
+    the same function. Tolerance: fp32 2e-5; bf16 2**-7 |plain| + 2e-2,
+    as K1's. Times (the plain version once: the head-by-head loop), the
+    bound over the pairs the layout lets through, and the yardsticks of
+    ``sparse_library``."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+
+    results = {}
+    for case, (B, T, Hh, Dh, dtype, block, name, causal) in \
+            SPARSE_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(len(results) + 91)
+        q, k, v, do = (torch.randn(B, T, Hh, Dh, generator=g, device="cuda",
+                                   dtype=dtype) for _ in range(4))
+        layout = bsa._causal_layout(
+            sparse_config(name, Hh, block).make_layout(T), causal)
+        args = (layout, block, causal)
+        out, lse = bsa.block_sparse_attention_fwd(q, k, v, *args)
+        dq = bsa.block_sparse_attention_bwd_dq(q, k, v, out, lse, do, *args)
+        dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, out, lse, do,
+                                                    *args)
+        got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+        ref = {n: torch.empty_like(t) for n, t in got.items()}
+        plain_ms = {}
+        for part in ("fwd", "dq", "dkv"):
+            a, b = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            for h in range(Hh):
+                hs = slice(h, h + 1)
+                qh, kh, vh, oh, doh = (t[:, :, hs] for t in (q, k, v, out, do))
+                lh, hargs = lse[:, hs], (layout[hs], block, causal)
+                if part == "fwd":
+                    ref["out"][:, :, hs], ref["lse"][:, hs] = \
+                        bsa.block_sparse_attention_fwd_plain(qh, kh, vh,
+                                                             *hargs)
+                elif part == "dq":
+                    ref["dq"][:, :, hs] = \
+                        bsa.block_sparse_attention_bwd_dq_plain(
+                            qh, kh, vh, oh, lh, doh, *hargs)
+                else:
+                    ref["dk"][:, :, hs], ref["dv"][:, :, hs] = \
+                        bsa.block_sparse_attention_bwd_dkv_plain(
+                            qh, kh, vh, oh, lh, doh, *hargs)
+            b.record()
+            b.synchronize()
+            plain_ms[part] = a.elapsed_time(b)
+        fp32 = dtype == torch.float32
+        rtol, atol = (2e-5, 2e-5) if fp32 else (2 ** -7, 2e-2)
+        errs = {}
+        for n in got:
+            x, y = got[n].float(), ref[n].float()
+            err = (x - y).abs()
+            errs[n] = float(err.max())
+            tol = (1e-5, 1e-4) if n == "lse" else (rtol, atol)
+            if not bool((err <= tol[0] * y.abs() + tol[1]).all()):
+                raise AssertionError(f"block-sparse attention {case}: {n} "
+                                     f"disagrees with the plain version "
+                                     f"(max |err| {errs[n]:.3e})")
+        del ref
+        delta = bsa._delta(out, do)
+        ms = {
+            "fwd": cuda_time_ms(
+                lambda: bsa.block_sparse_attention_fwd(q, k, v, *args)),
+            "dq": cuda_time_ms(lambda: bsa.block_sparse_attention_bwd_dq(
+                q, k, v, out, lse, do, *args, delta=delta)),
+            "dkv": cuda_time_ms(lambda: bsa.block_sparse_attention_bwd_dkv(
+                q, k, v, out, lse, do, *args, delta=delta)),
+        }
+        lib = sparse_library(q, k, v, do, out, layout, block, causal,
+                             case in SPARSE_FLEX)
+        bounds = sparse_bounds(B, T, Hh, Dh, dtype, *args)
+        _, cnt = bsa.layout_indices(layout)
+        _, qcnt = bsa.layout_indices(np.swapaxes(layout, 1, 2))
+        results[case] = {}
+        for part, names in (("fwd", ("out", "lse")), ("dq", ("dq",)),
+                            ("dkv", ("dk", "dv"))):
+            kind = "fwd" if part == "fwd" else "bwd"
+            results[case][part] = dict(
+                max_abs_err=max(errs[n] for n in names), ms=ms[part],
+                plain_ms=plain_ms[part], bound_ms=bounds[part][0],
+                bound_by=bounds[part][1],
+                library_ms=lib.get(f"flex_{kind}", lib.get(f"sdpa_{kind}")),
+                flex_ms=lib.get(f"flex_{kind}"),
+                sdpa_ms=lib.get(f"sdpa_{kind}"))
+        log(f"parity block_sparse_attention {case} (B {B} T {T} H {Hh} D {Dh} "
+            f"{str(dtype)[6:]} block {block} {name} causal {causal}; block "
+            f"degree mean {cnt.mean():.2f} max {cnt.max()}, transposed max "
+            f"{qcnt.max()}; {sparse_pairs(layout, block, causal)} pairs per "
+            f"batch row): ok max_abs_err " + " ".join(
+                f"{n}={e:.3e}" for n, e in errs.items())
+            + f" (tolerance {rtol:g}*|plain|+{atol:g}) | " + " | ".join(
+                f"{part} kernel_ms={r['ms']:.4f} plain_ms="
+                f"{r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']}) flex_ms={r['flex_ms']} "
+                f"sdpa_ms={r['sdpa_ms']}"
+                for part, r in results[case].items()))
+        del q, k, v, do, out, lse, dq, dk, dv, got, delta
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+LONGCTX_T = (4096, 8192, 16384)
+LONGCTX_LAYOUTS = ("bslongformer", "bigbird")
+
+
+def causal_block_fraction(layout):
+    """Share of the causal block grid the layout keeps, as
+    ``tools/bench_longctx.py`` counts it: the ceiling of the speedup over
+    a causal flash kernel that already skips the upper triangle."""
+    nb = layout.shape[-1]
+    tril = np.tril(np.ones((nb, nb), bool))
+    return float((np.asarray(layout, bool) & tril[None]).sum()) / \
+        float(tril.sum() * layout.shape[0])
+
+
+def check_long_context():
+    """The long-context path, a twin of ``tools/bench_longctx.py`` on the
+    port: ``sparse_attention`` (bf16, B 1, H 32, D 128, causal, block 128)
+    at T 4096, 8192 and 16384 with both layouts, one forward and one
+    backward each (loss ``(out * dout).sum()``), beside causal
+    ``flash_attention`` (K1/K2) on the same q/k/v. Asserts finite
+    gradients and exact launch counts (K9: 6 of each; K1 forward and K2:
+    one per yardstick call), then times both forward and backward.
+    Returns the K9 launches."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
+
+    k9 = (bsa.block_sparse_attention_fwd, bsa.block_sparse_attention_bwd_dq,
+          bsa.block_sparse_attention_bwd_dkv)
+    k12 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+           fa.flash_attention_bwd_dkv)
+
+    def inputs(T):
+        g = torch.Generator(device="cuda").manual_seed(T)
+        return [torch.randn(1, T, H, D, generator=g, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(4)]
+
+    def fwd_bwd(fn, q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves) * do).sum().backward()
+        return [t.grad for t in leaves]
+
+    for f in k9 + k12:
+        f.launches = 0
+    flash_calls = 0
+    for T in LONGCTX_T:
+        q, k, v, do = inputs(T)
+        for name in LONGCTX_LAYOUTS:
+            cfg = sparse_config(name, H, 128)
+            grads = fwd_bwd(lambda *x: sparse_attention(
+                *x, sparsity_config=cfg, causal=True), q, k, v, do)
+            if not all(bool(torch.isfinite(g).all()) for g in grads):
+                raise AssertionError(f"long context T {T} {name}: a "
+                                     f"gradient is not finite")
+        grads = fwd_bwd(lambda *x: fa.flash_attention(*x, causal=True),
+                        q, k, v, do)
+        flash_calls += 1
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"long context T {T} flash: a gradient is "
+                                 f"not finite")
+        del q, k, v, do, grads
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in k9 + k12}
+    runs = len(LONGCTX_T) * len(LONGCTX_LAYOUTS)
+    want = {**{f.__name__: runs for f in k9},
+            **{f.__name__: flash_calls for f in k12}}
+    if launches != want:
+        raise AssertionError(f"long context: launches {launches} != {want}")
+    log(f"long context: {runs} sparse_attention forward + backward runs, "
+        f"{flash_calls} flash yardsticks, launches {launches}")
+
+    for T in LONGCTX_T:
+        q, k, v, do = inputs(T)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        reps = 25 if T < 16384 else 5
+
+        def times(fn):
+            with torch.no_grad():
+                fwd = cuda_time_ms(lambda: fn(q, k, v), reps=reps)
+            out = fn(*leaves)
+            bwd = cuda_time_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), reps=reps)
+            return fwd, bwd
+
+        flash_ms, flash_bwd_ms = times(
+            lambda *x: fa.flash_attention(*x, causal=True))
+        rec = {"metric": "longctx_attention", "seq": T, "heads": H,
+               "head_dim": D, "flash_ms": flash_ms,
+               "flash_bwd_ms": flash_bwd_ms, "layouts": {}}
+        for name in LONGCTX_LAYOUTS:
+            cfg = sparse_config(name, H, 128)
+            frac = causal_block_fraction(cfg.make_layout(T))
+            sparse_ms, sparse_bwd_ms = times(lambda *x: sparse_attention(
+                *x, sparsity_config=cfg, causal=True))
+            rec["layouts"][name] = {
+                "sparse_ms": sparse_ms, "sparse_bwd_ms": sparse_bwd_ms,
+                "sparse_speedup_vs_flash": flash_ms / sparse_ms,
+                "sparse_bwd_speedup_vs_flash": flash_bwd_ms / sparse_bwd_ms,
+                "causal_nnz_fraction": frac,
+                "theoretical_speedup": 1.0 / frac,
+                "realization": flash_ms / sparse_ms * frac,
+                "bwd_realization": flash_bwd_ms / sparse_bwd_ms * frac}
+        log("long context " + json.dumps(rec))
+        del q, k, v, do, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {f.__name__: launches[f.__name__] for f in k9}
 
 
 # ---------------------------------------------------------------------------
@@ -1651,6 +2050,7 @@ def main() -> int:
     adam = check_fused_adam()
     decode = check_decode_attention()
     quant, int8_col = check_quant_matmul()
+    sparse = check_block_sparse_attention()
     check_small_reference()
     check_small_legacy_reference()
     check_small_generate_reference()
@@ -1665,6 +2065,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = check_training()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse_launches = check_long_context()
 
     main_case = ragged["bf16/mixed"]
     kernels = [{
@@ -1730,6 +2133,21 @@ def main() -> int:
             launches=launches,
             **dict(results[main_name], max_abs_err=max(
                 r["max_abs_err"] for r in results.values()))))
+    # K9: launches of the long-context path's six forward + backward runs
+    sparse_src = "deepspeed_tpu/ops/pallas/block_sparse_attention.py"
+    for name, part, line in (("block_sparse_attention_fwd", "fwd", 55),
+                             ("block_sparse_attention_bwd_dq", "dq", 103),
+                             ("block_sparse_attention_bwd_dkv", "dkv", 143)):
+        main_case = dict(sparse[SPARSE_MAIN][part])
+        for extra in ("flex_ms", "sdpa_ms"):
+            main_case.pop(extra)
+        main_case["max_abs_err"] = max(r[part]["max_abs_err"]
+                                       for r in sparse.values())
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+            replaces=f"{sparse_src}:{line}", launches=sparse_launches[name],
+            **main_case))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Marked ``cuda``: each test skips (with the reason) where no CUDA device is
 present. On a machine with one, run them with
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
-Tolerance: fp32 inputs differ only by summation order (1e-5); bf16
+Tolerance: fp32 inputs differ only by summation order (1e-5; 2e-5 for
+the block-sparse kernels, whose rows sum up to 128 blocks of keys); bf16
 outputs are roundings of nearly equal fp32 values, so they agree to one
 bf16 ulp (2**-7 relative). The quantized matmuls' absolute slack is
 1e-5 of the sum of the products' magnitudes (|x| @ |W|).
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import quant_matmul as qm
 from deepspeed_tpu_torch.ops.decode_attention import (
@@ -22,6 +24,9 @@ from deepspeed_tpu_torch.ops.decode_attention import (
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam, fused_adam_plain
 from deepspeed_tpu_torch.ops.ragged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig,
+    sparse_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -392,3 +397,113 @@ def test_masked_flash_kernel_matches_plain(cuda, dtype, D, Hkv, G, T, window):
                                atol=1e-4)
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.flash_attention(q.requires_grad_(), k, v, key_mask=mask)
+
+
+def _sparse_layout(name, H, block, T):
+    cfg = {
+        "bslongformer": lambda: BSLongformerSparsityConfig(
+            num_heads=H, block=block, num_sliding_window_blocks=3,
+            global_block_indices=[0]),
+        "bigbird": lambda: BigBirdSparsityConfig(
+            num_heads=H, block=block, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1),
+        "fixed_per_head": lambda: FixedSparsityConfig(
+            num_heads=H, block=block, num_local_blocks=2, num_global_blocks=1,
+            different_layout_per_head=True, num_different_global_patterns=2),
+    }[name]()
+    return cfg.make_layout(T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("name", ["bslongformer", "bigbird",
+                                  "fixed_per_head"])
+def test_block_sparse_kernels_match_plain(cuda, dtype, D, block, causal,
+                                          name):
+    """K9 forward, dQ and dK/dV against their plain versions on the same
+    inputs (the backward ones from the kernel's out and lse). Non-causal
+    BigBird has global rows and columns of degree nb; the per-head Fixed
+    layout differs between heads. Tolerance: fp32 2e-5, bf16 as K1's."""
+    B, H, T = 2, 3, 8 * block
+    layout = _sparse_layout(name, H, block, T)
+    if causal:
+        layout = layout * np.tril(np.ones(layout.shape[1:], np.int64))
+    g = torch.Generator(device=cuda).manual_seed(D + block + int(causal))
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=cuda,
+                               dtype=dtype) for _ in range(4))
+    kernels = (bsa.block_sparse_attention_fwd,
+               bsa.block_sparse_attention_bwd_dq,
+               bsa.block_sparse_attention_bwd_dkv)
+    counts = [f.launches for f in kernels]
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, layout, block, causal)
+    dq = bsa.block_sparse_attention_bwd_dq(q, k, v, out, lse, do, layout,
+                                           block, causal)
+    dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, out, lse, do, layout,
+                                                block, causal)
+    ref_out, ref_lse = bsa.block_sparse_attention_fwd_plain(q, k, v, layout,
+                                                            block, causal)
+    ref_dq = bsa.block_sparse_attention_bwd_dq_plain(q, k, v, out, lse, do,
+                                                     layout, block, causal)
+    ref_dk, ref_dv = bsa.block_sparse_attention_bwd_dkv_plain(
+        q, k, v, out, lse, do, layout, block, causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [c + 1 for c in counts]
+    fp32 = dtype == torch.float32
+    tol = dict(rtol=2e-5 if fp32 else 2 ** -7, atol=2e-5 if fp32 else 2e-2)
+    torch.testing.assert_close(out.float(), ref_out.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_sparse_attention_gradients_through_the_kernels(cuda, causal):
+    """``sparse_attention`` on CUDA tensors: one launch of each K9 kernel
+    per forward and backward, and gradients equal to autograd through the
+    plain forward (fp32, 2e-5)."""
+    B, H, D, block = 2, 3, 64, 64
+    T = 8 * block
+    cfg = BigBirdSparsityConfig(num_heads=H, block=block,
+                                num_random_blocks=1,
+                                num_sliding_window_blocks=3,
+                                num_global_blocks=1)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=cuda)
+                   for _ in range(4))
+    kernels = (bsa.block_sparse_attention_fwd,
+               bsa.block_sparse_attention_bwd_dq,
+               bsa.block_sparse_attention_bwd_dkv)
+    counts = [f.launches for f in kernels]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = sparse_attention(*leaves, sparsity_config=cfg, causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [c + 1 for c in counts]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    layout = cfg.make_layout(T)
+    if causal:
+        layout = layout * np.tril(np.ones(layout.shape[1:], np.int64))
+    ref, _ = bsa.block_sparse_attention_fwd_plain(*plain, layout, block,
+                                                  causal)
+    ref.backward(do)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=2e-5, atol=2e-5)
+
+
+def test_block_sparse_kernels_refuse_what_they_do_not_cover(cuda):
+    """Head dims, blocks and dtypes outside the kernels' range raise on
+    CUDA tensors; nothing falls back to the plain version."""
+    ones = lambda H, nb: np.ones((H, nb, nb), np.int64)
+    q = torch.zeros(1, 256, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        bsa.block_sparse_attention_fwd(q, q, q, ones(2, 4), 64)
+    q = torch.zeros(1, 256, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="block"):
+        bsa.block_sparse_attention_fwd(q, q, q, ones(2, 8), 32)
+    with pytest.raises(ValueError, match="bf16 or"):
+        h = q.half()
+        bsa.block_sparse_attention_fwd(h, h, h, ones(2, 4), 64)
