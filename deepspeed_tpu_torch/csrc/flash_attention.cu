@@ -3,48 +3,100 @@
 // called through ctypes from deepspeed_tpu_torch/ops/flash_attention.py.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
-//   _fwd_kernel     -> fwd_kernel  (out and the fp32 logsumexp)
-//   _bwd_dq_kernel  -> dq_kernel   (dQ, looping over key tiles)
-//   _bwd_dkv_kernel -> dkv_kernel  (dK and dV, looping over query tiles)
+//   _fwd_kernel     -> tc_fwd_kernel (bf16), fwd_kernel (fp32): out and
+//                      the fp32 logsumexp
+//   _bwd_dq_kernel  -> tc_dq_kernel, dq_kernel: dQ, looping over key tiles
+//   _bwd_dkv_kernel -> tc_dkv_kernel, dkv_kernel: dK and dV, looping over
+//                      query tiles
 // and computes the same function over q/k/v in the model layout
 // [B, T, H, D] (kv heads already repeated): out = softmax(q k^T * scale +
 // mask) v with fp32 softmax. The forward also has the TPU kernel's masked,
 // GQA-native mode (flash_attention_fwd_masked): k/v keep their Hkv heads
 // (query head h reads kv head h / (H / Hkv)) and a key mask [B, Tk] int32
-// (1 = real token) hides padded keys; it is forward-only. Causality is bottom-right aligned: row i sees
-// column j iff i + (Tk - Tq) >= j; a window also needs
-// i + (Tk - Tq) - j < window. lse = m + log(l) is [B, H, Tq] fp32. The
-// backward recomputes P = exp(S - lse): dV = P^T dO, dP = dO V^T,
-// dS = P (dP - delta) with delta = rowsum(dO * O) (a torch reduction in
-// the wrapper), dQ = scale dS K, dK = scale dS^T Q. A row that sees no
-// key gets zeros and lse = -inf (the port's convention; see ROADMAP.md
-// Queue 3 for how the TPU kernel differs there).
+// (1 = real token) hides padded keys; it is forward-only. Causality is
+// bottom-right aligned: row i sees column j iff i + (Tk - Tq) >= j; a
+// window also needs i + (Tk - Tq) - j < window. lse = m + log(l) is
+// [B, H, Tq] fp32. The backward recomputes P = exp(S - lse): dV = P^T dO,
+// dP = dO V^T, dS = P (dP - delta) with delta = rowsum(dO * O) (a torch
+// reduction in the wrapper), dQ = scale dS K, dK = scale dS^T Q. A row
+// that sees no key gets zeros and lse = -inf (the port's convention; see
+// ROADMAP.md Queue 3 for how the TPU kernel differs there).
 //
-// Bound: operations. At the training shapes (T 1024, D 64) a tile of
-// 64 x 64 scores costs 2 * 64 * 64 * D FLOP per 64 * D * 2 bytes of K and
-// V, far above the card's ridge, so the floor is FLOPs / peak.
+// Bound: operations. At the training shape (T 1024, D 64, causal) a
+// 64 x 64 tile of scores costs 4 * 64 * 64 * D FLOP for 2 * 64 * D * 2
+// bytes of K and V, far above the card's ridge (~295 FLOP a byte in bf16),
+// so the floor is FLOPs over the bf16 tensor-core peak.
 //
-// What the design does about it:
-// - one block per (64-row tile, batch x head); the TPU grid's sequential
-//   kv axis (or q axis, for dK/dV) with its VMEM scratch becomes a loop
-//   inside the block with the running max, sum and accumulators in
-//   registers, so blocks need no order and no atomics;
-// - causal and window tiles are skipped by the loop bounds, so the work
-//   is the visible triangle (or band) and not the square;
-// - ragged tails (T not a multiple of 64) are masked by the true lengths
-//   and loaded as zeros: nothing is padded in device memory;
-// - tiles live in shared memory as fp32 rows of stride D + 1, so both the
-//   score pattern (16 threads on 16 key rows) and the accumulate pattern
-//   (16 threads on 16 consecutive columns) read without bank conflicts;
-//   each thread holds a 4 x 4 block of scores and a 4 x D/16 block of the
-//   accumulators.
-// Math is fp32 FMA on CUDA cores (no mma/wgmma yet): correct first, and
-// the gap to the bound is written down in PERF.md.
+// bf16 inputs (the training step, the generate and serving prefills, the
+// long-context yardstick) run on the tensor cores: tc_fwd_kernel,
+// tc_dq_kernel and tc_dkv_kernel.
+// - Products are mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with their
+//   operands brought from shared memory by ldmatrix (.trans where the
+//   product reads a tile along its rows: V in P.V, K in dS.K, dO and Q in
+//   the dK/dV products). Each warp owns 16 rows of the output.
+// - Forward: the warp's Q rows stay in registers as A fragments for the
+//   whole key loop. S = Q.K^T lands in accumulator fragments; the running
+//   max and sum live beside them (a row is spread over the 4 lanes of a
+//   quad: two shuffles reduce it), in log2 units (exp2 with the scale
+//   folded). P is rounded to bf16 in registers and is the A operand of
+//   P.V directly: the C layout of one m16n8 product pair is the A layout
+//   of the next k-step, so nothing goes through shared memory.
+// - dQ: one block per query tile holds Q and dO in shared memory and
+//   walks the key tiles: S and dP = dO.V^T as above, dS = P (dP - delta)
+//   with P = exp(S scale - lse) recomputed, dQ += bf16(dS).K.
+// - dK/dV: one block per key tile holds K and V and walks the query
+//   tiles in the transposed form: S^T = K.Q^T, P^T, dV += bf16(P^T).dO,
+//   dP^T = V.dO^T, dS^T = P^T (dP^T - delta), dK += bf16(dS^T).Q. The two
+//   kernels split the backward as the TPU kernels do: no atomics, the
+//   result does not depend on scheduling.
+// - Tiles are bf16 in shared memory, rows of D elements whose 16-byte
+//   chunk c sits at c ^ (row & 7), so the 8 rows an ldmatrix phase reads
+//   fall on distinct banks. They arrive through a 2-stage ring of 16-byte
+//   cp.async copies (zero-filled past the sequence end): the next tile is
+//   in flight while this one is multiplied.
+// - Tile sizes: forward 128 query rows (8 warps) at D 64 and 64 (4 warps)
+//   at D 128, key tiles of 64; dQ 64 query rows, key tiles of 64; dK/dV
+//   64 keys, query tiles of 64 (D 64) or 32 (D 128, where the dK and dV
+//   accumulators take 128 registers a thread).
+// - Occupancy: the D 64 forward is bounded to 128 registers so two 8-warp
+//   blocks share an SM (faster on the H100 than one block with more
+//   registers); the other kernels take what they need without spilling
+//   (two or three 4-warp blocks an SM; tighter bounds ran slower).
+//   `nvcc -Xptxas -v` gives the figures; PERF.md records them.
+// - Masking is per element only on tiles that need it (the causal
+//   diagonal, a window edge, a ragged tail, a key mask that is not all
+//   ones); the loop bounds skip the invisible tiles, and in the masked
+//   mode a key tile that the mask hides completely is skipped before its
+//   load (one 64-bit word of mask bits per key tile, built by ballots).
+// - Grid: x = batch x head, y = tile; the forward and dQ walk y from the
+//   last query tile, so the longest causal rows start first.
+// Rounding points: S, dP and every accumulator are fp32; P (forward and
+// backward) and dS are rounded to bf16 before their products, as the TPU
+// kernels' fp32 dots run through the bf16 MXU; the row sum l is taken
+// from the unrounded P.
+//
+// fp32 inputs keep the first design (fwd_kernel, dq_kernel, dkv_kernel):
+// exact fp32 FMA on CUDA cores, which the 1e-5 fp32 tolerance needs
+// (neither TF32 nor bf16 tensor cores meet it). One block per (64-row
+// tile, batch x head) loops over the visible tiles with the running max,
+// sum and accumulators in registers; tiles live in shared memory as fp32
+// rows of stride D + 1, so both the score pattern (16 threads on 16 key
+// rows) and the accumulate pattern (16 threads on 16 consecutive columns)
+// read without bank conflicts; each thread holds a 4 x 4 block of scores
+// and a 4 x D/16 block of the accumulators.
+//
+// Both kinds skip causal and window tiles by their loop bounds, so the
+// work is the visible triangle (or band), and mask ragged tails by the
+// true lengths: nothing is padded in device memory. Each kernel instance
+// raises its shared-memory limit once (cudaFuncSetAttribute), not on
+// every launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -69,14 +121,8 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // rows [row0, row0 + 64) of head h, batch b of a [B, T, H, D] tensor ->
 // fp32 shared rows of stride D + 1; rows at or past T read as zeros
@@ -405,44 +451,700 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+using bf16_t = __nv_bfloat16;
+
+constexpr int TN = 64;               // keys of a key tile (forward, dQ)
+constexpr int MAX_SMEM = 232448;     // the card's opt-in shared memory
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !in
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4 bytes global -> shared, zero-filled when !in
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// element offset of (row r, 16-byte chunk ch) in a swizzled [rows][D] tile
+template <int D>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return r * D + ((ch ^ (r & 7)) << 3);
+}
+
+// ldmatrix addresses, for the 16 x 16 piece at (row r0, column 16 kk) of a
+// swizzled tile. A operand: rows r0..r0+15 as the m dimension. B operand
+// (rows are the n dimension, columns the k dimension): two n8 tiles.
+// Transposed B operand (rows are the k dimension, columns n): two n8 tiles.
+template <int D>
+__device__ __forceinline__ uint32_t a_addr(const bf16_t* t, int r0, int kk,
+                                           int lane) {
+  return saddr(t + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4)));
+}
+template <int D>
+__device__ __forceinline__ uint32_t b_addr(const bf16_t* t, int r0, int kk,
+                                           int lane) {
+  return saddr(t + swz<D>(r0 + (lane & 7) + ((lane >> 4) << 3),
+                          2 * kk + ((lane >> 3) & 1)));
+}
+template <int D>
+__device__ __forceinline__ uint32_t bt_addr(const bf16_t* t, int r0, int nn,
+                                            int lane) {
+  return saddr(t + swz<D>(r0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                          2 * nn + (lane >> 4)));
+}
+
+// start copying rows [row0, row0 + ROWS) of head h, batch b of a
+// [B, T, Hn, D] bf16 tensor into a swizzled shared tile; rows at or past T
+// are zero-filled
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(bf16_t* dst, const void* src, int b,
+                                          int h, int row0, int T, int Hn) {
+  constexpr int CH = D / 8;
+  static_assert(ROWS * CH % NT == 0, "whole passes of the block");
+  const bf16_t* s = static_cast<const bf16_t*>(src);
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int r = c / CH;
+    const int ch = c % CH;
+    const int row = row0 + r;
+    const bool in = row < T;
+    cp16(saddr(dst + swz<D>(r, ch)),
+         s + ((static_cast<size_t>(b) * T + (in ? row : 0)) * Hn + h) * D +
+             ch * 8,
+         in);
+  }
+}
+
+// A fragments (16 x 16, k-step kk) from score-shaped accumulators: the C
+// layout of n8 tiles 2 kk and 2 kk + 1 is the A layout of one k-step
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack(lo[0], lo[1]);
+  a[1] = pack(lo[2], lo[3]);
+  a[2] = pack(hi[0], hi[1]);
+  a[3] = pack(hi[2], hi[3]);
+}
+
+// does a tile of rows [r0, r0 + nr) x columns [c0, c0 + nc) need the
+// per-element mask (a causal diagonal, a window edge, a ragged end)?
+__device__ __forceinline__ bool edge_tile(const Params& p, int r0, int nr,
+                                          int c0, int nc) {
+  const int off = p.Tk - p.Tq;
+  return r0 + nr > p.Tq || c0 + nc > p.Tk ||
+         (p.causal && c0 + nc - 1 > r0 + off) ||
+         (p.window > 0 && r0 + nr - 1 + off - c0 >= p.window);
+}
+
+// D 64: at most 128 registers, so two 8-warp blocks share an SM
+template <int D, int NW>
+__global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
+    tc_fwd_kernel(Params p) {
+  constexpr int NT = NW * 32, BM = NW * 16, KT = D / 16, NS = TN / 8,
+                ND = D / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
+  bf16_t* ks = qs + BM * D;      // [2][TN][D]
+  bf16_t* vs = ks + 2 * TN * D;  // [2][TN][D]
+  // masked mode: bit j of live[t] = key t * TN + j is real
+  uint64_t* live = reinterpret_cast<uint64_t*>(vs + 2 * TN * D);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int off = p.Tk - p.Tq;
+
+  const int last = min(row0 + BM, p.Tq) - 1;
+  const int col_hi = p.causal ? min(p.Tk, last + off + 1) : p.Tk;
+  const int col_lo = p.window > 0 ? max(0, row0 + off - p.window + 1) : 0;
+  const int t_lo = col_lo / TN;
+  const int t_hi = col_hi > col_lo ? (col_hi + TN - 1) / TN : t_lo;
+
+  if (p.kmask != nullptr) {
+    const int* m = p.kmask + static_cast<size_t>(b) * p.Tk;
+    for (int t = t_lo + warp; t < t_hi; t += NW) {
+      const int c = t * TN + lane;
+      const unsigned lo = __ballot_sync(~0u, c < p.Tk && m[c] > 0);
+      const unsigned hi = __ballot_sync(~0u, c + 32 < p.Tk && m[c + 32] > 0);
+      if (lane == 0) live[t] = lo | (static_cast<uint64_t>(hi) << 32);
+    }
+    __syncthreads();
+  }
+  // the first key tile at or after t that the key mask does not hide
+  auto next = [&](int t) {
+    if (p.kmask != nullptr)
+      while (t < t_hi && live[t] == 0) ++t;
+    return t;
+  };
+
+  load_rows<D, BM, NT>(qs, p.q, b, h, row0, p.Tq, p.H);
+  cp_commit();
+  int t = next(t_lo);
+  if (t < t_hi) {
+    load_rows<D, TN, NT>(ks, p.k, b, hk, t * TN, p.Tk, p.Hkv);
+    load_rows<D, TN, NT>(vs, p.v, b, hk, t * TN, p.Tk, p.Hkv);
+  }
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+    ldsm(qf[kk], a_addr<D>(qs, warp * 16, kk, lane));
+
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
+  float l_run[2] = {0.f, 0.f};              // this lane's part of the sums
+  const float sl2 = p.sm_scale * LOG2E;
+  int stage = 0;
+
+  while (t < t_hi) {
+    const int tn = next(t + 1);
+    if (tn < t_hi) {
+      load_rows<D, TN, NT>(ks + (stage ^ 1) * TN * D, p.k, b, hk, tn * TN,
+                           p.Tk, p.Hkv);
+      load_rows<D, TN, NT>(vs + (stage ^ 1) * TN * D, p.v, b, hk, tn * TN,
+                           p.Tk, p.Hkv);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16_t* kt = ks + stage * TN * D;
+    const bf16_t* vt = vs + stage * TN * D;
+    const int c0 = t * TN;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int nj = 0; nj < NS / 2; ++nj) {
+        uint32_t kb[4];
+        ldsm(kb, b_addr<D>(kt, nj * 16, kk, lane));
+        mma(s[2 * nj], qf[kk], kb[0], kb[1]);
+        mma(s[2 * nj + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    const uint64_t bits = p.kmask != nullptr ? live[t] : ~0ull;
+    const bool edge = bits != ~0ull || edge_tile(p, row0, BM, c0, TN);
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (edge) {
+          const int row = row0 + warp * 16 + (lane >> 2) + 8 * (e >> 1);
+          const int col = j * 8 + 2 * (lane & 3) + (e & 1);
+          if (!visible(p, row, c0 + col) || !((bits >> col) & 1))
+            x = -INFINITY;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 2));
+      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+      const float alpha = ex2(m_run[i] - base[i]);
+      m_run[i] = mx[i];
+      l_run[i] *= alpha;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        o[d][2 * i] *= alpha;
+        o[d][2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(s[j][e] - base[e >> 1]);
+        l_run[e >> 1] += s[j][e];
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dj = 0; dj < ND / 2; ++dj) {
+        uint32_t vb[4];
+        ldsm_t(vb, bt_addr<D>(vt, kk * 16, dj, lane));
+        mma(o[2 * dj], a, vb[0], vb[1]);
+        mma(o[2 * dj + 1], a, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for the tile after next
+    t = tn;
+    stage ^= 1;
+  }
+  cp_wait<0>();
+
+  bf16_t* out = static_cast<bf16_t*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(~0u, l, 1);
+    l += __shfl_xor_sync(~0u, l, 2);
+    const int row = row0 + warp * 16 + (lane >> 2) + 8 * i;
+    if (row >= p.Tq) continue;
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    bf16_t* dst = out +
+                  ((static_cast<size_t>(b) * p.Tq + row) * p.H + h) * D +
+                  2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+          __floats2bfloat162_rn(o[d][2 * i] * inv, o[d][2 * i + 1] * inv);
+    if ((lane & 3) == 0)
+      p.lse_out[static_cast<size_t>(bh) * p.Tq + row] =
+          l == 0.f ? -INFINITY : m_run[i] * LN2 + logf(l);
+  }
+}
+
+template <int D, int NW>
+__global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
+  constexpr int NT = NW * 32, BM = NW * 16, KT = D / 16, NS = TN / 8,
+                ND = D / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
+  bf16_t* dos = qs + BM * D;
+  bf16_t* ks = dos + BM * D;     // [2][TN][D]
+  bf16_t* vs = ks + 2 * TN * D;  // [2][TN][D]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int off = p.Tk - p.Tq;
+
+  const int last = min(row0 + BM, p.Tq) - 1;
+  const int col_hi = p.causal ? min(p.Tk, last + off + 1) : p.Tk;
+  const int col_lo = p.window > 0 ? max(0, row0 + off - p.window + 1) : 0;
+  const int t_lo = col_lo / TN;
+  const int t_hi = col_hi > col_lo ? (col_hi + TN - 1) / TN : t_lo;
+
+  load_rows<D, BM, NT>(qs, p.q, b, h, row0, p.Tq, p.H);
+  load_rows<D, BM, NT>(dos, p.dout, b, h, row0, p.Tq, p.H);
+  if (t_lo < t_hi) {
+    load_rows<D, TN, NT>(ks, p.k, b, h, t_lo * TN, p.Tk, p.H);
+    load_rows<D, TN, NT>(vs, p.v, b, h, t_lo * TN, p.Tk, p.H);
+  }
+  cp_commit();
+
+  float lse2[2], dl[2];  // rows g and g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + warp * 16 + (lane >> 2) + 8 * i;
+    const size_t at = static_cast<size_t>(bh) * p.Tq + row;
+    lse2[i] = row < p.Tq ? p.lse[at] * LOG2E : 0.f;
+    dl[i] = row < p.Tq ? p.delta[at] : 0.f;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[d][e] = 0.f;
+  const float sl2 = p.sm_scale * LOG2E;
+  int stage = 0;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    if (t + 1 < t_hi) {
+      load_rows<D, TN, NT>(ks + (stage ^ 1) * TN * D, p.k, b, h,
+                           (t + 1) * TN, p.Tk, p.H);
+      load_rows<D, TN, NT>(vs + (stage ^ 1) * TN * D, p.v, b, h,
+                           (t + 1) * TN, p.Tk, p.H);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16_t* kt = ks + stage * TN * D;
+    const bf16_t* vt = vs + stage * TN * D;
+    const int c0 = t * TN;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm(qa, a_addr<D>(qs, warp * 16, kk, lane));
+      ldsm(da, a_addr<D>(dos, warp * 16, kk, lane));
+#pragma unroll
+      for (int nj = 0; nj < NS / 2; ++nj) {
+        uint32_t kb[4], vb[4];
+        ldsm(kb, b_addr<D>(kt, nj * 16, kk, lane));
+        mma(s[2 * nj], qa, kb[0], kb[1]);
+        mma(s[2 * nj + 1], qa, kb[2], kb[3]);
+        ldsm(vb, b_addr<D>(vt, nj * 16, kk, lane));
+        mma(dp[2 * nj], da, vb[0], vb[1]);
+        mma(dp[2 * nj + 1], da, vb[2], vb[3]);
+      }
+    }
+
+    const bool edge = edge_tile(p, row0, BM, c0, TN);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = ex2(fmaf(s[j][e], sl2, -lse2[e >> 1]));
+        if (edge) {
+          const int row = row0 + warp * 16 + (lane >> 2) + 8 * (e >> 1);
+          const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
+          if (!visible(p, row, col)) pe = 0.f;
+        }
+        s[j][e] = pe * (dp[j][e] - dl[e >> 1]);  // dS
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dj = 0; dj < ND / 2; ++dj) {
+        uint32_t kb[4];
+        ldsm_t(kb, bt_addr<D>(kt, kk * 16, dj, lane));
+        mma(dq[2 * dj], a, kb[0], kb[1]);
+        mma(dq[2 * dj + 1], a, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();
+    stage ^= 1;
+  }
+  cp_wait<0>();
+
+  bf16_t* out = static_cast<bf16_t*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + warp * 16 + (lane >> 2) + 8 * i;
+    if (row >= p.Tq) continue;
+    bf16_t* dst = out +
+                  ((static_cast<size_t>(b) * p.Tq + row) * p.H + h) * D +
+                  2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) = __floats2bfloat162_rn(
+          dq[d][2 * i] * p.sm_scale, dq[d][2 * i + 1] * p.sm_scale);
+  }
+}
+
+template <int D, int NW, int BQ>
+__global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
+  constexpr int NT = NW * 32, BN = NW * 16, KT = D / 16, NQ = BQ / 8,
+                ND = D / 8;
+  static_assert(2 * BQ <= NT, "one thread per lse and delta value");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* ks = reinterpret_cast<bf16_t*>(tc_smem);
+  bf16_t* vs = ks + BN * D;
+  bf16_t* qs = vs + BN * D;       // [2][BQ][D]
+  bf16_t* dos = qs + 2 * BQ * D;  // [2][BQ][D]
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * D);  // [2][BQ] lse
+  float* dls = ls + 2 * BQ;                                // [2][BQ] delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int c0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int off = p.Tk - p.Tq;
+
+  // query tiles whose rows see some column of [c0, c0 + BN)
+  const int last_col = min(c0 + BN, p.Tk) - 1;
+  const int row_lo = p.causal ? max(0, c0 - off) : 0;
+  const int row_hi =
+      p.window > 0 ? min(p.Tq, last_col - off + p.window) : p.Tq;
+  const int t_lo = row_lo / BQ;
+  const int t_hi = row_hi > row_lo ? (row_hi + BQ - 1) / BQ : t_lo;
+
+  auto load_q = [&](int t, int st) {
+    const int r0 = t * BQ;
+    load_rows<D, BQ, NT>(qs + st * BQ * D, p.q, b, h, r0, p.Tq, p.H);
+    load_rows<D, BQ, NT>(dos + st * BQ * D, p.dout, b, h, r0, p.Tq, p.H);
+    const int r = r0 + (tid % BQ);
+    const size_t at = static_cast<size_t>(bh) * p.Tq + min(r, p.Tq - 1);
+    if (tid < BQ)
+      cp4(saddr(ls + st * BQ + tid), p.lse + at, r < p.Tq);
+    else if (tid < 2 * BQ)
+      cp4(saddr(dls + st * BQ + tid - BQ), p.delta + at, r < p.Tq);
+  };
+
+  load_rows<D, BN, NT>(ks, p.k, b, h, c0, p.Tk, p.H);
+  load_rows<D, BN, NT>(vs, p.v, b, h, c0, p.Tk, p.H);
+  if (t_lo < t_hi) load_q(t_lo, 0);
+  cp_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+  const float sl2 = p.sm_scale * LOG2E;
+  int stage = 0;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    if (t + 1 < t_hi) load_q(t + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16_t* qt = qs + stage * BQ * D;
+    const bf16_t* dot = dos + stage * BQ * D;
+    const float* lt = ls + stage * BQ;
+    const float* dlt = dls + stage * BQ;
+    const int r0 = t * BQ;
+
+    // transposed tiles: row = a key (c0 + 16 warp + ...), column = a query
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm(ka, a_addr<D>(ks, warp * 16, kk, lane));
+      ldsm(va, a_addr<D>(vs, warp * 16, kk, lane));
+#pragma unroll
+      for (int nj = 0; nj < NQ / 2; ++nj) {
+        uint32_t qb[4], db[4];
+        ldsm(qb, b_addr<D>(qt, nj * 16, kk, lane));
+        mma(st[2 * nj], ka, qb[0], qb[1]);
+        mma(st[2 * nj + 1], ka, qb[2], qb[3]);
+        ldsm(db, b_addr<D>(dot, nj * 16, kk, lane));
+        mma(dpt[2 * nj], va, db[0], db[1]);
+        mma(dpt[2 * nj + 1], va, db[2], db[3]);
+      }
+    }
+
+    const bool edge = edge_tile(p, r0, BQ, c0, BN);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = j * 8 + 2 * (lane & 3) + (e & 1);
+        float pe = ex2(fmaf(st[j][e], sl2, -lt[qi] * LOG2E));
+        if (edge) {
+          const int col = c0 + warp * 16 + (lane >> 2) + 8 * (e >> 1);
+          if (!visible(p, r0 + qi, col)) pe = 0.f;
+        }
+        st[j][e] = pe;                            // P^T
+        dpt[j][e] = pe * (dpt[j][e] - dlt[qi]);  // dS^T
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {
+      uint32_t ap[4], as[4];
+      c_to_a(ap, st[2 * kk], st[2 * kk + 1]);
+      c_to_a(as, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int dj = 0; dj < ND / 2; ++dj) {
+        uint32_t db[4], qb[4];
+        ldsm_t(db, bt_addr<D>(dot, kk * 16, dj, lane));
+        mma(dv[2 * dj], ap, db[0], db[1]);
+        mma(dv[2 * dj + 1], ap, db[2], db[3]);
+        ldsm_t(qb, bt_addr<D>(qt, kk * 16, dj, lane));
+        mma(dk[2 * dj], as, qb[0], qb[1]);
+        mma(dk[2 * dj + 1], as, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();
+    stage ^= 1;
+  }
+  cp_wait<0>();
+
+  bf16_t* dkp = static_cast<bf16_t*>(p.out);
+  bf16_t* dvp = static_cast<bf16_t*>(p.out2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int col = c0 + warp * 16 + (lane >> 2) + 8 * i;
+    if (col >= p.Tk) continue;
+    const size_t at = ((static_cast<size_t>(b) * p.Tk + col) * p.H + h) * D +
+                      2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + at + 8 * d) =
+          __floats2bfloat162_rn(dk[d][2 * i] * p.sm_scale,
+                                dk[d][2 * i + 1] * p.sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + at + 8 * d) =
+          __floats2bfloat162_rn(dv[d][2 * i], dv[d][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// Raise kernel K's dynamic shared-memory limit once per device, not on
+// every launch.
+template <void (*K)(Params)>
+cudaError_t allow_smem(int bytes) {
+  static std::atomic<unsigned> done{0u};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
+
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
-template <typename E, int D>
-int launch(Which which, const Params& p, cudaStream_t stream) {
-  constexpr int tile = BT * (D + 1) * 4;
-  constexpr int score = BT * PS * 4;
-  void (*kernel)(Params);
-  int bytes, tiles;
-  if (which == FWD) {
-    kernel = fwd_kernel<E, D>;
-    bytes = 3 * tile + score + BT * 4;
-    tiles = (p.Tq + BT - 1) / BT;
-  } else if (which == DQ) {
-    kernel = dq_kernel<E, D>;
-    bytes = 4 * tile + score;
-    tiles = (p.Tq + BT - 1) / BT;
-  } else {
-    kernel = dkv_kernel<E, D>;
-    bytes = 4 * tile + 2 * score + 2 * BT * 4;
-    tiles = (p.Tk + BT - 1) / BT;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <void (*K)(Params)>
+int run(const Params& p, dim3 grid, int threads, int bytes, int limit,
+        cudaStream_t stream) {
+  if (bytes > limit) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem<K>(limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(tiles, p.B * p.H);
-  kernel<<<grid, THREADS, bytes, stream>>>(p);
+  K<<<grid, threads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(Which which, const Params& p, int D, int bf16, void* stream) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+// fp32: the CUDA-core kernels, grid (64-row tile, batch x head)
+template <int D>
+int launch_fp32(Which which, const Params& p, cudaStream_t stream) {
   if (p.B * p.H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int tile = BT * (D + 1) * 4;
+  constexpr int score = BT * PS * 4;
+  const int q_tiles = (p.Tq + BT - 1) / BT;
+  const int k_tiles = (p.Tk + BT - 1) / BT;
+  const int bh = p.B * p.H;
+  if (which == FWD) {
+    constexpr int bytes = 3 * tile + score + BT * 4;
+    return run<fwd_kernel<float, D>>(p, dim3(q_tiles, bh), THREADS, bytes,
+                                     bytes, stream);
+  }
+  if (which == DQ) {
+    constexpr int bytes = 4 * tile + score;
+    return run<dq_kernel<float, D>>(p, dim3(q_tiles, bh), THREADS, bytes,
+                                    bytes, stream);
+  }
+  constexpr int bytes = 4 * tile + 2 * score + 2 * BT * 4;
+  return run<dkv_kernel<float, D>>(p, dim3(k_tiles, bh), THREADS, bytes,
+                                   bytes, stream);
+}
+
+// bf16: the tensor-core kernels, grid (batch x head, tile)
+template <int D>
+int launch_bf16(Which which, const Params& p, cudaStream_t stream) {
+  constexpr int E = static_cast<int>(sizeof(bf16_t));
+  const int bh = p.B * p.H;
+  if (which == FWD) {
+    constexpr int NW = D == 64 ? 8 : 4;
+    constexpr int BM = NW * 16;
+    const int tiles = (p.Tq + BM - 1) / BM;
+    const int live = p.kmask != nullptr ? (p.Tk + TN - 1) / TN * 8 : 0;
+    const int bytes = (BM * D + 4 * TN * D) * E + live;
+    if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    return run<tc_fwd_kernel<D, NW>>(p, dim3(bh, tiles), NW * 32, bytes,
+                                     MAX_SMEM, stream);
+  }
+  if (which == DQ) {
+    constexpr int NW = 4;
+    constexpr int BM = NW * 16;
+    const int tiles = (p.Tq + BM - 1) / BM;
+    constexpr int bytes = (2 * BM * D + 4 * TN * D) * E;
+    if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    return run<tc_dq_kernel<D, NW>>(p, dim3(bh, tiles), NW * 32, bytes, bytes,
+                                    stream);
+  }
+  constexpr int NW = 4;
+  constexpr int BN = NW * 16;
+  constexpr int BQ = D == 64 ? 64 : 32;
+  const int tiles = (p.Tk + BN - 1) / BN;
+  constexpr int bytes = (2 * BN * D + 4 * BQ * D) * E + 4 * BQ * 4;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return run<tc_dkv_kernel<D, NW, BQ>>(p, dim3(bh, tiles), NW * 32, bytes,
+                                       bytes, stream);
+}
+
+int dispatch(Which which, const Params& p, int D, int bf16_in, void* stream) {
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return D == 64 ? launch<__nv_bfloat16, 64>(which, p, s)
-                   : launch<__nv_bfloat16, 128>(which, p, s);
-  return D == 64 ? launch<float, 64>(which, p, s)
-                 : launch<float, 128>(which, p, s);
+  if (bf16_in)
+    return D == 64 ? launch_bf16<64>(which, p, s)
+                   : launch_bf16<128>(which, p, s);
+  return D == 64 ? launch_fp32<64>(which, p, s)
+                 : launch_fp32<128>(which, p, s);
 }
 
 Params make(const void* q, const void* k, const void* v, int B, int H,

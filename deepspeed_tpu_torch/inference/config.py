@@ -34,13 +34,25 @@ def resolve_dtype(dtype) -> torch.dtype:
 class DeepSpeedInferenceConfig:
     #: tensor-parallel degree
     mp_size: int = 1
+    #: expert parallelism for MoE models
+    ep_size: int = 1
     dtype: Any = None
+    #: DeepSpeed's kernel-injection switch. A port model always runs the
+    #: port's kernels, so either value is accepted
+    replace_with_kernel_inject: bool = True
+    #: HF module-injection policy
+    injection_policy: Optional[Any] = None
     checkpoint: Optional[str] = None
+    #: kernel-injection workspace batch (the JAX engine reads it nowhere;
+    #: serving sizes its batch in ServingConfig)
+    max_batch_size: int = 8
     #: static KV-cache capacity (accepted as in the JAX package; generate
     #: sizes its cache from the request)
     max_out_tokens: int = 1024
     #: legacy grouped int8 weight quantization
     quantize: bool = False
+    #: groups of the legacy quantize
+    quantize_groups: int = 32
     #: with the legacy quantize: dequantize inside the decode loop
     dequant_per_step: bool = False
     #: int8 KV cache / pool: absmax-quantized per (position, kv head) at
@@ -54,6 +66,15 @@ class DeepSpeedInferenceConfig:
     quantize_group_size: int = 0
     #: int8 payloads for the tensor-parallel all-reduce
     quantized_collectives: bool = False
+    #: values per scale of the quantized all-reduce
+    quantized_psum_block: int = 256
+    #: HF module-injection method
+    replace_method: str = "auto"
+    #: capture the decode step as a CUDA graph
+    enable_cuda_graph: bool = False
+    #: the JAX package's escape hatch for tensor-parallel degrees above the
+    #: kv heads
+    allow_unsafe_tp: bool = False
     #: bucket generate() shapes to powers of two (prompts left-padded, new
     #: tokens over-generated and trimmed)
     bucket_shapes: bool = True
@@ -91,3 +112,24 @@ class DeepSpeedInferenceConfig:
                 "checkpoint= arrives with the module-injection slice of the "
                 "port (ROADMAP.md Queue 1, item 4); pass params= (a "
                 "state_dict)")
+        # JAX knobs that are no-ops for a port model at these values (the
+        # JAX defaults); any other value raises naming its slice
+        for name, off, slice_name, item in _LATER:
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} arrives with the "
+                    f"{slice_name} slice of the port (ROADMAP.md Queue 1, "
+                    f"item {item})")
+
+
+#: (field, accepted value, slice, ROADMAP.md Queue 1 item)
+_LATER = (
+    ("ep_size", 1, "MoE models", "10"),
+    ("injection_policy", None, "module-injection", "4"),
+    ("replace_method", "auto", "module-injection", "4"),
+    ("max_batch_size", 8, "module-injection", "4"),
+    ("quantize_groups", 32, "legacy-quantization", "2c"),
+    ("quantized_psum_block", 256, "distributed", "9"),
+    ("allow_unsafe_tp", False, "distributed", "9"),
+    ("enable_cuda_graph", False, "CUDA-graph", "2a"),
+)

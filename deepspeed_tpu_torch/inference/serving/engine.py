@@ -44,7 +44,7 @@ the JAX engine that this slice does not implement raise
 
 import dataclasses
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -59,12 +59,21 @@ from .metrics import ServingMetrics
 from .scheduler import RejectedError, Request, RequestState, Scheduler
 
 #: ServingConfig knobs of the JAX engine that later slices bring, with the
-#: value that means "off" and the slice (ROADMAP.md Queue 1) that adds them
+#: value that means "off" (the JAX default), the slice that adds them and
+#: its ROADMAP.md Queue 1 item
 _DEFERRED = {
-    "mixed_step_buckets": (False, "the CUDA-graph step widths"),
-    "spec_tokens": (0, "speculative decoding"),
-    "host_cache_blocks": (0, "the host KV tier"),
-    "step_watchdog_s": (0.0, "the step watchdog and fault injection"),
+    "mixed_step_buckets": (False, "the CUDA-graph step widths", "2a"),
+    "spec_tokens": (0, "speculative decoding", "2c"),
+    "spec_ngram": (3, "speculative decoding", "2c"),
+    "drafter": (None, "speculative decoding", "2c"),
+    "host_cache_blocks": (0, "the host KV tier", "2c"),
+    "host_cache_bytes": (None, "the host KV tier", "2c"),
+    "sync_promote": (False, "the host KV tier", "2c"),
+    "step_watchdog_s": (0.0, "the step watchdog and fault injection", "2b"),
+    "ttft_slo_s": (None, "SLO attribution", "2b"),
+    "tpot_slo_s": (None, "SLO attribution", "2b"),
+    "trace_dir": (None, "flight recorder", "2b"),
+    "flight_events": (512, "flight recorder", "2b"),
 }
 
 
@@ -132,19 +141,32 @@ class ServingConfig:
     #: record span timelines into a bounded ring (ServingEngine.tracer)
     trace: bool = False
     trace_capacity: int = 8192
+    #: write the serving counters to ``init_serving``'s ``monitor`` every
+    #: N steps (0 = never)
+    monitor_every: int = 1
     # -- knobs later slices implement (see _DEFERRED) ------------------
     mixed_step_buckets: bool = False
     spec_tokens: int = 0
+    spec_ngram: int = 3
+    drafter: Optional[Any] = None
     host_cache_blocks: int = 0
+    host_cache_bytes: Optional[int] = None
+    sync_promote: bool = False
     step_watchdog_s: float = 0.0
+    ttft_slo_s: Optional[float] = None
+    tpot_slo_s: Optional[float] = None
+    trace_dir: Optional[str] = None
+    flight_events: int = 512
 
     def __post_init__(self):
-        for name, (off, slice_name) in _DEFERRED.items():
+        for name, (off, slice_name, item) in _DEFERRED.items():
             if getattr(self, name) != off:
                 raise NotImplementedError(
                     f"ServingConfig.{name}={getattr(self, name)!r} arrives "
                     f"with the {slice_name} slice of the port "
-                    f"(ROADMAP.md Queue 1)")
+                    f"(ROADMAP.md Queue 1, item {item})")
+        if self.monitor_every < 0:
+            raise ValueError("monitor_every must be >= 0 (0 = never)")
 
 
 @dataclasses.dataclass
@@ -164,11 +186,14 @@ class ServingEngine:
     :meth:`submit` / :meth:`poll` / :meth:`stream` / :meth:`run`."""
 
     def __init__(self, engine: InferenceEngine,
-                 config: Optional[ServingConfig] = None):
+                 config: Optional[ServingConfig] = None, monitor=None):
         if not isinstance(engine, InferenceEngine):
             raise TypeError("ServingEngine wraps an InferenceEngine; use "
                             "init_serving(...) to build both")
         self.engine = engine
+        #: receives ``metrics.to_events(step)`` through its
+        #: ``write_events`` every ``config.monitor_every`` steps
+        self.monitor = monitor
         self.config = cfg = config or ServingConfig()
         self.device = engine.device
         if cfg.max_model_len % cfg.block_size:
@@ -561,6 +586,9 @@ class ServingEngine:
         m.prefill_queue_age_s = 0.0 if not prefilling else \
             time.perf_counter() - min(r.submit_time for r in prefilling)
         m.brownout_active = brownout
+        if self.monitor is not None and self.config.monitor_every and \
+                self._step_no % self.config.monitor_every == 0:
+            self.monitor.write_events(m.to_events(self._step_no))
 
     def _grow_decode_pages(self) -> None:
         """Guarantee every decoding resident a page for the token this step
@@ -999,11 +1027,13 @@ class ServingEngine:
         self.metrics.preemptions += 1
 
 
-def init_serving(model=None, config=None, serving_config=None,
+def init_serving(model=None, config=None, serving_config=None, monitor=None,
                  **kwargs) -> ServingEngine:
     """Build an :class:`InferenceEngine` (same surface as
-    ``init_inference``) and wrap it for serving."""
+    ``init_inference``) and wrap it for serving. ``monitor`` (anything
+    with ``write_events``) receives the serving counters every
+    ``serving_config.monitor_every`` steps."""
     from ..engine import init_inference
 
     engine = init_inference(model, config=config, **kwargs)
-    return ServingEngine(engine, config=serving_config)
+    return ServingEngine(engine, config=serving_config, monitor=monitor)

@@ -25,7 +25,8 @@ refuses a layout with an empty row, so only a direct call of a kernel
 wrapper with such a layout makes one. The active lists of a layout are
 built on the host once and kept on the device in a small cache keyed by
 the layout's bits, ``causal`` and the device, as are the layouts of a
-``SparsityConfig`` per sequence length.
+built-in ``SparsityConfig`` per sequence length (a user subclass is asked
+for its layout on every call).
 """
 
 import collections
@@ -180,8 +181,17 @@ def _indices(layout, causal: bool, device):
 
 
 def _config_layout(sparsity_config, T: int) -> np.ndarray:
-    """``sparsity_config.make_layout(T)``, made once per config state and
-    length (a config's fields, its seed included, determine its layout)."""
+    """``sparsity_config.make_layout(T)``. A built-in config's layout is
+    made once per config state and length (its fields, its seed included,
+    determine it); any other config is asked on every call, as the JAX
+    package does, since a subclass may keep state outside its fields."""
+    from .sparse_attention import sparsity_config as sc
+
+    if type(sparsity_config) not in (
+            sc.SparsityConfig, sc.DenseSparsityConfig, sc.FixedSparsityConfig,
+            sc.VariableSparsityConfig, sc.BigBirdSparsityConfig,
+            sc.BSLongformerSparsityConfig):
+        return sparsity_config.make_layout(T)
     key = (type(sparsity_config), repr(sparsity_config), T)
 
     def make():

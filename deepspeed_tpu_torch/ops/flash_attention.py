@@ -150,6 +150,13 @@ def _check(name, tensors, window):
     return dev
 
 
+def _operand(t):
+    """``t`` contiguous and 16-byte aligned: the bf16 kernels copy rows in
+    16-byte pieces."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(fn, name, ptrs, q, k, causal, window, sm_scale):
     B, Tq, H, D = q.shape
     with torch.cuda.device(q.device):
@@ -174,7 +181,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     if dev.type == "cpu":
         with torch.no_grad():
             return flash_attention_plain(q, k, v, causal, sm_scale, window)
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_operand(t) for t in (q, k, v))
     B, Tq, H, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=dev)
@@ -206,7 +213,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal: bool = True,
     if dev.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
                                          sm_scale, window)[0]
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    q, k, v, dout = (_operand(t) for t in (q, k, v, dout))
     dq = torch.empty_like(q)
     if dq.numel() == 0 or k.shape[1] == 0:
         return dq.zero_()
@@ -233,7 +240,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, causal: bool = True,
     if dev.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
                                          sm_scale, window)[1:]
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    q, k, v, dout = (_operand(t) for t in (q, k, v, dout))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
@@ -294,7 +301,7 @@ def flash_attention_fwd_masked(q, k, v, key_mask, causal: bool = True,
     if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd_masked: the kernel takes "
                          f"head_dim in {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_operand(t) for t in (q, k, v))
     key_mask = key_mask.to(torch.int32).contiguous()
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]

@@ -90,15 +90,23 @@ def test_ragged_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Tq,Tk,causal,window", [
-    (256, 256, True, None), (200, 200, True, None), (100, 100, False, None),
-    (256, 256, True, 48), (40, 130, True, None), (130, 40, True, None)],
-    ids=["causal", "uneven", "full", "window", "tq<tk", "tq>tk"])
-def test_flash_kernels_match_plain(cuda, dtype, D, Tq, Tk, causal, window):
+@pytest.mark.parametrize("B,H,Tq,Tk,causal,window", [
+    (2, 3, 256, 256, True, None), (2, 3, 200, 200, True, None),
+    (2, 3, 100, 100, False, None), (2, 3, 256, 256, True, 48),
+    (2, 3, 40, 130, True, None), (2, 3, 130, 40, True, None),
+    (2, 3, 1000, 1000, True, None), (2, 3, 1024, 1024, True, None),
+    (1, 2, 1000, 1000, False, None), (2, 3, 1000, 1000, True, 16),
+    (2, 3, 300, 100, True, None), (12, 12, 512, 512, True, None)],
+    ids=["causal", "uneven", "full", "window", "tq<tk", "tq>tk",
+         "tiles+tail1000", "tiles1024", "full1000", "window16",
+         "tq>tk_tiles", "grid_wraps"])
+def test_flash_kernels_match_plain(cuda, dtype, D, B, H, Tq, Tk, causal,
+                                   window):
     """K1 and both K2 kernels against the plain forward and backward on the
-    same inputs (rows that see no key included, for Tq > Tk)."""
+    same inputs: several full tiles with and without a ragged tail, rows
+    that see no key (Tq > Tk), a window narrower than one tile, and a
+    grid of more blocks than the card holds at once."""
     g = torch.Generator(device=cuda).manual_seed(D + Tq)
-    B, H = 2, 3
     q, do = (torch.randn(B, Tq, H, D, generator=g, device=cuda, dtype=dtype)
              for _ in range(2))
     k, v = (torch.randn(B, Tk, H, D, generator=g, device=cuda, dtype=dtype)
@@ -363,18 +371,22 @@ def test_paged_prefill_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, T,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (64, 1, 8)])
-@pytest.mark.parametrize("T,window", [(256, None), (200, None), (130, 48)])
-def test_masked_flash_kernel_matches_plain(cuda, dtype, D, Hkv, G, T, window):
+@pytest.mark.parametrize("T,window,pad", [
+    (256, None, 70), (200, None, 70), (130, 48, 70), (1000, None, 300),
+    (1024, 16, 200)])
+def test_masked_flash_kernel_matches_plain(cuda, dtype, D, Hkv, G, T, window,
+                                           pad):
     """K1's key-mask mode against the plain version: un-repeated kv heads,
-    left padding (rows that see no key return zeros and lse = -inf), a
-    hole inside a row, a window."""
+    left padding that hides one or more whole key tiles (rows that see no
+    key return zeros and lse = -inf), a hole inside a row, a window (one
+    narrower than a key tile)."""
     g = torch.Generator(device=cuda).manual_seed(D + T)
     B = 3
     q = torch.randn(B, T, Hkv * G, D, generator=g, device=cuda, dtype=dtype)
     k, v = (torch.randn(B, T, Hkv, D, generator=g, device=cuda, dtype=dtype)
             for _ in range(2))
     mask = torch.ones(B, T, dtype=torch.int32, device=cuda)
-    mask[0, :70] = 0
+    mask[0, :pad] = 0
     mask[1, :5] = 0
     mask[1, 90:93] = 0
     before = fa.flash_attention_fwd_masked.launches
@@ -386,7 +398,7 @@ def test_masked_flash_kernel_matches_plain(cuda, dtype, D, Hkv, G, T, window):
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd_masked.launches == before + 2
     assert torch.equal(same, out)
-    assert not out[0, :70].any()
+    assert not out[0, :pad].any()
     fp32 = dtype == torch.float32
     torch.testing.assert_close(out.float(), ref_out.float(),
                                rtol=1e-5 if fp32 else 2 ** -7,

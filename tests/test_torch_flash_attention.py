@@ -11,6 +11,8 @@ positions that see a key: where a left-padding query row sees none the
 port returns zeros and the JAX kernel finite junk (ROADMAP.md Queue 3).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -202,3 +204,102 @@ def test_masked_forward_refuses_a_gradient_and_bad_arguments():
     with pytest.raises(ValueError, match="not on meta"):
         fa.flash_attention(*(t.to("meta") for t in (q, k, v)),
                            key_mask=mask.to("meta"))
+
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_tc_forward(q, k, v, sm_scale, BN=64):
+    """The bf16 tensor-core forward's rounding points on the CPU: bf16
+    inputs, fp32 scores in log2 units, an online softmax over key tiles of
+    BN in the kernel's order, the row sum from the unrounded P, P rounded
+    to bf16 before P.V, fp32 accumulation, causal."""
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,T,D]
+    B, H, T, D = qf.shape
+    rows = torch.arange(T)[:, None]
+    m = torch.full((B, H, T), float("-inf"))
+    l = torch.zeros(B, H, T)
+    o = torch.zeros(B, H, T, D)
+    for c0 in range(0, T, BN):
+        cols = torch.arange(c0, min(c0 + BN, T))
+        s = (qf @ kf[:, :, cols].transpose(-1, -2)) * (sm_scale * LOG2E)
+        s = s.masked_fill(~(rows >= cols[None]), float("-inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        base = torch.where(torch.isinf(mx), torch.zeros_like(mx), mx)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s - base[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + p.bfloat16().float() @ vf[:, :, cols]
+        m = mx
+    out = o / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    lse = m * math.log(2.0) + torch.log(l)
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def _emulate_tc_backward(q, k, v, out, lse, do, sm_scale, BT=64):
+    """The bf16 dQ and dK/dV kernels' rounding points: P and dS in fp32
+    from bf16 inputs, each rounded to bf16 before its product, fp32 sums
+    over key tiles (dQ) and query tiles (dK/dV) in the kernels' order."""
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    B, H, T, D = qf.shape
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    s = (qf @ kf.transpose(-1, -2)) * (sm_scale * LOG2E)
+    vis = torch.tril(torch.ones(T, T, dtype=torch.bool))
+    p = torch.exp2(s - lse[..., None] * LOG2E).masked_fill(~vis, 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq, dk, dv = (torch.zeros(B, H, T, D) for _ in range(3))
+    for t0 in range(0, T, BT):
+        t = slice(t0, t0 + BT)
+        dq += dsb[..., t] @ kf[:, :, t]
+        dk += dsb[:, :, t].transpose(-1, -2) @ qf[:, :, t]
+        dv += pb[:, :, t].transpose(-1, -2) @ dof[:, :, t]
+    return tuple((g * c).transpose(1, 2).to(q.dtype)
+                 for g, c in ((dq, sm_scale), (dk, sm_scale), (dv, 1.0)))
+
+
+def _within_bf16_tolerance(got, want, name):
+    """chip_smoke.check_flash_attention's bf16 tolerance:
+    |got - want| <= 2**-7 |want| + 2e-2."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want)
+    assert (err <= 2 ** -7 * np.abs(want) + 2e-2).all(), \
+        f"{name}: max |err| {err.max():.3e}"
+
+
+def test_tensor_core_rounding_points_stay_inside_the_bf16_tolerance():
+    """Rounding P and dS to bf16 before their products (what the bf16
+    tensor-core kernels do) keeps the forward and the three gradients
+    inside the card's bf16 tolerance, against the plain versions and
+    against the JAX kernel in interpret mode, at the training shape
+    (T 1024, D 64, causal) cut to B 1, H 2."""
+    rs = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(rs.randn(1, 1024, 2, 64).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    scale = 1.0 / 8.0
+    out, lse = _emulate_tc_forward(q, k, v, scale)
+    grads = _emulate_tc_backward(q, k, v, out, lse, do, scale)
+
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, True, scale)
+    ref_grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+                                             scale)
+    _within_bf16_tolerance(out.float(), ref_out.float(), "out vs plain")
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        _within_bf16_tolerance(g.float(), r.float(), f"{name} vs plain")
+
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                       for t in (q, k, v, do))
+
+    def jax_loss(q, k, v):
+        o = jfa(q, k, v, causal=True, block_q=128, block_k=128,
+                interpret=True, force_pallas=True)
+        return jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32)), o
+
+    (_, jout), jgrads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2),
+                                           has_aux=True)(jq, jk, jv)
+    _within_bf16_tolerance(out.float(), jout.astype(jnp.float32),
+                           "out vs JAX")
+    for name, g, r in zip(("dq", "dk", "dv"), grads, jgrads):
+        _within_bf16_tolerance(g.float(), r.astype(jnp.float32),
+                               f"{name} vs JAX")

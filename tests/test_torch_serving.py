@@ -184,6 +184,88 @@ def test_knobs_of_later_slices_raise(knob):
         dt.ServingConfig(**knob)
 
 
+def _jax_defaults(cls):
+    import dataclasses
+    return {f.name: f.default if f.default is not dataclasses.MISSING
+            else f.default_factory() for f in dataclasses.fields(cls)}
+
+
+def test_every_jax_config_field_is_accepted_at_its_jax_default():
+    """Each field of the JAX DeepSpeedInferenceConfig and ServingConfig, at
+    its JAX default, builds the port's config (alone and all together),
+    and DeepSpeed's usual init_inference(..., replace_with_kernel_inject=
+    True) runs."""
+    from deepspeed_tpu.inference.config import \
+        DeepSpeedInferenceConfig as JaxInferenceConfig
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+
+    for jcls, cls in ((JaxInferenceConfig, DeepSpeedInferenceConfig),
+                      (JaxServingConfig, dt.ServingConfig)):
+        defaults = _jax_defaults(jcls)
+        for name, value in defaults.items():
+            cls(**{name: value})
+        cls(**defaults)
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    params = model.init_params()
+    for inject in (True, False):
+        eng = dt.init_inference(model, params=params, device="cpu",
+                                dtype="fp32",
+                                replace_with_kernel_inject=inject)
+        assert eng.config.replace_with_kernel_inject is inject
+    srv = dt.init_serving(model, params=params, device="cpu", dtype="fp32",
+                          replace_with_kernel_inject=True,
+                          serving_config=dt.ServingConfig(
+                              **_jax_defaults(JaxServingConfig)))
+    rid = srv.submit([1, 2, 3], max_new_tokens=2)
+    assert len(srv.run()[rid].tokens) == 2
+
+
+@pytest.mark.parametrize("knob,item", [
+    ({"ep_size": 2}, "10"), ({"injection_policy": object()}, "4"),
+    ({"replace_method": "layer"}, "4"), ({"max_batch_size": 16}, "4"),
+    ({"quantize_groups": 64}, "2c"), ({"quantized_psum_block": 128}, "9"),
+    ({"allow_unsafe_tp": True}, "9"), ({"enable_cuda_graph": True}, "2a")])
+def test_inference_fields_off_their_no_op_values_name_their_item(knob, item):
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP.md Queue 1, item {item}\)"):
+        dt.init_inference(model, params=model.init_params(), device="cpu",
+                          **knob)
+
+
+@pytest.mark.parametrize("knob,item", [
+    ({"mixed_step_buckets": True}, "2a"), ({"spec_ngram": 4}, "2c"),
+    ({"drafter": object()}, "2c"), ({"host_cache_bytes": 1 << 20}, "2c"),
+    ({"sync_promote": True}, "2c"), ({"ttft_slo_s": 1.0}, "2b"),
+    ({"tpot_slo_s": 0.1}, "2b"), ({"trace_dir": "traces"}, "2b"),
+    ({"flight_events": 64}, "2b")])
+def test_serving_fields_off_their_jax_defaults_name_their_item(knob, item):
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP.md Queue 1, item {item}\)"):
+        dt.ServingConfig(**knob)
+
+
+def test_monitor_receives_the_serving_counters(engines):
+    """init_serving's monitor= gets metrics.to_events(step) every
+    monitor_every steps, as in the JAX engine."""
+    class Monitor:
+        def __init__(self):
+            self.steps = []
+
+        def write_events(self, events):
+            self.steps.append(events[0][2])
+            assert any(e[0] == "serving/steps" for e in events)
+
+    _, teng = engines
+    mon = Monitor()
+    srv = dt.ServingEngine(teng, dt.ServingConfig(monitor_every=2, **SETTINGS),
+                           monitor=mon)
+    srv.submit([1, 2, 3], max_new_tokens=5)
+    srv.run()
+    assert mon.steps and all(s % 2 == 0 for s in mon.steps)
+    assert len(mon.steps) == srv.metrics.steps // 2
+
+
 @pytest.mark.parametrize("knob", [
     {"mp_size": 2}, {"quantize": True}, {"dtype": "int8"},
     {"dequant_per_step": True}, {"quantized_collectives": True},

@@ -315,3 +315,51 @@ def test_lists_and_config_layouts_are_built_once():
     psa.sparse_attention(q, q, q, sparsity_config=cfg)
     assert len(bsa._layout_cache) == 2
     assert not bsa._layout_cache[next(iter(bsa._layout_cache))].flags.writeable
+
+
+def _banded_class(base):
+    """A user layout in DeepSpeed's documented way: a ``SparsityConfig``
+    subclass whose band width lives outside the dataclass fields, so two
+    widths have the same ``repr``."""
+
+    class Banded(base):
+        def __init__(self, width, **kw):
+            super().__init__(**kw)
+            self.width = width
+
+        def make_layout(self, seq_len):
+            layout = self.setup_layout(seq_len)
+            i = np.arange(layout.shape[1])
+            layout[:, np.abs(i[:, None] - i[None, :]) < self.width] = 1
+            return layout
+
+    return Banded
+
+
+BANDED = {psa: _banded_class(psa.SparsityConfig),
+          jsa: _banded_class(jsa.SparsityConfig)}
+
+
+def _banded(pkg, width):
+    return BANDED[pkg](width, num_heads=2, block=BLOCK)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_user_subclass_layouts_are_not_cached_by_repr(causal):
+    """Two instances of a user subclass with band widths 1 and 4 give
+    different outputs, each equal to the JAX package's on the same inputs
+    (the JAX package calls make_layout on every call)."""
+    q, k, v, _ = _inputs()
+    outs = []
+    for width in (1, 4):
+        cfg = _banded(psa, width)
+        want = jsa.sparse_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                    sparsity_config=_banded(jsa, width),
+                                    causal=causal, force_pallas=True)
+        got = psa.sparse_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   sparsity_config=cfg, causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5,
+                                   atol=3e-5)
+        outs.append(got)
+    assert repr(_banded(psa, 1)) == repr(_banded(psa, 4))
+    assert not torch.allclose(outs[0], outs[1])

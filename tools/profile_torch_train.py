@@ -10,7 +10,10 @@ time per step by kernel class (K1 flash forward, K2 flash backward, K3
 fused Adam, matrix products, everything else), the host wall time per
 step and the device's idle share (1 - union of kernel intervals / window
 wall time, profiler overhead included), then times the same number of
-steps without the profiler. Writes the summary to
+steps without the profiler. Also counts, per step, the kernels launched
+and the host's CUDA runtime calls by name (launches, copies,
+synchronizations): with the device idle most of a step, they say what
+the host spends the step on. Writes the summary to
 ``chiprun_out/train_profile.json``; needs a CUDA device.
 """
 
@@ -34,6 +37,24 @@ CLASSES = (("flash_fwd (K1)", re.compile(r"fwd_kernel")),
            ("fused_adam (K3)", re.compile(r"adam_kernel")),
            ("matmul", re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas",
                                  re.I)))
+
+
+def _host_calls(trace_path, steps):
+    """Kernels launched and CUDA runtime calls (count and host ms, the 8
+    largest by time) per step, from a chrome trace."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    calls = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            n, ms = calls.get(e["name"], (0, 0.0))
+            calls[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    top = sorted(calls.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"kernels_per_step": kernels / steps,
+            "runtime_calls_per_step": {
+                name: {"count": n / steps, "host_ms": ms / steps}
+                for name, (n, ms) in top}}
 
 
 def main() -> int:
@@ -71,10 +92,11 @@ def main() -> int:
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(trace)
     summary = _kernel_summary(trace, wall, CLASSES)
+    host = _host_calls(trace, args.steps)
     os.remove(trace)
     per_step = {k: v / args.steps for k, v in summary["kernel_ms"].items()}
     out["profiled"] = dict(summary, kernel_ms_per_step=per_step,
-                           ms_per_step=wall * 1e3 / args.steps)
+                           ms_per_step=wall * 1e3 / args.steps, **host)
     t0 = time.perf_counter()
     for _ in range(args.steps):
         engine.train_batch(batch=batch)
