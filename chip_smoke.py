@@ -36,7 +36,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    T 4096 / 8192, fp32 D 64 block 64, non-causal BigBird and a per-head
    Fixed layout, with FlexAttention (compiled, on a BlockMask from the
    layout; main shape only) and SDPA with the layout's bool mask as
-   yardsticks;
+   yardsticks, and the size of the bf16 kernels' work lists;
 4. small references: a 2-layer fp32 model served with K6 (and K5, with
    int8 weights) and with their plain versions (identical tokens), served
    through the two-program engine with K7a/K7b (chunked, with the prefix
@@ -78,7 +78,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    flash attention on the same q/k/v; asserts finite gradients and the
    launch counts (K9 6 x each kernel, K1/K2 once per yardstick), then
    prints one ``long context {...}`` JSON line per length with
-   bench_longctx's fields and the backward times;
+   bench_longctx's fields, the backward times and the host time of one
+   forward call;
 9. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -846,6 +847,15 @@ def flex_times(qt, kt, vt, dot, want, layout, block, causal):
     return res
 
 
+def work_list_summary(walks, block):
+    """A ``_Walks``' work list in words: its items (one block each per
+    64-row slice and batch row), how many of them belong to split walks,
+    and the longest item in 64-row tiles."""
+    split = int((walks.work[:, 4] >= 0).sum())
+    return (f"{walks.work.shape[0]} items ({split} split), longest "
+            f"{walks.longest * block // 64} tiles")
+
+
 def check_block_sparse_attention():
     """K9 forward, dQ and dK/dV against their plain versions on the same
     inputs (the backward ones from the kernel's out and lse), head by head
@@ -922,6 +932,7 @@ def check_block_sparse_attention():
         bounds = sparse_bounds(B, T, Hh, Dh, dtype, *args)
         _, cnt = bsa.layout_indices(layout)
         _, qcnt = bsa.layout_indices(np.swapaxes(layout, 1, 2))
+        walks = bsa._indices(layout, causal, q.device)
         results[case] = {}
         for part, names in (("fwd", ("out", "lse")), ("dq", ("dq",)),
                             ("dkv", ("dk", "dv"))):
@@ -937,7 +948,10 @@ def check_block_sparse_attention():
             f"{str(dtype)[6:]} block {block} {name} causal {causal}; block "
             f"degree mean {cnt.mean():.2f} max {cnt.max()}, transposed max "
             f"{qcnt.max()}; {sparse_pairs(layout, block, causal)} pairs per "
-            f"batch row): ok max_abs_err " + " ".join(
+            f"batch row; bf16 work lists, C {bsa.SPLIT_BLOCKS} blocks: "
+            + ", ".join(f"{kind} {work_list_summary(w, block)}" for kind, w
+                        in zip(("rows", "columns"), walks))
+            + "): ok max_abs_err " + " ".join(
                 f"{n}={e:.3e}" for n, e in errs.items())
             + f" (tolerance {rtol:g}*|plain|+{atol:g}) | " + " | ".join(
                 f"{part} kernel_ms={r['ms']:.4f} plain_ms="
@@ -949,6 +963,20 @@ def check_block_sparse_attention():
         gc.collect()
         torch.cuda.empty_cache()
     return results
+
+
+def host_ms(fn, reps=20):
+    """Median host ms of ``fn()`` (no gradient) from an idle device to the
+    return of its last launch: what a caller's thread spends per call."""
+    times = []
+    with torch.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 LONGCTX_T = (4096, 8192, 16384)
@@ -972,8 +1000,9 @@ def check_long_context():
     backward each (loss ``(out * dout).sum()``), beside causal
     ``flash_attention`` (K1/K2) on the same q/k/v. Asserts finite
     gradients and exact launch counts (K9: 6 of each; K1 forward and K2:
-    one per yardstick call), then times both forward and backward.
-    Returns the K9 launches."""
+    one per yardstick call), then times both forward and backward, and
+    the host time of one ``sparse_attention`` forward call. Returns the K9
+    launches."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
@@ -1047,6 +1076,8 @@ def check_long_context():
                 *x, sparsity_config=cfg, causal=True))
             rec["layouts"][name] = {
                 "sparse_ms": sparse_ms, "sparse_bwd_ms": sparse_bwd_ms,
+                "sparse_host_ms": host_ms(lambda: sparse_attention(
+                    q, k, v, sparsity_config=cfg, causal=True)),
                 "sparse_speedup_vs_flash": flash_ms / sparse_ms,
                 "sparse_bwd_speedup_vs_flash": flash_bwd_ms / sparse_bwd_ms,
                 "causal_nnz_fraction": frac,

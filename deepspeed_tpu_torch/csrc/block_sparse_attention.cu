@@ -3,9 +3,12 @@
 // called through ctypes from deepspeed_tpu_torch/ops/block_sparse_attention.py.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/block_sparse_attention.py:
-//   _fwd_kernel     (:55)  -> fwd_kernel  (out and the fp32 logsumexp)
-//   _bwd_dq_kernel  (:103) -> dq_kernel   (dQ over the same active blocks)
-//   _bwd_dkv_kernel (:143) -> dkv_kernel  (dK and dV over the transposed lists)
+//   _fwd_kernel     (:55)  -> tc_fwd_kernel (bf16), fwd_kernel (fp32): out
+//                             and the fp32 logsumexp
+//   _bwd_dq_kernel  (:103) -> tc_dq_kernel, dq_kernel: dQ over the same
+//                             active blocks
+//   _bwd_dkv_kernel (:143) -> tc_dkv_kernel, dkv_kernel: dK and dV over the
+//                             transposed lists
 // and computes the same function over q/k/v in the model layout
 // [B, T, H, D]: a layout [H, nb, nb] of block x block tiles says which key
 // blocks each query block sees; out = softmax(q k^T * scale + mask) v with
@@ -23,41 +26,88 @@
 // blocks) the forward reads q, k, v and writes out and lse once, 0.161 ms
 // of bytes at 3.35 TB/s, against 0.154 ms of operations (4 D FLOP per
 // visible pair) at the bf16 peak: bytes, by a hair. dQ (6 D FLOP a pair)
-// and dK/dV (8 D) are bound by operations: 0.231 and 0.308 ms.
+// and dK/dV (8 D) are bound by operations: 0.231 and 0.308 ms. Every key
+// tile a walk visits is re-read from L2 or memory, and the rows are short
+// (BSLongformer's ~5 blocks, ~640 keys), so the prologue, the ring fill
+// and the epilogue weigh more than in flash attention over a whole row.
 //
-// What the design does about it:
-// - one block per (64-row slice of a query block, batch x head) for the
-//   forward and dQ, per (64-column slice of a key block, batch x head) for
-//   dK/dV. The TPU grid pads every row to the largest degree A and visits
-//   one active block per grid step; here a block loops over its own list
-//   only (cnt entries, read from the device), so a row costs its own
-//   degree, and the running max, sum and accumulators stay in registers;
-// - the streamed tiles (K and V for the forward and dQ, Q, dO, lse and
-//   delta for dK/dV) come through a 2-stage cp.async double buffer: the
-//   next tile's copy is in flight while this one is computed; the resident
-//   tile is loaded once;
-// - tiles are kept in shared memory in their own type, each row padded by
-//   16 bytes, and read as 16-byte vectors: 8 rows of a phase fall on
-//   distinct banks. Each thread holds a 4 x 4 block of scores and a
-//   4 x D/16 block of the accumulators;
-// - causality costs nothing off the diagonal: tiles past the diagonal are
-//   skipped and the per-element mask runs only on the diagonal tile.
-// Math is fp32 FMA on CUDA cores (no mma/wgmma yet), as in the flash
-// kernels: correct first. Rows of very unequal degree are not balanced
-// (BigBird's global row walks all nb blocks alone); splitting long lists
-// across blocks and merging through lse is later work. PERF.md has the
-// times.
+// bf16 inputs run on the tensor cores (tc_fwd_kernel, tc_dq_kernel,
+// tc_dkv_kernel), the design of flash_attention.cu's tc_* kernels with the
+// building blocks of tc_common.cuh, walking active lists:
+// - A block of 4 warps owns one 64-row slice of a query block (forward,
+//   dQ: each warp 16 rows) or of a key block (dK/dV: each warp 16 keys)
+//   and walks the key tiles (query tiles for dK/dV) of the active blocks of
+//   its work item. Products are mma.sync.m16n8k16 (bf16 in, fp32
+//   accumulate) with operands from ldmatrix (.trans for V in P.V, K in
+//   dS.K, dO and Q in the dK/dV products). The forward keeps Q in
+//   registers as A fragments for the whole walk, and its online softmax
+//   lives in the accumulator fragments (quad shuffles, exp2 with the scale
+//   folded in). P, dS, P^T and dS^T are rounded to bf16 and become A
+//   fragments in registers: the C layout of an m16n8 pair is the A layout
+//   of the next k-step, so nothing goes through shared memory.
+// - Tiles are bf16 in XOR-swizzled shared memory, fed by a 2-stage ring of
+//   16-byte cp.async copies: the next tile is in flight while this one is
+//   multiplied. dK/dV walks query tiles of 64 rows at D 64 and of 32 at
+//   D 128 (its dK and dV accumulators take 128 registers a thread there);
+//   their lse and delta come through the same ring.
+// - The item's active blocks (at most C of them) are copied into shared
+//   memory once, at the start; tile addresses and the causal bounds come
+//   from there. Causality keeps a prefix of the ascending walk (forward,
+//   dQ: key tiles at or before the own slice) or a suffix (dK/dV: query
+//   tiles at or after it); only the diagonal tile (one per 64-row slice,
+//   two for dK/dV's 32-row query tiles at D 128) is masked per element.
+// - Load balance (the TPU grid pads every row to the largest degree and
+//   needs none; here a block with a long walk would finish last). The
+//   wrapper cuts every walk longer than C = 16 active blocks
+//   (block_sparse_attention.py SPLIT_BLOCKS) into ceil(cnt / C) work items
+//   of at most C blocks, and orders all items by length, longest first,
+//   so that the long ones start at once and the short ones fill in behind
+//   them. BigBird's global row and BSLongformer's global column (degree
+//   128 at T 16384) become 8 items each, where one walk would be 26 times
+//   as long as a typical one (4.9 blocks). An item of a walk that is not
+//   split writes its output directly. The items of a split walk write fp32
+//   partials into the wrapper's scratch (forward: the unnormalized O, the
+//   running max m in log2 units and the row sum l; dQ, dK, dV: their
+//   partial sums), and a second kernel in the same C entry merges them:
+//   the forward through lse (rows that no item saw keep zeros and -inf),
+//   the gradients by sums in the items' order. No atomics: the result does
+//   not depend on scheduling.
+// - Grid: x = (work item, slice of the block, batch row), heaviest first.
+// Rounding points: S, dP and every accumulator are fp32; P and dS are
+// rounded to bf16 before their products, as in the flash kernels; the row
+// sum l is taken from the unrounded P.
+//
+// fp32 inputs keep the first design (fwd_kernel, dq_kernel, dkv_kernel):
+// exact fp32 FMA on CUDA cores, which the 2e-5 fp32 tolerance needs (TF32
+// cannot meet it). One block per (64-row slice, batch x head) walks its
+// whole list from device memory through a 2-stage cp.async double buffer;
+// tiles are kept in shared memory as fp32 rows padded by 16 bytes, each
+// thread holds a 4 x 4 block of scores and a 4 x D/16 block of the
+// accumulators, P goes through shared memory, and tiles past the causal
+// diagonal are skipped. It does not use the work list.
+//
+// Each kernel raises its shared-memory limit once per device
+// (allow_smem), not on every launch. PERF.md has the times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
 constexpr int BT = 64;        // rows of a query or key tile
-constexpr int THREADS = 256;  // 16 x 16: ty picks 4 rows, tx 4 score columns
+constexpr int THREADS = 256;  // fp32: 16 x 16, ty picks 4 rows, tx 4 columns
 constexpr int PS = BT + 4;    // stride of a 64-wide fp32 score tile
+constexpr int TC_THREADS = 128;     // bf16: 4 warps of 16 rows
+constexpr int MERGE_THREADS = 256;  // the merge of split walks
+constexpr int WORK = 5;   // ints of a work item: head, list row, first entry,
+                          // entries, slot (-1: the item is the whole walk)
+constexpr int MERGE = 4;  // ints of a split walk: head, list row, first
+                          // slot, slots (one per item, in the walk's order)
 
 // a tile of 64 rows of D elements of type E in shared memory
 template <typename E, int D>
@@ -80,16 +130,17 @@ struct Params {
   float* lse_out;      // forward only
   const int* idx;      // [H, nb, A] active blocks of each row of the lists
   const int* cnt;      // [H, nb]
+  const int* work;     // bf16: [n_work, WORK] items, longest first
+  const int* merge;    // bf16: [n_merge, MERGE] the split walks
+  float* scratch;      // bf16: the split items' fp32 partials
   int B, H, T, nb, A, block, causal;
+  int n_work, n_merge, max_blocks;  // max_blocks: the longest item
   float sm_scale;
 };
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
-// N consecutive elements at p (16-byte aligned, or 8 for 4 bf16) as floats
+// N consecutive floats at p (16-byte aligned)
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* o) {
   static_assert(N % 4 == 0, "fp32 rows are read 4 at a time");
@@ -101,47 +152,6 @@ __device__ __forceinline__ void load_vec(const float* p, float* o) {
     o[4 * c + 2] = x.z;
     o[4 * c + 3] = x.w;
   }
-}
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* o) {
-  static_assert(N % 4 == 0, "bf16 rows are read 4 or 8 at a time");
-  if constexpr (N % 8 == 0) {
-#pragma unroll
-    for (int c = 0; c < N / 8; ++c) {
-      const uint4 u = reinterpret_cast<const uint4*>(p)[c];
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float2 f = __bfloat1622float2(h[m]);
-        o[8 * c + 2 * m] = f.x;
-        o[8 * c + 2 * m + 1] = f.y;
-      }
-    }
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const float2 f = __bfloat1622float2(h[m]);
-      o[2 * m] = f.x;
-      o[2 * m + 1] = f.y;
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // start copying rows [row0, row0 + 64) of head h, batch b of a [B, T, H, D]
@@ -156,10 +166,14 @@ __device__ __forceinline__ void load_tile_async(E* dst, const void* src, int b,
   for (int c = threadIdx.x; c < BT * PER_ROW; c += THREADS) {
     const int r = c / PER_ROW;
     const int e = (c % PER_ROW) * L::CH;
-    cp_async16(dst + r * L::LD + e,
-               s + ((static_cast<size_t>(b) * T + row0 + r) * H + h) * D + e);
+    cp16(saddr(dst + r * L::LD + e),
+         s + ((static_cast<size_t>(b) * T + row0 + r) * H + h) * D + e, true);
   }
 }
+
+// ---------------------------------------------------------------------------
+// fp32: the CUDA-core kernels
+// ---------------------------------------------------------------------------
 
 // s[i][j] = sum_d X[4 ty + i][d] * Y[tx + 16 j][d] over two shared tiles
 template <typename E, int D>
@@ -273,7 +287,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
     load_tile_async<E, D>(ring, p.k, b, h, c0, p.T, p.H);
     load_tile_async<E, D>(ring + L::ELEMS, p.v, b, h, c0, p.T, p.H);
   }
-  cp_async_commit();
+  cp_commit();
 
   float acc[4][N];
   float m_run[4], l_run[4];
@@ -288,7 +302,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   int stage = 0;
   while (t < n) {
     const int c0 = tile_row0(p, list, spb, t);
-    cp_async_wait<0>();
+    cp_wait<0>();
     __syncthreads();  // tile t landed; the other stage and ps are free
     const int tn = next_tile(p, list, spb, n, t + 1, row0, false);
     if (tn < n) {
@@ -297,7 +311,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
       load_tile_async<E, D>(nxt, p.k, b, h, n0, p.T, p.H);
       load_tile_async<E, D>(nxt + L::ELEMS, p.v, b, h, n0, p.T, p.H);
     }
-    cp_async_commit();
+    cp_commit();
     const E* ks = ring + 2 * stage * L::ELEMS;
     const E* vs = ks + L::ELEMS;
     const bool diag = p.causal && c0 == row0;
@@ -331,7 +345,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
     stage ^= 1;
     t = tn;
   }
-  cp_async_wait<0>();
+  cp_wait<0>();
 
   E* out = static_cast<E*>(p.out);
 #pragma unroll
@@ -377,7 +391,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
     load_tile_async<E, D>(ring, p.k, b, h, c0, p.T, p.H);
     load_tile_async<E, D>(ring + L::ELEMS, p.v, b, h, c0, p.T, p.H);
   }
-  cp_async_commit();
+  cp_commit();
 
   float lse[4], delta[4];
   float acc[4][N];
@@ -393,7 +407,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   int stage = 0;
   while (t < n) {
     const int c0 = tile_row0(p, list, spb, t);
-    cp_async_wait<0>();
+    cp_wait<0>();
     __syncthreads();
     const int tn = next_tile(p, list, spb, n, t + 1, row0, false);
     if (tn < n) {
@@ -402,7 +416,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
       load_tile_async<E, D>(nxt, p.k, b, h, n0, p.T, p.H);
       load_tile_async<E, D>(nxt + L::ELEMS, p.v, b, h, n0, p.T, p.H);
     }
-    cp_async_commit();
+    cp_commit();
     const E* ks = ring + 2 * stage * L::ELEMS;
     const E* vs = ks + L::ELEMS;
     const bool diag = p.causal && c0 == row0;
@@ -423,7 +437,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
     stage ^= 1;
     t = tn;
   }
-  cp_async_wait<0>();
+  cp_wait<0>();
 
   E* dq = static_cast<E*>(p.out);
 #pragma unroll
@@ -456,12 +470,13 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   float* rows = pt + BT * PS;  // stage s: lse at rows + 2 s BT, then delta
 
   // rows of the shared tile as 16 pieces of 16 bytes: lse, then delta
-  auto load_rows = [&](float* dst, int r0) {
+  auto load_stats = [&](float* dst, int r0) {
     const size_t at = static_cast<size_t>(blockIdx.y) * p.T + r0;
     if (tid < 16)
-      cp_async16(dst + 4 * tid, p.lse + at + 4 * tid);
+      cp16(saddr(dst + 4 * tid), p.lse + at + 4 * tid, true);
     else if (tid < 32)
-      cp_async16(dst + BT + 4 * (tid - 16), p.delta + at + 4 * (tid - 16));
+      cp16(saddr(dst + BT + 4 * (tid - 16)), p.delta + at + 4 * (tid - 16),
+           true);
   };
 
   const int* list = p.idx + (static_cast<size_t>(h) * p.nb + kb) * p.A;
@@ -473,9 +488,9 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     const int r0 = tile_row0(p, list, spb, t);
     load_tile_async<E, D>(ring, p.q, b, h, r0, p.T, p.H);
     load_tile_async<E, D>(ring + L::ELEMS, p.dout, b, h, r0, p.T, p.H);
-    load_rows(rows, r0);
+    load_stats(rows, r0);
   }
-  cp_async_commit();
+  cp_commit();
 
   float dk[4][N], dv[4][N];
 #pragma unroll
@@ -486,7 +501,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   int stage = 0;
   while (t < n) {
     const int r0 = tile_row0(p, list, spb, t);
-    cp_async_wait<0>();
+    cp_wait<0>();
     __syncthreads();
     const int tn = next_tile(p, list, spb, n, t + 1, c0, true);
     if (tn < n) {
@@ -494,9 +509,9 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
       const int n0 = tile_row0(p, list, spb, tn);
       load_tile_async<E, D>(nxt, p.q, b, h, n0, p.T, p.H);
       load_tile_async<E, D>(nxt + L::ELEMS, p.dout, b, h, n0, p.T, p.H);
-      load_rows(rows + 2 * BT * (stage ^ 1), n0);
+      load_stats(rows + 2 * BT * (stage ^ 1), n0);
     }
-    cp_async_commit();
+    cp_commit();
     const E* qs = ring + 2 * stage * L::ELEMS;
     const E* dos = qs + L::ELEMS;
     const float* lse_s = rows + 2 * BT * stage;
@@ -532,7 +547,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     stage ^= 1;
     t = tn;
   }
-  cp_async_wait<0>();
+  cp_wait<0>();
 
   E* dkp = static_cast<E*>(p.out);
   E* dvp = static_cast<E*>(p.out2);
@@ -549,30 +564,682 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels over the work list
+// ---------------------------------------------------------------------------
+
+// what one block does: rows (keys for dK/dV) [64 tile, 64 tile + 64) of
+// head h, batch b, over entries [start, start + n) of list row tile / spb;
+// part >= 0 is the index of its fp32 partial in the scratch
+struct Item {
+  int b, h, tile, start, n, part;
+};
+
+// blockIdx.x = (work item * spb + slice) * B + batch row, so consecutive
+// blocks share an item and the grid keeps the list's longest-first order
+__device__ __forceinline__ Item work_item(const Params& p) {
+  const int spb = p.block / BT;
+  const int j = blockIdx.x / p.B;
+  const int s = j % spb;
+  const int* w = p.work + static_cast<size_t>(j / spb) * WORK;
+  Item it;
+  it.b = blockIdx.x % p.B;
+  it.h = w[0];
+  it.tile = w[1] * spb + s;
+  it.start = w[2];
+  it.n = w[3];
+  it.part = w[4] < 0 ? -1 : (w[4] * spb + s) * p.B + it.b;
+  return it;
+}
+
+// the item's active blocks, copied to shared memory (read after a barrier)
+__device__ __forceinline__ void load_list(int* blk, const Params& p,
+                                          const Item& it) {
+  const int* list =
+      p.idx +
+      (static_cast<size_t>(it.h) * p.nb + it.tile / (p.block / BT)) * p.A +
+      it.start;
+  for (int i = threadIdx.x; i < it.n; i += blockDim.x) blk[i] = list[i];
+}
+
+// element offset of (batch b, row, head h) in a [B, T, H, D] tensor
+template <int D>
+__device__ __forceinline__ size_t at_row(const Params& p, int b, int row,
+                                         int h) {
+  return ((static_cast<size_t>(b) * p.T + row) * p.H + h) * D;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) tc_fwd_kernel(Params p) {
+  constexpr int KT = D / 16, NS = BT / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
+  bf16_t* ks = qs + BT * D;      // [2][BT][D]
+  bf16_t* vs = ks + 2 * BT * D;  // [2][BT][D]
+  int* blk = reinterpret_cast<int*>(vs + 2 * BT * D);
+
+  const Item it = work_item(p);
+  const int spb = p.block / BT;
+  const int row0 = it.tile * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  load_list(blk, p, it);
+  load_rows<D, BT, TC_THREADS>(qs, p.q, it.b, it.h, row0, p.T, p.H);
+  cp_commit();
+  __syncthreads();  // the list
+
+  // key tile t: slice t % spb of block t / spb; causality keeps the tiles
+  // at or before the own slice, a prefix of the ascending walk
+  auto key0 = [&](int t) { return blk[t / spb] * p.block + (t % spb) * BT; };
+  int n = it.n * spb;
+  if (p.causal)
+    while (n > 0 && key0(n - 1) > row0) --n;
+  if (n > 0) {
+    load_rows<D, BT, TC_THREADS>(ks, p.k, it.b, it.h, key0(0), p.T, p.H);
+    load_rows<D, BT, TC_THREADS>(vs, p.v, it.b, it.h, key0(0), p.T, p.H);
+  }
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+    ldsm(qf[kk], a_addr<D>(qs, warp * 16, kk, lane));
+
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
+  float l_run[2] = {0.f, 0.f};              // this lane's part of the sums
+  const float sl2 = p.sm_scale * LOG2E;
+  int stage = 0;
+
+  for (int t = 0; t < n; ++t) {
+    if (t + 1 < n) {
+      const int c1 = key0(t + 1);
+      load_rows<D, BT, TC_THREADS>(ks + (stage ^ 1) * BT * D, p.k, it.b,
+                                   it.h, c1, p.T, p.H);
+      load_rows<D, BT, TC_THREADS>(vs + (stage ^ 1) * BT * D, p.v, it.b,
+                                   it.h, c1, p.T, p.H);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16_t* kt = ks + stage * BT * D;
+    const bf16_t* vt = vs + stage * BT * D;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int nj = 0; nj < NS / 2; ++nj) {
+        uint32_t kb[4];
+        ldsm(kb, b_addr<D>(kt, nj * 16, kk, lane));
+        mma(s[2 * nj], qf[kk], kb[0], kb[1]);
+        mma(s[2 * nj + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    const bool diag = p.causal && key0(t) == row0;
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (diag && j * 8 + 2 * (lane & 3) + (e & 1) >
+                        warp * 16 + (lane >> 2) + 8 * (e >> 1))
+          x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(~0u, mx[i], 2));
+      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+      const float alpha = ex2(m_run[i] - base[i]);
+      m_run[i] = mx[i];
+      l_run[i] *= alpha;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        o[d][2 * i] *= alpha;
+        o[d][2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(s[j][e] - base[e >> 1]);
+        l_run[e >> 1] += s[j][e];
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dj = 0; dj < ND / 2; ++dj) {
+        uint32_t vb[4];
+        ldsm_t(vb, bt_addr<D>(vt, kk * 16, dj, lane));
+        mma(o[2 * dj], a, vb[0], vb[1]);
+        mma(o[2 * dj + 1], a, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for the tile after next
+    stage ^= 1;
+  }
+  cp_wait<0>();
+
+  // a split item's partial: O [BT][D] unnormalized, then m and l [BT]
+  float* part = it.part < 0 ? nullptr
+                            : p.scratch + static_cast<size_t>(it.part) *
+                                              BT * (D + 2);
+  bf16_t* out = static_cast<bf16_t*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(~0u, l, 1);
+    l += __shfl_xor_sync(~0u, l, 2);
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    if (part != nullptr) {
+      float* dst = part + r * D + 2 * (lane & 3);
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        *reinterpret_cast<float2*>(dst + 8 * d) =
+            make_float2(o[d][2 * i], o[d][2 * i + 1]);
+      if ((lane & 3) == 0) {
+        part[BT * D + r] = m_run[i];
+        part[BT * D + BT + r] = l;
+      }
+      continue;
+    }
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    bf16_t* dst = out + at_row<D>(p, it.b, row0 + r, it.h) + 2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+          __floats2bfloat162_rn(o[d][2 * i] * inv, o[d][2 * i + 1] * inv);
+    if ((lane & 3) == 0)
+      p.lse_out[(static_cast<size_t>(it.b) * p.H + it.h) * p.T + row0 + r] =
+          l == 0.f ? -INFINITY : m_run[i] * LN2 + logf(l);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) tc_dq_kernel(Params p) {
+  constexpr int KT = D / 16, NS = BT / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
+  bf16_t* dos = qs + BT * D;
+  bf16_t* ks = dos + BT * D;     // [2][BT][D]
+  bf16_t* vs = ks + 2 * BT * D;  // [2][BT][D]
+  int* blk = reinterpret_cast<int*>(vs + 2 * BT * D);
+
+  const Item it = work_item(p);
+  const int spb = p.block / BT;
+  const int row0 = it.tile * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  load_list(blk, p, it);
+  load_rows<D, BT, TC_THREADS>(qs, p.q, it.b, it.h, row0, p.T, p.H);
+  load_rows<D, BT, TC_THREADS>(dos, p.dout, it.b, it.h, row0, p.T, p.H);
+  __syncthreads();  // the list
+
+  auto key0 = [&](int t) { return blk[t / spb] * p.block + (t % spb) * BT; };
+  int n = it.n * spb;
+  if (p.causal)
+    while (n > 0 && key0(n - 1) > row0) --n;
+  if (n > 0) {
+    load_rows<D, BT, TC_THREADS>(ks, p.k, it.b, it.h, key0(0), p.T, p.H);
+    load_rows<D, BT, TC_THREADS>(vs, p.v, it.b, it.h, key0(0), p.T, p.H);
+  }
+  cp_commit();
+
+  float lse2[2], dl[2];  // rows g and g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t at = (static_cast<size_t>(it.b) * p.H + it.h) * p.T + row0 +
+                      warp * 16 + (lane >> 2) + 8 * i;
+    lse2[i] = lse_offset(p.lse[at]) * LOG2E;
+    dl[i] = p.delta[at];
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[d][e] = 0.f;
+  const float sl2 = p.sm_scale * LOG2E;
+  int stage = 0;
+
+  for (int t = 0; t < n; ++t) {
+    if (t + 1 < n) {
+      const int c1 = key0(t + 1);
+      load_rows<D, BT, TC_THREADS>(ks + (stage ^ 1) * BT * D, p.k, it.b,
+                                   it.h, c1, p.T, p.H);
+      load_rows<D, BT, TC_THREADS>(vs + (stage ^ 1) * BT * D, p.v, it.b,
+                                   it.h, c1, p.T, p.H);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16_t* kt = ks + stage * BT * D;
+    const bf16_t* vt = vs + stage * BT * D;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm(qa, a_addr<D>(qs, warp * 16, kk, lane));
+      ldsm(da, a_addr<D>(dos, warp * 16, kk, lane));
+#pragma unroll
+      for (int nj = 0; nj < NS / 2; ++nj) {
+        uint32_t kb[4], vb[4];
+        ldsm(kb, b_addr<D>(kt, nj * 16, kk, lane));
+        mma(s[2 * nj], qa, kb[0], kb[1]);
+        mma(s[2 * nj + 1], qa, kb[2], kb[3]);
+        ldsm(vb, b_addr<D>(vt, nj * 16, kk, lane));
+        mma(dp[2 * nj], da, vb[0], vb[1]);
+        mma(dp[2 * nj + 1], da, vb[2], vb[3]);
+      }
+    }
+
+    const bool diag = p.causal && key0(t) == row0;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = ex2(fmaf(s[j][e], sl2, -lse2[e >> 1]));
+        if (diag && j * 8 + 2 * (lane & 3) + (e & 1) >
+                        warp * 16 + (lane >> 2) + 8 * (e >> 1))
+          pe = 0.f;
+        s[j][e] = pe * (dp[j][e] - dl[e >> 1]);  // dS
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dj = 0; dj < ND / 2; ++dj) {
+        uint32_t kb[4];
+        ldsm_t(kb, bt_addr<D>(kt, kk * 16, dj, lane));
+        mma(dq[2 * dj], a, kb[0], kb[1]);
+        mma(dq[2 * dj + 1], a, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();
+    stage ^= 1;
+  }
+  cp_wait<0>();
+
+  bf16_t* out = static_cast<bf16_t*>(p.out);
+  float* part = it.part < 0 ? nullptr
+                            : p.scratch + static_cast<size_t>(it.part) * BT * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    if (part != nullptr) {
+      float* dst = part + r * D + 2 * (lane & 3);
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        *reinterpret_cast<float2*>(dst + 8 * d) =
+            make_float2(dq[d][2 * i], dq[d][2 * i + 1]);
+      continue;
+    }
+    bf16_t* dst = out + at_row<D>(p, it.b, row0 + r, it.h) + 2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) = __floats2bfloat162_rn(
+          dq[d][2 * i] * p.sm_scale, dq[d][2 * i + 1] * p.sm_scale);
+  }
+}
+
+template <int D, int BQ>
+__global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
+  constexpr int KT = D / 16, NQ = BQ / 8, ND = D / 8;
+  static_assert(2 * BQ <= TC_THREADS, "one thread per lse and delta value");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* ks = reinterpret_cast<bf16_t*>(tc_smem);
+  bf16_t* vs = ks + BT * D;
+  bf16_t* qs = vs + BT * D;       // [2][BQ][D]
+  bf16_t* dos = qs + 2 * BQ * D;  // [2][BQ][D]
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * D);  // [2][BQ] lse
+  float* dls = ls + 2 * BQ;                                // [2][BQ] delta
+  int* blk = reinterpret_cast<int*>(dls + 2 * BQ);
+
+  const Item it = work_item(p);
+  const int qpb = p.block / BQ;  // query tiles of a block
+  const int c0 = it.tile * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const size_t bh = static_cast<size_t>(it.b) * p.H + it.h;
+  load_list(blk, p, it);
+  load_rows<D, BT, TC_THREADS>(ks, p.k, it.b, it.h, c0, p.T, p.H);
+  load_rows<D, BT, TC_THREADS>(vs, p.v, it.b, it.h, c0, p.T, p.H);
+  __syncthreads();  // the list
+
+  // query tile t: rows [row0(t), row0(t) + BQ); causality keeps the tiles
+  // at or after the own keys, a suffix of the ascending walk
+  auto row0 = [&](int t) { return blk[t / qpb] * p.block + (t % qpb) * BQ; };
+  auto load_q = [&](int t, int st) {
+    const int r0 = row0(t);
+    load_rows<D, BQ, TC_THREADS>(qs + st * BQ * D, p.q, it.b, it.h, r0, p.T,
+                                 p.H);
+    load_rows<D, BQ, TC_THREADS>(dos + st * BQ * D, p.dout, it.b, it.h, r0,
+                                 p.T, p.H);
+    const size_t at = bh * p.T + r0 + (tid % BQ);
+    if (tid < BQ)
+      cp4(saddr(ls + st * BQ + tid), p.lse + at, true);
+    else if (tid < 2 * BQ)
+      cp4(saddr(dls + st * BQ + tid - BQ), p.delta + at, true);
+  };
+  const int n = it.n * qpb;
+  int t0 = 0;
+  if (p.causal)
+    while (t0 < n && row0(t0) < c0) ++t0;
+  if (t0 < n) load_q(t0, 0);
+  cp_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+  const float sl2 = p.sm_scale * LOG2E;
+  int stage = 0;
+
+  for (int t = t0; t < n; ++t) {
+    if (t + 1 < n) load_q(t + 1, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16_t* qt = qs + stage * BQ * D;
+    const bf16_t* dot = dos + stage * BQ * D;
+    const float* lt = ls + stage * BQ;
+    const float* dlt = dls + stage * BQ;
+    const int r0 = row0(t);
+
+    // transposed tiles: row = a key (c0 + 16 warp + ...), column = a query
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm(ka, a_addr<D>(ks, warp * 16, kk, lane));
+      ldsm(va, a_addr<D>(vs, warp * 16, kk, lane));
+#pragma unroll
+      for (int nj = 0; nj < NQ / 2; ++nj) {
+        uint32_t qb[4], db[4];
+        ldsm(qb, b_addr<D>(qt, nj * 16, kk, lane));
+        mma(st[2 * nj], ka, qb[0], qb[1]);
+        mma(st[2 * nj + 1], ka, qb[2], qb[3]);
+        ldsm(db, b_addr<D>(dot, nj * 16, kk, lane));
+        mma(dpt[2 * nj], va, db[0], db[1]);
+        mma(dpt[2 * nj + 1], va, db[2], db[3]);
+      }
+    }
+
+    // some query of the tile comes before some key: the diagonal
+    const bool diag = p.causal && r0 < c0 + BT - 1;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = j * 8 + 2 * (lane & 3) + (e & 1);
+        float pe = ex2(fmaf(st[j][e], sl2, -lse_offset(lt[qi]) * LOG2E));
+        if (diag && r0 + qi < c0 + warp * 16 + (lane >> 2) + 8 * (e >> 1))
+          pe = 0.f;
+        st[j][e] = pe;                            // P^T
+        dpt[j][e] = pe * (dpt[j][e] - dlt[qi]);  // dS^T
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {
+      uint32_t ap[4], as[4];
+      c_to_a(ap, st[2 * kk], st[2 * kk + 1]);
+      c_to_a(as, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int dj = 0; dj < ND / 2; ++dj) {
+        uint32_t db[4], qb[4];
+        ldsm_t(db, bt_addr<D>(dot, kk * 16, dj, lane));
+        mma(dv[2 * dj], ap, db[0], db[1]);
+        mma(dv[2 * dj + 1], ap, db[2], db[3]);
+        ldsm_t(qb, bt_addr<D>(qt, kk * 16, dj, lane));
+        mma(dk[2 * dj], as, qb[0], qb[1]);
+        mma(dk[2 * dj + 1], as, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();
+    stage ^= 1;
+  }
+  cp_wait<0>();
+
+  // a split item's partial: dK [BT][D] (unscaled), then dV [BT][D]
+  float* part = it.part < 0
+                    ? nullptr
+                    : p.scratch + static_cast<size_t>(it.part) * 2 * BT * D;
+  bf16_t* dkp = static_cast<bf16_t*>(p.out);
+  bf16_t* dvp = static_cast<bf16_t*>(p.out2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    if (part != nullptr) {
+      float* dst = part + r * D + 2 * (lane & 3);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        *reinterpret_cast<float2*>(dst + 8 * d) =
+            make_float2(dk[d][2 * i], dk[d][2 * i + 1]);
+        *reinterpret_cast<float2*>(dst + BT * D + 8 * d) =
+            make_float2(dv[d][2 * i], dv[d][2 * i + 1]);
+      }
+      continue;
+    }
+    const size_t at = at_row<D>(p, it.b, c0 + r, it.h) + 2 * (lane & 3);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + at + 8 * d) =
+          __floats2bfloat162_rn(dk[d][2 * i] * p.sm_scale,
+                                dk[d][2 * i + 1] * p.sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + at + 8 * d) =
+          __floats2bfloat162_rn(dv[d][2 * i], dv[d][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the merge of split walks: one block per (split walk, slice, batch row)
+// ---------------------------------------------------------------------------
+
+struct Split {
+  int b, h, row0, n;
+  size_t part0, stride;  // index of the first partial; between two items
+};
+
+__device__ __forceinline__ Split split_walk(const Params& p) {
+  const int spb = p.block / BT;
+  const int j = blockIdx.x / p.B;
+  const int s = j % spb;
+  const int* e = p.merge + static_cast<size_t>(j / spb) * MERGE;
+  Split w;
+  w.b = blockIdx.x % p.B;
+  w.h = e[0];
+  w.row0 = (e[1] * spb + s) * BT;
+  w.n = e[3];
+  // partial of slot c: (c * spb + s) * B + b, as work_item numbers it
+  w.part0 = (static_cast<size_t>(e[2]) * spb + s) * p.B + w.b;
+  w.stride = static_cast<size_t>(spb) * p.B;
+  return w;
+}
+
+// four fp32 values -> four bf16 at dst (8-byte aligned)
+__device__ __forceinline__ void store4(bf16_t* dst, float4 x, float c) {
+  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
+  d[0] = __floats2bfloat162_rn(x.x * c, x.y * c);
+  d[1] = __floats2bfloat162_rn(x.z * c, x.w * c);
+}
+
+// the forward's partials through their maxima: out = sum_c 2^(m_c - M) O_c
+// / L, L = sum_c 2^(m_c - M) l_c, lse = M ln 2 + log L; a row no item saw
+// (M = -inf) keeps zeros and lse = -inf
+template <int D>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_fwd_kernel(Params p) {
+  constexpr int PART = BT * (D + 2);
+  __shared__ float m_s[BT], inv_s[BT];
+  const Split w = split_walk(p);
+  const float* part = p.scratch + w.part0 * PART;
+  const size_t stride = w.stride * PART;
+  const int tid = threadIdx.x;
+  if (tid < BT) {
+    float m = -INFINITY, l = 0.f;
+    for (int c = 0; c < w.n; ++c)
+      m = fmaxf(m, part[c * stride + BT * D + tid]);
+    if (m != -INFINITY)
+      for (int c = 0; c < w.n; ++c)
+        l += part[c * stride + BT * D + BT + tid] *
+             exp2f(part[c * stride + BT * D + tid] - m);
+    m_s[tid] = m;
+    inv_s[tid] = l == 0.f ? 0.f : 1.f / l;
+    p.lse_out[(static_cast<size_t>(w.b) * p.H + w.h) * p.T + w.row0 + tid] =
+        l == 0.f ? -INFINITY : m * LN2 + logf(l);
+  }
+  __syncthreads();
+  bf16_t* out = static_cast<bf16_t*>(p.out);
+  for (int x = tid; x < BT * D / 4; x += MERGE_THREADS) {
+    const int r = x / (D / 4);
+    const int d = (x % (D / 4)) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m_s[r] != -INFINITY)
+      for (int c = 0; c < w.n; ++c) {
+        const float* pc = part + c * stride;
+        const float a = exp2f(pc[BT * D + r] - m_s[r]);
+        const float4 o = *reinterpret_cast<const float4*>(pc + r * D + d);
+        acc.x += a * o.x;
+        acc.y += a * o.y;
+        acc.z += a * o.z;
+        acc.w += a * o.w;
+      }
+    store4(out + at_row<D>(p, w.b, w.row0 + r, w.h) + d, acc, inv_s[r]);
+  }
+}
+
+// dQ (NOUT 1) or dK and dV (NOUT 2): the partials summed in the items'
+// order; dQ and dK take the softmax scale
+template <int D, int NOUT>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_sum_kernel(Params p) {
+  constexpr int PART = NOUT * BT * D;
+  const Split w = split_walk(p);
+  const float* part = p.scratch + w.part0 * PART;
+  const size_t stride = w.stride * PART;
+  for (int x = threadIdx.x; x < NOUT * BT * D / 4; x += MERGE_THREADS) {
+    const int o = x / (BT * D / 4);
+    const int r = x % (BT * D / 4) / (D / 4);
+    const int d = (x % (D / 4)) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < w.n; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          part + c * stride + o * BT * D + r * D + d);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    bf16_t* dst = static_cast<bf16_t*>(o == 0 ? p.out : p.out2);
+    store4(dst + at_row<D>(p, w.b, w.row0 + r, w.h) + d, acc,
+           o == 0 ? p.sm_scale : 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
-template <typename E, int D>
-int launch(Which which, const Params& p, cudaStream_t stream) {
-  constexpr int tile = Tile<E, D>::BYTES;
-  constexpr int score = BT * PS * 4;
-  void (*kernel)(Params);
-  int bytes;
-  if (which == FWD) {
-    kernel = fwd_kernel<E, D>;
-    bytes = 5 * tile + score;             // Q + 2 stages of K, V
-  } else if (which == DQ) {
-    kernel = dq_kernel<E, D>;
-    bytes = 6 * tile + score;             // Q, dO + 2 stages of K, V
-  } else {
-    kernel = dkv_kernel<E, D>;
-    bytes = 6 * tile + score + 4 * BT * 4;  // K, V + 2 stages of Q, dO, rows
+// a launch with more than 48 KB of dynamic shared memory needs the opt-in
+// (raised to the card's limit, once per kernel and device); the merge
+// kernels' static arrays would not leave room for it
+template <void (*K)(Params)>
+int run(const Params& p, dim3 grid, int threads, int bytes,
+        cudaStream_t stream) {
+  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = allow_smem<K>(MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.T / BT, p.B * p.H);
-  kernel<<<grid, THREADS, bytes, stream>>>(p);
+  K<<<grid, threads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// fp32: the CUDA-core kernels, grid (64-row slice, batch x head)
+template <int D>
+int launch_fp32(Which which, const Params& p, cudaStream_t stream) {
+  constexpr int tile = Tile<float, D>::BYTES;
+  constexpr int score = BT * PS * 4;
+  const dim3 grid(p.T / BT, p.B * p.H);
+  if (which == FWD)  // Q + 2 stages of K, V
+    return run<fwd_kernel<float, D>>(p, grid, THREADS, 5 * tile + score,
+                                     stream);
+  if (which == DQ)   // Q, dO + 2 stages of K, V
+    return run<dq_kernel<float, D>>(p, grid, THREADS, 6 * tile + score,
+                                    stream);
+  // K, V + 2 stages of Q, dO, lse and delta
+  return run<dkv_kernel<float, D>>(p, grid, THREADS,
+                                   6 * tile + score + 4 * BT * 4, stream);
+}
+
+// bf16: the tensor-core kernels over the work list, then the merge of the
+// split walks (when there are any) on the same stream
+template <int D>
+int launch_bf16(Which which, const Params& p, cudaStream_t stream) {
+  constexpr int E = static_cast<int>(sizeof(bf16_t));
+  const long long spb_b = static_cast<long long>(p.block / BT) * p.B;
+  const long long items = p.n_work * spb_b;
+  const long long splits = p.n_merge * spb_b;
+  if (p.work == nullptr || p.n_work <= 0 || p.max_blocks < 0 ||
+      items > INT_MAX || splits > INT_MAX ||
+      (p.n_merge > 0 && (p.merge == nullptr || p.scratch == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int list = (p.max_blocks * 4 + 15) / 16 * 16;
+  const dim3 grid(static_cast<unsigned>(items));
+  const dim3 merge_grid(static_cast<unsigned>(splits));
+  int err;
+  if (which == FWD) {  // Q + 2 stages of K, V
+    err = run<tc_fwd_kernel<D>>(p, grid, TC_THREADS, 5 * BT * D * E + list,
+                                stream);
+    if (err == 0 && splits > 0)
+      err = run<merge_fwd_kernel<D>>(p, merge_grid, MERGE_THREADS, 0, stream);
+  } else if (which == DQ) {  // Q, dO + 2 stages of K, V
+    err = run<tc_dq_kernel<D>>(p, grid, TC_THREADS, 6 * BT * D * E + list,
+                               stream);
+    if (err == 0 && splits > 0)
+      err = run<merge_sum_kernel<D, 1>>(p, merge_grid, MERGE_THREADS, 0,
+                                        stream);
+  } else {  // K, V + 2 stages of Q, dO, lse and delta
+    constexpr int BQ = D == 64 ? 64 : 32;
+    err = run<tc_dkv_kernel<D, BQ>>(
+        p, grid, TC_THREADS, (2 * BT * D + 4 * BQ * D) * E + 4 * BQ * 4 + list,
+        stream);
+    if (err == 0 && splits > 0)
+      err = run<merge_sum_kernel<D, 2>>(p, merge_grid, MERGE_THREADS, 0,
+                                        stream);
+  }
+  return err;
 }
 
 int dispatch(Which which, Params& p, int D, int bf16, void* stream) {
@@ -582,15 +1249,16 @@ int dispatch(Which which, Params& p, int D, int bf16, void* stream) {
   p.nb = p.T / p.block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return D == 64 ? launch<__nv_bfloat16, 64>(which, p, s)
-                   : launch<__nv_bfloat16, 128>(which, p, s);
-  return D == 64 ? launch<float, 64>(which, p, s)
-                 : launch<float, 128>(which, p, s);
+    return D == 64 ? launch_bf16<64>(which, p, s)
+                   : launch_bf16<128>(which, p, s);
+  return D == 64 ? launch_fp32<64>(which, p, s)
+                 : launch_fp32<128>(which, p, s);
 }
 
 Params make(const void* q, const void* k, const void* v, const int* idx,
             const int* cnt, int B, int H, int T, int block, int A, int causal,
-            float sm_scale) {
+            float sm_scale, const int* work, int n_work, const int* merge,
+            int n_merge, int max_blocks, float* scratch) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -604,6 +1272,12 @@ Params make(const void* q, const void* k, const void* v, const int* idx,
   p.A = A;
   p.causal = causal;
   p.sm_scale = sm_scale;
+  p.work = work;
+  p.n_work = n_work;
+  p.merge = merge;
+  p.n_merge = n_merge;
+  p.max_blocks = max_blocks;
+  p.scratch = scratch;
   return p;
 }
 
@@ -614,18 +1288,25 @@ Params make(const void* q, const void* k, const void* v, const int* idx,
 // 16-byte aligned; idx int32 [H, T / block, A] with cnt int32
 // [H, T / block]: the active key blocks of each query block (forward, dQ)
 // or the active query blocks of each key block (dK/dV), ascending; block a
-// multiple of 64 dividing T; D is 64 or 128. Every output element is
-// written. Each returns cudaGetLastError() after its launch (0 =
-// launched).
-extern "C" int block_sparse_attention_fwd(const void* q, const void* k,
-                                          const void* v, const int* kv_idx,
-                                          const int* kv_cnt, void* out,
-                                          float* lse, int B, int H, int T,
-                                          int D, int block, int A, int causal,
-                                          float sm_scale, int bf16,
-                                          void* stream) {
+// multiple of 64 dividing T; D is 64 or 128. The last six arguments are
+// the work list of the same lists, which the bf16 kernels walk (the fp32
+// kernels ignore them): work int32 [n_work, 5] (head, list row, first
+// entry, entries, slot or -1), longest first, covering every entry of
+// every row once; merge int32 [n_merge, 4] (head, list row, first slot,
+// slots) for each walk cut into several items; max_blocks the most
+// entries an item holds; scratch fp32, slots * (block / 64) * B * 64 *
+// (D + 2) floats for the forward, * D for dQ, * 2 D for dK/dV, or null
+// when n_merge is 0. Every output element is written; the merge runs
+// inside the same call. Each returns cudaGetLastError() after its last
+// launch (0 = launched).
+extern "C" int block_sparse_attention_fwd(
+    const void* q, const void* k, const void* v, const int* kv_idx,
+    const int* kv_cnt, void* out, float* lse, int B, int H, int T, int D,
+    int block, int A, int causal, float sm_scale, int bf16, void* stream,
+    const int* work, int n_work, const int* merge, int n_merge,
+    int max_blocks, float* scratch) {
   Params p = make(q, k, v, kv_idx, kv_cnt, B, H, T, block, A, causal,
-                  sm_scale);
+                  sm_scale, work, n_work, merge, n_merge, max_blocks, scratch);
   p.out = out;
   p.lse_out = lse;
   return dispatch(FWD, p, D, bf16, stream);
@@ -635,9 +1316,11 @@ extern "C" int block_sparse_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const int* kv_idx,
     const int* kv_cnt, void* dq, int B, int H, int T, int D, int block, int A,
-    int causal, float sm_scale, int bf16, void* stream) {
+    int causal, float sm_scale, int bf16, void* stream, const int* work,
+    int n_work, const int* merge, int n_merge, int max_blocks,
+    float* scratch) {
   Params p = make(q, k, v, kv_idx, kv_cnt, B, H, T, block, A, causal,
-                  sm_scale);
+                  sm_scale, work, n_work, merge, n_merge, max_blocks, scratch);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;
@@ -649,9 +1332,11 @@ extern "C" int block_sparse_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const int* q_idx, const int* q_cnt,
     void* dk, void* dv, int B, int H, int T, int D, int block, int A,
-    int causal, float sm_scale, int bf16, void* stream) {
+    int causal, float sm_scale, int bf16, void* stream, const int* work,
+    int n_work, const int* merge, int n_merge, int max_blocks,
+    float* scratch) {
   Params p = make(q, k, v, q_idx, q_cnt, B, H, T, block, A, causal,
-                  sm_scale);
+                  sm_scale, work, n_work, merge, n_merge, max_blocks, scratch);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 ``build/lib<name>-<hash>.so`` inside the package (the directory is in
-``.gitignore``), where ``<hash>`` is a digest of the source, so an edited
-kernel never loads a stale build. The sources have a plain C interface and
+``.gitignore``), where ``<hash>`` is a digest of the source and of every
+shared header ``csrc/*.cuh``, so an edited kernel or header never loads a
+stale build. The sources have a plain C interface and
 include no PyTorch header, which keeps a build to seconds. Nothing here
 runs at import time: this module must import on machines without
 ``nvcc`` or a GPU.
@@ -43,9 +44,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+    """The library path of ``csrc/<name>.cu``, keyed by a digest of the
+    source and of every header it may include."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as src:
+            digest.update(src.read())
+    return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _command(name: str, out: str) -> List[str]:

@@ -10,11 +10,15 @@ triangle and each key must also lie at or before its query. It is a
 and whose backward recomputes the probabilities from the logsumexp.
 
 On CUDA tensors each pass launches a hand-written Hopper kernel of
-``csrc/block_sparse_attention.cu`` that walks the active blocks of its own
-row (forward, dQ) or column (dK/dV) only; on CPU tensors the same passes
-run their plain PyTorch versions, which compute dense fp32 scores under
-the block mask. Any other placement raises: there is no fallback from a
-kernel to a plain version.
+``csrc/block_sparse_attention.cu`` that walks the active blocks of the
+rows (forward, dQ) or columns (dK/dV) only; on CPU tensors the same
+passes run their plain PyTorch versions, which compute dense fp32 scores
+under the block mask. Any other placement raises: there is no fallback
+from a kernel to a plain version. The bf16 kernels walk a work list
+(``_work_list``): each row's or column's list cut into items of at most
+``SPLIT_BLOCKS`` active blocks, longest first; the items of a walk that
+was cut write fp32 partials that a second kernel of the same C call
+merges, so each wrapper call is still one launch of its kernel.
 
 The kernels replace ``deepspeed_tpu/ops/pallas/block_sparse_attention.py``
 (``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). Their bounds on
@@ -22,17 +26,17 @@ an H100 and the design note are at the top of the CUDA source.
 
 A row that sees no key gets zeros and ``lse = -inf``; ``layout_indices``
 refuses a layout with an empty row, so only a direct call of a kernel
-wrapper with such a layout makes one. The active lists of a layout are
-built on the host once and kept on the device in a small cache keyed by
-the layout's bits, ``causal`` and the device, as are the layouts of a
-built-in ``SparsityConfig`` per sequence length (a user subclass is asked
-for its layout on every call).
+wrapper with such a layout makes one. The active lists of a layout and
+their work lists are built on the host once and kept on the device in a
+small cache keyed by the layout's bits, ``causal`` and the device, as are
+the layouts of a built-in ``SparsityConfig`` per sequence length (a user
+subclass is asked for its layout on every call).
 """
 
 import collections
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +50,12 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_BLOCKS = (64, 128)
 #: how many layouts (and their device lists) the caches keep
 CACHE_SIZE = 16
+#: C, the most active blocks one work item of the bf16 kernels walks: a
+#: longer row (column for dK/dV) is cut into ceil(cnt / C) items whose
+#: partials are merged (the design note of the CUDA source says why 16)
+SPLIT_BLOCKS = 16
+#: rows the kernels give one block: a block of 128 is walked as 2 slices
+SLICE = 64
 
 
 def layout_indices(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -163,19 +173,66 @@ def _cached(cache, key, make):
     return value
 
 
+def _work_list(cnt: np.ndarray, split: int = SPLIT_BLOCKS):
+    """The bf16 kernels' work list of the lists with degrees ``cnt [H, R]``:
+    ``(work [n, 5], merge [m, 4], slots)``.
+
+    Each row ``r`` of head ``h`` becomes ``ceil(cnt / split)`` items
+    ``(h, r, first entry, entries, slot)`` of at most ``split`` entries
+    each, covering the row's entries once in order; an empty row keeps one
+    item of none, which writes zeros. The items of a row cut into several
+    get consecutive slots (else ``slot`` is -1) and the row a ``merge``
+    entry ``(h, r, first slot, slots)``; ``slots`` counts them all. Items
+    are ordered by their entries, most first (stable), so the longest
+    start first on the card."""
+    items, merge, slots = [], [], 0
+    for h, r in np.ndindex(*cnt.shape):
+        n = int(cnt[h, r])
+        if n <= split:
+            items.append((h, r, 0, n, -1))
+            continue
+        k = -(-n // split)
+        merge.append((h, r, slots, k))
+        items += [(h, r, c * split, min(split, n - c * split), slots + c)
+                  for c in range(k)]
+        slots += k
+    items.sort(key=lambda item: -item[3])
+    return (np.asarray(items, np.int32).reshape(-1, 5),
+            np.asarray(merge, np.int32).reshape(-1, 4), slots)
+
+
+class _Walks(NamedTuple):
+    """The lists one kernel walks, on the device: ``idx``/``cnt`` in the
+    format of ``layout_indices`` and their ``_work_list`` (``longest`` is
+    the most entries an item holds)."""
+    idx: torch.Tensor
+    cnt: torch.Tensor
+    work: torch.Tensor
+    merge: torch.Tensor
+    slots: int
+    longest: int
+
+
+def _walks(layout: np.ndarray, device) -> _Walks:
+    idx, cnt = layout_indices(layout)
+    work, merge, slots = _work_list(cnt)
+    return _Walks(*(torch.from_numpy(a).to(device)
+                    for a in (idx, cnt, work, merge)),
+                  slots, int(work[:, 3].max()))
+
+
 def _indices(layout, causal: bool, device):
-    """``(kv_idx, kv_cnt, q_idx, q_cnt)`` int32 tensors on ``device``: the
-    active key blocks of each query block and the active query blocks of
-    each key block of the (causally cut) layout, in the padded format of
-    ``layout_indices``. Built once per layout, causality and device."""
+    """``(rows, cols)``: the ``_Walks`` of the active key blocks of each
+    query block (forward, dQ) and of the active query blocks of each key
+    block (dK/dV) of the (causally cut) layout. Built once per layout,
+    causality and device."""
     layout = np.asarray(layout)
     key = (np.packbits(layout != 0).tobytes(), layout.shape, bool(causal),
            str(device))
 
     def make():
         cut = _causal_layout(layout, causal)
-        lists = layout_indices(cut) + layout_indices(np.swapaxes(cut, 1, 2))
-        return tuple(torch.from_numpy(a).to(device) for a in lists)
+        return _walks(cut, device), _walks(np.swapaxes(cut, 1, 2), device)
 
     return _cached(_indices_cache, key, make)
 
@@ -206,8 +263,9 @@ def _config_layout(sparsity_config, T: int) -> np.ndarray:
 def _entries():
     lib = _build.load("block_sparse_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # B H T D block A causal scale bf16 stream
-    shape = [I] * 7 + [F, I, P]
+    # B H T D block A causal scale bf16 stream, then the work list:
+    # work n_work merge n_merge max_blocks scratch
+    shape = [I] * 7 + [F, I, P] + [P, I, P, I, I, P]
     fwd = lib.block_sparse_attention_fwd
     fwd.argtypes = [P] * 7 + shape          # q k v idx cnt out lse
     dq = lib.block_sparse_attention_bwd_dq
@@ -263,12 +321,25 @@ def _operand(t, dtype=None):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(fn, name, ptrs, q, block, idx, causal, sm_scale):
+def _launch(fn, name, ptrs, q, block, walks, causal, sm_scale, part_row):
+    """One call of a C entry: its kernel and, for bf16 inputs with split
+    walks, the merge of the split items' fp32 partials, ``part_row``
+    values for each of their 64 rows (forward: O, m and l, D + 2; dQ: D;
+    dK/dV: 2 D), in a scratch of ``torch.empty``."""
     B, T, H, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    scratch = None
+    if bf16 and walks.slots:
+        scratch = torch.empty(walks.slots * (block // SLICE) * B * SLICE
+                              * part_row, dtype=torch.float32,
+                              device=q.device)
     with torch.cuda.device(q.device):
-        rc = fn(*ptrs, B, H, T, D, block, idx.shape[-1], int(causal),
-                float(sm_scale), int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(q.device).cuda_stream)
+        rc = fn(*ptrs, B, H, T, D, block, walks.idx.shape[-1], int(causal),
+                float(sm_scale), int(bf16),
+                torch.cuda.current_stream(q.device).cuda_stream,
+                walks.work.data_ptr(), walks.work.shape[0],
+                walks.merge.data_ptr(), walks.merge.shape[0], walks.longest,
+                None if scratch is None else scratch.data_ptr())
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
@@ -278,9 +349,10 @@ def block_sparse_attention_fwd(q, k, v, layout, block: int,
                                causal: bool = True,
                                sm_scale: Optional[float] = None):
     """Forward pass (K9 fwd): ``(out, lse)``. CUDA tensors launch the
-    kernel and add one to ``block_sparse_attention_fwd.launches``; CPU
-    tensors take ``block_sparse_attention_fwd_plain``; anything else
-    raises."""
+    kernel and add one to ``block_sparse_attention_fwd.launches`` (the
+    merge of split rows runs inside the same call and is not counted
+    apart); CPU tensors take ``block_sparse_attention_fwd_plain``;
+    anything else raises."""
     dev = _check("block_sparse_attention_fwd", (q, k, v), layout, block)
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1] ** 0.5
@@ -288,17 +360,17 @@ def block_sparse_attention_fwd(q, k, v, layout, block: int,
         with torch.no_grad():
             return block_sparse_attention_fwd_plain(q, k, v, layout, block,
                                                     causal, sm_scale)
-    kv_idx, kv_cnt, _, _ = _indices(layout, causal, dev)
+    rows, _ = _indices(layout, causal, dev)
     q, k, v = (_operand(t) for t in (q, k, v))
-    B, T, H, _ = q.shape
+    B, T, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
     _launch(_entries()[0], "block_sparse_attention_fwd",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_idx.data_ptr(),
-             kv_cnt.data_ptr(), out.data_ptr(), lse.data_ptr()),
-            q, block, kv_idx, causal, sm_scale)
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), rows.idx.data_ptr(),
+             rows.cnt.data_ptr(), out.data_ptr(), lse.data_ptr()),
+            q, block, rows, causal, sm_scale, D + 2)
     block_sparse_attention_fwd.launches += 1
     return out, lse
 
@@ -317,8 +389,9 @@ def block_sparse_attention_bwd_dq(q, k, v, out, lse, dout, layout,
                                   sm_scale: Optional[float] = None,
                                   delta=None):
     """dQ (K9 dq). CUDA tensors launch the kernel and add one to
-    ``block_sparse_attention_bwd_dq.launches``; CPU tensors take the plain
-    version; anything else raises. ``delta`` may pass ``rowsum(dO * O)``
+    ``block_sparse_attention_bwd_dq.launches`` (with the merge of split
+    rows inside the same call); CPU tensors take the plain version;
+    anything else raises. ``delta`` may pass ``rowsum(dO * O)``
     (fp32 ``[B, H, T]``) when the caller has it."""
     dev = _check("block_sparse_attention_bwd_dq", (q, k, v, out, lse, dout),
                  layout, block)
@@ -327,16 +400,16 @@ def block_sparse_attention_bwd_dq(q, k, v, out, lse, dout, layout,
     if dev.type == "cpu":
         return block_sparse_attention_bwd_dq_plain(
             q, k, v, out, lse, dout, layout, block, causal, sm_scale)
-    kv_idx, kv_cnt, _, _ = _indices(layout, causal, dev)
+    rows, _ = _indices(layout, causal, dev)
     q, k, v, dout, lse, delta = _bwd_operands(q, k, v, out, lse, dout, delta)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
     _launch(_entries()[1], "block_sparse_attention_bwd_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), kv_idx.data_ptr(),
-             kv_cnt.data_ptr(), dq.data_ptr()),
-            q, block, kv_idx, causal, sm_scale)
+             lse.data_ptr(), delta.data_ptr(), rows.idx.data_ptr(),
+             rows.cnt.data_ptr(), dq.data_ptr()),
+            q, block, rows, causal, sm_scale, q.shape[-1])
     block_sparse_attention_bwd_dq.launches += 1
     return dq
 
@@ -348,8 +421,9 @@ def block_sparse_attention_bwd_dkv(q, k, v, out, lse, dout, layout,
     """``(dk, dv)`` (K9 dkv), over the transposed active lists. CUDA
     tensors launch the kernel and add one to
     ``block_sparse_attention_bwd_dkv.launches``; CPU tensors take the plain
-    version; anything else raises. ``delta`` may pass a ``rowsum(dO * O)``
-    already computed for the dQ kernel."""
+    version; anything else raises. The merge of split columns runs inside
+    the same call. ``delta`` may pass a ``rowsum(dO * O)`` already computed
+    for the dQ kernel."""
     dev = _check("block_sparse_attention_bwd_dkv", (q, k, v, out, lse, dout),
                  layout, block)
     if sm_scale is None:
@@ -357,16 +431,16 @@ def block_sparse_attention_bwd_dkv(q, k, v, out, lse, dout, layout,
     if dev.type == "cpu":
         return block_sparse_attention_bwd_dkv_plain(
             q, k, v, out, lse, dout, layout, block, causal, sm_scale)
-    _, _, q_idx, q_cnt = _indices(layout, causal, dev)
+    _, cols = _indices(layout, causal, dev)
     q, k, v, dout, lse, delta = _bwd_operands(q, k, v, out, lse, dout, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
     _launch(_entries()[2], "block_sparse_attention_bwd_dkv",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), q_idx.data_ptr(),
-             q_cnt.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            q, block, q_idx, causal, sm_scale)
+             lse.data_ptr(), delta.data_ptr(), cols.idx.data_ptr(),
+             cols.cnt.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            q, block, cols, causal, sm_scale, 2 * q.shape[-1])
     block_sparse_attention_bwd_dkv.launches += 1
     return dk, dv
 

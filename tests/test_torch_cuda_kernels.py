@@ -411,14 +411,20 @@ def test_masked_flash_kernel_matches_plain(cuda, dtype, D, Hkv, G, T, window,
         fa.flash_attention(q.requires_grad_(), k, v, key_mask=mask)
 
 
+def _bigbird(H, block):
+    return BigBirdSparsityConfig(num_heads=H, block=block,
+                                 num_random_blocks=1,
+                                 num_sliding_window_blocks=3,
+                                 num_global_blocks=1)
+
+
 def _sparse_layout(name, H, block, T):
     cfg = {
         "bslongformer": lambda: BSLongformerSparsityConfig(
             num_heads=H, block=block, num_sliding_window_blocks=3,
             global_block_indices=[0]),
-        "bigbird": lambda: BigBirdSparsityConfig(
-            num_heads=H, block=block, num_random_blocks=1,
-            num_sliding_window_blocks=3, num_global_blocks=1),
+        "bigbird": lambda: _bigbird(H, block),
+        "bigbird_split": lambda: _bigbird(H, block),
         "fixed_per_head": lambda: FixedSparsityConfig(
             num_heads=H, block=block, num_local_blocks=2, num_global_blocks=1,
             different_layout_per_head=True, num_different_global_patterns=2),
@@ -432,17 +438,24 @@ def _sparse_layout(name, H, block, T):
 @pytest.mark.parametrize("block", [64, 128])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("name", ["bslongformer", "bigbird",
-                                  "fixed_per_head"])
+                                  "fixed_per_head", "bigbird_split"])
 def test_block_sparse_kernels_match_plain(cuda, dtype, D, block, causal,
                                           name):
     """K9 forward, dQ and dK/dV against their plain versions on the same
     inputs (the backward ones from the kernel's out and lse). Non-causal
     BigBird has global rows and columns of degree nb; the per-head Fixed
-    layout differs between heads. Tolerance: fp32 2e-5, bf16 as K1's."""
-    B, H, T = 2, 3, 8 * block
+    layout differs between heads. ``bigbird_split`` is BigBird at nb =
+    4 C (C = ``SPLIT_BLOCKS``): its global row and column are cut into
+    work items whose partials the bf16 kernels merge. Tolerance: fp32
+    2e-5, bf16 as K1's."""
+    nb = 4 * bsa.SPLIT_BLOCKS if name == "bigbird_split" else 8
+    B, H, T = 2, 3, nb * block
     layout = _sparse_layout(name, H, block, T)
     if causal:
         layout = layout * np.tril(np.ones(layout.shape[1:], np.int64))
+    if name == "bigbird_split":
+        rows, cols = bsa._indices(layout, causal, cuda)
+        assert rows.slots > 0 and cols.slots > 0
     g = torch.Generator(device=cuda).manual_seed(D + block + int(causal))
     q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=cuda,
                                dtype=dtype) for _ in range(4))
@@ -469,6 +482,33 @@ def test_block_sparse_kernels_match_plain(cuda, dtype, D, block, causal,
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
     for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block", [64, 128])
+def test_block_sparse_kernels_are_deterministic(cuda, D, block):
+    """Two runs of the bf16 fwd, dq and dkv kernels on split walks
+    (non-causal BigBird at nb = 4 C) give bitwise equal outputs: the split
+    items write their own partials and the merge sums them in a fixed
+    order, with no atomics."""
+    T = 4 * bsa.SPLIT_BLOCKS * block
+    layout = _sparse_layout("bigbird", 2, block, T)
+    g = torch.Generator(device=cuda).manual_seed(D + block)
+    q, k, v, do = (torch.randn(1, T, 2, D, generator=g, device=cuda,
+                               dtype=torch.bfloat16) for _ in range(4))
+
+    def run():
+        out, lse = bsa.block_sparse_attention_fwd(q, k, v, layout, block,
+                                                  False)
+        dq = bsa.block_sparse_attention_bwd_dq(q, k, v, out, lse, do, layout,
+                                               block, False)
+        return (out, lse, dq) + bsa.block_sparse_attention_bwd_dkv(
+            q, k, v, out, lse, do, layout, block, False)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("out", "lse", "dq", "dk", "dv")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])

@@ -103,3 +103,27 @@ def test_kernel_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["ragged_attention"])
+
+
+def test_build_target_changes_with_a_shared_header(monkeypatch, tmp_path):
+    """A kernel's library name is a digest of its source and of every
+    ``csrc/*.cuh`` header, so an edited header never loads a stale build
+    (no nvcc needed: only the name is computed)."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "kern.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "shared.cuh").write_text("// first\n")
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD", str(build))
+    assert _build.sources() == ["kern"]
+    names = [_build._target("kern")]
+    (csrc / "shared.cuh").write_text("// second\n")
+    names.append(_build._target("kern"))
+    (csrc / "kern.cu").write_text('#include "shared.cuh"\n// edited\n')
+    names.append(_build._target("kern"))
+    (csrc / "other.cuh").write_text("// a new header\n")
+    names.append(_build._target("kern"))
+    assert len(set(names)) == 4
+    assert all(os.path.dirname(n) == str(build) for n in names)
+    (csrc / "other.cuh").unlink()
+    assert _build._target("kern") == names[2]
