@@ -27,9 +27,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    prompt (B 1, T 1024); K3 fused Adam over the whole Llama-400M parameter list; K4
    decode attention at the generate step's shapes (B 8, H 32, Hkv 8,
    D 128, cache 576, bf16, left-padded key masks) and an int8 cache, a
-   window and an fp32 case; K5 quantized matmul at Llama-3-8B projection
-   shapes (decode M 8 and prefill M 4096, int8 per-column and int4 group
-   64) plus fp32 and ragged cases; K8 per-column int8 matmul; K9
+   window, an fp32 case and caches of 2048 and 8192 (each with its split
+   count); K5 quantized matmul at Llama-3-8B projection shapes (decode
+   M 8 and prefill M 4096 at the q, up and down shapes, int8 per-column
+   and int4 group 64) plus fp32 and ragged cases, each with the kernel
+   route it took; K8 per-column int8 matmul (decode, q and up prefill); K9
    block-sparse attention forward, dQ and dK/dV at the long-context
    path's main shape (B 1, T 16384, H 32, D 128, bf16, causal, block 128,
    BSLongformer and BigBird, the plain versions head by head) and at
@@ -64,8 +66,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    once with bf16 weights, once with quantize_weights="int8" and once
    with bf16 weights and prefill_flash_from_empty; asserts the output
    shape, finite logits, K4 launched 32 x 63 times, with int8 weights K5
-   launched 7 x 32 x 64 times, and with the flag the masked K1 launched
-   32 times;
+   launched 7 x 32 x 64 times (7 x 32 of them, the prefill's, on the
+   wgmma kernel), and with the flag the masked K1 launched 32 times;
 7. train: initialize + train_batch on full-width Llama-400M (random
    weights from seed 0, all 24 layers), the JAX package's bench config
    (batch 8 x 1024, AdamW, bf16, clipping 1.0), 2 warm-up and 10 timed
@@ -1197,6 +1199,11 @@ DECODE_CASES = {
     "window256_c575": (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D,
                        torch.bfloat16, False, 256, 575),
     "fp32_d64_g1_c777": (4, 8, 8, 1000, 64, torch.float32, False, None, 777),
+    # longer caches, the cache index near their end
+    "c2040_s2048": (GEN_B, H, HKV, 2048, D, torch.bfloat16, False, None,
+                    2040),
+    "c8180_s8192": (GEN_B, H, HKV, 8192, D, torch.bfloat16, False, None,
+                    8180),
 }
 
 
@@ -1245,7 +1252,7 @@ def check_decode_attention():
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain)
+        _sm_count, decode_attention, decode_attention_plain, decode_splits)
 
     results = {}
     for name, (B, Hq, Hkv, S, Dh, dtype, int8, window, cidx) in \
@@ -1282,9 +1289,11 @@ def check_decode_attention():
         results[name] = dict(max_abs_err=float(err.max()), ms=ms,
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              library_ms=library_ms)
+        splits = decode_splits(B, Hkv, S, _sm_count(0))
         log(f"parity decode_attention {name} (B {B} H {Hq} Hkv {Hkv} S {S} "
             f"D {Dh} {str(dtype)[6:]} int8 {int8} window {window} "
-            f"cache_index {cidx}): ok max_abs_err={float(err.max()):.3e} "
+            f"cache_index {cidx}, {splits} splits): ok max_abs_err="
+            f"{float(err.max()):.3e} "
             f"(tolerance {rtol:g}*|plain|+{atol:g}) | kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.3f} bound_ms={bms:.4f} ({by}) "
             f"library_ms={library_ms}")
@@ -1299,6 +1308,7 @@ def check_decode_attention():
 # Llama-3-8B projections: gate/up (4096 -> 14336), down (14336 -> 4096),
 # q/o (4096 -> 4096); decode M = batch 8, prefill M = 8 x 512
 QUANT_MAIN = "decode_up_int8"
+QUANT_PREFILL_MAIN = "prefill_q_int8"
 QUANT_CASES = {
     # name: (M, K, N, mode, group, dtype)
     "decode_up_int8": (8, 4096, 14336, "int8", 0, torch.bfloat16),
@@ -1307,6 +1317,9 @@ QUANT_CASES = {
     "decode_down_int4g64": (8, 14336, 4096, "int4", 64, torch.bfloat16),
     "prefill_q_int8": (4096, 4096, 4096, "int8", 0, torch.bfloat16),
     "prefill_q_int4g64": (4096, 4096, 4096, "int4", 64, torch.bfloat16),
+    "prefill_up_int8": (4096, 4096, 14336, "int8", 0, torch.bfloat16),
+    "prefill_down_int8": (4096, 14336, 4096, "int8", 0, torch.bfloat16),
+    "prefill_up_int4g64": (4096, 4096, 14336, "int4", 64, torch.bfloat16),
     "fp32_m8_int4g64": (8, 4096, 4096, "int4", 64, torch.float32),
     "fp32_m300_int8g128": (300, 4096, 1024, "int8", 128, torch.float32),
     "ragged_m8_int4g8": (8, 264, 1000, "int4", 8, torch.bfloat16),
@@ -1317,6 +1330,7 @@ INT8_COL_CASES = {
     # name: (M, K, N, dtype)
     "decode_up": (8, 4096, 14336, torch.bfloat16),
     "prefill_q": (4096, 4096, 4096, torch.bfloat16),
+    "prefill_up": (4096, 4096, 14336, torch.bfloat16),
     "ragged_m37_fp32": (37, 264, 1000, torch.float32),
 }
 
@@ -1370,7 +1384,8 @@ def check_quant_matmul():
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              library_ms=library_ms)
         log(f"parity quant_matmul {name} (M {M} K {K} N {N} {mode} group "
-            f"{K // scale.shape[0]} {str(dtype)[6:]}): ok max_abs_err="
+            f"{K // scale.shape[0]} {str(dtype)[6:]}, route "
+            f"{qm.kernel_route(M, K, N, dtype)}): ok max_abs_err="
             f"{float(err.max()):.3e} (tolerance {rel:g}*|plain|+1e-5*"
             f"(|x|@|W|)) | kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
             f"bound_ms={bms:.4f} ({by}) library_ms={library_ms:.4f} "
@@ -1404,7 +1419,8 @@ def check_quant_matmul():
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=library_ms)
         log(f"parity int8_matmul {name} (M {M} K {K} N {N} "
-            f"{str(dtype)[6:]}): ok max_abs_err={float(err.max()):.3e} | "
+            f"{str(dtype)[6:]}, route {qm.kernel_route(M, K, N, dtype)}): ok "
+            f"max_abs_err={float(err.max()):.3e} | "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
             f"{bms:.4f} ({by}) library_ms={library_ms:.4f}")
         del x, codes, scale, got, ref, wd
@@ -1650,8 +1666,8 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     engine's first-use costs, the second's time is the prefill's), then
     the counted ``generate``: the kernel counts are set to 0 just before
     it. Returns the tokens, the engine, the prefill and total seconds, the
-    launches of K4, K5 and the masked K1 in the counted run, and whether
-    every logit of it was finite."""
+    launches of K4, K5, the masked K1 and K5's wgmma prefill kernel in the
+    counted run, and whether every logit of it was finite."""
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import LlamaForCausalLM
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
@@ -1674,7 +1690,7 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     engine.generate(ids, attention_mask=mask, max_new_tokens=1)
     finite.clear()
     decode_attention.launches = quant_matmul.launches = 0
-    flash_attention_fwd_masked.launches = 0
+    flash_attention_fwd_masked.launches = quant_matmul.wgmma_launches = 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out = engine.generate(ids, attention_mask=mask,
@@ -1682,7 +1698,7 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     prefill_s, total_s = engine.model_times()
     return out, engine, prefill_s, total_s, \
         (decode_attention.launches, quant_matmul.launches,
-         flash_attention_fwd_masked.launches), \
+         flash_attention_fwd_masked.launches, quant_matmul.wgmma_launches), \
         bool(torch.stack(finite).all())
 
 
@@ -1719,11 +1735,13 @@ def check_small_generate_reference(device="cuda"):
         ok = got["kernel"][0] == got["plain"][0] and got["kernel"][2] and \
             got["kernel"][1][0] > 0 and \
             (got["kernel"][1][1] > 0) == quant and \
-            got["kernel"][1][2] == flash and got["plain"][1] == (0, 0, 0)
+            got["kernel"][1][2] == flash and \
+            got["plain"][1] == (0, 0, 0, 0)
         log(f"reference: 2-layer fp32 model generate {name}, kernels vs "
             f"plain versions, 4 prompts x 24 tokens: tokens identical="
             f"{got['kernel'][0] == got['plain'][0]} ok={ok} (K4, K5, masked "
-            f"K1 launches {got['kernel'][1]} / {got['plain'][1]})")
+            f"K1, wgmma K5 launches {got['kernel'][1]} / "
+            f"{got['plain'][1]})")
         if not ok:
             raise AssertionError(f"small generate {name}: kernels and plain "
                                  f"versions disagree or a route launched "
@@ -1746,7 +1764,7 @@ def check_generate():
     for weights, flash in ((None, False), ("int8", False), (None, True)):
         cfg = LlamaConfig.llama3_8b(prefill_flash_from_empty=flash)
         t = time.perf_counter()
-        out, engine, prefill_s, total_s, (k4, k5, k1m), finite = \
+        out, engine, prefill_s, total_s, (k4, k5, k1m, k5w), finite = \
             generate_run(cfg, torch.bfloat16, weights, ids, mask, GEN_NEW)
         setup = time.perf_counter() - t - prefill_s - total_s
         decode_ms = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
@@ -1758,22 +1776,24 @@ def check_generate():
             f"decode step {decode_ms:.3f} ms, total {1e3 * total_s:.2f} ms "
             f"= {GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
             f"{peak:.1f} GiB, setup {setup:.1f} s, launches K4 {k4} K5 {k5} "
-            f"masked K1 {k1m}, quant {engine.quant_summary or None}")
+            f"(wgmma prefill {k5w}) masked K1 {k1m}, quant "
+            f"{engine.quant_summary or None}")
+        # K5's prefill: the 7 projections of each layer on the wgmma kernel
         want = (L * (GEN_NEW - 1), 7 * L * GEN_NEW if weights else 0,
-                L if flash else 0)
+                L if flash else 0, 7 * L if weights else 0)
         problems = []
         if tuple(out.shape) != (GEN_B, GEN_NEW):
             problems.append(f"output shape {tuple(out.shape)}")
         if not finite:
             problems.append("a logit is not finite")
-        if (k4, k5, k1m) != want:
-            problems.append(f"launches K4, K5, masked K1 {(k4, k5, k1m)} "
-                            f"!= {want}")
+        if (k4, k5, k1m, k5w) != want:
+            problems.append(f"launches K4, K5, masked K1, wgmma K5 "
+                            f"{(k4, k5, k1m, k5w)} != {want}")
         if problems:
             raise AssertionError(f"generate ({weights or 'bf16'}, flash "
                                  f"{flash}): " + "; ".join(problems))
         launches[(weights or "bf16") + ("_flash" if flash else "")] = \
-            (k4, k5, k1m)
+            (k4, k5, k1m, k5w)
         del out, engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -2149,12 +2169,15 @@ def main() -> int:
         replaces="deepspeed_tpu/ops/pallas/fused_adam.py:37",
         launches=train_launches["fused_adam"], **adam))
     # K4 and K5: launches of the int8-weight 8B generate (K4 runs the same
-    # count in the bf16 run); K8 has no path to run on
+    # count in the bf16 run; K5's prefill kernel, wgmma_prefill_kernel, is
+    # its own entry at the prefill shape); K8 has no path to run on
     for name, csrc, replaces, results, main_name, launches in (
             ("decode_attention", "decode_attention", "decode_attention.py:36",
              decode, DECODE_MAIN, gen_launches["int8"][0]),
             ("quant_matmul", "quant_matmul", "quant_matmul.py:151", quant,
              QUANT_MAIN, gen_launches["int8"][1]),
+            ("quant_matmul_prefill", "quant_matmul", "quant_matmul.py:151",
+             quant, QUANT_PREFILL_MAIN, gen_launches["int8"][3]),
             ("int8_matmul", "quant_matmul", "int8_matmul.py:41", int8_col,
              INT8_COL_MAIN, 0)):
         kernels.append(dict(

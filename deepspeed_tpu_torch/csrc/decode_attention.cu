@@ -1,6 +1,7 @@
 // One-position attention over the contiguous KV cache, hand-written for
-// Hopper (sm_90a). Built by deepspeed_tpu_torch/ops/_build.py with nvcc and
-// called through ctypes from deepspeed_tpu_torch/ops/decode_attention.py.
+// Hopper (sm_90a) as split-key flash-decoding. Built by
+// deepspeed_tpu_torch/ops/_build.py with nvcc and called through ctypes
+// from deepspeed_tpu_torch/ops/decode_attention.py.
 //
 // Replaces the TPU kernel
 //   deepspeed_tpu/ops/pallas/decode_attention.py::_decode_kernel
@@ -9,36 +10,52 @@
 // scales [B, Hkv, S]); query head kvh*G + g reads kv head kvh. Key j is
 // visible iff j <= cache_index, j < S, key_mask[b, j] > 0 and, with a
 // window, cache_index - j < window. Softmax runs in fp32; a row that sees
-// no key returns zeros. cache_index is a device int32 scalar, read by the
-// kernel (the TPU kernel prefetches it), so the launch does not depend on
-// its value.
+// no key returns zeros, and a masked key's V never reaches a sum.
 //
-// Bound: bytes. A decode step reads each row's filled K/V prefix once
-// (plus scales and the mask) for about 4*G flops per K/V element, far
-// below the card's ridge, so the floor is those bytes over 3.35 TB/s.
+// Bound: bytes. A decode step reads each row's visible K/V (plus scales
+// and the mask) once for about 4*G flops per K/V element, far below the
+// card's ridge, so the floor is those bytes over 3.35 TB/s, and the aim
+// is loads in flight on every SM.
 //
 // What the design does about it:
-// - one block per (batch row, kv head); the TPU grid's sequential key
-//   axis and its m/l/acc scratch become a loop over 64-key tiles inside
-//   the block, with the running max and sum in shared memory and the
-//   accumulator in registers;
-// - the loop visits only the tiles of the filled prefix (and, with a
-//   window, only those inside it), so the bytes grow with the real length,
-//   not the cache's capacity;
-// - each K/V tile is loaded once, through a 2-stage cp.async ring, and
-//   shared by the G query heads of its kv head (G = 4 on Llama-3-8B); an
-//   int8 cache is read as int8 and dequantized in shared memory;
-// - masked keys are skipped in the P.V sum (their V is never read into a
-//   sum), so stale or non-finite values under the mask cannot leak.
-// Limits of this first version: at B 8 x Hkv 8 the grid is 64 blocks on
-// 132 SMs, and one block streams a whole row, so long caches leave the card
-// short of loads in flight; splitting S across blocks (flash-decoding) is
-// the next step. Compute is fp32 FMA on CUDA cores.
+// - The key axis is cut into `splits` ranges of whole 64-key tiles, one
+//   block per (row, kv head, split): grid (B, Hkv, splits). The wrapper
+//   picks the split count from S (the cache's capacity) and the card's SM
+//   count, never from cache_index, which stays a device scalar that each
+//   block reads: the launch does not depend on its value, so a decode
+//   step can be captured in a CUDA graph. A split wholly past
+//   cache_index, outside the window or fully masked writes an empty
+//   partial (m = -inf, l = 0) and exits; the others walk only their
+//   visible tiles.
+// - Each split writes an fp32 partial (running max m in log2 units, sum
+//   l, unnormalised accumulator) per query head; decode_merge_kernel,
+//   launched by the same C call, combines them through their lse in split
+//   order (no atomics: bitwise deterministic) and writes zeros for a row
+//   no split saw.
+// - Inside a split K/V tiles are read as stored (bf16, fp32 or int8) from
+//   a 2-stage cp.async ring, with no converted copy.
+// - bf16 q over a bf16 cache (the generate path) runs
+//   decode_tc_split_kernel on
+//   the tensor cores: mma.sync m16n8k16 with the G query rows padded to
+//   16; warp w takes keys 16w..16w+15 of every tile with its own running
+//   max, sum and accumulator, and the four warps merge at the end. P is
+//   split into bf16(P) + bf16(P - bf16(P)) and both halves go through
+//   P.V, so the product keeps about 16 bits of P (the plain version
+//   multiplies fp32 P); V rows of masked keys are zeroed in shared memory
+//   before P.V. exp2 is ex2.approx, with the scale folded into log2 units.
+// - fp32 q, or an int8 cache, runs decode_split_kernel on CUDA cores in
+//   exact fp32 FMA (the fp32 tolerance is 1e-5): the scores map (query head,
+//   key) pairs of the real G onto all threads, each reading its key's row
+//   from the ring (rows padded by 16 bytes, so 8 threads on 8 keys hit
+//   distinct banks); int8 codes are multiplied by their per-key scale
+//   after the dot (K) or before P.V (V).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -46,6 +63,7 @@ constexpr int THREADS = 128;
 constexpr int BK = 64;      // keys per tile
 constexpr int MAXG = 8;     // query heads per kv head
 constexpr int NSTAGE = 2;   // tiles in flight
+constexpr int MERGE_THREADS = 128;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -58,27 +76,6 @@ __device__ __forceinline__ float to_float(int8_t x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -102,57 +99,89 @@ struct Params {
   const int* mask;
   const int* cidx;
   void* out;
+  float* part_o;   // [B, H, splits, D] unnormalised accumulators
+  float* part_ml;  // [B, H, splits, 2]: m (log2 units), l
   int B, H, Hkv, S, G, window;  // window <= 0: no window
-  float sm_scale;
+  int splits, per;              // per: tiles of one split
+  float sl2;                    // sm_scale * log2(e)
 };
+
+// The split's visible key range [lo, hi] and its tiles [t0, t1); t0 >= t1
+// when it sees nothing.
+struct Range {
+  int lo, hi, t0, t1;
+};
+
+__device__ __forceinline__ Range split_range(const Params& p) {
+  const int cidx = *p.cidx;
+  Range r;
+  r.hi = min(cidx, p.S - 1);
+  r.lo = p.window > 0 ? max(0, cidx - p.window + 1) : 0;
+  const int s = blockIdx.z;
+  r.t0 = max(s * p.per, r.lo / BK);
+  r.t1 = r.hi >= r.lo ? min((s + 1) * p.per, r.hi / BK + 1) : 0;
+  return r;
+}
+
+__device__ __forceinline__ size_t part_row(const Params& p, int b, int h) {
+  return (static_cast<size_t>(b) * p.H + h) * p.splits + blockIdx.z;
+}
+
+// the G rows of an empty split: m = -inf, l = 0 (the merge skips them)
+__device__ __forceinline__ void empty_partial(const Params& p, int b,
+                                              int kvh) {
+  if (threadIdx.x < p.G) {
+    float* ml = p.part_ml + 2 * part_row(p, b, kvh * p.G + threadIdx.x);
+    ml[0] = -INFINITY;
+    ml[1] = 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core split: fp32 q and cache, or an int8 cache
+// ---------------------------------------------------------------------------
 
 template <typename KT, int D>
 struct Layout {
   static constexpr bool INT8 = sizeof(KT) == 1;
-  static constexpr int DP = D + 4;  // padded fp32 row: float4 reads by 8
-                                    // threads on 8 rows hit distinct banks
-  static constexpr int TILE_BYTES = BK * D * sizeof(KT);
-  static constexpr int SCALE_BYTES = INT8 ? BK * 4 : 0;
+  static constexpr int RS = D * sizeof(KT) + 16;  // padded ring row, bytes
+  static constexpr int TILE = BK * RS;
+  static constexpr int SCALES = INT8 ? BK * 4 : 0;
   // stage: K tile | V tile | k scales | v scales | mask
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * SCALE_BYTES + BK * 4;
-  static constexpr int QF = 0;                          // float [MAXG][DP]
-  static constexpr int KF = QF + MAXG * DP * 4;         // float [BK][DP]
-  static constexpr int VF = KF + BK * DP * 4;           // float [BK][D]
-  static constexpr int SP = VF + BK * D * 4;            // float [MAXG][BK+1]
-  static constexpr int MRUN = SP + MAXG * (BK + 1) * 4;  // float [MAXG]
+  static constexpr int STAGE = 2 * TILE + 2 * SCALES + BK * 4;
+  static constexpr int QF = 0;                          // float [MAXG][D]
+  static constexpr int SP = QF + MAXG * D * 4;          // float [MAXG][BK]
+  static constexpr int MRUN = SP + MAXG * BK * 4;       // float [MAXG]
   static constexpr int LRUN = MRUN + MAXG * 4;          // float [MAXG]
   static constexpr int ALPHA = LRUN + MAXG * 4;         // float [MAXG]
   static constexpr int VALID = ALPHA + MAXG * 4;        // int [BK]
   static constexpr int RING = (VALID + BK * 4 + 15) / 16 * 16;
-  static constexpr int BYTES = RING + NSTAGE * STAGE_BYTES;
-  static_assert(STAGE_BYTES % 16 == 0, "stage size must keep alignment");
-  static_assert(BYTES <= 227 * 1024, "shared memory of one block");
+  static constexpr int BYTES = RING + NSTAGE * STAGE;
+  static_assert(STAGE % 16 == 0, "stage size must keep alignment");
+  static_assert(BYTES <= MAX_SMEM, "shared memory of one block");
 };
 
 template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
+__global__ void __launch_bounds__(THREADS) decode_split_kernel(Params p) {
   using L = Layout<KT, D>;
-  constexpr int DP = L::DP;
-  constexpr int NRG = THREADS / D;    // row groups in P.V (1 or 2)
-  constexpr int RPT = MAXG / NRG;     // rows per thread in P.V
-  constexpr int SRG = THREADS / BK;   // row groups in the scores (2)
+  constexpr int NRG = THREADS / D;  // row groups in P.V (1 or 2)
+  constexpr int RPT = MAXG / NRG;   // rows per thread in P.V
 
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int tid = threadIdx.x;
   const int G = p.G;
   const int S = p.S;
-  const int cidx = *p.cidx;
-  const int hi = min(cidx, S - 1);
-  const int lo = p.window > 0 ? max(0, cidx - p.window + 1) : 0;
-  const int tile_lo = lo / BK;
-  const int ntiles = hi >= lo ? hi / BK - tile_lo + 1 : 0;
+  const Range rg = split_range(p);
+  if (rg.t0 >= rg.t1) {
+    empty_partial(p, b, kvh);
+    return;
+  }
+  const int ntiles = rg.t1 - rg.t0;
   const size_t head = static_cast<size_t>(b) * p.Hkv + kvh;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* qf = reinterpret_cast<float*>(smem + L::QF);
-  float* kf = reinterpret_cast<float*>(smem + L::KF);
-  float* vf = reinterpret_cast<float*>(smem + L::VF);
   float* sp = reinterpret_cast<float*>(smem + L::SP);
   float* m_run = reinterpret_cast<float*>(smem + L::MRUN);
   float* l_run = reinterpret_cast<float*>(smem + L::LRUN);
@@ -160,121 +189,115 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   int* valid_s = reinterpret_cast<int*>(smem + L::VALID);
   unsigned char* ring = smem + L::RING;
 
+  // tile i of the split -> stage i % NSTAGE; rows past S read as zeros
   auto issue = [&](int i) {
-    unsigned char* st = ring + (i % NSTAGE) * L::STAGE_BYTES;
-    const int kv0 = (tile_lo + i) * BK;
-    const int nrows = min(BK, S - kv0);
+    unsigned char* st = ring + (i % NSTAGE) * L::STAGE;
+    const int kv0 = (rg.t0 + i) * BK;
     const size_t row0 = head * S + kv0;
+    constexpr int CH = D * sizeof(KT) / 16;  // 16-byte chunks of a row
     const unsigned char* kg =
         static_cast<const unsigned char*>(p.k) + row0 * D * sizeof(KT);
     const unsigned char* vg =
         static_cast<const unsigned char*>(p.v) + row0 * D * sizeof(KT);
-    const int chunks = nrows * D * static_cast<int>(sizeof(KT)) / 16;
-    for (int c = tid; c < chunks; c += THREADS) {
-      cp_async16(st + c * 16, kg + c * 16);
-      cp_async16(st + L::TILE_BYTES + c * 16, vg + c * 16);
+    for (int c = tid; c < BK * CH; c += THREADS) {
+      const int r = c / CH;
+      const int off = r * L::RS + (c % CH) * 16;
+      const bool in = kv0 + r < S;
+      const size_t src = in ? static_cast<size_t>(c) * 16 : 0;
+      cp16(saddr(st + off), kg + src, in);
+      cp16(saddr(st + L::TILE + off), vg + src, in);
     }
-    unsigned char* tail = st + 2 * L::TILE_BYTES;
-    if (tid < nrows) {
+    unsigned char* tail = st + 2 * L::TILE;
+    if (tid < BK) {
+      const bool in = kv0 + tid < S;
       if (L::INT8) {
-        cp_async4(tail + tid * 4, p.ks + row0 + tid);
-        cp_async4(tail + L::SCALE_BYTES + tid * 4, p.vs + row0 + tid);
+        cp4(saddr(tail + tid * 4), p.ks + row0 + (in ? tid : 0), in);
+        cp4(saddr(tail + L::SCALES + tid * 4), p.vs + row0 + (in ? tid : 0),
+            in);
       }
-      cp_async4(tail + 2 * L::SCALE_BYTES + tid * 4,
-                p.mask + static_cast<size_t>(b) * S + kv0 + tid);
+      cp4(saddr(tail + 2 * L::SCALES + tid * 4),
+          p.mask + static_cast<size_t>(b) * S + kv0 + (in ? tid : 0), in);
     }
   };
 
-  if (ntiles > 0) issue(0);
-  cp_async_commit();
+  issue(0);
+  cp_commit();
 
   // the G query rows of this kv head -> fp32 shared rows
   const QT* q = static_cast<const QT*>(p.q);
-  for (int e = tid; e < MAXG * D; e += THREADS) {
-    const int g = e / D;
-    const int c = e % D;
-    qf[g * DP + c] =
-        g < G ? to_float(q[(static_cast<size_t>(b) * p.H + kvh * G + g) * D + c])
-              : 0.f;
-  }
+  for (int e = tid; e < G * D; e += THREADS)
+    qf[e] = to_float(q[(static_cast<size_t>(b) * p.H + kvh * G) * D + e]);
   if (tid < MAXG) {
     m_run[tid] = -INFINITY;
     l_run[tid] = 0.f;
   }
 
-  // P.V mapping: column c for rows rg + NRG * i
+  // P.V mapping: column c for rows rgp + NRG * a
   const int c = tid % D;
-  const int rg = tid / D;
+  const int rgp = tid / D;
   float acc[RPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-  // score mapping: key j for rows sr + SRG * i
-  const int j = tid % BK;
-  const int sr = tid / BK;
+  for (int a = 0; a < RPT; ++a) acc[a] = 0.f;
 
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) issue(i + 1);
-    cp_async_commit();
-    cp_async_wait<NSTAGE - 1>();
+    cp_commit();
+    cp_wait<NSTAGE - 1>();
     __syncthreads();  // tile i landed; the last tile's P.V is done
 
-    const unsigned char* st = ring + (i % NSTAGE) * L::STAGE_BYTES;
-    const KT* kr = reinterpret_cast<const KT*>(st);
-    const KT* vr = reinterpret_cast<const KT*>(st + L::TILE_BYTES);
-    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::TILE_BYTES);
+    const unsigned char* st = ring + (i % NSTAGE) * L::STAGE;
+    const unsigned char* kr = st;
+    const unsigned char* vr = st + L::TILE;
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::TILE);
     const float* vsc = ksc + BK;
-    const int* msk = reinterpret_cast<const int*>(st + 2 * L::TILE_BYTES +
-                                                  2 * L::SCALE_BYTES);
-    const int kv0 = (tile_lo + i) * BK;
+    const int* msk =
+        reinterpret_cast<const int*>(st + 2 * L::TILE + 2 * L::SCALES);
+    const int kv0 = (rg.t0 + i) * BK;
     if (tid < BK) {
       const int key = kv0 + tid;
-      valid_s[tid] = key >= lo && key <= hi && msk[tid] > 0;
+      valid_s[tid] = key >= rg.lo && key <= rg.hi && msk[tid] > 0;
     }
     __syncthreads();
 
-    // raw tile -> fp32 K/V rows (int8: times the per-key scale); keys that
-    // are not visible become zeros and are never read from the ring
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int key = e / D;
-      const int col = e % D;
-      float kx = 0.f, vx = 0.f;
-      if (valid_s[key]) {
-        kx = to_float(kr[e]);
-        vx = to_float(vr[e]);
+    // scores in log2 units over (query head, key) pairs; keys that are
+    // not visible get -inf
+    for (int e = tid; e < G * BK; e += THREADS) {
+      const int g = e / BK;
+      const int j = e % BK;
+      float s = -INFINITY;
+      if (valid_s[j]) {
+        const float* qg = qf + g * D;
+        float dot = 0.f;
         if (L::INT8) {
-          kx *= ksc[key];
-          vx *= vsc[key];
-        }
-      }
-      kf[key * DP + col] = kx;
-      vf[key * D + col] = vx;
-    }
-    __syncthreads();
-
-    // masked scores S = (q . k) * sm_scale
-    {
-      float s[MAXG / SRG];
-#pragma unroll
-      for (int a = 0; a < MAXG / SRG; ++a) s[a] = 0.f;
-      const float4* k4 = reinterpret_cast<const float4*>(kf + j * DP);
+          const uint4* k16 = reinterpret_cast<const uint4*>(kr + j * L::RS);
 #pragma unroll 4
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kx = k4[d4];
+          for (int d16 = 0; d16 < D / 16; ++d16) {
+            const uint4 w = k16[d16];
+            const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-        for (int a = 0; a < MAXG / SRG; ++a) {
-          const int g = sr + SRG * a;
-          if (g < G) {
-            const float4 qx = reinterpret_cast<const float4*>(qf + g * DP)[d4];
-            s[a] += qx.x * kx.x + qx.y * kx.y + qx.z * kx.z + qx.w * kx.w;
+            for (int t = 0; t < 16; ++t)
+              dot = fmaf(qg[16 * d16 + t],
+                         static_cast<float>(static_cast<int8_t>(
+                             (words[t / 4] >> (8 * (t % 4))) & 0xFF)),
+                         dot);
+          }
+          dot *= ksc[j];
+        } else {
+          const float4* k4 = reinterpret_cast<const float4*>(kr + j * L::RS);
+          const float4* q4 = reinterpret_cast<const float4*>(qg);
+#pragma unroll 8
+          for (int d4 = 0; d4 < D / 4; ++d4) {
+            const float4 kx = k4[d4];
+            const float4 qx = q4[d4];
+            dot = fmaf(qx.x, kx.x, dot);
+            dot = fmaf(qx.y, kx.y, dot);
+            dot = fmaf(qx.z, kx.z, dot);
+            dot = fmaf(qx.w, kx.w, dot);
           }
         }
+        s = dot * p.sl2;
       }
-      const bool ok = valid_s[j];
-#pragma unroll
-      for (int a = 0; a < MAXG / SRG; ++a) {
-        const int g = sr + SRG * a;
-        if (g < G) sp[g * (BK + 1) + j] = ok ? s[a] * p.sm_scale : -INFINITY;
-      }
+      sp[g * BK + j] = s;
     }
     __syncthreads();
 
@@ -283,14 +306,14 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
       const int warp = tid / 32;
       const int lane = tid % 32;
       for (int g = warp; g < G; g += THREADS / 32) {
-        float* srow = sp + g * (BK + 1);
+        float* srow = sp + g * BK;
         const float s0 = srow[lane];
         const float s1 = srow[lane + 32];
         const float m_old = m_run[g];
         const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        const float p0 = s0 == -INFINITY ? 0.f : expf(s0 - m_new);
-        const float p1 = s1 == -INFINITY ? 0.f : expf(s1 - m_new);
+        const float alpha = m_old == -INFINITY ? 0.f : exp2f(m_old - m_new);
+        const float p0 = s0 == -INFINITY ? 0.f : exp2f(s0 - m_new);
+        const float p1 = s1 == -INFINITY ? 0.f : exp2f(s1 - m_new);
         const float sum = warp_sum(p0 + p1);
         srow[lane] = p0;
         srow[lane + 32] = p1;
@@ -307,54 +330,331 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
     // acc = acc * alpha + P . V over the visible keys only
 #pragma unroll
     for (int a = 0; a < RPT; ++a) {
-      const int g = rg + NRG * a;
+      const int g = rgp + NRG * a;
       if (g < G) acc[a] *= alpha_s[g];
     }
     for (int key = 0; key < BK; ++key) {
       if (!valid_s[key]) continue;  // uniform across the block
-      const float vx = vf[key * D + c];
+      float vx = to_float(reinterpret_cast<const KT*>(vr + key * L::RS)[c]);
+      if (L::INT8) vx *= vsc[key];
 #pragma unroll
       for (int a = 0; a < RPT; ++a) {
-        const int g = rg + NRG * a;
-        if (g < G) acc[a] += sp[g * (BK + 1) + key] * vx;
+        const int g = rgp + NRG * a;
+        if (g < G) acc[a] = fmaf(sp[g * BK + key], vx, acc[a]);
       }
     }
   }
-  cp_async_wait<0>();
+  cp_wait<0>();
   __syncthreads();
 
-  QT* out = static_cast<QT*>(p.out);
 #pragma unroll
   for (int a = 0; a < RPT; ++a) {
-    const int g = rg + NRG * a;
+    const int g = rgp + NRG * a;
     if (g >= G) continue;
-    const float l = l_run[g];
-    const float l_safe = l == 0.f ? 1.f : l;
-    store(out + (static_cast<size_t>(b) * p.H + kvh * G + g) * D + c,
-          acc[a] / l_safe);
+    const size_t row = part_row(p, b, kvh * G + g);
+    p.part_o[row * D + c] = acc[a];
+    if (c == 0) {
+      p.part_ml[2 * row] = m_run[g];
+      p.part_ml[2 * row + 1] = l_run[g];
+    }
   }
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core split: bf16 q over a bf16 cache
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TcLayout {
+  static constexpr int TILE = BK * D * 2;                // bf16, swizzled
+  static constexpr int Q = 0;                            // [16][D] bf16
+  static constexpr int RING = Q + 16 * D * 2;            // K, V per stage
+  static constexpr int MASK = RING + NSTAGE * 2 * TILE;  // int [NSTAGE][BK]
+  static constexpr int BYTES = MASK + NSTAGE * BK * 4;
+  // after the walk the ring holds the warps' partials: o [4][MAXG][D],
+  // then m and l [4][MAXG] each
+  static constexpr int MERGE = 4 * MAXG * D * 4 + 2 * 4 * MAXG * 4;
+  static_assert(MERGE <= NSTAGE * 2 * TILE, "partials fit in the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) decode_tc_split_kernel(Params p) {
+  using L = TcLayout<D>;
+  constexpr int KT = D / 16;  // k-steps of q . k
+  constexpr int ND = D / 8;   // n8 tiles of the accumulator
+
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int G = p.G;
+  const int S = p.S;
+  const Range rg = split_range(p);
+  if (rg.t0 >= rg.t1) {
+    empty_partial(p, b, kvh);
+    return;
+  }
+  const int ntiles = rg.t1 - rg.t0;
+
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem + L::Q);
+  bf16_t* ring = reinterpret_cast<bf16_t*>(tc_smem + L::RING);
+  int* mask_s = reinterpret_cast<int*>(tc_smem + L::MASK);
+
+  const size_t head = static_cast<size_t>(b) * p.Hkv + kvh;
+  auto issue = [&](int i) {
+    const int st = i % NSTAGE;
+    const int kv0 = (rg.t0 + i) * BK;
+    bf16_t* kt = ring + st * 2 * BK * D;
+    bf16_t* vt = kt + BK * D;
+    const bf16_t* kg = static_cast<const bf16_t*>(p.k) + (head * S + kv0) * D;
+    const bf16_t* vg = static_cast<const bf16_t*>(p.v) + (head * S + kv0) * D;
+    constexpr int CH = D / 8;
+#pragma unroll
+    for (int x = 0; x < BK * CH / THREADS; ++x) {
+      const int c = tid + x * THREADS;
+      const int r = c / CH;
+      const bool in = kv0 + r < S;
+      const size_t src = in ? static_cast<size_t>(r) * D + (c % CH) * 8 : 0;
+      cp16(saddr(kt + swz<D>(r, c % CH)), kg + src, in);
+      cp16(saddr(vt + swz<D>(r, c % CH)), vg + src, in);
+    }
+    if (tid < BK) {
+      const bool in = kv0 + tid < S;
+      cp4(saddr(mask_s + st * BK + tid),
+          p.mask + static_cast<size_t>(b) * S + kv0 + (in ? tid : 0), in);
+    }
+  };
+
+  // q rows kvh*G .. kvh*G + G - 1, padded with zero rows to 16
+  {
+    const bf16_t* q = static_cast<const bf16_t*>(p.q) +
+                      (static_cast<size_t>(b) * p.H + kvh * G) * D;
+    constexpr int CH = D / 8;
+    for (int c = tid; c < 16 * CH; c += THREADS) {
+      const int r = c / CH;
+      cp16(saddr(qs + swz<D>(r, c % CH)),
+           q + (r < G ? static_cast<size_t>(r) * D + (c % CH) * 8 : 0),
+           r < G);
+    }
+  }
+  issue(0);
+  cp_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows lane/4 and lane/4 + 8
+  float l_run[2] = {0.f, 0.f};              // this lane's part of the sums
+  uint32_t qf[KT][4];
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) issue(i + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // tile i (and q) landed
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) ldsm(qf[kk], a_addr<D>(qs, 0, kk, lane));
+    }
+    const int st = i % NSTAGE;
+    bf16_t* kt = ring + st * 2 * BK * D;
+    bf16_t* vt = kt + BK * D;
+    const int kv0 = (rg.t0 + i) * BK;
+    const int r0 = warp * 16;  // this warp's 16 keys of the tile
+    const int key = kv0 + r0 + (lane & 15);
+    const bool ok =
+        key >= rg.lo && key <= rg.hi && mask_s[st * BK + r0 + (lane & 15)] > 0;
+    const uint32_t bits = __ballot_sync(~0u, ok) & 0xFFFFu;
+    if (bits != 0) {
+      if (bits != 0xFFFFu) {
+        // zero the V rows of masked keys: their V never reaches a sum
+        for (int c = lane; c < 16 * (D / 8); c += 32) {
+          const int r = c / (D / 8);
+          if (!((bits >> r) & 1))
+            *reinterpret_cast<uint4*>(vt + swz<D>(r0 + r, c % (D / 8))) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncwarp();
+      }
+      float s[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t kb[4];
+        ldsm(kb, b_addr<D>(kt, r0, kk, lane));
+        mma(s[0], qf[kk], kb[0], kb[1]);
+        mma(s[1], qf[kk], kb[2], kb[3]);
+      }
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * (lane & 3) + (e & 1);
+          const float x = (bits >> col) & 1 ? s[j][e] * p.sl2 : -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(~0u, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(~0u, mx[h], 2));
+        const float base = mx[h] == -INFINITY ? 0.f : mx[h];
+        const float alpha = ex2(m_run[h] - base);
+        m_run[h] = mx[h];
+        l_run[h] *= alpha;
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          o[d][2 * h] *= alpha;
+          o[d][2 * h + 1] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            s[j][e] = ex2(s[j][e] - base);
+            l_run[h] += s[j][e];
+          }
+      }
+      // P = hi + lo, both bf16: P.V keeps ~16 bits of P
+      float lo[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          lo[j][e] = s[j][e] - __bfloat162float(__float2bfloat16(s[j][e]));
+      uint32_t ahi[4], alo[4];
+      c_to_a(ahi, s[0], s[1]);
+      c_to_a(alo, lo[0], lo[1]);
+#pragma unroll
+      for (int dj = 0; dj < ND / 2; ++dj) {
+        uint32_t vb[4];
+        ldsm_t(vb, bt_addr<D>(vt, r0, dj, lane));
+        mma(o[2 * dj], ahi, vb[0], vb[1]);
+        mma(o[2 * dj + 1], ahi, vb[2], vb[3]);
+        mma(o[2 * dj], alo, vb[0], vb[1]);
+        mma(o[2 * dj + 1], alo, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for the tile after next
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // the four warps' partials -> shared memory (rows < G), then one block
+  // partial per query head
+  float* po = reinterpret_cast<float*>(ring);  // [4][MAXG][D]
+  float* pm = po + 4 * MAXG * D;               // [4][MAXG]
+  float* pl = pm + 4 * MAXG;                   // [4][MAXG]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(~0u, l, 1);
+    l += __shfl_xor_sync(~0u, l, 2);
+    const int g = (lane >> 2) + 8 * h;
+    if (g >= G) continue;
+    if ((lane & 3) == 0) {
+      pm[warp * MAXG + g] = m_run[h];
+      pl[warp * MAXG + g] = l;
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const int col = d * 8 + 2 * (lane & 3);
+      po[(warp * MAXG + g) * D + col] = o[d][2 * h];
+      po[(warp * MAXG + g) * D + col + 1] = o[d][2 * h + 1];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += THREADS) {
+    const int g = e / D;
+    const int d = e % D;
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) m = fmaxf(m, pm[w * MAXG + g]);
+    float acc = 0.f, l = 0.f;
+    if (m != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float mw = pm[w * MAXG + g];
+        if (mw == -INFINITY) continue;
+        const float a = ex2(mw - m);
+        acc += a * po[(w * MAXG + g) * D + d];
+        l += a * pl[w * MAXG + g];
+      }
+    }
+    const size_t row = part_row(p, b, kvh * G + g);
+    p.part_o[row * D + d] = acc;
+    if (d == 0) {
+      p.part_ml[2 * row] = m;
+      p.part_ml[2 * row + 1] = l;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// merge: out[b, h] = sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s
+// ---------------------------------------------------------------------------
+
+template <typename QT>
+__global__ void __launch_bounds__(MERGE_THREADS) decode_merge_kernel(
+    Params p, int D) {
+  const size_t row = blockIdx.x;  // b * H + h
+  const float* ml = p.part_ml + 2 * row * p.splits;
+  const float* po = p.part_o + row * p.splits * D;
+  float m = -INFINITY;
+  for (int s = 0; s < p.splits; ++s) m = fmaxf(m, ml[2 * s]);
+  float l = 0.f;
+  if (m != -INFINITY)
+    for (int s = 0; s < p.splits; ++s)
+      if (ml[2 * s] != -INFINITY) l += ml[2 * s + 1] * exp2f(ml[2 * s] - m);
+  const float inv = l == 0.f ? 0.f : 1.f / l;
+  QT* out = static_cast<QT*>(p.out) + row * D;
+  for (int d = threadIdx.x; d < D; d += MERGE_THREADS) {
+    float acc = 0.f;
+    if (m != -INFINITY)
+      for (int s = 0; s < p.splits; ++s)
+        if (ml[2 * s] != -INFINITY)
+          acc += po[static_cast<size_t>(s) * D + d] * exp2f(ml[2 * s] - m);
+    store(out + d, acc * inv);
+  }
+}
+
+template <void (*K)(Params)>
+cudaError_t run(const Params& p, int bytes, cudaStream_t stream) {
+  cudaError_t err = allow_smem<K>(bytes);
+  if (err != cudaSuccess) return err;
+  K<<<dim3(p.B, p.Hkv, p.splits), THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename QT, typename KT, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = Layout<KT, D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<QT, KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.B, p.Hkv);
-  decode_kernel<QT, KT, D><<<grid, THREADS, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+cudaError_t launch_split(const Params& p, cudaStream_t stream) {
+  if constexpr (sizeof(QT) == 2 && sizeof(KT) == 2)
+    return run<decode_tc_split_kernel<D>>(p, TcLayout<D>::BYTES, stream);
+  else
+    return run<decode_split_kernel<QT, KT, D>>(p, Layout<KT, D>::BYTES,
+                                               stream);
 }
 
 template <typename QT>
-int launch_kv(const Params& p, int kv_int8, int D, cudaStream_t stream) {
-  if (kv_int8) {
-    return D == 64 ? launch<QT, int8_t, 64>(p, stream)
-                   : launch<QT, int8_t, 128>(p, stream);
-  }
-  return D == 64 ? launch<QT, QT, 64>(p, stream)
-                 : launch<QT, QT, 128>(p, stream);
+int launch(const Params& p, int kv_int8, int D, cudaStream_t stream) {
+  cudaError_t err;
+  if (kv_int8)
+    err = D == 64 ? launch_split<QT, int8_t, 64>(p, stream)
+                  : launch_split<QT, int8_t, 128>(p, stream);
+  else
+    err = D == 64 ? launch_split<QT, QT, 64>(p, stream)
+                  : launch_split<QT, QT, 128>(p, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_merge_kernel<QT><<<p.B * p.H, MERGE_THREADS, 0, stream>>>(p, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -362,18 +662,22 @@ int launch_kv(const Params& p, int kv_int8, int D, cudaStream_t stream) {
 // C entry for ctypes. q/out: [B, H, D] (q_bf16: bf16, else fp32); k/v
 // caches [B, Hkv, S, D] in q's type, or int8 with fp32 scales [B, Hkv, S]
 // (kv_int8); key_mask int32 [B, S]; cache_index int32 [1] on the device;
-// window <= 0: none. The caller validates shapes. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// window <= 0: none. The key axis is cut into `splits` ranges of whole
+// 64-key tiles (the wrapper derives the count from S and the card);
+// scratch is fp32 [B * H * splits * (D + 2)]. The caller validates shapes.
+// Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* k_scale,
                                 const void* v_scale, const void* key_mask,
-                                const void* cache_index, void* out, int B,
-                                int H, int Hkv, int S, int D, float sm_scale,
-                                int window, int q_bf16, int kv_int8,
-                                void* stream) {
+                                const void* cache_index, void* out,
+                                void* scratch, int B, int H, int Hkv, int S,
+                                int D, float sm_scale, int window, int q_bf16,
+                                int kv_int8, int splits, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (S + BK - 1) / BK;
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG ||
-      B > 65535 || Hkv > 65535)
+      B > 2147483647 / H || Hkv > 65535 || splits <= 0 || splits > tiles ||
+      splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -384,14 +688,18 @@ extern "C" int decode_attention(const void* q, const void* k_cache,
   p.mask = static_cast<const int*>(key_mask);
   p.cidx = static_cast<const int*>(cache_index);
   p.out = out;
+  p.part_o = static_cast<float*>(scratch);
+  p.part_ml = p.part_o + static_cast<size_t>(B) * H * splits * D;
   p.B = B;
   p.H = H;
   p.Hkv = Hkv;
   p.S = S;
   p.G = H / Hkv;
   p.window = window;
-  p.sm_scale = sm_scale;
+  p.splits = splits;
+  p.per = (tiles + splits - 1) / splits;
+  p.sl2 = sm_scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q_bf16 ? launch_kv<__nv_bfloat16>(p, kv_int8, D, s)
-                : launch_kv<float>(p, kv_int8, D, s);
+  return q_bf16 ? launch<__nv_bfloat16>(p, kv_int8, D, s)
+                : launch<float>(p, kv_int8, D, s);
 }

@@ -19,35 +19,61 @@
 // 2*M*K*N operations, about 2*M flops per byte: far below the card's
 // ridge, so the floor is the codes' bytes over 3.35 TB/s. A prefill's
 // (M = tokens, thousands) does 2*M operations per code byte: the floor is
-// the operations.
+// the operations at the bf16 tensor-core peak.
 //
-// What the design does about it:
-// - bf16 x runs on the tensor cores: the codes are dequantized (code *
-//   scale in fp32, rounded to bf16) while they are staged in shared
-//   memory, so the bf16 tile the tensor cores read is exactly the plain
-//   version's weight; ldmatrix feeds mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate) over 128-column tiles and a K loop of 32 rows, and the
-//   next tile's global loads are in flight in registers while the current
-//   one multiplies. The scale is looked up per group as the K loop
-//   crosses it (each thread's 8 or 16 columns), so groups and nibble
-//   pairs need not align with the tile. M > 8 (prefill) uses 128 x 128
-//   output tiles of 8 warps at 64 x 32 each. M <= 8 (decode) pads x to
-//   16 rows, gives each warp 16 x 16 outputs, and splits K across blocks
-//   so every SM streams codes; each block writes an fp32 partial and a
-//   second pass sums the splits in order (deterministic), applies K8's
-//   column scale and rounds to bf16.
+// Which kernel runs is chosen by shape before any launch (wgmma_route,
+// mirrored by ops/quant_matmul.py kernel_route):
+// - bf16 x, M > 8, K % 8 == 0 and N % 16 == 0 (every Llama-3-8B
+//   projection): wgmma_prefill_kernel. TMA needs 16-byte row strides, so
+//   rows of x need K % 8 and code rows N % 16. The product is computed
+//   transposed, y^T = W^T x^T, so that the dequantized weight is the A
+//   operand of wgmma.mma_async m64n256k16 and stays in registers; x is
+//   the B operand, K-major from shared memory. (Written to shared memory
+//   as a B tile and read back by both warpgroups, the dequantized weight
+//   cost as much again as the products: PERF.md.) A producer warpgroup
+//   keeps a ring of 4 stages in flight with TMA (cp.async.bulk.tensor,
+//   mbarrier completion): an x tile [256 rows, 64 K] bf16 and a code tile
+//   [64 K, 128 N] int8 (packed int4: 32 byte rows), both 128B-swizzled.
+//   Each of two consumer warpgroups owns 64 columns of W: a thread reads
+//   its column pair's codes (16-bit loads, conflict-free through the
+//   swizzle) and builds its A fragments as code * scale in fp32 rounded
+//   to bf16: exactly the plain version's weight. Codes become floats
+//   without a conversion instruction (the byte placed in the mantissa of
+//   2^23, the offset subtracted). The scale is looked up per K row, since
+//   groups (8, 44, K, ...) need not align with the tile; a tile whose
+//   rows share one group (per-column scales, groups of whole tiles) takes
+//   a path with no lookup or branch between its rows, and the next tile's
+//   scale is fetched a tile ahead. Two fragment sets alternate, so tile
+//   kt + 1 is dequantized while tile kt's products run. setmaxnreg moves
+//   the producer's registers to the consumers (232 each: 128
+//   accumulators, no spills). The epilogue maps the accumulators back to
+//   y, applies K8's column scale, rounds to bf16 and masks the M and N
+//   edges.
+// - other bf16 prefills (M > 8): tc_prefill_kernel, the first design:
+//   mma.sync m16n8k16 fed by ldmatrix over 128 x 128 output tiles of 8
+//   warps at 64 x 32 each, a K loop of 32 rows whose next tile's global
+//   loads are in flight in registers while the current one multiplies,
+//   the dequantized tile staged in padded shared memory.
+// - M <= 8 (decode), bf16 x: tc_decode_kernel, the same tile code with x
+//   padded to 16 rows, each warp 16 x 16 outputs, K split across blocks
+//   so every SM streams codes; each block writes an fp32 partial and
+//   finalize_kernel sums the splits in order (deterministic), applies
+//   K8's column scale and rounds to bf16.
 // - fp32 x runs on CUDA cores with exact fp32 products, as the plain
-//   version's fp32 matmul: M <= 8 as a GEMV (threads along N, 8 columns
-//   each, eight warps on interleaved K rows with four 8-byte loads in
-//   flight per thread, x staged in shared memory in chunks of 1024 K
-//   rows, split K and the same finalize pass); M > 8 as 128 x 128 tiles
-//   with a K loop of 16 rows and 8 x 8 outputs per thread.
+//   version's fp32 matmul: M <= 8 as a GEMV (gemv_kernel: threads along
+//   N, 8 columns each, eight warps on interleaved K rows with four 8-byte
+//   loads in flight per thread, x staged in shared memory in chunks of
+//   1024 K rows, split K and the same finalize pass); M > 8 as 128 x 128
+//   tiles (gemm_kernel) with a K loop of 16 rows and 8 x 8 outputs per
+//   thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -336,39 +362,6 @@ constexpr int TC_THREADS = 256;      // 8 warps
 constexpr int TC_AS = TC_BK + 8;     // padded smem rows (bf16): ldmatrix
 constexpr int TC_BS = TC_BN + 8;     // rows land on distinct banks
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Each thread stages, per K tile: two 8-wide chunks of x (A) and one
 // chunk of codes (B): 16 int8 codes of one K row, or 8 bytes of packed
 // int4 = 8 columns of two K rows. Loads go to registers first, so the
@@ -500,9 +493,9 @@ __device__ __forceinline__ void tc_gemm(const __nv_bfloat16* __restrict__ x,
       for (int c = 0; c < 8; c += 2) {
         const uint32_t b0 = (words[c / 4] >> (8 * (c % 4))) & 0xFF;
         const uint32_t b1 = (words[c / 4] >> (8 * (c % 4 + 1))) & 0xFF;
-        lo[c / 2] = pack_bf16(static_cast<float>(nibble(b0, 0)) * sc[c],
+        lo[c / 2] = pack(static_cast<float>(nibble(b0, 0)) * sc[c],
                               static_cast<float>(nibble(b1, 0)) * sc[c + 1]);
-        hi[c / 2] = pack_bf16(static_cast<float>(nibble(b0, 1)) * sc[c],
+        hi[c / 2] = pack(static_cast<float>(nibble(b0, 1)) * sc[c],
                               static_cast<float>(nibble(b1, 1)) * sc[c + 1]);
       }
       *reinterpret_cast<uint4*>(&Bs[2 * b_row][b_col]) =
@@ -517,8 +510,8 @@ __device__ __forceinline__ void tc_gemm(const __nv_bfloat16* __restrict__ x,
             (words[c / 4] >> (8 * (c % 4))) & 0xFF));
         const float c1 = static_cast<float>(static_cast<int8_t>(
             (words[c / 4] >> (8 * (c % 4 + 1))) & 0xFF));
-        w[c / 2] = MODE == kInt8Col ? pack_bf16(c0, c1)
-                                    : pack_bf16(c0 * sc[c], c1 * sc[c + 1]);
+        w[c / 2] = MODE == kInt8Col ? pack(c0, c1)
+                                    : pack(c0 * sc[c], c1 * sc[c + 1]);
       }
       *reinterpret_cast<uint4*>(&Bs[b_row][b_col]) =
           make_uint4(w[0], w[1], w[2], w[3]);
@@ -546,14 +539,14 @@ __device__ __forceinline__ void tc_gemm(const __nv_bfloat16* __restrict__ x,
       uint32_t af[MI][4];
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi)
-        ldmatrix_x4(af[mi], &As[wm * 16 * MI + mi * 16 + lane % 16]
-                               [ks + (lane / 16) * 8]);
+        ldsm(af[mi], saddr(&As[wm * 16 * MI + mi * 16 + lane % 16]
+                              [ks + (lane / 16) * 8]));
       uint32_t bfr[NI][2];
 #pragma unroll
       for (int nj = 0; nj < NI / 2; ++nj) {
         uint32_t r[4];
-        ldmatrix_x4_trans(r, &Bs[ks + (lane & 15)]
-                                [wn * 8 * NI + nj * 16 + (lane >> 4) * 8]);
+        ldsm_t(r, saddr(&Bs[ks + (lane & 15)]
+                           [wn * 8 * NI + nj * 16 + (lane >> 4) * 8]));
         bfr[2 * nj][0] = r[0];
         bfr[2 * nj][1] = r[1];
         bfr[2 * nj + 1][0] = r[2];
@@ -563,7 +556,7 @@ __device__ __forceinline__ void tc_gemm(const __nv_bfloat16* __restrict__ x,
       for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+          mma(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
     }
     __syncthreads();
   }
@@ -615,6 +608,279 @@ __global__ void __launch_bounds__(TC_THREADS)
   tc_gemm<MODE, 16>(x, codes, scale, nullptr, work, M, K, N, G, splits);
 }
 
+// ---------------------------------------------------------------------------
+// wgmma + TMA path: M > 8, bf16 x, K % 8 == 0, N % 16 == 0
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BN = 128;                      // 64 W columns a warpgroup
+constexpr int WG_BM = 256;                      // rows of x
+constexpr int WG_BK = 64;                       // 128-byte rows of x
+constexpr int WG_STAGES = 4;                    // x and code tiles in flight
+constexpr int WG_CONSUMERS = 256;               // warpgroups 0 and 1
+constexpr int WG_THREADS = WG_CONSUMERS + 128;  // + the producer warpgroup
+constexpr int WG_X_BYTES = WG_BM * WG_BK * 2;   // x tile, 128B-swizzled
+constexpr int WG_C_BYTES = WG_BK * WG_BN;       // code tile (int4: half used)
+constexpr int WG_SMEM =
+    1024 + WG_STAGES * (WG_X_BYTES + WG_C_BYTES) + 2 * WG_STAGES * 8;
+static_assert(WG_SMEM <= MAX_SMEM, "shared memory of one block");
+
+// byte i of w (an unsigned value u < 256) minus `offset`, as a float: u
+// placed in the mantissa of 2^23, then 2^23 + offset subtracted (exact)
+__device__ __forceinline__ float code_f(uint32_t w, int i, float offset) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | i)) -
+         (8388608.f + offset);
+}
+
+// TMA needs 16-byte global row strides: x rows of K bf16, code rows of N
+// bytes (N % 16 also keeps each thread's column pair inside or outside N)
+bool wgmma_route(int M, int K, int N) {
+  return M > GV_MAXM && K % 8 == 0 && N % 16 == 0;
+}
+
+// One block per 128 W columns x 256 rows of x; the product is computed
+// transposed, y^T = W^T x^T, so that the dequantized weight is wgmma's A
+// operand and lives in registers: it is never written to shared memory
+// (the store of a dequantized B tile, read back by both warpgroups, cost
+// as much as the products themselves). Warpgroup 2 is the producer: it
+// gives its registers up to the consumers (setmaxnreg), and one of its
+// threads keeps WG_STAGES x tiles [256, 64] and code tiles [64 K, 128 N]
+// (int4: 32 byte rows), both 128B-swizzled, in flight with TMA, each stage
+// on a full / empty mbarrier pair. Consumer warpgroup w owns W columns
+// 64 w .. 64 w + 63 of the tile, each thread a column pair n, n + 1 (the
+// accumulator rows r and r + 8 of its fragment: columns are permuted
+// freely, the epilogue maps them back). It dequantizes K tile kt + 1 into
+// A fragments while tile kt's four m64n256k16 steps run (two fragment
+// sets alternate), with x (K-major) as B from shared memory. The two
+// warpgroups share only the stages: no barrier between them.
+template <int MODE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wgmma_prefill_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap cmap,
+                         const float* __restrict__ scale,
+                         __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                         int G) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  constexpr bool INT4 = MODE == kInt4;
+  constexpr int CROWS = INT4 ? WG_BK / 2 : WG_BK;  // code rows per K tile
+  constexpr uint32_t TX = WG_X_BYTES + CROWS * WG_BN;
+  const uint32_t raw = saddr(wg_smem);
+  const uint32_t x_s = (raw + 1023) & ~1023u;  // x stages
+  const uint32_t c_s = x_s + WG_STAGES * WG_X_BYTES;  // code stages
+  const uint32_t bars = c_s + WG_STAGES * WG_C_BYTES;  // full[S], empty[S]
+  const unsigned char* c_ptr = wg_smem + (c_s - raw);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (WG_STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n0 = blockIdx.x * WG_BN;
+  const int m0 = blockIdx.y * WG_BM;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), WG_CONSUMERS / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= WG_CONSUMERS / 32) {
+    hopper::setmaxnreg_dec<40>();
+    if (tid == WG_CONSUMERS) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % WG_STAGES;
+        hopper::mbar_wait(empty(s), ((kt / WG_STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(full(s), TX);
+        hopper::tma_load_2d(x_s + s * WG_X_BYTES, &xmap, kt * WG_BK, m0,
+                            full(s));
+        hopper::tma_load_2d(c_s + s * WG_C_BYTES, &cmap, n0, kt * CROWS,
+                            full(s));
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<232>();
+
+  const int q = lane % 4;
+  // the thread's column pair in the tile (rows lane / 4 and lane / 4 + 8
+  // of its warp's 16 accumulator rows)
+  const int nl = (warp / 4) * 64 + (warp % 4) * 16 + 2 * (lane / 4);
+  const int n = n0 + nl;
+  const bool col_in = n < N;
+  const int g = K / G;
+  // the scales of columns n and n + 1 for one group; the group of the next
+  // tile's first row is fetched a tile ahead, and rows only grow
+  float sc[2] = {0.f, 0.f}, pf[2] = {0.f, 0.f};
+  int sc_end = 0;   // first K row past the group in sc
+  int pf_end = -1;  // the same for pf (-1: nothing fetched)
+  auto fetch = [&](int k, float (&dst)[2]) {
+    const int grp = k / g;
+    if (col_in) {
+      dst[0] = __ldg(scale + static_cast<size_t>(grp) * N + n);
+      dst[1] = __ldg(scale + static_cast<size_t>(grp) * N + n + 1);
+    }
+    return (grp + 1) * g;
+  };
+  // sc <- the scale of K row k, unless it already holds it (rows past K
+  // hold zero codes, so any finite scale will do)
+  auto scale_for = [&](int k) {
+    if (MODE != kInt8Col && k < K && k >= sc_end) {
+      if (k < pf_end) {
+        sc[0] = pf[0];
+        sc[1] = pf[1];
+        sc_end = pf_end;
+      } else {
+        sc_end = fetch(k, sc);
+      }
+    }
+  };
+  // the code bytes (row r, columns nl and nl + 1) of a 128B-swizzled tile,
+  // in the low 16 bits
+  auto codes16 = [&](const unsigned char* ct, int r) {
+    return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(
+        ct + r * WG_BN + (((nl >> 4) ^ (r & 7)) << 4) + (nl & 15)));
+  };
+  // two K rows of the column pair (a: K row k, b: K row k + 1; byte 0 is
+  // column n, byte 1 column n + 1, values code + offset) -> the fragment
+  // words of column n and of column n + 1
+  // (PER_ROW: look the scale up for each K row)
+  auto words = [&](auto per_row, uint32_t a, uint32_t b, float offset,
+                   int k, uint32_t& wn, uint32_t& wn1) {
+    constexpr bool PER_ROW = decltype(per_row)::value;
+    if (PER_ROW) scale_for(k);
+    const float a0 = code_f(a, 0, offset), a1 = code_f(a, 1, offset);
+    const float s0 = sc[0], s1 = sc[1];
+    if (PER_ROW && !INT4) scale_for(k + 1);
+    const float b0 = code_f(b, 0, offset), b1 = code_f(b, 1, offset);
+    if (MODE == kInt8Col) {
+      // |code| <= 127 is exact in bf16: the floats' top halves
+      wn = __byte_perm(__float_as_uint(a0), __float_as_uint(b0), 0x7632);
+      wn1 = __byte_perm(__float_as_uint(a1), __float_as_uint(b1), 0x7632);
+    } else {
+      wn = pack(a0 * s0, b0 * sc[0]);
+      wn1 = pack(a1 * s1, b1 * sc[1]);
+    }
+  };
+  // K tile kt -> the A fragments of its four k16 steps
+  auto dequant = [&](int kt, uint32_t (&fr)[4][4]) {
+    const unsigned char* ct = c_ptr + (kt % WG_STAGES) * WG_C_BYTES;
+    const int k0 = kt * WG_BK + 2 * q;  // the thread's first K row
+    scale_for(k0);
+    auto rows = [&](auto per_row) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // K rows 16 j + 2 q (+ 1), + 8 h
+          const int k = k0 + 16 * j + 8 * h;
+          if (INT4) {
+            // byte row k / 2 holds K rows k (low nibbles) and k + 1 (high)
+            const uint32_t w = codes16(ct, 8 * j + q + 4 * h);
+            words(per_row, (w & 0x0F0Fu) ^ 0x0808u,
+                  ((w >> 4) & 0x0F0Fu) ^ 0x0808u, 8.f, k, fr[j][2 * h],
+                  fr[j][2 * h + 1]);
+          } else {
+            const int r = 16 * j + 2 * q + 8 * h;
+            words(per_row, codes16(ct, r) ^ 0x8080u,
+                  codes16(ct, r + 1) ^ 0x8080u, 128.f, k, fr[j][2 * h],
+                  fr[j][2 * h + 1]);
+          }
+        }
+      }
+    };
+    // one scale group for all of the thread's rows (per-column scales,
+    // groups of whole tiles): no lookups, and no branch, between them
+    if (MODE == kInt8Col || min(k0 + WG_BK - 7, K - 1) < sc_end)
+      rows(std::false_type{});
+    else
+      rows(std::true_type{});
+    if (MODE != kInt8Col && kt + 1 < nk) {
+      const int k = k0 + WG_BK;
+      if (k < K && k >= sc_end && k >= pf_end) pf_end = fetch(k, pf);
+    }
+  };
+  // fragment words: [k-step][0] = column n, K rows k, k + 1; [1] = column
+  // n + 1; [2], [3] the same for K rows k + 8, k + 9 (the A layout of rows
+  // lane / 4 and lane / 4 + 8)
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  uint32_t fa[4][4], fb[4][4];
+
+  // tile kt's products from fragments cur; then tile kt + 1's fragments
+  // into nxt, which tile kt - 1's products (now waited for) read
+  auto step = [&](int kt, uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4]) {
+    const int s = kt % WG_STAGES;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < WG_BK / 16; ++j)
+      hopper::wgmma_m64n256k16_rs(
+          acc, cur[j], hopper::sw128_desc(x_s + s * WG_X_BYTES + j * 32, 16,
+                                          1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(nxt);  // kept intact until tile kt - 1 was done
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty((kt - 1) % WG_STAGES));
+    }
+    if (kt + 1 < nk) {
+      hopper::mbar_wait(full((kt + 1) % WG_STAGES),
+                        ((kt + 1) / WG_STAGES) & 1);
+      dequant(kt + 1, nxt);
+    }
+  };
+  hopper::mbar_wait(full(0), 0);
+  dequant(0, fa);
+  for (int kt = 0; kt < nk; kt += 2) {
+    step(kt, fa, fb);
+    if (kt + 1 < nk) step(kt + 1, fb, fa);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // epilogue: accumulator row lane / 4 is column n, row lane / 4 + 8
+  // column n + 1; columns 8 j + 2 q (+ 1) are rows m of x. K8's column
+  // scale, bf16 rounding, stores masked at the M and N edges
+  if (!col_in) return;
+  const float s0 = MODE == kInt8Col ? scale[n] : 1.f;
+  const float s1 = MODE == kInt8Col ? scale[n + 1] : 1.f;
+#pragma unroll
+  for (int j = 0; j < WG_BM / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * q + e;
+      if (m < M)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(m) * N + n) =
+            pack(acc[4 * j + e] * s0, acc[4 * j + 2 + e] * s1);
+    }
+  }
+}
+
+template <int MODE>
+int launch_wgmma(const void* x, const void* codes, const float* scale,
+                 __nv_bfloat16* out, int M, int K, int N, int G,
+                 cudaStream_t stream) {
+  constexpr int CROWS = MODE == kInt4 ? WG_BK / 2 : WG_BK;
+  CUtensorMap xmap, cmap;
+  if (!hopper::make_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M,
+                           K, K, WG_BM, WG_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map_2d(&cmap, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                           MODE == kInt4 ? K / 2 : K, N, N, CROWS, WG_BN,
+                           CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem<wgmma_prefill_kernel<MODE>>(WG_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM);
+  wgmma_prefill_kernel<MODE><<<grid, WG_THREADS, WG_SMEM, stream>>>(
+      xmap, cmap, scale, out, M, K, N, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename XT, int MODE>
 int launch(const void* x, const void* codes, const void* scale, void* out,
            void* work, int M, int K, int N, int G, int splits,
@@ -647,6 +913,8 @@ int launch(const void* x, const void* codes, const void* scale, void* out,
         <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
             wp, sp, op, M, N, splits);
   } else if constexpr (BF16) {
+    if (wgmma_route(M, K, N))
+      return launch_wgmma<MODE>(x, codes, sp, op, M, K, N, G, stream);
     const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 127) / 128);
     tc_prefill_kernel<MODE><<<grid, TC_THREADS, 0, stream>>>(xp, cp, sp, op,
                                                              M, K, N, G);
@@ -699,4 +967,11 @@ extern "C" int quant_matmul(const void* x, const void* codes,
                                              M, K, N, G, splits, s)
                 : launch_mode<float>(mode, x, codes, scale, out, work, M, K,
                                      N, G, splits, s);
+}
+
+// 1 when quant_matmul takes the wgmma + TMA kernel for these arguments (M
+// > 8 rows of bf16 x, K % 8 == 0, N % 16 == 0), else 0: the route is
+// chosen by shape before any launch.
+extern "C" int quant_matmul_wgmma_route(int M, int K, int N, int x_bf16) {
+  return x_bf16 && wgmma_route(M, K, N) ? 1 : 0;
 }

@@ -13,8 +13,10 @@ fallback from a kernel to a plain version.
 The kernels replace ``deepspeed_tpu/ops/pallas/decode_attention.py``
 (``_decode_kernel``, ``_paged_decode_kernel``, ``_paged_prefill_kernel``).
 Their bound on an H100 is bytes: the visible part of each row's K/V (and
-int8 scales) read once, against 3.35 TB/s. The design notes are at the top
-of the CUDA sources.
+int8 scales) read once, against 3.35 TB/s. K4 cuts the key axis into
+:func:`decode_splits` ranges of whole tiles, one block each, and merges
+their partials in the same call. The design notes are at the top of the
+CUDA sources.
 """
 
 import ctypes
@@ -33,6 +35,29 @@ KERNEL_MAX_GROUP = 8
 KERNEL_BLOCK_SIZE = 16
 #: query rows one block of the paged prefill kernel holds (tokens x G)
 KERNEL_TILE_ROWS = 32
+#: keys of one K4 tile: a split is a whole number of tiles
+KERNEL_KEY_TILE = 64
+#: K4 blocks the split count aims for per SM
+BLOCKS_PER_SM = 2
+
+
+def decode_splits(B: int, Hkv: int, S: int, sm_count: int) -> int:
+    """K4's split count: ``S`` (the cache's capacity, not the filled
+    length, so a launch never depends on ``cache_index``) cut into ranges
+    of the same whole number of ``KERNEL_KEY_TILE``-key tiles. The count
+    aims at ``B * Hkv * splits`` blocks giving every SM
+    :data:`BLOCKS_PER_SM`, at most one range per tile; rounding the
+    tiles a range holds up keeps more than half of that aim. Every range
+    is non-empty."""
+    tiles = -(-S // KERNEL_KEY_TILE)
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * Hkv))
+    per = -(-tiles // max(1, min(want, tiles)))
+    return -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _visible(cache_index, S: int, key_mask, window: Optional[int], device):
@@ -92,9 +117,9 @@ def decode_attention_plain(q, k_cache, v_cache, cache_index, key_mask=None,
 def _entry():
     fn = _build.load("decode_attention").decode_attention
     P, I = ctypes.c_void_p, ctypes.c_int
-    # q k v k_scale v_scale key_mask cache_index out | B H Hkv S D |
-    # sm_scale window q_bf16 kv_int8 | stream
-    fn.argtypes = [P] * 8 + [I] * 5 + [ctypes.c_float, I, I, I, P]
+    # q k v k_scale v_scale key_mask cache_index out scratch | B H Hkv S D |
+    # sm_scale window q_bf16 kv_int8 splits | stream
+    fn.argtypes = [P] * 9 + [I] * 5 + [ctypes.c_float, I, I, I, I, P]
     fn.restype = I
     return fn
 
@@ -148,11 +173,12 @@ def decode_attention(q, k_cache, v_cache, cache_index, key_mask=None,
                      window: Optional[int] = None,
                      k_scale=None, v_scale=None):
     """Single-position cached attention (see the plain version for the
-    arguments). CUDA tensors launch the kernel on the current stream and
-    add one to ``decode_attention.launches``; CPU tensors take the plain
-    version; anything else raises. ``cache_index`` may be an int or an
-    int32 device scalar: the kernel reads it on the device, as the TPU
-    kernel prefetches it."""
+    arguments). CUDA tensors launch the kernel on the current stream (the
+    split walk and its merge, in one C call) and add one to
+    ``decode_attention.launches``; CPU tensors take the plain version;
+    anything else raises. ``cache_index`` may be an int or an int32
+    device scalar: the kernel reads it on the device, as the TPU kernel
+    prefetches it, so the launch is the same for every value."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale (int8 cache) or "
                          "neither")
@@ -190,14 +216,19 @@ def decode_attention(q, k_cache, v_cache, cache_index, key_mask=None,
         return out.zero_()
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
         else (None, None)
+    Hkv = k_cache.shape[1]
+    splits = decode_splits(B, Hkv, S, _sm_count(out.device.index))
+    # per (row, query head, split): D accumulators, then m and l
+    scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         rc = _entry()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
-            key_mask.data_ptr(), cidx.data_ptr(), out.data_ptr(), B, H,
-            k_cache.shape[1], S, D, float(sm_scale),
+            key_mask.data_ptr(), cidx.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, H, Hkv, S, D, float(sm_scale),
             0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
-            torch.cuda.current_stream(dev).cuda_stream)
+            splits, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention: kernel launch failed with "
                            f"CUDA error {rc}")

@@ -17,7 +17,9 @@ raises: there is no fallback from a kernel to a plain version.
 The kernels replace ``deepspeed_tpu/ops/pallas/quant_matmul.py::_kernel``
 (K5) and ``deepspeed_tpu/ops/pallas/int8_matmul.py::_kernel`` (K8). A
 decode step's product (a few rows) is bound by the bytes of the codes; a
-prefill's (thousands of rows) by operations. The design note is at the
+prefill's (thousands of rows) by operations. Which kernel a call runs is
+a function of its shape alone (:func:`kernel_route`): bf16 prefills whose
+rows TMA can address run the ``wgmma`` kernel. The design note is at the
 top of the CUDA source.
 """
 
@@ -39,6 +41,23 @@ DEFAULT_INT4_GROUP = 64
 
 #: rows of x up to which the kernel streams the weights as a GEMV
 GEMV_MAX_ROWS = 8
+
+
+def kernel_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
+    """The kernel ``quant_matmul`` / ``int8_matmul`` launch for ``x [M, K]``
+    of ``dtype`` and ``N`` output columns, chosen by shape before any
+    launch (the C entry applies the same rule):
+
+    - ``"gemv"``: ``M <= 8`` (decode), split K and a finalize pass;
+    - ``"wgmma"``: bf16 ``x``, ``M > 8``, and rows TMA can address
+      (16-byte strides: ``K % 8 == 0``, ``N % 16 == 0``);
+    - ``"mma"``: other bf16 prefills (the ``mma.sync`` tile kernel);
+    - ``"fp32"``: fp32 ``x``, ``M > 8`` (CUDA-core tiles)."""
+    if M <= GEMV_MAX_ROWS:
+        return "gemv"
+    if dtype != torch.bfloat16:
+        return "fp32"
+    return "wgmma" if K % 8 == 0 and N % 16 == 0 else "mma"
 
 
 def _check_mode(mode: str) -> None:
@@ -255,7 +274,8 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                  mode: str = "int8") -> torch.Tensor:
     """``x [M, K] @ dequant(codes, scale)`` in ``x.dtype`` (kernel K5; see
     the plain version). CUDA tensors launch the kernel on the current
-    stream and add one to ``quant_matmul.launches``; CPU tensors take
+    stream and add one to ``quant_matmul.launches`` (and to
+    ``quant_matmul.wgmma_launches`` on the ``wgmma`` route); CPU tensors take
     :func:`quant_matmul_plain`; anything else raises."""
     _check_mode(mode)
     dev = _check("quant_matmul", x, codes, scale)
@@ -277,6 +297,8 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         return quant_matmul_plain(x, codes, scale, mode)
     out = _launch("quant_matmul", x, codes, scale, mode, scale.shape[1], G)
     quant_matmul.launches += 1
+    if kernel_route(M, K, scale.shape[1], x.dtype) == "wgmma":
+        quant_matmul.wgmma_launches += 1
     return out
 
 
@@ -302,5 +324,6 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
     return out
 
 
-quant_matmul.launches = 0
+#: launches of each wrapper, and of quant_matmul's those on the wgmma kernel
+quant_matmul.launches = quant_matmul.wgmma_launches = 0
 int8_matmul.launches = 0

@@ -173,13 +173,18 @@ def test_fused_adam_kernel_matches_plain(cuda, adam_w_mode, write_update):
 @pytest.mark.parametrize("int8", [False, True], ids=["cache", "int8cache"])
 @pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
 @pytest.mark.parametrize("S,cidx,window", [
-    (200, 0, None), (200, 130, None), (77, 76, None), (300, 250, 64)],
-    ids=["first", "mid_tile", "uneven_full", "window"])
+    (200, 0, None), (200, 130, None), (77, 76, None), (300, 250, 64),
+    (2048, 1023, None), (2048, 1024, None), (2048, 1025, None),
+    (2048, 2000, 300)],
+    ids=["first", "mid_tile", "uneven_full", "window", "split_edge_minus1",
+         "split_edge", "split_edge_plus1", "window_empties_splits"])
 def test_decode_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, S, cidx,
                                      window):
     """K4 against its plain version: GQA groups, left-padding holes (row 0
     sees no key at position 0), a cache index mid-tile, S no multiple of
-    the tile, a window, an int8 cache."""
+    the tile, a window, an int8 cache; at S 2048 (32 or 16 key splits) a
+    cache index on a split boundary and either side of it, a window that
+    leaves whole splits empty, and a row whose every key is masked."""
     g = torch.Generator(device=cuda).manual_seed(S + D)
     B = 3
     q = torch.randn(B, Hkv * G, D, generator=g, device=cuda, dtype=dtype)
@@ -196,6 +201,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, S, cidx,
     mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
     mask[0, :5] = 0
     mask[1, 40:43] = 0
+    if S == 2048:
+        mask[2] = 0             # a row that sees no key: zeros
     ci = torch.tensor(cidx, dtype=torch.int32, device=cuda)
     before = decode_attention.launches
     got = decode_attention(q, k, v, ci, key_mask=mask, window=window,
@@ -208,6 +215,84 @@ def test_decode_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, S, cidx,
     torch.testing.assert_close(got.float(), ref.float(),
                                rtol=1e-5 if fp32 else 2 ** -7,
                                atol=1e-5 if fp32 else 1e-3)
+    if S == 2048:
+        assert not got[2].float().abs().sum()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_decode_kernel_launch_is_independent_of_cache_index(cuda, dtype):
+    """K4's launch does not depend on the value of ``cache_index``: one
+    CUDA graph captured around a call replays correctly for every value of
+    the device scalar (split boundaries, the first and the last key, a
+    window)."""
+    B, Hkv, G, S, D, window = 2, 2, 4, 1000, 128, 200
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(B, Hkv * G, D, generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=cuda, dtype=dtype)
+            for _ in range(2))
+    mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    mask[1, :37] = 0
+    ci = torch.zeros((), dtype=torch.int32, device=cuda)
+    for w in (None, window):
+        decode_attention(q, k, v, ci, key_mask=mask, window=w)  # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = decode_attention(q, k, v, ci, key_mask=mask, window=w)
+        for cidx in (0, 36, 63, 64, 65, 511, 512, 998, 999):
+            ci.fill_(cidx)
+            graph.replay()
+            ref = decode_attention_plain(q, k, v, ci, key_mask=mask,
+                                         window=w)
+            torch.cuda.synchronize()
+            fp32 = dtype == torch.float32
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       rtol=1e-5 if fp32 else 2 ** -7,
+                                       atol=1e-5 if fp32 else 1e-3)
+
+
+def test_quant_prefill_and_decode_kernels_are_deterministic(cuda):
+    """Repeated calls give bitwise equal outputs: K5's wgmma prefill and
+    its split-K decode (the splits summed in order), K8's prefill, and
+    K4's split walk and merge (no atomics anywhere)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for M, K, N, mode, group in ((300, 1024, 768, "int8", 0),
+                                 (300, 1024, 768, "int4", 64),
+                                 (8, 4096, 1024, "int8", 0),
+                                 (8, 4096, 1024, "int4", 64)):
+        x = torch.randn(M, K, generator=g, device=cuda, dtype=torch.bfloat16)
+        codes, scale = qm.quantize_linear_weight(
+            torch.randn(K, N, generator=g, device=cuda) * 0.02, mode, group)
+        first = qm.quant_matmul(x, codes, scale, mode)
+        second = qm.quant_matmul(x, codes, scale, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), (M, K, N, mode)
+    codes, scale = qm.quantize_weight_per_col(
+        torch.randn(1024, 768, generator=g, device=cuda))
+    x = torch.randn(300, 1024, generator=g, device=cuda, dtype=torch.bfloat16)
+    assert torch.equal(qm.int8_matmul(x, codes, scale),
+                       qm.int8_matmul(x, codes, scale))
+    q = torch.randn(8, 32, 128, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(8, 8, 2048, 128, generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    ci = torch.tensor(1900, dtype=torch.int32, device=cuda)
+    assert torch.equal(decode_attention(q, k, v, ci),
+                       decode_attention(q, k, v, ci))
+
+
+def test_wgmma_route_is_the_c_entrys(cuda):
+    """``kernel_route`` (what the CPU tests check) is the rule the C entry
+    applies before it launches."""
+    c_route = qm._build.load("quant_matmul").quant_matmul_wgmma_route
+    for M in (1, 8, 9, 129, 4096):
+        for K in (264, 1000, 1024, 4100, 14336):
+            for N in (768, 1000, 1024, 4104, 14336):
+                for dtype in (torch.bfloat16, torch.float32):
+                    want = qm.kernel_route(M, K, N, dtype) == "wgmma"
+                    got = c_route(M, K, N, int(dtype == torch.bfloat16))
+                    assert bool(got) == want, (M, K, N, dtype)
 
 
 def _assert_matmul_close(got, ref, x, w):
@@ -224,11 +309,16 @@ def _assert_matmul_close(got, ref, x, w):
                                         ("int4", 64), ("int4", 8)])
 @pytest.mark.parametrize("M,K,N", [(1, 512, 768), (8, 2048, 1000),
                                    (5, 264, 1000), (37, 264, 1000),
-                                   (300, 1024, 520)])
+                                   (300, 1024, 520), (129, 264, 1024),
+                                   (4097, 4096, 14336)])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
                                            N):
-    """K5's GEMV path (M <= 8, split K, ragged N) and tiled path (M > 8,
-    ragged M/N/K tails) against the plain version."""
+    """K5's GEMV path (M <= 8, split K, ragged N) and tiled paths (M > 8,
+    ragged M/N/K tails) against the plain version. bf16 prefills take the
+    mma.sync kernel at N 1000 and 520 and the wgmma kernel at (129, 264,
+    1024), where groups of 44 or 8 rows cross the 64-row TMA tile and K
+    ends 8 rows into a tile, and at Llama-3-8B's MLP shape with one row
+    past a 128-row tile."""
     g = torch.Generator(device=cuda).manual_seed(M * K + N)
     x = torch.randn(M, K, generator=g, device=cuda, dtype=dtype)
     codes, scale = qm.quantize_linear_weight(
@@ -247,7 +337,7 @@ def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (3, 264, 1000),
-                                   (130, 640, 384)])
+                                   (130, 640, 384), (4096, 4096, 4096)])
 def test_int8_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     """K8 (the per-column epilogue) against its plain version."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)

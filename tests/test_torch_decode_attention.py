@@ -22,7 +22,8 @@ from deepspeed_tpu.models.layers import _quantize_kv as jax_quantize_kv
 from deepspeed_tpu.ops.pallas.decode_attention import \
     decode_attention as jax_decode
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+                                                      decode_attention_plain,
+                                                      decode_splits)
 
 CASES = {
     # name: (B, H, Hkv, S, D, cache_index, window, int8, block_k)
@@ -119,3 +120,177 @@ def test_wrapper_raises_instead_of_falling_back():
         decode_attention(args[0], args[1].to("meta"), args[2], 3)
     with pytest.raises(ValueError, match="k_scale and v_scale"):
         decode_attention(*args, 3, k_scale=torch.zeros(1, 2, 16))
+
+
+# ---------------------------------------------------------------------------
+# the split-key walk of the CUDA kernel, emulated
+# ---------------------------------------------------------------------------
+
+TILE = 64               # keys of one kernel tile; a split is whole tiles
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def _emulate_split_decode(q, k, v, cidx, mask, window, per, slice_keys,
+                          k_scale=None, v_scale=None, split_p=False):
+    """The kernel's algorithm in fp32: the key axis cut into splits of
+    ``per`` tiles; inside a split, state slices of ``slice_keys`` keys of
+    every tile (64: the CUDA-core kernel's one running state; 16: the
+    tensor-core kernel's four warps) walk the split's visible tiles with a
+    running max (log2 units), sum and accumulator; the slices merge at
+    the end of the split, then the splits merge through their lse in
+    order. ``split_p``: P.V takes bf16(P) + bf16(P - bf16(P)), as the
+    tensor-core kernel does."""
+    B, H, D = q.shape
+    _, Hkv, S, _ = k.shape
+    G = H // Hkv
+    sl2 = D ** -0.5 * LOG2E
+    tiles = -(-S // TILE)
+    splits = -(-tiles // per)
+    hi = min(cidx, S - 1)
+    lo = max(0, cidx - window + 1) if window else 0
+    kf, vf = k.float(), v.float()
+    out = torch.zeros(B, H, D)
+
+    for b in range(B):
+        for kvh in range(Hkv):
+            qg = q[b, kvh * G:(kvh + 1) * G].float()
+            split_parts = []
+            for s in range(splits):
+                t0 = max(s * per, lo // TILE)
+                t1 = min((s + 1) * per, hi // TILE + 1) if hi >= lo else 0
+                if t0 >= t1:
+                    continue                       # an empty partial
+                slices = []
+                for w0 in range(0, TILE, slice_keys):
+                    m = torch.full((G,), -np.inf)
+                    l, acc = torch.zeros(G), torch.zeros(G, D)
+                    for t in range(t0, t1):
+                        keys = torch.arange(t * TILE + w0,
+                                            min(t * TILE + w0 + slice_keys,
+                                                S))
+                        if not len(keys):
+                            continue
+                        ok = (keys >= lo) & (keys <= hi) & (mask[b, keys] > 0)
+                        if not ok.any():
+                            continue               # the slice skips the tile
+                        kk, vv = kf[b, kvh, keys], vf[b, kvh, keys]
+                        sc = (qg @ kk.T)
+                        if k_scale is not None:
+                            sc = sc * k_scale[b, kvh, keys][None]
+                            vv = vv * v_scale[b, kvh, keys][:, None]
+                        sc = torch.where(ok[None], sc * sl2,
+                                         torch.full_like(sc, -np.inf))
+                        vv = torch.where(ok[:, None], vv, torch.zeros_like(vv))
+                        m_new = torch.maximum(m, sc.amax(dim=1))
+                        base = torch.where(torch.isinf(m_new),
+                                           torch.zeros_like(m_new), m_new)
+                        alpha = torch.exp2(m - base)
+                        p = torch.exp2(sc - base[:, None])
+                        l = l * alpha + p.sum(dim=1)
+                        if split_p:
+                            ph = _bf16(p)
+                            pv = ph @ vv + _bf16(p - ph) @ vv
+                        else:
+                            pv = p @ vv
+                        acc = acc * alpha[:, None] + pv
+                        m = m_new
+                    slices.append((m, l, acc))
+                # the block's merge of its slices, row by row
+                pm = torch.stack([sm for sm, _, _ in slices]).amax(dim=0)
+                pl, pa = torch.zeros(G), torch.zeros(G, D)
+                for sm, sl, sa in slices:
+                    w = torch.where(torch.isinf(sm), torch.zeros_like(sm),
+                                    torch.exp2(sm - torch.where(
+                                        torch.isinf(pm), torch.zeros_like(pm),
+                                        pm)))
+                    pl, pa = pl + sl * w, pa + sa * w[:, None]
+                split_parts.append((pm, pl, pa))
+            # the merge kernel, split by split in order
+            if split_parts:
+                pm = torch.stack([sm for sm, _, _ in split_parts]).amax(dim=0)
+                base = torch.where(torch.isinf(pm), torch.zeros_like(pm), pm)
+                L, A = torch.zeros(G), torch.zeros(G, D)
+                for sm, sl, sa in split_parts:
+                    w = torch.where(torch.isinf(sm), torch.zeros_like(sm),
+                                    torch.exp2(sm - base))
+                    L, A = L + sl * w, A + sa * w[:, None]
+                inv = torch.where(L == 0, torch.zeros_like(L), 1 / L)
+                out[b, kvh * G:(kvh + 1) * G] = A * inv[:, None]
+    return out
+
+
+SPLIT_CASES = {
+    # name: (cache_index, window, mask edit, int8)
+    "cache_index_empties_splits": (100, None, None, False),
+    "window_empties_splits": (300, 70, None, False),
+    "masked_range_empties_splits": (300, None, (64, 192), False),
+    "row_sees_no_key": (250, None, "row0", False),
+    "int8_cache": (290, 100, (130, 140), True),
+}
+SPLIT_PARAMS = [(case, per, kernel) for case in sorted(SPLIT_CASES)
+                for per in (1, 2, 3)
+                for kernel in ("cuda_core", "tensor_core")
+                if not (SPLIT_CASES[case][3] and kernel == "tensor_core")]
+
+
+@pytest.mark.parametrize("case,per,kernel", SPLIT_PARAMS)
+def test_split_decode_merges_to_the_plain_version(case, per, kernel):
+    """The split walk and its lse merge (splits of 1, 2 and 3 tiles of a
+    5-tile cache) against the plain version and the JAX Pallas kernel
+    (interpret mode), fp32 at 1e-5: splits emptied by the cache index, a
+    window or an all-masked key range, a row that sees no key, an int8
+    cache. The tensor-core kernel's rounding points (bf16 inputs, P.V as
+    bf16(P) + bf16(P - bf16(P))) stay inside K4's bf16 tolerance,
+    2**-7 |plain| + 1e-3."""
+    cidx, window, edit, int8 = SPLIT_CASES[case]
+    B, H, Hkv, S, D = 2, 8, 2, 5 * TILE - 7, 16
+    q, k, v, mask, scales = _inputs(B, H, Hkv, S, D, int8, seed=41)
+    if edit == "row0":
+        mask[0] = 0
+    elif edit is not None:
+        mask[:, edit[0]:edit[1]] = 0
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    t = {n: torch.from_numpy(s) for n, s in scales.items()}
+    tmask = torch.from_numpy(mask)
+    tc = kernel == "tensor_core"
+    if tc:      # the kernel reads bf16 q, K and V
+        tq, tk, tv = _bf16(tq), _bf16(tk), _bf16(tv)
+    got = _emulate_split_decode(tq, tk, tv, cidx, tmask, window, per,
+                                16 if tc else TILE, split_p=tc, **t)
+    plain = decode_attention_plain(tq, tk, tv, cidx, key_mask=tmask,
+                                   window=window, **t)
+    if tc:
+        torch.testing.assert_close(_bf16(got), _bf16(plain), rtol=2 ** -7,
+                                   atol=1e-3)
+    else:
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+        want = jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          cidx, key_mask=jnp.asarray(mask), block_k=16,
+                          interpret=True, window=window,
+                          **{n: jnp.asarray(s) for n, s in scales.items()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    if edit == "row0":
+        assert not got[0].abs().sum(), "a row that sees no key is zeros"
+
+
+def test_split_count_comes_from_the_cache_capacity():
+    """K4's split count depends on B, Hkv, S and the card's SM count only
+    (never on cache_index): whole tiles per split, no split without a
+    tile, and more than half the splits that two blocks an SM want."""
+    assert decode_splits(8, 8, 576, 132) == 5      # 9 tiles, 2 a split
+    assert decode_splits(8, 8, 8192, 132) == 5     # 128 tiles, 26 a split
+    assert decode_splits(3, 2, 2048, 132) == 32    # a tile a split
+    assert decode_splits(1, 1, 10, 132) == 1
+    assert decode_splits(64, 8, 576, 132) == 1     # 512 blocks already
+    for B, Hkv, S in ((8, 8, 576), (3, 3, 2048), (2, 2, 1000), (1, 8, 300)):
+        splits = decode_splits(B, Hkv, S, 132)
+        tiles = -(-S // TILE)
+        per = -(-tiles // splits)
+        assert (splits - 1) * per < tiles <= splits * per
+        want = -(-2 * 132 // (B * Hkv))
+        assert 2 * splits > min(want, tiles)

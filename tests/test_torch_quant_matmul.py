@@ -158,3 +158,78 @@ def test_codes_of_a_transposed_weight_are_contiguous():
         assert codes.is_contiguous() and scale.is_contiguous()
     codes, scale = qm.quantize_weight_per_col(w)
     assert codes.is_contiguous() and scale.is_contiguous()
+
+
+#: Llama-3-8B's projections, (K, N): q and o, k and v, gate and up, down
+LLAMA3_8B_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 14336),
+                         (14336, 4096))
+
+
+def test_prefill_route_is_chosen_by_shape():
+    """The kernel a call runs is a function of its shape alone: every
+    Llama-3-8B projection's bf16 prefill takes the wgmma kernel, rows that
+    TMA cannot address (N % 16 or K % 8 not 0) take the mma.sync kernel,
+    M <= 8 the GEMV and fp32 x the CUDA-core tiles."""
+    for K, N in LLAMA3_8B_PROJECTIONS:
+        for M in (9, 129, 512, 4096, 4097):
+            assert qm.kernel_route(M, K, N, torch.bfloat16) == "wgmma"
+            assert qm.kernel_route(M, K, N, torch.float32) == "fp32"
+        for M in (1, 8):
+            assert qm.kernel_route(M, K, N, torch.bfloat16) == "gemv"
+    assert qm.kernel_route(4096, 4096, 1000, torch.bfloat16) == "mma"
+    assert qm.kernel_route(37, 264, 1000, torch.bfloat16) == "mma"
+    assert qm.kernel_route(300, 260, 1024, torch.bfloat16) == "mma"
+    assert qm.kernel_route(129, 264, 1024, torch.bfloat16) == "wgmma"
+
+
+def _kernel_dequantized_weight(codes, scale, mode, K):
+    """The wgmma kernel's dequantization, emulated: K tiles of 64 rows;
+    lane l of a warp takes a column pair (n, n + 1) and, in every tile,
+    the K rows 2 q + 16 j + 8 h (+ 1) for q = l % 4, j < 4, h < 2, in that
+    order, so all threads with the same q walk the same rows (emulated
+    together over the columns). A thread reloads its two scales only when
+    a row leaves the group it holds (int4: once per row pair), and rounds
+    code x scale (fp32) to bf16; rows past K hold zero codes."""
+    N = codes.shape[1]
+    int4 = mode == "int4"
+    vals = qm.unpack_int4(codes) if int4 else codes
+    col = mode == "int8_col"
+    g = K // (1 if col else scale.shape[0])
+    tiles = -(-K // 64)
+    out = torch.empty(tiles * 64, N, dtype=torch.bfloat16)
+    for q in range(4):
+        sc, sc_end = torch.zeros(N), 0
+        for kt in range(tiles):
+            for j in range(4):
+                for h in range(2):
+                    k = kt * 64 + 2 * q + 16 * j + 8 * h
+                    for kk in (k, k + 1):
+                        if not col and kk < K and kk >= sc_end \
+                                and (kk == k or not int4):
+                            sc, sc_end = scale[kk // g], (kk // g + 1) * g
+                        code = vals[kk].float() if kk < K else torch.zeros(N)
+                        out[kk] = (code if col else code * sc).bfloat16()
+    return out[:K]
+
+
+@pytest.mark.parametrize("mode,group,K,N", [
+    ("int8", 64, 264, 320),      # groups of 44 cut the 64-row tiles
+    ("int4", 8, 264, 144),       # 33 groups of 8; K ends 8 rows into a tile
+    ("int4", 64, 256, 256),
+    ("int8", 0, 200, 160),       # per-column scales
+    ("int8_col", 0, 136, 144)])  # K8: codes only, the scale in the epilogue
+def test_dequantized_tiles_match_dequantize_linear_weight(mode, group, K, N):
+    """The kernel's per-K-tile dequantization is bit-identical to
+    ``dequantize_linear_weight`` in bf16, which the plain version
+    multiplies by, for groups that cut a tile and per-column scales."""
+    w = torch.from_numpy(_w(K, N, seed=12))
+    if mode == "int8_col":
+        codes, col_scale = qm.quantize_weight_per_col(w)
+        want = codes.to(torch.bfloat16)
+        got = _kernel_dequantized_weight(codes, col_scale, mode, K)
+    else:
+        codes, scale = qm.quantize_linear_weight(w, mode, group)
+        want = qm.dequantize_linear_weight(codes, scale, mode,
+                                           torch.bfloat16)
+        got = _kernel_dequantized_weight(codes, scale, mode, K)
+    assert torch.equal(got, want)

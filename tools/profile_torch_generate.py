@@ -30,13 +30,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
-# first match wins: K5's tc_decode_kernel must not count as K4's
-# decode_kernel
+# first match wins: K5's kernels before cuBLAS's gemm / gemv names
 CLASSES = (("quant_matmul", re.compile(
-               r"anonymous namespace\)::(tc_prefill|tc_decode|gemv|gemm|finalize)"
-               r"_kernel")),
+               r"anonymous namespace\)::(wgmma_prefill|tc_prefill|tc_decode|"
+               r"gemv|gemm|finalize)_kernel")),
            ("decode_attention", re.compile(
-               r"anonymous namespace\)::decode_kernel")),
+               r"anonymous namespace\)::decode_(tc_split|split|merge)"
+               r"_kernel")),
            ("matmul", re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas",
                                  re.I)))
 NEW = 64
