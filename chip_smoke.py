@@ -29,9 +29,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    D 128, cache 576, bf16, left-padded key masks) and an int8 cache, a
    window, an fp32 case and caches of 2048 and 8192 (each with its split
    count); K5 quantized matmul at Llama-3-8B projection shapes (decode
-   M 8 and prefill M 4096 at the q, up and down shapes, int8 per-column
-   and int4 group 64) plus fp32 and ragged cases, each with the kernel
-   route it took; K8 per-column int8 matmul (decode, q and up prefill); K9
+   M 8 at every projection shape and M 1 at up, prefill M 4096 at the q,
+   up and down shapes, int8 per-column and int4 group 64) plus fp32 and
+   ragged cases, each with the kernel route it took (the decode kernel's
+   column tiles and cluster size), its GB/s and share of the bound; K8
+   per-column int8 matmul (decode up and down, q and up prefill); K9
    block-sparse attention forward, dQ and dK/dV at the long-context
    path's main shape (B 1, T 16384, H 32, D 128, bf16, causal, block 128,
    BSLongformer and BigBird, the plain versions head by head) and at
@@ -67,7 +69,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    with bf16 weights and prefill_flash_from_empty; asserts the output
    shape, finite logits, K4 launched 32 x 63 times, with int8 weights K5
    launched 7 x 32 x 64 times (7 x 32 of them, the prefill's, on the
-   wgmma kernel), and with the flag the masked K1 launched 32 times;
+   wgmma kernel, and 7 x 32 x 63, the decode steps', on the gemv_tc
+   kernel), and with the flag the masked K1 launched 32 times;
 7. train: initialize + train_batch on full-width Llama-400M (random
    weights from seed 0, all 24 layers), the JAX package's bench config
    (batch 8 x 1024, AdamW, bf16, clipping 1.0), 2 warm-up and 10 timed
@@ -1315,6 +1318,11 @@ QUANT_CASES = {
     "decode_up_int4g64": (8, 4096, 14336, "int4", 64, torch.bfloat16),
     "decode_down_int8": (8, 14336, 4096, "int8", 0, torch.bfloat16),
     "decode_down_int4g64": (8, 14336, 4096, "int4", 64, torch.bfloat16),
+    "decode_q_int8": (8, 4096, 4096, "int8", 0, torch.bfloat16),
+    "decode_q_int4g64": (8, 4096, 4096, "int4", 64, torch.bfloat16),
+    "decode_kv_int8": (8, 4096, 1024, "int8", 0, torch.bfloat16),
+    "decode_kv_int4g64": (8, 4096, 1024, "int4", 64, torch.bfloat16),
+    "decode_up_int8_m1": (1, 4096, 14336, "int8", 0, torch.bfloat16),
     "prefill_q_int8": (4096, 4096, 4096, "int8", 0, torch.bfloat16),
     "prefill_q_int4g64": (4096, 4096, 4096, "int4", 64, torch.bfloat16),
     "prefill_up_int8": (4096, 4096, 14336, "int8", 0, torch.bfloat16),
@@ -1329,6 +1337,7 @@ INT8_COL_MAIN = "decode_up"
 INT8_COL_CASES = {
     # name: (M, K, N, dtype)
     "decode_up": (8, 4096, 14336, torch.bfloat16),
+    "decode_down": (8, 14336, 4096, torch.bfloat16),
     "prefill_q": (4096, 4096, 4096, torch.bfloat16),
     "prefill_up": (4096, 4096, 14336, torch.bfloat16),
     "ragged_m37_fp32": (37, 264, 1000, torch.float32),
@@ -1342,6 +1351,16 @@ def _matmul_tolerance(x, w, dtype):
     sides round nearly equal fp32 sums."""
     mag = x.float().abs() @ w.float().abs()
     return mag * 1e-5, 2 ** -7 if dtype == torch.bfloat16 else 0.0
+
+
+def _quant_route(qm, M, K, N, mode, dtype):
+    """The route a quantized matmul takes, with the gemv_tc kernel's column
+    tiles and cluster size on this card."""
+    route = qm.kernel_route(M, K, N, dtype)
+    if route == "gemv_tc":
+        tiles, cluster = qm.gemv_tc_grid(K, N, mode, qm._sm_count(0))
+        route += f" {tiles} tiles x cluster {cluster}"
+    return route
 
 
 def check_quant_matmul():
@@ -1385,11 +1404,12 @@ def check_quant_matmul():
                              library_ms=library_ms)
         log(f"parity quant_matmul {name} (M {M} K {K} N {N} {mode} group "
             f"{K // scale.shape[0]} {str(dtype)[6:]}, route "
-            f"{qm.kernel_route(M, K, N, dtype)}): ok max_abs_err="
+            f"{_quant_route(qm, M, K, N, mode, dtype)}): ok max_abs_err="
             f"{float(err.max()):.3e} (tolerance {rel:g}*|plain|+1e-5*"
             f"(|x|@|W|)) | kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
             f"bound_ms={bms:.4f} ({by}) library_ms={library_ms:.4f} "
-            f"(torch.matmul on the pre-dequantized weight)")
+            f"(torch.matmul on the pre-dequantized weight) | "
+            f"{nbytes / ms / 1e6:.1f} GB/s, {bms / ms:.1%} of the bound")
         del x, codes, scale, got, ref, wd
     col = {}
     for name, (M, K, N, dtype) in INT8_COL_CASES.items():
@@ -1419,10 +1439,12 @@ def check_quant_matmul():
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=library_ms)
         log(f"parity int8_matmul {name} (M {M} K {K} N {N} "
-            f"{str(dtype)[6:]}, route {qm.kernel_route(M, K, N, dtype)}): ok "
-            f"max_abs_err={float(err.max()):.3e} | "
+            f"{str(dtype)[6:]}, route "
+            f"{_quant_route(qm, M, K, N, 'int8_col', dtype)}): "
+            f"ok max_abs_err={float(err.max()):.3e} | "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
-            f"{bms:.4f} ({by}) library_ms={library_ms:.4f}")
+            f"{bms:.4f} ({by}) library_ms={library_ms:.4f} | "
+            f"{nbytes / ms / 1e6:.1f} GB/s, {bms / ms:.1%} of the bound")
         del x, codes, scale, got, ref, wd
     return results, col
 
@@ -1666,8 +1688,9 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     engine's first-use costs, the second's time is the prefill's), then
     the counted ``generate``: the kernel counts are set to 0 just before
     it. Returns the tokens, the engine, the prefill and total seconds, the
-    launches of K4, K5, the masked K1 and K5's wgmma prefill kernel in the
-    counted run, and whether every logit of it was finite."""
+    launches of K4, K5, the masked K1, K5's wgmma prefill kernel and its
+    gemv_tc decode kernel in the counted run, and whether every logit of
+    it was finite."""
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import LlamaForCausalLM
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
@@ -1691,6 +1714,7 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     finite.clear()
     decode_attention.launches = quant_matmul.launches = 0
     flash_attention_fwd_masked.launches = quant_matmul.wgmma_launches = 0
+    quant_matmul.gemv_tc_launches = 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out = engine.generate(ids, attention_mask=mask,
@@ -1698,7 +1722,8 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     prefill_s, total_s = engine.model_times()
     return out, engine, prefill_s, total_s, \
         (decode_attention.launches, quant_matmul.launches,
-         flash_attention_fwd_masked.launches, quant_matmul.wgmma_launches), \
+         flash_attention_fwd_masked.launches, quant_matmul.wgmma_launches,
+         quant_matmul.gemv_tc_launches), \
         bool(torch.stack(finite).all())
 
 
@@ -1736,11 +1761,11 @@ def check_small_generate_reference(device="cuda"):
             got["kernel"][1][0] > 0 and \
             (got["kernel"][1][1] > 0) == quant and \
             got["kernel"][1][2] == flash and \
-            got["plain"][1] == (0, 0, 0, 0)
+            got["plain"][1] == (0, 0, 0, 0, 0)
         log(f"reference: 2-layer fp32 model generate {name}, kernels vs "
             f"plain versions, 4 prompts x 24 tokens: tokens identical="
             f"{got['kernel'][0] == got['plain'][0]} ok={ok} (K4, K5, masked "
-            f"K1, wgmma K5 launches {got['kernel'][1]} / "
+            f"K1, wgmma K5, gemv_tc K5 launches {got['kernel'][1]} / "
             f"{got['plain'][1]})")
         if not ok:
             raise AssertionError(f"small generate {name}: kernels and plain "
@@ -1764,7 +1789,7 @@ def check_generate():
     for weights, flash in ((None, False), ("int8", False), (None, True)):
         cfg = LlamaConfig.llama3_8b(prefill_flash_from_empty=flash)
         t = time.perf_counter()
-        out, engine, prefill_s, total_s, (k4, k5, k1m, k5w), finite = \
+        out, engine, prefill_s, total_s, (k4, k5, k1m, k5w, k5g), finite = \
             generate_run(cfg, torch.bfloat16, weights, ids, mask, GEN_NEW)
         setup = time.perf_counter() - t - prefill_s - total_s
         decode_ms = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
@@ -1776,24 +1801,28 @@ def check_generate():
             f"decode step {decode_ms:.3f} ms, total {1e3 * total_s:.2f} ms "
             f"= {GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
             f"{peak:.1f} GiB, setup {setup:.1f} s, launches K4 {k4} K5 {k5} "
-            f"(wgmma prefill {k5w}) masked K1 {k1m}, quant "
+            f"(wgmma prefill {k5w}, gemv_tc decode {k5g}) masked K1 {k1m}, "
+            f"quant "
             f"{engine.quant_summary or None}")
-        # K5's prefill: the 7 projections of each layer on the wgmma kernel
+        # K5's prefill: the 7 projections of each layer on the wgmma
+        # kernel; its decode steps on the gemv_tc kernel
         want = (L * (GEN_NEW - 1), 7 * L * GEN_NEW if weights else 0,
-                L if flash else 0, 7 * L if weights else 0)
+                L if flash else 0, 7 * L if weights else 0,
+                7 * L * (GEN_NEW - 1) if weights else 0)
         problems = []
         if tuple(out.shape) != (GEN_B, GEN_NEW):
             problems.append(f"output shape {tuple(out.shape)}")
         if not finite:
             problems.append("a logit is not finite")
-        if (k4, k5, k1m, k5w) != want:
-            problems.append(f"launches K4, K5, masked K1, wgmma K5 "
-                            f"{(k4, k5, k1m, k5w)} != {want}")
+        if (k4, k5, k1m, k5w, k5g) != want:
+            problems.append(f"launches K4, K5, masked K1, wgmma K5, "
+                            f"gemv_tc K5 {(k4, k5, k1m, k5w, k5g)} != "
+                            f"{want}")
         if problems:
             raise AssertionError(f"generate ({weights or 'bf16'}, flash "
                                  f"{flash}): " + "; ".join(problems))
         launches[(weights or "bf16") + ("_flash" if flash else "")] = \
-            (k4, k5, k1m, k5w)
+            (k4, k5, k1m, k5w, k5g)
         del out, engine
         gc.collect()
         torch.cuda.empty_cache()

@@ -79,6 +79,29 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// the same, with an L2 eviction policy (from l2_evict_first)
+__device__ __forceinline__ void tma_load_2d_hint(uint32_t dst,
+                                                 const CUtensorMap* map,
+                                                 int c0, int c1, uint32_t bar,
+                                                 uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "l"(policy)
+      : "memory");
+}
+
+// an L2 policy under which the lines a load brings in are the first to
+// be evicted: for data read once, which should not push out what the
+// next kernels read
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
 // moves registers between warpgroups: a producer warpgroup gives some up,
 // consumers take them (N: a multiple of 8 in [24, 256])
 template <int N>

@@ -21,8 +21,8 @@
 // (M = tokens, thousands) does 2*M operations per code byte: the floor is
 // the operations at the bf16 tensor-core peak.
 //
-// Which kernel runs is chosen by shape before any launch (wgmma_route,
-// mirrored by ops/quant_matmul.py kernel_route):
+// Which kernel runs is chosen by shape before any launch (wgmma_route and
+// gemv_tc_route, mirrored by ops/quant_matmul.py kernel_route):
 // - bf16 x, M > 8, K % 8 == 0 and N % 16 == 0 (every Llama-3-8B
 //   projection): wgmma_prefill_kernel. TMA needs 16-byte row strides, so
 //   rows of x need K % 8 and code rows N % 16. The product is computed
@@ -54,10 +54,35 @@
 //   warps at 64 x 32 each, a K loop of 32 rows whose next tile's global
 //   loads are in flight in registers while the current one multiplies,
 //   the dequantized tile staged in padded shared memory.
-// - M <= 8 (decode), bf16 x: tc_decode_kernel, the same tile code with x
-//   padded to 16 rows, each warp 16 x 16 outputs, K split across blocks
-//   so every SM streams codes; each block writes an fp32 partial and
-//   finalize_kernel sums the splits in order (deterministic), applies
+// - M <= 8 (decode), bf16 x, K % 8 == 0 and N % 16 == 0 (every Llama-3-8B
+//   projection): gemv_tc_kernel, one launch (gemv_tc_route, mirrored by
+//   kernel_route). Its bound is the code bytes over 3.35 TB/s. It is
+//   y^T = W^T x^T again: the dequantized weight (bit for bit the plain
+//   version's bf16 weight) is the A operand of mma.sync m16n8k16, built in
+//   registers from the staged codes, and x^T the B operand, M <= 8 filling
+//   its n8, so no product row is padding. A producer warp keeps 4 stages
+//   in flight with TMA on mbarriers, each 16 KB of codes [128 K, 128 N]
+//   plus x [8, 128 K] and, for grouped scales, each k16 step's scale row:
+//   64 KB in flight a block. Eight consumer warps take one k16 step of
+//   each stage (16-byte, conflict-free loads through the 128B swizzle) and
+//   release it once the mma have read their registers. K is split over
+//   the ranks of a thread-block cluster (at most 8, sized by the host from
+//   the card's SM count: one block an SM for int8, two for int4, whose
+//   dequantization costs twice as much a byte); the warps' and then the
+//   ranks' fp32 sums are added in a fixed order in shared and distributed
+//   shared memory, and K8's column scale and the bf16 rounding follow in
+//   the same kernel: no finalize launch, no fp32 scratch, no atomics, and
+//   nothing read or allocated on the host, so a CUDA graph replays it. Of
+//   the first design's limits (one 4 KB tile in flight, half of every mma
+//   padding, the dequantized tile round-tripping shared memory, a second
+//   launch with a scratch per call, a split fixed for 132 SMs) none is
+//   left. What holds the int8 case back now is the stream itself: with
+//   its products turned off the up projection takes 95% of its time
+//   (PERF.md).
+// - other decodes (ragged bf16 rows, M <= 8): tc_decode_kernel, the first
+//   design: the prefill tile code with x padded to 16 rows, each warp 16 x
+//   16 outputs, K split across blocks; each block writes an fp32 partial
+//   and finalize_kernel sums the splits in order (deterministic), applies
 //   K8's column scale and rounds to bf16.
 // - fp32 x runs on CUDA cores with exact fp32 products, as the plain
 //   version's fp32 matmul: M <= 8 as a GEMV (gemv_kernel: threads along
@@ -881,6 +906,398 @@ int launch_wgmma(const void* x, const void* codes, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// decode GEMV on the tensor cores: M <= 8, bf16 x, K % 8 == 0, N % 16 == 0
+// ---------------------------------------------------------------------------
+
+constexpr int GT_BN = 128;                  // W columns of a column tile
+constexpr int GT_WARPS = 8;                 // consumers: one k16 step each
+constexpr int GT_BK = 16 * GT_WARPS;        // K rows of a stage
+constexpr int GT_STAGES = 4;                // stages in flight
+constexpr int GT_THREADS = 32 * GT_WARPS + 32;  // + the producer warp
+constexpr int GT_C_BYTES = GT_BK * GT_BN;   // a code stage (int4: half used)
+constexpr int GT_X_BYTES = 8 * GT_BK * 2;   // x stage: two [8, 64] boxes
+constexpr int GT_S_BYTES = GT_WARPS * GT_BN * 4;  // a scale row a warp
+constexpr int GT_PART = 8 * GT_BN;          // a block's fp32 partial [8][128]
+constexpr int GT_RED = GT_BN + 4;           // padded rows of the warp sums
+constexpr int GT_MAX_CLUSTER = 8;
+constexpr int GT_SMEM = 1024 +
+                        GT_STAGES * (GT_C_BYTES + GT_X_BYTES + GT_S_BYTES) +
+                        GT_PART * 4 + 2 * GT_STAGES * 8;
+static_assert(GT_WARPS * 8 * GT_RED * 4 <= GT_STAGES * GT_C_BYTES,
+              "the warps' partials reuse the code stages");
+
+// TMA needs 16-byte global row strides (x rows K % 8, code rows N % 16);
+// N % 16 also keeps a thread's 16 columns wholly inside or outside N
+bool gemv_tc_route(int M, int K, int N) {
+  return M <= GV_MAXM && K % 8 == 0 && N % 16 == 0;
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the fp32 at shared address `addr` of cluster rank `rank`
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// 16-byte chunk (16 W columns) of lane group g in a 128-column code tile.
+// int8 lanes 0-7 read rows 2q (+ 16 w) at chunks g: rows 0, 2, 4, 6 swizzle
+// chunks 0 and 1 onto eight banks groups. int4 lanes read byte rows q at
+// chunks 0, 4 (then 1, 5, ...): rows 0-3 XOR 0 and 4 are distinct too.
+template <int MODE>
+__device__ __forceinline__ int gt_chunk(int g) {
+  return MODE == kInt4 ? (g >> 1) | ((g & 1) << 2) : g;
+}
+
+// One k16 step of gemv_tc_kernel for lane (g, q): K rows k, k + 1, k + 8,
+// k + 9 (k = the step's first row + 2 q) of the lane's 16 columns n ..
+// n + 15 as codes (`rows`: int8 one 16-byte row each, int4 two byte rows
+// of nibble pairs), dequantized into the A fragments of 8 mma (tile j:
+// columns 2 j and 2 j + 1) and multiplied with x's B fragment (b0, b1).
+// Scales: sc[16] for the whole step, or (PER_ROW) looked up per K row.
+template <int MODE, bool PER_ROW>
+__device__ __forceinline__ void gt_step(
+    float (&acc)[8][4], const uint4 (&rows)[MODE == kInt4 ? 2 : 4],
+    uint32_t b0, uint32_t b1, const float (&sc)[16],
+    const float* __restrict__ scale, int k, int K, int N, int gl, int n,
+    bool col_in) {
+  constexpr bool INT4 = MODE == kInt4;
+  constexpr float offset = INT4 ? 8.f : 128.f;
+  auto row_scale = [&](int kk, int c) {
+    const int grp = min(kk, K - 1) / gl;
+    return col_in ? __ldg(scale + static_cast<size_t>(grp) * N + n + c)
+                  : 0.f;
+  };
+  // lo[h] / hi[h]: K rows k + 8 h and k + 8 h + 1 of the 16 columns, one
+  // byte (code + offset) a column
+  uint32_t lo[2][4], hi[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if constexpr (INT4) {
+      const uint32_t w[4] = {rows[h].x, rows[h].y, rows[h].z, rows[h].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        lo[h][c] = (w[c] & 0x0F0F0F0Fu) ^ 0x08080808u;
+        hi[h][c] = ((w[c] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      }
+    } else {
+      const uint4 ra = rows[2 * h], rb = rows[2 * h + 1];
+      const uint32_t wa[4] = {ra.x, ra.y, ra.z, ra.w};
+      const uint32_t wb[4] = {rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        lo[h][c] = wa[c] ^ 0x80808080u;
+        hi[h][c] = wb[c] ^ 0x80808080u;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // mma's A fragment: (row g, K 2q, 2q + 1), (row g + 8, the same), then
+    // K + 8
+    uint32_t a[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // column 2 j + e of the chunk
+        const int c = 2 * j + e;
+        const float f0 = code_f(lo[h][j / 2], c % 4, offset);
+        const float f1 = code_f(hi[h][j / 2], c % 4, offset);
+        if (MODE == kInt8Col) {
+          // |code| <= 127 is exact in bf16: the floats' top halves
+          a[2 * h + e] = __byte_perm(__float_as_uint(f0),
+                                     __float_as_uint(f1), 0x7632);
+        } else if (PER_ROW) {
+          a[2 * h + e] = pack(f0 * row_scale(k + 8 * h, c),
+                              f1 * row_scale(k + 8 * h + 1, c));
+        } else {
+          a[2 * h + e] = pack(f0 * sc[c], f1 * sc[c]);
+        }
+      }
+    }
+    mma(acc[j], a, b0, b1);
+  }
+}
+
+// y^T = W^T x^T for M <= 8: the dequantized weight is the A operand of
+// mma.sync m16n8k16 (16 W columns x 16 K rows), built in registers from the
+// staged codes, and x^T the B operand, M rows filling its n8 (rows past M
+// are TMA's zero fill). Block = (column tile t, cluster rank r): 128 W
+// columns over the rank's share of the K tiles. Warp 8 is the producer:
+// one thread keeps GT_STAGES stages in flight with TMA, each a code tile
+// [128 K, 128 N] (int4: [64 byte rows, 128 N]) and x [8, 128 K] as two
+// [8, 64] boxes, all 128B-swizzled, and, for groups of 16 rows or more,
+// the scale row of each warp's group; all on a full / empty mbarrier
+// pair. Consumer warp w takes k16 step w of every stage: lane (g, q) reads
+// the 16 codes of its column chunk in K rows 2q, 2q + 1, 2q + 8, 2q + 9 of
+// the step (int8: four 16-byte loads; int4: byte rows q and q + 4, two),
+// x by ldmatrix.x2, and runs 8 mma (gt_step); it releases the stage once
+// the mma have read every loaded register. The warps' fp32 sums are added
+// in warp order in shared memory, then the ranks' in rank order through
+// distributed shared memory, each rank reducing a slice of the tile; K8's
+// column scale and the bf16 rounding follow in the same kernel. No
+// atomics: bitwise deterministic.
+template <int MODE>
+__global__ void __launch_bounds__(GT_THREADS, 2)
+    gemv_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap cmap,
+                   const __grid_constant__ CUtensorMap smap,
+                   const float* __restrict__ scale,
+                   __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                   int G, int C) {
+  extern __shared__ __align__(1024) unsigned char gt_smem[];
+  constexpr bool INT4 = MODE == kInt4;
+  constexpr int CROWS = INT4 ? GT_BK / 2 : GT_BK;  // code rows a stage
+  const uint32_t raw = saddr(gt_smem);
+  const uint32_t c_s = (raw + 1023) & ~1023u;            // code stages
+  const uint32_t x_s = c_s + GT_STAGES * GT_C_BYTES;      // x stages
+  const uint32_t s_s = x_s + GT_STAGES * GT_X_BYTES;      // scale stages
+  const uint32_t part_s = s_s + GT_STAGES * GT_S_BYTES;   // [8][128] fp32
+  const uint32_t bars = part_s + GT_PART * 4;             // full, empty
+  unsigned char* c_ptr = gt_smem + (c_s - raw);
+  const unsigned char* s_ptr = gt_smem + (s_s - raw);
+  float* part = reinterpret_cast<float*>(gt_smem + (part_s - raw));
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (GT_STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int rank = static_cast<int>(cluster_rank());
+  const int n0 = (blockIdx.x / C) * GT_BN;
+  // the rank's K tiles: [rank * nk / C, (rank + 1) * nk / C)
+  const int nk = (K + GT_BK - 1) / GT_BK;
+  const int kt0 = rank * nk / C;
+  const int nkr = (rank + 1) * nk / C - kt0;
+  const int gl = K / G;  // scale-group length
+  // every k16 step inside one group: per-column scales in registers,
+  // groups of 16 rows or more staged by TMA; else looked up per K row
+  const bool uniform = MODE == kInt8Col || G == 1 || gl % 16 == 0;
+  const bool staged = MODE != kInt8Col && G > 1 && gl % 16 == 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < GT_STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), GT_WARPS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int g = lane / 4;
+  const int q = lane % 4;
+  const int nl = 16 * gt_chunk<MODE>(g);  // the lane's 16 columns
+  const int n = n0 + nl;
+
+  if (warp == GT_WARPS) {
+    if (lane == 0) {
+      // the codes are read once: their lines leave L2 first
+      const uint64_t evict_first = hopper::l2_evict_first();
+      const uint32_t tx = CROWS * GT_BN + GT_X_BYTES +
+                          (staged ? GT_S_BYTES : 0);
+      for (int i = 0; i < nkr; ++i) {
+        const int s = i % GT_STAGES;
+        const int kt = kt0 + i;
+        hopper::mbar_wait(empty(s), ((i / GT_STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(full(s), tx);
+        hopper::tma_load_2d_hint(c_s + s * GT_C_BYTES, &cmap, n0,
+                                 kt * CROWS, full(s), evict_first);
+        for (int b = 0; b < GT_BK / 64; ++b)
+          hopper::tma_load_2d(x_s + s * GT_X_BYTES + 1024 * b, &xmap,
+                              kt * GT_BK + 64 * b, 0, full(s));
+        if (staged) {
+          // the scale row [128 columns] of each warp's step's group
+          for (int w = 0; w < GT_WARPS; ++w)
+            hopper::tma_load_2d(s_s + s * GT_S_BYTES + w * GT_BN * 4, &smap,
+                                n0, min(kt * GT_BK + 16 * w, K - 1) / gl,
+                                full(s));
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const bool col_in = n < N;
+    // the scales of the lane's 16 columns for one group (rows past K hold
+    // zero codes: any finite scale will do)
+    float sc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+      sc[c] = MODE != kInt8Col && G == 1 && col_in ? __ldg(scale + n + c)
+                                                   : 0.f;
+    // the lane's ldmatrix row of x: row m = lane % 8, K 16 w (+ 8 for
+    // lanes 8-15) in box w / 4
+    const uint32_t x_lane =
+        (lane & 7) * 128 +
+        ((((warp % 4) * 2 + ((lane >> 3) & 1)) ^ (lane & 7)) << 4) +
+        (warp / 4) * 1024;
+
+    // stage i: loads, the products (PER_ROW: scales looked up per K row),
+    // then the release of the stage, once every loaded register was used
+    auto consume = [&](auto per_row, int i) {
+      constexpr bool PER_ROW = decltype(per_row)::value;
+      const int s = i % GT_STAGES;
+      hopper::mbar_wait(full(s), (i / GT_STAGES) & 1);
+      const unsigned char* ct = c_ptr + s * GT_C_BYTES;
+      auto row16 = [&](int r) {
+        return *reinterpret_cast<const uint4*>(
+            ct + r * GT_BN + (((nl >> 4) ^ (r & 7)) << 4));
+      };
+      uint4 rows[INT4 ? 2 : 4];
+      if constexpr (INT4) {
+        rows[0] = row16(8 * warp + q);
+        rows[1] = row16(8 * warp + q + 4);
+      } else {
+        rows[0] = row16(16 * warp + 2 * q);
+        rows[1] = row16(16 * warp + 2 * q + 1);
+        rows[2] = row16(16 * warp + 2 * q + 8);
+        rows[3] = row16(16 * warp + 2 * q + 9);
+      }
+      uint32_t b0, b1;
+      ldsm_x2(b0, b1, x_s + s * GT_X_BYTES + x_lane);
+      float scs[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) scs[c] = sc[c];
+      if (!PER_ROW && staged) {
+        const float4* sp = reinterpret_cast<const float4*>(
+            s_ptr + s * GT_S_BYTES + (warp * GT_BN + nl) * 4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 v = sp[c];
+          scs[4 * c] = v.x;
+          scs[4 * c + 1] = v.y;
+          scs[4 * c + 2] = v.z;
+          scs[4 * c + 3] = v.w;
+        }
+      }
+      gt_step<MODE, PER_ROW>(acc, rows, b0, b1, scs, scale,
+                             (kt0 + i) * GT_BK + 16 * warp + 2 * q, K, N, gl,
+                             n, col_in);
+      // a shared-memory load may still be reading after it issued: the
+      // stage is released only once mma has consumed every loaded register
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(s));
+    };
+    for (int i = 0; i < nkr; ++i) {
+      if (uniform)
+        consume(std::false_type{}, i);
+      else
+        consume(std::true_type{}, i);
+    }
+  }
+
+  // the warps' partials, in warp order, into part [m][128 columns]
+  __syncthreads();  // every stage consumed: the code ring is free
+  // red [warp][8 m][GT_RED columns]: the padded rows put the lanes of
+  // one store (columns 16 c + 2 j, rows 2 q) on distinct banks
+  float* red = reinterpret_cast<float*>(c_ptr);
+  if (warp < GT_WARPS) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(warp * 8 + 2 * q + (e & 1)) * GT_RED + nl + 2 * j + (e >> 1)] =
+            acc[j][e];
+  }
+  __syncthreads();
+  for (int e = tid; e < GT_PART; e += GT_THREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < GT_WARPS; ++w)
+      sum += red[(w * 8 + e / GT_BN) * GT_RED + e % GT_BN];
+    part[e] = sum;
+  }
+  // the ranks' partials, in rank order; rank r writes its slice of the
+  // M x 128 outputs (all C loads issued before the sum)
+  cluster_sync();
+  const int total = M * GT_BN;
+  const int e_end = (rank + 1) * total / C;
+  for (int e = rank * total / C + tid; e < e_end; e += GT_THREADS) {
+    const int col = n0 + e % GT_BN;
+    if (col >= N) continue;
+    float v[GT_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < GT_MAX_CLUSTER; ++r)
+      if (r < C) v[r] = ld_cluster(part_s + 4 * e, static_cast<uint32_t>(r));
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < GT_MAX_CLUSTER; ++r)
+      if (r < C) sum += v[r];
+    if (MODE == kInt8Col) sum *= scale[col];
+    out[static_cast<size_t>(e / GT_BN) * N + col] = __float2bfloat16(sum);
+  }
+  cluster_sync();  // no block leaves while another reads its partial
+}
+
+template <int MODE>
+int launch_gemv_tc(const void* x, const void* codes, const float* scale,
+                   __nv_bfloat16* out, int M, int K, int N, int G, int C,
+                   cudaStream_t stream) {
+  constexpr int CROWS = MODE == kInt4 ? GT_BK / 2 : GT_BK;
+  if (C < 1 || C > GT_MAX_CLUSTER || C > (K + GT_BK - 1) / GT_BK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, cmap, smap;
+  if (!hopper::make_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M,
+                           K, K, 8, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map_2d(&cmap, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                           MODE == kInt4 ? K / 2 : K, N, N, CROWS, GT_BN,
+                           CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map_2d(&smap, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                           MODE == kInt8Col ? 1 : G, N, N, 1, GT_BN,
+                           CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem<gemv_tc_kernel<MODE>>(GT_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + GT_BN - 1) / GT_BN) * C);
+  cfg.blockDim = dim3(GT_THREADS);
+  cfg.dynamicSmemBytes = GT_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;  // a cluster of one launches as a grid
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, gemv_tc_kernel<MODE>, xmap, cmap, smap, scale, out, M, K, N, G,
+      C);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename XT, int MODE>
 int launch(const void* x, const void* codes, const void* scale, void* out,
            void* work, int M, int K, int N, int G, int splits,
@@ -893,6 +1310,9 @@ int launch(const void* x, const void* codes, const void* scale, void* out,
   float* wp = static_cast<float*>(work);
   if (M <= GV_MAXM) {
     if constexpr (BF16) {
+      if (gemv_tc_route(M, K, N))
+        return launch_gemv_tc<MODE>(x, codes, sp, op, M, K, N, G, splits,
+                                    stream);
       const dim3 grid((N + TC_BN - 1) / TC_BN, 1, splits);
       tc_decode_kernel<MODE><<<grid, TC_THREADS, 0, stream>>>(
           xp, cp, sp, wp, M, K, N, G, splits);
@@ -950,7 +1370,8 @@ int launch_mode(int mode, const void* x, const void* codes, const void* scale,
 // C entry for ctypes. x [M, K] (x_bf16: bf16, else fp32), codes int8
 // [K, N] (modes 0 and 2) or uint8 [K/2, N] (mode 1), scale fp32 [G, N]
 // (modes 0, 1) or [N] (mode 2), out [M, N] in x's type, work fp32
-// [splits, M, N] (used when M <= 8). G divides K (into even groups for
+// [splits, M, N] (read when M <= 8 off the gemv_tc route, whose `splits`
+// is its cluster size). G divides K (into even groups for
 // int4); x and the codes are 16-byte aligned. The caller validates shapes.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int quant_matmul(const void* x, const void* codes,
@@ -974,4 +1395,12 @@ extern "C" int quant_matmul(const void* x, const void* codes,
 // chosen by shape before any launch.
 extern "C" int quant_matmul_wgmma_route(int M, int K, int N, int x_bf16) {
   return x_bf16 && wgmma_route(M, K, N) ? 1 : 0;
+}
+
+// 1 when quant_matmul takes the one-launch tensor-core GEMV (gemv_tc_kernel)
+// for these arguments (M <= 8 rows of bf16 x, K % 8 == 0, N % 16 == 0): its
+// `splits` argument is then the cluster size (1 to 8, at most the K tiles of
+// 128 rows), and `work` is not read.
+extern "C" int quant_matmul_gemv_tc_route(int M, int K, int N, int x_bf16) {
+  return x_bf16 && gemv_tc_route(M, K, N) ? 1 : 0;
 }

@@ -19,8 +19,10 @@ The kernels replace ``deepspeed_tpu/ops/pallas/quant_matmul.py::_kernel``
 decode step's product (a few rows) is bound by the bytes of the codes; a
 prefill's (thousands of rows) by operations. Which kernel a call runs is
 a function of its shape alone (:func:`kernel_route`): bf16 prefills whose
-rows TMA can address run the ``wgmma`` kernel. The design note is at the
-top of the CUDA source.
+rows TMA can address run the ``wgmma`` kernel, bf16 decodes the one-launch
+``gemv_tc`` kernel (K split over a thread-block cluster sized from the
+card's SM count, :func:`gemv_tc_grid`). The design note is at the top of
+the CUDA source.
 """
 
 import ctypes
@@ -30,6 +32,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .decode_attention import _sm_count
 
 #: weight-quantization modes; int4 packs two codes per byte along K
 MODES = ("int8", "int4")
@@ -48,16 +51,20 @@ def kernel_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     of ``dtype`` and ``N`` output columns, chosen by shape before any
     launch (the C entry applies the same rule):
 
-    - ``"gemv"``: ``M <= 8`` (decode), split K and a finalize pass;
-    - ``"wgmma"``: bf16 ``x``, ``M > 8``, and rows TMA can address
-      (16-byte strides: ``K % 8 == 0``, ``N % 16 == 0``);
+    - ``"gemv_tc"``: bf16 ``x``, ``M <= 8`` (decode), and rows TMA can
+      address (16-byte strides: ``K % 8 == 0``, ``N % 16 == 0``): one
+      launch, K split over a thread-block cluster (:func:`gemv_tc_grid`);
+    - ``"gemv"``: other decodes (fp32 ``x``, ragged bf16 rows), split K
+      and a finalize pass;
+    - ``"wgmma"``: bf16 ``x``, ``M > 8``, and rows TMA can address;
     - ``"mma"``: other bf16 prefills (the ``mma.sync`` tile kernel);
     - ``"fp32"``: fp32 ``x``, ``M > 8`` (CUDA-core tiles)."""
+    tma = K % 8 == 0 and N % 16 == 0
     if M <= GEMV_MAX_ROWS:
-        return "gemv"
+        return "gemv_tc" if dtype == torch.bfloat16 and tma else "gemv"
     if dtype != torch.bfloat16:
         return "fp32"
-    return "wgmma" if K % 8 == 0 and N % 16 == 0 else "mma"
+    return "wgmma" if tma else "mma"
 
 
 def _check_mode(mode: str) -> None:
@@ -197,18 +204,43 @@ def _entry():
 _KERNEL_MODE = {"int8": 0, "int4": 1, "int8_col": 2}
 
 
-#: blocks the decode path (M <= 8) aims for: four per SM of an H100
-_GEMV_BLOCKS = 528
+#: ``gemv_tc`` blocks the split aims for per SM: int8 codes stream fastest
+#: one block an SM; int4 has twice the dequantization work a byte, and two
+#: blocks an SM hide more of it (measured on the H100, PERF.md)
+GEMV_TC_BLOCKS_PER_SM = {"int8": 1, "int8_col": 1, "int4": 2}
+#: W columns of a ``gemv_tc`` column tile, K rows of one of its stages
+GEMV_TC_COLS = GEMV_TC_ROWS = 128
+#: the largest portable thread-block cluster
+GEMV_TC_MAX_CLUSTER = 8
+
+
+def gemv_tc_grid(K: int, N: int, mode: str,
+                 sm_count: int) -> Tuple[int, int]:
+    """``(column tiles, cluster size)`` of the ``gemv_tc`` kernel: one
+    block per 128 W columns and cluster rank, the ranks of a cluster
+    sharing the K tiles of 128 rows (rank ``r`` of ``C`` takes tiles
+    ``r * nk // C`` to ``(r + 1) * nk // C``). The cluster size is the
+    largest that keeps ``tiles * C`` within
+    :data:`GEMV_TC_BLOCKS_PER_SM` blocks an SM of ``sm_count`` (one wave),
+    at most 8 and at most one rank per K tile; at least 1."""
+    tiles = -(-N // GEMV_TC_COLS)
+    k_tiles = -(-K // GEMV_TC_ROWS)
+    fit = GEMV_TC_BLOCKS_PER_SM[mode] * sm_count // tiles
+    return tiles, max(1, min(GEMV_TC_MAX_CLUSTER, k_tiles, fit))
+
+
+#: blocks the split route of the decode path aims for: four per SM
+_GEMV_BLOCKS_PER_SM = 4
 
 
 def _gemv_splits(M: int, K: int, N: int, G: int, int4: bool,
-                 tensor_cores: bool) -> int:
-    """K-splits of the decode path (M <= 8): enough blocks to give every
-    SM four, each split at least 256 rows, so the fp32 partials stay small
-    beside the codes. The tensor-core kernel (bf16 x) tiles 128 columns
-    and splits whole 32-row tiles; the CUDA-core GEMV (fp32 x) tiles 256
-    columns and splits whole scale groups (or nibble pairs). The kernels
-    split the same way."""
+                 tensor_cores: bool, sm_count: int) -> int:
+    """K-splits of the ``gemv`` route (M <= 8 off ``gemv_tc``): enough
+    blocks to give every SM four, each split at least 256 rows, so the
+    fp32 partials stay small beside the codes. The tensor-core kernel
+    (bf16 x) tiles 128 columns and splits whole 32-row tiles; the
+    CUDA-core GEMV (fp32 x) tiles 256 columns and splits whole scale
+    groups (or nibble pairs). The kernels split the same way."""
     if M > GEMV_MAX_ROWS:
         return 1
     if tensor_cores:
@@ -216,12 +248,13 @@ def _gemv_splits(M: int, K: int, N: int, G: int, int4: bool,
     else:
         unit = K // G if G > 1 else (2 if int4 else 1)
         tiles, units = -(-N // 256), K // unit
-    want = max(1, min(units, -(-_GEMV_BLOCKS // tiles), K // 256))
+    want = max(1, min(units, -(-_GEMV_BLOCKS_PER_SM * sm_count // tiles),
+                      K // 256))
     per = -(-units // want)
     return -(-units // per)
 
 
-def _launch(name, x, codes, scale, mode, N, G):
+def _launch(name, x, codes, scale, mode, N, G, route):
     x = x.contiguous()
     if x.data_ptr() % 16:       # a view at an odd offset: vector loads
         x = x.clone()
@@ -231,10 +264,14 @@ def _launch(name, x, codes, scale, mode, N, G):
         return out
     if K == 0:
         return out.zero_()
-    splits = _gemv_splits(M, K, N, G, mode == "int4",
-                          x.dtype == torch.bfloat16)
-    work = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) \
-        if M <= GEMV_MAX_ROWS else out
+    sms = _sm_count(x.device.index)
+    if route == "gemv_tc":
+        splits, work = gemv_tc_grid(K, N, mode, sms)[1], out
+    else:
+        splits = _gemv_splits(M, K, N, G, mode == "int4",
+                              x.dtype == torch.bfloat16, sms)
+        work = torch.empty((splits, M, N), dtype=torch.float32,
+                           device=x.device) if route == "gemv" else out
     with torch.cuda.device(x.device):
         rc = _entry()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
                       out.data_ptr(), work.data_ptr(), M, K, N, G,
@@ -264,9 +301,9 @@ def _check(name, x, codes, scale):
                              f"{x.dtype}")
         # a weight is never copied per call: strided codes are a caller bug
         if not (codes.is_contiguous() and scale.is_contiguous()) \
-                or codes.data_ptr() % 16:
+                or codes.data_ptr() % 16 or scale.data_ptr() % 16:
             raise ValueError(f"{name}: codes and scales must be contiguous "
-                             f"and the codes 16-byte aligned")
+                             f"and 16-byte aligned")
     return dev
 
 
@@ -275,7 +312,8 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     """``x [M, K] @ dequant(codes, scale)`` in ``x.dtype`` (kernel K5; see
     the plain version). CUDA tensors launch the kernel on the current
     stream and add one to ``quant_matmul.launches`` (and to
-    ``quant_matmul.wgmma_launches`` on the ``wgmma`` route); CPU tensors take
+    ``quant_matmul.wgmma_launches`` on the ``wgmma`` route,
+    ``quant_matmul.gemv_tc_launches`` on ``gemv_tc``); CPU tensors take
     :func:`quant_matmul_plain`; anything else raises."""
     _check_mode(mode)
     dev = _check("quant_matmul", x, codes, scale)
@@ -295,10 +333,14 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                          f"got {scale.dtype} {tuple(scale.shape)}")
     if dev.type == "cpu":
         return quant_matmul_plain(x, codes, scale, mode)
-    out = _launch("quant_matmul", x, codes, scale, mode, scale.shape[1], G)
+    route = kernel_route(M, K, scale.shape[1], x.dtype)
+    out = _launch("quant_matmul", x, codes, scale, mode, scale.shape[1], G,
+                  route)
     quant_matmul.launches += 1
-    if kernel_route(M, K, scale.shape[1], x.dtype) == "wgmma":
+    if route == "wgmma":
         quant_matmul.wgmma_launches += 1
+    elif route == "gemv_tc":
+        quant_matmul.gemv_tc_launches += 1
     return out
 
 
@@ -306,7 +348,8 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """``(x [M, K] @ codes [K, N]) * scale [N]`` in ``x.dtype`` (kernel K8;
     see the plain version). CUDA tensors launch the kernel and add one to
-    ``int8_matmul.launches``; CPU tensors take :func:`int8_matmul_plain`;
+    ``int8_matmul.launches`` (and ``int8_matmul.gemv_tc_launches`` on the
+    ``gemv_tc`` route); CPU tensors take :func:`int8_matmul_plain`;
     anything else raises."""
     dev = _check("int8_matmul", x, codes, scale)
     if codes.dtype != torch.int8 or codes.shape[0] != x.shape[1] \
@@ -318,12 +361,17 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
                          f"{tuple(scale.shape)} for x {tuple(x.shape)}")
     if dev.type == "cpu":
         return int8_matmul_plain(x, codes, scale)
+    route = kernel_route(*x.shape, codes.shape[1], x.dtype)
     out = _launch("int8_matmul", x, codes, scale, "int8_col",
-                  codes.shape[1], 1)
+                  codes.shape[1], 1, route)
     int8_matmul.launches += 1
+    if route == "gemv_tc":
+        int8_matmul.gemv_tc_launches += 1
     return out
 
 
-#: launches of each wrapper, and of quant_matmul's those on the wgmma kernel
+#: launches of each wrapper, and of those the ones on the wgmma prefill
+#: and on the gemv_tc decode kernel
 quant_matmul.launches = quant_matmul.wgmma_launches = 0
-int8_matmul.launches = 0
+quant_matmul.gemv_tc_launches = 0
+int8_matmul.launches = int8_matmul.gemv_tc_launches = 0

@@ -254,8 +254,9 @@ def test_decode_kernel_launch_is_independent_of_cache_index(cuda, dtype):
 
 def test_quant_prefill_and_decode_kernels_are_deterministic(cuda):
     """Repeated calls give bitwise equal outputs: K5's wgmma prefill and
-    its split-K decode (the splits summed in order), K8's prefill, and
-    K4's split walk and merge (no atomics anywhere)."""
+    its decode (the gemv_tc kernel's warps and cluster ranks summed in
+    order), K8's prefill, and K4's split walk and merge (no atomics
+    anywhere)."""
     g = torch.Generator(device=cuda).manual_seed(5)
     for M, K, N, mode, group in ((300, 1024, 768, "int8", 0),
                                  (300, 1024, 768, "int4", 64),
@@ -284,15 +285,93 @@ def test_quant_prefill_and_decode_kernels_are_deterministic(cuda):
 
 def test_wgmma_route_is_the_c_entrys(cuda):
     """``kernel_route`` (what the CPU tests check) is the rule the C entry
-    applies before it launches."""
-    c_route = qm._build.load("quant_matmul").quant_matmul_wgmma_route
-    for M in (1, 8, 9, 129, 4096):
-        for K in (264, 1000, 1024, 4100, 14336):
-            for N in (768, 1000, 1024, 4104, 14336):
-                for dtype in (torch.bfloat16, torch.float32):
-                    want = qm.kernel_route(M, K, N, dtype) == "wgmma"
-                    got = c_route(M, K, N, int(dtype == torch.bfloat16))
-                    assert bool(got) == want, (M, K, N, dtype)
+    applies before it launches, for the wgmma prefill and the gemv_tc
+    decode kernel."""
+    lib = qm._build.load("quant_matmul")
+    for route, c_route in (("wgmma", lib.quant_matmul_wgmma_route),
+                           ("gemv_tc", lib.quant_matmul_gemv_tc_route)):
+        for M in (1, 5, 8, 9, 129, 4096):
+            for K in (264, 1000, 1024, 4100, 14336):
+                for N in (768, 1000, 1024, 4104, 14336):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        want = qm.kernel_route(M, K, N, dtype) == route
+                        got = c_route(M, K, N, int(dtype == torch.bfloat16))
+                        assert bool(got) == want, (route, M, K, N, dtype)
+
+
+@pytest.mark.parametrize("rows", [(0, 128, 256), (0, 16, 32)],
+                         ids=["cluster_ranks", "warps"])
+def test_gemv_tc_sums_in_a_fixed_order(cuda, rows):
+    """Products 2**24, 1 and -2**24 in column 0 at K rows that fall to
+    cluster ranks 0, 1, 2 (K 384: three K tiles, a cluster of 3) or to
+    warps 0, 1, 2 of one stage (K 128): summed in the kernel's order the
+    1 is lost (2**24 + 1 rounds to 2**24), so the result is exactly 0;
+    any other order or a partial summed twice or not at all gives 1, -1
+    or more. The CPU emulation is held to the same inputs."""
+    K, N = (384 if rows[1] == 128 else 128), 128
+    codes = torch.zeros(K, N, dtype=torch.int8, device=cuda)
+    scale = torch.full((1, N), 2.0, device=cuda)
+    x = torch.zeros(1, K, device=cuda)
+    for r, c, v in zip(rows, (64, 1, -64), (2.0 ** 17, 0.5, 2.0 ** 17)):
+        codes[r, 0], x[0, r] = c, v
+    assert qm.gemv_tc_grid(K, N, "int8", 132)[1] == (3 if K == 384 else 1)
+    got = qm.quant_matmul(x.bfloat16(), codes, scale, "int8")
+    torch.cuda.synchronize()
+    assert got[0, 0].item() == 0.0 and not got[0, 1:].any()
+
+
+def test_quant_decode_is_one_launch_and_graph_safe(cuda):
+    """Every Llama-3-8B decode projection (K5 int8 and int4 g64, K8) runs
+    as exactly one kernel (``gemv_tc_kernel``: no finalize pass, no
+    scratch), and a CUDA graph captured around one call, replayed over new
+    x values written into the captured input, matches the plain version
+    each time (the launch reads no device value and allocates nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for M, (K, N) in ((8, (4096, 1024)), (1, (14336, 4096))):
+        w = torch.randn(K, N, generator=g, device=cuda) * 0.02
+        calls = [(mode, *qm.quantize_linear_weight(w, mode, group))
+                 for mode, group in (("int8", 0), ("int4", 64))]
+        calls.append(("int8_col", *qm.quantize_weight_per_col(w)))
+        for mode, codes, scale in calls:
+            def call(x):
+                if mode == "int8_col":
+                    return qm.int8_matmul(x, codes, scale)
+                return qm.quant_matmul(x, codes, scale, mode)
+
+            def plain(x):
+                if mode == "int8_col":
+                    return qm.int8_matmul_plain(x, codes, scale)
+                return qm.quant_matmul_plain(x, codes, scale, mode)
+
+            x = torch.randn(M, K, generator=g, device=cuda,
+                            dtype=torch.bfloat16)
+            call(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call(x)
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type.name == "CUDA"
+                       and "memcpy" not in e.name.lower()
+                       and "memset" not in e.name.lower()]
+            assert len(kernels) == 1 and "gemv_tc_kernel" in kernels[0], \
+                (mode, M, K, N, kernels)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = call(x)
+            for _ in range(3):
+                x.copy_(torch.randn(M, K, generator=g, device=cuda,
+                                    dtype=torch.bfloat16))
+                graph.replay()
+                ref = plain(x)
+                torch.cuda.synchronize()
+                wd = (codes.float() * scale).to(torch.bfloat16) \
+                    if mode == "int8_col" else \
+                    qm.dequantize_linear_weight(codes, scale, mode,
+                                                torch.bfloat16)
+                _assert_matmul_close(got, ref, x, wd)
 
 
 def _assert_matmul_close(got, ref, x, w):
@@ -310,10 +389,13 @@ def _assert_matmul_close(got, ref, x, w):
 @pytest.mark.parametrize("M,K,N", [(1, 512, 768), (8, 2048, 1000),
                                    (5, 264, 1000), (37, 264, 1000),
                                    (300, 1024, 520), (129, 264, 1024),
-                                   (4097, 4096, 14336)])
+                                   (4097, 4096, 14336), (8, 4096, 1024),
+                                   (8, 4096, 14336), (1, 14336, 4096)])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
                                            N):
-    """K5's GEMV path (M <= 8, split K, ragged N) and tiled paths (M > 8,
+    """K5's decode paths (M <= 8: gemv_tc where TMA can address the rows,
+    at Llama-3-8B's k/v, up and down shapes too; the split GEMV at ragged
+    N and for fp32) and tiled paths (M > 8,
     ragged M/N/K tails) against the plain version. bf16 prefills take the
     mma.sync kernel at N 1000 and 520 and the wgmma kernel at (129, 264,
     1024), where groups of 44 or 8 rows cross the 64-row TMA tile and K
@@ -337,7 +419,8 @@ def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (3, 264, 1000),
-                                   (130, 640, 384), (4096, 4096, 4096)])
+                                   (130, 640, 384), (4096, 4096, 4096),
+                                   (8, 4096, 14336), (1, 14336, 4096)])
 def test_int8_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     """K8 (the per-column epilogue) against its plain version."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)

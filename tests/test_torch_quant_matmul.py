@@ -13,7 +13,9 @@ so the K loop and the ragged edges are exercised).
 Tolerance: fp32 throughout. Both sides dequantize the same codes with the
 same scales in fp32 and sum the same products in another order, so they
 agree to a few fp32 ulps of the sum's magnitude: 1e-5 relative and
-absolute at these K (<= 200) and unit-scale inputs.
+absolute at these K (<= 264) and unit-scale inputs. The emulation of the
+decode kernel in bf16 is held to the card's bound: one bf16 ulp of the
+plain result plus 1e-5 of the products' magnitudes.
 """
 
 import jax.numpy as jnp
@@ -169,13 +171,13 @@ def test_prefill_route_is_chosen_by_shape():
     """The kernel a call runs is a function of its shape alone: every
     Llama-3-8B projection's bf16 prefill takes the wgmma kernel, rows that
     TMA cannot address (N % 16 or K % 8 not 0) take the mma.sync kernel,
-    M <= 8 the GEMV and fp32 x the CUDA-core tiles."""
+    M <= 8 the tensor-core GEMV and fp32 x the CUDA-core tiles."""
     for K, N in LLAMA3_8B_PROJECTIONS:
         for M in (9, 129, 512, 4096, 4097):
             assert qm.kernel_route(M, K, N, torch.bfloat16) == "wgmma"
             assert qm.kernel_route(M, K, N, torch.float32) == "fp32"
         for M in (1, 8):
-            assert qm.kernel_route(M, K, N, torch.bfloat16) == "gemv"
+            assert qm.kernel_route(M, K, N, torch.bfloat16) == "gemv_tc"
     assert qm.kernel_route(4096, 4096, 1000, torch.bfloat16) == "mma"
     assert qm.kernel_route(37, 264, 1000, torch.bfloat16) == "mma"
     assert qm.kernel_route(300, 260, 1024, torch.bfloat16) == "mma"
@@ -233,3 +235,227 @@ def test_dequantized_tiles_match_dequantize_linear_weight(mode, group, K, N):
                                            torch.bfloat16)
         got = _kernel_dequantized_weight(codes, scale, mode, K)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the gemv_tc decode kernel (M <= 8, bf16 x), emulated
+# ---------------------------------------------------------------------------
+
+def _gt_chunk(g, int4):
+    """The 16-column chunk of a 128-column tile that lane group g reads
+    (the kernel's gt_chunk: int4 pairs chunks 0 and 4, 1 and 5, ...)."""
+    return (g >> 1) | ((g & 1) << 2) if int4 else g
+
+
+def _emulate_gemv_tc(x, codes, scale, mode, cluster, bf16=True):
+    """``gemv_tc_kernel`` in torch, for ``x [M <= 8, K]``. Returns the
+    product ``[M, N]`` and the weight ``[K, N]`` as the lanes assemble it.
+
+    Tiles of 128 W columns; K tiles of 128 rows, rank r of ``cluster``
+    taking tiles ``r * nk // cluster`` to ``(r + 1) * nk // cluster``;
+    codes and x past K (and columns past N) are TMA's zero fill. A code
+    tile lands in shared memory 128B-swizzled (16-byte chunk c of row r at
+    c ^ (r & 7)) and lane (g, q) of warp w reads its chunk back with the
+    kernel's address: K rows 16 w + 2 q (+ 1, + 8, + 9) of the stage (int4:
+    byte rows 8 w + q and 8 w + q + 4, low nibble first). Each weight is
+    code x scale in fp32, rounded to bf16 (``bf16=False``: kept in fp32),
+    with the scale of the step's group (per K row where groups cut a k16
+    step). Warp w's products accumulate in fp32 over the rank's stages;
+    the block adds its warps in order 0..7, the cluster its ranks in order
+    0..C-1; K8's column scale and the rounding to x's type come last."""
+    M, K = x.shape
+    int4, col = mode == "int4", mode == "int8_col"
+    N = codes.shape[1]
+    gl = K if col else K // scale.shape[0]
+    uniform = col or gl == K or gl % 16 == 0
+    tiles, nk = -(-N // 128), -(-K // 128)
+    crow = 64 if int4 else 128
+    raw = torch.zeros(nk * crow, tiles * 128, dtype=torch.uint8)
+    raw[:codes.shape[0], :N] = codes.view(torch.uint8)
+    xp = torch.zeros(8, nk * 128, dtype=torch.float64)
+    xp[:M, :K] = x.double()
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    lane = torch.arange(32)
+    g, q = lane // 4, lane % 4
+    chunk = _gt_chunk(g, int4)
+    cols = 16 * chunk[:, None] + torch.arange(16)                # [32, 16]
+    y = torch.zeros(8, tiles * 128, dtype=torch.float32)
+    weight = torch.full((nk * 128, tiles * 128), float("nan"))
+    for t in range(tiles):
+        n_glob = (t * 128 + cols).clamp(max=N - 1)
+        ranks = []
+        for r in range(cluster):
+            acc = torch.zeros(8, 128, 8, dtype=torch.float32)  # warp, n, m
+            for kt in range(r * nk // cluster, (r + 1) * nk // cluster):
+                tile = raw[kt * crow:(kt + 1) * crow, t * 128:(t + 1) * 128]
+                rr = torch.arange(crow)[:, None]
+                smem = torch.empty(crow, 8, 16, dtype=torch.uint8)
+                smem[rr, torch.arange(8)[None, :] ^ (rr & 7)] = \
+                    tile.reshape(crow, 8, 16)
+                for w in range(8):
+                    k0 = kt * 128 + 16 * w
+                    if int4:
+                        br = torch.stack([8 * w + q, 8 * w + q + 4], 1)
+                        b = smem[br, chunk[:, None] ^ (br & 7)].int()
+                        # rows k, k + 1 (byte row 0), k + 8, k + 9 (row 1)
+                        u = torch.stack([b[:, 0] & 15, b[:, 0] >> 4,
+                                         b[:, 1] & 15, b[:, 1] >> 4], 1)
+                        code = (u ^ 8) - 8
+                    else:
+                        rows = 16 * w + 2 * q[:, None] + \
+                            torch.tensor([0, 1, 8, 9])
+                        b = smem[rows, chunk[:, None] ^ (rows & 7)].int()
+                        code = (b ^ 128) - 128
+                    k = k0 + 2 * q[:, None] + torch.tensor([0, 1, 8, 9])
+                    if col:
+                        wv = code.float()
+                    else:
+                        grp = (k if not uniform else
+                               torch.full_like(k, k0)).clamp(max=K - 1) // gl
+                        sc = scale[grp[:, :, None], n_glob[:, None, :]]
+                        wv = code.float() * sc
+                    wv = wv.to(wdt)                               # [32, 4, 16]
+                    step = torch.full((16, 128), float("nan"), dtype=wdt)
+                    step[(k - k0)[:, :, None], cols[:, None, :]] = wv
+                    assert not step.float().isnan().any(), "a hole"
+                    weight[k0:k0 + 16, t * 128:(t + 1) * 128] = step.float()
+                    acc[w] += (step.double().T @ xp[:, k0:k0 + 16].T).float()
+            block = acc[0]
+            for w in range(1, 8):
+                block = block + acc[w]
+            ranks.append(block)
+        total = ranks[0]
+        for r in range(1, cluster):
+            total = total + ranks[r]
+        y[:, t * 128:(t + 1) * 128] = total.T
+    y = y[:M, :N]
+    if col:
+        y = y * scale[None, :]
+    return y.to(x.dtype), weight[:K, :N]
+
+
+#: (mode, group, M, K, N, cluster): K 264 ends 8 rows into a tile; int8
+#: group 64 resolves to 44 at K 264 (groups cut the k16 steps); N 144 is
+#: a tile and a ninth of one
+GEMV_TC_CASES = [("int8", 0, 8, 264, 144, 3), ("int8", 64, 5, 264, 144, 2),
+                 ("int4", 8, 1, 264, 144, 3), ("int4", 64, 8, 256, 256, 2),
+                 ("int8_col", 0, 8, 136, 144, 2)]
+
+
+def _quantized(mode, group, K, N, seed):
+    w = torch.from_numpy(_w(K, N, seed))
+    if mode == "int8_col":
+        return qm.quantize_weight_per_col(w)
+    return qm.quantize_linear_weight(w, mode, group)
+
+
+def _plain(x, codes, scale, mode):
+    if mode == "int8_col":
+        return qm.int8_matmul_plain(x, codes, scale)
+    return qm.quant_matmul_plain(x, codes, scale, mode)
+
+
+@pytest.mark.parametrize("mode,group,M,K,N,cluster", GEMV_TC_CASES)
+def test_gemv_tc_emulation_matches_plain_and_jax(mode, group, M, K, N,
+                                                 cluster):
+    """The decode kernel's arithmetic (which lane holds which column and K
+    row, the K tiles of each cluster rank, the warp and rank sums in
+    order) against the plain version and the JAX Pallas kernel
+    (interpret mode): fp32 to 1e-5; in bf16 its lanes assemble exactly
+    ``dequantize_linear_weight``'s bf16 weight, and the product lies
+    within one bf16 ulp of the plain version plus 1e-5 of |x| @ |W|."""
+    codes, scale = _quantized(mode, group, K, N, seed=13)
+    x = np.random.RandomState(14).randn(M, K).astype(np.float32)
+    got, _ = _emulate_gemv_tc(torch.from_numpy(x), codes, scale, mode,
+                              cluster, bf16=False)
+    plain = _plain(torch.from_numpy(x), codes, scale, mode)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    jc, js = jnp.asarray(codes.numpy()), jnp.asarray(scale.numpy())
+    if mode == "int8_col":
+        want = jax_i8.int8_matmul(jnp.asarray(x), jc, js, block_k=32,
+                                  block_n=32, interpret=True)
+    else:
+        want = jax_qm.quant_matmul(jnp.asarray(x), jc, js, mode, block_k=32,
+                                   block_n=32, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+    xb = torch.from_numpy(x).bfloat16()
+    got, weight = _emulate_gemv_tc(xb, codes, scale, mode, cluster)
+    wd = codes.to(torch.bfloat16) if mode == "int8_col" else \
+        qm.dequantize_linear_weight(codes, scale, mode, torch.bfloat16)
+    assert torch.equal(weight.bfloat16(), wd)
+    plain = _plain(xb, codes, scale, mode).float()
+    if mode == "int8_col":
+        wd = (codes.float() * scale).bfloat16()
+    bound = 2 ** -7 * plain.abs() + 1e-5 * (xb.float().abs() @
+                                            wd.float().abs())
+    assert bool(((got.float() - plain).abs() <= bound).all())
+
+
+def _order_case(split):
+    """Inputs whose fp32 sum depends on its order: three products 2**24,
+    1, -2**24 in column 0, in K rows 0, 128, 256 (three K tiles: one per
+    cluster rank, or one per stage of one rank) or, ``split=False``, in
+    rows 0, 16, 32 (warps 0, 1, 2 of one stage). Added in that order the
+    1 is lost (2**24 + 1 rounds to 2**24): the result is 0; in any other
+    order it is 1 or -1."""
+    rows = (0, 128, 256) if split else (0, 16, 32)
+    K, N = 384 if split else 128, 128
+    codes = torch.zeros(K, N, dtype=torch.int8)
+    scale = torch.full((1, N), 2.0)
+    x = torch.zeros(1, K)
+    for r, c, v in zip(rows, (64, 1, -64), (2.0 ** 17, 0.5, 2.0 ** 17)):
+        codes[r, 0], x[0, r] = c, v
+    return x.bfloat16(), codes, scale
+
+
+@pytest.mark.parametrize("split,cluster", [(True, 3), (True, 1),
+                                           (False, 1)])
+def test_gemv_tc_sums_ranks_warps_and_stages_in_order(split, cluster):
+    """The kernel's sums run in a fixed order (ranks 0..C-1, warps 0..7,
+    stages in K order): on inputs whose fp32 sum depends on the order, the
+    emulation gives exactly the in-order result, 0, where a reordered or
+    incomplete reduction gives 1, -1 or 2**24. (The card test
+    ``test_gemv_tc_sums_in_a_fixed_order`` holds the kernel to the same
+    inputs.)"""
+    x, codes, scale = _order_case(split)
+    got, _ = _emulate_gemv_tc(x, codes, scale, "int8", cluster)
+    assert got[0, 0].item() == 0.0
+    assert not got[0, 1:].any()
+
+
+#: Llama-3-8B's projections, (K, N), and the expected gemv_tc grid
+#: (column tiles, cluster size) for int8 / int4 codes on 132 and 114 SMs
+GEMV_TC_GRIDS = {
+    (4096, 4096): {132: ((32, 4), (32, 8)), 114: ((32, 3), (32, 7))},
+    (4096, 1024): {132: ((8, 8), (8, 8)), 114: ((8, 8), (8, 8))},
+    (4096, 14336): {132: ((112, 1), (112, 2)), 114: ((112, 1), (112, 2))},
+    (14336, 4096): {132: ((32, 4), (32, 8)), 114: ((32, 3), (32, 7))},
+}
+
+
+def test_gemv_tc_route_and_split_for_every_llama3_8b_projection():
+    """Every Llama-3-8B decode projection (M 1 and 8, bf16 x) takes the
+    gemv_tc kernel; its cluster size comes from the card's SM count: at
+    most 8, at most one rank per K tile of 128 rows, and the blocks of a
+    launch within one wave (int8 one an SM, int4 two). fp32 x keeps the
+    split GEMV."""
+    assert set(GEMV_TC_GRIDS) == set(LLAMA3_8B_PROJECTIONS)
+    for (K, N), by_sms in GEMV_TC_GRIDS.items():
+        for M in (1, 8):
+            assert qm.kernel_route(M, K, N, torch.bfloat16) == "gemv_tc"
+            assert qm.kernel_route(M, K, N, torch.float32) == "gemv"
+        for sms, (int8, int4) in by_sms.items():
+            for mode, want in (("int8", int8), ("int8_col", int8),
+                               ("int4", int4)):
+                tiles, c = qm.gemv_tc_grid(K, N, mode, sms)
+                assert (tiles, c) == want, (K, N, mode, sms)
+                assert 1 <= c <= 8 and c <= -(-K // 128)
+                assert tiles * c <= qm.GEMV_TC_BLOCKS_PER_SM[mode] * sms
+    # ragged rows that TMA cannot address keep the split GEMV
+    assert qm.kernel_route(8, 264, 1000, torch.bfloat16) == "gemv"
+    assert qm.kernel_route(8, 264, 1024, torch.bfloat16) == "gemv_tc"
+    assert qm.kernel_route(8, 260, 1024, torch.bfloat16) == "gemv"
+    assert qm.gemv_tc_grid(256, 128, "int8", 132) == (1, 2)

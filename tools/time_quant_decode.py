@@ -10,12 +10,12 @@ K4 at every ``chip_smoke.DECODE_CASES`` case beside SDPA on the filled
 prefix (bf16 cases without a window or int8 cache), then K5 at every
 ``chip_smoke.QUANT_CASES`` case and K8 at every
 ``chip_smoke.INT8_COL_CASES`` case, each beside ``torch.matmul`` on the
-pre-dequantized weight. The inputs come from the seeds ``chip_smoke.py``
-uses, so every tree sees the same ones. With ``--generate`` it also runs
-``chip_smoke.py``'s int8-weight Llama-3-8B ``generate`` (batch 8,
-prompts bucketed to 512, 64 new tokens) and prints its prefill and mean
-decode-step ms. Prints one JSON line per case, with the tree, the card's
-name and its power limit.
+pre-dequantized weight and its bound. The inputs come from the seeds
+``chip_smoke.py`` uses, so every tree sees the same ones. With
+``--generate`` it also runs ``chip_smoke.py``'s int8-weight Llama-3-8B
+``generate`` (batch 8, prompts bucketed to 512, 64 new tokens) and prints
+its prefill and mean decode-step ms. Prints one JSON line per case, with
+the tree, the card's name and its power limit.
 
 To compare two trees on one card, run it once per tree in turns in one
 command (parent, change, change, parent).
@@ -69,6 +69,18 @@ def time_decode(cs, tree, reps):
         del q, k, v, mask, scales
 
 
+def _bound_ms(cs, x, codes, scale, N):
+    """``chip_smoke.py``'s bound of a quantized matmul: each input byte
+    read once and the output written once over the card's memory rate,
+    or its operations over the type's peak, whichever is longer."""
+    M, K = x.shape
+    nbytes = codes.numel() + scale.numel() * 4 \
+        + (M * K + M * N) * x.element_size()
+    return cs.bound(nbytes, 2 * M * K * N,
+                    cs.BF16_FLOP_PER_S if x.dtype == torch.bfloat16
+                    else cs.FP32_FLOP_PER_S)[0]
+
+
 def time_matmuls(cs, tree, reps):
     from deepspeed_tpu_torch.ops import quant_matmul as qm
 
@@ -85,7 +97,8 @@ def time_matmuls(cs, tree, reps):
              ms=cs.cuda_time_ms(lambda: qm.quant_matmul(x, codes, scale,
                                                         mode), reps=reps),
              library_ms=cs.cuda_time_ms(lambda: torch.matmul(x, wd),
-                                        reps=reps))
+                                        reps=reps),
+             bound_ms=_bound_ms(cs, x, codes, scale, N))
         del x, codes, scale, wd
     for i, (case, (M, K, N, dtype)) in enumerate(cs.INT8_COL_CASES.items()):
         g = torch.Generator(device="cuda").manual_seed(i + 41)
@@ -97,7 +110,8 @@ def time_matmuls(cs, tree, reps):
              ms=cs.cuda_time_ms(lambda: qm.int8_matmul(x, codes, scale),
                                 reps=reps),
              library_ms=cs.cuda_time_ms(lambda: torch.matmul(x, wd),
-                                        reps=reps))
+                                        reps=reps),
+             bound_ms=_bound_ms(cs, x, codes, scale, N))
         del x, codes, scale, wd
 
 
