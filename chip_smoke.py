@@ -16,7 +16,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    K6 ragged paged attention at the serving step's shapes; K7a paged
    decode attention (B 8, H 32, Hkv 8, D 128, 1024 pages of 16 tokens, a
    table 128 wide, seeded contexts up to 2048, bf16, plus an int8 pool, a
-   window, idle sentinel rows and fp32) and K7b paged chunked-prefill
+   window, idle sentinel rows and fp32; K6's and K7a's lines name the
+   route, tensor or CUDA cores, the grid and the key splits, the achieved
+   GB/s and the share of the bound) and K7b paged chunked-prefill
    attention (B 1, T 64 on the same pool: chunk_start 0, mid-prompt,
    behind a 512-token prefix, a padded tail, int8, window) of the
    two-program serving engine; K1/K2 flash attention forward, dQ and
@@ -166,6 +168,19 @@ def bound(nbytes, flops, flop_rate):
 # kernel K6: ragged paged attention
 # ---------------------------------------------------------------------------
 
+def paged_route(q, k_pages):
+    """The route K6 / K7a take for these inputs: a function of q's type
+    (bf16 q over a bf16 or int8 pool runs on the tensor cores)."""
+    return "tensor cores" if q.dtype == torch.bfloat16 else "CUDA cores"
+
+
+def achieved(bound_ms, bound_by, ms):
+    """The achieved memory rate and the share of the bound, as printed."""
+    gbps = f"{bound_ms / ms * HBM_BYTES_PER_S / 1e9:.0f} GB/s, " \
+        if bound_by == "bytes" else ""
+    return f"{gbps}{100 * bound_ms / ms:.1f}% of the bound"
+
+
 def ragged_case(rows, int8, seed, device="cuda"):
     """A pool and packed batch on ``device``. ``rows``: R entries of
     ``(query_len, chunk_start)`` (query_len 0 = idle row; decode rows are
@@ -254,8 +269,9 @@ def check_ragged_attention():
     Tolerance: both outputs are bf16 roundings of fp32 results that
     differ only in summation order (~1e-6 relative), so they agree to one
     bf16 ulp: |kernel - plain| <= 2**-7 * |plain| + 1e-3."""
+    from deepspeed_tpu_torch.ops.decode_attention import _sm_count
     from deepspeed_tpu_torch.ops.ragged_attention import (
-        ragged_paged_attention, ragged_paged_attention_plain)
+        launch_params, ragged_paged_attention, ragged_paged_attention_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -280,9 +296,13 @@ def check_ragged_attention():
             results[key] = dict(max_abs_err=float(err.max()), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound,
                                 bound_by=bound_by)
+            lp = launch_params(T_PACKED, R, NB, HKV, _sm_count(0))
             log(f"parity ragged_paged_attention {key}: ok={ok} "
                 f"max_abs_err={float(err.max()):.3e} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f}")
+                f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
+                f"({bound_by}) | route {paged_route(args[0], args[1])}, "
+                f"grid {lp['grid']} blocks, {lp['splits']} splits of "
+                f"{lp['per']} 64-key tiles | {achieved(bound, bound_by, ms)}")
             if not ok:
                 raise AssertionError(f"ragged_paged_attention {key} "
                                      f"disagrees with its plain version")
@@ -437,13 +457,21 @@ def check_paged_attention():
             results[kind][name] = dict(
                 max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
+            launch = ""
+            if kind == "decode":
+                splits, per = da.paged_splits(len(rows), Hkv, NB,
+                                              da._sm_count(0))
+                launch = (f" | route {paged_route(q, k)}, grid "
+                          f"({len(rows)}, {Hkv}, {splits}), {splits} splits "
+                          f"of {per} 64-key tiles | "
+                          f"{achieved(bms, by, ms)}")
             log(f"parity paged_{kind}_attention {name} (B {len(rows)} T {T} "
                 f"H {Hq} Hkv {Hkv} D {Dh} {str(dtype)[6:]} int8 {int8} "
                 f"window {window} (chunk_start, context) {rows}): ok "
                 f"max_abs_err={float(err.max()):.3e} (tolerance "
                 f"{rtol:g}*|plain|+{atol:g}) | kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.3f} bound_ms={bms:.4f} ({by}) "
-                f"library_ms=None")
+                f"library_ms=None{launch}")
             del q, k, v, got, ref, args, scales
     return results
 

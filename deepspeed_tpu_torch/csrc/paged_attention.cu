@@ -11,13 +11,14 @@
 // block_tables [B, nb] (an entry outside [0, N) is unallocated and is
 // clamped to page N - 1, whose contents the length mask hides):
 //
-// - paged_decode_kernel: q [B, H, D], one new token per sequence sitting at
-//   context_lens[b] - 1. Key p is visible iff p < context_lens[b] and, with
-//   a window, context_lens[b] - 1 - p < window.
-// - paged_prefill_kernel: q [B, T, H, D], one prefill chunk per sequence.
-//   Row t sits at chunk_start[b] + t and sees keys p <= its position with
-//   p < context_lens[b] and, with a window, position - p < window; rows at
-//   or past context_lens[b] (the chunk's padded tail) return zeros.
+// - paged_decode_kernel (K7a): q [B, H, D], one new token per sequence
+//   sitting at context_lens[b] - 1. Key p is visible iff p < context_lens[b]
+//   and, with a window, context_lens[b] - 1 - p < window.
+// - paged_prefill_kernel (K7b): q [B, T, H, D], one prefill chunk per
+//   sequence. Row t sits at chunk_start[b] + t and sees keys p <= its
+//   position with p < context_lens[b] and, with a window, position - p <
+//   window; rows at or past context_lens[b] (the chunk's padded tail)
+//   return zeros.
 //
 // Query head kvh * G + g reads kv head kvh. Softmax runs in fp32; a row
 // that sees no key returns zeros. block_tables, chunk_start and
@@ -28,32 +29,98 @@
 // head for a few FLOP per element, far below the card's ridge, so the floor
 // is (visible pages + q + out) / 3.35 TB/s.
 //
-// What the design does about it:
-// - the TPU grid's sequential page axis, its "revisit the last page" DMA
-//   trick and its m/l/acc scratch become a loop over the visible pages
-//   inside one block, with the running max, sum and accumulators on chip;
-// - decode: one block per (sequence, kv head) walks 64-key tiles (four
-//   pages gathered through the table) from the window's first page to the
-//   page of context_len - 1, through a 2-stage cp.async ring (eight pages
-//   in flight); the G query heads share every page;
-// - prefill: one block per (tile of 32 / G chunk rows, sequence, kv head)
-//   walks single pages through a 4-stage cp.async ring, from the first page
-//   its first row's window can see to the page of its last row's position;
-//   tiles past the chunk's valid length exit at once (the caller zeroes the
-//   output);
-// - an int8 pool is read as int8 and dequantized in shared memory;
-// - keys under the mask are never summed into P.V (decode: their V is
-//   zeroed and skipped; prefill: their probability is exactly 0 and pool
-//   pages only ever hold finite values), so a recycled page's tail, which
-//   holds another sequence's valid KV, cannot leak.
-// Compute is fp32 FMA on CUDA cores (no wgmma/TMA yet).
+// K7a is split-key flash-decoding over the block table (the walk is
+// paged_common.cuh's, shared with K6). It replaces the first design, one
+// block per (sequence, kv head) walking all of the sequence's tiles in fp32
+// FMA, whose time followed the longest context. What the design does about
+// the limits of that one:
+// - the longest row no longer sets the time: the key axis (the table's
+//   nb * 16 keys) is cut into `splits` ranges of `per` whole 64-key tiles,
+//   grid (B, Hkv, splits), the count from nb and the SM count (K4's rule,
+//   ops/decode_attention.py paged_splits), never from context_lens; a split
+//   past the context or outside the window writes an empty partial and
+//   exits, the others walk only their visible tiles;
+// - each split writes an fp32 partial that merge_kernel, launched by the
+//   same C call, combines in split order (no atomics: bitwise
+//   deterministic); with one split the block writes the output itself;
+// - no per-tile fp32 conversion pass or serial softmax: bf16 q over a bf16
+//   pool runs on the tensor cores with K4's mapping (the G heads padded to
+//   16 rows, a warp per page of each 64-key tile, P as bf16(P) +
+//   bf16(P - bf16(P))), over a bf16 pool or an int8 pool converted to
+//   bf16 in shared memory (exact: the codes are small integers; the
+//   scales stay fp32); fp32 q runs exact fp32 FMA;
+// - keys outside the visible range are zero-filled or zeroed in shared
+//   memory before P.V, so a NaN in a page's stale tail cannot leak.
+//
+// K7b keeps its first design (fp32 FMA on CUDA cores): one block per
+// (tile of 32 / G chunk rows, sequence, kv head) walks single pages through
+// a 4-stage cp.async ring, from the first page its first row's window can
+// see to the page of its last row's position; tiles past the chunk's valid
+// length exit at once (the caller zeroes the output); an int8 pool is read
+// as int8 and dequantized in shared memory; keys under the mask get
+// probability exactly 0 (pool pages only ever hold finite values).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "paged_common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// paged decode (K7a): grid (B, Hkv, splits) over paged_common.cuh's walk
+// ---------------------------------------------------------------------------
+
+template <typename QT, typename KT, int D>
+__global__ void __launch_bounds__(THREADS) paged_decode_kernel(Pool p,
+                                                               const int* cl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Item it;
+  it.row = blockIdx.x;
+  it.kvh = blockIdx.y;
+  it.tok0 = blockIdx.x;
+  it.ntok = 1;
+  it.clen = cl[blockIdx.x];
+  it.pos0 = it.clen - 1;
+  key_range(p, it.pos0, 1, it.clen, it.lo, it.hi);
+  const int s = blockIdx.z;
+  it.t0 = max(s * p.per, it.lo / BK);
+  it.t1 = it.hi >= it.lo ? min((s + 1) * p.per, it.hi / BK + 1) : 0;
+  it.slot = p.nsplit == 1 ? -1 : s;
+  if (it.t0 >= it.t1) {
+    empty_item<QT>(p, it, D);
+    return;
+  }
+  run_item<QT, KT, D>(p, it, true, smem);
+}
+
+template <typename QT, typename KT, int D>
+cudaError_t launch_decode(const Pool& p, const int* cl, int B,
+                          cudaStream_t stream) {
+  constexpr int bytes = narrow_smem<QT, KT, D>();
+  cudaError_t err = allow_smem<paged_decode_kernel<QT, KT, D>>(bytes);
+  if (err != cudaSuccess) return err;
+  paged_decode_kernel<QT, KT, D>
+      <<<dim3(B, p.Hkv, p.nsplit), THREADS, bytes, stream>>>(p, cl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.nsplit == 1) return err;
+  merge_kernel<QT><<<merge_grid(B, p.H), MERGE_THREADS, 0, stream>>>(
+      p, nullptr, D);
+  return cudaGetLastError();
+}
+
+template <typename QT>
+cudaError_t launch_decode_kv(const Pool& p, const int* cl, int B, int kv_int8,
+                             int D, cudaStream_t stream) {
+  if (kv_int8)
+    return D == 64 ? launch_decode<QT, int8_t, 64>(p, cl, B, stream)
+                   : launch_decode<QT, int8_t, 128>(p, cl, B, stream);
+  return D == 64 ? launch_decode<QT, QT, 64>(p, cl, B, stream)
+                 : launch_decode<QT, QT, 128>(p, cl, B, stream);
+}
+
+// ---------------------------------------------------------------------------
+// paged chunked prefill (K7b), unchanged in its own namespace
+// ---------------------------------------------------------------------------
+
+namespace prefill {
 
 constexpr int BS = 16;        // tokens per KV page
 constexpr int THREADS = 128;
@@ -65,7 +132,7 @@ struct Params {
   const float* ks;
   const float* vs;
   const int* bt;
-  const int* cs;  // prefill only
+  const int* cs;
   const int* cl;
   void* out;
   int B, T, H, Hkv, N, nb, G, q_tile, window;  // window <= 0: no window
@@ -91,12 +158,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -106,265 +167,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
-}
-
 // the pool page behind table entry `page` of sequence b; unallocated
 // entries clamp to the last page (hidden by the length mask)
 __device__ __forceinline__ int page_id(const Params& p, int b, int page) {
   int pid = p.bt[b * p.nb + page];
   if (pid < 0 || pid >= p.N) pid = p.N - 1;
   return pid;
-}
-
-// ---------------------------------------------------------------------------
-// paged decode: one query token per sequence
-// ---------------------------------------------------------------------------
-
-constexpr int BK = 64;            // keys per tile
-constexpr int PPT = BK / BS;      // pages per tile
-constexpr int MAXG = 8;           // query heads per kv head
-constexpr int DSTAGE = 2;         // tiles in flight
-
-template <typename KT, int D>
-struct DecodeLayout {
-  static constexpr bool INT8 = sizeof(KT) == 1;
-  static constexpr int DP = D + 4;  // padded fp32 row: float4 reads by 8
-                                    // threads on 8 rows hit distinct banks
-  static constexpr int PAGE_BYTES = BS * D * sizeof(KT);
-  static constexpr int TILE_BYTES = PPT * PAGE_BYTES;
-  static constexpr int SCALE_BYTES = INT8 ? BK * 4 : 0;
-  // stage: K tile | V tile | k scales | v scales
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * SCALE_BYTES;
-  static constexpr int QF = 0;                           // float [MAXG][DP]
-  static constexpr int KF = QF + MAXG * DP * 4;          // float [BK][DP]
-  static constexpr int VF = KF + BK * DP * 4;            // float [BK][D]
-  static constexpr int SP = VF + BK * D * 4;             // float [MAXG][BK+1]
-  static constexpr int MRUN = SP + MAXG * (BK + 1) * 4;  // float [MAXG]
-  static constexpr int LRUN = MRUN + MAXG * 4;           // float [MAXG]
-  static constexpr int ALPHA = LRUN + MAXG * 4;          // float [MAXG]
-  static constexpr int VALID = ALPHA + MAXG * 4;         // int [BK]
-  static constexpr int RING = (VALID + BK * 4 + 15) / 16 * 16;
-  static constexpr int BYTES = RING + DSTAGE * STAGE_BYTES;
-  static_assert(STAGE_BYTES % 16 == 0, "stage size must keep alignment");
-  static_assert(BYTES <= 227 * 1024, "shared memory of one block");
-};
-
-template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(THREADS) paged_decode_kernel(Params p) {
-  using L = DecodeLayout<KT, D>;
-  constexpr int DP = L::DP;
-  constexpr int NRG = THREADS / D;    // row groups in P.V (1 or 2)
-  constexpr int RPT = MAXG / NRG;     // rows per thread in P.V
-  constexpr int SRG = THREADS / BK;   // row groups in the scores (2)
-  constexpr int CH = L::PAGE_BYTES / 16;  // 16-byte chunks per page
-
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int G = p.G;
-  const int clen = p.cl[b];
-  // keys [lo, hi] are visible: below the context length (and inside what
-  // the table can address), inside the window of the query at clen - 1
-  const int hi = min(clen, p.nb * BS) - 1;
-  const int lo = p.window > 0 ? max(0, clen - p.window) : 0;
-  const int tile_lo = lo / BK;
-  const int ntiles = hi >= lo ? hi / BK - tile_lo + 1 : 0;
-  const int page_hi = hi >= 0 ? hi / BS : -1;  // last page holding a key
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qf = reinterpret_cast<float*>(smem + L::QF);
-  float* kf = reinterpret_cast<float*>(smem + L::KF);
-  float* vf = reinterpret_cast<float*>(smem + L::VF);
-  float* sp = reinterpret_cast<float*>(smem + L::SP);
-  float* m_run = reinterpret_cast<float*>(smem + L::MRUN);
-  float* l_run = reinterpret_cast<float*>(smem + L::LRUN);
-  float* alpha_s = reinterpret_cast<float*>(smem + L::ALPHA);
-  int* valid_s = reinterpret_cast<int*>(smem + L::VALID);
-  unsigned char* ring = smem + L::RING;
-
-  // tile i = the four pages from table entry (tile_lo + i) * PPT on; pages
-  // past page_hi hold no visible key and are not loaded (nor ever read)
-  auto issue = [&](int i) {
-    unsigned char* st = ring + (i % DSTAGE) * L::STAGE_BYTES;
-    const int page0 = (tile_lo + i) * PPT;
-    for (int c = tid; c < PPT * CH; c += THREADS) {
-      const int pg = c / CH;
-      if (page0 + pg > page_hi) break;  // c grows with pg
-      const size_t page =
-          static_cast<size_t>(page_id(p, b, page0 + pg)) * p.Hkv + kvh;
-      const int cc = c % CH;
-      cp_async16(st + pg * L::PAGE_BYTES + cc * 16,
-                 static_cast<const unsigned char*>(p.k) +
-                     page * L::PAGE_BYTES + cc * 16);
-      cp_async16(st + L::TILE_BYTES + pg * L::PAGE_BYTES + cc * 16,
-                 static_cast<const unsigned char*>(p.v) +
-                     page * L::PAGE_BYTES + cc * 16);
-    }
-    if (L::INT8 && tid < BK && page0 + tid / BS <= page_hi) {
-      const size_t page =
-          static_cast<size_t>(page_id(p, b, page0 + tid / BS)) * p.Hkv + kvh;
-      unsigned char* tail = st + 2 * L::TILE_BYTES;
-      cp_async4(tail + tid * 4, p.ks + page * BS + tid % BS);
-      cp_async4(tail + L::SCALE_BYTES + tid * 4, p.vs + page * BS + tid % BS);
-    }
-  };
-
-  if (ntiles > 0) issue(0);
-  cp_async_commit();
-
-  // the G query rows of this kv head -> fp32 shared rows
-  const QT* q = static_cast<const QT*>(p.q);
-  for (int e = tid; e < MAXG * D; e += THREADS) {
-    const int g = e / D;
-    const int c = e % D;
-    qf[g * DP + c] =
-        g < G ? to_float(q[(static_cast<size_t>(b) * p.H + kvh * G + g) * D + c])
-              : 0.f;
-  }
-  if (tid < MAXG) {
-    m_run[tid] = -INFINITY;
-    l_run[tid] = 0.f;
-  }
-
-  // P.V mapping: column c for rows rg + NRG * i
-  const int c = tid % D;
-  const int rg = tid / D;
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-  // score mapping: key j for rows sr + SRG * i
-  const int j = tid % BK;
-  const int sr = tid / BK;
-
-  for (int i = 0; i < ntiles; ++i) {
-    if (i + 1 < ntiles) issue(i + 1);
-    cp_async_commit();
-    cp_async_wait<DSTAGE - 1>();
-    __syncthreads();  // tile i landed; the last tile's P.V is done
-
-    const unsigned char* st = ring + (i % DSTAGE) * L::STAGE_BYTES;
-    const KT* kr = reinterpret_cast<const KT*>(st);
-    const KT* vr = reinterpret_cast<const KT*>(st + L::TILE_BYTES);
-    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::TILE_BYTES);
-    const float* vsc = ksc + BK;
-    const int kv0 = (tile_lo + i) * BK;
-    if (tid < BK) {
-      const int key = kv0 + tid;
-      valid_s[tid] = key >= lo && key <= hi;
-    }
-    __syncthreads();
-
-    // raw tile -> fp32 K/V rows (int8: times the per-key scale); keys that
-    // are not visible become zeros and are never read from the ring
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int key = e / D;
-      const int col = e % D;
-      float kx = 0.f, vx = 0.f;
-      if (valid_s[key]) {
-        kx = to_float(kr[e]);
-        vx = to_float(vr[e]);
-        if (L::INT8) {
-          kx *= ksc[key];
-          vx *= vsc[key];
-        }
-      }
-      kf[key * DP + col] = kx;
-      vf[key * D + col] = vx;
-    }
-    __syncthreads();
-
-    // masked scores S = (q . k) * sm_scale
-    {
-      float s[MAXG / SRG];
-#pragma unroll
-      for (int a = 0; a < MAXG / SRG; ++a) s[a] = 0.f;
-      const float4* k4 = reinterpret_cast<const float4*>(kf + j * DP);
-#pragma unroll 4
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kx = k4[d4];
-#pragma unroll
-        for (int a = 0; a < MAXG / SRG; ++a) {
-          const int g = sr + SRG * a;
-          if (g < G) {
-            const float4 qx = reinterpret_cast<const float4*>(qf + g * DP)[d4];
-            s[a] += qx.x * kx.x + qx.y * kx.y + qx.z * kx.z + qx.w * kx.w;
-          }
-        }
-      }
-      const bool ok = valid_s[j];
-#pragma unroll
-      for (int a = 0; a < MAXG / SRG; ++a) {
-        const int g = sr + SRG * a;
-        if (g < G) sp[g * (BK + 1) + j] = ok ? s[a] * p.sm_scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: warp w takes rows w and w + 4, a lane two keys
-    {
-      const int warp = tid / 32;
-      const int lane = tid % 32;
-      for (int g = warp; g < G; g += THREADS / 32) {
-        float* srow = sp + g * (BK + 1);
-        const float s0 = srow[lane];
-        const float s1 = srow[lane + 32];
-        const float m_old = m_run[g];
-        const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        const float p0 = s0 == -INFINITY ? 0.f : expf(s0 - m_new);
-        const float p1 = s1 == -INFINITY ? 0.f : expf(s1 - m_new);
-        const float sum = warp_sum(p0 + p1);
-        srow[lane] = p0;
-        srow[lane + 32] = p1;
-        __syncwarp();
-        if (lane == 0) {
-          l_run[g] = l_run[g] * alpha + sum;
-          m_run[g] = m_new;
-          alpha_s[g] = alpha;
-        }
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P . V over the visible keys only
-#pragma unroll
-    for (int a = 0; a < RPT; ++a) {
-      const int g = rg + NRG * a;
-      if (g < G) acc[a] *= alpha_s[g];
-    }
-    for (int key = 0; key < BK; ++key) {
-      if (!valid_s[key]) continue;  // uniform across the block
-      const float vx = vf[key * D + c];
-#pragma unroll
-      for (int a = 0; a < RPT; ++a) {
-        const int g = rg + NRG * a;
-        if (g < G) acc[a] += sp[g * (BK + 1) + key] * vx;
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  QT* out = static_cast<QT*>(p.out);
-#pragma unroll
-  for (int a = 0; a < RPT; ++a) {
-    const int g = rg + NRG * a;
-    if (g >= G) continue;
-    const float l = l_run[g];
-    const float l_safe = l == 0.f ? 1.f : l;
-    store(out + (static_cast<size_t>(b) * p.H + kvh * G + g) * D + c,
-          acc[a] / l_safe);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -623,22 +431,6 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// launchers
-// ---------------------------------------------------------------------------
-
-template <typename QT, typename KT, int D>
-int launch_decode(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = DecodeLayout<KT, D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<QT, KT, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.B, p.Hkv);
-  paged_decode_kernel<QT, KT, D><<<grid, THREADS, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename QT, typename KT, int D>
 int launch_prefill(const Params& p, cudaStream_t stream) {
   constexpr int bytes = PrefillLayout<KT, D>::BYTES;
@@ -651,25 +443,19 @@ int launch_prefill(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT, typename KT, int D>
-int launch(const Params& p, bool prefill, cudaStream_t stream) {
-  return prefill ? launch_prefill<QT, KT, D>(p, stream)
-                 : launch_decode<QT, KT, D>(p, stream);
-}
 
 template <typename QT>
-int launch_kv(const Params& p, bool prefill, int kv_int8, int D,
-              cudaStream_t stream) {
+int launch_kv(const Params& p, int kv_int8, int D, cudaStream_t stream) {
   if (kv_int8) {
-    return D == 64 ? launch<QT, int8_t, 64>(p, prefill, stream)
-                   : launch<QT, int8_t, 128>(p, prefill, stream);
+    return D == 64 ? launch_prefill<QT, int8_t, 64>(p, stream)
+                   : launch_prefill<QT, int8_t, 128>(p, stream);
   }
-  return D == 64 ? launch<QT, QT, 64>(p, prefill, stream)
-                 : launch<QT, QT, 128>(p, prefill, stream);
+  return D == 64 ? launch_prefill<QT, QT, 64>(p, stream)
+                 : launch_prefill<QT, QT, 128>(p, stream);
 }
 
-int dispatch(bool prefill, const void* q, const void* k_pages,
-             const void* v_pages, const void* k_scale, const void* v_scale,
+int dispatch(const void* q, const void* k_pages, const void* v_pages,
+             const void* k_scale, const void* v_scale,
              const void* block_tables, const void* chunk_start,
              const void* context_lens, void* out, int B, int T, int H,
              int Hkv, int D, int N, int nb, float sm_scale, int window,
@@ -679,8 +465,7 @@ int dispatch(bool prefill, const void* q, const void* k_pages,
       B > 65535 || Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / Hkv;
-  if (prefill ? M % G != 0 : G > MAXG)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (M % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k_pages;
@@ -698,13 +483,15 @@ int dispatch(bool prefill, const void* q, const void* k_pages,
   p.N = N;
   p.nb = nb;
   p.G = G;
-  p.q_tile = prefill ? M / G : 1;
+  p.q_tile = M / G;
   p.window = window;
   p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q_bf16 ? launch_kv<__nv_bfloat16>(p, prefill, kv_int8, D, s)
-                : launch_kv<float>(p, prefill, kv_int8, D, s);
+  return q_bf16 ? launch_kv<__nv_bfloat16>(p, kv_int8, D, s)
+                : launch_kv<float>(p, kv_int8, D, s);
 }
+
+}  // namespace prefill
 
 }  // namespace
 
@@ -712,18 +499,48 @@ int dispatch(bool prefill, const void* q, const void* k_pages,
 // bf16, else fp32), or int8 with fp32 scales [N, Hkv, 16] (kv_int8);
 // block_tables int32 [B, nb]; context_lens (and chunk_start) int32 [B];
 // window <= 0: none. The caller validates shapes. Each returns
-// cudaGetLastError() after its launch (0 = launched).
+// cudaGetLastError() after its launches (0 = launched).
 
-// q/out: [B, H, D]; every output element is written.
+// q/out: [B, H, D]; every output element is written. The table's nb * 16
+// keys are cut into `splits` ranges of `per` 64-key tiles (the wrapper
+// derives both from nb and the card); scratch is fp32
+// [B * H * splits * (D + 2)] (unused with one split).
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* context_lens, void* out, int B, int H, int Hkv, int D, int N,
-    int nb, float sm_scale, int window, int q_bf16, int kv_int8,
-    void* stream) {
-  return dispatch(false, q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                  nullptr, context_lens, out, B, 1, H, Hkv, D, N, nb,
-                  sm_scale, window, q_bf16, kv_int8, stream);
+    const void* context_lens, void* out, void* scratch, int B, int H,
+    int Hkv, int D, int N, int nb, float sm_scale, int window, int q_bf16,
+    int kv_int8, int splits, int per, void* stream) {
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (nb * PAGE + BK - 1) / BK;
+  if (B <= 0 || N <= 0 || nb <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      H / Hkv > MAXG || B > 65535 || Hkv > 65535 || per <= 0 ||
+      splits != (tiles + per - 1) / per || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Pool p;
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.ks = static_cast<const float*>(k_scale);
+  p.vs = static_cast<const float*>(v_scale);
+  p.bt = static_cast<const int*>(block_tables);
+  p.out = out;
+  p.part_o = static_cast<float*>(scratch);
+  p.part_ml = p.part_o + static_cast<size_t>(B) * H * splits * D;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.N = N;
+  p.nb = nb;
+  p.G = H / Hkv;
+  p.window = window;
+  p.nsplit = splits;
+  p.per = per;
+  p.sl2 = sm_scale * LOG2E;
+  const int* cl = static_cast<const int*>(context_lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      q_bf16 ? launch_decode_kv<__nv_bfloat16>(p, cl, B, kv_int8, D, s)
+             : launch_decode_kv<float>(p, cl, B, kv_int8, D, s));
 }
 
 // q/out: [B, T, H, D]; the caller zeroes out (only live rows are stored).
@@ -733,7 +550,8 @@ extern "C" int paged_prefill_attention(
     const void* chunk_start, const void* context_lens, void* out, int B,
     int T, int H, int Hkv, int D, int N, int nb, float sm_scale, int window,
     int q_bf16, int kv_int8, void* stream) {
-  return dispatch(true, q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                  chunk_start, context_lens, out, B, T, H, Hkv, D, N, nb,
-                  sm_scale, window, q_bf16, kv_int8, stream);
+  return prefill::dispatch(q, k_pages, v_pages, k_scale, v_scale,
+                           block_tables, chunk_start, context_lens, out, B, T,
+                           H, Hkv, D, N, nb, sm_scale, window, q_bf16,
+                           kv_int8, stream);
 }

@@ -1,6 +1,7 @@
 // Ragged paged attention for the packed serving step, hand-written for
-// Hopper (sm_90a). Built by deepspeed_tpu_torch/ops/_build.py with nvcc and
-// called through ctypes from deepspeed_tpu_torch/ops/ragged_attention.py.
+// Hopper (sm_90a) as a split-key walk over the block table. Built by
+// deepspeed_tpu_torch/ops/_build.py with nvcc and called through ctypes
+// from deepspeed_tpu_torch/ops/ragged_attention.py.
 //
 // Replaces the TPU kernel
 //   deepspeed_tpu/ops/pallas/ragged_attention.py::_ragged_kernel
@@ -8,355 +9,247 @@
 // per-row segments (query_start, query_len); token t of row r sits at
 // position chunk_start[r] + t and attends its row's kv positions p with
 // p <= pos, p < context_lens[r] and, with a window, pos - p < window. Query
-// head kvh*G + g reads kv head kvh. Softmax runs in fp32.
+// head kvh*G + g reads kv head kvh. Softmax runs in fp32; a token that sees
+// no key, and a token no row claims, comes back as zeros.
 //
-// Bound: bytes. A step reads every live K/V page of every row once per kv
-// head, plus q and the output; the arithmetic per byte (about 2*G*q_tile
-// FLOP per K/V element) is far below the card's 295 FLOP/byte ridge, so
-// the floor is (live pages + q + out) / 3.35 TB/s.
+// Bound: bytes. A step reads every visible K/V page of every row once per
+// kv head, plus q and the output; the arithmetic per byte is far below the
+// card's ridge, so the floor is those bytes over 3.35 TB/s.
 //
-// What the design does about it:
-// - one block per (q-tile, row, kv head); the TPU grid's sequential page
-//   axis and its m/l/acc scratch become a loop over the row's pages inside
-//   the block, with the running max and sum in registers;
-// - the loop touches only the pages the tile can see: it stops at the
-//   tile's last causal position (and context_lens) and, with a window,
-//   starts at the first page the tile's first token can see;
-// - pages stream through a 4-stage cp.async ring, so several page loads
-//   are in flight while the block computes on an earlier one;
-// - the G query heads of a kv head share each page load (GQA grouping),
-//   and an int8 pool is read as int8 and dequantized in shared memory;
-// - tiles past a row's query_len and rows with no context exit at once,
-//   and the output is zeroed by the caller (torch.zeros), so each block
-//   stores only its own live tokens: blocks need no order between them.
-// Compute is fp32 FMA on CUDA cores (no wgmma/TMA yet).
+// This replaces the first design (one block per (32-row q tile, row, kv
+// head) walking the row's pages one at a time in fp32 FMA). What the new
+// design does about its five limits:
+// 1. One block no longer walks a whole long row. A row's key axis is cut
+//    into splits of `per` whole 64-key tiles (from the shapes and the SM
+//    count, ops/ragged_attention.py launch_params). A work item is (row,
+//    query tile, kv head, split); an item that is its tokens' only split
+//    writes the output, the others write fp32 partials (m in log2 units,
+//    l, the unnormalised accumulator) that merge_kernel, launched by the
+//    same C call, combines in split order: the sums' order never depends
+//    on which block ran an item or when, so the result is bitwise
+//    deterministic.
+// 2. No per-page barriers or serial softmax: an item walks 64-key tiles
+//    (four pages gathered through the table) through a 2-stage cp.async
+//    ring, and the online softmax runs in the mma accumulator fragments
+//    (bf16) or one warp per row (fp32).
+// 3. Decode rows do not waste a 32-row tile: a row of a few tokens
+//    (tokens x G heads <= 16, e.g. one decode token, or a speculative
+//    verify row) is one narrow item on K4's mapping, its rows padded to 16
+//    and the four warps on different pages of each tile; longer rows are
+//    cut into chunk tiles on K1's mapping, 64 / G tokens x G heads = 64
+//    rows, a warp per 16.
+// 4. Tensor cores for bf16 q (mma.sync m16n8k16, Q and P in registers)
+//    over a bf16 pool, or an int8 pool whose codes are converted to bf16
+//    exactly in shared memory (the scales stay fp32: K's on the score, V's
+//    folded into P); fp32 q runs exact fp32 FMA on CUDA cores inside the
+//    same split walk (paged_common.cuh).
+// 5. No dead grid: ragged_plan_kernel (one block) reads the descriptors on
+//    the device and lays out the items (chunk rows first, the heavier
+//    class) and each packed token's split range; a persistent grid of
+//    `grid` blocks (two per SM) runs items b, then the next from an
+//    atomic queue head, so a block that finishes early takes more.
+//    The launch depends on T, R, nb, Hkv, D and the SM count only, never
+//    on the descriptors' values, so a captured CUDA graph replays for new
+//    ones. merge_kernel writes zeros for every token no row claims, so the
+//    wrapper's output needs no fill. Three launches: the plan, the walk,
+//    the merge.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "paged_common.cuh"
 
 namespace {
 
-constexpr int BS = 16;       // tokens per KV page
-constexpr int M = 32;        // query rows per block: q_tile tokens x G heads
-constexpr int THREADS = 128;
-constexpr int NSTAGE = 4;    // pages in flight
+constexpr int PLAN_THREADS = 256;
+constexpr int PLAN_ROWS = 1024;  // rows the plan counts per round
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* ks;
-  const float* vs;
-  const int* bt;
+struct Ragged {
   const int* qs;
   const int* ql;
   const int* cs;
   const int* cl;
-  void* out;
-  int T, H, Hkv, N, R, nb, G, q_tile, window;  // window <= 0: no window
-  float sm_scale;
+  int* next;    // [1]: the work queue's head
+  int* order;   // [R]: rows, chunk rows first
+  int* prefix;  // [R + 1]: items before order[k]
+  int* info;    // [T]: (s_lo << 16 | n) of each token's tile, 0 = zeros
+  int T, R, chunk_rows, narrow_rows, grid;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+// tokens of row r inside the packed axis (0 for an idle row), and its query
+// tile: all of them if they make a narrow item (tokens x G <= narrow_rows),
+// else chunk_rows / G tokens
+__device__ __forceinline__ int row_tokens(const Ragged& g, int r) {
+  const int qs = g.qs[r];
+  const int ql = g.ql[r];
+  if (ql <= 0 || g.cl[r] <= 0 || qs < 0 || qs >= g.T) return 0;
+  return min(ql, g.T - qs);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+__device__ __forceinline__ bool narrow_row(const Pool& p, const Ragged& g,
+                                           int nq) {
+  return nq * p.G <= g.narrow_rows;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ int row_tile(const Pool& p, const Ragged& g,
+                                        int nq) {
+  return narrow_row(p, g, nq) ? max(nq, 1) : g.chunk_rows / p.G;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ int warp_sum_int(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
+  return x;
 }
 
-template <typename KT, int D>
-struct Layout {
-  static constexpr bool INT8 = sizeof(KT) == 1;
-  static constexpr int DP = D + 4;  // padded fp32 row: float4 reads by 8
-                                    // threads on 8 rows hit distinct banks
-  static constexpr int PAGE_BYTES = BS * D * sizeof(KT);
-  static constexpr int SCALE_BYTES = INT8 ? BS * 4 : 0;
-  static constexpr int STAGE_BYTES = 2 * PAGE_BYTES + 2 * SCALE_BYTES;
-  static constexpr int QF = 0;                        // float [M][DP]
-  static constexpr int KF = QF + M * DP * 4;          // float [BS][DP]
-  static constexpr int VF = KF + BS * DP * 4;         // float [BS][D]
-  static constexpr int SP = VF + BS * D * 4;          // float [M][BS + 1]
-  static constexpr int ALPHA = SP + M * (BS + 1) * 4;  // float [M]
-  static constexpr int LSUM = ALPHA + M * 4;          // float [M]
-  static constexpr int RING = LSUM + M * 4;           // NSTAGE stages
-  static constexpr int BYTES = RING + NSTAGE * STAGE_BYTES;
-  static_assert(RING % 16 == 0, "cp.async destinations need 16B alignment");
-  static_assert(STAGE_BYTES % 16 == 0, "stage size must keep alignment");
-};
-
-template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(THREADS) ragged_kernel(Params p) {
-  using L = Layout<KT, D>;
-  constexpr int DP = L::DP;
-  constexpr int CPT = D / 64;  // float4 column groups per thread in P.V
-
-  const int it = blockIdx.x;
-  const int r = blockIdx.y;
-  const int kvh = blockIdx.z;
-  const int ql = p.ql[r];
-  const int clen = p.cl[r];
-  const int tok0 = it * p.q_tile;
-  if (tok0 >= ql || clen <= 0) return;  // dead tile: output stays zero
-  const int qs = p.qs[r];
-  const int cs = p.cs[r];
-  const int n_tok = min(p.q_tile, ql - tok0);
-  const int m_live = n_tok * p.G;
-
-  // pages the tile can see: causal end at its last token, window start at
-  // its first token
-  const int kv_end = min(clen, cs + tok0 + n_tok);
-  const int page_hi = min((kv_end + BS - 1) / BS, p.nb);
-  const int page_lo =
-      p.window > 0 ? max(0, cs + tok0 - p.window + 1) / BS : 0;
-  const int npages = max(0, page_hi - page_lo);
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qf = reinterpret_cast<float*>(smem + L::QF);
-  float* kf = reinterpret_cast<float*>(smem + L::KF);
-  float* vf = reinterpret_cast<float*>(smem + L::VF);
-  float* sp = reinterpret_cast<float*>(smem + L::SP);
-  float* alpha_s = reinterpret_cast<float*>(smem + L::ALPHA);
-  float* l_s = reinterpret_cast<float*>(smem + L::LSUM);
-  unsigned char* ring = smem + L::RING;
-  const int tid = threadIdx.x;
-
-  auto issue = [&](int i) {
-    unsigned char* st = ring + (i % NSTAGE) * L::STAGE_BYTES;
-    int pid = p.bt[r * p.nb + page_lo + i];
-    if (pid < 0 || pid >= p.N) pid = p.N - 1;  // clamp sentinel entries
-    const size_t page = static_cast<size_t>(pid) * p.Hkv + kvh;
-    const unsigned char* kg =
-        static_cast<const unsigned char*>(p.k) + page * L::PAGE_BYTES;
-    const unsigned char* vg =
-        static_cast<const unsigned char*>(p.v) + page * L::PAGE_BYTES;
-    for (int c = tid; c < L::PAGE_BYTES / 16; c += THREADS) {
-      cp_async16(st + c * 16, kg + c * 16);
-      cp_async16(st + L::PAGE_BYTES + c * 16, vg + c * 16);
-    }
-    if (L::INT8 && tid < 2 * (BS * 4 / 16)) {
-      const int half = BS * 4 / 16;  // 16-byte chunks per scale row
-      const float* src = tid < half ? p.ks : p.vs;
-      const int c = tid % half;
-      cp_async16(st + 2 * L::PAGE_BYTES + (tid / half) * L::SCALE_BYTES +
-                     c * 16,
-                 reinterpret_cast<const unsigned char*>(src + page * BS) +
-                     c * 16);
-    }
-  };
-
-  // prologue: the first NSTAGE - 1 pages start loading before q does
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < npages) issue(s);
-    cp_async_commit();
+// the splits [s_lo, s_lo + n) of a tile of ntok tokens from pos0, and its
+// visible keys [lo, hi]
+__device__ __forceinline__ void tile_splits(const Pool& p, int pos0, int ntok,
+                                            int clen, int& s_lo, int& n,
+                                            int& lo, int& hi) {
+  key_range(p, pos0, ntok, clen, lo, hi);
+  if (hi < lo) {
+    s_lo = n = 0;
+    return;
   }
+  s_lo = lo / BK / p.per;
+  n = hi / BK / p.per - s_lo + 1;
+}
 
-  // q tile -> fp32 shared rows; row j is token tok0 + j / G, head
-  // kvh * G + j % G (the reshape(T, Hkv, G, D) grouping)
-  const QT* q = static_cast<const QT*>(p.q);
-  for (int e = tid; e < M * D; e += THREADS) {
-    const int row = e / D;
-    const int c = e % D;
-    float x = 0.f;
-    if (row < m_live) {
-      const int tok = qs + tok0 + row / p.G;
-      const int head = kvh * p.G + row % p.G;
-      x = to_float(q[(static_cast<size_t>(tok) * p.H + head) * D + c]);
-    }
-    qf[row * DP + c] = x;
-  }
-
-  // score mapping: 2 rows x 2 keys per thread; P.V mapping: 4 rows x
-  // CPT float4 column groups per thread, accumulators in registers
-  const int rp = tid >> 3;  // rows 2rp, 2rp + 1
-  const int kp = tid & 7;   // keys kp, kp + 8
-  const int rg = tid >> 4;  // rows 4rg .. 4rg + 3
-  const int cg = tid & 15;  // float4 columns cg + 16 * jj
-  float acc[4][4 * CPT];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4 * CPT; ++b) acc[a][b] = 0.f;
-  float m_run = -INFINITY;  // row tid's running max (warp 0 only)
-  float l_run = 0.f;        // row tid's running sum (warp 0 only)
-
-  for (int i = 0; i < npages; ++i) {
-    if (i + NSTAGE - 1 < npages) issue(i + NSTAGE - 1);
-    cp_async_commit();
-    cp_async_wait<NSTAGE - 1>();
-    __syncthreads();  // page i landed; last page's P.V is done with vf
-
-    // raw page -> fp32 K/V rows (int8: times the per-token scale)
-    const unsigned char* st = ring + (i % NSTAGE) * L::STAGE_BYTES;
-    const KT* kr = reinterpret_cast<const KT*>(st);
-    const KT* vr = reinterpret_cast<const KT*>(st + L::PAGE_BYTES);
-    const float* ksc =
-        reinterpret_cast<const float*>(st + 2 * L::PAGE_BYTES);
-    const float* vsc = ksc + BS;
-    for (int e = tid; e < BS * D; e += THREADS) {
-      const int j = e / D;
-      const int c = e % D;
-      float kx = to_float(kr[e]);
-      float vx = to_float(vr[e]);
-      if (L::INT8) {
-        kx *= ksc[j];
-        vx *= vsc[j];
-      }
-      kf[j * DP + c] = kx;
-      vf[j * D + c] = vx;
-    }
-    __syncthreads();
-
-    // masked scores S = (q . k) * sm_scale
-    const int kv0 = (page_lo + i) * BS;
-    if (2 * rp < m_live) {
-      const float4* q0 = reinterpret_cast<const float4*>(qf + 2 * rp * DP);
-      const float4* q1 = q0 + DP / 4;
-      const float4* k0 = reinterpret_cast<const float4*>(kf + kp * DP);
-      const float4* k1 = reinterpret_cast<const float4*>(kf + (kp + 8) * DP);
-      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 8
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 a = q0[d4], b = q1[d4], x = k0[d4], y = k1[d4];
-        s[0][0] += a.x * x.x + a.y * x.y + a.z * x.z + a.w * x.w;
-        s[0][1] += a.x * y.x + a.y * y.y + a.z * y.z + a.w * y.w;
-        s[1][0] += b.x * x.x + b.y * x.y + b.z * x.z + b.w * x.w;
-        s[1][1] += b.x * y.x + b.y * y.y + b.z * y.z + b.w * y.w;
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int row = 2 * rp + a;
-        const int pos = cs + tok0 + row / p.G;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int key = kp + 8 * b;
-          const int col = kv0 + key;
-          const bool valid = row < m_live && col <= pos && col < clen &&
-                             (p.window <= 0 || pos - col < p.window);
-          sp[row * (BS + 1) + key] = valid ? s[a][b] * p.sm_scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online softmax, one lane of warp 0 per query row
-    if (tid < m_live) {
-      float* srow = sp + tid * (BS + 1);
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BS; ++j) mx = fmaxf(mx, srow[j]);
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = m_run == -INFINITY ? 0.f : expf(m_run - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BS; ++j) {
-        const float pj = srow[j] == -INFINITY ? 0.f : expf(srow[j] - m_new);
-        srow[j] = pj;
-        sum += pj;
-      }
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      alpha_s[tid] = alpha;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P . V
-    if (4 * rg < m_live) {
-      float al[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) al[a] = alpha_s[4 * rg + a];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4 * CPT; ++b) acc[a][b] *= al[a];
-#pragma unroll 4
-      for (int j = 0; j < BS; ++j) {
-        float pr[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) pr[a] = sp[(4 * rg + a) * (BS + 1) + j];
-        const float4* vrow = reinterpret_cast<const float4*>(vf + j * D);
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) {
-          const float4 v = vrow[cg + 16 * jj];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            acc[a][4 * jj + 0] += pr[a] * v.x;
-            acc[a][4 * jj + 1] += pr[a] * v.y;
-            acc[a][4 * jj + 2] += pr[a] * v.z;
-            acc[a][4 * jj + 3] += pr[a] * v.w;
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  if (tid < M) l_s[tid] = l_run;
+// One block lays out the work: every row's items (its query tiles' splits
+// times Hkv), chunk rows first (the heavier items), as order and prefix;
+// each claimed token's split range as info; the queue head at the grid
+// size (block b's first item is b). A warp
+// counts a row (its lanes take the row's query tiles), PLAN_ROWS rows a
+// round, and thread 0 appends them in row order.
+__global__ void __launch_bounds__(PLAN_THREADS) ragged_plan_kernel(Pool p,
+                                                                   Ragged g) {
+  __shared__ int items_s[PLAN_ROWS];  // a round's item counts, -1: not now
+  constexpr int WARPS = PLAN_THREADS / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int t = threadIdx.x; t < g.T; t += PLAN_THREADS) g.info[t] = 0;
   __syncthreads();
-
-  // store the tile's live rows only: a tail tile may overlap the next
-  // row's segment in the packed axis
-  QT* out = static_cast<QT*>(p.out);
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = 4 * rg + a;
-    if (row >= m_live) continue;
-    const float l = l_s[row];
-    const float l_safe = l == 0.f ? 1.f : l;
-    const int tok = qs + tok0 + row / p.G;
-    const int head = kvh * p.G + row % p.G;
-    QT* dst = out + (static_cast<size_t>(tok) * p.H + head) * D;
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int c = 4 * (cg + 16 * jj);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) store(dst + c + e, acc[a][4 * jj + e] / l_safe);
+  int k = 0, run = 0;  // thread 0: rows and items laid out so far
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int base = 0; base < g.R; base += PLAN_ROWS) {
+      for (int i = warp; i < PLAN_ROWS && base + i < g.R; i += WARPS) {
+        const int r = base + i;
+        const int nq = row_tokens(g, r);
+        const int qt = row_tile(p, g, nq);
+        const int qs = g.qs[r];
+        const int cs = g.cs[r];
+        const int cl = g.cl[r];
+        int items = 0;
+        for (int tok = lane * qt; tok < nq; tok += 32 * qt) {
+          const int ntok = min(qt, nq - tok);
+          int s_lo, n, lo, hi;
+          tile_splits(p, cs + tok, ntok, cl, s_lo, n, lo, hi);
+          items += n;
+          if (pass == 0)
+            for (int j = 0; j < ntok; ++j)
+              g.info[qs + tok + j] = (s_lo << 16) | n;
+        }
+        items = warp_sum_int(items);
+        if (lane == 0)
+          items_s[i] = narrow_row(p, g, nq) == (pass == 1) ? items * p.Hkv
+                                                           : -1;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0)
+        for (int i = 0; i < PLAN_ROWS && base + i < g.R; ++i)
+          if (items_s[i] >= 0) {
+            g.order[k] = base + i;
+            g.prefix[k++] = run;
+            run += items_s[i];
+          }
+      __syncthreads();
     }
+  }
+  if (threadIdx.x == 0) {
+    g.prefix[g.R] = run;
+    *g.next = g.grid;
+  }
+}
+
+// Persistent blocks take items heaviest class first: block b starts with
+// item b, then takes the queue's next item each time it finishes one, so
+// the blocks that finish early take more (and a step with fewer items than
+// blocks touches no counter). An item's arithmetic does not depend on the
+// block that runs it.
+template <typename QT, typename KT, int D>
+__global__ void __launch_bounds__(THREADS) ragged_walk_kernel(Pool p,
+                                                              Ragged g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int taken;
+  const int total = g.prefix[g.R];
+  for (int item = blockIdx.x; item < total;) {
+    // the last position a with prefix[a] <= item (a row with items): each
+    // warp reads 32 prefixes a round trip (prefix never decreases)
+    int a = 0;
+    for (int base = 0; base < g.R; base += 32) {
+      const int k = base + (threadIdx.x & 31);
+      const unsigned le = __ballot_sync(~0u, k < g.R && g.prefix[k] <= item);
+      if (le != 0u) a = base + 31 - __clz(le);
+      if (le != ~0u) break;
+    }
+    const int r = g.order[a];
+    int j = item - g.prefix[a];
+    Item it;
+    it.row = r;
+    it.kvh = j % p.Hkv;
+    j /= p.Hkv;
+    const int nq = row_tokens(g, r);
+    const int qt = row_tile(p, g, nq);
+    it.clen = g.cl[r];
+    int s_lo = 0, n = 0, tok = 0;
+    for (;; tok += qt) {
+      it.ntok = min(qt, nq - tok);
+      tile_splits(p, g.cs[r] + tok, it.ntok, it.clen, s_lo, n, it.lo, it.hi);
+      if (j < n) break;
+      j -= n;
+    }
+    it.tok0 = g.qs[r] + tok;
+    it.pos0 = g.cs[r] + tok;
+    const int s = s_lo + j;
+    it.t0 = max(s * p.per, it.lo / BK);
+    it.t1 = min((s + 1) * p.per, it.hi / BK + 1);
+    it.slot = n == 1 ? -1 : s;
+    run_item<QT, KT, D>(p, it, narrow_row(p, g, nq), smem);
+    if (threadIdx.x == 0) taken = atomicAdd(g.next, 1);
+    __syncthreads();  // the next item reuses shared memory
+    item = taken;
+    __syncthreads();  // every thread read `taken`
   }
 }
 
 template <typename QT, typename KT, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = Layout<KT, D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel<QT, KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.T + p.q_tile - 1) / p.q_tile, p.R, p.Hkv);
-  ragged_kernel<QT, KT, D><<<grid, THREADS, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+cudaError_t launch(const Pool& p, const Ragged& g, int grid,
+                   cudaStream_t stream) {
+  ragged_plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(p, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = item_smem<QT, KT, D>();
+  err = allow_smem<ragged_walk_kernel<QT, KT, D>>(bytes);
+  if (err != cudaSuccess) return err;
+  ragged_walk_kernel<QT, KT, D><<<grid, THREADS, bytes, stream>>>(p, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_kernel<QT><<<merge_grid(g.T, p.H), MERGE_THREADS, 0, stream>>>(
+      p, g.info, D);
+  return cudaGetLastError();
 }
 
 template <typename QT>
-int launch_kv(const Params& p, int kv_int8, int D, cudaStream_t stream) {
+cudaError_t launch_kv(const Pool& p, Ragged g, int kv_int8, int D, int grid,
+                      cudaStream_t stream) {
   if (kv_int8) {
-    return D == 64 ? launch<QT, int8_t, 64>(p, stream)
-                   : launch<QT, int8_t, 128>(p, stream);
+    g.chunk_rows = chunk_rows<QT, int8_t>();
+    g.narrow_rows = narrow_rows<QT, int8_t>();
+    return D == 64 ? launch<QT, int8_t, 64>(p, g, grid, stream)
+                   : launch<QT, int8_t, 128>(p, g, grid, stream);
   }
-  return D == 64 ? launch<QT, QT, 64>(p, stream)
-                 : launch<QT, QT, 128>(p, stream);
+  g.chunk_rows = chunk_rows<QT, QT>();
+  g.narrow_rows = narrow_rows<QT, QT>();
+  return D == 64 ? launch<QT, QT, 64>(p, g, grid, stream)
+                 : launch<QT, QT, 128>(p, g, grid, stream);
 }
 
 }  // namespace
@@ -365,41 +258,61 @@ int launch_kv(const Params& p, int kv_int8, int D, cudaStream_t stream) {
 // k/v pages: [N, Hkv, 16, D] in q's type, or int8 with fp32 scales
 // [N, Hkv, 16] (kv_int8); block_tables int32 [R, nb]; query_start,
 // query_len, chunk_start, context_lens int32 [R]; window <= 0: none.
-// The caller validates shapes and zeroes out. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// A row's key axis is cut into `splits` ranges of `per` 64-key tiles, and
+// `grid` blocks take the work items (the wrapper derives all three from
+// the shapes and the card). iscratch: int32 [2R + 2 + T]; fscratch: fp32
+// [T * H * splits * (D + 2)]. Every element of out is written. The caller
+// validates shapes. Returns cudaGetLastError() after the launches
+// (0 = launched).
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* query_start, const void* query_len, const void* chunk_start,
-    const void* context_lens, void* out, int T, int H, int Hkv, int D, int N,
-    int R, int nb, float sm_scale, int window, int q_bf16, int kv_int8,
+    const void* context_lens, void* out, void* iscratch, void* fscratch,
+    int T, int H, int Hkv, int D, int N, int R, int nb, float sm_scale,
+    int window, int q_bf16, int kv_int8, int splits, int per, int grid,
     void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (H % Hkv != 0 || M % (H / Hkv) != 0)
+  const int tiles = (nb * PAGE + BK - 1) / BK;
+  if (T <= 0 || R <= 0 || R > 65535 || N <= 0 || nb <= 0 || Hkv <= 0 ||
+      H % Hkv != 0 || TC_ROWS % (H / Hkv) != 0 || CC_ROWS % (H / Hkv) != 0 ||
+      per <= 0 || splits != (tiles + per - 1) / per || splits > 65535 ||
+      grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+  Pool p;
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
   p.ks = static_cast<const float*>(k_scale);
   p.vs = static_cast<const float*>(v_scale);
   p.bt = static_cast<const int*>(block_tables);
-  p.qs = static_cast<const int*>(query_start);
-  p.ql = static_cast<const int*>(query_len);
-  p.cs = static_cast<const int*>(chunk_start);
-  p.cl = static_cast<const int*>(context_lens);
   p.out = out;
-  p.T = T;
+  p.part_o = static_cast<float*>(fscratch);
+  p.part_ml = p.part_o + static_cast<size_t>(T) * H * splits * D;
   p.H = H;
   p.Hkv = Hkv;
   p.N = N;
-  p.R = R;
   p.nb = nb;
   p.G = H / Hkv;
-  p.q_tile = M / p.G;
   p.window = window;
-  p.sm_scale = sm_scale;
+  p.nsplit = splits;
+  p.per = per;
+  p.sl2 = sm_scale * LOG2E;
+  Ragged g;
+  g.qs = static_cast<const int*>(query_start);
+  g.ql = static_cast<const int*>(query_len);
+  g.cs = static_cast<const int*>(chunk_start);
+  g.cl = static_cast<const int*>(context_lens);
+  g.next = static_cast<int*>(iscratch);
+  g.order = g.next + 1;
+  g.prefix = g.order + R;
+  g.info = g.prefix + R + 1;
+  g.T = T;
+  g.R = R;
+  g.grid = grid;
+  g.chunk_rows = g.narrow_rows = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return q_bf16 ? launch_kv<__nv_bfloat16>(p, kv_int8, D, s)
-                : launch_kv<float>(p, kv_int8, D, s);
+  return static_cast<int>(
+      q_bf16 ? launch_kv<__nv_bfloat16>(p, g, kv_int8, D, grid, s)
+             : launch_kv<float>(p, g, kv_int8, D, grid, s));
 }

@@ -15,8 +15,10 @@ The kernels replace ``deepspeed_tpu/ops/pallas/decode_attention.py``
 Their bound on an H100 is bytes: the visible part of each row's K/V (and
 int8 scales) read once, against 3.35 TB/s. K4 cuts the key axis into
 :func:`decode_splits` ranges of whole tiles, one block each, and merges
-their partials in the same call. The design notes are at the top of the
-CUDA sources.
+their partials in the same call; K7a does the same over the block table's
+capacity (:func:`paged_splits`), with the walk it shares with K6
+(``csrc/paged_common.cuh``). The design notes are at the top of the CUDA
+sources.
 """
 
 import ctypes
@@ -37,7 +39,8 @@ KERNEL_BLOCK_SIZE = 16
 KERNEL_TILE_ROWS = 32
 #: keys of one K4 tile: a split is a whole number of tiles
 KERNEL_KEY_TILE = 64
-#: K4 blocks the split count aims for per SM
+#: K4's and the paged walks' (K6, K7a) blocks the split count aims for
+#: per SM
 BLOCKS_PER_SM = 2
 
 
@@ -49,10 +52,24 @@ def decode_splits(B: int, Hkv: int, S: int, sm_count: int) -> int:
     :data:`BLOCKS_PER_SM`, at most one range per tile; rounding the
     tiles a range holds up keeps more than half of that aim. Every range
     is non-empty."""
+    return _split_tiles(B, Hkv, S, sm_count)[0]
+
+
+def _split_tiles(B: int, Hkv: int, S: int, sm_count: int):
+    """``(splits, per)``: :func:`decode_splits`' count and the tiles of
+    each range."""
     tiles = -(-S // KERNEL_KEY_TILE)
     want = -(-BLOCKS_PER_SM * sm_count // max(1, B * Hkv))
     per = -(-tiles // max(1, min(want, tiles)))
-    return -(-tiles // per)
+    return -(-tiles // per), per
+
+
+def paged_splits(rows: int, Hkv: int, nb: int, sm_count: int):
+    """``(splits, per)`` of the paged walks (K6, K7a): a block table of
+    ``nb`` pages (``nb * 16`` keys, the capacity, never a context length)
+    cut by :func:`decode_splits`' rule into ``splits`` ranges of ``per``
+    whole ``KERNEL_KEY_TILE``-key tiles, for ``rows`` table rows."""
+    return _split_tiles(rows, Hkv, nb * KERNEL_BLOCK_SIZE, sm_count)
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,8 +336,9 @@ def _paged_entries():
     P, I = ctypes.c_void_p, ctypes.c_int
     tail = [ctypes.c_float, I, I, I, P]   # sm_scale window q_bf16 kv_int8 stream
     dec = lib.paged_decode_attention
-    # q k v k_scale v_scale tables context_lens out | B H Hkv D N nb
-    dec.argtypes = [P] * 8 + [I] * 6 + tail
+    # q k v k_scale v_scale tables context_lens out scratch | B H Hkv D N
+    # nb | sm_scale window q_bf16 kv_int8 splits per | stream
+    dec.argtypes = [P] * 9 + [I] * 6 + [ctypes.c_float, I, I, I, I, I, P]
     pre = lib.paged_prefill_attention
     # q k v k_scale v_scale tables chunk_start context_lens out |
     # B T H Hkv D N nb
@@ -407,8 +425,17 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
                            k_scale=None, v_scale=None):
     """One query per sequence over the paged pool (kernel K7a; see the
     plain version for the arguments). CUDA tensors launch the kernel on the
-    current stream and add one to ``paged_decode_attention.launches``; CPU
-    tensors take the plain version; anything else raises."""
+    current stream (the split walk over the block table and its merge, in
+    one C call) and add one to ``paged_decode_attention.launches``; CPU
+    tensors take the plain version; anything else raises. The split count
+    comes from the table's width and the card (:func:`paged_splits`), never
+    from ``context_lens``, so the launch is the same for every value of
+    the descriptors and a captured CUDA graph replays for new ones. bf16 q
+    runs on the tensor cores (P.V as bf16(P) + bf16(P - bf16(P))), over a
+    bf16 pool or an int8 one (its codes are exact in bf16, its scales stay
+    fp32); fp32 q in exact fp32 on CUDA cores. The bound
+    is bytes: the visible pages over 3.35 TB/s; the design notes are at
+    the top of ``csrc/paged_attention.cu``."""
     dev = _paged_device("paged_decode_attention",
                         (q, k_pages, v_pages, block_tables, context_lens),
                         k_scale, v_scale)
@@ -432,14 +459,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
         sm_scale = 1.0 / D ** 0.5
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
         else (None, None)
+    splits, per = paged_splits(B, Hkv, nb, _sm_count(out.device.index))
+    # per (sequence, query head, split): D accumulators, then m and l
+    scratch = torch.empty(B * H * splits * (D + 2) if splits > 1 else 0,
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _paged_entries()[0](
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            B, H, Hkv, D, N, nb, float(sm_scale),
-            0 if window is None else int(window),
+            scratch.data_ptr() if splits > 1 else None, B, H, Hkv, D, N, nb,
+            float(sm_scale), 0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
-            torch.cuda.current_stream(dev).cuda_stream)
+            splits, per, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed "
                            f"with CUDA error {rc}")

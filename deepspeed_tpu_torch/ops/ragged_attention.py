@@ -9,8 +9,13 @@ fallback from the kernel to the plain version.
 The kernel replaces ``deepspeed_tpu/ops/pallas/ragged_attention.py
 ::_ragged_kernel``. Its bound on an H100 is bytes: the live K/V pages of
 every row (once per kv head) plus q and the output, against 3.35 TB/s.
-The design note on what the kernel does about that bound is at the top of
-the CUDA source.
+It is a split-key walk over the block table: work items (row, query tile,
+kv head, split of whole 64-key tiles) laid out on the device from the
+descriptors and taken from a queue by a persistent grid, fp32 partials
+merged in split order in the same C call. Its launch (:func:`launch_params`) depends on
+the shapes and the card's SM count only. The design note on what the
+kernel does about its bound is at the top of the CUDA source; the walk is
+``csrc/paged_common.cuh``, shared with K7a.
 """
 
 import ctypes
@@ -20,13 +25,29 @@ from typing import Optional
 import torch
 
 from . import _build
+from .decode_attention import _sm_count, paged_splits
 
 #: pool page size the kernel is compiled for
 KERNEL_BLOCK_SIZE = 16
 #: head dims the kernel is compiled for
 KERNEL_HEAD_DIMS = (64, 128)
-#: query rows one kernel block holds (q_tile tokens x G heads)
+#: query rows of a chunk item on the CUDA cores (q_tile tokens x G heads);
+#: the group size must divide it (the tensor cores' 64 rows too)
 KERNEL_TILE_ROWS = 32
+#: persistent blocks per SM that take the work items
+BLOCKS_PER_SM = 2
+
+
+def launch_params(T: int, R: int, nb: int, Hkv: int, sm_count: int):
+    """The kernel's launch for a packed width ``T``, ``R`` table rows of
+    ``nb`` pages and ``Hkv`` kv heads on a card of ``sm_count`` SMs:
+    ``splits`` ranges of ``per`` 64-key tiles of a row's key axis
+    (:func:`paged_splits`), and ``grid`` persistent blocks (at most
+    :data:`BLOCKS_PER_SM` an SM, at most one per possible item). Shapes
+    only: the descriptors' values never change it."""
+    splits, per = paged_splits(R, Hkv, nb, sm_count)
+    grid = min(BLOCKS_PER_SM * sm_count, max(1, T * Hkv * splits))
+    return dict(splits=splits, per=per, grid=grid)
 
 
 def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
@@ -91,7 +112,10 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
 def _entry():
     fn = _build.load("ragged_attention").ragged_paged_attention
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 11 + [I] * 7 + [ctypes.c_float, I, I, I, P]
+    # q k v k_scale v_scale tables qs ql cs cl out iscratch fscratch |
+    # T H Hkv D N R nb | sm_scale window q_bf16 kv_int8 splits per grid |
+    # stream
+    fn.argtypes = [P] * 13 + [I] * 7 + [ctypes.c_float] + [I] * 6 + [P]
     fn.restype = I
     return fn
 
@@ -148,9 +172,15 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
                            window: Optional[int] = None,
                            k_scale=None, v_scale=None):
     """Unified ragged paged attention (see the plain version for the
-    arguments). CUDA tensors launch the kernel on the current stream and
-    add one to ``ragged_paged_attention.launches``; CPU tensors take the
-    plain version; anything else raises."""
+    arguments). CUDA tensors launch the kernel on the current stream (the
+    item layout, the split walk and the merge, in one C call) and add one
+    to ``ragged_paged_attention.launches``; CPU tensors take the plain
+    version; anything else raises. The descriptors stay on the device: the
+    launch depends on the shapes only (:func:`launch_params`), so a
+    captured CUDA graph replays for new descriptor values. bf16 q runs on
+    the tensor cores (P.V as bf16(P) + bf16(P - bf16(P))), over a bf16
+    pool or an int8 one (its codes are exact in bf16, its scales stay
+    fp32); fp32 q in exact fp32 on CUDA cores."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale (int8 pool) or "
                          "neither")
@@ -175,20 +205,28 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
     T, H, D = q.shape
     N, Hkv = k_pages.shape[:2]
     R, nb = block_tables.shape
-    out = torch.zeros_like(q)
-    if T == 0 or R == 0:
-        return out
+    if T == 0 or R == 0 or N == 0 or nb == 0:
+        return torch.zeros_like(q)
+    out = torch.empty_like(q)          # the kernel writes every element
     if sm_scale is None:
         sm_scale = 1.0 / D ** 0.5
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
         else (None, None)
+    lp = launch_params(T, R, nb, Hkv, _sm_count(out.device.index))
+    # the item layout (queue head, order, prefix, each token's splits),
+    # then per (token, query head, split) D accumulators, m and l
+    iscratch = torch.empty(2 * R + 2 + T, dtype=torch.int32, device=dev)
+    fscratch = torch.empty(T * H * lp["splits"] * (D + 2),
+                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _entry()(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             block_tables.data_ptr(), *(d.data_ptr() for d in descriptors),
-            out.data_ptr(), T, H, Hkv, D, N, R, nb, float(sm_scale),
+            out.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(), T, H,
+            Hkv, D, N, R, nb, float(sm_scale),
             0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
+            lp["splits"], lp["per"], lp["grid"],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention: kernel launch failed "

@@ -39,31 +39,68 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, dtype, int8, D, Hkv, G, seed=0):
-    """Decode rows, chunk rows, idle rows, sentinel tails, padding."""
-    rs = np.random.RandomState(seed)
-    N, bs, R, nb = 40, 16, 5, 8
-    rows = [(1, 70), (0, 0), (37, 20), (20, 0), (1, 127)]  # (qlen, start)
+# K6 layouts: (N pages, table width nb, rows of (query_len, chunk_start))
+RAGGED_LAYOUTS = {
+    # decode rows, chunk rows, a narrow row of 3 tokens, idle rows,
+    # sentinel tails
+    "small": (40, 8, [(1, 70), (0, 0), (37, 20), (20, 0), (1, 127),
+                      (3, 40)]),
+    # a 2048-token decode row (many key splits), a 256-token chunk behind
+    # 512 cached tokens, short decode rows
+    "long": (224, 128, [(1, 2047), (0, 0), (256, 512), (1, 300), (1, 0)]),
+}
+
+
+def _ragged_tables(layout_rows, N, nb, rs):
+    """Block tables and descriptors for rows of (query_len, chunk_start):
+    each live row owns distinct seeded pages covering its context (never
+    page N - 1), the rest of its table is the sentinel N."""
+    R = len(layout_rows)
     bt = np.full((R, nb), N, np.int32)
     qs, ql, cs, cl = (np.zeros(R, np.int32) for _ in range(4))
-    pages, cursor = iter(rs.permutation(N)), 0
-    for r, (n, start) in enumerate(rows):
+    pages, cursor = iter(rs.permutation(N - 1)), 0
+    for r, (n, start) in enumerate(layout_rows):
         if n:
-            for i in range(-(-(start + n) // bs)):
+            for i in range(-(-(start + n) // 16)):
                 bt[r, i] = next(pages)
             qs[r], ql[r], cs[r], cl[r] = cursor, n, start, start + n
             cursor += n
-    g = torch.Generator(device=dev).manual_seed(seed)
-    shape = (N, Hkv, bs, D)
+    return bt, qs, ql, cs, cl, cursor
+
+
+def _pool(dev, dtype, int8, N, Hkv, D, g, owned=None):
+    """A seeded pool; pages outside ``owned`` (page N - 1, where sentinel
+    entries clamp, stays finite) hold NaN, or NaN scales in an int8 pool,
+    so a kernel that reads a page it must not poisons its rows."""
+    shape = (N, Hkv, 16, D)
     if int8:
         k, v = (torch.randint(-127, 128, shape, generator=g, device=dev,
                               dtype=torch.int8) for _ in range(2))
         scales = {n: torch.rand(shape[:3], generator=g, device=dev) / 64
                   for n in ("k_scale", "v_scale")}
+        poison = list(scales.values())
     else:
         k, v = (torch.randn(shape, generator=g, device=dev, dtype=dtype)
                 for _ in range(2))
         scales = {}
+        poison = [k, v]
+    if owned is not None:
+        free = torch.ones(N, dtype=torch.bool, device=dev)
+        free[torch.as_tensor(np.append(owned, N - 1), device=dev).long()] = \
+            False
+        for t in poison:
+            t[free] = float("nan")
+    return k, v, scales
+
+
+def _case(dev, dtype, int8, D, Hkv, G, seed=0, layout="small"):
+    """Decode rows, chunk rows, idle rows, sentinel tails, padding, and a
+    pool whose unused pages hold NaN."""
+    rs = np.random.RandomState(seed)
+    N, nb, rows = RAGGED_LAYOUTS[layout]
+    bt, qs, ql, cs, cl, cursor = _ragged_tables(rows, N, nb, rs)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, v, scales = _pool(dev, dtype, int8, N, Hkv, D, g, owned=bt[bt < N])
     q = torch.randn((cursor + 5, Hkv * G, D), generator=g, device=dev,
                     dtype=dtype)
     desc = [torch.from_numpy(a).to(dev) for a in (bt, qs, ql, cs, cl)]
@@ -75,8 +112,12 @@ def _case(dev, dtype, int8, D, Hkv, G, seed=0):
 @pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
 @pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
 @pytest.mark.parametrize("window", [None, 24])
-def test_ragged_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, window):
-    args, scales = _case(cuda, dtype, int8, D, Hkv, G)
+@pytest.mark.parametrize("layout", sorted(RAGGED_LAYOUTS))
+def test_ragged_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, window,
+                                     layout):
+    """K6 against its plain version on both layouts, with NaN in every
+    page no row owns; tokens no row claims come back as zeros."""
+    args, scales = _case(cuda, dtype, int8, D, Hkv, G, layout=layout)
     before = ragged_paged_attention.launches
     got = ragged_paged_attention(*args, window=window, **scales)
     ref = ragged_paged_attention_plain(*args, window=window, **scales)
@@ -85,6 +126,7 @@ def test_ragged_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, window):
     rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
                                atol=1e-5 if dtype == torch.float32 else 1e-3)
+    assert torch.isfinite(got).all() and not got[-5:].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -436,14 +478,15 @@ def test_int8_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     _assert_matmul_close(got, ref, x, (codes.float() * scale).to(dtype))
 
 
-def _paged_case(dev, dtype, int8, D, Hkv, G, T, seed=0):
+def _paged_case(dev, dtype, int8, D, Hkv, G, T, seed=0, nb=10):
     """A pool whose unused pages hold NaN (a kernel that touches a page it
     must not read poisons its row), a table with sentinel tails, and
     sequences with a partial last page, a mid-prompt chunk, an idle row
-    (context 1 behind a sentinel row: it reads the clamped last page) and
-    an empty row."""
+    (context 1 behind a sentinel row: it reads the clamped last page), an
+    empty row and a row that fills the table (nb * 16 keys: 2048 at
+    nb 128)."""
     rs = np.random.RandomState(seed)
-    N, bs, nb = 48, 16, 10
+    N, bs = nb + 38, 16
     #            (chunk_start, context_len) per sequence
     rows = [(0, T), (70, 70 + T), (33, 33 + max(1, T // 2)), (0, 1), (0, 0),
             (nb * bs - T, nb * bs)]
@@ -487,12 +530,15 @@ def _paged_case(dev, dtype, int8, D, Hkv, G, T, seed=0):
 @pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
 @pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
 @pytest.mark.parametrize("window", [None, 24, 100])
+@pytest.mark.parametrize("nb", [10, 128], ids=["nb10", "nb128"])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G,
-                                           window):
+                                           window, nb):
     """K7a against its plain version: ragged contexts with a partial last
-    page, a full table, an idle sentinel row, an empty row, windows that
-    start mid-tile, an int8 pool."""
-    q, k, v, bt, _, cl, scales = _paged_case(cuda, dtype, int8, D, Hkv, G, 1)
+    page, a full table (a 2048-token context at nb 128: many key splits),
+    an idle sentinel row, an empty row, windows that start mid-tile, an
+    int8 pool."""
+    q, k, v, bt, _, cl, scales = _paged_case(cuda, dtype, int8, D, Hkv, G, 1,
+                                             nb=nb)
     before = paged_decode_attention.launches
     got = paged_decode_attention(q[:, 0], k, v, bt, cl, window=window,
                                  **scales)
@@ -539,6 +585,135 @@ def test_paged_prefill_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, T,
         torch.testing.assert_close(dec.float(), got[:, 0].float(),
                                    rtol=1e-5 if fp32 else 2 ** -7,
                                    atol=1e-5 if fp32 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
+def test_paged_walks_are_deterministic(cuda, dtype, int8):
+    """K6 and K7a give bitwise equal outputs on repeated calls: their key
+    splits merge in split order, with no atomics."""
+    args, scales = _case(cuda, dtype, int8, 128, 2, 4, layout="long")
+    first = ragged_paged_attention(*args, window=None, **scales)
+    for _ in range(3):
+        again = ragged_paged_attention(*args, window=None, **scales)
+        assert torch.equal(first, again)
+    q, k, v, bt, _, cl, sc = _paged_case(cuda, dtype, int8, 128, 2, 4, 1,
+                                         nb=128)
+    first = paged_decode_attention(q[:, 0], k, v, bt, cl, **sc)
+    for _ in range(3):
+        assert torch.equal(first, paged_decode_attention(q[:, 0], k, v, bt,
+                                                         cl, **sc))
+
+
+# packed layouts of one width (R 5 rows, T 300 tokens, nb 128) that one
+# captured K6 graph replays over
+RAGGED_REPLAYS = [
+    [(1, 2047), (0, 0), (256, 512), (1, 300), (1, 0)],
+    [(37, 100), (1, 5), (1, 1500), (0, 0), (200, 0)],
+    [(0, 0), (0, 0), (1, 63), (0, 0), (0, 0)],
+    [(1, 64), (1, 65), (128, 1900), (60, 3), (1, 1023)],
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [None, 200])
+def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
+    """K6's and K7a's launches do not depend on the descriptors' values:
+    one CUDA graph captured around a call replays correctly after new
+    block tables, query starts and lengths, chunk starts and context
+    lengths are written into the captured tensors."""
+    N, nb, T, Hkv, G, D = 224, 128, 300, 2, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k, v, _ = _pool(cuda, dtype, False, N, Hkv, D, g)
+    q = torch.randn((T, Hkv * G, D), generator=g, device=cuda, dtype=dtype)
+    tables = [_ragged_tables(rows, N, nb, np.random.RandomState(i))
+              for i, rows in enumerate(RAGGED_REPLAYS)]
+    desc = [torch.from_numpy(a).to(cuda) for a in tables[0][:5]]
+    ragged_paged_attention(q, k, v, *desc, window=window)   # warm-up
+    torch.cuda.synchronize()
+    before = ragged_paged_attention.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ragged_paged_attention(q, k, v, *desc, window=window)
+    assert ragged_paged_attention.launches == before + 1
+    fp32 = dtype == torch.float32
+    tol = dict(rtol=1e-5 if fp32 else 2 ** -7, atol=1e-5 if fp32 else 1e-3)
+    for t in tables[1:] + tables[:1]:
+        for dst, src in zip(desc, t[:5]):
+            dst.copy_(torch.from_numpy(src))
+        graph.replay()
+        ref = ragged_paged_attention_plain(q, k, v, *desc, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+        assert not got[t[5]:].any(), "unclaimed tokens are zeros"
+
+    # K7a: the sequences of each layout, one token at context_len - 1
+    B = len(RAGGED_REPLAYS[0])
+    qd = q[:B].contiguous()
+    bt = desc[0].clone()
+    cl = desc[4].clone()
+    paged_decode_attention(qd, k, v, bt, cl, window=window)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = paged_decode_attention(qd, k, v, bt, cl, window=window)
+    for t in tables:
+        bt.copy_(torch.from_numpy(t[0]))
+        cl.copy_(torch.from_numpy(t[4]))
+        graph.replay()
+        ref = paged_decode_attention_plain(qd, k, v, bt, cl, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_paged_walks_merge_splits_in_order(cuda, dtype):
+    """The inputs of the CPU tests' ``order_sensitive_pool`` on the card:
+    q = 0 over V rows that are zero but for 2**25, -2**25 and 1 at the
+    first key of tiles 0, 1 and 2 of a 192-key context, one tile a split
+    (R 1, Hkv 1, nb 128). Every in-split sum is exact, and only the split
+    order gives ((2**25 - 2**25) + 1) / 192: K6's and K7a's merges must
+    produce exactly that (rounded to bf16 for bf16 q)."""
+    H, D, keys, nb = 4, 128, 192, 128
+    n_pages = keys // 16
+    k = torch.randn(n_pages + 1, 1, 16, D, device=cuda).to(dtype)
+    v = torch.zeros(n_pages + 1, 1, 16, D, device=cuda, dtype=dtype)
+    for tile, x in enumerate((2.0 ** 25, -2.0 ** 25, 1.0)):
+        v[tile * 4, :, 0] = x
+    bt = torch.full((1, nb), n_pages + 1, dtype=torch.int32, device=cuda)
+    bt[0, :n_pages] = torch.arange(n_pages, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    cl = torch.full((1,), keys, dtype=torch.int32, device=cuda)
+    want = torch.full((1, H, D), 1 / 192, device=cuda).to(dtype)
+    got = ragged_paged_attention(torch.zeros(1, H, D, device=cuda,
+                                             dtype=dtype), k, v, bt,
+                                 one * 0, one, cl - 1, cl)
+    assert torch.equal(got, want)
+    got = paged_decode_attention(torch.zeros(1, H, D, device=cuda,
+                                             dtype=dtype), k, v, bt, cl)
+    assert torch.equal(got, want)
+
+
+def test_paged_wrappers_count_one_launch_per_call(cuda):
+    """Each call of the K6 and K7a wrappers adds exactly one to its
+    ``launches``, whatever the number of kernels its C call starts (K6:
+    the item layout, the walk, the merge; K7a: the walk, the merge)."""
+    args, scales = _case(cuda, torch.bfloat16, False, 128, 2, 4,
+                         layout="long")
+    q, k, v, bt, _, cl, _ = _paged_case(cuda, torch.bfloat16, False, 128, 2,
+                                        4, 1, nb=128)
+    for n in range(1, 4):
+        before = (ragged_paged_attention.launches,
+                  paged_decode_attention.launches)
+        for _ in range(n):
+            ragged_paged_attention(*args, **scales)
+            paged_decode_attention(q[:, 0], k, v, bt, cl)
+        assert (ragged_paged_attention.launches,
+                paged_decode_attention.launches) == \
+            (before[0] + n, before[1] + n)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -35,7 +35,7 @@ from deepspeed_tpu.ops.pallas.decode_attention import (
     paged_prefill_attention as jax_paged_prefill)
 from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_attention_plain,
-    paged_prefill_attention, paged_prefill_attention_plain)
+    paged_prefill_attention, paged_prefill_attention_plain, paged_splits)
 from deepspeed_tpu_torch.ops.ragged_attention import \
     ragged_paged_attention_plain
 
@@ -263,3 +263,144 @@ def test_rows_that_see_no_key_return_zeros_not_nan():
     dec = paged_decode_attention_plain(torch.from_numpy(q[:, 0]), k, v, tbt,
                                        tcl)
     assert torch.isfinite(dec).all() and not dec[4].any()
+
+
+# ---------------------------------------------------------------------------
+# K7a's split-key walk, emulated with the walk of
+# test_torch_ragged_attention.py
+# ---------------------------------------------------------------------------
+
+from test_torch_ragged_attention import (PAGE, TILE, _bf16, finish,  # noqa: E402
+                                         key_range, merge_states,
+                                         order_sensitive_pool, walk_item)
+
+
+def emulate_paged_decode(q, k_pages, v_pages, bt, clen, per, window=None,
+                         route="cuda_core", rounding=False, k_scale=None,
+                         v_scale=None):
+    """K7a's kernel in fp32: grid (B, Hkv, splits) over the table's
+    capacity cut into splits of ``per`` 64-key tiles; a split past the
+    context or outside the window writes an empty partial; the others walk
+    their visible tiles (the ragged walk's item of one token at
+    context_len - 1); the merge combines every split in order (with one
+    split the block writes the output)."""
+    B, H, D = q.shape
+    Hkv = k_pages.shape[1]
+    G = H // Hkv
+    nb = bt.shape[1]
+    splits = -(-(-(-nb * PAGE // TILE)) // per)
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        cl = int(clen[b])
+        lo, hi = key_range(cl - 1, 1, cl, nb, window)
+        for kvh in range(Hkv):
+            parts = []
+            for s in range(splits):
+                t0 = max(s * per, lo // TILE)
+                t1 = min((s + 1) * per, hi // TILE + 1) if hi >= lo else 0
+                if t0 >= t1:
+                    parts.append((torch.full((G,), -np.inf), torch.zeros(G),
+                                  torch.zeros(G, D)))
+                    continue
+                it = dict(row=b, kvh=kvh, tok0=b, ntok=1, pos0=cl - 1,
+                          clen=cl, lo=lo, hi=hi, t0=t0, t1=t1, narrow=True)
+                parts.append(walk_item(q, k_pages, v_pages, bt, it, G,
+                                       window, route, rounding, k_scale,
+                                       v_scale))
+            _, l, acc = merge_states(parts)
+            out[b, kvh * G:(kvh + 1) * G] = finish(l, acc)
+    return out
+
+
+# contexts across a 320-key table (5 tiles): one key, a partial page, a
+# tile boundary, several splits, an idle sentinel row, an empty row, the
+# whole table
+DECODE_LENS = [1, 13, 64, 200, 1, 0, 320]
+DECODE_SPLIT_CASES = {
+    # name: (window, int8)
+    "contexts_empty_splits": (None, False),
+    "window_empties_splits": (70, False),
+    "int8_pool": (None, True),
+    "int8_window": (33, True),
+}
+DECODE_SPLIT_PARAMS = [(case, per, route)
+                       for case in sorted(DECODE_SPLIT_CASES)
+                       for per in (1, 2, 3)
+                       for route in ("cuda_core", "tensor_core")]
+
+
+def _decode_split_setup(case, seed=31):
+    window, int8 = DECODE_SPLIT_CASES[case]
+    pool, bt, rs = build_pool(seed, DECODE_LENS, 2, 16, bs=PAGE, n_pool=48,
+                              nb=20, int8=int8, idle=(4,))
+    q = rs.randn(len(DECODE_LENS), 8, 16).astype(np.float32)
+    return q, pool, bt, np.asarray(DECODE_LENS, np.int32), window
+
+
+@pytest.mark.parametrize("case,per,route", DECODE_SPLIT_PARAMS)
+def test_split_paged_decode_merges_to_the_plain_version(case, per, route):
+    """K7a's split walk and its lse merge (splits of 1, 2 and 3 tiles of a
+    5-tile table) against the plain version and the JAX Pallas kernel
+    (interpret mode), fp32 at 1e-5: splits emptied by the context or by a
+    window, an idle sentinel row, a row that sees no key (context 0), an
+    int8 pool."""
+    q, pool, bt, clen, window = _decode_split_setup(case)
+    scales = _scales(pool, torch.from_numpy)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, pool["k"], pool["v"]))
+    got = emulate_paged_decode(tq, tk, tv, bt, clen, per, window, route,
+                               **scales)
+    plain = paged_decode_attention_plain(tq, tk, tv, torch.from_numpy(bt),
+                                         torch.from_numpy(clen),
+                                         window=window, **scales)
+    torch.testing.assert_close(got, plain, **TOL)
+    assert not got[5].any(), "a row that sees no key is zeros"
+    kern = np.asarray(jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
+        jnp.asarray(bt), jnp.asarray(clen), interpret=True, window=window,
+        **_scales(pool, jnp.asarray)))
+    np.testing.assert_allclose(got.numpy(), kern, **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
+@pytest.mark.parametrize("per", [1, 3])
+def test_paged_decode_rounding_points_stay_inside_the_bf16_tolerance(case,
+                                                                      per):
+    """K7a's tensor-core rounding points (bf16 q, K and V; an int8 pool's
+    codes exact in bf16 with fp32 scales; P.V as bf16(P) + bf16(P -
+    bf16(P)); a bf16 output) against the plain version on the same bf16
+    inputs, within 2**-7 |plain| + 1e-3."""
+    q, pool, bt, clen, window = _decode_split_setup(case, seed=37)
+    scales = _scales(pool, torch.from_numpy)
+    tq = torch.from_numpy(q).bfloat16()
+    tk, tv = (torch.from_numpy(pool[n]) for n in ("k", "v"))
+    if not scales:
+        tk, tv = tk.bfloat16(), tv.bfloat16()
+    got = _bf16(emulate_paged_decode(tq, tk, tv, bt, clen, per, window,
+                                     "tensor_core", rounding=True, **scales))
+    plain = paged_decode_attention_plain(
+        tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(clen),
+        window=window, **scales).float()
+    torch.testing.assert_close(got, plain, rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("route", ["cuda_core", "tensor_core"])
+def test_paged_decode_merges_splits_in_order(route):
+    """One tile a split: the sequence's partials merge in split order and
+    the output is exactly 1 / 192 (fp32); any other order loses the 1
+    (see ``order_sensitive_pool``)."""
+    q, k, v, desc = order_sensitive_pool()
+    got = emulate_paged_decode(q, k, v, desc[0], desc[4], per=1, route=route)
+    assert torch.equal(got, torch.full_like(got, np.float32(1 / 192)))
+
+
+def test_paged_splits_come_from_the_table_width():
+    """K7a's split count and tiles a split at the two-program decode's
+    shapes (B 8, Hkv 8, a 128-page table) on 132 and 114 SMs; whole
+    tiles, every split non-empty, from shapes only."""
+    assert paged_splits(8, 8, 128, 132) == (5, 7)
+    assert paged_splits(8, 8, 128, 114) == (4, 8)
+    assert paged_splits(1, 1, 128, 132) == (32, 1)
+    for B, Hkv, nb, sm in ((8, 8, 128, 132), (3, 2, 10, 114), (1, 1, 1, 132)):
+        splits, per = paged_splits(B, Hkv, nb, sm)
+        tiles = -(-nb * PAGE // TILE)
+        assert (splits - 1) * per < tiles <= splits * per

@@ -32,11 +32,15 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-CLASSES = (("ragged_attention", re.compile(r"ragged_kernel")),
+# K6 launches ragged_plan_kernel, ragged_walk_kernel and merge_kernel;
+# K7a paged_decode_kernel and merge_kernel (the two engines never run both:
+# merge_kernel joins K6's class in the unified step, K7a's with --legacy)
+CLASSES = (("ragged_attention", re.compile(r"ragged_\w*kernel")),
            ("paged_decode_attention", re.compile(r"paged_decode_kernel")),
            ("paged_prefill_attention", re.compile(r"paged_prefill_kernel")),
            ("matmul", re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas",
                                  re.I)))
+MERGE = re.compile(r"\bmerge_kernel")
 
 
 def _kernel_summary(trace_path, wall_s, classes=CLASSES):
@@ -110,7 +114,11 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         prof.export_chrome_trace(trace)
-        summary = _kernel_summary(trace, wall)
+        owner = "paged_decode_attention" if args.legacy \
+            else "ragged_attention"
+        summary = _kernel_summary(trace, wall, tuple(
+            (name, re.compile(f"{rx.pattern}|{MERGE.pattern}")
+             if name == owner else rx) for name, rx in CLASSES))
         os.remove(trace)
         summary["steps"] = steps
         # forwards of the model: one per step on the unified engine
