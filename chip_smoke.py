@@ -107,6 +107,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak
 
 # the serving step's attention shapes: Llama-3-8B heads, the ServingEngine
 # below (8 slots, 16-token pages, 1024 pages, 2048-token rows, a packed
@@ -169,8 +170,8 @@ def bound(nbytes, flops, flop_rate):
 # ---------------------------------------------------------------------------
 
 def paged_route(q, k_pages):
-    """The route K6 / K7a take for these inputs: a function of q's type
-    (bf16 q over a bf16 or int8 pool runs on the tensor cores)."""
+    """The route K6 / K7a / K7b take for these inputs: a function of q's
+    type (bf16 q over a bf16 or int8 pool runs on the tensor cores)."""
     return "tensor cores" if q.dtype == torch.bfloat16 else "CUDA cores"
 
 
@@ -457,14 +458,18 @@ def check_paged_attention():
             results[kind][name] = dict(
                 max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
-            launch = ""
             if kind == "decode":
                 splits, per = da.paged_splits(len(rows), Hkv, NB,
                                               da._sm_count(0))
-                launch = (f" | route {paged_route(q, k)}, grid "
-                          f"({len(rows)}, {Hkv}, {splits}), {splits} splits "
-                          f"of {per} 64-key tiles | "
-                          f"{achieved(bms, by, ms)}")
+                grid = (len(rows), Hkv, splits)
+            else:
+                lp = da.prefill_launch(len(rows), T, Hq, Hkv, NB, dtype,
+                                       da._sm_count(0))
+                splits, per = lp["splits"], lp["per"]
+                grid = (len(rows) * lp["tiles"], Hkv, splits)
+            launch = (f" | route {paged_route(q, k)}, grid {grid}, {splits} "
+                      f"splits of {per} 64-key tiles | "
+                      f"{achieved(bms, by, ms)}")
             log(f"parity paged_{kind}_attention {name} (B {len(rows)} T {T} "
                 f"H {Hq} Hkv {Hkv} D {Dh} {str(dtype)[6:]} int8 {int8} "
                 f"window {window} (chunk_start, context) {rows}): ok "
@@ -1383,12 +1388,34 @@ def _matmul_tolerance(x, w, dtype):
 
 def _quant_route(qm, M, K, N, mode, dtype):
     """The route a quantized matmul takes, with the gemv_tc kernel's column
-    tiles and cluster size on this card."""
+    tiles and cluster size, or the fp32 route's grid and K splits, on this
+    card."""
     route = qm.kernel_route(M, K, N, dtype)
     if route == "gemv_tc":
         tiles, cluster = qm.gemv_tc_grid(K, N, mode, qm._sm_count(0))
         route += f" {tiles} tiles x cluster {cluster}"
+    elif route == "fp32":
+        grid = qm.fp32_grid(M, K, N, qm._sm_count(0))
+        route += (f" tensor cores (x as two TF32 parts), grid {grid}, "
+                  f"{grid[2]} K splits")
     return route
+
+
+def _matmul_bound(qm, M, K, N, dtype, nbytes):
+    """``(ms, by, note)``: the bound of a quantized matmul for the
+    arithmetic its route runs. bf16: 2 M K N operations at the bf16 peak.
+    fp32 off the tensor cores (the decode GEMV): the same at the fp32
+    peak. The fp32 route (M > 8) runs every product twice on the tensor
+    cores (x as two TF32 parts): 4 M K N at the TF32 peak, with the
+    CUDA-core bound of 2 M K N at the fp32 peak in ``note``."""
+    flops = 2 * M * K * N
+    if dtype == torch.bfloat16:
+        return (*bound(nbytes, flops, BF16_FLOP_PER_S), "")
+    if qm.kernel_route(M, K, N, dtype) != "fp32":
+        return (*bound(nbytes, flops, FP32_FLOP_PER_S), "")
+    cuda_core = bound(nbytes, flops, FP32_FLOP_PER_S)[0]
+    return (*bound(nbytes, 2 * flops, TF32_FLOP_PER_S),
+            f" (CUDA-core bound {cuda_core:.4f})")
 
 
 def check_quant_matmul():
@@ -1424,9 +1451,7 @@ def check_quant_matmul():
         library_ms = cuda_time_ms(lambda: torch.matmul(x, wd))
         nbytes = codes.numel() + scale.numel() * 4 \
             + (M * K + M * N) * x.element_size()
-        bms, by = bound(nbytes, 2 * M * K * N,
-                        BF16_FLOP_PER_S if dtype == torch.bfloat16
-                        else FP32_FLOP_PER_S)
+        bms, by, note = _matmul_bound(qm, M, K, N, dtype, nbytes)
         results[name] = dict(max_abs_err=float(err.max()), ms=ms,
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              library_ms=library_ms)
@@ -1435,8 +1460,8 @@ def check_quant_matmul():
             f"{_quant_route(qm, M, K, N, mode, dtype)}): ok max_abs_err="
             f"{float(err.max()):.3e} (tolerance {rel:g}*|plain|+1e-5*"
             f"(|x|@|W|)) | kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={bms:.4f} ({by}) library_ms={library_ms:.4f} "
-            f"(torch.matmul on the pre-dequantized weight) | "
+            f"bound_ms={bms:.4f} ({by}){note} library_ms="
+            f"{library_ms:.4f} (torch.matmul on the pre-dequantized weight) | "
             f"{nbytes / ms / 1e6:.1f} GB/s, {bms / ms:.1%} of the bound")
         del x, codes, scale, got, ref, wd
     col = {}
@@ -1460,9 +1485,7 @@ def check_quant_matmul():
                                 reps=5, warmup=1)
         library_ms = cuda_time_ms(lambda: torch.matmul(x, wd))
         nbytes = codes.numel() + N * 4 + (M * K + M * N) * x.element_size()
-        bms, by = bound(nbytes, 2 * M * K * N,
-                        BF16_FLOP_PER_S if dtype == torch.bfloat16
-                        else FP32_FLOP_PER_S)
+        bms, by, note = _matmul_bound(qm, M, K, N, dtype, nbytes)
         col[name] = dict(max_abs_err=float(err.max()), ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=library_ms)
@@ -1471,7 +1494,7 @@ def check_quant_matmul():
             f"{_quant_route(qm, M, K, N, 'int8_col', dtype)}): "
             f"ok max_abs_err={float(err.max()):.3e} | "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
-            f"{bms:.4f} ({by}) library_ms={library_ms:.4f} | "
+            f"{bms:.4f} ({by}){note} library_ms={library_ms:.4f} | "
             f"{nbytes / ms / 1e6:.1f} GB/s, {bms / ms:.1%} of the bound")
         del x, codes, scale, got, ref, wd
     return results, col

@@ -1,6 +1,7 @@
 // The split-key walk over a paged KV pool shared by the unified ragged
-// kernel (ragged_attention.cu, K6) and the paged decode kernel
-// (paged_attention.cu, K7a), hand-written for Hopper (sm_90a).
+// kernel (ragged_attention.cu, K6) and the paged decode and chunked-prefill
+// kernels (paged_attention.cu, K7a and K7b), hand-written for Hopper
+// (sm_90a).
 //
 // The pool is k/v [N, Hkv, 16, D] (bf16/fp32, or int8 with fp32 scales
 // [N, Hkv, 16]) addressed through a block table [rows, nb]; an entry
@@ -890,10 +891,11 @@ __device__ void cc_item(const Pool& p, const Item& it, unsigned char* smem) {
   const int sg = tid / BK;
 
   for (int i = 0; i < ntiles; ++i) {
+    cp_wait<0>();
+    __syncthreads();  // tile i landed; tile i - 1's P.V is done, so its
+                      // stage takes tile i + 1
     if (i + 1 < ntiles) issue(it.t0 + i + 1, (i + 1) % NSTAGE);
     cp_commit();
-    cp_wait<NSTAGE - 1>();
-    __syncthreads();  // tile i landed; the last tile's P.V is done
 
     const unsigned char* st = ring + (i % NSTAGE) * L::STAGE;
     const unsigned char* kr = st;
@@ -1112,7 +1114,7 @@ constexpr int narrow_smem() {
 
 // rows of a chunk item on the route of (QT, KT)
 template <typename QT, typename KT>
-constexpr int chunk_rows() {
+__host__ __device__ constexpr int chunk_rows() {
   return tensor_cores<QT, KT>() ? TC_ROWS : CC_ROWS;
 }
 

@@ -84,13 +84,28 @@
 //   16 outputs, K split across blocks; each block writes an fp32 partial
 //   and finalize_kernel sums the splits in order (deterministic), applies
 //   K8's column scale and rounds to bf16.
-// - fp32 x runs on CUDA cores with exact fp32 products, as the plain
-//   version's fp32 matmul: M <= 8 as a GEMV (gemv_kernel: threads along
-//   N, 8 columns each, eight warps on interleaved K rows with four 8-byte
-//   loads in flight per thread, x staged in shared memory in chunks of
-//   1024 K rows, split K and the same finalize pass); M > 8 as 128 x 128
-//   tiles (gemm_kernel) with a K loop of 16 rows and 8 x 8 outputs per
-//   thread.
+// - fp32 x, M <= 8: gemv_kernel on CUDA cores with exact fp32 products,
+//   as the plain version's fp32 matmul: threads along N, 8 columns each,
+//   eight warps on interleaved K rows with four 8-byte loads in flight per
+//   thread, x staged in shared memory in chunks of 1024 K rows, split K
+//   and the same finalize pass.
+// - fp32 x, M > 8 (fp32_tc_kernel): the tensor cores at fp32 accuracy.
+//   The codes are small integers, exact in TF32; x is split into two TF32
+//   parts, x = hi + lo, and each product runs on both (mma.sync m16n8k8,
+//   fp32 accumulation), so it keeps at least 21 bits of x (one TF32 pass
+//   keeps 11, which the fp32 tolerance refuses). Each scale group's fp32
+//   sum is multiplied by its scale (no per-element scale load); K8's
+//   column scale multiplies the total. Blocks of 64 x 128 outputs, 8 warps
+//   of 32 x 32, walk 64-row K chunks through a 3-stage cp.async ring; K is
+//   split so that tiles x splits fill the SMs (two blocks each,
+//   ops/quant_matmul.py fp32_splits), each split writing an fp32 partial
+//   that finalize_kernel sums in split order (no atomics). It replaces
+//   the first design, 128 x 128 fp32-FMA tiles with the whole K loop each
+//   (24 blocks at M 300, N 1024), synchronous loads, byte-wise code reads
+//   and a scale load per weight element. Bound: the products at the TF32
+//   rate, twice (two passes), against the codes' and x's bytes. 64-row
+//   chunks with x split in registers took 0.56x the time of 32-row chunks
+//   with a split pass through shared memory (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -282,99 +297,342 @@ __global__ void finalize_kernel(const float* __restrict__ work,
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core tiled path: M > 8, fp32 x
+// fp32 prefill: M > 8, fp32 x, on the tensor cores with x split in two
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 16;
-constexpr int TILE_THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int FT_BM = 64;        // rows of x a block
+constexpr int FT_BN = 128;       // columns of W a block
+constexpr int FT_BK = 64;        // K rows a stage
+constexpr int FT_STAGES = 3;     // stages of the cp.async ring
+constexpr int FT_THREADS = 256;  // 8 warps: 2 along M x 4 along N, 32 x 32
+constexpr int FT_XROW = FT_BK + 8;  // floats of a staged x row (288
+                                    // bytes: the fragments' 8-byte loads
+                                    // are conflict-free)
 
 template <int MODE>
-__global__ void __launch_bounds__(TILE_THREADS)
-    gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-                const float* __restrict__ scale, float* __restrict__ out, int M,
-                int K, int N, int G) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // x tile, transposed
-  __shared__ __align__(16) float Bs[BK][BN + 4];  // dequantized W tile
+struct FtLayout {
+  // code rows of a stage (int4: byte rows, two K rows each)
+  static constexpr int CROWS = MODE == kInt4 ? FT_BK / 2 : FT_BK;
+  // bytes of a staged code row: the rows a k8 step's lanes read (int8:
+  // 2t and 2t + 1, int4: t) fall on distinct banks
+  static constexpr int CROW = MODE == kInt4 ? FT_BN + 32 : FT_BN + 16;
+  static constexpr int X = FT_BM * FT_XROW * 4;
+  static constexpr int STAGE = X + CROWS * CROW;
+  static constexpr int BYTES = FT_STAGES * STAGE;
+  static_assert(X % 16 == 0 && STAGE % 16 == 0, "16-byte alignment");
+};
+
+// x rounded to TF32 as cvt.rna.tf32.f32 does (to nearest, ties away from
+// zero), on the integer pipe: half a TF32 ulp added to the magnitude bits,
+// the 13 low mantissa bits cleared
+__device__ __forceinline__ uint32_t rna_tf32(uint32_t bits) {
+  return (bits + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, both TF32 (11 significant bits each; x - hi is exact): the
+// products keep at least 21 bits of x, where one TF32 pass keeps 11
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = __uint_as_float(rna_tf32(__float_as_uint(x)));
+  lo = __uint_as_float(rna_tf32(__float_as_uint(x - hi)));
+}
+
+// the signed byte in bits [8j, 8j + 8) of w as an fp32 integer (exact in
+// TF32), without a conversion instruction: the biased byte placed in the
+// mantissa of 2^23, the bias subtracted
+__device__ __forceinline__ uint32_t code8_tf32(uint32_t w, int j) {
+  const uint32_t m =
+      __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7650u | (j & 3));
+  return __float_as_uint(__uint_as_float(m) - 8388736.f);  // 2^23 + 128
+}
+
+// the signed nibble (bits [4h, 4h + 4) of byte j of w) likewise
+__device__ __forceinline__ uint32_t code4_tf32(uint32_t w, int j, int h) {
+  const uint32_t n = ((w >> (8 * j + 4 * h)) & 0xFu) ^ 8u;
+  return __float_as_uint(__uint_as_float(0x4B000000u | n) - 8388616.f);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bytes global -> shared, zero-filled when !in
+__device__ __forceinline__ void cp8(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 8 : 0));
+}
+
+// Stage K rows [k0, k0 + 64) of x's rows [m0, m0 + 64) and of W's columns
+// [n0, n0 + 128) into `st`, zeros past M, K and N: 16-byte cp.async where
+// the rows allow it (K % 4 for x, N % 16 for the codes), else 8-, 4-byte or
+// (N odd) plain byte copies.
+template <int MODE>
+__device__ __forceinline__ void ft_stage(unsigned char* st,
+                                         const float* __restrict__ x,
+                                         const uint8_t* __restrict__ codes,
+                                         int M, int K, int N, int m0, int n0,
+                                         int k0) {
+  using L = FtLayout<MODE>;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int g = K / G;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < BM * BK / TILE_THREADS; ++i) {
-      const int e = tid + i * TILE_THREADS;
-      const int mm = e / BK;
-      const int kk = e % BK;
-      const int m = m0 + mm;
-      const int k = k0 + kk;
-      As[kk][mm] = (m < M && k < K) ? x[static_cast<size_t>(m) * K + k] : 0.f;
+  float* xs = reinterpret_cast<float*>(st);
+  if (K % 4 == 0) {
+    for (int c = tid; c < FT_BM * FT_BK / 4; c += FT_THREADS) {
+      const int r = c / (FT_BK / 4);
+      const int k = k0 + 4 * (c % (FT_BK / 4));
+      const bool in = m0 + r < M && k < K;
+      cp16(saddr(xs + r * FT_XROW + k - k0),
+           in ? x + static_cast<size_t>(m0 + r) * K + k : x, in);
     }
+  } else {
+    for (int e = tid; e < FT_BM * FT_BK; e += FT_THREADS) {
+      const int r = e / FT_BK;
+      const int k = k0 + e % FT_BK;
+      const bool in = m0 + r < M && k < K;
+      cp4(saddr(xs + r * FT_XROW + k - k0),
+          in ? x + static_cast<size_t>(m0 + r) * K + k : x, in);
+    }
+  }
+  unsigned char* cs = st + L::X;
+  const int kr0 = MODE == kInt4 ? k0 / 2 : k0;  // code rows
+  const int KR = MODE == kInt4 ? K / 2 : K;
+  const int vec = N % 16 == 0 ? 16 : N % 8 == 0 ? 8 : N % 4 == 0 ? 4 : 1;
+  if (vec > 1) {
+    const int per_row = FT_BN / vec;
+    for (int c = tid; c < L::CROWS * per_row; c += FT_THREADS) {
+      const int r = c / per_row;
+      const int n = n0 + vec * (c % per_row);
+      const bool in = kr0 + r < KR && n < N;
+      const uint8_t* src =
+          in ? codes + static_cast<size_t>(kr0 + r) * N + n : codes;
+      const uint32_t dst = saddr(cs + r * L::CROW + n - n0);
+      if (vec == 16)
+        cp16(dst, src, in);
+      else if (vec == 8)
+        cp8(dst, src, in);
+      else
+        cp4(dst, src, in);
+    }
+  } else {
+    for (int e = tid; e < L::CROWS * FT_BN; e += FT_THREADS) {
+      const int r = e / FT_BN;
+      const int n = n0 + e % FT_BN;
+      cs[r * L::CROW + n - n0] =
+          kr0 + r < KR && n < N ? codes[static_cast<size_t>(kr0 + r) * N + n]
+                                : 0;
+    }
+  }
+}
+
+// One block: x rows [m0, m0 + 64) times W columns [n0, n0 + 128) over the
+// 64-row K chunks of split s. Warp (wm, wn) holds rows
+// wm * 32 + [0, 32) and columns wn * 32 + [0, 32) as 2 x 4 mma tiles
+// m16n8k8. Two index maps make every operand load one conflict-free
+// word: within a k8 step, logical K index t (t + 4) is physical row 2t
+// (2t + 1), so a lane's A pair and (int4) its two nibbles sit together;
+// n8 tile j's logical column c is physical column 4c + j, so a lane's four
+// B codes are one 32-bit word and its accumulators cover 8 consecutive
+// columns 8t .. 8t + 7. Each x fragment is split as it is loaded, x = hi
+// + lo (a split pass through shared memory, with its second barrier a
+// chunk, was slower). Products run on hi and on lo into a group
+// accumulator; at a scale-group boundary it is multiplied by the group's
+// scales (loaded when the group starts) and added to the total (K8: one
+// group, unscaled, the column scale applied with the split sum).
+template <int MODE>
+__global__ void __launch_bounds__(FT_THREADS, 2)
+    fp32_tc_kernel(const float* __restrict__ x,
+                   const uint8_t* __restrict__ codes,
+                   const float* __restrict__ scale, float* __restrict__ out,
+                   float* __restrict__ work, int M, int K, int N, int G,
+                   int splits) {
+  using L = FtLayout<MODE>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+  const int n0 = blockIdx.x * FT_BN;
+  const int m0 = blockIdx.y * FT_BM;
+  const int s = blockIdx.z;
+  const int chunks = (K + FT_BK - 1) / FT_BK;
+  const int per = (chunks + splits - 1) / splits;
+  const int c0 = s * per;
+  const int nck = min(chunks, c0 + per) - c0;
+  const int g = K / G;                    // scale-group length
+  const int ncol = n0 + wn * 32 + 8 * t;  // this lane's first column
+
+  float acc[2][4][4], gacc[2][4][4];
 #pragma unroll
-    for (int i = 0; i < BK * BN / TILE_THREADS; ++i) {
-      const int e = tid + i * TILE_THREADS;
-      const int kk = e / BN;
-      const int nn = e % BN;
-      const int k = k0 + kk;
-      const int n = n0 + nn;
-      float w = 0.f;
-      if (k < K && n < N) {
-        int code;
-        if (MODE == kInt4) {
-          const uint32_t b = codes[static_cast<size_t>(k >> 1) * N + n];
-          code = nibble(b, k & 1);
-        } else {
-          code = static_cast<int8_t>(codes[static_cast<size_t>(k) * N + n]);
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = gacc[mi][j][e] = 0.f;
+  int cur = -1;   // the group gacc holds
+  int gend = 0;   // the first K row past it
+  float sc[8];    // its scales of the lane's columns
+
+  // acc += gacc * sc; gacc = 0
+  auto flush = [&]() {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mi][j][e] += gacc[mi][j][e] * sc[(e & 1) * 4 + j];
+          gacc[mi][j][e] = 0.f;
         }
-        w = MODE == kInt8Col
-                ? static_cast<float>(code)
-                : static_cast<float>(code) *
-                      __ldg(scale + static_cast<size_t>(k / g) * N + n);
-      }
-      Bs[kk][nn] = w;
-    }
-    __syncthreads();
+  };
+  // gacc now holds group grp: fetch its scales
+  auto start = [&](int grp) {
+    cur = grp;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
+    for (int i = 0; i < 8; ++i)
+      sc[i] = MODE == kInt8Col || ncol + i >= N
+                  ? 1.f
+                  : __ldg(scale + static_cast<size_t>(grp) * N + ncol + i);
+  };
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
+  for (int i = 0; i < FT_STAGES - 1; ++i) {
+    if (i < nck)
+      ft_stage<MODE>(smem + i * L::STAGE, x, codes, M, K, N, m0, n0,
+                     (c0 + i) * FT_BK);
+    cp_commit();
+  }
+
+  for (int i = 0; i < nck; ++i) {
+    cp_wait<FT_STAGES - 2>();
+    __syncthreads();  // chunk i landed; chunk i - 1 is multiplied
+    const int nx = i + FT_STAGES - 1;
+    if (nx < nck)
+      ft_stage<MODE>(smem + (nx % FT_STAGES) * L::STAGE, x, codes, M, K, N,
+                     m0, n0, (c0 + nx) * FT_BK);
+    cp_commit();
+    const unsigned char* st = smem + (i % FT_STAGES) * L::STAGE;
+    const float* xs = reinterpret_cast<const float*>(st);
+    const unsigned char* cs = st + L::X;
+    const int k0 = (c0 + i) * FT_BK;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n >= N) continue;
-      const float y = MODE == kInt8Col ? acc[i][j] * scale[n] : acc[i][j];
-      out[static_cast<size_t>(m) * N + n] = y;
+    for (int ks = 0; ks < FT_BK / 8; ++ks) {
+      const int kb = k0 + ks * 8;
+      if (kb >= K) break;
+      // codes of rows kb + 2t (b0) and kb + 2t + 1 (b1), tile j in byte j
+      uint32_t b0[4], b1[4];
+      if constexpr (MODE == kInt4) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            cs + (ks * 4 + t) * L::CROW + wn * 32 + 4 * gq);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b0[j] = code4_tf32(w, j, 0);
+          b1[j] = code4_tf32(w, j, 1);
+        }
+      } else {
+        const unsigned char* cr = cs + (ks * 8 + 2 * t) * L::CROW + wn * 32 +
+                                  4 * gq;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(cr);
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(cr + L::CROW);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b0[j] = code8_tf32(w0, j);
+          b1[j] = code8_tf32(w1, j);
+        }
+      }
+      // x's hi and lo fragments of the warp's two m16 tiles
+      uint32_t a[2][2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* xr = xs + (wm * 32 + mi * 16 + gq) * FT_XROW + ks * 8 +
+                          2 * t;
+        const float2 v0 = *reinterpret_cast<const float2*>(xr);
+        const float2 v1 = *reinterpret_cast<const float2*>(xr + 8 * FT_XROW);
+        const float e[4] = {v0.x, v1.x, v0.y, v1.y};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float h, l;
+          split_tf32(e[q], h, l);
+          a[0][mi][q] = __float_as_uint(h);
+          a[1][mi][q] = __float_as_uint(l);
+        }
+      }
+      if (kb >= gend) {  // the step opens a group
+        if (cur >= 0) flush();
+        start(kb / g);
+        gend = (cur + 1) * g;
+      }
+      if (kb + 7 < gend || gend >= K) {  // the whole step in group cur
+#pragma unroll
+        for (int part = 0; part < 2; ++part)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_tf32(gacc[mi][j], a[part][mi], b0[j], b1[j]);
+      } else {
+        // a group boundary inside the step (groups that are no multiple
+        // of 8 rows): once per group, the other rows' codes zeroed
+        const int gb = min(kb + 7, K - 1) / g;
+        for (int gg = cur; gg <= gb; ++gg) {
+          if (gg != cur) {
+            flush();
+            start(gg);
+          }
+          const bool in0 = (kb + 2 * t) / g == gg;
+          const bool in1 = (kb + 2 * t + 1) / g == gg;
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                mma_tf32(gacc[mi][j], a[part][mi], in0 ? b0[j] : 0u,
+                         in1 ? b1[j] : 0u);
+        }
+        gend = (cur + 1) * g;
+      }
     }
   }
+  cp_wait<0>();
+  if (cur >= 0) flush();
+
+  // one split: the output (K8: times the column scale); else the split's
+  // fp32 partial, which finalize_kernel sums in split order
+  float* dst = splits == 1 ? out : work + static_cast<size_t>(s) * M * N;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + mi * 16 + gq + 8 * h;
+      if (m >= M) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[mi][j][2 * h];
+        v[4 + j] = acc[mi][j][2 * h + 1];
+      }
+      if (MODE == kInt8Col && splits == 1)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (ncol + i < N) v[i] *= __ldg(scale + ncol + i);
+      float* row = dst + static_cast<size_t>(m) * N;
+      if (N % 4 == 0 && ncol + 8 <= N) {
+        *reinterpret_cast<float4*>(row + ncol) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(row + ncol + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (ncol + i < N) row[ncol + i] = v[i];
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1339,9 +1597,18 @@ int launch(const void* x, const void* codes, const void* scale, void* out,
     tc_prefill_kernel<MODE><<<grid, TC_THREADS, 0, stream>>>(xp, cp, sp, op,
                                                              M, K, N, G);
   } else {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    gemm_kernel<MODE><<<grid, TILE_THREADS, 0, stream>>>(xp, cp, sp, op, M,
-                                                         K, N, G);
+    constexpr int bytes = FtLayout<MODE>::BYTES;
+    cudaError_t err = allow_smem<fp32_tc_kernel<MODE>>(bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((N + FT_BN - 1) / FT_BN, (M + FT_BM - 1) / FT_BM, splits);
+    fp32_tc_kernel<MODE><<<grid, FT_THREADS, bytes, stream>>>(
+        xp, cp, sp, op, wp, M, K, N, G, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+    const size_t total = static_cast<size_t>(M) * N;
+    finalize_kernel<XT, MODE>
+        <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+            wp, sp, op, M, N, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1370,9 +1637,10 @@ int launch_mode(int mode, const void* x, const void* codes, const void* scale,
 // C entry for ctypes. x [M, K] (x_bf16: bf16, else fp32), codes int8
 // [K, N] (modes 0 and 2) or uint8 [K/2, N] (mode 1), scale fp32 [G, N]
 // (modes 0, 1) or [N] (mode 2), out [M, N] in x's type, work fp32
-// [splits, M, N] (read when M <= 8 off the gemv_tc route, whose `splits`
-// is its cluster size). G divides K (into even groups for
-// int4); x and the codes are 16-byte aligned. The caller validates shapes.
+// [splits, M, N] (used when M <= 8 off the gemv_tc route, whose `splits`
+// is its cluster size, and by fp32 x with M > 8 and splits > 1). G divides
+// K (into even groups for int4); x and the codes are 16-byte aligned. The
+// caller validates shapes.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int quant_matmul(const void* x, const void* codes,
                             const void* scale, void* out, void* work, int M,

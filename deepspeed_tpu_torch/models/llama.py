@@ -35,8 +35,10 @@ Every projection comes from ``layers.model_dense``: ``nn.Linear``, or with
 Each wrapper launches its hand-written kernel on CUDA tensors and its
 plain PyTorch version on CPU tensors: the device decides, so the JAX
 config's ``attention_impl`` and ``decode_attention_impl`` have no
-counterpart here. A training padding mask, other remat policies and the
-chunked loss raise.
+counterpart here (both are accepted, as are the flash tile sizes).
+``scan_layers`` changes no layout: the port keeps one module a layer, and
+the field sets the span of LAMB's trust ratio. A training padding mask,
+other remat policies and the chunked loss raise.
 
 As with a flax module, the model object is a definition: its parameters
 are built on the ``meta`` device (shapes only, no memory), and an engine
@@ -86,6 +88,17 @@ class LlamaConfig:
     head_dim_override: Optional[int] = None
     mlp_activation: str = "silu"  # "silu" | "gelu_tanh"
     embed_scale: Optional[float] = None
+    #: the JAX kernel choices ("xla" | "flash", "xla" | "pallas"): the
+    #: device picks the kernel here, so both are accepted and change nothing
+    attention_impl: str = "xla"
+    decode_attention_impl: str = "xla"
+    #: the JAX flash kernel's tiles: any positive value is accepted; the
+    #: port's kernels fix their own
+    flash_block_q: int = 512
+    flash_block_k: int = 512
+    #: the JAX layout of the block weights (one [L, ...] leaf per weight
+    #: when True); LAMB's trust ratio spans one such leaf (runtime/engine.py)
+    scan_layers: bool = True
     #: training: recompute each block in the backward instead of keeping
     #: its activations
     remat: bool = True
@@ -107,6 +120,10 @@ class LlamaConfig:
     quantize_weights: Optional[str] = None
     #: scale-group length along K (0 = per-column for int8, 64 for int4)
     quantize_group_size: int = 0
+    #: int8 payloads for the tensor-parallel all-reduce, and its values
+    #: per scale: only the off values (False, 256) are accepted
+    quantized_collectives: bool = False
+    quantized_psum_block: int = 256
     #: the tensor-parallel width the weights were quantized for
     #: (row-parallel scale groups align to it; 1 in this port)
     quantize_row_shards: int = 1
@@ -118,6 +135,26 @@ class LlamaConfig:
         if self.quantize_weights not in (None, "int8", "int4"):
             raise ValueError(f"quantize_weights must be None, 'int8' or "
                              f"'int4', got {self.quantize_weights!r}")
+        if self.attention_impl not in ("xla", "flash"):
+            raise ValueError(f"attention_impl must be 'xla' or 'flash', got "
+                             f"{self.attention_impl!r}")
+        if self.decode_attention_impl not in ("xla", "pallas"):
+            raise ValueError(f"decode_attention_impl must be 'xla' or "
+                             f"'pallas', got {self.decode_attention_impl!r}")
+        for name in ("flash_block_q", "flash_block_k"):
+            value = getattr(self, name)
+            if isinstance(value, bool) or not isinstance(value, int) or \
+                    value <= 0:
+                raise ValueError(f"{name} must be a positive int, got "
+                                 f"{value!r}")
+        if not isinstance(self.scan_layers, bool):
+            raise ValueError(f"scan_layers must be True or False, got "
+                             f"{self.scan_layers!r}")
+        if self.quantized_collectives or self.quantized_psum_block != 256:
+            raise NotImplementedError(
+                "quantized_collectives and quantized_psum_block != 256 "
+                "arrive with the distributed slice of the port (ROADMAP.md "
+                "Queue 1, item 9)")
         if self.remat_policy != "nothing" or self.loss_chunk:
             raise NotImplementedError(
                 "remat policies other than 'nothing' and loss_chunk > 0 "

@@ -16,9 +16,10 @@ Their bound on an H100 is bytes: the visible part of each row's K/V (and
 int8 scales) read once, against 3.35 TB/s. K4 cuts the key axis into
 :func:`decode_splits` ranges of whole tiles, one block each, and merges
 their partials in the same call; K7a does the same over the block table's
-capacity (:func:`paged_splits`), with the walk it shares with K6
-(``csrc/paged_common.cuh``). The design notes are at the top of the CUDA
-sources.
+capacity (:func:`paged_splits`), and K7b over the same capacity with its
+query tiles counted in (:func:`prefill_launch`); both run the walk they
+share with K6 (``csrc/paged_common.cuh``). The design notes are at the top
+of the CUDA sources.
 """
 
 import ctypes
@@ -35,8 +36,10 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8
 #: pool page size the paged kernels are compiled for
 KERNEL_BLOCK_SIZE = 16
-#: query rows one block of the paged prefill kernel holds (tokens x G)
-KERNEL_TILE_ROWS = 32
+#: query rows (tokens x G) of one K7b block, by q's dtype: the walk's
+#: chunk item, 64 rows on the tensor cores (bf16 q), 32 on the CUDA cores
+#: (fp32 q); G must divide them
+KERNEL_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 #: keys of one K4 tile: a split is a whole number of tiles
 KERNEL_KEY_TILE = 64
 #: K4's and the paged walks' (K6, K7a) blocks the split count aims for
@@ -70,6 +73,20 @@ def paged_splits(rows: int, Hkv: int, nb: int, sm_count: int):
     cut by :func:`decode_splits`' rule into ``splits`` ranges of ``per``
     whole ``KERNEL_KEY_TILE``-key tiles, for ``rows`` table rows."""
     return _split_tiles(rows, Hkv, nb * KERNEL_BLOCK_SIZE, sm_count)
+
+
+def prefill_launch(B: int, T: int, H: int, Hkv: int, nb: int,
+                   dtype: torch.dtype, sm_count: int):
+    """K7b's launch for ``B`` chunks of ``T`` tokens, ``H`` query heads
+    over ``Hkv`` kv heads, a table of ``nb`` pages, q of ``dtype``:
+    ``tiles`` query tiles a chunk (``KERNEL_TILE_ROWS[dtype] // G`` tokens
+    each), and :func:`paged_splits`' ``splits`` and ``per`` for ``B *
+    tiles`` rows of work. The grid is ``(B * tiles, Hkv, splits)``. Shapes
+    only: ``chunk_start`` and ``context_lens`` never change it."""
+    tokens = KERNEL_TILE_ROWS[dtype] // (H // Hkv)
+    tiles = -(-T // tokens)
+    splits, per = paged_splits(B * tiles, Hkv, nb, sm_count)
+    return dict(tiles=tiles, splits=splits, per=per)
 
 
 @functools.lru_cache(maxsize=None)
@@ -334,15 +351,14 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
 def _paged_entries():
     lib = _build.load("paged_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    tail = [ctypes.c_float, I, I, I, P]   # sm_scale window q_bf16 kv_int8 stream
     dec = lib.paged_decode_attention
     # q k v k_scale v_scale tables context_lens out scratch | B H Hkv D N
     # nb | sm_scale window q_bf16 kv_int8 splits per | stream
     dec.argtypes = [P] * 9 + [I] * 6 + [ctypes.c_float, I, I, I, I, I, P]
     pre = lib.paged_prefill_attention
-    # q k v k_scale v_scale tables chunk_start context_lens out |
-    # B T H Hkv D N nb
-    pre.argtypes = [P] * 9 + [I] * 7 + tail
+    # q k v k_scale v_scale tables chunk_start context_lens out scratch |
+    # B T H Hkv D N nb | sm_scale window q_bf16 kv_int8 splits per | stream
+    pre.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, I, I, I, I, I, P]
     dec.restype = pre.restype = I
     return dec, pre
 
@@ -484,8 +500,15 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
                             k_scale=None, v_scale=None):
     """One prefill chunk per sequence over the paged pool (kernel K7b; see
     the plain version for the arguments). CUDA tensors launch the kernel on
-    the current stream and add one to ``paged_prefill_attention.launches``;
-    CPU tensors take the plain version; anything else raises."""
+    the current stream (the split walk over the block table and its merge,
+    in one C call) and add one to ``paged_prefill_attention.launches``; CPU
+    tensors take the plain version; anything else raises. The launch comes
+    from the shapes and the card (:func:`prefill_launch`), never from
+    ``chunk_start`` or ``context_lens``, so a captured CUDA graph replays
+    for new descriptors. bf16 q runs on the tensor cores as K7a does, a
+    query tile of 64 / G tokens x G heads; fp32 q in exact fp32 on CUDA
+    cores, 32 / G tokens a tile. Every output element is written (zeros
+    for rows at or past the context)."""
     dev = _paged_device("paged_prefill_attention",
                         (q, k_pages, v_pages, block_tables, chunk_start,
                          context_lens), k_scale, v_scale)
@@ -499,23 +522,31 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
     B, H, D, N, Hkv, nb = _check_paged_args(
         "paged_prefill_attention", q, k_pages, v_pages, block_tables,
         (chunk_start, context_lens), k_scale, v_scale, window,
-        tile_rows=KERNEL_TILE_ROWS)
+        tile_rows=KERNEL_TILE_ROWS.get(q.dtype))
     T = q.shape[1]
-    out = torch.zeros_like(q)
-    if out.numel() == 0 or N == 0 or nb == 0:
+    out = torch.empty_like(q)
+    if out.numel() == 0:
         return out
+    if N == 0 or nb == 0:
+        return out.zero_()
     if sm_scale is None:
         sm_scale = 1.0 / D ** 0.5
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
         else (None, None)
+    lp = prefill_launch(B, T, H, Hkv, nb, q.dtype, _sm_count(out.device.index))
+    splits = lp["splits"]
+    # per (token, query head, split): D accumulators, then m and l
+    scratch = torch.empty(B * T * H * splits * (D + 2) if splits > 1 else 0,
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _paged_entries()[1](
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             block_tables.data_ptr(), chunk_start.data_ptr(),
-            context_lens.data_ptr(), out.data_ptr(), B, T, H, Hkv, D, N, nb,
-            float(sm_scale), 0 if window is None else int(window),
+            context_lens.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if splits > 1 else None, B, T, H, Hkv, D, N,
+            nb, float(sm_scale), 0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
-            torch.cuda.current_stream(dev).cuda_stream)
+            splits, lp["per"], torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill_attention: kernel launch failed "
                            f"with CUDA error {rc}")

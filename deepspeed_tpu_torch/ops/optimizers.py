@@ -11,7 +11,7 @@ the increment; bias correction uses the count after it.
 """
 
 import math
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -75,17 +75,31 @@ class FusedAdam(_AdamBase):
 
 class FusedLamb(_AdamBase):
     """LAMB: the bias-corrected Adam direction from K3 (run with lr 1 and no
-    decay, written into the gradient buffers), plus the decay, scaled per
-    tensor by the trust ratio ``|p| / |direction|`` clipped to
-    ``[min_coeff, max_coeff]`` (1 where either norm is 0)."""
+    decay, written into the gradient buffers, which then take the LAMB
+    direction in place), plus the decay, scaled by
+    the trust ratio ``|p| / |direction|`` clipped to ``[min_coeff,
+    max_coeff]`` (1 where either norm is 0).
+
+    ``groups`` lists the indices of tensors that share one ratio, whose
+    norms span the whole group (``sqrt`` of the summed squared norms, on
+    the device). The default makes every tensor its own group; the
+    training engine groups a scanned model's per-layer copies of a weight,
+    which is the JAX ``[L, ...]`` leaf."""
 
     def __init__(self, params, lr: ScalarOrSchedule = 1e-3,
                  betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, max_coeff: float = 10.0,
-                 min_coeff: float = 0.01, pallas: bool = False, **_):
+                 min_coeff: float = 0.01, pallas: bool = False,
+                 groups: Optional[Sequence[Sequence[int]]] = None, **_):
         super().__init__(params, lr, betas, eps)
         self.weight_decay = float(weight_decay)
         self.min_coeff, self.max_coeff = float(min_coeff), float(max_coeff)
+        n = len(self.params)
+        self.groups = [[i] for i in range(n)] if groups is None else \
+            [list(g) for g in groups]
+        if sorted(i for g in self.groups for i in g) != list(range(n)):
+            raise ValueError(f"groups must cover each of the {n} tensors "
+                             f"exactly once")
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor],
@@ -97,15 +111,25 @@ class FusedLamb(_AdamBase):
                    b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=0.0,
                    adam_w_mode=True, step_size=step_size, lr=1.0,
                    inv_bc2=inv_bc2, grad_scale=grad_scale, write_update=True)
-        for p, u in zip(self.params, grads):
-            direction = -u + self.weight_decay * p
-            p_norm = torch.linalg.vector_norm(p)
-            d_norm = torch.linalg.vector_norm(direction)
+        # the LAMB direction -u + decay * p, in place of u
+        directions = list(grads)
+        torch._foreach_neg_(directions)
+        if self.weight_decay:
+            torch._foreach_add_(directions, self.params,
+                                alpha=self.weight_decay)
+        p_norms = torch._foreach_norm(self.params)
+        d_norms = torch._foreach_norm(directions)
+        for group in self.groups:
+            p_norm = torch.linalg.vector_norm(
+                torch.stack([p_norms[i] for i in group]))
+            d_norm = torch.linalg.vector_norm(
+                torch.stack([d_norms[i] for i in group]))
             ratio = torch.where((p_norm > 0) & (d_norm > 0),
                                 p_norm / d_norm.clamp_min(1e-12),
                                 torch.ones_like(p_norm))
             ratio = ratio.clamp(self.min_coeff, self.max_coeff)
-            p.add_(-lr * ratio * direction)
+            for i in group:
+                self.params[i].add_(-lr * ratio * directions[i])
 
 
 ADAM_OPTIMIZER = "adam"
@@ -116,9 +140,11 @@ ONEBIT_OPTIMIZERS = ("onebitadam", "onebitlamb", "zerooneadam")
 
 
 def get_optimizer(name: str, params: List[torch.Tensor],
-                  opt_params: Dict, lr_schedule: Optional[Callable] = None):
+                  opt_params: Dict, lr_schedule: Optional[Callable] = None,
+                  groups: Optional[Sequence[Sequence[int]]] = None):
     """Engine dispatch by config name; ``lr_schedule`` replaces the scalar
-    lr with a ``step -> lr`` callable."""
+    lr with a ``step -> lr`` callable; ``groups`` are LAMB's trust-ratio
+    groups (``FusedLamb``), which the Adam family has no use for."""
     key = name.lower()
     p = dict(opt_params)
     lr = lr_schedule if lr_schedule is not None else p.pop("lr", 1e-3)
@@ -129,7 +155,7 @@ def get_optimizer(name: str, params: List[torch.Tensor],
     if key == ADAMW_OPTIMIZER:
         return FusedAdam(params, lr, adam_w_mode=True, **p)
     if key == LAMB_OPTIMIZER:
-        return FusedLamb(params, lr, **p)
+        return FusedLamb(params, lr, groups=groups, **p)
     if key == ADAGRAD_OPTIMIZER:
         raise unported("the Adagrad optimizer", "the optimizer slice (item 6)")
     if key in ONEBIT_OPTIMIZERS:

@@ -21,8 +21,9 @@ prefill's (thousands of rows) by operations. Which kernel a call runs is
 a function of its shape alone (:func:`kernel_route`): bf16 prefills whose
 rows TMA can address run the ``wgmma`` kernel, bf16 decodes the one-launch
 ``gemv_tc`` kernel (K split over a thread-block cluster sized from the
-card's SM count, :func:`gemv_tc_grid`). The design note is at the top of
-the CUDA source.
+card's SM count, :func:`gemv_tc_grid`), fp32 prefills the tensor cores on
+x split in two TF32 parts (:func:`fp32_grid`). The design note is at the
+top of the CUDA source.
 """
 
 import ctypes
@@ -58,7 +59,8 @@ def kernel_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
       and a finalize pass;
     - ``"wgmma"``: bf16 ``x``, ``M > 8``, and rows TMA can address;
     - ``"mma"``: other bf16 prefills (the ``mma.sync`` tile kernel);
-    - ``"fp32"``: fp32 ``x``, ``M > 8`` (CUDA-core tiles)."""
+    - ``"fp32"``: fp32 ``x``, ``M > 8``: tensor-core tiles on x split in
+      two TF32 parts, K split over blocks (:func:`fp32_splits`)."""
     tma = K % 8 == 0 and N % 16 == 0
     if M <= GEMV_MAX_ROWS:
         return "gemv_tc" if dtype == torch.bfloat16 and tma else "gemv"
@@ -229,6 +231,33 @@ def gemv_tc_grid(K: int, N: int, mode: str,
     return tiles, max(1, min(GEMV_TC_MAX_CLUSTER, k_tiles, fit))
 
 
+#: the fp32 route's output tile (rows of x, columns of W) and K chunk
+FP32_TILE_M, FP32_TILE_N, FP32_CHUNK = 64, 128, 64
+#: fp32-route blocks the split aims for per SM
+FP32_BLOCKS_PER_SM = 2
+
+
+def fp32_splits(M: int, K: int, N: int, sm_count: int) -> int:
+    """K-splits of the ``fp32`` route: K's 64-row chunks cut into the same
+    whole number per split, so that tiles x splits stay within
+    :data:`FP32_BLOCKS_PER_SM` blocks an SM of ``sm_count`` (one wave),
+    each split at least 256 rows; at least 1. The kernel cuts K the same
+    way (``ceil(chunks / splits)`` chunks a split) and
+    ``finalize_kernel`` sums the splits' fp32 partials in split order."""
+    tiles = -(-M // FP32_TILE_M) * -(-N // FP32_TILE_N)
+    chunks = -(-K // FP32_CHUNK)
+    want = max(1, min(chunks, FP32_BLOCKS_PER_SM * sm_count // tiles,
+                      K // 256))
+    per = -(-chunks // want)
+    return -(-chunks // per)
+
+
+def fp32_grid(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
+    """The ``fp32`` route's grid: (column tiles, row tiles, K splits)."""
+    return (-(-N // FP32_TILE_N), -(-M // FP32_TILE_M),
+            fp32_splits(M, K, N, sm_count))
+
+
 #: blocks the split route of the decode path aims for: four per SM
 _GEMV_BLOCKS_PER_SM = 4
 
@@ -267,6 +296,10 @@ def _launch(name, x, codes, scale, mode, N, G, route):
     sms = _sm_count(x.device.index)
     if route == "gemv_tc":
         splits, work = gemv_tc_grid(K, N, mode, sms)[1], out
+    elif route == "fp32":
+        splits = fp32_splits(M, K, N, sms)
+        work = torch.empty((splits, M, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else out
     else:
         splits = _gemv_splits(M, K, N, G, mode == "int4",
                               x.dtype == torch.bfloat16, sms)

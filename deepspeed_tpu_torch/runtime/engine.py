@@ -22,6 +22,7 @@ microbatches and runs ``train_batch`` at the accumulation boundary, as the
 JAX engine does.
 """
 
+import re
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -36,6 +37,9 @@ from .config import DeepSpeedConfig
 from .config_utils import unported
 from .fp16.loss_scaler import create_loss_scaler, update_scale
 from .lr_schedules import get_lr_schedule
+
+#: the layer index in a state_dict name (``model.layers.3.mlp...``)
+_LAYER_INDEX = re.compile(r"(^|\.)layers\.\d+\.")
 
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
            "fp32": torch.float32}
@@ -102,7 +106,9 @@ class DeepSpeedEngine:
             else:
                 p = p.to(self.device)
             self.master[name] = p
-        self._trainable = [p for p in self.master.values() if p.requires_grad]
+        self._trainable_names = [n for n, p in self.master.items()
+                                 if p.requires_grad]
+        self._trainable = [self.master[n] for n in self._trainable_names]
 
         self.lr_scheduler = self._build_lr_scheduler()
         self.optimizer = self._build_optimizer()
@@ -139,7 +145,22 @@ class DeepSpeedEngine:
         if opt is None:
             return FusedAdam(self._trainable, self.lr_scheduler or 1e-3)
         return get_optimizer(opt.type, self._trainable, opt.params,
-                             self.lr_scheduler)
+                             self.lr_scheduler,
+                             groups=self._trust_ratio_groups())
+
+    def _trust_ratio_groups(self):
+        """LAMB's trust-ratio groups, as indices into the trainable list: a
+        model whose config has ``scan_layers`` (the JAX default) groups
+        ``layers.{i}.<name>`` over i, the tensors that make one ``[L, ...]``
+        leaf of the JAX tree; otherwise each tensor is its own group, as in
+        JAX with unscanned layers and DeepSpeed's per-tensor fused LAMB."""
+        config = getattr(self.module, "config", None)
+        scanned = bool(getattr(config, "scan_layers", False))
+        groups: Dict[str, list] = {}
+        for i, name in enumerate(self._trainable_names):
+            key = _LAYER_INDEX.sub(r"\1layers.*.", name) if scanned else name
+            groups.setdefault(key, []).append(i)
+        return list(groups.values())
 
     # ------------------------------------------------------------------
     # the step

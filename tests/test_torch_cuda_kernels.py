@@ -478,6 +478,63 @@ def test_int8_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     _assert_matmul_close(got, ref, x, (codes.float() * scale).to(dtype))
 
 
+@pytest.mark.parametrize("mode,group,M,K,N", [
+    ("int8", 128, 300, 4096, 1024), ("int8_col", 0, 37, 264, 1000),
+    ("int4", 64, 77, 1000, 1001), ("int8", 44, 129, 264, 1000),
+    ("int4", 6, 65, 96, 136), ("int8", 0, 50, 263, 136),
+    ("int8_col", 0, 4097, 4096, 4096)],
+    ids=["fp32_m300_int8g128", "ragged_m37_fp32", "odd_k_n_int4",
+         "straddling_groups", "int4_g6", "odd_k_x", "prefill_k8"])
+def test_fp32_route_matches_plain(cuda, mode, group, M, K, N):
+    """K5's and K8's fp32 route (M > 8: the tensor cores on x split in two
+    TF32 parts, K split over blocks) against the plain version under the
+    rule |kernel - plain| <= 1e-5 (|x| @ |W|): chip_smoke's
+    fp32_m300_int8g128 (6 K splits) and ragged_m37_fp32 (N 1000: 8-byte
+    code copies), K and N off the tiles (N 1001: byte copies; K 263:
+    4-byte copies of x), groups of 44 and 6 rows that straddle the
+    kernel's 8-row steps, a prefill-sized K8; and two calls agree bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    w = torch.randn(K, N, generator=g, device=cuda) * 0.02
+    assert qm.kernel_route(M, K, N, torch.float32) == "fp32"
+    if mode == "int8_col":
+        codes, scale = qm.quantize_weight_per_col(w)
+        call = lambda: qm.int8_matmul(x, codes, scale)  # noqa: E731
+        ref = qm.int8_matmul_plain(x, codes, scale)
+        dense = codes.float() * scale
+    else:
+        codes, scale = qm.quantize_linear_weight(w, mode, group)
+        call = lambda: qm.quant_matmul(x, codes, scale, mode)  # noqa: E731
+        ref = qm.quant_matmul_plain(x, codes, scale, mode)
+        dense = qm.dequantize_linear_weight(codes, scale, mode)
+    got = call()
+    torch.cuda.synchronize()
+    _assert_matmul_close(got, ref, x, dense)
+    assert torch.equal(got, call())
+
+
+def test_fp32_route_sums_splits_in_order(cuda):
+    """The CPU test's ``fp32_order_case`` on the card, at the route's own
+    split count (M 16, K 4096, N 128: 16 splits of 256 rows): int8 codes
+    and scales of 1, row 0 of x zero but for 2**25, -2**25 and 1 at the
+    first rows of splits 0, 1 and 2. Each split's sum is exact, and only
+    the split order gives exactly 1 (the reverse gives 0)."""
+    M, K, N = 16, 4096, 128
+    splits = qm.fp32_splits(M, K, N, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert splits >= 3
+    per = -(-(-(-K // qm.FP32_CHUNK)) // splits) * qm.FP32_CHUNK
+    x = torch.zeros(M, K, device=cuda)
+    for s, v in enumerate((2.0 ** 25, -2.0 ** 25, 1.0)):
+        x[0, s * per] = v
+    codes = torch.ones(K, N, dtype=torch.int8, device=cuda)
+    got = qm.quant_matmul(x, codes, torch.ones(1, N, device=cuda), "int8")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.ones(N, device=cuda))
+    assert not got[1:].any()
+
+
 def _paged_case(dev, dtype, int8, D, Hkv, G, T, seed=0, nb=10):
     """A pool whose unused pages hold NaN (a kernel that touches a page it
     must not read poisons its row), a table with sentinel tails, and
@@ -559,13 +616,17 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G,
 @pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
 @pytest.mark.parametrize("T,window", [(64, None), (37, None), (64, 24),
                                       (1, None)])
+@pytest.mark.parametrize("nb", [10, 128], ids=["nb10", "nb128"])
 def test_paged_prefill_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, T,
-                                            window):
-    """K7b against its plain version: chunks at 0, mid-prompt and at the
-    table's end, a padded tail (zeros), rows with no context, a chunk
-    length that is no multiple of the tile, a window, an int8 pool, and
-    the chunk of one token (the decode kernel's function)."""
-    q, k, v, bt, cs, cl, scales = _paged_case(cuda, dtype, int8, D, Hkv, G, T)
+                                            window, nb):
+    """K7b against its plain version: chunks at 0, at mid-page starts
+    behind a prefix (70 and 33: pages hold 16 keys) and at the table's end
+    (2048 keys at nb 128: several key splits to merge), a padded tail
+    (zeros), rows with no context, a chunk length that is no multiple of
+    the query tile, a window, an int8 pool, and the chunk of one token (the
+    decode kernel's function)."""
+    q, k, v, bt, cs, cl, scales = _paged_case(cuda, dtype, int8, D, Hkv, G, T,
+                                              nb=nb)
     before = paged_prefill_attention.launches
     got = paged_prefill_attention(q, k, v, bt, cs, cl, window=window,
                                   **scales)
@@ -606,6 +667,22 @@ def test_paged_walks_are_deterministic(cuda, dtype, int8):
                                                          cl, **sc))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
+@pytest.mark.parametrize("window", [None, 100])
+def test_paged_prefill_is_deterministic(cuda, dtype, int8, window):
+    """K7b gives bitwise equal outputs on repeated calls: its key splits
+    (a 128-page table, chunks up to the table's end) merge in split order,
+    with no atomics."""
+    q, k, v, bt, cs, cl, sc = _paged_case(cuda, dtype, int8, 128, 2, 4, 64,
+                                          nb=128)
+    first = paged_prefill_attention(q, k, v, bt, cs, cl, window=window, **sc)
+    for _ in range(3):
+        assert torch.equal(first, paged_prefill_attention(
+            q, k, v, bt, cs, cl, window=window, **sc))
+
+
 # packed layouts of one width (R 5 rows, T 300 tokens, nb 128) that one
 # captured K6 graph replays over
 RAGGED_REPLAYS = [
@@ -620,9 +697,9 @@ RAGGED_REPLAYS = [
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("window", [None, 200])
 def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
-    """K6's and K7a's launches do not depend on the descriptors' values:
-    one CUDA graph captured around a call replays correctly after new
-    block tables, query starts and lengths, chunk starts and context
+    """K6's, K7a's and K7b's launches do not depend on the descriptors'
+    values: one CUDA graph captured around a call replays correctly after
+    new block tables, query starts and lengths, chunk starts and context
     lengths are written into the captured tensors."""
     N, nb, T, Hkv, G, D = 224, 128, 300, 2, 4, 128
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -667,6 +744,28 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), ref.float(), **tol)
 
+    # K7b: a 64-token chunk of each sequence at its layout's chunk start
+    # (context clipped to the table), padded tails and empty rows included
+    qc = torch.randn((B, 64, Hkv * G, D), generator=g, device=cuda,
+                     dtype=dtype)
+    cs = desc[3].clone()
+    paged_prefill_attention(qc, k, v, bt, cs, cl, window=window)  # warm-up
+    torch.cuda.synchronize()
+    before = paged_prefill_attention.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = paged_prefill_attention(qc, k, v, bt, cs, cl, window=window)
+    assert paged_prefill_attention.launches == before + 1
+    for t in tables[1:] + tables[:1]:
+        bt.copy_(torch.from_numpy(t[0]))
+        cs.copy_(torch.from_numpy(t[3]))
+        cl.copy_(torch.from_numpy(t[4]))
+        graph.replay()
+        ref = paged_prefill_attention_plain(qc, k, v, bt, cs, cl,
+                                            window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
@@ -676,7 +775,8 @@ def test_paged_walks_merge_splits_in_order(cuda, dtype):
     first key of tiles 0, 1 and 2 of a 192-key context, one tile a split
     (R 1, Hkv 1, nb 128). Every in-split sum is exact, and only the split
     order gives ((2**25 - 2**25) + 1) / 192: K6's and K7a's merges must
-    produce exactly that (rounded to bf16 for bf16 q)."""
+    produce exactly that (rounded to bf16 for bf16 q), and K7b's a chunk
+    at positions 188..191 exactly 1 / (position + 1)."""
     H, D, keys, nb = 4, 128, 192, 128
     n_pages = keys // 16
     k = torch.randn(n_pages + 1, 1, 16, D, device=cuda).to(dtype)
@@ -695,25 +795,38 @@ def test_paged_walks_merge_splits_in_order(cuda, dtype):
     got = paged_decode_attention(torch.zeros(1, H, D, device=cuda,
                                              dtype=dtype), k, v, bt, cl)
     assert torch.equal(got, want)
+    # K7b: a chunk of 4 tokens at 188..191, each exactly 1 / (position + 1)
+    got = paged_prefill_attention(torch.zeros(1, 4, H, D, device=cuda,
+                                              dtype=dtype), k, v, bt,
+                                  cl - 4, cl)
+    want = (1 / torch.arange(keys - 3, keys + 1, device=cuda,
+                             dtype=torch.float32)).to(dtype)
+    assert torch.equal(got, want[None, :, None, None].expand_as(got))
 
 
 def test_paged_wrappers_count_one_launch_per_call(cuda):
-    """Each call of the K6 and K7a wrappers adds exactly one to its
+    """Each call of the K6, K7a and K7b wrappers adds exactly one to its
     ``launches``, whatever the number of kernels its C call starts (K6:
-    the item layout, the walk, the merge; K7a: the walk, the merge)."""
+    the item layout, the walk, the merge; K7a and K7b: the walk, the
+    merge)."""
     args, scales = _case(cuda, torch.bfloat16, False, 128, 2, 4,
                          layout="long")
     q, k, v, bt, _, cl, _ = _paged_case(cuda, torch.bfloat16, False, 128, 2,
                                         4, 1, nb=128)
+    qc, _, _, _, cs, _, _ = _paged_case(cuda, torch.bfloat16, False, 128, 2,
+                                        4, 64, nb=128)
     for n in range(1, 4):
         before = (ragged_paged_attention.launches,
-                  paged_decode_attention.launches)
+                  paged_decode_attention.launches,
+                  paged_prefill_attention.launches)
         for _ in range(n):
             ragged_paged_attention(*args, **scales)
             paged_decode_attention(q[:, 0], k, v, bt, cl)
+            paged_prefill_attention(qc, k, v, bt, cs, cl)
         assert (ragged_paged_attention.launches,
-                paged_decode_attention.launches) == \
-            (before[0] + n, before[1] + n)
+                paged_decode_attention.launches,
+                paged_prefill_attention.launches) == \
+            (before[0] + n, before[1] + n, before[2] + n)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

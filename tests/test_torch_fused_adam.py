@@ -92,6 +92,44 @@ def test_fused_lamb_matches_the_pallas_sweep():
                                    rtol=1e-6, atol=1e-6, err_msg=n)
 
 
+def test_grouped_lamb_matches_the_pallas_sweep_on_a_stacked_leaf():
+    """A JAX leaf stacked ``[L, ...]`` (scanned layers) takes one trust
+    ratio; the port's ``FusedLamb`` gets its L slices as tensors of one
+    group, and the unstacked tensors as groups of their own."""
+    rs = np.random.RandomState(3)
+    L = 3
+    # the slices differ in scale, so per-slice ratios would differ
+    stacked = (rs.randn(L, 12, 7) * np.array([0.2, 1.0, 4.0])[:, None, None]
+               ).astype(np.float32)
+    bias = rs.randn(9).astype(np.float32)
+    params = {"w": stacked, "b": bias}
+    grads = [{"w": (rs.randn(L, 12, 7) * 10 ** rs.uniform(-3, 1)).astype(
+        np.float32), "b": rs.randn(9).astype(np.float32)}
+        for _ in range(STEPS)]
+    want, _ = _run_jax(scale_by_fused_lamb(lr=2e-3, weight_decay=0.01,
+                                           interpret=True), params, grads)
+    ts = [torch.from_numpy(stacked[i].copy()) for i in range(L)] + \
+        [torch.from_numpy(bias.copy())]
+    opt = FusedLamb(ts, lr=2e-3, weight_decay=0.01,
+                    groups=[list(range(L)), [L]])
+    for g in grads:
+        opt.step([torch.from_numpy(g["w"][i].copy()) for i in range(L)] +
+                 [torch.from_numpy(g["b"].copy())])
+    np.testing.assert_allclose(torch.stack(ts[:L]).numpy(),
+                               np.asarray(want["w"]), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ts[L].numpy(), np.asarray(want["b"]),
+                               rtol=1e-6, atol=1e-6)
+    # per-slice ratios (the port before grouping) miss the stacked leaf
+    solo = [torch.from_numpy(stacked[i].copy()) for i in range(L)]
+    opt = FusedLamb(solo, lr=2e-3, weight_decay=0.01)
+    for g in grads:
+        opt.step([torch.from_numpy(g["w"][i].copy()) for i in range(L)])
+    assert not np.allclose(torch.stack(solo).numpy(), np.asarray(want["w"]),
+                           rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="exactly once"):
+        FusedLamb(ts, groups=[[0, 1], [1, 2, 3]])
+
+
 def test_grad_scale_multiplies_the_gradients_first():
     """The engine's clip factor rides into the sweep as a scalar tensor:
     a step with ``grad_scale = s`` equals a step on ``s * g``."""

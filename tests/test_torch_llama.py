@@ -118,6 +118,55 @@ def test_bridge_maps_every_parameter():
         assert {k: tuple(v.shape) for k, v in sd.items()} == want
 
 
+def _jax_defaults(cls):
+    import dataclasses
+    return {f.name: f.default for f in dataclasses.fields(cls)}
+
+
+def test_every_jax_llama_config_field_is_accepted_at_its_jax_default():
+    """Each field of the JAX ``LlamaConfig``, at its JAX default, builds the
+    port's config (alone and all together); the port's defaults are the
+    JAX ones; ``dataclasses.replace`` and the weight bridge work on a
+    config built with every field, scanned and unscanned."""
+    import dataclasses
+    defaults = _jax_defaults(JaxConfig)
+    assert set(defaults) <= {f.name for f in dataclasses.fields(LlamaConfig)}
+    for name, value in defaults.items():
+        LlamaConfig(**{name: value})
+        assert getattr(LlamaConfig(), name) == value, name
+    full = LlamaConfig(**defaults)
+    for scan in (True, False):
+        over = dict(attention_impl="flash", decode_attention_impl="pallas",
+                    flash_block_q=128, flash_block_k=64, scan_layers=scan)
+        jcfg = JaxConfig.tiny(remat=False, **over)
+        cfg = dataclasses.replace(full, **dataclasses.asdict(
+            LlamaConfig.tiny(**over)))
+        assert cfg == LlamaConfig.tiny(**over)
+        params = jax.jit(JaxLlama(jcfg).init)(
+            jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+        sd = flax_to_torch_state_dict(jax.device_get(params), cfg)
+        assert set(sd) == set(LlamaForCausalLM(cfg).state_dict())
+
+
+@pytest.mark.parametrize("knob,error", [
+    ({"quantized_collectives": True}, NotImplementedError),
+    ({"quantized_psum_block": 128}, NotImplementedError),
+    ({"attention_impl": "pallas"}, ValueError),
+    ({"decode_attention_impl": "flash"}, ValueError),
+    ({"flash_block_q": 0}, ValueError),
+    ({"flash_block_k": -64}, ValueError),
+    ({"scan_layers": "yes"}, ValueError)],
+    ids=["quantized_collectives", "psum_block", "attention_impl",
+         "decode_impl", "block_q", "block_k", "scan_layers"])
+def test_llama_fields_off_their_accepted_values_raise(knob, error):
+    """The quantized collectives name the distributed slice (ROADMAP.md
+    Queue 1, item 9); values the JAX model would refuse raise ValueError."""
+    match = r"ROADMAP.md Queue 1, item 9\)" \
+        if error is NotImplementedError else None
+    with pytest.raises(error, match=match):
+        LlamaConfig.tiny(**knob)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("remat", [False, True])
 def test_dense_training_forward_matches_jax(case, remat):

@@ -404,3 +404,197 @@ def test_paged_splits_come_from_the_table_width():
         splits, per = paged_splits(B, Hkv, nb, sm)
         tiles = -(-nb * PAGE // TILE)
         assert (splits - 1) * per < tiles <= splits * per
+
+
+# ---------------------------------------------------------------------------
+# K7b's grid (B x query tiles, Hkv, splits) over the same walk
+# ---------------------------------------------------------------------------
+
+from test_torch_ragged_attention import CHUNK_ROWS  # noqa: E402
+
+
+def emulate_paged_prefill(q, k_pages, v_pages, bt, cs, clen, per,
+                          window=None, route="cuda_core", rounding=False,
+                          k_scale=None, v_scale=None, order=None):
+    """K7b's kernel in fp32: block (b * tiles + i, kvh, s) takes tokens
+    ``[i * qt, i * qt + qt)`` of chunk b (``qt`` = the route's chunk rows
+    / G), clipped to the context, as one chunk item of split s (the ragged
+    walk's item); tokens at or past the context, and splits that see no
+    tile of the item, give empty partials; the merge combines every split
+    of a token in split order (``order`` permutes it, to show that it
+    matters). With one split the block writes the output itself, which is
+    the merge of one state."""
+    B, T, H, D = q.shape
+    Hkv = k_pages.shape[1]
+    G = H // Hkv
+    nb = bt.shape[1]
+    qt = CHUNK_ROWS[route] // G
+    tiles = -(-T // qt)
+    splits = -(-(-(-nb * PAGE // TILE)) // per)
+    flat = q.reshape(B * T, H, D)
+    out = torch.zeros(B * T, H, D)
+    for b in range(B):
+        cl, start = int(clen[b]), int(cs[b])
+        valid = max(0, min(T, cl - start))
+        for i in range(tiles):
+            first = i * qt
+            ntok = max(0, min(qt, valid - first))
+            width = min(qt, T - first)
+            lo, hi = key_range(start + first, ntok, cl, nb, window)
+            for kvh in range(Hkv):
+                parts = []
+                for s in range(splits):
+                    m = torch.full((width * G,), -np.inf)
+                    l, acc = torch.zeros(width * G), torch.zeros(width * G, D)
+                    t0 = max(s * per, lo // TILE)
+                    t1 = min((s + 1) * per, hi // TILE + 1)
+                    if ntok and hi >= lo and t0 < t1:
+                        it = dict(row=b, kvh=kvh, tok0=b * T + first,
+                                  ntok=ntok, pos0=start + first, clen=cl,
+                                  lo=lo, hi=hi, t0=t0, t1=t1, narrow=False)
+                        wm, wl, wacc = walk_item(flat, k_pages, v_pages, bt,
+                                                 it, G, window, route,
+                                                 rounding, k_scale, v_scale)
+                        m[:ntok * G], l[:ntok * G] = wm, wl
+                        acc[:ntok * G] = wacc
+                    parts.append((m, l, acc))
+                if order is not None:
+                    parts = [parts[s] for s in order]
+                _, l, acc = merge_states(parts)
+                rows = slice(b * T + first, b * T + first + width)
+                out[rows, kvh * G:(kvh + 1) * G] = \
+                    finish(l, acc).reshape(width, G, D)
+    return out.reshape(B, T, H, D)
+
+
+# (chunk_start, context_len) over a 320-key table (5 tiles): a chunk at 0,
+# one that starts mid-page behind a prefix, a padded tail that starts
+# mid-page, an idle sentinel row (context 1, no page), an empty row, a
+# chunk that ends at the table's end
+PREFILL_T = 40
+PREFILL_ROWS = [(0, 40), (150, 190), (270, 293), (0, 1), (0, 0), (290, 320)]
+PREFILL_SPLIT_CASES = {
+    # name: (window, int8)
+    "mid_page_and_tails": (None, False),
+    "window_empties_splits": (70, False),
+    "int8_pool": (None, True),
+    "int8_window": (33, True),
+}
+PREFILL_SPLIT_PARAMS = [(case, per, route)
+                        for case in sorted(PREFILL_SPLIT_CASES)
+                        for per in (1, 2)
+                        for route in ("cuda_core", "tensor_core")]
+
+
+def _prefill_split_setup(case, seed=41):
+    window, int8 = PREFILL_SPLIT_CASES[case]
+    cs, cl = (np.asarray([r[i] for r in PREFILL_ROWS], np.int32)
+              for i in (0, 1))
+    pool, bt, rs = build_pool(seed, list(cl), 2, 16, bs=PAGE, n_pool=64,
+                              nb=20, int8=int8, idle=(3,))
+    q = rs.randn(len(cl), PREFILL_T, 8, 16).astype(np.float32)
+    return q, pool, bt, cs, cl, window
+
+
+@pytest.mark.parametrize("case,per,route", PREFILL_SPLIT_PARAMS)
+def test_split_paged_prefill_merges_to_the_plain_version(case, per, route):
+    """K7b's grid over the split walk (query tiles of 8 tokens on the CUDA
+    cores and 16 on the tensor cores, the last one partial; splits of 1
+    and 2 tiles of a 5-tile table) and its merge in split order, against
+    the plain version and the JAX Pallas kernel (interpret mode), fp32 at
+    1e-5: chunks that start mid-page, padded tails (zeros), windows that
+    empty splits, an int8 pool, an idle sentinel row and an empty one."""
+    q, pool, bt, cs, cl, window = _prefill_split_setup(case)
+    scales = _scales(pool, torch.from_numpy)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, pool["k"], pool["v"]))
+    got = emulate_paged_prefill(tq, tk, tv, bt, cs, cl, per, window, route,
+                                **scales)
+    plain = paged_prefill_attention_plain(
+        tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(cs),
+        torch.from_numpy(cl), window=window, **scales)
+    torch.testing.assert_close(got, plain, **TOL)
+    live = np.arange(PREFILL_T)[None] < (cl - cs)[:, None]
+    assert not got.numpy()[~live].any(), "rows past the context are zeros"
+    kern = np.asarray(jax_paged_prefill(
+        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
+        jnp.asarray(bt), jnp.asarray(cs), jnp.asarray(cl), force_pallas=True,
+        interpret=True, window=window, **_scales(pool, jnp.asarray)))
+    np.testing.assert_allclose(got.numpy(), kern, **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_SPLIT_CASES))
+@pytest.mark.parametrize("per", [1, 3])
+def test_paged_prefill_rounding_points_stay_inside_the_bf16_tolerance(case,
+                                                                       per):
+    """K7b's tensor-core rounding points (bf16 q, K and V; an int8 pool's
+    codes exact in bf16 with fp32 scales; P.V as bf16(P) + bf16(P -
+    bf16(P)); a bf16 output) against the plain version on the same bf16
+    inputs, within 2**-7 |plain| + 1e-3."""
+    q, pool, bt, cs, cl, window = _prefill_split_setup(case, seed=43)
+    scales = _scales(pool, torch.from_numpy)
+    tq = torch.from_numpy(q).bfloat16()
+    tk, tv = (torch.from_numpy(pool[n]) for n in ("k", "v"))
+    if not scales:
+        tk, tv = tk.bfloat16(), tv.bfloat16()
+    got = _bf16(emulate_paged_prefill(tq, tk, tv, bt, cs, cl, per, window,
+                                      "tensor_core", rounding=True,
+                                      **scales))
+    plain = paged_prefill_attention_plain(
+        tq, tk, tv, torch.from_numpy(bt), torch.from_numpy(cs),
+        torch.from_numpy(cl), window=window, **scales).float()
+    torch.testing.assert_close(got, plain, rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("route", ["cuda_core", "tensor_core"])
+def test_paged_prefill_merges_splits_in_order(route):
+    """A chunk of 4 tokens at positions 188..191 over
+    ``order_sensitive_pool``'s 192 keys, one tile a split: every token's
+    three partials merge in split order to exactly 1 / (position + 1)
+    (fp32); the reversed order loses the 1 and fails. The card test
+    ``test_paged_walks_merge_splits_in_order`` holds K7b to the same
+    inputs."""
+    _, k, v, desc = order_sensitive_pool()
+    keys = int(desc[4][0])
+    q = torch.zeros(1, 4, 4, k.shape[-1])
+    cs = np.asarray([keys - 4], np.int32)
+    want = torch.from_numpy(
+        (1 / np.arange(keys - 3, keys + 1)).astype(np.float32))
+    want = want[None, :, None, None].expand_as(q)
+    got = emulate_paged_prefill(q, k, v, desc[0], cs, desc[4], per=1,
+                                route=route)
+    assert torch.equal(got, want)
+    rev = emulate_paged_prefill(q, k, v, desc[0], cs, desc[4], per=1,
+                                route=route, order=[2, 1, 0])
+    assert not torch.equal(rev, want)
+
+
+def test_paged_prefill_launch_comes_from_the_shapes_alone():
+    """K7b's launch (query tiles, splits, tiles a split) at the
+    two-program prefill's shapes (B 1, T 64, H 32 over Hkv 8, a 128-page
+    table) on 132 and 114 SMs, bf16 and fp32: a function of the shapes and
+    the SM count, with no descriptor among its arguments."""
+    import inspect
+
+    from deepspeed_tpu_torch.ops.decode_attention import prefill_launch
+
+    assert list(inspect.signature(prefill_launch).parameters) == \
+        ["B", "T", "H", "Hkv", "nb", "dtype", "sm_count"]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    assert prefill_launch(1, 64, 32, 8, 128, bf16, 132) == \
+        dict(tiles=4, splits=8, per=4)
+    assert prefill_launch(1, 64, 32, 8, 128, bf16, 114) == \
+        dict(tiles=4, splits=8, per=4)
+    assert prefill_launch(1, 64, 32, 8, 128, fp32, 132) == \
+        dict(tiles=8, splits=5, per=7)
+    assert prefill_launch(3, 40, 8, 4, 128, fp32, 132) == \
+        dict(tiles=3, splits=8, per=4)
+    for B, T, H, Hkv, nb, dt, sm in ((1, 64, 32, 8, 128, bf16, 132),
+                                     (8, 512, 32, 8, 512, bf16, 132),
+                                     (1, 1, 8, 8, 1, fp32, 114),
+                                     (2, 37, 8, 1, 10, fp32, 132)):
+        lp = prefill_launch(B, T, H, Hkv, nb, dt, sm)
+        tokens = {bf16: 64, fp32: 32}[dt] // (H // Hkv)
+        assert (lp["tiles"] - 1) * tokens < T <= lp["tiles"] * tokens
+        tiles = -(-nb * PAGE // TILE)
+        assert (lp["splits"] - 1) * lp["per"] < tiles <= \
+            lp["splits"] * lp["per"]

@@ -171,7 +171,8 @@ def test_prefill_route_is_chosen_by_shape():
     """The kernel a call runs is a function of its shape alone: every
     Llama-3-8B projection's bf16 prefill takes the wgmma kernel, rows that
     TMA cannot address (N % 16 or K % 8 not 0) take the mma.sync kernel,
-    M <= 8 the tensor-core GEMV and fp32 x the CUDA-core tiles."""
+    M <= 8 the tensor-core GEMV and fp32 x the fp32 route (tensor cores
+    on x split in two TF32 parts)."""
     for K, N in LLAMA3_8B_PROJECTIONS:
         for M in (9, 129, 512, 4096, 4097):
             assert qm.kernel_route(M, K, N, torch.bfloat16) == "wgmma"
@@ -459,3 +460,151 @@ def test_gemv_tc_route_and_split_for_every_llama3_8b_projection():
     assert qm.kernel_route(8, 264, 1024, torch.bfloat16) == "gemv_tc"
     assert qm.kernel_route(8, 260, 1024, torch.bfloat16) == "gemv"
     assert qm.gemv_tc_grid(256, 128, "int8", 132) == (1, 2)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 route (fp32 x, M > 8): tensor cores on x split in two TF32 parts
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` by bit masks: half a TF32 ulp added to the
+    magnitude bits, the 13 low mantissa bits cleared (round to nearest,
+    ties away from zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_fp32_tc(x, codes, scale, mode, splits, passes=2, order=None):
+    """The fp32 route's arithmetic: x = hi + lo, both TF32; the codes
+    exact; K cut into 64-row chunks, ``ceil(chunks / splits)`` a split; in
+    a split, each scale group's fp32 sum of the products (hi, then lo)
+    times the group's scales, added in K order; the splits' partials
+    added in split order (``order`` permutes it), K8's column scale on the
+    total. ``passes=1`` drops lo: one TF32 pass."""
+    M, K = x.shape
+    w = (qm.unpack_int4(codes) if mode == "int4" else codes).float()
+    G = 1 if mode == "int8_col" else scale.shape[0]
+    g = K // G
+    hi = _tf32(x)
+    lo = _tf32(x.float() - hi)
+    chunks = -(-K // qm.FP32_CHUNK)
+    per = -(-chunks // splits)
+    parts = []
+    for s in range(splits):
+        k, k1 = s * per * qm.FP32_CHUNK, min(K, (s + 1) * per * qm.FP32_CHUNK)
+        acc = torch.zeros(M, w.shape[1])
+        while k < k1:
+            gi = k // g
+            ke = min(k1, (gi + 1) * g)
+            gacc = hi[:, k:ke] @ w[k:ke]
+            if passes == 2:
+                gacc = gacc + lo[:, k:ke] @ w[k:ke]
+            acc = acc + (gacc if mode == "int8_col" else gacc * scale[gi])
+            k = ke
+        parts.append(acc)
+    if order is not None:
+        parts = [parts[i] for i in order]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total * scale if mode == "int8_col" else total
+
+
+def _dense(codes, scale, mode):
+    if mode == "int8_col":
+        return codes.float() * scale
+    return qm.dequantize_linear_weight(codes, scale, mode)
+
+
+FP32_CASES = [("int8", 128, 37, 512, 96), ("int4", 64, 20, 384, 72),
+              ("int8_col", 0, 37, 264, 100), ("int8", 44, 9, 264, 50),
+              ("int4", 6, 12, 96, 33)]
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("mode,group,M,K,N", FP32_CASES)
+def test_fp32_route_emulation_meets_the_matmul_tolerance(mode, group, M, K,
+                                                         N, splits):
+    """The fp32 route's arithmetic (x split by TF32 rounding, exact codes,
+    per-group scaling of the fp32 partials, splits summed in order)
+    against the plain version and the JAX Pallas kernel (interpret mode)
+    under the card's rule |kernel - plain| <= 1e-5 (|x| @ |W|): int8 in
+    groups of 128, int4 in groups of 64, K8's per-column mode, groups of
+    44 and 6 that straddle the kernel's 8-row steps, K not a multiple of
+    the 64-row chunk and N not of the 128-column tile."""
+    codes, scale = _quantized(mode, group, K, N, seed=17)
+    x = torch.from_numpy(np.random.RandomState(18).randn(M, K)
+                         .astype(np.float32))
+    got = _emulate_fp32_tc(x, codes, scale, mode, splits)
+    bound = 1e-5 * (x.abs() @ _dense(codes, scale, mode).abs())
+    assert bool(((got - _plain(x, codes, scale, mode)).abs() <= bound).all())
+    jc, js = jnp.asarray(codes.numpy()), jnp.asarray(scale.numpy())
+    if mode == "int8_col":
+        want = jax_i8.int8_matmul(jnp.asarray(x.numpy()), jc, js, block_k=32,
+                                  block_n=32, interpret=True)
+    else:
+        want = jax_qm.quant_matmul(jnp.asarray(x.numpy()), jc, js, mode,
+                                   block_k=32, block_n=32, interpret=True)
+    assert bool(((got - torch.from_numpy(np.array(want))).abs()
+                 <= bound).all())
+
+
+@pytest.mark.parametrize("mode,group,M,K,N", FP32_CASES[:3])
+def test_one_tf32_pass_fails_the_matmul_tolerance(mode, group, M, K, N):
+    """With x's lo part dropped (a single TF32 pass, about 11 bits of x)
+    the same inputs break the 1e-5 rule that the two-part split meets: the
+    lo term stays."""
+    codes, scale = _quantized(mode, group, K, N, seed=17)
+    x = torch.from_numpy(np.random.RandomState(18).randn(M, K)
+                         .astype(np.float32))
+    bound = 1e-5 * (x.abs() @ _dense(codes, scale, mode).abs())
+    err = (_emulate_fp32_tc(x, codes, scale, mode, 1, passes=1)
+           - _plain(x, codes, scale, mode)).abs()
+    assert not bool((err <= bound).all())
+
+
+def fp32_order_case(M, K, N, splits):
+    """Inputs whose fp32 sum depends on the split order: int8 codes of 1,
+    per-column scales of 1, and row 0 of x zero but for 2**25, -2**25 and
+    1 at the first K row of splits 0, 1 and 2 (the route's cut: ``ceil(
+    chunks / splits)`` 64-row chunks a split). Every split's sum is exact;
+    summed in split order row 0 is exactly 1, in the reverse order 0
+    (1 - 2**25 rounds to -2**25)."""
+    per = -(-(-(-K // qm.FP32_CHUNK)) // splits) * qm.FP32_CHUNK
+    x = torch.zeros(M, K)
+    for s, v in enumerate((2.0 ** 25, -2.0 ** 25, 1.0)):
+        x[0, s * per] = v
+    return x, torch.ones(K, N, dtype=torch.int8), torch.ones(1, N)
+
+
+def test_fp32_route_sums_splits_in_order():
+    """On ``fp32_order_case`` (three splits of one chunk each) the route
+    gives exactly 1 in row 0 and 0 elsewhere; the reversed split order
+    gives 0 and fails. The card test
+    ``test_fp32_route_sums_splits_in_order`` holds the kernel to the same
+    inputs at its own split count."""
+    x, codes, scale = fp32_order_case(9, 192, 8, 3)
+    got = _emulate_fp32_tc(x, codes, scale, "int8", 3)
+    assert torch.equal(got[0], torch.ones(8)) and not got[1:].any()
+    rev = _emulate_fp32_tc(x, codes, scale, "int8", 3, order=[2, 1, 0])
+    assert not torch.equal(rev[0], torch.ones(8))
+
+
+def test_fp32_route_grid_comes_from_the_shapes():
+    """The fp32 route's grid (column tiles, row tiles, K splits) at the
+    card cases' shapes on 132 and 114 SMs: within two blocks an SM, each
+    split at least 256 K rows, every split non-empty."""
+    assert qm.kernel_route(300, 4096, 1024, torch.float32) == "fp32"
+    assert qm.kernel_route(37, 264, 1000, torch.float32) == "fp32"
+    assert qm.fp32_grid(300, 4096, 1024, 132) == (8, 5, 6)
+    assert qm.fp32_grid(300, 4096, 1024, 114) == (8, 5, 5)
+    assert qm.fp32_grid(37, 264, 1000, 132) == (8, 1, 1)
+    assert qm.fp32_grid(16, 4096, 128, 132) == (1, 1, 16)
+    for M, K, N, sm in ((300, 4096, 1024, 132), (37, 264, 1000, 114),
+                        (4096, 4096, 4096, 132), (9, 14336, 4096, 132)):
+        nt, mt, splits = qm.fp32_grid(M, K, N, sm)
+        chunks = -(-K // qm.FP32_CHUNK)
+        per = -(-chunks // splits)
+        assert (splits - 1) * per < chunks <= splits * per
+        assert splits == 1 or (nt * mt * splits <= 2 * sm
+                               and per * qm.FP32_CHUNK >= 256)

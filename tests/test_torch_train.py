@@ -13,9 +13,11 @@
   same batch as the port (the global-mean loss is the same math at any
   data-parallel width). Tolerances: losses 1e-5 relative and final params
   1e-4 (absolute and relative); the two differ only in fp32 summation
-  order, compounded over five Adam steps. Then ``eval_batch``, the
-  ``forward``/``backward``/``step`` micro-step API and an fp16 step that
-  overflows and is skipped.
+  order, compounded over five Adam (or LAMB) steps. LAMB runs with the
+  JAX model's layers scanned (one trust ratio an ``[L, ...]`` leaf, which
+  the port spans over the per-layer tensors) and unscanned. Then
+  ``eval_batch``, the ``forward``/``backward``/``step`` micro-step API and
+  an fp16 step that overflows and is skipped.
 """
 
 import json
@@ -220,6 +222,11 @@ def test_loss_scaler_matches_jax(fp16):
 # the engine
 # ---------------------------------------------------------------------------
 
+_LAMB = {"train_batch_size": BATCH,
+         "optimizer": {"type": "Lamb",
+                       "params": {"lr": 3e-3, "weight_decay": 0.01}},
+         "gradient_clipping": 0.05, "steps_per_print": 0}
+
 CASES = {
     # GQA 2, untied head; AdamW, gas 2, clipping that triggers, WarmupLR
     "adamw_gas_clip_warmup": (
@@ -241,6 +248,11 @@ CASES = {
                        "params": {"lr": 2e-3, "weight_decay": 0.05,
                                   "adam_w_mode": False}},
          "gradient_clipping": 1.0, "steps_per_print": 0}),
+    # LAMB over the JAX default layout: one trust ratio a [L, ...] leaf,
+    # which the port spans over the layers' copies of each weight
+    "lamb_scanned": ({"scan_layers": True}, _LAMB),
+    # LAMB with unscanned layers: one trust ratio a tensor in both
+    "lamb_unscanned": ({"scan_layers": False}, _LAMB),
 }
 
 
@@ -289,7 +301,7 @@ def test_train_trajectory_matches_the_jax_engine(case, one_device_mesh):
         np.testing.assert_allclose(got, want, rtol=1e-5)
         np.testing.assert_allclose(peng.get_global_grad_norm(),
                                    jeng.get_global_grad_norm(), rtol=1e-4)
-        # the clipping of both cases triggers on every step
+        # the clipping of every case triggers on every step
         assert peng.get_global_grad_norm() > config["gradient_clipping"]
     assert peng.get_lr() == pytest.approx(jeng.get_lr(), rel=1e-6)
     want = flax_to_torch_state_dict(jax.device_get(jeng.state.params), cfg)

@@ -9,7 +9,8 @@ requests of 1024-token prompts and 48 new tokens under
 ``torch.profiler`` in two windows: the steps that carry prefill chunks,
 and the decode-only steps after them. For each window it prints the
 device time per kernel class (the attention kernels, each its own class,
-matrix products, everything else), the steps, the forwards, the host wall
+matrix products, everything else) in all and a step, the steps, the
+forwards, the host wall
 time, and the device's idle share (1 - union of kernel intervals / window
 wall time, profiler overhead included). With ``--legacy`` the engine is
 the two-program one (``mixed_step=False``, 64-token chunks under the same
@@ -33,8 +34,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 # K6 launches ragged_plan_kernel, ragged_walk_kernel and merge_kernel;
-# K7a paged_decode_kernel and merge_kernel (the two engines never run both:
-# merge_kernel joins K6's class in the unified step, K7a's with --legacy)
+# K7a paged_decode_kernel and merge_kernel; K7b paged_prefill_kernel and
+# merge_kernel. A merge_kernel joins the class of the kernel launched just
+# before it on the stream (its walk, in the same C call).
 CLASSES = (("ragged_attention", re.compile(r"ragged_\w*kernel")),
            ("paged_decode_attention", re.compile(r"paged_decode_kernel")),
            ("paged_prefill_attention", re.compile(r"paged_prefill_kernel")),
@@ -47,11 +49,15 @@ def _kernel_summary(trace_path, wall_s, classes=CLASSES):
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "kernel" and "dur" in e]
+    events.sort(key=lambda e: e["ts"])
     by_class = {name: 0.0 for name, _ in classes}
     by_class["other"] = 0.0
     top = {}
+    cls = "other"
     for e in events:
-        cls = next((n for n, rx in classes if rx.search(e["name"])), "other")
+        if not MERGE.search(e["name"]):
+            cls = next((n for n, rx in classes if rx.search(e["name"])),
+                       "other")
         by_class[cls] += e["dur"] / 1e3
         top[e["name"][:80]] = top.get(e["name"][:80], 0.0) + e["dur"] / 1e3
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
@@ -114,13 +120,12 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         prof.export_chrome_trace(trace)
-        owner = "paged_decode_attention" if args.legacy \
-            else "ragged_attention"
-        summary = _kernel_summary(trace, wall, tuple(
-            (name, re.compile(f"{rx.pattern}|{MERGE.pattern}")
-             if name == owner else rx) for name, rx in CLASSES))
+        summary = _kernel_summary(trace, wall)
         os.remove(trace)
         summary["steps"] = steps
+        summary["kernel_ms_per_step"] = {
+            name: ms / max(steps, 1)
+            for name, ms in summary["kernel_ms"].items()}
         # forwards of the model: one per step on the unified engine
         summary["forwards"] = srv.decode_calls + srv.prefill_chunk_calls \
             - forwards if args.legacy else steps

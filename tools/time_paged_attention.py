@@ -3,6 +3,7 @@ checkout of the port: K6 (unified ragged paged attention), K7a (paged
 decode) and K7b (paged chunked prefill).
 
     python3 tools/time_paged_attention.py [--root DIR] [--reps N] [--kernels]
+        [--match REGEX]
 
 Imports ``deepspeed_tpu_torch`` and ``chip_smoke.py`` from ``--root``
 (default: this checkout), builds the tree's kernels there, and times with
@@ -12,11 +13,13 @@ that tree's ``chip_smoke.py`` with a bf16 pool, an int8 pool and a
 256-token window, then K7a and K7b at every ``PAGED_CASES`` case, each
 beside its bound (``ragged_bound`` / ``paged_bound``). The inputs come
 from the seeds ``chip_smoke.py`` uses, so every tree sees the same ones.
-With ``--kernels`` each K6 and K7a case also gets the device time of
-every kernel its C call launches (the item layout, the walk, the merge),
-from ``torch.profiler`` over ``--reps`` calls without the flush, in µs a
-call. Prints one JSON line per case, with the tree, the card's name and
-its power limit.
+With ``--kernels`` each case also gets the device time of every kernel
+its C call launches (K6: the item layout, the walk, the merge; K7a and
+K7b: the walk, the merge), from ``torch.profiler`` over ``--reps`` calls
+without the flush, in µs a call. ``--match`` times only the cases whose
+name (``ragged_bf16/mixed``, ``paged_prefill/behind_prefix512``, ...)
+the regular expression finds. Prints one JSON line per case, with the
+tree, the card's name and its power limit.
 
 To compare two trees on one card, run it once per tree in turns in one
 command (parent, change, change, parent).
@@ -68,7 +71,7 @@ def kernel_us(fn, reps):
     return out
 
 
-def time_ragged(cs, tree, reps, kernels):
+def time_ragged(cs, tree, reps, kernels, match):
     from deepspeed_tpu_torch.ops.ragged_attention import \
         ragged_paged_attention
 
@@ -78,6 +81,8 @@ def time_ragged(cs, tree, reps, kernels):
                                     "window256": (False, 256)}.items():
         for name, rows in cs.RAGGED_CASES.items():
             seed += 1
+            if not re.search(match, f"ragged_{variant}/{name}"):
+                continue
             args, kw = cs.ragged_case(rows, int8, seed=seed)
             kw = dict(kw, window=window)
             ms = cs.cuda_time_ms(lambda: ragged_paged_attention(*args, **kw),
@@ -91,12 +96,14 @@ def time_ragged(cs, tree, reps, kernels):
             del args, kw
 
 
-def time_paged(cs, tree, reps, kernels):
+def time_paged(cs, tree, reps, kernels, match):
     from deepspeed_tpu_torch.ops import decode_attention as da
 
     for kind, cases in cs.PAGED_CASES.items():
         for i, (name, (T, Hq, Hkv, Dh, dtype, int8, window, rows)) in \
                 enumerate(cases.items()):
+            if not re.search(match, f"paged_{kind}/{name}"):
+                continue
             q, k, v, bt, cst, cl, scales = cs.paged_case(
                 T, Hq, Hkv, Dh, dtype, int8, rows,
                 seed=i + (61 if kind == "decode" else 71))
@@ -111,8 +118,7 @@ def time_paged(cs, tree, reps, kernels):
             bound, by = cs.paged_bound(T, Hq, Hkv, Dh, dtype, int8, window,
                                        rows)
             extra = dict(kernel_us=kernel_us(lambda: kernel(*args, **kw),
-                                             reps)) \
-                if kernels and kind == "decode" else {}
+                                             reps)) if kernels else {}
             emit(tree, f"paged_{kind}/{name}", ms=ms, bound_ms=bound,
                  bound_by=by, **extra)
             del q, k, v, args, scales
@@ -123,7 +129,9 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--reps", type=int, default=25)
     ap.add_argument("--kernels", action="store_true",
-                    help="add each K6 / K7a case's device µs by kernel")
+                    help="add each case's device µs by kernel")
+    ap.add_argument("--match", default="",
+                    help="time only the cases this regex finds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_paged_attention: no CUDA device", file=sys.stderr)
@@ -139,8 +147,8 @@ def main() -> int:
           f"tree {tree}", flush=True)
     _build.build(["ragged_attention", "paged_attention"])
     torch.backends.cuda.matmul.allow_tf32 = False
-    time_ragged(cs, tree, args.reps, args.kernels)
-    time_paged(cs, tree, args.reps, args.kernels)
+    time_ragged(cs, tree, args.reps, args.kernels, args.match)
+    time_paged(cs, tree, args.reps, args.kernels, args.match)
     return 0
 
 

@@ -2,6 +2,7 @@
 CUDA card, for one checkout of the port.
 
     python3 tools/time_quant_decode.py [--root DIR] [--reps N] [--generate]
+        [--match REGEX]
 
 Imports ``deepspeed_tpu_torch`` from ``--root`` (default: this checkout)
 and builds its kernels there. Times with ``chip_smoke.cuda_time_ms`` (CUDA
@@ -10,7 +11,11 @@ K4 at every ``chip_smoke.DECODE_CASES`` case beside SDPA on the filled
 prefix (bf16 cases without a window or int8 cache), then K5 at every
 ``chip_smoke.QUANT_CASES`` case and K8 at every
 ``chip_smoke.INT8_COL_CASES`` case, each beside ``torch.matmul`` on the
-pre-dequantized weight and its bound. The inputs come from the seeds
+pre-dequantized weight and its bound (``chip_smoke._matmul_bound``: for
+the fp32 route, two TF32 passes at the tensor-core peak). ``--match``
+times only the cases whose name (``decode_...``, ``quant_...``,
+``int8_col_...``) the regular expression finds: ``--match fp32`` takes
+K5's and K8's fp32 cases. The inputs come from the seeds
 ``chip_smoke.py`` uses, so every tree sees the same ones. With
 ``--generate`` it also runs ``chip_smoke.py``'s int8-weight Llama-3-8B
 ``generate`` (batch 8, prompts bucketed to 512, 64 new tokens) and prints
@@ -25,6 +30,7 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import sys
 
 import torch
@@ -44,13 +50,15 @@ def emit(tree, case, **fields):
     print(json.dumps({"tree": tree, "case": case, **fields}), flush=True)
 
 
-def time_decode(cs, tree, reps):
+def time_decode(cs, tree, reps, match):
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
 
     for i, (case, (B, Hq, Hkv, S, Dh, dtype, int8, window, cidx)) in \
             enumerate(cs.DECODE_CASES.items()):
+        if not re.search(match, f"decode_{case}"):
+            continue
         q, k, v, mask, scales = cs.decode_case(B, Hq, Hkv, S, Dh, dtype, int8,
                                                seed=i + 11)
         ci = torch.tensor(cidx, dtype=torch.int32, device="cuda")
@@ -69,24 +77,25 @@ def time_decode(cs, tree, reps):
         del q, k, v, mask, scales
 
 
-def _bound_ms(cs, x, codes, scale, N):
+def _bound_ms(cs, qm, x, codes, scale, N):
     """``chip_smoke.py``'s bound of a quantized matmul: each input byte
     read once and the output written once over the card's memory rate,
-    or its operations over the type's peak, whichever is longer."""
+    or its operations over the peak of the arithmetic its route runs,
+    whichever is longer."""
     M, K = x.shape
     nbytes = codes.numel() + scale.numel() * 4 \
         + (M * K + M * N) * x.element_size()
-    return cs.bound(nbytes, 2 * M * K * N,
-                    cs.BF16_FLOP_PER_S if x.dtype == torch.bfloat16
-                    else cs.FP32_FLOP_PER_S)[0]
+    return cs._matmul_bound(qm, M, K, N, x.dtype, nbytes)[0]
 
 
-def time_matmuls(cs, tree, reps):
+def time_matmuls(cs, tree, reps, match):
     from deepspeed_tpu_torch.ops import quant_matmul as qm
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     for i, (case, (M, K, N, mode, group, dtype)) in \
             enumerate(cs.QUANT_CASES.items()):
+        if not re.search(match, f"quant_{case}"):
+            continue
         g = torch.Generator(device="cuda").manual_seed(i + 21)
         x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
         codes, scale = qm.quantize_linear_weight(
@@ -98,9 +107,11 @@ def time_matmuls(cs, tree, reps):
                                                         mode), reps=reps),
              library_ms=cs.cuda_time_ms(lambda: torch.matmul(x, wd),
                                         reps=reps),
-             bound_ms=_bound_ms(cs, x, codes, scale, N))
+             bound_ms=_bound_ms(cs, qm, x, codes, scale, N))
         del x, codes, scale, wd
     for i, (case, (M, K, N, dtype)) in enumerate(cs.INT8_COL_CASES.items()):
+        if not re.search(match, f"int8_col_{case}"):
+            continue
         g = torch.Generator(device="cuda").manual_seed(i + 41)
         x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
         codes, scale = qm.quantize_weight_per_col(
@@ -111,7 +122,7 @@ def time_matmuls(cs, tree, reps):
                                 reps=reps),
              library_ms=cs.cuda_time_ms(lambda: torch.matmul(x, wd),
                                         reps=reps),
-             bound_ms=_bound_ms(cs, x, codes, scale, N))
+             bound_ms=_bound_ms(cs, qm, x, codes, scale, N))
         del x, codes, scale, wd
 
 
@@ -137,6 +148,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=25)
     ap.add_argument("--generate", action="store_true",
                     help="also time the int8-weight 8B generate")
+    ap.add_argument("--match", default="",
+                    help="time only the cases this regex finds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_quant_decode: no CUDA device", file=sys.stderr)
@@ -151,8 +164,8 @@ def main() -> int:
           f"tree {tree}", flush=True)
     _build.build(["decode_attention", "quant_matmul"])
     torch.backends.cuda.matmul.allow_tf32 = False
-    time_decode(cs, tree, args.reps)
-    time_matmuls(cs, tree, args.reps)
+    time_decode(cs, tree, args.reps, args.match)
+    time_matmuls(cs, tree, args.reps, args.match)
     if args.generate:
         time_generate(cs, tree)
     return 0
