@@ -33,9 +33,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    count); K5 quantized matmul at Llama-3-8B projection shapes (decode
    M 8 at every projection shape and M 1 at up, prefill M 4096 at the q,
    up and down shapes, int8 per-column and int4 group 64) plus fp32 and
-   ragged cases, each with the kernel route it took (the decode kernel's
-   column tiles and cluster size), its GB/s and share of the bound; K8
-   per-column int8 matmul (decode up and down, q and up prefill); K9
+   ragged cases (rows TMA cannot address: 264 -> 1000 at M 8 and 37,
+   4100 -> 14330 at M 8 int8 and M 512 int4 in groups of 100, asserting
+   one ragged-kernel launch each), each with the kernel route it took
+   (the decode and ragged kernels' tiles and cluster size), its GB/s and
+   share of the bound; K8 per-column int8 matmul (decode up and down, q
+   and up prefill, fp32 and a wide ragged decode); K9
    block-sparse attention forward, dQ and dK/dV at the long-context
    path's main shape (B 1, T 16384, H 32, D 128, bf16, causal, block 128,
    BSLongformer and BigBird, the plain versions head by head) and at
@@ -1365,7 +1368,16 @@ QUANT_CASES = {
     "fp32_m300_int8g128": (300, 4096, 1024, "int8", 128, torch.float32),
     "ragged_m8_int4g8": (8, 264, 1000, "int4", 8, torch.bfloat16),
     "ragged_m37_int8": (37, 264, 1000, "int8", 0, torch.bfloat16),
+    # rows TMA cannot address at widths where bytes (decode) and operations
+    # (prefill, 41 groups of 100 rows) bound the ragged kernel
+    "ragged_wide_m8_int8": (8, 4100, 14330, "int8", 0, torch.bfloat16),
+    "ragged_wide_m512_int4g100": (512, 4100, 14330, "int4", 100,
+                                  torch.bfloat16),
 }
+# the ragged kernel's entries of the kernels line (decode: M <= 8, prefill:
+# M > 8), each held at its wide case
+RAGGED_MAIN = {"decode": "ragged_wide_m8_int8",
+               "prefill": "ragged_wide_m512_int4g100"}
 INT8_COL_MAIN = "decode_up"
 INT8_COL_CASES = {
     # name: (M, K, N, dtype)
@@ -1374,6 +1386,7 @@ INT8_COL_CASES = {
     "prefill_q": (4096, 4096, 4096, torch.bfloat16),
     "prefill_up": (4096, 4096, 14336, torch.bfloat16),
     "ragged_m37_fp32": (37, 264, 1000, torch.float32),
+    "ragged_wide_m8": (8, 4100, 14330, torch.bfloat16),
 }
 
 
@@ -1388,12 +1401,17 @@ def _matmul_tolerance(x, w, dtype):
 
 def _quant_route(qm, M, K, N, mode, dtype):
     """The route a quantized matmul takes, with the gemv_tc kernel's column
-    tiles and cluster size, or the fp32 route's grid and K splits, on this
-    card."""
+    tiles and cluster size, the ragged kernel's row and column tiles and
+    cluster size, or the fp32 route's grid and K splits, on this card."""
     route = qm.kernel_route(M, K, N, dtype)
     if route == "gemv_tc":
         tiles, cluster = qm.gemv_tc_grid(K, N, mode, qm._sm_count(0))
         route += f" {tiles} tiles x cluster {cluster}"
+    elif route == "ragged":
+        mt, wn, ct, rt, cluster = qm.ragged_grid(M, K, N, qm._sm_count(0))
+        route += (f" {rt} x {ct} tiles of {8 * mt} rows x "
+                  f"{qm.ragged_warp_cols(mt) * wn} columns x cluster "
+                  f"{cluster}")
     elif route == "fp32":
         grid = qm.fp32_grid(M, K, N, qm._sm_count(0))
         route += (f" tensor cores (x as two TF32 parts), grid {grid}, "
@@ -1433,7 +1451,12 @@ def check_quant_matmul():
         w = torch.randn((K, N), generator=g, device="cuda") * 0.02
         codes, scale = qm.quantize_linear_weight(w, mode, group)
         del w
+        ragged = qm.quant_matmul.ragged_launches
         got = qm.quant_matmul(x, codes, scale, mode)
+        ragged = qm.quant_matmul.ragged_launches - ragged
+        if ragged != int(qm.kernel_route(M, K, N, dtype) == "ragged"):
+            raise AssertionError(f"quant_matmul {name}: {ragged} ragged "
+                                 f"kernel launches")
         ref = qm.quant_matmul_plain(x, codes, scale, mode)
         wd = qm.dequantize_linear_weight(codes, scale, mode, dtype)
         abs_tol, rel = _matmul_tolerance(x, wd, dtype)
@@ -1470,7 +1493,12 @@ def check_quant_matmul():
         x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
         codes, scale = qm.quantize_weight_per_col(
             torch.randn((K, N), generator=g, device="cuda") * 0.02)
+        ragged = qm.int8_matmul.ragged_launches
         got = qm.int8_matmul(x, codes, scale)
+        ragged = qm.int8_matmul.ragged_launches - ragged
+        if ragged != int(qm.kernel_route(M, K, N, dtype) == "ragged"):
+            raise AssertionError(f"int8_matmul {name}: {ragged} ragged "
+                                 f"kernel launches")
         ref = qm.int8_matmul_plain(x, codes, scale)
         wd = (codes.float() * scale).to(dtype)
         abs_tol, rel = _matmul_tolerance(x, wd, dtype)
@@ -1739,15 +1767,15 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     engine's first-use costs, the second's time is the prefill's), then
     the counted ``generate``: the kernel counts are set to 0 just before
     it. Returns the tokens, the engine, the prefill and total seconds, the
-    launches of K4, K5, the masked K1, K5's wgmma prefill kernel and its
-    gemv_tc decode kernel in the counted run, and whether every logit of
-    it was finite."""
+    launches of K4, K5, the masked K1, K5's wgmma prefill kernel, its
+    gemv_tc decode kernel, its ragged kernel, and K8 in the counted run,
+    and whether every logit of it was finite."""
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import LlamaForCausalLM
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
     from deepspeed_tpu_torch.ops.flash_attention import \
         flash_attention_fwd_masked
-    from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
+    from deepspeed_tpu_torch.ops.quant_matmul import int8_matmul, quant_matmul
 
     model = LlamaForCausalLM(cfg)
     params = model.init_params(seed=0, dtype=dtype, device=device)
@@ -1765,7 +1793,8 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     finite.clear()
     decode_attention.launches = quant_matmul.launches = 0
     flash_attention_fwd_masked.launches = quant_matmul.wgmma_launches = 0
-    quant_matmul.gemv_tc_launches = 0
+    quant_matmul.gemv_tc_launches = quant_matmul.ragged_launches = 0
+    int8_matmul.launches = 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out = engine.generate(ids, attention_mask=mask,
@@ -1774,7 +1803,8 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     return out, engine, prefill_s, total_s, \
         (decode_attention.launches, quant_matmul.launches,
          flash_attention_fwd_masked.launches, quant_matmul.wgmma_launches,
-         quant_matmul.gemv_tc_launches), \
+         quant_matmul.gemv_tc_launches, quant_matmul.ragged_launches,
+         int8_matmul.launches), \
         bool(torch.stack(finite).all())
 
 
@@ -1812,11 +1842,12 @@ def check_small_generate_reference(device="cuda"):
             got["kernel"][1][0] > 0 and \
             (got["kernel"][1][1] > 0) == quant and \
             got["kernel"][1][2] == flash and \
-            got["plain"][1] == (0, 0, 0, 0, 0)
+            got["plain"][1] == (0,) * 7
         log(f"reference: 2-layer fp32 model generate {name}, kernels vs "
             f"plain versions, 4 prompts x 24 tokens: tokens identical="
             f"{got['kernel'][0] == got['plain'][0]} ok={ok} (K4, K5, masked "
-            f"K1, wgmma K5, gemv_tc K5 launches {got['kernel'][1]} / "
+            f"K1, wgmma K5, gemv_tc K5, ragged K5, K8 launches "
+            f"{got['kernel'][1]} / "
             f"{got['plain'][1]})")
         if not ok:
             raise AssertionError(f"small generate {name}: kernels and plain "
@@ -1840,8 +1871,9 @@ def check_generate():
     for weights, flash in ((None, False), ("int8", False), (None, True)):
         cfg = LlamaConfig.llama3_8b(prefill_flash_from_empty=flash)
         t = time.perf_counter()
-        out, engine, prefill_s, total_s, (k4, k5, k1m, k5w, k5g), finite = \
+        out, engine, prefill_s, total_s, counts, finite = \
             generate_run(cfg, torch.bfloat16, weights, ids, mask, GEN_NEW)
+        k4, k5, k1m, k5w, k5g, k5r, k8 = counts
         setup = time.perf_counter() - t - prefill_s - total_s
         decode_ms = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1852,28 +1884,29 @@ def check_generate():
             f"decode step {decode_ms:.3f} ms, total {1e3 * total_s:.2f} ms "
             f"= {GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
             f"{peak:.1f} GiB, setup {setup:.1f} s, launches K4 {k4} K5 {k5} "
-            f"(wgmma prefill {k5w}, gemv_tc decode {k5g}) masked K1 {k1m}, "
+            f"(wgmma prefill {k5w}, gemv_tc decode {k5g}, ragged {k5r}) "
+            f"masked K1 {k1m} K8 {k8}, "
             f"quant "
             f"{engine.quant_summary or None}")
         # K5's prefill: the 7 projections of each layer on the wgmma
-        # kernel; its decode steps on the gemv_tc kernel
+        # kernel; its decode steps on the gemv_tc kernel; every Llama-3-8B
+        # projection's rows are TMA-addressable, so none takes the ragged
+        # kernel; no projection has K8's per-column scales
         want = (L * (GEN_NEW - 1), 7 * L * GEN_NEW if weights else 0,
                 L if flash else 0, 7 * L if weights else 0,
-                7 * L * (GEN_NEW - 1) if weights else 0)
+                7 * L * (GEN_NEW - 1) if weights else 0, 0, 0)
         problems = []
         if tuple(out.shape) != (GEN_B, GEN_NEW):
             problems.append(f"output shape {tuple(out.shape)}")
         if not finite:
             problems.append("a logit is not finite")
-        if (k4, k5, k1m, k5w, k5g) != want:
+        if counts != want:
             problems.append(f"launches K4, K5, masked K1, wgmma K5, "
-                            f"gemv_tc K5 {(k4, k5, k1m, k5w, k5g)} != "
-                            f"{want}")
+                            f"gemv_tc K5, ragged K5, K8 {counts} != {want}")
         if problems:
             raise AssertionError(f"generate ({weights or 'bf16'}, flash "
                                  f"{flash}): " + "; ".join(problems))
-        launches[(weights or "bf16") + ("_flash" if flash else "")] = \
-            (k4, k5, k1m, k5w, k5g)
+        launches[(weights or "bf16") + ("_flash" if flash else "")] = counts
         del out, engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -2248,9 +2281,10 @@ def main() -> int:
         source="deepspeed_tpu_torch/csrc/fused_adam.cu",
         replaces="deepspeed_tpu/ops/pallas/fused_adam.py:37",
         launches=train_launches["fused_adam"], **adam))
-    # K4 and K5: launches of the int8-weight 8B generate (K4 runs the same
-    # count in the bf16 run; K5's prefill kernel, wgmma_prefill_kernel, is
-    # its own entry at the prefill shape); K8 has no path to run on
+    # K4, K5 and K8: launches of the int8-weight 8B generate (K4 runs the
+    # same count in the bf16 run; K5's prefill kernel,
+    # wgmma_prefill_kernel, is its own entry at the prefill shape; no
+    # projection of the path has K8's per-column scales)
     for name, csrc, replaces, results, main_name, launches in (
             ("decode_attention", "decode_attention", "decode_attention.py:36",
              decode, DECODE_MAIN, gen_launches["int8"][0]),
@@ -2259,7 +2293,7 @@ def main() -> int:
             ("quant_matmul_prefill", "quant_matmul", "quant_matmul.py:151",
              quant, QUANT_PREFILL_MAIN, gen_launches["int8"][3]),
             ("int8_matmul", "quant_matmul", "int8_matmul.py:41", int8_col,
-             INT8_COL_MAIN, 0)):
+             INT8_COL_MAIN, gen_launches["int8"][6])):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"deepspeed_tpu_torch/csrc/{csrc}.cu",
@@ -2267,6 +2301,30 @@ def main() -> int:
             launches=launches,
             **dict(results[main_name], max_abs_err=max(
                 r["max_abs_err"] for r in results.values()))))
+    # K5/K8's ragged kernel (rows TMA cannot address): its launches in the
+    # int8-weight 8B generate (0: every Llama-3-8B projection is aligned);
+    # its decode (M <= 8) and prefill entries are held at the wide ragged
+    # cases, each with the worst error of its cases
+    from deepspeed_tpu_torch.ops.quant_matmul import GEMV_MAX_ROWS, \
+        kernel_route
+
+    def ragged_part(M, K, N, dt):
+        if kernel_route(M, K, N, dt) != "ragged":
+            return None
+        return "decode" if M <= GEMV_MAX_ROWS else "prefill"
+
+    for part, main_name in RAGGED_MAIN.items():
+        errs = [quant[n]["max_abs_err"] for n, (M, K, N, _, _, dt)
+                in QUANT_CASES.items() if ragged_part(M, K, N, dt) == part]
+        errs += [int8_col[n]["max_abs_err"] for n, (M, K, N, dt)
+                 in INT8_COL_CASES.items()
+                 if ragged_part(M, K, N, dt) == part]
+        kernels.append(dict(
+            name=f"quant_matmul_ragged_{part}", route="cuda",
+            source="deepspeed_tpu_torch/csrc/quant_matmul.cu",
+            replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:151",
+            launches=gen_launches["int8"][5],
+            **dict(quant[main_name], max_abs_err=max(errs))))
     # K9: launches of the long-context path's six forward + backward runs
     sparse_src = "deepspeed_tpu/ops/pallas/block_sparse_attention.py"
     for name, part, line in (("block_sparse_attention_fwd", "fwd", 55),

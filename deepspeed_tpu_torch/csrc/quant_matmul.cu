@@ -21,8 +21,9 @@
 // (M = tokens, thousands) does 2*M operations per code byte: the floor is
 // the operations at the bf16 tensor-core peak.
 //
-// Which kernel runs is chosen by shape before any launch (wgmma_route and
-// gemv_tc_route, mirrored by ops/quant_matmul.py kernel_route):
+// Which kernel runs is chosen by shape before any launch (wgmma_route,
+// gemv_tc_route and the ragged rest, mirrored by ops/quant_matmul.py
+// kernel_route):
 // - bf16 x, M > 8, K % 8 == 0 and N % 16 == 0 (every Llama-3-8B
 //   projection): wgmma_prefill_kernel. TMA needs 16-byte row strides, so
 //   rows of x need K % 8 and code rows N % 16. The product is computed
@@ -49,11 +50,6 @@
 //   accumulators, no spills). The epilogue maps the accumulators back to
 //   y, applies K8's column scale, rounds to bf16 and masks the M and N
 //   edges.
-// - other bf16 prefills (M > 8): tc_prefill_kernel, the first design:
-//   mma.sync m16n8k16 fed by ldmatrix over 128 x 128 output tiles of 8
-//   warps at 64 x 32 each, a K loop of 32 rows whose next tile's global
-//   loads are in flight in registers while the current one multiplies,
-//   the dequantized tile staged in padded shared memory.
 // - M <= 8 (decode), bf16 x, K % 8 == 0 and N % 16 == 0 (every Llama-3-8B
 //   projection): gemv_tc_kernel, one launch (gemv_tc_route, mirrored by
 //   kernel_route). Its bound is the code bytes over 3.35 TB/s. It is
@@ -79,16 +75,31 @@
 //   left. What holds the int8 case back now is the stream itself: with
 //   its products turned off the up projection takes 95% of its time
 //   (PERF.md).
-// - other decodes (ragged bf16 rows, M <= 8): tc_decode_kernel, the first
-//   design: the prefill tile code with x padded to 16 rows, each warp 16 x
-//   16 outputs, K split across blocks; each block writes an fp32 partial
-//   and finalize_kernel sums the splits in order (deterministic), applies
-//   K8's column scale and rounds to bf16.
+// - other bf16 x, any M (rows TMA cannot address: K % 8 or N % 16 not 0):
+//   ragged_kernel, one launch, y^T = W^T x^T as gemv_tc does it: the
+//   dequantized weight (bit for bit the plain version's) is the mma.sync
+//   m16n8k16 A operand, built in registers, and x^T the B operand, the
+//   row tile chosen from M (8, 16, 32, 64 or 128 rows filling 1 to 16 n8
+//   tiles: no mma row is padding at M <= 8, and M 37 pads to 64; 128-row
+//   tiles have warps of 32 W columns, so each weight a warp dequantizes
+//   meets 16 n8 tiles, not 8). K is
+//   split over the warps of a block and the ranks of a thread-block
+//   cluster sized by the host from the SM count (ops/quant_matmul.py
+//   ragged_grid), which also picks the column tile (64, 128 or 256 W
+//   columns), so that 264 -> 1000 runs on 128 blocks; the warps' and
+//   ranks' fp32 sums are added in a fixed order through shared and
+//   distributed shared memory, K8's scale and the bf16 rounding follow in
+//   the same kernel: no finalize pass, no scratch, graph-safe. TMA is out
+//   (its 16-byte strides), so a cp.async ring copies each row as the
+//   16-byte-aligned window around it, in whole 16-byte copies cut at the
+//   row's end, and the reader shifts by the row's offset: rows that start
+//   on any byte (N odd, N = 14330's 2-byte steps, x rows of odd K) load as
+//   wide as aligned ones.
 // - fp32 x, M <= 8: gemv_kernel on CUDA cores with exact fp32 products,
 //   as the plain version's fp32 matmul: threads along N, 8 columns each,
 //   eight warps on interleaved K rows with four 8-byte loads in flight per
 //   thread, x staged in shared memory in chunks of 1024 K rows, split K
-//   and the same finalize pass.
+//   and a finalize pass that sums the splits in order.
 // - fp32 x, M > 8 (fp32_tc_kernel): the tensor cores at fp32 accuracy.
 //   The codes are small integers, exact in TF32; x is split into two TF32
 //   parts, x = hi + lo, and each product runs on both (mma.sync m16n8k8,
@@ -633,262 +644,6 @@ __global__ void __launch_bounds__(FT_THREADS, 2)
           if (ncol + i < N) row[ncol + i] = v[i];
       }
     }
-}
-
-// ---------------------------------------------------------------------------
-// tensor-core tiled path: M > 8, bf16 x
-// ---------------------------------------------------------------------------
-
-constexpr int TC_BN = 128;
-constexpr int TC_BK = 32;
-constexpr int TC_THREADS = 256;      // 8 warps
-constexpr int TC_AS = TC_BK + 8;     // padded smem rows (bf16): ldmatrix
-constexpr int TC_BS = TC_BN + 8;     // rows land on distinct banks
-
-// Each thread stages, per K tile: two 8-wide chunks of x (A) and one
-// chunk of codes (B): 16 int8 codes of one K row, or 8 bytes of packed
-// int4 = 8 columns of two K rows. Loads go to registers first, so the
-// next tile's loads are in flight while the current tile multiplies.
-template <int MODE>
-struct TcStage {
-  uint4 a[2];  // BM = 128: two chunks; BM = 16: one (threads < 64)
-  uint4 b;     // int8: 16 bytes; int4: 8 bytes in .x, .y
-};
-
-// BM = 128 (prefill): 2 x 4 warps of 64 x 32 outputs, bf16 out. BM = 16
-// (decode, M <= 8 rows padded with zeros): 1 x 8 warps of 16 x 16, the K
-// axis split over blockIdx.z, an fp32 partial [split, M, N] out (the
-// finalize pass sums the splits).
-template <int MODE, int BM>
-__device__ __forceinline__ void tc_gemm(const __nv_bfloat16* __restrict__ x,
-                   const uint8_t* __restrict__ codes,
-                   const float* __restrict__ scale,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ work,
-                   int M, int K, int N, int G, int splits) {
-  constexpr int MI = BM == 16 ? 1 : 4;             // m16 tiles per warp
-  constexpr int WARPS_M = BM / (16 * MI);
-  constexpr int WARPS_N = TC_THREADS / 32 / WARPS_M;
-  constexpr int NI = TC_BN / (8 * WARPS_N);        // n8 tiles per warp
-  constexpr bool PARTIAL = BM == 16;
-  constexpr int A_CHUNKS = BM * TC_BK / 8;         // 8 x values each
-  constexpr int A_PER = (A_CHUNKS + TC_THREADS - 1) / TC_THREADS;
-  static_assert(NI % 2 == 0, "B fragments load in pairs of n8 tiles");
-  __shared__ __align__(16) __nv_bfloat16 As[BM][TC_AS];
-  __shared__ __align__(16) __nv_bfloat16 Bs[TC_BK][TC_BS];
-  constexpr bool INT4 = MODE == kInt4;
-  constexpr int BCOLS = INT4 ? 8 : 16;   // code columns per thread
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp / WARPS_N;  // rows wm * 16 * MI
-  const int wn = warp % WARPS_N;  // cols wn * 8 * NI
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * TC_BN;
-  // this block's K range: whole 32-row tiles (nibble pairs stay whole)
-  const int units = (K + TC_BK - 1) / TC_BK;
-  const int per = (units + splits - 1) / splits;
-  const int kb = min(K, static_cast<int>(blockIdx.z) * per * TC_BK);
-  const int ke = min(K, (static_cast<int>(blockIdx.z) + 1) * per * TC_BK);
-  const int g = K / G;
-  const bool a_vec = K % 8 == 0;
-  const bool b_vec = N % BCOLS == 0;
-  // the thread's code chunk: int8 row t / 8 of the tile, columns
-  // (t % 8) * 16; int4 byte row t / 16 (K rows 2r, 2r + 1), columns
-  // (t % 16) * 8
-  const int b_row = INT4 ? tid / 16 : tid / 8;
-  const int b_col = INT4 ? (tid % 16) * 8 : (tid % 8) * 16;
-  const int bn = n0 + b_col;
-
-  auto load = [&](int k0, TcStage<MODE>& st) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int c = tid + i * TC_THREADS;
-      const int m = m0 + c / 4;
-      const int k = k0 + (c % 4) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (c < A_CHUNKS && m < M) {
-        const __nv_bfloat16* src = x + static_cast<size_t>(m) * K + k;
-        if (a_vec && k + 8 <= K) {
-          v = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-          uint16_t h[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            h[e] = k + e < K ? reinterpret_cast<const uint16_t*>(src)[e] : 0;
-          uint32_t w[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            w[e] = h[2 * e] | (static_cast<uint32_t>(h[2 * e + 1]) << 16);
-          v = make_uint4(w[0], w[1], w[2], w[3]);
-        }
-      }
-      st.a[i] = v;
-    }
-    const int kr = INT4 ? k0 / 2 + b_row : k0 + b_row;  // code row
-    const int rows = INT4 ? (K + 1) / 2 : K;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (kr < rows) {
-      const uint8_t* src = codes + static_cast<size_t>(kr) * N + bn;
-      if (b_vec && bn + BCOLS <= N) {
-        if (INT4) {
-          const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
-          v.x = w.x;
-          v.y = w.y;
-        } else {
-          v = __ldg(reinterpret_cast<const uint4*>(src));
-        }
-      } else {
-        uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-        for (int c = 0; c < BCOLS; ++c)
-          if (bn + c < N)
-            w[c / 4] |= static_cast<uint32_t>(__ldg(src + c)) << (8 * (c % 4));
-        v = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-    st.b = v;
-  };
-
-  float sc[BCOLS];
-#pragma unroll
-  for (int c = 0; c < BCOLS; ++c) sc[c] = 0.f;
-  int sc_group = -1;
-  auto store = [&](int k0, const TcStage<MODE>& st) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int c = tid + i * TC_THREADS;
-      if (c < A_CHUNKS)
-        *reinterpret_cast<uint4*>(&As[c / 4][(c % 4) * 8]) = st.a[i];
-    }
-    const int k = k0 + (INT4 ? 2 * b_row : b_row);  // first K row
-    if (MODE != kInt8Col && k < K && k / g != sc_group) {
-      sc_group = k / g;
-#pragma unroll
-      for (int c = 0; c < BCOLS; ++c)
-        sc[c] = bn + c < N
-                    ? __ldg(scale + static_cast<size_t>(sc_group) * N + bn + c)
-                    : 0.f;
-    }
-    const uint32_t words[4] = {st.b.x, st.b.y, st.b.z, st.b.w};
-    if (INT4) {
-      uint32_t lo[4], hi[4];
-#pragma unroll
-      for (int c = 0; c < 8; c += 2) {
-        const uint32_t b0 = (words[c / 4] >> (8 * (c % 4))) & 0xFF;
-        const uint32_t b1 = (words[c / 4] >> (8 * (c % 4 + 1))) & 0xFF;
-        lo[c / 2] = pack(static_cast<float>(nibble(b0, 0)) * sc[c],
-                              static_cast<float>(nibble(b1, 0)) * sc[c + 1]);
-        hi[c / 2] = pack(static_cast<float>(nibble(b0, 1)) * sc[c],
-                              static_cast<float>(nibble(b1, 1)) * sc[c + 1]);
-      }
-      *reinterpret_cast<uint4*>(&Bs[2 * b_row][b_col]) =
-          make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(&Bs[2 * b_row + 1][b_col]) =
-          make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    } else {
-      uint32_t w[8];
-#pragma unroll
-      for (int c = 0; c < 16; c += 2) {
-        const float c0 = static_cast<float>(static_cast<int8_t>(
-            (words[c / 4] >> (8 * (c % 4))) & 0xFF));
-        const float c1 = static_cast<float>(static_cast<int8_t>(
-            (words[c / 4] >> (8 * (c % 4 + 1))) & 0xFF));
-        w[c / 2] = MODE == kInt8Col ? pack(c0, c1)
-                                    : pack(c0 * sc[c], c1 * sc[c + 1]);
-      }
-      *reinterpret_cast<uint4*>(&Bs[b_row][b_col]) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-      *reinterpret_cast<uint4*>(&Bs[b_row][b_col + 8]) =
-          make_uint4(w[4], w[5], w[6], w[7]);
-    }
-  };
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  TcStage<MODE> st;
-  if (kb < ke) load(kb, st);
-  for (int k0 = kb; k0 < ke; k0 += TC_BK) {
-    store(k0, st);
-    __syncthreads();
-    if (k0 + TC_BK < ke) load(k0 + TC_BK, st);
-#pragma unroll
-    for (int ks = 0; ks < TC_BK; ks += 16) {
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldsm(af[mi], saddr(&As[wm * 16 * MI + mi * 16 + lane % 16]
-                              [ks + (lane / 16) * 8]));
-      uint32_t bfr[NI][2];
-#pragma unroll
-      for (int nj = 0; nj < NI / 2; ++nj) {
-        uint32_t r[4];
-        ldsm_t(r, saddr(&Bs[ks + (lane & 15)]
-                           [wn * 8 * NI + nj * 16 + (lane >> 4) * 8]));
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          mma(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 16 * MI + mi * 16 + lane / 4 + half * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int n = n0 + wn * 8 * NI + ni * 8 + (lane % 4) * 2;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e >= N) continue;
-          float y = acc[mi][ni][half * 2 + e];
-          if (PARTIAL) {
-            work[(static_cast<size_t>(blockIdx.z) * M + m) * N + n + e] = y;
-          } else {
-            if (MODE == kInt8Col) y *= scale[n + e];
-            out[static_cast<size_t>(m) * N + n + e] = __float2bfloat16(y);
-          }
-        }
-      }
-    }
-  }
-}
-
-// the prefill tile keeps two blocks per SM (at most 128 registers a
-// thread); the decode tile is left to the compiler's choice, which
-// measured faster on the H100 than any bound
-template <int MODE>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-    tc_prefill_kernel(const __nv_bfloat16* __restrict__ x,
-                      const uint8_t* __restrict__ codes,
-                      const float* __restrict__ scale,
-                      __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                      int G) {
-  tc_gemm<MODE, 128>(x, codes, scale, out, nullptr, M, K, N, G, 1);
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(TC_THREADS)
-    tc_decode_kernel(const __nv_bfloat16* __restrict__ x,
-                     const uint8_t* __restrict__ codes,
-                     const float* __restrict__ scale, float* __restrict__ work,
-                     int M, int K, int N, int G, int splits) {
-  tc_gemm<MODE, 16>(x, codes, scale, nullptr, work, M, K, N, G, splits);
 }
 
 // ---------------------------------------------------------------------------
@@ -1556,77 +1311,609 @@ int launch_gemv_tc(const void* x, const void* codes, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// ragged tensor-core path: bf16 x whose rows TMA cannot address (K % 8 or
+// N % 16 not 0), any M
+// ---------------------------------------------------------------------------
+
+constexpr int RG_THREADS = 256;      // 8 warps: wn along N x 8 / wn along K
+constexpr int RG_MAX_CLUSTER = 8;
+constexpr int RG_MIN_GROUP = 8;      // shortest scale group staged in the ring
+
+// rows of x a block takes are 8 * MT (MT n8 tiles of the mma): MT from M
+int rg_mt(int M) {
+  return M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : M <= 64 ? 8 : 16;
+}
+
+// m16 tiles of W columns a warp holds: 4 (64 columns), or 2 (32 columns)
+// with 128 rows of x, so that a warp's 128 accumulators meet each
+// dequantized weight 16 times
+__host__ __device__ constexpr int rg_mi(int MT) { return MT == 16 ? 2 : 4; }
+// stages of the ring, and k16 steps a warp takes in each (two for the
+// wider row tiles, so that a warp has a second step's loads to run while
+// the first one's products do)
+__host__ __device__ constexpr int rg_stages(int MT) { return MT == 1 ? 6 : 4; }
+__host__ __device__ constexpr int rg_steps(int MT) { return MT >= 4 ? 2 : 1; }
+
+// the warps along N a row tile may take: 1 for up to 32 rows, 2 or 4 for
+// 64 (a stage of 8 warps along K would not fit), 4 or 8 for 128
+__host__ __device__ constexpr bool rg_wn_ok(int MT, int wn) {
+  return MT <= 4 ? wn == 1 : MT == 8 ? wn == 2 || wn == 4
+                                     : wn == 4 || wn == 8;
+}
+
+// Shared-memory layout of ragged_kernel for a row tile of 8 MT and wn warps
+// along N. A stage holds, for bk K rows: the code rows (bn + 16 bytes: the
+// 16-byte-aligned window around the row's bn columns), the rows of x (bk +
+// 8 elements, the same kind of window) and the scale rows of the groups it
+// touches (bn + 4 floats). Every row length is a multiple of 16 bytes, so
+// every window lands 16-byte aligned. After the K loop the ring holds the
+// fp32 partials [wk - 1][8 MT][bn + 1] of warps 1.. along K; the block's
+// sum, which the cluster's ranks read, sits after it (C > 1 only).
+struct RgLayout {
+  int wn, wk, bn, bk;   // warps along N and K, block columns, stage K rows
+  int crows, cstride;   // code rows a stage (int4: byte rows), bytes a row
+  int xstride;          // bf16 a staged x row
+  int grows, sstride;   // scale rows a stage, floats a staged scale row
+  int c_bytes, x_bytes, stage;
+  int rstride, tile;    // floats a partial row, floats a partial
+  int part_off, smem;   // bytes
+};
+
+__host__ __device__ inline RgLayout rg_layout(bool int4, int MT, int wn,
+                                              int C) {
+  RgLayout L;
+  L.wn = wn;
+  L.wk = 8 / wn;
+  L.bn = 16 * rg_mi(MT) * wn;
+  L.bk = 16 * L.wk * rg_steps(MT);
+  L.crows = int4 ? L.bk / 2 : L.bk;
+  L.cstride = L.bn + 16;
+  L.xstride = L.bk + 8;
+  L.grows = L.bk / RG_MIN_GROUP + 2;
+  L.sstride = L.bn + 4;
+  L.c_bytes = L.crows * L.cstride;
+  L.x_bytes = 8 * MT * L.xstride * 2;
+  L.stage = L.c_bytes + L.x_bytes + L.grows * L.sstride * 4;
+  L.rstride = L.bn + 1;  // odd: lanes (g, q) of a store hit 2 per bank
+  L.tile = 8 * MT * L.rstride;
+  const int ring = rg_stages(MT) * L.stage;
+  const int red = (L.wk - 1) * L.tile * 4;
+  L.part_off = ring > red ? ring : red;
+  L.smem = L.part_off + (C > 1 ? L.tile * 4 : 0);
+  return L;
+}
+
+// the most shared memory any launch of this row tile takes
+inline int rg_max_smem(bool int4, int MT) {
+  int most = 0;
+  for (int wn = 1; wn <= 8; wn *= 2) {
+    if (!rg_wn_ok(MT, wn)) continue;
+    const int s = rg_layout(int4, MT, wn, 2).smem;
+    most = s > most ? s : most;
+  }
+  return most;
+}
+
+// 16 bytes global -> shared, of which the first `bytes` (0..16) are read
+// and the rest zero-filled
+__device__ __forceinline__ void cp16n(uint32_t dst, const void* src,
+                                      int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+// the bytes of [a, a + 16) that lie before `end`, 0..16
+__device__ __forceinline__ int rg_valid(long long a, long long end) {
+  const long long v = end - a;
+  return v <= 0 ? 0 : v >= 16 ? 16 : static_cast<int>(v);
+}
+
+// y^T = W^T x^T for bf16 x whose rows TMA cannot address. The dequantized
+// weight (bit for bit the plain version's bf16 weight) is the A operand of
+// mma.sync m16n8k16, built in registers from the staged codes; x^T is the
+// B operand, the block's 8 MT rows of x filling MT n8 tiles, so at M <= 8
+// no product row is padding and M 37 pads to 64, not 128.
+//
+// Block = (column tile, cluster rank, row tile): bn = 16 MI wn W columns x
+// 8 MT rows of x over the rank's share of the K axis in k16 steps (rank r
+// of C takes steps r * n16 / C .. (r + 1) * n16 / C). Warp (wn, wk) owns
+// 16 MI W columns (lane group g the 2 MI columns from 2 MI g: m16 tile j's
+// rows g and g + 8 are its columns 2 j and 2 j + 1) and takes steps
+// wk * ks .. wk * ks + ks - 1 of every stage of wk-count * ks steps (ks =
+// rg_steps(MT)). A cp.async ring of rg_stages(MT) stages keeps the next
+// stages' code rows, x rows and scale rows in flight while one is
+// multiplied; a stage copies only the rows of the rank's steps and the
+// scale groups they touch. Rows have no alignment to rely on (x rows of
+// odd K bf16, code rows of N bytes, N = 14330 puts every other row on a
+// 2-byte boundary), so each row is copied as the 16-byte aligned window
+// around it, in whole 16-byte copies that read only up to the row's end
+// (zeros beyond, and past K or M); the reader shifts by the row's offset
+// in its window, (row * N) % 16 bytes for codes, (m * K) % 8 elements for
+// x, (group * N) % 4 floats for scales. Scales: per-column ones and groups
+// of 8 rows or more (even, so a pair of K rows never straddles two) are
+// staged a stage's groups at a time and held in registers per row pair
+// until the pair enters a new group; other groups (odd or shorter) are
+// read per K row from global memory, in an instantiation of their own
+// (PER_ROW), so that the common loop carries none of its code.
+//
+// The sums run in a fixed order: a warp's steps in K order, then warps
+// 1.. along K, which had a step, write their fp32 partials to shared
+// memory and warp 0 of each column group adds them in warp order to its
+// own; with a cluster, the ranks' sums are added in rank order through
+// distributed shared memory, each rank finishing a slice of the tile. K8's
+// column scale, the bf16 rounding and the stores masked at the M and N
+// edges follow in the same kernel. No atomics, no scratch, nothing read on
+// the host: one launch that a CUDA graph replays.
+template <int MODE, int MT, bool PER_ROW>
+__global__ void __launch_bounds__(RG_THREADS)
+    ragged_kernel(const __nv_bfloat16* __restrict__ x,
+                  const uint8_t* __restrict__ codes,
+                  const float* __restrict__ scale,
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N, int G,
+                  int C, int wn_count) {
+  constexpr bool INT4 = MODE == kInt4;
+  constexpr int S = rg_stages(MT);
+  constexpr int KS = rg_steps(MT);
+  constexpr int MI = rg_mi(MT);
+  constexpr int LC = 2 * MI;      // W columns of a lane
+  constexpr int LW = LC / 4;      // ... in 32-bit words
+  constexpr float offset = INT4 ? 8.f : 128.f;
+  constexpr bool staged = MODE != kInt8Col && !PER_ROW;
+  extern __shared__ __align__(16) unsigned char rg_smem[];
+  const RgLayout L = rg_layout(INT4, MT, wn_count, C);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int q = lane % 4;
+  const int wn = warp % L.wn;
+  const int wk = warp / L.wn;
+  const int rank = static_cast<int>(cluster_rank());
+  const int n0 = (static_cast<int>(blockIdx.x) / C) * L.bn;
+  const int m0 = static_cast<int>(blockIdx.y) * 8 * MT;
+  const int n16 = (K + 15) / 16;
+  const int st0 = rank * n16 / C;
+  const int st1 = (rank + 1) * n16 / C;
+  const int per = L.wk * KS;                  // steps a stage
+  const int nst = (st1 - st0 + per - 1) / per;
+  // warps along K that take a step (all in the first stage)
+  const int nwk = min(L.wk, (st1 - st0 + KS - 1) / KS);
+  const int gl = K / G;  // scale-group length
+  const int KR = INT4 ? K / 2 : K;          // code rows
+  const int nl = (wn * 8 + g) * LC;         // the lane's first column
+  const int n = n0 + nl;
+  // the offset of the lane's x rows (m0 + 8 t + g) in their windows,
+  // (m K) % 8 elements: the same for every t, as m0 % 8 == 0
+  const int xsh = (g * (K & 7)) & 7;
+
+  // each thread's share of a stage's copies: (row, 16-byte chunk), rows
+  // stepping by the rows one pass of the block covers
+  const int c_cpr = L.bn / 16 + 1;
+  const int x_cpr = L.bk / 8 + 1;
+  const int s_cpr = L.bn / 4 + 1;
+  const int c_r0 = tid / c_cpr, c_ch = tid % c_cpr;
+  const int x_r0 = tid / x_cpr, x_ch = tid % x_cpr;
+  const int s_r0 = tid / s_cpr, s_ch = tid % s_cpr;
+  const int c_step = RG_THREADS / c_cpr;
+  const int x_step = RG_THREADS / x_cpr;
+  const int s_step = RG_THREADS / s_cpr;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const unsigned char* sb = reinterpret_cast<const unsigned char*>(scale);
+
+  // stage i of the rank (its steps st0 + i per ..) into ring slot `buf`
+  auto load_stage = [&](int i, int buf) {
+    unsigned char* st = rg_smem + buf * L.stage;
+    const int f = st0 + i * per;
+    const int k0 = 16 * f;
+    const int steps = min(per, st1 - f);
+    if (c_r0 < c_step) {
+      const int kr0 = INT4 ? 8 * f : k0;
+      const int rows = INT4 ? 8 * steps : 16 * steps;
+      for (int r = c_r0; r < rows; r += c_step) {
+        const int kr = kr0 + r;
+        const long long start = static_cast<long long>(kr) * N + n0;
+        const long long a = (start & ~15LL) + 16 * c_ch;
+        const int v = kr < KR ? rg_valid(a, start - n0 + N) : 0;
+        cp16n(saddr(st + r * L.cstride + 16 * c_ch), codes + (v ? a : 0), v);
+      }
+    }
+    unsigned char* xs = st + L.c_bytes;
+    if (x_r0 < x_step && x_ch <= 2 * steps) {
+      for (int r = x_r0; r < 8 * MT; r += x_step) {
+        const int m = m0 + r;
+        const long long row = 2LL * m * K;
+        const long long a = ((row + 2LL * k0) & ~15LL) + 16 * x_ch;
+        const int v = m < M ? rg_valid(a, row + 2LL * K) : 0;
+        cp16n(saddr(xs + r * L.xstride * 2 + 16 * x_ch), xb + (v ? a : 0),
+              v);
+      }
+    }
+    if (staged && s_r0 < s_step) {
+      unsigned char* ss = xs + L.x_bytes;
+      const int g0 = G == 1 ? 0 : k0 / gl;
+      const int rows =
+          G == 1 ? 1 : (min(16 * (f + steps), K) - 1) / gl - g0 + 1;
+      for (int r = s_r0; r < rows; r += s_step) {
+        const long long row = 4LL * (g0 + r) * N;
+        const long long a = ((row + 4LL * n0) & ~15LL) + 16 * s_ch;
+        const int v = rg_valid(a, row + 4LL * N);
+        cp16n(saddr(ss + r * L.sstride * 4 + 16 * s_ch), sb + (v ? a : 0), v);
+      }
+    }
+  };
+
+  float acc[MI][MT][4];
+#pragma unroll
+  for (int j = 0; j < MI; ++j)
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][t][e] = 0.f;
+  // staged scales of the lane's columns for row pair p (K rows k + 8 p,
+  // k + 8 p + 1), valid below K row gend[p]
+  float sc[2][LC];
+  int gend[2] = {0, 0};
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int c = 0; c < LC; ++c) sc[p][c] = 0.f;
+
+  // the lane's LC code bytes in staged code row `rel` (absolute code row
+  // kr), as LW words: the window's words from the row's shift on
+  auto code_row = [&](const unsigned char* cs, int rel, int kr,
+                      uint32_t (&out)[LW]) {
+    const int sh = ((kr & 15) * (N & 15)) & 15;  // (kr * N) % 16
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(
+        cs + ((rel * L.cstride + nl + sh) & ~3));
+    uint32_t v[LW + 1];
+#pragma unroll
+    for (int i = 0; i <= LW; ++i) v[i] = w[i];
+    const int bits = 8 * (sh & 3);
+#pragma unroll
+    for (int i = 0; i < LW; ++i) out[i] = __funnelshift_r(v[i], v[i + 1], bits);
+  };
+
+  // k16 step `step` of stage i, the warp's ks-th of the stage
+  auto compute = [&](int i, int buf, int ks) {
+    const int sl = wk * KS + ks;   // the step's place in the stage
+    const int step = st0 + i * per + sl;
+    if (step >= st1) return;
+    const unsigned char* cs = rg_smem + buf * L.stage;
+    const unsigned char* xs = cs + L.c_bytes;
+    const float* ss = reinterpret_cast<const float*>(xs + L.x_bytes);
+    const int k = 16 * step + 2 * q;  // the lane's first K row
+    // lo[h] / hi[h]: K rows k + 8 h and k + 8 h + 1 of the lane's columns,
+    // one byte (code + offset) a column
+    uint32_t lo[2][LW], hi[2][LW];
+    if constexpr (INT4) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t w[LW];
+        code_row(cs, 8 * sl + q + 4 * h, 8 * step + q + 4 * h, w);
+#pragma unroll
+        for (int c = 0; c < LW; ++c) {
+          lo[h][c] = (w[c] & 0x0F0F0F0Fu) ^ 0x08080808u;
+          hi[h][c] = ((w[c] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rel = 16 * sl + 2 * q + 8 * h;
+        uint32_t a[LW], b[LW];
+        code_row(cs, rel, k + 8 * h, a);
+        code_row(cs, rel + 1, k + 8 * h + 1, b);
+#pragma unroll
+        for (int c = 0; c < LW; ++c) {
+          lo[h][c] = a[c] ^ 0x80808080u;
+          hi[h][c] = b[c] ^ 0x80808080u;
+        }
+      }
+    }
+    // x's B fragments: row 8 t + g, K elements 2 q, 2 q + 1 (+ 8) of the
+    // step, shifted by the row's offset in its window, which is the
+    // lane's xsh for every t (row tiles start at multiples of 8)
+    uint32_t b[MT][2];
+    const uint32_t* xw =
+        reinterpret_cast<const uint32_t*>(xs + g * L.xstride * 2) +
+        (xsh + 16 * sl + 2 * q) / 2;
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const uint32_t* w = xw + t * 4 * L.xstride;  // 8 rows of x further
+      if (K & 1) {
+        b[t][0] = __funnelshift_r(w[0], w[1], 16 * (xsh & 1));
+        b[t][1] = __funnelshift_r(w[4], w[5], 16 * (xsh & 1));
+      } else {
+        b[t][0] = w[0];
+        b[t][1] = w[4];
+      }
+    }
+    if constexpr (staged) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int kp = min(k + 8 * p, K - 1);
+        if (kp >= gend[p]) {  // the pair enters a new group
+          const int grp = kp / gl;
+          gend[p] = (grp + 1) * gl;
+          const int g0 = 16 * (st0 + i * per) / gl;
+          const float* sp = ss + (grp - g0) * L.sstride +
+                            (((grp & 3) * (N & 3)) & 3) + nl;
+#pragma unroll
+          for (int c = 0; c < LC; ++c) sc[p][c] = sp[c];
+        }
+      }
+    }
+    // the scale of K row kk (groups read per row), column c of the lane
+    auto row_scale = [&](int kk, int c) {
+      const int grp = min(kk, K - 1) / gl;
+      return __ldg(scale + static_cast<size_t>(grp) * N + min(n + c, N - 1));
+    };
+#pragma unroll
+    for (int j = 0; j < MI; ++j) {
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // column 2 j + e of the lane's
+          const int c = 2 * j + e;
+          const float f0 = code_f(lo[h][c / 4], c % 4, offset);
+          const float f1 = code_f(hi[h][c / 4], c % 4, offset);
+          if constexpr (MODE == kInt8Col) {
+            // |code| <= 127 is exact in bf16: the floats' top halves
+            a[2 * h + e] = __byte_perm(__float_as_uint(f0),
+                                       __float_as_uint(f1), 0x7632);
+          } else if constexpr (staged) {
+            a[2 * h + e] = pack(f0 * sc[h][c], f1 * sc[h][c]);
+          } else {
+            a[2 * h + e] = pack(f0 * row_scale(k + 8 * h, c),
+                                f1 * row_scale(k + 8 * h + 1, c));
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) mma(acc[j][t], a, b[t][0], b[t][1]);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nst) load_stage(i, i);
+    cp_commit();
+  }
+  for (int i = 0; i < nst; ++i) {
+    cp_wait<S - 2>();
+    __syncthreads();  // stage i landed; stage i - 1's products are done
+    const int nx = i + S - 1;
+    if (nx < nst) load_stage(nx, nx % S);
+    cp_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) compute(i, i % S, ks);
+  }
+  cp_wait<0>();
+
+  // warps 1.. along K with a step write their partials, red [wk - 1][8 MT
+  // rows][rstride]; warp 0 of each column group adds them in warp order
+  float* red = reinterpret_cast<float*>(rg_smem);
+  auto at = [&](int j, int t, int e) {  // the accumulator's place in a tile
+    return (8 * t + 2 * q + (e & 1)) * L.rstride + nl + 2 * j + (e >> 1);
+  };
+  if (nwk > 1) {
+    __syncthreads();  // every stage consumed: the ring is free
+    if (wk > 0 && wk < nwk) {
+#pragma unroll
+      for (int j = 0; j < MI; ++j)
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[(wk - 1) * L.tile + at(j, t, e)] = acc[j][t][e];
+    }
+    __syncthreads();
+    if (wk == 0) {
+      for (int w = 1; w < nwk; ++w)
+#pragma unroll
+        for (int j = 0; j < MI; ++j)
+#pragma unroll
+          for (int t = 0; t < MT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[j][t][e] += red[(w - 1) * L.tile + at(j, t, e)];
+    }
+  }
+  if (C == 1) {  // the block's sum is the product: store it
+    if (wk == 0) {
+#pragma unroll
+      for (int j = 0; j < MI; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // column n + 2 j + h
+          const int col = n + 2 * j + h;
+          if (col >= N) continue;
+          const float cs = MODE == kInt8Col ? scale[col] : 1.f;
+#pragma unroll
+          for (int t = 0; t < MT; ++t)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {  // row 8 t + 2 q + e
+              const int m = m0 + 8 * t + 2 * q + e;
+              if (m < M)
+                out[static_cast<size_t>(m) * N + col] =
+                    __float2bfloat16(acc[j][t][2 * h + e] * cs);
+            }
+        }
+      }
+    }
+    return;
+  }
+  float* part = reinterpret_cast<float*>(rg_smem + L.part_off);
+  if (wk == 0) {
+#pragma unroll
+    for (int j = 0; j < MI; ++j)
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[at(j, t, e)] = acc[j][t][e];
+  }
+  // the ranks' sums, in rank order; rank r finishes its slice of the tile
+  cluster_sync();
+  const int total = 8 * MT * L.bn;
+  const int shift = __ffs(L.bn) - 1;  // log2(bn)
+  const int e_end = (rank + 1) * total / C;
+  for (int e = rank * total / C + tid; e < e_end; e += RG_THREADS) {
+    const int row = e >> shift;
+    const int col = e & (L.bn - 1);
+    if (m0 + row >= M || n0 + col >= N) continue;
+    const uint32_t addr = saddr(part + row * L.rstride + col);
+    float v[RG_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < RG_MAX_CLUSTER; ++r)
+      if (r < C) v[r] = ld_cluster(addr, static_cast<uint32_t>(r));
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < RG_MAX_CLUSTER; ++r)
+      if (r < C) sum += v[r];
+    if (MODE == kInt8Col) sum *= scale[n0 + col];
+    out[static_cast<size_t>(m0 + row) * N + n0 + col] = __float2bfloat16(sum);
+  }
+  cluster_sync();  // no block leaves while another reads its partial
+}
+
+template <int MODE, int MT, bool PER_ROW>
+int launch_ragged_mt(const __nv_bfloat16* x, const uint8_t* codes,
+                     const float* scale, __nv_bfloat16* out, int M, int K,
+                     int N, int G, int C, int wn, cudaStream_t stream) {
+  if (!rg_wn_ok(MT, wn)) return static_cast<int>(cudaErrorInvalidValue);
+  const RgLayout L = rg_layout(MODE == kInt4, MT, wn, C);
+  const cudaError_t err = allow_smem<ragged_kernel<MODE, MT, PER_ROW>>(
+      rg_max_smem(MODE == kInt4, MT));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row_tiles = (M + 8 * MT - 1) / (8 * MT);
+  if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + L.bn - 1) / L.bn) * C, row_tiles);
+  cfg.blockDim = dim3(RG_THREADS);
+  cfg.dynamicSmemBytes = L.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;  // a cluster of one launches as a grid
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, ragged_kernel<MODE, MT, PER_ROW>, x, codes, scale, out, M, K, N,
+      G, C, wn);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE, bool PER_ROW>
+int launch_ragged_rows(const __nv_bfloat16* x, const uint8_t* codes,
+                       const float* scale, __nv_bfloat16* out, int M, int K,
+                       int N, int G, int C, int wn, cudaStream_t stream) {
+  switch (rg_mt(M)) {
+    case 1:
+      return launch_ragged_mt<MODE, 1, PER_ROW>(x, codes, scale, out, M, K,
+                                                N, G, C, wn, stream);
+    case 2:
+      return launch_ragged_mt<MODE, 2, PER_ROW>(x, codes, scale, out, M, K,
+                                                N, G, C, wn, stream);
+    case 4:
+      return launch_ragged_mt<MODE, 4, PER_ROW>(x, codes, scale, out, M, K,
+                                                N, G, C, wn, stream);
+    case 8:
+      return launch_ragged_mt<MODE, 8, PER_ROW>(x, codes, scale, out, M, K,
+                                                N, G, C, wn, stream);
+    default:
+      return launch_ragged_mt<MODE, 16, PER_ROW>(x, codes, scale, out, M, K,
+                                                 N, G, C, wn, stream);
+  }
+}
+
+// C: cluster size (1 to 8, at most the K axis's k16 steps); wn: warps
+// along N (rg_wn_ok)
+template <int MODE>
+int launch_ragged(const void* x, const void* codes, const float* scale,
+                  __nv_bfloat16* out, int M, int K, int N, int G, int C,
+                  int wn, cudaStream_t stream) {
+  if (C < 1 || C > RG_MAX_CLUSTER || C > (K + 15) / 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const uint8_t* cp = static_cast<const uint8_t*>(codes);
+  const int gl = K / G;
+  if constexpr (MODE != kInt8Col) {
+    // groups that a pair of K rows may straddle, or shorter than a stage's
+    // staged rows allow: scales read per K row
+    if (G > 1 && (gl % 2 != 0 || gl < RG_MIN_GROUP))
+      return launch_ragged_rows<MODE, true>(xp, cp, scale, out, M, K, N, G,
+                                            C, wn, stream);
+  }
+  return launch_ragged_rows<MODE, false>(xp, cp, scale, out, M, K, N, G, C,
+                                         wn, stream);
+}
+
 template <typename XT, int MODE>
 int launch(const void* x, const void* codes, const void* scale, void* out,
-           void* work, int M, int K, int N, int G, int splits,
+           void* work, int M, int K, int N, int G, int splits, int wn,
            cudaStream_t stream) {
-  constexpr bool BF16 = std::is_same<XT, __nv_bfloat16>::value;
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* cp = static_cast<const uint8_t*>(codes);
   const float* sp = static_cast<const float*>(scale);
   XT* op = static_cast<XT*>(out);
   float* wp = static_cast<float*>(work);
-  if (M <= GV_MAXM) {
-    if constexpr (BF16) {
-      if (gemv_tc_route(M, K, N))
-        return launch_gemv_tc<MODE>(x, codes, sp, op, M, K, N, G, splits,
-                                    stream);
-      const dim3 grid((N + TC_BN - 1) / TC_BN, 1, splits);
-      tc_decode_kernel<MODE><<<grid, TC_THREADS, 0, stream>>>(
-          xp, cp, sp, wp, M, K, N, G, splits);
-    } else {
+  if constexpr (std::is_same<XT, __nv_bfloat16>::value) {
+    if (gemv_tc_route(M, K, N))
+      return launch_gemv_tc<MODE>(x, codes, sp, op, M, K, N, G, splits,
+                                  stream);
+    if (wgmma_route(M, K, N))
+      return launch_wgmma<MODE>(x, codes, sp, op, M, K, N, G, stream);
+    return launch_ragged<MODE>(x, codes, sp, op, M, K, N, G, splits, wn,
+                               stream);
+  } else {
+    cudaError_t err;
+    if (M <= GV_MAXM) {
       constexpr int bytes = GV_MAXM * GV_KC * 4;
-      const cudaError_t err = cudaFuncSetAttribute(
-          gemv_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          bytes);
+      err = cudaFuncSetAttribute(gemv_kernel<MODE>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
       if (err != cudaSuccess) return static_cast<int>(err);
       const dim3 grid((N + GV_TILE - 1) / GV_TILE, splits);
       gemv_kernel<MODE><<<grid, GV_THREADS, bytes, stream>>>(
           xp, cp, sp, wp, M, K, N, G, splits);
+    } else {
+      constexpr int bytes = FtLayout<MODE>::BYTES;
+      err = allow_smem<fp32_tc_kernel<MODE>>(bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const dim3 grid((N + FT_BN - 1) / FT_BN, (M + FT_BM - 1) / FT_BM,
+                      splits);
+      fp32_tc_kernel<MODE><<<grid, FT_THREADS, bytes, stream>>>(
+          xp, cp, sp, op, wp, M, K, N, G, splits);
     }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t total = static_cast<size_t>(M) * N;
-    finalize_kernel<XT, MODE>
-        <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-            wp, sp, op, M, N, splits);
-  } else if constexpr (BF16) {
-    if (wgmma_route(M, K, N))
-      return launch_wgmma<MODE>(x, codes, sp, op, M, K, N, G, stream);
-    const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 127) / 128);
-    tc_prefill_kernel<MODE><<<grid, TC_THREADS, 0, stream>>>(xp, cp, sp, op,
-                                                             M, K, N, G);
-  } else {
-    constexpr int bytes = FtLayout<MODE>::BYTES;
-    cudaError_t err = allow_smem<fp32_tc_kernel<MODE>>(bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + FT_BN - 1) / FT_BN, (M + FT_BM - 1) / FT_BM, splits);
-    fp32_tc_kernel<MODE><<<grid, FT_THREADS, bytes, stream>>>(
-        xp, cp, sp, op, wp, M, K, N, G, splits);
     err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+    if (err != cudaSuccess || (M > GV_MAXM && splits == 1))
+      return static_cast<int>(err);
     const size_t total = static_cast<size_t>(M) * N;
     finalize_kernel<XT, MODE>
         <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
             wp, sp, op, M, N, splits);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename XT>
 int launch_mode(int mode, const void* x, const void* codes, const void* scale,
                 void* out, void* work, int M, int K, int N, int G, int splits,
-                cudaStream_t s) {
+                int wn, cudaStream_t s) {
   switch (mode) {
     case kInt8:
       return launch<XT, kInt8>(x, codes, scale, out, work, M, K, N, G, splits,
-                               s);
+                               wn, s);
     case kInt4:
       return launch<XT, kInt4>(x, codes, scale, out, work, M, K, N, G, splits,
-                               s);
+                               wn, s);
     case kInt8Col:
       return launch<XT, kInt8Col>(x, codes, scale, out, work, M, K, N, 1,
-                                  splits, s);
+                                  splits, wn, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1637,15 +1924,16 @@ int launch_mode(int mode, const void* x, const void* codes, const void* scale,
 // C entry for ctypes. x [M, K] (x_bf16: bf16, else fp32), codes int8
 // [K, N] (modes 0 and 2) or uint8 [K/2, N] (mode 1), scale fp32 [G, N]
 // (modes 0, 1) or [N] (mode 2), out [M, N] in x's type, work fp32
-// [splits, M, N] (used when M <= 8 off the gemv_tc route, whose `splits`
-// is its cluster size, and by fp32 x with M > 8 and splits > 1). G divides
-// K (into even groups for int4); x and the codes are 16-byte aligned. The
-// caller validates shapes.
+// [splits, M, N] (used by fp32 x: M <= 8, and M > 8 with splits > 1). For
+// bf16 x, `splits` is the cluster size of the gemv_tc or ragged kernel and
+// `wn` the ragged kernel's warps along N (1, 2 or 4); `work` is not read.
+// G divides K (into even groups for int4); x, the codes and the scales are
+// 16-byte aligned. The caller validates shapes.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int quant_matmul(const void* x, const void* codes,
                             const void* scale, void* out, void* work, int M,
                             int K, int N, int G, int mode, int x_bf16,
-                            int splits, void* stream) {
+                            int splits, int wn, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || K % G != 0 || splits <= 0 ||
       splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1653,9 +1941,9 @@ extern "C" int quant_matmul(const void* x, const void* codes,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch_mode<__nv_bfloat16>(mode, x, codes, scale, out, work,
-                                             M, K, N, G, splits, s)
+                                             M, K, N, G, splits, wn, s)
                 : launch_mode<float>(mode, x, codes, scale, out, work, M, K,
-                                     N, G, splits, s);
+                                     N, G, splits, wn, s);
 }
 
 // 1 when quant_matmul takes the wgmma + TMA kernel for these arguments (M
@@ -1671,4 +1959,12 @@ extern "C" int quant_matmul_wgmma_route(int M, int K, int N, int x_bf16) {
 // 128 rows), and `work` is not read.
 extern "C" int quant_matmul_gemv_tc_route(int M, int K, int N, int x_bf16) {
   return x_bf16 && gemv_tc_route(M, K, N) ? 1 : 0;
+}
+
+// 1 when quant_matmul takes ragged_kernel for these arguments (bf16 x whose
+// rows TMA cannot address: K % 8 or N % 16 not 0, any M): `splits` is then
+// its cluster size (1 to 8, at most the K axis's k16 steps) and `wn` its
+// warps along N.
+extern "C" int quant_matmul_ragged_route(int M, int K, int N, int x_bf16) {
+  return x_bf16 && !gemv_tc_route(M, K, N) && !wgmma_route(M, K, N) ? 1 : 0;
 }

@@ -101,7 +101,7 @@ class DeepSpeedInferenceConfig:
             raise NotImplementedError(
                 "the legacy grouped quantize / dtype=int8 / "
                 "dequant_per_step arrive with the legacy-quantization slice "
-                "of the port (ROADMAP.md Queue 1, item 2); use "
+                "of the port (ROADMAP.md Queue 1, item 2c); use "
                 "quantize_weights")
         if self.quantized_collectives:
             raise NotImplementedError(

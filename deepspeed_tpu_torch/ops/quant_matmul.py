@@ -21,9 +21,12 @@ prefill's (thousands of rows) by operations. Which kernel a call runs is
 a function of its shape alone (:func:`kernel_route`): bf16 prefills whose
 rows TMA can address run the ``wgmma`` kernel, bf16 decodes the one-launch
 ``gemv_tc`` kernel (K split over a thread-block cluster sized from the
-card's SM count, :func:`gemv_tc_grid`), fp32 prefills the tensor cores on
-x split in two TF32 parts (:func:`fp32_grid`). The design note is at the
-top of the CUDA source.
+card's SM count, :func:`gemv_tc_grid`), bf16 rows TMA cannot address
+(``K % 8`` or ``N % 16`` not 0) the one-launch ``ragged`` kernel at any M
+(row tile from M, column tile and cluster from the shape and the SM count,
+:func:`ragged_grid`), fp32 prefills the tensor cores on x split in two
+TF32 parts (:func:`fp32_grid`) and fp32 decodes the CUDA-core GEMV. The
+design note is at the top of the CUDA source.
 """
 
 import ctypes
@@ -55,18 +58,19 @@ def kernel_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     - ``"gemv_tc"``: bf16 ``x``, ``M <= 8`` (decode), and rows TMA can
       address (16-byte strides: ``K % 8 == 0``, ``N % 16 == 0``): one
       launch, K split over a thread-block cluster (:func:`gemv_tc_grid`);
-    - ``"gemv"``: other decodes (fp32 ``x``, ragged bf16 rows), split K
-      and a finalize pass;
     - ``"wgmma"``: bf16 ``x``, ``M > 8``, and rows TMA can address;
-    - ``"mma"``: other bf16 prefills (the ``mma.sync`` tile kernel);
+    - ``"ragged"``: bf16 ``x`` whose rows TMA cannot address, any ``M``:
+      one launch of the ragged kernel (:func:`ragged_grid`);
+    - ``"gemv"``: fp32 ``x``, ``M <= 8``: the CUDA-core GEMV, split K and
+      a finalize pass;
     - ``"fp32"``: fp32 ``x``, ``M > 8``: tensor-core tiles on x split in
       two TF32 parts, K split over blocks (:func:`fp32_splits`)."""
-    tma = K % 8 == 0 and N % 16 == 0
-    if M <= GEMV_MAX_ROWS:
-        return "gemv_tc" if dtype == torch.bfloat16 and tma else "gemv"
+    decode = M <= GEMV_MAX_ROWS
     if dtype != torch.bfloat16:
-        return "fp32"
-    return "wgmma" if tma else "mma"
+        return "gemv" if decode else "fp32"
+    if K % 8 == 0 and N % 16 == 0:
+        return "gemv_tc" if decode else "wgmma"
+    return "ragged"
 
 
 def _check_mode(mode: str) -> None:
@@ -196,8 +200,8 @@ def int8_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
 def _entry():
     fn = _build.load("quant_matmul").quant_matmul
     P, I = ctypes.c_void_p, ctypes.c_int
-    # x codes scale out workspace | M K N G mode x_bf16 splits | stream
-    fn.argtypes = [P] * 5 + [I] * 7 + [P]
+    # x codes scale out workspace | M K N G mode x_bf16 splits wn | stream
+    fn.argtypes = [P] * 5 + [I] * 8 + [P]
     fn.restype = I
     return fn
 
@@ -212,7 +216,7 @@ _KERNEL_MODE = {"int8": 0, "int4": 1, "int8_col": 2}
 GEMV_TC_BLOCKS_PER_SM = {"int8": 1, "int8_col": 1, "int4": 2}
 #: W columns of a ``gemv_tc`` column tile, K rows of one of its stages
 GEMV_TC_COLS = GEMV_TC_ROWS = 128
-#: the largest portable thread-block cluster
+#: the largest portable thread-block cluster (the ragged kernel's too)
 GEMV_TC_MAX_CLUSTER = 8
 
 
@@ -229,6 +233,47 @@ def gemv_tc_grid(K: int, N: int, mode: str,
     k_tiles = -(-K // GEMV_TC_ROWS)
     fit = GEMV_TC_BLOCKS_PER_SM[mode] * sm_count // tiles
     return tiles, max(1, min(GEMV_TC_MAX_CLUSTER, k_tiles, fit))
+
+
+#: ragged blocks the cluster aims for per SM, by n8 tiles of x rows: the
+#: decode tiles fit two an SM (shared memory, registers), wider ones one
+RAGGED_BLOCKS_PER_SM = {1: 2, 2: 2, 4: 1, 8: 1, 16: 1}
+
+
+def ragged_warp_cols(mt: int) -> int:
+    """W columns of one warp of the ragged kernel: 64, or 32 with 128-row
+    tiles (its 128 accumulators then meet each weight it dequantizes 16
+    times, not 8)."""
+    return 32 if mt == 16 else 64
+
+
+def ragged_grid(M: int, K: int, N: int, sm_count: int
+                ) -> Tuple[int, int, int, int, int]:
+    """``(mt, wn, column tiles, row tiles, cluster size)`` of the ragged
+    kernel (the C entry derives ``mt`` from M the same way). A block takes
+    ``8 * mt`` rows of x (mt = 1, 2, 4, 8 or 16: the fewest n8 tiles that
+    hold M, at most 16) and ``wn`` warps of :func:`ragged_warp_cols` W
+    columns along N, its other warps along K (8 warps). Tiles of up to 32
+    rows take wn 1. Tiles of 64 and 128 rows take the widest wn (4 or 8
+    for 128 rows, 2 or 4 for 64) whose 256 columns still give every SM a
+    block, so that wide prefills read x and the codes fewer times from
+    L2, else the narrower one (a stage of 8 warps along K would not fit
+    the kernel's shared memory). The kernel derives the k16 steps a warp
+    takes in a stage (2 with 32 rows or more, else 1) from mt. The
+    cluster splits the K axis's 16-row steps: the largest size that keeps
+    ``tiles * C`` within :data:`RAGGED_BLOCKS_PER_SM` blocks an SM of
+    ``sm_count`` (one wave), at most 8 and at most one rank per step; at
+    least 1."""
+    mt = next(t for t in (1, 2, 4, 8, 16) if 8 * t >= M or t == 16)
+    row_tiles = -(-M // (8 * mt))
+    wn = 1
+    if mt >= 8:
+        wide = 256 // ragged_warp_cols(mt)
+        wn = wide if -(-N // 256) * row_tiles >= sm_count else wide // 2
+    col_tiles = -(-N // (ragged_warp_cols(mt) * wn))
+    fit = RAGGED_BLOCKS_PER_SM[mt] * sm_count // (col_tiles * row_tiles)
+    cluster = max(1, min(GEMV_TC_MAX_CLUSTER, -(-K // 16), fit))
+    return mt, wn, col_tiles, row_tiles, cluster
 
 
 #: the fp32 route's output tile (rows of x, columns of W) and K chunk
@@ -262,21 +307,14 @@ def fp32_grid(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
 _GEMV_BLOCKS_PER_SM = 4
 
 
-def _gemv_splits(M: int, K: int, N: int, G: int, int4: bool,
-                 tensor_cores: bool, sm_count: int) -> int:
-    """K-splits of the ``gemv`` route (M <= 8 off ``gemv_tc``): enough
-    blocks to give every SM four, each split at least 256 rows, so the
-    fp32 partials stay small beside the codes. The tensor-core kernel
-    (bf16 x) tiles 128 columns and splits whole 32-row tiles; the
-    CUDA-core GEMV (fp32 x) tiles 256 columns and splits whole scale
-    groups (or nibble pairs). The kernels split the same way."""
-    if M > GEMV_MAX_ROWS:
-        return 1
-    if tensor_cores:
-        tiles, units = -(-N // 128), -(-K // 32)
-    else:
-        unit = K // G if G > 1 else (2 if int4 else 1)
-        tiles, units = -(-N // 256), K // unit
+def _gemv_splits(K: int, N: int, G: int, int4: bool, sm_count: int) -> int:
+    """K-splits of the ``gemv`` route (fp32 x, M <= 8): enough blocks to
+    give every SM four, each split at least 256 rows, so the fp32
+    partials stay small beside the codes. The CUDA-core GEMV tiles 256
+    columns and splits whole scale groups (or nibble pairs), as the
+    kernel does."""
+    unit = K // G if G > 1 else (2 if int4 else 1)
+    tiles, units = -(-N // 256), K // unit
     want = max(1, min(units, -(-_GEMV_BLOCKS_PER_SM * sm_count // tiles),
                       K // 256))
     per = -(-units // want)
@@ -294,22 +332,26 @@ def _launch(name, x, codes, scale, mode, N, G, route):
     if K == 0:
         return out.zero_()
     sms = _sm_count(x.device.index)
+    wn, work = 1, out
     if route == "gemv_tc":
-        splits, work = gemv_tc_grid(K, N, mode, sms)[1], out
+        splits = gemv_tc_grid(K, N, mode, sms)[1]
+    elif route == "ragged":
+        _, wn, _, _, splits = ragged_grid(M, K, N, sms)
     elif route == "fp32":
         splits = fp32_splits(M, K, N, sms)
-        work = torch.empty((splits, M, N), dtype=torch.float32,
-                           device=x.device) if splits > 1 else out
+        if splits > 1:
+            work = torch.empty((splits, M, N), dtype=torch.float32,
+                               device=x.device)
     else:
-        splits = _gemv_splits(M, K, N, G, mode == "int4",
-                              x.dtype == torch.bfloat16, sms)
+        splits = _gemv_splits(K, N, G, mode == "int4", sms)
         work = torch.empty((splits, M, N), dtype=torch.float32,
-                           device=x.device) if route == "gemv" else out
+                           device=x.device)
     with torch.cuda.device(x.device):
         rc = _entry()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
                       out.data_ptr(), work.data_ptr(), M, K, N, G,
                       _KERNEL_MODE[mode], int(x.dtype == torch.bfloat16),
-                      splits, torch.cuda.current_stream(x.device).cuda_stream)
+                      splits, wn,
+                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
@@ -346,8 +388,9 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     the plain version). CUDA tensors launch the kernel on the current
     stream and add one to ``quant_matmul.launches`` (and to
     ``quant_matmul.wgmma_launches`` on the ``wgmma`` route,
-    ``quant_matmul.gemv_tc_launches`` on ``gemv_tc``); CPU tensors take
-    :func:`quant_matmul_plain`; anything else raises."""
+    ``quant_matmul.gemv_tc_launches`` on ``gemv_tc``,
+    ``quant_matmul.ragged_launches`` on ``ragged``); CPU tensors
+    take :func:`quant_matmul_plain`; anything else raises."""
     _check_mode(mode)
     dev = _check("quant_matmul", x, codes, scale)
     M, K = x.shape
@@ -374,6 +417,8 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         quant_matmul.wgmma_launches += 1
     elif route == "gemv_tc":
         quant_matmul.gemv_tc_launches += 1
+    elif route == "ragged":
+        quant_matmul.ragged_launches += 1
     return out
 
 
@@ -382,8 +427,9 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
     """``(x [M, K] @ codes [K, N]) * scale [N]`` in ``x.dtype`` (kernel K8;
     see the plain version). CUDA tensors launch the kernel and add one to
     ``int8_matmul.launches`` (and ``int8_matmul.gemv_tc_launches`` on the
-    ``gemv_tc`` route); CPU tensors take :func:`int8_matmul_plain`;
-    anything else raises."""
+    ``gemv_tc`` route, ``int8_matmul.ragged_launches`` on ``ragged``);
+    CPU tensors take :func:`int8_matmul_plain`; anything else
+    raises."""
     dev = _check("int8_matmul", x, codes, scale)
     if codes.dtype != torch.int8 or codes.shape[0] != x.shape[1] \
             or scale.dtype != torch.float32 \
@@ -400,11 +446,14 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
     int8_matmul.launches += 1
     if route == "gemv_tc":
         int8_matmul.gemv_tc_launches += 1
+    elif route == "ragged":
+        int8_matmul.ragged_launches += 1
     return out
 
 
-#: launches of each wrapper, and of those the ones on the wgmma prefill
-#: and on the gemv_tc decode kernel
+#: launches of each wrapper, and of those the ones on the wgmma prefill,
+#: on the gemv_tc decode kernel and on the ragged kernel
 quant_matmul.launches = quant_matmul.wgmma_launches = 0
-quant_matmul.gemv_tc_launches = 0
+quant_matmul.gemv_tc_launches = quant_matmul.ragged_launches = 0
 int8_matmul.launches = int8_matmul.gemv_tc_launches = 0
+int8_matmul.ragged_launches = 0

@@ -327,14 +327,15 @@ def test_quant_prefill_and_decode_kernels_are_deterministic(cuda):
 
 def test_wgmma_route_is_the_c_entrys(cuda):
     """``kernel_route`` (what the CPU tests check) is the rule the C entry
-    applies before it launches, for the wgmma prefill and the gemv_tc
-    decode kernel."""
+    applies before it launches, for the wgmma prefill, the gemv_tc decode
+    kernel and the ragged kernel."""
     lib = qm._build.load("quant_matmul")
     for route, c_route in (("wgmma", lib.quant_matmul_wgmma_route),
-                           ("gemv_tc", lib.quant_matmul_gemv_tc_route)):
+                           ("gemv_tc", lib.quant_matmul_gemv_tc_route),
+                           ("ragged", lib.quant_matmul_ragged_route)):
         for M in (1, 5, 8, 9, 129, 4096):
-            for K in (264, 1000, 1024, 4100, 14336):
-                for N in (768, 1000, 1024, 4104, 14336):
+            for K in (131, 264, 1000, 1024, 4100, 14336):
+                for N in (768, 1000, 1024, 4104, 14330, 14336):
                     for dtype in (torch.bfloat16, torch.float32):
                         want = qm.kernel_route(M, K, N, dtype) == route
                         got = c_route(M, K, N, int(dtype == torch.bfloat16))
@@ -416,6 +417,94 @@ def test_quant_decode_is_one_launch_and_graph_safe(cuda):
                 _assert_matmul_close(got, ref, x, wd)
 
 
+def test_ragged_decode_is_one_launch_and_graph_safe(cuda):
+    """A bf16 decode whose rows TMA cannot address (K5 int8, int4 in
+    groups of 8 and 100, K8) runs as exactly one kernel
+    (``ragged_kernel``: no finalize pass, no scratch), and a CUDA graph
+    captured around one call, replayed over new x values written into the
+    captured input, matches the plain version each time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+    for M, (K, N), group in ((8, (264, 1000), 8), (1, (4100, 14330), 100)):
+        assert qm.kernel_route(M, K, N, torch.bfloat16) == "ragged"
+        w = torch.randn(K, N, generator=g, device=cuda) * 0.02
+        calls = [(mode, *qm.quantize_linear_weight(w, mode, grp))
+                 for mode, grp in (("int8", 0), ("int4", group))]
+        calls.append(("int8_col", *qm.quantize_weight_per_col(w)))
+        for mode, codes, scale in calls:
+            def call(x):
+                if mode == "int8_col":
+                    return qm.int8_matmul(x, codes, scale)
+                return qm.quant_matmul(x, codes, scale, mode)
+
+            def plain(x):
+                if mode == "int8_col":
+                    return qm.int8_matmul_plain(x, codes, scale)
+                return qm.quant_matmul_plain(x, codes, scale, mode)
+
+            x = torch.randn(M, K, generator=g, device=cuda,
+                            dtype=torch.bfloat16)
+            call(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call(x)
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type.name == "CUDA"
+                       and "memcpy" not in e.name.lower()
+                       and "memset" not in e.name.lower()]
+            assert len(kernels) == 1 and "ragged_kernel" in kernels[0], \
+                (mode, M, K, N, kernels)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = call(x)
+            wd = (codes.float() * scale).to(torch.bfloat16) \
+                if mode == "int8_col" else \
+                qm.dequantize_linear_weight(codes, scale, mode,
+                                            torch.bfloat16)
+            for _ in range(3):
+                x.copy_(torch.randn(M, K, generator=g, device=cuda,
+                                    dtype=torch.bfloat16))
+                graph.replay()
+                ref = plain(x)
+                torch.cuda.synchronize()
+                _assert_matmul_close(got, ref, x, wd)
+
+
+@pytest.mark.parametrize("case",
+                         ["ranks", "warps", "warps_two_steps", "stages"])
+def test_ragged_sums_in_a_fixed_order(cuda, case):
+    """Products 2**24, 1 and -2**24 in column 0 (the CPU test's
+    ``ragged_order_case``) at the first K rows of cluster ranks 0, 1, 2
+    (K 264, N 1000: the ranks of this card's cluster), of warps 0, 1, 2 of
+    one stage (8-row tiles: steps 0, 1, 2; 64-row tiles, M 37: steps 0, 2,
+    4), or of warp 0's stages 0, 1, 2 (N 16900: 265 or 133 column tiles,
+    a cluster of 1): summed in the kernel's order the 1 is lost, so the
+    result is exactly 0; any other order, or a partial summed twice or
+    not at all, gives 1, -1 or more."""
+    M = 37 if case == "warps_two_steps" else 1
+    if case == "ranks":
+        K, N = 264, 1000
+        _, _, _, _, c = qm.ragged_grid(M, K, N, qm._sm_count(0))
+        assert c >= 3
+        rows = tuple(16 * (r * 17 // c) for r in range(3))
+    else:
+        K, N = (384 if case == "stages" else 264), 16900
+        assert qm.ragged_grid(M, K, N, qm._sm_count(0))[4] == 1
+        rows = {"warps": (0, 16, 32), "warps_two_steps": (0, 32, 64),
+                "stages": (0, 128, 256)}[case]
+    codes = torch.zeros(K, N, dtype=torch.int8, device=cuda)
+    scale = torch.full((1, N), 2.0, device=cuda)
+    x = torch.zeros(M, K, device=cuda)
+    for r, c, v in zip(rows, (64, 1, -64), (2.0 ** 17, 0.5, 2.0 ** 17)):
+        codes[r, 0], x[0, r] = c, v
+    got = qm.quant_matmul(x.bfloat16(), codes, scale, "int8")
+    torch.cuda.synchronize()
+    assert got[0, 0].item() == 0.0 and not got[0, 1:].any()
+    assert not got[1:].any()
+
+
 def _assert_matmul_close(got, ref, x, w):
     mag = x.float().abs() @ w.float().abs()
     rel = 0.0 if x.dtype == torch.float32 else 2 ** -7
@@ -432,17 +521,22 @@ def _assert_matmul_close(got, ref, x, w):
                                    (5, 264, 1000), (37, 264, 1000),
                                    (300, 1024, 520), (129, 264, 1024),
                                    (4097, 4096, 14336), (8, 4096, 1024),
-                                   (8, 4096, 14336), (1, 14336, 4096)])
+                                   (8, 4096, 14336), (1, 14336, 4096),
+                                   (8, 4100, 14330), (512, 4100, 14330),
+                                   (16, 264, 1000), (24, 264, 1000)])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
                                            N):
     """K5's decode paths (M <= 8: gemv_tc where TMA can address the rows,
-    at Llama-3-8B's k/v, up and down shapes too; the split GEMV at ragged
-    N and for fp32) and tiled paths (M > 8,
-    ragged M/N/K tails) against the plain version. bf16 prefills take the
-    mma.sync kernel at N 1000 and 520 and the wgmma kernel at (129, 264,
-    1024), where groups of 44 or 8 rows cross the 64-row TMA tile and K
-    ends 8 rows into a tile, and at Llama-3-8B's MLP shape with one row
-    past a 128-row tile."""
+    at Llama-3-8B's k/v, up and down shapes too; the ragged kernel at
+    ragged N and K; the split GEMV for fp32) and tiled paths (M > 8,
+    ragged M/N/K tails) against the plain version. bf16 rows TMA cannot
+    address take the ragged kernel at N 1000 (M 16 and 24: its 16- and
+    32-row tiles, the latter two k16 steps a warp), 520 and 14330 (code
+    rows on 2-byte boundaries, K 4100: x rows on 8-byte ones; groups of
+    50 and 4 rows there), the wgmma kernel at (129, 264, 1024), where groups
+    of 44 or 8 rows cross the 64-row TMA tile and K ends 8 rows into a
+    tile, and at Llama-3-8B's MLP shape with one row past a 128-row
+    tile."""
     g = torch.Generator(device=cuda).manual_seed(M * K + N)
     x = torch.randn(M, K, generator=g, device=cuda, dtype=dtype)
     codes, scale = qm.quantize_linear_weight(
@@ -462,7 +556,9 @@ def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (3, 264, 1000),
                                    (130, 640, 384), (4096, 4096, 4096),
-                                   (8, 4096, 14336), (1, 14336, 4096)])
+                                   (8, 4096, 14336), (1, 14336, 4096),
+                                   (8, 4100, 14330), (16, 264, 1000),
+                                   (24, 264, 1000)])
 def test_int8_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     """K8 (the per-column epilogue) against its plain version."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)

@@ -334,3 +334,18 @@ def test_config_validation():
                               device="cpu", **bad)
     with pytest.raises(ValueError, match="quantize_weights"):
         LlamaConfig.tiny(quantize_weights="fp8")
+
+
+@pytest.mark.parametrize("legacy", [{"quantize": True}, {"dtype": "int8"},
+                                    {"dequant_per_step": True}],
+                         ids=["quantize", "dtype_int8", "dequant_per_step"])
+def test_legacy_quantization_names_its_roadmap_item(legacy):
+    """The legacy grouped quantization arrives with ROADMAP.md Queue 1
+    item 2c (as ``quantize_groups`` already says), and the message points
+    at ``quantize_weights``."""
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md Queue 1, item 2c\); use "
+                             r"quantize_weights"):
+        dt.init_inference(model, params=model.init_params(), device="cpu",
+                          **legacy)

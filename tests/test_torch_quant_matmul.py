@@ -170,7 +170,7 @@ LLAMA3_8B_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 14336),
 def test_prefill_route_is_chosen_by_shape():
     """The kernel a call runs is a function of its shape alone: every
     Llama-3-8B projection's bf16 prefill takes the wgmma kernel, rows that
-    TMA cannot address (N % 16 or K % 8 not 0) take the mma.sync kernel,
+    TMA cannot address (N % 16 or K % 8 not 0) take the ragged kernel,
     M <= 8 the tensor-core GEMV and fp32 x the fp32 route (tensor cores
     on x split in two TF32 parts)."""
     for K, N in LLAMA3_8B_PROJECTIONS:
@@ -179,9 +179,9 @@ def test_prefill_route_is_chosen_by_shape():
             assert qm.kernel_route(M, K, N, torch.float32) == "fp32"
         for M in (1, 8):
             assert qm.kernel_route(M, K, N, torch.bfloat16) == "gemv_tc"
-    assert qm.kernel_route(4096, 4096, 1000, torch.bfloat16) == "mma"
-    assert qm.kernel_route(37, 264, 1000, torch.bfloat16) == "mma"
-    assert qm.kernel_route(300, 260, 1024, torch.bfloat16) == "mma"
+    assert qm.kernel_route(4096, 4096, 1000, torch.bfloat16) == "ragged"
+    assert qm.kernel_route(37, 264, 1000, torch.bfloat16) == "ragged"
+    assert qm.kernel_route(300, 260, 1024, torch.bfloat16) == "ragged"
     assert qm.kernel_route(129, 264, 1024, torch.bfloat16) == "wgmma"
 
 
@@ -455,11 +455,333 @@ def test_gemv_tc_route_and_split_for_every_llama3_8b_projection():
                 assert (tiles, c) == want, (K, N, mode, sms)
                 assert 1 <= c <= 8 and c <= -(-K // 128)
                 assert tiles * c <= qm.GEMV_TC_BLOCKS_PER_SM[mode] * sms
-    # ragged rows that TMA cannot address keep the split GEMV
-    assert qm.kernel_route(8, 264, 1000, torch.bfloat16) == "gemv"
+    # ragged rows that TMA cannot address take the ragged kernel
+    assert qm.kernel_route(8, 264, 1000, torch.bfloat16) == "ragged"
     assert qm.kernel_route(8, 264, 1024, torch.bfloat16) == "gemv_tc"
-    assert qm.kernel_route(8, 260, 1024, torch.bfloat16) == "gemv"
+    assert qm.kernel_route(8, 260, 1024, torch.bfloat16) == "ragged"
     assert qm.gemv_tc_grid(256, 128, "int8", 132) == (1, 2)
+
+
+# ---------------------------------------------------------------------------
+# the ragged kernel (bf16 x whose rows TMA cannot address, any M), emulated
+# ---------------------------------------------------------------------------
+
+def _stage_windows(buf, starts, ends, width, unit):
+    """The kernel's cp.async staging of rows: row i is copied as the
+    ``width`` units from ``starts[i]`` rounded down to a 16-byte boundary
+    (``unit`` units), in whole 16-byte copies that read only below
+    ``ends[i]`` (zeros from there on). ``buf`` is a flat array of units."""
+    a0 = starts - starts % unit
+    idx = a0[:, None] + np.arange(width)[None, :]
+    ok = idx < ends[:, None]
+    out = np.zeros((len(starts), width), buf.dtype)
+    out[ok] = buf[idx[ok]]
+    return out
+
+
+def _funnel_bytes(row, off, n):
+    """The ``n`` code bytes (4 or 8) a lane reads at byte ``off`` of a
+    staged row, as the kernel reads an unaligned window: the n / 4 + 1
+    32-bit words from ``off`` rounded down to 4, one funnel shift by
+    8 (off % 4) bits a word."""
+    words = row.view(np.uint32).astype(np.uint64)
+    w = words[off // 4:off // 4 + n // 4 + 1]
+    bits = np.uint64(8 * (off % 4))
+    out = [(((w[i + 1] << np.uint64(32)) | w[i]) >> bits)
+           & np.uint64(0xFFFFFFFF) for i in range(n // 4)]
+    return np.array(out, np.uint32).view(np.uint8)
+
+
+def _emulate_ragged(x, codes, scale, mode, grid=None, sm_count=132,
+                    bf16=True, reverse=()):
+    """``ragged_kernel`` in torch, for any ``x [M, K]``. Returns the
+    product ``[M, N]`` and the weight ``[K, N]`` as the lanes assemble it.
+
+    ``grid`` (default ``ragged_grid`` at ``sm_count``) gives the row tile
+    of ``8 mt`` rows, ``wn`` warps of ``ragged_warp_cols(mt)`` W columns
+    along N (lane group g reading a ``2 * mi`` column chunk, mi = the
+    warp's m16 tiles) and ``8 / wn`` along K, and the cluster size C: rank
+    r takes the K axis's k16 steps
+    ``r * n16 // C`` to ``(r + 1) * n16 // C`` in stages of ``8 / wn * ks``
+    steps (ks = 2 for rows tiles of 32 and 64, else 1, as the kernel's
+    ``rg_steps``), warp (wn, wk) steps ``wk * ks`` .. ``wk * ks + ks - 1``
+    of each. A stage's code rows, x rows and scale rows (those of the
+    rank's steps) are staged as the cp.async ring copies them (16-byte
+    aligned windows read only up to each row's end: ``_stage_windows``)
+    and read back at the row's offset in its window, ``(row * N) % 16``
+    bytes for codes (three words and two funnel shifts), ``(m * K) % 8``
+    elements for x, ``(group * N) % 4`` floats for staged scales. Each
+    weight is code x scale in fp32, rounded to bf16 (``bf16=False``: kept
+    in fp32); per-column scales and even groups of 8 rows or more come
+    from the stage's staged rows (the pair's group), other groups per K
+    row from the scale array. A warp's k16 products accumulate in fp32 in
+    step order; the block adds its warps along K that had a step in order,
+    the cluster its ranks in order 0..C-1 (``reverse`` may hold "warps"
+    or "ranks" to add them backwards); K8's column scale and the rounding
+    to x's type come last."""
+    M, K = x.shape
+    N = codes.shape[1]
+    int4, col = mode == "int4", mode == "int8_col"
+    mt, wn_count, col_tiles, row_tiles, C = grid or qm.ragged_grid(
+        M, K, N, sm_count)
+    wk_count = 8 // wn_count
+    ks = 2 if mt >= 4 else 1
+    per = wk_count * ks
+    wc = qm.ragged_warp_cols(mt)
+    lc = wc // 8                       # W columns of a lane
+    bn, bk = wc * wn_count, 16 * per
+    KR = codes.shape[0]
+    G = 1 if col else scale.shape[0]
+    gl = K // G
+    staged = not col and (G == 1 or (gl % 2 == 0 and gl >= 8))
+    cb = codes.contiguous().view(torch.uint8).numpy().reshape(-1)
+    sv = scale.contiguous().float().numpy().reshape(-1)
+    xv = x.double().numpy().reshape(-1)
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    n16 = -(-K // 16)
+    y = torch.zeros(row_tiles * 8 * mt, col_tiles * bn)
+    weight = torch.full((n16 * 16, col_tiles * bn), float("nan"))
+    kk = np.arange(16)
+    for rt in range(row_tiles):
+        m0 = rt * 8 * mt
+        xr = m0 + np.arange(8 * mt)
+        for ct in range(col_tiles):
+            n0 = ct * bn
+            ranks = []
+            for r in range(C):
+                st0, st1 = r * n16 // C, (r + 1) * n16 // C
+                nwk = min(wk_count, -(-(st1 - st0) // ks))
+                acc = torch.zeros(wk_count, 8 * mt, bn)
+                for i in range(-(-(st1 - st0) // per)):
+                    f = st0 + i * per
+                    k0 = 16 * f
+                    steps = min(per, st1 - f)
+                    kr = (8 * f if int4 else k0) + np.arange(
+                        8 * steps if int4 else 16 * steps)
+                    cs = _stage_windows(cb, kr * N + n0,
+                                        np.where(kr < KR, (kr + 1) * N, 0),
+                                        bn + 16, 16)
+                    xs = _stage_windows(xv, xr * K + k0,
+                                        np.where(xr < M, (xr + 1) * K, 0),
+                                        16 * steps + 8, 8)
+                    if staged:
+                        g0 = k0 // gl
+                        last = (min(16 * (f + steps), K) - 1) // gl
+                        assert last - g0 < bk // 8 + 2
+                        gr = np.arange(g0, last + 1)
+                        ss = _stage_windows(sv, gr * N + n0, (gr + 1) * N,
+                                            bn + 4, 4)
+                    for w, s_ in ((w, s_) for w in range(8)
+                                  for s_ in range(ks)):
+                        wn, wk = w % wn_count, w // wn_count
+                        sl = wk * ks + s_          # the step's place
+                        step = f + sl
+                        if step >= st1:
+                            continue
+                        k = 16 * step + kk                   # K rows
+                        # codes [16 K rows, wc columns], as the lanes read
+                        code = np.zeros((16, wc), np.int64)
+                        for j in range(16):
+                            if int4:
+                                rel = 8 * sl + j // 2
+                            else:
+                                rel = 16 * sl + j
+                            krow = kr[rel]
+                            sh = ((krow & 15) * (N & 15)) & 15
+                            for lg in range(8):
+                                b = _funnel_bytes(
+                                    cs[rel], sh + wc * wn + lc * lg,
+                                    lc).astype(np.int64)
+                                if int4:
+                                    b = (b >> (4 * (j % 2))) & 15
+                                    b = (b ^ 8) - 8
+                                else:
+                                    b = (b ^ 128) - 128
+                                code[j, lc * lg:lc * lg + lc] = b
+                        code = torch.from_numpy(code).float()
+                        cols = n0 + wc * wn + np.arange(wc)
+                        if col:
+                            sc = torch.ones(16, wc)
+                        elif staged:
+                            pair = np.minimum(k - k % 2, K - 1) // gl
+                            rows = pair - g0
+                            assert (rows < len(gr)).all()
+                            off = ((pair & 3) * (N & 3)) & 3
+                            sc = torch.from_numpy(ss[
+                                rows[:, None],
+                                off[:, None] + wc * wn + np.arange(wc)])
+                        else:
+                            grp = np.minimum(k, K - 1) // gl
+                            sc = torch.from_numpy(sv[
+                                grp[:, None] * N
+                                + np.minimum(cols, N - 1)[None, :]])
+                        wv = (code * sc.float()).to(wdt)     # [16, wc]
+                        if rt == 0:
+                            weight[k[0]:k[0] + 16, cols] = wv.float()
+                        # x [8 mt rows, 16], at each row's window offset
+                        sx = ((xr & 7) * (K & 7)) & 7
+                        xt = torch.from_numpy(xs[
+                            np.arange(8 * mt)[:, None],
+                            (sx + 16 * sl)[:, None] + kk[None, :]])
+                        if bf16:
+                            xt = xt.float().bfloat16().double()
+                        acc[wk, :, wc * wn:wc * wn + wc] += (
+                            xt @ wv.double()).float()
+                order = range(nwk)
+                if "warps" in reverse:
+                    order = reversed(order)
+                block = None
+                for wk in order:
+                    block = acc[wk] if block is None else block + acc[wk]
+                ranks.append(block)
+            if "ranks" in reverse:
+                ranks.reverse()
+            total = ranks[0]
+            for part in ranks[1:]:
+                total = total + part
+            y[m0:m0 + 8 * mt, n0:n0 + bn] = total
+    y = y[:M, :N]
+    if col:
+        y = y * scale[None, :]
+    return y.to(x.dtype), weight[:K, :N]
+
+
+#: (mode, group, M, K, N): M from 1 to 130 (row tiles of 8, 64 and 3 x 64);
+#: K 264 (17 k16 steps, 8 rows into the last) and odd K 131 (x rows on
+#: 2-byte boundaries); N 1000 and N = 330 and 1002 (= 2 mod 4: every other
+#: code row on a 2-byte boundary); int4 groups of 8, int8 groups of 44 (64
+#: resolved at K 264) and per-column scales, K8's per-column mode
+RAGGED_CASES = [("int8", 0, 1, 264, 1000), ("int4", 8, 5, 264, 1000),
+                ("int8_col", 0, 8, 264, 1002), ("int8", 0, 37, 131, 1000),
+                ("int4", 8, 37, 264, 330), ("int8", 64, 8, 264, 330),
+                ("int8_col", 0, 130, 264, 1000), ("int4", 0, 130, 264, 1002),
+                ("int8", 64, 16, 131, 330), ("int4", 8, 24, 264, 1000)]
+
+
+@pytest.mark.parametrize("mode,group,M,K,N", RAGGED_CASES)
+def test_ragged_emulation_matches_plain_and_jax(mode, group, M, K, N):
+    """The ragged kernel's arithmetic (the staging windows and each row's
+    shift, which lane holds which column and K row, the row tile, the
+    stages of each warp and the K steps of each cluster rank, the warp and
+    rank sums in order) against the plain version and the JAX Pallas
+    kernel (interpret mode): in fp32 within 1e-5 of |x| @ |W| (the card's
+    rule; sums of up to 264 products of magnitude ~1 differ by that in
+    another order); in bf16 its lanes assemble exactly
+    ``dequantize_linear_weight``'s bf16 weight, and the product lies
+    within one bf16 ulp of the plain version plus 1e-5 of |x| @ |W|."""
+    codes, scale = _quantized(mode, group, K, N, seed=23)
+    x = np.random.RandomState(24).randn(M, K).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got, _ = _emulate_ragged(xt, codes, scale, mode, bf16=False)
+    bound = 1e-5 * (xt.abs() @ _dense(codes, scale, mode).abs())
+    assert bool(((got - _plain(xt, codes, scale, mode)).abs()
+                 <= bound).all())
+    jc, js = jnp.asarray(codes.numpy()), jnp.asarray(scale.numpy())
+    if mode == "int8_col":
+        want = jax_i8.int8_matmul(jnp.asarray(x), jc, js, block_k=128,
+                                  block_n=256, interpret=True)
+    else:
+        want = jax_qm.quant_matmul(jnp.asarray(x), jc, js, mode,
+                                   block_k=128, block_n=256, interpret=True)
+    assert bool(((got - torch.from_numpy(np.array(want))).abs()
+                 <= bound).all())
+
+    xb = torch.from_numpy(x).bfloat16()
+    got, weight = _emulate_ragged(xb, codes, scale, mode)
+    wd = codes.to(torch.bfloat16) if mode == "int8_col" else \
+        qm.dequantize_linear_weight(codes, scale, mode, torch.bfloat16)
+    assert torch.equal(weight.bfloat16(), wd)
+    plain = _plain(xb, codes, scale, mode).float()
+    if mode == "int8_col":
+        wd = (codes.float() * scale).bfloat16()
+    bound = 2 ** -7 * plain.abs() + 1e-5 * (xb.float().abs() @
+                                            wd.float().abs())
+    assert bool(((got.float() - plain).abs() <= bound).all())
+
+
+def ragged_order_case(rows, K, N=1000):
+    """Inputs whose fp32 sum depends on its order: three products 2**24,
+    1, -2**24 in column 0, at K ``rows``, int8 codes with per-column
+    scales of 2. Added in that order the 1 is lost (2**24 + 1 rounds to
+    2**24): the result is 0; in any other order it is 1 or -1."""
+    codes = torch.zeros(K, N, dtype=torch.int8)
+    scale = torch.full((1, N), 2.0)
+    x = torch.zeros(1, K)
+    for r, c, v in zip(rows, (64, 1, -64), (2.0 ** 17, 0.5, 2.0 ** 17)):
+        codes[r, 0], x[0, r] = c, v
+    return x.bfloat16(), codes, scale
+
+
+#: (K rows of the three products, K, the grid (mt, wn, column tiles, row
+#: tiles, cluster), the order that a mutation reverses): the first steps
+#: of cluster ranks 0, 1, 2 (K 264, a cluster of 8: 17 steps cut 2, 2, 2,
+#: ..., 3); warps 0, 1, 2 of one stage; the same with 64-row tiles, whose
+#: warps take two steps each (steps 0, 2, 4); stages 0, 1, 2 of warp 0
+RAGGED_ORDERS = {
+    "ranks": ((0, 32, 64), 264, (1, 1, 16, 1, 8), "ranks"),
+    "warps": ((0, 16, 32), 264, (1, 1, 16, 1, 1), "warps"),
+    "warps_two_steps": ((0, 32, 64), 264, (8, 2, 8, 1, 1), "warps"),
+    "stages": ((0, 128, 256), 384, (1, 1, 16, 1, 1), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED_ORDERS))
+def test_ragged_sums_ranks_warps_and_stages_in_order(case):
+    """The ragged kernel's sums run in a fixed order (ranks 0..C-1, warps
+    along K in order, each warp's stages in K order): on inputs whose fp32
+    sum depends on the order, the emulation gives exactly the in-order
+    result, 0, and the same inputs summed with the ranks or the warps
+    reversed give 1 (the card test ``test_ragged_sums_in_a_fixed_order``
+    holds the kernel to the same inputs)."""
+    rows, K, grid, mutation = RAGGED_ORDERS[case]
+    x, codes, scale = ragged_order_case(rows, K)
+    got, _ = _emulate_ragged(x, codes, scale, "int8", grid=grid)
+    assert got[0, 0].item() == 0.0
+    assert not got[0, 1:].any()
+    if mutation is not None:
+        bad, _ = _emulate_ragged(x, codes, scale, "int8", grid=grid,
+                                 reverse=(mutation,))
+        assert bad[0, 0].item() != 0.0
+
+
+def test_ragged_routes_and_grids_come_from_the_shapes():
+    """bf16 rows that TMA cannot address take the ragged kernel at any M
+    (fp32 x keeps ``gemv`` at M <= 8 and ``fp32`` above); its grid is
+    a function of the shape and the SM count: the row tile holds M in the
+    fewest n8 tiles (at most 16), 64- and 128-row tiles are 256 W columns
+    wide where such tiles still cover the SMs, else 128, and the cluster
+    is the largest that keeps tiles x cluster within a wave (two blocks an
+    SM up to 16 rows, one above), at most 8 and one rank per k16 step."""
+    for M, K, N in ((8, 264, 1000), (1, 4100, 14330), (5, 263, 1024)):
+        assert qm.kernel_route(M, K, N, torch.bfloat16) == "ragged"
+        assert qm.kernel_route(M, K, N, torch.float32) == "gemv"
+    for M, K, N in ((37, 264, 1000), (512, 4100, 14330), (9, 4096, 1000)):
+        assert qm.kernel_route(M, K, N, torch.bfloat16) == "ragged"
+        assert qm.kernel_route(M, K, N, torch.float32) == "fp32"
+    assert qm.kernel_route(8, 264, 1000, torch.float32) == "gemv"
+    grids = {
+        # (M, K, N, SMs): (mt, wn, column tiles, row tiles, cluster)
+        (8, 264, 1000, 132): (1, 1, 16, 1, 8),     # 128 blocks, not 8
+        (37, 264, 1000, 132): (8, 2, 8, 1, 8),     # 64 rows, not 128
+        (8, 4100, 14330, 132): (1, 1, 224, 1, 1),
+        (512, 4100, 14330, 132): (16, 8, 56, 4, 1),
+        (16, 264, 1000, 114): (2, 1, 16, 1, 8),
+        (32, 264, 1000, 114): (4, 1, 16, 1, 7),
+        (64, 4096, 1000, 132): (8, 2, 8, 1, 8),
+        (300, 1024, 520, 132): (16, 4, 5, 3, 8),
+        (4096, 4096, 1000, 132): (16, 4, 8, 32, 1),
+        (8192, 4096, 1000, 132): (16, 8, 4, 64, 1),
+        (1088, 4096, 1000, 132): (16, 4, 8, 9, 1),
+        (1, 20, 1000, 132): (1, 1, 16, 1, 2),      # one rank per step
+    }
+    for (M, K, N, sms), want in grids.items():
+        got = qm.ragged_grid(M, K, N, sms)
+        assert got == want, (M, K, N, sms, got)
+        mt, wn, ct, rt, c = got
+        assert 8 * mt >= min(M, 128) and rt * 8 * mt >= M
+        assert ct * qm.ragged_warp_cols(mt) * wn >= N
+        assert 1 <= c <= min(8, -(-K // 16))
+        assert c == 1 or ct * rt * c <= qm.RAGGED_BLOCKS_PER_SM[mt] * sms
 
 
 # ---------------------------------------------------------------------------

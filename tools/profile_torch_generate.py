@@ -32,8 +32,8 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 # first match wins: K5's kernels before cuBLAS's gemm / gemv names
 CLASSES = (("quant_matmul", re.compile(
-               r"anonymous namespace\)::(wgmma_prefill|tc_prefill|tc_decode|"
-               r"gemv_tc|gemv|gemm|finalize)_kernel")),
+               r"anonymous namespace\)::(wgmma_prefill|ragged|gemv_tc|gemv|"
+               r"fp32_tc|finalize)_kernel")),
            ("decode_attention", re.compile(
                r"anonymous namespace\)::decode_(tc_split|split|merge)"
                r"_kernel")),

@@ -2,7 +2,7 @@
 CUDA card, for one checkout of the port.
 
     python3 tools/time_quant_decode.py [--root DIR] [--reps N] [--generate]
-        [--match REGEX]
+        [--match REGEX] [--kernels]
 
 Imports ``deepspeed_tpu_torch`` from ``--root`` (default: this checkout)
 and builds its kernels there. Times with ``chip_smoke.cuda_time_ms`` (CUDA
@@ -15,7 +15,10 @@ pre-dequantized weight and its bound (``chip_smoke._matmul_bound``: for
 the fp32 route, two TF32 passes at the tensor-core peak). ``--match``
 times only the cases whose name (``decode_...``, ``quant_...``,
 ``int8_col_...``) the regular expression finds: ``--match fp32`` takes
-K5's and K8's fp32 cases. The inputs come from the seeds
+K5's and K8's fp32 cases, ``--match ragged`` the cases whose rows TMA
+cannot address. With ``--kernels`` each matmul case also gets the device
+µs a call of every kernel it launches, from ``torch.profiler`` over
+``--reps`` calls (L2 warm). The inputs come from the seeds
 ``chip_smoke.py`` uses, so every tree sees the same ones. With
 ``--generate`` it also runs ``chip_smoke.py``'s int8-weight Llama-3-8B
 ``generate`` (batch 8, prompts bucketed to 512, 64 new tokens) and prints
@@ -34,6 +37,8 @@ import re
 import sys
 
 import torch
+
+from time_paged_attention import kernel_us
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -88,7 +93,7 @@ def _bound_ms(cs, qm, x, codes, scale, N):
     return cs._matmul_bound(qm, M, K, N, x.dtype, nbytes)[0]
 
 
-def time_matmuls(cs, tree, reps, match):
+def time_matmuls(cs, tree, reps, match, kernels):
     from deepspeed_tpu_torch.ops import quant_matmul as qm
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -102,12 +107,12 @@ def time_matmuls(cs, tree, reps, match):
             torch.randn((K, N), generator=g, device="cuda") * 0.02, mode,
             group)
         wd = qm.dequantize_linear_weight(codes, scale, mode, dtype)
-        emit(tree, f"quant_{case}",
-             ms=cs.cuda_time_ms(lambda: qm.quant_matmul(x, codes, scale,
-                                                        mode), reps=reps),
+        call = lambda: qm.quant_matmul(x, codes, scale, mode)  # noqa: E731
+        emit(tree, f"quant_{case}", ms=cs.cuda_time_ms(call, reps=reps),
              library_ms=cs.cuda_time_ms(lambda: torch.matmul(x, wd),
                                         reps=reps),
-             bound_ms=_bound_ms(cs, qm, x, codes, scale, N))
+             bound_ms=_bound_ms(cs, qm, x, codes, scale, N),
+             **({"kernel_us": kernel_us(call, reps)} if kernels else {}))
         del x, codes, scale, wd
     for i, (case, (M, K, N, dtype)) in enumerate(cs.INT8_COL_CASES.items()):
         if not re.search(match, f"int8_col_{case}"):
@@ -117,12 +122,12 @@ def time_matmuls(cs, tree, reps, match):
         codes, scale = qm.quantize_weight_per_col(
             torch.randn((K, N), generator=g, device="cuda") * 0.02)
         wd = (codes.float() * scale).to(dtype)
-        emit(tree, f"int8_col_{case}",
-             ms=cs.cuda_time_ms(lambda: qm.int8_matmul(x, codes, scale),
-                                reps=reps),
+        call = lambda: qm.int8_matmul(x, codes, scale)  # noqa: E731
+        emit(tree, f"int8_col_{case}", ms=cs.cuda_time_ms(call, reps=reps),
              library_ms=cs.cuda_time_ms(lambda: torch.matmul(x, wd),
                                         reps=reps),
-             bound_ms=_bound_ms(cs, qm, x, codes, scale, N))
+             bound_ms=_bound_ms(cs, qm, x, codes, scale, N),
+             **({"kernel_us": kernel_us(call, reps)} if kernels else {}))
         del x, codes, scale, wd
 
 
@@ -150,6 +155,8 @@ def main() -> int:
                     help="also time the int8-weight 8B generate")
     ap.add_argument("--match", default="",
                     help="time only the cases this regex finds")
+    ap.add_argument("--kernels", action="store_true",
+                    help="also print each matmul kernel's device us a call")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_quant_decode: no CUDA device", file=sys.stderr)
@@ -165,7 +172,7 @@ def main() -> int:
     _build.build(["decode_attention", "quant_matmul"])
     torch.backends.cuda.matmul.allow_tf32 = False
     time_decode(cs, tree, args.reps, args.match)
-    time_matmuls(cs, tree, args.reps, args.match)
+    time_matmuls(cs, tree, args.reps, args.match, args.kernels)
     if args.generate:
         time_generate(cs, tree)
     return 0
