@@ -32,13 +32,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    window, an fp32 case and caches of 2048 and 8192 (each with its split
    count); K5 quantized matmul at Llama-3-8B projection shapes (decode
    M 8 at every projection shape and M 1 at up, prefill M 4096 at the q,
-   up and down shapes, int8 per-column and int4 group 64) plus fp32 and
-   ragged cases (rows TMA cannot address: 264 -> 1000 at M 8 and 37,
+   up and down shapes, int8 per-column and int4 group 64) plus fp32
+   cases (the fp32 decode kernel, gemv_tf32, at 8 x 4096 -> 4096 int4 g64,
+   int8 and odd N 4099, each also replayed in a CUDA graph) and ragged
+   cases (rows TMA cannot address: 264 -> 1000 at M 8 and 37,
    4100 -> 14330 at M 8 int8 and M 512 int4 in groups of 100, asserting
    one ragged-kernel launch each), each with the kernel route it took
    (the decode and ragged kernels' tiles and cluster size), its GB/s and
    share of the bound; K8 per-column int8 matmul (decode up and down, q
-   and up prefill, fp32 and a wide ragged decode); K9
+   and up prefill, fp32 prefill and decode, a wide ragged decode); K9
    block-sparse attention forward, dQ and dK/dV at the long-context
    path's main shape (B 1, T 16384, H 32, D 128, bf16, causal, block 128,
    BSLongformer and BigBird, the plain versions head by head) and at
@@ -47,18 +49,26 @@ Phases, each printed on its own line; any failure exits non-zero:
    layout; main shape only) and SDPA with the layout's bool mask as
    yardsticks, and the size of the bf16 kernels' work lists;
 4. small references: a 2-layer fp32 model served with K6 (and K5, with
-   int8 weights) and with their plain versions (identical tokens), served
+   int8 weights), with their plain versions and captured as CUDA graphs
+   at bucketed widths (identical tokens), served
    through the two-program engine with K7a/K7b (chunked, with the prefix
    cache) and with K7a and the masked K1 (monolithic prefill) and with
-   their plain versions (identical tokens), generating with K4/K5 and with their plain versions (identical
-   tokens; fp32, int8 and int4 weights, int8 cache, window 64, and the
-   masked K1 prefill), and
+   their plain versions (identical tokens), generating with K4/K5 and with
+   their plain versions (identical tokens; fp32, int8 and int4 weights,
+   int8 cache, window 64, and the masked K1 prefill; fp32 and int8 also
+   with the decode step captured), and
    trained 5 steps with K1/K2/K3 and with their plain versions (losses
    within 1e-4 relative);
 5. serve: init_inference + ServingEngine on full-width Llama-3-8B (random
    bf16 weights from a seed, all 32 layers), 16 seeded requests to
-   completion; asserts every request finished, no logit was flagged, no
-   page leaked, and the kernel ran once per layer per mixed step; then
+   completion, in turns: uncaptured, captured (enable_cuda_graph), both
+   again at bucketed widths (mixed_step_buckets), then each captured
+   engine again with its graphs warm; asserts every request finished, no
+   logit was flagged, no page leaked, every captured run repeated its
+   width's uncaptured tokens, and K6 ran once per layer per mixed step
+   (counted on the device, replays included); a width witness holds K6
+   to the same rows at a narrow packed width and at 263, bit for bit,
+   and prints the layer-0 projections' and LM head's differences; then
    the two-program engine (mixed_step=False) on the same model and
    weights: 16 seeded requests, 4 shared 512-token prefixes x 4, suffixes
    64-512, 32-64 new tokens, with the prefix cache and 64-token chunks
@@ -70,8 +80,11 @@ Phases, each printed on its own line; any failure exits non-zero:
 6. generate: init_inference + InferenceEngine.generate on full-width
    Llama-3-8B (random bf16 weights from seed 0), batch 8, left-padded
    prompts of seeded lengths 128-512 (bucket 512), 64 greedy new tokens,
-   once with bf16 weights, once with quantize_weights="int8" and once
-   with bf16 weights and prefill_flash_from_empty; asserts the output
+   once with bf16 weights, once with quantize_weights="int8" (uncaptured,
+   then with the decode step captured: identical tokens, both decode-step
+   times printed, the capturing warm-up's launches K4 2 x 32 and gemv_tc
+   2 x 7 x 32, the replayed run's none) and once with bf16 weights and
+   prefill_flash_from_empty; asserts the output
    shape, finite logits, K4 launched 32 x 63 times, with int8 weights K5
    launched 7 x 32 x 64 times (7 x 32 of them, the prefill's, on the
    wgmma kernel, and 7 x 32 x 63, the decode steps', on the gemv_tc
@@ -1373,7 +1386,13 @@ QUANT_CASES = {
     "ragged_wide_m8_int8": (8, 4100, 14330, "int8", 0, torch.bfloat16),
     "ragged_wide_m512_int4g100": (512, 4100, 14330, "int4", 100,
                                   torch.bfloat16),
+    # the fp32 decode (gemv_tf32) at per-column int8 and at an odd N (code
+    # rows through cp.async windows, not TMA)
+    "fp32_m8_int8": (8, 4096, 4096, "int8", 0, torch.float32),
+    "fp32_m8_int4g64_n4099": (8, 4096, 4099, "int4", 64, torch.float32),
 }
+# the fp32 decode's entry of the kernels line
+GEMV_TF32_MAIN = "fp32_m8_int4g64"
 # the ragged kernel's entries of the kernels line (decode: M <= 8, prefill:
 # M > 8), each held at its wide case
 RAGGED_MAIN = {"decode": "ragged_wide_m8_int8",
@@ -1387,6 +1406,7 @@ INT8_COL_CASES = {
     "prefill_up": (4096, 4096, 14336, torch.bfloat16),
     "ragged_m37_fp32": (37, 264, 1000, torch.float32),
     "ragged_wide_m8": (8, 4100, 14330, torch.bfloat16),
+    "fp32_m8": (8, 4096, 4096, torch.float32),
 }
 
 
@@ -1416,24 +1436,48 @@ def _quant_route(qm, M, K, N, mode, dtype):
         grid = qm.fp32_grid(M, K, N, qm._sm_count(0))
         route += (f" tensor cores (x as two TF32 parts), grid {grid}, "
                   f"{grid[2]} K splits")
+    elif route == "gemv_tf32":
+        tiles, cluster = qm.gemv_tf32_grid(K, N, qm._sm_count(0))
+        route += (f" tensor cores (x as two TF32 parts), {tiles} tiles x "
+                  f"cluster {cluster}, codes by "
+                  f"{'TMA' if N % 16 == 0 and K % 4 == 0 else 'cp.async'}")
     return route
 
 
 def _matmul_bound(qm, M, K, N, dtype, nbytes):
     """``(ms, by, note)``: the bound of a quantized matmul for the
     arithmetic its route runs. bf16: 2 M K N operations at the bf16 peak.
-    fp32 off the tensor cores (the decode GEMV): the same at the fp32
-    peak. The fp32 route (M > 8) runs every product twice on the tensor
-    cores (x as two TF32 parts): 4 M K N at the TF32 peak, with the
-    CUDA-core bound of 2 M K N at the fp32 peak in ``note``."""
+    fp32 (both routes, M > 8 and the decode) runs every product twice on
+    the tensor cores (x as two TF32 parts): 4 M K N at the TF32 peak, with
+    the CUDA-core bound of 2 M K N at the fp32 peak in ``note``."""
     flops = 2 * M * K * N
     if dtype == torch.bfloat16:
         return (*bound(nbytes, flops, BF16_FLOP_PER_S), "")
-    if qm.kernel_route(M, K, N, dtype) != "fp32":
-        return (*bound(nbytes, flops, FP32_FLOP_PER_S), "")
     cuda_core = bound(nbytes, flops, FP32_FLOP_PER_S)[0]
     return (*bound(nbytes, 2 * flops, TF32_FLOP_PER_S),
             f" (CUDA-core bound {cuda_core:.4f})")
+
+
+def check_graph_replay(call, plain, x, tol, name, g):
+    """A CUDA graph captured around ``call(x)``, replayed over two new x
+    values written into the captured input, must match ``plain`` within
+    ``tol(x)`` each time (the launch reads no device value and allocates
+    nothing outside the graph)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call(x)
+    for _ in range(2):
+        x.copy_(torch.randn(x.shape, generator=g, device="cuda",
+                            dtype=x.dtype))
+        graph.replay()
+        ref = plain(x)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= tol(x)).all()):
+            raise AssertionError(f"{name}: the CUDA-graph replay disagrees "
+                                 f"with the plain version (max |err| "
+                                 f"{float(err.max()):.3e})")
+    del graph
 
 
 def check_quant_matmul():
@@ -1467,6 +1511,14 @@ def check_quant_matmul():
                                  f"plain version (max |err| "
                                  f"{float(err.max()):.3e})")
         del abs_tol
+        replay = ""
+        if qm.kernel_route(M, K, N, dtype) == "gemv_tf32":
+            check_graph_replay(
+                lambda xx: qm.quant_matmul(xx, codes, scale, mode),
+                lambda xx: qm.quant_matmul_plain(xx, codes, scale, mode),
+                x.clone(), lambda xx: _matmul_tolerance(xx, wd, dtype)[0],
+                f"quant_matmul {name}", g)
+            replay = ", CUDA-graph replay ok"
         ms = cuda_time_ms(lambda: qm.quant_matmul(x, codes, scale, mode))
         plain_ms = cuda_time_ms(
             lambda: qm.quant_matmul_plain(x, codes, scale, mode), reps=5,
@@ -1482,7 +1534,7 @@ def check_quant_matmul():
             f"{K // scale.shape[0]} {str(dtype)[6:]}, route "
             f"{_quant_route(qm, M, K, N, mode, dtype)}): ok max_abs_err="
             f"{float(err.max()):.3e} (tolerance {rel:g}*|plain|+1e-5*"
-            f"(|x|@|W|)) | kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            f"(|x|@|W|)){replay} | kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
             f"bound_ms={bms:.4f} ({by}){note} library_ms="
             f"{library_ms:.4f} (torch.matmul on the pre-dequantized weight) | "
             f"{nbytes / ms / 1e6:.1f} GB/s, {bms / ms:.1%} of the bound")
@@ -1508,6 +1560,14 @@ def check_quant_matmul():
             raise AssertionError(f"int8_matmul {name} disagrees with its "
                                  f"plain version (max |err| "
                                  f"{float(err.max()):.3e})")
+        replay = ""
+        if qm.kernel_route(M, K, N, dtype) == "gemv_tf32":
+            check_graph_replay(
+                lambda xx: qm.int8_matmul(xx, codes, scale),
+                lambda xx: qm.int8_matmul_plain(xx, codes, scale),
+                x.clone(), lambda xx: _matmul_tolerance(xx, wd, dtype)[0],
+                f"int8_matmul {name}", g)
+            replay = ", CUDA-graph replay ok"
         ms = cuda_time_ms(lambda: qm.int8_matmul(x, codes, scale))
         plain_ms = cuda_time_ms(lambda: qm.int8_matmul_plain(x, codes, scale),
                                 reps=5, warmup=1)
@@ -1520,7 +1580,7 @@ def check_quant_matmul():
         log(f"parity int8_matmul {name} (M {M} K {K} N {N} "
             f"{str(dtype)[6:]}, route "
             f"{_quant_route(qm, M, K, N, 'int8_col', dtype)}): "
-            f"ok max_abs_err={float(err.max()):.3e} | "
+            f"ok max_abs_err={float(err.max()):.3e}{replay} | "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
             f"{bms:.4f} ({by}){note} library_ms={library_ms:.4f} | "
             f"{nbytes / ms / 1e6:.1f} GB/s, {bms / ms:.1%} of the bound")
@@ -1548,25 +1608,31 @@ def serving_kernels():
 
 def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
           dtype, device="cuda", quantize_weights=None, phases=None,
-          params=None):
+          params=None, engine_kw=None, srv=None):
     """init_inference + ServingEngine on ``cfg`` with seeded random
-    weights (or ``params``, a state_dict already on the device); serves
-    seeded traffic to completion and returns the engine, the request ids,
-    the outputs, the wall time and the launches of each serving kernel in
-    the run. ``phases``, a list of lists of ``(prompt, max_new_tokens)``,
-    replaces the seeded traffic: each phase is submitted together and
-    drained before the next."""
+    weights (or ``params``, a state_dict already on the device; the
+    inference config takes ``engine_kw`` too), or ``srv``, an engine
+    already built; serves seeded traffic to completion and returns the
+    engine, the request ids, the outputs, the wall time and the launches
+    of each serving kernel in the run (the wrappers' counts; K6's on the
+    device, which replays of CUDA graphs add to, from
+    ``ragged_attention.kernel_runs()`` after it). ``phases``, a list of
+    lists of ``(prompt, max_new_tokens)``, replaces the seeded traffic:
+    each phase is submitted together and drained before the next."""
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import ragged_attention as ra
 
-    model = LlamaForCausalLM(cfg)
-    if params is None:
-        params = model.init_params(seed=params_seed, dtype=dtype,
-                                   device=device)
-    engine = dt.init_inference(model, params=params, dtype=dtype,
-                               device=device,
-                               quantize_weights=quantize_weights)
-    srv = dt.ServingEngine(engine, dt.ServingConfig(**scfg))
+    if srv is None:
+        model = LlamaForCausalLM(cfg)
+        if params is None:
+            params = model.init_params(seed=params_seed, dtype=dtype,
+                                       device=device)
+        engine = dt.init_inference(model, params=params, dtype=dtype,
+                                   device=device,
+                                   quantize_weights=quantize_weights,
+                                   **(engine_kw or {}))
+        srv = dt.ServingEngine(engine, dt.ServingConfig(**scfg))
     if phases is None:
         rs = np.random.RandomState(params_seed)
         phases = [[(rs.randint(0, cfg.vocab_size, int(rs.randint(
@@ -1574,6 +1640,7 @@ def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
                 new_range[0], new_range[1] + 1))) for _ in range(n_requests)]]
     if device == "cuda":
         torch.cuda.synchronize()
+        ra.reset_kernel_runs()
     kernels = serving_kernels()
     for fn in kernels.values():
         fn.launches = 0
@@ -1586,6 +1653,13 @@ def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return srv, rids, res, wall, {n: fn.launches for n, fn in kernels.items()}
+
+
+def step_widths(srv, since=0):
+    """The packed width of each unified step the engine's tracer holds,
+    from its ``since``-th on."""
+    return [e["args"]["width"] for e in srv.tracer.events()
+            if e["name"] == "mixed_step"][since:]
 
 
 #: the small fp32 reference model: 2 layers, head_dim 128, GQA group 2
@@ -1635,40 +1709,53 @@ class plain_route:
 def check_small_reference():
     """The same seeded traffic through a 2-layer model (head_dim 128, GQA
     group 2) in fp32, with fp32 and with int8 weights, each once as
-    shipped (the kernels) and once with the model's kernel wrappers
-    swapped for their plain versions: greedy tokens must be identical
-    (the two differ by fp32 summation order)."""
+    shipped (the kernels), once with the model's kernel wrappers swapped
+    for their plain versions, and once as shipped with enable_cuda_graph
+    and mixed_step_buckets (every width captured, then replayed): greedy
+    tokens must be identical (the kernel and plain routes differ by fp32
+    summation order), and the captured run must run K6 once per layer per
+    step on the device."""
     from deepspeed_tpu_torch.models import LlamaConfig
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
 
     cfg = LlamaConfig(**SMALL_CFG)
+    scfg = dict(max_batch_size=4, block_size=16, num_blocks=64,
+                max_model_len=128, prefill_token_budget=32, trace=True)
     for weights in (None, "int8"):
         tokens, launches = {}, {}
-        for route in ("kernel", "plain"):
+        for route in ("kernel", "plain", "captured"):
             quant_matmul.launches = 0
+            ekw, skw = SERVE_GRAPH if route == "captured" else ({}, {})
             with plain_route() if route == "plain" else \
                     contextlib.nullcontext():
                 srv, rids, res, _, counts = serve(
-                    cfg, 3, 6, (5, 90), (4, 12),
-                    dict(max_batch_size=4, block_size=16, num_blocks=64,
-                         max_model_len=128, prefill_token_budget=32),
-                    torch.float32, quantize_weights=weights)
+                    cfg, 3, 6, (5, 90), (4, 12), dict(scfg, **skw),
+                    torch.float32, quantize_weights=weights, engine_kw=ekw)
+            steps = len(step_widths(srv))
             launches[route] = (counts["ragged_paged_attention"],
-                               quant_matmul.launches)
+                               quant_matmul.launches, kernel_runs(),
+                               cfg.num_hidden_layers * steps)
             tokens[route] = [(res[r].state, res[r].tokens) for r in rids]
-        ok = tokens["kernel"] == tokens["plain"] and \
+        ok = tokens["kernel"] == tokens["plain"] == tokens["captured"] and \
             all(s == "finished" for s, _ in tokens["kernel"]) and \
             launches["kernel"][0] > 0 and \
             (launches["kernel"][1] > 0) == (weights is not None) and \
-            launches["plain"] == (0, 0)
+            launches["plain"][:3] == (0, 0, 0) and \
+            launches["kernel"][2] == launches["kernel"][3] and \
+            launches["captured"][2] == launches["captured"][3] > 0
         log(f"reference: 2-layer fp32 model served, weights "
-            f"{weights or 'fp32'}, kernels vs plain versions, "
-            f"{len(tokens['kernel'])} requests: tokens identical={ok} "
-            f"(K6, K5 launches {launches['kernel']} / {launches['plain']})")
+            f"{weights or 'fp32'}, kernels vs plain versions vs captured "
+            f"with bucketed widths, {len(tokens['kernel'])} requests: tokens "
+            f"identical={ok} (K6, K5 wrapper launches, K6 device runs, "
+            f"layers x steps: {launches['kernel']} / {launches['plain']} / "
+            f"{launches['captured']})")
         if not ok:
-            raise AssertionError(f"kernels and plain versions served "
-                                 f"different tokens on the small fp32 model "
-                                 f"(weights {weights or 'fp32'})")
+            raise AssertionError(f"kernels, plain versions and the captured "
+                                 f"step served different tokens on the "
+                                 f"small fp32 model (weights "
+                                 f"{weights or 'fp32'}) or K6 ran the wrong "
+                                 f"number of times")
 
 
 def shared_prefix_phases(vocab, n_prefixes, per_prefix, prefix_len,
@@ -1761,15 +1848,23 @@ def left_padded_prompts(vocab, batch, lo, hi, seed):
 
 
 def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
-                 device="cuda", kv_cache_int8=False):
-    """init_inference on seeded random weights (seed 0), two ``generate``
-    calls of one token (prefill and the first sample; the first pays the
-    engine's first-use costs, the second's time is the prefill's), then
-    the counted ``generate``: the kernel counts are set to 0 just before
-    it. Returns the tokens, the engine, the prefill and total seconds, the
-    launches of K4, K5, the masked K1, K5's wgmma prefill kernel, its
-    gemv_tc decode kernel, its ragged kernel, and K8 in the counted run,
-    and whether every logit of it was finite."""
+                 device="cuda", kv_cache_int8=False, engine_kw=None):
+    """init_inference on seeded random weights (seed 0; the inference
+    config takes ``engine_kw`` too), two ``generate`` calls of one token
+    (prefill and the first sample; the first pays the engine's first-use
+    costs, the second's time is the prefill's), with ``enable_cuda_graph``
+    one of ``max_new_tokens`` (its first decode step runs eagerly and is
+    then captured as the graph that the counted run replays; a call
+    without a decode step keeps it), then the counted ``generate``: the
+    kernel counts are set to 0 just before it (the wrappers count where
+    they run, so a captured run's counts are its prefill's and none of
+    its replays'). Returns the tokens, the engine, the prefill and total
+    seconds, the launches of K4, K5, the masked K1, K5's wgmma prefill
+    kernel, its gemv_tc decode kernel, its ragged kernel, K8 and K5's fp32
+    decode kernel (gemv_tf32) in the counted run, the same counts over
+    the capturing warm-up (the prefill, the eager step and the capture,
+    each once; None without ``enable_cuda_graph``), and whether every
+    logit of the counted run was finite."""
     import deepspeed_tpu_torch as dt
     from deepspeed_tpu_torch.models import LlamaForCausalLM
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
@@ -1782,29 +1877,42 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
     engine = dt.init_inference(model, params=params, dtype=dtype,
                                device=device,
                                quantize_weights=quantize_weights,
-                               kv_cache_int8=kv_cache_int8)
+                               kv_cache_int8=kv_cache_int8,
+                               **(engine_kw or {}))
     del params
+    def zero():
+        decode_attention.launches = quant_matmul.launches = 0
+        flash_attention_fwd_masked.launches = quant_matmul.wgmma_launches = 0
+        quant_matmul.gemv_tc_launches = quant_matmul.ragged_launches = 0
+        int8_matmul.launches = quant_matmul.gemv_tf32_launches = 0
+
+    def counts():
+        return (decode_attention.launches, quant_matmul.launches,
+                flash_attention_fwd_masked.launches,
+                quant_matmul.wgmma_launches, quant_matmul.gemv_tc_launches,
+                quant_matmul.ragged_launches, int8_matmul.launches,
+                quant_matmul.gemv_tf32_launches)
+
     finite = []
     engine.module.register_forward_hook(
         lambda mod, args, out: finite.append(torch.isfinite(out[0]).all()))
     engine.generate(ids, attention_mask=mask, max_new_tokens=1)
+    capture = None
+    if engine.config.enable_cuda_graph:
+        zero()
+        engine.generate(ids, attention_mask=mask,
+                        max_new_tokens=max_new_tokens)
+        capture = counts()
     engine.profile_model_time()
     engine.generate(ids, attention_mask=mask, max_new_tokens=1)
     finite.clear()
-    decode_attention.launches = quant_matmul.launches = 0
-    flash_attention_fwd_masked.launches = quant_matmul.wgmma_launches = 0
-    quant_matmul.gemv_tc_launches = quant_matmul.ragged_launches = 0
-    int8_matmul.launches = 0
+    zero()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out = engine.generate(ids, attention_mask=mask,
                           max_new_tokens=max_new_tokens)
     prefill_s, total_s = engine.model_times()
-    return out, engine, prefill_s, total_s, \
-        (decode_attention.launches, quant_matmul.launches,
-         flash_attention_fwd_masked.launches, quant_matmul.wgmma_launches,
-         quant_matmul.gemv_tc_launches, quant_matmul.ragged_launches,
-         int8_matmul.launches), \
+    return out, engine, prefill_s, total_s, counts(), capture, \
         bool(torch.stack(finite).all())
 
 
@@ -1825,76 +1933,112 @@ def check_small_generate_reference(device="cuda"):
              "kv_int8": ({}, {"kv_cache_int8": True}),
              "window64": ({"sliding_window": 64}, {}),
              "flash_prefill": ({"prefill_flash_from_empty": True}, {})}
+    tf32_launches = 0
     for name, (over, kw) in cases.items():
         cfg = LlamaConfig(**SMALL_CFG, **over)
         got = {}
-        for route in ("kernel", "plain"):
+        routes = ("kernel", "plain", "captured") if name in ("fp32", "int8") \
+            else ("kernel", "plain")
+        for route in routes:
             with plain_route() if route == "plain" else \
                     contextlib.nullcontext():
-                out, _, _, _, launches, finite = generate_run(
+                out, _, _, _, launches, capture, finite = generate_run(
                     cfg, torch.float32, kw.get("quantize_weights"), ids,
                     mask, 24, device=device,
-                    kv_cache_int8=kw.get("kv_cache_int8", False))
-            got[route] = (out.cpu().tolist(), launches, finite)
+                    kv_cache_int8=kw.get("kv_cache_int8", False),
+                    engine_kw=dict(enable_cuda_graph=route == "captured"))
+            got[route] = (out.cpu().tolist(), launches, finite, capture)
         quant = "quantize_weights" in kw
-        flash = cfg.num_hidden_layers * cfg.prefill_flash_from_empty
+        L = cfg.num_hidden_layers
+        flash = L * cfg.prefill_flash_from_empty
+        # fp32 x: the quantized decode steps run K5's fp32 decode kernel;
+        # the captured graph holds K4 and (quantized) gemv_tf32 once per
+        # layer and projection: the warm-up runs the prefill (K5 on the
+        # fp32 tile route), the eager step and the capture, and the
+        # counted run's replays add nothing to the wrappers' counts
         ok = got["kernel"][0] == got["plain"][0] and got["kernel"][2] and \
             got["kernel"][1][0] > 0 and \
             (got["kernel"][1][1] > 0) == quant and \
+            (got["kernel"][1][7] > 0) == quant and \
             got["kernel"][1][2] == flash and \
-            got["plain"][1] == (0,) * 7
+            got["plain"][1] == (0,) * 8
+        if "captured" in got:
+            k5 = 7 * L if quant else 0
+            ok = ok and got["captured"][0] == got["kernel"][0] and \
+                got["captured"][2] and \
+                got["captured"][3] == (2 * L, 3 * k5, 0, 0, 0, 0, 0,
+                                       2 * k5) and \
+                got["captured"][1] == (0, k5, 0, 0, 0, 0, 0, 0)
+        if name == "int8":
+            tf32_launches = got["kernel"][1][7]
         log(f"reference: 2-layer fp32 model generate {name}, kernels vs "
-            f"plain versions, 4 prompts x 24 tokens: tokens identical="
+            f"plain versions{' vs the captured decode step' if len(routes) == 3 else ''}, "
+            f"4 prompts x 24 tokens: tokens identical="
             f"{got['kernel'][0] == got['plain'][0]} ok={ok} (K4, K5, masked "
-            f"K1, wgmma K5, gemv_tc K5, ragged K5, K8 launches "
+            f"K1, wgmma K5, gemv_tc K5, ragged K5, K8, gemv_tf32 K5 launches "
             f"{got['kernel'][1]} / "
-            f"{got['plain'][1]})")
+            f"{got['plain'][1]}"
+            f"{'; captured: warm-up (prefill, eager step, capture) ' + str(got['captured'][3]) + ', replayed run ' + str(got['captured'][1]) if 'captured' in got else ''})")
         if not ok:
-            raise AssertionError(f"small generate {name}: kernels and plain "
-                                 f"versions disagree or a route launched "
-                                 f"the wrong kernels")
+            raise AssertionError(f"small generate {name}: kernels, plain "
+                                 f"versions and the captured step disagree "
+                                 f"or a route launched the wrong kernels")
+    return tf32_launches
 
 
 def check_generate():
     """Full-width Llama-3-8B (all 32 layers, random bf16 weights from seed
     0) through init_inference -> generate: batch 8, left-padded prompts of
     seeded lengths 128-512 (bucketed to 512), 64 greedy new tokens, no
-    EOS; once with bf16 weights, once with int8 weights, and once with
-    bf16 weights and prefill_flash_from_empty (the prefill through the
-    masked K1 instead of the plain cached attention)."""
+    EOS; once with bf16 weights, once with int8 weights, then the int8
+    weights again with enable_cuda_graph (the decode step one CUDA graph,
+    captured in a warm-up generate and replayed by the counted one: its
+    tokens must be the uncaptured run's), and once with bf16 weights and
+    prefill_flash_from_empty (the prefill through the masked K1 instead of
+    the plain cached attention)."""
     from deepspeed_tpu_torch.models import LlamaConfig
 
     L = LlamaConfig.llama3_8b().num_hidden_layers
     ids, mask = left_padded_prompts(LlamaConfig.llama3_8b().vocab_size,
                                     GEN_B, 128, GEN_PROMPT, 0)
-    launches = {}
-    for weights, flash in ((None, False), ("int8", False), (None, True)):
+    launches, tokens, decode = {}, {}, {}
+    for weights, flash, graph in ((None, False, False),
+                                  ("int8", False, False),
+                                  ("int8", False, True),
+                                  (None, True, False)):
         cfg = LlamaConfig.llama3_8b(prefill_flash_from_empty=flash)
+        name = (weights or "bf16") + ("_flash" if flash else "") + \
+            ("_graph" if graph else "")
         t = time.perf_counter()
-        out, engine, prefill_s, total_s, counts, finite = \
-            generate_run(cfg, torch.bfloat16, weights, ids, mask, GEN_NEW)
-        k4, k5, k1m, k5w, k5g, k5r, k8 = counts
+        out, engine, prefill_s, total_s, counts, capture, finite = \
+            generate_run(cfg, torch.bfloat16, weights, ids, mask, GEN_NEW,
+                         engine_kw=dict(enable_cuda_graph=graph))
+        k4, k5, k1m, k5w, k5g, k5r, k8, k5f = counts
         setup = time.perf_counter() - t - prefill_s - total_s
         decode_ms = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
+        decode[name] = decode_ms
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"generate: llama3_8b x{L} layers, weights {weights or 'bf16'}, "
-            f"prefill_flash_from_empty {flash}, batch {GEN_B}, prompts {int(mask.sum(1).min())}-"
+            f"prefill_flash_from_empty {flash}, enable_cuda_graph {graph}, "
+            f"batch {GEN_B}, prompts {int(mask.sum(1).min())}-"
             f"{int(mask.sum(1).max())} tokens (bucket {GEN_PROMPT}), "
             f"{GEN_NEW} new tokens: prefill {1e3 * prefill_s:.2f} ms, mean "
             f"decode step {decode_ms:.3f} ms, total {1e3 * total_s:.2f} ms "
             f"= {GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
             f"{peak:.1f} GiB, setup {setup:.1f} s, launches K4 {k4} K5 {k5} "
-            f"(wgmma prefill {k5w}, gemv_tc decode {k5g}, ragged {k5r}) "
-            f"masked K1 {k1m} K8 {k8}, "
-            f"quant "
-            f"{engine.quant_summary or None}")
+            f"(wgmma prefill {k5w}, gemv_tc decode {k5g}, ragged {k5r}, "
+            f"gemv_tf32 {k5f}) masked K1 {k1m} K8 {k8}"
+            f"{' (the wrappers count where they run: the replayed decode steps add none; the capturing warm-up (prefill, eager step, capture) ' + str(capture) + ')' if graph else ''}, "
+            f"quant {engine.quant_summary or None}")
         # K5's prefill: the 7 projections of each layer on the wgmma
-        # kernel; its decode steps on the gemv_tc kernel; every Llama-3-8B
+        # kernel; its decode steps on the gemv_tc kernel (replays of the
+        # captured step are not counted by the wrappers); every Llama-3-8B
         # projection's rows are TMA-addressable, so none takes the ragged
         # kernel; no projection has K8's per-column scales
-        want = (L * (GEN_NEW - 1), 7 * L * GEN_NEW if weights else 0,
+        steps = 0 if graph else GEN_NEW - 1
+        want = (L * steps, 7 * L * (steps + 1) if weights else 0,
                 L if flash else 0, 7 * L if weights else 0,
-                7 * L * (GEN_NEW - 1) if weights else 0, 0, 0)
+                7 * L * steps if weights else 0, 0, 0, 0)
         problems = []
         if tuple(out.shape) != (GEN_B, GEN_NEW):
             problems.append(f"output shape {tuple(out.shape)}")
@@ -1902,60 +2046,247 @@ def check_generate():
             problems.append("a logit is not finite")
         if counts != want:
             problems.append(f"launches K4, K5, masked K1, wgmma K5, "
-                            f"gemv_tc K5, ragged K5, K8 {counts} != {want}")
+                            f"gemv_tc K5, ragged K5, K8, gemv_tf32 K5 "
+                            f"{counts} != {want}")
+        # the graph holds the decode step's kernels: the warm-up ran the
+        # prefill, one eager step and the capture, so K4 twice a layer and
+        # gemv_tc twice a projection
+        k5 = 7 * L if weights else 0
+        want_capture = (2 * L, 3 * k5, 0, k5, 2 * k5, 0, 0, 0) if graph \
+            else None
+        if capture != want_capture:
+            problems.append(f"capturing warm-up launches {capture} != "
+                            f"{want_capture}")
+        tokens[name] = out.cpu().tolist()
+        if graph and tokens[name] != tokens["int8"]:
+            problems.append("the captured decode's tokens differ from the "
+                            "uncaptured run's")
         if problems:
-            raise AssertionError(f"generate ({weights or 'bf16'}, flash "
-                                 f"{flash}): " + "; ".join(problems))
-        launches[(weights or "bf16") + ("_flash" if flash else "")] = counts
+            raise AssertionError(f"generate {name}: " + "; ".join(problems))
+        launches[name] = counts
         del out, engine
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    log(f"generate int8 decode step: uncaptured {decode['int8']:.3f} ms, "
+        f"captured {decode['int8_graph']:.3f} ms (tokens identical)")
+    return launches, decode
+
+
+#: the unified engine's full-width run: 8 slots, 16-token pages, 1024
+#: pages, 2048-token rows, a 256-token prefill budget
+SERVE_SCFG = dict(max_batch_size=8, block_size=16, num_blocks=1024,
+                  max_model_len=2048, prefill_token_budget=256, trace=True,
+                  trace_capacity=1 << 16)
+#: the captured engine: enable_cuda_graph (the inference config) with the
+#: bucketed widths 8, 16, ..., 256, 263
+SERVE_GRAPH = (dict(enable_cuda_graph=True), dict(mixed_step_buckets=True))
+#: check_serving's runs in turns: (name, enable_cuda_graph,
+#: mixed_step_buckets, the run whose tokens it must repeat); "_again" runs
+#: reuse the engine of the run they name (every graph already captured)
+SERVE_RUNS = (("uncaptured", False, False, None),
+              ("captured", True, False, "uncaptured"),
+              ("uncaptured_buckets", False, True, None),
+              ("captured_buckets", True, True, "uncaptured_buckets"),
+              ("captured_again", True, False, "uncaptured"),
+              ("captured_buckets_again", True, True, "uncaptured_buckets"))
+
+
+def check_width_witness(module):
+    """One packed step's pieces at two packed widths, the same tokens in
+    front: K6 on a full-width pool (H 32, Hkv 8, D 128, 1024 pages of
+    16; 8 decode rows at widths 8 and 263; 7 decode rows and a 120-token
+    chunk at widths 128 and 263) must give the same rows bit for bit (its
+    work items do not depend on the width); Llama-3-8B's layer-0
+    projections and LM head (``module``'s, bf16, through cuBLAS) on the
+    same rows at the same widths are printed, not gated. Returns the
+    largest difference of each, by (piece, narrow width)."""
+    from deepspeed_tpu_torch.ops.ragged_attention import ragged_paged_attention
+
+    rs = np.random.RandomState(5)
+    ctx = [int(c) for c in rs.randint(64, 1536, R)]
+    cases = {"decode": ([(1, c - 1) for c in ctx], 8),
+             "mixed": ([(1, c - 1) for c in ctx[:-1]] + [(120, ctx[-1])],
+                       128)}
+    diffs = {}
+    for name, (rows, width) in cases.items():
+        (q, k, v, *desc), _ = ragged_case(rows, False, 11)
+        full = ragged_paged_attention(q, k, v, *desc)
+        narrow = ragged_paged_attention(q[:width].contiguous(), k, v, *desc)
+        diffs[f"K6 {name}", width] = float(
+            (full[:width].float() - narrow.float()).abs().max())
+    attn, mlp = module.model.layers[0].self_attn, module.model.layers[0].mlp
+    projections = {"q_proj": attn.q_proj, "k_proj": attn.k_proj,
+                   "v_proj": attn.v_proj, "o_proj": attn.o_proj,
+                   "gate_proj": mlp.gate_proj, "up_proj": mlp.up_proj,
+                   "down_proj": mlp.down_proj, "lm_head": module.lm_head}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    with torch.inference_mode():
+        for name, proj in projections.items():
+            x = torch.randn((1, T_PACKED, proj.in_features), generator=g,
+                            device="cuda", dtype=torch.bfloat16)
+            full = proj(x)
+            for width in (8, 128):
+                narrow = proj(x[:, :width])
+                diffs[name, width] = float(
+                    (full[:, :width].float() - narrow.float()).abs().max())
+    # the whole step: 8 decode tokens packed at widths 263 and 8 through
+    # the model on a random pool; each leaf module's rows are compared in
+    # the order the step runs them, so the first that differs is where
+    # the step's rows start to depend on the width
+    from deepspeed_tpu_torch.models.layers import paged_cache_index
+
+    rows = cases["decode"][0]
+    (_, _, _, bt, qs, ql, cs, cl), _ = ragged_case(rows, False, 11)
+    pool = module.init_paged_cache(N_PAGES, BS, dtype=torch.bfloat16,
+                                   device="cuda")
+    for t in pool.values():
+        t.normal_(generator=g)
+    leaves = [(n, m) for n, m in module.named_modules()
+              if not any(True for _ in m.children())]
+    seen = {}
+
+    def hook(name):
+        def fn(mod, args, out):
+            out = out[0] if isinstance(out, tuple) else out
+            seen.setdefault(name, []).append(out[..., :R, :].float().clone()
+                                             if out.dim() == 3 else None)
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in leaves]
+    tok = torch.randint(1, module.config.vocab_size, (R,), generator=g,
+                        device="cuda")
+    logits = {}
+    with torch.inference_mode():
+        for width in (T_PACKED, R):
+            ids = torch.zeros((1, width), dtype=torch.long, device="cuda")
+            ids[0, :R] = tok
+            trow = np.full((1, width), -1, np.int32)
+            trow[0, :R] = np.arange(R)
+            pos = np.full((1, width), -1, np.int32)
+            pos[0, :R] = cs.cpu().numpy()
+            idx = paged_cache_index(bt, pos, cl, chunk_start=cs,
+                                    token_rows=trow, query_start=qs,
+                                    query_len=ql, device="cuda")
+            out, _ = module(ids, cache=pool, cache_index=idx)
+            logits[width] = out[0, :R].float()
+    for h in handles:
+        h.remove()
+    first = next(((n, float((v[0] - v[1]).abs().max()))
+                  for n, v in seen.items() if v[0] is not None and
+                  len(v) == 2 and not torch.equal(v[0], v[1])), None)
+    diffs["logits, whole step", R] = float(
+        (logits[T_PACKED] - logits[R]).abs().max())
+    del pool
+    log("serve width witness (the same packed rows at a narrow width and "
+        f"at 263; max |difference| of the narrow width's rows; the whole "
+        f"step's first leaf module whose rows differ: "
+        f"{first[0] + f' ({first[1]:.6g})' if first else 'none'}): " +
+        ", ".join(f"{n} at {w}: {d:.6g}" for (n, w), d in diffs.items()))
+    bad = {k: d for k, d in diffs.items() if k[0].startswith("K6") and d}
+    if bad:
+        raise AssertionError(f"K6's rows depend on the packed width: {bad}")
+    return diffs
 
 
 def check_serving():
     """Full-width Llama-3-8B (all 32 layers, random bf16 weights) serving
-    16 seeded requests through the unified mixed step on the kernel."""
-    from deepspeed_tpu_torch.models import LlamaConfig
+    16 seeded requests through the unified mixed step on the kernel, in
+    turns on one set of weights (``SERVE_RUNS``): uncaptured at the full
+    packed width (as every earlier run), captured (enable_cuda_graph: each
+    width's first step eager, then captured and replayed), uncaptured and
+    captured at bucketed widths (mixed_step_buckets), then each captured
+    engine again on the same requests (every graph replayed). A captured
+    run must repeat its uncaptured twin's tokens and finish reasons
+    exactly; the bucketed runs are held to the bucketed uncaptured run,
+    not to the full width: a row's logits change in their last bits with
+    the packed width, and greedy decoding on random weights amplifies
+    that (PERF.md), so how many requests keep the full width's tokens is
+    printed, not gated. Where the step's rows change is read by
+    :func:`check_width_witness` on this model, which fails if K6's do.
+    Every run must finish every request, leak no page, flag no row and
+    run K6 once per layer per step, counted on the device (replays
+    included) and, uncaptured, by the wrapper too. Returns the first
+    run's K6 launches and each run's summary."""
+    from collections import Counter
+
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
 
     cfg = LlamaConfig.llama3_8b()
+    L = cfg.num_hidden_layers
     t = time.perf_counter()
-    srv, rids, res, wall, launches = serve(
-        cfg, 0, 16, (64, 1536), (32, 64),
-        dict(max_batch_size=8, block_size=16, num_blocks=1024,
-             max_model_len=2048, prefill_token_budget=256, trace=True,
-             trace_capacity=1 << 16), torch.bfloat16)
-    setup = time.perf_counter() - t - wall
-    steps = sum(1 for e in srv.tracer.events() if e["name"] == "mixed_step")
-    m = srv.metrics
-    snap = m.snapshot()
-    finished = sum(res[r].state == "finished" for r in rids)
-    log(f"serve: llama3_8b x{cfg.num_hidden_layers} layers bf16, "
-        f"{len(rids)} requests, {finished} finished, {steps} mixed steps, "
-        f"wall {wall:.3f} s (setup {setup:.1f} s), generated "
-        f"{m.tokens_generated} tokens = {m.tokens_generated / wall:.1f} "
-        f"tok/s, prefill {m.prefill_tokens} tokens, ttft_p50 "
-        f"{snap.get('ttft_p50_s', float('nan')):.3f} s, mean step "
-        f"{1e3 * wall / max(steps, 1):.2f} ms, preemptions {m.preemptions}, "
-        f"quarantines {m.logit_quarantines}, kernel launches {launches}, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    srv.block_pool.check_consistent()
-    problems = []
-    if finished != len(rids):
-        problems.append(f"{len(rids) - finished} requests did not finish")
-    if m.logit_quarantines:
-        problems.append(f"{m.logit_quarantines} rows flagged NaN/Inf")
-    if srv.block_pool.used_count:
-        problems.append(f"{srv.block_pool.used_count} pages leaked")
-    k6 = launches["ragged_paged_attention"]
-    if k6 == 0 or k6 != cfg.num_hidden_layers * steps or \
-            sum(launches.values()) != k6:
-        problems.append(f"kernel launches {launches} != "
-                        f"{cfg.num_hidden_layers} x {steps} mixed steps of "
-                        f"K6 alone")
-    if problems:
-        raise AssertionError("serve: " + "; ".join(problems))
-    return k6
+    params = LlamaForCausalLM(cfg).init_params(seed=0, dtype=torch.bfloat16,
+                                               device="cuda")
+    setup = time.perf_counter() - t
+    engines, tokens, runs = {}, {}, {}
+    for name, captured, buckets, twin in SERVE_RUNS:
+        ekw = dict(enable_cuda_graph=captured)
+        skw = dict(mixed_step_buckets=buckets)
+        key = name.replace("_again", "")
+        before = len(step_widths(engines[key])) if key in engines else 0
+        srv, rids, res, wall, launches = serve(
+            cfg, 0, 16, (64, 1536), (32, 64), dict(SERVE_SCFG, **skw),
+            torch.bfloat16, params=params, engine_kw=ekw,
+            srv=engines.get(key))
+        engines[key] = srv
+        runs_k6 = kernel_runs()
+        widths = step_widths(srv, before)
+        steps = len(widths)
+        tokens[name] = [(res[r].state, res[r].finish_reason, res[r].tokens)
+                        for r in rids]
+        generated = sum(len(res[r].tokens) for r in rids)
+        ttft = float(np.median([res[r].ttft_s for r in rids]))
+        finished = sum(res[r].state == "finished" for r in rids)
+        summary = dict(tok_s=generated / wall, ttft_p50_s=ttft,
+                       mean_step_ms=1e3 * wall / max(steps, 1), steps=steps,
+                       wall_s=wall, widths=dict(sorted(Counter(widths)
+                                                       .items())),
+                       k6_runs=runs_k6, graphs=len(srv._graphs))
+        runs[name] = summary
+        same = "" if twin is None else \
+            f", tokens identical to {twin}: {tokens[name] == tokens[twin]}"
+        log(f"serve {name}: llama3_8b x{L} layers bf16, "
+            f"enable_cuda_graph {captured}, mixed_step_buckets {buckets}, "
+            f"{len(rids)} requests, {finished} finished, {steps} mixed "
+            f"steps, wall {wall:.3f} s (weights {setup:.1f} s), generated "
+            f"{generated} tokens = {generated / wall:.1f} tok/s, ttft_p50 "
+            f"{ttft:.3f} s, mean step {1e3 * wall / max(steps, 1):.2f} ms, "
+            f"steps at each width {summary['widths']}, graphs captured "
+            f"{len(srv._graphs)}, preemptions {srv.metrics.preemptions}, "
+            f"quarantines {srv.metrics.logit_quarantines}, K6 runs on the "
+            f"device {runs_k6}, wrapper launches {launches}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB{same}")
+        srv.block_pool.check_consistent()
+        problems = []
+        if finished != len(rids):
+            problems.append(f"{len(rids) - finished} requests did not finish")
+        if twin is not None and tokens[name] != tokens[twin]:
+            problems.append(f"tokens or finish reasons differ from {twin}")
+        if srv.metrics.logit_quarantines:
+            problems.append(f"{srv.metrics.logit_quarantines} rows flagged "
+                            f"NaN/Inf")
+        if srv.block_pool.used_count:
+            problems.append(f"{srv.block_pool.used_count} pages leaked")
+        if runs_k6 == 0 or runs_k6 != L * steps:
+            problems.append(f"K6 ran {runs_k6} times on the device, not "
+                            f"{L} x {steps} mixed steps")
+        k6 = launches["ragged_paged_attention"]
+        if not captured and (k6 != L * steps or sum(launches.values()) != k6):
+            problems.append(f"kernel launches {launches} != {L} x {steps} "
+                            f"mixed steps of K6 alone")
+        if set(widths) - set(srv.mixed_step_widths):
+            problems.append(f"widths {sorted(set(widths))} outside "
+                            f"{srv.mixed_step_widths}")
+        if problems:
+            raise AssertionError(f"serve {name}: " + "; ".join(problems))
+        runs[name]["wrapper_k6"] = k6
+    kept = sum(a == b for a, b in zip(tokens["uncaptured"],
+                                      tokens["uncaptured_buckets"]))
+    log(f"serve: bucketed widths vs the full width, uncaptured: {kept} of "
+        f"{len(tokens['uncaptured'])} requests with identical tokens")
+    check_width_witness(engines["uncaptured"].engine.module)
+    del engines, params
+    return runs["uncaptured"]["wrapper_k6"], runs
 
 
 #: the two-program engine's full-width run: slots, pages and lengths of
@@ -2217,15 +2548,15 @@ def main() -> int:
     sparse = check_block_sparse_attention()
     check_small_reference()
     check_small_legacy_reference()
-    check_small_generate_reference()
+    tf32_launches = check_small_generate_reference()
     check_small_train_reference()
-    serve_launches = check_serving()
+    serve_launches, serve_runs = check_serving()
     gc.collect()
     torch.cuda.empty_cache()
     legacy_launches = check_serving_legacy()
     gc.collect()
     torch.cuda.empty_cache()
-    gen_launches = check_generate()
+    gen_launches, gen_decode = check_generate()
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = check_training()
@@ -2325,6 +2656,21 @@ def main() -> int:
             replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:151",
             launches=gen_launches["int8"][5],
             **dict(quant[main_name], max_abs_err=max(errs))))
+    # K5/K8's fp32 decode (gemv_tf32_kernel): no full-width path runs fp32
+    # x, so its launches are the small fp32 reference generate's with int8
+    # weights (the kernel route's decode steps); held at its int4 case, with
+    # the worst error of every fp32 decode case of K5 and K8
+    errs = [quant[n]["max_abs_err"] for n, (M, K, N, _, _, dt)
+            in QUANT_CASES.items() if kernel_route(M, K, N, dt) == "gemv_tf32"]
+    errs += [int8_col[n]["max_abs_err"] for n, (M, K, N, dt)
+             in INT8_COL_CASES.items()
+             if kernel_route(M, K, N, dt) == "gemv_tf32"]
+    kernels.append(dict(
+        name="quant_matmul_gemv_tf32", route="cuda",
+        source="deepspeed_tpu_torch/csrc/quant_matmul.cu",
+        replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:151",
+        launches=tf32_launches,
+        **dict(quant[GEMV_TF32_MAIN], max_abs_err=max(errs))))
     # K9: launches of the long-context path's six forward + backward runs
     sparse_src = "deepspeed_tpu/ops/pallas/block_sparse_attention.py"
     for name, part, line in (("block_sparse_attention_fwd", "fwd", 55),

@@ -95,11 +95,32 @@
 //   row's end, and the reader shifts by the row's offset: rows that start
 //   on any byte (N odd, N = 14330's 2-byte steps, x rows of odd K) load as
 //   wide as aligned ones.
-// - fp32 x, M <= 8: gemv_kernel on CUDA cores with exact fp32 products,
-//   as the plain version's fp32 matmul: threads along N, 8 columns each,
-//   eight warps on interleaved K rows with four 8-byte loads in flight per
-//   thread, x staged in shared memory in chunks of 1024 K rows, split K
-//   and a finalize pass that sums the splits in order.
+// - fp32 x, M <= 8 (gemv_tf32_kernel, one launch): the tensor cores at
+//   fp32 accuracy, arranged as gemv_tc arranges decode. y^T = W^T x^T:
+//   the codes, small integers and so exact in TF32, are the A operand of
+//   mma.sync m16n8k8 (16 W columns x 8 K rows), x's <= 8 rows the n8
+//   operand, split into two TF32 parts, x = hi + lo, each product run on
+//   both with fp32 accumulation (one TF32 pass keeps 11 bits of x, which
+//   the fp32 tolerance refuses). Each scale group's fp32 sum is multiplied
+//   by its scale once, not per element; K8's column scale multiplies the
+//   total. A block owns 128 W columns; its 4 warps split its share of K
+//   into contiguous ranges (a warp crosses a scale group only every group
+//   length), and a thread-block cluster sized from the SM count (two
+//   blocks of 4 warps an SM ran int4 28% faster than one block of 8)
+//   splits K over blocks. Every warp feeds its own ring of stages of 32 K
+//   rows, each the codes, x's rows and the scale rows of the groups it
+//   touches: TMA boxes (128B-swizzled, on mbarriers) where code rows are
+//   16-byte addressable (N % 16 == 0, K % 4 == 0), else cp.async
+//   (ragged_kernel's 16-byte row windows for the codes, read back
+//   shifted, so any N is taken). Nothing in the loop reads global memory
+//   (x read through L1 a step ahead cost 3 of a first version's 32 us,
+//   PERF.md). The warps' sums, then the ranks', are added in a fixed
+//   order in shared and distributed shared memory (no atomics); one
+//   launch, no scratch, graph-safe. It replaces the first design: fp32 FMA
+//   on the CUDA cores (each code multiplied 8 times), synchronous 8-byte
+//   loads, a scale load and multiply per element, x staged in shared
+//   memory, and K split into an fp32 scratch that a second launch
+//   (finalize_kernel) summed.
 // - fp32 x, M > 8 (fp32_tc_kernel): the tensor cores at fp32 accuracy.
 //   The codes are small integers, exact in TF32; x is split into two TF32
 //   parts, x = hi + lo, and each product runs on both (mma.sync m16n8k8,
@@ -135,161 +156,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ int nibble(uint32_t byte, int hi) {
-  const int v = hi ? (byte >> 4) & 0xF : byte & 0xF;
-  return (v ^ 8) - 8;
-}
+// rows of x up to which a product is a decode (the gemv kernels' n8)
+constexpr int DECODE_MAX_ROWS = 8;
 
 // ---------------------------------------------------------------------------
-// CUDA-core GEMV: M <= 8, fp32 x
+// split-K partial sums: the fp32 prefill's finalize pass
 // ---------------------------------------------------------------------------
-
-constexpr int GV_THREADS = 256;
-constexpr int GV_WARPS = GV_THREADS / 32;
-constexpr int GV_COLS = 8;                  // columns per thread
-constexpr int GV_TILE = 32 * GV_COLS;       // columns per block
-constexpr int GV_MAXM = 8;
-constexpr int GV_KC = 1024;                 // K rows of x staged at once
-constexpr int GV_UNROLL = 4;                // code rows in flight per thread
-constexpr int GV_RED_M = 4;                 // rows of x per reduction pass
-static_assert(GV_MAXM * GV_KC >= GV_WARPS * GV_RED_M * GV_TILE,
-              "the staging buffer doubles as the cross-warp reduction");
-
-// 8 consecutive code bytes of a row starting at column n0, as a uint2
-// (bytes past N read as 0)
-__device__ __forceinline__ uint2 load8(const uint8_t* row, int n0, int N,
-                                       bool vec) {
-  if (vec && n0 + GV_COLS <= N)
-    return __ldg(reinterpret_cast<const uint2*>(row + n0));
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int c = 0; c < GV_COLS; ++c)
-    if (n0 + c < N) w[c / 4] |= static_cast<uint32_t>(__ldg(row + n0 + c))
-                                << (8 * (c % 4));
-  return make_uint2(w[0], w[1]);
-}
-
-__device__ __forceinline__ uint32_t byte_of(uint2 v, int c) {
-  return ((c < 4 ? v.x : v.y) >> (8 * (c % 4))) & 0xFF;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(GV_THREADS)
-    gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-                const float* __restrict__ scale, float* __restrict__ work,
-                int M, int K, int N, int G, int splits) {
-  extern __shared__ __align__(16) float xs[];  // [GV_MAXM][GV_KC]
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int n0 = blockIdx.x * GV_TILE + lane * GV_COLS;
-  const int s = blockIdx.y;
-  const int g = K / G;  // scale-group length (K for per-column)
-  // this block's K range: a whole number of groups (G > 1) or of rows
-  // (nibble pairs for int4)
-  const int unit = G > 1 ? g : (MODE == kInt4 ? 2 : 1);
-  const int units = K / unit;
-  const int per = (units + splits - 1) / splits;
-  const int kb = min(K, s * per * unit);
-  const int ke = min(K, (s + 1) * per * unit);
-  const bool vec = (N % GV_COLS) == 0;
-  // code rows: byte rows of the packed int4 layout hold two K rows
-  constexpr int KPR = MODE == kInt4 ? 2 : 1;
-
-  float acc[GV_MAXM][GV_COLS];
-#pragma unroll
-  for (int m = 0; m < GV_MAXM; ++m)
-#pragma unroll
-    for (int c = 0; c < GV_COLS; ++c) acc[m][c] = 0.f;
-
-  for (int kc = kb; kc < ke; kc += GV_KC) {
-    const int len = min(GV_KC, ke - kc);
-    __syncthreads();  // the previous chunk's rows are consumed
-    for (int e = tid; e < M * len; e += GV_THREADS) {
-      const int m = e / len;
-      const int kk = e % len;
-      xs[m * GV_KC + kk] = x[static_cast<size_t>(m) * K + kc + kk];
-    }
-    __syncthreads();
-    for (int k = kc; k < kc + len;) {
-      const int gi = k / g;
-      const int gend = min(kc + len, (gi + 1) * g);
-      float sc[GV_COLS];
-#pragma unroll
-      for (int c = 0; c < GV_COLS; ++c)
-        sc[c] = (MODE != kInt8Col && n0 + c < N)
-                    ? __ldg(scale + static_cast<size_t>(gi) * N + n0 + c)
-                    : 1.f;
-      // code rows [k, gend) / KPR; warp w takes rows w, w + 8, ...,
-      // GV_UNROLL of them loaded before any is used
-      const int r_end = gend / KPR;
-      for (int r0 = k / KPR + warp; r0 < r_end;
-           r0 += GV_WARPS * GV_UNROLL) {
-        uint2 raw[GV_UNROLL];
-#pragma unroll
-        for (int u = 0; u < GV_UNROLL; ++u) {
-          const int r = r0 + u * GV_WARPS;
-          raw[u] = r < r_end ? load8(codes + static_cast<size_t>(r) * N, n0,
-                                     N, vec)
-                             : make_uint2(0u, 0u);
-        }
-#pragma unroll
-        for (int u = 0; u < GV_UNROLL; ++u) {
-          const int r = r0 + u * GV_WARPS;
-          if (r >= r_end) break;
-          const float* x0 = xs + (r * KPR - kc);
-#pragma unroll
-          for (int h = 0; h < KPR; ++h) {
-            float w[GV_COLS];
-#pragma unroll
-            for (int c = 0; c < GV_COLS; ++c) {
-              const uint32_t b = byte_of(raw[u], c);
-              const int code = MODE == kInt4
-                                   ? nibble(b, h)
-                                   : static_cast<int>(static_cast<int8_t>(b));
-              w[c] = MODE == kInt8Col ? static_cast<float>(code)
-                                      : static_cast<float>(code) * sc[c];
-            }
-#pragma unroll
-            for (int m = 0; m < GV_MAXM; ++m) {
-              if (m < M) {
-                const float xa = x0[m * GV_KC + h];
-#pragma unroll
-                for (int c = 0; c < GV_COLS; ++c) acc[m][c] += xa * w[c];
-              }
-            }
-          }
-        }
-      }
-      k = gend;
-    }
-  }
-
-  // sum the warps' partials through shared memory (GV_RED_M rows of x at
-  // a time), then one fp32 partial per (split, row, column)
-  float* red = xs;  // [GV_WARPS][GV_RED_M][GV_TILE]
-#pragma unroll
-  for (int m0 = 0; m0 < GV_MAXM; m0 += GV_RED_M) {
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < GV_RED_M; ++mm)
-#pragma unroll
-      for (int c = 0; c < GV_COLS; ++c)
-        red[(warp * GV_RED_M + mm) * GV_TILE + lane * GV_COLS + c] =
-            acc[m0 + mm][c];
-    __syncthreads();
-    for (int e = tid; e < GV_RED_M * GV_TILE; e += GV_THREADS) {
-      const int m = m0 + e / GV_TILE;
-      const int col = e % GV_TILE;
-      const int n = blockIdx.x * GV_TILE + col;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < GV_WARPS; ++w)
-        sum += red[(w * GV_RED_M + e / GV_TILE) * GV_TILE + col];
-      if (m < M && n < N) work[(static_cast<size_t>(s) * M + m) * N + n] = sum;
-    }
-  }
-}
 
 // out[m, n] = sum over splits of work[s, m, n] (times scale[n] for K8),
 // in x's type
@@ -672,7 +544,7 @@ __device__ __forceinline__ float code_f(uint32_t w, int i, float offset) {
 // TMA needs 16-byte global row strides: x rows of K bf16, code rows of N
 // bytes (N % 16 also keeps each thread's column pair inside or outside N)
 bool wgmma_route(int M, int K, int N) {
-  return M > GV_MAXM && K % 8 == 0 && N % 16 == 0;
+  return M > DECODE_MAX_ROWS && K % 8 == 0 && N % 16 == 0;
 }
 
 // One block per 128 W columns x 256 rows of x; the product is computed
@@ -943,7 +815,7 @@ static_assert(GT_WARPS * 8 * GT_RED * 4 <= GT_STAGES * GT_C_BYTES,
 // TMA needs 16-byte global row strides (x rows K % 8, code rows N % 16);
 // N % 16 also keeps a thread's 16 columns wholly inside or outside N
 bool gemv_tc_route(int M, int K, int N) {
-  return M <= GV_MAXM && K % 8 == 0 && N % 16 == 0;
+  return M <= DECODE_MAX_ROWS && K % 8 == 0 && N % 16 == 0;
 }
 
 __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
@@ -1852,6 +1724,469 @@ int launch_ragged(const void* x, const void* codes, const float* scale,
                                          wn, stream);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 decode on the tensor cores: M <= 8, fp32 x
+// ---------------------------------------------------------------------------
+
+constexpr int GF_WARPS = 4;                  // each a contiguous range of K
+constexpr int GF_THREADS = 32 * GF_WARPS;
+constexpr int GF_BN = 128;                   // W columns of a block
+constexpr int GF_STEPS = 4;                  // k8 steps of a warp's stage
+constexpr int GF_KS = 8 * GF_STEPS;          // K rows of a stage
+constexpr int GF_WIN = GF_BN + 16;           // bytes of a staged row window
+constexpr int GF_X_BYTES = 8 * GF_KS * 4;    // x [8 rows, 32 K], swizzled
+constexpr int GF_S_BYTES = 2 * GF_BN * 4;    // two scale rows
+constexpr int GF_MIN_STAGED_GROUP = GF_KS;   // shorter groups: __ldg'd
+constexpr int GF_RED = GF_BN + 4;            // padded rows of the warp sums
+constexpr int GF_PART = 8 * GF_BN;           // a block's fp32 partial [8][128]
+constexpr int GF_MAX_CLUSTER = 8;
+constexpr int GF_OUT = GF_PART / GF_THREADS;  // outputs a thread finishes
+
+// Shared memory of gemv_tf32_kernel: per warp a ring of stages, each the
+// code rows of GF_STEPS k8 steps (int4: byte rows, two K rows each), 128
+// bytes a row under TMA's 128B swizzle, else 144-byte windows (padded to
+// 1 KB), then x's 8 rows of the stage's K rows (128B-swizzled) and the
+// scale rows of the (at most two) groups the stage touches; then the
+// block's partial and the mbarriers.
+template <int MODE, bool TMA>
+struct GfLayout {
+  static constexpr int ROWS = (MODE == kInt4 ? 4 : 8) * GF_STEPS;
+  static constexpr int ROW = TMA ? GF_BN : GF_WIN;
+  static constexpr int CODES = (ROWS * ROW + 1023) / 1024 * 1024;
+  static constexpr int STAGE = CODES + GF_X_BYTES + GF_S_BYTES;
+  static constexpr int STAGES = TMA ? 4 : 3;
+  static constexpr int RING = GF_WARPS * STAGES * STAGE;
+  static constexpr int SMEM = 1024 + RING + GF_PART * 4 +
+                              GF_WARPS * STAGES * 8;
+  static_assert(CODES % 1024 == 0 && GF_X_BYTES == 1024,
+                "swizzled boxes 1024-aligned");
+  static_assert(GF_WARPS * 8 * GF_RED * 4 <= RING,
+                "the warps' sums reuse the ring");
+  static_assert(SMEM <= MAX_SMEM, "shared memory of one block");
+};
+
+// The 16-byte chunk of a 128-column tile that lane group g reads in its
+// load L (0, 1): 8 columns, at byte 8 (g & 1) of the chunk. int8 lanes read
+// K rows 2q and 2q + 1 of a step (swizzle rows 0, 2, 4, 6 and 1, 3, 5, 7),
+// int4 lanes byte row q (rows 0-3 or 4-7): both maps keep the 16 lanes of
+// a 64-bit load phase on 8 distinct chunks, conflict-free.
+template <int MODE>
+__device__ __forceinline__ int gf_chunk(int g, int L) {
+  return MODE == kInt4 ? ((((g >> 1) & 1) << 2) | (g >> 2)) + 2 * L
+                       : (g >> 1) + 4 * L;
+}
+
+// y^T = W^T x^T for fp32 x, M <= 8: block = (column tile, cluster rank),
+// 128 W columns over the rank's share of the K axis in k8 steps (rank r
+// of C takes steps r * n8 / C .. (r + 1) * n8 / C), split among the 4 warps
+// into contiguous ranges. The codes are mma.sync m16n8k8's A operand (16
+// W columns x 8 K rows, exact in TF32), x^T its B operand, the M <= 8 rows
+// filling the n8 tile (rows past M are zeros). Lane (g, q) of a warp holds
+// 8 n8 tiles: tile j's A rows g and g + 8 are W columns cb0 + j and cb1 +
+// j (cb = the byte of gf_chunk's chunk), its A columns q and q + 4 are K
+// rows 2q and 2q + 1 of the step, and its accumulator rows 2q, 2q + 1 are
+// rows of x. x is split as it is read, x = hi + lo, both TF32, and every
+// step runs both products into a group sum, which is multiplied by the
+// group's scales (read when the group opens) and added to the total when
+// the group closes; a group boundary inside a step (groups that are no
+// multiple of 8 rows) runs the step once per group with the other rows'
+// codes zeroed. Each warp streams its own ring of stages of GF_STEPS
+// steps: the code rows, x's rows and the scale rows of the groups the
+// stage touches, by TMA (128B-swizzled boxes, one mbarrier a stage) where
+// code rows are 16-byte addressable, else by cp.async (16-byte windows
+// around each code row, read back shifted by the row's offset; x and
+// scales by element). Nothing in the loop reads global memory (a first
+// version read x through L1 a step ahead, 3 us slower at 8 x 4096 ->
+// 4096); groups shorter than a stage read their scales from global memory
+// instead. A
+// stage is refilled only after the warp's products consumed every
+// register loaded from it. The sums run in a fixed order: a warp's groups
+// in K order, warps 0..3 in shared memory, cluster ranks 0..C-1 through
+// distributed shared memory (each rank finishing a slice of the tile);
+// K8's column scale follows. No atomics, no scratch, nothing read on the
+// host: one launch that a CUDA graph replays.
+template <int MODE, bool TMA>
+__global__ void __launch_bounds__(GF_THREADS)
+    gemv_tf32_kernel(const __grid_constant__ CUtensorMap cmap,
+                     const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap smap,
+                     const float* __restrict__ x,
+                     const uint8_t* __restrict__ codes,
+                     const float* __restrict__ scale, float* __restrict__ out,
+                     int M, int K, int N, int G, int C) {
+  using L = GfLayout<MODE, TMA>;
+  constexpr bool INT4 = MODE == kInt4;
+  constexpr int S = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char gf_smem[];
+  const uint32_t raw = saddr(gf_smem);
+  const uint32_t ring_s = (raw + 1023) & ~1023u;
+  unsigned char* ring = gf_smem + (ring_s - raw);
+  float* part = reinterpret_cast<float*>(ring + L::RING);
+  const uint32_t part_s = ring_s + L::RING;
+  const uint32_t bars = part_s + GF_PART * 4;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int q = lane % 4;
+  const int rank = static_cast<int>(cluster_rank());
+  const int n0 = (static_cast<int>(blockIdx.x) / C) * GF_BN;
+  // the rank's k8 steps, then the warp's
+  const int n8 = (K + 7) / 8;
+  const int rs0 = rank * n8 / C;
+  const int rn = (rank + 1) * n8 / C - rs0;
+  const int ws0 = rs0 + warp * rn / GF_WARPS;
+  const int wsn = rs0 + (warp + 1) * rn / GF_WARPS - ws0;
+  const int wend = min(K, 8 * (ws0 + wsn));          // past the warp's rows
+  const int nst = (wsn + GF_STEPS - 1) / GF_STEPS;  // the warp's stages
+  const int KR = INT4 ? K / 2 : K;                   // code rows
+  const int gl = MODE == kInt8Col ? K : K / G;       // scale-group length
+  const bool staged = MODE != kInt8Col && gl >= GF_MIN_STAGED_GROUP;
+  unsigned char* wring = ring + warp * S * L::STAGE;
+  const uint32_t wring_s = ring_s + warp * S * L::STAGE;
+  auto full = [&](int s) { return bars + 8 * (warp * S + s); };
+
+  // K8's column scales of the outputs this thread finishes, read before
+  // the stream starts
+  const int total = M * GF_BN;
+  float csc[GF_OUT];
+#pragma unroll
+  for (int o = 0; o < GF_OUT; ++o) {
+    const int col = n0 + (rank * total / C + tid + o * GF_THREADS) % GF_BN;
+    csc[o] = MODE == kInt8Col && col < N ? __ldg(scale + col) : 1.f;
+  }
+
+  if (TMA && lane == 0)
+    for (int s = 0; s < S; ++s) hopper::mbar_init(full(s), 1);
+  if (TMA) hopper::mbar_fence_init();
+  __syncwarp();
+
+  // the groups of the first and the last K row of stage i
+  auto stage_groups = [&](int i, int& ga, int& gb) {
+    const int k0 = 8 * (ws0 + GF_STEPS * i);
+    ga = k0 / gl;
+    gb = (min(k0 + GF_KS, wend) - 1) / gl;
+  };
+  // stage i of the warp (its steps ws0 + GF_STEPS i ..) into slot i % S
+  auto load_stage = [&](int i) {
+    const int s = i % S;
+    const int k0 = 8 * (ws0 + GF_STEPS * i);
+    const int r0 = INT4 ? k0 / 2 : k0;  // first code row
+    const uint32_t st = wring_s + s * L::STAGE;
+    int ga = 0, gb = 0;
+    if (staged) stage_groups(i, ga, gb);
+    const int srows = staged ? 1 + (gb != ga) : 0;
+    if constexpr (TMA) {
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full(s), L::CODES + GF_X_BYTES +
+                                            srows * GF_BN * 4);
+        hopper::tma_load_2d_hint(st, &cmap, n0, r0, full(s),
+                                 hopper::l2_evict_first());
+        hopper::tma_load_2d(st + L::CODES, &xmap, k0, 0, full(s));
+        for (int r = 0; r < srows; ++r)
+          hopper::tma_load_2d(st + L::CODES + GF_X_BYTES + r * GF_BN * 4,
+                              &smap, n0, r ? gb : ga, full(s));
+      }
+    } else {
+      // code rows past the warp's range or K are not copied (the reader
+      // never looks at them); windows cut at the row's end, zeros beyond
+      const int rows = min(L::ROWS, min(KR, INT4 ? wend / 2 : wend) - r0);
+      for (int c = lane; c < rows * (GF_WIN / 16); c += 32) {
+        const int rr = c / (GF_WIN / 16);
+        const int ch = c % (GF_WIN / 16);
+        const long long start = static_cast<long long>(r0 + rr) * N + n0;
+        const long long a = (start & ~15LL) + 16 * ch;
+        const int v = rg_valid(a, start - n0 + N);
+        cp16n(st + rr * GF_WIN + 16 * ch, codes + (v ? a : 0), v);
+      }
+      // x element (m, c) at the 128B-swizzled place TMA would put it
+      for (int e = lane; e < 8 * GF_KS; e += 32) {
+        const int m = e / GF_KS;
+        const int c = e % GF_KS;
+        const bool in = m < M && k0 + c < K;
+        cp4(st + L::CODES + m * 128 + (((c >> 2) ^ m) << 4) + 4 * (c & 3),
+            in ? x + static_cast<size_t>(m) * K + k0 + c : x, in);
+      }
+      for (int e = lane; e < srows * GF_BN; e += 32) {
+        const int r = e / GF_BN;
+        const int col = n0 + e % GF_BN;
+        const bool in = col < N;
+        cp4(st + L::CODES + GF_X_BYTES + 4 * e,
+            in ? scale + static_cast<size_t>(r ? gb : ga) * N + col : scale,
+            in);
+      }
+      cp_commit();
+    }
+  };
+
+  // the lane's 8 code bytes of load L in code row `rel` of slot s
+  // (absolute code row kr), as a uint2
+  const int cb[2] = {16 * gf_chunk<MODE>(g, 0) + 8 * (g & 1),
+                     16 * gf_chunk<MODE>(g, 1) + 8 * (g & 1)};
+  auto code8 = [&](int s, int rel, int kr, int Ld) -> uint2 {
+    const unsigned char* st = wring + s * L::STAGE;
+    if constexpr (TMA) {
+      const int ch = (cb[Ld] >> 4) ^ (rel & 7);
+      return *reinterpret_cast<const uint2*>(st + rel * GF_BN + (ch << 4) +
+                                             (cb[Ld] & 15));
+    } else {
+      const int at = static_cast<int>(
+                         (static_cast<long long>(kr) * N + n0) & 15) + cb[Ld];
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(
+          st + rel * GF_WIN + (at & ~3));
+      const int bits = 8 * (at & 3);
+      return make_uint2(__funnelshift_r(w[0], w[1], bits),
+                        __funnelshift_r(w[1], w[2], bits));
+    }
+  };
+
+  float acc[8][4], gacc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = gacc[j][e] = 0.f;
+  int cur = -1;   // the group gacc holds
+  int gend = 0;   // the first K row past it
+  float sc[16];   // its scales: [L * 8 + j] = column n0 + cb[L] + j
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = 1.f;
+  auto flush = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[j][e] += gacc[j][e] * sc[(e >> 1) * 8 + j];
+        gacc[j][e] = 0.f;
+      }
+  };
+  // gacc now holds group grp, which stage i (slot s) touches: its scales
+  auto start = [&](int grp, int i, int s) {
+    cur = grp;
+    if (MODE == kInt8Col) return;
+    if (staged) {
+      int ga, gb;
+      stage_groups(i, ga, gb);
+      const float* row = reinterpret_cast<const float*>(
+          wring + s * L::STAGE + L::CODES + GF_X_BYTES +
+          (grp == ga ? 0 : GF_BN * 4));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 a = *reinterpret_cast<const float4*>(row + cb[h]);
+        const float4 b = *reinterpret_cast<const float4*>(row + cb[h] + 4);
+        sc[8 * h] = a.x, sc[8 * h + 1] = a.y, sc[8 * h + 2] = a.z;
+        sc[8 * h + 3] = a.w, sc[8 * h + 4] = b.x, sc[8 * h + 5] = b.y;
+        sc[8 * h + 6] = b.z, sc[8 * h + 7] = b.w;
+      }
+      return;
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < 16; ++i2) {
+      const int col = n0 + cb[i2 / 8] + i2 % 8;
+      sc[i2] = col < N ? __ldg(scale + static_cast<size_t>(grp) * N + col)
+                       : 0.f;
+    }
+  };
+
+  for (int i = 0; i < S && i < nst; ++i) load_stage(i);
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % S;
+    if constexpr (TMA) {
+      hopper::mbar_wait(full(s), (i / S) & 1);
+    } else {
+      // the warp's stages i .. are the youngest commit groups
+      if (nst - i >= S)
+        cp_wait<S - 1>();
+      else
+        cp_wait<0>();
+      __syncwarp();
+    }
+    const unsigned char* xs = wring + s * L::STAGE + L::CODES;
+#pragma unroll
+    for (int t = 0; t < GF_STEPS; ++t) {
+      const int step = ws0 + GF_STEPS * i + t;
+      if (step >= ws0 + wsn) break;
+      const int k = 8 * step;
+      // the step's codes: lo[L] / hi[L] hold K rows 2q / 2q + 1 of the
+      // lane's 8 columns of load L, one byte (code + offset) a column
+      uint32_t lo[2][2], hi[2][2];
+      if constexpr (INT4) {
+        const int rel = 4 * t + q;
+#pragma unroll
+        for (int Ld = 0; Ld < 2; ++Ld) {
+          const uint2 w = code8(s, rel, k / 2 + q, Ld);
+          lo[Ld][0] = (w.x & 0x0F0F0F0Fu) ^ 0x08080808u;
+          lo[Ld][1] = (w.y & 0x0F0F0F0Fu) ^ 0x08080808u;
+          hi[Ld][0] = ((w.x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+          hi[Ld][1] = ((w.y >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+        }
+      } else {
+        const int rel = 8 * t + 2 * q;
+#pragma unroll
+        for (int Ld = 0; Ld < 2; ++Ld) {
+          const uint2 a = code8(s, rel, k + 2 * q, Ld);
+          const uint2 b = code8(s, rel + 1, k + 2 * q + 1, Ld);
+          lo[Ld][0] = a.x ^ 0x80808080u;
+          lo[Ld][1] = a.y ^ 0x80808080u;
+          hi[Ld][0] = b.x ^ 0x80808080u;
+          hi[Ld][1] = b.y ^ 0x80808080u;
+        }
+      }
+      // x's rows g at K rows k + 2q, + 1 (columns 8t + 2q of the swizzled
+      // box), split x = hi + lo, both TF32
+      const float2 xv = *reinterpret_cast<const float2*>(
+          xs + g * 128 + (((2 * t + (q >> 1)) ^ g) << 4) + 8 * (q & 1));
+      uint32_t bh[2], bl[2];
+      {
+        float h, l;
+        split_tf32(xv.x, h, l);
+        bh[0] = __float_as_uint(h);
+        bl[0] = __float_as_uint(l);
+        split_tf32(xv.y, h, l);
+        bh[1] = __float_as_uint(h);
+        bl[1] = __float_as_uint(l);
+      }
+      if (k >= gend) {  // the step opens a group
+        if (cur >= 0) flush();
+        start(k / gl, i, s);
+        gend = (cur + 1) * gl;
+      }
+      constexpr float offset = INT4 ? 8.f : 128.f;
+      auto codef = [&](uint32_t w, int b) {
+        return __float_as_uint(
+            __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 | b)) -
+            (8388608.f + offset));
+      };
+      // the products of the step, the rows outside the group zeroed
+      auto products = [&](bool in0, bool in1) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t a[4];
+          a[0] = in0 ? codef(lo[0][j / 4], j % 4) : 0u;
+          a[1] = in0 ? codef(lo[1][j / 4], j % 4) : 0u;
+          a[2] = in1 ? codef(hi[0][j / 4], j % 4) : 0u;
+          a[3] = in1 ? codef(hi[1][j / 4], j % 4) : 0u;
+          mma_tf32(gacc[j], a, bh[0], bh[1]);
+          mma_tf32(gacc[j], a, bl[0], bl[1]);
+        }
+      };
+      if (k + 7 < gend || gend >= K) {
+        products(true, true);
+      } else {
+        const int gb = min(k + 7, K - 1) / gl;
+        for (int gg = cur; gg <= gb; ++gg) {
+          if (gg != cur) {
+            flush();
+            start(gg, i, s);
+          }
+          products((k + 2 * q) / gl == gg, (k + 2 * q + 1) / gl == gg);
+        }
+        gend = (cur + 1) * gl;
+      }
+    }
+    // every register loaded from slot s was consumed by the products
+    // above: the slot may be refilled
+    __syncwarp();
+    if (i + S < nst) load_stage(i + S);
+  }
+  if (cur >= 0) flush();
+
+  // the warps' sums in warp order, into part [m][128 columns]
+  __syncthreads();  // every warp left its ring: it holds the warp sums now
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(warp * 8 + 2 * q + (e & 1)) * GF_RED + cb[e >> 1] + j] = acc[j][e];
+  __syncthreads();
+  for (int e = tid; e < GF_PART; e += GF_THREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < GF_WARPS; ++w)
+      sum += red[(w * 8 + e / GF_BN) * GF_RED + e % GF_BN];
+    part[e] = sum;
+  }
+  // the ranks' sums in rank order; rank r finishes its slice of the
+  // M x 128 outputs
+  cluster_sync();
+  const int e_end = (rank + 1) * total / C;
+#pragma unroll
+  for (int o = 0; o < GF_OUT; ++o) {
+    const int e = rank * total / C + tid + o * GF_THREADS;
+    const int col = n0 + e % GF_BN;
+    if (e >= e_end || col >= N) continue;
+    float v[GF_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < GF_MAX_CLUSTER; ++r)
+      if (r < C) v[r] = ld_cluster(part_s + 4 * e, static_cast<uint32_t>(r));
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < GF_MAX_CLUSTER; ++r)
+      if (r < C) sum += v[r];
+    out[static_cast<size_t>(e / GF_BN) * N + col] = sum * csc[o];
+  }
+  cluster_sync();  // no block leaves while another reads its partial
+}
+
+template <int MODE, bool TMA>
+int launch_gemv_tf32_route(const CUtensorMap& cmap, const CUtensorMap& xmap,
+                           const CUtensorMap& smap, const float* x,
+                           const uint8_t* codes, const float* scale,
+                           float* out, int M, int K, int N, int G, int C,
+                           cudaStream_t stream) {
+  using L = GfLayout<MODE, TMA>;
+  const cudaError_t err = allow_smem<gemv_tf32_kernel<MODE, TMA>>(L::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + GF_BN - 1) / GF_BN) * C);
+  cfg.blockDim = dim3(GF_THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;  // a cluster of one launches as a grid
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, gemv_tf32_kernel<MODE, TMA>, cmap, xmap, smap, x, codes, scale,
+      out, M, K, N, G, C);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C: cluster size (1 to 8, at most the K axis's k8 steps). Code rows of
+// N % 16 == 0 bytes and x rows of K % 4 == 0 floats go through TMA, others
+// through cp.async.
+template <int MODE>
+int launch_gemv_tf32(const float* x, const uint8_t* codes,
+                     const float* scale, float* out, int M, int K, int N,
+                     int G, int C, cudaStream_t stream) {
+  if (C < 1 || C > GF_MAX_CLUSTER || C > (K + 7) / 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap cmap = {}, xmap = {}, smap = {};
+  if (N % 16 == 0 && K % 4 == 0) {
+    if (!hopper::make_map_2d(&cmap, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                             MODE == kInt4 ? K / 2 : K, N, N,
+                             GfLayout<MODE, true>::ROWS, GF_BN,
+                             CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !hopper::make_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M,
+                             K, K, 8, GF_KS, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !hopper::make_map_2d(&smap, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                             MODE == kInt8Col ? 1 : G, N, N, 1, GF_BN,
+                             CU_TENSOR_MAP_SWIZZLE_NONE))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gemv_tf32_route<MODE, true>(cmap, xmap, smap, x, codes,
+                                              scale, out, M, K, N, G, C,
+                                              stream);
+  }
+  return launch_gemv_tf32_route<MODE, false>(cmap, xmap, smap, x, codes,
+                                             scale, out, M, K, N, G, C,
+                                             stream);
+}
+
 template <typename XT, int MODE>
 int launch(const void* x, const void* codes, const void* scale, void* out,
            void* work, int M, int K, int N, int G, int splits, int wn,
@@ -1870,28 +2205,18 @@ int launch(const void* x, const void* codes, const void* scale, void* out,
     return launch_ragged<MODE>(x, codes, sp, op, M, K, N, G, splits, wn,
                                stream);
   } else {
-    cudaError_t err;
-    if (M <= GV_MAXM) {
-      constexpr int bytes = GV_MAXM * GV_KC * 4;
-      err = cudaFuncSetAttribute(gemv_kernel<MODE>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid((N + GV_TILE - 1) / GV_TILE, splits);
-      gemv_kernel<MODE><<<grid, GV_THREADS, bytes, stream>>>(
-          xp, cp, sp, wp, M, K, N, G, splits);
-    } else {
-      constexpr int bytes = FtLayout<MODE>::BYTES;
-      err = allow_smem<fp32_tc_kernel<MODE>>(bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const dim3 grid((N + FT_BN - 1) / FT_BN, (M + FT_BM - 1) / FT_BM,
-                      splits);
-      fp32_tc_kernel<MODE><<<grid, FT_THREADS, bytes, stream>>>(
-          xp, cp, sp, op, wp, M, K, N, G, splits);
-    }
+    if (M <= DECODE_MAX_ROWS)
+      return launch_gemv_tf32<MODE>(xp, cp, sp, op, M, K, N, G, splits,
+                                    stream);
+    constexpr int bytes = FtLayout<MODE>::BYTES;
+    cudaError_t err = allow_smem<fp32_tc_kernel<MODE>>(bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((N + FT_BN - 1) / FT_BN, (M + FT_BM - 1) / FT_BM,
+                    splits);
+    fp32_tc_kernel<MODE><<<grid, FT_THREADS, bytes, stream>>>(
+        xp, cp, sp, op, wp, M, K, N, G, splits);
     err = cudaGetLastError();
-    if (err != cudaSuccess || (M > GV_MAXM && splits == 1))
-      return static_cast<int>(err);
+    if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
     const size_t total = static_cast<size_t>(M) * N;
     finalize_kernel<XT, MODE>
         <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
@@ -1924,11 +2249,12 @@ int launch_mode(int mode, const void* x, const void* codes, const void* scale,
 // C entry for ctypes. x [M, K] (x_bf16: bf16, else fp32), codes int8
 // [K, N] (modes 0 and 2) or uint8 [K/2, N] (mode 1), scale fp32 [G, N]
 // (modes 0, 1) or [N] (mode 2), out [M, N] in x's type, work fp32
-// [splits, M, N] (used by fp32 x: M <= 8, and M > 8 with splits > 1). For
-// bf16 x, `splits` is the cluster size of the gemv_tc or ragged kernel and
-// `wn` the ragged kernel's warps along N (1, 2 or 4); `work` is not read.
-// G divides K (into even groups for int4); x, the codes and the scales are
-// 16-byte aligned. The caller validates shapes.
+// [splits, M, N] (read by fp32 x with M > 8 and splits > 1 only). For bf16
+// x, `splits` is the cluster size of the gemv_tc or ragged kernel and `wn`
+// the ragged kernel's warps along N (1, 2, 4 or 8); for fp32 x with M <= 8
+// it is gemv_tf32_kernel's cluster size, for M > 8 fp32_tc_kernel's K
+// splits. G divides K (into even groups for int4); x, the codes and the
+// scales are 16-byte aligned. The caller validates shapes.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int quant_matmul(const void* x, const void* codes,
                             const void* scale, void* out, void* work, int M,

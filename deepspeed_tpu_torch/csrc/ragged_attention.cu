@@ -70,6 +70,7 @@ struct Ragged {
   int* order;   // [R]: rows, chunk rows first
   int* prefix;  // [R + 1]: items before order[k]
   int* info;    // [T]: (s_lo << 16 | n) of each token's tile, 0 = zeros
+  int* runs;    // [1] or null: one is added per launch that runs
   int T, R, chunk_rows, narrow_rows, grid;
 };
 
@@ -166,6 +167,7 @@ __global__ void __launch_bounds__(PLAN_THREADS) ragged_plan_kernel(Pool p,
   if (threadIdx.x == 0) {
     g.prefix[g.R] = run;
     *g.next = g.grid;
+    if (g.runs != nullptr) ++*g.runs;
   }
 }
 
@@ -261,15 +263,16 @@ cudaError_t launch_kv(const Pool& p, Ragged g, int kv_int8, int D, int grid,
 // A row's key axis is cut into `splits` ranges of `per` 64-key tiles, and
 // `grid` blocks take the work items (the wrapper derives all three from
 // the shapes and the card). iscratch: int32 [2R + 2 + T]; fscratch: fp32
-// [T * H * splits * (D + 2)]. Every element of out is written. The caller
-// validates shapes. Returns cudaGetLastError() after the launches
+// [T * H * splits * (D + 2)]. runs: int32 [1] or null; each launch adds
+// one to it on the device when it runs (a CUDA graph's replays included).
+// Every element of out is written. The caller validates shapes. Returns cudaGetLastError() after the launches
 // (0 = launched).
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* query_start, const void* query_len, const void* chunk_start,
     const void* context_lens, void* out, void* iscratch, void* fscratch,
-    int T, int H, int Hkv, int D, int N, int R, int nb, float sm_scale,
+    void* runs, int T, int H, int Hkv, int D, int N, int R, int nb, float sm_scale,
     int window, int q_bf16, int kv_int8, int splits, int per, int grid,
     void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -307,6 +310,7 @@ extern "C" int ragged_paged_attention(
   g.order = g.next + 1;
   g.prefix = g.order + R;
   g.info = g.prefix + R + 1;
+  g.runs = static_cast<int*>(runs);
   g.T = T;
   g.R = R;
   g.grid = grid;

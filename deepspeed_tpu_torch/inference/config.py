@@ -70,7 +70,11 @@ class DeepSpeedInferenceConfig:
     quantized_psum_block: int = 256
     #: HF module-injection method
     replace_method: str = "auto"
-    #: capture the decode step as a CUDA graph
+    #: on a CUDA device, capture ``generate``'s decode step (one graph per
+    #: batch and cache length) and the serving engine's unified step (one
+    #: graph per packed width) as CUDA graphs over static buffers and
+    #: replay them; on the CPU the same static-buffer code runs uncaptured.
+    #: The JAX package accepts it for parity (XLA always compiles)
     enable_cuda_graph: bool = False
     #: the JAX package's escape hatch for tensor-parallel degrees above the
     #: kv heads
@@ -131,5 +135,4 @@ _LATER = (
     ("quantize_groups", 32, "legacy-quantization", "2c"),
     ("quantized_psum_block", 256, "distributed", "9"),
     ("allow_unsafe_tp", False, "distributed", "9"),
-    ("enable_cuda_graph", False, "CUDA-graph", "2a"),
 )

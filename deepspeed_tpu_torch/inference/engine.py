@@ -13,6 +13,9 @@ PyTorch runs eagerly, so ``generate`` is a Python loop of one prefill and
 one forward per new token where the JAX engine compiles one program per
 shape bucket; the bucketing itself (pow2 prompt and token counts above
 ``bucket_min``) is kept, so both engines see the same shapes and pads.
+With ``enable_cuda_graph`` the decode step is one CUDA graph, kept for
+the last shape and replayed once a token (see
+:meth:`InferenceEngine.generate`).
 """
 
 import dataclasses
@@ -126,6 +129,12 @@ class InferenceEngine:
         self.module = module
         self._profile_model_time = False
         self._model_times = []
+        #: enable_cuda_graph: the decode loop's tensors and captured graph
+        #: of the last (batch, prompt bucket, new tokens, sampling, EOS),
+        #: at most one entry, and the memory pool of every graph captured
+        #: on this engine
+        self._decode_graphs: Dict[Any, Dict[str, Any]] = {}
+        self._graph_pool = None
         log_dist(f"InferenceEngine: device={self.device}, dtype={dtype}, "
                  f"quantize_weights={qw}", ranks=[0])
 
@@ -161,7 +170,20 @@ class InferenceEngine:
         the model's ``prefill_flash_from_empty`` is set, through the flash
         kernel's masked forward over the fresh K/V (kernel K1). Sampling
         draws from a ``torch.Generator`` seeded with ``seed``
-        (it cannot reproduce ``jax.random``'s draws)."""
+        (it cannot reproduce ``jax.random``'s draws).
+
+        The decode loop updates its tensors in place (the cache, key
+        mask, last token, cache index, EOS flags and output), so a step
+        has fixed inputs. With the config's ``enable_cuda_graph`` they are
+        kept between calls for the last shape that decodes (batch, prompt
+        bucket, new tokens, sampling, EOS id); a decoding call at another
+        shape releases them.
+        On a CUDA device that shape's first decode step then runs eagerly
+        and is captured as one CUDA graph (greedy: the forward, the token
+        and the bookkeeping; sampling: the forward, the draw following
+        eagerly with the generator), which every later step replays; on
+        the CPU nothing is captured. The prefill is never captured. The
+        tokens do not depend on the switch."""
         ids = self._tensor(input_ids, torch.long)
         if ids.dim() == 1:
             ids = ids[None]
@@ -201,10 +223,28 @@ class InferenceEngine:
         module, dev = self.module, self.device
         B, T = ids.shape
         cache_len = T + max_new_tokens
-        cache = module.init_cache(
-            B, cache_len, dtype=torch.int8 if self.config.kv_cache_int8
-            else self.compute_dtype, device=dev)
-        key_mask = torch.zeros((B, cache_len), dtype=torch.int32, device=dev)
+        # with enable_cuda_graph the decode tensors (and, on a CUDA device,
+        # the captured step) of the last shape that decodes are kept for
+        # the next call; a decoding call at another shape releases them
+        # first, a call without a decode step leaves them be
+        graphed = self.config.enable_cuda_graph and max_new_tokens > 1
+        key = (B, T, max_new_tokens, do_sample, eos_token_id)
+        st = self._decode_graphs.get(key) if graphed else None
+        if st is None:
+            if graphed:
+                self._decode_graphs.clear()
+            st = {"cache": module.init_cache(
+                B, cache_len, dtype=torch.int8 if self.config.kv_cache_int8
+                else self.compute_dtype, device=dev),
+                "key_mask": torch.zeros((B, cache_len), dtype=torch.int32,
+                                        device=dev)}
+            if graphed:
+                self._decode_graphs[key] = st
+        else:
+            for t in st["cache"].values():
+                t.zero_()
+            st["key_mask"].zero_()
+        cache, key_mask = st["cache"], st["key_mask"]
         key_mask[:, :T] = mask
         # left-padding-aware positions: pads get 0, real tokens 0..n-1
         positions = (mask.cumsum(dim=-1) - 1).clamp_min(0)
@@ -225,25 +265,83 @@ class InferenceEngine:
         out = torch.full((B, max_new_tokens), eos, dtype=torch.long,
                          device=dev)
         out[:, 0] = tok
-        cache_index = cache_index + T
+        st.update(out=out, tok=tok, done=done, cache_index=cache_index + T,
+                  col=torch.ones((1,), dtype=torch.long, device=dev))
         early_exit = self.config.decode_loop == "while" and \
             eos_token_id is not None
-        for i in range(1, max_new_tokens):
-            if early_exit and bool(done.all()):
-                break           # the tail keeps its EOS fill
-            key_mask.index_fill_(1, cache_index.long().reshape(1), 1)
+        return self._decode(st, sample, do_sample, eos_token_id, early_exit,
+                            graphed and dev.type == "cuda")
+
+    def _decode(self, st, sample, do_sample, eos_token_id, early_exit,
+                capture):
+        """``generate``'s decode loop over the tensors of ``st``: each step
+        updates the cache, key mask, last token, cache index and EOS flags
+        in place and writes its tokens into the output at a device column
+        index, so the step has fixed inputs. With ``capture`` the first
+        step runs eagerly and is then captured as a CUDA graph, kept in
+        ``st`` and replayed by every later step of this and later calls
+        (the inputs of a later call are copied into the captured ones)."""
+        graph = st.get("graph")
+        if graph is not None:
+            for name in ("out", "tok", "done", "cache_index", "col"):
+                st["graph_in"][name].copy_(st[name])
+            st.update(st["graph_in"])
+        module, cache, key_mask = self.module, st["cache"], st["key_mask"]
+        tok, done, out, ci, col = (st["tok"], st["done"], st["out"],
+                                   st["cache_index"], st["col"])
+        eos = eos_token_id if eos_token_id is not None else -1
+
+        def forward():
+            key_mask.index_fill_(1, ci.long().reshape(1), 1)
             pos = key_mask.sum(dim=-1, keepdim=True) - 1
-            logits, cache = module(tok[:, None], cache=cache,
-                                   cache_index=cache_index, positions=pos,
-                                   attention_mask=key_mask)
-            nxt = sample(logits[:, 0])
+            logits, _ = module(tok[:, None], cache=cache, cache_index=ci,
+                               positions=pos, attention_mask=key_mask)
+            return logits[:, 0]
+
+        def advance(lg):
+            nxt = sample(lg)
             if eos_token_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
-                done = done | (nxt == eos)
-            out[:, i] = nxt
-            tok = nxt
-            cache_index = cache_index + 1
-        return out
+                done.logical_or_(nxt == eos)
+            out.index_copy_(1, col, nxt[:, None])
+            tok.copy_(nxt)
+            ci.add_(1)
+            col.add_(1)
+
+        def step():
+            if do_sample:
+                return forward()     # the draw follows, eagerly
+            advance(forward())
+            return None
+
+        for _ in range(1, out.shape[1]):
+            if early_exit and bool(done.all()):
+                break           # the tail keeps its EOS fill
+            graph = st.get("graph")
+            if graph is not None:
+                graph.replay()
+                lg = st["graph_out"]
+            else:
+                lg = step()
+                if capture:
+                    st["graph"], st["graph_out"] = self.capture(step)
+                    st["graph_in"] = dict(out=out, tok=tok, done=done,
+                                          cache_index=ci, col=col)
+            if do_sample:
+                advance(lg)
+        return out.clone()
+
+    def capture(self, fn):
+        """``(graph, output)``: ``fn()`` captured as a CUDA graph. Every
+        graph of the engine, and of a serving engine built on it, shares
+        one memory pool (one runs at a time). A capture that fails
+        raises."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            res = fn()
+        return graph, res
 
     def profile_model_time(self, use_cuda_events: bool = True) -> None:
         """Start collecting per-``generate`` wall latencies, fenced with

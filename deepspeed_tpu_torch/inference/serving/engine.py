@@ -49,8 +49,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ...models.layers import (copy_paged_blocks, harvest_packed_logits,
-                              paged_cache_index)
+from ...models.layers import (PackedIndexBuffers, copy_paged_blocks,
+                              harvest_packed_logits, paged_cache_index)
 from ...monitor.tracing import Tracer
 from ...utils.logging import log_dist
 from ..engine import InferenceEngine, _sample_logits, next_pow2
@@ -62,7 +62,6 @@ from .scheduler import RejectedError, Request, RequestState, Scheduler
 #: value that means "off" (the JAX default), the slice that adds them and
 #: its ROADMAP.md Queue 1 item
 _DEFERRED = {
-    "mixed_step_buckets": (False, "the CUDA-graph step widths", "2a"),
     "spec_tokens": (0, "speculative decoding", "2c"),
     "spec_ngram": (3, "speculative decoding", "2c"),
     "drafter": (None, "speculative decoding", "2c"),
@@ -121,6 +120,16 @@ class ServingConfig:
     #: prompt tokens per step; on the unified step it also sizes the
     #: packed batch (max_batch_size - 1 + budget). 0 = one chunk's worth
     prefill_token_budget: int = 0
+    #: bucketed packed widths for the unified step: instead of every step
+    #: paying the full ``max_batch_size - 1 + budget`` packed width, the
+    #: step runs at the narrowest of a bounded set (powers of two from
+    #: ``max_batch_size`` up to the full width, then the full width) that
+    #: holds its packed tokens, so decode-only steps stop computing padding.
+    #: ``compile_counts["mixed_step"]`` counts the widths run (at most
+    #: ``len(mixed_step_widths)``); with the inference config's
+    #: ``enable_cuda_graph`` each width is its own captured graph. Needs
+    #: ``mixed_step=True``
+    mixed_step_buckets: bool = False
     # -- overload control ---------------------------------------------
     #: queued requests beyond this are rejected (0 = unbounded); a
     #: higher-priority submit displaces the lowest-priority queued request
@@ -145,7 +154,6 @@ class ServingConfig:
     #: N steps (0 = never)
     monitor_every: int = 1
     # -- knobs later slices implement (see _DEFERRED) ------------------
-    mixed_step_buckets: bool = False
     spec_tokens: int = 0
     spec_ngram: int = 3
     drafter: Optional[Any] = None
@@ -217,6 +225,33 @@ class ServingEngine:
         # whole prefill budget
         self._mixed_tokens = max(cfg.max_batch_size,
                                  cfg.max_batch_size - 1 + self._chunk_budget)
+        # packed widths: the full capacity, or with mixed_step_buckets the
+        # powers of two from next_pow2(max_batch_size) below it, then it
+        self._bucket_widths: Optional[List[int]] = None
+        if cfg.mixed_step_buckets:
+            if not self._mixed:
+                raise ValueError("mixed_step_buckets needs mixed_step=True")
+            ws: List[int] = []
+            w = next_pow2(max(1, cfg.max_batch_size))
+            while w < self._mixed_tokens:
+                ws.append(w)
+                w *= 2
+            ws.append(self._mixed_tokens)
+            self._bucket_widths = ws
+        self._widths_run = set()
+        # the unified step runs over static buffers; with enable_cuda_graph
+        # on a CUDA device each width is captured as one CUDA graph (its
+        # first step runs eagerly, then is captured; later steps replay)
+        self._graphed = bool(engine.config.enable_cuda_graph)
+        if self._graphed and not self._mixed:
+            raise NotImplementedError(
+                "enable_cuda_graph on the two-program engine "
+                "(mixed_step=False) arrives with its part of the CUDA-graph "
+                "slice of the port (ROADMAP.md Queue 1, item 2a)")
+        self._static = PackedIndexBuffers(
+            cfg.max_batch_size, cfg.max_model_len // cfg.block_size,
+            self._mixed_tokens, self.device) if self._mixed else None
+        self._graphs: Dict[int, Any] = {}
 
         self.tracer = Tracer(capacity=cfg.trace_capacity, enabled=cfg.trace)
         self.nb_max = cfg.max_model_len // cfg.block_size
@@ -250,8 +285,9 @@ class ServingEngine:
         self._draining = False
         #: manual brownout override: None = automatic (occupancy), else forced
         self._brownout_forced: Optional[bool] = None
-        #: the packed step has one fixed shape, so it is "built" once; the
-        #: two-program engine's plain methods have nothing to count
+        #: the packed step's widths run so far (one without
+        #: mixed_step_buckets); the two-program engine's plain methods have
+        #: nothing to count
         self.compile_counts = {"mixed_step": 0} if self._mixed else {}
         log_dist(f"ServingEngine: slots={B}, pool={cfg.num_blocks}x"
                  f"{cfg.block_size} ({kv_dtype}), max_len="
@@ -511,6 +547,23 @@ class ServingEngine:
         return moved
 
     @property
+    def mixed_step_tokens(self) -> int:
+        """Packed token capacity of the unified step (0 on the two-program
+        engine)."""
+        return self._mixed_tokens if self._mixed else 0
+
+    @property
+    def mixed_step_widths(self) -> List[int]:
+        """Packed widths the unified step may run at: the full capacity
+        alone by default, the bounded bucket set with
+        ``mixed_step_buckets`` (``compile_counts["mixed_step"]`` is bounded
+        by its length); empty on the two-program engine."""
+        if not self._mixed:
+            return []
+        return list(self._bucket_widths) if self._bucket_widths is not None \
+            else [self._mixed_tokens]
+
+    @property
     def prefill_chunk_tokens(self) -> int:
         """The effective prefill chunk length (0 = the two-program
         engine's monolithic prefill); it may differ from the config field,
@@ -677,8 +730,12 @@ class ServingEngine:
             self._finish_step_bookkeeping(t0, brownout)
             return
 
+        # the packed width: the full capacity, or the narrowest bucket that
+        # holds this step's packed tokens
+        W = T if self._bucket_widths is None else \
+            next(w for w in self._bucket_widths if w >= cursor)
         t_dev = time.perf_counter()
-        toks, bad = self._mixed_step(ids, trow, pos, row_start, row_len,
+        toks, bad = self._mixed_step(W, ids, trow, pos, row_start, row_len,
                                      row_cs, row_cl)
         t_end = time.perf_counter()
         if self.tracer.enabled:
@@ -686,7 +743,7 @@ class ServingEngine:
                                  args={"step": self._step_no,
                                        "decode_tokens": len(decodes),
                                        "prefill_tokens": cursor - len(decodes),
-                                       "width": T,
+                                       "width": W,
                                        "rows": len(decodes) + len(prefills)})
         step_no = self._step_no
         for slot, req, n, final in prefills:
@@ -716,28 +773,60 @@ class ServingEngine:
             self._harvest(req, int(toks[row_start[slot]]))
         self._finish_step_bookkeeping(t0, brownout)
 
-    def _mixed_step(self, ids, token_rows, append_pos, row_start, row_len,
-                    chunk_start, context_len):
-        """The packed forward: appends every packed token's KV into the
-        pool (in place), samples every packed position, and flags rows with
-        a NaN/Inf logit. Returns host ``(tokens [T], bad [R])``."""
-        self.compile_counts["mixed_step"] = 1
-        dev = self.device
-        idx = paged_cache_index(self._tables, append_pos, context_len,
-                                chunk_start=chunk_start,
-                                token_rows=token_rows,
-                                query_start=row_start, query_len=row_len,
-                                device=dev)
+    def _mixed_step(self, width, ids, token_rows, append_pos, row_start,
+                    row_len, chunk_start, context_len):
+        """The packed forward at ``width`` packed tokens (the packed
+        arrays hold the full capacity; the step's tokens are their first
+        ``width``): appends every packed token's KV into the pool (in
+        place), samples every packed position, and flags rows with a
+        NaN/Inf logit. Returns host ``(tokens [width], bad [R])``.
+
+        The step runs over static buffers: its arrays go to the device in
+        one copy, the device work (:meth:`_packed_forward`) reads them
+        there, and the tokens and flags come back in one read. With
+        ``enable_cuda_graph`` on a CUDA device a width's first step runs
+        eagerly and is then captured as a CUDA graph, which every later
+        step at that width replays. Greedy tokens are taken inside that
+        work; sampled ones after it, from the harvested logits with the
+        engine's generator."""
+        self._widths_run.add(width)
+        self.compile_counts["mixed_step"] = len(self._widths_run)
         cfg = self.config
+        self._static.fill(ids, token_rows, append_pos, self._tables,
+                          row_start, row_len, chunk_start, context_len)
+        graph = self._graphs.get(width)
+        if graph is not None:
+            graph[0].replay()
+            out = graph[1]
+        else:
+            out = self._packed_forward(width)
+            if self._graphed and self.device.type == "cuda":
+                self._graphs[width] = self.engine.capture(
+                    lambda: self._packed_forward(width))
+        if cfg.do_sample:
+            lg, bad = out
+            with torch.inference_mode():
+                tok = _sample_logits(lg, self._gen, True, cfg.temperature,
+                                     cfg.top_k, cfg.top_p)
+                out = torch.cat([tok.int(), bad.int()])
+        res = out.cpu().numpy()
+        return res[:width], res[width:] != 0
+
+    def _packed_forward(self, width):
+        """The packed step's device work at ``width`` over the static
+        buffers: the forward (the pool appended in place), the harvest, and
+        for greedy decoding the tokens; returns ``[width + R]`` int32
+        (tokens, then the NaN flags) or, when sampling, ``(logits [width,
+        V], flags [R])``."""
+        ids, idx = self._static.index(width)
         with torch.inference_mode():
-            ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
-            logits, self.pool = self.engine.module(ids_t, cache=self.pool,
-                                                   cache_index=idx)
+            logits, _ = self.engine.module(ids.long(), cache=self.pool,
+                                           cache_index=idx)
             lg, bad = harvest_packed_logits(logits, idx["token_rows"],
-                                            cfg.max_batch_size)
-            tok = _sample_logits(lg, self._gen, cfg.do_sample,
-                                 cfg.temperature, cfg.top_k, cfg.top_p)
-        return tok.cpu().numpy(), bad.cpu().numpy()
+                                            self.config.max_batch_size)
+            if self.config.do_sample:
+                return lg, bad
+            return torch.cat([lg.argmax(dim=-1).int(), bad.int()])
 
     # ------------------------------------------------------------------
     # the two-program engine (mixed_step=False)

@@ -13,6 +13,7 @@ attention core, the loss and the LM head. For every path: the projection
 factory ``model_dense`` and its quantized layer ``QuantLinear``.
 """
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -94,11 +95,20 @@ def rotary_embedding(positions: torch.Tensor, head_dim: int,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RoPE cos/sin tables for positions ``[B, T]`` -> ``[B, T, head_dim/2]``,
     computed in fp32 and cast to ``dtype`` (the activation dtype)."""
+    freqs = positions[..., None].float() * _inv_freq(head_dim, theta,
+                                                     positions.device)
+    return freqs.cos().to(dtype), freqs.sin().to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, device: torch.device
+              ) -> torch.Tensor:
+    """RoPE's inverse frequencies on ``device``, copied there once (a copy
+    from host memory cannot be captured in a CUDA graph)."""
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
                                 / head_dim))
-    freqs = positions[..., None].float() * torch.from_numpy(
-        inv_freq).to(positions.device)
-    return freqs.cos().to(dtype), freqs.sin().to(dtype)
+    with torch.inference_mode(False):   # a normal tensor, for training too
+        return torch.from_numpy(inv_freq).to(device)
 
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
@@ -279,17 +289,79 @@ def paged_cache_index(block_tables, append_pos, context_len,
     return out
 
 
+class PackedIndexBuffers:
+    """Static buffers of the packed step's inputs: the token ids and the
+    fields of :func:`paged_cache_index`, int32, for ``R`` rows of ``nb``
+    table entries and up to ``width`` packed tokens. A step writes its
+    numpy arrays into one host buffer (pinned for a CUDA device) and
+    copies it to the device buffer in one transfer (:meth:`fill`);
+    :meth:`index` gives the ids and the bundle at a width as views of the
+    device buffer, so a CUDA graph captured over them replays with each
+    step's values."""
+
+    _ROWS = ("query_start", "query_len", "chunk_start", "context_len")
+
+    def __init__(self, rows: int, table_width: int, width: int, device):
+        device = torch.device(device)
+        shapes = [("ids", (width,)), ("token_rows", (width,)),
+                  ("append_pos", (width,))] + \
+            [(n, (rows,)) for n in self._ROWS] + \
+            [("block_tables", (rows, table_width))]
+        total = sum(int(np.prod(shape)) for _, shape in shapes)
+        self.host = torch.zeros(total, dtype=torch.int32,
+                                pin_memory=device.type == "cuda")
+        self.buffer = torch.zeros(total, dtype=torch.int32, device=device)
+        self._host_views, self._dev_views, at = {}, {}, 0
+        for name, shape in shapes:
+            n = int(np.prod(shape))
+            self._host_views[name] = self.host.numpy()[at:at + n].reshape(
+                shape)
+            self._dev_views[name] = self.buffer[at:at + n].view(shape)
+            at += n
+
+    def fill(self, ids, token_rows, append_pos, block_tables, query_start,
+             query_len, chunk_start, context_len) -> None:
+        """One step's arrays (the packed ones ``[1, width]`` or
+        ``[width]``) into the host buffer, then the one copy to the
+        device, on the current stream."""
+        arrays = dict(ids=ids, token_rows=token_rows, append_pos=append_pos,
+                      block_tables=block_tables, query_start=query_start,
+                      query_len=query_len, chunk_start=chunk_start,
+                      context_len=context_len)
+        for name, a in arrays.items():
+            dst = self._host_views[name]
+            dst[...] = np.asarray(a).reshape(dst.shape)
+        self.buffer.copy_(self.host, non_blocking=True)
+
+    def index(self, width: int):
+        """``(ids [1, width], bundle)`` on the device: the bundle is
+        :func:`paged_cache_index`'s at ``width`` packed tokens."""
+        v = self._dev_views
+        bundle = {"block_tables": v["block_tables"],
+                  "append_pos": v["append_pos"][:width].view(1, width),
+                  "token_rows": v["token_rows"][:width].view(1, width)}
+        for name in self._ROWS:
+            bundle[name] = v[name]
+        return v["ids"][:width].view(1, width), bundle
+
+
 def is_paged_index(cache_index) -> bool:
     """True when ``cache_index`` is a paged-cache bundle."""
     return isinstance(cache_index, dict) and "block_tables" in cache_index
 
 
 def _packed_write_targets(cache_index, num_blocks: int, block_size: int):
-    """``(token, page, offset)`` of every packed token whose KV lands in the
-    pool. Padding (``append_pos < 0`` or ``token_rows < 0``), positions past
-    the table width and unallocated (sentinel) table entries are dropped.
-    Computed once per step (one host sync for the compaction) and kept in
-    the bundle, which every layer of the step shares."""
+    """``(page, offset, source, lands)`` of the packed step's append, one
+    entry per packed token (``[B * T]``, fixed shapes, no host sync, so a
+    CUDA graph captures it). A token that lands writes its own KV
+    (``source`` = itself) at ``pool[page, :, offset]``. A token that must
+    not land (padding: ``append_pos < 0`` or ``token_rows < 0``; a position
+    past the table width; an unallocated, sentinel, table entry) takes the
+    target and the source of the first token that lands, so it writes the
+    same value to the same place again. ``lands`` (0-dim) is False when no
+    token lands: every entry then targets page 0, offset 0, and the caller
+    writes back the value already there. Computed once per step and kept
+    in the bundle, which every layer of the step shares."""
     key = (num_blocks, block_size)
     memo = cache_index.get("write_targets")
     if memo is not None and memo[0] == key:
@@ -303,8 +375,12 @@ def _packed_write_targets(cache_index, num_blocks: int, block_size: int):
     bids = tables[rows.clamp(0, R - 1), blk.clamp_max(nb - 1)].long()
     valid = (pos >= 0) & (rows >= 0) & (blk < nb) & (bids >= 0) \
         & (bids < num_blocks)
-    tok = valid.nonzero().squeeze(1)
-    targets = (tok, bids[tok], off[tok])
+    lands = valid.any()
+    src = torch.where(valid, torch.arange(pos.numel(), device=pos.device),
+                      valid.int().argmax())
+    zero = torch.zeros((), dtype=torch.long, device=pos.device)
+    targets = (torch.where(lands, bids[src], zero),
+               torch.where(lands, off[src], zero), src, lands)
     cache_index["write_targets"] = (key, targets)
     return targets
 
@@ -316,26 +392,29 @@ def update_paged_kv_cache(layer_cache, k, v, cache_index):
     the token's batch row (the two-program engine's decode step and
     prefills) or, in the packed mixed step, ``token_rows`` names it. Pads
     (``append_pos < 0``), positions past the table width and sentinel
-    targets are dropped, never written. An int8 pool quantizes at append
-    (absmax per token and kv head). Returns ``layer_cache``."""
+    targets change no page (as the JAX model's out-of-bounds scatter drops
+    them): they repeat a landing token's write (see
+    :func:`_packed_write_targets`), so every step writes the same number
+    of rows. An int8 pool quantizes at append (absmax per token and kv
+    head). Returns ``layer_cache``."""
     num_blocks, Hkv, bs, D = layer_cache["k"].shape
     if "token_rows" not in cache_index:
         B, T = cache_index["append_pos"].shape
         cache_index = dict(cache_index, token_rows=torch.arange(
             B, device=k.device, dtype=torch.int32)[:, None].expand(B, T))
-    tok, bids, off = _packed_write_targets(cache_index, num_blocks, bs)
-    k = k.reshape(-1, Hkv, D)[tok]
-    v = v.reshape(-1, Hkv, D)[tok]
+    page, off, src, lands = _packed_write_targets(cache_index, num_blocks,
+                                                  bs)
+    k = k.reshape(-1, Hkv, D)[src]
+    v = v.reshape(-1, Hkv, D)[src]
     if "k_scale" in layer_cache:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        layer_cache["k"][bids, :, off] = kq
-        layer_cache["v"][bids, :, off] = vq
-        layer_cache["k_scale"][bids, :, off] = ks
-        layer_cache["v_scale"][bids, :, off] = vs
+        vals = (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
     else:
-        layer_cache["k"][bids, :, off] = k.to(layer_cache["k"].dtype)
-        layer_cache["v"][bids, :, off] = v.to(layer_cache["v"].dtype)
+        vals = (("k", k), ("v", v))
+    for name, val in vals:
+        t = layer_cache[name]
+        t[page, :, off] = torch.where(lands, val.to(t.dtype), t[0, :, 0])
     return layer_cache
 
 

@@ -25,8 +25,11 @@ card's SM count, :func:`gemv_tc_grid`), bf16 rows TMA cannot address
 (``K % 8`` or ``N % 16`` not 0) the one-launch ``ragged`` kernel at any M
 (row tile from M, column tile and cluster from the shape and the SM count,
 :func:`ragged_grid`), fp32 prefills the tensor cores on x split in two
-TF32 parts (:func:`fp32_grid`) and fp32 decodes the CUDA-core GEMV. The
-design note is at the top of the CUDA source.
+TF32 parts (:func:`fp32_grid`) and fp32 decodes the one-launch
+``gemv_tf32`` kernel, the same arithmetic in gemv_tc's arrangement (K split
+over the warps and a cluster sized from the SM count,
+:func:`gemv_tf32_grid`). The design note is at the top of the CUDA
+source.
 """
 
 import ctypes
@@ -61,13 +64,15 @@ def kernel_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     - ``"wgmma"``: bf16 ``x``, ``M > 8``, and rows TMA can address;
     - ``"ragged"``: bf16 ``x`` whose rows TMA cannot address, any ``M``:
       one launch of the ragged kernel (:func:`ragged_grid`);
-    - ``"gemv"``: fp32 ``x``, ``M <= 8``: the CUDA-core GEMV, split K and
-      a finalize pass;
+    - ``"gemv_tf32"``: fp32 ``x``, ``M <= 8``: one launch on the tensor
+      cores, the codes exact in TF32 and x split in two TF32 parts, K
+      split over the warps and a thread-block cluster
+      (:func:`gemv_tf32_grid`);
     - ``"fp32"``: fp32 ``x``, ``M > 8``: tensor-core tiles on x split in
       two TF32 parts, K split over blocks (:func:`fp32_splits`)."""
     decode = M <= GEMV_MAX_ROWS
     if dtype != torch.bfloat16:
-        return "gemv" if decode else "fp32"
+        return "gemv_tf32" if decode else "fp32"
     if K % 8 == 0 and N % 16 == 0:
         return "gemv_tc" if decode else "wgmma"
     return "ragged"
@@ -303,22 +308,25 @@ def fp32_grid(M: int, K: int, N: int, sm_count: int) -> Tuple[int, int, int]:
             fp32_splits(M, K, N, sm_count))
 
 
-#: blocks the split route of the decode path aims for: four per SM
-_GEMV_BLOCKS_PER_SM = 4
+#: W columns of a ``gemv_tf32`` block
+GEMV_TF32_COLS = 128
+#: ``gemv_tf32`` blocks the cluster aims for per SM (a block's 4 warps'
+#: rings take 64-96 KB of shared memory; two blocks of 4 warps an SM ran
+#: int4 28% faster than one of 8 on the H100, PERF.md)
+GEMV_TF32_BLOCKS_PER_SM = 2
 
 
-def _gemv_splits(K: int, N: int, G: int, int4: bool, sm_count: int) -> int:
-    """K-splits of the ``gemv`` route (fp32 x, M <= 8): enough blocks to
-    give every SM four, each split at least 256 rows, so the fp32
-    partials stay small beside the codes. The CUDA-core GEMV tiles 256
-    columns and splits whole scale groups (or nibble pairs), as the
-    kernel does."""
-    unit = K // G if G > 1 else (2 if int4 else 1)
-    tiles, units = -(-N // 256), K // unit
-    want = max(1, min(units, -(-_GEMV_BLOCKS_PER_SM * sm_count // tiles),
-                      K // 256))
-    per = -(-units // want)
-    return -(-units // per)
+def gemv_tf32_grid(K: int, N: int, sm_count: int) -> Tuple[int, int]:
+    """``(column tiles, cluster size)`` of the ``gemv_tf32`` kernel: one
+    block per 128 W columns and cluster rank, the ranks sharing the K
+    axis's 8-row steps (rank ``r`` of ``C`` takes steps ``r * n8 // C`` to
+    ``(r + 1) * n8 // C``, its 4 warps contiguous quarters of those). The
+    cluster size is the largest that keeps ``tiles * C`` within
+    :data:`GEMV_TF32_BLOCKS_PER_SM` blocks an SM of ``sm_count`` (one
+    wave), at most 8 and at most one rank per step; at least 1."""
+    tiles = -(-N // GEMV_TF32_COLS)
+    fit = GEMV_TF32_BLOCKS_PER_SM * sm_count // tiles
+    return tiles, max(1, min(GEMV_TC_MAX_CLUSTER, -(-K // 8), fit))
 
 
 def _launch(name, x, codes, scale, mode, N, G, route):
@@ -343,9 +351,7 @@ def _launch(name, x, codes, scale, mode, N, G, route):
             work = torch.empty((splits, M, N), dtype=torch.float32,
                                device=x.device)
     else:
-        splits = _gemv_splits(K, N, G, mode == "int4", sms)
-        work = torch.empty((splits, M, N), dtype=torch.float32,
-                           device=x.device)
+        splits = gemv_tf32_grid(K, N, sms)[1]
     with torch.cuda.device(x.device):
         rc = _entry()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
                       out.data_ptr(), work.data_ptr(), M, K, N, G,
@@ -389,7 +395,8 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     stream and add one to ``quant_matmul.launches`` (and to
     ``quant_matmul.wgmma_launches`` on the ``wgmma`` route,
     ``quant_matmul.gemv_tc_launches`` on ``gemv_tc``,
-    ``quant_matmul.ragged_launches`` on ``ragged``); CPU tensors
+    ``quant_matmul.ragged_launches`` on ``ragged``,
+    ``quant_matmul.gemv_tf32_launches`` on ``gemv_tf32``); CPU tensors
     take :func:`quant_matmul_plain`; anything else raises."""
     _check_mode(mode)
     dev = _check("quant_matmul", x, codes, scale)
@@ -419,6 +426,8 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         quant_matmul.gemv_tc_launches += 1
     elif route == "ragged":
         quant_matmul.ragged_launches += 1
+    elif route == "gemv_tf32":
+        quant_matmul.gemv_tf32_launches += 1
     return out
 
 
@@ -427,7 +436,8 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
     """``(x [M, K] @ codes [K, N]) * scale [N]`` in ``x.dtype`` (kernel K8;
     see the plain version). CUDA tensors launch the kernel and add one to
     ``int8_matmul.launches`` (and ``int8_matmul.gemv_tc_launches`` on the
-    ``gemv_tc`` route, ``int8_matmul.ragged_launches`` on ``ragged``);
+    ``gemv_tc`` route, ``int8_matmul.ragged_launches`` on ``ragged``,
+    ``int8_matmul.gemv_tf32_launches`` on ``gemv_tf32``);
     CPU tensors take :func:`int8_matmul_plain`; anything else
     raises."""
     dev = _check("int8_matmul", x, codes, scale)
@@ -448,12 +458,16 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
         int8_matmul.gemv_tc_launches += 1
     elif route == "ragged":
         int8_matmul.ragged_launches += 1
+    elif route == "gemv_tf32":
+        int8_matmul.gemv_tf32_launches += 1
     return out
 
 
 #: launches of each wrapper, and of those the ones on the wgmma prefill,
-#: on the gemv_tc decode kernel and on the ragged kernel
+#: on the gemv_tc decode kernel, on the ragged kernel and on the fp32
+#: decode kernel
 quant_matmul.launches = quant_matmul.wgmma_launches = 0
 quant_matmul.gemv_tc_launches = quant_matmul.ragged_launches = 0
+quant_matmul.gemv_tf32_launches = 0
 int8_matmul.launches = int8_matmul.gemv_tc_launches = 0
-int8_matmul.ragged_launches = 0
+int8_matmul.ragged_launches = int8_matmul.gemv_tf32_launches = 0

@@ -112,10 +112,10 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
 def _entry():
     fn = _build.load("ragged_attention").ragged_paged_attention
     P, I = ctypes.c_void_p, ctypes.c_int
-    # q k v k_scale v_scale tables qs ql cs cl out iscratch fscratch |
-    # T H Hkv D N R nb | sm_scale window q_bf16 kv_int8 splits per grid |
-    # stream
-    fn.argtypes = [P] * 13 + [I] * 7 + [ctypes.c_float] + [I] * 6 + [P]
+    # q k v k_scale v_scale tables qs ql cs cl out iscratch fscratch runs
+    # | T H Hkv D N R nb | sm_scale window q_bf16 kv_int8 splits per grid
+    # | stream
+    fn.argtypes = [P] * 14 + [I] * 7 + [ctypes.c_float] + [I] * 6 + [P]
     fn.restype = I
     return fn
 
@@ -174,7 +174,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
     """Unified ragged paged attention (see the plain version for the
     arguments). CUDA tensors launch the kernel on the current stream (the
     item layout, the split walk and the merge, in one C call) and add one
-    to ``ragged_paged_attention.launches``; CPU tensors take the plain
+    to ``ragged_paged_attention.launches`` (and, on the device, to the
+    count :func:`kernel_runs` reads); CPU tensors take the plain
     version; anything else raises. The descriptors stay on the device: the
     launch depends on the shapes only (:func:`launch_params`), so a
     captured CUDA graph replays for new descriptor values. bf16 q runs on
@@ -222,7 +223,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
         rc = _entry()(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             block_tables.data_ptr(), *(d.data_ptr() for d in descriptors),
-            out.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(), T, H,
+            out.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(),
+            _runs(dev).data_ptr(), T, H,
             Hkv, D, N, R, nb, float(sm_scale),
             0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
@@ -236,3 +238,38 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
 
 
 ragged_paged_attention.launches = 0
+
+#: per device, an int32 [1] that every launch adds one to when it runs
+_RUNS = {}
+
+
+def _runs(dev: torch.device) -> torch.Tensor:
+    runs = _RUNS.get(dev)
+    if runs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ragged_paged_attention: launch the kernel "
+                               "once before capturing it in a CUDA graph "
+                               "(its run counter is allocated then)")
+        runs = _RUNS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return runs
+
+
+def _indexed(device) -> torch.device:
+    dev = torch.device(device)
+    return dev if dev.index is not None else \
+        torch.device(dev.type, torch.cuda.current_device())
+
+
+def kernel_runs(device="cuda") -> int:
+    """The launches of the kernel that ran on ``device`` since
+    :func:`reset_kernel_runs`: the kernel adds one itself, so replays of
+    a captured CUDA graph count and captures do not (the Python counter
+    ``ragged_paged_attention.launches`` ticks where the wrapper runs, at
+    capture). Waits for the device."""
+    runs = _RUNS.get(_indexed(device))
+    return 0 if runs is None else int(runs.item())
+
+
+def reset_kernel_runs(device="cuda") -> None:
+    """Set :func:`kernel_runs` to 0 on ``device``."""
+    _runs(_indexed(device)).zero_()

@@ -22,6 +22,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention_plain, paged_prefill_attention,
     paged_prefill_attention_plain)
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam, fused_adam_plain
+from deepspeed_tpu_torch.ops import ragged_attention as ra
 from deepspeed_tpu_torch.ops.ragged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
 from deepspeed_tpu_torch.ops.sparse_attention import (
@@ -505,6 +506,95 @@ def test_ragged_sums_in_a_fixed_order(cuda, case):
     assert not got[1:].any()
 
 
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 4096), (1, 264, 1001),
+                                   (5, 263, 33), (8, 14336, 4096),
+                                   (8, 4096, 14336)])
+def test_gemv_tf32_is_one_launch_matches_plain_and_replays(cuda, M, K, N):
+    """K5's and K8's fp32 decode (``gemv_tf32_kernel``) for int8, int4 in
+    groups of 64 and 6, and K8's per-column mode: one kernel a call (no
+    finalize, no scratch), within |kernel - plain| <= 1e-5 (|x| @ |W|) at
+    aligned N (TMA) and odd N (cp.async windows), bitwise repeatable, and
+    a CUDA graph captured around one call and replayed over new x values
+    matches the plain version each time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn(K, N, generator=g, device=cuda) * 0.02
+    calls = [(mode, *qm.quantize_linear_weight(w, mode, group))
+             for mode, group in (("int8", 0), ("int8", 64), ("int4", 64),
+                                 ("int4", 6))
+             if mode == "int8" or K % 2 == 0]
+    calls.append(("int8_col", *qm.quantize_weight_per_col(w)))
+    assert qm.kernel_route(M, K, N, torch.float32) == "gemv_tf32"
+    for mode, codes, scale in calls:
+        def call(x):
+            if mode == "int8_col":
+                return qm.int8_matmul(x, codes, scale)
+            return qm.quant_matmul(x, codes, scale, mode)
+
+        def check(got, x):
+            if mode == "int8_col":
+                ref = qm.int8_matmul_plain(x, codes, scale)
+                dense = codes.float() * scale
+            else:
+                ref = qm.quant_matmul_plain(x, codes, scale, mode)
+                dense = qm.dequantize_linear_weight(codes, scale, mode)
+            torch.cuda.synchronize()
+            _assert_matmul_close(got, ref, x, dense)
+
+        x = torch.randn(M, K, generator=g, device=cuda)
+        got = call(x)
+        check(got, x)
+        assert torch.equal(got, call(x)), mode
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call(x)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type.name == "CUDA"
+                   and "memcpy" not in e.name.lower()
+                   and "memset" not in e.name.lower()]
+        assert len(kernels) == 1 and "gemv_tf32_kernel" in kernels[0], \
+            (mode, kernels)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = call(x)
+        for _ in range(3):
+            x.copy_(torch.randn(M, K, generator=g, device=cuda))
+            graph.replay()
+            check(got, x)
+
+
+@pytest.mark.parametrize("across_ranks", [True, False],
+                         ids=["cluster_ranks", "warps"])
+def test_gemv_tf32_sums_in_a_fixed_order(cuda, across_ranks):
+    """The CPU test's ``gemv_tf32_order_case`` on the card (N 128, a
+    cluster of 8): int8 codes and per-column scales of 1, row 0 of x zero
+    but for 2**25, -2**25 and 1 at the first K row of ranks 0, 1, 2 (K 384:
+    6 steps a rank) or of warps 0, 1, 2 of rank 0 (K 1024: 4 steps a
+    warp). Every warp's sum is exact, and only the kernel's order gives
+    exactly 1 (the reverse gives 0)."""
+    K, N = (384 if across_ranks else 1024), 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    C = qm.gemv_tf32_grid(K, N, sms)[1]
+    assert C == 8
+    n8 = K // 8
+
+    def first(r, w):     # the first step of warp w (of 4) of rank r
+        s0, n = r * n8 // C, (r + 1) * n8 // C - r * n8 // C
+        return s0 + w * n // 4
+
+    firsts = [first(i, 0) for i in range(3)] if across_ranks else \
+        [first(0, i) for i in range(3)]
+    x = torch.zeros(2, K, device=cuda)
+    for s, v in zip(firsts, (2.0 ** 25, -2.0 ** 25, 1.0)):
+        x[0, 8 * s] = v
+    codes = torch.ones(K, N, dtype=torch.int8, device=cuda)
+    got = qm.quant_matmul(x, codes, torch.ones(1, N, device=cuda), "int8")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.ones(N, device=cuda))
+    assert not got[1].any()
+
+
 def _assert_matmul_close(got, ref, x, w):
     mag = x.float().abs() @ w.float().abs()
     rel = 0.0 if x.dtype == torch.float32 else 2 ** -7
@@ -528,7 +618,7 @@ def test_quant_matmul_kernel_matches_plain(cuda, dtype, mode, group, M, K,
                                            N):
     """K5's decode paths (M <= 8: gemv_tc where TMA can address the rows,
     at Llama-3-8B's k/v, up and down shapes too; the ragged kernel at
-    ragged N and K; the split GEMV for fp32) and tiled paths (M > 8,
+    ragged N and K; gemv_tf32 for fp32) and tiled paths (M > 8,
     ragged M/N/K tails) against the plain version. bf16 rows TMA cannot
     address take the ragged kernel at N 1000 (M 16 and 24: its 16- and
     32-row tiles, the latter two k16 steps a warp), 520 and 14330 (code
@@ -807,10 +897,12 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
     ragged_paged_attention(q, k, v, *desc, window=window)   # warm-up
     torch.cuda.synchronize()
     before = ragged_paged_attention.launches
+    ra.reset_kernel_runs()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = ragged_paged_attention(q, k, v, *desc, window=window)
     assert ragged_paged_attention.launches == before + 1
+    assert ra.kernel_runs() == 0, "a capture runs nothing"
     fp32 = dtype == torch.float32
     tol = dict(rtol=1e-5 if fp32 else 2 ** -7, atol=1e-5 if fp32 else 1e-3)
     for t in tables[1:] + tables[:1]:
@@ -821,6 +913,7 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), ref.float(), **tol)
         assert not got[t[5]:].any(), "unclaimed tokens are zeros"
+    assert ra.kernel_runs() == len(tables), "each replay ran K6 once"
 
     # K7a: the sequences of each layout, one token at context_len - 1
     B = len(RAGGED_REPLAYS[0])
@@ -1116,3 +1209,86 @@ def test_block_sparse_kernels_refuse_what_they_do_not_cover(cuda):
     with pytest.raises(ValueError, match="bf16 or"):
         h = q.half()
         bsa.block_sparse_attention_fwd(h, h, h, ones(2, 4), 64)
+
+
+#: a 2-layer fp32 Llama whose heads the kernels take (head_dim 128, GQA
+#: group 2), as chip_smoke.py's small reference
+SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+             num_hidden_layers=2, num_attention_heads=2,
+             num_key_value_heads=1)
+
+
+@pytest.mark.parametrize("weights", [None, "int8"], ids=["fp32", "int8"])
+def test_serving_step_replays_as_cuda_graphs(cuda, weights):
+    """The unified serving step with enable_cuda_graph and bucketed widths
+    (each width's first step eager, then captured; later steps replay)
+    serves the uncaptured engine's tokens on the card, leaks no page, and
+    K6 runs once per layer per step on the device."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SMALL)
+    params = LlamaForCausalLM(cfg).init_params(seed=3, device=cuda)
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, 512, int(n)) for n in (5, 90, 33, 17, 60, 8)]
+    outs = []
+    for graphed in (False, True):
+        eng = dt.init_inference(LlamaForCausalLM(cfg), params=params,
+                                dtype="fp32", quantize_weights=weights,
+                                enable_cuda_graph=graphed)
+        srv = dt.ServingEngine(eng, dt.ServingConfig(
+            max_batch_size=4, block_size=16, num_blocks=64,
+            max_model_len=128, prefill_token_budget=32, trace=True,
+            mixed_step_buckets=graphed))
+        rids = [srv.submit(p, max_new_tokens=10) for p in prompts]
+        ra.reset_kernel_runs()
+        res = srv.run()
+        steps = sum(e["name"] == "mixed_step" for e in srv.tracer.events())
+        assert ra.kernel_runs() == cfg.num_hidden_layers * steps
+        assert srv.block_pool.used_count == 0
+        outs.append([(res[r].state, res[r].tokens) for r in rids])
+        if graphed:
+            assert len(srv._graphs) == srv.compile_counts["mixed_step"] > 1
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("gen_kw", [dict(), dict(eos_token_id=-7),
+                                    dict(do_sample=True, top_k=20, seed=5)],
+                         ids=["greedy", "eos", "sampled"])
+def test_generate_decode_replays_as_a_cuda_graph(cuda, gen_kw):
+    """generate with enable_cuda_graph (the decode step one captured graph
+    for the last shape, replayed once a token) gives the uncaptured loop's tokens
+    on the card, on a second call too (the graph replayed from the
+    start), greedy, with an EOS, and sampled; a call at another batch
+    replaces the graph, and the first shape is then captured again."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SMALL)
+    params = LlamaForCausalLM(cfg).init_params(seed=3, device=cuda)
+    rs = np.random.RandomState(6)
+    ids = rs.randint(1, 512, (3, 40))
+    mask = np.ones_like(ids)
+    mask[0, :30] = 0
+    kw = dict(gen_kw, max_new_tokens=20)
+    engines = [dt.init_inference(LlamaForCausalLM(cfg), params=params,
+                                 dtype="fp32", quantize_weights="int8",
+                                 enable_cuda_graph=graphed)
+               for graphed in (False, True)]
+    want = engines[0].generate(ids, attention_mask=mask, **{
+        **kw, "eos_token_id": None})
+    if "eos_token_id" in kw:
+        kw["eos_token_id"] = int(want[0, 3])
+        want = engines[0].generate(ids, attention_mask=mask, **kw)
+    for _ in range(2):
+        got = engines[1].generate(ids, attention_mask=mask, **kw)
+        assert torch.equal(got, want)
+    assert "graph" in next(iter(engines[1]._decode_graphs.values()))
+    # another batch releases the graph; the first shape is captured anew
+    other = engines[1].generate(ids[:2], attention_mask=mask[:2], **kw)
+    assert torch.equal(other, engines[0].generate(ids[:2],
+                                                  attention_mask=mask[:2],
+                                                  **kw))
+    assert torch.equal(engines[1].generate(ids, attention_mask=mask, **kw),
+                       want)
+    assert len(engines[1]._decode_graphs) == 1

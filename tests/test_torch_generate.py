@@ -88,6 +88,13 @@ CASES = {
                              dict(quantize_weights="int4",
                                   quantize_group_size=32,
                                   kv_cache_int8=True)),
+    # the static decode loop that a CUDA device captures, run uncaptured
+    "cuda_graph_loop": ((5, 11, 3), dict(max_new_tokens=12),
+                        dict(enable_cuda_graph=True)),
+    "cuda_graph_loop_int8_weights_int8_kv": (
+        (9, 4), dict(max_new_tokens=9),
+        dict(enable_cuda_graph=True, quantize_weights="int8",
+             kv_cache_int8=True)),
 }
 
 
@@ -180,6 +187,62 @@ def test_eos_tokens_identical_to_jax(tiny, decode_loop, lens):
     np.testing.assert_array_equal(got, want)
     row = list(got[0])
     assert row[row.index(eos):] == [eos] * (12 - row.index(eos))
+
+
+@pytest.mark.parametrize("gen_kw", [
+    dict(max_new_tokens=12), dict(max_new_tokens=12, eos_token_id="early"),
+    dict(max_new_tokens=10, do_sample=True, top_k=20, seed=3)],
+    ids=["greedy", "eos", "sampled"])
+def test_static_decode_loop_repeats_the_uncaptured_tokens(tiny, gen_kw):
+    """With enable_cuda_graph (uncaptured on the CPU) generate keeps the
+    decode tensors of its last shape between calls: two calls on one
+    engine, and a call at another prompt length in between, give the
+    tokens of an engine that keeps nothing, greedy, with an EOS that stops
+    the loop early, and sampled (the draws follow the step with the same
+    generator)."""
+    _, _, sd = tiny
+    engines = [dt.init_inference(LlamaForCausalLM(LlamaConfig.tiny()),
+                                 params=sd, dtype="fp32", device="cpu",
+                                 enable_cuda_graph=graphed)
+               for graphed in (False, True)]
+    ids, mask = _prompts((5, 11, 3), seed=8)
+    other, omask = _prompts((4, 2), seed=9)
+    kw = dict(gen_kw)
+    if kw.get("eos_token_id") == "early":
+        kw["eos_token_id"] = int(engines[0].generate(
+            ids, attention_mask=mask, max_new_tokens=4)[0, 2])
+    want = engines[0].generate(ids, attention_mask=mask, **kw)
+    want_other = engines[0].generate(other, attention_mask=omask, **kw)
+    static = engines[1]
+    assert torch.equal(static.generate(ids, attention_mask=mask, **kw), want)
+    assert torch.equal(static.generate(other, attention_mask=omask, **kw),
+                       want_other)
+    assert torch.equal(static.generate(ids, attention_mask=mask, **kw), want)
+    assert len(static._decode_graphs) == 1 and not engines[0]._decode_graphs
+
+
+def test_graphed_decode_keeps_only_the_last_shape(tiny):
+    """enable_cuda_graph keeps the decode tensors of one shape: each
+    decoding call at another batch, prompt bucket, token count or EOS id
+    releases the last one's, and a call without a decode step (one new
+    token) keeps them."""
+    _, _, sd = tiny
+    eng = dt.init_inference(LlamaForCausalLM(LlamaConfig.tiny()), params=sd,
+                            dtype="fp32", device="cpu",
+                            enable_cuda_graph=True)
+    calls = [((5, 11, 3), dict(max_new_tokens=6)),
+             ((4, 2), dict(max_new_tokens=6)),
+             ((20, 9), dict(max_new_tokens=6)),
+             ((4, 2), dict(max_new_tokens=12)),
+             ((4, 2), dict(max_new_tokens=12, eos_token_id=5))]
+    for i, (lens, kw) in enumerate(calls):
+        ids, mask = _prompts(lens, seed=10 + i)
+        eng.generate(ids, attention_mask=mask, **kw)
+        assert len(eng._decode_graphs) == 1
+        key = next(iter(eng._decode_graphs))
+        eng.generate(ids, attention_mask=mask, max_new_tokens=1)
+        assert list(eng._decode_graphs) == [key]
+    assert key[0] == 2 and key[3:] == (False, 5)
 
 
 def test_early_exit_stops_decoding(tiny, monkeypatch):

@@ -78,6 +78,62 @@ def test_packed_append_matches_jax_and_drops_pads_and_sentinels(int8):
     assert written == {(1, 1), (1, 2), (1, 3), (5, 2), (5, 3), (0, 0)}
 
 
+def _compacting_append(pool, k, v, idx):
+    """The append the fixed-shape one replaced: the tokens that land are
+    compacted with ``nonzero`` (a host sync, a data-dependent shape) and
+    only they are written."""
+    N, Hkv, bs, D = pool["k"].shape
+    pos = idx["append_pos"].reshape(-1).long()
+    rows = idx["token_rows"].reshape(-1).long()
+    tables = idx["block_tables"]
+    R, nb = tables.shape
+    blk, off = pos.clamp_min(0) // bs, pos.clamp_min(0) % bs
+    bids = tables[rows.clamp(0, R - 1), blk.clamp_max(nb - 1)].long()
+    valid = (pos >= 0) & (rows >= 0) & (blk < nb) & (bids >= 0) & (bids < N)
+    tok = valid.nonzero().squeeze(1)
+    k, v = k.reshape(-1, Hkv, D)[tok], v.reshape(-1, Hkv, D)[tok]
+    if "k_scale" in pool:
+        kq, ks = tl._quantize_kv(k)
+        vq, vs = tl._quantize_kv(v)
+        vals = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        vals = {"k": k, "v": v}
+    for name, val in vals.items():
+        pool[name][bids[tok], :, off[tok]] = val.to(pool[name].dtype)
+    return pool
+
+
+@pytest.mark.parametrize("case", ["mixed", "none_lands", "one_lands"])
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_fixed_shape_append_is_bit_identical_to_the_compacting_one(int8,
+                                                                  case):
+    """The fixed-shape append (every packed token written; those that must
+    not land repeat the first landing token's write) leaves the pool bit
+    for bit as the compacting append did, int8 codes and scales included:
+    on the mixed batch (pads, sentinel table entries, a position past the
+    table width), on a batch where no token lands (every entry then writes
+    page 0, offset 0's own value back) and on one where only the last
+    token lands."""
+    pool, k, v, desc = _packed_append_inputs(5, int8)
+    if case == "none_lands":
+        desc["append_pos"] = np.where(desc["append_pos"] == 12, 13, -1)
+    elif case == "one_lands":
+        desc["append_pos"] = np.where(np.arange(11) == 9, 0, -1)[None]
+    want = _compacting_append({n: torch.from_numpy(a.copy())
+                               for n, a in pool.items()},
+                              torch.from_numpy(k), torch.from_numpy(v),
+                              tl.paged_cache_index(**desc))
+    got = tl.update_paged_kv_cache({n: torch.from_numpy(a.copy())
+                                    for n, a in pool.items()},
+                                   torch.from_numpy(k), torch.from_numpy(v),
+                                   tl.paged_cache_index(**desc))
+    for name in pool:
+        assert torch.equal(got[name], want[name]), name
+    if case == "none_lands":
+        for name in pool:
+            assert np.array_equal(got[name].numpy(), pool[name]), name
+
+
 def test_rmsnorm_matches_flax():
     from deepspeed_tpu.models.layers import RMSNorm as JRMSNorm
 

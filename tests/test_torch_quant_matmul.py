@@ -441,13 +441,13 @@ def test_gemv_tc_route_and_split_for_every_llama3_8b_projection():
     """Every Llama-3-8B decode projection (M 1 and 8, bf16 x) takes the
     gemv_tc kernel; its cluster size comes from the card's SM count: at
     most 8, at most one rank per K tile of 128 rows, and the blocks of a
-    launch within one wave (int8 one an SM, int4 two). fp32 x keeps the
-    split GEMV."""
+    launch within one wave (int8 one an SM, int4 two). fp32 x takes the
+    fp32 decode kernel (gemv_tf32)."""
     assert set(GEMV_TC_GRIDS) == set(LLAMA3_8B_PROJECTIONS)
     for (K, N), by_sms in GEMV_TC_GRIDS.items():
         for M in (1, 8):
             assert qm.kernel_route(M, K, N, torch.bfloat16) == "gemv_tc"
-            assert qm.kernel_route(M, K, N, torch.float32) == "gemv"
+            assert qm.kernel_route(M, K, N, torch.float32) == "gemv_tf32"
         for sms, (int8, int4) in by_sms.items():
             for mode, want in (("int8", int8), ("int8_col", int8),
                                ("int4", int4)):
@@ -746,7 +746,7 @@ def test_ragged_sums_ranks_warps_and_stages_in_order(case):
 
 def test_ragged_routes_and_grids_come_from_the_shapes():
     """bf16 rows that TMA cannot address take the ragged kernel at any M
-    (fp32 x keeps ``gemv`` at M <= 8 and ``fp32`` above); its grid is
+    (fp32 x takes ``gemv_tf32`` at M <= 8 and ``fp32`` above); its grid is
     a function of the shape and the SM count: the row tile holds M in the
     fewest n8 tiles (at most 16), 64- and 128-row tiles are 256 W columns
     wide where such tiles still cover the SMs, else 128, and the cluster
@@ -754,11 +754,11 @@ def test_ragged_routes_and_grids_come_from_the_shapes():
     SM up to 16 rows, one above), at most 8 and one rank per k16 step."""
     for M, K, N in ((8, 264, 1000), (1, 4100, 14330), (5, 263, 1024)):
         assert qm.kernel_route(M, K, N, torch.bfloat16) == "ragged"
-        assert qm.kernel_route(M, K, N, torch.float32) == "gemv"
+        assert qm.kernel_route(M, K, N, torch.float32) == "gemv_tf32"
     for M, K, N in ((37, 264, 1000), (512, 4100, 14330), (9, 4096, 1000)):
         assert qm.kernel_route(M, K, N, torch.bfloat16) == "ragged"
         assert qm.kernel_route(M, K, N, torch.float32) == "fp32"
-    assert qm.kernel_route(8, 264, 1000, torch.float32) == "gemv"
+    assert qm.kernel_route(8, 264, 1000, torch.float32) == "gemv_tf32"
     grids = {
         # (M, K, N, SMs): (mt, wn, column tiles, row tiles, cluster)
         (8, 264, 1000, 132): (1, 1, 16, 1, 8),     # 128 blocks, not 8
@@ -930,3 +930,214 @@ def test_fp32_route_grid_comes_from_the_shapes():
         assert (splits - 1) * per < chunks <= splits * per
         assert splits == 1 or (nt * mt * splits <= 2 * sm
                                and per * qm.FP32_CHUNK >= 256)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 decode kernel (fp32 x, M <= 8): gemv_tf32, emulated
+# ---------------------------------------------------------------------------
+
+def _gf_columns(int4):
+    """``[8 tiles, 16 A rows]``: the W column (of a 128-column block) that
+    n8 tile j's A row r holds. Lane group g's load L reads 8 columns at
+    byte ``8 (g & 1)`` of 16-byte chunk ``gf_chunk(g, L)``; its column j
+    is A row g (L = 0) or g + 8 (L = 1) of tile j."""
+    g = torch.arange(8)
+    if int4:
+        chunk = [((((g >> 1) & 1) << 2) | (g >> 2)) + 2 * L for L in (0, 1)]
+    else:
+        chunk = [(g >> 1) + 4 * L for L in (0, 1)]
+    base = [16 * c + 8 * (g & 1) for c in chunk]
+    return torch.stack([torch.cat([base[0] + j, base[1] + j])
+                        for j in range(8)])
+
+
+#: warps of a gemv_tf32 block
+GF_WARPS = 4
+
+
+def gf_ranges(K, cluster):
+    """``[[(first step, steps)] * GF_WARPS] * cluster``: the kernel's cut
+    of the K axis's 8-row steps, rank r taking ``r * n8 // C`` to ``(r + 1)
+    * n8 // C`` and its warp w the contiguous share ``w * n // W`` to
+    ``(w + 1) * n // W`` of those."""
+    n8 = -(-K // 8)
+    out = []
+    for r in range(cluster):
+        s0, n = r * n8 // cluster, (r + 1) * n8 // cluster - r * n8 // cluster
+        out.append([(s0 + w * n // GF_WARPS,
+                     (w + 1) * n // GF_WARPS - w * n // GF_WARPS)
+                    for w in range(GF_WARPS)])
+    return out
+
+
+def _emulate_gemv_tf32(x, codes, scale, mode, cluster, warp_order=None,
+                       rank_order=None):
+    """``gemv_tf32_kernel`` in torch for fp32 ``x [M <= 8, K]``.
+
+    Blocks of 128 W columns; the K axis cut as :func:`gf_ranges`. In a
+    step at K row k, lane (g, q) puts K rows k + 2q and k + 2q + 1 (int4:
+    the low and high nibble of byte row k / 2 + q) of its columns into A
+    columns q and q + 4 of each n8 tile (A rows from :func:`_gf_columns`),
+    and x's rows g at those K rows, split x = hi + lo (both TF32 by
+    ``cvt.rna``), into B; each tile runs ``A @ hi`` then ``A @ lo`` into
+    its group sum (rounded to fp32 after each product). A group sum is
+    multiplied by its scales and added to the warp's total when the next
+    group opens (a step that a group boundary cuts runs once per group,
+    other rows' codes zeroed). Warps are added in order 0..3 (or
+    ``warp_order``), ranks 0..C-1 (or ``rank_order``); K8's column scale
+    and nothing else follows. Returns ``[M, N]`` fp32."""
+    M, K = x.shape
+    int4, col = mode == "int4", mode == "int8_col"
+    N = codes.shape[1]
+    gl = K if col else K // scale.shape[0]
+    tiles = -(-N // 128)
+    n8 = -(-K // 8)
+    # codes as the lanes read them, padded to whole steps and tiles
+    if int4:
+        b = torch.zeros(4 * n8, tiles * 128, dtype=torch.int32)
+        b[:codes.shape[0], :N] = codes.int()
+        w = torch.stack([((b & 15) ^ 8) - 8, ((b >> 4) ^ 8) - 8],
+                        1).reshape(8 * n8, tiles * 128)
+    else:
+        w = torch.zeros(8 * n8, tiles * 128, dtype=torch.int32)
+        w[:K, :N] = codes.int()
+    w = w.double()
+    xp = torch.zeros(8, 8 * n8)
+    xp[:M, :K] = x.float()
+    hi = _tf32(xp)
+    lo = _tf32(xp - hi)
+    sc = torch.ones(-(-K // gl), tiles * 128)
+    if not col:
+        sc[:, :N] = scale
+    cols = _gf_columns(int4)                                  # [8, 16]
+    assert sorted(cols.reshape(-1).tolist()) == list(range(128)), "a hole"
+    q = torch.arange(4)
+    y = torch.zeros(8, tiles * 128)
+    for t in range(tiles):
+        ct = t * 128 + cols                                   # [8, 16]
+        ranks = []
+        for rng in gf_ranges(K, cluster):
+            warps = []
+            for s0, n in rng:
+                acc = torch.zeros(8, 16, 8)
+                gacc = torch.zeros(8, 16, 8)
+                cur, gend = -1, 0
+                for step in range(s0, s0 + n):
+                    k = 8 * step
+                    kmap = torch.cat([k + 2 * q, k + 2 * q + 1])  # A columns
+                    A = w[kmap][:, ct].permute(1, 2, 0)           # [8, 16, 8]
+                    Bh, Bl = hi[:, kmap].T.double(), lo[:, kmap].T.double()
+                    groups = sorted({int(min(r, K - 1)) // gl for r in
+                                     kmap.tolist() if r < K} or {cur})
+                    for gg in groups:
+                        if gg != cur:
+                            if cur >= 0:
+                                acc = acc + gacc * sc[cur][ct][:, :, None]
+                                gacc = torch.zeros_like(gacc)
+                            cur, gend = gg, (gg + 1) * gl
+                        keep = ((kmap.clamp(max=K - 1) // gl) == gg).double()
+                        Am = A * keep
+                        gacc = (gacc.double() + Am @ Bh).float()
+                        gacc = (gacc.double() + Am @ Bl).float()
+                if cur >= 0:
+                    acc = acc + gacc * sc[cur][ct][:, :, None]
+                warps.append(acc)
+            order = warp_order or range(GF_WARPS)
+            block = torch.zeros(8, 16, 8)
+            for i in order:
+                block = block + warps[i]
+            ranks.append(block)
+        total = torch.zeros(8, 16, 8)
+        for i in rank_order or range(cluster):
+            total = total + ranks[i]
+        y[:, ct.reshape(-1)] = total.reshape(128, 8).T
+    y = y[:M, :N]
+    return y * scale[None, :] if col else y
+
+
+#: (mode, group, M, K, N, cluster): aligned N (144: a tile and a ninth;
+#: 256) and odd N (1001, 33), groups of 44 and 6 rows that a k8 step
+#: straddles, K 263 off the steps, M 1 to 8
+GEMV_TF32_CASES = [("int8", 0, 8, 264, 144, 3), ("int8", 44, 5, 264, 1001, 2),
+                   ("int4", 64, 1, 256, 256, 2), ("int4", 6, 8, 96, 33, 1),
+                   ("int8_col", 0, 3, 263, 144, 2),
+                   ("int8_col", 0, 8, 264, 1001, 8),
+                   ("int4", 8, 7, 264, 1001, 4)]
+
+
+@pytest.mark.parametrize("mode,group,M,K,N,cluster", GEMV_TF32_CASES)
+def test_gemv_tf32_emulation_matches_plain_and_jax(mode, group, M, K, N,
+                                                   cluster):
+    """The fp32 decode kernel's arithmetic (the lanes' column and K-row
+    maps, x split in two TF32 parts, per-group scaling, warp and rank
+    sums in order) against the plain version and the JAX Pallas kernel
+    (interpret mode) under the card's rule |kernel - plain| <= 1e-5
+    (|x| @ |W|), for int8, int4 and K8's per-column mode."""
+    codes, scale = _quantized(mode, group, K, N, seed=23)
+    x = torch.from_numpy(np.random.RandomState(24).randn(M, K)
+                         .astype(np.float32))
+    got = _emulate_gemv_tf32(x, codes, scale, mode, cluster)
+    bound = 1e-5 * (x.abs() @ _dense(codes, scale, mode).abs())
+    assert bool(((got - _plain(x, codes, scale, mode)).abs() <= bound).all())
+    jc, js = jnp.asarray(codes.numpy()), jnp.asarray(scale.numpy())
+    if mode == "int8_col":
+        want = jax_i8.int8_matmul(jnp.asarray(x.numpy()), jc, js, block_k=32,
+                                  block_n=32, interpret=True)
+    else:
+        want = jax_qm.quant_matmul(jnp.asarray(x.numpy()), jc, js, mode,
+                                   block_k=32, block_n=32, interpret=True)
+    assert bool(((got - torch.from_numpy(np.array(want))).abs()
+                 <= bound).all())
+
+
+def gemv_tf32_order_case(K, cluster, across_ranks):
+    """Inputs whose fp32 sum depends on the kernel's reduction order:
+    int8 codes and per-column scales of 1, x zero but for 2**25, -2**25
+    and 1 in row 0 at the first K row of ranks 0, 1, 2 (``across_ranks``)
+    or of warps 0, 1, 2 of rank 0. Every warp's sum is exact; added in
+    order row 0 is exactly 1, in the reverse order 0 (1 - 2**25 rounds to
+    -2**25)."""
+    ranges = gf_ranges(K, cluster)
+    firsts = [ranges[i][0][0] for i in range(3)] if across_ranks else \
+        [ranges[0][i][0] for i in range(3)]
+    x = torch.zeros(2, K)
+    for s, v in zip(firsts, (2.0 ** 25, -2.0 ** 25, 1.0)):
+        x[0, 8 * s] = v
+    return x, torch.ones(K, 128, dtype=torch.int8), torch.ones(1, 128)
+
+
+@pytest.mark.parametrize("across_ranks,K,cluster", [(True, 384, 8),
+                                                    (False, 1024, 8)])
+def test_gemv_tf32_sums_warps_and_ranks_in_order(across_ranks, K, cluster):
+    """On :func:`gemv_tf32_order_case` the emulation gives exactly 1 in
+    row 0 and 0 elsewhere; with the ranks (or warps) added in reverse it
+    gives 0, so a reordered reduction fails. The card test
+    ``test_gemv_tf32_sums_in_a_fixed_order`` holds the kernel to the same
+    inputs at its own cluster size (8 at N 128 and K 384, where the ranks
+    take 6 steps each, or K 1024, where each warp of a rank takes 4)."""
+    x, codes, scale = gemv_tf32_order_case(K, cluster, across_ranks)
+    got = _emulate_gemv_tf32(x, codes, scale, "int8", cluster)
+    assert torch.equal(got[0], torch.ones(128)) and not got[1].any()
+    if across_ranks:
+        rev = _emulate_gemv_tf32(x, codes, scale, "int8", cluster,
+                                 rank_order=list(range(cluster))[::-1])
+    else:
+        rev = _emulate_gemv_tf32(x, codes, scale, "int8", cluster,
+                                 warp_order=list(range(GF_WARPS))[::-1])
+    assert not torch.equal(rev[0], torch.ones(128))
+
+
+def test_gemv_tf32_grid_comes_from_the_shapes():
+    """fp32 decodes (M <= 8) take ``gemv_tf32`` at any N; its cluster
+    fills one wave of two blocks an SM, at most 8, at most one rank per
+    8-row step: 8 at chip_smoke's 4096 -> 4096."""
+    for M, K, N in ((8, 4096, 4096), (1, 264, 1001), (8, 263, 33)):
+        assert qm.kernel_route(M, K, N, torch.float32) == "gemv_tf32"
+    assert qm.gemv_tf32_grid(4096, 4096, 132) == (32, 8)
+    assert qm.gemv_tf32_grid(4096, 14336, 132) == (112, 2)
+    assert qm.gemv_tf32_grid(384, 128, 132) == (1, 8)
+    assert qm.gemv_tf32_grid(16, 128, 132) == (1, 2)
+    for K, N, sms in ((4096, 4096, 114), (264, 1001, 132)):
+        tiles, c = qm.gemv_tf32_grid(K, N, sms)
+        assert tiles * 128 >= N and 1 <= c <= min(8, -(-K // 8))
+        assert c == 1 or tiles * c <= qm.GEMV_TF32_BLOCKS_PER_SM * sms

@@ -5,8 +5,11 @@ greedy sampling, the unified mixed step on both sides: every request's
 tokens, terminal state and finish reason must be identical, and the
 port must end with zero pages in use and a consistent pool. One case
 feeds multi-chunk prompts, the other a pool small enough to force
-preemption. The rest checks the port's serving surface on the CPU:
-admission control, cancel, drain, and the knobs later slices bring.
+preemption. Bucketed packed widths (``mixed_step_buckets``) and the
+static-buffer step that ``enable_cuda_graph`` captures on a CUDA device
+(uncaptured here) serve the JAX engine's tokens too. The rest checks the
+port's serving surface on the CPU: admission control, cancel, drain, and
+the knobs later slices bring.
 """
 
 import jax
@@ -86,6 +89,108 @@ def test_tokens_identical_to_jax_engine(engines, case):
     if case == "preemption":
         assert tsrv.metrics.preemptions > 0, "pool sized to force preemption"
     assert tsrv.compile_counts == {"mixed_step": 1}
+
+
+#: mixed_step_buckets traffic (tests/unit/serving/test_speculative.py's
+#: bucketed case): prompts of 1-5 chunks then a decode-only tail; with the
+#: prefix cache, with a pool small enough to preempt, with an int8 pool
+BUCKETS = dict(lens=(40, 6, 9, 12), new=(8, 24, 20, 16),
+               settings=dict(max_batch_size=4, block_size=8, num_blocks=64,
+                             max_model_len=128, prefill_chunk_tokens=8,
+                             prefill_token_budget=16))
+BUCKET_CASES = {"prefix_cache": ({"prefix_cache": True}, {}),
+                "preemption": ({"num_blocks": 12}, {}),
+                "int8_pool": ({"prefix_cache": True},
+                              {"kv_cache_int8": True})}
+
+
+@pytest.mark.parametrize("case", sorted(BUCKET_CASES))
+def test_bucketed_widths_serve_the_jax_tokens(engines, case):
+    """mixed_step_buckets: the port serves the JAX engine's tokens, finish
+    reasons and preemptions with the same flag, and its own default
+    engine's, over the same widths (4, 8, 16, 19 at 4 slots and a budget
+    of 16);
+    compile_counts["mixed_step"] counts the widths run, within the set,
+    and the decode-only tail runs the narrowest; with enable_cuda_graph
+    (the static buffers, uncaptured on the CPU) the tokens stay the same.
+    No page leaks."""
+    jeng, teng = engines
+    over, engine_kw = BUCKET_CASES[case]
+    if engine_kw:
+        jeng = jds.init_inference(jeng.module, params=jeng.params,
+                                  dtype="fp32", **engine_kw)
+    sd = teng.module.state_dict()
+    rs = np.random.RandomState(41)
+    prompts = [rs.randint(1, 256, n) for n in BUCKETS["lens"]]
+    kw = dict(BUCKETS["settings"], **over)
+    jsrv = JaxServingEngine(jeng, JaxServingConfig(mixed_step_buckets=True,
+                                                   **kw))
+    want = _serve(jsrv, prompts, BUCKETS["new"])
+    runs = {}
+    for name, graphed, buckets in (("default", False, False),
+                                   ("buckets", False, True),
+                                   ("graph_buckets", True, True)):
+        eng = dt.init_inference(LlamaForCausalLM(LlamaConfig.tiny()),
+                                params=sd, dtype="fp32", device="cpu",
+                                enable_cuda_graph=graphed, **engine_kw)
+        srv = dt.ServingEngine(eng, dt.ServingConfig(
+            mixed_step_buckets=buckets, trace=True, **kw))
+        runs[name] = srv, _serve(srv, prompts, BUCKETS["new"])
+        srv.block_pool.check_consistent()
+        assert srv.block_pool.used_count == 0, (name, "leaked pages")
+        assert srv.metrics.preemptions == jsrv.metrics.preemptions, name
+    assert runs["default"][1] == want
+    for name in ("buckets", "graph_buckets"):
+        srv, got = runs[name]
+        assert got == want, name
+        widths = srv.mixed_step_widths
+        assert widths == jsrv.mixed_step_widths == [4, 8, 16, 19]
+        assert srv.mixed_step_tokens == jsrv.mixed_step_tokens == 19
+        run = [e["args"]["width"] for e in srv.tracer.events()
+               if e["name"] == "mixed_step"]
+        assert srv.compile_counts["mixed_step"] == len(set(run)) \
+            <= len(widths)
+        assert set(run) <= set(widths) and run[-1] == widths[0]
+    if case == "preemption":
+        assert jsrv.metrics.preemptions > 0, "pool sized to force preemption"
+    assert runs["default"][0].mixed_step_widths == [19]
+
+
+@pytest.mark.parametrize("case", sorted(TRAFFIC))
+def test_static_step_serves_the_jax_tokens(engines, case):
+    """enable_cuda_graph without buckets: the unified step over static
+    buffers (one host-to-device copy of the packed arrays, one read of
+    the tokens and flags), uncaptured on the CPU, serves the JAX engine's
+    tokens at the full width."""
+    jeng, teng = engines
+    spec = TRAFFIC[case]
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(1, 256, n) for n in spec["lens"]]
+    kw = dict(SETTINGS, **spec["over"])
+    want = _serve(JaxServingEngine(jeng, JaxServingConfig(**kw)), prompts,
+                  spec["new"])
+    eng = dt.init_inference(LlamaForCausalLM(LlamaConfig.tiny()),
+                            params=teng.module.state_dict(), dtype="fp32",
+                            device="cpu", enable_cuda_graph=True)
+    srv = dt.ServingEngine(eng, dt.ServingConfig(**kw))
+    assert _serve(srv, prompts, spec["new"]) == want
+    assert srv.compile_counts == {"mixed_step": 1}
+    assert srv.block_pool.used_count == 0
+
+
+def test_mixed_step_buckets_and_graphs_need_the_unified_step(engines):
+    """As in the JAX engine, mixed_step_buckets without mixed_step raises
+    ValueError; enable_cuda_graph on the two-program engine is a later
+    part of ROADMAP item 2a."""
+    _, teng = engines
+    with pytest.raises(ValueError, match="mixed_step=True"):
+        dt.ServingEngine(teng, dt.ServingConfig(mixed_step=False,
+                                                mixed_step_buckets=True))
+    eng = dt.init_inference(LlamaForCausalLM(LlamaConfig.tiny()),
+                            params=teng.module.state_dict(), dtype="fp32",
+                            device="cpu", enable_cuda_graph=True)
+    with pytest.raises(NotImplementedError, match=r"item 2a\)"):
+        dt.ServingEngine(eng, dt.ServingConfig(mixed_step=False))
 
 
 def test_kernel_path_serves_the_same_tokens_on_cpu(engines, monkeypatch):
@@ -177,8 +282,7 @@ def test_admission_control_cancel_and_drain(engines):
 
 
 @pytest.mark.parametrize("knob", [
-    {"mixed_step_buckets": True}, {"spec_tokens": 2},
-    {"host_cache_blocks": 8}, {"step_watchdog_s": 1.0}])
+    {"spec_tokens": 2}, {"host_cache_blocks": 8}, {"step_watchdog_s": 1.0}])
 def test_knobs_of_later_slices_raise(knob):
     with pytest.raises(NotImplementedError, match="slice of the port"):
         dt.ServingConfig(**knob)
@@ -224,7 +328,7 @@ def test_every_jax_config_field_is_accepted_at_its_jax_default():
     ({"ep_size": 2}, "10"), ({"injection_policy": object()}, "4"),
     ({"replace_method": "layer"}, "4"), ({"max_batch_size": 16}, "4"),
     ({"quantize_groups": 64}, "2c"), ({"quantized_psum_block": 128}, "9"),
-    ({"allow_unsafe_tp": True}, "9"), ({"enable_cuda_graph": True}, "2a")])
+    ({"allow_unsafe_tp": True}, "9")])
 def test_inference_fields_off_their_no_op_values_name_their_item(knob, item):
     model = LlamaForCausalLM(LlamaConfig.tiny())
     with pytest.raises(NotImplementedError,
@@ -234,7 +338,7 @@ def test_inference_fields_off_their_no_op_values_name_their_item(knob, item):
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"mixed_step_buckets": True}, "2a"), ({"spec_ngram": 4}, "2c"),
+    ({"spec_ngram": 4}, "2c"),
     ({"drafter": object()}, "2c"), ({"host_cache_bytes": 1 << 20}, "2c"),
     ({"sync_promote": True}, "2c"), ({"ttft_slo_s": 1.0}, "2b"),
     ({"tpot_slo_s": 0.1}, "2b"), ({"trace_dir": "traces"}, "2b"),

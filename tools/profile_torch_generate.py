@@ -1,6 +1,7 @@
 """Where the port's dense generate spends its time on a GPU.
 
     python3 tools/profile_torch_generate.py [--layers 32] [--weights bf16 int8]
+        [--graph]
 
 Builds the generate configuration of ``chip_smoke.py`` (Llama-3-8B at
 full width, random bf16 weights from seed 0, batch 8, left-padded
@@ -12,8 +13,11 @@ difference of the two (63 decode steps). For each window it prints the
 device time per kernel class (K4 decode attention, K5 quantized matmul,
 other matrix products, everything else), the host wall time, and the
 device's idle share (1 - union of kernel intervals / window wall time,
-profiler overhead included). Writes the summary to
-``chiprun_out/generate_profile.json``; needs a CUDA device.
+profiler overhead included). With ``--graph`` the engine runs with
+``enable_cuda_graph``, warmed with a 64-token generate that captures the
+decode step, so the profiled one replays it. Writes the summary to
+``chiprun_out/generate_profile.json`` (``generate_profile_graph.json``
+with ``--graph``); needs a CUDA device.
 """
 
 import argparse
@@ -32,8 +36,8 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 # first match wins: K5's kernels before cuBLAS's gemm / gemv names
 CLASSES = (("quant_matmul", re.compile(
-               r"anonymous namespace\)::(wgmma_prefill|ragged|gemv_tc|gemv|"
-               r"fp32_tc|finalize)_kernel")),
+               r"anonymous namespace\)::(wgmma_prefill|ragged|gemv_tc|"
+               r"gemv_tf32|fp32_tc|finalize)_kernel")),
            ("decode_attention", re.compile(
                r"anonymous namespace\)::decode_(tc_split|split|merge)"
                r"_kernel")),
@@ -70,6 +74,8 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--weights", nargs="+", default=["bf16", "int8"],
                     choices=["bf16", "int8", "int4"])
+    ap.add_argument("--graph", action="store_true",
+                    help="the decode step as a captured CUDA graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_generate: no CUDA device", file=sys.stderr)
@@ -84,7 +90,7 @@ def main() -> int:
         cfg.vocab_size, chip_smoke.GEN_B, 128, chip_smoke.GEN_PROMPT, 0)
     out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
            "batch": chip_smoke.GEN_B, "prompt_bucket": chip_smoke.GEN_PROMPT,
-           "new_tokens": NEW, "runs": {}}
+           "new_tokens": NEW, "enable_cuda_graph": args.graph, "runs": {}}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     trace = os.path.join(ROOT, "chiprun_out", "generate_trace.json")
     for weights in args.weights:
@@ -93,9 +99,11 @@ def main() -> int:
                                    device="cuda")
         engine = dt.init_inference(
             model, params=params, dtype=torch.bfloat16,
-            quantize_weights=None if weights == "bf16" else weights)
+            quantize_weights=None if weights == "bf16" else weights,
+            enable_cuda_graph=args.graph)
         del params
-        engine.generate(ids, attention_mask=mask, max_new_tokens=4)  # warm
+        engine.generate(ids, attention_mask=mask,
+                        max_new_tokens=NEW if args.graph else 4)  # warm
         prefill = _profiled(engine, ids, mask, 1, trace)
         full = _profiled(engine, ids, mask, NEW, trace)
         steps = NEW - 1
@@ -117,8 +125,9 @@ def main() -> int:
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-    with open(os.path.join(ROOT, "chiprun_out", "generate_profile.json"),
-              "w") as f:
+    name = "generate_profile_graph.json" if args.graph else \
+        "generate_profile.json"
+    with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(out["device"])
     return 0

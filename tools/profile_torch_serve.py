@@ -1,6 +1,6 @@
 """Where the port's serving step spends its time on a GPU.
 
-    python3 tools/profile_torch_serve.py [--layers 32] [--legacy]
+    python3 tools/profile_torch_serve.py [--layers 32] [--legacy | --graph]
 
 Builds the serving configuration of ``chip_smoke.py`` (Llama-3-8B at
 full width, random bf16 weights from a seed, 8 slots, 16-token pages,
@@ -15,13 +15,19 @@ time, and the device's idle share (1 - union of kernel intervals / window
 wall time, profiler overhead included). With ``--legacy`` the engine is
 the two-program one (``mixed_step=False``, 64-token chunks under the same
 budget): its prefill window runs the paged chunked-prefill kernel and its
-decode window the paged decode kernel, on the same traffic. Writes the
-summary to ``chiprun_out/serve_profile.json`` (``serve_profile_legacy.json``
-with ``--legacy``); needs a CUDA device.
+decode window the paged decode kernel, on the same traffic. With
+``--graph`` the unified engine runs with ``enable_cuda_graph`` and
+``mixed_step_buckets`` (one CUDA graph per packed width), warmed with the
+profiled traffic itself, so every width it runs is captured before the
+windows, which then replay them. Writes the summary to
+``chiprun_out/serve_profile.json`` (``serve_profile_legacy.json`` with
+``--legacy``, ``serve_profile_graph.json`` with ``--graph``); needs a CUDA
+device.
 """
 
 import argparse
 import json
+from collections import Counter
 import os
 import re
 import sys
@@ -79,7 +85,11 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--legacy", action="store_true",
                     help="profile the two-program engine (mixed_step=False)")
+    ap.add_argument("--graph", action="store_true",
+                    help="the unified step as CUDA graphs at bucketed widths")
     args = ap.parse_args()
+    if args.legacy and args.graph:
+        ap.error("--graph profiles the unified engine")
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -92,14 +102,29 @@ def main() -> int:
                 max_model_len=2048, prefill_token_budget=256)
     if args.legacy:
         scfg.update(mixed_step=False, prefill_chunk_tokens=64)
+    ekw = {}
+    if args.graph:
+        ekw, skw = chip_smoke.SERVE_GRAPH
+        scfg.update(skw, trace=True)
     srv, *_ = chip_smoke.serve(cfg, 0, 4, (64, 300), (4, 8), scfg,
-                               torch.bfloat16)
-    rs = np.random.RandomState(1)
-    for _ in range(8):
-        srv.submit(rs.randint(0, cfg.vocab_size, 1024), max_new_tokens=48)
+                               torch.bfloat16, engine_kw=ekw)
+
+    def traffic():
+        rs = np.random.RandomState(1)
+        for _ in range(8):
+            srv.submit(rs.randint(0, cfg.vocab_size, 1024),
+                       max_new_tokens=48)
+
+    if args.graph:
+        traffic()
+        srv.run()
+    traffic()
     out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
-           "engine": "two-program" if args.legacy else "unified",
-           "windows": {}}
+           "engine": "two-program" if args.legacy else
+           "unified, CUDA graphs at bucketed widths" if args.graph else
+           "unified", "windows": {}}
+    if args.graph:
+        out["graphs_before_windows"] = len(srv._graphs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     trace = os.path.join(ROOT, "chiprun_out", "serve_trace.json")
     for window in ("prefill", "decode"):
@@ -130,12 +155,18 @@ def main() -> int:
         summary["forwards"] = srv.decode_calls + srv.prefill_chunk_calls \
             - forwards if args.legacy else steps
         summary["ms_per_step"] = wall * 1e3 / max(steps, 1)
+        if args.graph:
+            run = chip_smoke.step_widths(srv)
+            summary["steps_at_width"] = {
+                str(w): n for w, n in sorted(Counter(
+                    run[len(run) - steps:]).items())}
+            summary["graphs"] = len(srv._graphs)
         out["windows"][window] = summary
         print(f"{window}: {json.dumps(summary)}", flush=True)
     srv.block_pool.check_consistent()
     assert srv.block_pool.used_count == 0
     name = "serve_profile_legacy.json" if args.legacy else \
-        "serve_profile.json"
+        "serve_profile_graph.json" if args.graph else "serve_profile.json"
     with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(out["device"])

@@ -137,8 +137,11 @@ def time_generate(cs, tree):
     cfg = LlamaConfig.llama3_8b()
     ids, mask = cs.left_padded_prompts(cfg.vocab_size, cs.GEN_B, 128,
                                        cs.GEN_PROMPT, 0)
-    out, engine, prefill_s, total_s, launches, finite = cs.generate_run(
-        cfg, torch.bfloat16, "int8", ids, mask, cs.GEN_NEW)
+    # a tree's generate_run may return the capturing warm-up's counts
+    # before the last item
+    res = cs.generate_run(cfg, torch.bfloat16, "int8", ids, mask, cs.GEN_NEW)
+    out, engine, prefill_s, total_s, launches = res[:5]
+    finite = res[-1]
     emit(tree, "generate_int8", prefill_ms=1e3 * prefill_s,
          decode_step_ms=1e3 * (total_s - prefill_s) / (cs.GEN_NEW - 1),
          tokens_per_s=cs.GEN_B * cs.GEN_NEW / total_s, launches=launches,
