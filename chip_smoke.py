@@ -57,8 +57,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    their plain versions (identical tokens; fp32, int8 and int4 weights,
    int8 cache, window 64, and the masked K1 prefill; fp32 and int8 also
    with the decode step captured), and
-   trained 5 steps with K1/K2/K3 and with their plain versions (losses
-   within 1e-4 relative);
+   trained (captured) 5 steps in fp32 and 10 in fp16 from a loss scale
+   that overflows, with K1/K2/K3 and with their plain versions (losses
+   within 1e-4 relative, the same skipped steps and loss scale);
 5. serve: init_inference + ServingEngine on full-width Llama-3-8B (random
    bf16 weights from a seed, all 32 layers), 16 seeded requests to
    completion, in turns: uncaptured, captured (enable_cuda_graph), both
@@ -76,7 +77,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    decode forwards, K7b 32 x chunk forwards, K6 never), then the same
    requests without the cache through the monolithic bucketed prefill
    with prefill_flash_from_empty (asserts the masked K1 launched 32 x
-   prefills);
+   prefills); each of the two again with enable_cuda_graph (the decode,
+   chunk and monolithic forwards replayed as CUDA graphs: the same tokens,
+   no leaked page, and, counted on the device over a replayed run, K7a
+   and K7b or the masked K1 once per layer per forward);
 6. generate: init_inference + InferenceEngine.generate on full-width
    Llama-3-8B (random bf16 weights from seed 0), batch 8, left-padded
    prompts of seeded lengths 128-512 (bucket 512), 64 greedy new tokens,
@@ -91,9 +95,14 @@ Phases, each printed on its own line; any failure exits non-zero:
    kernel), and with the flag the masked K1 launched 32 times;
 7. train: initialize + train_batch on full-width Llama-400M (random
    weights from seed 0, all 24 layers), the JAX package's bench config
-   (batch 8 x 1024, AdamW, bf16, clipping 1.0), 2 warm-up and 10 timed
-   steps on one batch; asserts finite, falling losses and the launch
-   counts of K1 (forward and recompute), K2 and K3;
+   (batch 8 x 1024, AdamW, bf16, clipping 1.0), uncaptured
+   (cuda_graph=False) and captured (the step one CUDA graph), 2 warm-up
+   steps each, then 5 timed steps each in turns (uncaptured, captured,
+   captured, uncaptured), then one profiled step each; prints step ms,
+   tokens/s, model TFLOP/s, idle share and peak memory per route; asserts
+   identical, finite, falling losses on the two routes and, counted on
+   the device over one profiled step of each, K1 48 (forward and
+   recompute), K2 24 + 24 and K3 1 (the captured step's in its replay);
 8. long context: ``ops.sparse_attention.sparse_attention`` forward and
    backward (loss ``(out * dout).sum()``) at T 4096, 8192 and 16384, 32
    heads of 128, bf16, causal, BSLongformer and BigBird at block 128 (the
@@ -104,7 +113,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    bench_longctx's fields, the backward times and the host time of one
    forward call;
 9. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
-   ``{"ok": true, "device": {...}}`` line.
+   ``{"ok": true, "device": {...}}`` line. A kernel's ``launches`` are its
+   wrapper's count over its path's uncaptured run (a wrapper counts where
+   it launches; a graph replays its kernels without it), except K6's,
+   counted on the device with the replays. Where a path also ran
+   captured, ``graph_launches`` are the kernels' runs counted on the
+   device over its replays: K1/K2/K3 in one replayed training step,
+   K7a/K7b and the masked K1 in the two-program engines' replayed
+   re-serves (item 5). Each of these kernels adds one to its device count
+   (``deepspeed_tpu_torch/ops/_runs.py``) when it runs.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -1166,8 +1183,10 @@ def adam_state(cfg, seed):
 
 def check_fused_adam():
     """K3 over the whole Llama-400M parameter list, 3 steps with a device
-    clip factor, in both decay modes, against the plain version on
-    copies. Tolerance: 1e-6 relative + 1e-7 absolute (the kernel fuses
+    clip factor, the step's scalars (``alpha``) and a clear skip flag in
+    device memory, in both decay modes, against the plain version on
+    copies; then one step with the flag set must leave every tensor
+    bit-identical. Tolerance: 1e-6 relative + 1e-7 absolute (the kernel fuses
     multiply-adds that the plain version rounds twice: about one fp32 ulp
     a step). Times one step of each, and torch.optim.AdamW(fused=True)
     on the same tensors as the yardstick."""
@@ -1178,10 +1197,13 @@ def check_fused_adam():
     b1, b2, eps, wd, lr = 0.9, 0.999, 1e-8, 0.1, 1e-4
     scale = torch.tensor(0.5, device="cuda")
 
+    skip = torch.tensor(False, device="cuda")
+
     def hyper(t, adam_w_mode):
+        alpha = torch.tensor([lr / (1 - b1 ** t), lr,
+                              1 / (1 - b2 ** t) ** 0.5], device="cuda")
         return dict(b1=b1, b2=b2, eps=eps, weight_decay=wd,
-                    adam_w_mode=adam_w_mode, step_size=lr / (1 - b1 ** t),
-                    lr=lr, inv_bc2=1 / (1 - b2 ** t) ** 0.5,
+                    adam_w_mode=adam_w_mode, alpha=alpha, skip=skip,
                     grad_scale=scale)
 
     max_err = 0.0
@@ -1201,11 +1223,22 @@ def check_fused_adam():
                         f"fused_adam (adam_w_mode={adam_w_mode}) disagrees "
                         f"with its plain version (max |err| "
                         f"{float(err.max()):.3e})")
-        del state, ref
+        kept = [[t.clone() for t in lst] for lst in state]
+        skip.fill_(True)
+        fused_adam(*state, **hyper(4, adam_w_mode))
+        skip.fill_(False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for lst, old in zip(state, kept)
+                   for a, b in zip(lst, old)):
+            raise AssertionError(f"fused_adam (adam_w_mode={adam_w_mode}) "
+                                 f"changed a tensor with skip set")
+        del state, ref, kept
     params, grads, m, v = adam_state(cfg, seed=2)
     n = sum(p.numel() for p in params)
     kw = hyper(4, True)
-    ms = cuda_time_ms(lambda: fused_adam(params, grads, m, v, **kw))
+    table = fused_adam(params, grads, m, v, **kw)
+    ms = cuda_time_ms(lambda: fused_adam(params, grads, m, v, **kw,
+                                         table=table))
     plain_ms = cuda_time_ms(lambda: fused_adam_plain(params, grads, m, v,
                                                      **kw), reps=5, warmup=1)
     # the same function in one PyTorch call (no clip factor: the grads
@@ -1219,7 +1252,8 @@ def check_fused_adam():
     # ~15 fp32 operations per element
     bound_ms, bound_by = bound(28 * n, 15 * n, FP32_FLOP_PER_S)
     log(f"parity fused_adam: llama_400m list ({len(params)} tensors, {n} "
-        f"elements), 3 steps x both decay modes: ok max_abs_err="
+        f"elements), 3 steps x both decay modes, then a skipped step (bit-"
+        f"identical): ok max_abs_err="
         f"{max_err:.3e} (tolerance 1e-6*|plain|+1e-7) | kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}) "
         f"library_ms={library_ms:.4f}")
@@ -2305,7 +2339,14 @@ def check_serving_legacy():
     served before the other twelve arrive, so those hit its pages), then
     the same requests at once without the cache through the monolithic
     bucketed prefill with prefill_flash_from_empty (K7a and the masked
-    K1). Returns the launches of each run."""
+    K1). Each configuration runs uncaptured, then with enable_cuda_graph
+    (the decode, the chunk and each monolithic bucket one CUDA graph),
+    which must serve the same tokens; the captured engine then serves the
+    first group's prompts again under the profiler, and K7a (and K7b, or
+    the masked K1) must run once per layer per replayed forward, counted
+    on the device.
+    Returns the wrappers' launches of each uncaptured run and the kernels
+    of each captured engine's profiled replays, by configuration."""
     from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     base = LlamaConfig.llama3_8b()
@@ -2323,58 +2364,97 @@ def check_serving_legacy():
             LlamaConfig.llama3_8b(prefill_flash_from_empty=True),
             LEGACY_SCFG, [phases[0] + phases[1]]),
     }
-    out = {}
+    out, replayed = {}, {}
     for name, (cfg, scfg, traffic) in runs.items():
-        torch.cuda.reset_peak_memory_stats()
-        srv, rids, res, wall, launches = serve(
-            cfg, 0, 0, None, None, scfg, torch.bfloat16, phases=traffic,
-            params=params)
-        m = srv.metrics
-        snap = m.snapshot()
-        finished = sum(res[r].state == "finished" for r in rids)
-        log(f"serve two-program {name}: llama3_8b x{L} layers bf16, "
-            f"{len(rids)} requests (4 x 4 sharing 512-token prefixes), "
-            f"{finished} finished, {m.steps} steps, {srv.decode_calls} "
-            f"decode forwards, {srv.prefill_chunk_calls} chunk forwards, "
-            f"{srv.prefill_calls} monolithic prefills, wall {wall:.3f} s, "
-            f"generated {m.tokens_generated} tokens = "
-            f"{m.tokens_generated / wall:.1f} tok/s, prefill "
-            f"{m.prefill_tokens} tokens ({m.prefill_tokens_computed} "
-            f"computed, {m.cached_prefill_tokens} cached, hit rate "
-            f"{m.prefix_hit_rate:.3f}, {m.prefix_hits} prefix hits, "
-            f"{m.cow_copies} page copies), ttft_p50 "
-            f"{snap.get('ttft_p50_s', float('nan')):.3f} s, mean step "
-            f"{1e3 * wall / max(m.steps, 1):.2f} ms, preemptions "
-            f"{m.preemptions}, quarantines {m.logit_quarantines}, launches "
-            f"{launches}, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-        srv.block_pool.check_consistent()
         cached = scfg.get("prefix_cache", False)
-        want = {"ragged_paged_attention": 0,
-                "paged_decode_attention": L * srv.decode_calls,
-                "paged_prefill_attention": L * srv.prefill_chunk_calls,
-                "flash_attention_fwd_masked": L * srv.prefill_calls}
-        problems = []
-        if finished != len(rids):
-            problems.append(f"{len(rids) - finished} requests did not finish")
-        if m.logit_quarantines:
-            problems.append(f"{m.logit_quarantines} rows flagged NaN/Inf")
-        if srv.block_pool.used_count:
-            problems.append(f"{srv.block_pool.used_count} pages leaked")
-        if launches != want or not srv.decode_calls or \
-                bool(srv.prefill_chunk_calls) != cached or \
-                bool(srv.prefill_calls) == cached:
-            problems.append(f"launches {launches} != {want}")
-        if cached and m.prefix_hits < 12:
-            problems.append(f"{m.prefix_hits} prefix hits < 12")
-        if problems:
-            raise AssertionError(f"serve two-program {name}: "
-                                 + "; ".join(problems))
-        out[name] = launches
-        del srv, res
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
+        kernel = "paged_prefill_attention" if cached else \
+            "flash_attention_fwd_masked"
+        tokens = {}
+        for graphed in (False, True):
+            run = f"{name} {'captured' if graphed else 'uncaptured'}"
+            torch.cuda.reset_peak_memory_stats()
+            srv, rids, res, wall, launches = serve(
+                cfg, 0, 0, None, None, scfg, torch.bfloat16, phases=traffic,
+                params=params, engine_kw=dict(enable_cuda_graph=graphed))
+            tokens[graphed] = [(res[r].state, res[r].tokens) for r in rids]
+            m = srv.metrics
+            snap = m.snapshot()
+            finished = sum(res[r].state == "finished" for r in rids)
+            log(f"serve two-program {run}: llama3_8b x{L} layers bf16, "
+                f"{len(rids)} requests (4 x 4 sharing 512-token prefixes), "
+                f"{finished} finished, {m.steps} steps, {srv.decode_calls} "
+                f"decode forwards, {srv.prefill_chunk_calls} chunk forwards, "
+                f"{srv.prefill_calls} monolithic prefills, wall {wall:.3f} "
+                f"s, generated {m.tokens_generated} tokens = "
+                f"{m.tokens_generated / wall:.1f} tok/s, prefill "
+                f"{m.prefill_tokens} tokens ({m.prefill_tokens_computed} "
+                f"computed, {m.cached_prefill_tokens} cached, hit rate "
+                f"{m.prefix_hit_rate:.3f}, {m.prefix_hits} prefix hits, "
+                f"{m.cow_copies} page copies), ttft_p50 "
+                f"{snap.get('ttft_p50_s', float('nan')):.3f} s, mean step "
+                f"{1e3 * wall / max(m.steps, 1):.2f} ms, preemptions "
+                f"{m.preemptions}, quarantines {m.logit_quarantines}, "
+                f"graphs {len(srv._graphs)}, wrapper launches {launches}, "
+                f"peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            srv.block_pool.check_consistent()
+            problems = []
+            if finished != len(rids):
+                problems.append(f"{len(rids) - finished} requests did not "
+                                f"finish")
+            if m.logit_quarantines:
+                problems.append(f"{m.logit_quarantines} rows flagged NaN/Inf")
+            if srv.block_pool.used_count:
+                problems.append(f"{srv.block_pool.used_count} pages leaked")
+            if cached and m.prefix_hits < 12:
+                problems.append(f"{m.prefix_hits} prefix hits < 12")
+            if not graphed:
+                want = {"ragged_paged_attention": 0,
+                        "paged_decode_attention": L * srv.decode_calls,
+                        "paged_prefill_attention":
+                            L * srv.prefill_chunk_calls,
+                        "flash_attention_fwd_masked": L * srv.prefill_calls}
+                if launches != want or not srv.decode_calls or \
+                        bool(srv.prefill_chunk_calls) != cached or \
+                        bool(srv.prefill_calls) == cached:
+                    problems.append(f"launches {launches} != {want}")
+                out[name] = launches
+            else:
+                # the first group's prompts again (their prefixes cached),
+                # on graphs captured in the run above: the kernels of each
+                # replayed forward, counted on the device
+                if tokens[True] != tokens[False]:
+                    problems.append("the captured run's tokens differ from "
+                                    "the uncaptured run's")
+                calls = (srv.decode_calls, srv.prefill_chunk_calls,
+                         srv.prefill_calls)
+                counts, busy, prof_wall = profiled(lambda: serve(
+                    cfg, 0, 0, None, None, scfg, torch.bfloat16,
+                    phases=[[(p, 8) for p, _ in traffic[0]]], srv=srv),
+                    ("paged_decode_attention", kernel))
+                dec, chunk, mono = (a - b for a, b in zip(
+                    (srv.decode_calls, srv.prefill_chunk_calls,
+                     srv.prefill_calls), calls))
+                want = {"paged_decode_attention": L * dec,
+                        kernel: L * (chunk if cached else mono)}
+                log(f"serve two-program {run} replays: {dec} decode, "
+                    f"{chunk} chunk and {mono} monolithic forwards, kernels "
+                    f"{counts} (want {want}), device busy {busy:.1f} of "
+                    f"{prof_wall:.1f} ms profiled (idle share "
+                    f"{1 - busy / max(prof_wall, 1e-9):.3f})")
+                if counts != want or not dec:
+                    problems.append(f"replayed kernels {counts} != {want}")
+                replayed[name] = counts
+                if srv.block_pool.used_count:
+                    problems.append(f"{srv.block_pool.used_count} pages "
+                                    f"leaked after the replays")
+            if problems:
+                raise AssertionError(f"serve two-program {run}: "
+                                     + "; ".join(problems))
+            del srv, res
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out, replayed
 
 
 # ---------------------------------------------------------------------------
@@ -2388,23 +2468,71 @@ def model_flops_per_step(n_params, batch, seq, n_layer, hidden):
         * seq * hidden
 
 
-def train(cfg, config, ids, steps, warmup, device="cuda"):
-    """initialize + train_batch on ``cfg`` with weights from seed
-    ``config["seed"]``: ``warmup`` steps, then the kernel counts set to 0
-    and ``steps`` steps on the same batch. Returns the engine, every
-    step's loss (device scalars), the wall time of the counted steps and
-    their launches per kernel."""
-    import deepspeed_tpu_torch as dt
-    from deepspeed_tpu_torch.models import LlamaForCausalLM
+def train_kernels():
+    """The wrappers of the training step's kernels, by name: K1 (forward
+    and recompute), K2 (dQ, dK/dV), K3."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.fused_adam import fused_adam
 
-    counted = {"flash_attention_fwd": fa.flash_attention_fwd,
-               "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-               "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-               "fused_adam": fused_adam}
-    engine, *_ = dt.initialize(model=LlamaForCausalLM(cfg),
-                               config=dict(config), device=device)
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_adam": fused_adam}
+
+
+def profiled(fn, names):
+    """Run ``fn()`` once under torch.profiler (then synchronize). Returns
+    the runs of each kernel of ``names`` (wrapper names), counted on the
+    device by the kernel itself (CUDA-graph replays included; a trace may
+    drop a kernel's record, the count does not), the device busy time
+    (union of the trace's kernel intervals, ms) and the profiled wall
+    time (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.ops import _runs
+
+    torch.cuda.synchronize()
+    for n in names:
+        _runs.reset_kernel_runs(n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's events, less its copies, fills and annotation spans
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and not getattr(e, "is_user_annotation", False)]
+    counts = {n: _runs.kernel_runs(n) for n in names}
+    busy, end = 0.0, -1.0
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return counts, busy / 1e3, wall * 1e3
+
+
+def train(cfg, config, ids, steps, warmup, device="cuda", graphed=True,
+          engine=None):
+    """initialize + train_batch on ``cfg`` with weights from seed
+    ``config["seed"]`` (or more steps on ``engine``): ``warmup`` steps,
+    then the kernel counts set to 0 and ``steps`` steps on the same batch.
+    ``graphed`` False runs the step uncaptured (``cuda_graph=False``). The
+    counts are the wrappers' (a captured step adds to them when it is
+    captured, not when it is replayed). Returns the engine, every step's
+    loss (device scalars), the wall time of the counted steps and their
+    launches per kernel."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+
+    counted = train_kernels()
+    if engine is None:
+        engine, *_ = dt.initialize(model=LlamaForCausalLM(cfg),
+                                   config=dict(config), device=device,
+                                   cuda_graph=graphed)
     batch = {"input_ids": ids, "labels": ids}
     losses = [engine.train_batch(batch=batch) for _ in range(warmup)]
     if device == "cuda":
@@ -2427,12 +2555,25 @@ TRAIN_CONFIG = {"train_batch_size": 8,
                 "steps_per_print": 0, "seed": 0}
 TRAIN_SEQ = 1024
 
+#: the small reference's runs: fp32, and fp16 whose first steps overflow
+#: (a loss scale of 2**26, hysteresis 1: halved each overflow until the
+#: steps train)
+SMALL_TRAIN_RUNS = {
+    "fp32": ({}, 0),
+    "fp16": ({"fp16": {"enabled": True, "initial_scale_power": 26,
+                       "hysteresis": 1}}, 1),
+}
+
 
 def check_small_train_reference(device="cuda"):
-    """A 2-layer fp32 model (D 64, MHA) trained 5 steps twice from the same
-    weights: with the kernels, and with the model's attention and the
-    optimizer's sweep swapped for their plain versions. Losses agree to
-    1e-4 relative (fp32 summation order only)."""
+    """A 2-layer model (D 64, MHA) trained 5 steps in fp32, and 10 steps
+    in fp16 from a loss scale that overflows its first steps, each twice from
+    the same weights (captured): with the kernels, and with the model's
+    attention and the optimizer's sweep swapped for their plain versions.
+    Losses agree to 1e-4 relative (fp32: summation order only; fp16: the
+    attention runs the fp32 kernels on exactly widened inputs in both
+    routes, the fp16 rounding of the rest is the same), the fp16 runs skip
+    the same steps at the same loss scales."""
     from deepspeed_tpu_torch.models import LlamaConfig
     from deepspeed_tpu_torch.models import layers as layers_mod
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -2442,84 +2583,148 @@ def check_small_train_reference(device="cuda"):
     cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=4,
                       num_key_value_heads=4, max_position_embeddings=256)
-    config = dict(TRAIN_CONFIG, train_batch_size=4, bf16={"enabled": False},
-                  optimizer={"type": "AdamW",
-                             "params": {"lr": 1e-3, "weight_decay": 0.1}})
     ids = np.random.RandomState(5).randint(0, cfg.vocab_size, (4, 256))
     kernels = (layers_mod.flash_attention, opt_mod.fused_adam)
-    losses, launches = {}, {}
-    for route in ("kernel", "plain"):
-        if route == "plain":
-            layers_mod.flash_attention = \
-                lambda *a, **kw: fa.flash_attention_plain(*a, **kw)[0]
-            opt_mod.fused_adam = adam_mod.fused_adam_plain
-        try:
-            _, out, _, launches[route] = train(cfg, config, ids, 5, 0,
-                                               device)
-        finally:
-            layers_mod.flash_attention, opt_mod.fused_adam = kernels
-        losses[route] = [float(x) for x in out]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
-                                                  losses["plain"]))
-    ok = rel <= 1e-4 and all(launches["kernel"].values()) and \
-        not any(launches["plain"].values())
-    log(f"reference: 2-layer fp32 model trained 5 steps, kernels vs plain "
-        f"versions: losses {losses['kernel']} vs {losses['plain']}, max "
-        f"relative difference {rel:.3e} (tolerance 1e-4), ok={ok} "
-        f"(launches {launches['kernel']} / {launches['plain']})")
-    if not ok:
-        raise AssertionError("small fp32 training: the losses disagree or "
-                             "a route launched the wrong kernels")
+
+    def plain_flash(q, k, v, causal=True, sm_scale=None, window=None):
+        return fa.flash_attention_plain(q, k, v, causal, sm_scale,
+                                        window)[0]
+
+    def plain_adam(*lists, table=None, **kw):
+        # the plain version reads no table, so it returns none to keep
+        adam_mod.fused_adam_plain(*lists, **kw)
+
+    for name, (over, min_skips) in SMALL_TRAIN_RUNS.items():
+        config = dict(TRAIN_CONFIG, train_batch_size=4,
+                      bf16={"enabled": False}, **over,
+                      optimizer={"type": "AdamW",
+                                 "params": {"lr": 1e-3, "weight_decay": 0.1}})
+        steps = 10 if over else 5
+        losses, launches, state = {}, {}, {}
+        for route in ("kernel", "plain"):
+            if route == "plain":
+                layers_mod.flash_attention = plain_flash
+                opt_mod.fused_adam = plain_adam
+            try:
+                engine, out, _, launches[route] = train(cfg, config, ids,
+                                                        steps, 0, device)
+            finally:
+                layers_mod.flash_attention, opt_mod.fused_adam = kernels
+            losses[route] = [float(x) for x in out]
+            state[route] = (engine.get_skipped_steps(), engine.loss_scale)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
+                                                      losses["plain"]))
+        ok = rel <= 1e-4 and all(launches["kernel"].values()) and \
+            not any(launches["plain"].values()) and \
+            state["kernel"] == state["plain"] and \
+            state["kernel"][0] >= min_skips and \
+            all(np.isfinite(losses["kernel"]))
+        log(f"reference: 2-layer {name} model trained {steps} steps "
+            f"(captured), kernels vs plain versions: losses "
+            f"{losses['kernel']} vs {losses['plain']}, max relative "
+            f"difference {rel:.3e} (tolerance 1e-4), skipped steps and "
+            f"loss scale {state['kernel']} / {state['plain']}, ok={ok} "
+            f"(launches {launches['kernel']} / {launches['plain']})")
+        if not ok:
+            raise AssertionError(f"small {name} training: the losses or the "
+                                 f"skipped steps disagree, or a route "
+                                 f"launched the wrong kernels")
 
 
 def check_training(cfg=None, device="cuda"):
     """Full-width Llama-400M (all 24 layers, random weights from seed 0)
-    through initialize -> train_batch at the bench config: 2 warm-up and
-    10 timed steps on one seeded batch."""
+    through initialize -> train_batch at the bench config, twice from the
+    same weights: uncaptured (``cuda_graph=False``) and captured (one CUDA
+    graph a step), each 2 warm-up steps, then 5 timed steps each in turns
+    (uncaptured, captured, captured, uncaptured), then one profiled step
+    each. The losses of the two routes must be identical step for step,
+    finite and falling; each route's profiled step must run K1 2 x layers
+    (forward and recompute), K2 layers + layers and K3 once (the captured
+    one in its replay), counted on the device. Returns the uncaptured
+    route's launches over its timed steps (the wrappers' counts) and the
+    kernels' runs in the captured route's profiled replay."""
     from deepspeed_tpu_torch.models import LlamaConfig
 
     cfg = cfg or LlamaConfig.llama_400m(max_position_embeddings=TRAIN_SEQ,
                                         remat=True)
-    steps, warmup = 10, 2
+    warmup, turn = 2, 5
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TRAIN_CONFIG["train_batch_size"], TRAIN_SEQ)))
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    engine, losses, wall, launches = train(cfg, TRAIN_CONFIG, ids, steps,
-                                           warmup, device)
-    setup = time.perf_counter() - t - wall
-    losses = [float(x) for x in losses]
-    n_params = sum(p.numel() for p in engine.master.values())
-    tokens = TRAIN_CONFIG["train_batch_size"] * TRAIN_SEQ
-    step_s = wall / steps
-    flops = model_flops_per_step(n_params, TRAIN_CONFIG["train_batch_size"],
-                                 TRAIN_SEQ, cfg.num_hidden_layers,
-                                 cfg.hidden_size)
     L = cfg.num_hidden_layers
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-    log(f"train: llama_400m x{L} layers ({n_params} params) bf16, batch "
-        f"{TRAIN_CONFIG['train_batch_size']} x {TRAIN_SEQ}, {warmup} warm-up "
-        f"+ {steps} timed steps, step {1e3 * step_s:.2f} ms, "
-        f"{tokens / step_s:.1f} tokens/s, model {flops / step_s / 1e12:.2f} "
-        f"TFLOP/s = {flops / step_s / BF16_FLOP_PER_S:.4f} of 989, losses "
-        f"{[round(x, 4) for x in losses]}, grad norm "
-        f"{engine.get_global_grad_norm():.4f}, setup {setup:.1f} s, peak "
-        f"memory {peak / 2**30:.1f} GiB, launches {launches}")
-    want = {"flash_attention_fwd": 2 * L * steps,
-            "flash_attention_bwd_dq": L * steps,
-            "flash_attention_bwd_dkv": L * steps, "fused_adam": steps}
+    routes = {}
+    for graphed in (False, True):
+        if device == "cuda":
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        engine, losses, _, _ = train(cfg, TRAIN_CONFIG, ids, 0, warmup,
+                                     device, graphed)
+        peak = torch.cuda.max_memory_allocated() - base \
+            if device == "cuda" else 0
+        routes[graphed] = dict(engine=engine, losses=losses, wall=0.0,
+                               launches={}, setup=time.perf_counter() - t,
+                               peak=peak)
+    for graphed in (False, True, True, False):
+        r = routes[graphed]
+        _, more, wall, launches = train(cfg, TRAIN_CONFIG, ids, turn, 0,
+                                        device, engine=r["engine"])
+        r["losses"] += more
+        r["wall"] += wall
+        for n, c in launches.items():
+            r["launches"][n] = r["launches"].get(n, 0) + c
+    batch = {"input_ids": ids, "labels": ids}
+    steps = 2 * turn
+    n_params = sum(p.numel() for p in routes[False]["engine"].master.values())
+    tokens = TRAIN_CONFIG["train_batch_size"] * TRAIN_SEQ
+    flops = model_flops_per_step(n_params, TRAIN_CONFIG["train_batch_size"],
+                                 TRAIN_SEQ, L, cfg.hidden_size)
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "fused_adam": 1}
     problems = []
-    if not all(np.isfinite(losses)):
-        problems.append("a loss is not finite")
-    if not losses[-1] < losses[0]:
-        problems.append(f"the loss did not fall ({losses[0]} -> "
-                        f"{losses[-1]})")
-    if launches != want:
-        problems.append(f"launches {launches} != {want}")
+    for graphed in (False, True):
+        r = routes[graphed]
+        engine = r["engine"]
+        name = "captured" if graphed else "uncaptured"
+        if device == "cuda":
+            losses = r["losses"]
+            replayed, busy, prof_wall = profiled(
+                lambda: losses.append(engine.train_batch(batch=batch)),
+                want)
+        else:
+            replayed, busy, prof_wall = {}, 0.0, 0.0
+        r["replayed"] = replayed
+        step_s = r["wall"] / steps
+        r["losses"] = [float(x) for x in r["losses"]]
+        log(f"train {name}: llama_400m x{L} layers ({n_params} params) "
+            f"bf16, batch {TRAIN_CONFIG['train_batch_size']} x {TRAIN_SEQ}, "
+            f"{warmup} warm-up + {steps} timed steps (in turns), step "
+            f"{1e3 * step_s:.2f} ms, {tokens / step_s:.1f} tokens/s, model "
+            f"{flops / step_s / 1e12:.2f} TFLOP/s = "
+            f"{flops / step_s / BF16_FLOP_PER_S:.4f} of 989, device busy "
+            f"{busy:.2f} ms of a profiled step of {prof_wall:.2f} ms (idle "
+            f"share {1 - busy / max(prof_wall, 1e-9):.3f} profiled, "
+            f"{1 - busy / (1e3 * step_s):.3f} of the unprofiled step), "
+            f"losses {[round(x, 4) for x in r['losses']]}, grad norm "
+            f"{engine.get_global_grad_norm():.4f}, setup {r['setup']:.1f} s, "
+            f"peak memory {r['peak'] / 2**30:.1f} GiB, wrapper launches "
+            f"over the timed steps {r['launches']}, kernel runs in the profiled "
+            f"step {replayed}")
+        losses = r["losses"]
+        if not all(np.isfinite(losses)):
+            problems.append(f"{name}: a loss is not finite")
+        if not losses[-1] < losses[0]:
+            problems.append(f"{name}: the loss did not fall ({losses[0]} -> "
+                            f"{losses[-1]})")
+        if device == "cuda" and replayed != want:
+            problems.append(f"{name}: kernels of a step {replayed} != {want}")
+    if routes[False]["launches"] != {n: c * steps for n, c in want.items()}:
+        problems.append(f"uncaptured wrapper launches "
+                        f"{routes[False]['launches']} != {want} x {steps}")
+    if routes[True]["losses"] != routes[False]["losses"]:
+        problems.append("the captured and uncaptured losses differ")
     if problems:
         raise AssertionError("train: " + "; ".join(problems))
-    return launches
+    return routes[False]["launches"], routes[True]["replayed"]
 
 
 def main() -> int:
@@ -2553,13 +2758,13 @@ def main() -> int:
     serve_launches, serve_runs = check_serving()
     gc.collect()
     torch.cuda.empty_cache()
-    legacy_launches = check_serving_legacy()
+    legacy_launches, legacy_replayed = check_serving_legacy()
     gc.collect()
     torch.cuda.empty_cache()
     gen_launches, gen_decode = check_generate()
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = check_training()
+    train_launches, train_replayed = check_training()
     gc.collect()
     torch.cuda.empty_cache()
     sparse_launches = check_long_context()
@@ -2575,7 +2780,8 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
     }]
-    # K7a and K7b: launches of the two-program serve with the prefix cache
+    # K7a and K7b: launches of the two-program serve with the prefix cache;
+    # graph_launches: their runs in its captured engine's profiled replays
     decode_src = "deepspeed_tpu/ops/pallas/decode_attention.py"
     for name, kind, main_name, line in (
             ("paged_decode_attention", "decode", PAGED_DECODE_MAIN, 254),
@@ -2585,6 +2791,7 @@ def main() -> int:
             source="deepspeed_tpu_torch/csrc/paged_attention.cu",
             replaces=f"{decode_src}:{line}",
             launches=legacy_launches["chunked+prefix_cache"][name],
+            graph_launches=legacy_replayed["chunked+prefix_cache"][name],
             **dict(paged[kind][main_name], max_abs_err=max(
                 r["max_abs_err"] for r in paged[kind].values()))))
     flash_src = "deepspeed_tpu/ops/pallas/flash_attention.py"
@@ -2596,6 +2803,8 @@ def main() -> int:
         replaces=f"{flash_src}:41",
         launches=legacy_launches["monolithic+flash"][
             "flash_attention_fwd_masked"],
+        graph_launches=legacy_replayed["monolithic+flash"][
+            "flash_attention_fwd_masked"],
         **dict(flash_masked[FLASH_MASKED_MAIN], max_abs_err=max(
             r["max_abs_err"] for r in flash_masked.values()))))
     for name, part, line in (("flash_attention_fwd", "fwd", 41),
@@ -2605,13 +2814,15 @@ def main() -> int:
             name=name, route="cuda",
             source="deepspeed_tpu_torch/csrc/flash_attention.cu",
             replaces=f"{flash_src}:{line}", launches=train_launches[name],
+            graph_launches=train_replayed[name],
             **dict(flash[FLASH_MAIN][part], max_abs_err=max(
                 r[part]["max_abs_err"] for r in flash.values()))))
     kernels.append(dict(
         name="fused_adam", route="cuda",
         source="deepspeed_tpu_torch/csrc/fused_adam.cu",
         replaces="deepspeed_tpu/ops/pallas/fused_adam.py:37",
-        launches=train_launches["fused_adam"], **adam))
+        launches=train_launches["fused_adam"],
+        graph_launches=train_replayed["fused_adam"], **adam))
     # K4, K5 and K8: launches of the int8-weight 8B generate (K4 runs the
     # same count in the bf16 run; K5's prefill kernel,
     # wgmma_prefill_kernel, is its own entry at the prefill shape; no

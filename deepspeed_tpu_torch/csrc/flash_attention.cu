@@ -118,6 +118,7 @@ struct Params {
   void* out2;          // dkv kernel: dv
   float* lse_out;      // forward only
   const int* kmask;    // forward only: [B, Tk] key mask, or null
+  int* runs;           // [1] or null: one is added per launch that runs
   int B, H, Hkv, Tq, Tk, causal, window;  // window <= 0: none; Hkv: heads
                                           // of k and v (H unless masked)
   float sm_scale;
@@ -217,6 +218,7 @@ __device__ __forceinline__ float row_max(float v) {
 
 template <typename E, int D>
 __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
+  count_run(p.runs);
   const int row0 = blockIdx.x * BT;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -304,6 +306,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
 
 template <typename E, int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
+  count_run(p.runs);
   const int row0 = blockIdx.x * BT;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -371,6 +374,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
 
 template <typename E, int D>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
+  count_run(p.runs);
   const int c0 = blockIdx.x * BT;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -474,6 +478,7 @@ __device__ __forceinline__ bool edge_tile(const Params& p, int r0, int nr,
 template <int D, int NW>
 __global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
     tc_fwd_kernel(Params p) {
+  count_run(p.runs);
   constexpr int NT = NW * 32, BM = NW * 16, KT = D / 16, NS = TN / 8,
                 ND = D / 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -652,6 +657,7 @@ __global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
 
 template <int D, int NW>
 __global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
+  count_run(p.runs);
   constexpr int NT = NW * 32, BM = NW * 16, KT = D / 16, NS = TN / 8,
                 ND = D / 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -782,6 +788,7 @@ __global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
 
 template <int D, int NW, int BQ>
 __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
+  count_run(p.runs);
   constexpr int NT = NW * 32, BN = NW * 16, KT = D / 16, NQ = BQ / 8,
                 ND = D / 8;
   static_assert(2 * BQ <= NT, "one thread per lse and delta value");
@@ -1009,8 +1016,10 @@ int dispatch(Which which, const Params& p, int D, int bf16_in, void* stream) {
 }
 
 Params make(const void* q, const void* k, const void* v, int B, int H,
-            int Tq, int Tk, int causal, int window, float sm_scale) {
+            int Tq, int Tk, int causal, int window, float sm_scale,
+            void* runs) {
   Params p = {};
+  p.runs = static_cast<int*>(runs);
   p.q = q;
   p.k = k;
   p.v = v;
@@ -1029,15 +1038,16 @@ Params make(const void* q, const void* k, const void* v, int B, int H,
 
 // C entries for ctypes. q/out/dout/dq: [B, Tq, H, D]; k/v/dk/dv:
 // [B, Tk, H, D], all contiguous, bf16 (bf16 != 0) or fp32; lse/delta:
-// [B, H, Tq] fp32; window <= 0: none; D is 64 or 128. Every output
-// element is written. Each returns cudaGetLastError() after its launch
-// (0 = launched).
+// [B, H, Tq] fp32; window <= 0: none; D is 64 or 128; runs: int32 [1] or
+// null, one added on the device per launch that runs (a CUDA graph's
+// replays included). Every output element is written. Each returns
+// cudaGetLastError() after its launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int B, int H, int Tq, int Tk, int D,
                                    int causal, int window, float sm_scale,
-                                   int bf16, void* stream) {
-  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale);
+                                   int bf16, void* runs, void* stream) {
+  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale, runs);
   p.out = out;
   p.lse_out = lse;
   return dispatch(FWD, p, D, bf16, stream);
@@ -1051,9 +1061,9 @@ extern "C" int flash_attention_fwd_masked(const void* q, const void* k,
                                           int Hkv, int Tq, int Tk, int D,
                                           int causal, int window,
                                           float sm_scale, int bf16,
-                                          void* stream) {
+                                          void* runs, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale);
+  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale, runs);
   p.Hkv = Hkv;
   p.kmask = static_cast<const int*>(key_mask);
   p.out = out;
@@ -1066,8 +1076,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const float* lse, const float* delta,
                                       void* dq, int B, int H, int Tq, int Tk,
                                       int D, int causal, int window,
-                                      float sm_scale, int bf16, void* stream) {
-  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale);
+                                      float sm_scale, int bf16, void* runs,
+                                      void* stream) {
+  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale, runs);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;
@@ -1081,8 +1092,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int B, int H,
                                        int Tq, int Tk, int D, int causal,
                                        int window, float sm_scale, int bf16,
-                                       void* stream) {
-  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale);
+                                       void* runs, void* stream) {
+  Params p = make(q, k, v, B, H, Tq, Tk, causal, window, sm_scale, runs);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;

@@ -73,8 +73,10 @@ namespace {
 
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Pool p,
-                                                               const int* cl) {
+                                                               const int* cl,
+                                                               int* runs) {
   extern __shared__ __align__(16) unsigned char smem[];
+  count_run(runs);
   Item it;
   it.row = blockIdx.x;
   it.kvh = blockIdx.y;
@@ -95,13 +97,13 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Pool p,
 }
 
 template <typename QT, typename KT, int D>
-cudaError_t launch_decode(const Pool& p, const int* cl, int B,
+cudaError_t launch_decode(const Pool& p, const int* cl, int* runs, int B,
                           cudaStream_t stream) {
   constexpr int bytes = narrow_smem<QT, KT, D>();
   cudaError_t err = allow_smem<paged_decode_kernel<QT, KT, D>>(bytes);
   if (err != cudaSuccess) return err;
   paged_decode_kernel<QT, KT, D>
-      <<<dim3(B, p.Hkv, p.nsplit), THREADS, bytes, stream>>>(p, cl);
+      <<<dim3(B, p.Hkv, p.nsplit), THREADS, bytes, stream>>>(p, cl, runs);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
   merge_kernel<QT><<<merge_grid(B, p.H), MERGE_THREADS, 0, stream>>>(
@@ -110,13 +112,13 @@ cudaError_t launch_decode(const Pool& p, const int* cl, int B,
 }
 
 template <typename QT>
-cudaError_t launch_decode_kv(const Pool& p, const int* cl, int B, int kv_int8,
-                             int D, cudaStream_t stream) {
+cudaError_t launch_decode_kv(const Pool& p, const int* cl, int* runs, int B,
+                             int kv_int8, int D, cudaStream_t stream) {
   if (kv_int8)
-    return D == 64 ? launch_decode<QT, int8_t, 64>(p, cl, B, stream)
-                   : launch_decode<QT, int8_t, 128>(p, cl, B, stream);
-  return D == 64 ? launch_decode<QT, QT, 64>(p, cl, B, stream)
-                 : launch_decode<QT, QT, 128>(p, cl, B, stream);
+    return D == 64 ? launch_decode<QT, int8_t, 64>(p, cl, runs, B, stream)
+                   : launch_decode<QT, int8_t, 128>(p, cl, runs, B, stream);
+  return D == 64 ? launch_decode<QT, QT, 64>(p, cl, runs, B, stream)
+                 : launch_decode<QT, QT, 128>(p, cl, runs, B, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -130,8 +132,9 @@ cudaError_t launch_decode_kv(const Pool& p, const int* cl, int B, int kv_int8,
 // for the merge, so every output element is written.
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
-    Pool p, const int* cs, const int* cl, int T) {
+    Pool p, const int* cs, const int* cl, int T, int* runs) {
   extern __shared__ __align__(16) unsigned char smem[];
+  count_run(runs);
   const int qt = chunk_rows<QT, KT>() / p.G;
   const int tiles = (T + qt - 1) / qt;
   const int b = blockIdx.x / tiles;
@@ -161,8 +164,8 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
 }
 
 template <typename QT, typename KT, int D>
-cudaError_t launch_prefill(const Pool& p, const int* cs, const int* cl, int B,
-                           int T, cudaStream_t stream) {
+cudaError_t launch_prefill(const Pool& p, const int* cs, const int* cl,
+                           int* runs, int B, int T, cudaStream_t stream) {
   constexpr int bytes = item_smem<QT, KT, D>();
   cudaError_t err = allow_smem<paged_prefill_kernel<QT, KT, D>>(bytes);
   if (err != cudaSuccess) return err;
@@ -170,7 +173,7 @@ cudaError_t launch_prefill(const Pool& p, const int* cs, const int* cl, int B,
   const int tiles = (T + qt - 1) / qt;
   paged_prefill_kernel<QT, KT, D>
       <<<dim3(B * tiles, p.Hkv, p.nsplit), THREADS, bytes, stream>>>(p, cs, cl,
-                                                                     T);
+                                                                     T, runs);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
   merge_kernel<QT><<<merge_grid(B * T, p.H), MERGE_THREADS, 0, stream>>>(
@@ -180,13 +183,15 @@ cudaError_t launch_prefill(const Pool& p, const int* cs, const int* cl, int B,
 
 template <typename QT>
 cudaError_t launch_prefill_kv(const Pool& p, const int* cs, const int* cl,
-                              int B, int T, int kv_int8, int D,
+                              int* runs, int B, int T, int kv_int8, int D,
                               cudaStream_t stream) {
   if (kv_int8)
-    return D == 64 ? launch_prefill<QT, int8_t, 64>(p, cs, cl, B, T, stream)
-                   : launch_prefill<QT, int8_t, 128>(p, cs, cl, B, T, stream);
-  return D == 64 ? launch_prefill<QT, QT, 64>(p, cs, cl, B, T, stream)
-                 : launch_prefill<QT, QT, 128>(p, cs, cl, B, T, stream);
+    return D == 64
+               ? launch_prefill<QT, int8_t, 64>(p, cs, cl, runs, B, T, stream)
+               : launch_prefill<QT, int8_t, 128>(p, cs, cl, runs, B, T,
+                                                 stream);
+  return D == 64 ? launch_prefill<QT, QT, 64>(p, cs, cl, runs, B, T, stream)
+                 : launch_prefill<QT, QT, 128>(p, cs, cl, runs, B, T, stream);
 }
 
 // the Pool of a C entry's arguments
@@ -232,8 +237,10 @@ bool splits_ok(int nb, int splits, int per) {
 // window <= 0: none. The table's nb * 16 keys are cut into `splits` ranges
 // of `per` 64-key tiles (the wrapper derives both from the shapes and the
 // card); scratch is fp32 [tokens * H * splits * (D + 2)] (unused with one
-// split). Every output element is written. The caller validates shapes.
-// Each returns cudaGetLastError() after its launches (0 = launched).
+// split); runs is int32 [1] or null, one added on the device per launch
+// that runs (a CUDA graph's replays included). Every output element is
+// written. The caller validates shapes. Each returns cudaGetLastError()
+// after its launches (0 = launched).
 
 // q/out: [B, H, D]
 extern "C" int paged_decode_attention(
@@ -241,7 +248,7 @@ extern "C" int paged_decode_attention(
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* context_lens, void* out, void* scratch, int B, int H,
     int Hkv, int D, int N, int nb, float sm_scale, int window, int q_bf16,
-    int kv_int8, int splits, int per, void* stream) {
+    int kv_int8, int splits, int per, void* runs, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || N <= 0 || nb <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv > MAXG || B > 65535 || Hkv > 65535 ||
@@ -251,10 +258,11 @@ extern "C" int paged_decode_attention(
                            block_tables, out, scratch, B, H, Hkv, D, N, nb,
                            sm_scale, window, splits, per);
   const int* cl = static_cast<const int*>(context_lens);
+  int* r = static_cast<int*>(runs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      q_bf16 ? launch_decode_kv<__nv_bfloat16>(p, cl, B, kv_int8, D, s)
-             : launch_decode_kv<float>(p, cl, B, kv_int8, D, s));
+      q_bf16 ? launch_decode_kv<__nv_bfloat16>(p, cl, r, B, kv_int8, D, s)
+             : launch_decode_kv<float>(p, cl, r, B, kv_int8, D, s));
 }
 
 // q/out: [B, T, H, D]; the grid is (B * query tiles, Hkv, splits), a query
@@ -265,7 +273,7 @@ extern "C" int paged_prefill_attention(
     const void* chunk_start, const void* context_lens, void* out,
     void* scratch, int B, int T, int H, int Hkv, int D, int N, int nb,
     float sm_scale, int window, int q_bf16, int kv_int8, int splits, int per,
-    void* stream) {
+    void* runs, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || T <= 0 || N <= 0 || nb <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       Hkv > 65535 || !splits_ok(nb, splits, per))
@@ -282,8 +290,10 @@ extern "C" int paged_prefill_attention(
                            sm_scale, window, splits, per);
   const int* cs = static_cast<const int*>(chunk_start);
   const int* cl = static_cast<const int*>(context_lens);
+  int* r = static_cast<int*>(runs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      q_bf16 ? launch_prefill_kv<__nv_bfloat16>(p, cs, cl, B, T, kv_int8, D, s)
-             : launch_prefill_kv<float>(p, cs, cl, B, T, kv_int8, D, s));
+      q_bf16
+          ? launch_prefill_kv<__nv_bfloat16>(p, cs, cl, r, B, T, kv_int8, D, s)
+          : launch_prefill_kv<float>(p, cs, cl, r, B, T, kv_int8, D, s));
 }

@@ -25,6 +25,14 @@ using bf16_t = __nv_bfloat16;
 constexpr int MAX_SMEM = 232448;     // the card's opt-in shared memory
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// one added to *runs (when not null) by the first thread of block (0, 0, 0):
+// a device count of the kernel's runs, which a CUDA graph's replays add to
+__device__ __forceinline__ void count_run(int* runs) {
+  if (runs != nullptr && threadIdx.x == 0 && blockIdx.x == 0 &&
+      blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(runs, 1);
+}
+
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -16,7 +16,11 @@ attend the pool (kernel K7b), or, with chunking off, each admitted prompt
 as one monolithic forward padded to a power of two (the masked flash
 kernel when the model's ``prefill_flash_from_empty`` is set); then one
 decode forward over ALL slots (kernel K7a), where idle and mid-prefill
-slots ride as sentinel rows that read and append nothing.
+slots ride as sentinel rows that read and append nothing. Its forwards
+run over static index buffers (one set for the decode, one for the
+chunk, one per monolithic bucket); with the inference config's
+``enable_cuda_graph`` on a CUDA device each of those shapes is one CUDA
+graph, captured after its first forward and replayed after that.
 
 ``prefix_cache=True`` works in both: full pages are content-indexed as
 they fill, admission reuses each prompt's longest cached prefix, shared
@@ -49,8 +53,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ...models.layers import (PackedIndexBuffers, copy_paged_blocks,
-                              harvest_packed_logits, paged_cache_index)
+from ...models.layers import (PackedIndexBuffers, StaticIndexBuffers,
+                              copy_paged_blocks, harvest_packed_logits)
 from ...monitor.tracing import Tracer
 from ...utils.logging import log_dist
 from ..engine import InferenceEngine, _sample_logits, next_pow2
@@ -239,19 +243,19 @@ class ServingEngine:
             ws.append(self._mixed_tokens)
             self._bucket_widths = ws
         self._widths_run = set()
-        # the unified step runs over static buffers; with enable_cuda_graph
-        # on a CUDA device each width is captured as one CUDA graph (its
-        # first step runs eagerly, then is captured; later steps replay)
+        # both engines run over static buffers; with enable_cuda_graph on
+        # a CUDA device each shape (a packed width; the two-program
+        # engine's decode, chunk and monolithic buckets) is captured as
+        # one CUDA graph (its first forward runs eagerly, then is
+        # captured; later forwards replay), all in the inference engine's
+        # memory pool
         self._graphed = bool(engine.config.enable_cuda_graph)
-        if self._graphed and not self._mixed:
-            raise NotImplementedError(
-                "enable_cuda_graph on the two-program engine "
-                "(mixed_step=False) arrives with its part of the CUDA-graph "
-                "slice of the port (ROADMAP.md Queue 1, item 2a)")
         self._static = PackedIndexBuffers(
             cfg.max_batch_size, cfg.max_model_len // cfg.block_size,
             self._mixed_tokens, self.device) if self._mixed else None
-        self._graphs: Dict[int, Any] = {}
+        #: the two-program engine's buffers, by forward kind
+        self._legacy_static: Dict[tuple, StaticIndexBuffers] = {}
+        self._graphs: Dict[Any, Any] = {}
 
         self.tracer = Tracer(capacity=cfg.trace_capacity, enabled=cfg.trace)
         self.nb_max = cfg.max_model_len // cfg.block_size
@@ -791,18 +795,31 @@ class ServingEngine:
         engine's generator."""
         self._widths_run.add(width)
         self.compile_counts["mixed_step"] = len(self._widths_run)
-        cfg = self.config
-        self._static.fill(ids, token_rows, append_pos, self._tables,
-                          row_start, row_len, chunk_start, context_len)
-        graph = self._graphs.get(width)
+        self._static.fill(ids=ids, token_rows=token_rows,
+                          append_pos=append_pos, block_tables=self._tables,
+                          query_start=row_start, query_len=row_len,
+                          chunk_start=chunk_start, context_len=context_len)
+        return self._read_back(self._run_or_replay(
+            width, lambda: self._packed_forward(width)), width)
+
+    def _run_or_replay(self, key, forward):
+        """A forward's device work: the replay of ``key``'s captured graph,
+        or ``forward()`` run eagerly and then, with ``enable_cuda_graph``
+        on a CUDA device, captured under ``key``."""
+        graph = self._graphs.get(key)
         if graph is not None:
             graph[0].replay()
-            out = graph[1]
-        else:
-            out = self._packed_forward(width)
-            if self._graphed and self.device.type == "cuda":
-                self._graphs[width] = self.engine.capture(
-                    lambda: self._packed_forward(width))
+            return graph[1]
+        out = forward()
+        if self._graphed and self.device.type == "cuda":
+            self._graphs[key] = self.engine.capture(forward)
+        return out
+
+    def _read_back(self, out, n: int):
+        """Host ``(tokens [n], bad)`` from a forward's device output: greedy
+        tokens come with it; sampled ones are drawn here, outside any
+        graph, from its logits with the engine's generator."""
+        cfg = self.config
         if cfg.do_sample:
             lg, bad = out
             with torch.inference_mode():
@@ -810,7 +827,7 @@ class ServingEngine:
                                      cfg.top_k, cfg.top_p)
                 out = torch.cat([tok.int(), bad.int()])
         res = out.cpu().numpy()
-        return res[:width], res[width:] != 0
+        return res[:n], res[n:] != 0
 
     def _packed_forward(self, width):
         """The packed step's device work at ``width`` over the static
@@ -832,26 +849,48 @@ class ServingEngine:
     # the two-program engine (mixed_step=False)
     # ------------------------------------------------------------------
 
-    def _forward_last(self, ids: np.ndarray, idx, last_pos):
-        """One model forward over ``ids [B, T]`` with the paged bundle
-        ``idx`` (the pool is appended in place); samples each row's
-        position ``last_pos`` (a ``[B]`` tensor, or None for ``T == 1``).
-        Returns host ``(tokens [B], bad [B])``, ``bad`` flagging rows
-        whose sampled logits hold a NaN/Inf."""
-        cfg = self.config
+    def _forward_last(self, kind: tuple, **arrays):
+        """One model forward of the two-program engine over the static
+        buffers of ``kind`` (``("decode",)``, ``("chunk",)`` or
+        ``("prefill", Tb)``): ``arrays`` are the step's ``ids [B, T]``, the
+        paged bundle's fields (the pool is appended in place) and, for a
+        prefill, each row's sampled position ``last_pos [B]`` (a decode
+        samples its one position). They go to the device in one copy; with
+        ``enable_cuda_graph`` on a CUDA device a kind's first forward runs
+        eagerly and is then captured, and later forwards replay it. Greedy
+        tokens are taken inside that work, sampled ones after it with the
+        engine's generator. Returns host ``(tokens [B], bad [B])``,
+        ``bad`` flagging rows whose sampled logits hold a NaN/Inf."""
+        static = self._legacy_static.get(kind)
+        if static is None:
+            static = self._legacy_static[kind] = StaticIndexBuffers(
+                {n: np.shape(a) for n, a in arrays.items()}, self.device)
+        static.fill(**arrays)
+        return self._read_back(self._run_or_replay(
+            kind, lambda: self._legacy_forward(static)),
+            static.views["ids"].shape[0])
+
+    def _legacy_forward(self, static: StaticIndexBuffers):
+        """A two-program forward's device work over its static buffers:
+        the forward, each row's sampled logits and their NaN flags, and for
+        greedy decoding the tokens; returns ``[B + B]`` int32 (tokens, then
+        the flags) or, when sampling, ``(logits [B, V], flags [B])``."""
+        v = static.views
+        idx = {n: v[n] for n in ("block_tables", "append_pos",
+                                 "context_len", "chunk_start") if n in v}
         with torch.inference_mode():
-            ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-            logits, self.pool = self.engine.module(ids_t, cache=self.pool,
-                                                   cache_index=idx)
-            if last_pos is None:
-                last = logits[:, 0]
-            else:
+            logits, _ = self.engine.module(v["ids"].long(), cache=self.pool,
+                                           cache_index=idx)
+            if "last_pos" in v:
                 last = logits[torch.arange(logits.shape[0],
-                                           device=self.device), last_pos]
+                                           device=logits.device),
+                              v["last_pos"].long()]
+            else:
+                last = logits[:, 0]
             bad = ~torch.isfinite(last).all(dim=-1)
-            tok = _sample_logits(last, self._gen, cfg.do_sample,
-                                 cfg.temperature, cfg.top_k, cfg.top_p)
-        return tok.cpu().numpy(), bad.cpu().numpy()
+            if self.config.do_sample:
+                return last, bad
+            return torch.cat([last.argmax(dim=-1).int(), bad.int()])
 
     def _prefill(self, req: Request) -> None:
         """The monolithic prefill: the admitted request's (resume-)prompt
@@ -867,13 +906,13 @@ class ServingEngine:
         ids = np.zeros((1, Tb), np.int32)
         ids[0, :L] = tokens
         ar = np.arange(Tb)[None, :]
-        idx = paged_cache_index(self._tables[req.slot][None],
-                                np.where(ar < L, ar, -1), [L],
-                                device=self.device)
         tr = self.tracer
         t_pf = time.perf_counter()
         tok, bad = self._forward_last(
-            ids, idx, torch.tensor([L - 1], device=self.device))
+            ("prefill", Tb), ids=ids,
+            block_tables=self._tables[req.slot][None],
+            append_pos=np.where(ar < L, ar, -1), context_len=[L],
+            last_pos=[L - 1])
         if tr.enabled:
             tr.complete("prefill", t_pf, time.perf_counter(), cat="engine",
                         args={"rid": req.rid, "tokens": L, "bucket": Tb})
@@ -929,14 +968,12 @@ class ServingEngine:
         ids = np.zeros((1, self._chunk), np.int32)
         ids[0, :n] = tokens[start:start + n]
         ar = np.arange(self._chunk)[None, :]
-        cidx = paged_cache_index(self._table_row(req),
-                                 np.where(ar < n, start + ar, -1),
-                                 [start + n], chunk_start=[start],
-                                 device=self.device)
         tr = self.tracer
         t_ck = time.perf_counter()
         tok, bad = self._forward_last(
-            ids, cidx, torch.tensor([n - 1], device=self.device))
+            ("chunk",), ids=ids, block_tables=self._table_row(req),
+            append_pos=np.where(ar < n, start + ar, -1),
+            context_len=[start + n], chunk_start=[start], last_pos=[n - 1])
         if tr.enabled:
             tr.complete("prefill_chunk", t_ck, time.perf_counter(),
                         cat="engine",
@@ -971,11 +1008,12 @@ class ServingEngine:
                   if r.state is RequestState.RUNNING and not r.prefilling]
         if not active:
             return
-        idx = paged_cache_index(self._tables, self._seq_lens[:, None],
-                                self._seq_lens + 1, device=self.device)
         tr = self.tracer
         t_dec = time.perf_counter()
-        toks, bad = self._forward_last(self._last_tok[:, None], idx, None)
+        toks, bad = self._forward_last(
+            ("decode",), ids=self._last_tok[:, None],
+            block_tables=self._tables, append_pos=self._seq_lens[:, None],
+            context_len=self._seq_lens + 1)
         step_no = self._step_no
         if tr.enabled:
             tr.complete("decode_step", t_dec, time.perf_counter(),

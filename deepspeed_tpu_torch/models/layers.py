@@ -289,54 +289,56 @@ def paged_cache_index(block_tables, append_pos, context_len,
     return out
 
 
-class PackedIndexBuffers:
-    """Static buffers of the packed step's inputs: the token ids and the
-    fields of :func:`paged_cache_index`, int32, for ``R`` rows of ``nb``
-    table entries and up to ``width`` packed tokens. A step writes its
-    numpy arrays into one host buffer (pinned for a CUDA device) and
-    copies it to the device buffer in one transfer (:meth:`fill`);
-    :meth:`index` gives the ids and the bundle at a width as views of the
-    device buffer, so a CUDA graph captured over them replays with each
-    step's values."""
+class StaticIndexBuffers:
+    """Static int32 buffers of a step's inputs: named fields of fixed
+    shapes in one host buffer (pinned for a CUDA device) and one device
+    buffer. :meth:`fill` writes a step's numpy arrays into the host buffer
+    and copies it to the device in one transfer; ``views`` are views of
+    the device buffer, so a CUDA graph captured over them replays with
+    each step's values."""
 
-    _ROWS = ("query_start", "query_len", "chunk_start", "context_len")
-
-    def __init__(self, rows: int, table_width: int, width: int, device):
+    def __init__(self, shapes, device):
         device = torch.device(device)
-        shapes = [("ids", (width,)), ("token_rows", (width,)),
-                  ("append_pos", (width,))] + \
-            [(n, (rows,)) for n in self._ROWS] + \
-            [("block_tables", (rows, table_width))]
-        total = sum(int(np.prod(shape)) for _, shape in shapes)
+        total = sum(int(np.prod(shape)) for shape in shapes.values())
         self.host = torch.zeros(total, dtype=torch.int32,
                                 pin_memory=device.type == "cuda")
         self.buffer = torch.zeros(total, dtype=torch.int32, device=device)
-        self._host_views, self._dev_views, at = {}, {}, 0
-        for name, shape in shapes:
+        self._host_views, self.views, at = {}, {}, 0
+        for name, shape in shapes.items():
             n = int(np.prod(shape))
             self._host_views[name] = self.host.numpy()[at:at + n].reshape(
                 shape)
-            self._dev_views[name] = self.buffer[at:at + n].view(shape)
+            self.views[name] = self.buffer[at:at + n].view(shape)
             at += n
 
-    def fill(self, ids, token_rows, append_pos, block_tables, query_start,
-             query_len, chunk_start, context_len) -> None:
-        """One step's arrays (the packed ones ``[1, width]`` or
-        ``[width]``) into the host buffer, then the one copy to the
-        device, on the current stream."""
-        arrays = dict(ids=ids, token_rows=token_rows, append_pos=append_pos,
-                      block_tables=block_tables, query_start=query_start,
-                      query_len=query_len, chunk_start=chunk_start,
-                      context_len=context_len)
+    def fill(self, **arrays) -> None:
+        """One step's arrays (each reshaped to its field) into the host
+        buffer, then the one copy to the device, on the current stream."""
         for name, a in arrays.items():
             dst = self._host_views[name]
             dst[...] = np.asarray(a).reshape(dst.shape)
         self.buffer.copy_(self.host, non_blocking=True)
 
+
+class PackedIndexBuffers(StaticIndexBuffers):
+    """The packed step's static buffers: the token ids and the fields of
+    :func:`paged_cache_index`, for ``R`` rows of ``nb`` table entries and
+    up to ``width`` packed tokens; :meth:`index` gives the ids and the
+    bundle at a width as views of the device buffer."""
+
+    _ROWS = ("query_start", "query_len", "chunk_start", "context_len")
+
+    def __init__(self, rows: int, table_width: int, width: int, device):
+        shapes = {"ids": (width,), "token_rows": (width,),
+                  "append_pos": (width,)}
+        shapes.update({n: (rows,) for n in self._ROWS})
+        shapes["block_tables"] = (rows, table_width)
+        super().__init__(shapes, device)
+
     def index(self, width: int):
         """``(ids [1, width], bundle)`` on the device: the bundle is
         :func:`paged_cache_index`'s at ``width`` packed tokens."""
-        v = self._dev_views
+        v = self.views
         bundle = {"block_tables": v["block_tables"],
                   "append_pos": v["append_pos"][:width].view(1, width),
                   "token_rows": v["token_rows"][:width].view(1, width)}

@@ -343,8 +343,12 @@ class LlamaModel(nn.Module):
                                         cache.items()}, cache_index,
                           attention_mask)
             elif cfg.remat and torch.is_grad_enabled():
+                # the block draws no random numbers, so there is no RNG
+                # state to restore for the recompute; saving it would read
+                # the CUDA generator, which a captured training step must
+                # not do
                 x = checkpoint(layer, x, cos, sin, None, None,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = layer(x, cos, sin, None, None)
         return self.norm(x)

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _runs
 
 #: head dims the kernel is compiled for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -353,12 +353,13 @@ def _paged_entries():
     P, I = ctypes.c_void_p, ctypes.c_int
     dec = lib.paged_decode_attention
     # q k v k_scale v_scale tables context_lens out scratch | B H Hkv D N
-    # nb | sm_scale window q_bf16 kv_int8 splits per | stream
-    dec.argtypes = [P] * 9 + [I] * 6 + [ctypes.c_float, I, I, I, I, I, P]
+    # nb | sm_scale window q_bf16 kv_int8 splits per | runs stream
+    dec.argtypes = [P] * 9 + [I] * 6 + [ctypes.c_float, I, I, I, I, I, P, P]
     pre = lib.paged_prefill_attention
     # q k v k_scale v_scale tables chunk_start context_lens out scratch |
-    # B T H Hkv D N nb | sm_scale window q_bf16 kv_int8 splits per | stream
-    pre.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, I, I, I, I, I, P]
+    # B T H Hkv D N nb | sm_scale window q_bf16 kv_int8 splits per | runs
+    # stream
+    pre.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, I, I, I, I, I, P, P]
     dec.restype = pre.restype = I
     return dec, pre
 
@@ -442,7 +443,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
     """One query per sequence over the paged pool (kernel K7a; see the
     plain version for the arguments). CUDA tensors launch the kernel on the
     current stream (the split walk over the block table and its merge, in
-    one C call) and add one to ``paged_decode_attention.launches``; CPU
+    one C call) and add one to ``paged_decode_attention.launches`` (and
+    the kernel to its device run count, ``_runs.kernel_runs``); CPU
     tensors take the plain version; anything else raises. The split count
     comes from the table's width and the card (:func:`paged_splits`), never
     from ``context_lens``, so the launch is the same for every value of
@@ -486,7 +488,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
             scratch.data_ptr() if splits > 1 else None, B, H, Hkv, D, N, nb,
             float(sm_scale), 0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
-            splits, per, torch.cuda.current_stream(dev).cuda_stream)
+            splits, per,
+            _runs.counter("paged_decode_attention", dev).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed "
                            f"with CUDA error {rc}")
@@ -501,7 +505,8 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
     """One prefill chunk per sequence over the paged pool (kernel K7b; see
     the plain version for the arguments). CUDA tensors launch the kernel on
     the current stream (the split walk over the block table and its merge,
-    in one C call) and add one to ``paged_prefill_attention.launches``; CPU
+    in one C call) and add one to ``paged_prefill_attention.launches``
+    (and the kernel to its device run count, ``_runs.kernel_runs``); CPU
     tensors take the plain version; anything else raises. The launch comes
     from the shapes and the card (:func:`prefill_launch`), never from
     ``chunk_start`` or ``context_lens``, so a captured CUDA graph replays
@@ -546,7 +551,9 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
             scratch.data_ptr() if splits > 1 else None, B, T, H, Hkv, D, N,
             nb, float(sm_scale), 0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
-            splits, lp["per"], torch.cuda.current_stream(dev).cuda_stream)
+            splits, lp["per"],
+            _runs.counter("paged_prefill_attention", dev).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill_attention: kernel launch failed "
                            f"with CUDA error {rc}")

@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _runs
 
 #: head dims the kernels are compiled for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -106,7 +106,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
 def _entries():
     lib = _build.load("flash_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    shape = [I] * 5 + [I, I, F, I, P]   # B H Tq Tk D causal window scale bf16 stream
+    # B H Tq Tk D causal window scale bf16 runs stream
+    shape = [I] * 5 + [I, I, F, I, P, P]
     fwd = lib.flash_attention_fwd
     fwd.argtypes = [P] * 5 + shape
     dq = lib.flash_attention_bwd_dq
@@ -114,8 +115,9 @@ def _entries():
     dkv = lib.flash_attention_bwd_dkv
     dkv.argtypes = [P] * 8 + shape
     masked = lib.flash_attention_fwd_masked
-    # q k v key_mask out lse | B H Hkv Tq Tk D | causal window scale bf16 stream
-    masked.argtypes = [P] * 6 + [I] * 6 + [I, I, F, I, P]
+    # q k v key_mask out lse | B H Hkv Tq Tk D | causal window scale bf16
+    # runs stream
+    masked.argtypes = [P] * 6 + [I] * 6 + [I, I, F, I, P, P]
     for fn in (fwd, dq, dkv, masked):
         fn.restype = I
     return fwd, dq, dkv, masked
@@ -163,6 +165,7 @@ def _launch(fn, name, ptrs, q, k, causal, window, sm_scale):
         rc = fn(*ptrs, B, H, Tq, k.shape[1], D, int(causal),
                 0 if window is None else int(window), float(sm_scale),
                 int(q.dtype == torch.bfloat16),
+                _runs.counter(name, q.device).data_ptr(),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
@@ -173,7 +176,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
                         sm_scale: Optional[float] = None,
                         window: Optional[int] = None):
     """Forward pass (K1): ``(out, lse)``. CUDA tensors launch the kernel
-    and add one to ``flash_attention_fwd.launches``; CPU tensors take
+    and add one to ``flash_attention_fwd.launches`` (the kernel adds one
+    to its device run count, ``_runs.kernel_runs``); CPU tensors take
     ``flash_attention_plain``; anything else raises."""
     dev = _check("flash_attention_fwd", (q, k, v), window)
     if sm_scale is None:
@@ -204,7 +208,8 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal: bool = True,
                            sm_scale: Optional[float] = None,
                            window: Optional[int] = None, delta=None):
     """dQ (K2, first kernel). CUDA tensors launch the kernel and add one to
-    ``flash_attention_bwd_dq.launches``; CPU tensors take the plain
+    ``flash_attention_bwd_dq.launches`` (and the kernel to its device run
+    count, ``_runs.kernel_runs``); CPU tensors take the plain
     backward; anything else raises. ``delta`` may pass ``rowsum(dO * O)``
     (fp32 ``[B, H, Tq]``) when the caller has it."""
     dev = _check("flash_attention_bwd_dq", (q, k, v, out, lse, dout), window)
@@ -231,7 +236,8 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, causal: bool = True,
                             sm_scale: Optional[float] = None,
                             window: Optional[int] = None, delta=None):
     """``(dk, dv)`` (K2, second kernel). CUDA tensors launch the kernel and
-    add one to ``flash_attention_bwd_dkv.launches``; CPU tensors take the
+    add one to ``flash_attention_bwd_dkv.launches`` (and the kernel to its
+    device run count, ``_runs.kernel_runs``); CPU tensors take the
     plain backward; anything else raises. ``delta`` may pass a
     ``rowsum(dO * O)`` already computed for the dQ kernel."""
     dev = _check("flash_attention_bwd_dkv", (q, k, v, out, lse, dout), window)
@@ -262,7 +268,8 @@ def flash_attention_fwd_masked(q, k, v, key_mask, causal: bool = True,
     """The masked, GQA-native forward (K1's key-mask mode): ``q [B, Tq, H,
     D]``, un-repeated ``k``/``v [B, Tk, Hkv, D]``, ``key_mask [B, Tk]``
     (1 = real key). Returns ``(out, lse)``. CUDA tensors launch the kernel
-    and add one to ``flash_attention_fwd_masked.launches``; CPU tensors
+    and add one to ``flash_attention_fwd_masked.launches`` (and the kernel
+    to its device run count, ``_runs.kernel_runs``); CPU tensors
     take ``flash_attention_plain``; anything else raises. Forward only."""
     tensors = (q, k, v, key_mask)
     dev = q.device
@@ -315,6 +322,7 @@ def flash_attention_fwd_masked(q, k, v, key_mask, causal: bool = True,
             out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tk, D,
             int(causal), 0 if window is None else int(window),
             float(sm_scale), int(q.dtype == torch.bfloat16),
+            _runs.counter("flash_attention_fwd_masked", dev).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd_masked: kernel launch "
@@ -364,7 +372,12 @@ def flash_attention(q, k, v, causal: bool = True,
     ``[B, Tk, Hkv, D]`` and is forward-only: a gradient cannot be taken
     through the masked kernel, so inputs that require one raise (drop
     padding through the loss mask when training). Returns ``out`` in q's
-    dtype."""
+    dtype. The kernels take bf16 and fp32: fp16 CUDA tensors (fp16
+    training) widen exactly to fp32, run the fp32 kernels, and the result
+    (and the gradients) round back to fp16."""
+    if q.dtype == torch.float16 and q.device.type == "cuda":
+        return flash_attention(q.float(), k.float(), v.float(), causal,
+                               sm_scale, window, key_mask).half()
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1] ** 0.5
     if key_mask is not None:

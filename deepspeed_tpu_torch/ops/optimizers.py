@@ -4,13 +4,20 @@ Counterpart of ``deepspeed_tpu/ops/optimizers.py``. Both optimizers update
 lists of fp32 tensors in place through kernel K3 (``ops/fused_adam.py``):
 one launch over the whole list on CUDA, the plain version on the CPU. The
 device decides, so the JAX config's ``pallas=True`` is accepted and
-changes nothing. ``step(grads, grad_scale)`` takes the gradients and an
+changes nothing. ``step(grads, grad_scale, skip)`` takes the gradients, an
 optional fp32 device scalar that multiplies them first (the engine's clip
-factor, computed on the card). The schedule sees the step count before
-the increment; bias correction uses the count after it.
+factor, computed on the card) and an optional device bool that skips the
+step (the fp16 overflow): params, moments and count then stay as they
+were, as the JAX step's ``keep(new, old)``.
+
+As ``FusedAdamState.count``, the step count is a device int32 tensor
+that only a step advances, and the step's scalars (``alpha = [step_size,
+lr, inv_bc2]``) are computed from it on the device in fp32: the schedule
+sees the count before the increment, bias correction the count after it.
+Nothing is read back to the host, so a captured training step replays
+with the current count.
 """
 
-import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
@@ -28,21 +35,38 @@ class _AdamBase:
         self.lr = lr
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps = float(eps)
-        #: optimizer steps taken (skipped fp16 steps do not count)
-        self.count = 0
+        device = self.params[0].device if self.params else None
+        #: optimizer steps taken (skipped fp16 steps do not count): a
+        #: device int32 scalar
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.exp_avg = [torch.zeros_like(p, dtype=torch.float32)
                         for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p, dtype=torch.float32)
                            for p in self.params]
+        #: K3's table for the last gradient list (``fused_adam.AdamTable``;
+        #: None on the CPU): built at the first step, reused while the
+        #: gradient buffers stay the same, as a captured step requires
+        self.table = None
 
-    def lr_at(self, count: int) -> float:
-        return float(self.lr(count) if callable(self.lr) else self.lr)
+    def lr_at(self, count) -> torch.Tensor:
+        """The lr at ``count`` as an fp32 scalar on the count's device."""
+        if callable(self.lr):
+            return torch.as_tensor(self.lr(count), dtype=torch.float32,
+                                   device=self.count.device)
+        return torch.full((), float(self.lr), dtype=torch.float32,
+                          device=self.count.device)
 
-    def _scalars(self, lr: float):
-        """``(step_size, inv_bc2)`` for the next step; advances the count."""
-        self.count += 1
-        t = self.count
-        return lr / (1.0 - self.b1 ** t), 1.0 / math.sqrt(1.0 - self.b2 ** t)
+    def _alpha(self, lr: torch.Tensor) -> torch.Tensor:
+        """``[step_size, lr, inv_bc2]`` for the next step, fp32 on the
+        device, from the post-increment count (JAX ``update_fn``)."""
+        t = (self.count + 1).to(torch.float32)
+        step_size = lr / (1.0 - torch.pow(self.b1, t))
+        inv_bc2 = 1.0 / torch.sqrt(1.0 - torch.pow(self.b2, t))
+        return torch.stack([step_size, lr, inv_bc2])
+
+    def _advance(self, skip: Optional[torch.Tensor]) -> None:
+        """The count moves by one, or by none on a skipped step."""
+        self.count.add_(1 if skip is None else (~skip).to(torch.int32))
 
 
 class FusedAdam(_AdamBase):
@@ -63,14 +87,15 @@ class FusedAdam(_AdamBase):
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor],
-             grad_scale: Optional[torch.Tensor] = None) -> None:
-        lr = self.lr_at(self.count)
-        step_size, inv_bc2 = self._scalars(lr)
-        fused_adam(self.params, grads, self.exp_avg, self.exp_avg_sq,
-                   b1=self.b1, b2=self.b2, eps=self.eps,
-                   weight_decay=self.weight_decay,
-                   adam_w_mode=self.adam_w_mode, step_size=step_size, lr=lr,
-                   inv_bc2=inv_bc2, grad_scale=grad_scale)
+             grad_scale: Optional[torch.Tensor] = None,
+             skip: Optional[torch.Tensor] = None) -> None:
+        alpha = self._alpha(self.lr_at(self.count))
+        self.table = fused_adam(
+            self.params, grads, self.exp_avg, self.exp_avg_sq, b1=self.b1,
+            b2=self.b2, eps=self.eps, weight_decay=self.weight_decay,
+            adam_w_mode=self.adam_w_mode, alpha=alpha, skip=skip,
+            grad_scale=grad_scale, table=self.table)
+        self._advance(skip)
 
 
 class FusedLamb(_AdamBase):
@@ -103,14 +128,18 @@ class FusedLamb(_AdamBase):
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor],
-             grad_scale: Optional[torch.Tensor] = None) -> None:
+             grad_scale: Optional[torch.Tensor] = None,
+             skip: Optional[torch.Tensor] = None) -> None:
         lr = self.lr_at(self.count)
-        step_size, inv_bc2 = self._scalars(1.0)
-        # u = -adam_direction lands in the gradient buffers
-        fused_adam(self.params, grads, self.exp_avg, self.exp_avg_sq,
-                   b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=0.0,
-                   adam_w_mode=True, step_size=step_size, lr=1.0,
-                   inv_bc2=inv_bc2, grad_scale=grad_scale, write_update=True)
+        alpha = self._alpha(torch.ones_like(lr))
+        # u = -adam_direction lands in the gradient buffers (nothing is
+        # written on a skipped step)
+        self.table = fused_adam(
+            self.params, grads, self.exp_avg, self.exp_avg_sq, b1=self.b1,
+            b2=self.b2, eps=self.eps, weight_decay=0.0, adam_w_mode=True,
+            alpha=alpha, skip=skip, grad_scale=grad_scale,
+            write_update=True, table=self.table)
+        self._advance(skip)
         # the LAMB direction -u + decay * p, in place of u
         directions = list(grads)
         torch._foreach_neg_(directions)
@@ -129,7 +158,11 @@ class FusedLamb(_AdamBase):
                                 torch.ones_like(p_norm))
             ratio = ratio.clamp(self.min_coeff, self.max_coeff)
             for i in group:
-                self.params[i].add_(-lr * ratio * directions[i])
+                p = self.params[i]
+                new = p + -lr * ratio * directions[i]
+                # a skipped step adds nothing (its directions are the
+                # non-finite gradients)
+                p.copy_(new if skip is None else torch.where(skip, p, new))
 
 
 ADAM_OPTIMIZER = "adam"

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _runs
 from .decode_attention import _sm_count, paged_splits
 
 #: pool page size the kernel is compiled for
@@ -224,7 +224,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             block_tables.data_ptr(), *(d.data_ptr() for d in descriptors),
             out.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(),
-            _runs(dev).data_ptr(), T, H,
+            _runs.counter("ragged_paged_attention", dev).data_ptr(), T, H,
             Hkv, D, N, R, nb, float(sm_scale),
             0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
@@ -239,26 +239,6 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
 
 ragged_paged_attention.launches = 0
 
-#: per device, an int32 [1] that every launch adds one to when it runs
-_RUNS = {}
-
-
-def _runs(dev: torch.device) -> torch.Tensor:
-    runs = _RUNS.get(dev)
-    if runs is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("ragged_paged_attention: launch the kernel "
-                               "once before capturing it in a CUDA graph "
-                               "(its run counter is allocated then)")
-        runs = _RUNS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return runs
-
-
-def _indexed(device) -> torch.device:
-    dev = torch.device(device)
-    return dev if dev.index is not None else \
-        torch.device(dev.type, torch.cuda.current_device())
-
 
 def kernel_runs(device="cuda") -> int:
     """The launches of the kernel that ran on ``device`` since
@@ -266,10 +246,9 @@ def kernel_runs(device="cuda") -> int:
     a captured CUDA graph count and captures do not (the Python counter
     ``ragged_paged_attention.launches`` ticks where the wrapper runs, at
     capture). Waits for the device."""
-    runs = _RUNS.get(_indexed(device))
-    return 0 if runs is None else int(runs.item())
+    return _runs.kernel_runs("ragged_paged_attention", device)
 
 
 def reset_kernel_runs(device="cuda") -> None:
     """Set :func:`kernel_runs` to 0 on ``device``."""
-    _runs(_indexed(device)).zero_()
+    _runs.reset_kernel_runs("ragged_paged_attention", device)

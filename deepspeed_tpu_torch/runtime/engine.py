@@ -8,14 +8,29 @@ to the model cast to the compute dtype (an explicit cast, not autocast, so
 the math matches the JAX step, which casts every floating param inside
 the step), so autograd returns fp32 gradients into the masters.
 
-A step (``train_batch``): for each of the ``gas`` microbatches, the loss
-times the loss scale goes backward and the gradients add up in the
-masters; the sum is divided by ``gas`` and by the scale; the global norm
-is taken; an fp16 overflow (a non-finite norm, read on the host once per
-fp16 step) skips the whole update and advances the scale automaton;
-otherwise clipping (``g * clip / norm`` when the norm exceeds ``clip``,
-as a device scalar) and the optimizer (kernel K3) update the masters in
-place. bf16 and fp32 steps read nothing back from the card.
+As the JAX ``TrainState``, every piece of mutable state lives on the
+device and a step reads nothing back: the masters, their gradient buffers
+(allocated once, zeroed in place each step), the optimizer's moments and
+step count (``optimizer.count``, which is also the engine's step count:
+both move together in JAX), the fp16 loss-scale automaton and the count
+of skipped steps. A step (``train_batch``): for each of the ``gas``
+microbatches, the loss times the device loss scale goes backward and the
+gradients add up in the buffers; the sum is divided by ``gas`` and by the
+scale; the global norm is taken; an fp16 overflow (a non-finite norm, a
+device bool) moves the scale automaton and makes the optimizer (kernel
+K3) keep every tensor as it was; otherwise clipping (``g * clip / norm``
+when the norm exceeds ``clip``) and K3 update the masters in place. The
+host reads the loss, the norm, the scale, the lr or the skip count only
+when asked (``float(loss)``, ``get_global_grad_norm``, ``loss_scale``,
+``get_lr``, ``get_skipped_steps``, the ``steps_per_print`` log).
+
+On a CUDA device the step runs as a CUDA graph, the counterpart of the
+JAX step's ``jax.jit``: one graph per batch shape and dtype set, all in
+one memory pool. A shape's first step runs eagerly on a side stream (the
+warm-up) and is then captured; later steps copy the batch into the
+graph's input buffers and replay it. ``cuda_graph=False`` (a port-only
+keyword of ``initialize``, beside ``device``) runs the same step
+uncaptured; on the CPU nothing is captured. A capture that fails raises.
 
 The micro-step API (``engine(batch)``, ``backward``, ``step``) queues
 microbatches and runs ``train_batch`` at the accumulation boundary, as the
@@ -64,7 +79,7 @@ class DeepSpeedEngine:
 
     def __init__(self, model: nn.Module, config=None,
                  model_parameters: Optional[Dict[str, Any]] = None,
-                 lr_scheduler=None, device=None):
+                 lr_scheduler=None, device=None, cuda_graph: bool = True):
         self.device = resolve_device(device)
         if not isinstance(model, nn.Module) or \
                 not hasattr(model, "init_params"):
@@ -76,7 +91,6 @@ class DeepSpeedEngine:
         self.client_lr_scheduler = lr_scheduler
         self.global_steps = 0
         self.micro_steps = 0
-        self.skipped_steps = 0
 
         self._config = DeepSpeedConfig(config or {}, world_size=1)
         self.dp_world_size = 1
@@ -109,11 +123,26 @@ class DeepSpeedEngine:
         self._trainable_names = [n for n, p in self.master.items()
                                  if p.requires_grad]
         self._trainable = [self.master[n] for n in self._trainable_names]
+        # the gradient buffers: allocated once, zeroed in place each step,
+        # so a captured step (and K3's table of pointers) sees the same
+        # memory every time
+        for p in self._trainable:
+            p.grad = torch.zeros_like(p)
+        self._grads = [p.grad for p in self._trainable]
 
         self.lr_scheduler = self._build_lr_scheduler()
         self.optimizer = self._build_optimizer()
-        self.loss_scaler = create_loss_scaler(self._config.fp16) \
+        self._scaler = create_loss_scaler(self._config.fp16,
+                                          device=self.device) \
             if self.fp16_enabled else None
+        #: skipped (fp16 overflow) steps, a device int32 scalar
+        self._skipped = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._graphed = bool(cuda_graph) and self.device.type == "cuda"
+        #: captured steps by batch signature: (graph, inputs, outputs, K3's
+        #: table, which the graph reads by address at each replay)
+        self._graphs: Dict[tuple, Tuple[Any, Dict[str, torch.Tensor],
+                                        Tuple[torch.Tensor, ...], Any]] = {}
+        self._graph_pool = None
 
         self.timers = SynchronizedWallClockTimer()
         self.tput_timer = ThroughputTimer(
@@ -182,40 +211,75 @@ class DeepSpeedEngine:
             out = out["loss"]
         return out
 
-    def _train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _train_step(self, batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The JAX ``train_step`` on the device state; returns the mean
+        loss and the global gradient norm as device scalars. Reads nothing
+        back, so it runs inside a CUDA graph."""
         gas = self.gradient_accumulation_steps
-        scale = self.loss_scaler.cur_scale if self.fp16_enabled else 1.0
+        scale = self._scaler.cur_scale if self.fp16_enabled else None
+        grads = self._grads
+        torch._foreach_zero_(grads)
         total = None
         for i in range(gas):
-            loss = self._loss({k: v[i] for k, v in batch.items()})
-            (loss.float() * scale).backward()
-            total = loss.detach().float() if total is None \
-                else total + loss.detach().float()
+            loss = self._loss({k: v[i] for k, v in batch.items()}).float()
+            (loss if scale is None else loss * scale).backward()
+            total = loss.detach() if total is None \
+                else total + loss.detach()
         loss = total / gas
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._trainable]
         if gas > 1:
             torch._foreach_div_(grads, float(gas))
-        if scale != 1.0:
+        if scale is not None:
             torch._foreach_div_(grads, scale)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        self._last_grad_norm = norm
-        overflow = False
+        overflow = None
         if self.fp16_enabled:
-            overflow = not bool(torch.isfinite(norm))
-            self.loss_scaler = update_scale(self.loss_scaler, overflow)
-        if overflow:
-            self.skipped_steps += 1
-        else:
-            clip = self._config.gradient_clipping
-            factor = None
-            if clip and clip > 0:
-                factor = torch.where(norm < clip, torch.ones_like(norm),
-                                     clip / norm)
-            self.optimizer.step(grads, grad_scale=factor)
-        for p in self._trainable:
-            p.grad = None
-        return loss
+            overflow = ~torch.isfinite(norm)
+            self._scaler.copy_(update_scale(self._scaler, overflow))
+            self._skipped.add_(overflow.to(torch.int32))
+        clip = self._config.gradient_clipping
+        factor = None
+        if clip and clip > 0:
+            factor = torch.where(norm < clip, torch.ones_like(norm),
+                                 clip / norm)
+        self.optimizer.step(grads, grad_scale=factor, skip=overflow)
+        return loss, norm
+
+    def _graphed_step(self, batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`_train_step` as a CUDA graph for the batch's signature:
+        the first step of a signature runs eagerly on a side stream and is
+        then captured; later steps copy the batch into the graph's inputs
+        and replay. Returns copies of the graph's outputs (a replay
+        overwrites them)."""
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(batch.items()))
+        entry = self._graphs.get(key)
+        if entry is not None:
+            graph, inputs, outputs, _ = entry
+            for k, v in batch.items():
+                inputs[k].copy_(v)
+            graph.replay()
+            return tuple(t.clone() for t in outputs)
+        inputs = {k: v.clone() for k, v in batch.items()}
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self._train_step(inputs)
+            # the casts bound to the module hold the warm-up's autograd
+            # graph, whose gradient accumulators belong to this stream:
+            # rebind without a graph, so the capture makes its own
+            with torch.no_grad():
+                self._bind_params()
+        current.wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            outputs = self._train_step(inputs)
+        self._graphs[key] = (graph, inputs, outputs, self.optimizer.table)
+        return out
 
     # ------------------------------------------------------------------
     # public training API
@@ -245,7 +309,7 @@ class DeepSpeedEngine:
         """One optimizer step over ``gas`` microbatches. Pass a global batch
         (leading dim ``train_batch_size``) or an iterator of microbatches.
         Returns the mean loss as a device scalar (reading it waits for the
-        step)."""
+        step; a captured step returns a copy, never the graph's buffer)."""
         if batch is None:
             if data_iter is None:
                 raise ValueError("train_batch needs a batch or a data "
@@ -257,7 +321,9 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown:
             self.timers("train_batch").start()
         self.tput_timer.start()
-        loss = self._train_step(self._shape_batch(batch))
+        batch = self._shape_batch(batch)
+        loss, self._last_grad_norm = self._graphed_step(batch) \
+            if self._graphed else self._train_step(batch)
         self.global_steps += 1
         self.micro_steps += self.gradient_accumulation_steps
         self.tput_timer.stop()
@@ -321,8 +387,27 @@ class DeepSpeedEngine:
         return norm if np.isfinite(norm) else None
 
     @property
+    def loss_scaler(self):
+        """The fp16 loss-scale state (device tensors), or None."""
+        return self._scaler
+
+    @loss_scaler.setter
+    def loss_scaler(self, state) -> None:
+        """Replace the scaler's state (moved to the engine's device); the
+        captured steps read the old tensors, so they are dropped and the
+        next step captures anew."""
+        self._scaler = None if state is None else state.replace(**{
+            name: getattr(state, name).to(self.device)
+            for name in ("cur_scale", "cur_iter", "cur_hysteresis")})
+        self._graphs.clear()
+
+    @property
     def loss_scale(self) -> float:
-        return 1.0 if self.loss_scaler is None else self.loss_scaler.cur_scale
+        return 1.0 if self._scaler is None else float(self._scaler.cur_scale)
+
+    @property
+    def skipped_steps(self) -> int:
+        return int(self._skipped)
 
     def get_lr(self):
         if self.lr_scheduler is None:
@@ -331,7 +416,7 @@ class DeepSpeedEngine:
         return [float(self.lr_scheduler(self.optimizer.count))]
 
     def get_skipped_steps(self) -> int:
-        return self.skipped_steps
+        return int(self._skipped)
 
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         """The fp32 master weights by ``state_dict`` name."""
@@ -360,13 +445,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
                config_params=None, loss_fn=None, example_batch=None,
-               device=None) -> Tuple[DeepSpeedEngine, Any, None, Any]:
+               device=None, cuda_graph: bool = True
+               ) -> Tuple[DeepSpeedEngine, Any, None, Any]:
     """Build a :class:`DeepSpeedEngine`. Returns ``(engine, optimizer,
     None, lr_scheduler)``. ``model_parameters`` is a ``state_dict`` (the
     JAX param tree goes through ``checkpoint.from_flax`` first); without
     it the weights are ``model.init_params(seed=config["seed"])``, so
     ``example_batch`` is not needed. Runs on ``cuda`` unless ``device``
-    says otherwise."""
+    says otherwise; there each step is one replayed CUDA graph unless
+    ``cuda_graph=False``, which runs the same step uncaptured. A client
+    ``lr_scheduler`` is called with the device step count (a 0-d int32
+    tensor) and returns the lr as a tensor, as JAX traces
+    ``lr(state.count)``."""
     if config is None and config_params is not None:
         config = config_params
     if config is None and args is not None and \
@@ -385,5 +475,6 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise unported("an mpu", "the distributed and ZeRO slice (item 9)")
     engine = DeepSpeedEngine(model, config=config,
                              model_parameters=model_parameters,
-                             lr_scheduler=lr_scheduler, device=device)
+                             lr_scheduler=lr_scheduler, device=device,
+                             cuda_graph=cuda_graph)
     return engine, engine.optimizer, None, engine.lr_scheduler

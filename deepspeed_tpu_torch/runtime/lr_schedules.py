@@ -2,18 +2,28 @@
 
 Counterpart of ``deepspeed_tpu/runtime/lr_schedules.py``: ``WarmupLR``,
 ``WarmupDecayLR``, ``OneCycle`` (with ``get_mom``) and ``LRRangeTest``,
-each a plain ``step -> lr`` callable on Python floats. The optimizer calls
-it with its step count before the increment, as the JAX package does.
+each a ``step -> lr`` callable. The step is a 0-d integer tensor (the
+optimizer's device count before the increment, as the JAX package passes
+``state.count``) or a Python int; the lr is a 0-d fp32 tensor on the
+step's device, computed with torch ops in fp32 as the ``jnp`` versions
+are, so a schedule runs inside a captured training step and reads nothing
+back. A client ``lr_scheduler`` handed to ``initialize`` is called the
+same way and must accept such a tensor.
 """
 
 import math
 from typing import Any, Callable, Dict, Optional
 
+import torch
+
 VALID_LR_SCHEDULES = ["LRRangeTest", "OneCycle", "WarmupLR", "WarmupDecayLR"]
 
 
-def _clip(x: float, lo: float, hi: float) -> float:
-    return min(max(x, lo), hi)
+def _step(step) -> torch.Tensor:
+    """The step as a 0-d fp32 tensor (on its device when it is one)."""
+    if torch.is_tensor(step):
+        return step.to(torch.float32)
+    return torch.tensor(float(step), dtype=torch.float32)
 
 
 class WarmupLR:
@@ -31,13 +41,13 @@ class WarmupLR:
         self.warmup_type = warmup_type
         self.inverse_log_warm_up = 1.0 / math.log(self.warmup_num_steps)
 
-    def __call__(self, step) -> float:
-        step = float(step)
+    def __call__(self, step) -> torch.Tensor:
+        step = _step(step)
         if self.warmup_type == "log":
-            gamma = self.inverse_log_warm_up * math.log(max(step, 1.0))
+            gamma = self.inverse_log_warm_up * torch.log(step.clamp_min(1.0))
         else:
             gamma = step / self.warmup_num_steps
-        gamma = _clip(gamma, 0.0, 1.0)
+        gamma = gamma.clamp(0.0, 1.0)
         return self.warmup_min_lr + \
             (self.warmup_max_lr - self.warmup_min_lr) * gamma
 
@@ -49,13 +59,13 @@ class WarmupDecayLR(WarmupLR):
         super().__init__(**kwargs)
         self.total_num_steps = max(2, total_num_steps)
 
-    def __call__(self, step) -> float:
-        step = float(step)
-        if step < self.warmup_num_steps:
-            return super().__call__(step)
+    def __call__(self, step) -> torch.Tensor:
+        step = _step(step)
+        warm = super().__call__(step)
         decay_frac = (self.total_num_steps - step) / max(
             1.0, self.total_num_steps - self.warmup_num_steps)
-        return self.warmup_max_lr * _clip(decay_frac, 0.0, 1.0)
+        decay = self.warmup_max_lr * decay_frac.clamp(0.0, 1.0)
+        return torch.where(step < self.warmup_num_steps, warm, decay)
 
 
 class OneCycle:
@@ -86,33 +96,32 @@ class OneCycle:
         self.total_size = self.first + self.second
 
     def _cycle_phase(self, step):
-        step = float(step)
-        if step <= self.first:
-            frac = step / max(self.first, 1.0)
-        else:
-            frac = 1.0 - (step - self.first) / max(self.second, 1.0)
-        return _clip(frac, 0.0, 1.0), step > self.total_size
+        step = _step(step)
+        up_frac = step / max(self.first, 1.0)
+        down_frac = 1.0 - (step - self.first) / max(self.second, 1.0)
+        frac = torch.where(step <= self.first, up_frac, down_frac)
+        return frac.clamp(0.0, 1.0), step > self.total_size
 
-    def __call__(self, step) -> float:
+    def __call__(self, step) -> torch.Tensor:
         frac, in_decay = self._cycle_phase(step)
-        if not in_decay:
-            return self.cycle_min_lr + \
-                (self.cycle_max_lr - self.cycle_min_lr) * frac
+        cyc = self.cycle_min_lr + (self.cycle_max_lr - self.cycle_min_lr) * frac
         if self.decay_step_size > 0:
-            decay_steps = (float(step) - self.total_size) \
+            decay_steps = (_step(step) - self.total_size) \
                 / self.decay_step_size
-            return self.cycle_min_lr / \
-                (1.0 + max(decay_steps, 0.0) * self.decay_lr_rate)
-        return self.cycle_min_lr
+            dec = self.cycle_min_lr / \
+                (1.0 + decay_steps.clamp_min(0.0) * self.decay_lr_rate)
+        else:
+            dec = torch.full_like(cyc, self.cycle_min_lr)
+        return torch.where(in_decay, dec, cyc)
 
-    def get_mom(self, step) -> Optional[float]:
+    def get_mom(self, step) -> Optional[torch.Tensor]:
         if not self.cycle_momentum:
             return None
         frac, in_decay = self._cycle_phase(step)
-        if in_decay:
-            return self.cycle_max_mom
-        return self.cycle_max_mom - \
+        cyc = self.cycle_max_mom - \
             (self.cycle_max_mom - self.cycle_min_mom) * frac
+        return torch.where(in_decay, torch.full_like(cyc, self.cycle_max_mom),
+                           cyc)
 
 
 class LRRangeTest:
@@ -127,10 +136,10 @@ class LRRangeTest:
         self.step_rate = lr_range_test_step_rate
         self.staircase = lr_range_test_staircase
 
-    def __call__(self, step) -> float:
-        interval = float(step) / self.step_size
+    def __call__(self, step) -> torch.Tensor:
+        interval = _step(step) / self.step_size
         if self.staircase:
-            interval = math.floor(interval)
+            interval = torch.floor(interval)
         return self.min_lr * (1.0 + interval * self.step_rate)
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import _runs
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import quant_matmul as qm
@@ -187,7 +188,8 @@ def test_flash_kernels_match_plain(cuda, dtype, D, B, H, Tq, Tk, causal,
 @pytest.mark.parametrize("write_update", [False, True])
 def test_fused_adam_kernel_matches_plain(cuda, adam_w_mode, write_update):
     """K3 over a list of odd-sized tensors (tails, several chunks), three
-    steps with a device clip factor, against the plain version."""
+    steps with a device clip factor, device scalars (``alpha``) and a
+    clear device ``skip`` flag, against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(0)
     shapes = [(3,), (1000, 7), (70001,), (64, 1024), (5, 3)]
     state = [[torch.randn(s, generator=g, device=cuda) for _ in range(4)]
@@ -198,10 +200,12 @@ def test_fused_adam_kernel_matches_plain(cuda, adam_w_mode, write_update):
     scale = torch.tensor(0.5, device=cuda)
     before = fused_adam.launches
     for t in range(1, 4):
+        alpha = torch.tensor([1e-3 / (1 - 0.9 ** t), 1e-3,
+                              1 / (1 - 0.999 ** t) ** 0.5], device=cuda)
         kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1,
-                  adam_w_mode=adam_w_mode, step_size=1e-3 / (1 - 0.9 ** t),
-                  lr=1e-3, inv_bc2=1 / (1 - 0.999 ** t) ** 0.5,
-                  grad_scale=scale, write_update=write_update)
+                  adam_w_mode=adam_w_mode, alpha=alpha,
+                  skip=torch.tensor(False, device=cuda), grad_scale=scale,
+                  write_update=write_update)
         fused_adam(*zip(*state), **kw)
         fused_adam_plain(*zip(*ref), **kw)
     torch.cuda.synchronize()
@@ -886,7 +890,8 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
     """K6's, K7a's and K7b's launches do not depend on the descriptors'
     values: one CUDA graph captured around a call replays correctly after
     new block tables, query starts and lengths, chunk starts and context
-    lengths are written into the captured tensors."""
+    lengths are written into the captured tensors. Each kernel counts its
+    runs on the device: every replay adds one, the capture none."""
     N, nb, T, Hkv, G, D = 224, 128, 300, 2, 4, 128
     g = torch.Generator(device=cuda).manual_seed(3)
     k, v, _ = _pool(cuda, dtype, False, N, Hkv, D, g)
@@ -922,6 +927,7 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
     cl = desc[4].clone()
     paged_decode_attention(qd, k, v, bt, cl, window=window)  # warm-up
     torch.cuda.synchronize()
+    _runs.reset_kernel_runs("paged_decode_attention")
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = paged_decode_attention(qd, k, v, bt, cl, window=window)
@@ -932,6 +938,8 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
         ref = paged_decode_attention_plain(qd, k, v, bt, cl, window=window)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), ref.float(), **tol)
+    assert _runs.kernel_runs("paged_decode_attention") == len(tables), \
+        "each replay ran K7a once, the capture none"
 
     # K7b: a 64-token chunk of each sequence at its layout's chunk start
     # (context clipped to the table), padded tails and empty rows included
@@ -941,6 +949,7 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
     paged_prefill_attention(qc, k, v, bt, cs, cl, window=window)  # warm-up
     torch.cuda.synchronize()
     before = paged_prefill_attention.launches
+    _runs.reset_kernel_runs("paged_prefill_attention")
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = paged_prefill_attention(qc, k, v, bt, cs, cl, window=window)
@@ -954,6 +963,8 @@ def test_paged_walks_replay_in_a_cuda_graph(cuda, dtype, window):
                                             window=window)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), ref.float(), **tol)
+    assert _runs.kernel_runs("paged_prefill_attention") == len(tables), \
+        "each replay ran K7b once, the capture none"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1292,3 +1303,60 @@ def test_generate_decode_replays_as_a_cuda_graph(cuda, gen_kw):
     assert torch.equal(engines[1].generate(ids, attention_mask=mask, **kw),
                        want)
     assert len(engines[1]._decode_graphs) == 1
+
+
+@pytest.mark.parametrize("chunked", [True, False],
+                         ids=["chunked_prefix_cache", "monolithic_flash"])
+def test_two_program_forwards_replay_as_cuda_graphs(cuda, chunked):
+    """The two-program engine with enable_cuda_graph (the decode over all
+    slots, the [1, chunk] prefill and each monolithic bucket one captured
+    graph, replayed after its first forward) serves the uncaptured
+    engine's tokens on the card, with the prefix cache and with the masked
+    flash prefill, and leaks no page. On both routes K7a runs once per
+    layer per decode forward and K7b (or the masked K1) once per layer per
+    chunk (or monolithic) forward, counted on the device."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SMALL, prefill_flash_from_empty=not chunked)
+    params = LlamaForCausalLM(cfg).init_params(seed=3, device=cuda)
+    rs = np.random.RandomState(5)
+    prefix = list(rs.randint(0, 512, 32))
+    phases = [[prefix + list(rs.randint(0, 512, 5))],
+              [prefix + list(rs.randint(0, 512, int(n)))
+               for n in (3, 40, 17, 9, 60)]]
+    scfg = dict(max_batch_size=4, block_size=16, num_blocks=64,
+                max_model_len=128, mixed_step=False)
+    if chunked:
+        scfg.update(prefix_cache=True, prefill_chunk_tokens=16,
+                    prefill_token_budget=32)
+    prefill = "paged_prefill_attention" if chunked else \
+        "flash_attention_fwd_masked"
+    L = cfg.num_hidden_layers
+    outs = []
+    for graphed in (False, True):
+        eng = dt.init_inference(LlamaForCausalLM(dataclasses.replace(cfg)),
+                                params=params, dtype="fp32",
+                                enable_cuda_graph=graphed)
+        srv = dt.ServingEngine(eng, dt.ServingConfig(**scfg))
+        for name in ("paged_decode_attention", prefill):
+            _runs.reset_kernel_runs(name)
+        tokens = []
+        for phase in phases:
+            rids = [srv.submit(p, max_new_tokens=10) for p in phase]
+            res = srv.run()
+            tokens += [(res[r].state, res[r].tokens) for r in rids]
+        assert srv.block_pool.used_count == 0
+        forwards = srv.prefill_chunk_calls if chunked else srv.prefill_calls
+        assert (_runs.kernel_runs("paged_decode_attention"),
+                _runs.kernel_runs(prefill)) == \
+            (L * srv.decode_calls, L * forwards)
+        outs.append((tokens, srv.decode_calls, srv.prefill_chunk_calls,
+                     srv.prefill_calls))
+        if graphed:
+            kinds = {k[0] for k in srv._graphs}
+            assert kinds == ({"decode", "chunk"} if chunked
+                             else {"decode", "prefill"})
+    assert outs[0] == outs[1]

@@ -6,7 +6,9 @@ mode (params updated as the JAX engine does, ``p + u``) and through the
 port's ``FusedAdam`` / ``FusedLamb`` on CPU tensors, for six steps with a
 schedule lr. Tolerance: 1e-6 (relative, and absolute on values of order
 1); the two run the same fp32 element ops, with the scalars (step size,
-bias corrections) rounded once on each side.
+bias corrections) rounded once on each side. The step's scalars come
+from the optimizer's device count as ``alpha`` (both packages compute it
+in fp32), and a set ``skip`` flag leaves every tensor bit-identical.
 """
 
 import jax
@@ -15,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from deepspeed_tpu.ops.pallas.fused_adam import (scale_by_fused_adam,
+from deepspeed_tpu.ops.pallas.fused_adam import (_run_leaf,
+                                                 scale_by_fused_adam,
                                                  scale_by_fused_lamb)
-from deepspeed_tpu_torch.ops.fused_adam import fused_adam
+from deepspeed_tpu_torch.ops.fused_adam import fused_adam, fused_adam_plain
 from deepspeed_tpu_torch.ops.optimizers import (FusedAdam, FusedLamb,
                                                 get_optimizer)
 from deepspeed_tpu_torch.runtime.lr_schedules import WarmupDecayLR
@@ -70,7 +73,7 @@ def test_fused_adam_matches_the_pallas_sweep(adam_w_mode):
         params, grads)
     got, opt = _run_port(FusedAdam, params, grads, lr=sched,
                          weight_decay=0.1, adam_w_mode=adam_w_mode)
-    assert opt.count == int(jstate.count) == STEPS
+    assert int(opt.count) == int(jstate.count) == STEPS
     for i, n in enumerate(SHAPES):
         np.testing.assert_allclose(got[n].numpy(), np.asarray(want[n]),
                                    rtol=1e-6, atol=1e-6, err_msg=n)
@@ -163,6 +166,94 @@ def test_registry_and_knobs_that_raise():
     before = fused_adam.launches
     with pytest.raises(ValueError, match="not on meta"):
         fused_adam(meta, meta, meta, meta, b1=0.9, b2=0.999, eps=1e-8,
-                   weight_decay=0.0, adam_w_mode=True, step_size=1e-3,
-                   lr=1e-3, inv_bc2=1.0)
+                   weight_decay=0.0, adam_w_mode=True,
+                   alpha=torch.zeros(3, device="meta"))
     assert fused_adam.launches == before
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False], ids=["adamw", "l2"])
+def test_plain_sweep_takes_alpha_from_a_device_count_and_skips(adam_w_mode):
+    """K3's plain version with ``alpha`` computed from the optimizer's
+    device count (``FusedAdam._alpha``) against the JAX Pallas sweep
+    (``_run_leaf``, interpret mode) with alpha from the JAX count, three
+    steps (1e-6); then a step with ``skip`` set and non-finite gradients
+    leaves p, m and v bit-identical, and the optimizer's count stays."""
+    params, grads = _trajectory(seed=4)
+    b1, b2, eps, wd, lr = 0.9, 0.999, 1e-8, 0.1, 2e-3
+    ts = {n: torch.from_numpy(p.copy()) for n, p in params.items()}
+    opt = FusedAdam(list(ts.values()), lr=lr, weight_decay=wd,
+                    adam_w_mode=adam_w_mode)
+    jp = {n: jnp.asarray(p) for n, p in params.items()}
+    jm = {n: jnp.zeros_like(p) for n, p in jp.items()}
+    jv = {n: jnp.zeros_like(p) for n, p in jp.items()}
+    for step, g in enumerate(grads[:3]):
+        alpha = opt._alpha(opt.lr_at(opt.count))
+        t = jnp.float32(step + 1)
+        jalpha = jnp.stack([lr / (1.0 - b1 ** t), jnp.float32(lr),
+                            1.0 / jnp.sqrt(1.0 - b2 ** t)])
+        np.testing.assert_allclose(alpha.numpy(), np.asarray(jalpha),
+                                   rtol=1e-6)
+        for n in SHAPES:
+            u, jm[n], jv[n] = _run_leaf(jp[n], jnp.asarray(g[n]), jm[n],
+                                        jv[n], jalpha, b1, b2, eps, wd,
+                                        adam_w_mode, True)
+            jp[n] = jp[n] + u
+        opt.step([torch.from_numpy(g[n].copy()) for n in SHAPES])
+    assert int(opt.count) == 3
+    for i, n in enumerate(SHAPES):
+        np.testing.assert_allclose(ts[n].numpy(), np.asarray(jp[n]),
+                                   rtol=1e-6, atol=1e-6, err_msg=n)
+        np.testing.assert_allclose(opt.exp_avg[i].numpy(),
+                                   np.asarray(jm[n]), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(opt.exp_avg_sq[i].numpy(),
+                                   np.asarray(jv[n]), rtol=1e-6, atol=1e-9)
+    before = [[t.clone() for t in lst]
+              for lst in (list(ts.values()), opt.exp_avg, opt.exp_avg_sq)]
+    bad = [torch.full(s, float("nan")) for s in SHAPES.values()]
+    bad[0][0, 0] = float("inf")
+    opt.step(bad, grad_scale=torch.tensor(float("nan")),
+             skip=torch.tensor(True))
+    assert int(opt.count) == 3
+    for lst, old in zip((list(ts.values()), opt.exp_avg, opt.exp_avg_sq),
+                        before):
+        assert all(torch.equal(a, b) for a, b in zip(lst, old))
+    # the same call without the flag writes NaN: the flag is what kept them
+    fused_adam_plain(list(ts.values()), bad, opt.exp_avg, opt.exp_avg_sq,
+                     b1=b1, b2=b2, eps=eps, weight_decay=wd,
+                     adam_w_mode=adam_w_mode, alpha=alpha)
+    assert all(torch.isnan(t).any() for t in ts.values())
+
+
+def test_skipped_lamb_step_keeps_every_tensor():
+    """LAMB with ``skip`` set: the direction written into the gradient
+    buffers, the params, the moments and the count all stay."""
+    params, grads = _trajectory(seed=5)
+    ts = [torch.from_numpy(p.copy()) for p in params.values()]
+    opt = FusedLamb(ts, lr=2e-3, weight_decay=0.01)
+    opt.step([torch.from_numpy(g.copy()) for g in grads[0].values()])
+    keep = [[t.clone() for t in lst] for lst in (ts, opt.exp_avg,
+                                                 opt.exp_avg_sq)]
+    bad = [torch.full(t.shape, float("inf")) for t in ts]
+    opt.step(bad, skip=torch.tensor(True))
+    assert int(opt.count) == 1
+    assert all(torch.isinf(b).all() for b in bad)
+    for lst, old in zip((ts, opt.exp_avg, opt.exp_avg_sq), keep):
+        assert all(torch.equal(a, b) for a, b in zip(lst, old))
+
+
+def test_cpu_launches_leave_the_device_run_counts_alone():
+    """On the CPU the wrapper runs the plain version: no kernel ran, so no
+    device run count exists or moves (``_runs.kernel_runs`` reads 0), and
+    the Python launch count stays where it was."""
+    from deepspeed_tpu_torch.ops import _runs
+
+    rs = np.random.RandomState(0)
+    lists = [[torch.from_numpy(rs.rand(37).astype(np.float32))]
+             for _ in range(4)]
+    before = fused_adam.launches
+    assert fused_adam(*lists, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+                      adam_w_mode=True,
+                      alpha=torch.tensor([1e-3, 1e-3, 1.0])) is None
+    assert fused_adam.launches == before
+    assert _runs.kernel_runs("fused_adam", "cpu") == 0
+    assert not any(dev.type == "cpu" for _, dev in _runs._RUNS)

@@ -180,8 +180,9 @@ def test_static_step_serves_the_jax_tokens(engines, case):
 
 def test_mixed_step_buckets_and_graphs_need_the_unified_step(engines):
     """As in the JAX engine, mixed_step_buckets without mixed_step raises
-    ValueError; enable_cuda_graph on the two-program engine is a later
-    part of ROADMAP item 2a."""
+    ValueError; enable_cuda_graph on the two-program engine builds and
+    serves (its forwards run over static buffers; nothing is captured on
+    the CPU), the same tokens as without it."""
     _, teng = engines
     with pytest.raises(ValueError, match="mixed_step=True"):
         dt.ServingEngine(teng, dt.ServingConfig(mixed_step=False,
@@ -189,8 +190,13 @@ def test_mixed_step_buckets_and_graphs_need_the_unified_step(engines):
     eng = dt.init_inference(LlamaForCausalLM(LlamaConfig.tiny()),
                             params=teng.module.state_dict(), dtype="fp32",
                             device="cpu", enable_cuda_graph=True)
-    with pytest.raises(NotImplementedError, match=r"item 2a\)"):
-        dt.ServingEngine(eng, dt.ServingConfig(mixed_step=False))
+    rs = np.random.RandomState(8)
+    prompts = [rs.randint(1, 256, n) for n in (9, 30, 4)]
+    outs = [_serve(dt.ServingEngine(e, dt.ServingConfig(
+        mixed_step=False, **SETTINGS)), prompts, (5, 5, 5))
+        for e in (eng, teng)]
+    assert outs[0] == outs[1]
+    assert all(len(tokens) == 5 for _, _, tokens in outs[0])
 
 
 def test_kernel_path_serves_the_same_tokens_on_cpu(engines, monkeypatch):

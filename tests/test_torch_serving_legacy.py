@@ -7,7 +7,10 @@ be token-identical, with identical terminal states, finish reasons and
 preemption counts, to the JAX engine with ``mixed_step=False`` and to the
 port's own unified engine; with the prefix cache the hit, cached-token and
 copy-on-write counters must equal the JAX engine's; every run ends with
-zero pages in use and a consistent pool. The model-level test holds the
+zero pages in use and a consistent pool. With the inference config's
+``enable_cuda_graph`` the two-program engine runs its forwards over
+static buffers (captured only on a CUDA device) and must serve the same
+tokens as without it and as the JAX engine. The model-level test holds the
 three paged branches of the port's Llama (from-empty prefill, chunk,
 decode) against the JAX model's logits at 1e-4 (fp32; the int8 pool's
 codes are the same in both, so the same tolerance holds).
@@ -406,3 +409,49 @@ def test_paged_branches_match_jax_logits(weights, int8, flash):
         np.testing.assert_allclose(tpool[name].numpy().astype(np.float32),
                                    np.asarray(jpool[name], np.float32),
                                    rtol=1e-5, atol=1e-5)
+
+
+GRAPH_CASES = {
+    "chunked": (CASES["chunked"], False),
+    "monolithic_flash": (CASES["monolithic_flash"], False),
+    "preemption": (CASES["preemption"], False),
+    "prefix_preemption": (PREFIX_CASES["prefix_preemption"], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_static_forwards_serve_the_jax_tokens(weights, case):
+    """The two-program engine with ``enable_cuda_graph`` (its decode,
+    chunk and monolithic forwards over static index buffers; on the CPU
+    nothing is captured) serves the JAX two-program engine's tokens, and
+    its own without the flag, with the prefix cache and through
+    preemptions; the forward counts are the same and no page leaks."""
+    spec, cached = GRAPH_CASES[case]
+    rs = np.random.RandomState(19)
+    if cached:
+        _, phases = _shared_prefix_phases(rs, spec.get("new", 6))
+    else:
+        phases = spec["traffic"](rs)
+    kw = dict(BASE, mixed_step=False, prefix_cache=cached, **spec["serving"])
+    jeng, teng = _engines(weights, spec.get("model"),
+                          **spec.get("inference", {}))
+    geng = dt.init_inference(
+        LlamaForCausalLM(teng.module.config),
+        params=teng.module.state_dict(), dtype="fp32", device="cpu",
+        enable_cuda_graph=True, **spec.get("inference", {}))
+    want = _serve(JaxServingEngine(jeng, JaxServingConfig(**kw)), phases)
+    runs = {}
+    for name, eng in (("plain", teng), ("static", geng)):
+        srv = dt.ServingEngine(eng, dt.ServingConfig(**kw))
+        runs[name] = (_serve(srv, phases), srv.decode_calls,
+                      srv.prefill_chunk_calls, srv.prefill_calls,
+                      srv.metrics.preemptions, srv.metrics.prefix_hits)
+        _check_drained(srv)
+        assert not srv._graphs, "nothing is captured on the CPU"
+        assert srv._legacy_static
+    assert runs["static"] == runs["plain"]
+    assert runs["static"][0] == want
+    if "preemption" in case:
+        assert runs["static"][4] > 0
+    if cached:
+        assert runs["static"][5] > 0

@@ -3,8 +3,9 @@
 - Config: the batch triangulation of both ``DeepSpeedConfig`` classes on
   the same dicts, and every block this slice does not implement raising
   ``NotImplementedError`` that names its ``ROADMAP.md`` queue entry.
-- LR schedules over 50 steps and the fp16 loss-scale automaton over an
-  overflow sequence, against the JAX ones (fp32 schedules at 1e-6
+- LR schedules over 50 steps (Python int and device-count tensor steps)
+  and the fp16 loss-scale automaton over an overflow sequence (Python and
+  tensor flags), against the JAX ones (both fp32: schedules at 1e-6
   relative; the automaton exactly).
 - The engine: the flax params of ``LlamaConfig.tiny`` go to the JAX engine
   as ``model_parameters`` and, through ``checkpoint/from_flax.py``, to the
@@ -18,6 +19,13 @@
   the port spans over the per-layer tensors) and unscanned. Then
   ``eval_batch``, the ``forward``/``backward``/``step`` micro-step API and
   an fp16 step that overflows and is skipped.
+- The device-resident step against JAX ``TrainState``: gas 2 with
+  WarmupDecayLR, OneCycle, and fp16 dynamic scaling through two
+  overflows, a recovery and a third overflow. After every step the
+  port's device step count, skipped steps, loss scale and lr equal the
+  JAX state's (exactly; the lr at 1e-6) and the losses agree (fp32
+  1e-5, fp16 5e-4: the two frameworks round fp16 activations at
+  different places).
 """
 
 import json
@@ -179,18 +187,24 @@ SCHEDULES = {
 
 @pytest.mark.parametrize("case", sorted(SCHEDULES))
 def test_lr_schedule_matches_jax(case):
-    """50 steps; the JAX schedule computes in fp32, the port in Python
-    floats: 1e-6 relative."""
+    """50 steps, as Python ints and as the 0-d int32 tensors the
+    optimizer's device count is; both packages compute in fp32 and the
+    port returns 0-d fp32 tensors: 1e-6 relative."""
     name, params = SCHEDULES[case]
     got_s = lr_schedules.get_lr_schedule(name, dict(params))
     want_s = jax_lr.get_lr_schedule(name, dict(params))
-    got = [got_s(s) for s in range(50)]
     want = [float(want_s(s)) for s in range(50)]
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
-    if name == "OneCycle":
-        np.testing.assert_allclose([got_s.get_mom(s) for s in range(50)],
-                                   [float(want_s.get_mom(s))
-                                    for s in range(50)], rtol=1e-6)
+    for steps in (range(50), [torch.tensor(s, dtype=torch.int32)
+                              for s in range(50)]):
+        got = [got_s(s) for s in steps]
+        assert all(g.dtype == torch.float32 and g.dim() == 0 for g in got)
+        np.testing.assert_allclose([float(g) for g in got], want,
+                                   rtol=1e-6, atol=1e-12)
+        if name == "OneCycle":
+            np.testing.assert_allclose([float(got_s.get_mom(s))
+                                        for s in steps],
+                                       [float(want_s.get_mom(s))
+                                        for s in range(50)], rtol=1e-6)
     with pytest.raises(ValueError, match="Unknown lr schedule"):
         lr_schedules.get_lr_schedule("Cosine", {})
 
@@ -203,17 +217,24 @@ def test_lr_schedule_matches_jax(case):
 def test_loss_scaler_matches_jax(fp16):
     """The automaton over an overflow sequence with clean runs, single
     overflows between clean steps and overflow bursts: scale, iteration
-    and hysteresis agree exactly after every step."""
+    and hysteresis agree exactly after every step, with the flags given
+    as Python bools and as bool tensors, and the port's state stays in
+    0-d fp32 / int32 tensors."""
     from deepspeed_tpu.runtime.config import FP16Config as JaxFP16Config
 
     got = loss_scaler.create_loss_scaler(FP16Config(enabled=True, **fp16))
     want = jax_ls.create_loss_scaler(JaxFP16Config(enabled=True, **fp16))
     overflows = [0, 0, 0, 1, 0, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 1, 1, 1, 1,
                  1, 0, 0, 0, 0, 0, 0, 0]
-    for o in overflows:
-        got = loss_scaler.update_scale(got, bool(o))
+    for i, o in enumerate(overflows):
+        flag = bool(o) if i % 2 else torch.tensor(bool(o))
+        got = loss_scaler.update_scale(got, flag)
         want = jax_ls.update_scale(want, jnp.bool_(o))
-        assert (got.cur_scale, got.cur_iter, got.cur_hysteresis) == (
+        assert (got.cur_scale.dtype, got.cur_iter.dtype,
+                got.cur_hysteresis.dtype) == (torch.float32, torch.int32,
+                                              torch.int32)
+        assert (float(got.cur_scale), int(got.cur_iter),
+                int(got.cur_hysteresis)) == (
             float(want.cur_scale), int(want.cur_iter),
             int(want.cur_hysteresis))
 
@@ -365,7 +386,7 @@ def test_fp16_overflow_skips_the_step(one_device_mesh):
         scales.append((peng.loss_scale, jeng.loss_scale))
     assert scales == [(2.0 ** 40, 2.0 ** 40), (2.0 ** 39, 2.0 ** 39)]
     assert peng.get_skipped_steps() == jeng.get_skipped_steps() == 2
-    assert peng.optimizer.count == int(jeng.state.step) == 0
+    assert int(peng.optimizer.count) == int(jeng.state.step) == 0
     assert all(torch.equal(peng.module_state_dict()[n], p)
                for n, p in before.items())
     assert all(not m.any() for m in peng.optimizer.exp_avg)
@@ -374,7 +395,78 @@ def test_fp16_overflow_skips_the_step(one_device_mesh):
         FP16Config(enabled=True, initial_scale_power=8))
     ids = _batches(cfg.vocab_size, n=1, seed=1)[0]
     peng.train_batch(batch={"input_ids": ids, "labels": ids})
-    assert peng.get_skipped_steps() == 2 and peng.optimizer.count == 1
+    assert peng.get_skipped_steps() == 2 and int(peng.optimizer.count) == 1
     assert np.isfinite(peng.get_global_grad_norm())
     assert not torch.equal(peng.module_state_dict()["model.norm.weight"],
                            before["model.norm.weight"])
+
+
+_DEVICE_STATE = {
+    # gas 2 with the schedule on the device count: warm-up, then decay
+    "gas2_warmup_decay": (
+        {"train_batch_size": BATCH, "gradient_accumulation_steps": 2,
+         "optimizer": {"type": "AdamW",
+                       "params": {"lr": 3e-3, "weight_decay": 0.1}},
+         "scheduler": {"type": "WarmupDecayLR",
+                       "params": {"warmup_min_lr": 1e-4,
+                                  "warmup_max_lr": 3e-3,
+                                  "warmup_num_steps": 2,
+                                  "total_num_steps": 6}},
+         "gradient_clipping": 1.0, "steps_per_print": 0}, STEPS),
+    # OneCycle: up, down, then the decay leg
+    "onecycle": (
+        {"train_batch_size": BATCH,
+         "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+         "scheduler": {"type": "OneCycle",
+                       "params": {"cycle_min_lr": 1e-4,
+                                  "cycle_max_lr": 3e-3,
+                                  "cycle_first_step_size": 2,
+                                  "cycle_second_step_size": 1,
+                                  "decay_step_size": 1,
+                                  "decay_lr_rate": 0.5}},
+         "gradient_clipping": 1.0, "steps_per_print": 0}, STEPS),
+    # fp16 at 2**19 with hysteresis 1 and a window of 2: two overflows
+    # (2**19, 2**18), clean steps at 2**17, the scale doubled back to
+    # 2**18, which overflows again later (the tiny model's fp16 backward
+    # overflows at 2**19 and not at 2**17 in both packages)
+    "fp16_overflows": (
+        {"train_batch_size": BATCH, "steps_per_print": 0,
+         "fp16": {"enabled": True, "initial_scale_power": 19,
+                  "hysteresis": 1, "loss_scale_window": 2},
+         "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DEVICE_STATE))
+def test_device_train_state_matches_the_jax_train_state(case,
+                                                        one_device_mesh):
+    """After every step: the port's device step count (the optimizer's),
+    skipped steps, loss scale and lr equal JAX ``TrainState``'s, the
+    losses agree, and the state stays on the device (0-d tensors)."""
+    config, steps = _DEVICE_STATE[case]
+    fp16 = "fp16" in config
+    jeng, (peng, *_), cfg = _engines({}, config, one_device_mesh)
+    skips = []
+    for ids in _batches(cfg.vocab_size, n=steps):
+        want = float(jeng.train_batch(batch={"input_ids": ids,
+                                             "labels": ids}))
+        got = float(peng.train_batch(batch={"input_ids": ids,
+                                            "labels": ids}))
+        np.testing.assert_allclose(got, want, rtol=5e-4 if fp16 else 1e-5)
+        assert int(peng.optimizer.count) == int(jeng.state.step)
+        assert peng.get_skipped_steps() == jeng.get_skipped_steps()
+        assert peng.loss_scale == jeng.loss_scale
+        assert peng.get_lr() == pytest.approx(jeng.get_lr(), rel=1e-6)
+        skips.append(peng.get_skipped_steps())
+    assert peng.optimizer.count.dtype == torch.int32
+    assert peng.optimizer.count.dim() == 0
+    if fp16:
+        assert skips == [1, 2, 2, 2, 2, 3, 3, 3]
+        assert peng.loss_scaler.cur_scale.dim() == 0
+    else:
+        assert skips == [0] * steps
+        want = flax_to_torch_state_dict(jax.device_get(jeng.state.params),
+                                        cfg)
+        for name, p in peng.module_state_dict().items():
+            np.testing.assert_allclose(p.numpy(), want[name].numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)

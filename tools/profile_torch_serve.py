@@ -1,6 +1,6 @@
 """Where the port's serving step spends its time on a GPU.
 
-    python3 tools/profile_torch_serve.py [--layers 32] [--legacy | --graph]
+    python3 tools/profile_torch_serve.py [--layers 32] [--legacy] [--graph]
 
 Builds the serving configuration of ``chip_smoke.py`` (Llama-3-8B at
 full width, random bf16 weights from a seed, 8 slots, 16-token pages,
@@ -17,12 +17,14 @@ the two-program one (``mixed_step=False``, 64-token chunks under the same
 budget): its prefill window runs the paged chunked-prefill kernel and its
 decode window the paged decode kernel, on the same traffic. With
 ``--graph`` the unified engine runs with ``enable_cuda_graph`` and
-``mixed_step_buckets`` (one CUDA graph per packed width), warmed with the
-profiled traffic itself, so every width it runs is captured before the
-windows, which then replay them. Writes the summary to
+``mixed_step_buckets`` (one CUDA graph per packed width), and the
+two-program engine (``--legacy --graph``) with ``enable_cuda_graph`` (its
+decode and chunk forwards one CUDA graph each), warmed with the profiled
+traffic itself, so every shape it runs is captured before the windows,
+which then replay them. Writes the summary to
 ``chiprun_out/serve_profile.json`` (``serve_profile_legacy.json`` with
-``--legacy``, ``serve_profile_graph.json`` with ``--graph``); needs a CUDA
-device.
+``--legacy``, ``serve_profile_graph.json`` with ``--graph``,
+``serve_profile_legacy_graph.json`` with both); needs a CUDA device.
 """
 
 import argparse
@@ -86,10 +88,9 @@ def main() -> int:
     ap.add_argument("--legacy", action="store_true",
                     help="profile the two-program engine (mixed_step=False)")
     ap.add_argument("--graph", action="store_true",
-                    help="the unified step as CUDA graphs at bucketed widths")
+                    help="the steps as CUDA graphs (the unified one at "
+                    "bucketed widths)")
     args = ap.parse_args()
-    if args.legacy and args.graph:
-        ap.error("--graph profiles the unified engine")
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -105,7 +106,8 @@ def main() -> int:
     ekw = {}
     if args.graph:
         ekw, skw = chip_smoke.SERVE_GRAPH
-        scfg.update(skw, trace=True)
+        if not args.legacy:
+            scfg.update(skw, trace=True)
     srv, *_ = chip_smoke.serve(cfg, 0, 4, (64, 300), (4, 8), scfg,
                                torch.bfloat16, engine_kw=ekw)
 
@@ -120,9 +122,10 @@ def main() -> int:
         srv.run()
     traffic()
     out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
-           "engine": "two-program" if args.legacy else
-           "unified, CUDA graphs at bucketed widths" if args.graph else
-           "unified", "windows": {}}
+           "engine": ("two-program" if args.legacy else "unified")
+           + (", CUDA graphs" if args.graph else "")
+           + (" at bucketed widths" if args.graph and not args.legacy
+              else ""), "windows": {}}
     if args.graph:
         out["graphs_before_windows"] = len(srv._graphs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -156,17 +159,18 @@ def main() -> int:
             - forwards if args.legacy else steps
         summary["ms_per_step"] = wall * 1e3 / max(steps, 1)
         if args.graph:
+            summary["graphs"] = len(srv._graphs)
+        if args.graph and not args.legacy:
             run = chip_smoke.step_widths(srv)
             summary["steps_at_width"] = {
                 str(w): n for w, n in sorted(Counter(
                     run[len(run) - steps:]).items())}
-            summary["graphs"] = len(srv._graphs)
         out["windows"][window] = summary
         print(f"{window}: {json.dumps(summary)}", flush=True)
     srv.block_pool.check_consistent()
     assert srv.block_pool.used_count == 0
-    name = "serve_profile_legacy.json" if args.legacy else \
-        "serve_profile_graph.json" if args.graph else "serve_profile.json"
+    name = "serve_profile" + ("_legacy" if args.legacy else "") + \
+        ("_graph" if args.graph else "") + ".json"
     with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(out["device"])

@@ -1,6 +1,6 @@
 """Where the port's training step spends its time on a GPU.
 
-    python3 tools/profile_torch_train.py [--layers 24] [--steps 3]
+    python3 tools/profile_torch_train.py [--layers 24] [--steps 3] [--graph]
 
 Builds the training configuration of ``chip_smoke.py`` (Llama-400M at
 full width, random weights from seed 0, the JAX package's bench config:
@@ -13,8 +13,11 @@ wall time, profiler overhead included), then times the same number of
 steps without the profiler. Also counts, per step, the kernels launched
 and the host's CUDA runtime calls by name (launches, copies,
 synchronizations): with the device idle most of a step, they say what
-the host spends the step on. Writes the summary to
-``chiprun_out/train_profile.json``; needs a CUDA device.
+the host spends the step on. The step runs uncaptured
+(``cuda_graph=False``), or with ``--graph`` as the engine's default, one
+replayed CUDA graph a step (its warm-up steps capture it). Writes the
+summary to ``chiprun_out/train_profile.json`` (``train_profile_graph.json``
+with ``--graph``); needs a CUDA device.
 """
 
 import argparse
@@ -61,6 +64,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the captured step (one CUDA graph a step)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -76,10 +81,12 @@ def main() -> int:
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (config["train_batch_size"],
                             chip_smoke.TRAIN_SEQ)))
-    engine, *_ = chip_smoke.train(cfg, config, ids, 0, 2)
+    engine, *_ = chip_smoke.train(cfg, config, ids, 0, 2,
+                                  graphed=args.graph)
     batch = {"input_ids": ids, "labels": ids}
     out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
-           "steps": args.steps}
+           "steps": args.steps,
+           "route": "captured" if args.graph else "uncaptured"}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     trace = os.path.join(ROOT, "chiprun_out", "train_trace.json")
     torch.cuda.synchronize()
@@ -104,8 +111,8 @@ def main() -> int:
     out["unprofiled_ms_per_step"] = (time.perf_counter() - t0) * 1e3 \
         / args.steps
     print(json.dumps(out), flush=True)
-    with open(os.path.join(ROOT, "chiprun_out", "train_profile.json"),
-              "w") as f:
+    name = "train_profile_graph.json" if args.graph else "train_profile.json"
+    with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(out["device"])
     return 0
