@@ -80,7 +80,20 @@ Phases, each printed on its own line; any failure exits non-zero:
    prefills); each of the two again with enable_cuda_graph (the decode,
    chunk and monolithic forwards replayed as CUDA graphs: the same tokens,
    no leaked page, and, counted on the device over a replayed run, K7a
-   and K7b or the masked K1 once per layer per forward);
+   and K7b or the masked K1 once per layer per forward; each run's last
+   decode_mbu / decode_mfu gauges printed and held in (0, 1.05]);
+   robustness and accounting on the same weights: (a) the captured
+   unified serve under a 2 s step watchdog with the flight recorder
+   armed, in turns with the same captured engine unguarded (identical
+   tokens, no trip, no dump, the same graphs; the mean steps, the guard's
+   host cost, the mixed_mbu / mixed_mfu gauges on the H100's peaks and
+   perf_summary()'s program table printed); (b) chaos on both engines,
+   captured (a slow_step past a 0.5 s budget, a corrupt_logits of each
+   tag, a flaky_prefill): every request terminal with the expected finish
+   reasons, one trip, two quarantines, no leaked page, a fresh request
+   served, the graphs unchanged, one flight dump per firing naming its
+   request; (c) the serve with TTFT and TPOT SLOs at (a)'s p50s: the
+   verdicts sum to the requests;
 6. generate: init_inference + InferenceEngine.generate on full-width
    Llama-3-8B (random bf16 weights from seed 0), batch 8, left-padded
    prompts of seeded lengths 128-512 (bucket 512), 64 greedy new tokens,
@@ -103,6 +116,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    identical, finite, falling losses on the two routes and, counted on
    the device over one profiled step of each, K1 48 (forward and
    recompute), K2 24 + 24 and K3 1 (the captured step's in its replay);
+   (d) each route's train_mfu gauge in (0, 1.05] and, over 5 more steps
+   each waited for, its train_tflops_per_chip (each step's device time)
+   within 5% of the hand count over the host's wall time of the same
+   steps;
 8. long context: ``ops.sparse_attention.sparse_attention`` forward and
    backward (loss ``(out * dout).sum()``) at T 4096, 8192 and 16384, 32
    heads of 128, bf16, causal, BSLongformer and BigBird at block 128 (the
@@ -129,9 +146,11 @@ Exits non-zero without printing a result when no CUDA device is present.
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1668,10 +1687,8 @@ def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
                                    **(engine_kw or {}))
         srv = dt.ServingEngine(engine, dt.ServingConfig(**scfg))
     if phases is None:
-        rs = np.random.RandomState(params_seed)
-        phases = [[(rs.randint(0, cfg.vocab_size, int(rs.randint(
-            prompt_range[0], prompt_range[1] + 1))), int(rs.randint(
-                new_range[0], new_range[1] + 1))) for _ in range(n_requests)]]
+        phases = [seeded_traffic(cfg.vocab_size, params_seed, n_requests,
+                                 prompt_range, new_range)]
     if device == "cuda":
         torch.cuda.synchronize()
         ra.reset_kernel_runs()
@@ -1687,6 +1704,16 @@ def serve(cfg, params_seed, n_requests, prompt_range, new_range, scfg,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return srv, rids, res, wall, {n: fn.launches for n, fn in kernels.items()}
+
+
+def seeded_traffic(vocab, seed, n, prompt_range, new_range):
+    """``n`` seeded ``(prompt, max_new_tokens)`` requests: prompt lengths
+    and token budgets uniform in their (inclusive) ranges."""
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, vocab, int(rs.randint(prompt_range[0],
+                                                 prompt_range[1] + 1))),
+             int(rs.randint(new_range[0], new_range[1] + 1)))
+            for _ in range(n)]
 
 
 def step_widths(srv, since=0):
@@ -2319,8 +2346,278 @@ def check_serving():
     log(f"serve: bucketed widths vs the full width, uncaptured: {kept} of "
         f"{len(tokens['uncaptured'])} requests with identical tokens")
     check_width_witness(engines["uncaptured"].engine.module)
-    del engines, params
+    plain = engines.pop("captured")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    guarded, rids, runs["guarded"] = check_guarded_serve(
+        cfg, params, plain, tokens["captured"])
+    del plain
+    runs["slo"] = check_slo_serve(cfg, params, guarded, rids)
+    del guarded
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["chaos"] = check_chaos_serve(
+        "unified", cfg, params, SERVE_SCFG, [[(np.arange(300), 4)]],
+        [seeded_traffic(cfg.vocab_size, 0, 16, (64, 1536), (32, 64))])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return runs["uncaptured"]["wrapper_k6"], runs
+
+
+# ---------------------------------------------------------------------------
+# serving robustness and accounting
+# ---------------------------------------------------------------------------
+
+#: the chaos phase's DS_FAULT: one slow_step past the 0.5 s budget at the
+#: engine's ``step`` (20 steps into the traffic, where decode rows run and
+#: the other faults have fired: a trip fails the whole step, so a fault
+#: that fired on the same step would not show), one corrupt_logits of each
+#: tag, one flaky_prefill
+CHAOS_SPEC = ("slow_step:seconds=1.5:fails=1:step={step},"
+              "corrupt_logits:fails=1:tag=serving_step,"
+              "corrupt_logits:fails=1:tag=serving_prefill,"
+              "flaky_prefill:fails=1")
+#: the finish reason and flight-recorder triggers each of its faults makes
+CHAOS_REASONS = ("step_watchdog", "corrupt_logits",
+                 "prefill_error:RuntimeError")
+CHAOS_DUMPS = {"watchdog_trip": 1, "fault_slow_step": 1,
+               "logit_quarantine": 2, "fault_corrupt_logits": 2,
+               "fault_flaky_prefill": 1}
+
+
+def flight_dumps(trace_dir):
+    """The flight recorder's dump headers in ``trace_dir``, by trigger."""
+    out = {}
+    for f in sorted(os.listdir(trace_dir)):
+        if f.startswith("flight_") and f.endswith(".jsonl"):
+            with open(os.path.join(trace_dir, f)) as fh:
+                header = json.loads(fh.readline())
+            out.setdefault(header["trigger"], []).append(header)
+    return out
+
+
+def utilization_problems(where, **readings):
+    """Every MFU/MBU reading must lie in (0, 1.05]."""
+    return [f"{where}: {k} = {v} outside (0, 1.05]"
+            for k, v in readings.items() if v is None or not 0 < v <= 1.05]
+
+
+def request_times(srv, rids):
+    """Each request's TTFT and mean time per output token after the first
+    (seconds), from the engine's records."""
+    ttft, tpot = [], []
+    for r in rids:
+        req = srv._requests[r]
+        ttft.append(req.ttft)
+        if len(req.tokens) > 1:
+            tpot.append((req.finish_time - req.first_token_time)
+                        / (len(req.tokens) - 1))
+    return ttft, tpot
+
+
+def check_guarded_serve(cfg, params, plain, want):
+    """Phase (a): the captured serve of check_serving under a 2 s step
+    watchdog with the flight recorder armed (``trace_dir``), against the
+    same captured engine unguarded (``plain``, warm), in turns (plain,
+    guarded, guarded, plain) on the same 16 requests after one warm-up
+    run of the guarded engine (its capture). Gates: the captured run's
+    tokens (``want``) on every run, no trip, no skip, no flight dump, the
+    plain engine's graph count, the H100's peaks found, the gauges in (0,
+    1.05]. Prints each run's mean step and the guarded / plain ratio, the
+    gauges, the program table, and what one watermark read costs on the
+    host. Returns the guarded engine, its last run's request ids and the
+    summary."""
+    trace_dir = tempfile.mkdtemp(prefix="flight_")
+    scfg = dict(SERVE_SCFG, step_watchdog_s=2.0, trace_dir=trace_dir)
+    guarded, *_ = serve(cfg, 0, 16, (64, 1536), (32, 64), scfg,
+                        torch.bfloat16, params=params,
+                        engine_kw=dict(enable_cuda_graph=True))
+    steps = {"plain": [], "guarded": []}
+    problems = []
+    for name in ("plain", "guarded", "guarded", "plain"):
+        srv = guarded if name == "guarded" else plain
+        before = len(step_widths(srv))
+        _, rids, res, wall, _ = serve(cfg, 0, 16, (64, 1536), (32, 64),
+                                      None, torch.bfloat16, srv=srv)
+        if srv is guarded:
+            guarded_rids = rids
+        n = len(step_widths(srv, before))
+        steps[name].append(1e3 * wall / n)
+        got = [(res[r].state, res[r].finish_reason, res[r].tokens)
+               for r in rids]
+        if got != want:
+            problems.append(f"{name}: tokens or finish reasons differ from "
+                            f"the captured run's")
+        srv.block_pool.check_consistent()
+        if srv.block_pool.used_count:
+            problems.append(f"{name}: {srv.block_pool.used_count} pages "
+                            f"leaked")
+    m = guarded.metrics
+    plain_ms = statistics.mean(steps["plain"])
+    guard_ms = statistics.mean(steps["guarded"])
+    mem_cost = host_ms(guarded.perf.memory_watermarks, reps=200)
+    summary = guarded.perf_summary()
+    mean_mbu = summary["programs"][0]["bytes_accessed"] / (
+        guard_ms / 1e3 * guarded.perf.peak_hbm_bw) \
+        if guarded.perf.peak_hbm_bw else None
+    log(f"serve guarded: step_watchdog_s 2.0 + trace_dir, captured, "
+        f"mean step plain {[round(x, 3) for x in steps['plain']]} ms, "
+        f"guarded {[round(x, 3) for x in steps['guarded']]} ms "
+        f"(guarded / plain {guard_ms / plain_ms:.4f}), tokens identical "
+        f"to the captured run: {not problems}, watchdog trips "
+        f"{m.watchdog_trips}, skips {m.watchdog_skips}, flight dumps "
+        f"{len(flight_dumps(trace_dir))}, graphs {len(guarded._graphs)} "
+        f"(plain {len(plain._graphs)}), one watermark read "
+        f"{1e3 * mem_cost:.1f} us, last step "
+        f"mixed_mbu {m.mixed_mbu}, mixed_mfu {m.mixed_mfu}, tokens/s "
+        f"{m.mixed_tokens_per_sec_per_chip}, the mean guarded step's MBU "
+        f"{mean_mbu}, hbm in use {m.hbm_bytes_in_use}, peak "
+        f"{m.hbm_peak_bytes}, peaks {summary['peak_flops_per_chip']} "
+        f"FLOP/s {summary['peak_hbm_bytes_per_s_per_chip']} B/s for "
+        f"{summary['device_kind']!r}")
+    log(f"serve guarded perf_summary programs: {summary['programs']}")
+    if m.watchdog_trips or m.watchdog_skips:
+        problems.append(f"{m.watchdog_trips} trips, {m.watchdog_skips} skips")
+    if flight_dumps(trace_dir):
+        problems.append(f"flight dumps {sorted(flight_dumps(trace_dir))}")
+    if len(guarded._graphs) != len(plain._graphs):
+        problems.append(f"graphs {len(guarded._graphs)} != plain's "
+                        f"{len(plain._graphs)}")
+    if guarded.perf.peak_flops is None:
+        problems.append(f"no peaks for {summary['device_kind']!r}")
+    problems += utilization_problems("serve guarded", mixed_mbu=m.mixed_mbu,
+                                     mixed_mfu=m.mixed_mfu,
+                                     mean_mbu=mean_mbu)
+    if problems:
+        raise AssertionError("serve guarded: " + "; ".join(problems))
+    return guarded, guarded_rids, dict(plain_ms=steps["plain"],
+                               guarded_ms=steps["guarded"],
+                               mixed_mbu=m.mixed_mbu, mixed_mfu=m.mixed_mfu,
+                               mean_mbu=mean_mbu)
+
+
+def check_slo_serve(cfg, params, guarded, rids):
+    """Phase (c): a captured engine with ``ttft_slo_s`` / ``tpot_slo_s``
+    at the p50s of the guarded run (``guarded``'s requests ``rids``),
+    warmed by one request, then the same 16 requests: the verdicts of the
+    16 must sum to them. Prints the split. Returns it."""
+    ttft, tpot = request_times(guarded, rids)
+    slo = dict(ttft_slo_s=float(np.median(ttft)),
+               tpot_slo_s=float(np.median(tpot)))
+    srv, *_ = serve(cfg, 0, 0, None, None, dict(SERVE_SCFG, **slo),
+                    torch.bfloat16, params=params,
+                    engine_kw=dict(enable_cuda_graph=True),
+                    phases=[[(np.arange(100), 4)]])
+    verdicts = ("good", "ttft_miss", "tpot_miss", "shed", "failed")
+    before = {v: getattr(srv.metrics, f"slo_{v}") for v in verdicts}
+    _, rids, res, _, _ = serve(cfg, 0, 16, (64, 1536), (32, 64), None,
+                               torch.bfloat16, srv=srv)
+    split = {v: getattr(srv.metrics, f"slo_{v}") - before[v]
+             for v in verdicts}
+    terminal = sum(res[r].state != "queued" and res[r].state != "running"
+                   for r in rids)
+    log(f"serve slo: ttft_slo_s {slo['ttft_slo_s']:.4f} and tpot_slo_s "
+        f"{slo['tpot_slo_s']:.5f} (the guarded run's p50s), verdicts of "
+        f"{len(rids)} requests {split}, goodput tokens "
+        f"{srv.metrics.goodput_tokens}")
+    if sum(split.values()) != terminal or terminal != len(rids):
+        raise AssertionError(f"serve slo: verdicts {split} do not sum to "
+                             f"{terminal} terminal of {len(rids)} requests")
+    del srv
+    return dict(slo, **split)
+
+
+def check_chaos_serve(name, cfg, params, scfg, warm, traffic):
+    """Phase (b): ``CHAOS_SPEC`` armed over a captured engine (``scfg``
+    with a 0.5 s budget and the flight recorder), warmed by ``warm`` (a
+    phase list) so every graph of ``traffic`` is captured first. Gates, as
+    the JAX chaos invariant: every request terminal, each expected finish
+    reason, one trip, two quarantines, no leaked page, a consistent pool,
+    a fresh request served afterwards, the graphs and program table
+    unchanged, and one flight dump per firing whose header names the
+    request it hit. The survivors' tokens are not gated: failing requests
+    changes the packed widths, and the bf16 products' rows change in
+    their last bits with the width. Returns the summary."""
+    from deepspeed_tpu_torch.utils import fault_injection as faults
+
+    trace_dir = tempfile.mkdtemp(prefix="flight_")
+    scfg = dict(scfg, step_watchdog_s=0.5, trace_dir=trace_dir)
+    srv, *_ = serve(cfg, 0, 0, None, None, scfg, torch.bfloat16,
+                    params=params, engine_kw=dict(enable_cuda_graph=True),
+                    phases=warm)
+    graphs = (sorted(map(str, srv._graphs)),
+              [(r["name"], r["compiles"]) for r in srv.perf.programs.table()])
+    spec = CHAOS_SPEC.format(step=srv._step_no + 20)
+    os.environ[faults.ENV_VAR] = spec
+    faults.reset()
+    try:
+        _, rids, res, wall, _ = serve(cfg, 0, 0, None, None, None,
+                                      torch.bfloat16, srv=srv,
+                                      phases=traffic)
+    finally:
+        del os.environ[faults.ENV_VAR]
+        faults.reset()
+    if srv._wedged is not None:
+        srv._wedged.join()
+    _, fresh, fres, _, _ = serve(cfg, 0, 0, None, None, None, torch.bfloat16,
+                                 srv=srv, phases=[[(np.arange(40), 3)]])
+    srv.flight.disarm()
+    m = srv.metrics
+    reasons = {}
+    for r in rids:
+        reasons.setdefault(res[r].finish_reason, []).append(r)
+    dumps = flight_dumps(trace_dir)
+    log(f"serve chaos {name}: DS_FAULT={spec}, {len(rids)} requests "
+        f"in {wall:.3f} s, finish reasons "
+        f"{ {k: len(v) for k, v in reasons.items()} }, watchdog trips "
+        f"{m.watchdog_trips}, skips {m.watchdog_skips}, quarantines "
+        f"{m.logit_quarantines}, failed {m.requests_failed}, flight dumps "
+        f"{ {k: [h['detail'] for h in v] for k, v in dumps.items()} }, "
+        f"graphs {len(srv._graphs)}, recompiles {srv.perf.recompile_total}")
+    problems = []
+    if any(res[r].state in ("queued", "running") for r in rids):
+        problems.append("a request is not terminal")
+    for reason in CHAOS_REASONS:
+        if reason not in reasons:
+            problems.append(f"no request ended {reason}")
+    if (m.watchdog_trips, m.logit_quarantines) != (1, 2):
+        problems.append(f"trips {m.watchdog_trips}, quarantines "
+                        f"{m.logit_quarantines} != 1, 2")
+    srv.block_pool.check_consistent()
+    if srv.block_pool.used_count:
+        problems.append(f"{srv.block_pool.used_count} pages leaked")
+    if fres[fresh[0]].state != "finished":
+        problems.append("the fresh request did not finish")
+    if (sorted(map(str, srv._graphs)),
+            [(r["name"], r["compiles"])
+             for r in srv.perf.programs.table()]) != graphs:
+        problems.append("the chaos changed the captured graphs")
+    if {k: len(v) for k, v in dumps.items()} != CHAOS_DUMPS:
+        problems.append(f"flight dumps {sorted(dumps)} != {CHAOS_DUMPS}")
+    else:
+        tripped = reasons.get("step_watchdog", [])
+        named = {
+            "watchdog_trip": [set(h["detail"]["rids"]) == set(tripped)
+                              for h in dumps["watchdog_trip"]],
+            "fault_slow_step": [set(h["detail"]["rids"]) == set(tripped)
+                                for h in dumps["fault_slow_step"]],
+            "logit_quarantine": [h["detail"]["rid"] in reasons.get(
+                "corrupt_logits", []) for h in dumps["logit_quarantine"]],
+            "fault_corrupt_logits": [bool(set(h["detail"]["rids"]) & set(
+                reasons.get("corrupt_logits", [])))
+                for h in dumps["fault_corrupt_logits"]],
+            "fault_flaky_prefill": [h["detail"]["rids"] == reasons.get(
+                "prefill_error:RuntimeError") for h in
+                dumps["fault_flaky_prefill"]]}
+        bad = [k for k, ok in named.items() if not all(ok)]
+        if bad:
+            problems.append(f"dumps {bad} do not name the request they hit")
+    if problems:
+        raise AssertionError(f"serve chaos {name}: " + "; ".join(problems))
+    del srv
+    return {k: len(v) for k, v in reasons.items()}
 
 
 #: the two-program engine's full-width run: slots, pages and lengths of
@@ -2396,9 +2693,14 @@ def check_serving_legacy():
                 f"{m.preemptions}, quarantines {m.logit_quarantines}, "
                 f"graphs {len(srv._graphs)}, wrapper launches {launches}, "
                 f"peak memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
+                f"last decode step decode_mbu {m.decode_mbu}, decode_mfu "
+                f"{m.decode_mfu}, tokens/s "
+                f"{m.decode_tokens_per_sec_per_chip}")
             srv.block_pool.check_consistent()
-            problems = []
+            problems = utilization_problems(
+                f"serve two-program {run}", decode_mbu=m.decode_mbu,
+                decode_mfu=m.decode_mfu)
             if finished != len(rids):
                 problems.append(f"{len(rids) - finished} requests did not "
                                 f"finish")
@@ -2454,6 +2756,10 @@ def check_serving_legacy():
             del srv, res
             gc.collect()
             torch.cuda.empty_cache()
+    check_chaos_serve(
+        "two-program", base, params,
+        dict(LEGACY_SCFG, prefix_cache=True, prefill_chunk_tokens=PAGED_CHUNK,
+             prefill_token_budget=256), [[(np.arange(200), 4)]], phases)
     return out, replayed
 
 
@@ -2631,13 +2937,36 @@ def check_small_train_reference(device="cuda"):
                                  f"launched the wrong kernels")
 
 
+def gauge_turn(engine, batch, steps):
+    """``steps`` + 1 more steps on ``engine``, each waited for
+    (``perf_summary()``): after each step but the first, the engine's
+    ``train_tflops_per_chip`` gauge (that step's device time, from the
+    previous step's end to its end on CUDA events) and the host's wall
+    time between the same two step ends. Returns the losses, the gauges
+    and the wall times."""
+    losses = [engine.train_batch(batch=batch)]
+    engine.perf_summary()
+    t = time.perf_counter()
+    gauges, walls = [], []
+    for _ in range(steps):
+        losses.append(engine.train_batch(batch=batch))
+        engine.perf_summary()
+        now = time.perf_counter()
+        gauges.append(engine.registry.snapshot()["train_tflops_per_chip"])
+        walls.append(now - t)
+        t = now
+    return losses, gauges, walls
+
+
 def check_training(cfg=None, device="cuda"):
     """Full-width Llama-400M (all 24 layers, random weights from seed 0)
     through initialize -> train_batch at the bench config, twice from the
     same weights: uncaptured (``cuda_graph=False``) and captured (one CUDA
     graph a step), each 2 warm-up steps, then 5 timed steps each in turns
-    (uncaptured, captured, captured, uncaptured), then one profiled step
-    each. The losses of the two routes must be identical step for step,
+    (uncaptured, captured, captured, uncaptured), then 6 steps each
+    waited for (:func:`gauge_turn`: the engine's gauge against the hand
+    count over the last 5, within 5%) and one profiled step each. The
+    losses of the two routes must be identical step for step,
     finite and falling; each route's profiled step must run K1 2 x layers
     (forward and recompute), K2 layers + layers and K3 once (the captured
     one in its replay), counted on the device. Returns the uncaptured
@@ -2685,6 +3014,39 @@ def check_training(cfg=None, device="cuda"):
         r = routes[graphed]
         engine = r["engine"]
         name = "captured" if graphed else "uncaptured"
+        step_s = r["wall"] / steps
+        # the engine's own gauge against the hand count over the same
+        # steps: `turn` more steps, each waited for, the gauge read after
+        # each (device time on CUDA events) and the host's wall time
+        # between the same step ends; both as total work over total time
+        more, tflops, walls = gauge_turn(engine, batch, turn)
+        r["losses"] += more
+        gauges = engine.registry.snapshot()
+        r["train_mfu"] = gauges.get("train_mfu")
+        ok = all(g is not None for g in tflops)
+        r["train_tflops"] = len(tflops) / sum(1 / g for g in tflops) \
+            if ok else None
+        hand_tflops = flops / (sum(walls) / turn) / 1e12
+        log(f"train {name} gauges: train_tflops_per_chip over {turn} "
+            f"waited steps {[round(g, 3) for g in tflops] if ok else tflops} "
+            f"(each step's device time, the previous step's end to its end "
+            f"on CUDA events; {r['train_tflops']} over the {turn}), hand "
+            f"count {hand_tflops:.3f} TFLOP/s over the host's wall time "
+            f"between the same step ends ({[round(1e3 * w, 3) for w in walls]}"
+            f" ms), last train_mfu {r['train_mfu']}; the timed steps: "
+            f"{flops / step_s / 1e12:.3f} TFLOP/s over all {steps} = "
+            f"{flops / step_s / BF16_FLOP_PER_S:.4f} of 989, train_batch_s "
+            f"p50 {gauges.get('train_batch_s_p50')} s, program "
+            f"{engine.perf.programs.table()}")
+        if device == "cuda":
+            problems += utilization_problems(f"train {name}",
+                                             train_mfu=r["train_mfu"])
+            if r["train_tflops"] is None or \
+                    abs(r["train_tflops"] / hand_tflops - 1) > 0.05:
+                problems.append(f"{name}: train_tflops_per_chip "
+                                f"{r['train_tflops']} over {turn} steps not "
+                                f"within 5% of the hand count "
+                                f"{hand_tflops:.3f} over the same steps")
         if device == "cuda":
             losses = r["losses"]
             replayed, busy, prof_wall = profiled(
@@ -2693,7 +3055,6 @@ def check_training(cfg=None, device="cuda"):
         else:
             replayed, busy, prof_wall = {}, 0.0, 0.0
         r["replayed"] = replayed
-        step_s = r["wall"] / steps
         r["losses"] = [float(x) for x in r["losses"]]
         log(f"train {name}: llama_400m x{L} layers ({n_params} params) "
             f"bf16, batch {TRAIN_CONFIG['train_batch_size']} x {TRAIN_SEQ}, "

@@ -26,6 +26,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..monitor.perf import (PerfAccounting, estimate_decode_step_bytes,
+                             estimate_decode_step_flops, param_bytes,
+                             transformer_flops_per_token)
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 
@@ -135,6 +138,11 @@ class InferenceEngine:
         #: on this engine
         self._decode_graphs: Dict[Any, Dict[str, Any]] = {}
         self._graph_pool = None
+        #: program registry of ``generate``: one prefill program per
+        #: (batch, prompt bucket) and one decode step (the captured graph
+        #: with ``enable_cuda_graph``) per (batch, prompt bucket, new
+        #: tokens), each with its hand cost estimate
+        self.perf = PerfAccounting(scope="inference", device=self.device)
         log_dist(f"InferenceEngine: device={self.device}, dtype={dtype}, "
                  f"quantize_weights={qw}", ranks=[0])
 
@@ -204,6 +212,8 @@ class InferenceEngine:
                 ids = torch.nn.functional.pad(ids, (Tb - T, 0))
                 mask = torch.nn.functional.pad(mask, (Tb - T, 0))
                 T = Tb
+        self._observe_generate(ids, mask, max_new_tokens, (
+            do_sample, temperature, top_k, top_p, eos_token_id))
         if self._profile_model_time:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -217,6 +227,32 @@ class InferenceEngine:
                 torch.cuda.synchronize(self.device)
             self._model_times.append(time.perf_counter() - t0)
         return out[:, :requested_new]
+
+    def _observe_generate(self, ids, mask, max_new_tokens, sampler):
+        """Register one ``generate`` call's programs at its bucketed shape
+        (a new shape is a new program, so bucket churn shows as a growing
+        table; a changed fingerprint within one trips the sentinel)."""
+        B, T = ids.shape
+        cfg = getattr(self.module, "config", None)
+        params = self.perf.cached_spec("params", self.module)
+        name = f"prefill[b{B},t{T}]"
+        self.perf.observe_call(name, params=params, input_ids=ids,
+                               attention_mask=mask, sampler=sampler)
+        self.perf.capture_cost(name, lambda: {
+            "flops": B * T * transformer_flops_per_token(cfg, T)})
+        if max_new_tokens < 2:
+            return
+        name = f"decode[b{B},t{T},n{max_new_tokens}]"
+        cache_len = T + max_new_tokens
+        self.perf.observe_call(name, params=params, tokens=(B, 1),
+                               cache_len=cache_len, sampler=sampler)
+        kv = 1 if self.config.kv_cache_int8 else \
+            torch.empty((), dtype=self.compute_dtype).element_size()
+        self.perf.capture_cost(name, lambda: {
+            "flops": estimate_decode_step_flops(cfg, B, cache_len),
+            "bytes_accessed": estimate_decode_step_bytes(
+                cfg, B, cache_len, param_bytes(self.module),
+                kv_bytes_per_elem=kv)})
 
     def _generate(self, ids, mask, max_new_tokens, do_sample, temperature,
                   top_k, top_p, eos_token_id, seed):

@@ -41,12 +41,30 @@ Per step:
    quarantine their request (never the batch), and finished sequences
    release slot and pages the same step.
 
+Fault recovery, as in the JAX engine: a prefill that raises fails its own
+request (``prefill_error:<type>``) and everyone else rides the step; with
+``step_watchdog_s`` a warm step (every width's or kind's first forward is
+exempt: it runs eagerly and is captured) is awaited against the budget —
+its read-back on a CUDA event, its fired chaos stalls by their end time —
+and a step past the budget fails its requests (``step_watchdog``) while
+the engine skips device work until the abandoned step ends (a kernel
+cannot be cancelled; the engine only stops waiting for it). ``DS_FAULT``
+chaos points (``stall``, ``slow_step``, ``slow_chunk``, ``corrupt_logits``,
+``flaky_prefill``; see ``utils/fault_injection.py``) drill all of it;
+``corrupt_logits`` rides as data, so no drill changes a captured graph.
+Every terminal request gets an SLO verdict (``ttft_slo_s`` / ``tpot_slo_s``), ``trace_dir`` arms a flight
+recorder that dumps on each trip, quarantine and fault, and ``perf``
+(``monitor/perf.py``) registers every forward's program and turns the step
+wall times into MFU/MBU on the card's own peaks.
+
 The pool lives on the engine's device and is updated in place. Knobs of
 the JAX engine that this slice does not implement raise
 ``NotImplementedError`` naming the slice that brings them.
 """
 
 import dataclasses
+import math
+import os
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -55,10 +73,14 @@ import torch
 
 from ...models.layers import (PackedIndexBuffers, StaticIndexBuffers,
                               copy_paged_blocks, harvest_packed_logits)
-from ...monitor.tracing import Tracer
+from ...monitor.perf import (PerfAccounting, estimate_decode_step_bytes,
+                             estimate_decode_step_flops, fingerprint,
+                             param_bytes, transformer_flops_per_token)
+from ...monitor.tracing import FlightRecorder, Tracer, dump_seq
+from ...utils import fault_injection
 from ...utils.logging import log_dist
 from ..engine import InferenceEngine, _sample_logits, next_pow2
-from .block_pool import BlockPool, chain_hash
+from .block_pool import BlockPool, BlockPoolError, chain_hash
 from .metrics import ServingMetrics
 from .scheduler import RejectedError, Request, RequestState, Scheduler
 
@@ -72,12 +94,11 @@ _DEFERRED = {
     "host_cache_blocks": (0, "the host KV tier", "2c"),
     "host_cache_bytes": (None, "the host KV tier", "2c"),
     "sync_promote": (False, "the host KV tier", "2c"),
-    "step_watchdog_s": (0.0, "the step watchdog and fault injection", "2b"),
-    "ttft_slo_s": (None, "SLO attribution", "2b"),
-    "tpot_slo_s": (None, "SLO attribution", "2b"),
-    "trace_dir": (None, "flight recorder", "2b"),
-    "flight_events": (512, "flight recorder", "2b"),
 }
+
+
+class StepWatchdogTimeout(RuntimeError):
+    """A serving step exceeded ``step_watchdog_s`` wall-clock."""
 
 
 @dataclasses.dataclass
@@ -150,10 +171,27 @@ class ServingConfig:
     #: quarantine requests whose logits go NaN/Inf instead of emitting
     #: garbage tokens
     logit_guard: bool = True
-    # -- tracing -------------------------------------------------------
+    #: wall-clock budget of a warm step (seconds): past it the step's
+    #: requests fail (``step_watchdog``) and serving continues (0 = no
+    #: watchdog)
+    step_watchdog_s: float = 0.0
+    # -- SLO attribution -----------------------------------------------
+    #: time-to-first-token budget (seconds): a finished request past it
+    #: is judged ``ttft_miss`` (None = no TTFT SLO)
+    ttft_slo_s: Optional[float] = None
+    #: mean inter-token budget (seconds) after the first token (None = no
+    #: TPOT SLO)
+    tpot_slo_s: Optional[float] = None
+    # -- tracing / flight recorder -------------------------------------
     #: record span timelines into a bounded ring (ServingEngine.tracer)
     trace: bool = False
     trace_capacity: int = 8192
+    #: directory for trace dumps and flight-recorder post-mortems; setting
+    #: it implies ``trace`` (watchdog trips, logit quarantines and DS_FAULT
+    #: firings then each dump the last trace events + a metrics snapshot)
+    trace_dir: Optional[str] = None
+    #: trace events included in each flight-recorder dump
+    flight_events: int = 512
     #: write the serving counters to ``init_serving``'s ``monitor`` every
     #: N steps (0 = never)
     monitor_every: int = 1
@@ -164,11 +202,6 @@ class ServingConfig:
     host_cache_blocks: int = 0
     host_cache_bytes: Optional[int] = None
     sync_promote: bool = False
-    step_watchdog_s: float = 0.0
-    ttft_slo_s: Optional[float] = None
-    tpot_slo_s: Optional[float] = None
-    trace_dir: Optional[str] = None
-    flight_events: int = 512
 
     def __post_init__(self):
         for name, (off, slice_name, item) in _DEFERRED.items():
@@ -179,6 +212,81 @@ class ServingConfig:
                     f"(ROADMAP.md Queue 1, item {item})")
         if self.monitor_every < 0:
             raise ValueError("monitor_every must be >= 0 (0 = never)")
+
+
+def _sleep_until(t: float) -> None:
+    """Sleep until ``perf_counter`` reaches ``t`` (which may be infinite)."""
+    while True:
+        left = t - time.perf_counter()
+        if left <= 0:
+            return
+        time.sleep(min(1.0, left))
+
+
+class _ReadBack:
+    """A forward's ``[n + R]`` int32 output (tokens, then flags) on its way
+    to the host. On the card it is copied asynchronously into a pinned
+    buffer of its size behind a CUDA event (the pair made once in
+    ``buffers``), so the caller can wait for it against a deadline
+    (:meth:`wait_until`) and give up on a device that does not finish; on
+    the CPU the output is already there."""
+
+    def __init__(self, out: torch.Tensor, n: int, buffers: Dict[int, tuple]):
+        self.n = n
+        self._event = None
+        self._host = out
+        if out.device.type != "cuda":
+            return
+        pair = buffers.get(out.numel())
+        if pair is None:
+            pair = buffers[out.numel()] = (torch.empty(
+                out.shape, dtype=out.dtype, pin_memory=True),
+                torch.cuda.Event())
+        self._host, self._event = pair
+        self._host.copy_(out, non_blocking=True)
+        self._event.record()
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def wait_until(self, deadline: float = math.inf) -> bool:
+        """Spin on the copy's event until it completes (True) or the
+        ``perf_counter`` ``deadline`` passes (False). (A spin wakes as
+        soon as a blocking ``.cpu()`` does; ``Event.synchronize`` woke
+        later on the card.)"""
+        while not self.ready():
+            if time.perf_counter() >= deadline:
+                return False
+        return True
+
+    def result(self):
+        """Host ``(tokens [n], bad)``, once the copy has completed (the
+        pinned buffer is reused by the next read-back of its size)."""
+        self.wait_until()
+        res = self._host.numpy().copy()
+        return res[:self.n], res[self.n:] != 0
+
+
+class _InFlight:
+    """An abandoned (watchdog-tripped) step: the ``perf_counter`` time its
+    fired chaos stalls end, and its device work. It is alive while either
+    runs."""
+
+    def __init__(self, stall_end: float, readback: _ReadBack):
+        self.stall_end = stall_end
+        self.readback = readback
+
+    def is_alive(self) -> bool:
+        return time.perf_counter() < self.stall_end or \
+            not self.readback.ready()
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait up to ``timeout`` s for both; True when the step ended."""
+        deadline = time.perf_counter() + (math.inf if timeout is None
+                                          else timeout)
+        _sleep_until(min(self.stall_end, deadline))
+        return time.perf_counter() >= self.stall_end and \
+            self.readback.wait_until(deadline)
 
 
 @dataclasses.dataclass
@@ -242,7 +350,6 @@ class ServingEngine:
                 w *= 2
             ws.append(self._mixed_tokens)
             self._bucket_widths = ws
-        self._widths_run = set()
         # both engines run over static buffers; with enable_cuda_graph on
         # a CUDA device each shape (a packed width; the two-program
         # engine's decode, chunk and monolithic buckets) is captured as
@@ -256,8 +363,14 @@ class ServingEngine:
         #: the two-program engine's buffers, by forward kind
         self._legacy_static: Dict[tuple, StaticIndexBuffers] = {}
         self._graphs: Dict[Any, Any] = {}
+        #: forward keys (a packed width; the two-program engine's kinds)
+        #: whose first forward has run: it ran eagerly (and, graphed, was
+        #: captured) and was exempt from the watchdog (the first-beat
+        #: rule); later forwards of a key are judged
+        self._warm = set()
 
-        self.tracer = Tracer(capacity=cfg.trace_capacity, enabled=cfg.trace)
+        self.tracer = Tracer(capacity=cfg.trace_capacity,
+                             enabled=bool(cfg.trace or cfg.trace_dir))
         self.nb_max = cfg.max_model_len // cfg.block_size
         self.block_pool = BlockPool(cfg.num_blocks, cfg.block_size,
                                     tracer=self.tracer)
@@ -265,9 +378,37 @@ class ServingEngine:
                                self.nb_max, prefix_cache=cfg.prefix_cache,
                                tracer=self.tracer)
         self.metrics = ServingMetrics(blocks_total=cfg.num_blocks)
+        #: SLO attribution: every terminal transition funnels through the
+        #: scheduler's release, which calls this hook before emitting the
+        #: terminal span
+        self.sched.on_terminal = self._slo_on_terminal
+        #: program registry + recompile sentinel, hand cost estimates and
+        #: the MFU/MBU gauges on the card's own peaks
+        self.perf = PerfAccounting(tracer=self.tracer,
+                                   metrics=self.metrics.registry,
+                                   scope="serving", device=self.device)
+        #: post-mortem capture: armed iff trace_dir is set — watchdog
+        #: trips, logit quarantines and DS_FAULT firings each dump the
+        #: last trace events + a metrics snapshot there
+        self.flight: Optional[FlightRecorder] = None
+        if cfg.trace_dir:
+            self.flight = FlightRecorder(cfg.trace_dir, self.tracer,
+                                         metrics_fn=self.metrics.snapshot,
+                                         last_n=cfg.flight_events)
+            self.flight.arm_faults()
+        #: name of this engine's probabilistic DS_FAULT stream (None =
+        #: the process-global stream)
+        self.fault_stream: Optional[str] = None
+        #: the abandoned (watchdog-tripped) step that may still run
+        #: (step() skips device work while it lives, so work never
+        #: stacks), and the pinned buffers read-backs land in, by size
+        self._wedged: Optional[_InFlight] = None
+        self._host_bufs: Dict[int, tuple] = {}
 
         kv_dtype = torch.int8 if engine.config.kv_cache_int8 \
             else engine.compute_dtype
+        self._kv_bytes_per_elem = torch.empty((), dtype=kv_dtype
+                                              ).element_size()
         self.pool = engine.module.init_paged_cache(
             cfg.num_blocks, cfg.block_size, dtype=kv_dtype,
             device=self.device)
@@ -532,6 +673,80 @@ class ServingEngine:
     def has_work(self) -> bool:
         return self.sched.has_work()
 
+    # -- SLO attribution ------------------------------------------------
+
+    def _judge_slo(self, req: Request) -> str:
+        """One verdict per terminal request (metrics.SLO_VERDICTS):
+
+        - ``shed``      — cancelled (caller cancel, load shed, drain,
+                          displacement): the engine chose not to serve it;
+        - ``failed``    — engine-side failure (watchdog, quarantine,
+                          prefill error, pool exhaustion);
+        - ``ttft_miss`` — finished past the TTFT SLO, or timed out before
+                          producing a first token;
+        - ``tpot_miss`` — finished with mean inter-token latency past the
+                          TPOT SLO, or timed out mid-decode;
+        - ``good``      — finished inside both budgets (trivially, when
+                          no SLO is configured).
+        """
+        cfg = self.config
+        if req.state is RequestState.CANCELLED:
+            return "shed"
+        if req.state is RequestState.FAILED:
+            return "failed"
+        if req.state is RequestState.TIMEOUT:
+            # a deadline blown before the first token is a TTFT story; one
+            # blown mid-decode is a decode-rate story
+            return "ttft_miss" if req.first_token_time is None \
+                else "tpot_miss"
+        if cfg.ttft_slo_s is not None and req.ttft is not None \
+                and req.ttft > cfg.ttft_slo_s:
+            return "ttft_miss"
+        if cfg.tpot_slo_s is not None and len(req.tokens) > 1 \
+                and req.first_token_time is not None \
+                and req.finish_time is not None:
+            tpot = (req.finish_time - req.first_token_time) \
+                / (len(req.tokens) - 1)
+            if tpot > cfg.tpot_slo_s:
+                return "tpot_miss"
+        return "good"
+
+    def _slo_on_terminal(self, req: Request) -> None:
+        verdict = self._judge_slo(req)
+        req.slo_verdict = verdict
+        self.metrics.note_slo(
+            verdict,
+            goodput_tokens=len(req.tokens) if verdict == "good" else 0)
+
+    # -- tracing / post-mortem -----------------------------------------
+
+    def _flight(self, trigger: str, **detail) -> None:
+        """Flight-recorder dump (no-op unless ``trace_dir`` armed one)."""
+        if self.flight is not None:
+            self.flight.record(trigger, detail)
+
+    def dump_trace(self, path: Optional[str] = None) -> str:
+        """Write the trace ring as Chrome-trace/Perfetto JSON. Default
+        path: ``<trace_dir>/trace_serving_<stamp>.json``."""
+        if path is None:
+            if not self.config.trace_dir:
+                raise ValueError("dump_trace() needs a path when "
+                                 "ServingConfig.trace_dir is unset")
+            path = os.path.join(
+                self.config.trace_dir,
+                f"trace_serving_{time.strftime('%Y%m%d-%H%M%S')}"
+                f"_{dump_seq():04d}_{os.getpid()}.json")
+        return self.tracer.dump(path)
+
+    def perf_summary(self) -> Dict[str, Any]:
+        """Performance-accounting block for reports and measurement
+        artifacts: the card's peaks (None on the CPU), its memory
+        watermarks, the program table (fingerprints, compile/recompile
+        counts, cost estimates) and the latest utilization values."""
+        out = self.perf.summary()
+        out["compile_counts"] = dict(self.compile_counts)
+        return out
+
     def defrag(self) -> int:
         """Compact live pages (referenced and cached) to the low end of
         the pool, moving their contents on the device and rewriting the
@@ -582,6 +797,11 @@ class ServingEngine:
         """Shed expired requests, admit from the queue, then run the
         device half: one packed mixed step, or the two-program engine's
         prefill forwards and its decode over all slots."""
+        # chaos point: DS_FAULT=stall:tag=serving_step wedges the caller
+        # here; a bounded stall must leave the queue drainable
+        fault_injection.maybe_stall("stall", tag="serving_step",
+                                    step=self._step_no,
+                                    stream=self.fault_stream)
         t0 = time.perf_counter()
         now = time.perf_counter()
         self.sched.expire_queued(now)
@@ -590,6 +810,26 @@ class ServingEngine:
                 self.sched.timeout(req, "deadline")
                 self._clear_slot_arrays(slot)
                 self.metrics.requests_timeout += 1
+        # wedged-device gate, BEFORE any device work: while an abandoned
+        # (watchdog-tripped) step still runs, nothing may fill the static
+        # buffers, admit or dispatch — the abandoned step still appends
+        # into its failed requests' pages, which nobody may take until it
+        # ends. Host work above (deadline shedding) still ran; the sleep
+        # keeps drive loops from spinning
+        if self._wedged is not None:
+            if self._wedged.is_alive():
+                self.metrics.watchdog_skips += 1
+                if self.tracer.enabled:
+                    self.tracer.instant("watchdog_skip", cat="engine",
+                                        args={"step": self._step_no})
+                time.sleep(min(0.05, self.config.step_watchdog_s))
+                self._account_reaped()
+                # no record_step: a skipped step's sleep would read as a
+                # healthy step latency mid-outage
+                self._finish_step_bookkeeping(t0, self.brownout,
+                                              record_latency=False)
+                return
+            self._wedged = None
         brownout = self.brownout
         while True:
             req = self.sched.admit_next()
@@ -612,7 +852,12 @@ class ServingEngine:
                 # un-granted row is inert
                 self._write_table_row(req)
             elif not self._chunk:
-                self._prefill(req)
+                try:
+                    self._prefill(req)
+                except BlockPoolError:
+                    raise  # accounting invariant broken — never swallow
+                except Exception as e:
+                    self._fail_prefill(req, e)
             # chunked two-program prefill runs below, under the budget;
             # the slot keeps a sentinel decode row until its last chunk
         self._account_reaped()
@@ -625,14 +870,16 @@ class ServingEngine:
         self._decode_step()
         self._finish_step_bookkeeping(t0, brownout)
 
-    def _finish_step_bookkeeping(self, t0: float, brownout: bool) -> None:
+    def _finish_step_bookkeeping(self, t0: float, brownout: bool,
+                                 record_latency: bool = True) -> None:
         if self.tracer.enabled:
             self.tracer.complete("step", t0, time.perf_counter(),
                                  cat="engine", args={"step": self._step_no})
         self._step_no += 1
         m = self.metrics
         m.steps += 1
-        m.record_step(time.perf_counter() - t0)
+        if record_latency:
+            m.record_step(time.perf_counter() - t0)
         m.queue_depth = self.sched.queue_depth
         m.active_seqs = len(self.sched.active())
         m.blocks_used = self.block_pool.used_count
@@ -643,6 +890,8 @@ class ServingEngine:
         m.prefill_queue_age_s = 0.0 if not prefilling else \
             time.perf_counter() - min(r.submit_time for r in prefilling)
         m.brownout_active = brownout
+        m.recompiles = self.perf.recompile_total
+        m.hbm_bytes_in_use, m.hbm_peak_bytes = self.perf.memory_watermarks()
         if self.monitor is not None and self.config.monitor_every and \
                 self._step_no % self.config.monitor_every == 0:
             self.monitor.write_events(m.to_events(self._step_no))
@@ -685,14 +934,27 @@ class ServingEngine:
         grants = self.sched.plan_prefill_grants(self._chunk_budget,
                                                 self._chunk)
         bs = self.block_pool.block_size
-        for _, req in self.sched.active():
-            if req.prefilling and req.rid in grants:
-                # copy-on-write every chunk-spanned page another sequence
-                # still references, before this step's appends
-                start, n = req.prefill_done, grants[req.rid]
-                for idx in range(start // bs, (start + n - 1) // bs + 1):
-                    self._ensure_exclusive(req, idx)
-                self._write_table_row(req)
+        for _, req in list(self.sched.active()):
+            if not req.prefilling or req.rid not in grants:
+                continue
+            try:
+                # chaos point: DS_FAULT=flaky_prefill fails ITS request
+                # host-side, before it is packed — everyone else still
+                # rides this step
+                fault_injection.maybe_fail(
+                    "flaky_prefill", exc=RuntimeError, tag="serving_prefill",
+                    step=self._step_no, stream=self.fault_stream,
+                    detail={"rids": [req.rid]})
+            except RuntimeError as e:
+                grants.pop(req.rid)
+                self._fail_prefill(req, e)
+                continue
+            # copy-on-write every chunk-spanned page another sequence
+            # still references, before this step's appends
+            start, n = req.prefill_done, grants[req.rid]
+            for idx in range(start // bs, (start + n - 1) // bs + 1):
+                self._ensure_exclusive(req, idx)
+            self._write_table_row(req)
 
         # pack segments slot-ascending: decode rows are 1 token, granted
         # prefill rows up to their grant, everything else is inert
@@ -734,28 +996,75 @@ class ServingEngine:
             self._finish_step_bookkeeping(t0, brownout)
             return
 
+        # corrupt_logits chaos, both tags, as DATA (no recapture): the
+        # serving_step vocabulary pins a decode slot (slot=N, falling back
+        # to the first decode row on a bad or absent pin), serving_prefill
+        # flags the first packed chunk. Each tag is probed only when a
+        # matching row is packed, so a bounded (fails=N) spec spends its
+        # budget on a step it can poison
+        corrupt = np.zeros((R,), np.int32)
+        if decodes:
+            fspec = fault_injection.maybe_flag(
+                "corrupt_logits", tag="serving_step", step=self._step_no,
+                stream=self.fault_stream,
+                detail={"rids": [r.rid for _, r in decodes]})
+            if fspec is not None:
+                corrupt[self._pin_slot(fspec, [s for s, _ in decodes])] = 1
+        if prefills and fault_injection.maybe_flag(
+                "corrupt_logits", tag="serving_prefill", step=self._step_no,
+                stream=self.fault_stream,
+                detail={"rids": [prefills[0][1].rid]}) is not None:
+            corrupt[prefills[0][0]] = 1
+
         # the packed width: the full capacity, or the narrowest bucket that
         # holds this step's packed tokens
         W = T if self._bucket_widths is None else \
             next(w for w in self._bucket_widths if w >= cursor)
+        step_no = self._step_no
+        packed = decodes + [(s, r) for s, r, _, _ in prefills]
+        rids = [r.rid for _, r in packed]
+        # the step's arrays (the buffers hold the full capacity; the step
+        # reads the first W tokens)
+        arrays = dict(ids=ids, token_rows=trow, append_pos=pos,
+                      block_tables=self._tables,
+                      query_start=row_start, query_len=row_len,
+                      chunk_start=row_cs, context_len=row_cl,
+                      corrupt=corrupt)
+        name = self._mixed_name(W)
+        self._observe(name, **dict(arrays, ids=ids[:, :W],
+                                   token_rows=trow[:, :W],
+                                   append_pos=pos[:, :W]))
+        self.perf.capture_cost(name, lambda: self._mixed_cost_estimate(W))
+        # chaos points INSIDE the guarded region; slow_chunk is probed
+        # only when prefill rows are packed (the corrupt probes' rule)
+        stalls = [("slow_step", "serving_step")]
+        if prefills:
+            stalls.append(("slow_chunk", "serving_prefill"))
+
         t_dev = time.perf_counter()
-        toks, bad = self._mixed_step(W, ids, trow, pos, row_start, row_len,
-                                     row_cs, row_cl)
+        try:
+            (toks, bad), was_warm = self._run_device(
+                W, lambda: self._mixed_step(W, arrays), stalls, rids)
+        except StepWatchdogTimeout as e:
+            self._trip(e, packed, step_no)
+            self._finish_step_bookkeeping(t0, brownout)
+            return
         t_end = time.perf_counter()
         if self.tracer.enabled:
             self.tracer.complete("mixed_step", t_dev, t_end, cat="engine",
-                                 args={"step": self._step_no,
+                                 args={"step": step_no,
                                        "decode_tokens": len(decodes),
                                        "prefill_tokens": cursor - len(decodes),
                                        "width": W,
-                                       "rows": len(decodes) + len(prefills)})
-        step_no = self._step_no
+                                       "rows": len(packed)})
+        committed = 0
         for slot, req, n, final in prefills:
             req.prefill_done += n
             req.seq_len = req.prefill_done
             self.metrics.prefill_tokens += n
             self.metrics.prefill_tokens_computed += n
             self.metrics.window_tokens += n
+            committed += n
             # guard every chunk, and BEFORE content-indexing: poisoned KV
             # must never park on the prefix cache's LRU
             if cfg.logit_guard and bad[slot]:
@@ -766,6 +1075,7 @@ class ServingEngine:
                 # last chunk: token one (TTFT ends here) is the row's last
                 # packed position; the slot decodes from the next step
                 self._harvest(req, int(toks[row_start[slot] + n - 1]))
+                committed += 1
         for slot, req in decodes:
             if cfg.logit_guard and bad[slot]:
                 self._quarantine(slot, req, step_no, where="decode")
@@ -775,15 +1085,19 @@ class ServingEngine:
             # identical continuations (multi-turn replays) reuse it
             self._commit_full_blocks(req)
             self._harvest(req, int(toks[row_start[slot]]))
+            committed += 1
+        if was_warm:
+            # the first-beat rule for the gauges too: a width's first step
+            # carries its capture
+            self._note_mixed_perf(t_end - t_dev, tokens=committed, width=W)
         self._finish_step_bookkeeping(t0, brownout)
 
-    def _mixed_step(self, width, ids, token_rows, append_pos, row_start,
-                    row_len, chunk_start, context_len):
-        """The packed forward at ``width`` packed tokens (the packed
-        arrays hold the full capacity; the step's tokens are their first
-        ``width``): appends every packed token's KV into the pool (in
-        place), samples every packed position, and flags rows with a
-        NaN/Inf logit. Returns host ``(tokens [width], bad [R])``.
+    def _mixed_step(self, width, arrays):
+        """The packed forward at ``width`` packed tokens: appends every
+        packed token's KV into the pool (in place), samples every packed
+        position, and flags rows with a NaN/Inf logit (or flagged by
+        ``arrays["corrupt"]``). Returns the :class:`_ReadBack` of
+        ``(tokens [width], bad [R])``.
 
         The step runs over static buffers: its arrays go to the device in
         one copy, the device work (:meth:`_packed_forward`) reads them
@@ -793,14 +1107,10 @@ class ServingEngine:
         step at that width replays. Greedy tokens are taken inside that
         work; sampled ones after it, from the harvested logits with the
         engine's generator."""
-        self._widths_run.add(width)
-        self.compile_counts["mixed_step"] = len(self._widths_run)
-        self._static.fill(ids=ids, token_rows=token_rows,
-                          append_pos=append_pos, block_tables=self._tables,
-                          query_start=row_start, query_len=row_len,
-                          chunk_start=chunk_start, context_len=context_len)
-        return self._read_back(self._run_or_replay(
-            width, lambda: self._packed_forward(width)), width)
+        self._static.fill(**arrays)
+        out = self._run_or_replay(width, lambda: self._packed_forward(width))
+        self.compile_counts["mixed_step"] = len(self._warm)
+        return self._read_back(out, width)
 
     def _run_or_replay(self, key, forward):
         """A forward's device work: the replay of ``key``'s captured graph,
@@ -813,37 +1123,173 @@ class ServingEngine:
         out = forward()
         if self._graphed and self.device.type == "cuda":
             self._graphs[key] = self.engine.capture(forward)
+        self._warm.add(key)
         return out
 
-    def _read_back(self, out, n: int):
-        """Host ``(tokens [n], bad)`` from a forward's device output: greedy
-        tokens come with it; sampled ones are drawn here, outside any
-        graph, from its logits with the engine's generator."""
+    def _run_device(self, key, launch, stalls, rids):
+        """One forward's device work: the chaos stalls ``stalls`` (``(name,
+        tag)`` points, probed in order, naming ``rids``) and ``launch()``
+        (the fill, the forward or graph replay, and the :class:`_ReadBack`),
+        then its host ``(tokens, bad)``. Returns that and whether ``key``
+        was warm.
+
+        The forward is launched, then the step waits out its fired stalls
+        and its read-back's CUDA event. Under ``step_watchdog_s`` a warm
+        ``key`` waits only until the budget's deadline (its first forward
+        runs eagerly and is captured, and is exempt: the first-beat rule);
+        a step whose stalls end, or whose read-back completes, past the
+        deadline is abandoned (``_wedged``: step() keeps off the device
+        until its stalls and device work end — a kernel cannot be
+        cancelled, the engine only stops waiting for it) and
+        :class:`StepWatchdogTimeout` raised, and the caller fails the
+        step's requests and keeps serving. On the CPU the forward has run
+        by the time ``launch()`` returns, so only its stalls are judged."""
+        step_no = self._step_no
+        budget = self.config.step_watchdog_s
+        warm = key in self._warm
+        start = time.perf_counter()
+        deadline = start + budget if warm and budget > 0 else math.inf
+        stall_end = start
+        for name, tag in stalls:
+            ctx = dict(tag=tag, step=step_no, stream=self.fault_stream)
+            spec = fault_injection.fire(name, ctx, {"rids": rids})
+            if spec is not None:
+                stall_end += fault_injection.stall_seconds(name, spec, ctx)
+        readback = launch()
+        _sleep_until(min(stall_end, deadline))
+        if stall_end <= deadline and readback.wait_until(deadline):
+            return readback.result(), warm
+        self._wedged = _InFlight(stall_end, readback)
+        raise StepWatchdogTimeout(
+            f"serving step exceeded {budget:.3f}s wall-clock "
+            f"(step {step_no})")
+
+    def _trip(self, e: StepWatchdogTimeout, packed, step_no: int,
+              **where) -> None:
+        """A watchdog trip: every request of the abandoned step fails
+        (``step_watchdog``, slot and pages returned) and the flight
+        recorder dumps, naming them."""
+        log_dist(f"serving: step watchdog tripped: {e}", ranks=[0])
+        self.metrics.watchdog_trips += 1
+        rids = [r.rid for _, r in packed]
+        if self.tracer.enabled:
+            self.tracer.instant("watchdog_trip", cat="engine",
+                                args={"step": step_no, "rids": rids,
+                                      **where})
+        for slot, req in packed:
+            self.sched.fail(req, "step_watchdog")
+            self._clear_slot_arrays(slot)
+            self.metrics.requests_failed += 1
+        self._flight("watchdog_trip", step=step_no, rids=rids,
+                     budget_s=self.config.step_watchdog_s, **where)
+
+    @staticmethod
+    def _pin_slot(spec, slots: List[int]) -> int:
+        """The slot a corrupt_logits firing poisons: its ``slot=N`` pin
+        when that slot is among ``slots``, else the first of them — an
+        injection point must never crash the loop it is drilling."""
+        try:
+            pin = int(spec.params["slot"])
+        except (KeyError, ValueError):
+            return slots[0]
+        return pin if pin in slots else slots[0]
+
+    def _read_back(self, out, n: int) -> _ReadBack:
+        """The :class:`_ReadBack` of ``(tokens [n], bad)`` from a forward's
+        device output: greedy tokens come with it; sampled ones are drawn
+        here, outside any graph, from its logits with the engine's
+        generator (a NaN row is flagged and never harvested; it is zeroed
+        for the draw)."""
         cfg = self.config
         if cfg.do_sample:
             lg, bad = out
             with torch.inference_mode():
-                tok = _sample_logits(lg, self._gen, True, cfg.temperature,
-                                     cfg.top_k, cfg.top_p)
+                tok = _sample_logits(torch.nan_to_num(lg), self._gen, True,
+                                     cfg.temperature, cfg.top_k, cfg.top_p)
                 out = torch.cat([tok.int(), bad.int()])
-        res = out.cpu().numpy()
-        return res[:n], res[n:] != 0
+        return _ReadBack(out, n, self._host_bufs)
 
     def _packed_forward(self, width):
         """The packed step's device work at ``width`` over the static
-        buffers: the forward (the pool appended in place), the harvest, and
-        for greedy decoding the tokens; returns ``[width + R]`` int32
-        (tokens, then the NaN flags) or, when sampling, ``(logits [width,
-        V], flags [R])``."""
+        buffers: the forward (the pool appended in place), the harvest
+        (with the step's corrupt flags), and for greedy decoding the
+        tokens; returns ``[width + R]`` int32 (tokens, then the NaN flags)
+        or, when sampling, ``(logits [width, V], flags [R])``."""
         ids, idx = self._static.index(width)
         with torch.inference_mode():
             logits, _ = self.engine.module(ids.long(), cache=self.pool,
                                            cache_index=idx)
-            lg, bad = harvest_packed_logits(logits, idx["token_rows"],
-                                            self.config.max_batch_size)
+            lg, bad = harvest_packed_logits(
+                logits, idx["token_rows"], self.config.max_batch_size,
+                corrupt=self._static.views["corrupt"])
             if self.config.do_sample:
                 return lg, bad
             return torch.cat([lg.argmax(dim=-1).int(), bad.int()])
+
+    # -- performance accounting ----------------------------------------
+
+    def _observe(self, name: str, **arrays) -> None:
+        """One dispatch of program ``name`` for the recompile sentinel: its
+        arrays' specs beside the params' and the pool's (memoized on their
+        identity: both keep one object for the engine's life)."""
+        fp = fingerprint(**arrays)
+        fp["params"] = self.perf.cached_spec("params", self.engine.module)
+        fp["pool"] = self.perf.cached_spec("pool", self.pool)
+        self.perf.programs.observe_call(name, fp)
+
+    def _mixed_name(self, width: int) -> str:
+        """Program name of the packed step at ``width``: one name by
+        default, one per bucket with ``mixed_step_buckets`` (each width is
+        its own captured graph, so dispatching across widths never reads
+        as a recompile)."""
+        return "mixed_step" if self._bucket_widths is None \
+            else f"mixed_step[{width}]"
+
+    def _mixed_cost_estimate(self, width: int):
+        """The packed step's cost: every packed position (padding
+        included) against the table-width context, and the params read
+        once plus every row's table-width KV walk (the JAX engine's
+        estimate)."""
+        mcfg = self.engine.module.config
+        B, ctx = self.config.max_batch_size, self.config.max_model_len
+        return {"flops": width * transformer_flops_per_token(mcfg, ctx),
+                "bytes_accessed": estimate_decode_step_bytes(
+                    mcfg, B, ctx, param_bytes(self.engine.module),
+                    kv_bytes_per_elem=self._kv_bytes_per_elem)}
+
+    def _decode_cost_estimate(self):
+        """The two-program decode's cost: every slot against the
+        table-width context."""
+        mcfg = self.engine.module.config
+        B, ctx = self.config.max_batch_size, self.config.max_model_len
+        return {"flops": estimate_decode_step_flops(mcfg, B, ctx),
+                "bytes_accessed": estimate_decode_step_bytes(
+                    mcfg, B, ctx, param_bytes(self.engine.module),
+                    kv_bytes_per_elem=self._kv_bytes_per_elem)}
+
+    def _note_mixed_perf(self, dt_s: float, tokens: int, width: int) -> None:
+        """Per-step utilization of the packed step over its wall time
+        (fill, forward or replay, read-back: what a user waits for)."""
+        vals = self.perf.on_program_step(self._mixed_name(width), dt_s,
+                                         tokens=tokens)
+        m = self.metrics
+        m.mixed_flops_per_step = vals["flops_per_step"]
+        m.mixed_bytes_per_step = vals["bytes_per_step"]
+        m.mixed_mfu = vals["mfu"]
+        m.mixed_mbu = vals["mbu"]
+        m.mixed_tokens_per_sec_per_chip = vals["tokens_per_sec_per_chip"]
+
+    def _note_decode_perf(self, dt_s: float, tokens: int) -> None:
+        """Per-step utilization of the two-program decode over its wall
+        time; decode is bandwidth-bound, so MBU and tokens/s are the
+        honest gauges."""
+        vals = self.perf.on_program_step("decode", dt_s, tokens=tokens)
+        m = self.metrics
+        m.decode_flops_per_step = vals["flops_per_step"]
+        m.decode_bytes_per_step = vals["bytes_per_step"]
+        m.decode_mfu = vals["mfu"]
+        m.decode_mbu = vals["mbu"]
+        m.decode_tokens_per_sec_per_chip = vals["tokens_per_sec_per_chip"]
 
     # ------------------------------------------------------------------
     # the two-program engine (mixed_step=False)
@@ -853,14 +1299,16 @@ class ServingEngine:
         """One model forward of the two-program engine over the static
         buffers of ``kind`` (``("decode",)``, ``("chunk",)`` or
         ``("prefill", Tb)``): ``arrays`` are the step's ``ids [B, T]``, the
-        paged bundle's fields (the pool is appended in place) and, for a
-        prefill, each row's sampled position ``last_pos [B]`` (a decode
-        samples its one position). They go to the device in one copy; with
-        ``enable_cuda_graph`` on a CUDA device a kind's first forward runs
-        eagerly and is then captured, and later forwards replay it. Greedy
-        tokens are taken inside that work, sampled ones after it with the
-        engine's generator. Returns host ``(tokens [B], bad [B])``,
-        ``bad`` flagging rows whose sampled logits hold a NaN/Inf."""
+        paged bundle's fields (the pool is appended in place), for a
+        prefill each row's sampled position ``last_pos [B]`` (a decode
+        samples its one position) and, for a decode or a chunk, the
+        ``corrupt [B]`` chaos flags. They go to the device in one copy;
+        with ``enable_cuda_graph`` on a CUDA device a kind's first forward
+        runs eagerly and is then captured, and later forwards replay it.
+        Greedy tokens are taken inside that work, sampled ones after it
+        with the engine's generator. Returns the :class:`_ReadBack` of
+        ``(tokens [B], bad [B])``, ``bad`` flagging rows whose sampled
+        logits hold a NaN/Inf."""
         static = self._legacy_static.get(kind)
         if static is None:
             static = self._legacy_static[kind] = StaticIndexBuffers(
@@ -872,9 +1320,10 @@ class ServingEngine:
 
     def _legacy_forward(self, static: StaticIndexBuffers):
         """A two-program forward's device work over its static buffers:
-        the forward, each row's sampled logits and their NaN flags, and for
-        greedy decoding the tokens; returns ``[B + B]`` int32 (tokens, then
-        the flags) or, when sampling, ``(logits [B, V], flags [B])``."""
+        the forward, each row's sampled logits and their NaN flags (set
+        too where ``corrupt`` flags the row), and for greedy decoding the
+        tokens; returns ``[B + B]`` int32 (tokens, then the flags) or,
+        when sampling, ``(logits [B, V], flags [B])``."""
         v = static.views
         idx = {n: v[n] for n in ("block_tables", "append_pos",
                                  "context_len", "chunk_start") if n in v}
@@ -888,9 +1337,35 @@ class ServingEngine:
             else:
                 last = logits[:, 0]
             bad = ~torch.isfinite(last).all(dim=-1)
+            if "corrupt" in v:
+                bad |= v["corrupt"] != 0
             if self.config.do_sample:
                 return last, bad
             return torch.cat([last.argmax(dim=-1).int(), bad.int()])
+
+    def _legacy_dispatch(self, kind: tuple, name: str, estimate, stalls,
+                         rids, **arrays):
+        """One two-program forward of ``kind`` over ``arrays``, observed as
+        program ``name`` (its cost from ``estimate``), through
+        :meth:`_run_device` with the chaos ``stalls``. Returns ``((tokens,
+        bad), the wall time, whether the kind was warm)``."""
+        self._observe(name, **arrays)
+        self.perf.capture_cost(name, estimate)
+        t = time.perf_counter()
+        out, warm = self._run_device(
+            kind, lambda: self._forward_last(kind, **arrays), stalls, rids)
+        return out, time.perf_counter() - t, warm
+
+    def _fail_prefill(self, req: Request, e: Exception) -> None:
+        """A failing prefill (flaky_prefill chaos, an error on one
+        pathological prompt, ...) fails ITS request; the engine keeps
+        serving everyone else."""
+        log_dist(f"serving: prefill failed for {req.rid}: "
+                 f"{type(e).__name__}: {e}", ranks=[0])
+        slot = req.slot
+        self.sched.fail(req, f"prefill_error:{type(e).__name__}")
+        self._clear_slot_arrays(slot)
+        self.metrics.requests_failed += 1
 
     def _prefill(self, req: Request) -> None:
         """The monolithic prefill: the admitted request's (resume-)prompt
@@ -898,7 +1373,14 @@ class ServingEngine:
         its pages and samples token one. It attends the fresh K/V only, so
         it needs a from-empty sequence and never runs with the prefix
         cache on. The pads (``append_pos = -1``) are what the key mask of
-        the from-empty attention hides."""
+        the from-empty attention hides. It is never watchdog-judged (as in
+        the JAX engine)."""
+        # chaos point: DS_FAULT=flaky_prefill raises here; step() fails the
+        # request and keeps serving
+        fault_injection.maybe_fail("flaky_prefill", exc=RuntimeError,
+                                   tag="serving_prefill", step=self._step_no,
+                                   stream=self.fault_stream,
+                                   detail={"rids": [req.rid]})
         tokens = req.resume_tokens
         L = len(tokens)
         Tb = next_pow2(max(L, self.config.prefill_bucket_min))
@@ -906,13 +1388,17 @@ class ServingEngine:
         ids = np.zeros((1, Tb), np.int32)
         ids[0, :L] = tokens
         ar = np.arange(Tb)[None, :]
+        arrays = dict(ids=ids, block_tables=self._tables[req.slot][None],
+                      append_pos=np.where(ar < L, ar, -1), context_len=[L],
+                      last_pos=[L - 1])
+        name = f"prefill[{Tb}]"
+        self._observe(name, **{k: np.asarray(a) for k, a in arrays.items()})
+        mcfg = self.engine.module.config
+        self.perf.capture_cost(name, lambda: {
+            "flops": Tb * transformer_flops_per_token(mcfg, Tb)})
         tr = self.tracer
         t_pf = time.perf_counter()
-        tok, bad = self._forward_last(
-            ("prefill", Tb), ids=ids,
-            block_tables=self._tables[req.slot][None],
-            append_pos=np.where(ar < L, ar, -1), context_len=[L],
-            last_pos=[L - 1])
+        tok, bad = self._forward_last(("prefill", Tb), **arrays).result()
         if tr.enabled:
             tr.complete("prefill", t_pf, time.perf_counter(), cat="engine",
                         args={"rid": req.rid, "tokens": L, "bucket": Tb})
@@ -932,7 +1418,9 @@ class ServingEngine:
         """Spend this step's prefill token budget: round-robin one chunk at
         a time across mid-prefill residents (admission order) until the
         budget is gone or nobody is owed prefill. The decode always runs
-        after: the budget is what bounds prefill's share of the step."""
+        after: the budget is what bounds prefill's share of the step. A
+        chunk that raises fails its request; one past the watchdog budget
+        fails its request and ends the step's prefill half."""
         budget = self._chunk_budget
         while budget > 0:
             pending = sorted((r for _, r in self.sched.active()
@@ -947,7 +1435,20 @@ class ServingEngine:
                         req.prefill_target - req.prefill_done)
                 if n <= 0:
                     continue
-                self._prefill_chunk(req, n)
+                try:
+                    self._prefill_chunk(req, n)
+                except BlockPoolError:
+                    raise  # accounting invariant broken — never swallow
+                except StepWatchdogTimeout as e:
+                    # the chunk wedged: fail ITS request and stop
+                    # dispatching; the decode below and the next steps
+                    # skip device work until the abandoned call ends
+                    self._trip(e, [(req.slot, req)], self._step_no,
+                               where="chunked_prefill")
+                    return
+                except Exception as e:
+                    self._fail_prefill(req, e)
+                    continue
                 budget -= n
                 progressed = True
             if not progressed:
@@ -959,6 +1460,17 @@ class ServingEngine:
         earlier chunks live only there. The chunk's offset, valid length
         and table ride as data. The final chunk samples token one (TTFT)
         and activates the slot for the decode step."""
+        fault_injection.maybe_fail("flaky_prefill", exc=RuntimeError,
+                                   tag="serving_prefill", step=self._step_no,
+                                   stream=self.fault_stream,
+                                   detail={"rids": [req.rid]})
+        # chaos point: poison this chunk's logits as DATA (no recapture) —
+        # the guard must quarantine the request BEFORE its pages are
+        # content-indexed
+        corrupt = fault_injection.maybe_flag(
+            "corrupt_logits", tag="serving_prefill", step=self._step_no,
+            stream=self.fault_stream,
+            detail={"rids": [req.rid]}) is not None
         tokens = req.resume_tokens
         start = req.prefill_done
         bs = self.block_pool.block_size
@@ -968,16 +1480,27 @@ class ServingEngine:
         ids = np.zeros((1, self._chunk), np.int32)
         ids[0, :n] = tokens[start:start + n]
         ar = np.arange(self._chunk)[None, :]
-        tr = self.tracer
-        t_ck = time.perf_counter()
-        tok, bad = self._forward_last(
-            ("chunk",), ids=ids, block_tables=self._table_row(req),
-            append_pos=np.where(ar < n, start + ar, -1),
-            context_len=[start + n], chunk_start=[start], last_pos=[n - 1])
-        if tr.enabled:
-            tr.complete("prefill_chunk", t_ck, time.perf_counter(),
-                        cat="engine",
-                        args={"rid": req.rid, "start": start, "tokens": n})
+        arrays = dict(ids=ids, block_tables=self._table_row(req),
+                      append_pos=np.where(ar < n, start + ar, -1),
+                      context_len=np.array([start + n]),
+                      chunk_start=np.array([start]),
+                      last_pos=np.array([n - 1]),
+                      corrupt=np.array([int(corrupt)]))
+        mcfg = self.engine.module.config
+        # chaos point INSIDE the guarded region: slow_chunk
+        (tok, bad), dt, warm = self._legacy_dispatch(
+            ("chunk",), "chunked_prefill", lambda: {
+                "flops": self._chunk * transformer_flops_per_token(
+                    mcfg, self.config.max_model_len)},
+            [("slow_chunk", "serving_prefill")], [req.rid], **arrays)
+        if warm:
+            self.perf.on_program_step("chunked_prefill", dt, tokens=n)
+        if self.tracer.enabled:
+            t_end = time.perf_counter()
+            self.tracer.complete("prefill_chunk", t_end - dt, t_end,
+                                 cat="engine",
+                                 args={"rid": req.rid, "start": start,
+                                       "tokens": n})
         self.prefill_chunk_calls += 1
         req.prefill_done = start + n
         req.seq_len = start + n
@@ -1006,19 +1529,50 @@ class ServingEngine:
         page, and their output is never harvested."""
         active = [(s, r) for s, r in self.sched.active()
                   if r.state is RequestState.RUNNING and not r.prefilling]
+        w = self._wedged
+        if active and w is not None and w.is_alive():
+            # a prefill chunk tripped the watchdog THIS step: nothing else
+            # may touch the device until the abandoned call ends (the
+            # step-top gate covers trips of earlier steps)
+            self.metrics.watchdog_skips += 1
+            return
         if not active:
             return
-        tr = self.tracer
-        t_dec = time.perf_counter()
-        toks, bad = self._forward_last(
-            ("decode",), ids=self._last_tok[:, None],
-            block_tables=self._tables, append_pos=self._seq_lens[:, None],
-            context_len=self._seq_lens + 1)
+        corrupt = np.zeros((self.config.max_batch_size,), np.int32)
+        rids = [r.rid for _, r in active]
+        spec = fault_injection.maybe_flag("corrupt_logits",
+                                          tag="serving_step",
+                                          step=self._step_no,
+                                          stream=self.fault_stream,
+                                          detail={"rids": rids})
+        if spec is not None:
+            # poison ONE slot's logits; the guard must quarantine that
+            # request, not the batch
+            corrupt[self._pin_slot(spec, [s for s, _ in active])] = 1
         step_no = self._step_no
-        if tr.enabled:
-            tr.complete("decode_step", t_dec, time.perf_counter(),
-                        cat="engine",
-                        args={"step": step_no, "active": len(active)})
+        arrays = dict(ids=self._last_tok[:, None],
+                      block_tables=self._tables,
+                      append_pos=self._seq_lens[:, None],
+                      context_len=self._seq_lens + 1, corrupt=corrupt)
+
+        try:
+            # chaos point INSIDE the guarded region: a slow or wedged step
+            # is exactly what the watchdog exists for
+            (toks, bad), dt, warm = self._legacy_dispatch(
+                ("decode",), "decode", self._decode_cost_estimate,
+                [("slow_step", "serving_step")], rids, **arrays)
+        except StepWatchdogTimeout as e:
+            self._trip(e, active, step_no)
+            return
+        if self.tracer.enabled:
+            t_end = time.perf_counter()
+            self.tracer.complete("decode_step", t_end - dt, t_end,
+                                 cat="engine",
+                                 args={"step": step_no,
+                                       "active": len(active)})
+        if warm:
+            # the first-beat rule for the gauges too
+            self._note_decode_perf(dt, tokens=len(active))
         self.decode_calls += 1
         for slot, req in active:
             if self.config.logit_guard and bad[slot]:
@@ -1082,7 +1636,7 @@ class ServingEngine:
     def _quarantine(self, slot: int, req: Request, step_no: int,
                     where: str) -> None:
         """NaN/Inf logits on one packed row: quarantine THAT request
-        (terminal FAILED, pages returned), never the batch."""
+        (terminal FAILED, pages returned, flight dump), never the batch."""
         if self.tracer.enabled:
             self.tracer.instant("quarantine", cat="engine",
                                 args={"rid": req.rid, "slot": slot,
@@ -1091,6 +1645,8 @@ class ServingEngine:
         self._clear_slot_arrays(slot)
         self.metrics.logit_quarantines += 1
         self.metrics.requests_failed += 1
+        self._flight("logit_quarantine", rid=req.rid, slot=slot,
+                     step=step_no, where=where)
 
     # ------------------------------------------------------------------
     # internals

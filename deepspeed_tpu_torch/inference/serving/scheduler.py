@@ -1,9 +1,9 @@
 """Continuous-batching scheduler: FIFO admission, slot recycling, preemption.
 
 Counterpart of ``deepspeed_tpu/inference/serving/scheduler.py``, cut to
-what the port runs: the host-tier promotion, speculative-decoding and
-SLO-hook state of the JAX scheduler arrive with the slices that port those
-features (ROADMAP.md Queue 1).
+what the port runs: the host-tier promotion and speculative-decoding
+state of the JAX scheduler arrive with the slice that ports those
+features (ROADMAP.md Queue 1, item 2c).
 
 Pure host-side bookkeeping (no torch): which request sits in which decode
 slot, which pool pages it owns, and who gets evicted when the pool runs
@@ -34,9 +34,10 @@ import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 from ...monitor.tracing import NULL_TRACER, Tracer
+from ...utils.logging import logger
 from .block_pool import BlockPool, ChainKey
 
 
@@ -105,6 +106,9 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     finish_reason: Optional[str] = None
+    #: SLO verdict stamped at the terminal transition (engine.py judges;
+    #: one of metrics.SLO_VERDICTS) — rides the terminal "request" span
+    slo_verdict: Optional[str] = None
     preemptions: int = 0
     admit_order: int = -1     # monotone stamp set at admission (victim pick)
     #: latest admission stamp (perf_counter seconds; None while queued)
@@ -182,6 +186,13 @@ class Scheduler:
         #: requests ``admit_next``/``expire_queued`` moved to TIMEOUT this
         #: step; the engine drains it for metrics/accounting
         self.reaped: List[Request] = []
+        #: called once per terminal transition, AFTER the request's final
+        #: state/reason/finish_time are set and BEFORE the terminal span
+        #: is emitted — the engine hangs SLO attribution here (setting
+        #: ``req.slo_verdict`` so the span carries it). Every terminal
+        #: path funnels through ``_release``, so the hook cannot miss a
+        #: request, including gate-side sheds the engine never touches.
+        self.on_terminal: Optional[Callable[[Request], None]] = None
 
     # -- tracing: phase transitions ------------------------------------
 
@@ -463,6 +474,15 @@ class Scheduler:
         req.state = state
         req.finish_reason = reason
         req.finish_time = time.perf_counter()
+        if self.on_terminal is not None:
+            # SLO attribution runs before the span below so the verdict
+            # rides it; a broken hook must not leak pages or wedge the
+            # release path — the pages are already back in the pool
+            try:
+                self.on_terminal(req)
+            except Exception as e:
+                logger.error(f"scheduler on_terminal hook failed for "
+                             f"{req.rid}: {type(e).__name__}: {e}")
         # terminal: close the open phase and emit the request's umbrella
         # span (submit -> terminal) — the timeline-completeness contract:
         # EVERY terminal request has a request span whose phases tile it
@@ -474,6 +494,8 @@ class Scheduler:
                     "preemptions": req.preemptions,
                     "ttft_s": None if req.ttft is None
                     else round(req.ttft, 6)}
+            if req.slo_verdict is not None:
+                args["slo"] = req.slo_verdict
             self.tracer.complete("request", req.submit_time,
                                  req.finish_time, cat="request", args=args)
 

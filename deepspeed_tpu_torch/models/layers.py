@@ -321,10 +321,12 @@ class StaticIndexBuffers:
 
 
 class PackedIndexBuffers(StaticIndexBuffers):
-    """The packed step's static buffers: the token ids and the fields of
+    """The packed step's static buffers: the token ids, the fields of
     :func:`paged_cache_index`, for ``R`` rows of ``nb`` table entries and
-    up to ``width`` packed tokens; :meth:`index` gives the ids and the
-    bundle at a width as views of the device buffer."""
+    up to ``width`` packed tokens, and the ``[R]`` ``corrupt`` flags of
+    :func:`harvest_packed_logits` (zero on every step without an armed
+    fault); :meth:`index` gives the ids and the bundle at a width as views
+    of the device buffer."""
 
     _ROWS = ("query_start", "query_len", "chunk_start", "context_len")
 
@@ -333,6 +335,7 @@ class PackedIndexBuffers(StaticIndexBuffers):
                   "append_pos": (width,)}
         shapes.update({n: (rows,) for n in self._ROWS})
         shapes["block_tables"] = (rows, table_width)
+        shapes["corrupt"] = (rows,)
         super().__init__(shapes, device)
 
     def index(self, width: int):
@@ -476,20 +479,28 @@ def masked_prefill_attention(q, k, v, key_mask, window: Optional[int] = None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def harvest_packed_logits(logits, token_rows, num_rows: int):
+def harvest_packed_logits(logits, token_rows, num_rows: int, corrupt=None):
     """Multi-position harvest of the packed mixed step.
 
     ``logits``: ``[1, T, V]``; ``token_rows``: ``[1, T]`` or ``[T]``
     (``-1`` = padding). Returns ``(lg, bad)``: ``lg`` the ``[T, V]``
     per-position logits the caller samples, and ``bad`` a ``[R]`` flag of
-    rows with a NaN/Inf logit at any of their valid tokens."""
+    rows with a NaN/Inf logit at any of their valid tokens. ``corrupt``
+    (optional ``[R]``, nonzero = flagged) is the corrupt_logits chaos
+    point, as data, so a drill never changes a captured graph: a flagged
+    row is flagged ``bad`` as a NaN logit would flag it (its logits are
+    left as they are, so the drill costs an ``[R]`` OR, not a pass over
+    ``[T, V]``)."""
     lg = logits[0]
     rows = token_rows.reshape(-1).long()
     valid = rows >= 0
     safe = rows.clamp(0, num_rows - 1)
     bad_tok = ~torch.isfinite(lg).all(dim=-1) & valid
     bad = torch.zeros(num_rows, dtype=torch.int32, device=lg.device)
-    return lg, bad.index_add_(0, safe, bad_tok.int()) > 0
+    bad = bad.index_add_(0, safe, bad_tok.int()) > 0
+    if corrupt is not None:
+        bad |= corrupt.reshape(-1) != 0
+    return lg, bad
 
 
 # ---------------------------------------------------------------------------

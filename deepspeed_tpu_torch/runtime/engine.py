@@ -35,9 +35,25 @@ uncaptured; on the CPU nothing is captured. A capture that fails raises.
 The micro-step API (``engine(batch)``, ``backward``, ``step``) queues
 microbatches and runs ``train_batch`` at the accumulation boundary, as the
 JAX engine does.
+
+Accounting, as in the JAX engine: ``registry`` holds the ``train_batch_s``
+histogram (the wall time of each ``train_batch`` call) and the
+``train_mfu`` / ``train_tflops_per_chip`` gauges, and ``perf`` registers
+the ``train_step`` program (fingerprint of the state and the batch: a new
+batch shape is a new capture and trips the recompile sentinel) with the
+estimate 6·N·tokens + attention. The gauges divide it by the step's time:
+on a CUDA device the time between the CUDA events that mark the ends of
+the previous step and of this one (the host does not wait for a step, so
+the call's wall time would measure the enqueue; the interval holds the
+step's device work and any idle the host left before it, what a run of
+steps takes each), read once the step has ended — at the next step, or
+waiting for it in :meth:`DeepSpeedEngine.perf_summary`; on the CPU the
+call's wall time. A shape's first step (it carries the capture) is left
+out. The MFU gauge is set only where the card's peak is known.
 """
 
 import re
+import time
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -45,6 +61,8 @@ import torch
 from torch import nn
 
 from ..inference.engine import resolve_device
+from ..monitor.perf import PerfAccounting, spec, train_step_flops
+from ..monitor.registry import MetricsRegistry
 from ..ops.optimizers import FusedAdam, get_optimizer
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -149,6 +167,17 @@ class DeepSpeedEngine:
             batch_size=self.train_batch_size,
             steps_per_output=self._config.steps_per_print)
         self.wall_clock_breakdown = self._config.wall_clock_breakdown
+        self.registry = MetricsRegistry()
+        self._step_hist = self.registry.histogram("train_batch_s",
+                                                  lo=1e-4, hi=4e3)
+        self.perf = PerfAccounting(metrics=self.registry, scope="train",
+                                   device=self.device)
+        #: the masters' fingerprint, taken once: their shapes are fixed
+        self._state_spec = spec(self.master)
+        #: the CUDA event at the end of the last step, and the (previous
+        #: end, end) pair of the last judged step until its time is read
+        self._last_end = None
+        self._step_events = None
         self._pending_microbatches = []
         self._last_loss = None
         self._last_grad_norm = None
@@ -321,7 +350,16 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown:
             self.timers("train_batch").start()
         self.tput_timer.start()
+        t_batch0 = time.perf_counter()
         batch = self._shape_batch(batch)
+        self._read_step_events(wait=False)
+        # a shape's first step runs eagerly (and is captured): judged no
+        diff = self.perf.programs.observe_call(
+            "train_step", {"state": self._state_spec, "batch": spec(batch)})
+        warm = diff is None and \
+            self.perf.programs.program("train_step").calls > 1
+        self.perf.capture_cost("train_step",
+                               lambda: self._train_flops_estimate(batch))
         loss, self._last_grad_norm = self._graphed_step(batch) \
             if self._graphed else self._train_step(batch)
         self.global_steps += 1
@@ -329,6 +367,16 @@ class DeepSpeedEngine:
         self.tput_timer.stop()
         if self.wall_clock_breakdown:
             self.timers("train_batch").stop()
+        dt_batch = time.perf_counter() - t_batch0
+        self._step_hist.observe(dt_batch)
+        if self.device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            if warm and self._last_end is not None:
+                self._step_events = (self._last_end, end)
+            self._last_end = end
+        elif warm:
+            self._note_train_perf(dt_batch)
         if self._config.steps_per_print and \
                 self.global_steps % self._config.steps_per_print == 0:
             log_dist(f"step={self.global_steps}, skipped="
@@ -336,6 +384,48 @@ class DeepSpeedEngine:
                      f"loss={float(loss):.6f}", ranks=[0])
         self._last_loss = loss
         return loss
+
+    def _train_flops_estimate(self, batch: Dict[str, torch.Tensor]):
+        """FLOPs of one step over ``batch`` (``[gas, micro, T]`` ids):
+        6·N·tokens + 12·L·B·T²·h."""
+        cfg = getattr(self.module, "config", None)
+        ids = batch.get("input_ids")
+        if cfg is None or ids is None:
+            return None
+        gas, micro, seq = ids.shape
+        n_params = sum(p.numel() for p in self.master.values())
+        return {"flops": train_step_flops(n_params, gas * micro, seq,
+                                          cfg.num_hidden_layers,
+                                          cfg.hidden_size)}
+
+    def _note_train_perf(self, dt_s: float) -> None:
+        vals = self.perf.on_program_step("train_step", dt_s)
+        if vals["mfu"] is not None:
+            self.registry.gauge("train_mfu").set(vals["mfu"])
+        if vals["flops_per_sec"]:
+            self.registry.gauge("train_tflops_per_chip").set(
+                vals["flops_per_sec"] / 1e12 / self.perf.n_devices)
+
+    def _read_step_events(self, wait: bool) -> None:
+        """Fold the last judged CUDA step's time (the previous step's end
+        to its end) into the gauges once it has ended (``wait``: wait for
+        it)."""
+        if self._step_events is None:
+            return
+        start, end = self._step_events
+        if wait:
+            end.synchronize()
+        elif not end.query():
+            return
+        self._step_events = None
+        self._note_train_perf(start.elapsed_time(end) / 1e3)
+
+    def perf_summary(self) -> Dict[str, Any]:
+        """The ``perf`` block (device peaks, memory watermarks, the
+        ``train_step`` program, utilization) after the last step's time
+        is in the gauges."""
+        self._read_step_events(wait=True)
+        return self.perf.summary()
 
     def forward(self, batch: Dict[str, Any]):
         """``engine(batch)`` queues a microbatch and returns a lazy loss;

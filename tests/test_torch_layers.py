@@ -207,6 +207,25 @@ def test_harvest_packed_logits_matches_jax():
     assert tbad.tolist() == [False, True, False, False]
 
 
+
+def test_harvest_packed_logits_corrupt_flags_match_jax():
+    """The corrupt_logits chaos flags: a flagged packed row is ``bad`` as
+    in the JAX harvest (which NaNs the row's logits; the port leaves its
+    logits as they are and flags the row)."""
+    rs = np.random.RandomState(6)
+    logits = rs.randn(1, 7, 11).astype(np.float32)
+    logits[0, 2, 5] = np.nan               # row 1's token
+    rows = np.array([[0, 1, 1, 2, -1, 0, -1]], np.int32)
+    corrupt = np.array([0, 0, 1, 0], np.int32)
+    jlg, jbad = jl.harvest_packed_logits(jnp.asarray(logits), rows, 4,
+                                         corrupt=jnp.asarray(corrupt))
+    tlg, tbad = tl.harvest_packed_logits(torch.from_numpy(logits.copy()),
+                                         torch.from_numpy(rows), 4,
+                                         corrupt=torch.from_numpy(corrupt))
+    np.testing.assert_array_equal(tbad.numpy(), np.asarray(jbad))
+    assert tbad.tolist() == [False, True, True, False]
+    np.testing.assert_array_equal(tlg.numpy(), logits[0])
+
 def test_sampling_helpers():
     logits = np.random.RandomState(5).randn(6, 50).astype(np.float32)
     greedy = jax_sample(jnp.asarray(logits), jax.random.PRNGKey(0), False,

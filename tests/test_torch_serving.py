@@ -288,7 +288,7 @@ def test_admission_control_cancel_and_drain(engines):
 
 
 @pytest.mark.parametrize("knob", [
-    {"spec_tokens": 2}, {"host_cache_blocks": 8}, {"step_watchdog_s": 1.0}])
+    {"spec_tokens": 2}, {"host_cache_blocks": 8}])
 def test_knobs_of_later_slices_raise(knob):
     with pytest.raises(NotImplementedError, match="slice of the port"):
         dt.ServingConfig(**knob)
@@ -346,9 +346,7 @@ def test_inference_fields_off_their_no_op_values_name_their_item(knob, item):
 @pytest.mark.parametrize("knob,item", [
     ({"spec_ngram": 4}, "2c"),
     ({"drafter": object()}, "2c"), ({"host_cache_bytes": 1 << 20}, "2c"),
-    ({"sync_promote": True}, "2c"), ({"ttft_slo_s": 1.0}, "2b"),
-    ({"tpot_slo_s": 0.1}, "2b"), ({"trace_dir": "traces"}, "2b"),
-    ({"flight_events": 64}, "2b")])
+    ({"sync_promote": True}, "2c")])
 def test_serving_fields_off_their_jax_defaults_name_their_item(knob, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md Queue 1, item {item}\)"):
