@@ -120,7 +120,24 @@ Phases, each printed on its own line; any failure exits non-zero:
    each waited for, its train_tflops_per_chip (each step's device time)
    within 5% of the hand count over the host's wall time of the same
    steps;
-8. long context: ``ops.sparse_attention.sparse_attention`` forward and
+8. checkpoint: train -> save -> resume -> serve on the same Llama-400M at
+   the bench config, captured: engine A (seed 0) takes 2 steps, saves
+   (``save_checkpoint``: a universal directory under the JAX
+   ``TrainState``'s leaf names, the client state, a verified manifest,
+   ``latest``), then 3 more; engine B (seed 1) takes a step, loads the
+   save and takes the same 3 steps. Asserts B's losses equal A's bit for
+   bit, the same global steps, skipped steps and lr, every tensor B's
+   graph reads at its old address and one graph, K3 once per replay
+   (counted on the device), and B's masters right after the load equal
+   ``zero_to_fp32`` of the save. Then B's weights are written as bf16
+   (``save_pytree``) and 8 seeded requests are served through
+   ``init_inference(checkpoint=...)`` on the captured unified engine:
+   tokens identical to ``params=`` B's weights, K6 once per layer per
+   mixed step (counted on the device). Fails (never skips) when the
+   temporary directory cannot hold the save (~6 GB); removes it at the
+   end. Prints one ``checkpoint {...}`` JSON line (state GB, save,
+   manifest, load and verify seconds, save and load GB/s);
+9. long context: ``ops.sparse_attention.sparse_attention`` forward and
    backward (loss ``(out * dout).sum()``) at T 4096, 8192 and 16384, 32
    heads of 128, bf16, causal, BSLongformer and BigBird at block 128 (the
    layouts of the JAX package's tools/bench_longctx.py), beside causal
@@ -129,7 +146,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    prints one ``long context {...}`` JSON line per length with
    bench_longctx's fields, the backward times and the host time of one
    forward call;
-9. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
+10. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line. A kernel's ``launches`` are its
    wrapper's count over its path's uncaptured run (a wrapper counts where
    it launches; a graph replays its kernels without it), except K6's,
@@ -3088,6 +3105,221 @@ def check_training(cfg=None, device="cuda"):
     return routes[False]["launches"], routes[True]["replayed"]
 
 
+#: the checkpoint phase: engine A takes CKPT_SAVED steps, saves, then
+#: CKPT_MORE more; engine B (other weights) takes one step, loads A's save
+#: and takes the same CKPT_MORE
+CKPT_SAVED, CKPT_MORE = 2, 3
+#: the serve from the saved weights: 8 seeded requests on the Llama-400M
+CKPT_SERVE = dict(n=8, prompts=(64, 512), new=(16, 32))
+
+
+def check_checkpoint(cfg=None, device="cuda"):
+    """Train -> save -> resume -> serve at full width: Llama-400M (all 24
+    layers) at the bench config, captured. Engine A (seed 0) takes
+    ``CKPT_SAVED`` steps, saves (``save_checkpoint``: every leaf under the
+    JAX ``TrainState``'s names, then the client state, the manifest and
+    ``latest``), then ``CKPT_MORE`` more. Engine B (seed 1) takes one step
+    (so its graph is captured), loads A's save and takes the same
+    ``CKPT_MORE`` steps. Gates: B's losses equal A's bit for bit; the
+    global steps, skipped steps and lr equal; every tensor B's graph reads
+    keeps its address across the load and B keeps its one graph; K3 runs
+    once a replay (counted on the device); right after the load B's
+    masters equal ``zero_to_fp32`` of the save exactly. Then B's weights
+    go to disk as bf16 (``save_pytree``) and 8 seeded requests are served
+    through ``init_inference(checkpoint=...)`` on the captured unified
+    engine: the tokens must equal the same engine's fed ``params=`` B's
+    weights, every request finish and K6 run once per layer per mixed
+    step (counted on the device). Fails, never skips, when the temporary
+    directory cannot hold the save. Prints one ``checkpoint {...}`` JSON
+    line: state GB, save / manifest / load / verify seconds and the save
+    and load rates. Returns the line's dict."""
+    import shutil
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.checkpoint import manifest
+    from deepspeed_tpu_torch.checkpoint.engine import save_pytree
+    from deepspeed_tpu_torch.checkpoint.from_flax import \
+        flax_to_torch_state_dict
+    from deepspeed_tpu_torch.checkpoint.universal import load_universal, nest
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import _runs
+    from deepspeed_tpu_torch.utils.zero_to_fp32 import \
+        get_fp32_state_dict_from_zero_checkpoint
+
+    cfg = cfg or LlamaConfig.llama_400m(max_position_embeddings=TRAIN_SEQ,
+                                        remat=True)
+    L = cfg.num_hidden_layers
+    rs = np.random.RandomState(7)
+    batches = [{"input_ids": ids, "labels": ids} for ids in (
+        torch.from_numpy(rs.randint(0, cfg.vocab_size, (
+            TRAIN_CONFIG["train_batch_size"], TRAIN_SEQ))).to(device)
+        for _ in range(CKPT_SAVED + CKPT_MORE))]
+
+    def engine(seed):
+        return dt.initialize(model=LlamaForCausalLM(cfg),
+                             config=dict(TRAIN_CONFIG, seed=seed),
+                             device=device)[0]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    a = engine(0)
+    n_params = sum(p.numel() for p in a.master.values())
+    # fp32 masters + two fp32 moments, then the bf16 weights (stored fp32)
+    need = 4 * n_params * 4 + (64 << 20)
+    tmp = tempfile.mkdtemp(prefix="ds_checkpoint_")
+    problems = []
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise AssertionError(
+                f"checkpoint: {tmp} has {free} bytes free; the save and the "
+                f"weights need {need}")
+        ckpt = os.path.join(tmp, "ckpt")
+        losses_a = [a.train_batch(batch=b) for b in batches[:CKPT_SAVED]]
+        sync()
+        t = time.perf_counter()
+        a.save_checkpoint(ckpt)
+        save_s = time.perf_counter() - t
+        tag = manifest.read_latest_tag(ckpt)
+        _, meta = load_universal(os.path.join(ckpt, tag))
+        state_bytes = sum(int(np.prod(m["shape"], dtype=np.int64))
+                          * np.dtype(m["dtype"]).itemsize
+                          for m in meta["leaves"].values())
+        # the manifest step alone: inventory and hash the save again
+        t = time.perf_counter()
+        manifest.write_manifest(ckpt, tag, step=CKPT_SAVED)
+        manifest_s = time.perf_counter() - t
+        t = time.perf_counter()
+        status, detail = manifest.verify_checkpoint(ckpt, tag)
+        verify_s = time.perf_counter() - t
+        if status != "verified":
+            problems.append(f"the save does not verify: {detail}")
+        losses_a += [a.train_batch(batch=b) for b in batches[CKPT_SAVED:]]
+
+        b = engine(1)
+        b.train_batch(batch=batches[0])
+        sync()
+        opt = b.optimizer
+        held = [opt.count, b._skipped] + list(b.master.values()) + \
+            b._grads + opt.exp_avg + opt.exp_avg_sq
+        ptrs = [x.data_ptr() for x in held]
+        graphs = list(b._graphs.values())
+        table = opt.table
+        t = time.perf_counter()
+        b.load_checkpoint(ckpt)
+        sync()
+        load_s = time.perf_counter() - t
+        in_place = [x.data_ptr() for x in held] == ptrs and \
+            opt.table is table and \
+            len(b._graphs) == 1 and list(b._graphs.values())[0] is graphs[0]
+        z2f = flax_to_torch_state_dict(
+            nest(get_fp32_state_dict_from_zero_checkpoint(ckpt)), cfg)
+        masters = {n: p.detach().cpu() for n, p in b.master.items()}
+        z2f_equal = set(z2f) == set(masters) and all(
+            torch.equal(z2f[n], masters[n]) for n in masters)
+        del z2f, masters
+        if device == "cuda":
+            _runs.reset_kernel_runs("fused_adam")
+        losses_b = [b.train_batch(batch=x) for x in batches[CKPT_SAVED:]]
+        sync()
+        k3 = _runs.kernel_runs("fused_adam") if device == "cuda" else None
+        want = [float(x) for x in losses_a[CKPT_SAVED:]]
+        got = [float(x) for x in losses_b]
+        state = [(e.global_steps, e.get_skipped_steps(), e.get_lr())
+                 for e in (a, b)]
+        if got != want:
+            problems.append(f"resumed losses {got} != {want}")
+        if state[0] != state[1]:
+            problems.append(f"(global steps, skipped, lr) {state[1]} != "
+                            f"{state[0]}")
+        if not in_place:
+            problems.append("the load moved a tensor the graph reads, or "
+                            "the engine recaptured")
+        if not z2f_equal:
+            problems.append("the masters right after the load differ from "
+                            "zero_to_fp32 of the save")
+        if device == "cuda" and k3 != CKPT_MORE:
+            problems.append(f"K3 ran {k3} times in {CKPT_MORE} replays")
+        log(f"checkpoint train: llama_400m x{L} layers ({n_params} params), "
+            f"A {CKPT_SAVED} steps + save + {CKPT_MORE} steps, B (other "
+            f"weights) 1 step + load + {CKPT_MORE} steps: losses A "
+            f"{[float(x) for x in losses_a]}, B {got} (bitwise equal: "
+            f"{got == want}), (global steps, skipped, lr) A {state[0]} B "
+            f"{state[1]}, in place {in_place} (graphs {len(b._graphs)}), "
+            f"zero_to_fp32 equal {z2f_equal}, K3 runs in the replays {k3}, "
+            f"save {tag} {state_bytes} bytes in {save_s:.3f} s "
+            f"({detail})")
+
+        weights = b._consolidated_16bit_state_dict()
+        wdir = os.path.join(tmp, "weights")
+        t = time.perf_counter()
+        save_pytree(wdir, weights)
+        weights_s = time.perf_counter() - t
+        del a, b, losses_a, losses_b
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        scfg = dict(SERVE_SCFG, max_model_len=TRAIN_SEQ)
+        served = {}
+        for name, kw in (("params", dict(params=weights)),
+                         ("checkpoint", dict(checkpoint=wdir))):
+            eng = dt.init_inference(LlamaForCausalLM(cfg),
+                                    dtype=torch.bfloat16, device=device,
+                                    enable_cuda_graph=True, **kw)
+            srv = dt.ServingEngine(eng, dt.ServingConfig(**scfg))
+            srv, rids, res, wall, _ = serve(
+                cfg, 3, CKPT_SERVE["n"], CKPT_SERVE["prompts"],
+                CKPT_SERVE["new"], scfg, torch.bfloat16, device=device,
+                srv=srv)
+            steps = len(step_widths(srv))
+            runs_k6 = _runs.kernel_runs("ragged_paged_attention") \
+                if device == "cuda" else None
+            served[name] = dict(
+                tokens=[(res[r].state, res[r].tokens) for r in rids],
+                steps=steps, k6=runs_k6, wall=wall, graphs=len(srv._graphs),
+                finished=sum(res[r].state == "finished" for r in rids),
+                leaked=srv.block_pool.used_count)
+            if device == "cuda" and runs_k6 != L * steps:
+                problems.append(f"serve {name}: K6 ran {runs_k6} times, not "
+                                f"{L} x {steps} mixed steps")
+            if served[name]["finished"] != len(rids) or \
+                    served[name]["leaked"]:
+                problems.append(f"serve {name}: {served[name]['finished']} "
+                                f"of {len(rids)} finished, "
+                                f"{served[name]['leaked']} pages leaked")
+            del eng, srv
+            gc.collect()
+        same = served["checkpoint"]["tokens"] == served["params"]["tokens"]
+        if not same:
+            problems.append("init_inference(checkpoint=) served other tokens "
+                            "than params=")
+        log(f"checkpoint serve: init_inference(checkpoint=) vs params= on "
+            f"the captured unified engine, llama_400m bf16, "
+            f"{CKPT_SERVE['n']} requests: tokens identical {same}, "
+            + ", ".join(f"{n}: {v['finished']} finished, {v['steps']} mixed "
+                        f"steps, K6 runs on the device {v['k6']}, graphs "
+                        f"{v['graphs']}, wall {v['wall']:.3f} s"
+                        for n, v in served.items())
+            + f"; weights written in {weights_s:.3f} s")
+        line = {"state_gb": state_bytes / 1e9, "save_s": save_s,
+                "save_gb_s": state_bytes / 1e9 / save_s,
+                "manifest_s": manifest_s, "load_s": load_s,
+                "load_gb_s": state_bytes / 1e9 / load_s,
+                "verify_s": verify_s, "weights_save_s": weights_s,
+                "resume_bitwise": got == want, "in_place": in_place,
+                "k3_replays": k3, "served_identical": same,
+                "k6_runs": served["checkpoint"]["k6"],
+                "mixed_steps": served["checkpoint"]["steps"]}
+        print("checkpoint " + json.dumps(line), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise AssertionError("checkpoint: " + "; ".join(problems))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3126,6 +3358,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, train_replayed = check_training()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_checkpoint()
     gc.collect()
     torch.cuda.empty_cache()
     sparse_launches = check_long_context()

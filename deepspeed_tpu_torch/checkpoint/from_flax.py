@@ -1,4 +1,5 @@
-"""Convert a JAX (flax) Llama param tree into the port's ``state_dict``.
+"""Convert between a JAX (flax) Llama param tree and the port's
+``state_dict``.
 
 The tree holds numpy arrays (``jax.device_get`` of the JAX package's
 params); nothing here imports JAX. Layout of the tree:
@@ -14,9 +15,19 @@ params); nothing here imports JAX. Layout of the tree:
   or packed-int4 codes under a projection's ``kernel`` and fp32 scales
   under its ``wscale``: they map to ``qweight`` (NOT transposed: the codes
   keep the ``[K, N]`` layout ``QuantLinear`` reads) and ``wscale``.
+
+The reverse, :func:`flax_leaves`, names each flax leaf of an fp
+``state_dict`` and gives it as a :class:`LeafView` over the port's tensors:
+the per-layer tensors are stacked (scanned layers) and the ``[out, in]``
+weights transposed only when the leaf is read, one leaf at a time, so a
+caller that streams the leaves (a checkpoint save) holds one stacked leaf
+at a time. The same views write a leaf back into the port's tensors in
+place (a checkpoint load). :func:`torch_to_flax` reads them all into a
+nested numpy tree.
 """
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -73,3 +84,104 @@ def _index_tree(tree, i):
     if isinstance(tree, dict):
         return {k: _index_tree(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+_LAYER = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+
+
+def _flax_suffix(name: str) -> Tuple[str, bool]:
+    """A ``state_dict`` name below a layer (or the model) -> the flax path
+    below it and whether the tensor is transposed there."""
+    owner, _, attr = name.rpartition(".")
+    path = owner.replace(".", "/")
+    if attr == "bias":
+        return f"{path}/bias", False
+    if attr != "weight":
+        raise ValueError(f"no flax leaf for {name!r} (quantized or unknown "
+                         f"parameters are not checkpointed this way)")
+    last = owner.rpartition(".")[2]
+    if last in _NORMS or owner == "model.norm":
+        return f"{path}/scale", False
+    if owner == "model.embed_tokens":
+        return f"{path}/embedding", False
+    return f"{path}/kernel", True
+
+
+class LeafView:
+    """One flax leaf over the port's tensors: ``parts`` stacked along a new
+    first axis when ``stacked`` (one tensor a layer), else one tensor;
+    each part transposed when ``transpose``."""
+
+    def __init__(self, parts: List[torch.Tensor], stacked: bool,
+                 transpose: bool):
+        self.parts, self.stacked, self.transpose = parts, stacked, transpose
+        shape = tuple(parts[0].shape)
+        if transpose:
+            shape = shape[::-1]
+        self.shape = ((len(parts),) if stacked else ()) + shape
+
+    def tensor(self) -> torch.Tensor:
+        """The leaf in the flax layout, on the parts' device."""
+        parts = [p.detach() for p in self.parts]
+        if self.transpose:
+            parts = [p.t() for p in parts]
+        return torch.stack(parts) if self.stacked else \
+            parts[0].contiguous()
+
+    @torch.no_grad()
+    def load(self, src) -> None:
+        """Write a flax-layout array into the parts, in place."""
+        src = np.asarray(src)
+        for i, p in enumerate(self.parts):
+            a = src[i] if self.stacked else src
+            t = torch.from_numpy(np.array(a)).to(p.device)
+            p.copy_(t.t() if self.transpose else t)
+
+
+def flax_leaves(tensors: Dict[str, torch.Tensor], config
+                ) -> List[Tuple[str, LeafView]]:
+    """The flax params of a fp ``state_dict`` (``tensors``, by the port's
+    names; ``config`` gives ``scan_layers``), as ``(path, LeafView)``
+    pairs in the order ``jax.tree_util`` flattens the flax tree (sorted
+    keys at every level). Paths are ``/``-joined, as the JAX package
+    names its leaves."""
+    scanned = bool(getattr(config, "scan_layers", True))
+    views: Dict[str, LeafView] = {}
+    #: scanned layers: flax path below the block -> (transpose, {i: tensor})
+    stacks: Dict[str, Tuple[bool, Dict[int, torch.Tensor]]] = {}
+    for name, t in tensors.items():
+        m = _LAYER.match(name)
+        if m is None:
+            path, transpose = _flax_suffix(name)
+            views[path] = LeafView([t], False, transpose)
+            continue
+        sub, transpose = _flax_suffix(m.group(2))
+        if scanned:
+            stacks.setdefault(sub, (transpose, {}))[1][int(m.group(1))] = t
+        else:
+            views[f"model/layers_{m.group(1)}/{sub}"] = LeafView(
+                [t], False, transpose)
+    for sub, (transpose, layers) in stacks.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"the layers of {sub!r} are not 0..L-1")
+        views[f"model/layers/block/{sub}"] = LeafView(
+            [layers[i] for i in range(len(layers))], True, transpose)
+    return sorted(views.items(), key=lambda kv: tuple(kv[0].split("/")))
+
+
+def torch_to_flax(state_dict: Dict[str, torch.Tensor], config
+                  ) -> Dict[str, Any]:
+    """The reverse of :func:`flax_to_torch_state_dict`: the flax ``params``
+    tree (nested dicts of numpy arrays; bf16 widened to fp32, as numpy has
+    no bf16)."""
+    tree: Dict[str, Any] = {}
+    for path, view in flax_leaves(state_dict, config):
+        t = view.tensor()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = t.cpu().numpy()
+    return tree

@@ -42,6 +42,9 @@ class DeepSpeedInferenceConfig:
     replace_with_kernel_inject: bool = True
     #: HF module-injection policy
     injection_policy: Optional[Any] = None
+    #: a directory written by ``checkpoint.engine.save_pytree`` (a
+    #: ``state_dict`` or a flax params tree): the weights when ``params``
+    #: is not given
     checkpoint: Optional[str] = None
     #: kernel-injection workspace batch (the JAX engine reads it nowhere;
     #: serving sizes its batch in ServingConfig)
@@ -111,11 +114,6 @@ class DeepSpeedInferenceConfig:
             raise NotImplementedError(
                 "quantized_collectives arrives with the distributed slice "
                 "of the port (ROADMAP.md Queue 1, item 9)")
-        if self.checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint= arrives with the module-injection slice of the "
-                "port (ROADMAP.md Queue 1, item 4); pass params= (a "
-                "state_dict)")
         # JAX knobs that are no-ops for a port model at these values (the
         # JAX defaults); any other value raises naming its slice
         for name, off, slice_name, item in _LATER:

@@ -423,6 +423,31 @@ def init_inference(model=None, config=None, mp_size: Optional[int] = None,
             "init_inference takes a port model (deepspeed_tpu_torch.models); "
             "HF module injection arrives with the module-injection slice of "
             "the port (ROADMAP.md Queue 1, item 4)")
+    if params is None and cfg.checkpoint is not None:
+        params = _checkpoint_params(cfg.checkpoint, model)
     if params is None:
-        raise ValueError("init_inference needs params (a state_dict)")
+        raise ValueError("init_inference needs params (a state_dict) or "
+                         "checkpoint=")
     return InferenceEngine(model, params, cfg, device=device)
+
+
+def _checkpoint_params(path: str, model: nn.Module) -> Dict[str, Any]:
+    """The ``state_dict`` in a ``save_pytree`` directory (the JAX
+    engine's ``load_pytree`` branch): the port's names as saved, or a flax
+    params tree mapped through ``checkpoint.from_flax``. An HF checkpoint
+    directory (a ``config.json``) is module injection's."""
+    import os
+
+    from ..checkpoint.engine import load_pytree
+    from ..checkpoint.from_flax import flax_to_torch_state_dict
+
+    if os.path.isdir(path) and \
+            os.path.exists(os.path.join(path, "config.json")):
+        raise NotImplementedError(
+            "init_inference(checkpoint=<HF directory>) arrives with the "
+            "module-injection slice of the port (ROADMAP.md Queue 1, item "
+            "4); pass a directory written by save_pytree, or params=")
+    tree = load_pytree(path)
+    if set(tree) == set(model.state_dict()):
+        return {n: torch.from_numpy(np.array(a)) for n, a in tree.items()}
+    return flax_to_torch_state_dict(tree, model.config)

@@ -20,6 +20,12 @@ trace events plus a full metrics snapshot to a timestamped JSONL file
 under a configurable directory, in the JAX package's format, so one
 reader takes both packages' dumps. Dumps never raise: a failing
 post-mortem must not take down the engine it is documenting.
+
+Process-global default: setting ``DS_TRACE_DIR`` arms a process-wide
+tracer + flight recorder (see :func:`get_tracer` / :func:`flight_dump`) so
+subsystems without their own tracer handle — the checkpoint manifest
+verifier, the training engine's checkpoint spans — can still leave
+evidence. Serving engines own their own tracer instances.
 """
 
 import itertools
@@ -31,6 +37,9 @@ import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 from ..utils.logging import logger
+
+#: env var that arms the process-global tracer + flight recorder
+ENV_TRACE_DIR = "DS_TRACE_DIR"
 
 #: Chrome-trace phases this tracer emits: complete spans and instants
 EVENT_PHASES = ("X", "i")
@@ -360,3 +369,72 @@ class FlightRecorder:
             slot = _fault_armed_dirs.get(key)
             if slot is not None and slot() in (None, self):
                 del _fault_armed_dirs[key]
+
+
+# ---------------------------------------------------------------------------
+# Process-global default (env-armed): subsystems without an engine handle
+# ---------------------------------------------------------------------------
+
+_default_tracer: Optional[Tracer] = None
+_default_flight: Optional[FlightRecorder] = None
+_default_lock = threading.Lock()
+
+
+def configure(trace_dir: Optional[str] = None, capacity: int = 8192,
+              flight_events: int = 512, enabled: bool = True) -> Tracer:
+    """Install the process-global tracer (+ flight recorder when
+    ``trace_dir`` is given). Idempotent per call; tests use
+    :func:`reset_default` for isolation."""
+    global _default_tracer, _default_flight
+    with _default_lock:
+        if _default_flight is not None:
+            _default_flight.disarm()
+        _default_tracer = Tracer(capacity=capacity, enabled=enabled)
+        _default_flight = None
+        if trace_dir:
+            _default_flight = FlightRecorder(trace_dir, _default_tracer,
+                                             last_n=flight_events)
+            _default_flight.arm_faults()
+        return _default_tracer
+
+
+def get_tracer() -> Tracer:
+    """The process-global tracer; on first use, arms itself from
+    ``DS_TRACE_DIR`` (tracing + flight recorder) or stays disabled."""
+    global _default_tracer
+    if _default_tracer is None:
+        d = os.environ.get(ENV_TRACE_DIR)
+        if d:
+            configure(trace_dir=d)
+        else:
+            with _default_lock:
+                if _default_tracer is None:
+                    _default_tracer = Tracer(capacity=1, enabled=False)
+    return _default_tracer
+
+
+def default_flight_recorder() -> Optional[FlightRecorder]:
+    get_tracer()  # ensure env arming ran
+    return _default_flight
+
+
+def flight_dump(trigger: str, detail: Optional[Dict[str, Any]] = None
+                ) -> Optional[str]:
+    """Dump through the process-global flight recorder (no-op unless
+    ``DS_TRACE_DIR``/:func:`configure` armed one). Used by subsystems that
+    have no engine handle — e.g. the checkpoint manifest verifier."""
+    fr = default_flight_recorder()
+    if fr is None:
+        return None
+    return fr.record(trigger, detail)
+
+
+def reset_default() -> None:
+    """Drop the process-global tracer/recorder (test isolation; the next
+    :func:`get_tracer` re-reads ``DS_TRACE_DIR``)."""
+    global _default_tracer, _default_flight
+    with _default_lock:
+        if _default_flight is not None:
+            _default_flight.disarm()
+        _default_tracer = None
+        _default_flight = None

@@ -19,15 +19,18 @@ def counter(name: str, dev: torch.device) -> torch.Tensor:
     """The int32 ``[1]`` that ``name``'s kernel adds one to on ``dev`` (an
     indexed CUDA device). It is allocated at the first eager launch: a
     capture would record its zero fill and reset it at every replay, so a
-    first launch under capture raises."""
+    first launch under capture raises. It is never an inference tensor,
+    even when that launch runs under ``torch.inference_mode()`` (a serving
+    step), so :func:`reset_kernel_runs` may zero it outside one."""
     runs = _RUNS.get((name, dev))
     if runs is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{name}: launch the kernel once before "
                                f"capturing it in a CUDA graph (its run "
                                f"counter is allocated then)")
-        runs = _RUNS[(name, dev)] = torch.zeros(1, dtype=torch.int32,
-                                                device=dev)
+        with torch.inference_mode(False):
+            runs = _RUNS[(name, dev)] = torch.zeros(1, dtype=torch.int32,
+                                                    device=dev)
     return runs
 
 

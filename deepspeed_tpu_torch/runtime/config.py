@@ -51,6 +51,39 @@ class SchedulerConfig(ConfigBlock):
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class FaultToleranceConfig(ConfigBlock):
+    """The JAX block's fields and defaults: verified atomic checkpoints
+    and bounded retry on transient checkpoint I/O
+    (``checkpoint/manifest.py``). ``heartbeat_interval`` and
+    ``keep_checkpoints`` act under elasticity only, whose block raises
+    naming its item."""
+
+    enabled: bool = True
+    #: verify the manifest before restoring; on a missing/corrupt/partial
+    #: save, walk back to the newest verified one instead of crashing
+    verify_on_load: bool = True
+    #: sha256 the small files of each save in its manifest (sizes are
+    #: always recorded)
+    manifest_checksums: bool = True
+    heartbeat_interval: int = 1
+    #: transient checkpoint-I/O retry policy (bounded exponential backoff)
+    save_retries: int = 3
+    save_retry_backoff: float = 0.5
+    keep_checkpoints: int = 2
+
+
+@dataclasses.dataclass
+class CheckpointConfig(ConfigBlock):
+    """The ``checkpoint`` keys the JAX config reads: ``load_universal``
+    (``load_checkpoint`` reads a universal directory by default) and
+    ``use_node_local_storage`` (read and unused by both packages on one
+    host)."""
+
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+
+
 def _enabled(block) -> bool:
     return isinstance(block, dict) and bool(block.get("enabled", False))
 
@@ -75,7 +108,6 @@ UNPORTED_BLOCKS = {
     "compression_training": (_nonempty, "the auxiliary subsystems "
                              "(item 11)"),
     "elasticity": (_enabled, "the auxiliary subsystems (item 11)"),
-    "fault_tolerance": (_enabled, "the checkpoint slice (item 8)"),
     "flops_profiler": (_enabled, "the auxiliary subsystems (item 11)"),
     "autotuning": (_enabled, "the auxiliary subsystems (item 11)"),
     "tensorboard": (_enabled, "the monitor backends (item 7)"),
@@ -89,7 +121,6 @@ UNPORTED_BLOCKS = {
     "activation_checkpointing": (_nonempty, "the Llama training subset "
                                  "(item 5); the model's remat is set in "
                                  "LlamaConfig"),
-    "checkpoint": (_nonempty, "the checkpoint slice (item 8)"),
     "aio": (_nonempty, "the offload slice (item 11)"),
     "prescale_gradients": (bool, "the distributed and ZeRO slice (item 9)"),
     "gradient_predivide_factor": (lambda v: v != 1.0,
@@ -105,7 +136,8 @@ PORTED_KEYS = {
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "gradient_accumulation_steps", "steps_per_print", "gradient_clipping",
     "wall_clock_breakdown", "fp16", "bf16", "bfloat16", "optimizer",
-    "scheduler", "zero_optimization", "seed",
+    "scheduler", "zero_optimization", "seed", "fault_tolerance",
+    "checkpoint",
 }
 
 
@@ -165,6 +197,12 @@ class DeepSpeedConfig:
         self.zero_config = DeepSpeedZeroConfig.from_dict(
             get("zero_optimization"), "zero_optimization")
         self.zero_optimization_stage = self.zero_config.stage
+        self.fault_tolerance = FaultToleranceConfig.from_dict(
+            get("fault_tolerance"), "fault_tolerance")
+        self.checkpoint = CheckpointConfig.from_dict(get("checkpoint"),
+                                                     "checkpoint")
+        self.load_universal_checkpoint = self.checkpoint.load_universal
+        self.use_node_local_storage = self.checkpoint.use_node_local_storage
         self.seed = get("seed", 1234)
 
     def _configure_train_batch_size(self) -> None:

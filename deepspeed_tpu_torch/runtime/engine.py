@@ -36,6 +36,21 @@ The micro-step API (``engine(batch)``, ``backward``, ``step``) queues
 microbatches and runs ``train_batch`` at the accumulation boundary, as the
 JAX engine does.
 
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``, the JAX engine's
+``engine.py:1191-1305``): the state goes to disk under the JAX
+``TrainState``'s leaf names and layouts (``step``, ``params/<flax path>``,
+the optax state's ``count``, ``mu`` and ``nu`` where the JAX chain for the
+config nests them, ``loss_scale/...``, ``skipped_steps``; scanned layers
+stacked ``[L, in, out]``), as a universal directory a tag behind the
+verified-manifest protocol (``checkpoint/engine.py``), so each package
+loads the other's. The port's one device count stands for ``step`` and
+every optax count (all move together in JAX). A load writes
+every tensor in place (``copy_``): the captured steps and K3's pointer
+table keep reading the same memory, and nothing is recaptured. The lr is
+not saved: the schedule reads the restored count. ``save_16bit_model``
+writes the JAX file format (flat flax names, bf16 as uint16 bit patterns
+and a ``__dtypes__`` list).
+
 Accounting, as in the JAX engine: ``registry`` holds the ``train_batch_s``
 histogram (the wall time of each ``train_batch`` call) and the
 ``train_mfu`` / ``train_tflops_per_chip`` gauges, and ``perf`` registers
@@ -52,6 +67,7 @@ call's wall time. A shape's first step (it carries the capture) is left
 out. The MFU gauge is set only where the card's peak is known.
 """
 
+import os
 import re
 import time
 from typing import Any, Dict, Iterator, Optional, Tuple
@@ -63,6 +79,7 @@ from torch import nn
 from ..inference.engine import resolve_device
 from ..monitor.perf import PerfAccounting, spec, train_step_flops
 from ..monitor.registry import MetricsRegistry
+from ..monitor.tracing import get_tracer
 from ..ops.optimizers import FusedAdam, get_optimizer
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -511,6 +528,170 @@ class DeepSpeedEngine:
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         """The fp32 master weights by ``state_dict`` name."""
         return {n: p.detach() for n, p in self.master.items()}
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+
+    def _optax_layout(self) -> Tuple[str, Tuple[str, ...]]:
+        """Where the JAX engine's optax state keeps the Adam count and
+        moments, and the counts of its lr schedule beside them (optax's
+        ``ScaleByScheduleState``, which advances with the Adam count): the
+        prefixes under ``opt_state/``, as the chain that the JAX engine
+        builds for this config nests them (``deepspeed_tpu/ops/
+        optimizers.py``; ``optax.chain(clip_by_global_norm, tx)`` when
+        clipping, ``runtime/engine.py`` ``_build_optimizer``)."""
+        opt = self._config.optimizer
+        kind = opt.type.lower() if opt is not None else "adamw"
+        params = opt.params if opt is not None else {}
+        sched = self.lr_scheduler is not None
+        if params.get("pallas"):  # FusedAdamState(count, mu, nu) alone
+            adam, counts = "", ()
+        elif kind == "lamb":  # adam, decay, trust ratio, lr
+            adam, counts = "0/", ("3/",) if sched else ()
+        elif kind == "adamw" or params.get("adam_w_mode", True):
+            adam, counts = "0/", ("2/",) if sched else ()  # optax.adamw
+        elif params.get("weight_decay"):  # decay, then optax.adam
+            adam, counts = "1/0/", ("1/1/",) if sched else ()
+        else:  # optax.adam: adam, lr
+            adam, counts = "0/", ("1/",) if sched else ()
+        if self._config.gradient_clipping and \
+                self._config.gradient_clipping > 0:
+            adam, counts = "1/" + adam, tuple("1/" + c for c in counts)
+        return adam, counts
+
+    def _state_leaves(self, for_load: bool = False):
+        """The engine's state under the JAX ``TrainState``'s names, in its
+        order, as views over the live tensors (a save reads each one when
+        it writes it; a load writes into them in place). The device count
+        stands for ``step``, the Adam count and the schedule's counts (all
+        move together in JAX); a load takes it from the Adam count (with
+        ``load_optimizer_states=False`` it stays, as JAX's optimizer count
+        does) and reads the others into scratch tensors."""
+        from ..checkpoint.from_flax import flax_leaves
+        from ..checkpoint.universal import NamedLeaves
+
+        config = self.module.config
+        opt = self.optimizer
+        names = self._trainable_names
+        adam, counts = self._optax_layout()
+
+        def tree(prefix, tensors):
+            return [(f"{prefix}/{path}", view)
+                    for path, view in flax_leaves(tensors, config)]
+
+        def count():
+            return torch.zeros_like(opt.count) if for_load else opt.count
+
+        leaves = [("step", count())]
+        leaves += tree("params", self.master)
+        leaves.append((f"opt_state/{adam}count", opt.count))
+        leaves += tree(f"opt_state/{adam}mu", dict(zip(names, opt.exp_avg)))
+        leaves += tree(f"opt_state/{adam}nu",
+                       dict(zip(names, opt.exp_avg_sq)))
+        leaves += [(f"opt_state/{c}count", count()) for c in counts]
+        if self._scaler is not None:
+            leaves += [(f"loss_scale/{f}", getattr(self._scaler, f))
+                       for f in ("cur_scale", "cur_iter", "cur_hysteresis")]
+        leaves.append(("skipped_steps", self._skipped))
+        return NamedLeaves(leaves)
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        save_latest: bool = True) -> bool:
+        """Write the state as the save ``tag`` (default
+        ``global_step<N>``) of ``save_dir``: data, client state, manifest,
+        then ``latest`` (reference ``engine.save_checkpoint`` :2881). Each
+        tensor is read behind the steps already queued on the current
+        stream, one leaf at a time."""
+        from ..checkpoint.engine import save_train_state
+
+        tag = tag or f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state.update(global_steps=self.global_steps,
+                            skipped_steps=self.get_skipped_steps())
+        ft = self._config.fault_tolerance
+        t_save0 = time.perf_counter()
+        save_train_state(save_dir, tag, self._state_leaves(), client_state,
+                         save_latest=save_latest,
+                         save_retries=ft.save_retries if ft.enabled else 0,
+                         retry_backoff_s=ft.save_retry_backoff,
+                         manifest_checksums=ft.manifest_checksums)
+        # checkpoint I/O is the step loop's big non-compute latency: a
+        # traced run shows which steps paid it
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.complete("checkpoint_save", t_save0, time.perf_counter(),
+                            cat="checkpoint", args={"tag": tag})
+        self.registry.histogram("checkpoint_save_s", lo=1e-3,
+                                hi=4e3).observe(time.perf_counter() - t_save0)
+        return True
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_universal: Optional[bool] = None, **_):
+        """Restore a save into the engine's tensors in place (reference
+        ``engine.load_checkpoint`` :2531); returns ``(load_dir,
+        client_state)``. With ``load_universal`` (the argument, or the
+        ``checkpoint.load_universal`` config) ``load_dir`` is a universal
+        directory — either package's, or one tag of a port save; else the
+        tag (default ``latest``) is verified through its manifest, walking
+        back to the newest verified save when ``latest`` is damaged."""
+        from ..checkpoint.engine import load_train_state
+        from ..checkpoint.manifest import resolve_load_tag
+        from ..checkpoint.universal import restore_into
+
+        if load_universal is None:
+            load_universal = self._config.load_universal_checkpoint
+        template = self._state_leaves(for_load=True)
+        if load_universal:
+            _, meta = restore_into(template, load_dir,
+                                   load_optimizer_states=load_optimizer_states)
+            client_state = meta.get("client_state", {})
+            self.global_steps = int(client_state.get(
+                "global_steps", meta.get("step") or 0))
+        else:
+            ft = self._config.fault_tolerance
+            if ft.enabled and ft.verify_on_load:
+                tag = resolve_load_tag(load_dir, tag)
+            _, client_state = load_train_state(
+                load_dir, tag, template,
+                load_optimizer_states=load_optimizer_states, verify=False)
+            self.global_steps = int(client_state.get("global_steps", 0))
+        self.micro_steps = self.global_steps * self.gradient_accumulation_steps
+        return load_dir, client_state
+
+    def _consolidated_16bit_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The weights at bf16 by ``state_dict`` name (reference
+        ``_zero3_consolidated_16bit_state_dict`` :3198; one device holds
+        them whole)."""
+        return {n: p.detach().to(torch.bfloat16) if p.is_floating_point()
+                else p.detach() for n, p in self.master.items()}
+
+    def save_16bit_model(self, save_dir: str,
+                         output_file: str = "pytorch_model.npz") -> bool:
+        """Write a consolidated half-precision weights file in the JAX
+        package's format (reference ``save_16bit_model`` :3268): a flat npz
+        keyed by flax param path, bf16 stored as uint16 bit patterns, and
+        a ``__dtypes__`` list of ``name=dtype``."""
+        from ..checkpoint.from_flax import flax_leaves
+
+        os.makedirs(save_dir, exist_ok=True)
+        flat, dtypes = {}, {}
+        for name, view in flax_leaves(self._consolidated_16bit_state_dict(),
+                                      self.module.config):
+            t = view.tensor()
+            if t.dtype == torch.bfloat16:
+                flat[name] = t.view(torch.int16).cpu().numpy().view(np.uint16)
+                dtypes[name] = "bfloat16"
+            else:
+                flat[name] = t.cpu().numpy()
+                dtypes[name] = str(flat[name].dtype)
+        path = os.path.join(save_dir, output_file)
+        np.savez(path, __dtypes__=np.asarray([f"{k}={v}" for k, v
+                                              in dtypes.items()]), **flat)
+        log_dist(f"saved 16-bit model to {path}", ranks=[0])
+        return True
 
 
 class _LazyLoss:

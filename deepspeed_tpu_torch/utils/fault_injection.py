@@ -10,9 +10,22 @@ split a stall's firing from its sleep, so the serving engine can fire a
 stall and wait out its end against its step watchdog's deadline.
 
 Faults are requested through the ``DS_FAULT`` environment variable so a
-test or a chaos drill can arm them without touching the serving script.
-Grammar — comma-separated specs, each ``name[:key=value]*``. The serving
-engine's injection points (``inference/serving/engine.py``)::
+test or a chaos drill can arm them without touching the training or
+serving script. Grammar — comma-separated specs, each
+``name[:key=value]*``. The checkpoint save path's injection points
+(``checkpoint/engine.py``)::
+
+    DS_FAULT=crash_during_save:step=3        # die after the data commit of
+                                             # the step-3 save, before its
+                                             # manifest/latest are written
+    DS_FAULT=corrupt_manifest                # scribble over the manifest
+                                             # right after it is written
+    DS_FAULT=truncate_latest                 # tear the `latest` tag file
+    DS_FAULT=flaky_save:fails=2              # first 2 save attempts raise
+                                             # OSError (exercises the
+                                             # retry-with-backoff path)
+
+The serving engine's (``inference/serving/engine.py``)::
 
     DS_FAULT=stall:tag=serving_step          # wedge before the step
     DS_FAULT=slow_step:seconds=1             # the step goes slow INSIDE
@@ -38,8 +51,9 @@ probability p per otherwise-matching probe, seeded by ``DS_FAULT_SEED`` so
 chaos runs replay — injection points may also declare a named ``stream``,
 and each stream draws from its own (seed, stream)-derived generator, so a
 fuzz schedule replays per engine regardless of step interleaving),
-``phase`` (phase-aware points fire only at their chosen phase, default
-``commit``).
+``phase`` (``crash_during_save``: ``begin`` dies before any bytes are
+written, default ``commit`` dies between the data commit and the manifest
+write — the classic partial save).
 
 Each injection point is a no-op unless a spec matches, so the harness
 costs nothing in production.
@@ -49,11 +63,14 @@ import os
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 from .logging import logger
 
 ENV_VAR = "DS_FAULT"
+
+#: exit code used by injected crashes — distinguishable from real signals
+CRASH_EXIT_CODE = 87
 
 @dataclass
 class FaultSpec:
@@ -175,7 +192,8 @@ def reset() -> None:
 #: callbacks invoked as ``cb(name, ctx)`` every time a fault FIRES (after
 #: the spec matched and consumed its trigger count, before the damage).
 #: The flight recorder subscribes here so every injected incident leaves a
-#: post-mortem dump.
+#: post-mortem dump — including ``maybe_crash``, which notifies before
+#: ``os._exit``.
 _listeners: List[Callable[[str, Dict[str, Any]], None]] = []
 
 
@@ -218,6 +236,21 @@ def fire(name: str, ctx: Dict[str, Any],
     spec.fired += 1
     _notify(name, {**ctx, **(detail or {})})
     return spec
+
+
+def maybe_crash(name: str, detail: Optional[Dict[str, Any]] = None,
+                **ctx: Any) -> None:
+    """Hard process death (no atexit, no flush) — models SIGKILL/OOM. The
+    listeners hear of it before the process dies: that is the post-mortem
+    the flight recorder exists for."""
+    spec = fire(name, ctx, detail)
+    if spec is None:
+        return
+    logger.error(f"DS_FAULT: injected crash at {name} ({ctx})")
+    import sys
+
+    sys.stderr.flush()
+    os._exit(CRASH_EXIT_CODE)
 
 
 def stall_seconds(name: str, spec: FaultSpec, ctx: Dict[str, Any]) -> float:
@@ -263,3 +296,66 @@ def maybe_fail(name: str, exc: Type[Exception] = OSError,
         return
     raise exc(f"DS_FAULT: injected failure at {name} "
               f"(attempt {spec.fired}, {ctx})")
+
+
+def _fire_on_file(name: str, path: str, detail: Optional[Dict[str, Any]],
+                  ctx: Dict[str, Any]) -> bool:
+    """Fire ``name`` at a probe over ``path``: the spec is matched first
+    (a ``p=`` draw happens whether or not the file exists, as in the JAX
+    package), and fires only over an existing file."""
+    spec = get_fault(name, **ctx)
+    if spec is None or not os.path.exists(path):
+        return False
+    spec.fired += 1
+    _notify(name, {**ctx, "path": path, **(detail or {})})
+    return True
+
+
+def maybe_corrupt_file(name: str, path: str,
+                       detail: Optional[Dict[str, Any]] = None,
+                       **ctx: Any) -> None:
+    """Overwrite the head of ``path`` with garbage (bit-rot / torn write)."""
+    if not _fire_on_file(name, path, detail, ctx):
+        return
+    logger.error(f"DS_FAULT: corrupting {path} ({name})")
+    with open(path, "r+b") as f:
+        f.write(b"\x00CORRUPT\x00")
+
+
+def maybe_truncate_file(name: str, path: str,
+                        detail: Optional[Dict[str, Any]] = None,
+                        **ctx: Any) -> None:
+    """Cut ``path`` to half its size (torn non-atomic write)."""
+    if not _fire_on_file(name, path, detail, ctx):
+        return
+    size = os.path.getsize(path)
+    logger.error(f"DS_FAULT: truncating {path} to {size // 2} bytes ({name})")
+    with open(path, "r+b") as f:
+        f.truncate(size // 2)
+
+
+# ---------------------------------------------------------------------------
+# Bounded retry (checkpoint I/O)
+# ---------------------------------------------------------------------------
+
+
+def retry_with_backoff(fn: Callable[[], Any], *, retries: int = 3,
+                       base_delay: float = 0.5, max_delay: float = 30.0,
+                       what: str = "operation",
+                       exceptions: Sequence[Type[Exception]] = (OSError,)
+                       ) -> Any:
+    """Run ``fn`` with up to ``retries`` retries on transient errors,
+    exponential backoff between attempts. The last failure propagates —
+    bounded, never an infinite loop."""
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except tuple(exceptions) as e:
+            if attempt >= retries:
+                raise
+            delay = min(max_delay, base_delay * (2 ** attempt))
+            attempt += 1
+            logger.warning(f"{what} failed ({type(e).__name__}: {e}); "
+                           f"retry {attempt}/{retries} in {delay:.1f}s")
+            time.sleep(delay)

@@ -17,7 +17,10 @@ present. On a machine with one, run them with
   before the hang;
 - a guarded step's device work runs on the calling thread and its
   current stream, asserted from inside the step; the tokens equal the
-  unguarded engine's.
+  unguarded engine's;
+- a kernel's device run count first made by a launch under
+  ``torch.inference_mode()`` (as a serving step launches) is zeroed and
+  read outside it.
 """
 
 import numpy as np
@@ -227,3 +230,18 @@ def test_guarded_steps_run_on_the_callers_thread_and_stream(cuda, fault):
     assert all(s == (me, side.cuda_stream) for s in seen)
     assert srv.metrics.watchdog_trips == 0
     _check_pool(srv)
+
+
+def test_a_run_count_made_under_inference_mode_resets_outside_it(
+        cuda, monkeypatch):
+    from deepspeed_tpu_torch.ops import _runs
+
+    monkeypatch.setattr(_runs, "_RUNS", {})
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with torch.inference_mode():
+        runs = _runs.counter("probe", dev)
+        runs.add_(3)
+    assert not runs.is_inference()
+    assert _runs.kernel_runs("probe") == 3
+    _runs.reset_kernel_runs("probe")
+    assert _runs.kernel_runs("probe") == 0

@@ -378,8 +378,13 @@ def test_monitor_receives_the_serving_counters(engines):
     {"mp_size": 2}, {"quantize": True}, {"dtype": "int8"},
     {"dequant_per_step": True}, {"quantized_collectives": True},
     {"checkpoint": "/nonexistent"}])
-def test_inference_knobs_of_later_slices_raise(knob):
+def test_inference_knobs_of_later_slices_raise(knob, tmp_path):
     model = LlamaForCausalLM(LlamaConfig.tiny())
+    params = model.init_params()
+    if "checkpoint" in knob:
+        # a save_pytree directory loads (tests/test_torch_checkpoint.py);
+        # an HF checkpoint directory is module injection's
+        (tmp_path / "config.json").write_text("{}")
+        knob, params = {"checkpoint": str(tmp_path)}, None
     with pytest.raises(NotImplementedError, match="slice of the port"):
-        dt.init_inference(model, params=model.init_params(), device="cpu",
-                          **knob)
+        dt.init_inference(model, params=params, device="cpu", **knob)

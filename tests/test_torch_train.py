@@ -125,7 +125,9 @@ UNPORTED = {
     "parallel": {"parallel": {"tensor": 2}},
     "flops_profiler": {"flops_profiler": {"enabled": True}},
     "elasticity": {"elasticity": {"enabled": True}},
-    "fault_tolerance": {"fault_tolerance": {"enabled": True}},
+    # the block itself is ported; its heartbeat acts under elasticity
+    "fault_tolerance": {"fault_tolerance": {"heartbeat_interval": 5},
+                        "elasticity": {"enabled": True}},
     "adagrad": {"optimizer": {"type": "Adagrad", "params": {}}},
     "onebit": {"optimizer": {"type": "OneBitAdam", "params": {}}},
 }
