@@ -120,6 +120,28 @@ Phases, each printed on its own line; any failure exits non-zero:
    each waited for, its train_tflops_per_chip (each step's device time)
    within 5% of the hand count over the host's wall time of the same
    steps;
+7b. train subset: the rest of the training path on the same Llama-400M
+   (bench config, captured): (a) micro-batch 8 x 1024, gas 8, under the
+   remat policies and losses of bench.py's leading candidates (nothing;
+   dots; dots with loss_chunk 2048; offload_dots_no_batch with
+   loss_chunk 2048), 2 warm-up + 3 timed steps and one profiled step
+   each: step ms, tokens/s, model TFLOP/s, peak memory and idle share per
+   route; asserts nothing's step-1 loss equals dots' bit for bit, the
+   chunked loss within 1e-3 of the plain one, finite falling losses, the
+   chunked loss >= 0.5 GB below the plain loss's peak, offload's peak
+   below dots', and K1 2 x 24, K2 24 + 24 per micro-batch and K3 once a
+   step (device counts); (b) right-padded micro-batches (pads 0-512 from
+   seed 1, labels -100): 5 steps uncaptured, 5 captured, identical
+   falling losses, K1/K2 never, K3 once a step (the plain attention
+   under the padding bias); (c) progressive layer drop (theta 0.5, gamma
+   0.1): 20 replays of one graph, theta on the device count within 1e-6
+   of the host formula, gates that change between replays, keep rates
+   within 4 sigma of p_l, K1 48 a replay; (d) a 4 x 4096 MLP, batch
+   4096, through training_data (DeepSpeedDataLoader), a loss_fn drawing
+   dropout from the engine's generator and csv_monitor, with the
+   config's AdamW (K3 once a step) and a client AdamW(capturable=True)
+   (K3 never): captured losses equal uncaptured ones, the CSV files carry
+   the JAX engine's event names;
 8. checkpoint: train -> save -> resume -> serve on the same Llama-400M at
    the bench config, captured: engine A (seed 0) takes 2 steps, saves
    (``save_checkpoint``: a universal directory under the JAX
@@ -152,7 +174,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    it launches; a graph replays its kernels without it), except K6's,
    counted on the device with the replays. Where a path also ran
    captured, ``graph_launches`` are the kernels' runs counted on the
-   device over its replays: K1/K2/K3 in one replayed training step,
+   device over its replays: K1/K2/K3 in one replayed training step plus
+   the train subset's captured routes (``graph_launches_by_phase``),
    K7a/K7b and the masked K1 in the two-program engines' replayed
    re-serves (item 5). Each of these kernels adds one to its device count
    (``deepspeed_tpu_torch/ops/_runs.py``) when it runs.
@@ -3105,6 +3128,509 @@ def check_training(cfg=None, device="cuda"):
     return routes[False]["launches"], routes[True]["replayed"]
 
 
+# ---------------------------------------------------------------------------
+# the rest of the training subset (remat policies, the chunked loss, padded
+# batches, progressive layer drop, a generic module with a client optimizer)
+# ---------------------------------------------------------------------------
+
+#: (a): micro-batch 8 x 1024, gas 8 (bench.py's ``m8xgas8``), the routes
+#: of bench.py's leading candidates and their neighbours: (name, remat
+#: policy, loss chunk)
+SUBSET_MICRO, SUBSET_GAS = 8, 8
+SUBSET_ROUTES = (("nothing", "nothing", 0), ("dots", "dots", 0),
+                 ("dots,lc2048", "dots", 2048),
+                 ("offload_dots_no_batch,lc2048", "offload_dots_no_batch",
+                  2048))
+SUBSET_WARMUP, SUBSET_TIMED = 2, 3
+#: (c): progressive layer drop's settings and replays
+PLD_THETA, PLD_GAMMA, PLD_REPLAYS = 0.5, 0.1, 20
+#: (d): the generic module: layers x width, batch, steps per run
+MLP_LAYERS, MLP_WIDTH, MLP_BATCH, MLP_STEPS = 4, 4096, 4096, 6
+
+
+def subset_engine(cfg, cfg_over, config_over, device, graphed=True,
+                  model=None, **kw):
+    """initialize on ``cfg`` (weights from seed 0) at the bench config
+    with ``cfg_over`` on the model and ``config_over`` on the config (or
+    on ``model``)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+
+    if model is None:
+        model = LlamaForCausalLM(dataclasses.replace(cfg, **cfg_over))
+    return dt.initialize(model=model, config={**TRAIN_CONFIG, **config_over},
+                         device=device, cuda_graph=graphed, **kw)
+
+
+def device_runs(names):
+    from deepspeed_tpu_torch.ops import _runs
+
+    return {n: _runs.kernel_runs(n) for n in names}
+
+
+def reset_device_runs(names):
+    from deepspeed_tpu_torch.ops import _runs
+
+    for n in names:
+        _runs.reset_kernel_runs(n)
+
+
+def steady_state(fn, n, device, base, names=()):
+    """``n`` calls of ``fn`` (a training step each) timed together, then
+    one more under the profiler. Returns (s a step, device busy ms,
+    profiled wall ms, peak bytes above ``base`` since the last peak
+    reset, the device runs of the kernels ``names`` in the profiled
+    call)."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / n
+    if device != "cuda":
+        fn()
+        return step_s, 0.0, 0.0, 0, {}
+    runs, busy, wall = profiled(fn, list(names))
+    return step_s, busy, wall, torch.cuda.max_memory_allocated() - base, runs
+
+
+def memory_base(device):
+    """Bytes allocated now, the peak counter reset (0 off the card)."""
+    gc.collect()
+    if device != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def subset_remat_routes(cfg, device):
+    """(a) Each route of ``SUBSET_ROUTES`` on its own engine (seed 0,
+    captured): ``SUBSET_WARMUP`` steps, then :func:`steady_state` over
+    ``SUBSET_TIMED`` timed steps and one profiled step (device counts,
+    busy time). Returns per route: losses,
+    step s, peak bytes, profiled counts, busy and profiled wall ms."""
+    L = cfg.num_hidden_layers
+    names = list(train_kernels())
+    batch_size = SUBSET_MICRO * SUBSET_GAS
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch_size, TRAIN_SEQ)))
+    batch = {"input_ids": ids, "labels": ids}
+    config = {"train_batch_size": batch_size,
+              "gradient_accumulation_steps": SUBSET_GAS}
+    out = {}
+    for name, policy, chunk in SUBSET_ROUTES:
+        base = memory_base(device)
+        # keep no other part of initialize's result: the optimizer would
+        # outlive the engine into the next route's measurement
+        engine = subset_engine(cfg, dict(remat_policy=policy,
+                                         loss_chunk=chunk), config,
+                               device)[0]
+        losses = []
+
+        def step():
+            losses.append(engine.train_batch(batch=batch))
+
+        for _ in range(SUBSET_WARMUP):
+            step()
+        step_s, busy, wall, peak, runs = steady_state(
+            step, SUBSET_TIMED, device, base, names)
+        stash = sum(s.nbytes for s in engine.module.model._stashes)
+        out[name] = dict(losses=[float(x) for x in losses], step_s=step_s,
+                         peak=peak, runs=runs, busy=busy, wall=wall,
+                         stash=stash, graphs=len(engine._graphs))
+        del engine, step
+    want = {"flash_attention_fwd": 2 * L * SUBSET_GAS,
+            "flash_attention_bwd_dq": L * SUBSET_GAS,
+            "flash_attention_bwd_dkv": L * SUBSET_GAS, "fused_adam": 1}
+    return out, want
+
+
+def subset_padded(cfg, device):
+    """(b) Right-padded micro-batches (8 x 1024, pad lengths uniform in
+    0-512 from seed 1, labels -100 on the pads): 5 steps uncaptured, then
+    5 captured on a second engine from the same weights, then the
+    captured engine's steady state (:func:`steady_state`, 3 steps).
+    Returns both routes' losses and the kernels' counts over the 5 steps
+    (the wrappers' uncaptured, the device's over the captured replays),
+    and the steady state."""
+    names = list(train_kernels())
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                      (TRAIN_CONFIG["train_batch_size"],
+                                       TRAIN_SEQ)))
+    pads = rs.randint(0, TRAIN_SEQ // 2 + 1, TRAIN_CONFIG["train_batch_size"])
+    mask = (torch.arange(TRAIN_SEQ)[None] <
+            torch.from_numpy(TRAIN_SEQ - pads)[:, None]).long()
+    batch = {"input_ids": ids, "labels": torch.where(mask > 0, ids, -100),
+             "attention_mask": mask}
+    counted = train_kernels()
+    out = {}
+    for graphed in (False, True):
+        base = memory_base(device)
+        engine = subset_engine(cfg, {}, {}, device, graphed=graphed)[0]
+        for fn in counted.values():
+            fn.launches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            reset_device_runs(names)
+        t = time.perf_counter()
+        losses = [engine.train_batch(batch=batch) for _ in range(5)]
+        losses = [float(x) for x in losses]
+        wall = time.perf_counter() - t
+        out[graphed] = dict(
+            losses=losses, wall=wall,
+            launches={n: fn.launches for n, fn in counted.items()},
+            runs=device_runs(names) if device == "cuda" else {})
+        if graphed:
+            out[graphed]["steady"] = steady_state(
+                lambda: engine.train_batch(batch=batch), 3, device, base)
+        del engine
+        gc.collect()
+    return out, pads
+
+
+def subset_pld(cfg, device):
+    """(c) PLD at theta ``PLD_THETA``, gamma ``PLD_GAMMA`` on a captured
+    engine: one step (eager, then captured), then ``PLD_REPLAYS``
+    replays, each one's theta and gates read back, then the steady state
+    (:func:`steady_state`, 3 replays). Returns thetas, gates, losses, the
+    kernels' device runs over the 20 replays and the steady state."""
+    names = list(train_kernels())
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (TRAIN_CONFIG["train_batch_size"], TRAIN_SEQ)))
+    batch = {"input_ids": ids, "labels": ids}
+    base = memory_base(device)
+    engine = subset_engine(cfg, {}, {"progressive_layer_drop": {
+        "enabled": True, "theta": PLD_THETA, "gamma": PLD_GAMMA}}, device)[0]
+    engine.train_batch(batch=batch)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        reset_device_runs(names)
+    thetas, gates, losses, steps = [], [], [], []
+    for _ in range(PLD_REPLAYS):
+        steps.append(int(engine.step_count))
+        losses.append(float(engine.train_batch(batch=batch)))
+        thetas.append(float(engine.pld_theta))
+        gates.append(engine.module.model.last_pld_gates.float().cpu())
+    runs = device_runs(names) if device == "cuda" else {}
+    graphs = len(engine._graphs)
+    steady = steady_state(lambda: engine.train_batch(batch=batch), 3,
+                          device, base)
+    del engine
+    return dict(thetas=thetas, gates=torch.stack(gates), losses=losses,
+                steps=steps, runs=runs, graphs=graphs, steady=steady)
+
+
+class _MLP(torch.nn.Module):
+    """(d)'s generic module: ``MLP_LAYERS`` Linear(width, width) with GELU
+    between, the mean squared error against ``y``; it casts its input to
+    the bound weights' dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            torch.nn.Linear(MLP_WIDTH, MLP_WIDTH) for _ in range(MLP_LAYERS))
+
+    def forward(self, x, y):
+        h = x.to(self.layers[0].weight.dtype)
+        for i, layer in enumerate(self.layers):
+            h = layer(h)
+            if i < MLP_LAYERS - 1:
+                h = torch.nn.functional.gelu(h)
+        return ((h.float() - y) ** 2).mean()
+
+
+class _Rows:
+    """A dataset of ``(x, y)`` rows as dict samples over two arrays."""
+
+    def __init__(self, n, seed):
+        rs = np.random.RandomState(seed)
+        self.x = rs.randn(n, MLP_WIDTH).astype(np.float32)
+        self.y = np.tanh(self.x[:, ::-1] * 0.5).astype(np.float32)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return {"x": self.x[i], "y": self.y[i]}
+
+
+def _mlp_loss(module, batch, generator):
+    """(d)'s loss_fn: the module's loss on inputs with 10% of their
+    entries dropped by draws from the engine's generator."""
+    x = batch["x"]
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= 0.1
+    loss = module(x=torch.where(keep, x / 0.9, torch.zeros_like(x)),
+                  y=batch["y"])
+    return loss, ()
+
+
+def subset_generic(device):
+    """(d) The MLP through ``training_data`` (the port's
+    ``DeepSpeedDataLoader``), ``loss_fn`` and ``csv_monitor``: with the
+    config's AdamW and with a client ``torch.optim.AdamW(capturable=
+    True)``, each uncaptured and captured from the same weights over the
+    same batches, then each captured engine's steady state
+    (:func:`steady_state`, 3 steps, the loader's collate included).
+    Returns per (optimizer, route) the losses, K3's runs over the steps,
+    the CSV files written, the step ms, the FLOPs a step the engine
+    counted and the steady state."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    data = _Rows(MLP_BATCH * 4, seed=3)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="csv_monitor_")
+    try:
+        for opt in ("config", "client"):
+            for graphed in (False, True):
+                base = memory_base(device)
+                torch.manual_seed(0)
+                model = _MLP()
+                kw = {}
+                config = {"train_batch_size": MLP_BATCH,
+                          "csv_monitor": {"enabled": True,
+                                          "output_path": tmp,
+                                          "job_name": f"{opt}_{graphed}"}}
+                if opt == "client":
+                    kw["optimizer"] = torch.optim.AdamW(
+                        model.parameters(), lr=1e-4, weight_decay=0.1,
+                        capturable=device == "cuda")
+                    config["optimizer"] = None
+                built = subset_engine(
+                    None, {}, config, device, graphed=graphed, model=model,
+                    training_data=data, collate_fn=None, loss_fn=_mlp_loss,
+                    **kw)
+                engine, loader = built[0], built[2]
+                del built
+                it = iter(RepeatingLoader(loader))
+                engine.train_batch(data_iter=it)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    reset_device_runs(["fused_adam"])
+                t = time.perf_counter()
+                losses = [float(engine.train_batch(data_iter=it))
+                          for _ in range(MLP_STEPS - 1)]
+                ms = 1e3 * (time.perf_counter() - t) / (MLP_STEPS - 1)
+                job = os.path.join(tmp, f"{opt}_{graphed}")
+                files = sorted(os.listdir(job))
+                with open(os.path.join(job,
+                                       "Train_Samples_train_loss.csv")) as f:
+                    rows = f.read().split()
+                out[(opt, graphed)] = dict(
+                    losses=losses, ms=ms, files=files, loss_rows=rows,
+                    runs=device_runs(["fused_adam"])["fused_adam"]
+                    if device == "cuda" else None,
+                    graphs=len(engine._graphs), loader=type(loader).__name__,
+                    flops=engine.perf.programs.program("train_step").flops)
+                if graphed:
+                    out[(opt, graphed)]["steady"] = steady_state(
+                        lambda: engine.train_batch(data_iter=it), 3, device,
+                        base)
+                del engine
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def steady_line(steady, flops):
+    """The steady state of :func:`steady_state` in the phase's words."""
+    step_s, busy, wall, peak, _ = steady
+    tflops = flops / step_s / 1e12 if flops else None
+    return (f"steady state: step {1e3 * step_s:.2f} ms, model "
+            f"{tflops if tflops is None else round(tflops, 2)} TFLOP/s, "
+            f"peak memory {peak / 1e9:.3f} GB, device busy {busy:.2f} ms of "
+            f"a profiled step of {wall:.2f} ms (idle share "
+            f"{1 - busy / max(wall, 1e-9):.3f})")
+
+
+def check_train_subset(cfg=None, device="cuda"):
+    """The ``train subset`` phase: (a) remat policies and the chunked loss,
+    (b) a padded batch, (c) progressive layer drop, (d) a generic module
+    with a client optimizer (see :func:`subset_remat_routes`,
+    :func:`subset_padded`, :func:`subset_pld`, :func:`subset_generic`).
+    Returns the kernels' device runs per route (for the ``kernels``
+    line's ``graph_launches``)."""
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = cfg or LlamaConfig.llama_400m(max_position_embeddings=TRAIN_SEQ,
+                                        remat=True)
+    L = cfg.num_hidden_layers
+    problems, graph_runs = [], {}
+    cuda = device == "cuda"
+
+    # (a) remat policies and the chunked loss
+    routes, want = subset_remat_routes(cfg, device)
+    batch_size = SUBSET_MICRO * SUBSET_GAS
+    tokens = batch_size * TRAIN_SEQ
+    n_params = sum(p.numel() for p in LlamaForCausalLM(cfg).parameters())
+    flops = model_flops_per_step(n_params, batch_size, TRAIN_SEQ, L,
+                                 cfg.hidden_size)
+    for name, r in routes.items():
+        step_ms = 1e3 * r["step_s"]
+        idle = 1 - r["busy"] / max(r["wall"], 1e-9)
+        log(f"train subset (a) {name}: micro {SUBSET_MICRO} x {TRAIN_SEQ}, "
+            f"gas {SUBSET_GAS}, captured ({r['graphs']} graph), step "
+            f"{step_ms:.2f} ms, {tokens / r['step_s']:.1f} tokens/s, model "
+            f"{flops / r['step_s'] / 1e12:.2f} TFLOP/s = "
+            f"{flops / r['step_s'] / BF16_FLOP_PER_S:.4f} of 989, peak "
+            f"memory {r['peak'] / 1e9:.3f} GB, host stash "
+            f"{r['stash'] / 1e9:.3f} GB, device busy {r['busy']:.2f} ms of a "
+            f"profiled step of {r['wall']:.2f} ms (idle share {idle:.3f}), "
+            f"kernel runs in the profiled step {r['runs']}, losses "
+            f"{[round(x, 5) for x in r['losses']]}")
+        r.update(step_ms=step_ms, tflops=flops / r["step_s"] / 1e12,
+                 idle=idle)
+        graph_runs[f"train subset (a) {name}"] = r["runs"]
+        losses = r["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            problems.append(f"(a) {name}: losses not finite and falling "
+                            f"{losses}")
+        if cuda and r["runs"] != want:
+            problems.append(f"(a) {name}: kernel runs a step {r['runs']} != "
+                            f"{want}")
+    a = routes
+    # same weights, batch and kernels: what a policy keeps changes where a
+    # backward operand comes from (kept, recomputed, copied back from the
+    # host), never its bits, so every step's loss is the same
+    for kept, other in (("dots", "nothing"),
+                        ("offload_dots_no_batch,lc2048", "dots,lc2048")):
+        log(f"train subset (a) {kept} vs {other} losses: "
+            f"{a[kept]['losses']!r} vs {a[other]['losses']!r}")
+        if a[kept]["losses"] != a[other]["losses"]:
+            problems.append(f"(a) the losses of {kept} and {other} differ")
+    rel = abs(a["dots,lc2048"]["losses"][0] / a["dots"]["losses"][0] - 1)
+    log(f"train subset (a) chunked vs plain loss at step 1: "
+        f"{a['dots,lc2048']['losses'][0]!r} vs {a['dots']['losses'][0]!r}, "
+        f"relative {rel:.3e} (tolerance 1e-3); peak memory drop "
+        f"{(a['dots']['peak'] - a['dots,lc2048']['peak']) / 1e9:.3f} GB "
+        f"(>= 0.5), offload vs dots peak "
+        f"{a['offload_dots_no_batch,lc2048']['peak'] / 1e9:.3f} vs "
+        f"{a['dots']['peak'] / 1e9:.3f} GB")
+    if rel > 1e-3:
+        problems.append(f"(a) chunked loss {rel:.3e} from the plain one")
+    if cuda:
+        if a["dots"]["peak"] - a["dots,lc2048"]["peak"] < 0.5e9:
+            problems.append("(a) lc2048 saves < 0.5 GB of peak memory")
+        if not a["offload_dots_no_batch,lc2048"]["peak"] < a["dots"]["peak"]:
+            problems.append("(a) offload's peak is not below dots'")
+        if not a["offload_dots_no_batch,lc2048"]["stash"] > 0:
+            problems.append("(a) the offload route kept nothing on the host")
+
+    # (b) a padded batch (model FLOPs at the train phase's batch: every
+    # position is computed, padded or not)
+    step_flops = model_flops_per_step(
+        n_params, TRAIN_CONFIG["train_batch_size"], TRAIN_SEQ, L,
+        cfg.hidden_size)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    padded, pads = subset_padded(cfg, device)
+    for graphed, r in padded.items():
+        route = "captured" if graphed else "uncaptured"
+        log(f"train subset (b) padded {route}: micro "
+            f"{TRAIN_CONFIG['train_batch_size']} x {TRAIN_SEQ}, pads "
+            f"{pads.tolist()}, losses {r['losses']}, "
+            f"{1e3 * r['wall'] / 5:.2f} ms a step (first step included), "
+            f"wrapper launches {r['launches']}, device runs {r['runs']}"
+            + (f"; {steady_line(r['steady'], step_flops)}" if graphed
+               else ""))
+    graph_runs["train subset (b) padded"] = padded[True]["runs"]
+    if padded[True]["losses"] != padded[False]["losses"]:
+        problems.append("(b) captured and uncaptured padded losses differ")
+    losses = padded[False]["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"(b) padded losses not finite and falling {losses}")
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    if any(padded[False]["launches"][n] for n in flash) or \
+            padded[False]["launches"]["fused_adam"] != 5:
+        problems.append(f"(b) uncaptured launches {padded[False]['launches']}")
+    if cuda and (any(padded[True]["runs"][n] for n in flash) or
+                 padded[True]["runs"]["fused_adam"] != 5):
+        problems.append(f"(b) captured device runs {padded[True]['runs']}")
+
+    # (c) progressive layer drop
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    pld = subset_pld(cfg, device)
+    host = [(1 - PLD_THETA) * np.exp(-PLD_GAMMA * s) + PLD_THETA
+            for s in pld["steps"]]
+    theta_err = max(abs(a - b) for a, b in zip(pld["thetas"], host))
+    gates = pld["gates"]
+    kept = (gates > 0).sum(0).numpy()
+    depth = (np.arange(L) + 1) / L
+    p = np.array([[1 - d * (1 - th) for d in depth] for th in host])
+    expect, sigma = p.sum(0), np.sqrt((p * (1 - p)).sum(0))
+    worst = float(np.max(np.abs(kept - expect) / (sigma + 1e-9)))
+    distinct = len({tuple(g.tolist()) for g in gates})
+    log(f"train subset (c) pld theta {PLD_THETA} gamma {PLD_GAMMA}: "
+        f"{PLD_REPLAYS} replays of {pld['graphs']} graph at steps "
+        f"{pld['steps'][0]}..{pld['steps'][-1]}, theta max error "
+        f"{theta_err:.2e} (tolerance 1e-6), {distinct} distinct gate "
+        f"vectors, keeps per layer {kept.tolist()} against expected "
+        f"{np.round(expect, 2).tolist()} (worst {worst:.2f} sigma), losses "
+        f"{[round(x, 4) for x in pld['losses']]}, device runs "
+        f"{pld['runs']}; {steady_line(pld['steady'], step_flops)}")
+    graph_runs["train subset (c) pld"] = pld["runs"]
+    if theta_err > 1e-6:
+        problems.append(f"(c) theta off the host formula by {theta_err}")
+    if distinct < 2:
+        problems.append("(c) the gates did not change between replays")
+    if worst > 4.0:
+        problems.append(f"(c) a layer's keep rate is {worst:.2f} sigma off")
+    if not all(np.isfinite(pld["losses"])):
+        problems.append("(c) a PLD loss is not finite")
+    if cuda and pld["runs"].get("flash_attention_fwd") != \
+            2 * L * PLD_REPLAYS:
+        problems.append(f"(c) K1 ran {pld['runs']} in {PLD_REPLAYS} "
+                        f"replays, not {2 * L} each")
+
+    # (d) a generic module with a client optimizer
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    generic = subset_generic(device)
+    for (opt, graphed), r in generic.items():
+        log(f"train subset (d) mlp {MLP_LAYERS} x {MLP_WIDTH}, batch "
+            f"{MLP_BATCH}, {opt} optimizer, "
+            f"{'captured' if graphed else 'uncaptured'} ({r['graphs']} "
+            f"graph), {r['loader']}: losses {r['losses']}, {r['ms']:.2f} ms "
+            f"a step (data loading included), K3 runs {r['runs']}, csv "
+            f"files {r['files']}, {r['flops']} FLOPs a step (counted)"
+            + (f"; {steady_line(r['steady'], r['flops'])}" if graphed
+               else ""))
+    for opt, k3 in (("config", MLP_STEPS - 1), ("client", 0)):
+        c, u = generic[(opt, True)], generic[(opt, False)]
+        if c["losses"] != u["losses"]:
+            problems.append(f"(d) {opt}: captured losses differ from "
+                            f"uncaptured")
+        if not all(np.isfinite(c["losses"])):
+            problems.append(f"(d) {opt}: a loss is not finite")
+        if cuda and c["runs"] != k3:
+            problems.append(f"(d) {opt}: K3 ran {c['runs']} times, not {k3}")
+        names = {"Train_Samples_train_loss.csv", "Train_Samples_lr.csv",
+                 "Train_Samples_grad_norm.csv",
+                 "Train_Registry_train_batch_s_p50.csv"}
+        if not names <= set(c["files"]) or \
+                c["loss_rows"][0] != "step,Train/Samples/train_loss" or \
+                len(c["loss_rows"]) != MLP_STEPS + 1:
+            problems.append(f"(d) {opt}: csv files {c['files']} / "
+                            f"{c['loss_rows'][:2]}")
+    graph_runs["train subset (d) mlp config"] = {
+        "fused_adam": generic[("config", True)]["runs"]}
+    if problems:
+        raise AssertionError("train subset: " + "; ".join(problems))
+    return graph_runs, routes
+
+
 #: the checkpoint phase: engine A takes CKPT_SAVED steps, saves, then
 #: CKPT_MORE more; engine B (other weights) takes one step, loads A's save
 #: and takes the same CKPT_MORE
@@ -3360,6 +3886,9 @@ def main() -> int:
     train_launches, train_replayed = check_training()
     gc.collect()
     torch.cuda.empty_cache()
+    subset_runs, _ = check_train_subset()
+    gc.collect()
+    torch.cuda.empty_cache()
     check_checkpoint()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3403,6 +3932,16 @@ def main() -> int:
             "flash_attention_fwd_masked"],
         **dict(flash_masked[FLASH_MASKED_MAIN], max_abs_err=max(
             r["max_abs_err"] for r in flash_masked.values()))))
+    # K1/K2/K3's graph_launches: their device runs in the train phase's
+    # profiled replay plus those of the train subset's captured routes
+    # (graph_launches_by_phase names each)
+    def train_graph_runs(name):
+        by_phase = {"train": train_replayed[name]}
+        by_phase.update({phase: runs.get(name, 0)
+                         for phase, runs in subset_runs.items()})
+        return dict(graph_launches=sum(by_phase.values()),
+                    graph_launches_by_phase=by_phase)
+
     for name, part, line in (("flash_attention_fwd", "fwd", 41),
                              ("flash_attention_bwd_dq", "dq", 175),
                              ("flash_attention_bwd_dkv", "dkv", 221)):
@@ -3410,7 +3949,7 @@ def main() -> int:
             name=name, route="cuda",
             source="deepspeed_tpu_torch/csrc/flash_attention.cu",
             replaces=f"{flash_src}:{line}", launches=train_launches[name],
-            graph_launches=train_replayed[name],
+            **train_graph_runs(name),
             **dict(flash[FLASH_MAIN][part], max_abs_err=max(
                 r[part]["max_abs_err"] for r in flash.values()))))
     kernels.append(dict(
@@ -3418,7 +3957,7 @@ def main() -> int:
         source="deepspeed_tpu_torch/csrc/fused_adam.cu",
         replaces="deepspeed_tpu/ops/pallas/fused_adam.py:37",
         launches=train_launches["fused_adam"],
-        graph_launches=train_replayed["fused_adam"], **adam))
+        **train_graph_runs("fused_adam"), **adam))
     # K4, K5 and K8: launches of the int8-weight 8B generate (K4 runs the
     # same count in the bf16 run; K5's prefill kernel,
     # wgmma_prefill_kernel, is its own entry at the prefill shape; no

@@ -6,11 +6,16 @@ paged-attention CUDA kernel. Dense generation: ``init_inference`` ->
 ``InferenceEngine.generate`` over a contiguous KV cache, on hand-written
 decode-attention and, with ``quantize_weights`` ("int8" / "int4"),
 quantized-matmul CUDA kernels (the serving step takes quantized weights
-too). Training: ``initialize`` -> ``train_batch`` on one device, with
-hand-written flash-attention (forward and backward) and fused-Adam CUDA
-kernels. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+too). Training: ``initialize`` -> ``train_batch`` on one device (a port
+model or any ``nn.Module``; remat policies, the chunked loss, padded
+batches, progressive layer drop, a client optimizer, ``loss_fn`` and
+``training_data``), with hand-written flash-attention (forward and
+backward) and fused-Adam CUDA kernels; ``checkpointing`` is the
+activation-checkpointing API. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
+
+from . import checkpointing  # noqa: F401
 
 from .inference.engine import init_inference  # noqa: F401
 from .inference.serving.engine import (ServingConfig,  # noqa: F401

@@ -80,6 +80,33 @@ def flax_to_torch_state_dict(params_np: Dict[str, Any],
     return sd
 
 
+def flax_dense_to_torch_state_dict(params_np: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """A generic flax tree of ``Dense`` layers (numpy leaves) as an
+    ``nn.Linear`` ``state_dict``: each module path's ``kernel [in, out]``
+    becomes ``<path with / as .>.weight [out, in]`` and its ``bias``
+    ``<path>.bias``, so a torch twin names its layers as the flax modules
+    (``Dense_0``, ``block.Dense_1``)."""
+    sd = {}
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, path + [key])
+                continue
+            name = ".".join(path)
+            if key == "kernel":
+                sd[f"{name}.weight"] = _t(value).T.contiguous()
+            elif key == "bias":
+                sd[f"{name}.bias"] = _t(value)
+            else:
+                raise ValueError(f"{'/'.join(path)}/{key} is not a Dense "
+                                 f"leaf (kernel or bias)")
+
+    walk(params_np, [])
+    return sd
+
+
 def _index_tree(tree, i):
     if isinstance(tree, dict):
         return {k: _index_tree(v, i) for k, v in tree.items()}

@@ -9,17 +9,23 @@ For dense generation: the contiguous head-major cache, its append, the
 cached attention of a prefill and the cache bias. JAX arrays are
 immutable, so the JAX cache updates return new caches; here the cache
 tensors are updated in place. For the training path: ``repeat_kv``, the
-attention core, the loss and the LM head. For every path: the projection
-factory ``model_dense`` and its quantized layer ``QuantLinear``.
+attention core (flash, or plain under a padding bias), the remat policies,
+the plain and the chunked loss and the LM head. For every path: the
+projection factory ``model_dense`` and its quantized layer
+``QuantLinear``.
 """
 
 import functools
 import math
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.flash_attention import flash_attention
 from ..ops.quant_matmul import effective_group_size, quant_matmul
@@ -517,15 +523,206 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, t, h * n_rep, d)
 
 
-def dot_product_attention(q, k, v, causal: bool = True,
+def dot_product_attention(q, k, v, bias=None, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None):
     """``[B, T, H, D]`` attention core of the training path (kv heads
-    repeated): bottom-right-aligned causality and an optional window,
-    through the flash-attention wrapper (kernels K1/K2 on CUDA tensors,
-    their plain versions on CPU tensors). A padding bias is not ported."""
-    return flash_attention(q, k, v, causal=causal, sm_scale=scale,
-                           window=window)
+    repeated): bottom-right-aligned causality and an optional window.
+    Without ``bias`` it runs through the flash-attention wrapper (kernels
+    K1/K2 on CUDA tensors, their plain versions on CPU tensors). An
+    additive ``bias`` (the ``[B, 1, 1, T]`` padding bias) takes the plain
+    attention under autograd, as the JAX package sends a biased attention
+    down its XLA path: its flash kernel takes no bias, and its key-masked
+    mode has no backward."""
+    if bias is None:
+        return flash_attention(q, k, v, causal=causal, sm_scale=scale,
+                               window=window)
+    return biased_attention(q, k, v, bias, causal=causal, window=window,
+                            scale=scale)
+
+
+def biased_attention(q, k, v, bias, causal: bool = True,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None):
+    """The JAX ``dot_product_attention``'s XLA path, op for op: logits in
+    q's dtype times the scale, then fp32 with the -1e9 causal and window
+    masks and ``bias`` added, softmax, probabilities cast to q's dtype.
+    Every masked logit rounds to -1e9 (-2e9 where two masks add), so a
+    query that sees only padding spreads its weight evenly over its -1e9
+    keys, as JAX's does, and never gives NaN."""
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
+    i = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
+    j = torch.arange(Tk, device=q.device)[None, :]
+    if causal:
+        logits = logits + torch.where(i >= j, 0.0, -1e9)
+    if window is not None:
+        logits = torch.where(i - j < window, logits, -1e9)
+    probs = (logits + bias).softmax(dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def copy_into(buf: Optional[torch.Tensor],
+              value: torch.Tensor) -> torch.Tensor:
+    """``value`` copied into ``buf`` (allocated at the first call or when
+    the shape, dtype or device changes): a captured step rewrites the
+    buffer of its eager first step, so a reader sees the step that ran
+    last."""
+    value = value.detach()
+    if buf is None or buf.shape != value.shape or \
+            buf.dtype != value.dtype or buf.device != value.device:
+        return value.clone()
+    return buf.copy_(value)
+
+
+
+# ---------------------------------------------------------------------------
+# remat policies (the JAX ``resolve_remat_policy``)
+# ---------------------------------------------------------------------------
+
+_MM = frozenset({torch.ops.aten.mm, torch.ops.aten.addmm})
+_BMM = frozenset({torch.ops.aten.bmm, torch.ops.aten.baddbmm})
+
+
+@dataclass(frozen=True)
+class RematPolicy:
+    """What a rematerialized block keeps for its backward: the outputs of
+    ``saved`` (aten overload packets), on the device, or with ``offload``
+    in pinned host memory; everything else is recomputed."""
+
+    name: str
+    saved: frozenset
+    offload: bool = False
+
+
+_POLICIES = {
+    "nothing": RematPolicy("nothing", frozenset()),
+    # jax.checkpoint_policies.dots_saveable: every matmul
+    "dots": RematPolicy("dots", _MM | _BMM),
+    # ...dots_with_no_batch_dims_saveable: flax Dense has no batch dims,
+    # the attention einsums do
+    "dots_no_batch": RematPolicy("dots_no_batch", _MM),
+    # ...offload_dot_with_no_batch_dims("device", "pinned_host")
+    "offload_dots_no_batch": RematPolicy("offload_dots_no_batch", _MM,
+                                         offload=True),
+}
+
+
+def resolve_remat_policy(name: str) -> RematPolicy:
+    """The activation-checkpoint policy by name (the JAX
+    ``models/layers.py`` function, whose names and error this keeps)."""
+    if name not in _POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}; one of "
+                         f"{sorted(_POLICIES)}")
+    return _POLICIES[name]
+
+
+class HostStash:
+    """The pinned host buffers of the offload policy for one checkpointed
+    call site, by (save index, shape, dtype). A buffer is allocated at its
+    first use and kept: a CUDA graph captured after an eager step copies
+    to and from the same buffers at every replay (pinned memory cannot be
+    allocated during a capture, so a miss there raises)."""
+
+    def __init__(self):
+        self.buffers: Dict[tuple, torch.Tensor] = {}
+
+    def slot(self, i: int, like: torch.Tensor) -> torch.Tensor:
+        key = (i, tuple(like.shape), like.dtype)
+        buf = self.buffers.get(key)
+        if buf is None:
+            if like.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "the offload_dots_no_batch remat policy allocates its "
+                    "pinned host buffers in an eager step, and this "
+                    "captured step has none for a saved matmul; run an "
+                    "eager step of this shape first, or cuda_graph=False")
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              pin_memory=like.is_cuda)
+            self.buffers[key] = buf
+        return buf
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.numel() * b.element_size()
+                   for b in self.buffers.values())
+
+
+class _OffloadSaving(TorchDispatchMode):
+    """The forward of an offloaded block: each saved matmul's output is
+    copied to its host buffer (behind the matmul, on the same stream)."""
+
+    def __init__(self, saved, stash: HostStash, record: list):
+        super().__init__()
+        self.saved, self.stash, self.record = saved, stash, record
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in self.saved:
+            host = self.stash.slot(len(self.record), out)
+            host.copy_(out, non_blocking=True)
+            self.record.append(host)
+        return out
+
+
+class _OffloadLoading(TorchDispatchMode):
+    """The recompute of an offloaded block: each saved matmul is copied
+    back from its host buffer instead of computed."""
+
+    def __init__(self, saved, record: list):
+        super().__init__()
+        self.saved, self.record, self.at = saved, record, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket not in self.saved:
+            return func(*args, **(kwargs or {}))
+        host = self.record[self.at]
+        self.at += 1
+        out = torch.empty(host.shape, dtype=host.dtype,
+                          device=args[0].device)
+        return out.copy_(host, non_blocking=True)
+
+
+def _offload_contexts(saved, stash: HostStash):
+    record: list = []
+    return _OffloadSaving(saved, stash, record), \
+        _OffloadLoading(saved, record)
+
+
+def _save_policy(saved):
+    def policy_fn(ctx, func, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if func.overloadpacket in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy_fn
+
+
+def remat(fn, *args, policy="nothing", stash: Optional[HostStash] = None,
+          preserve_rng_state: bool = True):
+    """``fn(*args)`` rematerialized under ``policy`` (a name or a
+    :class:`RematPolicy`): ``torch.utils.checkpoint`` without reentry,
+    with a selective-checkpoint context that keeps the policy's matmul
+    outputs (``"nothing"``: plain checkpointing). The offload policy keeps
+    them in ``stash`` (a fresh one when None). ``preserve_rng_state``
+    (torch's default) recomputes on the generator states the forward
+    started from, so a block that draws random numbers (dropout) draws
+    them again, as ``jax.checkpoint`` replays its key; the Llama block
+    loop passes False, as a captured step must not read the CUDA
+    generator and its PLD draws are made outside the blocks. Kernels
+    launched through ctypes inside an autograd function are not aten
+    ops, so no policy keeps them: their forward runs again in the
+    backward, as the JAX dots policies keep no Pallas output."""
+    p = resolve_remat_policy(policy) if isinstance(policy, str) else policy
+    kw = dict(use_reentrant=False, preserve_rng_state=preserve_rng_state)
+    if p.offload:
+        kw["context_fn"] = functools.partial(
+            _offload_contexts, p.saved,
+            stash if stash is not None else HostStash())
+    elif p.saved:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_policy(p.saved))
+    return checkpoint(fn, *args, **kw)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -549,11 +746,92 @@ def shift_labels(input_ids: torch.Tensor,
                       torch.full_like(input_ids[:, :1], ignore_index)], dim=1)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` with fp32 results from operands of any one float dtype
+    (``preferred_element_type=jnp.float32``): on a CUDA device a bf16/fp16
+    product accumulates in fp32 and is never rounded to the operands'
+    dtype (``torch.mm(..., out_dtype=torch.float32)``); elsewhere the
+    operands are widened exactly to fp32. The gradients come back in the
+    operands' dtypes, each product accumulated in fp32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _mm_f32(g.to(a.dtype), b.t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _mm_f32(a.t(), g.to(b.dtype)).to(b.dtype)
+        return ga, gb
+
+
+def _mm_f32(a, b):
+    if a.dtype == torch.float32 or not a.is_cuda:
+        return torch.mm(a.float(), b.float())
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def _chunk_nll(hc, yc, w, bias, ignore_index: int):
+    """One chunk's (summed NLL, unmasked count), both fp32."""
+    logits = _MatmulF32.apply(hc, w)
+    if bias is not None:
+        logits = logits + bias.float()
+    mask = yc != ignore_index
+    safe = torch.where(mask, yc, torch.zeros_like(yc)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[:, None])[:, 0]
+    nll = torch.where(mask, logz - gold, torch.zeros_like(logz))
+    return nll.sum(), mask.sum().float()
+
+
+def chunked_cross_entropy_loss(hidden: torch.Tensor, w_out: torch.Tensor,
+                               labels: torch.Tensor, *,
+                               bias: Optional[torch.Tensor] = None,
+                               ignore_index: int = -100,
+                               chunk: int = 2048) -> torch.Tensor:
+    """Token-mean cross entropy without materializing ``[tokens, vocab]``
+    (the JAX function of the same name). The tokens go through the head
+    ``chunk`` at a time, each chunk checkpointed, so its logits exist only
+    while it is computed and again in its backward; the head's gradient
+    adds up over the chunks. Operands in the activation dtype (``w_out``
+    is cast to it, as the JAX body rounds an untied fp32 head), logits
+    accumulated in fp32; the tail chunk is padded with ``ignore_index``;
+    the mean is over unmasked tokens, ``s / max(c, 1)``. ``hidden``:
+    ``[B, T, H]``; ``w_out``: ``[H, V]`` (the embedding's transpose when
+    tied); ``labels``: ``[B, T]``, already shifted."""
+    b, t, h = hidden.shape
+    n = b * t
+    hs = hidden.reshape(n, h)
+    ys = labels.reshape(n)
+    w = w_out.to(hs.dtype)
+    s = c = None
+    for start in range(0, n, chunk):
+        hc, yc = hs[start:start + chunk], ys[start:start + chunk]
+        pad = chunk - hc.shape[0]
+        if pad:
+            hc = torch.cat([hc, hc.new_zeros(pad, h)])
+            yc = torch.cat([yc, yc.new_full((pad,), ignore_index)])
+        sc, cc = checkpoint(_chunk_nll, hc, yc, w, bias, ignore_index,
+                            use_reentrant=False, preserve_rng_state=False)
+        s, c = (sc, cc) if s is None else (s + sc, c + cc)
+    return s / c.clamp_min(1.0)
+
+
 def lm_head_output(hidden: torch.Tensor, embed_weight: torch.Tensor,
                    lm_head=None) -> torch.Tensor:
     """Logits through the untied head, or the embedding matrix when tied
-    (``lm_head is None``). The chunked loss (``loss_chunk > 0``) is not
-    ported."""
+    (``lm_head is None``)."""
     if lm_head is None:
         return hidden @ embed_weight.T
     return lm_head(hidden)
+
+
+def head_weight(embed_weight: torch.Tensor, lm_head=None) -> torch.Tensor:
+    """The head projection ``[H, V]`` of the chunked loss: the embedding
+    transposed when tied, else the head's weight transposed (views)."""
+    return embed_weight.T if lm_head is None else lm_head.weight.T

@@ -25,10 +25,14 @@ ported:
   ``prefill_flash_from_empty``);
 - the dense forward: ``forward(input_ids [B, T], labels)`` returns the
   fp32 token-mean cross entropy over shifted labels (logits without
-  labels), with kv heads repeated before causal (optionally windowed)
-  flash attention through ``ops.flash_attention`` (kernels K1 and K2),
-  and with ``remat`` each block recomputed in the backward
-  (``torch.utils.checkpoint``, the JAX ``"nothing"`` policy).
+  labels; with ``loss_chunk`` the chunked loss, which never makes the
+  logits), with kv heads repeated before causal (optionally windowed)
+  flash attention through ``ops.flash_attention`` (kernels K1 and K2), or
+  with a ``[B, T]`` padding ``attention_mask`` the plain attention under
+  its -1e9 key bias, as the JAX model sends a biased attention down its
+  XLA path; with ``remat`` each block is recomputed in the backward
+  under ``remat_policy`` (``layers.remat``), and with ``pld_theta``
+  progressive layer drop gates each block's residual update.
 
 Every projection comes from ``layers.model_dense``: ``nn.Linear``, or with
 ``quantize_weights`` a ``QuantLinear`` over int8/int4 codes (kernel K5).
@@ -37,8 +41,7 @@ plain PyTorch version on CPU tensors: the device decides, so the JAX
 config's ``attention_impl`` and ``decode_attention_impl`` have no
 counterpart here (both are accepted, as are the flash tile sizes).
 ``scan_layers`` changes no layout: the port keeps one module a layer, and
-the field sets the span of LAMB's trust ratio. A training padding mask,
-other remat policies and the chunked loss raise.
+the field sets the span of LAMB's trust ratio.
 
 As with a flax module, the model object is a definition: its parameters
 are built on the ``meta`` device (shapes only, no memory), and an engine
@@ -52,16 +55,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.decode_attention import (decode_attention, paged_decode_attention,
                                     paged_prefill_attention)
 from ..ops.ragged_attention import ragged_paged_attention
-from .layers import (RMSNorm, apply_rotary, cached_attention,
+from .layers import (HostStash, RMSNorm, apply_rotary, cached_attention,
+                     chunked_cross_entropy_loss, copy_into,
                      cross_entropy_loss, dot_product_attention,
-                     flash_prefill_from_empty, init_kv_cache,
-                     init_paged_kv_cache, is_paged_index, lm_head_output,
-                     masked_prefill_attention, model_dense, repeat_kv,
+                     flash_prefill_from_empty, head_weight, init_kv_cache,
+                     init_paged_kv_cache, is_paged_index, key_mask_to_bias,
+                     lm_head_output, masked_prefill_attention, model_dense,
+                     remat, repeat_kv, resolve_remat_policy,
                      rotary_embedding, shift_labels, update_kv_cache,
                      update_paged_kv_cache)
 
@@ -102,9 +106,14 @@ class LlamaConfig:
     #: training: recompute each block in the backward instead of keeping
     #: its activations
     remat: bool = True
-    #: what a rematerialized block keeps; only "nothing" is ported
+    #: what a rematerialized block keeps (``layers.resolve_remat_policy``):
+    #: "nothing", "dots" (every matmul's output), "dots_no_batch" (the
+    #: projections' outputs) or "offload_dots_no_batch" (those in pinned
+    #: host memory)
     remat_policy: str = "nothing"
-    #: >0: the chunked training loss (not ported); 0 = plain loss
+    #: >0: the training loss runs over token chunks of this size and never
+    #: makes the [tokens, vocab] logits (``layers.
+    #: chunked_cross_entropy_loss``); 0 = plain loss
     loss_chunk: int = 0
     #: a prefill that starts from an EMPTY cache (generate's, and the
     #: serving engine's monolithic paged prefill) attends its fresh K/V
@@ -155,11 +164,11 @@ class LlamaConfig:
                 "quantized_collectives and quantized_psum_block != 256 "
                 "arrive with the distributed slice of the port (ROADMAP.md "
                 "Queue 1, item 9)")
-        if self.remat_policy != "nothing" or self.loss_chunk:
-            raise NotImplementedError(
-                "remat policies other than 'nothing' and loss_chunk > 0 "
-                "arrive with the rest of the Llama training subset "
-                "(ROADMAP.md Queue 1, item 5)")
+        resolve_remat_policy(self.remat_policy)
+        if isinstance(self.loss_chunk, bool) or \
+                not isinstance(self.loss_chunk, int) or self.loss_chunk < 0:
+            raise ValueError(f"loss_chunk must be an int >= 0, got "
+                             f"{self.loss_chunk!r}")
 
     @property
     def head_dim(self) -> int:
@@ -211,9 +220,11 @@ class LlamaAttention(nn.Module):
         k = apply_rotary(self.k_proj(x).view(B, T, Hkv, D), cos, sin)
         v = self.v_proj(x).view(B, T, Hkv, D)
         if layer_cache is None:
-            # dense training path: kv heads repeated, causal flash
+            # dense training path: kv heads repeated, causal flash, or the
+            # plain attention when ``mask`` carries the padding bias
             out = dot_product_attention(q, repeat_kv(k, H // Hkv),
-                                        repeat_kv(v, H // Hkv), causal=True,
+                                        repeat_kv(v, H // Hkv), bias=mask,
+                                        causal=True,
                                         window=cfg.sliding_window)
         elif is_paged_index(cache_index):
             # the pool is updated in place (the JAX model returns a new one)
@@ -307,6 +318,30 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
+def pld_keep(p_keep: torch.Tensor, generator=None) -> torch.Tensor:
+    """One Bernoulli keep decision per layer: ``uniform < p_keep`` (as
+    ``jax.random.bernoulli`` draws it), from ``generator`` (the default
+    generator of ``p_keep``'s device when None)."""
+    u = torch.rand(p_keep.shape, generator=generator, device=p_keep.device)
+    return u < p_keep
+
+
+def pld_gates(theta, num_layers: int, generator=None, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    """Progressive layer drop's ``[L]`` gates for one step (the JAX
+    ``LlamaModel``): layer ``l`` keeps with ``p_l = 1 - (l + 1) / L * (1 -
+    theta)``; the gate is ``keep / max(p_l, 1e-6)`` (0 when dropped),
+    in ``dtype``. ``theta`` may be a device scalar, so nothing is read
+    back."""
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=device)
+    depth = (torch.arange(num_layers, device=theta.device) + 1.0) / \
+        num_layers
+    p_keep = 1.0 - depth * (1.0 - theta)
+    keep = pld_keep(p_keep, generator)
+    return torch.where(keep, 1.0 / p_keep.clamp_min(1e-6),
+                       torch.zeros_like(p_keep)).to(dtype)
+
+
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -315,11 +350,24 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(LlamaBlock(cfg)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        #: the offload remat policy's pinned host buffers, one stash a
+        #: layer (kept, so a captured step replays over the same buffers)
+        self._stashes = [HostStash() for _ in range(cfg.num_hidden_layers)]
+        #: the PLD gates of the last training forward that ran (a device
+        #: buffer, which a captured step's replays rewrite)
+        self.last_pld_gates: Optional[torch.Tensor] = None
 
     def forward(self, input_ids, cache=None, cache_index=None, positions=None,
-                attention_mask=None):
+                attention_mask=None, pld_theta=None, generator=None):
         """With ``cache`` and a contiguous ``cache_index``,
-        ``attention_mask`` is the ``[B, cache_len]`` key mask."""
+        ``attention_mask`` is the ``[B, cache_len]`` key mask; without a
+        cache it is the ``[B, T]`` padding mask of a training batch.
+        ``pld_theta`` (a device scalar) switches on progressive layer drop
+        for this forward: the keep decisions are drawn from ``generator``
+        before any block runs (outside the checkpointed blocks, whose
+        recompute restores no RNG state), and every block is still
+        computed, so a captured step's graph is the same at every
+        theta."""
         cfg = self.cfg
         x = self.embed_tokens(input_ids)
         if cfg.embed_scale is not None:
@@ -337,20 +385,34 @@ class LlamaModel(nn.Module):
                     None].expand(B, T)
         cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta,
                                     dtype=x.dtype)
-        for i, layer in enumerate(self.layers):
-            if cache is not None:
+        if cache is not None:
+            for i, layer in enumerate(self.layers):
                 x = layer(x, cos, sin, {name: t[i] for name, t in
                                         cache.items()}, cache_index,
                           attention_mask)
-            elif cfg.remat and torch.is_grad_enabled():
-                # the block draws no random numbers, so there is no RNG
-                # state to restore for the recompute; saving it would read
-                # the CUDA generator, which a captured training step must
-                # not do
-                x = checkpoint(layer, x, cos, sin, None, None,
-                               use_reentrant=False, preserve_rng_state=False)
+            return self.norm(x)
+        # training / dense forward: the padding mask as the JAX additive
+        # key bias [B, 1, 1, T] (causality stays in the attention core)
+        bias = None if attention_mask is None else \
+            key_mask_to_bias(attention_mask)
+        gates = None
+        if pld_theta is not None:
+            gates = pld_gates(pld_theta, cfg.num_hidden_layers, generator,
+                              dtype=x.dtype, device=x.device)
+            self.last_pld_gates = copy_into(self.last_pld_gates, gates)
+        rematted = cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            x_in = x
+            if rematted:
+                # the blocks draw nothing (PLD draws outside them)
+                x = remat(layer, x, cos, sin, None, None, bias,
+                          policy=cfg.remat_policy, stash=self._stashes[i],
+                          preserve_rng_state=False)
             else:
-                x = layer(x, cos, sin, None, None)
+                x = layer(x, cos, sin, None, None, bias)
+            if gates is not None:
+                # stochastic depth: a dropped block passes its input on
+                x = x_in + gates[i] * (x - x_in)
         return self.norm(x)
 
 
@@ -358,8 +420,8 @@ class LlamaForCausalLM(nn.Module):
     """``forward(input_ids, cache=, cache_index=[, positions,
     attention_mask]) -> (logits, cache)`` over a packed token batch (paged
     pool) or a ``[B, T]`` batch (contiguous cache), or ``forward(input_ids
-    [B, T], labels) -> loss`` (logits without labels); see the module
-    docstring."""
+    [B, T], labels[, attention_mask, pld_theta, generator]) -> loss``
+    (logits without labels); see the module docstring."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -370,16 +432,16 @@ class LlamaForCausalLM(nn.Module):
                 nn.Linear(config.hidden_size, config.vocab_size, bias=False)
 
     def forward(self, input_ids, labels=None, cache=None, cache_index=None,
-                attention_mask=None, positions=None):
-        if attention_mask is not None and cache is None:
-            raise NotImplementedError(
-                "a training attention_mask (padding bias) arrives with the "
-                "rest of the Llama training subset (ROADMAP.md Queue 1, "
-                "item 5); drop padding through the labels (-100)")
+                attention_mask=None, positions=None, pld_theta=None,
+                generator=None):
         hidden = self.model(input_ids, cache, cache_index, positions,
-                            attention_mask)
-        logits = lm_head_output(hidden, self.model.embed_tokens.weight,
-                                self.lm_head)
+                            attention_mask, pld_theta, generator)
+        embed = self.model.embed_tokens.weight
+        if cache is None and labels is not None and self.config.loss_chunk:
+            return chunked_cross_entropy_loss(
+                hidden, head_weight(embed, self.lm_head),
+                shift_labels(labels), chunk=self.config.loss_chunk)
+        logits = lm_head_output(hidden, embed, self.lm_head)
         if cache is not None:
             return logits, cache
         if labels is None:

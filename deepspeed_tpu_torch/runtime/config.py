@@ -2,11 +2,14 @@
 
 Counterpart of ``deepspeed_tpu/runtime/config.py`` (``DeepSpeedConfig``):
 one JSON file or dict sets the batch triangulation (train = micro x gas x
-dp), precision, optimizer, scheduler, clipping and the reporting knobs.
-This slice trains on one device (dp = 1). Every block it does not
-implement raises ``NotImplementedError`` when it is switched on, naming
-the ``ROADMAP.md`` Queue 1 entry that brings it; keys that neither package
-knows raise ``ValueError``. Nothing is silently ignored.
+dp), precision, optimizer, scheduler, clipping, progressive layer drop,
+the activation-checkpointing block, the TensorBoard and CSV monitors,
+tracing and the reporting knobs. This slice trains on one device
+(dp = 1). Every block it does not implement raises
+``NotImplementedError`` when it is switched on, naming the ``ROADMAP.md``
+Queue 1 entry that brings it; keys that neither package knows raise
+``ValueError``. ``memory_breakdown`` and ``dump_state`` are parsed and, as
+in the JAX package, acted on by nothing.
 """
 
 import dataclasses
@@ -84,6 +87,56 @@ class CheckpointConfig(ConfigBlock):
     use_node_local_storage: bool = False
 
 
+@dataclasses.dataclass
+class ProgressiveLayerDropConfig(ConfigBlock):
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
+@dataclasses.dataclass
+class ActivationCheckpointingConfig(ConfigBlock):
+    """The JAX block's fields. The engine acts on none of them (as the
+    JAX engine does: a model's remat is set in its config);
+    ``checkpointing.configure(deepspeed_config=...)`` reads
+    ``cpu_checkpointing``, ``profile`` and ``number_checkpoints``."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
+@dataclasses.dataclass
+class TensorBoardConfig(ConfigBlock):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class CSVConfig(ConfigBlock):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class TracingConfig(ConfigBlock):
+    """Switches on the process-global tracer (``monitor/tracing.py``), as
+    ``DS_TRACE_DIR`` does: spans of each ``train_batch`` and its step,
+    and with ``dir`` the flight recorder's dumps there. ``comm`` (comm
+    spans) has nothing to trace on one device."""
+
+    enabled: bool = False
+    capacity: int = 8192
+    dir: Optional[str] = None
+    flight_events: int = 512
+    comm: bool = True
+
+
 def _enabled(block) -> bool:
     return isinstance(block, dict) and bool(block.get("enabled", False))
 
@@ -101,8 +154,6 @@ def _parallel(block) -> bool:
 #: (is it switched on?, the Queue 1 entry that brings it)
 UNPORTED_BLOCKS = {
     "sparse_gradients": (bool, "the distributed and ZeRO slice (item 9)"),
-    "progressive_layer_drop": (_enabled, "the Llama training subset "
-                               "(item 5)"),
     "curriculum_learning": (_enabled, "the auxiliary subsystems (item 11)"),
     "quantize_training": (_enabled, "the auxiliary subsystems (item 11)"),
     "compression_training": (_nonempty, "the auxiliary subsystems "
@@ -110,17 +161,11 @@ UNPORTED_BLOCKS = {
     "elasticity": (_enabled, "the auxiliary subsystems (item 11)"),
     "flops_profiler": (_enabled, "the auxiliary subsystems (item 11)"),
     "autotuning": (_enabled, "the auxiliary subsystems (item 11)"),
-    "tensorboard": (_enabled, "the monitor backends (item 7)"),
-    "wandb": (_enabled, "the monitor backends (item 7)"),
-    "csv_monitor": (_enabled, "the monitor backends (item 7)"),
+    "wandb": (_enabled, "no slice: use tensorboard or csv_monitor"),
     "comms_logger": (_enabled, "the distributed and ZeRO slice (item 9)"),
-    "tracing": (_enabled, "the monitor backends (item 7)"),
     "amp": (_enabled, "no slice: use bf16 or fp16"),
     "parallel": (_parallel, "the distributed and ZeRO slice (item 9)"),
     "pipeline": (_nonempty, "the pipeline slice (item 10)"),
-    "activation_checkpointing": (_nonempty, "the Llama training subset "
-                                 "(item 5); the model's remat is set in "
-                                 "LlamaConfig"),
     "aio": (_nonempty, "the offload slice (item 11)"),
     "prescale_gradients": (bool, "the distributed and ZeRO slice (item 9)"),
     "gradient_predivide_factor": (lambda v: v != 1.0,
@@ -128,8 +173,6 @@ UNPORTED_BLOCKS = {
     "communication_data_type": (lambda v: v is not None,
                                 "the distributed and ZeRO slice (item 9)"),
     "disable_allgather": (bool, "the distributed and ZeRO slice (item 9)"),
-    "memory_breakdown": (bool, "the monitor backends (item 7)"),
-    "dump_state": (bool, "the monitor backends (item 7)"),
 }
 
 PORTED_KEYS = {
@@ -137,7 +180,9 @@ PORTED_KEYS = {
     "gradient_accumulation_steps", "steps_per_print", "gradient_clipping",
     "wall_clock_breakdown", "fp16", "bf16", "bfloat16", "optimizer",
     "scheduler", "zero_optimization", "seed", "fault_tolerance",
-    "checkpoint",
+    "checkpoint", "progressive_layer_drop", "activation_checkpointing",
+    "tensorboard", "csv_monitor", "tracing", "memory_breakdown",
+    "dump_state",
 }
 
 
@@ -203,6 +248,19 @@ class DeepSpeedConfig:
                                                      "checkpoint")
         self.load_universal_checkpoint = self.checkpoint.load_universal
         self.use_node_local_storage = self.checkpoint.use_node_local_storage
+        self.progressive_layer_drop = ProgressiveLayerDropConfig.from_dict(
+            get("progressive_layer_drop"), "progressive_layer_drop")
+        self.activation_checkpointing = \
+            ActivationCheckpointingConfig.from_dict(
+                get("activation_checkpointing"), "activation_checkpointing")
+        self.tensorboard = TensorBoardConfig.from_dict(get("tensorboard"),
+                                                       "tensorboard")
+        self.csv_monitor = CSVConfig.from_dict(get("csv_monitor"),
+                                               "csv_monitor")
+        self.tracing = TracingConfig.from_dict(get("tracing"), "tracing")
+        # parsed and acted on by neither package
+        self.memory_breakdown = get("memory_breakdown", False)
+        self.dump_state = get("dump_state", False)
         self.seed = get("seed", 1234)
 
     def _configure_train_batch_size(self) -> None:

@@ -36,6 +36,17 @@ The micro-step API (``engine(batch)``, ``backward``, ``step``) queues
 microbatches and runs ``train_batch`` at the accumulation boundary, as the
 JAX engine does.
 
+The model is a port model or any ``nn.Module`` (the JAX engine takes any
+flax module): its ``forward(**batch)`` gives the loss, or a ``loss_fn(
+module, batch, generator)`` does. A client ``torch.optim.Optimizer`` takes
+K3's place, its groups re-pointed at the masters, the engine keeping the
+device step count beside it. Progressive layer drop computes theta from
+the device step count inside the step and hands it, with the engine's
+device generator (registered with each captured graph, so every replay
+draws anew), to a model that accepts ``pld_theta``. The TensorBoard and
+CSV monitors get the JAX engine's events after each step; the
+``tracing`` block switches on the process-global tracer.
+
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``, the JAX engine's
 ``engine.py:1191-1305``): the state goes to disk under the JAX
 ``TrainState``'s leaf names and layouts (``step``, ``params/<flax path>``,
@@ -67,19 +78,23 @@ call's wall time. A shape's first step (it carries the capture) is left
 out. The MFU gauge is set only where the card's peak is known.
 """
 
+import inspect
 import os
 import re
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..inference.engine import resolve_device
+from ..models.layers import copy_into
+from ..monitor.monitor import MonitorMaster
 from ..monitor.perf import PerfAccounting, spec, train_step_flops
 from ..monitor.registry import MetricsRegistry
-from ..monitor.tracing import get_tracer
+from ..monitor.tracing import ENV_TRACE_DIR, get_tracer
+from ..monitor.tracing import configure as configure_tracing
 from ..ops.optimizers import FusedAdam, get_optimizer
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -87,6 +102,7 @@ from .config import DeepSpeedConfig
 from .config_utils import unported
 from .fp16.loss_scaler import create_loss_scaler, update_scale
 from .lr_schedules import get_lr_schedule
+from .progressive_layer_drop import ProgressiveLayerDrop
 
 #: the layer index in a state_dict name (``model.layers.3.mlp...``)
 _LAYER_INDEX = re.compile(r"(^|\.)layers\.\d+\.")
@@ -113,16 +129,16 @@ class DeepSpeedEngine:
     """See the module docstring. Construct through :func:`initialize`."""
 
     def __init__(self, model: nn.Module, config=None,
-                 model_parameters: Optional[Dict[str, Any]] = None,
-                 lr_scheduler=None, device=None, cuda_graph: bool = True):
+                 model_parameters=None, lr_scheduler=None, device=None,
+                 cuda_graph: bool = True, optimizer=None,
+                 loss_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
-        if not isinstance(model, nn.Module) or \
-                not hasattr(model, "init_params"):
-            raise NotImplementedError(
-                "initialize takes a port model (deepspeed_tpu_torch.models); "
-                "wrapping other torch modules arrives with the training "
-                "engine's remaining parts (ROADMAP.md Queue 1, item 7)")
+        if not isinstance(model, nn.Module):
+            raise TypeError(f"initialize takes a torch.nn.Module, got "
+                            f"{type(model).__name__}")
         self.module = model
+        self.loss_fn = loss_fn
+        self.client_optimizer = optimizer
         self.client_lr_scheduler = lr_scheduler
         self.global_steps = 0
         self.micro_steps = 0
@@ -136,25 +152,10 @@ class DeepSpeedEngine:
         self.compute_dtype = _DTYPES[self._config.precision]
         self.fp16_enabled = self._config.fp16.enabled
         self.bfloat16_enabled = self._config.bf16.enabled
+        self._graphed = bool(cuda_graph) and self.device.type == "cuda"
 
         # ---- fp32 masters ------------------------------------------------
-        params = model_parameters if model_parameters is not None else \
-            model.init_params(seed=self._config.seed, device=self.device)
-        want = set(model.state_dict().keys())
-        if set(params) != want:
-            raise ValueError(
-                f"model_parameters must be the model's state_dict: missing "
-                f"{sorted(want - set(params))}, unexpected "
-                f"{sorted(set(params) - want)}")
-        self.master: Dict[str, torch.Tensor] = {}
-        for name, p in params.items():
-            p = _as_tensor(p).detach()
-            if p.is_floating_point():
-                p = p.to(device=self.device, dtype=torch.float32,
-                         copy=True).requires_grad_(True)
-            else:
-                p = p.to(self.device)
-            self.master[name] = p
+        self.master = self._init_masters(model_parameters)
         self._trainable_names = [n for n, p in self.master.items()
                                  if p.requires_grad]
         self._trainable = [self.master[n] for n in self._trainable_names]
@@ -164,15 +165,27 @@ class DeepSpeedEngine:
         for p in self._trainable:
             p.grad = torch.zeros_like(p)
         self._grads = [p.grad for p in self._trainable]
+        #: the engine's random numbers (PLD's keep decisions, a loss_fn's
+        #: dropout): a generator on the device, seeded from the config, that
+        #: a captured step registers so each replay draws anew
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self._config.seed)
 
         self.lr_scheduler = self._build_lr_scheduler()
+        #: the device step count of a client optimizer (FusedAdam keeps
+        #: its own, ``optimizer.count``)
+        self._count = None
+        self._client_lrs = None
         self.optimizer = self._build_optimizer()
         self._scaler = create_loss_scaler(self._config.fp16,
                                           device=self.device) \
             if self.fp16_enabled else None
         #: skipped (fp16 overflow) steps, a device int32 scalar
         self._skipped = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._graphed = bool(cuda_graph) and self.device.type == "cuda"
+        self._pld = self._build_pld()
+        #: progressive layer drop's theta of the last step that ran (a
+        #: device scalar buffer, which a captured step's replays rewrite)
+        self.pld_theta: Optional[torch.Tensor] = None
         #: captured steps by batch signature: (graph, inputs, outputs, K3's
         #: table, which the graph reads by address at each replay)
         self._graphs: Dict[tuple, Tuple[Any, Dict[str, torch.Tensor],
@@ -184,6 +197,8 @@ class DeepSpeedEngine:
             batch_size=self.train_batch_size,
             steps_per_output=self._config.steps_per_print)
         self.wall_clock_breakdown = self._config.wall_clock_breakdown
+        self.monitor = MonitorMaster(self._config)
+        self.tracer = self._build_tracer()
         self.registry = MetricsRegistry()
         self._step_hist = self.registry.histogram("train_batch_s",
                                                   lo=1e-4, hi=4e3)
@@ -215,13 +230,143 @@ class DeepSpeedEngine:
             return None
         return get_lr_schedule(sched.type, sched.params)
 
+    def _init_masters(self, model_parameters) -> Dict[str, torch.Tensor]:
+        """The fp32 masters on the device, by parameter name: from
+        ``model_parameters`` (a ``state_dict``, or DeepSpeed's form, an
+        iterable of the module's own parameters, the ones to train), else
+        from a port model's ``init_params`` (seeded from the config), else
+        from the module's own parameters (any ``nn.Module``, as the JAX
+        engine takes any flax module). A generic module's buffers move to
+        the device; its parameters are replaced by the cast masters at
+        each bind."""
+        module = self.module
+        own = dict(module.named_parameters())
+        trained = {n for n, p in own.items() if p.requires_grad}
+        if model_parameters is None:
+            params = module.init_params(seed=self._config.seed,
+                                        device=self.device) \
+                if hasattr(module, "init_params") else own
+        elif isinstance(model_parameters, dict):
+            params = model_parameters
+        else:
+            by_id = {id(p): n for n, p in own.items()}
+            chosen = list(model_parameters)    # often a generator
+            if any(id(p) not in by_id for p in chosen):
+                raise ValueError("model_parameters holds a tensor that is "
+                                 "not a parameter of the model")
+            params = own
+            trained = {by_id[id(p)] for p in chosen}
+        if set(params) != set(own):
+            raise ValueError(
+                f"model_parameters must be the model's state_dict: missing "
+                f"{sorted(set(own) - set(params))}, unexpected "
+                f"{sorted(set(params) - set(own))}")
+        for name, b in list(module.named_buffers()):
+            owner, _, attr = name.rpartition(".")
+            module.get_submodule(owner)._buffers[attr] = b.to(self.device)
+        master = {}
+        for name, p in params.items():
+            p = _as_tensor(p).detach()
+            if p.is_floating_point():
+                p = p.to(device=self.device, dtype=torch.float32,
+                         copy=True).requires_grad_(name in trained)
+            else:
+                p = p.to(self.device)
+            master[name] = p
+        return master
+
     def _build_optimizer(self):
+        if self.client_optimizer is not None:
+            return self._adopt_client_optimizer(self.client_optimizer)
         opt = self._config.optimizer
         if opt is None:
             return FusedAdam(self._trainable, self.lr_scheduler or 1e-3)
         return get_optimizer(opt.type, self._trainable, opt.params,
                              self.lr_scheduler,
                              groups=self._trust_ratio_groups())
+
+    def _adopt_client_optimizer(self, opt):
+        """A ``torch.optim.Optimizer`` built over the module's parameters
+        (DeepSpeed's form): its groups are re-pointed at the fp32 masters,
+        which the engine's step fills with gradients. A captured step
+        needs it ``capturable``. A schedule (the config's or
+        ``lr_scheduler``) feeds each group's lr from the device step
+        count, which the engine keeps: captured through a device tensor,
+        uncaptured as a float."""
+        if not isinstance(opt, torch.optim.Optimizer):
+            raise TypeError(f"a client optimizer must be a "
+                            f"torch.optim.Optimizer, got "
+                            f"{type(opt).__name__}")
+        if opt.state:
+            raise ValueError("a client optimizer must not have stepped "
+                             "before initialize")
+        if self._config.optimizer is not None:
+            raise ValueError("pass a client optimizer or the config's "
+                             "optimizer block, not both")
+        if self._graphed and not all(g.get("capturable", False)
+                                     for g in opt.param_groups):
+            raise ValueError(
+                f"a captured training step needs a capturable client "
+                f"optimizer (e.g. torch.optim.{type(opt).__name__}(..., "
+                f"capturable=True)); or pass cuda_graph=False")
+        if self._graphed and self.fp16_enabled:
+            raise NotImplementedError(
+                "fp16 loss scaling skips an overflowed step of a client "
+                "optimizer on the host, which a captured step cannot do; "
+                "pass cuda_graph=False")
+        names = {id(p): n for n, p in self.module.named_parameters()}
+        for group in opt.param_groups:
+            try:
+                group["params"] = [self.master[names[id(p)]]
+                                   for p in group["params"]]
+            except KeyError:
+                raise ValueError("a client optimizer's group holds a tensor "
+                                 "that is not a parameter of the model")
+        self._count = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.lr_scheduler is not None and self._graphed:
+            self._client_lrs = [torch.as_tensor(
+                float(g["lr"]), dtype=torch.float32, device=self.device)
+                for g in opt.param_groups]
+            for g, lr in zip(opt.param_groups, self._client_lrs):
+                g["lr"] = lr
+        return opt
+
+    @property
+    def step_count(self) -> torch.Tensor:
+        """The device step count (int32 0-d): K3's count, or the engine's
+        beside a client optimizer. Skipped steps do not count."""
+        return self._count if self._count is not None else \
+            self.optimizer.count
+
+    def _build_pld(self):
+        """Progressive layer drop (the JAX ``engine.py:330-352``): theta is
+        computed on the device from the step count inside each step and
+        passed to the model with the engine's generator."""
+        cfg = self._config.progressive_layer_drop
+        if not cfg.enabled:
+            return None
+        if self.loss_fn is not None:
+            raise ValueError("progressive_layer_drop drives the model's "
+                             "pld_theta input and requires the default "
+                             "model loss path")
+        sig = inspect.signature(type(self.module).forward)
+        if "pld_theta" not in sig.parameters:
+            raise ValueError(f"progressive_layer_drop requires a model "
+                             f"accepting pld_theta; "
+                             f"{type(self.module).__name__} does not")
+        return ProgressiveLayerDrop(theta=cfg.theta, gamma=cfg.gamma)
+
+    def _build_tracer(self):
+        """The process-global tracer; the ``tracing`` block switches it on
+        (with the flight recorder under ``dir``), as ``DS_TRACE_DIR``
+        does."""
+        tcfg = self._config.tracing
+        if tcfg.enabled or tcfg.dir:
+            configure_tracing(trace_dir=tcfg.dir or
+                              os.environ.get(ENV_TRACE_DIR),
+                              capacity=tcfg.capacity,
+                              flight_events=tcfg.flight_events)
+        return get_tracer()
 
     def _trust_ratio_groups(self):
         """LAMB's trust-ratio groups, as indices into the trainable list: a
@@ -248,9 +393,20 @@ class DeepSpeedEngine:
         _bind(self.module, {n: p.to(dt) if p.is_floating_point() else p
                             for n, p in self.master.items()})
 
-    def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _loss(self, batch: Dict[str, torch.Tensor],
+              pld_theta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One microbatch's loss on the bound compute-dtype weights:
+        ``loss_fn(module, batch, generator)``'s first output, else the
+        module's ``forward(**batch)`` (a scalar, the first of a tuple, or
+        a dict's ``"loss"``), with PLD's theta and the generator when PLD
+        is on."""
         self._bind_params()
-        out = self.module(**batch)
+        if self.loss_fn is not None:
+            out = self.loss_fn(self.module, batch, self.generator)
+        else:
+            extra = {} if pld_theta is None else \
+                {"pld_theta": pld_theta, "generator": self.generator}
+            out = self.module(**batch, **extra)
         if isinstance(out, tuple):
             out = out[0]
         if isinstance(out, dict):
@@ -261,14 +417,20 @@ class DeepSpeedEngine:
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The JAX ``train_step`` on the device state; returns the mean
         loss and the global gradient norm as device scalars. Reads nothing
-        back, so it runs inside a CUDA graph."""
+        back (but for a client optimizer's fp16 skip and scheduled lr,
+        which run uncaptured only), so it runs inside a CUDA graph."""
         gas = self.gradient_accumulation_steps
         scale = self._scaler.cur_scale if self.fp16_enabled else None
         grads = self._grads
         torch._foreach_zero_(grads)
+        theta = None
+        if self._pld is not None:
+            theta = self._pld.get_theta(self.step_count)
+            self.pld_theta = copy_into(self.pld_theta, theta)
         total = None
         for i in range(gas):
-            loss = self._loss({k: v[i] for k, v in batch.items()}).float()
+            loss = self._loss({k: v[i] for k, v in batch.items()},
+                              theta).float()
             (loss if scale is None else loss * scale).backward()
             total = loss.detach() if total is None \
                 else total + loss.detach()
@@ -288,8 +450,29 @@ class DeepSpeedEngine:
         if clip and clip > 0:
             factor = torch.where(norm < clip, torch.ones_like(norm),
                                  clip / norm)
-        self.optimizer.step(grads, grad_scale=factor, skip=overflow)
+        if self._count is None:
+            self.optimizer.step(grads, grad_scale=factor, skip=overflow)
+        else:
+            self._client_step(grads, factor, overflow)
         return loss, norm
+
+    def _client_step(self, grads, factor, overflow) -> None:
+        """A client optimizer's step over the masters' gradients: clipped
+        in place, the lr fed from the schedule, the device count advanced.
+        An fp16 overflow (read on the host: uncaptured only) skips it."""
+        if overflow is not None and bool(overflow):
+            return
+        if factor is not None:
+            torch._foreach_mul_(grads, factor)
+        if self.lr_scheduler is not None:
+            lr = self.lr_scheduler(self._count)
+            for i, group in enumerate(self.optimizer.param_groups):
+                if self._client_lrs is not None:
+                    self._client_lrs[i].copy_(lr)
+                else:
+                    group["lr"] = float(lr)
+        self.optimizer.step()
+        self._count.add_(1)
 
     def _graphed_step(self, batch: Dict[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -322,9 +505,12 @@ class DeepSpeedEngine:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        # each replay advances the generator (PLD's draws, a loss_fn's)
+        graph.register_generator_state(self.generator)
         with torch.cuda.graph(graph, pool=self._graph_pool):
             outputs = self._train_step(inputs)
-        self._graphs[key] = (graph, inputs, outputs, self.optimizer.table)
+        self._graphs[key] = (graph, inputs, outputs,
+                             getattr(self.optimizer, "table", None))
         return out
 
     # ------------------------------------------------------------------
@@ -332,13 +518,12 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
 
     def _shape_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """``[train_batch, ...] -> [gas, micro, ...]`` on the device."""
+        """``[train_batch, ...] -> [gas, micro, ...]`` on the device (every
+        key: ``input_ids``, ``labels``, a padding ``attention_mask``, or a
+        generic module's own inputs)."""
         gas = self.gradient_accumulation_steps
         out = {}
         for k, x in batch.items():
-            if k == "attention_mask":
-                raise unported("a training attention_mask (padding bias)",
-                               "the Llama training subset (item 5)")
             x = _as_tensor(x)
             if x.shape[0] == self.train_batch_size:
                 x = x.reshape((gas, self.train_batch_size // gas)
@@ -377,8 +562,15 @@ class DeepSpeedEngine:
             self.perf.programs.program("train_step").calls > 1
         self.perf.capture_cost("train_step",
                                lambda: self._train_flops_estimate(batch))
+        tr = self.tracer
+        # the span covers the step's enqueue (reading the loss here would
+        # wait for the device every step just to trace)
+        t_step0 = time.perf_counter() if tr.enabled else 0.0
         loss, self._last_grad_norm = self._graphed_step(batch) \
             if self._graphed else self._train_step(batch)
+        if tr.enabled:
+            tr.complete("train_step", t_step0, time.perf_counter(),
+                        cat="train", args={"step": self.global_steps})
         self.global_steps += 1
         self.micro_steps += self.gradient_accumulation_steps
         self.tput_timer.stop()
@@ -394,6 +586,11 @@ class DeepSpeedEngine:
             self._last_end = end
         elif warm:
             self._note_train_perf(dt_batch)
+        if tr.enabled:
+            tr.complete("train_batch", t_batch0, time.perf_counter(),
+                        cat="train", args={"step": self.global_steps - 1})
+        if self.monitor.enabled:
+            self._write_monitor(loss)
         if self._config.steps_per_print and \
                 self.global_steps % self._config.steps_per_print == 0:
             log_dist(f"step={self.global_steps}, skipped="
@@ -402,18 +599,51 @@ class DeepSpeedEngine:
         self._last_loss = loss
         return loss
 
+    def _write_monitor(self, loss) -> None:
+        """The JAX engine's events at its steps (samples seen): the loss,
+        the lr, the fp16 loss scale and the gradient norm (when finite),
+        then the registry's snapshot at the step count. Reads the step's
+        values back, so it waits for the step."""
+        at = self.global_steps * self.train_batch_size
+        events = [("Train/Samples/train_loss", float(loss), at),
+                  ("Train/Samples/lr", self.get_lr()[0], at)]
+        if self.fp16_enabled:
+            events.append(("Train/Samples/loss_scale", self.loss_scale, at))
+        gn = self.get_global_grad_norm()
+        if gn is not None:
+            events.append(("Train/Samples/grad_norm", gn, at))
+        self.monitor.write_events(events)
+        self.monitor.write_registry(self.registry, self.global_steps,
+                                    prefix="Train/Registry/")
+
     def _train_flops_estimate(self, batch: Dict[str, torch.Tensor]):
-        """FLOPs of one step over ``batch`` (``[gas, micro, T]`` ids):
-        6·N·tokens + 12·L·B·T²·h."""
+        """FLOPs of one step over ``batch``: for a port model (``[gas,
+        micro, T]`` ids) 6·N·tokens + 12·L·B·T²·h; for any other module
+        one microbatch's forward and backward counted by torch's
+        ``FlopCounterMode`` (its matmuls and convolutions), times gas (the
+        JAX engine reads XLA's count of its compiled step)."""
         cfg = getattr(self.module, "config", None)
         ids = batch.get("input_ids")
-        if cfg is None or ids is None:
-            return None
-        gas, micro, seq = ids.shape
-        n_params = sum(p.numel() for p in self.master.values())
-        return {"flops": train_step_flops(n_params, gas * micro, seq,
-                                          cfg.num_hidden_layers,
-                                          cfg.hidden_size)}
+        if hasattr(cfg, "num_hidden_layers") and ids is not None:
+            gas, micro, seq = ids.shape
+            n_params = sum(p.numel() for p in self.master.values())
+            return {"flops": train_step_flops(n_params, gas * micro, seq,
+                                              cfg.num_hidden_layers,
+                                              cfg.hidden_size)}
+        from torch.utils.flop_counter import FlopCounterMode
+
+        state = self.generator.get_state()
+        with FlopCounterMode(display=False) as counter:
+            loss = self._loss({k: v[0] for k, v in batch.items()})
+            torch.autograd.grad(loss.float(), self._trainable,
+                                allow_unused=True)
+        self.generator.set_state(state)
+        # rebind without a graph: the counted one holds the masters'
+        # gradient accumulators on this stream
+        with torch.no_grad():
+            self._bind_params()
+        return {"flops": float(counter.get_total_flops()
+                               * self.gradient_accumulation_steps)}
 
     def _note_train_perf(self, dt_s: float) -> None:
         vals = self.perf.on_program_step("train_step", dt_s)
@@ -517,10 +747,12 @@ class DeepSpeedEngine:
         return int(self._skipped)
 
     def get_lr(self):
+        if self._count is not None:
+            return [float(g["lr"]) for g in self.optimizer.param_groups]
         if self.lr_scheduler is None:
             opt = self._config.optimizer
             return [opt.params.get("lr", 1e-3) if opt else 1e-3]
-        return [float(self.lr_scheduler(self.optimizer.count))]
+        return [float(self.lr_scheduler(self.step_count))]
 
     def get_skipped_steps(self) -> int:
         return int(self._skipped)
@@ -560,6 +792,14 @@ class DeepSpeedEngine:
             adam, counts = "1/" + adam, tuple("1/" + c for c in counts)
         return adam, counts
 
+    def _check_port_state(self, what: str) -> None:
+        """Checkpoints name the state as the JAX ``TrainState`` of a port
+        model under K3's optimizer."""
+        if not hasattr(self.module, "config") or self._count is not None:
+            raise unported(f"{what} of a module that is not a port model, "
+                           f"or of a client optimizer's state",
+                           "the training engine's remaining parts (item 7)")
+
     def _state_leaves(self, for_load: bool = False):
         """The engine's state under the JAX ``TrainState``'s names, in its
         order, as views over the live tensors (a save reads each one when
@@ -571,6 +811,7 @@ class DeepSpeedEngine:
         from ..checkpoint.from_flax import flax_leaves
         from ..checkpoint.universal import NamedLeaves
 
+        self._check_port_state("a checkpoint")
         config = self.module.config
         opt = self.optimizer
         names = self._trainable_names
@@ -619,7 +860,7 @@ class DeepSpeedEngine:
                          manifest_checksums=ft.manifest_checksums)
         # checkpoint I/O is the step loop's big non-compute latency: a
         # traced run shows which steps paid it
-        tracer = get_tracer()
+        tracer = self.tracer
         if tracer.enabled:
             tracer.complete("checkpoint_save", t_save0, time.perf_counter(),
                             cat="checkpoint", args={"tag": tag})
@@ -676,6 +917,7 @@ class DeepSpeedEngine:
         a ``__dtypes__`` list of ``name=dtype``."""
         from ..checkpoint.from_flax import flax_leaves
 
+        self._check_port_state("save_16bit_model")
         os.makedirs(save_dir, exist_ok=True)
         flat, dtypes = {}, {}
         for name, view in flax_leaves(self._consolidated_16bit_state_dict(),
@@ -717,13 +959,23 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                dist_init_required=None, collate_fn=None, config=None,
                config_params=None, loss_fn=None, example_batch=None,
                device=None, cuda_graph: bool = True
-               ) -> Tuple[DeepSpeedEngine, Any, None, Any]:
+               ) -> Tuple[DeepSpeedEngine, Any, Any, Any]:
     """Build a :class:`DeepSpeedEngine`. Returns ``(engine, optimizer,
-    None, lr_scheduler)``. ``model_parameters`` is a ``state_dict`` (the
-    JAX param tree goes through ``checkpoint.from_flax`` first); without
-    it the weights are ``model.init_params(seed=config["seed"])``, so
-    ``example_batch`` is not needed. Runs on ``cuda`` unless ``device``
-    says otherwise; there each step is one replayed CUDA graph unless
+    dataloader, lr_scheduler)``; the dataloader (a
+    :class:`~deepspeed_tpu_torch.runtime.dataloader.DeepSpeedDataLoader` of
+    microbatches) when ``training_data`` is given, else None.
+
+    ``model`` is a port model or any ``nn.Module`` whose ``forward(**batch)``
+    returns the loss (a scalar, a ``(loss, *aux)`` tuple or a dict with
+    ``"loss"``); ``loss_fn(module, batch, generator) -> (loss, aux)``
+    replaces that call. ``model_parameters`` is a ``state_dict`` (the JAX
+    param tree goes through ``checkpoint.from_flax`` first) or the module's
+    parameters; without it a port model's weights are
+    ``model.init_params(seed=config["seed"])`` and any other module's are
+    its own, so ``example_batch`` is not needed. ``optimizer`` is a client
+    ``torch.optim.Optimizer`` over the module's parameters (capturable
+    under ``cuda_graph``). Runs on ``cuda`` unless ``device`` says
+    otherwise; there each step is one replayed CUDA graph unless
     ``cuda_graph=False``, which runs the same step uncaptured. A client
     ``lr_scheduler`` is called with the device step count (a 0-d int32
     tensor) and returns the lr as a tensor, as JAX traces
@@ -733,19 +985,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if config is None and args is not None and \
             getattr(args, "deepspeed_config", None):
         config = args.deepspeed_config
-    if optimizer is not None:
-        raise unported("a client optimizer", "the training engine's "
-                       "remaining parts (item 7)")
-    if loss_fn is not None:
-        raise unported("a custom loss_fn", "the training engine's remaining "
-                       "parts (item 7)")
-    if training_data is not None:
-        raise unported("training_data (the data loader)", "the training "
-                       "engine's remaining parts (item 7)")
     if mpu is not None:
         raise unported("an mpu", "the distributed and ZeRO slice (item 9)")
     engine = DeepSpeedEngine(model, config=config,
                              model_parameters=model_parameters,
                              lr_scheduler=lr_scheduler, device=device,
-                             cuda_graph=cuda_graph)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             cuda_graph=cuda_graph, optimizer=optimizer,
+                             loss_fn=loss_fn)
+    dataloader = None
+    if training_data is not None:
+        from .dataloader import DeepSpeedDataLoader
+
+        dataloader = DeepSpeedDataLoader(training_data,
+                                         batch_size=engine.micro_batch_size,
+                                         collate_fn=collate_fn)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler

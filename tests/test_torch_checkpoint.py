@@ -471,9 +471,12 @@ def test_the_fault_tolerance_and_checkpoint_blocks_take_the_jax_defaults():
     with pytest.raises(ValueError, match="unknown keys"):
         DeepSpeedConfig({"train_batch_size": 2,
                          "checkpoint": {"tag_validation": "Warn"}})
-    with pytest.raises(NotImplementedError, match=r"item 7"):
+    with pytest.raises(NotImplementedError, match=r"wandb"):
         DeepSpeedConfig({"train_batch_size": 2,
-                         "tracing": {"enabled": True}})
+                         "wandb": {"enabled": True}})
+    with pytest.raises(NotImplementedError, match=r"item 9"):
+        DeepSpeedConfig({"train_batch_size": 2,
+                         "comms_logger": {"enabled": True}})
 
 
 def test_load_universal_in_the_config_reads_a_universal_directory(tmp_path):

@@ -21,7 +21,18 @@ present. On a machine with one, run them with
   scalars of ``alpha`` from device memory at each replay;
 - K1, K2 and K3 count their runs on the device: an uncaptured step's
   counts equal its wrappers' launches, and each replay of a captured step
-  adds the same counts (the capture adds none), skipped steps included.
+  adds the same counts (the capture adds none), skipped steps included;
+- the rest of the training subset: selective checkpointing under each
+  remat policy (the offload policy over pinned host buffers that its
+  eager first step allocates and every replay reuses), the chunked loss
+  and a padded batch, captured, repeat the uncaptured steps bit for bit;
+  the chunked loss on bf16 operands keeps its logits in fp32 (value and
+  gradients against fp64, at limits that bf16-rounded logits miss);
+  the offload stash raises in a capture that would allocate; PLD's
+  generator advances at each replay (theta on the device count, gates
+  that change, as an uncaptured engine draws them); a client optimizer
+  that is not capturable is refused under ``cuda_graph``, a capturable
+  one trains captured.
 """
 
 import numpy as np
@@ -310,3 +321,201 @@ def test_each_replay_runs_the_step_kernels_once(cuda, precision):
     assert first == runs, "the capture ran the step's kernels"
     replays, _ = counted(graphed, batches[1:4])
     assert replays == {n: 3 * c for n, c in runs.items()}, replays
+
+
+# ---------------------------------------------------------------------------
+# the rest of the training subset: remat policies, the chunked loss,
+# padded batches, PLD, a client optimizer
+# ---------------------------------------------------------------------------
+
+def _subset_engine(graphed, model_over=None, seed=0, **config_over):
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    config = {"train_batch_size": BATCH, "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 1e-3, "weight_decay": 0.1}},
+              "gradient_clipping": 1.0, "steps_per_print": 0, "seed": seed,
+              "bf16": {"enabled": True}, **config_over}
+    cfg = LlamaConfig(**SMALL, **(model_over or {}))
+    engine, *_ = dt.initialize(model=LlamaForCausalLM(cfg), config=config,
+                               device="cuda", cuda_graph=graphed)
+    return engine
+
+
+def _padded_batches(n, device, pad):
+    rs = np.random.RandomState(2)
+    out = []
+    for _ in range(n):
+        ids = torch.from_numpy(rs.randint(0, SMALL["vocab_size"],
+                                          (BATCH, SEQ)))
+        mask = torch.ones_like(ids)
+        if pad:
+            lengths = torch.from_numpy(rs.randint(SEQ // 2, SEQ + 1, BATCH))
+            mask = (torch.arange(SEQ)[None] < lengths[:, None]).long()
+        b = {"input_ids": ids, "labels": torch.where(mask > 0, ids, -100)}
+        if pad:
+            b["attention_mask"] = mask
+        out.append({k: v.to(device) for k, v in b.items()})
+    return out
+
+
+SUBSET_ROUTES = {
+    "dots": ({"remat_policy": "dots"}, False),
+    "dots_no_batch_chunked": ({"remat_policy": "dots_no_batch",
+                               "loss_chunk": 128}, False),
+    "offload_chunked": ({"remat_policy": "offload_dots_no_batch",
+                         "loss_chunk": 128}, False),
+    "padded_dots": ({"remat_policy": "dots"}, True),
+}
+
+
+@pytest.mark.parametrize("route", sorted(SUBSET_ROUTES))
+def test_selective_checkpointing_replays_the_uncaptured_steps(cuda, route):
+    """Each remat policy (the offload one over its host stash, whose
+    pinned buffers the eager first step allocates and every replay reuses),
+    the chunked loss and a padded batch: six captured steps give the
+    losses, norms and masters of six uncaptured ones, bit for bit."""
+    over, pad = SUBSET_ROUTES[route]
+    batches = _padded_batches(6, cuda, pad)
+    runs = {}
+    for graphed in (False, True):
+        eng = _subset_engine(graphed, over)
+        out = [(eng.train_batch(batch=b), eng._last_grad_norm)
+               for b in batches]
+        runs[graphed] = ([(float(a), float(n)) for a, n in out],
+                         {k: v.clone() for k, v in
+                          eng.module_state_dict().items()}, eng)
+    assert runs[True][0] == runs[False][0]
+    for name, p in runs[False][1].items():
+        assert torch.equal(runs[True][1][name], p), name
+    eng = runs[True][2]
+    assert len(eng._graphs) == 1
+    if over["remat_policy"].startswith("offload"):
+        stashes = eng.module.model._stashes
+        assert all(len(s.buffers) == 7 for s in stashes)
+        assert all(b.is_pinned() for s in stashes
+                   for b in s.buffers.values())
+
+
+def _nll64(hidden, w, labels, round_logits):
+    """The token-mean NLL of ``hidden @ w`` in fp64 (the logits rounded to
+    bf16 with ``round_logits``, the gradient passing straight through),
+    its value and gradients."""
+    h = hidden.double().reshape(-1, hidden.shape[-1]).requires_grad_(True)
+    wd = w.double().requires_grad_(True)
+    logits = h @ wd
+    if round_logits:
+        logits = logits + (logits.bfloat16().double() - logits).detach()
+    ys = labels.reshape(-1)
+    mask = ys != -100
+    gold = logits.gather(-1, torch.where(mask, ys, 0)[:, None])[:, 0]
+    loss = ((torch.logsumexp(logits, -1) - gold) * mask).sum() / mask.sum()
+    gh, gw = torch.autograd.grad(loss, (h, wd))
+    return float(loss), gh.reshape(hidden.shape), gw
+
+
+def test_chunked_loss_accumulates_bf16_logits_in_fp32(cuda):
+    """bf16 operands, 600 tokens in chunks of 256 (a ragged tail), every
+    seventh label ignored, logits of magnitude ~16: the value within 1e-4
+    of the fp64 loss of the same bf16 operands, each gradient within 4e-3
+    of fp64's in relative norm (its own bf16 rounding is ~2e-3). Logits
+    rounded to bf16 before the softmax miss both limits (the check below
+    holds the limits to that)."""
+    from deepspeed_tpu_torch.models.layers import chunked_cross_entropy_loss
+
+    rs = np.random.RandomState(0)
+    n, h, v = 600, 256, 4000
+    hidden = torch.from_numpy(rs.randn(1, n, h).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy(rs.randn(h, v).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    labels = torch.from_numpy(rs.randint(0, v, (1, n))).to(cuda)
+    labels[0, ::7] = -100
+    hh = hidden.clone().requires_grad_(True)
+    ww = w.clone().requires_grad_(True)
+    loss = chunked_cross_entropy_loss(hh, ww, labels, chunk=256)
+    gh, gw = torch.autograd.grad(loss, (hh, ww))
+    assert loss.dtype == torch.float32
+    assert gh.dtype == gw.dtype == torch.bfloat16
+
+    def errors(value, grads, ref):
+        return (abs(value - ref[0]),
+                *(float((g.double() - r).norm() / r.norm())
+                  for g, r in zip(grads, ref[1:])))
+
+    ref = _nll64(hidden, w, labels, False)
+    rounded = _nll64(hidden, w, labels, True)
+    ours = errors(float(loss), (gh, gw), ref)
+    worse = errors(rounded[0], rounded[1:], ref)
+    limits = (1e-4, 4e-3, 4e-3)
+    assert all(e <= lim for e, lim in zip(ours, limits)), ours
+    assert all(e > lim for e, lim in zip(worse, limits)), worse
+
+
+def test_offload_stash_raises_when_a_capture_would_allocate(cuda):
+    """A capture with no eager step of its shape before it finds no host
+    buffer and raises, naming ``cuda_graph=False``."""
+    from deepspeed_tpu_torch.models import layers
+
+    stash = layers.HostStash()
+    x = torch.ones(4, 4, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="cuda_graph=False"):
+        with torch.cuda.graph(graph):
+            stash.slot(0, x)
+
+
+def test_pld_generator_advances_each_replay(cuda):
+    """Twelve replays at theta 0.5, gamma 0.5: theta follows the device
+    count, the gate vectors differ between replays and equal an
+    uncaptured engine's on the same generator seed."""
+    import math
+
+    pld = {"progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                      "gamma": 0.5}}
+    batch = _padded_batches(1, cuda, False)[0]
+    runs = {}
+    for graphed in (False, True):
+        eng = _subset_engine(graphed, seed=3, **pld)
+        thetas, gates = [], []
+        for _ in range(12):
+            eng.train_batch(batch=batch)
+            thetas.append(float(eng.pld_theta))
+            gates.append(eng.module.model.last_pld_gates.float().cpu())
+        runs[graphed] = (thetas, torch.stack(gates))
+    for step, theta in enumerate(runs[True][0]):
+        assert abs(theta - (0.5 * math.exp(-0.5 * step) + 0.5)) < 1e-6
+    gates = runs[True][1]
+    assert len({tuple(g.tolist()) for g in gates[4:]}) > 1
+    assert torch.equal(gates, runs[False][1])
+
+
+def test_non_capturable_client_optimizer_raises_under_capture(cuda):
+    import deepspeed_tpu_torch as dt
+
+    model = torch.nn.Linear(8, 1)
+
+    class Wrapped(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lin = model
+
+        def forward(self, x, y):
+            return ((self.lin(x.to(self.lin.weight.dtype)).squeeze(-1).float()
+                     - y) ** 2).mean()
+
+    net = Wrapped()
+    with pytest.raises(ValueError, match="capturable"):
+        dt.initialize(model=net, config={"train_batch_size": 4},
+                      optimizer=torch.optim.AdamW(net.parameters()),
+                      device="cuda")
+    eng, opt, _, _ = dt.initialize(
+        model=net, config={"train_batch_size": 4, "steps_per_print": 0},
+        optimizer=torch.optim.AdamW(net.parameters(), capturable=True),
+        device="cuda")
+    x, y = torch.randn(4, 8, device=cuda), torch.randn(4, device=cuda)
+    losses = [float(eng.train_batch(batch={"x": x, "y": y}))
+              for _ in range(4)]
+    assert len(eng._graphs) == 1 and int(eng.step_count) == 4
+    assert losses[-1] < losses[0]

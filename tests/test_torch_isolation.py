@@ -50,6 +50,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                             & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
+    # the training subset's host modules are among the files checked
+    for mod in ("checkpointing.py", "runtime/dataloader.py",
+                "runtime/progressive_layer_drop.py", "monitor/monitor.py"):
+        assert os.path.join("deepspeed_tpu_torch", mod) in bad, mod
     # the exact-name rule: the port's own name starts with the JAX
     # package's and must not trip it
     assert "deepspeed_tpu_torch" not in FORBIDDEN

@@ -198,10 +198,11 @@ def test_dense_training_forward_matches_jax(case, remat):
 
 
 def test_model_runs_only_the_packed_paged_step():
-    """What the model still refuses: a training padding mask, unported
-    remat policies and loss chunking; the contiguous cache, the packed
-    step and the per-row paged append (the two-program engine's) all run,
-    and the from-empty flash prefill is a config the model takes."""
+    """What the model still refuses: the quantized collectives (item 9);
+    the contiguous cache, the packed step and the per-row paged append
+    (the two-program engine's) all run, a padded training batch gives a
+    finite loss, and the from-empty flash prefill, every remat policy and
+    loss chunking are configs the model takes."""
     cfg = LlamaConfig.tiny()
     model = LlamaForCausalLM(cfg)
     engine = init_inference(model, params=model.init_params(seed=0),
@@ -214,8 +215,8 @@ def test_model_runs_only_the_packed_paged_step():
     assert pool["k"][:, 2, :, :3].abs().sum() > 0, "appended through the row"
     assert not pool["k"][:, 2, :, 3:].abs().sum(), "the pad is dropped"
     assert not pool["k"][:, [0, 1, 3]].abs().sum()
-    with pytest.raises(NotImplementedError, match="attention_mask"):
-        engine.module(ids, labels=ids, attention_mask=torch.ones_like(ids))
+    pad = torch.tensor([[1, 1, 1, 0]])
+    assert torch.isfinite(engine.module(ids, labels=ids, attention_mask=pad))
     assert engine.module(ids).shape == (1, 4, cfg.vocab_size)
     cache = engine.module.init_cache(1, 6, dtype=torch.float32)
     logits, out = engine.module(ids, cache=cache, cache_index=0,
@@ -225,8 +226,11 @@ def test_model_runs_only_the_packed_paged_step():
     assert not cache["k"][:, :, :, 4:].abs().sum(), "appended in place"
     with pytest.raises(ValueError, match="mlp_activation"):
         LlamaConfig.tiny(mlp_activation="relu")
-    for knob in ({"remat_policy": "dots"}, {"loss_chunk": 64}):
+    for knob in ({"quantized_collectives": True},
+                 {"quantized_psum_block": 128}):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             LlamaConfig.tiny(**knob)
+    assert LlamaConfig.tiny(remat_policy="dots", loss_chunk=64).loss_chunk \
+        == 64
     assert LlamaConfig.tiny(
         prefill_flash_from_empty=True).prefill_flash_from_empty
