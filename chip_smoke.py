@@ -47,7 +47,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    T 4096 / 8192, fp32 D 64 block 64, non-causal BigBird and a per-head
    Fixed layout, with FlexAttention (compiled, on a BlockMask from the
    layout; main shape only) and SDPA with the layout's bool mask as
-   yardsticks, and the size of the bf16 kernels' work lists;
+   yardsticks, and the size of the bf16 kernels' work lists; and GPT-2
+   125M's shapes (12 heads of 64, no GQA; the ``gpt2_*`` cases): K6 on
+   every packed case, K7a at contexts up to 1024, K7b behind a 512-token
+   prefix, the masked K1 at the generate prefill, K4 at cache 576, K5 at
+   the decode projections (768 -> 2304, 768 -> 3072, 3072 -> 768) and the
+   768 -> 3072 prefill, int8;
 4. small references: a 2-layer fp32 model served with K6 (and K5, with
    int8 weights), with their plain versions and captured as CUDA graphs
    at bucketed widths (identical tokens), served
@@ -168,7 +173,32 @@ Phases, each printed on its own line; any failure exits non-zero:
    prints one ``long context {...}`` JSON line per length with
    bench_longctx's fields, the backward times and the host time of one
    forward call;
-10. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
+10. hf inject: module injection from HF models and HF checkpoint
+   directories (nothing downloaded; seeded random weights built from HF
+   config classes). (a) The serve phase's Llama-3-8B weights (seed 0,
+   bf16) written under HF's names as an HF directory (``config.json``,
+   8 safetensors shards of at most 2 GiB, the index) in a temporary
+   directory, then ``init_inference(checkpoint=dir, dtype=bfloat16)`` and
+   the serve phase's 16 requests on the unified engine: the uncaptured
+   serve's tokens and finish reasons, K6 once per layer per mixed step,
+   no page leaked, the host's resident set while loading under 8 GiB
+   above its start (sampled every 2 ms); prints the load's seconds and
+   GB/s (a warm read: the files were just written), the resident set,
+   ``ru_maxrss`` and the device peak; fails (never skips) when the
+   temporary directory cannot hold the weights, and removes it. (b) An
+   HF ``LlamaForCausalLM`` at Llama-3-8B's widths with 2 layers, fp32, on
+   the card, through ``init_inference(hf_model)``: logits within 1e-4 of
+   HF's. (c) An HF ``GPT2LMHeadModel(GPT2Config())`` (GPT-2 125M, 12
+   heads of 64) through ``init_inference(hf_model)``: fp32 greedy tokens
+   equal to HF's ``generate`` (4 prompts of 64, 16 new); ``generate`` at
+   the generate phase's shapes with bf16 weights, int8 weights and the
+   flash prefill (K4 12 x 63, K5 4 x 12 x 64 with int8 weights, the
+   masked K1 12); the unified engine (16 requests, prompts 64-960) and
+   the two-program engine with the prefix cache (4 x 4 on 512-token
+   prefixes, suffixes 64-448), both at 1024 positions: every request
+   finished, no page leaked, K6 / K7a / K7b once per layer per forward,
+   >= 12 prefix hits; tokens/s, TTFT and mean step printed;
+11. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line. A kernel's ``launches`` are its
    wrapper's count over its path's uncaptured run (a wrapper counts where
    it launches; a graph replays its kernels without it), except K6's,
@@ -177,13 +207,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    device over its replays: K1/K2/K3 in one replayed training step plus
    the train subset's captured routes (``graph_launches_by_phase``),
    K7a/K7b and the masked K1 in the two-program engines' replayed
-   re-serves (item 5). Each of these kernels adds one to its device count
+   re-serves (item 5); ``hf_inject_launches`` are the wrappers' counts
+   of each hf inject run that ran the kernel (GPT-2's at head dim 64). Each of these kernels adds one to its device count
    (``deepspeed_tpu_torch/ops/_runs.py``) when it runs.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -274,12 +306,14 @@ def achieved(bound_ms, bound_by, ms):
     return f"{gbps}{100 * bound_ms / ms:.1f}% of the bound"
 
 
-def ragged_case(rows, int8, seed, device="cuda"):
+def ragged_case(rows, int8, seed, device="cuda", heads=(H, HKV, D)):
     """A pool and packed batch on ``device``. ``rows``: R entries of
     ``(query_len, chunk_start)`` (query_len 0 = idle row; decode rows are
     ``(1, context - 1)``). Every row owns distinct pages covering its
     context; the rest of its table is the sentinel ``N_PAGES``. The packed
-    batch is padded to ``T_PACKED`` tokens that no row claims."""
+    batch is padded to ``T_PACKED`` tokens that no row claims. ``heads``:
+    (query heads, kv heads, head dim), Llama-3-8B's by default."""
+    Hq, Hkv, Dh = heads
     assert len(rows) == R
     g = torch.Generator(device=device).manual_seed(seed)
     bt = torch.full((R, NB), N_PAGES, dtype=torch.int32)
@@ -295,7 +329,7 @@ def ragged_case(rows, int8, seed, device="cuda"):
         qs[r], ql[r], cs[r], cl[r] = cursor, n, start, start + n
         cursor += n
     assert cursor <= T_PACKED and used <= N_PAGES
-    shape = (N_PAGES, HKV, BS, D)
+    shape = (N_PAGES, Hkv, BS, Dh)
     if int8:
         k = torch.randint(-127, 128, shape, generator=g, device=device,
                           dtype=torch.int8)
@@ -307,7 +341,7 @@ def ragged_case(rows, int8, seed, device="cuda"):
         k = torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
         v = torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
         ks = vs = None
-    q = torch.randn((T_PACKED, H, D), generator=g, device=device,
+    q = torch.randn((T_PACKED, Hq, Dh), generator=g, device=device,
                     dtype=torch.bfloat16)
     desc = [t.to(device) for t in (bt, qs, ql, cs, cl)]
     return (q, k, v, *desc), dict(k_scale=ks, v_scale=vs)
@@ -320,11 +354,12 @@ def ragged_bound(args, kw, window):
     whole output, descriptors) over HBM bandwidth and its FLOPs (QK^T and
     PV over visible keys) over the bf16 peak."""
     q, k, v, bt, qs, ql, cs, cl = args
+    Hq, Hkv, Dh = q.shape[1], k.shape[1], k.shape[3]
     elem = k.element_size()
-    page_bytes = HKV * BS * D * elem * 2 + (HKV * BS * 4 * 2
-                                            if kw["k_scale"] is not None
-                                            else 0)
-    token_bytes = H * D * q.element_size()
+    page_bytes = Hkv * BS * Dh * elem * 2 + (Hkv * BS * 4 * 2
+                                             if kw["k_scale"] is not None
+                                             else 0)
+    token_bytes = Hq * Dh * q.element_size()
     nbytes = (int(ql.sum()) + q.shape[0]) * token_bytes \
         + 4 * (bt.numel() + 4 * R)
     flops = 0
@@ -336,7 +371,7 @@ def ragged_bound(args, kw, window):
         pos = np.arange(start, start + n)
         first = pos - (window - 1) if window is not None else 0 * pos
         keys = np.minimum(pos, clen - 1) - np.maximum(first, 0) + 1
-        flops += int(keys.sum()) * H * D * 4
+        flops += int(keys.sum()) * Hq * Dh * 4
     return bound(nbytes, flops, BF16_FLOP_PER_S)
 
 
@@ -357,8 +392,17 @@ RAGGED_CASES = {
 }
 
 
+#: K6's variants: (int8 pool, window, (query heads, kv heads, head dim));
+#: gpt2_d64 has GPT-2 125M's heads (12 of 64, no GQA)
+RAGGED_VARIANTS = {"bf16": (False, None, (H, HKV, D)),
+                   "int8": (True, None, (H, HKV, D)),
+                   "window256": (False, 256, (H, HKV, D)),
+                   "gpt2_d64": (False, None, (12, 12, 64))}
+
+
 def check_ragged_attention():
-    """K6 against its plain version: bf16 pool, int8 pool, window=256.
+    """K6 against its plain version: bf16 pool, int8 pool, window=256, and
+    GPT-2's heads (D 64).
     Tolerance: both outputs are bf16 roundings of fp32 results that
     differ only in summation order (~1e-6 relative), so they agree to one
     bf16 ulp: |kernel - plain| <= 2**-7 * |plain| + 1e-3."""
@@ -369,11 +413,10 @@ def check_ragged_attention():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
-    for variant, (int8, window) in {"bf16": (False, None),
-                                    "int8": (True, None),
-                                    "window256": (False, 256)}.items():
+    for variant, (int8, window, heads) in RAGGED_VARIANTS.items():
         for name, rows in RAGGED_CASES.items():
-            args, kw = ragged_case(rows, int8, seed=len(results) + 1)
+            args, kw = ragged_case(rows, int8, seed=len(results) + 1,
+                                   heads=heads)
             kw = dict(kw, window=window)
             got = ragged_paged_attention(*args, **kw)
             ref = ragged_paged_attention_plain(*args, **kw)
@@ -389,7 +432,7 @@ def check_ragged_attention():
             results[key] = dict(max_abs_err=float(err.max()), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound,
                                 bound_by=bound_by)
-            lp = launch_params(T_PACKED, R, NB, HKV, _sm_count(0))
+            lp = launch_params(T_PACKED, R, NB, heads[1], _sm_count(0))
             log(f"parity ragged_paged_attention {key}: ok={ok} "
                 f"max_abs_err={float(err.max()):.3e} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
@@ -426,6 +469,10 @@ PAGED_CASES = {
                            (15, 16), None, (2047, 2048)]),
         "fp32_d64_g1": (1, 8, 8, 64, torch.float32, False, None,
                         [(c - 1, c) for c in (1000, 333, 16, 1)]),
+        # GPT-2 125M's heads, contexts up to its 1024 positions
+        "gpt2_d64": (1, 12, 12, 64, torch.bfloat16, False, None,
+                     [(c - 1, c) for c in (1024, 960, 777, 512, 300, 128,
+                                           64, 17)]),
     },
     "prefill": {
         "start0": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, False, None,
@@ -442,6 +489,9 @@ PAGED_CASES = {
                       [(960, 1024)]),
         "fp32_d64_b3": (40, 8, 4, 64, torch.float32, False, None,
                         [(0, 40), (100, 117), (2008, 2048)]),
+        "gpt2_d64_behind_prefix512": (PAGED_CHUNK, 12, 12, 64,
+                                      torch.bfloat16, False, None,
+                                      [(512, 576)]),
     },
 }
 
@@ -601,6 +651,10 @@ FLASH_MASKED_CASES = {
                            False),
     "fp32_window128": (2, 8, 2, 300, 64, torch.float32, 128, (300, 190),
                        True),
+    # GPT-2 125M's generate prefill (12 heads of 64, no GQA)
+    "gpt2_generate_prefill_d64": (8, 12, 12, 512, 64, torch.bfloat16, None,
+                                  (175, 487, 300, 512, 128, 401, 256, 350),
+                                  True),
 }
 
 
@@ -1344,6 +1398,9 @@ DECODE_CASES = {
     "window256_c575": (GEN_B, H, HKV, GEN_PROMPT + GEN_NEW, D,
                        torch.bfloat16, False, 256, 575),
     "fp32_d64_g1_c777": (4, 8, 8, 1000, 64, torch.float32, False, None, 777),
+    # GPT-2 125M's generate decode (12 heads of 64, no GQA)
+    "gpt2_d64_c575": (GEN_B, 12, 12, GEN_PROMPT + GEN_NEW, 64,
+                      torch.bfloat16, False, None, 575),
     # longer caches, the cache index near their end
     "c2040_s2048": (GEN_B, H, HKV, 2048, D, torch.bfloat16, False, None,
                     2040),
@@ -1483,6 +1540,12 @@ QUANT_CASES = {
     # rows through cp.async windows, not TMA)
     "fp32_m8_int8": (8, 4096, 4096, "int8", 0, torch.float32),
     "fp32_m8_int4g64_n4099": (8, 4096, 4099, "int4", 64, torch.float32),
+    # GPT-2 125M's projections (c_attn 768 -> 2304, mlp c_fc 768 -> 3072,
+    # mlp c_proj 3072 -> 768) in its int8 generate
+    "gpt2_decode_attn_int8": (8, 768, 2304, "int8", 0, torch.bfloat16),
+    "gpt2_decode_fc_int8": (8, 768, 3072, "int8", 0, torch.bfloat16),
+    "gpt2_decode_proj_int8": (8, 3072, 768, "int8", 0, torch.bfloat16),
+    "gpt2_prefill_fc_int8": (4096, 768, 3072, "int8", 0, torch.bfloat16),
 }
 # the fp32 decode's entry of the kernels line
 GEMV_TF32_MAIN = "fp32_m8_int4g64"
@@ -1776,7 +1839,6 @@ class plain_route:
 
     def __enter__(self):
         from deepspeed_tpu_torch.models import layers as layers_mod
-        from deepspeed_tpu_torch.models import llama as llama_mod
         from deepspeed_tpu_torch.ops import decode_attention as da
         from deepspeed_tpu_torch.ops import flash_attention as fa
         from deepspeed_tpu_torch.ops import quant_matmul as qm
@@ -1787,13 +1849,13 @@ class plain_route:
             return fa.flash_attention_plain(q, k, v, causal, sm_scale,
                                             window, key_mask=key_mask)[0]
 
-        self.saved = [(llama_mod, "ragged_paged_attention",
+        self.saved = [(layers_mod, "ragged_paged_attention",
                        ra.ragged_paged_attention_plain),
-                      (llama_mod, "paged_decode_attention",
+                      (layers_mod, "paged_decode_attention",
                        da.paged_decode_attention_plain),
-                      (llama_mod, "paged_prefill_attention",
+                      (layers_mod, "paged_prefill_attention",
                        da.paged_prefill_attention_plain),
-                      (llama_mod, "decode_attention",
+                      (layers_mod, "decode_attention",
                        da.decode_attention_plain),
                       (layers_mod, "flash_attention", masked_plain),
                       (layers_mod, "quant_matmul", qm.quant_matmul_plain)]
@@ -1949,9 +2011,11 @@ def left_padded_prompts(vocab, batch, lo, hi, seed):
 
 
 def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
-                 device="cuda", kv_cache_int8=False, engine_kw=None):
+                 device="cuda", kv_cache_int8=False, engine_kw=None,
+                 engine=None):
     """init_inference on seeded random weights (seed 0; the inference
-    config takes ``engine_kw`` too), two ``generate`` calls of one token
+    config takes ``engine_kw`` too; or ``engine``, an inference engine
+    already built), two ``generate`` calls of one token
     (prefill and the first sample; the first pays the engine's first-use
     costs, the second's time is the prefill's), with ``enable_cuda_graph``
     one of ``max_new_tokens`` (its first decode step runs eagerly and is
@@ -1973,14 +2037,16 @@ def generate_run(cfg, dtype, quantize_weights, ids, mask, max_new_tokens,
         flash_attention_fwd_masked
     from deepspeed_tpu_torch.ops.quant_matmul import int8_matmul, quant_matmul
 
-    model = LlamaForCausalLM(cfg)
-    params = model.init_params(seed=0, dtype=dtype, device=device)
-    engine = dt.init_inference(model, params=params, dtype=dtype,
-                               device=device,
-                               quantize_weights=quantize_weights,
-                               kv_cache_int8=kv_cache_int8,
-                               **(engine_kw or {}))
-    del params
+    if engine is None:
+        model = LlamaForCausalLM(cfg)
+        params = model.init_params(seed=0, dtype=dtype, device=device)
+        engine = dt.init_inference(model, params=params, dtype=dtype,
+                                   device=device,
+                                   quantize_weights=quantize_weights,
+                                   kv_cache_int8=kv_cache_int8,
+                                   **(engine_kw or {}))
+        del params
+
     def zero():
         decode_attention.launches = quant_matmul.launches = 0
         flash_attention_fwd_masked.launches = quant_matmul.wgmma_launches = 0
@@ -2342,7 +2408,8 @@ def check_serving():
                        mean_step_ms=1e3 * wall / max(steps, 1), steps=steps,
                        wall_s=wall, widths=dict(sorted(Counter(widths)
                                                        .items())),
-                       k6_runs=runs_k6, graphs=len(srv._graphs))
+                       k6_runs=runs_k6, graphs=len(srv._graphs),
+                       tokens=tokens[name])
         runs[name] = summary
         same = "" if twin is None else \
             f", tokens identical to {twin}: {tokens[name] == tokens[twin]}"
@@ -3846,6 +3913,387 @@ def check_checkpoint(cfg=None, device="cuda"):
     return line
 
 
+# ---------------------------------------------------------------------------
+# module injection: HF models and HF checkpoint directories
+# ---------------------------------------------------------------------------
+
+#: (a)'s Llama-3-8B directory: safetensors shards of at most this many
+#: bytes (8 shards of the 16 GB model)
+HF_SHARD_BYTES = 2 << 30
+#: (a)'s gate on the host's resident set while the directory loads
+HF_RSS_LIMIT = 8 << 30
+#: (b)'s fp32 tolerance against HF's logits (the CPU tests hold 1e-5; here
+#: cuBLAS and HF's SDPA sum in other orders over K up to 14336)
+HF_LOGIT_TOL = 1e-4
+#: (c) GPT-2 125M serving: the serve phase's engines cut to its 1024
+#: positions
+GPT2_SCFG = dict(SERVE_SCFG, max_model_len=1024)
+GPT2_LEGACY_SCFG = dict(LEGACY_SCFG, max_model_len=1024, prefix_cache=True,
+                        prefill_chunk_tokens=PAGED_CHUNK,
+                        prefill_token_budget=256)
+
+
+def _rss_bytes():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class RssPeak:
+    """The process's resident set over a block: sampled every 2 ms on a
+    thread (``/proc/self/statm``); ``start`` and ``peak`` in bytes."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, _rss_bytes())
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+
+def write_hf_directory(path, hf_config, params):
+    """``params`` (a state_dict under HF's names, on the card) written as
+    an HF checkpoint directory: ``config.json`` and sharded safetensors
+    (``model-0000i-of-0000n.safetensors`` of at most ``HF_SHARD_BYTES``
+    and ``model.safetensors.index.json``), one shard on the host at a
+    time. Returns the bytes of weights and the shard count."""
+    from safetensors.torch import save_file
+
+    hf_config.save_pretrained(path)
+    groups, size = [[]], 0
+    for name, t in params.items():
+        n = t.numel() * t.element_size()
+        if groups[-1] and size + n > HF_SHARD_BYTES:
+            groups.append([])
+            size = 0
+        groups[-1].append(name)
+        size += n
+    weight_map, total = {}, 0
+    for i, names in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        shard = {n: params[n].contiguous().cpu() for n in names}
+        total += sum(t.numel() * t.element_size() for t in shard.values())
+        save_file(shard, os.path.join(path, fname), metadata={"format": "pt"})
+        weight_map.update({n: fname for n in names})
+        del shard
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total, len(groups)
+
+
+def hf_llama3_8b_config(**over):
+    """``transformers.LlamaConfig`` at the serve phase's Llama-3-8B widths
+    (``LlamaConfig.llama3_8b``)."""
+    import transformers
+
+    return transformers.LlamaConfig(**{**dict(
+        vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=8192, rope_theta=500000.0, rms_norm_eps=1e-5,
+        tie_word_embeddings=False), **over})
+
+
+def check_hf_checkpoint_dir(serve_tokens, cfg=None, hf_config=None,
+                            device="cuda"):
+    """(a) Llama-3-8B from an HF checkpoint directory: the serve phase's
+    seeded bf16 weights written under HF's names as sharded safetensors in
+    a temporary directory, then ``init_inference(checkpoint=dir,
+    dtype=bfloat16)`` and the serve phase's unified traffic. Asserts the
+    serve phase's uncaptured tokens and finish reasons (``serve_tokens``),
+    K6 once per layer per mixed step (wrapper and device counts), no page
+    leaked, and the host's resident set while loading under
+    ``HF_RSS_LIMIT`` above where it started. Fails (never skips) when the
+    temporary directory cannot hold the weights; removes it at the end.
+    ``cfg`` / ``hf_config`` (the port's and HF's config of one model) and
+    ``device`` default to Llama-3-8B on the card (a CPU rehearsal passes
+    small ones). Returns K6's launches."""
+    import resource
+    import shutil
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
+
+    cfg = cfg or LlamaConfig.llama3_8b()
+    L = cfg.num_hidden_layers
+    params = LlamaForCausalLM(cfg).init_params(seed=0, dtype=torch.bfloat16,
+                                               device=device)
+    need = sum(t.numel() * t.element_size() for t in params.values())
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < need + (1 << 30):
+        raise AssertionError(f"hf inject (a): {tmp} has {free} bytes free, "
+                             f"the directory needs {need} + 1 GiB")
+    path = tempfile.mkdtemp(prefix="hf_llama3_8b_")
+    try:
+        t = time.perf_counter()
+        nbytes, shards = write_hf_directory(
+            path, hf_config or hf_llama3_8b_config(), params)
+        write_s = time.perf_counter() - t
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        maxrss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        with RssPeak() as rss:
+            t = time.perf_counter()
+            engine = dt.init_inference(checkpoint=path, dtype=torch.bfloat16,
+                                       device=device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+        maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        dev_peak = torch.cuda.max_memory_allocated()
+        srv, rids, res, wall, launches = serve(
+            cfg, 0, 0, None, None, SERVE_SCFG, torch.bfloat16,
+            phases=[seeded_traffic(cfg.vocab_size, 0, 16, (64, 1536),
+                                   (32, 64))], device=device,
+            srv=dt.ServingEngine(engine, dt.ServingConfig(**SERVE_SCFG)))
+        runs_k6 = kernel_runs()
+        steps = len(step_widths(srv))
+        tokens = [(res[r].state, res[r].finish_reason, res[r].tokens)
+                  for r in rids]
+        generated = sum(len(res[r].tokens) for r in rids)
+        log(f"hf inject (a) llama3_8b from an HF directory: "
+            f"{type(engine.module).__name__} x{L} layers bf16, {shards} "
+            f"safetensors shards, {nbytes / 1e9:.3f} GB written in "
+            f"{write_s:.2f} s, loaded in {load_s:.3f} s = "
+            f"{nbytes / 1e9 / load_s:.3f} GB/s (warm: the files were just "
+            f"written), host resident set {rss.start / 2**30:.2f} GiB -> "
+            f"peak {rss.peak / 2**30:.2f} GiB while loading (ru_maxrss "
+            f"{maxrss_before / 2**20:.2f} -> {maxrss / 2**20:.2f} GiB), "
+            f"device peak {dev_peak / 2**30:.2f} GiB; served "
+            f"{len(rids)} requests, {steps} mixed steps, wall {wall:.3f} s, "
+            f"{generated / wall:.1f} tok/s, K6 runs on the device "
+            f"{runs_k6}, wrapper launches {launches}, tokens identical to "
+            f"params=: {tokens == serve_tokens}")
+        srv.block_pool.check_consistent()
+        problems = []
+        if tokens != serve_tokens:
+            problems.append("tokens or finish reasons differ from the "
+                            "params= serve")
+        if srv.block_pool.used_count:
+            problems.append(f"{srv.block_pool.used_count} pages leaked")
+        k6 = launches["ragged_paged_attention"]
+        if runs_k6 != L * steps or k6 != L * steps or \
+                sum(launches.values()) != k6:
+            problems.append(f"K6 ran {runs_k6} times on the device, wrapper "
+                            f"launches {launches}, not {L} x {steps} mixed "
+                            f"steps of K6 alone")
+        if rss.peak - rss.start > HF_RSS_LIMIT:
+            problems.append(f"the host's resident set rose by "
+                            f"{(rss.peak - rss.start) / 2**30:.2f} GiB while "
+                            f"loading, over {HF_RSS_LIMIT / 2**30:.0f} GiB")
+        if problems:
+            raise AssertionError("hf inject (a): " + "; ".join(problems))
+        return k6
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def check_hf_llama_module(hf_config=None, device="cuda"):
+    """(b) An HF ``LlamaForCausalLM`` at Llama-3-8B's widths with 2
+    layers, fp32, built on the card from seed 0 (or ``hf_config`` on
+    ``device``), through ``init_inference(hf_model)``: the port's logits
+    against HF's on two seeded 128-token prompts, within ``HF_LOGIT_TOL``
+    (absolute and relative)."""
+    import transformers
+
+    import deepspeed_tpu_torch as dt
+
+    torch.manual_seed(0)
+    hc = hf_config or hf_llama3_8b_config(num_hidden_layers=2)
+    with torch.device(device):
+        hf = transformers.LlamaForCausalLM(hc).eval()
+    engine = dt.init_inference(hf, dtype=torch.float32, device=device)
+    ids = torch.from_numpy(np.random.RandomState(5).randint(
+        0, hc.vocab_size, (2, 128))).to(device)
+    with torch.no_grad():
+        want = hf(ids).logits
+    got = engine(ids)
+    err = (got - want).abs()
+    ok = bool((err <= HF_LOGIT_TOL + HF_LOGIT_TOL * want.abs()).all())
+    log(f"hf inject (b) HF LlamaForCausalLM x2 layers at llama3_8b widths, "
+        f"fp32, init_inference(hf_model) -> "
+        f"{type(engine.module).__name__}: logits {list(got.shape)} max "
+        f"|port - HF| {float(err.max()):.3e} (tolerance {HF_LOGIT_TOL:g} "
+        f"absolute and relative): ok={ok}")
+    if not ok:
+        raise AssertionError("hf inject (b): the port's logits differ from "
+                             "HF's")
+    del hf, engine, want, got, err
+
+
+def check_hf_gpt2(hf_config=None, device="cuda"):
+    """(c) GPT-2 125M: an HF ``GPT2LMHeadModel(GPT2Config())`` built on the
+    card from seed 0 through ``init_inference(hf_model)``. fp32 greedy
+    tokens of 4 seeded 64-token prompts, 16 new, must equal HF's own
+    ``generate``; then generate at the generate phase's shapes (batch 8,
+    prompts 128-512 left-padded, 64 new) with bf16 weights, int8 weights
+    and bf16 with prefill_flash_from_empty (the converted state_dict bound
+    to ``GPT2LMHeadModel`` with the flag), asserting K4, K5 and masked K1
+    counts at D 64; then unified serving (the serve phase's 16 requests,
+    prompts 64-960, 32-64 new) and two-program serving with the prefix
+    cache (4 x 4 requests on 512-token prefixes, suffixes 64-448) on
+    1024-position engines: every request finished, no page leaked, K6 /
+    K7a / K7b once per layer per forward. ``hf_config`` and ``device``
+    default to GPT-2 125M on the card. Returns the launches by run."""
+    import transformers
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import GPT2LMHeadModel
+    from deepspeed_tpu_torch.module_inject import replace_transformer_layer
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
+
+    torch.manual_seed(0)
+    with torch.device(device):
+        hf = transformers.GPT2LMHeadModel(
+            hf_config or transformers.GPT2Config()).eval()
+    eos = hf.config.eos_token_id
+    L = hf.config.n_layer
+    out = {}
+    # fp32: HF's own greedy tokens
+    engine = dt.init_inference(hf, dtype=torch.float32, device=device)
+    ids = np.random.RandomState(6).randint(0, hf.config.vocab_size, (4, 64))
+    t = time.perf_counter()
+    got = engine.generate(ids, max_new_tokens=16, eos_token_id=eos)
+    torch.cuda.synchronize()
+    port_s = time.perf_counter() - t
+    with torch.no_grad():
+        ref = hf.generate(torch.from_numpy(ids).to(device),
+                          attention_mask=torch.ones_like(
+                              torch.from_numpy(ids)).to(device),
+                          max_new_tokens=16, do_sample=False,
+                          pad_token_id=eos, eos_token_id=eos)[:, 64:]
+    ref = torch.nn.functional.pad(ref, (0, 16 - ref.shape[1]), value=eos)
+    same = torch.equal(got.cpu(), ref.cpu())
+    log(f"hf inject (c) gpt2_125m fp32 init_inference(hf_model) generate, 4 "
+        f"prompts of 64, 16 new: tokens identical to HF's generate: {same} "
+        f"({port_s:.3f} s)")
+    if not same:
+        raise AssertionError("hf inject (c): the fp32 greedy tokens differ "
+                             "from HF's generate")
+    del engine
+    model, sd = replace_transformer_layer(hf)
+    del hf
+    gen_ids, mask = left_padded_prompts(model.config.vocab_size, GEN_B, 128,
+                                        GEN_PROMPT, 0)
+    for name, weights, flash in (("bf16", None, False),
+                                 ("int8", "int8", False),
+                                 ("bf16_flash", None, True)):
+        cfg = dataclasses.replace(model.config,
+                                  prefill_flash_from_empty=flash)
+        engine = dt.init_inference(GPT2LMHeadModel(cfg), params=sd,
+                                   dtype=torch.bfloat16, device=device,
+                                   quantize_weights=weights)
+        tokens, engine, prefill_s, total_s, counts, _, finite = \
+            generate_run(None, torch.bfloat16, weights, gen_ids, mask,
+                         GEN_NEW, device=device, engine=engine)
+        steps = GEN_NEW - 1
+        w = 4 * L if weights else 0
+        want = (L * steps, w * (steps + 1), L if flash else 0, w, w * steps,
+                0, 0, 0)
+        decode_ms = 1e3 * (total_s - prefill_s) / steps
+        log(f"hf inject (c) gpt2_125m generate {name}: batch {GEN_B}, "
+            f"prompts {int(mask.sum(1).min())}-{int(mask.sum(1).max())} "
+            f"(bucket {GEN_PROMPT}), {GEN_NEW} new: prefill "
+            f"{1e3 * prefill_s:.2f} ms, mean decode step {decode_ms:.3f} ms, "
+            f"{GEN_B * GEN_NEW / total_s:.1f} tokens/s, launches K4, K5, "
+            f"masked K1, wgmma K5, gemv_tc K5, ragged K5, K8, gemv_tf32 K5 "
+            f"{counts} (want {want})")
+        if counts != want or not finite or \
+                tuple(tokens.shape) != (GEN_B, GEN_NEW):
+            raise AssertionError(f"hf inject (c) generate {name}: launches "
+                                 f"{counts} != {want}, finite {finite}, "
+                                 f"shape {tuple(tokens.shape)}")
+        out[f"generate_{name}"] = dict(zip(
+            ("decode_attention", "quant_matmul",
+             "flash_attention_fwd_masked"), counts[:3]))
+        del engine, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    engine = dt.init_inference(GPT2LMHeadModel(model.config), params=sd,
+                               dtype=torch.bfloat16, device=device)
+    vocab = model.config.vocab_size
+    for name, scfg, phases in (
+            ("unified", GPT2_SCFG,
+             [seeded_traffic(vocab, 0, 16, (64, 960), (32, 64))]),
+            ("two-program chunked+prefix_cache", GPT2_LEGACY_SCFG,
+             shared_prefix_phases(vocab, 4, 4, 512, (64, 448), (32, 64),
+                                  0))):
+        srv, rids, res, wall, launches = serve(
+            None, 0, 0, None, None, scfg, torch.bfloat16, phases=phases,
+            device=device,
+            srv=dt.ServingEngine(engine, dt.ServingConfig(**scfg)))
+        runs_k6 = kernel_runs()
+        m = srv.metrics
+        finished = sum(res[r].state == "finished" for r in rids)
+        ttft = float(np.median([res[r].ttft_s for r in rids]))
+        log(f"hf inject (c) gpt2_125m serve {name}: {len(rids)} requests, "
+            f"{finished} finished, {m.steps} steps, wall {wall:.3f} s, "
+            f"generated {m.tokens_generated} tokens = "
+            f"{m.tokens_generated / wall:.1f} tok/s, ttft_p50 {ttft:.3f} s, "
+            f"mean step {1e3 * wall / max(m.steps, 1):.2f} ms, prefix hits "
+            f"{m.prefix_hits}, preemptions {m.preemptions}, K6 runs on the "
+            f"device {runs_k6}, wrapper launches {launches}")
+        srv.block_pool.check_consistent()
+        if scfg.get("mixed_step", True):
+            steps = len([e for e in srv.tracer.events()
+                         if e["name"] == "mixed_step"])
+            want = {"ragged_paged_attention": L * steps,
+                    "paged_decode_attention": 0,
+                    "paged_prefill_attention": 0,
+                    "flash_attention_fwd_masked": 0}
+            device_ok = runs_k6 == L * steps
+        else:
+            want = {"ragged_paged_attention": 0,
+                    "paged_decode_attention": L * srv.decode_calls,
+                    "paged_prefill_attention": L * srv.prefill_chunk_calls,
+                    "flash_attention_fwd_masked": 0}
+            device_ok = srv.decode_calls > 0 and srv.prefill_chunk_calls > 0 \
+                and m.prefix_hits >= 12
+        if finished != len(rids) or srv.block_pool.used_count or \
+                m.logit_quarantines or launches != want or not device_ok:
+            raise AssertionError(
+                f"hf inject (c) serve {name}: {finished} of {len(rids)} "
+                f"finished, {srv.block_pool.used_count} pages leaked, "
+                f"{m.logit_quarantines} quarantines, launches {launches} "
+                f"(want {want}), K6 device runs {runs_k6}, prefix hits "
+                f"{m.prefix_hits}")
+        out[f"serve {name}"] = launches
+        del srv, res
+    del engine, sd, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_hf_inject(serve_tokens):
+    """The ``hf inject`` phase: (a) :func:`check_hf_checkpoint_dir`, (b)
+    :func:`check_hf_llama_module`, (c) :func:`check_hf_gpt2`. Returns the
+    launches of each run by name."""
+    launches = {"llama3_8b_from_hf_dir": {
+        "ragged_paged_attention": check_hf_checkpoint_dir(serve_tokens)}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_hf_llama_module()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update({f"gpt2_{k}": v for k, v in check_hf_gpt2().items()})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3893,6 +4341,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sparse_launches = check_long_context()
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf_runs = check_hf_inject(serve_runs["uncaptured"]["tokens"])
+
+    def hf_inject_launches(name):
+        """A kernel's launches in each hf inject run that ran it."""
+        return {run: counts[name] for run, counts in hf_runs.items()
+                if counts.get(name)}
 
     main_case = ragged["bf16/mixed"]
     kernels = [{
@@ -3904,6 +4360,7 @@ def main() -> int:
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
+        "hf_inject_launches": hf_inject_launches("ragged_paged_attention"),
     }]
     # K7a and K7b: launches of the two-program serve with the prefix cache;
     # graph_launches: their runs in its captured engine's profiled replays
@@ -3917,6 +4374,7 @@ def main() -> int:
             replaces=f"{decode_src}:{line}",
             launches=legacy_launches["chunked+prefix_cache"][name],
             graph_launches=legacy_replayed["chunked+prefix_cache"][name],
+            hf_inject_launches=hf_inject_launches(name),
             **dict(paged[kind][main_name], max_abs_err=max(
                 r["max_abs_err"] for r in paged[kind].values()))))
     flash_src = "deepspeed_tpu/ops/pallas/flash_attention.py"
@@ -3930,6 +4388,7 @@ def main() -> int:
             "flash_attention_fwd_masked"],
         graph_launches=legacy_replayed["monolithic+flash"][
             "flash_attention_fwd_masked"],
+        hf_inject_launches=hf_inject_launches("flash_attention_fwd_masked"),
         **dict(flash_masked[FLASH_MASKED_MAIN], max_abs_err=max(
             r["max_abs_err"] for r in flash_masked.values()))))
     # K1/K2/K3's graph_launches: their device runs in the train phase's
@@ -3975,7 +4434,7 @@ def main() -> int:
             name=name, route="cuda",
             source=f"deepspeed_tpu_torch/csrc/{csrc}.cu",
             replaces=f"deepspeed_tpu/ops/pallas/{replaces}",
-            launches=launches,
+            launches=launches, hf_inject_launches=hf_inject_launches(name),
             **dict(results[main_name], max_abs_err=max(
                 r["max_abs_err"] for r in results.values()))))
     # K5/K8's ragged kernel (rows TMA cannot address): its launches in the

@@ -1,4 +1,4 @@
-"""Convert between a JAX (flax) Llama param tree and the port's
+"""Convert between a JAX (flax) Llama or GPT-2 param tree and the port's
 ``state_dict``.
 
 The tree holds numpy arrays (``jax.device_get`` of the JAX package's
@@ -14,7 +14,11 @@ params); nothing here imports JAX. Layout of the tree:
 - a quantized tree (the JAX ``quantize_param_tree``'s output) holds int8
   or packed-int4 codes under a projection's ``kernel`` and fp32 scales
   under its ``wscale``: they map to ``qweight`` (NOT transposed: the codes
-  keep the ``[K, N]`` layout ``QuantLinear`` reads) and ``wscale``.
+  keep the ``[K, N]`` layout ``QuantLinear`` reads) and ``wscale``;
+- a GPT-2 tree holds ``wte``, ``wpe``, ``ln_f`` and the blocks under
+  ``h/block`` (scanned) or ``h_{i}``, with ``ln_1``/``ln_2`` LayerNorms
+  (``scale``, ``bias``) and the ``attn/c_attn``, ``attn/c_proj``,
+  ``mlp/c_fc``, ``mlp/c_proj`` Denses; the port names them as HF does.
 
 The reverse, :func:`flax_leaves`, names each flax leaf of an fp
 ``state_dict`` and gives it as a :class:`LeafView` over the port's tensors:
@@ -44,11 +48,30 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _dense(sd, name: str, dense) -> None:
+    """One flax Dense (``kernel [in, out]``, optional ``bias``; quantized:
+    codes under ``kernel`` and fp32 ``wscale``) into ``sd`` under the
+    ``nn.Linear`` / ``QuantLinear`` names ``<name>.weight`` / ``.qweight``,
+    ``.wscale``, ``.bias``."""
+    if "wscale" in dense:
+        sd[f"{name}.qweight"] = _t(dense["kernel"])
+        sd[f"{name}.wscale"] = _t(dense["wscale"]).float()
+    else:
+        sd[f"{name}.weight"] = _t(dense["kernel"]).T.contiguous()
+    if "bias" in dense:
+        sd[f"{name}.bias"] = _t(dense["bias"])
+
+
 def flax_to_torch_state_dict(params_np: Dict[str, Any],
                              config) -> Dict[str, torch.Tensor]:
-    """``params_np``: the flax ``params`` tree of a ``LlamaForCausalLM``
-    (numpy leaves); ``config``: the port's ``LlamaConfig``. Returns the
-    ``state_dict`` of the port's ``LlamaForCausalLM``."""
+    """``params_np``: the flax ``params`` tree (numpy leaves) of a JAX
+    ``LlamaForCausalLM`` or ``GPT2LMHeadModel``; ``config``: the port's
+    ``LlamaConfig`` or ``GPT2Config``, which picks the mapping. Returns the
+    port model's ``state_dict``."""
+    from ..models import GPT2Config
+
+    if isinstance(config, GPT2Config):
+        return _gpt2_state_dict(params_np, config)
     model = params_np["model"]
     L = config.num_hidden_layers
     if "layers" in model:
@@ -64,19 +87,35 @@ def flax_to_torch_state_dict(params_np: Dict[str, Any],
             sd[pre + norm + ".weight"] = _t(layer[norm]["scale"])
         for group, names in _PROJ.items():
             for name in names:
-                dense = layer[group][name]
-                if "wscale" in dense:
-                    sd[f"{pre}{group}.{name}.qweight"] = _t(dense["kernel"])
-                    sd[f"{pre}{group}.{name}.wscale"] = \
-                        _t(dense["wscale"]).float()
-                else:
-                    sd[f"{pre}{group}.{name}.weight"] = \
-                        _t(dense["kernel"]).T.contiguous()
-                if "bias" in dense:
-                    sd[f"{pre}{group}.{name}.bias"] = _t(dense["bias"])
+                _dense(sd, f"{pre}{group}.{name}", layer[group][name])
     if not config.tie_word_embeddings:
         sd["lm_head.weight"] = _t(params_np["lm_head"]["kernel"]).T \
             .contiguous()
+    return sd
+
+
+def _gpt2_state_dict(params_np: Dict[str, Any],
+                     config) -> Dict[str, torch.Tensor]:
+    """A JAX ``GPT2LMHeadModel``'s params (layers stacked under
+    ``h/block`` when scanned, else under ``h_{i}``) as the port's
+    ``state_dict`` (HF's names; the head is tied to ``wte``)."""
+    L = config.n_layer
+    if "h" in params_np:
+        layers = [_index_tree(params_np["h"]["block"], i) for i in range(L)]
+    else:
+        layers = [params_np[f"h_{i}"] for i in range(L)]
+    sd = {"transformer.wte.weight": _t(params_np["wte"]["embedding"]),
+          "transformer.wpe.weight": _t(params_np["wpe"]["embedding"])}
+    for i, layer in enumerate(layers):
+        pre = f"transformer.h.{i}."
+        for norm in ("ln_1", "ln_2"):
+            sd[f"{pre}{norm}.weight"] = _t(layer[norm]["scale"])
+            sd[f"{pre}{norm}.bias"] = _t(layer[norm]["bias"])
+        for group, name in (("attn", "c_attn"), ("attn", "c_proj"),
+                            ("mlp", "c_fc"), ("mlp", "c_proj")):
+            _dense(sd, f"{pre}{group}.{name}", layer[group][name])
+    sd["transformer.ln_f.weight"] = _t(params_np["ln_f"]["scale"])
+    sd["transformer.ln_f.bias"] = _t(params_np["ln_f"]["bias"])
     return sd
 
 

@@ -37,14 +37,17 @@ class DeepSpeedInferenceConfig:
     #: expert parallelism for MoE models
     ep_size: int = 1
     dtype: Any = None
-    #: DeepSpeed's kernel-injection switch. A port model always runs the
-    #: port's kernels, so either value is accepted
+    #: DeepSpeed's kernel-injection switch. A port model (and an injected
+    #: HF model, which becomes one) always runs the port's kernels, so
+    #: either value is accepted
     replace_with_kernel_inject: bool = True
-    #: HF module-injection policy
+    #: HF module-injection policy (a ``module_inject`` ``DSPolicy`` class
+    #: or instance; None = matched from the model or its config)
     injection_policy: Optional[Any] = None
     #: a directory written by ``checkpoint.engine.save_pytree`` (a
     #: ``state_dict`` or a flax params tree): the weights when ``params``
-    #: is not given
+    #: is not given; or an HF checkpoint directory (a ``config.json``):
+    #: the model and its weights
     checkpoint: Optional[str] = None
     #: kernel-injection workspace batch (the JAX engine reads it nowhere;
     #: serving sizes its batch in ServingConfig)
@@ -71,7 +74,8 @@ class DeepSpeedInferenceConfig:
     quantized_collectives: bool = False
     #: values per scale of the quantized all-reduce
     quantized_psum_block: int = 256
-    #: HF module-injection method
+    #: HF module-injection method ("auto" matches a policy; accepted as
+    #: the JAX package accepts it)
     replace_method: str = "auto"
     #: on a CUDA device, capture ``generate``'s decode step (one graph per
     #: batch and cache length) and the serving engine's unified step (one
@@ -127,9 +131,6 @@ class DeepSpeedInferenceConfig:
 #: (field, accepted value, slice, ROADMAP.md Queue 1 item)
 _LATER = (
     ("ep_size", 1, "MoE models", "10"),
-    ("injection_policy", None, "module-injection", "4"),
-    ("replace_method", "auto", "module-injection", "4"),
-    ("max_batch_size", 8, "module-injection", "4"),
     ("quantize_groups", 32, "legacy-quantization", "2c"),
     ("quantized_psum_block", 256, "distributed", "9"),
     ("allow_unsafe_tp", False, "distributed", "9"),

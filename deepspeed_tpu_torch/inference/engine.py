@@ -98,7 +98,7 @@ class InferenceEngine:
                 raise ValueError(
                     f"quantize_weights needs a model whose config carries "
                     f"the quant knobs and which declares its quantizable "
-                    f"projections (the Llama family), got "
+                    f"projections (the Llama and GPT-2 families), got "
                     f"{type(module).__name__}")
             module = type(module)(dataclasses.replace(
                 mcfg, quantize_weights=qw,
@@ -200,6 +200,14 @@ class InferenceEngine:
             if attention_mask is None \
             else self._tensor(attention_mask, torch.int32).reshape(B, T)
 
+        limit = self.module.max_positions
+        if limit is not None:
+            # a learned position table (GPT-2) has no row past its end
+            longest = int(mask.sum(dim=-1).max())
+            if longest + max_new_tokens > limit:
+                raise ValueError(
+                    f"a prompt of {longest} tokens and {max_new_tokens} new "
+                    f"ones exceed the model's {limit} positions")
         # pow2 shape buckets above bucket_min, as the JAX engine compiles
         # them: prompts pad on the left, extra new tokens are trimmed
         requested_new = max_new_tokens
@@ -393,14 +401,34 @@ class InferenceEngine:
         return times
 
 
+def _is_port_model(model) -> bool:
+    from ..models import GPT2LMHeadModel, LlamaForCausalLM
+
+    return isinstance(model, (GPT2LMHeadModel, LlamaForCausalLM))
+
+
 def init_inference(model=None, config=None, mp_size: Optional[int] = None,
                    dtype=None, checkpoint: Optional[str] = None, params=None,
                    quantize: Optional[bool] = None, device=None,
                    **kwargs) -> InferenceEngine:
-    """Bind ``params`` (a ``state_dict``) to ``model`` (a port model such as
-    :class:`~deepspeed_tpu_torch.models.llama.LlamaForCausalLM`). ``config``
-    may be a dict or a :class:`DeepSpeedInferenceConfig`; keyword arguments
-    override it. Runs on ``cuda`` unless ``device`` says otherwise."""
+    """Bind weights to a model and return the engine. ``model`` may be
+
+    - a port model (:class:`~deepspeed_tpu_torch.models.llama.
+      LlamaForCausalLM`, :class:`~deepspeed_tpu_torch.models.gpt2.
+      GPT2LMHeadModel`) with ``params`` (its ``state_dict``) or
+      ``checkpoint=`` (a ``save_pytree`` directory);
+    - an HF torch model (any other ``nn.Module``): module injection
+      (``module_inject.replace_transformer_layer``, with the config's
+      ``injection_policy`` or the matched one) converts it to a port model
+      and its weights;
+    - None with ``checkpoint=`` an HF checkpoint directory (a
+      ``config.json``): ``module_inject.load_checkpoint_dir`` builds the
+      port model and reads the weights shard by shard, each cast to
+      ``dtype`` and moved to the device as it is read.
+
+    ``config`` may be a dict or a :class:`DeepSpeedInferenceConfig`;
+    keyword arguments override it. Runs on ``cuda`` unless ``device`` says
+    otherwise."""
     if isinstance(config, DeepSpeedInferenceConfig):
         cfg = config
     else:
@@ -417,36 +445,47 @@ def init_inference(model=None, config=None, mp_size: Optional[int] = None,
             raise TypeError(f"init_inference: unknown options {unknown}")
         cfg = DeepSpeedInferenceConfig(**merged)
     device = resolve_device(device)
-    if not isinstance(model, nn.Module) or \
-            not hasattr(model, "init_paged_cache"):
-        raise NotImplementedError(
-            "init_inference takes a port model (deepspeed_tpu_torch.models); "
-            "HF module injection arrives with the module-injection slice of "
-            "the port (ROADMAP.md Queue 1, item 4)")
+    if model is not None and not isinstance(model, nn.Module):
+        raise TypeError(f"init_inference takes a port model or an HF torch "
+                        f"model (an nn.Module), got {type(model).__name__}")
+    if model is not None and not _is_port_model(model):
+        from ..module_inject import replace_transformer_layer
+
+        model, params = replace_transformer_layer(
+            model, policy=cfg.injection_policy)
     if params is None and cfg.checkpoint is not None:
-        params = _checkpoint_params(cfg.checkpoint, model)
-    if params is None:
-        raise ValueError("init_inference needs params (a state_dict) or "
-                         "checkpoint=")
+        if _is_hf_directory(cfg.checkpoint):
+            from ..module_inject import load_checkpoint_dir
+
+            model, params = load_checkpoint_dir(
+                cfg.checkpoint, policy=cfg.injection_policy,
+                dtype=cfg.dtype, device=device)
+        elif model is None:
+            raise ValueError("init_inference(checkpoint=<save_pytree "
+                             "directory>) needs the model it was saved from")
+        else:
+            params = _checkpoint_params(cfg.checkpoint, model)
+    if model is None or params is None:
+        raise ValueError("init_inference needs a model with params (a "
+                         "state_dict) or checkpoint=, an HF torch model, or "
+                         "checkpoint= an HF checkpoint directory")
     return InferenceEngine(model, params, cfg, device=device)
+
+
+def _is_hf_directory(path: str) -> bool:
+    import os
+
+    return os.path.isdir(path) and \
+        os.path.exists(os.path.join(path, "config.json"))
 
 
 def _checkpoint_params(path: str, model: nn.Module) -> Dict[str, Any]:
     """The ``state_dict`` in a ``save_pytree`` directory (the JAX
     engine's ``load_pytree`` branch): the port's names as saved, or a flax
-    params tree mapped through ``checkpoint.from_flax``. An HF checkpoint
-    directory (a ``config.json``) is module injection's."""
-    import os
-
+    params tree mapped through ``checkpoint.from_flax``."""
     from ..checkpoint.engine import load_pytree
     from ..checkpoint.from_flax import flax_to_torch_state_dict
 
-    if os.path.isdir(path) and \
-            os.path.exists(os.path.join(path, "config.json")):
-        raise NotImplementedError(
-            "init_inference(checkpoint=<HF directory>) arrives with the "
-            "module-injection slice of the port (ROADMAP.md Queue 1, item "
-            "4); pass a directory written by save_pytree, or params=")
     tree = load_pytree(path)
     if set(tree) == set(model.state_dict()):
         return {n: torch.from_numpy(np.array(a)) for n, a in tree.items()}

@@ -318,6 +318,12 @@ class ServingEngine:
         self.device = engine.device
         if cfg.max_model_len % cfg.block_size:
             raise ValueError("max_model_len must be a multiple of block_size")
+        positions = engine.module.max_positions
+        if positions is not None and cfg.max_model_len > positions:
+            # a learned position table (GPT-2) has no row past its end
+            raise ValueError(
+                f"max_model_len={cfg.max_model_len} exceeds the model's "
+                f"{positions} positions")
         if cfg.prefill_chunk_tokens < 0 or cfg.prefill_token_budget < 0:
             raise ValueError(
                 "prefill_chunk_tokens and prefill_token_budget must be "

@@ -1,1 +1,2 @@
+from .gpt2 import GPT2Config, GPT2LMHeadModel  # noqa: F401
 from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401

@@ -1,10 +1,14 @@
-"""Building blocks of the port's Llama model and its KV caches.
+"""Building blocks of the port's Llama and GPT-2 models and their KV
+caches.
 
 Counterparts of ``deepspeed_tpu/models/layers.py``. For the serving path:
-RMSNorm, rotary embeddings, int8 KV quantization, the paged pool, its
+RMSNorm, LayerNorm with a bias, GPT-2's GELU, the default positions,
+rotary embeddings, int8 KV quantization, the paged pool, its
 index bundle, the packed and the per-row append, the page copy of
-copy-on-write, the from-empty prefill attention and the multi-position
-logit harvest.
+copy-on-write, the from-empty prefill attention, the multi-position
+logit harvest and ``attend_cache``, the cached attention of every family
+(the paged and the contiguous-cache branches, on kernels K4, K6, K7a,
+K7b and the masked K1).
 For dense generation: the contiguous head-major cache, its append, the
 cached attention of a prefill and the cache bias. JAX arrays are
 immutable, so the JAX cache updates return new caches; here the cache
@@ -22,13 +26,17 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..ops.decode_attention import (decode_attention, paged_decode_attention,
+                                    paged_prefill_attention)
 from ..ops.flash_attention import flash_attention
 from ..ops.quant_matmul import effective_group_size, quant_matmul
+from ..ops.ragged_attention import ragged_paged_attention
 
 
 class QuantLinear(nn.Module):
@@ -94,6 +102,40 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         var = x32.pow(2).mean(dim=-1, keepdim=True)
         return (x32 * torch.rsqrt(var + self.eps) * self.weight).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with a bias (GPT-2's; flax ``nn.LayerNorm``): fp32
+    statistics, result cast back to the input dtype."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(hidden_size))
+        self.bias = nn.Parameter(torch.zeros(hidden_size))
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+def gelu_new(x):
+    """GPT-2's GELU, the tanh approximation (HF ``gelu_new``, flax
+    ``nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def default_positions(shape, cache, cache_index, device) -> torch.Tensor:
+    """The positions of a ``[B, T]`` token batch when the caller gives
+    none: in a paged step each packed token's append slot (pads, at -1,
+    read position 0); over a contiguous cache ``cache_index + [0, T)``
+    (``cache_index`` an int or a device scalar); else ``[0, T)``."""
+    B, T = shape
+    if cache is not None and is_paged_index(cache_index):
+        return cache_index["append_pos"].clamp_min(0)
+    start = 0 if cache is None else torch.as_tensor(
+        cache_index, device=device).long()
+    return (start + torch.arange(T, device=device))[None].expand(B, T)
 
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int,
@@ -485,6 +527,67 @@ def masked_prefill_attention(q, k, v, key_mask, window: Optional[int] = None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def attend_cache(q, k, v, layer_cache, cache_index, mask=None,
+                 window: Optional[int] = None,
+                 flash_from_empty: bool = False):
+    """Attention of a forward that carries a KV cache, for every family
+    (the JAX models' cached branches): ``q`` ``[B, T, H, D]``, the fresh
+    ``k``/``v`` ``[B, T, Hkv, D]`` (kv heads not repeated). Returns
+    ``[B, T, H, D]``.
+
+    With a paged bundle the K/V go into one layer's pool in place (the JAX
+    model returns a new pool), then: the unified mixed step (``token_rows``
+    in the bundle) attends a packed ragged batch through
+    ``ragged_paged_attention`` (K6); the two-program engine's decode over
+    all slots (``T == 1``) through ``paged_decode_attention`` (K7a); a
+    prefill chunk mid-prompt (``chunk_start`` in the bundle), whose cached
+    prefix lives only in the pool, through ``paged_prefill_attention``
+    (K7b); a prefill from an empty span of pages (pads at ``append_pos``
+    -1) over the fresh K/V, through the masked flash kernel when
+    ``flash_from_empty``, else :func:`masked_prefill_attention`. With a
+    contiguous cache (dense generation; ``mask`` the ``[B, S]`` key mask)
+    the K/V are appended in place, then one token a row attends through
+    ``decode_attention`` (K4), a prefill through the masked flash kernel
+    when ``flash_from_empty`` (nothing precedes the prompt) or the plain
+    :func:`cached_attention`."""
+    T = q.shape[1]
+    if is_paged_index(cache_index):
+        update_paged_kv_cache(layer_cache, k, v, cache_index)
+        pool_args = (layer_cache["k"], layer_cache["v"],
+                     cache_index["block_tables"])
+        scales = dict(k_scale=layer_cache.get("k_scale"),
+                      v_scale=layer_cache.get("v_scale"))
+        if "token_rows" in cache_index:
+            return ragged_paged_attention(
+                q[0], *pool_args, cache_index["query_start"],
+                cache_index["query_len"], cache_index["chunk_start"],
+                cache_index["context_len"], window=window, **scales)
+        if T == 1:
+            return paged_decode_attention(
+                q[:, 0], *pool_args, cache_index["context_len"],
+                window=window, **scales)[:, None]
+        if "chunk_start" in cache_index:
+            return paged_prefill_attention(
+                q, *pool_args, cache_index["chunk_start"],
+                cache_index["context_len"], window=window, **scales)
+        key_mask = (cache_index["append_pos"] >= 0).int()
+        if flash_from_empty:
+            return flash_prefill_from_empty(q, k, v, key_mask=key_mask,
+                                            window=window)
+        return masked_prefill_attention(q, k, v, key_mask, window=window)
+    update_kv_cache(layer_cache, k, v, cache_index)
+    if T == 1:
+        return decode_attention(
+            q[:, 0], layer_cache["k"], layer_cache["v"], cache_index,
+            key_mask=mask, window=window, k_scale=layer_cache.get("k_scale"),
+            v_scale=layer_cache.get("v_scale"))[:, None]
+    if flash_from_empty:
+        return flash_prefill_from_empty(q, k, v, key_mask=mask,
+                                        window=window)
+    return cached_attention(q, layer_cache, cache_index, key_mask=mask,
+                            window=window)
+
+
 def harvest_packed_logits(logits, token_rows, num_rows: int, corrupt=None):
     """Multi-position harvest of the packed mixed step.
 
@@ -525,31 +628,35 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def dot_product_attention(q, k, v, bias=None, causal: bool = True,
                           window: Optional[int] = None,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None,
+                          dropout_p: float = 0.0):
     """``[B, T, H, D]`` attention core of the training path (kv heads
     repeated): bottom-right-aligned causality and an optional window.
-    Without ``bias`` it runs through the flash-attention wrapper (kernels
-    K1/K2 on CUDA tensors, their plain versions on CPU tensors). An
-    additive ``bias`` (the ``[B, 1, 1, T]`` padding bias) takes the plain
-    attention under autograd, as the JAX package sends a biased attention
-    down its XLA path: its flash kernel takes no bias, and its key-masked
-    mode has no backward."""
-    if bias is None:
+    Without ``bias`` or dropout it runs through the flash-attention wrapper
+    (kernels K1/K2 on CUDA tensors, their plain versions on CPU tensors).
+    An additive ``bias`` (the ``[B, 1, 1, T]`` padding bias) or a
+    ``dropout_p`` takes the plain attention under autograd, as the JAX
+    package sends a biased or dropped-out attention down its XLA path: its
+    flash kernel takes no bias and draws nothing, and its key-masked mode
+    has no backward."""
+    if bias is None and not dropout_p:
         return flash_attention(q, k, v, causal=causal, sm_scale=scale,
                                window=window)
     return biased_attention(q, k, v, bias, causal=causal, window=window,
-                            scale=scale)
+                            scale=scale, dropout_p=dropout_p)
 
 
-def biased_attention(q, k, v, bias, causal: bool = True,
+def biased_attention(q, k, v, bias=None, causal: bool = True,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None,
+                     dropout_p: float = 0.0):
     """The JAX ``dot_product_attention``'s XLA path, op for op: logits in
     q's dtype times the scale, then fp32 with the -1e9 causal and window
-    masks and ``bias`` added, softmax, probabilities cast to q's dtype.
-    Every masked logit rounds to -1e9 (-2e9 where two masks add), so a
-    query that sees only padding spreads its weight evenly over its -1e9
-    keys, as JAX's does, and never gives NaN."""
+    masks and ``bias`` (when given) added, softmax, dropout of the
+    probabilities with torch's draws (when ``dropout_p``), probabilities
+    cast to q's dtype. Every masked logit rounds to -1e9 (-2e9 where two
+    masks add), so a query that sees only padding spreads its weight
+    evenly over its -1e9 keys, as JAX's does, and never gives NaN."""
     Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -560,7 +667,12 @@ def biased_attention(q, k, v, bias, causal: bool = True,
         logits = logits + torch.where(i >= j, 0.0, -1e9)
     if window is not None:
         logits = torch.where(i - j < window, logits, -1e9)
-    probs = (logits + bias).softmax(dim=-1).to(q.dtype)
+    if bias is not None:
+        logits = logits + bias
+    probs = logits.softmax(dim=-1)
+    if dropout_p:
+        probs = F.dropout(probs, dropout_p, training=True)
+    probs = probs.to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 

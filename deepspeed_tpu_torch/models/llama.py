@@ -34,7 +34,9 @@ ported:
   under ``remat_policy`` (``layers.remat``), and with ``pld_theta``
   progressive layer drop gates each block's residual update.
 
-Every projection comes from ``layers.model_dense``: ``nn.Linear``, or with
+The cached branches (paged and contiguous) are ``layers.attend_cache``,
+which GPT-2 shares. Every projection comes from ``layers.model_dense``:
+``nn.Linear``, or with
 ``quantize_weights`` a ``QuantLinear`` over int8/int4 codes (kernel K5).
 Each wrapper launches its hand-written kernel on CUDA tensors and its
 plain PyTorch version on CPU tensors: the device decides, so the JAX
@@ -56,18 +58,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.decode_attention import (decode_attention, paged_decode_attention,
-                                    paged_prefill_attention)
-from ..ops.ragged_attention import ragged_paged_attention
-from .layers import (HostStash, RMSNorm, apply_rotary, cached_attention,
+from .layers import (HostStash, RMSNorm, apply_rotary, attend_cache,
                      chunked_cross_entropy_loss, copy_into,
-                     cross_entropy_loss, dot_product_attention,
-                     flash_prefill_from_empty, head_weight, init_kv_cache,
-                     init_paged_kv_cache, is_paged_index, key_mask_to_bias,
-                     lm_head_output, masked_prefill_attention, model_dense,
-                     remat, repeat_kv, resolve_remat_policy,
-                     rotary_embedding, shift_labels, update_kv_cache,
-                     update_paged_kv_cache)
+                     cross_entropy_loss, default_positions,
+                     dot_product_attention, head_weight, init_kv_cache,
+                     init_paged_kv_cache, key_mask_to_bias, lm_head_output,
+                     model_dense, remat, repeat_kv, resolve_remat_policy,
+                     rotary_embedding, shift_labels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,63 +223,10 @@ class LlamaAttention(nn.Module):
                                         repeat_kv(v, H // Hkv), bias=mask,
                                         causal=True,
                                         window=cfg.sliding_window)
-        elif is_paged_index(cache_index):
-            # the pool is updated in place (the JAX model returns a new one)
-            update_paged_kv_cache(layer_cache, k, v, cache_index)
-            pool_args = (layer_cache["k"], layer_cache["v"],
-                         cache_index["block_tables"])
-            scales = dict(k_scale=layer_cache.get("k_scale"),
-                          v_scale=layer_cache.get("v_scale"))
-            if "token_rows" in cache_index:
-                # the unified mixed step: a packed ragged token batch
-                out = ragged_paged_attention(
-                    q[0], *pool_args, cache_index["query_start"],
-                    cache_index["query_len"], cache_index["chunk_start"],
-                    cache_index["context_len"], window=cfg.sliding_window,
-                    **scales)
-            elif T == 1:
-                # the two-program engine's decode over all slots
-                out = paged_decode_attention(
-                    q[:, 0], *pool_args, cache_index["context_len"],
-                    window=cfg.sliding_window, **scales)[:, None]
-            elif "chunk_start" in cache_index:
-                # a prefill chunk mid-prompt: the cached prefix (prefix-
-                # cache hits and earlier chunks) lives only in the pool
-                out = paged_prefill_attention(
-                    q, *pool_args, cache_index["chunk_start"],
-                    cache_index["context_len"], window=cfg.sliding_window,
-                    **scales)
-            else:
-                # a prefill from an empty span of pages: attention over
-                # the fresh K/V equals cache attention; pads carry
-                # append_pos = -1
-                key_mask = (cache_index["append_pos"] >= 0).int()
-                if cfg.prefill_flash_from_empty:
-                    out = flash_prefill_from_empty(
-                        q, k, v, key_mask=key_mask,
-                        window=cfg.sliding_window)
-                else:
-                    out = masked_prefill_attention(
-                        q, k, v, key_mask, window=cfg.sliding_window)
         else:
-            # contiguous cache (dense generation), updated in place; mask
-            # is the [B, S] key mask
-            update_kv_cache(layer_cache, k, v, cache_index)
-            if T == 1:
-                out = decode_attention(
-                    q[:, 0], layer_cache["k"], layer_cache["v"], cache_index,
-                    key_mask=mask, window=cfg.sliding_window,
-                    k_scale=layer_cache.get("k_scale"),
-                    v_scale=layer_cache.get("v_scale"))[:, None]
-            elif cfg.prefill_flash_from_empty:
-                # from-empty prefill over the fresh K/V (the flag's
-                # contract: nothing precedes the prompt in the cache)
-                out = flash_prefill_from_empty(q, k, v, key_mask=mask,
-                                               window=cfg.sliding_window)
-            else:
-                out = cached_attention(q, layer_cache, cache_index,
-                                       key_mask=mask,
-                                       window=cfg.sliding_window)
+            out = attend_cache(q, k, v, layer_cache, cache_index, mask,
+                               window=cfg.sliding_window,
+                               flash_from_empty=cfg.prefill_flash_from_empty)
         return self.o_proj(out.reshape(B, T, H * D))
 
 
@@ -372,17 +316,9 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         if cfg.embed_scale is not None:
             x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
-        B, T = input_ids.shape
         if positions is None:
-            if cache is not None and is_paged_index(cache_index):
-                # each packed token's position IS its append slot (pads
-                # are -1)
-                positions = cache_index["append_pos"].clamp_min(0)
-            else:
-                start = 0 if cache is None else torch.as_tensor(
-                    cache_index, device=x.device).long()
-                positions = (start + torch.arange(T, device=x.device))[
-                    None].expand(B, T)
+            positions = default_positions(input_ids.shape, cache,
+                                          cache_index, x.device)
         cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta,
                                     dtype=x.dtype)
         if cache is not None:
@@ -447,6 +383,10 @@ class LlamaForCausalLM(nn.Module):
         if labels is None:
             return logits
         return cross_entropy_loss(logits, shift_labels(labels))
+
+    #: no learned position table: RoPE takes any length (see
+    #: ``GPT2LMHeadModel.max_positions``)
+    max_positions = None
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):

@@ -14,11 +14,20 @@ both sides.
 Scenarios that do not need a real stall run on a virtual clock (the
 engines' and the fault injector's ``time``), so deadlines and stalls are
 judged on the same virtual seconds on both sides and the outcome does not
-depend on how fast either package runs on this machine. The watchdog
-scenarios stall for real. The SLO verdicts are held to the JAX engine's
-on crafted requests and on served traffic.
+depend on how fast either package runs on this machine. In the watchdog
+scenarios the port still runs on the virtual clock (its watchdog judges
+``perf_counter`` deadlines), while the JAX engine's watchdog joins a real
+thread: there the fired stall is held open on a ``threading.Event`` until
+the scenario releases it after the trip (:class:`HeldStall`), and the JAX
+engine's budget is 1 s, so no step but the stalled one comes near it
+while other test processes load the CPU. A scenario's bound on how long
+its drain takes is read on the clock its engine's watchdog reads. The SLO
+verdicts are held to the JAX engine's on crafted requests and on served
+traffic.
 """
 
+import math
+import threading
 import time
 from types import SimpleNamespace
 
@@ -124,10 +133,49 @@ class VirtualClock:
         return time.strftime(*a)
 
 
-def _drain(srv):
+#: the JAX engine's watchdog budget in the watchdog scenarios (real
+#: seconds; the port judges SCFG's 0.4 s on the virtual clock)
+REAL_BUDGET_S = 1.0
+
+#: a held stall that nobody releases ends after this long (a failed
+#: scenario must not leave its thread behind for the rest of the run)
+HELD_MAX_S = 60.0
+
+
+class HeldStall:
+    """``time`` for the JAX fault injector in the watchdog scenarios: its
+    stall loop (``while time.time() < deadline: time.sleep(...)``) sees a
+    clock that stands still until :meth:`release` (or ``HELD_MAX_S``) and
+    then jumps past every deadline, and its sleeps wait on the release. So
+    a fired stall lasts until the scenario releases it, however long the
+    step's budget, and the watchdog trips on it and on nothing else
+    whatever the load on the machine."""
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.armed = time.monotonic()
+
+    def time(self):
+        held = not self.event.is_set() and \
+            time.monotonic() - self.armed < HELD_MAX_S
+        return 0.0 if held else math.inf
+
+    def sleep(self, s):
+        self.event.wait(min(s, 1.0))
+
+    def release(self):
+        self.event.set()
+
+
+def _drain(srv, release=None):
+    """Step ``srv`` until it has no work; with ``release``, call it once a
+    step has tripped the watchdog."""
     steps = 0
+    trips = srv.metrics.watchdog_trips
     while srv.has_work():
         srv.step()
+        if release is not None and srv.metrics.watchdog_trips > trips:
+            release()
         steps += 1
         assert steps < MAX_DRAIN_STEPS, "engine wedged under chaos"
 
@@ -151,21 +199,35 @@ COUNTERS = ("watchdog_trips", "logit_quarantines", "requests_failed",
 def _chaos(engines, monkeypatch, spec, body, virtual=True):
     """Run ``body(srv)`` (returns its rids) on each engine under ``spec``,
     then drain and hold the chaos invariant, and serve a fresh request.
-    Returns, by side, the requests' (state, reason, tokens) and the
-    counters' deltas; asserts the two sides equal."""
+    ``virtual`` is True (both sides on the virtual clock) or "port" (the
+    watchdog scenarios: the port on the virtual clock, the JAX engine on
+    the real one with its stalls held, :class:`HeldStall`, and a budget
+    of ``REAL_BUDGET_S``); with "port", ``body(srv, release, now)`` gets
+    the side's release (a no-op on the virtual clock) and its clock (the
+    seconds the engine's watchdog judges by). Returns, by side, the
+    requests' (state, reason, tokens) and the counters' deltas; asserts
+    the two sides equal."""
     out = {}
     for side, srv in engines.items():
         fi, clocked = SIDES[side]
         with monkeypatch.context() as mp:
-            if virtual:
+            if virtual is True or side == "port":
                 clock = VirtualClock()
                 for mod in clocked + (fi,):
                     mp.setattr(mod, "time", clock)
+                release, now = (lambda: None), clock.perf_counter
+            else:
+                held = HeldStall()
+                mp.setattr(fi, "time", held)
+                mp.setattr(srv.config, "step_watchdog_s", REAL_BUDGET_S)
+                release, now = held.release, time.perf_counter
             mp.setenv(faults.ENV_VAR, spec)
             fi.reset()
             before = {c: getattr(srv.metrics, c) for c in COUNTERS}
-            rids = body(srv)
-            _drain(srv)
+            rids = body(srv) if virtual is True else \
+                body(srv, release, now)
+            _drain(srv, release)
+            release()
             mp.delenv(faults.ENV_VAR)
             fi.reset()
             _drain(srv)
@@ -186,16 +248,16 @@ def test_slow_step_watchdog_fails_step_and_keeps_serving(engines,
                                                          monkeypatch):
     """A wedged step (slow_step past the watchdog budget) fails the
     step's requests — not the engine."""
-    def body(srv):
+    def body(srv, release, now):
         rids = [srv.submit(p, max_new_tokens=6) for p in _prompts(11, 2)]
-        t0 = time.perf_counter()
-        _drain(srv)
-        assert time.perf_counter() - t0 < 5.0  # bounded, not wedged
+        t0 = now()
+        _drain(srv, release)
+        assert now() - t0 < 5.0  # bounded on its clock, not wedged
         return rids
 
     res, counts = _chaos(engines, monkeypatch,
                          "slow_step:seconds=1.2:fails=1", body,
-                         virtual=False)
+                         virtual="port")
     assert counts["watchdog_trips"] == 1
     # the step's decode rows fail; a request still mid-prefill on the
     # two-program engine is not in the step and finishes
@@ -207,24 +269,24 @@ def test_slow_step_watchdog_fails_step_and_keeps_serving(engines,
 def test_wedged_step_does_not_stack_threads(engines, monkeypatch):
     """While the abandoned step still runs, later steps skip device work
     instead of starting more watchdog threads; serving resumes after."""
-    import threading
-
-    def body(srv):
+    def body(srv, release, now):
         r1 = srv.submit(_prompts(37, 1)[0], max_new_tokens=4)
-        _drain(srv)  # trips at ~0.4 s; the abandoned thread sleeps on
+        _drain(srv)  # trips at the budget; the abandoned step stalls on
         assert srv.poll(r1).finish_reason == "step_watchdog"
         assert srv._wedged is not None and srv._wedged.is_alive()
         skips = srv.metrics.watchdog_skips
         threads = threading.active_count()
         r2 = srv.submit(_prompts(41, 1)[0], max_new_tokens=3)
+        srv.step()  # the abandoned step still runs: no device work
+        assert srv.metrics.watchdog_skips > skips
+        release()
         _drain(srv)
         assert srv.poll(r2).state == "finished"
-        assert srv.metrics.watchdog_skips > skips
         assert threading.active_count() <= threads
         return [r1, r2]
 
     _chaos(engines, monkeypatch, "slow_step:seconds=1.0:fails=1", body,
-           virtual=False)
+           virtual="port")
 
 
 def test_slow_step_within_budget_only_slows(engines, monkeypatch):
@@ -271,12 +333,12 @@ def test_slow_chunk_watchdog_fails_prefill_and_keeps_serving(engines,
     the unified step fails every packed request, the chunked two-program
     engine the chunk's request (and skips the step's decode); the
     monolithic prefill has no such point."""
-    def body(srv):
+    def body(srv, release, now):
         return [srv.submit(p, max_new_tokens=4) for p in _prompts(47, 2)]
 
     res, counts = _chaos(engines, monkeypatch,
                          "slow_chunk:seconds=1.0:fails=1", body,
-                         virtual=False)
+                         virtual="port")
     port = engines["port"]
     assert counts["watchdog_trips"] == int(port._mixed or port._chunk > 0)
 

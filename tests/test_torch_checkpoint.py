@@ -438,11 +438,29 @@ def test_init_inference_from_a_checkpoint_serves_the_params_tokens(
     assert got == want and all(len(t) == 6 for t in got)
 
 
-def test_an_hf_checkpoint_directory_names_its_item(tmp_path):
-    (tmp_path / "config.json").write_text("{}")
-    model = LlamaForCausalLM(LlamaConfig.tiny())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        dt.init_inference(model, checkpoint=str(tmp_path), device="cpu")
+def test_init_inference_from_an_hf_checkpoint_directory_serves_its_weights(
+        tmp_path):
+    """An HF checkpoint directory (a ``config.json``) is module
+    injection's: ``init_inference(checkpoint=dir)`` builds the port model
+    from it and serves the tokens of the same weights passed as params."""
+    import os
+
+    os.environ.setdefault("USE_TF", "0")
+    import transformers
+
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128)).eval()
+    hf.save_pretrained(tmp_path)
+    eng = dt.init_inference(checkpoint=str(tmp_path), dtype=torch.float32,
+                            device="cpu")
+    assert isinstance(eng.module, LlamaForCausalLM)
+    model = LlamaForCausalLM(eng.module.config)
+    want = _serve(model, dt.init_inference(
+        model, params=hf.state_dict(), dtype=torch.float32, device="cpu"))
+    assert _serve(model, eng) == want and all(len(t) == 6 for t in want)
 
 
 def test_the_fault_tolerance_and_checkpoint_blocks_take_the_jax_defaults():

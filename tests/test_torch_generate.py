@@ -32,7 +32,7 @@ from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
 from deepspeed_tpu_torch.inference.engine import _sample_logits
 from deepspeed_tpu_torch.inference.quant import quantize_state_dict
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-from deepspeed_tpu_torch.models import llama as llama_mod
+from deepspeed_tpu_torch.models import layers as layers_mod
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention
 
 
@@ -147,13 +147,13 @@ def test_flash_prefill_from_empty_tokens_identical_to_jax(case, monkeypatch):
     sd = flax_to_torch_state_dict(jax.device_get(jparams), cfg)
     ids, mask = _prompts(lens, seed=3)
     calls = []
-    real = llama_mod.flash_prefill_from_empty
+    real = layers_mod.flash_prefill_from_empty
 
     def spy(q, k, v, **kw):
         calls.append((tuple(q.shape), tuple(k.shape)))
         return real(q, k, v, **kw)
 
-    monkeypatch.setattr(llama_mod, "flash_prefill_from_empty", spy)
+    monkeypatch.setattr(layers_mod, "flash_prefill_from_empty", spy)
     got, want, _ = _both(jmodel, jparams, sd, cfg, ids, mask,
                          dict(max_new_tokens=9), **engine_kw)
     np.testing.assert_array_equal(got, want)
@@ -253,7 +253,7 @@ def test_early_exit_stops_decoding(tiny, monkeypatch):
     ids, mask = _prompts((7,), seed=6)
     eos = int(eng.generate(ids, attention_mask=mask, max_new_tokens=4)[0, 1])
     calls = []
-    monkeypatch.setattr(llama_mod, "decode_attention",
+    monkeypatch.setattr(layers_mod, "decode_attention",
                         lambda *a, **kw: calls.append(1) or
                         decode_attention(*a, **kw))
     out = eng.generate(ids, attention_mask=mask, max_new_tokens=16,
@@ -275,7 +275,7 @@ def test_decode_steps_go_through_the_kernel_wrapper(tiny, monkeypatch):
         calls.append(q.device.type)
         return decode_attention(q, *args, **kw)
 
-    monkeypatch.setattr(llama_mod, "decode_attention", spy)
+    monkeypatch.setattr(layers_mod, "decode_attention", spy)
     ids, mask = _prompts((5, 9), seed=2)
     eng.generate(ids, attention_mask=mask, max_new_tokens=6)
     assert calls == ["cpu"] * (LlamaConfig.tiny().num_hidden_layers * 5)

@@ -1,0 +1,319 @@
+"""The port's module injection against HF transformers and the JAX package.
+
+Tiny HF models (2 layers, hidden 64) are built from their config classes
+with ``torch.manual_seed`` (nothing is downloaded), their norms and biases
+perturbed so that each fold and bias shows. For GPT-2, Llama, Mistral with
+a binding sliding window, Qwen2 (tied and untied) and Gemma:
+
+- ``match_policy`` picks the same class in both packages (for every one
+  of the 13 registered policies);
+- ``init_inference(hf_model, device="cpu")`` gives HF's logits at fp32
+  1e-5 and those of the JAX ``replace_transformer_layer`` at the JAX
+  injection test's 2e-3, and HF's and the JAX engine's greedy tokens;
+- the families whose target the port does not have yet match the same
+  policy in both packages and raise naming ROADMAP.md item 10.
+
+HF checkpoint directories (``save_pretrained`` of a tiny Llama and GPT-2,
+sharded safetensors and ``.bin``): both packages' ``load_checkpoint_dir``
+and ``init_inference(checkpoint=dir)`` give the same logits and tokens; a
+bf16 load stays bf16; a directory without weights raises
+``FileNotFoundError`` in both.
+"""
+
+import json
+import os
+
+os.environ.setdefault("USE_TF", "0")   # transformers without TensorFlow
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+import transformers  # noqa: E402
+
+import deepspeed_tpu as jds  # noqa: E402
+from deepspeed_tpu.module_inject import match_policy as jax_match  # noqa: E402
+from deepspeed_tpu.module_inject import \
+    replace_transformer_layer as jax_replace  # noqa: E402
+from deepspeed_tpu.module_inject.replace_module import \
+    load_checkpoint_dir as jax_load_dir  # noqa: E402
+from deepspeed_tpu.module_inject.replace_policy import \
+    _split_fused_qkv as jax_split  # noqa: E402
+import deepspeed_tpu_torch as dt  # noqa: E402
+from deepspeed_tpu_torch.module_inject import (  # noqa: E402
+    HFLlamaLayerPolicy, generic_policies, load_checkpoint_dir, match_policy,
+    replace_transformer_layer, revert_transformer_layer)
+from deepspeed_tpu_torch.module_inject.replace_policy import \
+    _split_fused_qkv  # noqa: E402
+from deepspeed_tpu_torch.models import (GPT2LMHeadModel,  # noqa: E402
+                                        LlamaForCausalLM)
+
+SMALL = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+             num_hidden_layers=2, num_attention_heads=4,
+             num_key_value_heads=2, max_position_embeddings=64)
+
+#: family -> a factory of its tiny HF model
+FAMILIES = {
+    "gpt2": lambda: transformers.GPT2LMHeadModel(transformers.GPT2Config(
+        vocab_size=128, n_positions=64, n_embd=64, n_layer=2, n_head=4,
+        resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)),
+    "llama": lambda: transformers.LlamaForCausalLM(
+        transformers.LlamaConfig(**SMALL)),
+    "mistral_window": lambda: transformers.MistralForCausalLM(
+        transformers.MistralConfig(**SMALL, sliding_window=4)),
+    "qwen2_untied": lambda: transformers.Qwen2ForCausalLM(
+        transformers.Qwen2Config(**SMALL, tie_word_embeddings=False)),
+    "qwen2_tied": lambda: transformers.Qwen2ForCausalLM(
+        transformers.Qwen2Config(**SMALL, tie_word_embeddings=True)),
+    "gemma": lambda: transformers.GemmaForCausalLM(transformers.GemmaConfig(
+        **dict(SMALL, num_key_value_heads=1), head_dim=16)),
+}
+
+#: the JAX policy each family matches
+POLICY = {"gpt2": "HFGPT2LayerPolicy", "llama": "HFLlamaLayerPolicy",
+          "mistral_window": "HFLlamaLayerPolicy",
+          "qwen2_untied": "HFQwen2LayerPolicy",
+          "qwen2_tied": "HFQwen2LayerPolicy", "gemma": "HFGemmaLayerPolicy"}
+
+
+def _hf(family, seed=0):
+    torch.manual_seed(seed)
+    model = FAMILIES[family]().eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            # norms off 1 (Gemma's off 0) and biases off 0
+            if name.endswith("bias") or "norm" in name or ".ln_" in name:
+                p.add_(0.1 * torch.randn_like(p))
+    return model
+
+
+@pytest.fixture(scope="module")
+def hf_models():
+    return {family: _hf(family) for family in FAMILIES}
+
+
+def _ids(T=8, seed=2):
+    return np.random.RandomState(seed).randint(1, 128, (2, T))
+
+
+def _hf_greedy(hf, ids, new):
+    eos = hf.generation_config.eos_token_id
+    with torch.no_grad():
+        out = hf.generate(torch.tensor(ids), max_new_tokens=new,
+                          do_sample=False, pad_token_id=eos,
+                          eos_token_id=eos).numpy()[:, ids.shape[1]:]
+    # HF stops when every row has ended; the engines fill the rest with EOS
+    return np.pad(out, ((0, 0), (0, new - out.shape[1])),
+                  constant_values=-1 if eos is None else eos), eos
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_logits_and_greedy_tokens_match_hf_and_jax(hf_models, family):
+    hf = hf_models[family]
+    assert type(match_policy(hf)).__name__ == \
+        type(jax_match(hf)).__name__ == POLICY[family]
+    ids = _ids(T=12, seed=1)
+    with torch.no_grad():
+        ref = hf(torch.tensor(ids)).logits.numpy()
+    eng = dt.init_inference(hf, dtype="fp32", device="cpu")
+    np.testing.assert_allclose(eng(ids).numpy(), ref, rtol=1e-5, atol=1e-5)
+    jmodel, jparams = jax_replace(hf)
+    jax_logits = np.asarray(jmodel.apply({"params": jparams},
+                                         jnp.asarray(ids)))
+    np.testing.assert_allclose(eng(ids).numpy(), jax_logits, rtol=2e-3,
+                               atol=2e-3)
+
+    ids = _ids()
+    want, eos = _hf_greedy(hf, ids, 6)
+    got = eng.generate(ids, max_new_tokens=6, eos_token_id=eos).numpy()
+    np.testing.assert_array_equal(got, want)
+    jeng = jds.init_inference(hf, dtype="fp32", mp_size=1)
+    np.testing.assert_array_equal(
+        got, np.asarray(jeng.generate(jnp.asarray(ids), max_new_tokens=6,
+                                      eos_token_id=eos)))
+
+
+def test_conversion_keeps_dtype_and_device_and_folds(hf_models):
+    """Torch to torch: a bf16 HF model's tensors stay bf16 (no fp32 copy),
+    GPT-2's Conv1D weights are transposed, Gemma's norms hold ``1 + w``
+    and a tied head has no tensor."""
+    gpt2 = _hf("gpt2").to(torch.bfloat16)
+    model, sd = replace_transformer_layer(gpt2)
+    assert isinstance(model, GPT2LMHeadModel)
+    assert set(sd) == set(model.state_dict())
+    assert all(t.dtype == torch.bfloat16 for t in sd.values())
+    hf_sd = gpt2.state_dict()
+    name = "transformer.h.1.mlp.c_fc.weight"
+    assert torch.equal(sd[name], hf_sd[name].t())
+    assert "lm_head.weight" not in sd
+    gemma = hf_models["gemma"]
+    model, sd = replace_transformer_layer(gemma)
+    assert isinstance(model, LlamaForCausalLM)
+    name = "model.layers.0.input_layernorm.weight"
+    assert torch.equal(sd[name], 1.0 + gemma.state_dict()[name])
+    assert model.config.embed_scale == 8.0 and model.config.head_dim == 16
+    qwen, sd = replace_transformer_layer(hf_models["qwen2_tied"])
+    assert qwen.config.tie_word_embeddings and "lm_head.weight" not in sd
+    assert "model.layers.0.self_attn.q_proj.bias" in sd
+    mistral, _ = replace_transformer_layer(hf_models["mistral_window"])
+    assert mistral.config.sliding_window == 4
+
+
+def test_explicit_policy_and_refusals(hf_models):
+    """``injection_policy`` as a class or instance; a policy of the wrong
+    type, an HF option the port cannot represent, and revert raise."""
+    llama = hf_models["llama"]
+    ids = _ids()
+    base = dt.init_inference(llama, dtype="fp32", device="cpu")(ids)
+    for policy in (HFLlamaLayerPolicy, HFLlamaLayerPolicy()):
+        eng = dt.init_inference(llama, dtype="fp32", device="cpu",
+                                injection_policy=policy,
+                                replace_with_kernel_inject=True,
+                                replace_method="auto", max_batch_size=4)
+        assert torch.equal(eng(ids), base)
+    with pytest.raises(TypeError, match="DSPolicy"):
+        replace_transformer_layer(llama, policy=object())
+    scaled = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        **SMALL, rope_scaling={"rope_type": "linear", "factor": 2.0}))
+    with pytest.raises(NotImplementedError, match="RoPE type"):
+        replace_transformer_layer(scaled)
+    with pytest.raises(NotImplementedError, match="out-of-place"):
+        revert_transformer_layer(llama)
+
+
+UNPORTED = {
+    "HFMixtralLayerPolicy": lambda: transformers.MixtralForCausalLM(
+        transformers.MixtralConfig(**SMALL, num_local_experts=4,
+                                   num_experts_per_tok=2)),
+    "HFFalconLayerPolicy": lambda: transformers.FalconForCausalLM(
+        transformers.FalconConfig(vocab_size=128, hidden_size=64,
+                                  num_hidden_layers=2,
+                                  num_attention_heads=4)),
+    "HFPhiLayerPolicy": lambda: transformers.PhiForCausalLM(
+        transformers.PhiConfig(**SMALL)),
+    "HFOPTLayerPolicy": lambda: transformers.OPTForCausalLM(
+        transformers.OPTConfig(vocab_size=128, hidden_size=64, ffn_dim=128,
+                               num_hidden_layers=2, num_attention_heads=4,
+                               max_position_embeddings=64)),
+    "HFBloomLayerPolicy": lambda: transformers.BloomForCausalLM(
+        transformers.BloomConfig(vocab_size=128, hidden_size=64, n_layer=2,
+                                 n_head=4)),
+    "HFGPTNeoXLayerPolicy": lambda: transformers.GPTNeoXForCausalLM(
+        transformers.GPTNeoXConfig(**SMALL)),
+    "HFBertLayerPolicy": lambda: transformers.BertForMaskedLM(
+        transformers.BertConfig(vocab_size=128, hidden_size=64,
+                                intermediate_size=128, num_hidden_layers=2,
+                                num_attention_heads=4,
+                                max_position_embeddings=64)),
+    "HFGPTJLayerPolicy": lambda: transformers.GPTJForCausalLM(
+        transformers.GPTJConfig(vocab_size=128, n_positions=64, n_embd=64,
+                                n_layer=2, n_head=4, rotary_dim=4)),
+    "HFGPTNeoLayerPolicy": lambda: transformers.GPTNeoForCausalLM(
+        transformers.GPTNeoConfig(vocab_size=128, max_position_embeddings=64,
+                                  hidden_size=64, num_layers=2, num_heads=4,
+                                  attention_types=[[["global", "local"], 1]])),
+}
+
+
+@pytest.mark.parametrize("policy", sorted(UNPORTED))
+def test_unported_families_match_as_in_jax_and_name_item_10(policy):
+    hf = UNPORTED[policy]()
+    assert type(match_policy(hf)).__name__ == \
+        type(jax_match(hf)).__name__ == policy
+    with pytest.raises(NotImplementedError, match="item 10"):
+        dt.init_inference(hf, dtype="fp32", device="cpu")
+
+
+def test_the_registry_keeps_the_jax_order():
+    from deepspeed_tpu.module_inject import generic_policies as jax_policies
+
+    assert [p.__name__ for p in generic_policies] == \
+        [p.__name__ for p in jax_policies]
+    assert [p.hf_model_types for p in generic_policies] == \
+        [p.hf_model_types for p in jax_policies]
+
+
+@pytest.mark.parametrize("interleaved", [True, False])
+def test_split_fused_qkv_matches_jax(interleaved):
+    rs = np.random.RandomState(3)
+    w = rs.randn(3 * 4 * 8, 32).astype(np.float32)
+    b = rs.randn(3 * 4 * 8).astype(np.float32)
+    (ks, bs) = _split_fused_qkv(torch.from_numpy(w), torch.from_numpy(b), 4,
+                                8, interleaved=interleaved)
+    (jks, jbs) = jax_split(w, b, 4, 8, interleaved=interleaved)
+    for got, want in zip(ks + bs, list(jks) + list(jbs)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+DIRS = {
+    # name: (family, save_pretrained kwargs)
+    "llama_sharded_safetensors": ("llama", dict(max_shard_size="60KB")),
+    "llama_bin": ("llama", dict(safe_serialization=False)),
+    "gpt2_sharded_bin": ("gpt2", dict(max_shard_size="60KB",
+                                      safe_serialization=False)),
+    "gpt2_safetensors": ("gpt2", {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIRS))
+def test_checkpoint_directories_load_as_in_jax(hf_models, case, tmp_path):
+    family, save_kw = DIRS[case]
+    hf = hf_models[family]
+    hf.save_pretrained(tmp_path, **save_kw)
+    files = os.listdir(tmp_path)
+    if "max_shard_size" in save_kw:
+        index = [f for f in files if f.endswith(".index.json")]
+        assert index, files
+        with open(tmp_path / index[0]) as f:
+            assert len(set(json.load(f)["weight_map"].values())) >= 3
+    model, sd = load_checkpoint_dir(str(tmp_path))
+    assert type(model).__name__ == ("GPT2LMHeadModel" if family == "gpt2"
+                                    else "LlamaForCausalLM")
+    jmodel, jparams = jax_load_dir(str(tmp_path))
+    ids = _ids(T=10, seed=3)
+    eng = dt.init_inference(checkpoint=str(tmp_path), dtype="fp32",
+                            device="cpu")
+    got = eng(ids).numpy()
+    with torch.no_grad():
+        np.testing.assert_allclose(got, hf(torch.tensor(ids)).logits.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got, np.asarray(jmodel.apply({"params": jparams}, jnp.asarray(ids))),
+        rtol=2e-3, atol=2e-3)
+    ids = _ids(T=6, seed=4)
+    want, eos = _hf_greedy(hf, ids, 4)
+    np.testing.assert_array_equal(
+        eng.generate(ids, max_new_tokens=4, eos_token_id=eos).numpy(), want)
+    # a bf16 load casts each tensor as it is read
+    _, sd16 = load_checkpoint_dir(str(tmp_path), dtype=torch.bfloat16,
+                                  device="cpu")
+    assert set(sd16) == set(sd)
+    assert all(t.dtype == torch.bfloat16 for t in sd16.values())
+
+
+def test_a_directory_without_weights_raises_in_both(hf_models, tmp_path):
+    hf_models["llama"].config.save_pretrained(tmp_path)
+    with pytest.raises(FileNotFoundError, match="no model weights"):
+        load_checkpoint_dir(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no model weights"):
+        dt.init_inference(checkpoint=str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="no model weights"):
+        jax_load_dir(str(tmp_path))
+
+
+def test_no_fallback_without_a_card_or_transformers(hf_models, tmp_path,
+                                                    monkeypatch):
+    """Without a card the entry points raise unless the caller asks for
+    the CPU, for an HF model and an HF directory alike; a directory read
+    without ``transformers`` raises ImportError."""
+    import sys
+
+    hf_models["gpt2"].save_pretrained(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dt.init_inference(hf_models["gpt2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dt.init_inference(checkpoint=str(tmp_path))
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(ImportError):
+        dt.init_inference(checkpoint=str(tmp_path), device="cpu")

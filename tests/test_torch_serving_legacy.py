@@ -33,7 +33,7 @@ from deepspeed_tpu.models.layers import paged_cache_index as jax_paged_index
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-from deepspeed_tpu_torch.models import llama as llama_mod
+from deepspeed_tpu_torch.models import layers as layers_mod
 from deepspeed_tpu_torch.models.layers import paged_cache_index
 
 BASE = dict(max_batch_size=4, block_size=8, num_blocks=48, max_model_len=96)
@@ -289,14 +289,14 @@ def test_two_program_engine_goes_through_the_kernel_wrappers(weights,
             return fn(*args, **kw)
         return wrapped
 
-    monkeypatch.setattr(llama_mod, "paged_decode_attention",
-                        spy("decode", llama_mod.paged_decode_attention))
-    monkeypatch.setattr(llama_mod, "paged_prefill_attention",
-                        spy("chunk", llama_mod.paged_prefill_attention))
-    monkeypatch.setattr(llama_mod, "ragged_paged_attention",
-                        spy("ragged", llama_mod.ragged_paged_attention))
-    monkeypatch.setattr(llama_mod, "flash_prefill_from_empty",
-                        spy("flash", llama_mod.flash_prefill_from_empty))
+    monkeypatch.setattr(layers_mod, "paged_decode_attention",
+                        spy("decode", layers_mod.paged_decode_attention))
+    monkeypatch.setattr(layers_mod, "paged_prefill_attention",
+                        spy("chunk", layers_mod.paged_prefill_attention))
+    monkeypatch.setattr(layers_mod, "ragged_paged_attention",
+                        spy("ragged", layers_mod.ragged_paged_attention))
+    monkeypatch.setattr(layers_mod, "flash_prefill_from_empty",
+                        spy("flash", layers_mod.flash_prefill_from_empty))
     rs = np.random.RandomState(3)
     phases = [[(list(rs.randint(1, 256, n)), 4) for n in (9, 30)]]
     srv = dt.ServingEngine(teng, dt.ServingConfig(

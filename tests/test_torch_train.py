@@ -25,7 +25,13 @@
   port's device step count, skipped steps, loss scale and lr equal the
   JAX state's (exactly; the lr at 1e-6) and the losses agree (fp32
   1e-5, fp16 5e-4: the two frameworks round fp16 activations at
-  different places).
+  different places). The final fp32 params are held at 1e-4, except the
+  elements whose gradient was, at some step, nonzero and at most fp32's
+  epsilon times the global gradient norm: such a gradient is rounding
+  noise in both packages (OneCycle's ``embed_tokens[222, 33]`` has -1.7e-8
+  in the port, -6.5e-9 in the JAX engine, at a norm of 4.37), and Adam
+  normalizes it into an update of up to ~lr either way; those are held to
+  twice the summed lr.
 """
 
 import json
@@ -450,7 +456,12 @@ def test_device_train_state_matches_the_jax_train_state(case,
     fp16 = "fp16" in config
     jeng, (peng, *_), cfg = _engines({}, config, one_device_mesh)
     skips = []
+    names = list(peng.module_state_dict())
+    at_floor = {n: torch.zeros(p.shape, dtype=torch.bool)
+                for n, p in peng.module_state_dict().items()}
+    lr_sum = 0.0
     for ids in _batches(cfg.vocab_size, n=steps):
+        lr_sum += float(np.max(peng.get_lr()))
         want = float(jeng.train_batch(batch={"input_ids": ids,
                                              "labels": ids}))
         got = float(peng.train_batch(batch={"input_ids": ids,
@@ -461,6 +472,14 @@ def test_device_train_state_matches_the_jax_train_state(case,
         assert peng.loss_scale == jeng.loss_scale
         assert peng.get_lr() == pytest.approx(jeng.get_lr(), rel=1e-6)
         skips.append(peng.get_skipped_steps())
+        if not fp16:
+            # a gradient element below fp32's resolution of the whole
+            # gradient (eps32 x its global norm) is rounding noise in both
+            # packages, and Adam's m / (sqrt(v) + eps) turns that noise
+            # into an update of up to ~lr in a direction of its own
+            floor = np.finfo(np.float32).eps * peng.get_global_grad_norm()
+            for name, g in zip(names, peng._grads):
+                at_floor[name] |= (g.abs() > 0) & (g.abs() <= floor)
     assert peng.optimizer.count.dtype == torch.int32
     assert peng.optimizer.count.dim() == 0
     if fp16:
@@ -471,5 +490,11 @@ def test_device_train_state_matches_the_jax_train_state(case,
         want = flax_to_torch_state_dict(jax.device_get(jeng.state.params),
                                         cfg)
         for name, p in peng.module_state_dict().items():
-            np.testing.assert_allclose(p.numpy(), want[name].numpy(),
-                                       rtol=1e-4, atol=1e-4, err_msg=name)
+            got, ref, noise = p.numpy(), want[name].numpy(), \
+                at_floor[name].numpy()
+            np.testing.assert_allclose(got[~noise], ref[~noise], rtol=1e-4,
+                                       atol=1e-4, err_msg=name)
+            # the noise elements: each step moves them by at most ~lr in
+            # either package
+            assert np.all(np.abs(got[noise] - ref[noise]) <= 2 * lr_sum), \
+                name

@@ -1,12 +1,13 @@
 """Where the port's dense generate spends its time on a GPU.
 
-    python3 tools/profile_torch_generate.py [--layers 32] [--weights bf16 int8]
-        [--graph]
+    python3 tools/profile_torch_generate.py [--model llama3_8b|gpt2_125m]
+        [--layers N] [--weights bf16 int8] [--graph]
 
-Builds the generate configuration of ``chip_smoke.py`` (Llama-3-8B at
-full width, random bf16 weights from seed 0, batch 8, left-padded
-prompts of seeded lengths 128-512 bucketed to 512, greedy) once per
-weight format, warms it, then runs under ``torch.profiler`` a
+Builds the generate configuration of ``chip_smoke.py`` (Llama-3-8B, or
+GPT-2 125M with ``--model gpt2_125m``, at full width and full depth
+unless ``--layers`` cuts it, random bf16 weights from seed 0, batch 8,
+left-padded prompts of seeded lengths 128-512 bucketed to 512, greedy)
+once per weight format, warms it, then runs under ``torch.profiler`` a
 ``generate`` of one new token (the prefill window: the prompt's forward
 and the first sample) and one of 64 new tokens. The decode window is the
 difference of the two (63 decode steps). For each window it prints the
@@ -17,7 +18,8 @@ profiler overhead included). With ``--graph`` the engine runs with
 ``enable_cuda_graph``, warmed with a 64-token generate that captures the
 decode step, so the profiled one replays it. Writes the summary to
 ``chiprun_out/generate_profile.json`` (``generate_profile_graph.json``
-with ``--graph``); needs a CUDA device.
+with ``--graph``; ``_gpt2_125m`` before ``.json`` for GPT-2); needs a
+CUDA device.
 """
 
 import argparse
@@ -71,7 +73,10 @@ def _profiled(engine, ids, mask, new, trace):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--model", default="llama3_8b",
+                    choices=("llama3_8b", "gpt2_125m"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the model's own)")
     ap.add_argument("--weights", nargs="+", default=["bf16", "int8"],
                     choices=["bf16", "int8", "int4"])
     ap.add_argument("--graph", action="store_true",
@@ -82,19 +87,20 @@ def main() -> int:
         return 1
     import chip_smoke
     import deepspeed_tpu_torch as dt
-    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from profile_torch_serve import model_of
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=args.layers)
+    vocab = model_of(args.model, args.layers).config.vocab_size
     ids, mask = chip_smoke.left_padded_prompts(
-        cfg.vocab_size, chip_smoke.GEN_B, 128, chip_smoke.GEN_PROMPT, 0)
-    out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
+        vocab, chip_smoke.GEN_B, 128, chip_smoke.GEN_PROMPT, 0)
+    out = {"device": chip_smoke.nvidia_smi(), "model": args.model,
+           "layers": args.layers,
            "batch": chip_smoke.GEN_B, "prompt_bucket": chip_smoke.GEN_PROMPT,
            "new_tokens": NEW, "enable_cuda_graph": args.graph, "runs": {}}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     trace = os.path.join(ROOT, "chiprun_out", "generate_trace.json")
     for weights in args.weights:
-        model = LlamaForCausalLM(cfg)
+        model = model_of(args.model, args.layers)
         params = model.init_params(seed=0, dtype=torch.bfloat16,
                                    device="cuda")
         engine = dt.init_inference(
@@ -125,8 +131,8 @@ def main() -> int:
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-    name = "generate_profile_graph.json" if args.graph else \
-        "generate_profile.json"
+    name = "generate_profile" + ("_graph" if args.graph else "") + \
+        ("" if args.model == "llama3_8b" else "_" + args.model) + ".json"
     with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(out["device"])

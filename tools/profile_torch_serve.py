@@ -1,11 +1,14 @@
 """Where the port's serving step spends its time on a GPU.
 
-    python3 tools/profile_torch_serve.py [--layers 32] [--legacy] [--graph]
+    python3 tools/profile_torch_serve.py [--model llama3_8b|gpt2_125m]
+        [--layers N] [--legacy] [--graph]
 
-Builds the serving configuration of ``chip_smoke.py`` (Llama-3-8B at
-full width, random bf16 weights from a seed, 8 slots, 16-token pages,
-a 256-token prefill budget), warms it with a short run, then serves 8
-requests of 1024-token prompts and 48 new tokens under
+Builds the serving configuration of ``chip_smoke.py`` (Llama-3-8B, or
+GPT-2 125M with ``--model gpt2_125m``, at full width and full depth
+unless ``--layers`` cuts it, random bf16 weights from a seed, 8 slots,
+16-token pages, a 256-token prefill budget), warms it with a short run,
+then serves 8 requests of 1024-token prompts (960 on GPT-2, whose 1024
+positions bound prompt and new tokens together) and 48 new tokens under
 ``torch.profiler`` in two windows: the steps that carry prefill chunks,
 and the decode-only steps after them. For each window it prints the
 device time per kernel class (the attention kernels, each its own class,
@@ -24,7 +27,8 @@ traffic itself, so every shape it runs is captured before the windows,
 which then replay them. Writes the summary to
 ``chiprun_out/serve_profile.json`` (``serve_profile_legacy.json`` with
 ``--legacy``, ``serve_profile_graph.json`` with ``--graph``,
-``serve_profile_legacy_graph.json`` with both); needs a CUDA device.
+``serve_profile_legacy_graph.json`` with both; ``_gpt2_125m`` before
+``.json`` for GPT-2); needs a CUDA device.
 """
 
 import argparse
@@ -51,6 +55,21 @@ CLASSES = (("ragged_attention", re.compile(r"ragged_\w*kernel")),
            ("matmul", re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas",
                                  re.I)))
 MERGE = re.compile(r"\bmerge_kernel")
+MODELS = ("llama3_8b", "gpt2_125m")
+
+
+def model_of(name, layers=None):
+    """The port model (a definition on the ``meta`` device) of the
+    configuration ``name`` in :data:`MODELS`, at ``layers`` layers or its
+    full depth."""
+    from deepspeed_tpu_torch.models import (GPT2Config, GPT2LMHeadModel,
+                                            LlamaConfig, LlamaForCausalLM)
+
+    if name == "gpt2_125m":
+        over = {} if layers is None else {"n_layer": layers}
+        return GPT2LMHeadModel(GPT2Config.gpt2_125m(**over))
+    over = {} if layers is None else {"num_hidden_layers": layers}
+    return LlamaForCausalLM(LlamaConfig.llama3_8b(**over))
 
 
 def _kernel_summary(trace_path, wall_s, classes=CLASSES):
@@ -84,7 +103,9 @@ def _kernel_summary(trace_path, wall_s, classes=CLASSES):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--model", default="llama3_8b", choices=MODELS)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the model's own)")
     ap.add_argument("--legacy", action="store_true",
                     help="profile the two-program engine (mixed_step=False)")
     ap.add_argument("--graph", action="store_true",
@@ -95,12 +116,15 @@ def main() -> int:
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
-    from deepspeed_tpu_torch.models import LlamaConfig
+    import deepspeed_tpu_torch as dt
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=args.layers)
+    model = model_of(args.model, args.layers)
+    vocab = model.config.vocab_size
+    limit = model.max_positions or 2048
+    prompt_len = min(1024, limit - 64)
     scfg = dict(max_batch_size=8, block_size=16, num_blocks=1024,
-                max_model_len=2048, prefill_token_budget=256)
+                max_model_len=min(2048, limit), prefill_token_budget=256)
     if args.legacy:
         scfg.update(mixed_step=False, prefill_chunk_tokens=64)
     ekw = {}
@@ -108,20 +132,26 @@ def main() -> int:
         ekw, skw = chip_smoke.SERVE_GRAPH
         if not args.legacy:
             scfg.update(skw, trace=True)
-    srv, *_ = chip_smoke.serve(cfg, 0, 4, (64, 300), (4, 8), scfg,
-                               torch.bfloat16, engine_kw=ekw)
+    engine = dt.init_inference(
+        model, params=model.init_params(seed=0, dtype=torch.bfloat16,
+                                        device="cuda"),
+        dtype=torch.bfloat16, **ekw)
+    srv = dt.ServingEngine(engine, dt.ServingConfig(**scfg))
+    chip_smoke.serve(None, 0, 0, None, None, scfg, torch.bfloat16, srv=srv,
+                     phases=[chip_smoke.seeded_traffic(vocab, 0, 4, (64, 300),
+                                                       (4, 8))])
 
     def traffic():
         rs = np.random.RandomState(1)
         for _ in range(8):
-            srv.submit(rs.randint(0, cfg.vocab_size, 1024),
-                       max_new_tokens=48)
+            srv.submit(rs.randint(0, vocab, prompt_len), max_new_tokens=48)
 
     if args.graph:
         traffic()
         srv.run()
     traffic()
-    out = {"device": chip_smoke.nvidia_smi(), "layers": args.layers,
+    out = {"device": chip_smoke.nvidia_smi(), "model": args.model,
+           "layers": args.layers, "prompt_tokens": prompt_len,
            "engine": ("two-program" if args.legacy else "unified")
            + (", CUDA graphs" if args.graph else "")
            + (" at bucketed widths" if args.graph and not args.legacy
@@ -170,7 +200,8 @@ def main() -> int:
     srv.block_pool.check_consistent()
     assert srv.block_pool.used_count == 0
     name = "serve_profile" + ("_legacy" if args.legacy else "") + \
-        ("_graph" if args.graph else "") + ".json"
+        ("_graph" if args.graph else "") + \
+        ("" if args.model == "llama3_8b" else "_" + args.model) + ".json"
     with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(out["device"])
