@@ -98,7 +98,27 @@ Phases, each printed on its own line; any failure exits non-zero:
    reasons, one trip, two quarantines, no leaked page, a fresh request
    served, the graphs unchanged, one flight dump per firing naming its
    request; (c) the serve with TTFT and TPOT SLOs at (a)'s p50s: the
-   verdicts sum to the requests;
+   verdicts sum to the requests; (d) spec serve: speculative decoding
+   (4 prompt-lookup drafts a verify row) on the unified engine, captured
+   at bucketed widths, over the 16 requests plus 8 whose 256-1024 token
+   prompts repeat a 64-token segment: after a 2-layer fp32 reference
+   (speculation off, prompt lookup and an oracle drafter: identical
+   tokens, every oracle draft accepted), the uncaptured and captured 8B
+   runs (identical tokens), then speculation off and on in turns; every
+   request finished, no page leaked, verify rows packed, no width outside
+   the bucket set, K6 once per layer per step (device count); tokens/s,
+   mean step, steps, TTFT p50, accept rate and tokens per verify row
+   printed for each run; (e) kv tier: the host KV tier on a 320-page
+   pool, 8 distinct 1024-token prefixes asked twice, so the first
+   round's are demoted into a 512-page (1 GiB) pinned host tier and
+   promoted back; with the tier, with ``sync_promote`` and without the
+   tier (recompute), captured, and once through the two-program engine
+   uncaptured (K7a/K7b); host hits in each tiered second round, every
+   promoted page equal to its demoted payload bit for bit, both tiers
+   consistent, no page leaked, no graph captured again, the pool's
+   ``data_ptr``s unchanged; demotion ms and GB/s a wave, promotion ms
+   and GB/s and the second round's TTFT p50 printed (``kv tier {...}``
+   JSON lines);
 6. generate: init_inference + InferenceEngine.generate on full-width
    Llama-3-8B (random bf16 weights from seed 0), batch 8, left-padded
    prompts of seeded lengths 128-512 (bucket 512), 64 greedy new tokens,
@@ -208,7 +228,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    the train subset's captured routes (``graph_launches_by_phase``),
    K7a/K7b and the masked K1 in the two-program engines' replayed
    re-serves (item 5); ``hf_inject_launches`` are the wrappers' counts
-   of each hf inject run that ran the kernel (GPT-2's at head dim 64). Each of these kernels adds one to its device count
+   of each hf inject run that ran the kernel (GPT-2's at head dim 64);
+   ``spec_serve_launches`` and ``kv_tier_launches`` are K6's, K7a's and
+   K7b's wrapper counts over those phases' uncaptured runs (item 5 (d),
+   (e)) and, for K6, its device runs over all their runs. Each of these kernels adds one to its device count
    (``deepspeed_tpu_torch/ops/_runs.py``) when it runs.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -2467,6 +2490,12 @@ def check_serving():
     runs["chaos"] = check_chaos_serve(
         "unified", cfg, params, SERVE_SCFG, [[(np.arange(300), 4)]],
         [seeded_traffic(cfg.vocab_size, 0, 16, (64, 1536), (32, 64))])
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["spec"] = check_spec_serve(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["tier"] = check_kv_tier(cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2725,6 +2754,533 @@ def check_chaos_serve(name, cfg, params, scfg, warm, traffic):
         raise AssertionError(f"serve chaos {name}: " + "; ".join(problems))
     del srv
     return {k: len(v) for k, v in reasons.items()}
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and the host KV tier
+# ---------------------------------------------------------------------------
+
+#: speculative decoding on the captured serve: prompt lookup, 4 drafts a row
+SPEC_SCFG = dict(SERVE_SCFG, mixed_step_buckets=True, spec_tokens=4)
+
+
+def repeat_traffic(vocab, seed, n, prompt_range, new_range, period=64):
+    """``n`` seeded requests whose prompts repeat a ``period``-token segment
+    of their own up to a length in ``prompt_range``."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        segment = rs.randint(0, vocab, period)
+        length = int(rs.randint(prompt_range[0], prompt_range[1] + 1))
+        out.append((np.resize(segment, length),
+                    int(rs.randint(new_range[0], new_range[1] + 1))))
+    return out
+
+
+def spec_counts(srv):
+    m = srv.metrics
+    return dict(drafted=m.spec_drafted, accepted=m.spec_accepted,
+                committed=m.spec_committed, verify_rows=m.spec_verify_rows,
+                pages_dropped=m.spec_pages_dropped)
+
+
+def oracle_drafter(table):
+    """A drafter that replays known tokens of each prompt (``table``,
+    ``[(prompt tuple, tokens)]``; its ``table`` may be replaced between
+    runs): where the run's own tokens are those, every draft is right."""
+    from deepspeed_tpu_torch.inference.serving.speculative import Drafter
+
+    class Oracle(Drafter):
+        kind = "oracle"
+
+        def draft(self, history, k):
+            h = tuple(int(t) for t in history)
+            for prompt, toks in self.table:
+                if h[:len(prompt)] == prompt:
+                    done = len(h) - len(prompt)
+                    return list(toks[done:done + k])
+            return []
+
+    oracle = Oracle()
+    oracle.table = table
+    return oracle
+
+
+def check_spec_small_reference(device="cuda"):
+    """The 2-layer fp32 model served captured at bucketed widths with
+    speculation off, with the prompt-lookup drafter (4 drafts) and with
+    an oracle drafter: identical tokens, every oracle draft accepted, K6
+    once per layer per step on the device."""
+    from deepspeed_tpu_torch.models import LlamaConfig
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
+
+    cfg = LlamaConfig(**SMALL_CFG)
+    scfg = dict(max_batch_size=4, block_size=16, num_blocks=64,
+                max_model_len=256, prefill_token_budget=32, trace=True,
+                mixed_step_buckets=True)
+    traffic = seeded_traffic(512, 3, 6, (5, 90), (8, 24)) + \
+        repeat_traffic(512, 4, 4, (32, 128), (8, 24), period=16)
+    tokens, stats, problems = {}, {}, []
+    for name in ("off", "prompt_lookup", "oracle"):
+        over = {}
+        if name != "off":
+            over["spec_tokens"] = 4
+        if name == "oracle":
+            over["drafter"] = oracle_drafter(
+                [(tuple(int(t) for t in p), toks)
+                 for (p, _), (_, toks) in zip(traffic, tokens["off"])])
+        srv, rids, res, _, _ = serve(
+            cfg, 3, 0, None, None, dict(scfg, **over), torch.float32,
+            device=device, engine_kw=dict(enable_cuda_graph=True),
+            phases=[traffic])
+        tokens[name] = [(res[r].state, res[r].tokens) for r in rids]
+        steps = len(step_widths(srv))
+        stats[name] = dict(spec_counts(srv), steps=steps,
+                           k6_runs=kernel_runs())
+        if kernel_runs() != cfg.num_hidden_layers * steps:
+            problems.append(f"{name}: K6 ran {kernel_runs()} times, not "
+                            f"{cfg.num_hidden_layers} x {steps}")
+        srv.block_pool.check_consistent()
+        if srv.block_pool.used_count:
+            problems.append(f"{name}: {srv.block_pool.used_count} pages "
+                            f"leaked")
+    same = tokens["off"] == tokens["prompt_lookup"] == tokens["oracle"]
+    oracle = stats["oracle"]
+    log(f"spec reference: 2-layer fp32 model, captured, bucketed widths, "
+        f"{len(traffic)} requests, speculation off / prompt lookup / "
+        f"oracle: tokens identical={same}, {stats}")
+    if not same:
+        problems.append("speculation changed the fp32 tokens")
+    if not all(s == "finished" for s, _ in tokens["off"]):
+        problems.append("a request did not finish")
+    if not oracle["drafted"] or oracle["accepted"] != oracle["drafted"]:
+        problems.append(f"the oracle's drafts were not all accepted "
+                        f"({oracle['accepted']} of {oracle['drafted']})")
+    if problems:
+        raise AssertionError("spec reference: " + "; ".join(problems))
+    return stats
+
+
+#: check_spec_serve's runs in turns: (name, drafter, captured) with the
+#: drafter None (speculation off), "prompt_lookup" or "oracle" (replays the
+#: tokens of the previous oracle run, the first time captured_plain's);
+#: the first ``SPEC_SETUP`` make the engines (the captured ones capture
+#: their widths) and let the oracle settle, the rest are the measured
+#: turns on warm graphs
+SPEC_SETUP = 6
+SPEC_RUNS = (("uncaptured_spec", "prompt_lookup", False),
+             ("captured_spec", "prompt_lookup", True),
+             ("captured_plain", None, True),
+             ("captured_oracle", "oracle", True),
+             ("captured_oracle", "oracle", True),
+             ("captured_oracle", "oracle", True),
+             ("captured_plain", None, True),
+             ("captured_spec", "prompt_lookup", True),
+             ("captured_oracle", "oracle", True),
+             ("captured_oracle", "oracle", True),
+             ("captured_spec", "prompt_lookup", True),
+             ("captured_plain", None, True))
+
+
+class timed_method:
+    """Inside the block, the host seconds spent in ``obj.name`` add up in
+    ``self.seconds``."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.seconds = obj, name, 0.0
+
+    def __enter__(self):
+        fn = getattr(self.obj, self.name)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.name)
+
+
+def check_spec_serve(cfg, params, device="cuda"):
+    """Speculative decoding on full-width Llama-3-8B (the serve phase's
+    bf16 weights, the unified engine at bucketed widths, 4 drafts a
+    verify row): the serve phase's 16 requests plus 8 whose 256-1024
+    token prompts repeat a 64-token segment. Runs (``SPEC_RUNS``): the
+    uncaptured engine with the prompt-lookup drafter, the captured one
+    (its tokens must equal the uncaptured run's: the same widths in the
+    same order, replayed), then in turns the captured engine with
+    speculation off, with prompt lookup and with an oracle drafter that
+    replays the tokens of its own previous run (the first time those of
+    speculation off): bf16 rows change with the packed width, so the
+    speculating run's tokens part from the plain run's, and the oracle
+    converges on its own run's tokens over the setup runs, where every
+    draft is right — what speculation buys when the drafts land. Each
+    run must finish every request, leak no page, stay
+    within the bucket set and run K6 once per layer per step on the
+    device; the drafting runs must pack verify rows, the oracle's must
+    accept drafts. Prints tokens/s, mean step ms, steps, TTFT p50, the
+    accept rate, tokens per verify row and the host ms a step spent
+    drafting of each run. Returns the summary with K6's wrapper count
+    (the uncaptured run) and device count (every run)."""
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
+
+    small = check_spec_small_reference(device)
+    L = cfg.num_hidden_layers
+    traffic = seeded_traffic(cfg.vocab_size, 0, 16, (64, 1536), (32, 64)) \
+        + repeat_traffic(cfg.vocab_size, 1, 8, (256, 1024), (32, 64))
+    engines, tokens, runs, problems = {}, {}, [], []
+    launches = dict(wrapper=0, device=0)
+    for name, drafter, captured in SPEC_RUNS:
+        srv = engines.get(name)
+        before = len(step_widths(srv)) if srv else 0
+        counts0 = spec_counts(srv) if srv else {}
+        scfg = dict(SPEC_SCFG, spec_tokens=4 if drafter else 0)
+        if drafter == "oracle":
+            replayed = tokens.get("captured_oracle", tokens["captured_plain"])
+            table = [(tuple(int(t) for t in p), toks) for (p, _), (_, _, toks)
+                     in zip(traffic, replayed)]
+            if srv is None:
+                scfg["drafter"] = oracle_drafter(table)
+            else:
+                srv._drafter.table = table
+        with contextlib.ExitStack() as stack:
+            plan = None
+            if srv is not None:
+                plan = stack.enter_context(
+                    timed_method(srv, "_plan_speculation"))
+            srv, rids, res, wall, counts = serve(
+                cfg, 0, 0, None, None, scfg, torch.bfloat16, device=device,
+                params=params, engine_kw=dict(enable_cuda_graph=captured),
+                srv=srv, phases=[traffic])
+        engines[name] = srv
+        widths = step_widths(srv, before)
+        steps = len(widths)
+        k6 = kernel_runs()
+        launches["device"] += k6
+        if not captured:
+            launches["wrapper"] += counts["ragged_paged_attention"]
+            if sum(counts.values()) != counts["ragged_paged_attention"]:
+                problems.append(f"{name}: kernels other than K6 ran: "
+                                f"{counts}")
+        got = [(res[r].state, res[r].finish_reason, res[r].tokens)
+               for r in rids]
+        if drafter == "oracle":
+            tokens[name] = got
+        tokens.setdefault(name, got)
+        c = {k: v - counts0.get(k, 0) for k, v in spec_counts(srv).items()}
+        generated = sum(len(res[r].tokens) for r in rids)
+        run = dict(name=name, tok_s=generated / wall,
+                   mean_step_ms=1e3 * wall / max(steps, 1), steps=steps,
+                   ttft_p50_s=float(np.median([res[r].ttft_s
+                                               for r in rids])),
+                   accept_rate=c["accepted"] / c["drafted"]
+                   if c["drafted"] else None,
+                   tokens_per_verify=c["committed"] / c["verify_rows"]
+                   if c["verify_rows"] else None,
+                   plan_ms_per_step=1e3 * plan.seconds / max(steps, 1)
+                   if plan else None, k6_runs=k6, **c)
+        if drafter == "oracle":
+            run["tokens_as_replayed"] = got == replayed
+        runs.append(run)
+        log(f"spec serve {name}: llama3_8b x{L} bf16, drafter {drafter}, "
+            f"{len(rids)} requests, "
+            f"{sum(s == 'finished' for s, _, _ in got)} finished, "
+            f"{generated} tokens in {wall:.3f} s = {run['tok_s']:.1f} tok/s, "
+            f"{steps} steps, mean step {run['mean_step_ms']:.2f} ms, ttft_p50 "
+            f"{run['ttft_p50_s']:.3f} s, drafted {c['drafted']}, accepted "
+            f"{c['accepted']} (rate {run['accept_rate']}), verify rows "
+            f"{c['verify_rows']}, tokens per verify "
+            f"{run['tokens_per_verify']}, pages dropped "
+            f"{c['pages_dropped']}, drafting {run['plan_ms_per_step']} ms a "
+            f"step, K6 runs {k6}, graphs {len(srv._graphs)}"
+            + (f", tokens as the oracle replayed {run['tokens_as_replayed']}"
+               if drafter == "oracle" else ""))
+        srv.block_pool.check_consistent()
+        if any(s != "finished" for s, _, _ in got):
+            problems.append(f"{name}: a request did not finish")
+        if srv.block_pool.used_count:
+            problems.append(f"{name}: {srv.block_pool.used_count} pages "
+                            f"leaked")
+        if k6 != L * steps:
+            problems.append(f"{name}: K6 ran {k6} times, not {L} x {steps}")
+        if set(widths) - set(srv.mixed_step_widths):
+            problems.append(f"{name}: widths {sorted(set(widths))} outside "
+                            f"{srv.mixed_step_widths}")
+        if drafter and not c["verify_rows"]:
+            problems.append(f"{name}: no verify row was packed")
+        if drafter == "oracle":
+            if not c["accepted"]:
+                problems.append(f"{name}: no oracle draft was accepted")
+        elif got != tokens[name]:
+            problems.append(f"{name}: a warm run's tokens changed")
+    if tokens["captured_spec"] != tokens["uncaptured_spec"]:
+        problems.append("the captured run's tokens differ from the "
+                        "uncaptured run's")
+    kept = {n: sum(a == b for a, b in zip(tokens[n],
+                                          tokens["captured_plain"]))
+            for n in ("captured_spec", "captured_oracle")}
+    names = ("captured_plain", "captured_spec", "captured_oracle")
+    mean = {n: {k: statistics.mean(r[k] for r in runs[SPEC_SETUP:]
+                                   if r["name"] == n)
+                for k in ("tok_s", "mean_step_ms", "ttft_p50_s", "steps",
+                          "drafted", "accepted", "verify_rows")}
+            for n in names}
+    ratio = {n: mean[n]["tok_s"] / mean["captured_plain"]["tok_s"]
+             for n in ("captured_spec", "captured_oracle")}
+    log(f"spec serve: warm turns {json.dumps(mean)}; tok/s over "
+        f"speculation off: prompt lookup {ratio['captured_spec']:.4f}, "
+        f"oracle {ratio['captured_oracle']:.4f}; requests whose bf16 "
+        f"tokens match speculation off: {kept} of "
+        f"{len(traffic)} (not gated: the packed width changes bf16 rows)")
+    if problems:
+        raise AssertionError("spec serve: " + "; ".join(problems))
+    for srv in engines.values():
+        srv.block_pool.drop_cached()
+    return dict(runs=runs, warm=mean, small=small, launches=launches)
+
+
+#: the tier phase's engine: the serve phase's slots and lengths, a 320-page
+#: pool (five 1024-token prefixes), the prefix cache, captured at bucketed
+#: widths; the modes add a 512-page (1 GiB) host tier, synchronous folds,
+#: or no tier (the evicted prefixes are recomputed), and the two-program
+#: engine with the tier, uncaptured (K7a/K7b's wrapper counts), checked
+#: once and not timed: (ServingConfig overrides, enable_cuda_graph)
+TIER_SCFG = dict(SERVE_SCFG, num_blocks=320, prefix_cache=True,
+                 mixed_step_buckets=True)
+TIER_MODES = {"tier": (dict(host_cache_blocks=512), True),
+              "sync_promote": (dict(host_cache_blocks=512,
+                                    sync_promote=True), True),
+              "off": ({}, True),
+              "two_program": (dict(host_cache_blocks=512, mixed_step=False,
+                                   mixed_step_buckets=False), False)}
+#: the measured turns, after one checked warm-up run of each mode
+TIER_TURNS = ("tier", "sync_promote", "off", "off", "sync_promote", "tier")
+
+
+def tier_rounds(vocab, seed, n=8, prefix=1024, suffix=4, new=8):
+    """Two rounds over ``n`` distinct ``prefix``-token prefixes, each with a
+    fresh ``suffix``; prompt and answer stay inside the prefix's pages and
+    one more, so a round indexes exactly ``n`` x 64 pages."""
+    rs = np.random.RandomState(seed)
+    prefixes = [rs.randint(0, vocab, prefix) for _ in range(n)]
+    return [[(np.concatenate([p, rs.randint(0, vocab, suffix)]), new)
+             for p in prefixes] for _ in range(2)]
+
+
+class TierProbe:
+    """Inside the block, times ``srv``'s demotion waves (its pool's page
+    reader: one gather per pool tensor and the copies into pinned memory,
+    waited for) and each promotion's copy to the device (CUDA events on
+    the promotion stream around ``upload_paged_blocks``, so any wait for
+    the compute stream is included); with ``check`` every fold is held
+    against its host payloads bit for bit (a read-back per fold)."""
+
+    def __init__(self, srv, check):
+        from deepspeed_tpu_torch.inference.serving import engine as se
+
+        self.se, self.srv, self.check = se, srv, check
+        self.waves, self.uploads, self.payloads = [], [], {}
+        self.folds = 0
+        self.mismatches = []
+
+    def __enter__(self):
+        se, pool = self.se, self.srv.block_pool
+        self.saved = (se.upload_paged_blocks, se.insert_paged_block,
+                      pool.page_reader)
+        upload, insert, reader = self.saved
+
+        def timed_reader(bids):
+            t = time.perf_counter()
+            out = reader(bids)
+            self.waves.append((len(bids), time.perf_counter() - t))
+            return out
+
+        def timed_upload(payloads, device, stream=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            leaves, event = upload(payloads, device, stream)
+            end.record(stream)
+            self.uploads.append((len(payloads), start, end))
+            if self.check:
+                self.payloads[id(leaves)] = payloads
+            return leaves, event
+
+        def checked_insert(pool_tensors, dst_ids, leaves):
+            insert(pool_tensors, dst_ids, leaves)
+            self.folds += 1
+            payloads = self.payloads.pop(id(leaves), None)
+            if payloads is not None:
+                for n, t in pool_tensors.items():
+                    want = torch.cat([p[n] for p in payloads], dim=1)
+                    if not torch.equal(t[:, dst_ids].cpu(), want):
+                        self.mismatches.append((list(dst_ids), n))
+
+        se.upload_paged_blocks = timed_upload
+        se.insert_paged_block = checked_insert
+        pool.page_reader = timed_reader
+        return self
+
+    def __exit__(self, *exc):
+        se = self.se
+        se.upload_paged_blocks, se.insert_paged_block, \
+            self.srv.block_pool.page_reader = self.saved
+
+    def summary(self, page_bytes):
+        torch.cuda.synchronize()
+        out = {}
+        if self.waves:
+            pages = sum(n for n, _ in self.waves)
+            secs = sum(s for _, s in self.waves)
+            out.update(demotion_waves=len(self.waves), demoted_pages=pages,
+                       demotion_ms_per_wave=1e3 * secs / len(self.waves),
+                       demotion_gb_s=pages * page_bytes / secs / 1e9)
+        if self.uploads:
+            pages = sum(n for n, _, _ in self.uploads)
+            ms = sum(s.elapsed_time(e) for _, s, e in self.uploads)
+            out.update(promotions=len(self.uploads), promoted_pages=pages,
+                       promotion_ms=ms / len(self.uploads),
+                       promotion_gb_s=pages * page_bytes / ms / 1e6)
+        return out
+
+
+def pinned_stats():
+    """The caching host allocator's counters (pinned memory), where torch
+    has them."""
+    fn = getattr(torch.cuda, "host_memory_stats", None)
+    try:
+        return dict(fn()) if fn is not None else {}
+    except RuntimeError:
+        return {}
+
+
+def pinned_delta(before):
+    """The pinned-allocation counters that moved since ``before``."""
+    after = pinned_stats()
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if "alloc" in k and isinstance(v, (int, float))
+            and v != before.get(k, 0)}
+
+
+def check_kv_tier(cfg, params, device="cuda"):
+    """The host KV tier on full-width Llama-3-8B (the serve phase's bf16
+    weights; unified engine, captured at bucketed widths, the prefix
+    cache, a 320-page device pool): a first round of 8 requests on
+    distinct 1024-token prefixes, then a second round on the same
+    prefixes with new suffixes. The pool holds five prefixes, so the
+    first round's are evicted before the second asks again: demoted into
+    a 512-page (1 GiB) host tier and promoted back, folded synchronously
+    (``sync_promote``), or recomputed (no tier); and once through the
+    two-program engine with the tier, uncaptured (K7a/K7b, whose wrapper
+    counts it adds). One checked warm-up run per mode, then measured
+    turns (``TIER_TURNS``) of the unified modes on fresh prefixes,
+    each after ``drop_cached`` (a cold start of both tiers). Gates: host
+    hits in every tiered second round, every promoted page equal to its
+    demoted payload bit for bit (warm-up runs), both tiers consistent, no
+    page leaked, no graph captured again and the pool's ``data_ptr``s
+    unchanged after the warm-up, K6 once per layer per step (device
+    count), every request finished. Prints each run's demotion ms and
+    GB/s a wave, promotion ms and GB/s, and the second round's TTFT
+    p50. Returns the summary."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import ragged_attention as ra
+
+    L = cfg.num_hidden_layers
+    engines, problems, runs = {}, [], []
+    launches = dict(wrapper={n: 0 for n in serving_kernels()}, device=0)
+    for mode, (over, captured) in TIER_MODES.items():
+        engine = dt.init_inference(LlamaForCausalLM(cfg), params=params,
+                                   dtype=torch.bfloat16, device=device,
+                                   enable_cuda_graph=captured)
+        engines[mode] = dt.ServingEngine(engine, dt.ServingConfig(
+            **dict(TIER_SCFG, **over)))
+    srv0 = engines["tier"]
+    page_bytes = sum(t[:, :1].nbytes for t in srv0.pool.values())
+    ptrs = {m: {n: t.data_ptr() for n, t in s.pool.items()}
+            for m, s in engines.items()}
+    graphs = {}
+    for i, mode in enumerate(tuple(TIER_MODES) + TIER_TURNS):
+        srv = engines[mode]
+        warmup = i < len(TIER_MODES)
+        srv.block_pool.drop_cached()
+        rounds = tier_rounds(cfg.vocab_size, 100 + i)
+        m0 = (srv.metrics.kv_host_hits, srv.metrics.kv_pages_promoted,
+              srv.metrics.prefix_hits)
+        before = len(step_widths(srv))
+        pinned0 = pinned_stats()
+        with TierProbe(srv, check=warmup) as probe:
+            srv, rids, res, wall, counts = serve(
+                cfg, 0, 0, None, None, None, torch.bfloat16, device=device,
+                srv=srv, phases=rounds)
+        k6 = ra.kernel_runs()
+        launches["device"] += k6
+        if not TIER_MODES[mode][1]:
+            for n, c in counts.items():
+                launches["wrapper"][n] += c
+        steps = len(step_widths(srv, before))
+        second = rids[len(rounds[0]):]
+        m = srv.metrics
+        run = dict(mode=mode, warmup=warmup, wall_s=wall, steps=steps,
+                   ttft_p50_s_round2=float(np.median(
+                       [res[r].ttft_s for r in second])),
+                   ttft_p50_s_round1=float(np.median(
+                       [res[r].ttft_s for r in rids[:len(second)]])),
+                   host_hits=m.kv_host_hits - m0[0],
+                   pages_promoted=m.kv_pages_promoted - m0[1],
+                   prefix_hits=m.prefix_hits - m0[2],
+                   folds_checked=probe.folds if warmup else 0,
+                   pinned=pinned_delta(pinned0),
+                   **probe.summary(page_bytes))
+        runs.append(run)
+        log(f"kv tier {json.dumps(run)}")
+        srv.block_pool.check_consistent()
+        if any(res[r].state != "finished" for r in rids):
+            problems.append(f"{mode}: a request did not finish")
+        if srv.block_pool.used_count:
+            problems.append(f"{mode}: {srv.block_pool.used_count} pages "
+                            f"leaked")
+        if k6 != L * steps:
+            problems.append(f"{mode}: K6 ran {k6} times, not {L} x {steps}")
+        if mode == "two_program" and not (
+                counts["paged_decode_attention"]
+                and counts["paged_prefill_attention"]):
+            problems.append(f"{mode}: K7a / K7b did not run: {counts}")
+        if srv.host_tier is not None and not run["host_hits"]:
+            problems.append(f"{mode}: no host hit in the second round")
+        if probe.mismatches:
+            problems.append(f"{mode}: promoted pages differ from their "
+                            f"payloads: {probe.mismatches[:4]}")
+        if warmup and srv.host_tier is not None and not probe.folds:
+            problems.append(f"{mode}: no fold was checked")
+        if warmup:
+            graphs[mode] = dict(srv._graphs)
+        elif any(srv._graphs.get(k) is not g
+                 for k, g in graphs[mode].items()):
+            problems.append(f"{mode}: a graph was captured again")
+        if {n: t.data_ptr() for n, t in srv.pool.items()} != ptrs[mode]:
+            problems.append(f"{mode}: a pool tensor moved")
+    for mode, s in engines.items():
+        if s.host_tier is not None:
+            log(f"kv tier {mode} tier_status {json.dumps(s.tier_status())}")
+    measured = {mode: [r for r in runs if r["mode"] == mode
+                       and not r["warmup"]] for mode in set(TIER_TURNS)}
+    mean = {mode: {k: statistics.mean(r[k] for r in rs)
+                   for k in rs[0] if isinstance(rs[0][k], float)}
+            for mode, rs in measured.items()}
+    log(f"kv tier: measured means {json.dumps(mean)}")
+    if problems:
+        raise AssertionError("kv tier: " + "; ".join(problems))
+    for s in engines.values():
+        s.block_pool.drop_cached()
+    del engines
+    return dict(runs=runs, mean=mean, launches=launches)
+
 
 
 #: the two-program engine's full-width run: slots, pages and lengths of
@@ -4350,6 +4906,22 @@ def main() -> int:
         return {run: counts[name] for run, counts in hf_runs.items()
                 if counts.get(name)}
 
+    def phase_launches(name):
+        """A serving kernel's launches in the spec serve and kv tier
+        phases: the wrappers' counts over their uncaptured runs (the spec
+        serve's first, the two-program tier run) and, for K6, its device
+        runs over every run, replays included."""
+        spec, tier = serve_runs["spec"]["launches"], \
+            serve_runs["tier"]["launches"]
+        out = {"spec_serve_launches": {
+            "wrapper": spec["wrapper"] if name == "ragged_paged_attention"
+            else 0},
+            "kv_tier_launches": {"wrapper": tier["wrapper"][name]}}
+        if name == "ragged_paged_attention":
+            out["spec_serve_launches"]["device"] = spec["device"]
+            out["kv_tier_launches"]["device"] = tier["device"]
+        return out
+
     main_case = ragged["bf16/mixed"]
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
@@ -4361,6 +4933,7 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
         "hf_inject_launches": hf_inject_launches("ragged_paged_attention"),
+        **phase_launches("ragged_paged_attention"),
     }]
     # K7a and K7b: launches of the two-program serve with the prefix cache;
     # graph_launches: their runs in its captured engine's profiled replays
@@ -4375,6 +4948,7 @@ def main() -> int:
             launches=legacy_launches["chunked+prefix_cache"][name],
             graph_launches=legacy_replayed["chunked+prefix_cache"][name],
             hf_inject_launches=hf_inject_launches(name),
+            **phase_launches(name),
             **dict(paged[kind][main_name], max_abs_err=max(
                 r["max_abs_err"] for r in paged[kind].values()))))
     flash_src = "deepspeed_tpu/ops/pallas/flash_attention.py"

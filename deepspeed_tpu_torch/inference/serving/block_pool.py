@@ -1,9 +1,11 @@
 """Host-side accounting for the paged KV-cache block pool.
 
-Counterpart of ``deepspeed_tpu/inference/serving/block_pool.py`` without
-its host KV tier (demotion on eviction, host matches, promotion), which
-``ServingConfig.host_cache_blocks`` rejects until its slice (ROADMAP.md
-Queue 1).
+Counterpart of ``deepspeed_tpu/inference/serving/block_pool.py``, host
+KV tier included: with :meth:`BlockPool.attach_host_tier` eviction
+demotes pages into ``kv_tiers.HostTier`` (probation for pages that never
+served a match), admission's prefix match continues into the host index
+(:meth:`BlockPool.host_match_keys`), a device commit consumes the host
+entry, and :meth:`BlockPool.check_consistent` holds both tiers.
 
 The device arrays (``models/layers.py init_paged_kv_cache``) are a flat pool
 of ``num_blocks`` pages; this class owns WHICH page belongs to WHICH request.
@@ -114,6 +116,25 @@ class BlockPool:
         self._block_hash: Dict[int, ChainKey] = {}
         #: monotone counter: cached pages reclaimed to back new allocations
         self.evictions = 0
+        #: optional spill tier (kv_tiers.HostTier) + the callable that
+        #: reads one device page host-side — installed together via
+        #: :meth:`attach_host_tier`; None = evictions destroy (seed
+        #: behavior). The pool stays torch-free: all device I/O lives in
+        #: the reader/tier the engine provides.
+        self.host_tier = None
+        self.page_reader = None
+        #: monotone counter: evicted pages demoted into the host tier
+        #: (chain preserved) instead of destroyed
+        self.demotions = 0
+        #: pages that ever SERVED a prefix match (revived off the cached
+        #: LRU or shared by a second owner via :meth:`acquire`, or
+        #: promoted up from the host tier). The demotion admission
+        #: policy keys on this: a page never matched — the single-use
+        #: tail of a finished request — demotes into the host tier's
+        #: PROBATION segment (evicted first) instead of polluting the
+        #: protected LRU, so recovery re-warm churn cannot thrash the
+        #: prefixes the tier exists to keep
+        self._matched: Set[int] = set()
 
     # -- capacity ------------------------------------------------------
 
@@ -179,35 +200,99 @@ class BlockPool:
                 f"allocatable ({len(self._free)} blank + "
                 f"{len(self._cached)} cached)")
         if len(self._free) < n:
+            # one batched eviction wave: with a host tier attached the
+            # whole wave's demotion fetch is ONE device round-trip
             self._evict_cached(n - len(self._free))
         out = [self._free.pop() for _ in range(n)]
         for bid in out:
             self._refs[bid] = {owner}
         return out
 
-    def _evict_cached(self, k: int) -> None:
+    def attach_host_tier(self, tier, page_reader) -> None:
+        """Wire a spill tier behind the eviction path: ``_evict_one``
+        becomes demotion (page copied host-side via ``page_reader``,
+        chain preserved in the tier's content index), ``commit_hash``
+        consumes host entries the moment their content re-enters the
+        device index (single-residency), and ``check_consistent``
+        extends across both tiers. ``page_reader(bids)`` returns the
+        host payloads of a LIST of device pages in one batched read
+        (``kv_tiers.fetch_paged_blocks``)."""
+        self.host_tier = tier
+        self.page_reader = page_reader
+        # chain-coverage oracle: "is this key live in the DEVICE index?"
+        # (the other half of the tier's no-stranded-pages invariant)
+        tier.device_live = lambda h: self.lookup(h) is not None
+
+    def _evict_one(self, spill: bool = True) -> None:
+        self._evict_cached(1, spill=spill)
+
+    def _evict_cached(self, k: int, spill: bool = True) -> None:
         """Reclaim the ``k`` least-recently-used cached pages. Only
         refcount-0 pages live in ``_cached``, so a referenced page can
-        never be evicted — structurally, not by policy."""
+        never be evicted — structurally, not by policy. With a host tier
+        attached the wave DEMOTES: every page's content is copied
+        host-side in ONE batched ``page_reader`` read (one device
+        round-trip per wave, not per page) and its chain key survives in
+        the host content index, so a later identical prefix still hits
+        (and promotes) instead of recomputing. LRU order is preserved
+        tier-to-tier: the oldest device page becomes the oldest host
+        entry. ``spill=False`` (drop_cached) destroys as before."""
+        batch = []
         for _ in range(k):
             bid, _ = self._cached.popitem(last=False)
             h = self._block_hash.pop(bid, None)
             if h is not None and self._hash_to_block.get(h) == bid:
                 del self._hash_to_block[h]
+            else:
+                h = None
+            batch.append((bid, h))
+        spillable = [] if not (spill and self.host_tier is not None
+                               and self.page_reader is not None) else \
+            [(bid, h) for bid, h in batch if h is not None]
+        demoted: Set[int] = set()
+        if spillable:
+            payloads = self.page_reader([bid for bid, _ in spillable])
+            for (bid, h), payload in zip(spillable, payloads):
+                # demotion admission policy: pages that never served a
+                # prefix match (single-use tails) go to the PROBATION
+                # segment — the tier evicts those first, so churn can
+                # never thrash the proven-reusable protected entries
+                if self.host_tier.put(h, payload,
+                                      probation=bid not in self._matched):
+                    demoted.add(bid)
+                    self.demotions += 1
+        for bid, h in batch:
+            if h is not None and bid not in demoted and \
+                    self.host_tier is not None:
+                # the key left the device index WITHOUT reaching the
+                # host: host children it covered must cascade (no
+                # stranded entries behind a chain gap)
+                self.host_tier.on_device_drop(h)
             self._free.append(bid)
+            self._matched.discard(bid)  # blanked: the id will be reused
             self.evictions += 1
             if self.tracer is not None and self.tracer.enabled:
-                self.tracer.instant("prefix_evict", cat="pool",
+                name = "kv_demote" if bid in demoted else "prefix_evict"
+                self.tracer.instant(name, cat="pool",
                                     args={"block": bid,
                                           "cached": len(self._cached)})
 
     def drop_cached(self) -> int:
         """Evict EVERY refcount-0 cached page (and its index entries) back
-        to the blank list; returns the count. Models the cold restart of
-        a killed replica: a dead process's warm KV does not survive its
-        memory (a revived replica re-warms from traffic)."""
-        n = len(self._cached)
-        self._evict_cached(n)
+        to the blank list — WITHOUT demoting — and clear the host tier;
+        returns the device count. Models the cold restart of a killed
+        fleet replica: a dead process's warm KV does not survive its
+        memory — device HBM and host RAM alike — so the router's kill
+        drill must not leave either tier an index a real restart would
+        never have (a revived replica re-warms from traffic)."""
+        if self.host_tier is not None:
+            # host first: the spill-free device evictions below then have
+            # no children left to cascade onto (and no counter noise)
+            self.host_tier.clear()
+        n = 0
+        while self._cached:
+            self._evict_one(spill=False)
+            n += 1
         return n
 
     def free(self, block_ids: List[int], owner: str) -> None:
@@ -236,6 +321,7 @@ class BlockPool:
                 self._cached.move_to_end(bid)
             else:
                 self._free.append(bid)
+                self._matched.discard(bid)  # blanked: id will be reused
 
     def acquire(self, block_ids: List[int], owner: str) -> None:
         """Add ``owner`` references to live pages (referenced or cached);
@@ -251,6 +337,9 @@ class BlockPool:
         for bid in block_ids:
             self._cached.pop(bid, None)
             self._refs.setdefault(bid, set()).add(owner)
+            # this page just served a prefix hit (revived or shared):
+            # it has PROVEN reuse value, so a later demotion protects it
+            self._matched.add(bid)
 
     def cow(self, bid: int, owner: str) -> int:
         """Copy-on-write: detach ``owner`` from a SHARED page onto a fresh
@@ -287,14 +376,20 @@ class BlockPool:
         return out
 
     def canonical_key(self, k: ChainKey) -> ChainKey:
-        """The stored key object equal to ``k`` from the content index,
-        or ``k`` itself when the index does not hold it. Chains built on
-        the returned key share structure with the stored chain, so
-        ``__eq__`` walks between them stop at depth 1 (identity) instead
-        of O(depth) token compares — without this, a fully-cached k-block
-        prompt pays O(k^2 * block_size) comparisons per admission scan."""
+        """The stored key object equal to ``k`` — from the device index
+        or, on a miss, the HOST tier's intern table — or ``k`` itself
+        when neither holds it. Chains built on the returned key share
+        structure with the stored chain, so ``__eq__`` walks between
+        them stop at depth 1 (identity) instead of O(depth) token
+        compares — without this, a fully-cached k-block prompt (device
+        OR host resident) pays O(k^2 * block_size) comparisons per
+        admission scan."""
         bid = self._hash_to_block.get(k)
         if bid is None:
+            if self.host_tier is not None:
+                stored = self.host_tier.canonical(k)
+                if stored is not None:
+                    return stored
             return k
         stored = self._block_hash.get(bid)
         return stored if stored == k else k
@@ -302,9 +397,13 @@ class BlockPool:
     def commit_hash(self, bid: int, h: ChainKey) -> None:
         """Content-index a fully-written, referenced page. First writer
         wins: when ``h`` already names a live page the newcomer stays
-        unindexed (a content duplicate that blanks on release). Commit
-        runs AFTER the engine's logit guard passed the chunk that covers
-        the page, so poisoned KV is never indexed."""
+        unindexed (a content duplicate that blanks on release). With a
+        host tier attached, indexing ``h`` CONSUMES any host entry under
+        the same key — the single-residency rule: a promoted (or simply
+        recomputed) page live in the device index must not also sit on
+        the host LRU. Commit runs AFTER the engine's logit guard passed
+        the chunk that covers the page, so a corrupted promotion is
+        quarantined before its host copy is ever consumed."""
         if bid not in self._refs:
             raise BlockPoolError(f"commit_hash on unreferenced block {bid}")
         if bid in self._block_hash:
@@ -315,6 +414,11 @@ class BlockPool:
             return
         self._hash_to_block[h] = bid
         self._block_hash[bid] = h
+        if self.host_tier is not None and self.host_tier.evict(h):
+            # the device copy replaced a host entry: this content WAS
+            # matched (the host hit is what brought it back up), so a
+            # later re-demotion keeps its protected status
+            self._matched.add(bid)
 
     def lookup(self, h: ChainKey) -> Optional[int]:
         """Live page id for a chained hash, or None."""
@@ -325,8 +429,8 @@ class BlockPool:
 
     def _device_match_blocks(self, n_tokens: int,
                              hashes: List[ChainKey]) -> List[int]:
-        """THE prefix walk: longest run of live pages from the chain
-        head, capped so at least one token stays uncached."""
+        """THE device-index prefix walk: longest run of live pages from
+        the chain head, capped so at least one token stays uncached."""
         max_full = (n_tokens - 1) // self.block_size
         out: List[int] = []
         for h in hashes[:max_full]:
@@ -348,6 +452,25 @@ class BlockPool:
         if hashes is None:
             hashes = self.prefix_block_hashes(tokens)
         return self._device_match_blocks(len(tokens), hashes)
+
+    def host_match_keys(self, n_tokens: int, hashes: List[ChainKey],
+                        start: int) -> List[ChainKey]:
+        """Continue a device prefix match into the HOST tier: the longest
+        contiguous run of host-resident keys from chain position
+        ``start`` (the device-matched block count), under the same
+        at-least-one-token-computed cap as :meth:`match_prefix`. Returns
+        the matched keys in chain order — the admission path captures
+        their payloads and schedules async promotion. Empty without a
+        tier."""
+        if self.host_tier is None:
+            return []
+        max_full = (n_tokens - 1) // self.block_size
+        out: List[ChainKey] = []
+        for h in hashes[start:max_full]:
+            if not self.host_tier.contains(h):
+                break
+            out.append(h)
+        return out
 
     def uncached_suffix_blocks(self, tokens: Sequence[int],
                                hashes: Optional[List[ChainKey]] = None
@@ -428,6 +551,20 @@ class BlockPool:
                 # never being entered; _block_hash is only set on entry
                 raise BlockPoolError(
                     f"hash index mismatch for block {bid}")
+        if self.host_tier is not None:
+            # cross-tier invariants: single residency (a key live in the
+            # device index never also on the host LRU) plus the tier's
+            # own accounting + no-stranded-entry checks
+            for h in self.host_tier.keys():
+                bid = self._hash_to_block.get(h)
+                if bid is not None and (bid in used or bid in cached):
+                    raise BlockPoolError(
+                        f"key resident in BOTH tiers: device block {bid} "
+                        f"and a host entry ({h!r})")
+            try:
+                self.host_tier.check()
+            except RuntimeError as e:
+                raise BlockPoolError(f"host tier inconsistent: {e}")
 
     # -- defrag --------------------------------------------------------
 
@@ -452,6 +589,8 @@ class BlockPool:
         self._refs = {mapping[old]: refs for old, refs in self._refs.items()}
         self._cached = OrderedDict((mapping[old], None)
                                    for old in self._cached)
+        self._matched = {mapping[old] for old in self._matched
+                         if old in mapping}
         self._block_hash = {mapping[old]: h
                             for old, h in self._block_hash.items()}
         self._hash_to_block = {h: mapping[old]

@@ -57,9 +57,26 @@ recorder that dumps on each trip, quarantine and fault, and ``perf``
 (``monitor/perf.py``) registers every forward's program and turns the step
 wall times into MFU/MBU on the card's own peaks.
 
-The pool lives on the engine's device and is updated in place. Knobs of
-the JAX engine that this slice does not implement raise
-``NotImplementedError`` naming the slice that brings them.
+Speculative decoding (``spec_tokens``, the unified step only): a
+decoding resident's drafts (``speculative.PromptLookupDrafter`` by
+default) ride its packed row as a verify segment of ``1 + k`` tokens, the
+step's argmax at each of them is the model's prediction after it, the
+longest confirmed prefix and the model's bonus token commit, and the
+rejected KV is rolled back by rewinding ``seq_len`` (whole rejected pages
+are freed). Verify rows spend only the packed step's leftover capacity.
+
+The host KV tier (``host_cache_blocks`` / ``host_cache_bytes``, with
+``prefix_cache``, both engines): evicted prefix pages are demoted into
+``kv_tiers.HostTier`` (pinned host memory) and admission's prefix match
+continues there. Matched host pages are copied back on a side stream and
+folded into the pool in place (``index_copy_``) once their copy has
+landed, between steps and under the watchdog; until then only their own
+request waits for its prefill grants. ``sync_promote`` folds at admission
+instead, waiting for the copy.
+
+The pool lives on the engine's device and is updated in place: its
+tensors are never rebound, so captured graphs stay valid through
+copy-on-write, defrag and promotion.
 """
 
 import dataclasses
@@ -81,24 +98,42 @@ from ...utils import fault_injection
 from ...utils.logging import log_dist
 from ..engine import InferenceEngine, _sample_logits, next_pow2
 from .block_pool import BlockPool, BlockPoolError, chain_hash
+from .kv_tiers import (HostTier, fetch_paged_blocks, insert_paged_block,
+                       upload_paged_blocks)
 from .metrics import ServingMetrics
 from .scheduler import RejectedError, Request, RequestState, Scheduler
-
-#: ServingConfig knobs of the JAX engine that later slices bring, with the
-#: value that means "off" (the JAX default), the slice that adds them and
-#: its ROADMAP.md Queue 1 item
-_DEFERRED = {
-    "spec_tokens": (0, "speculative decoding", "2c"),
-    "spec_ngram": (3, "speculative decoding", "2c"),
-    "drafter": (None, "speculative decoding", "2c"),
-    "host_cache_blocks": (0, "the host KV tier", "2c"),
-    "host_cache_bytes": (None, "the host KV tier", "2c"),
-    "sync_promote": (False, "the host KV tier", "2c"),
-}
+from .speculative import PromptLookupDrafter
 
 
 class StepWatchdogTimeout(RuntimeError):
     """A serving step exceeded ``step_watchdog_s`` wall-clock."""
+
+
+@dataclasses.dataclass
+class _Promotion:
+    """One in-flight host->device promotion: a request's WHOLE matched
+    host prefix as one copy to the device (``leaves``, ``[L, k, ...]`` per
+    pool tensor, landed when ``event`` completes; None on the CPU), plus
+    enough identity to validate the fold targets — the request's CURRENT
+    admission segment and the exact page ids it was granted (a
+    preempted/terminal request's pages are back in the pool and may
+    already belong to someone else). ``width`` is the page count's power
+    of two: as in the JAX engine, the first fold of each width is exempt
+    from the watchdog."""
+    req: Request
+    block_idxs: List[int]
+    dst_bids: List[int]
+    leaves: Dict[str, torch.Tensor]
+    event: Any
+    width: int
+    admit_order: int
+    t_sched: float
+
+
+def _landed(event) -> bool:
+    """Has a promotion's copy to the device completed? (No event: the
+    copy was synchronous.)"""
+    return event is None or event.query()
 
 
 @dataclasses.dataclass
@@ -195,21 +230,41 @@ class ServingConfig:
     #: write the serving counters to ``init_serving``'s ``monitor`` every
     #: N steps (0 = never)
     monitor_every: int = 1
-    # -- knobs later slices implement (see _DEFERRED) ------------------
+    # -- speculative decoding (serving/speculative.py) ------------------
+    #: max drafted tokens per resident per step (0 = speculation off). A
+    #: speculating resident packs a VERIFY row (``query_len = k + 1``)
+    #: instead of its one-token decode row, in the same packed step, and
+    #: commits up to ``k + 1`` tokens when the model's greedy predictions
+    #: confirm the drafts. Verify rows spend the packed step's LEFTOVER
+    #: capacity only: prefill grants and the one guaranteed decode token
+    #: per resident always outrank them. Requires the unified step and
+    #: greedy sampling (``do_sample=False``)
     spec_tokens: int = 0
+    #: longest n-gram the default prompt-lookup drafter matches against
+    #: the resident's own prompt + generated history (it falls back to
+    #: shorter n-grams down to 1; no match = no draft = plain decode)
     spec_ngram: int = 3
+    #: pluggable drafter (``serving.speculative.Drafter``); None with
+    #: ``spec_tokens > 0`` builds the model-free
+    #: :class:`~.speculative.PromptLookupDrafter`. The engine never
+    #: mutates it, so one instance may serve several engines
     drafter: Optional[Any] = None
+    # -- tiered KV cache (serving/kv_tiers.py) --------------------------
+    #: host-RAM spill tier capacity in KV pages (0 = no tier). With a
+    #: tier, pool evictions DEMOTE (page copied host-side, content chain
+    #: preserved) instead of destroying, admission's longest-prefix match
+    #: extends into the host index, and matched host pages stream back
+    #: up asynchronously while the rest of the batch keeps stepping.
+    #: Requires ``prefix_cache``
     host_cache_blocks: int = 0
+    #: host-tier byte budget (None = unbounded; combines with the block
+    #: cap — whichever is hit first evicts the tier's own LRU)
     host_cache_bytes: Optional[int] = None
+    #: fold every promotion at admission, waiting for its copy, instead of
+    #: folding it once landed — the A/B control of the promotion overlap
     sync_promote: bool = False
 
     def __post_init__(self):
-        for name, (off, slice_name, item) in _DEFERRED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"ServingConfig.{name}={getattr(self, name)!r} arrives "
-                    f"with the {slice_name} slice of the port "
-                    f"(ROADMAP.md Queue 1, item {item})")
         if self.monitor_every < 0:
             raise ValueError("monitor_every must be >= 0 (0 = never)")
 
@@ -223,34 +278,23 @@ def _sleep_until(t: float) -> None:
         time.sleep(min(1.0, left))
 
 
-class _ReadBack:
-    """A forward's ``[n + R]`` int32 output (tokens, then flags) on its way
-    to the host. On the card it is copied asynchronously into a pinned
-    buffer of its size behind a CUDA event (the pair made once in
-    ``buffers``), so the caller can wait for it against a deadline
-    (:meth:`wait_until`) and give up on a device that does not finish; on
-    the CPU the output is already there."""
+class _DeviceDone:
+    """Work just queued on the current CUDA stream, awaited on ``event``
+    recorded behind it (None on the CPU: nothing to wait for), so the
+    caller can wait for it against a deadline (:meth:`wait_until`) and
+    give up on a device that does not finish. A promotion's fold is one;
+    a forward's read-back (:class:`_ReadBack`) adds its result."""
 
-    def __init__(self, out: torch.Tensor, n: int, buffers: Dict[int, tuple]):
-        self.n = n
-        self._event = None
-        self._host = out
-        if out.device.type != "cuda":
-            return
-        pair = buffers.get(out.numel())
-        if pair is None:
-            pair = buffers[out.numel()] = (torch.empty(
-                out.shape, dtype=out.dtype, pin_memory=True),
-                torch.cuda.Event())
-        self._host, self._event = pair
-        self._host.copy_(out, non_blocking=True)
-        self._event.record()
+    def __init__(self, event=None):
+        self._event = event
+        if event is not None:
+            event.record()
 
     def ready(self) -> bool:
         return self._event is None or self._event.query()
 
     def wait_until(self, deadline: float = math.inf) -> bool:
-        """Spin on the copy's event until it completes (True) or the
+        """Spin on the event until it completes (True) or the
         ``perf_counter`` ``deadline`` passes (False). (A spin wakes as
         soon as a blocking ``.cpu()`` does; ``Event.synchronize`` woke
         later on the card.)"""
@@ -258,6 +302,32 @@ class _ReadBack:
             if time.perf_counter() >= deadline:
                 return False
         return True
+
+    def result(self):
+        self.wait_until()
+        return None
+
+
+class _ReadBack(_DeviceDone):
+    """A forward's ``[n + R]`` int32 output (tokens, then flags) on its way
+    to the host. On the card it is copied asynchronously into a pinned
+    buffer of its size behind a CUDA event (the pair made once in
+    ``buffers``); on the CPU the output is already there."""
+
+    def __init__(self, out: torch.Tensor, n: int, buffers: Dict[int, tuple]):
+        self.n = n
+        self._host = out
+        if out.device.type != "cuda":
+            super().__init__()
+            return
+        pair = buffers.get(out.numel())
+        if pair is None:
+            pair = buffers[out.numel()] = (torch.empty(
+                out.shape, dtype=out.dtype, pin_memory=True),
+                torch.cuda.Event())
+        self._host, event = pair
+        self._host.copy_(out, non_blocking=True)
+        super().__init__(event)
 
     def result(self):
         """Host ``(tokens [n], bad)``, once the copy has completed (the
@@ -343,6 +413,25 @@ class ServingEngine:
         # whole prefill budget
         self._mixed_tokens = max(cfg.max_batch_size,
                                  cfg.max_batch_size - 1 + self._chunk_budget)
+        # speculative decoding: the drafter (the verify rows are packed
+        # segments of the unified step, judged on greedy predictions)
+        if cfg.spec_tokens < 0:
+            raise ValueError("spec_tokens must be >= 0 (0 = off)")
+        self._drafter = None
+        if cfg.spec_tokens > 0:
+            if not self._mixed:
+                raise ValueError(
+                    "speculative decoding needs the unified mixed step "
+                    "(mixed_step=True): verify rows are packed ragged "
+                    "segments of the one packed step")
+            if cfg.do_sample:
+                raise ValueError(
+                    "speculative decoding requires greedy sampling "
+                    "(do_sample=False): the accept rule compares the "
+                    "target model's argmax predictions against the "
+                    "drafts token for token")
+            self._drafter = cfg.drafter if cfg.drafter is not None \
+                else PromptLookupDrafter(cfg.spec_ngram)
         # packed widths: the full capacity, or with mixed_step_buckets the
         # powers of two from next_pow2(max_batch_size) below it, then it
         self._bucket_widths: Optional[List[int]] = None
@@ -356,6 +445,13 @@ class ServingEngine:
                 w *= 2
             ws.append(self._mixed_tokens)
             self._bucket_widths = ws
+        # the adaptive draft cap trades draft length for a narrower step,
+        # so it engages where width costs: bucketed widths, or (the JAX
+        # engine's rule, kept as written) the Pallas decode attention the
+        # config names; elsewhere a rejected draft fills padding the step
+        # computes anyway
+        self._spec_adaptive = self._bucket_widths is not None or getattr(
+            engine.module.config, "decode_attention_impl", None) == "pallas"
         # both engines run over static buffers; with enable_cuda_graph on
         # a CUDA device each shape (a packed width; the two-program
         # engine's decode, chunk and monolithic buckets) is captured as
@@ -419,6 +515,32 @@ class ServingEngine:
             cfg.num_blocks, cfg.block_size, dtype=kv_dtype,
             device=self.device)
 
+        # the host KV tier behind the pool's LRU
+        self.host_tier: Optional[HostTier] = None
+        if cfg.host_cache_blocks or cfg.host_cache_bytes is not None:
+            if cfg.host_cache_blocks < 0:
+                raise ValueError("host_cache_blocks must be >= 0")
+            if not cfg.prefix_cache:
+                raise ValueError(
+                    "the host KV tier extends the prefix cache "
+                    "(demoted pages are matched by content chain): set "
+                    "prefix_cache=True with host_cache_blocks/bytes")
+            self.host_tier = HostTier(max_blocks=cfg.host_cache_blocks,
+                                      max_bytes=cfg.host_cache_bytes,
+                                      tracer=self.tracer)
+            # a whole eviction wave is ONE gather per pool tensor
+            self.block_pool.attach_host_tier(
+                self.host_tier,
+                lambda bids: fetch_paged_blocks(self.pool, bids))
+        #: in-flight promotions (copies to the device not yet folded into
+        #: the pool), the stream their copies run on, and the page widths
+        #: whose first fold already ran (later folds are watchdog-judged)
+        self._promote_q: List[_Promotion] = []
+        self._promote_stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" and self.host_tier is not None \
+            else None
+        self._promote_warm = set()
+
         B = cfg.max_batch_size
         self._tables = np.full((B, self.nb_max), self.block_pool.sentinel,
                                np.int32)
@@ -442,7 +564,9 @@ class ServingEngine:
         self.compile_counts = {"mixed_step": 0} if self._mixed else {}
         log_dist(f"ServingEngine: slots={B}, pool={cfg.num_blocks}x"
                  f"{cfg.block_size} ({kv_dtype}), max_len="
-                 f"{cfg.max_model_len}, device={self.device}", ranks=[0])
+                 f"{cfg.max_model_len}, device={self.device}"
+                 + (f", spec={self._drafter.kind} k<={cfg.spec_tokens}"
+                    if self._drafter is not None else ""), ranks=[0])
 
     # ------------------------------------------------------------------
     # public API
@@ -759,6 +883,11 @@ class ServingEngine:
         block tables. Returns the number of pages that moved."""
         mapping, src = self.block_pool.defrag_plan()
         moved = sum(1 for old, new in mapping.items() if old != new)
+        # in-flight promotions target pages by id: remapped with the block
+        # tables, or the pump would drop them as stale and leave their
+        # requests waiting for a promotion that never comes
+        for e in self._promote_q:
+            e.dst_bids = [mapping[b] for b in e.dst_bids]
         if moved:
             idx = torch.as_tensor(src, dtype=torch.long, device=self.device)
             for t in self.pool.values():
@@ -770,6 +899,203 @@ class ServingEngine:
                 # mid-prefill resident until its last chunk lands
                 self._write_table_row(req)
         return moved
+
+    # -- the host KV tier: promotion ------------------------------------
+
+    def _skip_step_if_wedged(self, t0: float, brownout: bool) -> bool:
+        """A watchdog trip earlier in this very step (a wedged promotion
+        fold) leaves the device busy: skip the device half of the step
+        (the step-top gate covers trips of earlier steps). True = the
+        caller returns (bookkeeping done, latency unrecorded)."""
+        w = self._wedged
+        if w is None or not w.is_alive():
+            return False
+        self.metrics.watchdog_skips += 1
+        self._finish_step_bookkeeping(t0, brownout, record_latency=False)
+        return True
+
+    def _promotions_only(self) -> bool:
+        """True when promotion folds are the only path to progress this
+        step: promotions are in flight and every running resident is a
+        promotion-blocked prefiller. Waiting for the copy is then free —
+        the step would run nothing — and saves the blocked request a
+        whole step of TTFT. With any other runnable work the step never
+        waits on a copy."""
+        if not self._promote_q:
+            return False
+        for _, r in self.sched.active():
+            if r.state is not RequestState.RUNNING:
+                continue
+            if not r.prefilling or not r.promote_pending:
+                return False
+        return True
+
+    def _schedule_promotions(self, req: Request) -> None:
+        """Start the copy to the device of every host-tier page admission
+        matched for ``req``: one device buffer per pool tensor, filled on
+        the promotion stream behind a CUDA event, and the entry joins the
+        promotion queue; :meth:`_pump_promotions` folds it into the pool
+        once the copy has landed. The host entry itself is consumed only
+        when the page's hash COMMITS into the device index (after the
+        logit guard passed the first suffix chunk), so a corrupted or
+        abandoned promotion never destroys the clean host copy."""
+        hits, req.host_hits = req.host_hits, []
+        if not hits:
+            return
+        # chaos point: DS_FAULT=corrupt_promote:tag=serving_tier poisons
+        # ONE promoted page's payload in transit (float tensors -> NaN, on
+        # a copy: the tier's entry stays clean). The logit guard must
+        # quarantine the request on its first suffix chunk, before the
+        # page's hash is indexed again
+        corrupt = fault_injection.maybe_flag(
+            "corrupt_promote", tag="serving_tier", step=self._step_no,
+            stream=self.fault_stream, detail={"rids": [req.rid]}) is not None
+        payloads = [p for _, _, p in hits]
+        if corrupt:
+            payloads[0] = {n: torch.full_like(t, math.nan)
+                           if t.is_floating_point() else t
+                           for n, t in payloads[0].items()}
+        leaves, event = upload_paged_blocks(payloads, self.device,
+                                            self._promote_stream)
+        idxs = [i for i, _, _ in hits]
+        self._promote_q.append(_Promotion(
+            req=req, block_idxs=idxs, dst_bids=[req.blocks[i] for i in idxs],
+            leaves=leaves, event=event, width=next_pow2(len(hits)),
+            admit_order=req.admit_order, t_sched=time.perf_counter()))
+        if self.tracer.enabled:
+            self.tracer.instant("kv_promote_start", cat="pool",
+                                args={"rid": req.rid, "pages": len(hits)})
+        if self.config.sync_promote:
+            # the A/B control: wait for the copy and fold at admission —
+            # the promotion's latency lands squarely in TTFT
+            self._pump_promotions(wait=True)
+
+    def _pump_promotions(self, wait: bool = False) -> None:
+        """Fold every LANDED promotion into the pool, in place. Entries
+        whose request left its admission segment (preempted / terminal)
+        are dropped — their target pages are back in the pool and may
+        belong to someone else; the host entries they would have consumed
+        survive for the retry. A copy still in flight stays queued and
+        blocks only its own request's grants (the scheduler's
+        ``promote_pending`` gate). ``wait=True`` folds everything now: the
+        fold waits for the copy on the device, and the host for the fold.
+        The fold runs through :meth:`_run_device`: on the caller's thread,
+        awaited on its event under the step watchdog, with the
+        ``slow_promote`` chaos stall inside (``DS_FAULT=slow_promote``)."""
+        w = self._wedged
+        if w is not None and w.is_alive():
+            return  # device wedged: queued copies wait it out
+        q, self._promote_q = self._promote_q, []
+        if not q:
+            return
+        m = self.metrics
+        tr = self.tracer
+        still: List[_Promotion] = []
+        for i, e in enumerate(q):
+            req = e.req
+            if not (req.state is RequestState.RUNNING
+                    and req.admit_order == e.admit_order
+                    and req.promote_pending > 0
+                    and all(idx < len(req.blocks)
+                            and req.blocks[idx] == bid
+                            for idx, bid in zip(e.block_idxs, e.dst_bids))):
+                m.kv_promote_cancelled += len(e.block_idxs)
+                if tr.enabled:
+                    tr.instant("kv_promote_cancel", cat="pool",
+                               args={"rid": req.rid,
+                                     "pages": len(e.block_idxs)})
+                if req.state is RequestState.RUNNING and \
+                        req.admit_order == e.admit_order:
+                    # the request still expects this promotion but its
+                    # pages no longer line up (defrag remaps the queue, so
+                    # nothing should reach here): preempt-requeue it
+                    # rather than hold its slot forever; re-admission
+                    # re-matches both tiers
+                    self._preempt(req)
+                continue
+            if not wait and not _landed(e.event):
+                still.append(e)
+                continue
+            step_no = self._step_no
+
+            def fold(e=e):
+                if e.event is not None:
+                    torch.cuda.current_stream(self.device).wait_event(
+                        e.event)
+                insert_paged_block(self.pool, e.dst_bids, e.leaves)
+                return _DeviceDone(torch.cuda.Event()
+                                   if self.device.type == "cuda" else None)
+
+            try:
+                self._run_device(e.width in self._promote_warm, fold,
+                                 [("slow_promote", "serving_tier")],
+                                 [req.rid])
+            except StepWatchdogTimeout as exc:
+                self._trip(exc, [(req.slot, req)], step_no,
+                           where="kv_promote")
+                # device wedged: nothing else may touch it — the rest
+                # waits in the queue (the step-top gate takes over)
+                still.extend(q[i + 1:])
+                break
+            self._promote_warm.add(e.width)
+            req.promote_pending -= len(e.block_idxs)
+            m.kv_pages_promoted += len(e.block_idxs)
+            now = time.perf_counter()
+            m.promote_hist.observe(now - e.t_sched)
+            if tr.enabled:
+                tr.complete("kv_promote", e.t_sched, now, cat="pool",
+                            args={"rid": req.rid,
+                                  "pages": len(e.block_idxs)})
+        self._promote_q.extend(still)
+
+    def speculation_status(self) -> Dict[str, Any]:
+        """Speculative-decoding status for reports: drafter kind,
+        configured cap, and the acceptance numbers. ``enabled`` False when
+        speculation is off."""
+        m = self.metrics
+        return {
+            "enabled": self._drafter is not None,
+            "drafter": self._drafter.kind if self._drafter is not None
+            else None,
+            "spec_tokens": self.config.spec_tokens,
+            "drafted": m.spec_drafted,
+            "accepted": m.spec_accepted,
+            "accept_rate": round(m.spec_accept_rate, 4),
+            "tokens_per_verify": round(m.spec_tokens_per_verify, 4),
+            "pages_dropped": m.spec_pages_dropped,
+        }
+
+    def tier_status(self) -> Dict[str, Any]:
+        """Tier table for reports: per-tier capacity and occupancy, the
+        movement counters and the promotion wait percentiles. ``enabled``
+        False without a host tier."""
+        if self.host_tier is None:
+            return {"enabled": False}
+        m = self.metrics
+        hist = m.promote_hist
+        return {
+            "enabled": True,
+            "tiers": [
+                {"tier": "device", "capacity_blocks": self.config.num_blocks,
+                 "blocks": self.block_pool.used_count
+                 + self.block_pool.cached_count,
+                 "indexed_blocks": self.block_pool.indexed_count,
+                 "evictions": self.block_pool.evictions,
+                 "demotions": self.block_pool.demotions},
+                self.host_tier.stats(),
+            ],
+            "host_hits": m.kv_host_hits,
+            "host_misses": m.kv_host_misses,
+            "host_hit_tokens": m.kv_host_hit_tokens,
+            "host_hit_rate": round(m.host_hit_rate, 4),
+            "pages_promoted": m.kv_pages_promoted,
+            "promote_cancelled": m.kv_promote_cancelled,
+            "promote_queue_depth": len(self._promote_q),
+            "promote_wait_p50_s": hist.percentile(0.5)
+            if hist.count else None,
+            "promote_wait_p95_s": hist.percentile(0.95)
+            if hist.count else None,
+        }
 
     @property
     def mixed_step_tokens(self) -> int:
@@ -836,6 +1162,10 @@ class ServingEngine:
                                               record_latency=False)
                 return
             self._wedged = None
+        # fold landed promotions before admission and grant planning: a
+        # copy that arrived since the last step unblocks its request's
+        # grants this very step
+        self._pump_promotions()
         brownout = self.brownout
         while True:
             req = self.sched.admit_next()
@@ -852,6 +1182,17 @@ class ServingEngine:
                 self.metrics.prefix_hits += 1
                 self.metrics.cached_prefill_tokens += req.prefix_len
                 self.metrics.prefill_tokens += req.prefix_len
+            if self.host_tier is not None:
+                if req.host_prefix_len:
+                    self.metrics.kv_host_hits += 1
+                    self.metrics.kv_host_hit_tokens += req.host_prefix_len
+                else:
+                    self.metrics.kv_host_misses += 1
+            if req.host_hits:
+                # host-matched pages: start their copy to the device now,
+                # so it overlaps what the step does; the request's own
+                # suffix grants wait only on the fold
+                self._schedule_promotions(req)
             if self._mixed:
                 # the request's table row is live from admission: its
                 # packed segments carry their own query_len, so an
@@ -867,8 +1208,16 @@ class ServingEngine:
             # chunked two-program prefill runs below, under the budget;
             # the slot keeps a sentinel decode row until its last chunk
         self._account_reaped()
+        # second pump: a promotion this step's admission scheduled may
+        # have landed already. When promotion folds are the only way
+        # anyone can progress, waiting for the copy is free (the step
+        # would pack nothing), so the fold waits instead of burning an
+        # empty step of TTFT
+        self._pump_promotions(wait=self._promotions_only())
         if self._mixed:
             self._step_mixed(t0, brownout)
+            return
+        if self._skip_step_if_wedged(t0, brownout):
             return
         if self._chunk:
             self._run_prefill_chunks()
@@ -896,20 +1245,37 @@ class ServingEngine:
         m.prefill_queue_age_s = 0.0 if not prefilling else \
             time.perf_counter() - min(r.submit_time for r in prefilling)
         m.brownout_active = brownout
+        if self.host_tier is not None:
+            m.kv_pages_demoted = self.block_pool.demotions
+            m.kv_host_blocks = len(self.host_tier)
+            m.kv_host_bytes = self.host_tier.bytes
+            m.promote_queue_depth = len(self._promote_q)
         m.recompiles = self.perf.recompile_total
         m.hbm_bytes_in_use, m.hbm_peak_bytes = self.perf.memory_watermarks()
         if self.monitor is not None and self.config.monitor_every and \
                 self._step_no % self.config.monitor_every == 0:
             self.monitor.write_events(m.to_events(self._step_no))
 
-    def _grow_decode_pages(self) -> None:
-        """Guarantee every decoding resident a page for the token this step
-        appends, preempting (lowest priority, newest first) when the pool
-        runs dry; a shared append target is copied on write."""
+    def _grow_decode_pages(self, spec_plan: Optional[Dict[str, List[int]]]
+                           = None) -> None:
+        """Guarantee every decoding resident pages for the tokens this step
+        appends — one for a plain decode row, ``1 + k`` positions for a
+        verify row carrying ``k`` drafts — preempting (lowest priority,
+        newest first) when the pool runs dry; shared append targets are
+        copied on write. Draft pages degrade FIRST: when the pool cannot
+        grow a resident's lookahead, its drafts are dropped (plain decode
+        this step) before anyone is evicted."""
         bs = self.block_pool.block_size
         for _, req in list(self.sched.active()):
             if req.state is not RequestState.RUNNING or req.prefilling:
                 continue  # preempted below while growing an earlier slot
+            k = len(spec_plan.get(req.rid, ())) if spec_plan else 0
+            if k and not self.sched.ensure_decode_headroom(req, lookahead=k):
+                spec_plan.pop(req.rid, None)
+                k = 0
+                # pages the partial lookahead growth allocated go back at
+                # once (the rollback helper keeps the next append's page)
+                self._drop_trailing_pages(req)
             while not self.sched.ensure_decode_headroom(req):
                 victim = self.sched.preempt_victim(exclude=req)
                 if victim is None:
@@ -922,21 +1288,147 @@ class ServingEngine:
                     break
                 self._preempt(victim)
             else:
-                # never append into a page other sequences still reference
-                self._ensure_exclusive(req, req.seq_len // bs)
+                # this step appends at seq_len .. seq_len + k: never into a
+                # page other sequences still reference
+                for idx in range(req.seq_len // bs,
+                                 (req.seq_len + k) // bs + 1):
+                    self._ensure_exclusive(req, idx)
                 self._write_table_row(req)  # growth may have added a page
                 continue
             break
 
-    def _step_mixed(self, t0: float, brownout: bool) -> None:
-        """Pack one decode token per running resident plus this step's
-        budgeted prefill chunks into one ragged token batch, run the mixed
-        step, and harvest per row."""
+    def _plan_speculation(self, grants: Dict[str, int]
+                          ) -> Dict[str, List[int]]:
+        """Draft tokens per decoding resident (``{rid: drafts}``) for this
+        step's verify rows, sized to the packed step's LEFTOVER capacity:
+        every decode row's guaranteed token and every prefill grant are
+        reserved first, so speculation degrades to plain decode under
+        prefill pressure instead of starving admissions. The per-request
+        adaptive cap (``req.spec_k``) keeps adversarial traffic from
+        paying verify tokens for drafts that never land; a drafter with
+        nothing to propose skips the row."""
+        if self._drafter is None:
+            return {}
         cfg = self.config
-        # page growth for the decoders first (it may preempt), then the
-        # prefill grants: round-robin chunk-sized shares of the budget
-        # across the surviving mid-prefill residents (admission order)
-        self._grow_decode_pages()
+        decoders = [r for _, r in self.sched.active()
+                    if r.state is RequestState.RUNNING and not r.prefilling]
+        plan: Dict[str, List[int]] = {}
+        if not decoders:
+            return plan
+        slack = self._mixed_tokens - len(decoders) - sum(grants.values())
+        for req in decoders:  # slot-ascending (the packing order)
+            if slack <= 0:
+                break
+            if req.spec_k < 0:
+                req.spec_k = cfg.spec_tokens
+            # a verify row commits up to k + 1 tokens and appends KV
+            # through seq_len + k: capped by the token budget and the
+            # length cap as well as the slack and, where width costs, the
+            # adaptive cap
+            cap = req.spec_k if self._spec_adaptive else cfg.spec_tokens
+            k = min(cap, slack, req.remaining_new - 1,
+                    cfg.max_model_len - 1 - req.seq_len)
+            if k <= 0:
+                continue
+            drafts = self._drafter.draft(req.resume_tokens, k)
+            if not drafts:
+                continue
+            drafts = [int(t) for t in drafts[:k]]
+            plan[req.rid] = drafts
+            slack -= len(drafts)
+        return plan
+
+    def _drop_trailing_pages(self, req: Request) -> int:
+        """Free every pool page past the one the NEXT append targets — the
+        page-drop half of speculative rollback. Pages holding only
+        rejected draft KV were never content-indexed (hashes commit from
+        the accepted ``seq_len`` watermark only), so freeing them blanks
+        them; the partly rejected page at ``seq_len // bs`` is kept and
+        overwritten by the next append."""
+        keep = req.seq_len // self.block_pool.block_size + 1
+        if len(req.blocks) <= keep:
+            return 0
+        drop = req.blocks[keep:]
+        del req.blocks[keep:]
+        self.block_pool.free(drop, req.rid)
+        self._write_table_row(req)
+        self.metrics.spec_pages_dropped += len(drop)
+        return len(drop)
+
+    def _commit_verify_row(self, slot: int, req: Request,
+                           drafts: List[int], preds: List[int]) -> int:
+        """Greedy accept-prefix over one verify row: ``preds[j]`` is the
+        model's prediction AFTER the row's j-th packed token, so draft
+        ``j`` is accepted iff every earlier draft was and ``preds[j] ==
+        drafts[j]``. Commits the accepted drafts plus the model's bonus
+        token, rewinds ``seq_len`` past exactly the accepted KV (rejected
+        appends beyond it are never read and are overwritten later), drops
+        whole rejected pages, and adapts the request's draft cap. Returns
+        the number of committed tokens."""
+        k = len(drafts)
+        a = 0
+        while a < k and drafts[a] == preds[a]:
+            a += 1
+        commit = drafts[:a] + [preds[a]]
+        # an accepted EOS ends the stream where plain decoding would have
+        if req.eos_token_id is not None and req.eos_token_id in commit:
+            commit = commit[:commit.index(req.eos_token_id) + 1]
+        commit = commit[:req.remaining_new]
+        m = self.metrics
+        m.spec_drafted += k
+        m.spec_accepted += a
+        m.spec_committed += len(commit)
+        m.spec_verify_rows += 1
+        # decay-then-add: the request's counters follow its RECENT accept
+        # rate, so the gate below releases as soon as the stream turns
+        # predictable
+        req.spec_drafted = req.spec_drafted * 0.75 + k
+        req.spec_accepted = req.spec_accepted * 0.75 + a
+        # AIMD on the accept length: a fully confirmed draft doubles the
+        # cap, any miss shrinks it to just past what landed (floor 1, so
+        # the request keeps probing)
+        if a == k:
+            req.spec_k = min(self.config.spec_tokens, max(req.spec_k * 2, 2))
+        else:
+            req.spec_k = max(1, min(req.spec_k, a + 1))
+        # chronic-miss gate: a recent accept rate under 1/3 (once enough
+        # recent drafts exist) clamps the request to a 1-token probe
+        if req.spec_drafted >= 8 and \
+                req.spec_accepted * 3 < req.spec_drafted:
+            req.spec_k = 1
+        # the row appended positions seq_len .. seq_len + k; the accepted
+        # ones stay, the rest are rolled back (a commit ending on the
+        # bonus token leaves its KV to the next step's append)
+        req.seq_len += len(commit)
+        self._seq_lens[slot] = req.seq_len
+        self._drop_trailing_pages(req)
+        # every committed token goes through the one harvest path; EOS and
+        # the length cap can only trigger on the last one (the truncations
+        # above), so the hash commit between runs on a live request
+        for t in commit[:-1]:
+            self._harvest(req, t)
+        self._commit_full_blocks(req)
+        self._harvest(req, commit[-1])
+        return len(commit)
+
+    def _step_mixed(self, t0: float, brownout: bool) -> None:
+        """Pack one decode token per running resident (``1 + k`` for a
+        speculating one: its drafts ride the row as a verify segment) plus
+        this step's budgeted prefill chunks into one ragged token batch,
+        run the mixed step, and harvest per row."""
+        cfg = self.config
+        if self._skip_step_if_wedged(t0, brownout):
+            return
+        # prefill grants (round-robin chunk-sized shares of the budget
+        # across mid-prefill residents, admission order), speculation over
+        # what they leave, then page growth sized to each row's appends
+        # (drafts dropped before anyone is evicted); then the grants again,
+        # since growth may have preempted a grantee (the total can only
+        # shrink, so the speculation plan still fits)
+        grants = self.sched.plan_prefill_grants(self._chunk_budget,
+                                                self._chunk)
+        spec_plan = self._plan_speculation(grants)
+        self._grow_decode_pages(spec_plan)
         grants = self.sched.plan_prefill_grants(self._chunk_budget,
                                                 self._chunk)
         bs = self.block_pool.block_size
@@ -962,8 +1454,10 @@ class ServingEngine:
                 self._ensure_exclusive(req, idx)
             self._write_table_row(req)
 
-        # pack segments slot-ascending: decode rows are 1 token, granted
-        # prefill rows up to their grant, everything else is inert
+        # pack segments slot-ascending: decode rows are 1 token (1 + k for
+        # a verify row: the last token and its drafts, starting at
+        # seq_len), granted prefill rows up to their grant, everything
+        # else is inert
         R, T = cfg.max_batch_size, self._mixed_tokens
         ids = np.zeros((1, T), np.int32)
         pos = np.full((1, T), -1, np.int32)
@@ -988,10 +1482,12 @@ class ServingEngine:
                 prefills.append((slot, req, n,
                                  start + n >= req.prefill_target))
             else:
-                n, start = 1, req.seq_len
+                drafts = spec_plan.get(req.rid) or []
+                n, start = 1 + len(drafts), req.seq_len
                 ids[0, cursor] = self._last_tok[slot]
-                pos[0, cursor] = start
-                decodes.append((slot, req))
+                ids[0, cursor + 1:cursor + n] = drafts
+                pos[0, cursor:cursor + n] = np.arange(start, start + n)
+                decodes.append((slot, req, drafts))
             trow[0, cursor:cursor + n] = slot
             row_start[slot], row_len[slot] = cursor, n
             row_cs[slot], row_cl[slot] = start, start + n
@@ -1013,9 +1509,9 @@ class ServingEngine:
             fspec = fault_injection.maybe_flag(
                 "corrupt_logits", tag="serving_step", step=self._step_no,
                 stream=self.fault_stream,
-                detail={"rids": [r.rid for _, r in decodes]})
+                detail={"rids": [r.rid for _, r, _ in decodes]})
             if fspec is not None:
-                corrupt[self._pin_slot(fspec, [s for s, _ in decodes])] = 1
+                corrupt[self._pin_slot(fspec, [s for s, _, _ in decodes])] = 1
         if prefills and fault_injection.maybe_flag(
                 "corrupt_logits", tag="serving_prefill", step=self._step_no,
                 stream=self.fault_stream,
@@ -1027,7 +1523,8 @@ class ServingEngine:
         W = T if self._bucket_widths is None else \
             next(w for w in self._bucket_widths if w >= cursor)
         step_no = self._step_no
-        packed = decodes + [(s, r) for s, r, _, _ in prefills]
+        packed = [(s, r) for s, r, _ in decodes] + \
+            [(s, r) for s, r, _, _ in prefills]
         rids = [r.rid for _, r in packed]
         # the step's arrays (the buffers hold the full capacity; the step
         # reads the first W tokens)
@@ -1050,17 +1547,21 @@ class ServingEngine:
         t_dev = time.perf_counter()
         try:
             (toks, bad), was_warm = self._run_device(
-                W, lambda: self._mixed_step(W, arrays), stalls, rids)
+                W in self._warm, lambda: self._mixed_step(W, arrays), stalls,
+                rids)
         except StepWatchdogTimeout as e:
             self._trip(e, packed, step_no)
             self._finish_step_bookkeeping(t0, brownout)
             return
         t_end = time.perf_counter()
+        n_drafted = sum(len(d) for _, _, d in decodes)
         if self.tracer.enabled:
             self.tracer.complete("mixed_step", t_dev, t_end, cat="engine",
                                  args={"step": step_no,
                                        "decode_tokens": len(decodes),
-                                       "prefill_tokens": cursor - len(decodes),
+                                       "verify_tokens": n_drafted,
+                                       "prefill_tokens": cursor - len(decodes)
+                                       - n_drafted,
                                        "width": W,
                                        "rows": len(packed)})
         committed = 0
@@ -1082,9 +1583,21 @@ class ServingEngine:
                 # packed position; the slot decodes from the next step
                 self._harvest(req, int(toks[row_start[slot] + n - 1]))
                 committed += 1
-        for slot, req in decodes:
+        had_verify = False
+        for slot, req, drafts in decodes:
             if cfg.logit_guard and bad[slot]:
+                # one poisoned position anywhere in the row (drafts
+                # included) fails its request; nothing of the row commits
                 self._quarantine(slot, req, step_no, where="decode")
+                continue
+            if drafts:
+                # verify row: greedy accept-prefix over its k + 1
+                # predictions, rollback past the accepted KV
+                preds = [int(toks[row_start[slot] + j])
+                         for j in range(len(drafts) + 1)]
+                committed += self._commit_verify_row(slot, req, drafts,
+                                                     preds)
+                had_verify = True
                 continue
             req.seq_len += 1
             # a generated token may have just filled a page: index it so
@@ -1092,9 +1605,13 @@ class ServingEngine:
             self._commit_full_blocks(req)
             self._harvest(req, int(toks[row_start[slot]]))
             committed += 1
+        if had_verify:
+            self.metrics.spec_steps += 1
         if was_warm:
             # the first-beat rule for the gauges too: a width's first step
-            # carries its capture
+            # carries its capture. Tokens are what the step committed:
+            # rejected draft positions are the overhead speculation pays
+            # (spec_drafted / spec_accepted), not throughput
             self._note_mixed_perf(t_end - t_dev, tokens=committed, width=W)
         self._finish_step_bookkeeping(t0, brownout)
 
@@ -1132,16 +1649,16 @@ class ServingEngine:
         self._warm.add(key)
         return out
 
-    def _run_device(self, key, launch, stalls, rids):
-        """One forward's device work: the chaos stalls ``stalls`` (``(name,
-        tag)`` points, probed in order, naming ``rids``) and ``launch()``
-        (the fill, the forward or graph replay, and the :class:`_ReadBack`),
-        then its host ``(tokens, bad)``. Returns that and whether ``key``
-        was warm.
+    def _run_device(self, warm, launch, stalls, rids):
+        """One device call: the chaos stalls ``stalls`` (``(name, tag)``
+        points, probed in order, naming ``rids``) and ``launch()`` (the
+        fill, the forward or graph replay, and the :class:`_ReadBack`; or
+        a promotion's fold and its :class:`_DeviceDone`), then its host
+        result. Returns that and ``warm``.
 
-        The forward is launched, then the step waits out its fired stalls
-        and its read-back's CUDA event. Under ``step_watchdog_s`` a warm
-        ``key`` waits only until the budget's deadline (its first forward
+        The work is launched, then the step waits out its fired stalls
+        and its CUDA event. Under ``step_watchdog_s`` a ``warm`` call
+        waits only until the budget's deadline (a key's first forward
         runs eagerly and is captured, and is exempt: the first-beat rule);
         a step whose stalls end, or whose read-back completes, past the
         deadline is abandoned (``_wedged``: step() keeps off the device
@@ -1152,7 +1669,6 @@ class ServingEngine:
         by the time ``launch()`` returns, so only its stalls are judged."""
         step_no = self._step_no
         budget = self.config.step_watchdog_s
-        warm = key in self._warm
         start = time.perf_counter()
         deadline = start + budget if warm and budget > 0 else math.inf
         stall_end = start
@@ -1359,7 +1875,8 @@ class ServingEngine:
         self.perf.capture_cost(name, estimate)
         t = time.perf_counter()
         out, warm = self._run_device(
-            kind, lambda: self._forward_last(kind, **arrays), stalls, rids)
+            kind in self._warm, lambda: self._forward_last(kind, **arrays),
+            stalls, rids)
         return out, time.perf_counter() - t, warm
 
     def _fail_prefill(self, req: Request, e: Exception) -> None:
@@ -1429,8 +1946,12 @@ class ServingEngine:
         fails its request and ends the step's prefill half."""
         budget = self._chunk_budget
         while budget > 0:
+            # promotion-blocked residents are skipped (their next chunk
+            # would attend host pages still in flight), as in the unified
+            # step's grant planner
             pending = sorted((r for _, r in self.sched.active()
-                              if r.prefilling), key=lambda r: r.admit_order)
+                              if r.prefilling and not r.promote_pending),
+                             key=lambda r: r.admit_order)
             if not pending:
                 return
             progressed = False

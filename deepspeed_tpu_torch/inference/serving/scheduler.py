@@ -1,9 +1,8 @@
 """Continuous-batching scheduler: FIFO admission, slot recycling, preemption.
 
-Counterpart of ``deepspeed_tpu/inference/serving/scheduler.py``, cut to
-what the port runs: the host-tier promotion and speculative-decoding
-state of the JAX scheduler arrive with the slice that ports those
-features (ROADMAP.md Queue 1, item 2c).
+Counterpart of ``deepspeed_tpu/inference/serving/scheduler.py`` without
+the fleet's fields (``recovered``, ``admit_log``): the host-tier
+promotion state and the speculative-decoding counters are here.
 
 Pure host-side bookkeeping (no torch): which request sits in which decode
 slot, which pool pages it owns, and who gets evicted when the pool runs
@@ -84,8 +83,25 @@ class Request:
     blocks: List[int] = field(default_factory=list)
     seq_len: int = 0          # tokens whose KV sits in the pool
     #: tokens served from the prefix cache at the LATEST admission (their
-    #: KV was never recomputed); block-aligned by construction
+    #: KV was never recomputed); block-aligned by construction. Includes
+    #: host-tier hits (their KV streams up instead of recomputing)
     prefix_len: int = 0
+    #: tokens of ``prefix_len`` matched in the HOST tier at the latest
+    #: admission (block-aligned; the tail of the cached prefix)
+    host_prefix_len: int = 0
+    #: host-tier admission hits awaiting promotion scheduling:
+    #: ``(block_idx, chain_key, payload)`` per matched block — the
+    #: scheduler (torch-free) captures the payload references; the ENGINE
+    #: consumes this list right after admission, starts the payloads'
+    #: copy to the device onto its promotion queue and clears it
+    host_hits: List[tuple] = field(default_factory=list)
+    #: scheduled promotions that have not folded into the device pool
+    #: yet. While nonzero the request receives NO prefill grants — its
+    #: suffix chunks would attend pages whose KV is still in flight —
+    #: but the PACKED step never waits: everyone else plans and
+    #: dispatches as usual (the "blocks only that request's next grant"
+    #: rule)
+    promote_pending: int = 0
     #: resume tokens whose KV is in the pool so far — between admission and
     #: the last prefill chunk this trails ``prefill_target`` and the
     #: request sits in a slot WITHOUT decoding (chunked prefill)
@@ -113,6 +129,19 @@ class Request:
     admit_order: int = -1     # monotone stamp set at admission (victim pick)
     #: latest admission stamp (perf_counter seconds; None while queued)
     admit_time: Optional[float] = None
+    # -- speculative decoding (engine.py drives; see serving/speculative.py)
+    #: adaptive per-request draft-length cap: -1 = unset (the engine
+    #: seeds it from ``ServingConfig.spec_tokens`` on first use), then
+    #: grown on full accepts and halved on full rejects so a resident
+    #: whose drafter keeps missing stops paying verify tokens for nothing
+    spec_k: int = -1
+    #: EXPONENTIALLY-DECAYED draft/accept counters (the engine decays
+    #: both before each verify commit, so their ratio is the RECENT
+    #: accept rate — a request whose stream turns predictable must not
+    #: stay gated by misses from fifty tokens ago). Engine-wide totals
+    #: live in ServingMetrics; these exist only for the adaptive cap.
+    spec_drafted: float = 0.0
+    spec_accepted: float = 0.0
     # -- tracing: the request's current lifecycle phase -----------------
     # phases partition submit -> terminal into contiguous, non-overlapping
     # spans (queue | prefill | decode); every transition emits the span it
@@ -341,10 +370,31 @@ class Scheduler:
             if matched:
                 self.pool.free(matched, req.rid)
             return None
+        host_keys: List[Tuple[ChainKey, dict]] = []
+        if self.prefix_cache and self.pool.host_tier is not None:
+            # extend the match into the HOST tier (contiguous from the
+            # device boundary). Payloads are captured NOW — a host LRU
+            # eviction between here and the promotion fold can then
+            # never lose content admission already promised. These
+            # blocks charge device headroom like fresh allocations
+            # (they come out of the allocate() below) until promoted —
+            # the admission-charge rule the headroom gate also applies.
+            for h in self.pool.host_match_keys(len(tokens),
+                                               req.block_hashes,
+                                               len(matched)):
+                payload = self.pool.host_tier.get(h)
+                if payload is None:
+                    break  # raced an eviction: the run ends here
+                host_keys.append((h, payload))
         self.queue.popleft()
         req.blocks = matched + self.pool.allocate(need_total - len(matched),
                                                   req.rid)
-        req.prefix_len = len(matched) * self.pool.block_size
+        bs = self.pool.block_size
+        req.prefix_len = (len(matched) + len(host_keys)) * bs
+        req.host_prefix_len = len(host_keys) * bs
+        req.host_hits = [(len(matched) + j, h, payload)
+                         for j, (h, payload) in enumerate(host_keys)]
+        req.promote_pending = len(host_keys)
         req.prefill_done = req.prefix_len
         req.prefill_target = len(tokens)
         req.seq_len = req.prefix_len
@@ -359,6 +409,7 @@ class Scheduler:
             self.tracer.instant("admit", cat="sched",
                                 args={"rid": req.rid,
                                       "prefix_tokens": req.prefix_len,
+                                      "host_tokens": req.host_prefix_len,
                                       "queue_depth": len(self.queue)})
         self.slots[slot] = req
         return req
@@ -378,7 +429,13 @@ class Scheduler:
         grants: Dict[str, int] = {}
         if budget <= 0 or chunk <= 0:
             return grants
-        pending = sorted((r for _, r in self.active() if r.prefilling),
+        # promotion-blocked residents are skipped, not waited for: their
+        # next suffix chunk would attend host-matched pages whose KV is
+        # still streaming up, so granting them would poison attention —
+        # withholding THEIR grant is the only cost an unlanded promotion
+        # may impose; the packed step itself never blocks on a transfer
+        pending = sorted((r for _, r in self.active()
+                          if r.prefilling and not r.promote_pending),
                          key=lambda r: r.admit_order)
         while budget > 0:
             progressed = False
@@ -399,10 +456,16 @@ class Scheduler:
 
     # -- decode-time page growth / preemption --------------------------
 
-    def ensure_decode_headroom(self, req: Request) -> bool:
-        """Make sure the page holding position ``seq_len`` exists (the next
-        step appends there). False = pool dry, caller must preempt."""
-        need_idx = req.seq_len // self.pool.block_size
+    def ensure_decode_headroom(self, req: Request, lookahead: int = 0
+                               ) -> bool:
+        """Make sure the pages holding positions ``seq_len .. seq_len +
+        lookahead`` exist (the next step appends there: one token for a
+        plain decode row, ``1 + k`` for a verify row carrying ``k``
+        drafted tokens). False = pool dry, caller must preempt — or, on
+        the speculative path, first drop the drafts and retry with
+        ``lookahead=0`` so speculation degrades before anyone is
+        evicted."""
+        need_idx = (req.seq_len + lookahead) // self.pool.block_size
         while len(req.blocks) <= need_idx:
             if not self.pool.can_allocate(1):
                 return False
@@ -438,6 +501,14 @@ class Scheduler:
         req.slot = None
         req.seq_len = 0
         req.prefix_len = 0
+        req.host_prefix_len = 0
+        # in-flight promotions die with the admission segment: the pages
+        # they target just returned to the pool, so the engine's pump
+        # drops their queue entries (validity = this request's CURRENT
+        # admission stamp + block ids); re-admission re-matches the host
+        # tier, whose entries were not consumed (commit never ran)
+        req.host_hits = []
+        req.promote_pending = 0
         req.prefill_done = 0
         req.prefill_target = 0
         req.committed_blocks = 0

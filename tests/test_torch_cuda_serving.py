@@ -20,7 +20,14 @@ present. On a machine with one, run them with
   unguarded engine's;
 - a kernel's device run count first made by a launch under
   ``torch.inference_mode()`` (as a serving step launches) is zeroed and
-  read outside it.
+  read outside it;
+- with the host KV tier, a prefix demoted to pinned host memory and
+  matched again is promoted in place: the pool's tensors keep their
+  ``data_ptr``s, no graph is captured again, and the served tokens equal
+  an engine's that recomputes the prefix;
+- a demoted and then promoted page equals its payload bit for bit (every
+  pool tensor, the int8 pool's scales included), and the payloads are
+  pinned.
 """
 
 import numpy as np
@@ -245,3 +252,88 @@ def test_a_run_count_made_under_inference_mode_resets_outside_it(
     assert _runs.kernel_runs("probe") == 3
     _runs.reset_kernel_runs("probe")
     assert _runs.kernel_runs("probe") == 0
+
+
+#: a 24-page pool behind a host tier: a prefix of 4 pages is demoted by
+#: the traffic that follows it
+TIER = dict(max_batch_size=4, block_size=16, num_blocks=24,
+            max_model_len=256, prefill_token_budget=64, prefix_cache=True,
+            host_cache_blocks=64)
+
+
+def _tier_traffic(srv, rs, prefix):
+    """The prefix's first request, unrelated traffic that rolls the pool
+    over, then a second request behind the prefix, stepped until its
+    promotion has folded. Returns the second request's id and the host
+    payloads its prefix matched (captured before its admission)."""
+    for p in [np.concatenate([prefix, rs.randint(0, 512, 16)])] + \
+            [rs.randint(0, 512, 90) for _ in range(6)]:
+        srv.submit(p, max_new_tokens=4)
+        srv.run(max_steps=500)
+    p2 = np.concatenate([prefix, rs.randint(0, 512, 16)])
+    pool = srv.block_pool
+    keys = [pool.canonical_key(h) for h in
+            pool.prefix_block_hashes([int(t) for t in p2])[:4]]
+    payloads = [] if srv.host_tier is None else \
+        [srv.host_tier._lru.get(h) for h in keys]
+    rid = srv.submit(p2, max_new_tokens=8)
+    for _ in range(50):
+        srv.step()
+        if srv._requests[rid].promote_pending == 0:
+            break
+    return rid, payloads
+
+
+@pytest.mark.parametrize("mixed", [True, False],
+                         ids=["unified", "two_program"])
+def test_a_promotion_folds_in_place_without_recapture(cuda, mixed):
+    kw = dict(TIER, mixed_step=mixed)
+    srv = _server(cuda, **kw)
+    ptrs = {n: t.data_ptr() for n, t in srv.pool.items()}
+    rs = np.random.RandomState(0)
+    prefix = rs.randint(0, 512, 64)
+    _serve(srv, 9)                 # capture every shape first
+    graphs = dict(srv._graphs)
+    rid, payloads = _tier_traffic(srv, rs, prefix)
+    assert all(p is not None for p in payloads), "prefix not demoted"
+    srv.run(max_steps=500)
+    out = srv.poll(rid)
+    assert out.state == "finished"
+    assert srv.metrics.kv_host_hits >= 1 and srv.metrics.kv_pages_promoted >= 4
+    assert {n: t.data_ptr() for n, t in srv.pool.items()} == ptrs
+    assert all(srv._graphs[k] is g for k, g in graphs.items())
+    assert srv.perf.recompile_total == 0
+    _check_pool(srv)
+    # an engine without the tier recomputes the prefix: the same tokens
+    ref = _server(cuda, **dict(kw, host_cache_blocks=0))
+    _serve(ref, 9)
+    rs = np.random.RandomState(0)
+    prefix = rs.randint(0, 512, 64)
+    rid_ref, _ = _tier_traffic(ref, rs, prefix)
+    ref.run(max_steps=500)
+    assert ref.poll(rid_ref).tokens == out.tokens
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8_pool"])
+def test_a_promoted_page_equals_its_demoted_payload(cuda, int8):
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    model = LlamaForCausalLM(LlamaConfig(**SMALL))
+    eng = dt.init_inference(model, params=model.init_params(seed=0),
+                            dtype="fp32", device=cuda, kv_cache_int8=int8)
+    srv = dt.ServingEngine(eng, dt.ServingConfig(**TIER))
+    rs = np.random.RandomState(1)
+    rid, payloads = _tier_traffic(srv, rs, rs.randint(0, 512, 64))
+    assert all(p is not None for p in payloads), "prefix not demoted"
+    req = srv._requests[rid]
+    assert req.promote_pending == 0
+    torch.cuda.synchronize()
+    assert sorted(payloads[0]) == sorted(srv.pool)
+    for j, payload in enumerate(payloads):
+        for n, host in payload.items():
+            assert host.is_pinned()
+            assert torch.equal(srv.pool[n][:, req.blocks[j]].cpu(),
+                               host[:, 0]), (j, n)
+    srv.run(max_steps=500)
+    _check_pool(srv)

@@ -50,9 +50,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                             & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
-    # the training subset's host modules and the module-injection slice
-    # are among the files checked
+    # the training subset's host modules, the module-injection slice and
+    # the serving engine's drafter and host KV tier are among the files
+    # checked
     for mod in ("checkpointing.py", "runtime/dataloader.py",
+                "inference/serving/speculative.py",
+                "inference/serving/kv_tiers.py",
                 "runtime/progressive_layer_drop.py", "monitor/monitor.py",
                 "models/gpt2.py", "module_inject/replace_policy.py",
                 "module_inject/replace_module.py"):

@@ -8,8 +8,10 @@ feeds multi-chunk prompts, the other a pool small enough to force
 preemption. Bucketed packed widths (``mixed_step_buckets``) and the
 static-buffer step that ``enable_cuda_graph`` captures on a CUDA device
 (uncaptured here) serve the JAX engine's tokens too. The rest checks the
-port's serving surface on the CPU: admission control, cancel, drain, and
-the knobs later slices bring.
+port's serving surface on the CPU: admission control, cancel, drain, the
+validation of the speculation and host-tier knobs, and the unified
+engine's parity in the cases the re-anchor probed (a sliding window,
+priorities, the overload gates, other chunk budgets).
 """
 
 import jax
@@ -35,6 +37,16 @@ from deepspeed_tpu_torch.ops.ragged_attention import (
 SETTINGS = dict(max_batch_size=4, block_size=8, num_blocks=48,
                 max_model_len=64, prefill_chunk_tokens=8,
                 prefill_token_budget=16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny model's ops gain nothing from intra-op threads, which only
+    contend for the cores with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +190,89 @@ def test_static_step_serves_the_jax_tokens(engines, case):
     assert srv.block_pool.used_count == 0
 
 
+def _priority_traffic(rs):
+    return [(rs.randint(1, 256, n), 12, prio)
+            for n, prio in ((17, 0), (21, 2), (14, 1), (19, 0), (9, 2))]
+
+
+def _plain_traffic(lens, new):
+    return lambda rs: [(rs.randint(1, 256, n), m, 0)
+                       for n, m in zip(lens, new)]
+
+
+#: the unified engine's parity cases beyond the default traffic: (model
+#: overrides, ServingConfig overrides, traffic of (prompt, new, priority))
+UNIFIED_CASES = {
+    "window": ({"sliding_window": 12}, {},
+               _plain_traffic(TRAFFIC["multi_chunk"]["lens"],
+                              TRAFFIC["multi_chunk"]["new"])),
+    "window_preemption": ({"sliding_window": 12}, {"num_blocks": 10},
+                          _plain_traffic((17, 21, 14, 19), (12,) * 4)),
+    "priorities_preemption": ({}, {"num_blocks": 10}, _priority_traffic),
+    "kv_headroom": ({}, {"kv_headroom_blocks": 30, "num_blocks": 40},
+                    _plain_traffic((17, 21, 14, 19, 30, 9), (10,) * 6)),
+    "brownout": ({}, {"brownout_occupancy": 0.25,
+                      "brownout_max_new_tokens": 3},
+                 _plain_traffic((17, 33, 14, 40, 25), (12,) * 5)),
+    "budget40_chunk16": ({}, {"prefill_chunk_tokens": 16,
+                              "prefill_token_budget": 40},
+                         _plain_traffic(TRAFFIC["multi_chunk"]["lens"],
+                                        TRAFFIC["multi_chunk"]["new"])),
+    "derived_chunk_and_budget": ({}, {"prefill_chunk_tokens": 0,
+                                      "prefill_token_budget": 0},
+                                 _plain_traffic(
+                                     TRAFFIC["multi_chunk"]["lens"],
+                                     TRAFFIC["multi_chunk"]["new"])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNIFIED_CASES))
+def test_unified_engine_matches_jax_in_probed_cases(engines, case):
+    """The unified step against the JAX engine's with a sliding window
+    with and without preemption, priorities under preemption, the
+    KV-headroom and brownout gates, a 40-token budget of 16-token chunks
+    and the derived chunk and budget. The same admissions (a refused
+    submit is None on both sides), tokens, states, reasons and
+    preemptions per request, the same engine counters and derived sizes,
+    zero pages leaked."""
+    jeng, teng = engines
+    model_over, over, traffic = UNIFIED_CASES[case]
+    if model_over:
+        jeng = jds.init_inference(JaxLlama(JaxConfig.tiny(remat=False,
+                                                          **model_over)),
+                                  params=jeng.params, dtype="fp32")
+        teng = dt.init_inference(LlamaForCausalLM(LlamaConfig.tiny(
+            **model_over)), params=teng.module.state_dict(), dtype="fp32",
+            device="cpu")
+    kw = dict(SETTINGS, **over)
+    reqs = traffic(np.random.RandomState(7))
+    out = {}
+    for side, srv in (("jax", JaxServingEngine(jeng, JaxServingConfig(**kw))),
+                      ("port", dt.ServingEngine(teng,
+                                                dt.ServingConfig(**kw)))):
+        rids = [srv.try_submit(p, max_new_tokens=n, priority=prio)
+                for p, n, prio in reqs]
+        res = srv.run()
+        m = srv.metrics
+        out[side] = ([None if r is None else
+                      (res[r].state, res[r].finish_reason, res[r].tokens,
+                       res[r].preemptions) for r in rids],
+                     (m.preemptions, m.requests_rejected,
+                      m.brownout_admissions, m.steps),
+                     (srv.prefill_chunk_tokens, srv.mixed_step_tokens))
+        srv.block_pool.check_consistent()
+        assert srv.block_pool.used_count == 0, (side, "leaked pages")
+    assert out["port"] == out["jax"]
+    results, (preemptions, rejected, browned, _), _ = out["port"]
+    assert all(r is None or r[0] == "finished" for r in results)
+    if case.endswith("preemption"):
+        assert preemptions > 0, "pool sized to force preemption"
+    if case == "kv_headroom":
+        assert rejected > 0 and None in results
+    if case == "brownout":
+        assert browned > 0
+
+
 def test_mixed_step_buckets_and_graphs_need_the_unified_step(engines):
     """As in the JAX engine, mixed_step_buckets without mixed_step raises
     ValueError; enable_cuda_graph on the two-program engine builds and
@@ -287,11 +382,48 @@ def test_admission_control_cancel_and_drain(engines):
         srv.submit(list(range(60)), max_new_tokens=10)
 
 
-@pytest.mark.parametrize("knob", [
-    {"spec_tokens": 2}, {"host_cache_blocks": 8}])
-def test_knobs_of_later_slices_raise(knob):
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        dt.ServingConfig(**knob)
+#: item 2c's serving knobs the engines refuse, with the JAX engine's
+#: exception and message
+ITEM_2C_REFUSALS = {
+    "spec_tokens_negative": ({"spec_tokens": -1}, "spec_tokens must be"),
+    "spec_two_program": ({"spec_tokens": 2, "mixed_step": False},
+                         "unified mixed step"),
+    "spec_sampling": ({"spec_tokens": 2, "do_sample": True}, "greedy"),
+    "spec_ngram_zero": ({"spec_tokens": 2, "spec_ngram": 0},
+                        "min_ngram <= max_ngram"),
+    "tier_without_prefix_cache": ({"host_cache_blocks": 8}, "prefix_cache"),
+    "tier_bytes_without_prefix_cache": ({"host_cache_bytes": 1 << 20},
+                                        "prefix_cache"),
+    "tier_negative_blocks": ({"host_cache_blocks": -1, "prefix_cache": True},
+                             "host_cache_blocks must be"),
+    "tier_zero_bytes": ({"host_cache_bytes": 0, "prefix_cache": True},
+                        "max_bytes must be positive"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ITEM_2C_REFUSALS))
+def test_item_2c_knobs_are_validated_as_jax(engines, case):
+    """Every refusal of the speculation and host-tier knobs raises the JAX
+    engine's ValueError with its message, in both engines of the port."""
+    jeng, teng = engines
+    over, match = ITEM_2C_REFUSALS[case]
+    kw = dict(SETTINGS, **over)
+    with pytest.raises(ValueError, match=match):
+        JaxServingEngine(jeng, JaxServingConfig(**kw))
+    with pytest.raises(ValueError, match=match):
+        dt.ServingEngine(teng, dt.ServingConfig(**kw))
+
+
+@pytest.mark.parametrize("bounds", [(0, 1), (2, 3), (3, 0)])
+def test_prompt_lookup_ngram_bounds_are_validated_as_jax(bounds):
+    from deepspeed_tpu.inference.serving import \
+        PromptLookupDrafter as JaxDrafter
+    from deepspeed_tpu_torch.inference.serving.speculative import \
+        PromptLookupDrafter
+
+    for cls in (JaxDrafter, PromptLookupDrafter):
+        with pytest.raises(ValueError, match="min_ngram <= max_ngram"):
+            cls(*bounds)
 
 
 def _jax_defaults(cls):
@@ -343,14 +475,20 @@ def test_inference_fields_off_their_no_op_values_name_their_item(knob, item):
                           **knob)
 
 
-@pytest.mark.parametrize("knob,item", [
-    ({"spec_ngram": 4}, "2c"),
-    ({"drafter": object()}, "2c"), ({"host_cache_bytes": 1 << 20}, "2c"),
-    ({"sync_promote": True}, "2c")])
-def test_serving_fields_off_their_jax_defaults_name_their_item(knob, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP.md Queue 1, item {item}\)"):
-        dt.ServingConfig(**knob)
+@pytest.mark.parametrize("knob", [
+    {"spec_tokens": 4}, {"spec_ngram": 4}, {"drafter": object()},
+    {"host_cache_blocks": 8, "prefix_cache": True},
+    {"host_cache_bytes": 1 << 20, "prefix_cache": True},
+    {"sync_promote": True}])
+def test_item_2c_serving_knobs_build(engines, knob):
+    """Each item-2c serving field off its default builds the config and an
+    engine, as in the JAX package (a drafter or spec_ngram alone is unused
+    without spec_tokens; sync_promote without a tier does nothing)."""
+    jeng, teng = engines
+    JaxServingEngine(jeng, JaxServingConfig(**SETTINGS, **knob))
+    srv = dt.ServingEngine(teng, dt.ServingConfig(**SETTINGS, **knob))
+    assert (srv._drafter is not None) == ("spec_tokens" in knob)
+    assert (srv.host_tier is not None) == ("prefix_cache" in knob)
 
 
 def test_monitor_receives_the_serving_counters(engines):
