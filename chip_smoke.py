@@ -26,7 +26,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    with gradients through the autograd function, and K1's masked,
    GQA-native forward at the generate prefill's shapes (B 8, T 512, H 32,
    Hkv 8, D 128, bf16, left-padded masks) and at a bucketed serving
-   prompt (B 1, T 1024); K3 fused Adam over the whole Llama-400M parameter list; K4
+   prompt (B 1, T 1024), and non-causal at BERT-Large's heads (16 of 64,
+   bf16) at 64 x 128 and 16 x 512; K3 fused Adam over the whole Llama-400M parameter list; K4
    decode attention at the generate step's shapes (B 8, H 32, Hkv 8,
    D 128, cache 576, bf16, left-padded key masks) and an int8 cache, a
    window, an fp32 case and caches of 2048 and 8192 (each with its split
@@ -218,7 +219,40 @@ Phases, each printed on its own line; any failure exits non-zero:
    prefixes, suffixes 64-448), both at 1024 positions: every request
    finished, no page leaked, K6 / K7a / K7b once per layer per forward,
    >= 12 prefix hits; tokens/s, TTFT and mean step printed;
-11. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
+11. generic families: the generic transformer (``models/transformer.py``)
+   and ``DeepSpeedTransformerLayer`` at full width, nothing downloaded
+   (configs from ``transformers``' config classes, seeded random weights).
+   (a) Pythia-6.9B (EleutherAI pythia-6.9b's GPT-NeoX widths, all 32
+   layers, bf16, through ``HFGPTNeoXLayerPolicy``'s config) generates at
+   the generate phase's shapes uncaptured, with the decode step captured
+   and with ``prefill_flash_from_empty``: K4 32 x 63 and the masked K1 32
+   launched, the captured run's tokens equal to the uncaptured run's, the
+   flash run's prefill logits within 0.125 of the plain run's (first tokens
+   equal but at near ties), the decode step's ms printed. (b) OPT (opt-6.7b), BLOOM (bloom-7b1),
+   GPT-NeoX (pythia-6.9b), BERT (bert-large-uncased), GPT-Neo
+   (gpt-neo-2.7B), GPT-J, Phi and Falcon (at the widest widths the
+   kernels take, which the line names), 2 layers in fp32 through
+   ``init_inference(hf_model)``: logits within 1e-4 of HF's, greedy
+   tokens equal to HF's ``generate`` for the causal families (4 prompts
+   of 64, 16 new), K4 launched exactly where the config is eligible. (c)
+   BERT-Large MLM (``TransformerForMaskedLM``) on LAMB, bf16, clipping
+   1.0, 15% of positions labelled, at 64 x 128 and 16 x 512, unpadded
+   (the non-causal K1/K2), uncaptured and captured (equal losses), then
+   right-padded with BERT's dropouts 0.1 (the plain attention): finite
+   falling losses, per step K1 24, K2 24 + 24 (none padded) and K3 once
+   (device counts); step ms, samples/s, model TFLOP/s and peak memory
+   printed. (d) 24 ``DeepSpeedTransformerLayer``s (BERT-Large, pre-LN,
+   ``fp16``), the twin of the JAX package's tools/bench_bert_layer.py, at
+   (128, 64) and (512, 16), with the bench's all-ones mask and without a
+   mask (K1/K2): ``bert layer {...}`` JSON lines with its TFLOP/s. (e) The
+   legacy quantization on Llama-3-8B (the serve phase's weights):
+   ``quantize=True`` generate with and without ``dequant_per_step``,
+   uncaptured and captured, the captured unified engine and the
+   two-program engine (K6, K7a/K7b once per layer per forward, no page
+   leaked), each run's tokens equal to a bf16 engine's on
+   ``dequantize_params(quantize_params(w))``; peak memory and mean step
+   printed beside the bf16 engine's;
+12. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line. A kernel's ``launches`` are its
    wrapper's count over its path's uncaptured run (a wrapper counts where
    it launches; a graph replays its kernels without it), except K6's,
@@ -231,7 +265,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    of each hf inject run that ran the kernel (GPT-2's at head dim 64);
    ``spec_serve_launches`` and ``kv_tier_launches`` are K6's, K7a's and
    K7b's wrapper counts over those phases' uncaptured runs (item 5 (d),
-   (e)) and, for K6, its device runs over all their runs. Each of these kernels adds one to its device count
+   (e)) and, for K6, its device runs over all their runs;
+   ``generic_launches`` are the wrappers' counts of each generic families
+   run that ran the kernel (item 11). Each of these kernels adds one to its device count
    (``deepspeed_tpu_torch/ops/_runs.py``) when it runs.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -660,6 +696,10 @@ FLASH_CASES = {
     "d128": (2, 8, 1024, 1024, 128, torch.bfloat16, True, None),
     "uneven_t1000": (2, 8, 1000, 1000, 64, torch.bfloat16, True, None),
     "full_fp32": (2, 4, 300, 300, 64, torch.float32, False, None),
+    # BERT-Large's heads (16 of 64), non-causal bf16, at the BERT
+    # tutorial's phase-1 and phase-2 shapes
+    "bert128_noncausal": (64, 16, 128, 128, 64, torch.bfloat16, False, None),
+    "bert512_noncausal": (16, 16, 512, 512, 64, torch.bfloat16, False, None),
 }
 
 
@@ -678,6 +718,11 @@ FLASH_MASKED_CASES = {
     "gpt2_generate_prefill_d64": (8, 12, 12, 512, 64, torch.bfloat16, None,
                                   (175, 487, 300, 512, 128, 401, 256, 350),
                                   True),
+    # Pythia-6.9B's generate prefill (32 heads of 128, no GQA) at the
+    # prompt lengths of left_padded_prompts(..., 128, 512, seed 0)
+    "pythia_generate_prefill": (8, 32, 32, 512, 128, torch.bfloat16, None,
+                                (300, 175, 245, 320, 451, 379, 323, 487),
+                                True),
 }
 
 
@@ -1424,6 +1469,9 @@ DECODE_CASES = {
     # GPT-2 125M's generate decode (12 heads of 64, no GQA)
     "gpt2_d64_c575": (GEN_B, 12, 12, GEN_PROMPT + GEN_NEW, 64,
                       torch.bfloat16, False, None, 575),
+    # Pythia-6.9B's generate decode (32 heads of 128, no GQA)
+    "pythia_d128_g1_c575": (GEN_B, 32, 32, GEN_PROMPT + GEN_NEW, 128,
+                            torch.bfloat16, False, None, 575),
     # longer caches, the cache index near their end
     "c2040_s2048": (GEN_B, H, HKV, 2048, D, torch.bfloat16, False, None,
                     2040),
@@ -4850,6 +4898,693 @@ def check_hf_inject(serve_tokens):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# generic families: the generic transformer (models/transformer.py) and
+# DeepSpeedTransformerLayer at full width, and the legacy quantization
+# ---------------------------------------------------------------------------
+
+#: (a) EleutherAI pythia-6.9b's GPT-NeoX widths
+PYTHIA_6_9B = dict(vocab_size=50432, hidden_size=4096,
+                   intermediate_size=16384, num_hidden_layers=32,
+                   num_attention_heads=32, max_position_embeddings=2048,
+                   rotary_pct=0.25, rotary_emb_base=10000,
+                   use_parallel_residual=True, layer_norm_eps=1e-5,
+                   hidden_act="gelu", tie_word_embeddings=False)
+#: (b) the families' greedy check: prompts, their length, new tokens
+FAMILY_PROMPTS, FAMILY_T, FAMILY_NEW = 4, 64, 16
+#: (c) BERT-Large (bert-large-uncased's widths) and the phases of the
+#: reference's BERT tutorial (batch, sequence)
+BERT_LARGE = dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+                  num_attention_heads=16, intermediate_size=4096,
+                  max_position_embeddings=512, type_vocab_size=2)
+BERT_SHAPES = ((64, 128), (16, 512))
+BERT_CONFIG = {"optimizer": {"type": "Lamb",
+                             "params": {"lr": 2e-3, "weight_decay": 0.01}},
+               "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+               "steps_per_print": 0, "seed": 0}
+BERT_STEPS, BERT_WARMUP = 5, 2
+#: (d) the BERT layer stack of tools/bench_bert_layer.py: hidden,
+#: intermediate, heads, layers
+BERT_LAYER = (1024, 4096, 16, 24)
+
+
+def hf_family_configs():
+    """(b) Each family at its published widths, 2 layers, by name:
+    ``(HF model class, HF config, the widths' source)``. GPT-J-6B (head
+    dim 256), Phi-2 (80) and Falcon-7B (71 query heads over one kv head)
+    are outside the kernels' range (head dims 64 and 128, a K4 group of at
+    most 8), so they run at the widest widths the kernels take, which the
+    source names."""
+    import transformers as tr
+
+    return {
+        "opt": (tr.OPTForCausalLM, tr.OPTConfig(
+            vocab_size=50272, hidden_size=4096, ffn_dim=16384,
+            num_hidden_layers=2, num_attention_heads=32,
+            max_position_embeddings=2048, dropout=0.0,
+            attention_dropout=0.0), "facebook/opt-6.7b"),
+        "bloom": (tr.BloomForCausalLM, tr.BloomConfig(
+            vocab_size=250880, hidden_size=4096, n_layer=2, n_head=32,
+            hidden_dropout=0.0, attention_dropout=0.0),
+            "bigscience/bloom-7b1"),
+        "gpt_neox": (tr.GPTNeoXForCausalLM, tr.GPTNeoXConfig(
+            **dict(PYTHIA_6_9B, num_hidden_layers=2),
+            attention_dropout=0.0, hidden_dropout=0.0),
+            "EleutherAI/pythia-6.9b"),
+        "bert": (tr.BertForMaskedLM, tr.BertConfig(
+            **dict(BERT_LARGE, num_hidden_layers=2),
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0),
+            "bert-large-uncased"),
+        "gpt_neo": (tr.GPTNeoForCausalLM, tr.GPTNeoConfig(
+            vocab_size=50257, hidden_size=2560, num_layers=2, num_heads=20,
+            attention_types=[[["global", "local"], 1]], window_size=256,
+            max_position_embeddings=2048, resid_dropout=0.0,
+            embed_dropout=0.0, attention_dropout=0.0),
+            "EleutherAI/gpt-neo-2.7B"),
+        "gptj": (tr.GPTJForCausalLM, tr.GPTJConfig(
+            vocab_size=50400, n_embd=4096, n_layer=2, n_head=32,
+            rotary_dim=64, n_positions=2048, resid_pdrop=0.0,
+            embd_pdrop=0.0, attn_pdrop=0.0),
+            "EleutherAI/gpt-j-6b widths with 32 heads of 128 (its 16 of "
+            "256 exceed the kernels' head dims)"),
+        "phi": (tr.PhiForCausalLM, tr.PhiConfig(
+            vocab_size=51200, hidden_size=2560, intermediate_size=10240,
+            num_hidden_layers=2, num_attention_heads=20,
+            partial_rotary_factor=0.25, max_position_embeddings=2048,
+            attention_dropout=0.0, resid_pdrop=0.0, embd_pdrop=0.0),
+            "microsoft/phi-2 widths with 20 heads of 128 and rotary dim 32 "
+            "(its 32 heads of 80 exceed the kernels' head dims)"),
+        "falcon": (tr.FalconForCausalLM, tr.FalconConfig(
+            vocab_size=65024, hidden_size=4544, num_hidden_layers=2,
+            num_attention_heads=71, multi_query=False, parallel_attn=True,
+            bias=False, alibi=False, new_decoder_architecture=False,
+            attention_dropout=0.0, hidden_dropout=0.0),
+            "tiiuae/falcon-7b widths with 71 kv heads (its one kv head "
+            "under 71 query heads is a K4 group of 71 > 8)"),
+    }
+
+
+def generic_kernels():
+    """The wrappers the generic paths run, by name: K1 (forward, masked
+    forward), K2, K3 and K4."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+
+    return dict(train_kernels(), decode_attention=decode_attention,
+                flash_attention_fwd_masked=serving_kernels()[
+                    "flash_attention_fwd_masked"])
+
+
+def zero_generic_launches():
+    for fn in generic_kernels().values():
+        fn.launches = 0
+
+
+def generic_launches():
+    return {n: fn.launches for n, fn in generic_kernels().items()}
+
+
+#: (a) Pythia-6.9B's last-position prefill logits (bf16, about 1.0 in
+#: standard deviation on seeded weights) through the masked K1 against the
+#: plain cached attention: the two round at other points in each of the 32
+#: layers (0.0625 apart at most on an H100); a wrong mask, head or group
+#: mapping moves them by the logits' own scale
+PYTHIA_PREFILL_LOGIT_TOL = 0.125
+
+
+def prefill_logits(engine, ids, mask):
+    """``generate``'s prefill on ``engine`` (the prompts left-padded to the
+    generate phase's bucket, a cache of ``GEN_PROMPT + GEN_NEW`` from
+    empty, positions from the mask, as ``generate`` runs it): the last
+    position's logits, fp32 ``[B, V]``."""
+    pad = GEN_PROMPT - ids.shape[1]
+    ids_t = torch.nn.functional.pad(torch.as_tensor(ids, device="cuda"),
+                                    (pad, 0))
+    mask_t = torch.nn.functional.pad(torch.as_tensor(
+        mask, dtype=torch.int32, device="cuda"), (pad, 0))
+    B, S = ids_t.shape[0], GEN_PROMPT + GEN_NEW
+    key_mask = torch.zeros((B, S), dtype=torch.int32, device="cuda")
+    key_mask[:, :GEN_PROMPT] = mask_t
+    with torch.inference_mode():
+        cache = engine.module.init_cache(B, S, dtype=torch.bfloat16,
+                                         device="cuda")
+        logits, _ = engine.module(
+            ids_t, cache=cache,
+            cache_index=torch.zeros((), dtype=torch.int32, device="cuda"),
+            positions=(mask_t.cumsum(dim=-1) - 1).clamp_min(0),
+            attention_mask=key_mask)
+    return logits[:, -1].float()
+
+
+def check_pythia_generate():
+    """(a) Pythia-6.9B (the port's ``TransformerLMHeadModel`` built by
+    ``HFGPTNeoXLayerPolicy`` from the HF config; bf16 weights from seed 0)
+    through ``generate`` at the generate phase's shapes: uncaptured, with
+    the decode step captured, and with ``prefill_flash_from_empty``.
+    Asserts K4 32 x 63 and (flagged) the masked K1 32 in the counted runs,
+    the captured run's tokens equal to the uncaptured run's, finite
+    logits, and the flash run's prefill logits (:func:`prefill_logits`,
+    run after the counted ``generate``) within
+    ``PYTHIA_PREFILL_LOGIT_TOL`` of the plain run's, its first tokens the
+    plain run's in every row whose top-2 gap there is wider than twice
+    the tolerance (bf16: the two prefills round at other points, so the
+    tokens may part at a near tie). Returns the launches and the
+    decode-step ms by run."""
+    import transformers
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import TransformerLMHeadModel
+    from deepspeed_tpu_torch.module_inject.replace_policy import \
+        HFGPTNeoXLayerPolicy
+
+    hc = transformers.GPTNeoXConfig(**PYTHIA_6_9B)
+    model = HFGPTNeoXLayerPolicy.build(hc)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    if (cfg.head_dim, cfg.rotary_dim, cfg.rope_theta, cfg.parallel_residual,
+            cfg.tie_word_embeddings) != (128, 32, 10000.0, True, False):
+        raise AssertionError(f"generic (a): the policy's config is not "
+                             f"pythia-6.9b's: {cfg}")
+    t = time.perf_counter()
+    params = model.init_params(seed=0, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(p.numel() for p in params.values())
+    init_s = time.perf_counter() - t
+    ids, mask = left_padded_prompts(cfg.vocab_size, GEN_B, 128, GEN_PROMPT,
+                                    0)
+    tokens, launches, decode, prefill = {}, {}, {}, {}
+    for name, flash, graph in (("bf16", False, False),
+                               ("bf16_graph", False, True),
+                               ("bf16_flash", True, False)):
+        run_cfg = dataclasses.replace(cfg, prefill_flash_from_empty=flash)
+        engine = dt.init_inference(TransformerLMHeadModel(run_cfg),
+                                   params=params, dtype=torch.bfloat16,
+                                   device="cuda", enable_cuda_graph=graph)
+        out, engine, prefill_s, total_s, counts, capture, finite = \
+            generate_run(None, torch.bfloat16, None, ids, mask, GEN_NEW,
+                         engine=engine)
+        k4, k1m = counts[0], counts[2]
+        decode[name] = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tokens[name] = out.cpu()
+        steps = 0 if graph else GEN_NEW - 1
+        want = (L * steps, L if flash else 0)
+        same = torch.equal(tokens[name], tokens["bf16"])
+        log(f"generic (a) pythia-6.9b x{L} layers ({n_params / 1e9:.2f} B "
+            f"params, bf16, init {init_s:.1f} s) generate {name}: batch "
+            f"{GEN_B}, prompts {int(mask.sum(1).min())}-"
+            f"{int(mask.sum(1).max())} (bucket {GEN_PROMPT}), {GEN_NEW} new: "
+            f"prefill {1e3 * prefill_s:.2f} ms, mean decode step "
+            f"{decode[name]:.3f} ms, total {1e3 * total_s:.2f} ms = "
+            f"{GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
+            f"{peak:.1f} GiB, launches K4 {k4} masked K1 {k1m} (want "
+            f"{want}){' capturing warm-up ' + str(capture[:3]) if graph else ''}"
+            f", tokens as the uncaptured run's: {same}")
+        problems = []
+        if (k4, k1m) != want:
+            problems.append(f"launches K4, masked K1 {(k4, k1m)} != {want}")
+        if graph and capture[:3] != (2 * L, 0, 0):
+            problems.append(f"capturing warm-up {capture[:3]}")
+        if not finite or tuple(out.shape) != (GEN_B, GEN_NEW):
+            problems.append("a logit is not finite or the shape is wrong")
+        if graph and not same:
+            problems.append("the captured run's tokens differ from the "
+                            "uncaptured run's")
+        if problems:
+            raise AssertionError(f"generic (a) {name}: " + "; ".join(problems))
+        launches[name] = {"decode_attention": k4,
+                          "flash_attention_fwd_masked": k1m}
+        if not graph:
+            prefill[name] = prefill_logits(engine, ids, mask)
+        del engine, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = int((tokens["bf16_flash"] == tokens["bf16"]).all(1).sum())
+    plain, flash = prefill["bf16"], prefill["bf16_flash"]
+    err = (flash - plain).abs()
+    top2 = plain.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    first_differs = tokens["bf16_flash"][:, 0] != tokens["bf16"][:, 0]
+    untied = gap.cpu() > 2 * PYTHIA_PREFILL_LOGIT_TOL
+    log(f"generic (a) pythia-6.9b: prefill logits flash vs plain max |err| "
+        f"{float(err.max()):.4f} mean {float(err.mean()):.3e} (tolerance "
+        f"{PYTHIA_PREFILL_LOGIT_TOL:g}; plain logits std "
+        f"{float(plain.std()):.3f}, top-2 gaps "
+        f"{[round(float(x), 4) for x in gap]}); first tokens differ in rows "
+        f"{first_differs.nonzero().flatten().tolist()}; the flash run's "
+        f"tokens equal the plain run's in {rows} of {GEN_B} rows; decode "
+        f"step uncaptured {decode['bf16']:.3f} ms, captured "
+        f"{decode['bf16_graph']:.3f} ms")
+    if not bool(torch.isfinite(flash).all()) or \
+            float(err.max()) > PYTHIA_PREFILL_LOGIT_TOL or \
+            bool((first_differs & untied).any()):
+        raise AssertionError(
+            f"generic (a): the flash prefill's logits are {float(err.max())}"
+            f" from the plain prefill's (tolerance "
+            f"{PYTHIA_PREFILL_LOGIT_TOL}) or a first token differs where the "
+            f"plain top-2 gap is wider than twice that")
+    del params
+    return launches, decode
+
+
+def check_generic_families():
+    """(b) Each family of ``hf_family_configs``: an HF model (2 layers,
+    fp32, seed 0, built on the card) through ``init_inference(hf_model)``:
+    logits of 2 seeded 128-token prompts within ``HF_LOGIT_TOL`` of HF's
+    (BERT's MLM logits with a padding mask and token types), and for the
+    causal families fp32 greedy tokens of ``FAMILY_PROMPTS`` prompts of
+    ``FAMILY_T`` equal to HF's ``generate`` (``FAMILY_NEW`` new); K4 ran
+    once per layer per decode step where the config is eligible (no ALiBi,
+    no ``attention_layers``) and never elsewhere. Returns K4's launches by
+    family."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+
+    out = {}
+    for name, (cls, hc, source) in hf_family_configs().items():
+        torch.manual_seed(0)
+        t = time.perf_counter()
+        with torch.device("cuda"):
+            hf = cls(hc).eval()
+        engine = dt.init_inference(hf, dtype=torch.float32, device="cuda")
+        cfg = engine.module.config
+        build_s = time.perf_counter() - t
+        rs = np.random.RandomState(8)
+        ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 128))).cuda()
+        kw = {}
+        if not cfg.causal:
+            mask = torch.ones_like(ids)
+            mask[1, 100:] = 0
+            kw = dict(attention_mask=mask,
+                      token_type_ids=(torch.arange(128, device="cuda")
+                                      >= 64).long().expand(2, 128))
+        with torch.no_grad():
+            want = hf(ids, **kw).logits
+        got = engine(ids, **kw)
+        err = (got - want).abs()
+        ok = bool((err <= HF_LOGIT_TOL + HF_LOGIT_TOL * want.abs()).all())
+        line = (f"generic (b) {name} ({source}; {cfg.num_attention_heads} "
+                f"heads of {cfg.head_dim}, {cfg.kv_heads} kv heads, x2 "
+                f"layers, fp32, built in {build_s:.1f} s) -> "
+                f"{type(engine.module).__name__}: logits max |port - HF| "
+                f"{float(err.max()):.3e} (tolerance {HF_LOGIT_TOL:g})")
+        problems = [] if ok else ["logits"]
+        if cfg.causal:
+            eos = hf.generation_config.eos_token_id
+            eos = eos[0] if isinstance(eos, list) else eos
+            gen = rs.randint(0, cfg.vocab_size, (FAMILY_PROMPTS, FAMILY_T))
+            decode_attention.launches = 0
+            got_tokens = engine.generate(gen, max_new_tokens=FAMILY_NEW,
+                                         eos_token_id=eos).cpu()
+            k4 = decode_attention.launches
+            with torch.no_grad():
+                ref = hf.generate(
+                    torch.from_numpy(gen).cuda(),
+                    attention_mask=torch.ones((FAMILY_PROMPTS, FAMILY_T),
+                                              dtype=torch.long,
+                                              device="cuda"),
+                    max_new_tokens=FAMILY_NEW, do_sample=False,
+                    pad_token_id=eos, eos_token_id=eos)[:, FAMILY_T:].cpu()
+            ref = torch.nn.functional.pad(
+                ref, (0, FAMILY_NEW - ref.shape[1]),
+                value=-1 if eos is None else eos)
+            same = torch.equal(got_tokens, ref)
+            eligible = cfg.pallas_decode_eligible(1)
+            want_k4 = cfg.num_hidden_layers * (FAMILY_NEW - 1) \
+                if eligible else 0
+            line += (f"; greedy tokens of {FAMILY_PROMPTS} prompts of "
+                     f"{FAMILY_T}, {FAMILY_NEW} new, equal to HF's generate: "
+                     f"{same}; K4 {k4} (eligible {eligible}, want {want_k4})")
+            if not same:
+                problems.append("greedy tokens")
+            if k4 != want_k4:
+                problems.append(f"K4 launches {k4} != {want_k4}")
+            out[name] = k4
+        log(line)
+        if problems:
+            raise AssertionError(f"generic (b) {name}: " + ", ".join(problems))
+        del hf, engine, want, got, err
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def bert_batch(cfg, batch, seq, seed, padded):
+    """A BERT MLM batch: seeded ids, 15% of the positions labelled (the
+    others -100), token types 0 then 1; ``padded`` right-pads each row
+    by a seeded 0-``seq / 2`` tokens (their labels -100) and adds the
+    ``attention_mask``."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1000, cfg.vocab_size, (batch, seq))
+    labels = np.where(rs.rand(batch, seq) < 0.15, ids, -100)
+    types = (np.arange(seq)[None] >= seq // 2).repeat(batch, 0)
+    out = {"input_ids": ids, "token_type_ids": types.astype(np.int64)}
+    if padded:
+        mask = np.ones((batch, seq), np.int64)
+        for b, pad in enumerate(rs.randint(0, seq // 2 + 1, batch)):
+            mask[b, seq - pad:] = 0
+        labels[mask == 0] = -100
+        out["attention_mask"] = mask
+    out["labels"] = labels
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
+
+
+def mlm_loss(module, batch, generator):
+    """BERT's MLM loss: the token-mean cross entropy over labelled
+    positions; dropout (when the config has it) in training mode."""
+    from deepspeed_tpu_torch.models.layers import cross_entropy_loss
+
+    logits = module(batch["input_ids"], batch.get("attention_mask"),
+                    batch["token_type_ids"],
+                    deterministic=module.config.attn_dropout == 0 and
+                    module.config.hidden_dropout == 0)
+    return cross_entropy_loss(logits, batch["labels"]), ()
+
+
+def check_bert_training():
+    """(c) BERT-Large MLM (``TransformerForMaskedLM`` from
+    ``HFBertLayerPolicy``'s config; seed 0) on LAMB (K3), bf16, clipping
+    1.0, at the BERT tutorial's phase-1 and phase-2 shapes: unpadded with
+    dropout 0 (the non-causal K1/K2), uncaptured and captured, each
+    ``BERT_WARMUP`` + ``BERT_STEPS`` steps on one batch; then right-padded
+    batches with BERT's dropouts 0.1 (the plain attention), uncaptured.
+    Asserts finite falling losses, captured losses equal to uncaptured,
+    and per step K1 24, K2 24 + 24 (never under padding) and K3 once,
+    counted on the device. Prints step ms, samples/s, model TFLOP/s and
+    peak memory. Returns the wrappers' launches of each uncaptured run."""
+    import transformers
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import TransformerForMaskedLM
+    from deepspeed_tpu_torch.module_inject.replace_policy import \
+        HFBertLayerPolicy
+
+    cfg = HFBertLayerPolicy.convert_config(
+        transformers.BertConfig(**BERT_LARGE))
+    L, Hd = cfg.num_hidden_layers, cfg.hidden_size
+    names = list(train_kernels())
+    out = {}
+    runs = [(f"{b}x{s}_{'captured' if graphed else 'uncaptured'}", b, s,
+             False, graphed) for b, s in BERT_SHAPES
+            for graphed in (False, True)]
+    runs.append((f"{BERT_SHAPES[0][0]}x{BERT_SHAPES[0][1]}_padded_dropout",
+                 BERT_SHAPES[0][0], BERT_SHAPES[0][1], True, False))
+    losses = {}
+    for name, B, S, padded, graphed in runs:
+        run_cfg = dataclasses.replace(cfg, attn_dropout=0.1,
+                                      hidden_dropout=0.1) if padded else cfg
+        base = memory_base("cuda")
+        engine, *_ = dt.initialize(
+            model=TransformerForMaskedLM(run_cfg),
+            config=dict(BERT_CONFIG, train_batch_size=B), loss_fn=mlm_loss,
+            device="cuda", cuda_graph=graphed)
+        n_params = sum(p.numel() for p in engine.master.values())
+        batch = bert_batch(cfg, B, S, seed=S, padded=padded)
+        ls = [engine.train_batch(batch=batch) for _ in range(BERT_WARMUP)]
+        torch.cuda.synchronize()
+        zero_generic_launches()
+        reset_device_runs(names)
+        t = time.perf_counter()
+        ls += [engine.train_batch(batch=batch) for _ in range(BERT_STEPS)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t) / BERT_STEPS
+        runs_dev = {n: v / BERT_STEPS for n, v in device_runs(names).items()}
+        wrappers = {n: generic_launches()[n] for n in names}
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ls = [float(x) for x in ls]
+        losses[name] = ls
+        flops = model_flops_per_step(n_params, B, S, L, Hd)
+        want = {"flash_attention_fwd": 0 if padded else L,
+                "flash_attention_bwd_dq": 0 if padded else L,
+                "flash_attention_bwd_dkv": 0 if padded else L,
+                "fused_adam": 1}
+        log(f"generic (c) bert-large MLM {name} ("
+            f"{n_params / 1e6:.1f} M params, LAMB, bf16, clip 1.0, dropout "
+            f"{run_cfg.hidden_dropout}): step {1e3 * step_s:.2f} ms, "
+            f"{B / step_s:.1f} samples/s, model "
+            f"{flops / step_s / 1e12:.1f} TFLOP/s, peak memory {peak:.2f} "
+            f"GiB, losses {[round(x, 4) for x in ls]}, device runs a step "
+            f"{runs_dev} (want {want})")
+        problems = []
+        if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+            problems.append("losses not finite and falling")
+        if runs_dev != want:
+            problems.append(f"device runs a step {runs_dev} != {want}")
+        if graphed and ls != losses[name.replace("captured",
+                                                 "uncaptured")]:
+            problems.append("captured losses differ from uncaptured ones")
+        if problems:
+            raise AssertionError(f"generic (c) {name}: " + "; ".join(problems))
+        if not graphed:
+            out[name] = wrappers
+        del engine, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_bert_layer():
+    """(d) The twin of the JAX package's ``tools/bench_bert_layer.py``: 24
+    ``DeepSpeedTransformerLayer``s at BERT-Large's shape (pre-LN,
+    ``fp16=True``: bf16 compute), forward and forward + backward (loss
+    ``sum(out ** 2)``) at (seq 128, batch 64) and (seq 512, batch 16), with
+    the bench's all-ones ``[B, S]`` mask (the plain attention, as the JAX
+    layer's biased attention takes XLA) and without a mask (the non-causal
+    K1/K2). TFLOP/s from the bench's FLOP count; one ``bert layer {...}``
+    JSON line per point."""
+    from deepspeed_tpu_torch.ops import (DeepSpeedTransformerConfig,
+                                         DeepSpeedTransformerLayer)
+
+    Hd, inter, heads, L = BERT_LAYER
+    smi = nvidia_smi()
+    for B, S in BERT_SHAPES:
+        cfg = DeepSpeedTransformerConfig(batch_size=B, hidden_size=Hd,
+                                         intermediate_size=inter,
+                                         heads=heads, num_hidden_layers=L,
+                                         fp16=True, pre_layer_norm=True)
+        layers = [DeepSpeedTransformerLayer(dataclasses.replace(cfg, seed=i),
+                                            device="cuda") for i in range(L)]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(B, S, Hd, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        for masked in (True, False):
+            mask = torch.ones((B, S), dtype=torch.int32, device="cuda") \
+                if masked else None
+
+            def stack():
+                h = x
+                for layer in layers:
+                    h = layer(h, mask)
+                return h
+
+            def fwdbwd():
+                loss = (stack().float() ** 2).sum()
+                loss.backward()
+
+            with torch.no_grad():
+                fwd_ms = cuda_time_ms(stack, reps=5, warmup=2)
+            zero_generic_launches()
+            fwdbwd()
+            k1 = generic_launches()["flash_attention_fwd"]
+            fb_ms = cuda_time_ms(fwdbwd, reps=5, warmup=1)
+            p_layer = 4 * Hd * Hd + 2 * Hd * inter
+            fb_flops = 6.0 * p_layer * L * B * S + 12.0 * L * B * S * S * Hd
+            rec = {"batch": B, "seq": S, "layers": L, "hidden": Hd,
+                   "mask": masked, "fwd_ms": fwd_ms, "fwdbwd_ms": fb_ms,
+                   "fwd_tflops": fb_flops / 3 / fwd_ms / 1e9,
+                   "fwdbwd_tflops": fb_flops / fb_ms / 1e9,
+                   "samples_per_sec": B / fb_ms * 1e3,
+                   "k1_launches_fwdbwd": k1, "device": smi}
+            print("bert layer " + json.dumps(rec), flush=True)
+            if k1 != (0 if masked else L):
+                raise AssertionError(f"generic (d) bert layer B {B} S {S} "
+                                     f"mask {masked}: K1 launched {k1}")
+            for layer in layers:
+                layer.zero_grad(set_to_none=True)
+        del layers, x
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def legacy_quant_engine_runs(engine, label, ids, mask, L, cfg):
+    """(e) On one inference engine: ``generate`` at the generate phase's
+    shapes (with and without ``dequant_per_step`` when the engine is
+    quantized, each uncaptured and captured), the unified engine captured
+    and the two-program engine on the serve phase's 16 requests. Returns
+    the tokens, the decode-step ms, the mean steps and the peak memory by
+    run."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
+
+    tokens, ms, peaks = {}, {}, {}
+    per_step = (False, True) if engine.config.quantize else (False,)
+    for dps in per_step:
+        for graph in (False, True):
+            run = f"generate{'_per_step' if dps else ''}" \
+                f"{'_graph' if graph else ''}"
+            engine.config.dequant_per_step = dps
+            engine.config.enable_cuda_graph = graph
+            engine._decode_graphs.clear()
+            out, _, prefill_s, total_s, counts, _, finite = generate_run(
+                None, torch.bfloat16, None, ids, mask, GEN_NEW,
+                engine=engine)
+            ms[run] = 1e3 * (total_s - prefill_s) / (GEN_NEW - 1)
+            peaks[run] = torch.cuda.max_memory_allocated() / 2 ** 30
+            tokens[run] = out.cpu()
+            want = 0 if graph else L * (GEN_NEW - 1)
+            log(f"generic (e) llama3_8b {label} {run}: mean decode step "
+                f"{ms[run]:.3f} ms, prefill {1e3 * prefill_s:.2f} ms, peak "
+                f"memory {peaks[run]:.1f} GiB, K4 {counts[0]} (want {want})")
+            if counts[0] != want or not finite:
+                raise AssertionError(f"generic (e) {label} {run}: K4 "
+                                     f"{counts[0]} != {want} or a logit is "
+                                     f"not finite")
+    engine._decode_graphs.clear()
+    traffic = [seeded_traffic(cfg.vocab_size, 0, 16, (64, 1536), (32, 64))]
+    for kind, graph, scfg in (
+            ("serve_unified_captured", True, SERVE_SCFG),
+            ("serve_two_program", False,
+             dict(LEGACY_SCFG, prefix_cache=True,
+                  prefill_chunk_tokens=PAGED_CHUNK,
+                  prefill_token_budget=256))):
+        engine.config.enable_cuda_graph = graph
+        torch.cuda.reset_peak_memory_stats()
+        srv = dt.ServingEngine(engine, dt.ServingConfig(**scfg))
+        srv, rids, res, wall, launches = serve(
+            cfg, 0, 0, None, None, scfg, torch.bfloat16, phases=traffic,
+            srv=srv)
+        tokens[kind] = [(res[r].state, res[r].tokens) for r in rids]
+        m = srv.metrics
+        ms[kind] = 1e3 * wall / max(m.steps, 1)
+        peaks[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
+        finished = sum(res[r].state == "finished" for r in rids)
+        if graph:
+            got = {"ragged_paged_attention": kernel_runs()}
+            want = {"ragged_paged_attention": L * m.steps}
+        else:
+            got = {n: launches[n] for n in ("paged_decode_attention",
+                                            "paged_prefill_attention")}
+            want = {"paged_decode_attention": L * srv.decode_calls,
+                    "paged_prefill_attention": L * srv.prefill_chunk_calls}
+        log(f"generic (e) llama3_8b {label} {kind}: {len(rids)} requests, "
+            f"{finished} finished, {m.steps} steps, mean step "
+            f"{ms[kind]:.2f} ms, {m.tokens_generated / wall:.1f} tok/s, "
+            f"peak memory {peaks[kind]:.1f} GiB, kernels {got} (want "
+            f"{want}), pages in use {srv.block_pool.used_count}")
+        srv.block_pool.check_consistent()
+        if finished != len(rids) or got != want or \
+                srv.block_pool.used_count:
+            raise AssertionError(f"generic (e) {label} {kind}: unfinished "
+                                 f"requests, kernels {got} != {want} or "
+                                 f"leaked pages")
+        del srv, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    engine.config.enable_cuda_graph = False
+    return tokens, ms, peaks
+
+
+def check_legacy_quant():
+    """(e) The legacy grouped quantization on Llama-3-8B (the serve and
+    generate phases' weights, seed 0, bf16): ``init_inference(quantize=
+    True)`` (32 groups a leaf, bound dequantized into bf16 at init),
+    then a bf16 engine on ``dequantize_params(quantize_params(w))`` (the
+    same codes dequantized once, written into the weights in the JAX
+    leaves' layout), each through :func:`legacy_quant_engine_runs`: every
+    quantized run's tokens must equal the bf16 engine's. Prints the peak
+    device memory and the mean step of each beside the other's."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.checkpoint.from_flax import flax_leaves
+    from deepspeed_tpu_torch.compression.quantization import (dequantize,
+                                                              quantize_leaf)
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama3_8b()
+    L = cfg.num_hidden_layers
+    ids, mask = left_padded_prompts(cfg.vocab_size, GEN_B, 128, GEN_PROMPT, 0)
+    params = LlamaForCausalLM(cfg).init_params(seed=0, dtype=torch.bfloat16,
+                                               device="cuda")
+    t = time.perf_counter()
+    engine = dt.init_inference(LlamaForCausalLM(cfg), params=params,
+                               dtype=torch.bfloat16, device="cuda",
+                               quantize=True)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t
+    # the reference weights, dequantize_params(quantize_params(w)), made
+    # in place in w (the quantized engine holds its own copy) through the
+    # JAX formula q * scale + zero, leaf by leaf in the JAX layout
+    with torch.no_grad():
+        for path, view in flax_leaves(params, cfg):
+            leaf, meta = quantize_leaf(view.tensor(), 32)
+            if meta is None:
+                continue
+            out = torch.empty(meta["shape"], dtype=torch.bfloat16,
+                              device="cuda")
+            dequantize(leaf, meta["scale"], meta["zero"], meta["shape"],
+                       torch.bfloat16, out=out)
+            view.write(out)
+            del leaf, out
+    held = sum(p.numel() * p.element_size() for p in params.values()) \
+        / 2 ** 30
+    log(f"generic (e) llama3_8b quantize=True: init (each large leaf "
+        f"quantized and bound dequantized) {quant_s:.1f} s; the peaks of "
+        f"its runs include the reference's {held:.2f} GiB of weights, which "
+        f"the harness holds meanwhile")
+    q_tokens, q_ms, q_peaks = legacy_quant_engine_runs(
+        engine, "quantize", ids, mask, L, cfg)
+    q_peaks = {run: peak - held for run, peak in q_peaks.items()}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = dt.init_inference(LlamaForCausalLM(cfg), params=params,
+                               dtype=torch.bfloat16, device="cuda")
+    del params
+    b_tokens, b_ms, b_peaks = legacy_quant_engine_runs(
+        engine, "bf16_on_dequantized", ids, mask, L, cfg)
+    problems = []
+    for run, toks in q_tokens.items():
+        ref = b_tokens[run.replace("_per_step", "")]
+        same = torch.equal(toks, ref) if torch.is_tensor(toks) else \
+            toks == ref
+        base = run.replace("_per_step", "")
+        log(f"generic (e) {run}: quantize tokens equal the bf16 engine's on "
+            f"the dequantized weights: {same}; mean step {q_ms[run]:.3f} ms "
+            f"(bf16 {b_ms[base]:.3f} ms), peak memory less the harness's "
+            f"reference weights {q_peaks[run]:.1f} GiB (bf16 "
+            f"{b_peaks[base]:.1f} GiB)")
+        if not same:
+            problems.append(run)
+    if problems:
+        raise AssertionError(f"generic (e): tokens differ in {problems}")
+    del engine
+    return q_ms, b_ms
+
+
+def check_generic():
+    """The ``generic families`` phase: (a) :func:`check_pythia_generate`,
+    (b) :func:`check_generic_families`, (c) :func:`check_bert_training`,
+    (d) :func:`check_bert_layer`, (e) :func:`check_legacy_quant`. Returns
+    the launches by run."""
+    launches = {}
+    pythia, _ = check_pythia_generate()
+    launches.update({f"pythia_6_9b_{k}": v for k, v in pythia.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = check_generic_families()
+    launches.update({f"family_{k}_fp32": {"decode_attention": v}
+                     for k, v in families.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert = check_bert_training()
+    launches.update({f"bert_large_mlm_{k}": v for k, v in bert.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_bert_layer()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_legacy_quant()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4900,6 +5635,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hf_runs = check_hf_inject(serve_runs["uncaptured"]["tokens"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    generic_runs = check_generic()
+
+    def generic_run_launches(name):
+        """A kernel's launches in each generic families run that ran it."""
+        return {run: counts[name] for run, counts in generic_runs.items()
+                if counts.get(name)}
 
     def hf_inject_launches(name):
         """A kernel's launches in each hf inject run that ran it."""
@@ -5065,6 +5808,8 @@ def main() -> int:
             source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
             replaces=f"{sparse_src}:{line}", launches=sparse_launches[name],
             **main_case))
+    for entry in kernels:
+        entry["generic_launches"] = generic_run_launches(entry["name"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ paged-attention CUDA kernel. Dense generation: ``init_inference`` ->
 ``InferenceEngine.generate`` over a contiguous KV cache, on hand-written
 decode-attention and, with ``quantize_weights`` ("int8" / "int4"),
 quantized-matmul CUDA kernels (the serving step takes quantized weights
-too). Training: ``initialize`` -> ``train_batch`` on one device (a port
+too, and both take the legacy grouped ``quantize``); the Llama, GPT-2
+and the generic transformer's families (OPT, BLOOM, GPT-NeoX, BERT,
+GPT-J, GPT-Neo, Falcon, Phi), from HF models or HF directories. Training: ``initialize`` -> ``train_batch`` on one device (a port
 model or any ``nn.Module``; remat policies, the chunked loss, padded
 batches, progressive layer drop, a client optimizer, ``loss_fn`` and
 ``training_data``), with hand-written flash-attention (forward and

@@ -1,5 +1,5 @@
-"""Convert between a JAX (flax) Llama or GPT-2 param tree and the port's
-``state_dict``.
+"""Convert between a JAX (flax) Llama, GPT-2 or generic transformer param
+tree and the port's ``state_dict``.
 
 The tree holds numpy arrays (``jax.device_get`` of the JAX package's
 params); nothing here imports JAX. Layout of the tree:
@@ -18,7 +18,11 @@ params); nothing here imports JAX. Layout of the tree:
 - a GPT-2 tree holds ``wte``, ``wpe``, ``ln_f`` and the blocks under
   ``h/block`` (scanned) or ``h_{i}``, with ``ln_1``/``ln_2`` LayerNorms
   (``scale``, ``bias``) and the ``attn/c_attn``, ``attn/c_proj``,
-  ``mlp/c_fc``, ``mlp/c_proj`` Denses; the port names them as HF does.
+  ``mlp/c_fc``, ``mlp/c_proj`` Denses; the port names them as HF does;
+- a generic transformer's tree (``models/transformer.py``, and the
+  ``layer/...`` tree of ``DeepSpeedTransformerLayer``) maps path for path:
+  the port's names are its flax paths (a LayerNorm's ``scale`` and an
+  ``embedding`` become ``weight``, the MLM head's ``mlm_bias`` stays).
 
 The reverse, :func:`flax_leaves`, names each flax leaf of an fp
 ``state_dict`` and gives it as a :class:`LeafView` over the port's tensors:
@@ -39,6 +43,9 @@ import torch
 _PROJ = {"self_attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
          "mlp": ("gate_proj", "up_proj", "down_proj")}
 _NORMS = ("input_layernorm", "post_attention_layernorm")
+#: the generic transformer's LayerNorms and embeddings (by module name)
+_GENERIC_NORMS = ("ln_attn", "ln_mlp", "embed_ln", "final_ln", "mlm_ln")
+_GENERIC_EMBEDS = ("embed_positions", "token_type_embeddings")
 
 
 def _t(a) -> torch.Tensor:
@@ -65,13 +72,20 @@ def _dense(sd, name: str, dense) -> None:
 def flax_to_torch_state_dict(params_np: Dict[str, Any],
                              config) -> Dict[str, torch.Tensor]:
     """``params_np``: the flax ``params`` tree (numpy leaves) of a JAX
-    ``LlamaForCausalLM`` or ``GPT2LMHeadModel``; ``config``: the port's
-    ``LlamaConfig`` or ``GPT2Config``, which picks the mapping. Returns the
+    ``LlamaForCausalLM``, ``GPT2LMHeadModel``, generic
+    ``TransformerLMHeadModel`` / ``TransformerForMaskedLM`` or
+    ``DeepSpeedTransformerLayer``; ``config``: the port's config of that
+    model (``LlamaConfig``, ``GPT2Config``, ``TransformerConfig`` or
+    ``DeepSpeedTransformerConfig``), which picks the mapping. Returns the
     port model's ``state_dict``."""
     from ..models import GPT2Config
+    from ..models.transformer import TransformerConfig
+    from ..ops.transformer import DeepSpeedTransformerConfig
 
     if isinstance(config, GPT2Config):
         return _gpt2_state_dict(params_np, config)
+    if isinstance(config, (TransformerConfig, DeepSpeedTransformerConfig)):
+        return _generic_state_dict(params_np, config)
     model = params_np["model"]
     L = config.num_hidden_layers
     if "layers" in model:
@@ -119,6 +133,49 @@ def _gpt2_state_dict(params_np: Dict[str, Any],
     return sd
 
 
+#: flax leaf name -> (the ``state_dict`` attribute, transposed)
+_GENERIC_LEAVES = {"kernel": ("weight", True), "scale": ("weight", False),
+                   "embedding": ("weight", False), "bias": ("bias", False),
+                   "mlm_bias": ("mlm_bias", False)}
+_SCANNED = re.compile(r"^model/layers/block/(.+)$")
+_UNSCANNED = re.compile(r"^model/layers_(\d+)/(.+)$")
+
+
+def _generic_state_dict(params_np: Dict[str, Any],
+                        config) -> Dict[str, torch.Tensor]:
+    """A generic transformer's (or layer's) flax tree as the port's
+    ``state_dict``: every flax path is the port name with ``/`` for ``.``,
+    scanned layers ``model/layers/block/...`` stacked ``[L, ...]`` become
+    ``model.layers.{i}....``, unscanned ``model/layers_{i}/...`` too; a
+    ``kernel`` becomes the transposed ``weight``, a LayerNorm ``scale`` and
+    an ``embedding`` the ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def emit(path: str, value):
+        *owner, leaf = path.split("/")
+        attr, transpose = _GENERIC_LEAVES[leaf]
+        name = ".".join(owner + [attr])
+        t = _t(value)
+        sd[name] = t.T.contiguous() if transpose else t
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            p = f"{path}/{key}" if path else key
+            if isinstance(value, dict):
+                walk(value, p)
+                continue
+            m = _SCANNED.match(p)
+            if m:
+                for i in range(np.asarray(value).shape[0]):
+                    emit(f"model/layers/{i}/{m.group(1)}", value[i])
+                continue
+            m = _UNSCANNED.match(p)
+            emit(f"model/layers/{m.group(1)}/{m.group(2)}" if m else p, value)
+
+    walk(params_np, "")
+    return sd
+
+
 def flax_dense_to_torch_state_dict(params_np: Dict[str, Any]
                                    ) -> Dict[str, torch.Tensor]:
     """A generic flax tree of ``Dense`` layers (numpy leaves) as an
@@ -153,6 +210,10 @@ def _index_tree(tree, i):
 
 
 _LAYER = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+#: GPT-2's blocks (``transformer.h.{i}...``: ``h/block/...`` scanned)
+_GPT2_LAYER = re.compile(r"^transformer\.h\.(\d+)\.(.+)$")
+_GPT2_NORMS = ("ln_1", "ln_2", "ln_f")
+_GPT2_EMBEDS = ("wte", "wpe")
 
 
 def _flax_suffix(name: str) -> Tuple[str, bool]:
@@ -160,15 +221,19 @@ def _flax_suffix(name: str) -> Tuple[str, bool]:
     below it and whether the tensor is transposed there."""
     owner, _, attr = name.rpartition(".")
     path = owner.replace(".", "/")
+    if name == "mlm_bias":
+        return "mlm_bias", False
     if attr == "bias":
         return f"{path}/bias", False
     if attr != "weight":
         raise ValueError(f"no flax leaf for {name!r} (quantized or unknown "
                          f"parameters are not checkpointed this way)")
     last = owner.rpartition(".")[2]
-    if last in _NORMS or owner == "model.norm":
+    if last in _NORMS or owner == "model.norm" or \
+            last in _GENERIC_NORMS + _GPT2_NORMS:
         return f"{path}/scale", False
-    if owner == "model.embed_tokens":
+    if owner == "model.embed_tokens" or last in _GENERIC_EMBEDS + \
+            _GPT2_EMBEDS:
         return f"{path}/embedding", False
     return f"{path}/kernel", True
 
@@ -195,6 +260,14 @@ class LeafView:
             parts[0].contiguous()
 
     @torch.no_grad()
+    def write(self, t: torch.Tensor) -> None:
+        """Copy a flax-layout tensor on the parts' device into the parts,
+        in place (no host transfer; a CUDA graph may capture it)."""
+        for i, p in enumerate(self.parts):
+            a = t[i] if self.stacked else t
+            p.copy_(a.t() if self.transpose else a)
+
+    @torch.no_grad()
     def load(self, src) -> None:
         """Write a flax-layout array into the parts, in place."""
         src = np.asarray(src)
@@ -207,17 +280,25 @@ class LeafView:
 def flax_leaves(tensors: Dict[str, torch.Tensor], config
                 ) -> List[Tuple[str, LeafView]]:
     """The flax params of a fp ``state_dict`` (``tensors``, by the port's
-    names; ``config`` gives ``scan_layers``), as ``(path, LeafView)``
+    names, of a Llama, GPT-2 or generic transformer; ``config`` gives the
+    family and ``scan_layers``), as ``(path, LeafView)``
     pairs in the order ``jax.tree_util`` flattens the flax tree (sorted
     keys at every level). Paths are ``/``-joined, as the JAX package
     names its leaves."""
+    from ..models import GPT2Config
+
     scanned = bool(getattr(config, "scan_layers", True))
+    gpt2 = isinstance(config, GPT2Config)
+    layer_re, stacked_at, layer_at = (_GPT2_LAYER, "h/block", "h_{}") \
+        if gpt2 else (_LAYER, "model/layers/block", "model/layers_{}")
     views: Dict[str, LeafView] = {}
     #: scanned layers: flax path below the block -> (transpose, {i: tensor})
     stacks: Dict[str, Tuple[bool, Dict[int, torch.Tensor]]] = {}
     for name, t in tensors.items():
-        m = _LAYER.match(name)
+        m = layer_re.match(name)
         if m is None:
+            if gpt2:
+                name = name[len("transformer."):]
             path, transpose = _flax_suffix(name)
             views[path] = LeafView([t], False, transpose)
             continue
@@ -225,12 +306,12 @@ def flax_leaves(tensors: Dict[str, torch.Tensor], config
         if scanned:
             stacks.setdefault(sub, (transpose, {}))[1][int(m.group(1))] = t
         else:
-            views[f"model/layers_{m.group(1)}/{sub}"] = LeafView(
+            views[f"{layer_at.format(m.group(1))}/{sub}"] = LeafView(
                 [t], False, transpose)
     for sub, (transpose, layers) in stacks.items():
         if sorted(layers) != list(range(len(layers))):
             raise ValueError(f"the layers of {sub!r} are not 0..L-1")
-        views[f"model/layers/block/{sub}"] = LeafView(
+        views[f"{stacked_at}/{sub}"] = LeafView(
             [layers[i] for i in range(len(layers))], True, transpose)
     return sorted(views.items(), key=lambda kv: tuple(kv[0].split("/")))
 

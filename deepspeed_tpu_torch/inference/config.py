@@ -55,11 +55,17 @@ class DeepSpeedInferenceConfig:
     #: static KV-cache capacity (accepted as in the JAX package; generate
     #: sizes its cache from the request)
     max_out_tokens: int = 1024
-    #: legacy grouped int8 weight quantization
+    #: legacy grouped int8 weight quantization (``compression/
+    #: quantization.py``): every floating leaf of the JAX param tree with
+    #: at least 4096 elements is quantized to int8 codes in
+    #: ``quantize_groups`` groups at init and bound dequantized to the
+    #: compute dtype (``dtype=int8`` sets it; the compute dtype is then bf16)
     quantize: bool = False
-    #: groups of the legacy quantize
+    #: groups of the legacy quantize (at most; at least 128 elements each)
     quantize_groups: int = 32
-    #: with the legacy quantize: dequantize inside the decode loop
+    #: accepted as in the JAX package, where it dequantizes again inside
+    #: each decode step; the port binds the dequantized weights once, which
+    #: are the same values every step, so it changes nothing here
     dequant_per_step: bool = False
     #: int8 KV cache / pool: absmax-quantized per (position, kv head) at
     #: append, dequantized per tile inside the attention kernels
@@ -104,16 +110,26 @@ class DeepSpeedInferenceConfig:
                 f"quantize_weights must be None, 'int8' or 'int4', got "
                 f"{self.quantize_weights!r}")
         self.dtype = resolve_dtype(self.dtype)
+        # dtype=int8 means weight quantization, never a value cast of the
+        # float weights to int8 (the reference sets quantize for it)
+        if self.dtype == torch.int8:
+            self.quantize = True
+        # after the dtype=int8 set, so dtype="int8" with quantize_weights
+        # cannot slip past as a doubly quantized tree
+        if self.quantize_weights and self.quantize:
+            raise ValueError(
+                "quantize_weights and the legacy grouped-flat quantize are "
+                "mutually exclusive (quantize_weights keeps the tree "
+                "TP-sliceable; quantize flattens it)")
+        if isinstance(self.quantize_groups, bool) or \
+                not isinstance(self.quantize_groups, int) or \
+                self.quantize_groups < 1:
+            raise ValueError(f"quantize_groups must be a positive int, got "
+                             f"{self.quantize_groups!r}")
         if self.mp_size != 1:
             raise NotImplementedError(
                 "mp_size > 1 (tensor parallelism) arrives with the "
                 "distributed slice of the port (ROADMAP.md Queue 1, item 9)")
-        if self.quantize or self.dtype == torch.int8 or self.dequant_per_step:
-            raise NotImplementedError(
-                "the legacy grouped quantize / dtype=int8 / "
-                "dequant_per_step arrive with the legacy-quantization slice "
-                "of the port (ROADMAP.md Queue 1, item 2c); use "
-                "quantize_weights")
         if self.quantized_collectives:
             raise NotImplementedError(
                 "quantized_collectives arrives with the distributed slice "
@@ -131,7 +147,6 @@ class DeepSpeedInferenceConfig:
 #: (field, accepted value, slice, ROADMAP.md Queue 1 item)
 _LATER = (
     ("ep_size", 1, "MoE models", "10"),
-    ("quantize_groups", 32, "legacy-quantization", "2c"),
     ("quantized_psum_block", 256, "distributed", "9"),
     ("allow_unsafe_tp", False, "distributed", "9"),
 )

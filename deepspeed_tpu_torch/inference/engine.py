@@ -3,11 +3,14 @@
 Counterpart of ``deepspeed_tpu/inference/engine.py``: ``init_inference``
 quantizes the projection weights when ``quantize_weights`` asks for it,
 casts the rest to ``dtype``, and binds them to the model on the chosen
-device. The engine runs the dense forward (``forward``), autoregressive
-generation over a contiguous KV cache (``generate``), and hands itself to
-the serving layer. The entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; without a CUDA device they raise rather than
-quietly running on the CPU.
+device. The legacy grouped ``quantize`` (or ``dtype=int8``) quantizes
+every large leaf of the JAX param tree to int8 codes and binds their
+dequantized values (:meth:`InferenceEngine._legacy_quantize`). The engine
+runs the dense forward (``forward``), autoregressive generation over a
+contiguous KV cache (``generate``), and hands itself to the serving
+layer. The entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a CUDA device they raise rather than quietly
+running on the CPU.
 
 PyTorch runs eagerly, so ``generate`` is a Python loop of one prefill and
 one forward per new token where the JAX engine compiles one program per
@@ -20,6 +23,7 @@ the last shape and replayed once a token (see
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -84,7 +88,7 @@ class InferenceEngine:
                  config: DeepSpeedInferenceConfig, device=None):
         self.device = resolve_device(device)
         self.config = config
-        dtype = config.dtype
+        dtype = self.compute_dtype
         self.quant_report = None
         self.quant_summary: Dict[str, Any] = {}
         qw = config.quantize_weights
@@ -119,17 +123,22 @@ class InferenceEngine:
 
         def cast(name, p):
             # codes keep their integer type; scales stay fp32 (they carry
-            # the whole range of their codes)
+            # the whole range of their codes); under the legacy quantize
+            # the bound floats are the engine's own (they are overwritten
+            # with dequantized values, never the caller's tensors)
             if name.endswith("wscale"):
                 to = torch.float32
             else:
                 to = dtype if p.is_floating_point() else p.dtype
-            return p.to(device=self.device, dtype=to)
+            return p.to(device=self.device, dtype=to,
+                        copy=config.quantize and p.is_floating_point())
 
         module.load_state_dict({n: cast(n, p) for n, p in params.items()},
                                strict=True, assign=True)
         module.eval().requires_grad_(False)
         self.module = module
+        if config.quantize:
+            self._legacy_quantize(params, config.quantize_groups)
         self._profile_model_time = False
         self._model_times = []
         #: enable_cuda_graph: the decode loop's tensors and captured graph
@@ -138,17 +147,50 @@ class InferenceEngine:
         #: on this engine
         self._decode_graphs: Dict[Any, Dict[str, Any]] = {}
         self._graph_pool = None
+        #: the graphs captured in that pool that are still alive
+        self._live_graphs = weakref.WeakSet()
         #: program registry of ``generate``: one prefill program per
         #: (batch, prompt bucket) and one decode step (the captured graph
         #: with ``enable_cuda_graph``) per (batch, prompt bucket, new
         #: tokens), each with its hand cost estimate
         self.perf = PerfAccounting(scope="inference", device=self.device)
         log_dist(f"InferenceEngine: device={self.device}, dtype={dtype}, "
-                 f"quantize_weights={qw}", ranks=[0])
+                 f"quantize_weights={qw}, quantize={config.quantize}",
+                 ranks=[0])
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return self.config.dtype
+        """int8 weights (``dtype=int8``) dequantize into bf16 compute."""
+        return torch.bfloat16 if self.config.dtype == torch.int8 \
+            else self.config.dtype
+
+    @torch.no_grad()
+    def _legacy_quantize(self, params, groups: int) -> None:
+        """The legacy grouped ``quantize``: each large leaf of the JAX param
+        tree, read from the weights as given (before the cast) in the JAX
+        leaf's layout, becomes int8 codes one leaf at a time (JAX's codes
+        bit for bit) and is dequantized at once into the bound
+        compute-dtype weights. The JAX engine keeps the codes and
+        dequantizes them at the head of every program (in each decode step
+        with ``dequant_per_step``); they never change, so every program
+        reads the weights bound here: JAX's tokens at a bf16 engine's
+        memory and speed, and ``dequant_per_step`` changes nothing."""
+        from ..checkpoint.from_flax import flax_leaves
+        from ..compression.quantization import dequantize, quantize_leaf
+
+        bound = dict(flax_leaves(self.module.state_dict(),
+                                 self.module.config))
+        for path, given in flax_leaves(params, self.module.config):
+            codes, meta = quantize_leaf(given.tensor().to(self.device),
+                                        groups)
+            if meta is not None:
+                # group by group into the compute dtype (no fp32 copy of
+                # the leaf); symmetric codes: the zero points are 0
+                out = torch.empty(meta["shape"], dtype=self.compute_dtype,
+                                  device=self.device)
+                dequantize(codes, meta["scale"], None, meta["shape"],
+                           self.compute_dtype, out=out)
+                bound[path].write(out)
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
@@ -377,14 +419,17 @@ class InferenceEngine:
 
     def capture(self, fn):
         """``(graph, output)``: ``fn()`` captured as a CUDA graph. Every
-        graph of the engine, and of a serving engine built on it, shares
-        one memory pool (one runs at a time). A capture that fails
-        raises."""
-        if self._graph_pool is None:
+        live graph of the engine, and of a serving engine built on it,
+        shares one memory pool (one runs at a time); once all of them are
+        released (a decode at another shape, a serving engine dropped)
+        the next capture starts a new pool, as torch cannot capture into
+        a pool whose graphs are all gone. A capture that fails raises."""
+        if self._graph_pool is None or not self._live_graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool):
             res = fn()
+        self._live_graphs.add(graph)
         return graph, res
 
     def profile_model_time(self, use_cuda_events: bool = True) -> None:
@@ -403,8 +448,11 @@ class InferenceEngine:
 
 def _is_port_model(model) -> bool:
     from ..models import GPT2LMHeadModel, LlamaForCausalLM
+    from ..models.transformer import (TransformerForMaskedLM,
+                                      TransformerLMHeadModel)
 
-    return isinstance(model, (GPT2LMHeadModel, LlamaForCausalLM))
+    return isinstance(model, (GPT2LMHeadModel, LlamaForCausalLM,
+                              TransformerLMHeadModel, TransformerForMaskedLM))
 
 
 def init_inference(model=None, config=None, mp_size: Optional[int] = None,

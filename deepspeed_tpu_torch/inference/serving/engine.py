@@ -380,6 +380,11 @@ class ServingEngine:
         if not isinstance(engine, InferenceEngine):
             raise TypeError("ServingEngine wraps an InferenceEngine; use "
                             "init_serving(...) to build both")
+        if not hasattr(engine.module, "init_paged_cache"):
+            # the generic transformer has no paged cache, in either package
+            raise TypeError(
+                f"{type(engine.module).__name__} has no init_paged_cache: "
+                "paged serving supports the Llama and GPT-2 families")
         self.engine = engine
         #: receives ``metrics.to_events(step)`` through its
         #: ``write_events`` every ``config.monitor_every`` steps

@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import (LayerNorm, attend_cache, chunked_cross_entropy_loss,
-                     cross_entropy_loss, default_positions,
+                     cross_entropy_loss, default_positions, dropout,
                      dot_product_attention, gelu_new, init_kv_cache,
                      init_paged_kv_cache, key_mask_to_bias, model_dense,
                      remat, shift_labels)
@@ -131,10 +131,6 @@ class GPT2Config:
                                     n_embd=64, n_layer=2, n_head=4), **over})
 
 
-def _dropout(x, p: float, training: bool):
-    return F.dropout(x, p, training=True) if training and p > 0 else x
-
-
 class GPT2Attention(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -161,7 +157,7 @@ class GPT2Attention(nn.Module):
             out = attend_cache(q, k, v, layer_cache, cache_index, mask,
                                flash_from_empty=cfg.prefill_flash_from_empty)
         out = self.c_proj(out.reshape(B, T, C))
-        return _dropout(out, cfg.resid_pdrop, self.training)
+        return dropout(out, cfg.resid_pdrop, self.training)
 
 
 class GPT2MLP(nn.Module):
@@ -174,7 +170,7 @@ class GPT2MLP(nn.Module):
 
     def forward(self, x):
         h = self.c_proj(gelu_new(self.c_fc(x)))
-        return _dropout(h, self.pdrop, self.training)
+        return dropout(h, self.pdrop, self.training)
 
 
 class GPT2Block(nn.Module):
@@ -218,7 +214,7 @@ class GPT2Model(nn.Module):
             # fills them with NaN); the engines refuse longer requests
             positions = positions.clamp(0, cfg.n_positions - 1)
         x = self.wte(input_ids) + self.wpe(positions)
-        x = _dropout(x, cfg.embd_pdrop, self.training)
+        x = dropout(x, cfg.embd_pdrop, self.training)
         if cache is not None:
             for i, block in enumerate(self.h):
                 x = block(x, {name: t[i] for name, t in cache.items()},

@@ -105,8 +105,10 @@ class RMSNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with a bias (GPT-2's; flax ``nn.LayerNorm``): fp32
-    statistics, result cast back to the input dtype."""
+    """LayerNorm with a bias (GPT-2's, the generic transformer's; flax
+    ``nn.LayerNorm``): fp32 statistics, the result in the promoted dtype
+    of the input and the params, as flax promotes (the input's dtype when
+    both agree, as on every engine path)."""
 
     def __init__(self, hidden_size: int, eps: float = 1e-5):
         super().__init__()
@@ -115,8 +117,15 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(hidden_size))
 
     def forward(self, x):
+        out = torch.promote_types(x.dtype, self.weight.dtype)
         return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+                            self.bias.float(), self.eps).to(out)
+
+
+def dropout(x, p: float, active: bool):
+    """``x`` with dropout ``p`` when ``active`` (a training forward), else
+    ``x`` itself."""
+    return F.dropout(x, p, training=True) if active and p > 0 else x
 
 
 def gelu_new(x):
@@ -260,14 +269,17 @@ def cache_attention_bias(q_len: int, cache_len: int, cache_index,
     return bias.float()
 
 
-def cached_attention(q, layer_cache, cache_index, key_mask=None,
+def cached_attention(q, layer_cache, cache_index=None, key_mask=None,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None,
+                     bias: Optional[torch.Tensor] = None):
     """Plain attention of ``q [B, T, H, D]`` over one layer's head-major
     cache (``cached_attention_xla``: GQA by broadcasting kv heads, fp32
-    logits plus :func:`cache_attention_bias`, probabilities cast to q's
-    dtype). The prefill of ``generate`` takes it; the JAX package leaves
-    the same math to XLA. Returns ``[B, T, H, D]``."""
+    logits plus :func:`cache_attention_bias`, or plus ``bias`` when the
+    caller gives a whole additive one, such as the generic transformer's
+    cache-and-ALiBi composite; probabilities cast to q's dtype). The
+    prefill of ``generate`` takes it; the JAX package leaves the same math
+    to XLA. Returns ``[B, T, H, D]``."""
     B, T, H, D = q.shape
     if "k_scale" in layer_cache:
         k = dequantize_kv(layer_cache["k"], layer_cache["k_scale"], q.dtype)
@@ -283,8 +295,10 @@ def cached_attention(q, layer_cache, cache_index, key_mask=None,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     logits = torch.einsum("bqhd,bhkd->bhqk", q, k).float() * scale
-    logits = logits + cache_attention_bias(T, S, cache_index, key_mask,
-                                           window, device=q.device)
+    if bias is None:
+        bias = cache_attention_bias(T, S, cache_index, key_mask, window,
+                                    device=q.device)
+    logits = logits + bias
     probs = logits.softmax(dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bqhd", probs, v)
 

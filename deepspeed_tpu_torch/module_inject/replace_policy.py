@@ -12,14 +12,25 @@ in]``), Gemma's ``1 + w`` norm fold, and the drop of a tied head. Each
 tensor keeps its dtype and device unless the caller asks for others, and
 none goes through numpy or fp32 on the host (:func:`convert_tensor`).
 
+The generic families (OPT, BLOOM, GPT-NeoX, BERT, GPT-J, GPT-Neo, Falcon,
+Phi) convert to ``models.transformer`` (:class:`TransformerLMHeadModel`,
+or :class:`TransformerForMaskedLM` for BERT), whose names are the JAX
+generic model's flax paths: each policy maps an HF name onto one of them,
+and a fused QKV tensor (BLOOM's and NeoX's head-interleaved ``[H, 3, D]``
+rows, Falcon's ``[kv, q per group + 2, D]`` rows) onto three, split along
+its rows. Their configs follow the JAX policies field for field, with the
+same refusals.
+
 The registry keeps the JAX package's order and class names, so
-``match_policy`` picks the same class in both packages. The families whose
-target model is not ported yet (the JAX ``models/transformer.py`` and
-``models/mixtral.py``) are registered too; converting with them raises
-``NotImplementedError`` naming their ROADMAP.md item.
+``match_policy`` picks the same class in both packages. Mixtral, whose
+target (the JAX ``models/mixtral.py``) is not ported yet, is registered
+too; converting it raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
-from typing import Dict, List, Optional, Tuple
+import functools
+import re
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -49,12 +60,14 @@ class DSPolicy:
         raise NotImplementedError
 
     @classmethod
-    def map_name(cls, model, name: str) -> Optional[Tuple[str, str]]:
-        """``(port name, transform)`` of an HF tensor name, None for a
-        tensor the port model has no place for and does not need (a tied
-        head, a mask buffer). ``transform`` is "" or a key of
-        :func:`convert_tensor`. A name that maps to no tensor of the port
-        model makes :func:`convert_shards` raise."""
+    def map_name(cls, model, name: str, hc=None):
+        """``(port name, transform)`` of an HF tensor name, a list of such
+        pairs for a tensor that becomes several (a fused QKV), or None for
+        a tensor the port model has no place for and does not need (a tied
+        head, a mask buffer). ``transform`` is "", a key of
+        :func:`convert_tensor`, or a function of the tensor. ``hc`` is the
+        HF config. A name that maps to no tensor of the port model makes
+        :func:`convert_shards` raise."""
         raise NotImplementedError
 
     def convert(self, hf_model):
@@ -72,18 +85,21 @@ class DSPolicy:
         return convert_shards(cls, hc, [dict(sd)], dtype, device)
 
 
-def convert_tensor(t: torch.Tensor, transform: str, dtype=None,
-                   device=None) -> torch.Tensor:
+def convert_tensor(t: torch.Tensor, transform: Union[str, Callable],
+                   dtype=None, device=None) -> torch.Tensor:
     """One HF tensor in the port's layout: moved to ``device`` and cast to
     ``dtype`` (each when given) FIRST, so a bf16 checkpoint never widens on
     the host, then ``transform``ed there: "transpose" (``Conv1D``'s ``[in,
-    out]`` to ``[out, in]``) or "one_plus" (Gemma's zero-centred norm
-    scale; the sum in fp32, then the tensor's dtype)."""
+    out]`` to ``[out, in]``), "one_plus" (Gemma's zero-centred norm
+    scale; the sum in fp32, then the tensor's dtype) or a function (a part
+    of a fused tensor, made contiguous)."""
     t = t.detach()
     if device is not None or dtype is not None:
         floating = t.is_floating_point()
         t = t.to(device=device if device is not None else t.device,
                  dtype=dtype if dtype is not None and floating else t.dtype)
+    if callable(transform):
+        return transform(t).contiguous()
     if transform == "transpose":
         return t.t().contiguous()
     if transform == "one_plus":
@@ -107,16 +123,18 @@ def convert_shards(policy, hc, shards, dtype=None, device=None):
     out: Dict[str, torch.Tensor] = {}
     for shard in shards:
         for name in list(shard):
-            target = policy.map_name(model, name)
+            target = policy.map_name(model, name, hc)
             t = shard.pop(name) if isinstance(shard, dict) else shard[name]
             if target is None:
                 continue
-            port_name, transform = target
-            if port_name not in want:
-                raise KeyError(f"{policy.__name__}: the HF tensor {name!r} "
-                               f"maps to {port_name!r}, which "
-                               f"{type(model).__name__} does not have")
-            out[port_name] = convert_tensor(t, transform, dtype, device)
+            for port_name, transform in (
+                    target if isinstance(target, list) else [target]):
+                if port_name not in want:
+                    raise KeyError(
+                        f"{policy.__name__}: the HF tensor {name!r} maps to "
+                        f"{port_name!r}, which {type(model).__name__} does "
+                        f"not have")
+                out[port_name] = convert_tensor(t, transform, dtype, device)
             del t
         del shard     # a file's mapping goes before the next is opened
     missing = sorted(want - set(out))
@@ -156,7 +174,7 @@ class HFGPT2LayerPolicy(DSPolicy):
             layer_norm_epsilon=hc.layer_norm_epsilon, remat=False))
 
     @classmethod
-    def map_name(cls, model, name: str):
+    def map_name(cls, model, name: str, hc=None):
         if name == "lm_head.weight":
             return None                          # tied to wte
         if not name.startswith("transformer."):
@@ -186,20 +204,9 @@ class HFLlamaLayerPolicy(DSPolicy):
 
     @staticmethod
     def _rope_theta(hc) -> float:
-        """RoPE's base: ``rope_theta`` (transformers 4), else the one in
-        ``rope_parameters`` / ``rope_scaling`` (transformers 5 moves it
-        there), else 10000. Any RoPE type but the plain one raises."""
-        params = getattr(hc, "rope_parameters", None) or \
-            getattr(hc, "rope_scaling", None) or {}
-        kind = params.get("rope_type", params.get("type", "default"))
-        if kind != "default":
-            raise NotImplementedError(
-                f"RoPE type {kind!r} ({params!r}) is not mapped (the port's "
-                f"Llama runs plain RoPE); other RoPE variants arrive with "
-                f"the model-families slice of the port (ROADMAP.md Queue 1, "
-                f"item 10)")
-        theta = getattr(hc, "rope_theta", None) or params.get("rope_theta")
-        return float(theta or 10000.0)
+        """RoPE's base (see the module's :func:`_rope_theta`); any RoPE
+        type but the plain one raises."""
+        return _rope_theta(hc, "rope_theta")
 
     @classmethod
     def _check(cls, hc) -> None:
@@ -253,7 +260,7 @@ class HFLlamaLayerPolicy(DSPolicy):
         return ""
 
     @classmethod
-    def map_name(cls, model, name: str):
+    def map_name(cls, model, name: str, hc=None):
         if name == "lm_head.weight":
             return None if model.config.tie_word_embeddings else (name, "")
         if not name.startswith("model."):
@@ -332,55 +339,551 @@ class _UnportedPolicy(DSPolicy):
     the target."""
 
     #: the JAX package's target module
-    target = "models/transformer.py"
+    target = "models/mixtral.py"
 
     @classmethod
     def build(cls, hc):
         raise NotImplementedError(
             f"{cls.__name__} converts to the JAX package's {cls.target}, "
-            f"which arrives with the model-families slice of the port "
-            f"(ROADMAP.md Queue 1, item 10)")
+            f"which arrives with the MoE part of the model-families slice "
+            f"of the port (ROADMAP.md Queue 1, item 10)")
 
     @classmethod
-    def map_name(cls, model, name: str):
+    def map_name(cls, model, name: str, hc=None):
         raise NotImplementedError(cls.__name__)
 
 
 class HFMixtralLayerPolicy(_UnportedPolicy):
     hf_model_types = ("MixtralForCausalLM", "mixtral", "MixtralModel")
-    target = "models/mixtral.py"
 
 
-class HFFalconLayerPolicy(_UnportedPolicy):
-    hf_model_types = ("FalconForCausalLM", "falcon", "FalconModel")
+_ACTS = {"gelu": "gelu", "gelu_new": "gelu_new", "relu": "relu"}
 
 
-class HFPhiLayerPolicy(_UnportedPolicy):
-    hf_model_types = ("PhiForCausalLM", "phi", "PhiModel")
+def _act(name: str, extra: Optional[Dict[str, str]] = None) -> str:
+    table = dict(_ACTS, **(extra or {}))
+    if name not in table:
+        raise KeyError(name)
+    return table[name]
 
 
-class HFOPTLayerPolicy(_UnportedPolicy):
+def _rows(t: torch.Tensor, groups: int, per: int, take: slice,
+          head_dim: int) -> torch.Tensor:
+    """Rows ``take`` of each of ``groups`` blocks of ``per`` heads of a
+    fused tensor ``[groups * per * head_dim, ...]``, as ``[groups * n *
+    head_dim, ...]``."""
+    tail = tuple(t.shape[1:])
+    t = t.reshape((groups, per, head_dim) + tail)[:, take]
+    return t.reshape((-1,) + tail)
+
+
+class _GenericTransformerPolicy(DSPolicy):
+    """Shared machinery of the policies whose target is the generic
+    transformer (``models/transformer.py``). A subclass gives the HF
+    config's mapping (:meth:`convert_config`) and its names: the prefixes
+    a bare or headed HF model puts before them (``PREFIXES``), the layer
+    container (``LAYERS``), the top-level tensors (``TOP``), the per-layer
+    ones (``LAYER``) and those outside the base model (``HEAD``, checked
+    before any prefix is stripped; None for a tied copy, and an
+    ``lm_head.*`` target is dropped when the config ties the head); a name
+    in ``SKIP`` (a buffer) has no place in the port."""
+
+    causal = True
+    PREFIXES: Tuple[str, ...] = ()
+    LAYERS = "layers"
+    TOP: Dict[str, str] = {}
+    LAYER: Dict[str, str] = {}
+    HEAD: Dict[str, str] = {}
+    SKIP: Tuple[str, ...] = ()
+
+    @classmethod
+    def convert_config(cls, hc):
+        raise NotImplementedError
+
+    @classmethod
+    def build(cls, hc):
+        from ..models.transformer import (TransformerForMaskedLM,
+                                          TransformerLMHeadModel)
+
+        cfg = cls.convert_config(hc)
+        return (TransformerLMHeadModel if cls.causal
+                else TransformerForMaskedLM)(cfg)
+
+    @classmethod
+    def map_layer(cls, model, suffix: str, hc):
+        """The port target(s) of one layer's HF tensor ``suffix``."""
+        return cls.LAYER.get(suffix)
+
+    @classmethod
+    def map_name(cls, model, name: str, hc=None):
+        cfg = model.config
+        if name in cls.HEAD:
+            target = cls.HEAD[name]
+            tied = target is not None and target.startswith("lm_head.") \
+                and cfg.tie_word_embeddings
+            return None if target is None or tied else (target, "")
+        for pfx in cls.PREFIXES:
+            if name.startswith(pfx):
+                name = name[len(pfx):]
+                break
+        if name.endswith(cls.SKIP):
+            return None
+        m = re.match(rf"^{re.escape(cls.LAYERS)}\.(\d+)\.(.+)$", name)
+        if m is not None:
+            target = cls.map_layer(model, m.group(2), hc)
+            if target is None:
+                raise KeyError(f"{cls.__name__}: no place for the HF tensor "
+                               f"{name!r}")
+            pre = f"model.layers.{m.group(1)}."
+            if isinstance(target, list):
+                return [(pre + t, fn) for t, fn in target]
+            return pre + target, ""
+        if name not in cls.TOP:
+            raise KeyError(f"{cls.__name__}: no place for the HF tensor "
+                           f"{name!r}")
+        target = cls.TOP[name]
+        if target.startswith("model.final_ln") and not cfg.final_layernorm:
+            return None
+        return target, ""
+
+
+def _modules(pairs) -> Dict[str, str]:
+    """HF module -> port module, as the names of their ``weight`` and
+    ``bias``."""
+    return {f"{hf}.{attr}": f"{port}.{attr}" for hf, port in pairs
+            for attr in ("weight", "bias")}
+
+
+def _fused_interleaved(suffix: str, cfg):
+    """BLOOM's and NeoX's fused QKV (``[H, 3, D]`` rows) as q/k/v."""
+    attr = suffix.rpartition(".")[2]
+    H, D = cfg.num_attention_heads, cfg.head_dim
+    return [(f"attn.{p}_proj.{attr}",
+             functools.partial(_rows, groups=H, per=3, take=slice(j, j + 1),
+                               head_dim=D))
+            for j, p in enumerate("qkv")]
+
+
+class HFOPTLayerPolicy(_GenericTransformerPolicy):
+    """HF ``OPTForCausalLM`` -> the generic decoder: learned positions
+    stored at p + 2, ReLU (or GELU) MLP, pre-LN but for the 350m post-LN
+    variant."""
+
     hf_model_types = ("OPTForCausalLM", "opt", "OPTModel")
+    PREFIXES = ("model.decoder.", "decoder.")
+    TOP = dict(_modules([("embed_tokens", "model.embed_tokens"),
+                         ("embed_positions", "model.embed_positions"),
+                         ("final_layer_norm", "model.final_ln")]))
+    LAYER = _modules([("self_attn.q_proj", "attn.q_proj"),
+                      ("self_attn.k_proj", "attn.k_proj"),
+                      ("self_attn.v_proj", "attn.v_proj"),
+                      ("self_attn.out_proj", "attn.o_proj"),
+                      ("fc1", "mlp.fc_in"), ("fc2", "mlp.fc_out"),
+                      ("self_attn_layer_norm", "ln_attn"),
+                      ("final_layer_norm", "ln_mlp")])
+    HEAD = {"lm_head.weight": "lm_head.weight"}
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        if getattr(hc, "word_embed_proj_dim", hc.hidden_size) != \
+                hc.hidden_size:
+            raise NotImplementedError(
+                "OPT word_embed_proj_dim != hidden_size (the 350m projection "
+                "layers) is not supported")
+        act = {"relu": "relu", "gelu": "gelu"}[hc.activation_function]
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=hc.ffn_dim,
+            num_hidden_layers=hc.num_hidden_layers,
+            num_attention_heads=hc.num_attention_heads,
+            max_position_embeddings=hc.max_position_embeddings,
+            pos_embedding="learned", pos_offset=2, activation=act,
+            norm_eps=1e-5, pre_layernorm=hc.do_layer_norm_before,
+            final_layernorm=hc.do_layer_norm_before,
+            tie_word_embeddings=getattr(hc, "tie_word_embeddings", True))
 
 
-class HFBloomLayerPolicy(_UnportedPolicy):
+class HFBloomLayerPolicy(_GenericTransformerPolicy):
+    """HF ``BloomForCausalLM`` -> the generic decoder with ALiBi, the
+    embedding LayerNorm and a tied head; the fused QKV (``[H, 3, D]``
+    rows) is split at conversion."""
+
     hf_model_types = ("BloomForCausalLM", "bloom", "BloomModel")
+    PREFIXES = ("transformer.",)
+    LAYERS = "h"
+    TOP = _modules([("word_embeddings", "model.embed_tokens"),
+                    ("word_embeddings_layernorm", "model.embed_ln"),
+                    ("ln_f", "model.final_ln")])
+    LAYER = _modules([("self_attention.dense", "attn.o_proj"),
+                      ("mlp.dense_h_to_4h", "mlp.fc_in"),
+                      ("mlp.dense_4h_to_h", "mlp.fc_out"),
+                      ("input_layernorm", "ln_attn"),
+                      ("post_attention_layernorm", "ln_mlp")])
+    HEAD = {"lm_head.weight": "lm_head.weight"}
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=4 * hc.hidden_size,
+            num_hidden_layers=hc.n_layer, num_attention_heads=hc.n_head,
+            max_position_embeddings=2048, pos_embedding="alibi",
+            activation="gelu_new", norm_eps=hc.layer_norm_epsilon,
+            pre_layernorm=True, embedding_layernorm=True,
+            tie_word_embeddings=True)
+
+    @classmethod
+    def map_layer(cls, model, suffix, hc):
+        if suffix.startswith("self_attention.query_key_value."):
+            return _fused_interleaved(suffix, model.config)
+        return cls.LAYER.get(suffix)
 
 
-class HFGPTNeoXLayerPolicy(_UnportedPolicy):
+class HFGPTNeoXLayerPolicy(_GenericTransformerPolicy):
+    """HF ``GPTNeoXForCausalLM`` -> the generic decoder: partial rotary,
+    the parallel attention + MLP residual, the fused ``[H, 3, D]`` QKV and
+    an untied head (``embed_out``)."""
+
     hf_model_types = ("GPTNeoXForCausalLM", "gpt_neox")
+    PREFIXES = ("gpt_neox.",)
+    TOP = _modules([("embed_in", "model.embed_tokens"),
+                    ("final_layer_norm", "model.final_ln")])
+    LAYER = _modules([("attention.dense", "attn.o_proj"),
+                      ("mlp.dense_h_to_4h", "mlp.fc_in"),
+                      ("mlp.dense_4h_to_h", "mlp.fc_out"),
+                      ("input_layernorm", "ln_attn"),
+                      ("post_attention_layernorm", "ln_mlp")])
+    HEAD = {"embed_out.weight": "lm_head.weight"}
+    SKIP = (".attention.bias", ".attention.masked_bias", ".inv_freq")
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=hc.intermediate_size,
+            num_hidden_layers=hc.num_hidden_layers,
+            num_attention_heads=hc.num_attention_heads,
+            max_position_embeddings=hc.max_position_embeddings,
+            pos_embedding="rope", rotary_pct=_rotary_pct(hc),
+            rope_theta=_rope_theta(hc, "rotary_emb_base"),
+            parallel_residual=hc.use_parallel_residual,
+            activation=_act(hc.hidden_act),
+            norm_eps=hc.layer_norm_eps, pre_layernorm=True,
+            tie_word_embeddings=False)
+
+    @classmethod
+    def map_layer(cls, model, suffix, hc):
+        if suffix.startswith("attention.query_key_value."):
+            return _fused_interleaved(suffix, model.config)
+        return cls.LAYER.get(suffix)
 
 
-class HFBertLayerPolicy(_UnportedPolicy):
+class HFBertLayerPolicy(_GenericTransformerPolicy):
+    """HF ``BertForMaskedLM`` -> the generic post-LN encoder with its MLM
+    head (``TransformerForMaskedLM``)."""
+
     hf_model_types = ("BertForMaskedLM", "bert")
+    causal = False
+    PREFIXES = ("bert.",)
+    LAYERS = "encoder.layer"
+    TOP = _modules([("embeddings.word_embeddings", "model.embed_tokens"),
+                    ("embeddings.position_embeddings",
+                     "model.embed_positions"),
+                    ("embeddings.token_type_embeddings",
+                     "model.token_type_embeddings"),
+                    ("embeddings.LayerNorm", "model.embed_ln")])
+    LAYER = _modules([("attention.self.query", "attn.q_proj"),
+                      ("attention.self.key", "attn.k_proj"),
+                      ("attention.self.value", "attn.v_proj"),
+                      ("attention.output.dense", "attn.o_proj"),
+                      ("intermediate.dense", "mlp.fc_in"),
+                      ("output.dense", "mlp.fc_out"),
+                      ("attention.output.LayerNorm", "ln_attn"),
+                      ("output.LayerNorm", "ln_mlp")])
+    HEAD = dict(_modules([("cls.predictions.transform.dense", "mlm_dense"),
+                          ("cls.predictions.transform.LayerNorm", "mlm_ln")]),
+                **{"cls.predictions.bias": "mlm_bias",
+                   # the decoder is tied to the word embeddings and its
+                   # bias to cls.predictions.bias
+                   "cls.predictions.decoder.weight": None,
+                   "cls.predictions.decoder.bias": None})
+    SKIP = ("embeddings.position_ids",)
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=hc.intermediate_size,
+            num_hidden_layers=hc.num_hidden_layers,
+            num_attention_heads=hc.num_attention_heads,
+            max_position_embeddings=hc.max_position_embeddings,
+            causal=False, pos_embedding="learned",
+            activation=_act(hc.hidden_act), norm_eps=hc.layer_norm_eps,
+            pre_layernorm=False, embedding_layernorm=True,
+            final_layernorm=False, type_vocab_size=hc.type_vocab_size,
+            mlm_head=True, tie_word_embeddings=True)
 
 
-class HFGPTJLayerPolicy(_UnportedPolicy):
+class HFGPTJLayerPolicy(_GenericTransformerPolicy):
+    """HF ``GPTJForCausalLM`` -> the generic decoder: partial interleaved
+    rotary (rotate_every_two), the parallel residual behind one shared
+    LayerNorm, bias-free attention projections, a biased untied head."""
+
     hf_model_types = ("GPTJForCausalLM", "gptj")
+    PREFIXES = ("transformer.",)
+    LAYERS = "h"
+    TOP = _modules([("wte", "model.embed_tokens"), ("ln_f", "model.final_ln")])
+    LAYER = _modules([("attn.q_proj", "attn.q_proj"),
+                      ("attn.k_proj", "attn.k_proj"),
+                      ("attn.v_proj", "attn.v_proj"),
+                      ("attn.out_proj", "attn.o_proj"),
+                      ("mlp.fc_in", "mlp.fc_in"), ("mlp.fc_out", "mlp.fc_out"),
+                      ("ln_1", "ln_attn")])
+    HEAD = {"lm_head.weight": "lm_head.weight",
+            "lm_head.bias": "lm_head.bias"}
+    SKIP = (".attn.bias", ".attn.masked_bias", ".attn.embed_positions")
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        head_dim = hc.n_embd // hc.n_head
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.n_embd,
+            intermediate_size=getattr(hc, "n_inner", None) or 4 * hc.n_embd,
+            num_hidden_layers=hc.n_layer, num_attention_heads=hc.n_head,
+            max_position_embeddings=hc.n_positions, pos_embedding="rope",
+            rotary_pct=(hc.rotary_dim or head_dim) / head_dim,
+            rope_style="interleaved", parallel_residual=True,
+            shared_parallel_ln=True,
+            activation=_act(hc.activation_function,
+                            {"gelu_pytorch_tanh": "gelu_new"}),
+            norm_eps=hc.layer_norm_epsilon, pre_layernorm=True,
+            attention_bias=False, mlp_bias=True, tie_word_embeddings=False,
+            lm_head_bias=True)
 
 
-class HFGPTNeoLayerPolicy(_UnportedPolicy):
+class HFGPTNeoLayerPolicy(_GenericTransformerPolicy):
+    """HF ``GPTNeoForCausalLM`` -> the generic decoder: learned positions,
+    alternating global / local (sliding-window) layers, unscaled attention
+    logits, bias-free q/k/v beside a biased output projection."""
+
     hf_model_types = ("GPTNeoForCausalLM", "gpt_neo")
+    PREFIXES = ("transformer.",)
+    LAYERS = "h"
+    TOP = _modules([("wte", "model.embed_tokens"),
+                    ("wpe", "model.embed_positions"),
+                    ("ln_f", "model.final_ln")])
+    LAYER = _modules([("attn.attention.q_proj", "attn.q_proj"),
+                      ("attn.attention.k_proj", "attn.k_proj"),
+                      ("attn.attention.v_proj", "attn.v_proj"),
+                      ("attn.attention.out_proj", "attn.o_proj"),
+                      ("mlp.c_fc", "mlp.fc_in"), ("mlp.c_proj", "mlp.fc_out"),
+                      ("ln_1", "ln_attn"), ("ln_2", "ln_mlp")])
+    HEAD = {"lm_head.weight": "lm_head.weight"}
+    SKIP = (".attention.bias", ".attention.masked_bias")
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        # HF's attention_layers is the expanded per-layer list
+        pattern = tuple(getattr(hc, "attention_layers", None) or ("global",))
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=getattr(hc, "intermediate_size", None)
+            or 4 * hc.hidden_size,
+            num_hidden_layers=hc.num_layers, num_attention_heads=hc.num_heads,
+            max_position_embeddings=hc.max_position_embeddings,
+            pos_embedding="learned", activation=_act(hc.activation_function),
+            norm_eps=hc.layer_norm_epsilon, pre_layernorm=True,
+            attention_bias=False, attention_out_bias=True,
+            attention_scale=1.0,    # GPT-Neo does not scale by 1/sqrt(d)
+            attention_layers=pattern,
+            attention_window=getattr(hc, "window_size", 256), mlp_bias=True,
+            tie_word_embeddings=getattr(hc, "tie_word_embeddings", True))
+
+
+class HFFalconLayerPolicy(_GenericTransformerPolicy):
+    """HF ``FalconForCausalLM`` -> the generic decoder: rotary, the
+    parallel attention + MLP behind one shared LayerNorm (two under the new
+    decoder architecture), multi-query or grouped KV, bias-free
+    projections, tied embeddings. Fused QKV rows: the classic multi-query
+    layout (7B) ``[Q (all heads); K; V]``, the classic multi-head one
+    ``[H, 3, D]``, the new architecture's (40B/180B) ``[q per group; K;
+    V] x kv`` (:meth:`_split_falcon_qkv`)."""
+
+    hf_model_types = ("FalconForCausalLM", "falcon", "FalconModel")
+    PREFIXES = ("transformer.",)
+    LAYERS = "h"
+    TOP = _modules([("word_embeddings", "model.embed_tokens"),
+                    ("ln_f", "model.final_ln")])
+    LAYER = _modules([("self_attention.dense", "attn.o_proj"),
+                      ("mlp.dense_h_to_4h", "mlp.fc_in"),
+                      ("mlp.dense_4h_to_h", "mlp.fc_out"),
+                      ("ln_attn", "ln_attn"), ("input_layernorm", "ln_attn"),
+                      ("ln_mlp", "ln_mlp")])
+    HEAD = {"lm_head.weight": "lm_head.weight"}
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        if getattr(hc, "alibi", False):
+            raise NotImplementedError("Falcon alibi variants are not mapped "
+                                      "(falcon-7b/40b/180b use rotary)")
+        if not getattr(hc, "parallel_attn", True):
+            raise NotImplementedError("Falcon without parallel_attn (RW "
+                                      "prototype configs) is not mapped")
+        if getattr(hc, "new_decoder_architecture", False):
+            kv = hc.num_kv_heads
+        else:
+            kv = 1 if getattr(hc, "multi_query", True) else \
+                hc.num_attention_heads
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=getattr(hc, "ffn_hidden_size", None)
+            or 4 * hc.hidden_size,
+            num_hidden_layers=hc.num_hidden_layers,
+            num_attention_heads=hc.num_attention_heads,
+            num_key_value_heads=kv,
+            max_position_embeddings=getattr(hc, "max_position_embeddings",
+                                            2048),
+            pos_embedding="rope", rope_theta=_rope_theta(hc, "rope_theta"),
+            parallel_residual=True, shared_parallel_ln=not cls._two_ln(hc),
+            activation="gelu", norm_eps=hc.layer_norm_epsilon,
+            pre_layernorm=True,
+            attention_bias=bool(getattr(hc, "bias", False)),
+            mlp_bias=bool(getattr(hc, "bias", False)),
+            tie_word_embeddings=getattr(hc, "tie_word_embeddings", True))
+
+    @staticmethod
+    def _two_ln(hc) -> bool:
+        """FalconDecoderLayer's two LayerNorms (``ln_attn``, ``ln_mlp``):
+        the new architecture with ``num_ln_in_parallel_attn`` 2 or unset
+        (falcon2-11B sets 1 and keeps the shared one)."""
+        if not getattr(hc, "new_decoder_architecture", False):
+            return False
+        n = getattr(hc, "num_ln_in_parallel_attn", None)
+        return n is None or n == 2
+
+    @staticmethod
+    def _split_falcon_qkv(w: torch.Tensor, hc, cfg):
+        """``(q, k, v)`` rows of a fused QKV weight ``[rows, in]`` or bias
+        ``[rows]`` in HF's layout for ``hc``."""
+        D, H = cfg.head_dim, cfg.num_attention_heads
+        tail = tuple(w.shape[1:])
+        if getattr(hc, "new_decoder_architecture", False):
+            kv = hc.num_kv_heads
+            g = H // kv
+            w = w.reshape((kv, g + 2, D) + tail)
+            return (w[:, :g].reshape((H * D,) + tail),
+                    w[:, g].reshape((kv * D,) + tail),
+                    w[:, g + 1].reshape((kv * D,) + tail))
+        if getattr(hc, "multi_query", True):
+            return tuple(w.split([H * D, D, D], dim=0))
+        w = w.reshape((H, 3, D) + tail)
+        return tuple(w[:, j].reshape((H * D,) + tail) for j in range(3))
+
+    @classmethod
+    def map_layer(cls, model, suffix, hc):
+        cfg = model.config
+        if suffix.startswith("self_attention.query_key_value."):
+            attr = suffix.rpartition(".")[2]
+            return [(f"attn.{p}_proj.{attr}",
+                     functools.partial(_falcon_part, hc=hc, cfg=cfg, j=j))
+                    for j, p in enumerate("qkv")]
+        if suffix.startswith("ln_mlp.") and cfg.shared_parallel_ln:
+            return None
+        return cls.LAYER.get(suffix)
+
+
+def _falcon_part(t, hc, cfg, j):
+    return HFFalconLayerPolicy._split_falcon_qkv(t, hc, cfg)[j]
+
+
+class HFPhiLayerPolicy(_GenericTransformerPolicy):
+    """HF ``PhiForCausalLM`` (phi-1/1.5/2) -> the generic decoder: partial
+    rotary, the parallel attention + MLP behind one shared LayerNorm,
+    biases on every projection, a biased untied head."""
+
+    hf_model_types = ("PhiForCausalLM", "phi", "PhiModel")
+    PREFIXES = ("model.",)
+    TOP = _modules([("embed_tokens", "model.embed_tokens"),
+                    ("final_layernorm", "model.final_ln")])
+    LAYER = _modules([("self_attn.q_proj", "attn.q_proj"),
+                      ("self_attn.k_proj", "attn.k_proj"),
+                      ("self_attn.v_proj", "attn.v_proj"),
+                      ("self_attn.dense", "attn.o_proj"),
+                      ("mlp.fc1", "mlp.fc_in"), ("mlp.fc2", "mlp.fc_out"),
+                      ("input_layernorm", "ln_attn")])
+    HEAD = {"lm_head.weight": "lm_head.weight",
+            "lm_head.bias": "lm_head.bias"}
+    SKIP = (".inv_freq",)
+
+    @classmethod
+    def convert_config(cls, hc):
+        from ..models.transformer import TransformerConfig
+
+        if getattr(hc, "qk_layernorm", False):
+            raise NotImplementedError(
+                "Phi qk_layernorm=True (per-head Q/K layernorms) is not "
+                "mapped; conversion would silently drop those weights")
+        if getattr(hc, "tie_word_embeddings", False):
+            raise NotImplementedError(
+                "tied-embedding Phi is not mapped: HF's lm_head keeps its "
+                "bias even when tied, and the tied logits path here has no "
+                "bias slot (no released Phi checkpoint ties embeddings)")
+        return TransformerConfig(
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=hc.intermediate_size,
+            num_hidden_layers=hc.num_hidden_layers,
+            num_attention_heads=hc.num_attention_heads,
+            num_key_value_heads=getattr(hc, "num_key_value_heads", None),
+            max_position_embeddings=hc.max_position_embeddings,
+            pos_embedding="rope", rotary_pct=_rotary_pct(hc, 0.5),
+            rope_theta=_rope_theta(hc, "rope_theta"),
+            parallel_residual=True, shared_parallel_ln=True,
+            activation=_act(hc.hidden_act), norm_eps=hc.layer_norm_eps,
+            pre_layernorm=True, attention_bias=True, mlp_bias=True,
+            lm_head_bias=True, tie_word_embeddings=False)
+
+
+def _rope_params(hc) -> dict:
+    return getattr(hc, "rope_parameters", None) or \
+        getattr(hc, "rope_scaling", None) or {}
+
+
+def _rope_theta(hc, field: str) -> float:
+    """The rotary base from ``field`` (transformers 4), else from
+    ``rope_parameters`` (transformers 5 moves it there), else 10000; a
+    RoPE type other than the plain one raises (the JAX package has none)."""
+    params = _rope_params(hc)
+    kind = params.get("rope_type", params.get("type", "default"))
+    if kind != "default":
+        raise NotImplementedError(
+            f"RoPE type {kind!r} ({params!r}) is not mapped: the port runs "
+            f"plain RoPE, as the JAX package does")
+    theta = getattr(hc, field, None) or params.get("rope_theta")
+    return float(theta or 10000.0)
+
+
+def _rotary_pct(hc, default: float = 1.0) -> float:
+    """NeoX's ``rotary_pct`` / Phi's ``partial_rotary_factor`` (in
+    ``rope_parameters`` under transformers 5)."""
+    for field in ("rotary_pct", "partial_rotary_factor"):
+        value = getattr(hc, field, None)
+        if value is not None:
+            return float(value)
+    return float(_rope_params(hc).get("partial_rotary_factor", default))
 
 
 def _split_fused_qkv(w: torch.Tensor, b: Optional[torch.Tensor],

@@ -12,7 +12,8 @@ below the tiny model's logit gaps on these seeds. The dense forward's
 logits agree at 1e-5. Sampling cannot reproduce ``jax.random``, so the
 top-k / top-p candidate sets are compared instead. Quantized serving
 yields the tokens of the same engine's ``generate`` (the JAX package's
-invariant), and those of the JAX engine.
+invariant), and those of the JAX engine. The generic transformer's
+families have their own file, ``tests/test_torch_generate_generic.py``.
 """
 
 import dataclasses
@@ -399,16 +400,3 @@ def test_config_validation():
         LlamaConfig.tiny(quantize_weights="fp8")
 
 
-@pytest.mark.parametrize("legacy", [{"quantize": True}, {"dtype": "int8"},
-                                    {"dequant_per_step": True}],
-                         ids=["quantize", "dtype_int8", "dequant_per_step"])
-def test_legacy_quantization_names_its_roadmap_item(legacy):
-    """The legacy grouped quantization arrives with ROADMAP.md Queue 1
-    item 2c (as ``quantize_groups`` already says), and the message points
-    at ``quantize_weights``."""
-    model = LlamaForCausalLM(LlamaConfig.tiny())
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md Queue 1, item 2c\); use "
-                             r"quantize_weights"):
-        dt.init_inference(model, params=model.init_params(), device="cpu",
-                          **legacy)

@@ -50,15 +50,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                             & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
-    # the training subset's host modules, the module-injection slice and
-    # the serving engine's drafter and host KV tier are among the files
-    # checked
+    # the training subset's host modules, the module-injection slice, the
+    # serving engine's drafter and host KV tier, the generic transformer,
+    # its layer and the legacy quantization are among the files checked
     for mod in ("checkpointing.py", "runtime/dataloader.py",
                 "inference/serving/speculative.py",
                 "inference/serving/kv_tiers.py",
                 "runtime/progressive_layer_drop.py", "monitor/monitor.py",
                 "models/gpt2.py", "module_inject/replace_policy.py",
-                "module_inject/replace_module.py"):
+                "module_inject/replace_module.py", "models/transformer.py",
+                "ops/transformer.py", "compression/__init__.py",
+                "compression/quantization.py"):
         assert os.path.join("deepspeed_tpu_torch", mod) in bad, mod
     # the exact-name rule: the port's own name starts with the JAX
     # package's and must not trip it

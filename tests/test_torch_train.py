@@ -19,6 +19,10 @@
   the port spans over the per-layer tensors) and unscanned. Then
   ``eval_batch``, the ``forward``/``backward``/``step`` micro-step API and
   an fp16 step that overflows and is skipped.
+- The generic transformer (``models/transformer.py``) in both engines:
+  BERT's MLM model under an MLM ``loss_fn`` on LAMB, scanned and
+  unscanned, and an OPT-style LM on AdamW, five steps each (losses 1e-5,
+  final params 1e-4).
 - The device-resident step against JAX ``TrainState``: gas 2 with
   WarmupDecayLR, OneCycle, and fp16 dynamic scaling through two
   overflows, a recovery and a third overflow. After every step the
@@ -334,6 +338,100 @@ def test_train_trajectory_matches_the_jax_engine(case, one_device_mesh):
         # the clipping of every case triggers on every step
         assert peng.get_global_grad_norm() > config["gradient_clipping"]
     assert peng.get_lr() == pytest.approx(jeng.get_lr(), rel=1e-6)
+    want = flax_to_torch_state_dict(jax.device_get(jeng.state.params), cfg)
+    got = peng.module_state_dict()
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+GENERIC_BASE = dict(vocab_size=96, hidden_size=64, intermediate_size=128,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    max_position_embeddings=32)
+BERT = dict(GENERIC_BASE, causal=False, pre_layernorm=False,
+            embedding_layernorm=True, final_layernorm=False,
+            type_vocab_size=2, mlm_head=True, tie_word_embeddings=True,
+            norm_eps=1e-12, initializer_range=0.02)
+
+#: case -> (TransformerConfig, MLM?, engine config)
+GENERIC_CASES = {
+    "bert_mlm_lamb_scanned": (dict(BERT), True, _LAMB),
+    "bert_mlm_lamb_unscanned": (dict(BERT, scan_layers=False), True, _LAMB),
+    "opt_lm_adamw": (dict(GENERIC_BASE, pos_offset=2, activation="relu"),
+                     False, CASES["adamw_gas_clip_warmup"][1]),
+}
+
+
+def _mlm_batches(vocab, n=STEPS, seed=3):
+    """BERT MLM batches: 15% of the positions labelled (the rest -100),
+    a right-padded row, token types."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, vocab, (BATCH, SEQ)).astype(np.int32)
+        labels = np.where(rs.rand(BATCH, SEQ) < 0.15, ids, -100)
+        labels[:, 0] = ids[:, 0]              # at least one a row
+        mask = np.ones((BATCH, SEQ), np.int32)
+        mask[-1, SEQ - 5:] = 0
+        labels[mask == 0] = -100
+        types = (np.arange(SEQ)[None] >= SEQ // 2).astype(np.int32) \
+            .repeat(BATCH, 0)
+        out.append({"input_ids": ids, "attention_mask": mask,
+                    "token_type_ids": types, "labels": labels.astype(
+                        np.int32)})
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(GENERIC_CASES))
+def test_generic_models_train_as_the_jax_engine(case, one_device_mesh):
+    """Five steps of the generic transformer in both engines on the same
+    flax params: BERT's ``TransformerForMaskedLM`` under an MLM
+    ``loss_fn`` on LAMB (scanned: one trust ratio an ``[L, ...]`` leaf;
+    unscanned), an OPT-style ``TransformerLMHeadModel`` on AdamW with
+    labels. Losses 1e-5, final params 1e-4."""
+    from deepspeed_tpu.models import layers as jlayers
+    from deepspeed_tpu.models import transformer as jt
+    from deepspeed_tpu_torch.models import layers as tlayers
+    from deepspeed_tpu_torch.models import transformer as tt
+
+    kw, mlm, config = GENERIC_CASES[case]
+    jcls = jt.TransformerForMaskedLM if mlm else jt.TransformerLMHeadModel
+    tcls = tt.TransformerForMaskedLM if mlm else tt.TransformerLMHeadModel
+    jmodel = jcls(jt.TransformerConfig(**kw))
+    params = jax.device_get(jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    cfg = tt.TransformerConfig(**kw)
+    jkw, pkw = {}, {}
+    if mlm:
+        def jax_loss(p, batch, rng):
+            logits = jmodel.apply({"params": p}, batch["input_ids"],
+                                  batch["attention_mask"],
+                                  batch["token_type_ids"])
+            return jlayers.cross_entropy_loss(logits, batch["labels"]), ()
+
+        def port_loss(module, batch, generator):
+            logits = module(batch["input_ids"], batch["attention_mask"],
+                            batch["token_type_ids"])
+            return tlayers.cross_entropy_loss(logits, batch["labels"]), ()
+
+        jkw, pkw = {"loss_fn": jax_loss}, {"loss_fn": port_loss}
+        batches = _mlm_batches(cfg.vocab_size)
+    else:
+        batches = [{"input_ids": ids, "labels": ids}
+                   for ids in _batches(cfg.vocab_size)]
+    jeng, *_ = ds.initialize(model=jmodel, config=dict(config),
+                             model_parameters=params, mesh=one_device_mesh,
+                             **jkw)
+    peng, *_ = dt.initialize(model=tcls(cfg), config=dict(config),
+                             model_parameters=flax_to_torch_state_dict(
+                                 params, cfg), device="cpu", **pkw)
+    for batch in batches:
+        want = float(jeng.train_batch(batch=dict(batch)))
+        got = float(peng.train_batch(batch=dict(batch)))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        np.testing.assert_allclose(peng.get_global_grad_norm(),
+                                   jeng.get_global_grad_norm(), rtol=1e-4)
     want = flax_to_torch_state_dict(jax.device_get(jeng.state.params), cfg)
     got = peng.module_state_dict()
     assert set(got) == set(want)
