@@ -700,6 +700,14 @@ FLASH_CASES = {
     # tutorial's phase-1 and phase-2 shapes
     "bert128_noncausal": (64, 16, 128, 128, 64, torch.bfloat16, False, None),
     "bert512_noncausal": (16, 16, 512, 512, 64, torch.bfloat16, False, None),
+    # the published head dims past 64 and 128, causal, at the training
+    # runs' batch of 4 x 1024: Phi-2 (32 heads of 80), GPT-NeoX-20B (64 of
+    # 96), GPT-J-6B (16 of 256); fp32 at D 80 and 256
+    "phi2_d80": (4, 32, 1024, 1024, 80, torch.bfloat16, True, None),
+    "neox20b_d96": (4, 64, 1024, 1024, 96, torch.bfloat16, True, None),
+    "gptj_d256": (4, 16, 1024, 1024, 256, torch.bfloat16, True, None),
+    "fp32_d80": (1, 8, 512, 512, 80, torch.float32, True, None),
+    "fp32_d256_window": (1, 4, 512, 512, 256, torch.float32, True, 128),
 }
 
 
@@ -723,6 +731,16 @@ FLASH_MASKED_CASES = {
     "pythia_generate_prefill": (8, 32, 32, 512, 128, torch.bfloat16, None,
                                 (300, 175, 245, 320, 451, 379, 323, 487),
                                 True),
+    # GPT-J-6B's (16 heads of 256) and Falcon-7B's (71 query heads on one
+    # kv head, D 64) generate prefills at the same prompt lengths
+    "gptj_generate_prefill": (8, 16, 16, 512, 256, torch.bfloat16, None,
+                              (300, 175, 245, 320, 451, 379, 323, 487),
+                              True),
+    "falcon7b_generate_prefill": (8, 71, 1, 512, 64, torch.bfloat16, None,
+                                  (300, 175, 245, 320, 451, 379, 323, 487),
+                                  True),
+    "phi2_d80_fp32": (2, 32, 32, 300, 80, torch.float32, None, (300, 190),
+                      True),
 }
 
 
@@ -1477,6 +1495,27 @@ DECODE_CASES = {
                     2040),
     "c8180_s8192": (GEN_B, H, HKV, 8192, D, torch.bfloat16, False, None,
                     8180),
+    # Falcon-7B's decode: 71 query heads on one kv head, D 64 (the
+    # multi-tile tensor-core kernel; fp32 and the int8 cache on the CUDA
+    # cores, 8 heads a block)
+    "falcon7b_g71_c575": (GEN_B, 71, 1, GEN_PROMPT + GEN_NEW, 64,
+                          torch.bfloat16, False, None, 575),
+    "falcon7b_g71_fp32_c575": (GEN_B, 71, 1, GEN_PROMPT + GEN_NEW, 64,
+                               torch.float32, False, None, 575),
+    "falcon7b_g71_int8_c575": (GEN_B, 71, 1, GEN_PROMPT + GEN_NEW, 64,
+                               torch.bfloat16, True, None, 575),
+    # Gemma-2B's decode: 8 query heads on one kv head, D 256
+    "gemma2b_g8_d256_c575": (GEN_B, 8, 1, GEN_PROMPT + GEN_NEW, 256,
+                             torch.bfloat16, False, None, 575),
+    # GPT-J-6B (16 of 256), Phi-2 (32 of 80), GPT-NeoX-20B (64 of 96)
+    "gptj_d256_c575": (GEN_B, 16, 16, GEN_PROMPT + GEN_NEW, 256,
+                       torch.bfloat16, False, None, 575),
+    "phi2_d80_c575": (GEN_B, 32, 32, GEN_PROMPT + GEN_NEW, 80,
+                      torch.bfloat16, False, None, 575),
+    "neox20b_d96_c575": (GEN_B, 64, 64, GEN_PROMPT + GEN_NEW, 96,
+                         torch.bfloat16, False, None, 575),
+    "gptj_d256_fp32_c575": (4, 16, 16, GEN_PROMPT + GEN_NEW, 256,
+                            torch.float32, False, None, 575),
 }
 
 
@@ -4910,6 +4949,31 @@ PYTHIA_6_9B = dict(vocab_size=50432, hidden_size=4096,
                    rotary_pct=0.25, rotary_emb_base=10000,
                    use_parallel_residual=True, layer_norm_eps=1e-5,
                    hidden_act="gelu", tie_word_embeddings=False)
+#: (a') EleutherAI gpt-j-6b's widths: 16 heads of 256, rotary on 64 dims
+GPTJ_6B = dict(vocab_size=50400, n_embd=4096, n_layer=28, n_head=16,
+               rotary_dim=64, n_positions=2048, layer_norm_epsilon=1e-5,
+               activation_function="gelu_new", tie_word_embeddings=False)
+#: (a') tiiuae falcon-7b's widths: 71 query heads of 64 on one kv head
+#: (multi-query), parallel attention, no bias
+FALCON_7B = dict(vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+                 num_attention_heads=71, multi_query=True, parallel_attn=True,
+                 bias=False, alibi=False, new_decoder_architecture=False,
+                 layer_norm_epsilon=1e-5)
+#: the Falcon-7B layers (a') runs: all 32 (a smaller count cuts the
+#: script's time)
+FALCON_LAYERS = 32
+#: (b) microsoft/phi-2's widths: 32 heads of 80, rotary on 32 of them
+PHI_2 = dict(vocab_size=51200, hidden_size=2560, intermediate_size=10240,
+             num_hidden_layers=32, num_attention_heads=32,
+             partial_rotary_factor=0.4, max_position_embeddings=2048,
+             layer_norm_eps=1e-5)
+#: (b) EleutherAI gpt-neox-20b's widths: 64 heads of 96
+GPT_NEOX_20B = dict(vocab_size=50432, hidden_size=6144,
+                    intermediate_size=24576, num_hidden_layers=44,
+                    num_attention_heads=64, max_position_embeddings=2048,
+                    rotary_pct=0.25, rotary_emb_base=10000,
+                    use_parallel_residual=True, layer_norm_eps=1e-5,
+                    hidden_act="gelu", tie_word_embeddings=False)
 #: (b) the families' greedy check: prompts, their length, new tokens
 FAMILY_PROMPTS, FAMILY_T, FAMILY_NEW = 4, 64, 16
 #: (c) BERT-Large (bert-large-uncased's widths) and the phases of the
@@ -4930,11 +4994,7 @@ BERT_LAYER = (1024, 4096, 16, 24)
 
 def hf_family_configs():
     """(b) Each family at its published widths, 2 layers, by name:
-    ``(HF model class, HF config, the widths' source)``. GPT-J-6B (head
-    dim 256), Phi-2 (80) and Falcon-7B (71 query heads over one kv head)
-    are outside the kernels' range (head dims 64 and 128, a K4 group of at
-    most 8), so they run at the widest widths the kernels take, which the
-    source names."""
+    ``(HF model class, HF config, the widths' source)``."""
     import transformers as tr
 
     return {
@@ -4962,25 +5022,18 @@ def hf_family_configs():
             embed_dropout=0.0, attention_dropout=0.0),
             "EleutherAI/gpt-neo-2.7B"),
         "gptj": (tr.GPTJForCausalLM, tr.GPTJConfig(
-            vocab_size=50400, n_embd=4096, n_layer=2, n_head=32,
-            rotary_dim=64, n_positions=2048, resid_pdrop=0.0,
-            embd_pdrop=0.0, attn_pdrop=0.0),
-            "EleutherAI/gpt-j-6b widths with 32 heads of 128 (its 16 of "
-            "256 exceed the kernels' head dims)"),
+            **dict(GPTJ_6B, n_layer=2), resid_pdrop=0.0, embd_pdrop=0.0,
+            attn_pdrop=0.0), "EleutherAI/gpt-j-6b"),
         "phi": (tr.PhiForCausalLM, tr.PhiConfig(
-            vocab_size=51200, hidden_size=2560, intermediate_size=10240,
-            num_hidden_layers=2, num_attention_heads=20,
-            partial_rotary_factor=0.25, max_position_embeddings=2048,
-            attention_dropout=0.0, resid_pdrop=0.0, embd_pdrop=0.0),
-            "microsoft/phi-2 widths with 20 heads of 128 and rotary dim 32 "
-            "(its 32 heads of 80 exceed the kernels' head dims)"),
+            **dict(PHI_2, num_hidden_layers=2), attention_dropout=0.0,
+            resid_pdrop=0.0, embd_pdrop=0.0), "microsoft/phi-2"),
         "falcon": (tr.FalconForCausalLM, tr.FalconConfig(
-            vocab_size=65024, hidden_size=4544, num_hidden_layers=2,
-            num_attention_heads=71, multi_query=False, parallel_attn=True,
-            bias=False, alibi=False, new_decoder_architecture=False,
+            **dict(FALCON_7B, num_hidden_layers=2), attention_dropout=0.0,
+            hidden_dropout=0.0), "tiiuae/falcon-7b"),
+        "gpt_neox_20b": (tr.GPTNeoXForCausalLM, tr.GPTNeoXConfig(
+            **dict(GPT_NEOX_20B, num_hidden_layers=2),
             attention_dropout=0.0, hidden_dropout=0.0),
-            "tiiuae/falcon-7b widths with 71 kv heads (its one kv head "
-            "under 71 query heads is a K4 group of 71 > 8)"),
+            "EleutherAI/gpt-neox-20b"),
     }
 
 
@@ -5035,35 +5088,87 @@ def prefill_logits(engine, ids, mask):
     return logits[:, -1].float()
 
 
+#: (a') GPT-J-6B's and Falcon-7B's flash prefill logits against the plain
+#: prefill's, in units of the plain logits' standard deviation: reasoned as
+#: PYTHIA_PREFILL_LOGIT_TOL (each layer rounds at other points in the two
+#: prefills; Pythia's 32 layers part by at most 0.0625 of a unit-std logit
+#: on an H100), and a wrong mask, head or group mapping moves the logits
+#: by their own scale
+GENERIC_PREFILL_LOGIT_TOL = 0.125
+
+
 def check_pythia_generate():
     """(a) Pythia-6.9B (the port's ``TransformerLMHeadModel`` built by
     ``HFGPTNeoXLayerPolicy`` from the HF config; bf16 weights from seed 0)
-    through ``generate`` at the generate phase's shapes: uncaptured, with
-    the decode step captured, and with ``prefill_flash_from_empty``.
-    Asserts K4 32 x 63 and (flagged) the masked K1 32 in the counted runs,
-    the captured run's tokens equal to the uncaptured run's, finite
-    logits, and the flash run's prefill logits (:func:`prefill_logits`,
-    run after the counted ``generate``) within
-    ``PYTHIA_PREFILL_LOGIT_TOL`` of the plain run's, its first tokens the
-    plain run's in every row whose top-2 gap there is wider than twice
-    the tolerance (bf16: the two prefills round at other points, so the
-    tokens may part at a near tie). Returns the launches and the
-    decode-step ms by run."""
+    through ``generate``: :func:`check_generic_generate`, with the flash
+    prefill's logits within ``PYTHIA_PREFILL_LOGIT_TOL``."""
     import transformers
 
-    import deepspeed_tpu_torch as dt
-    from deepspeed_tpu_torch.models.transformer import TransformerLMHeadModel
     from deepspeed_tpu_torch.module_inject.replace_policy import \
         HFGPTNeoXLayerPolicy
 
-    hc = transformers.GPTNeoXConfig(**PYTHIA_6_9B)
-    model = HFGPTNeoXLayerPolicy.build(hc)
+    return check_generic_generate(
+        "pythia-6.9b", HFGPTNeoXLayerPolicy,
+        transformers.GPTNeoXConfig(**PYTHIA_6_9B),
+        lambda cfg: (cfg.head_dim, cfg.rotary_dim, cfg.rope_theta,
+                     cfg.parallel_residual, cfg.tie_word_embeddings)
+        == (128, 32, 10000.0, True, False),
+        PYTHIA_PREFILL_LOGIT_TOL, relative=False)
+
+
+def check_gptj_falcon_generate():
+    """(a') GPT-J-6B at full width and depth (16 heads of 256: K4 and the
+    masked K1 at D 256) and Falcon-7B at full width, ``FALCON_LAYERS``
+    layers (71 query heads on one kv head: K4's multi-tile kernel,
+    the masked K1 at a group of 71), each through
+    :func:`check_generic_generate` with the flash prefill's logits within
+    ``GENERIC_PREFILL_LOGIT_TOL`` of the plain logits' std. Returns the
+    launches and decode ms by model and run."""
+    import transformers
+
+    from deepspeed_tpu_torch.module_inject.replace_policy import (
+        HFFalconLayerPolicy, HFGPTJLayerPolicy)
+
+    out = {}
+    out["gptj_6b"] = check_generic_generate(
+        "gpt-j-6b", HFGPTJLayerPolicy, transformers.GPTJConfig(**GPTJ_6B),
+        lambda cfg: (cfg.head_dim, cfg.kv_heads, cfg.rotary_dim,
+                     cfg.num_hidden_layers) == (256, 16, 64, 28),
+        GENERIC_PREFILL_LOGIT_TOL, relative=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["falcon_7b"] = check_generic_generate(
+        "falcon-7b", HFFalconLayerPolicy, transformers.FalconConfig(
+            **dict(FALCON_7B, num_hidden_layers=FALCON_LAYERS)),
+        lambda cfg: (cfg.head_dim, cfg.num_attention_heads, cfg.kv_heads,
+                     cfg.hidden_size) == (64, 71, 1, 4544),
+        GENERIC_PREFILL_LOGIT_TOL, relative=True)
+    return out
+
+
+def check_generic_generate(label, policy, hc, config_ok, tol, relative):
+    """A generic decoder (the port's ``TransformerLMHeadModel`` built by
+    ``policy`` from the HF config ``hc``; bf16 weights from seed 0)
+    through ``generate`` at the generate phase's shapes: uncaptured, with
+    the decode step captured, and with ``prefill_flash_from_empty``.
+    Asserts that ``config_ok(cfg)``, K4 L x 63 and (flagged) the masked K1
+    L in the counted runs, the captured run's tokens equal to the
+    uncaptured run's, finite logits, and the flash run's prefill logits
+    (:func:`prefill_logits`, run after the counted ``generate``) within
+    ``tol`` (times the plain logits' std when ``relative``) of the plain
+    run's, its first tokens the plain run's in every row whose top-2 gap
+    there is wider than twice the tolerance (bf16: the two prefills round
+    at other points, so the tokens may part at a near tie). Returns the
+    launches and the decode-step ms by run."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import TransformerLMHeadModel
+
+    model = policy.build(hc)
     cfg = model.config
     L = cfg.num_hidden_layers
-    if (cfg.head_dim, cfg.rotary_dim, cfg.rope_theta, cfg.parallel_residual,
-            cfg.tie_word_embeddings) != (128, 32, 10000.0, True, False):
-        raise AssertionError(f"generic (a): the policy's config is not "
-                             f"pythia-6.9b's: {cfg}")
+    if not config_ok(cfg):
+        raise AssertionError(f"generic {label}: the policy's config is not "
+                             f"the published one: {cfg}")
     t = time.perf_counter()
     params = model.init_params(seed=0, dtype=torch.bfloat16, device="cuda")
     n_params = sum(p.numel() for p in params.values())
@@ -5088,8 +5193,10 @@ def check_pythia_generate():
         steps = 0 if graph else GEN_NEW - 1
         want = (L * steps, L if flash else 0)
         same = torch.equal(tokens[name], tokens["bf16"])
-        log(f"generic (a) pythia-6.9b x{L} layers ({n_params / 1e9:.2f} B "
-            f"params, bf16, init {init_s:.1f} s) generate {name}: batch "
+        log(f"generic (a) {label} x{L} layers ({cfg.num_attention_heads} "
+            f"heads of {cfg.head_dim}, {cfg.kv_heads} kv heads, "
+            f"{n_params / 1e9:.2f} B params, bf16, init {init_s:.1f} s) "
+            f"generate {name}: batch "
             f"{GEN_B}, prompts {int(mask.sum(1).min())}-"
             f"{int(mask.sum(1).max())} (bucket {GEN_PROMPT}), {GEN_NEW} new: "
             f"prefill {1e3 * prefill_s:.2f} ms, mean decode step "
@@ -5109,7 +5216,8 @@ def check_pythia_generate():
             problems.append("the captured run's tokens differ from the "
                             "uncaptured run's")
         if problems:
-            raise AssertionError(f"generic (a) {name}: " + "; ".join(problems))
+            raise AssertionError(f"generic (a) {label} {name}: "
+                                 + "; ".join(problems))
         launches[name] = {"decode_attention": k4,
                           "flash_attention_fwd_masked": k1m}
         if not graph:
@@ -5120,27 +5228,29 @@ def check_pythia_generate():
     rows = int((tokens["bf16_flash"] == tokens["bf16"]).all(1).sum())
     plain, flash = prefill["bf16"], prefill["bf16_flash"]
     err = (flash - plain).abs()
+    std = float(plain.std())
+    bound = tol * std if relative else tol
     top2 = plain.topk(2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
     first_differs = tokens["bf16_flash"][:, 0] != tokens["bf16"][:, 0]
-    untied = gap.cpu() > 2 * PYTHIA_PREFILL_LOGIT_TOL
-    log(f"generic (a) pythia-6.9b: prefill logits flash vs plain max |err| "
+    untied = gap.cpu() > 2 * bound
+    log(f"generic (a) {label}: prefill logits flash vs plain max |err| "
         f"{float(err.max()):.4f} mean {float(err.mean()):.3e} (tolerance "
-        f"{PYTHIA_PREFILL_LOGIT_TOL:g}; plain logits std "
-        f"{float(plain.std()):.3f}, top-2 gaps "
+        f"{bound:.4g}{f' = {tol:g} x std' if relative else ''}; plain "
+        f"logits std {std:.3f}, top-2 gaps "
         f"{[round(float(x), 4) for x in gap]}); first tokens differ in rows "
         f"{first_differs.nonzero().flatten().tolist()}; the flash run's "
         f"tokens equal the plain run's in {rows} of {GEN_B} rows; decode "
         f"step uncaptured {decode['bf16']:.3f} ms, captured "
         f"{decode['bf16_graph']:.3f} ms")
     if not bool(torch.isfinite(flash).all()) or \
-            float(err.max()) > PYTHIA_PREFILL_LOGIT_TOL or \
+            float(err.max()) > bound or \
             bool((first_differs & untied).any()):
         raise AssertionError(
-            f"generic (a): the flash prefill's logits are {float(err.max())}"
-            f" from the plain prefill's (tolerance "
-            f"{PYTHIA_PREFILL_LOGIT_TOL}) or a first token differs where the "
-            f"plain top-2 gap is wider than twice that")
+            f"generic (a) {label}: the flash prefill's logits are "
+            f"{float(err.max())} from the plain prefill's (tolerance "
+            f"{bound}) or a first token differs where the plain top-2 gap "
+            f"is wider than twice that")
     del params
     return launches, decode
 
@@ -5338,6 +5448,100 @@ def check_bert_training():
         del engine, batch
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+#: (f) the causal training runs at the new head dims: batch, sequence,
+#: the AdamW config, warm-up and timed steps
+CAUSAL_TRAIN_SHAPE = (4, 1024)
+CAUSAL_TRAIN_CONFIG = {"optimizer": {"type": "AdamW",
+                                     "params": {"lr": 1e-4,
+                                                "weight_decay": 0.01}},
+                       "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+                       "steps_per_print": 0, "seed": 0}
+CAUSAL_TRAIN_STEPS, CAUSAL_TRAIN_WARMUP = 3, 2
+
+
+def check_causal_training():
+    """(f) The generic decoder at Phi-2's widths (32 heads of 80) and at
+    GPT-J-6B's (16 heads of 256), 2 layers each (the policies' configs,
+    seed 0), AdamW, bf16, clipping 1.0, ``CAUSAL_TRAIN_SHAPE``: uncaptured
+    and captured, each ``CAUSAL_TRAIN_WARMUP`` + ``CAUSAL_TRAIN_STEPS``
+    steps on one batch. Asserts finite falling losses, captured losses
+    equal to uncaptured, and per step K1 2, K2 2 + 2 and K3 once, counted
+    on the device (the D 256 dK/dV call's two passes count once). Prints
+    step ms, model TFLOP/s and peak memory. Returns the wrappers' launches
+    of each uncaptured run."""
+    import transformers
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import TransformerLMHeadModel
+    from deepspeed_tpu_torch.module_inject.replace_policy import (
+        HFGPTJLayerPolicy, HFPhiLayerPolicy)
+
+    models = {
+        "phi2_d80": HFPhiLayerPolicy.convert_config(transformers.PhiConfig(
+            **dict(PHI_2, num_hidden_layers=2))),
+        "gptj_d256": HFGPTJLayerPolicy.convert_config(
+            transformers.GPTJConfig(**dict(GPTJ_6B, n_layer=2))),
+    }
+    names = list(train_kernels())
+    B, S = CAUSAL_TRAIN_SHAPE
+    out, losses = {}, {}
+    for model_name, cfg in models.items():
+        L, Hd = cfg.num_hidden_layers, cfg.hidden_size
+        ids = np.random.RandomState(S).randint(0, cfg.vocab_size, (B, S))
+        batch = {"input_ids": ids, "labels": ids}
+        for graphed in (False, True):
+            name = f"{model_name}_{'captured' if graphed else 'uncaptured'}"
+            base = memory_base("cuda")
+            engine, *_ = dt.initialize(
+                model=TransformerLMHeadModel(cfg),
+                config=dict(CAUSAL_TRAIN_CONFIG, train_batch_size=B),
+                device="cuda", cuda_graph=graphed)
+            n_params = sum(p.numel() for p in engine.master.values())
+            ls = [engine.train_batch(batch=batch)
+                  for _ in range(CAUSAL_TRAIN_WARMUP)]
+            torch.cuda.synchronize()
+            zero_generic_launches()
+            reset_device_runs(names)
+            t = time.perf_counter()
+            ls += [engine.train_batch(batch=batch)
+                   for _ in range(CAUSAL_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t) / CAUSAL_TRAIN_STEPS
+            runs_dev = {n: v / CAUSAL_TRAIN_STEPS
+                        for n, v in device_runs(names).items()}
+            wrappers = {n: generic_launches()[n] for n in names}
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            ls = [float(x) for x in ls]
+            losses[name] = ls
+            flops = model_flops_per_step(n_params, B, S, L, Hd)
+            want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                    "flash_attention_bwd_dkv": L, "fused_adam": 1}
+            log(f"generic (f) causal train {name} ({cfg.num_attention_heads}"
+                f" heads of {cfg.head_dim}, x{L} layers, "
+                f"{n_params / 1e6:.1f} M params, AdamW, bf16, clip 1.0, "
+                f"{B} x {S}): step {1e3 * step_s:.2f} ms, model "
+                f"{flops / step_s / 1e12:.1f} TFLOP/s, peak memory "
+                f"{peak:.2f} GiB, losses {[round(x, 4) for x in ls]}, device "
+                f"runs a step {runs_dev} (want {want})")
+            problems = []
+            if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+                problems.append("losses not finite and falling")
+            if runs_dev != want:
+                problems.append(f"device runs a step {runs_dev} != {want}")
+            if graphed and ls != losses[name.replace("captured",
+                                                     "uncaptured")]:
+                problems.append("captured losses differ from uncaptured ones")
+            if problems:
+                raise AssertionError(f"generic (f) {name}: "
+                                     + "; ".join(problems))
+            if not graphed:
+                out[name] = wrappers
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -5560,13 +5764,18 @@ def check_legacy_quant():
 
 
 def check_generic():
-    """The ``generic families`` phase: (a) :func:`check_pythia_generate`,
-    (b) :func:`check_generic_families`, (c) :func:`check_bert_training`,
-    (d) :func:`check_bert_layer`, (e) :func:`check_legacy_quant`. Returns
-    the launches by run."""
+    """The ``generic families`` phase: (a) :func:`check_pythia_generate`
+    and :func:`check_gptj_falcon_generate`, (b)
+    :func:`check_generic_families`, (c) :func:`check_bert_training`, (d)
+    :func:`check_bert_layer`, (e) :func:`check_legacy_quant`, (f)
+    :func:`check_causal_training`. Returns the launches by run."""
     launches = {}
     pythia, _ = check_pythia_generate()
     launches.update({f"pythia_6_9b_{k}": v for k, v in pythia.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    for model, (runs, _) in check_gptj_falcon_generate().items():
+        launches.update({f"{model}_{k}": v for k, v in runs.items()})
     gc.collect()
     torch.cuda.empty_cache()
     families = check_generic_families()
@@ -5582,6 +5791,10 @@ def check_generic():
     gc.collect()
     torch.cuda.empty_cache()
     check_legacy_quant()
+    gc.collect()
+    torch.cuda.empty_cache()
+    causal = check_causal_training()
+    launches.update({f"causal_train_{k}": v for k, v in causal.items()})
     return launches
 
 
@@ -5602,42 +5815,39 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ragged = check_ragged_attention()
-    paged = check_paged_attention()
-    flash, flash_masked = check_flash_attention()
-    adam = check_fused_adam()
-    decode = check_decode_attention()
-    quant, int8_col = check_quant_matmul()
-    sparse = check_block_sparse_attention()
-    check_small_reference()
-    check_small_legacy_reference()
-    tf32_launches = check_small_generate_reference()
-    check_small_train_reference()
-    serve_launches, serve_runs = check_serving()
-    gc.collect()
-    torch.cuda.empty_cache()
-    legacy_launches, legacy_replayed = check_serving_legacy()
-    gc.collect()
-    torch.cuda.empty_cache()
-    gen_launches, gen_decode = check_generate()
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_launches, train_replayed = check_training()
-    gc.collect()
-    torch.cuda.empty_cache()
-    subset_runs, _ = check_train_subset()
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_checkpoint()
-    gc.collect()
-    torch.cuda.empty_cache()
-    sparse_launches = check_long_context()
-    gc.collect()
-    torch.cuda.empty_cache()
-    hf_runs = check_hf_inject(serve_runs["uncaptured"]["tokens"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    generic_runs = check_generic()
+    start = time.perf_counter()
+
+    def phase(fn, *args):
+        """``fn(*args)``, its seconds logged; the card's cache emptied
+        after it."""
+        t = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s "
+            f"(script {time.perf_counter() - start:.1f} s)")
+        return out
+
+    ragged = phase(check_ragged_attention)
+    paged = phase(check_paged_attention)
+    flash, flash_masked = phase(check_flash_attention)
+    adam = phase(check_fused_adam)
+    decode = phase(check_decode_attention)
+    quant, int8_col = phase(check_quant_matmul)
+    sparse = phase(check_block_sparse_attention)
+    phase(check_small_reference)
+    phase(check_small_legacy_reference)
+    tf32_launches = phase(check_small_generate_reference)
+    phase(check_small_train_reference)
+    serve_launches, serve_runs = phase(check_serving)
+    legacy_launches, legacy_replayed = phase(check_serving_legacy)
+    gen_launches, gen_decode = phase(check_generate)
+    train_launches, train_replayed = phase(check_training)
+    subset_runs, _ = phase(check_train_subset)
+    phase(check_checkpoint)
+    sparse_launches = phase(check_long_context)
+    hf_runs = phase(check_hf_inject, serve_runs["uncaptured"]["tokens"])
+    generic_runs = phase(check_generic)
 
     def generic_run_launches(name):
         """A kernel's launches in each generic families run that ran it."""

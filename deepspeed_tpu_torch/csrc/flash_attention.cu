@@ -49,18 +49,31 @@
 //   dP^T = V.dO^T, dS^T = P^T (dP^T - delta), dK += bf16(dS^T).Q. The two
 //   kernels split the backward as the TPU kernels do: no atomics, the
 //   result does not depend on scheduling.
-// - Tiles are bf16 in shared memory, rows of D elements whose 16-byte
-//   chunk c sits at c ^ (row & 7), so the 8 rows an ldmatrix phase reads
-//   fall on distinct banks. They arrive through a 2-stage ring of 16-byte
-//   cp.async copies (zero-filled past the sequence end): the next tile is
-//   in flight while this one is multiplied.
+// - Tiles are bf16 in shared memory. At D 64, 128 and 256 a row holds D
+//   elements whose 16-byte chunk c sits at c ^ (row & 7), so the 8 rows
+//   an ldmatrix phase reads fall on distinct banks; D 80 and 96 (10 and
+//   12 chunks, which that XOR would carry past the row's end) pad each
+//   row to D + 8 elements instead: 11 or 13 chunks a row, an odd count,
+//   put 8 consecutive rows on 8 distinct bank groups with no swizzle
+//   (tc_common.cuh tile_ld, swz). They arrive through a 2-stage ring of
+//   16-byte cp.async copies (zero-filled past the sequence end): the next
+//   tile is in flight while this one is multiplied.
 // - These building blocks (cp.async, ldmatrix, mma, the swizzle, the
 //   C -> A fragment conversion) live in tc_common.cuh, shared with the
 //   block-sparse kernels.
 // - Tile sizes: forward 128 query rows (8 warps) at D 64 and 64 (4 warps)
-//   at D 128, key tiles of 64; dQ 64 query rows, key tiles of 64; dK/dV
-//   64 keys, query tiles of 64 (D 64) or 32 (D 128, where the dK and dV
-//   accumulators take 128 registers a thread).
+//   at D 80-256, key tiles of 64; dQ 64 query rows, key tiles of 64 (32 at
+//   D 256); dK/dV 64 keys, query tiles of 64 (D 64) or 32 (D 80-256,
+//   where the dK and dV accumulators take 80-128 registers a thread).
+// - D 256: a warp's 16 x 256 fp32 output accumulator takes 128 registers
+//   a lane, so the forward reads each k-step's Q fragment from shared
+//   memory instead of keeping the warp's Q rows (64 registers) for the
+//   walk; dQ walks key tiles of 32, so S and dP take 32 registers, not 64;
+//   and dK/dV, whose two accumulators would take 256 registers, runs the
+//   walk twice in one C call: dV (S^T, P^T, dV += P^T dO), then dK (S^T,
+//   dP^T, dS^T, dK += dS^T Q). The second pass recomputes S^T, so D 256
+//   does 5/4 of the dK/dV work; nothing is shared between blocks, so the
+//   result still does not depend on scheduling.
 // - Occupancy: the D 64 forward is bounded to 128 registers so two 8-warp
 //   blocks share an SM (faster on the H100 than one block with more
 //   registers); the other kernels take what they need without spilling
@@ -86,7 +99,10 @@
 // rows of stride D + 1, so both the score pattern (16 threads on 16 key
 // rows) and the accumulate pattern (16 threads on 16 consecutive columns)
 // read without bank conflicts; each thread holds a 4 x 4 block of scores
-// and a 4 x D/16 block of the accumulators.
+// and a 4 x D/16 block of the accumulators. At D 256 a tile is 65.8 KB,
+// so dQ keeps K and V in one tile (K for S, V for dP, K read again for
+// dS.K) and dK/dV keeps Q and dO in one (Q for S^T, dO for dP^T and dV,
+// Q again for dK): three tiles and the score tiles fit in 227 KB.
 //
 // Both kinds skip causal and window tiles by their loop bounds, so the
 // work is the visible triangle (or band), and mask ragged tails by the
@@ -304,9 +320,23 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   }
 }
 
+// fp32 tiles of stride D + 1 (bytes)
+template <int D>
+__host__ __device__ constexpr int fp32_tile() {
+  return BT * (D + 1) * 4;
+}
+
+// dq_kernel's plan fits four tiles up to D 128; at D 256 (65.8 KB a tile)
+// K and V share one tile (ONE_KV): K for S, V for dP, K again for dS.K
+template <int D>
+__host__ __device__ constexpr bool dq_one_kv() {
+  return 4 * fp32_tile<D>() + BT * PS * 4 > MAX_SMEM;
+}
+
 template <typename E, int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   count_run(p.runs);
+  constexpr bool ONE_KV = dq_one_kv<D>();
   const int row0 = blockIdx.x * BT;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -317,7 +347,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   float* qs = smem;
   float* dos = qs + BT * (D + 1);
   float* ks = dos + BT * (D + 1);
-  float* vs = ks + BT * (D + 1);
+  float* vs = ONE_KV ? ks : ks + BT * (D + 1);
   float* dss = vs + BT * (D + 1);
 
   int t_lo, t_hi;
@@ -340,10 +370,15 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
     const int c0 = t * BT;
     __syncthreads();
     load_tile<E, D>(ks, p.k, b, h, c0, p.Tk, p.H);
-    load_tile<E, D>(vs, p.v, b, h, c0, p.Tk, p.H);
+    if constexpr (!ONE_KV) load_tile<E, D>(vs, p.v, b, h, c0, p.Tk, p.H);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_scores<D>(s, qs, ks, ty, tx);
+    if constexpr (ONE_KV) {
+      __syncthreads();
+      load_tile<E, D>(vs, p.v, b, h, c0, p.Tk, p.H);
+      __syncthreads();
+    }
     tile_scores<D>(dp, dos, vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -355,6 +390,10 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
                               : 0.f;
         dss[(4 * ty + i) * PS + tx + 16 * j] = pij * (dp[i][j] - delta[i]);
       }
+    }
+    if constexpr (ONE_KV) {
+      __syncthreads();  // every thread is done with V
+      load_tile<E, D>(ks, p.k, b, h, c0, p.Tk, p.H);
     }
     __syncthreads();
     tile_accumulate<D>(acc, dss, ks, ty, tx);
@@ -372,9 +411,17 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   }
 }
 
+// dkv_kernel's plan fits four tiles up to D 128; at D 256 Q and dO share
+// one tile (ONE_QDO): Q for S^T, dO for dP^T and dV, Q again for dK
+template <int D>
+__host__ __device__ constexpr bool dkv_one_qdo() {
+  return 4 * fp32_tile<D>() + 2 * BT * PS * 4 + 2 * BT * 4 > MAX_SMEM;
+}
+
 template <typename E, int D>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   count_run(p.runs);
+  constexpr bool ONE_QDO = dkv_one_qdo<D>();
   const int c0 = blockIdx.x * BT;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -385,7 +432,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   float* ks = smem;
   float* vs = ks + BT * (D + 1);
   float* qs = vs + BT * (D + 1);
-  float* dos = qs + BT * (D + 1);
+  float* dos = ONE_QDO ? qs : qs + BT * (D + 1);
   float* pts = dos + BT * (D + 1);
   float* dss = pts + BT * PS;
   float* lse_s = dss + BT * PS;
@@ -412,7 +459,7 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     const int r0 = t * BT;
     __syncthreads();
     load_tile<E, D>(qs, p.q, b, h, r0, p.Tq, p.H);
-    load_tile<E, D>(dos, p.dout, b, h, r0, p.Tq, p.H);
+    if constexpr (!ONE_QDO) load_tile<E, D>(dos, p.dout, b, h, r0, p.Tq, p.H);
     if (tid < BT) {
       const int row = r0 + tid;
       const size_t at = static_cast<size_t>(blockIdx.y) * p.Tq + row;
@@ -424,6 +471,11 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     // query (r0 + tx + 16 j)
     float st[4][4], dpt[4][4];
     tile_scores<D>(st, ks, qs, ty, tx);
+    if constexpr (ONE_QDO) {
+      __syncthreads();
+      load_tile<E, D>(dos, p.dout, b, h, r0, p.Tq, p.H);
+      __syncthreads();
+    }
     tile_scores<D>(dpt, vs, dos, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -440,6 +492,11 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     }
     __syncthreads();
     tile_accumulate<D>(dv, pts, dos, ty, tx);
+    if constexpr (ONE_QDO) {
+      __syncthreads();  // every thread is done with dO
+      load_tile<E, D>(qs, p.q, b, h, r0, p.Tq, p.H);
+      __syncthreads();
+    }
     tile_accumulate<D>(dk, dss, qs, ty, tx);
   }
 
@@ -474,19 +531,23 @@ __device__ __forceinline__ bool edge_tile(const Params& p, int r0, int nr,
          (p.window > 0 && r0 + nr - 1 + off - c0 >= p.window);
 }
 
-// D 64: at most 128 registers, so two 8-warp blocks share an SM
+// D 64: at most 128 registers, so two 8-warp blocks share an SM. Up to
+// D 128 the warp's Q rows stay in registers (QREG); at D 256 they would
+// take 64 registers beside the 128 of the output accumulator, so each
+// k-step's Q fragment is read from shared memory instead.
 template <int D, int NW>
 __global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
     tc_fwd_kernel(Params p) {
   count_run(p.runs);
   constexpr int NT = NW * 32, BM = NW * 16, KT = D / 16, NS = TN / 8,
-                ND = D / 8;
+                ND = D / 8, LD = tile_ld<D>();
+  constexpr bool QREG = D <= 128;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
-  bf16_t* ks = qs + BM * D;      // [2][TN][D]
-  bf16_t* vs = ks + 2 * TN * D;  // [2][TN][D]
+  bf16_t* ks = qs + BM * LD;      // [2][TN][LD]
+  bf16_t* vs = ks + 2 * TN * LD;  // [2][TN][LD]
   // masked mode: bit j of live[t] = key t * TN + j is real
-  uint64_t* live = reinterpret_cast<uint64_t*>(vs + 2 * TN * D);
+  uint64_t* live = reinterpret_cast<uint64_t*>(vs + 2 * TN * LD);
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -530,10 +591,12 @@ __global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
   cp_commit();
   cp_wait<1>();
   __syncthreads();
-  uint32_t qf[KT][4];
+  uint32_t qf[QREG ? KT : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldsm(qf[kk], a_addr<D>(qs, warp * 16, kk, lane));
+    for (int kk = 0; kk < KT; ++kk)
+      ldsm(qf[kk], a_addr<D>(qs, warp * 16, kk, lane));
+  }
 
   float o[ND][4];
 #pragma unroll
@@ -548,16 +611,16 @@ __global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
   while (t < t_hi) {
     const int tn = next(t + 1);
     if (tn < t_hi) {
-      load_rows<D, TN, NT>(ks + (stage ^ 1) * TN * D, p.k, b, hk, tn * TN,
+      load_rows<D, TN, NT>(ks + (stage ^ 1) * TN * LD, p.k, b, hk, tn * TN,
                            p.Tk, p.Hkv);
-      load_rows<D, TN, NT>(vs + (stage ^ 1) * TN * D, p.v, b, hk, tn * TN,
+      load_rows<D, TN, NT>(vs + (stage ^ 1) * TN * LD, p.v, b, hk, tn * TN,
                            p.Tk, p.Hkv);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16_t* kt = ks + stage * TN * D;
-    const bf16_t* vt = vs + stage * TN * D;
+    const bf16_t* kt = ks + stage * TN * LD;
+    const bf16_t* vt = vs + stage * TN * LD;
     const int c0 = t * TN;
 
     float s[NS][4];
@@ -566,14 +629,22 @@ __global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm(qa, a_addr<D>(qs, warp * 16, kk, lane));
+      }
 #pragma unroll
       for (int nj = 0; nj < NS / 2; ++nj) {
         uint32_t kb[4];
         ldsm(kb, b_addr<D>(kt, nj * 16, kk, lane));
-        mma(s[2 * nj], qf[kk], kb[0], kb[1]);
-        mma(s[2 * nj + 1], qf[kk], kb[2], kb[3]);
+        mma(s[2 * nj], qa, kb[0], kb[1]);
+        mma(s[2 * nj + 1], qa, kb[2], kb[3]);
       }
+    }
 
     const uint64_t bits = p.kmask != nullptr ? live[t] : ~0ull;
     const bool edge = bits != ~0ull || edge_tile(p, row0, BM, c0, TN);
@@ -655,16 +726,18 @@ __global__ void __launch_bounds__(NW * 32, D == 64 ? 2 : 1)
   }
 }
 
-template <int D, int NW>
+// KN keys a tile: 64, or 32 at D 256, where dQ's accumulator takes 128
+// registers and the S and dP tiles of 64 keys would take 64 more
+template <int D, int NW, int KN>
 __global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
   count_run(p.runs);
-  constexpr int NT = NW * 32, BM = NW * 16, KT = D / 16, NS = TN / 8,
-                ND = D / 8;
+  constexpr int NT = NW * 32, BM = NW * 16, KT = D / 16, NS = KN / 8,
+                ND = D / 8, LD = tile_ld<D>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
-  bf16_t* dos = qs + BM * D;
-  bf16_t* ks = dos + BM * D;     // [2][TN][D]
-  bf16_t* vs = ks + 2 * TN * D;  // [2][TN][D]
+  bf16_t* dos = qs + BM * LD;
+  bf16_t* ks = dos + BM * LD;     // [2][KN][LD]
+  bf16_t* vs = ks + 2 * KN * LD;  // [2][KN][LD]
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -677,14 +750,14 @@ __global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
   const int last = min(row0 + BM, p.Tq) - 1;
   const int col_hi = p.causal ? min(p.Tk, last + off + 1) : p.Tk;
   const int col_lo = p.window > 0 ? max(0, row0 + off - p.window + 1) : 0;
-  const int t_lo = col_lo / TN;
-  const int t_hi = col_hi > col_lo ? (col_hi + TN - 1) / TN : t_lo;
+  const int t_lo = col_lo / KN;
+  const int t_hi = col_hi > col_lo ? (col_hi + KN - 1) / KN : t_lo;
 
   load_rows<D, BM, NT>(qs, p.q, b, h, row0, p.Tq, p.H);
   load_rows<D, BM, NT>(dos, p.dout, b, h, row0, p.Tq, p.H);
   if (t_lo < t_hi) {
-    load_rows<D, TN, NT>(ks, p.k, b, h, t_lo * TN, p.Tk, p.H);
-    load_rows<D, TN, NT>(vs, p.v, b, h, t_lo * TN, p.Tk, p.H);
+    load_rows<D, KN, NT>(ks, p.k, b, h, t_lo * KN, p.Tk, p.H);
+    load_rows<D, KN, NT>(vs, p.v, b, h, t_lo * KN, p.Tk, p.H);
   }
   cp_commit();
 
@@ -706,17 +779,17 @@ __global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
 
   for (int t = t_lo; t < t_hi; ++t) {
     if (t + 1 < t_hi) {
-      load_rows<D, TN, NT>(ks + (stage ^ 1) * TN * D, p.k, b, h,
-                           (t + 1) * TN, p.Tk, p.H);
-      load_rows<D, TN, NT>(vs + (stage ^ 1) * TN * D, p.v, b, h,
-                           (t + 1) * TN, p.Tk, p.H);
+      load_rows<D, KN, NT>(ks + (stage ^ 1) * KN * LD, p.k, b, h,
+                           (t + 1) * KN, p.Tk, p.H);
+      load_rows<D, KN, NT>(vs + (stage ^ 1) * KN * LD, p.v, b, h,
+                           (t + 1) * KN, p.Tk, p.H);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16_t* kt = ks + stage * TN * D;
-    const bf16_t* vt = vs + stage * TN * D;
-    const int c0 = t * TN;
+    const bf16_t* kt = ks + stage * KN * LD;
+    const bf16_t* vt = vs + stage * KN * LD;
+    const int c0 = t * KN;
 
     float s[NS][4], dp[NS][4];
 #pragma unroll
@@ -740,7 +813,7 @@ __global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
       }
     }
 
-    const bool edge = edge_tile(p, row0, BM, c0, TN);
+    const bool edge = edge_tile(p, row0, BM, c0, KN);
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -786,19 +859,26 @@ __global__ void __launch_bounds__(NW * 32) tc_dq_kernel(Params p) {
   }
 }
 
-template <int D, int NW, int BQ>
+// PART: BOTH computes dK and dV in one walk; at D 256 their accumulators
+// would take 256 registers a lane, so the C call runs the walk twice,
+// DV_ONLY (S^T, P^T, dV) then DK_ONLY (S^T, dP^T, dS^T, dK): each pass
+// holds one 128-register accumulator, and neither needs atomics.
+enum Part { BOTH = 0, DV_ONLY = 1, DK_ONLY = 2 };
+
+template <int D, int NW, int BQ, int PART>
 __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
   count_run(p.runs);
   constexpr int NT = NW * 32, BN = NW * 16, KT = D / 16, NQ = BQ / 8,
-                ND = D / 8;
+                ND = D / 8, LD = tile_ld<D>();
+  constexpr bool WANT_DK = PART != DV_ONLY, WANT_DV = PART != DK_ONLY;
   static_assert(2 * BQ <= NT, "one thread per lse and delta value");
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16_t* ks = reinterpret_cast<bf16_t*>(tc_smem);
-  bf16_t* vs = ks + BN * D;
-  bf16_t* qs = vs + BN * D;       // [2][BQ][D]
-  bf16_t* dos = qs + 2 * BQ * D;  // [2][BQ][D]
-  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * D);  // [2][BQ] lse
-  float* dls = ls + 2 * BQ;                                // [2][BQ] delta
+  bf16_t* vs = ks + BN * LD;
+  bf16_t* qs = vs + BN * LD;       // [2][BQ][LD]
+  bf16_t* dos = qs + 2 * BQ * LD;  // [2][BQ][LD]
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ] lse
+  float* dls = ls + 2 * BQ;                                 // [2][BQ] delta
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -819,8 +899,8 @@ __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
 
   auto load_q = [&](int t, int st) {
     const int r0 = t * BQ;
-    load_rows<D, BQ, NT>(qs + st * BQ * D, p.q, b, h, r0, p.Tq, p.H);
-    load_rows<D, BQ, NT>(dos + st * BQ * D, p.dout, b, h, r0, p.Tq, p.H);
+    load_rows<D, BQ, NT>(qs + st * BQ * LD, p.q, b, h, r0, p.Tq, p.H);
+    load_rows<D, BQ, NT>(dos + st * BQ * LD, p.dout, b, h, r0, p.Tq, p.H);
     const int r = r0 + (tid % BQ);
     const size_t at = static_cast<size_t>(bh) * p.Tq + min(r, p.Tq - 1);
     if (tid < BQ)
@@ -834,11 +914,15 @@ __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
   if (t_lo < t_hi) load_q(t_lo, 0);
   cp_commit();
 
-  float dk[ND][4], dv[ND][4];
+  float dk[WANT_DK ? ND : 1][4], dv[WANT_DV ? ND : 1][4];
 #pragma unroll
-  for (int d = 0; d < ND; ++d)
+  for (int d = 0; d < (WANT_DK ? ND : 1); ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[d][e] = 0.f;
+#pragma unroll
+  for (int d = 0; d < (WANT_DV ? ND : 1); ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[d][e] = 0.f;
   const float sl2 = p.sm_scale * LOG2E;
   int stage = 0;
 
@@ -847,8 +931,8 @@ __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16_t* qt = qs + stage * BQ * D;
-    const bf16_t* dot = dos + stage * BQ * D;
+    const bf16_t* qt = qs + stage * BQ * LD;
+    const bf16_t* dot = dos + stage * BQ * LD;
     const float* lt = ls + stage * BQ;
     const float* dlt = dls + stage * BQ;
     const int r0 = t * BQ;
@@ -863,16 +947,18 @@ __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
     for (int kk = 0; kk < KT; ++kk) {
       uint32_t ka[4], va[4];
       ldsm(ka, a_addr<D>(ks, warp * 16, kk, lane));
-      ldsm(va, a_addr<D>(vs, warp * 16, kk, lane));
+      if constexpr (WANT_DK) ldsm(va, a_addr<D>(vs, warp * 16, kk, lane));
 #pragma unroll
       for (int nj = 0; nj < NQ / 2; ++nj) {
         uint32_t qb[4], db[4];
         ldsm(qb, b_addr<D>(qt, nj * 16, kk, lane));
         mma(st[2 * nj], ka, qb[0], qb[1]);
         mma(st[2 * nj + 1], ka, qb[2], qb[3]);
-        ldsm(db, b_addr<D>(dot, nj * 16, kk, lane));
-        mma(dpt[2 * nj], va, db[0], db[1]);
-        mma(dpt[2 * nj + 1], va, db[2], db[3]);
+        if constexpr (WANT_DK) {
+          ldsm(db, b_addr<D>(dot, nj * 16, kk, lane));
+          mma(dpt[2 * nj], va, db[0], db[1]);
+          mma(dpt[2 * nj + 1], va, db[2], db[3]);
+        }
       }
     }
 
@@ -899,12 +985,16 @@ __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
 #pragma unroll
       for (int dj = 0; dj < ND / 2; ++dj) {
         uint32_t db[4], qb[4];
-        ldsm_t(db, bt_addr<D>(dot, kk * 16, dj, lane));
-        mma(dv[2 * dj], ap, db[0], db[1]);
-        mma(dv[2 * dj + 1], ap, db[2], db[3]);
-        ldsm_t(qb, bt_addr<D>(qt, kk * 16, dj, lane));
-        mma(dk[2 * dj], as, qb[0], qb[1]);
-        mma(dk[2 * dj + 1], as, qb[2], qb[3]);
+        if constexpr (WANT_DV) {
+          ldsm_t(db, bt_addr<D>(dot, kk * 16, dj, lane));
+          mma(dv[2 * dj], ap, db[0], db[1]);
+          mma(dv[2 * dj + 1], ap, db[2], db[3]);
+        }
+        if constexpr (WANT_DK) {
+          ldsm_t(qb, bt_addr<D>(qt, kk * 16, dj, lane));
+          mma(dk[2 * dj], as, qb[0], qb[1]);
+          mma(dk[2 * dj + 1], as, qb[2], qb[3]);
+        }
       }
     }
     __syncthreads();
@@ -922,11 +1012,13 @@ __global__ void __launch_bounds__(NW * 32) tc_dkv_kernel(Params p) {
                       2 * (lane & 3);
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + at + 8 * d) =
-          __floats2bfloat162_rn(dk[d][2 * i] * p.sm_scale,
-                                dk[d][2 * i + 1] * p.sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + at + 8 * d) =
-          __floats2bfloat162_rn(dv[d][2 * i], dv[d][2 * i + 1]);
+      if constexpr (WANT_DK)
+        *reinterpret_cast<__nv_bfloat162*>(dkp + at + 8 * d) =
+            __floats2bfloat162_rn(dk[d][2 * i] * p.sm_scale,
+                                  dk[d][2 * i + 1] * p.sm_scale);
+      if constexpr (WANT_DV)
+        *reinterpret_cast<__nv_bfloat162*>(dvp + at + 8 * d) =
+            __floats2bfloat162_rn(dv[d][2 * i], dv[d][2 * i + 1]);
     }
   }
 }
@@ -951,7 +1043,7 @@ int run(const Params& p, dim3 grid, int threads, int bytes, int limit,
 template <int D>
 int launch_fp32(Which which, const Params& p, cudaStream_t stream) {
   if (p.B * p.H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int tile = BT * (D + 1) * 4;
+  constexpr int tile = fp32_tile<D>();
   constexpr int score = BT * PS * 4;
   const int q_tiles = (p.Tq + BT - 1) / BT;
   const int k_tiles = (p.Tk + BT - 1) / BT;
@@ -962,11 +1054,12 @@ int launch_fp32(Which which, const Params& p, cudaStream_t stream) {
                                      bytes, stream);
   }
   if (which == DQ) {
-    constexpr int bytes = 4 * tile + score;
+    constexpr int bytes = (dq_one_kv<D>() ? 3 : 4) * tile + score;
     return run<dq_kernel<float, D>>(p, dim3(q_tiles, bh), THREADS, bytes,
                                     bytes, stream);
   }
-  constexpr int bytes = 4 * tile + 2 * score + 2 * BT * 4;
+  constexpr int bytes =
+      (dkv_one_qdo<D>() ? 3 : 4) * tile + 2 * score + 2 * BT * 4;
   return run<dkv_kernel<float, D>>(p, dim3(k_tiles, bh), THREADS, bytes,
                                    bytes, stream);
 }
@@ -975,13 +1068,14 @@ int launch_fp32(Which which, const Params& p, cudaStream_t stream) {
 template <int D>
 int launch_bf16(Which which, const Params& p, cudaStream_t stream) {
   constexpr int E = static_cast<int>(sizeof(bf16_t));
+  constexpr int LD = tile_ld<D>();
   const int bh = p.B * p.H;
   if (which == FWD) {
     constexpr int NW = D == 64 ? 8 : 4;
     constexpr int BM = NW * 16;
     const int tiles = (p.Tq + BM - 1) / BM;
     const int live = p.kmask != nullptr ? (p.Tk + TN - 1) / TN * 8 : 0;
-    const int bytes = (BM * D + 4 * TN * D) * E + live;
+    const int bytes = (BM * LD + 4 * TN * LD) * E + live;
     if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
     return run<tc_fwd_kernel<D, NW>>(p, dim3(bh, tiles), NW * 32, bytes,
                                      MAX_SMEM, stream);
@@ -989,30 +1083,51 @@ int launch_bf16(Which which, const Params& p, cudaStream_t stream) {
   if (which == DQ) {
     constexpr int NW = 4;
     constexpr int BM = NW * 16;
+    constexpr int KN = D == 256 ? 32 : TN;
     const int tiles = (p.Tq + BM - 1) / BM;
-    constexpr int bytes = (2 * BM * D + 4 * TN * D) * E;
+    constexpr int bytes = (2 * BM * LD + 4 * KN * LD) * E;
     if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    return run<tc_dq_kernel<D, NW>>(p, dim3(bh, tiles), NW * 32, bytes, bytes,
-                                    stream);
+    return run<tc_dq_kernel<D, NW, KN>>(p, dim3(bh, tiles), NW * 32, bytes,
+                                        bytes, stream);
   }
   constexpr int NW = 4;
   constexpr int BN = NW * 16;
   constexpr int BQ = D == 64 ? 64 : 32;
   const int tiles = (p.Tk + BN - 1) / BN;
-  constexpr int bytes = (2 * BN * D + 4 * BQ * D) * E + 4 * BQ * 4;
+  constexpr int bytes = (2 * BN * LD + 4 * BQ * LD) * E + 4 * BQ * 4;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return run<tc_dkv_kernel<D, NW, BQ>>(p, dim3(bh, tiles), NW * 32, bytes,
-                                       bytes, stream);
+  if constexpr (D <= 128) {
+    return run<tc_dkv_kernel<D, NW, BQ, BOTH>>(p, dim3(bh, tiles), NW * 32,
+                                               bytes, bytes, stream);
+  } else {
+    // two passes; the device run count is the second's
+    Params first = p;
+    first.runs = nullptr;
+    const int rc = run<tc_dkv_kernel<D, NW, BQ, DV_ONLY>>(
+        first, dim3(bh, tiles), NW * 32, bytes, bytes, stream);
+    if (rc != 0) return rc;
+    return run<tc_dkv_kernel<D, NW, BQ, DK_ONLY>>(p, dim3(bh, tiles),
+                                                  NW * 32, bytes, bytes,
+                                                  stream);
+  }
+}
+
+template <int D>
+int launch(Which which, const Params& p, int bf16_in, cudaStream_t stream) {
+  return bf16_in ? launch_bf16<D>(which, p, stream)
+                 : launch_fp32<D>(which, p, stream);
 }
 
 int dispatch(Which which, const Params& p, int D, int bf16_in, void* stream) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_in)
-    return D == 64 ? launch_bf16<64>(which, p, s)
-                   : launch_bf16<128>(which, p, s);
-  return D == 64 ? launch_fp32<64>(which, p, s)
-                 : launch_fp32<128>(which, p, s);
+  switch (D) {
+    case 64: return launch<64>(which, p, bf16_in, s);
+    case 80: return launch<80>(which, p, bf16_in, s);
+    case 96: return launch<96>(which, p, bf16_in, s);
+    case 128: return launch<128>(which, p, bf16_in, s);
+    case 256: return launch<256>(which, p, bf16_in, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 Params make(const void* q, const void* k, const void* v, int B, int H,
@@ -1038,10 +1153,10 @@ Params make(const void* q, const void* k, const void* v, int B, int H,
 
 // C entries for ctypes. q/out/dout/dq: [B, Tq, H, D]; k/v/dk/dv:
 // [B, Tk, H, D], all contiguous, bf16 (bf16 != 0) or fp32; lse/delta:
-// [B, H, Tq] fp32; window <= 0: none; D is 64 or 128; runs: int32 [1] or
-// null, one added on the device per launch that runs (a CUDA graph's
-// replays included). Every output element is written. Each returns
-// cudaGetLastError() after its launch (0 = launched).
+// [B, H, Tq] fp32; window <= 0: none; D is 64, 80, 96, 128 or 256; runs:
+// int32 [1] or null, one added on the device per call that runs (a CUDA
+// graph's replays included). Every output element is written. Each
+// returns cudaGetLastError() after its launches (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int B, int H, int Tq, int Tk, int D,

@@ -6,9 +6,13 @@
 // shared-memory opt-in. Each including source is its own library, so
 // everything here has internal linkage.
 //
-// Tiles are bf16 rows of D elements whose 16-byte chunk c sits at
-// c ^ (row & 7), so the 8 rows an ldmatrix phase reads fall on distinct
-// banks.
+// Tiles are bf16 rows. Where D is a whole number of 64-element (128-byte)
+// groups (D 64, 128, 256) a row holds D elements and its 16-byte chunk c
+// sits at c ^ (row & 7) (the XOR stays inside the chunk's group of 8), so
+// the 8 rows an ldmatrix phase reads fall on distinct banks. Other head
+// dims (D 80, 96) pad each row to D + 8 elements instead: an odd number of
+// 16-byte chunks a row puts 8 consecutive rows on 8 distinct bank groups
+// with no swizzle. tile_ld<D>() is the row stride either way.
 
 #pragma once
 
@@ -93,10 +97,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// element offset of (row r, 16-byte chunk ch) in a swizzled [rows][D] tile
+// row stride, in elements, of a bf16 tile of head dim D
+template <int D>
+__host__ __device__ constexpr int tile_ld() {
+  static_assert(D % 16 == 0, "head dims are whole k16 steps");
+  return D % 64 == 0 ? D : D + 8;
+}
+
+// element offset of (row r, 16-byte chunk ch) in a [rows][tile_ld<D>()]
+// tile: XOR-swizzled where D % 64 == 0, padded rows otherwise
 template <int D>
 __device__ __forceinline__ int swz(int r, int ch) {
-  return r * D + ((ch ^ (r & 7)) << 3);
+  if constexpr (D % 64 == 0)
+    return r * D + ((ch ^ (r & 7)) << 3);
+  else
+    return r * tile_ld<D>() + (ch << 3);
 }
 
 // ldmatrix addresses, for the 16 x 16 piece at (row r0, column 16 kk) of a
@@ -128,11 +143,12 @@ template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_rows(bf16_t* dst, const void* src, int b,
                                           int h, int row0, int T, int Hn) {
   constexpr int CH = D / 8;
-  static_assert(ROWS * CH % NT == 0, "whole passes of the block");
+  constexpr int N = ROWS * CH;
   const bf16_t* s = static_cast<const bf16_t*>(src);
 #pragma unroll
-  for (int i = 0; i < ROWS * CH / NT; ++i) {
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
     const int c = threadIdx.x + i * NT;
+    if (N % NT != 0 && c >= N) break;  // the last, partial pass
     const int r = c / CH;
     const int ch = c % CH;
     const int row = row0 + r;

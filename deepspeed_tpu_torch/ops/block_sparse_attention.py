@@ -44,7 +44,8 @@ import torch
 from . import _build
 from .flash_attention import _delta
 
-#: head dims the kernels are compiled for
+#: head dims the kernels are compiled for; the rest of the JAX kernels'
+#: domain is ROADMAP.md Queue 2, step 4
 KERNEL_HEAD_DIMS = (64, 128)
 #: layout block sizes the kernels take (multiples of their 64-row tiles)
 KERNEL_BLOCKS = (64, 128)
@@ -299,20 +300,29 @@ def _check(name, tensors, layout, block):
         raise ValueError(f"{name}: layout {layout.shape} must be [H, nb, nb] "
                          f"with H {H} and nb * block ({block}) = T {T}")
     if dev.type == "cuda":
-        if q.dtype not in (torch.bfloat16, torch.float32) \
-                or any(t.dtype != q.dtype for t in (k, v)):
-            raise ValueError(f"{name}: the kernels take q, k, v all bf16 or "
-                             f"all fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
-        if D not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"{name}: the kernels take head_dim in "
-                             f"{KERNEL_HEAD_DIMS}, got {D}")
-        if block not in KERNEL_BLOCKS:
-            raise ValueError(f"{name}: the kernels take block in "
-                             f"{KERNEL_BLOCKS}, got {block}")
-        if B * H > 65535:
-            raise ValueError(f"{name}: B * H must be at most 65535, got "
-                             f"{B * H}")
+        _check_kernel_domain(name, q, k, v, block)
     return dev
+
+
+def _check_kernel_domain(name, q, k, v, block):
+    """Raise on the dtypes, head dims, blocks and grids that the kernels
+    do not take (CUDA tensors)."""
+    B, _, H, D = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or any(t.dtype != q.dtype for t in (k, v)):
+        raise ValueError(f"{name}: the kernels take q, k, v all bf16 or "
+                         f"all fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels take head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {D} (the rest is "
+                         f"ROADMAP.md Queue 2, step 4)")
+    if block not in KERNEL_BLOCKS:
+        raise ValueError(f"{name}: the kernels take block in "
+                         f"{KERNEL_BLOCKS}, got {block} (the rest is "
+                         f"ROADMAP.md Queue 2, step 4)")
+    if B * H > 65535:
+        raise ValueError(f"{name}: B * H must be at most 65535, got "
+                         f"{B * H}")
 
 
 def _operand(t, dtype=None):

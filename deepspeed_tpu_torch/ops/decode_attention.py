@@ -30,10 +30,13 @@ import torch
 
 from . import _build, _runs
 
-#: head dims the kernel is compiled for
-KERNEL_HEAD_DIMS = (64, 128)
-#: most query heads one kv head may serve (GQA group)
-KERNEL_MAX_GROUP = 8
+#: head dims K4 is compiled for; it takes any whole GQA group
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)
+#: head dims of the paged kernels (K7a, K7b); the rest of their domain is
+#: ROADMAP.md Queue 2, step 3
+PAGED_HEAD_DIMS = (64, 128)
+#: most query heads one kv head may serve in K7a
+PAGED_MAX_GROUP = 8
 #: pool page size the paged kernels are compiled for
 KERNEL_BLOCK_SIZE = 16
 #: query rows (tokens x G) of one K7b block, by q's dtype: the walk's
@@ -174,9 +177,9 @@ def _check_kernel_args(q, k_cache, v_cache, k_scale, v_scale, key_mask,
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
                          f"got {D}")
-    if H % Hkv or H // Hkv > KERNEL_MAX_GROUP:
+    if H % Hkv:
         raise ValueError(f"query heads {H} over kv heads {Hkv}: the group "
-                         f"must be whole and at most {KERNEL_MAX_GROUP}")
+                         f"must be whole")
     int8 = k_scale is not None
     want = torch.int8 if int8 else q.dtype
     if k_cache.dtype != want or v_cache.dtype != want:
@@ -376,16 +379,18 @@ def _check_paged_args(name, q, k_pages, v_pages, block_tables, descriptors,
         raise ValueError(f"{name}: k_pages and v_pages must both be "
                          f"[N, Hkv, bs, D]")
     N, Hkv, bs, Dk = k_pages.shape
-    if Dk != D or D not in KERNEL_HEAD_DIMS or bs != KERNEL_BLOCK_SIZE:
+    if Dk != D or D not in PAGED_HEAD_DIMS or bs != KERNEL_BLOCK_SIZE:
         raise ValueError(f"{name}: the kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS} and pages of "
+                         f"{PAGED_HEAD_DIMS} and pages of "
                          f"{KERNEL_BLOCK_SIZE} tokens, got head_dim "
-                         f"{D}/{Dk}, block_size {bs}")
+                         f"{D}/{Dk}, block_size {bs} (the rest is "
+                         f"ROADMAP.md Queue 2, step 3)")
     G = H // max(Hkv, 1)
     if H % Hkv or (max_group and G > max_group) \
             or (tile_rows and tile_rows % G):
         raise ValueError(f"{name}: query heads {H} over kv heads {Hkv} is "
-                         f"a group the kernel does not take")
+                         f"a group the kernel does not take (ROADMAP.md "
+                         f"Queue 2, step 3)")
     int8 = k_scale is not None
     want = torch.int8 if int8 else q.dtype
     if k_pages.dtype != want or v_pages.dtype != want:
@@ -467,7 +472,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
     B, H, D, N, Hkv, nb = _check_paged_args(
         "paged_decode_attention", q, k_pages, v_pages, block_tables,
         (context_lens,), k_scale, v_scale, window,
-        max_group=KERNEL_MAX_GROUP)
+        max_group=PAGED_MAX_GROUP)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

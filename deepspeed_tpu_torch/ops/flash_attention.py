@@ -31,8 +31,9 @@ import torch
 
 from . import _build, _runs
 
-#: head dims the kernels are compiled for
-KERNEL_HEAD_DIMS = (64, 128)
+#: head dims the kernels are compiled for (the JAX kernels take any; these
+#: are the published models' 64, 80, 96, 128 and 256)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def _mask(Tq: int, Tk: int, causal: bool, window: Optional[int], device):
@@ -142,14 +143,21 @@ def _check(name, tensors, window):
     if window is not None and int(window) <= 0:
         raise ValueError("window must be a positive int or None")
     if dev.type == "cuda":
-        if q.dtype not in (torch.bfloat16, torch.float32) \
-                or any(t.dtype != q.dtype for t in (k, v)):
-            raise ValueError(f"{name}: the kernels take q, k, v all bf16 or "
-                             f"all fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
-        if q.shape[-1] not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"{name}: the kernels take head_dim in "
-                             f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+        _check_kernel_domain(name, q, k, v)
     return dev
+
+
+def _check_kernel_domain(name, q, k, v):
+    """Raise on the dtypes and head dims that the kernels do not take (CUDA
+    tensors): q, k, v all bf16 or all fp32, a head dim of
+    :data:`KERNEL_HEAD_DIMS`."""
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or any(t.dtype != q.dtype for t in (k, v)):
+        raise ValueError(f"{name}: the kernels take q, k, v all bf16 or "
+                         f"all fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels take head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
 
 
 def _operand(t):
@@ -300,14 +308,7 @@ def flash_attention_fwd_masked(q, k, v, key_mask, causal: bool = True,
         with torch.no_grad():
             return flash_attention_plain(q, k, v, causal, sm_scale, window,
                                          key_mask=key_mask)
-    if q.dtype not in (torch.bfloat16, torch.float32) \
-            or any(t.dtype != q.dtype for t in (k, v)):
-        raise ValueError(f"flash_attention_fwd_masked: the kernel takes q, "
-                         f"k, v all bf16 or all fp32, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd_masked: the kernel takes "
-                         f"head_dim in {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    _check_kernel_domain("flash_attention_fwd_masked", q, k, v)
     q, k, v = (_operand(t) for t in (q, k, v))
     key_mask = key_mask.to(torch.int32).contiguous()
     B, Tq, H, D = q.shape

@@ -29,7 +29,8 @@ from .decode_attention import _sm_count, paged_splits
 
 #: pool page size the kernel is compiled for
 KERNEL_BLOCK_SIZE = 16
-#: head dims the kernel is compiled for
+#: head dims the kernel is compiled for; the rest of the JAX kernel's
+#: domain is ROADMAP.md Queue 2, step 3
 KERNEL_HEAD_DIMS = (64, 128)
 #: query rows of a chunk item on the CUDA cores (q_tile tokens x G heads);
 #: the group size must divide it (the tensor cores' 64 rows too)
@@ -133,10 +134,12 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, descriptors,
     if Dk != D or D not in KERNEL_HEAD_DIMS or bs != KERNEL_BLOCK_SIZE:
         raise ValueError(f"the kernel takes head_dim in {KERNEL_HEAD_DIMS} "
                          f"and pages of {KERNEL_BLOCK_SIZE} tokens, got "
-                         f"head_dim {D}/{Dk}, block_size {bs}")
+                         f"head_dim {D}/{Dk}, block_size {bs} (the rest is "
+                         f"ROADMAP.md Queue 2, step 3)")
     if H % Hkv or KERNEL_TILE_ROWS % (H // Hkv):
         raise ValueError(f"query heads {H} over kv heads {Hkv}: the group "
-                         f"size must divide {KERNEL_TILE_ROWS}")
+                         f"size must divide {KERNEL_TILE_ROWS} (ROADMAP.md "
+                         f"Queue 2, step 3)")
     int8 = k_scale is not None
     want = torch.int8 if int8 else q.dtype
     if k_pages.dtype != want or v_pages.dtype != want:

@@ -9,7 +9,8 @@ tracing and the reporting knobs. This slice trains on one device
 ``NotImplementedError`` when it is switched on, naming the ``ROADMAP.md``
 Queue 1 entry that brings it; keys that neither package knows raise
 ``ValueError``. ``memory_breakdown`` and ``dump_state`` are parsed and, as
-in the JAX package, acted on by nothing.
+in the JAX package, acted on by nothing; an enabled ``amp`` block is
+ignored with a warning, as the JAX config ignores it.
 """
 
 import dataclasses
@@ -17,6 +18,7 @@ import json
 import os
 from typing import Any, Dict, Optional, Union
 
+from ..utils.logging import logger
 from .config_utils import (AUTO, ConfigBlock, auto_none,
                            dict_raise_error_on_duplicate_keys, unported)
 from .zero.config import DeepSpeedZeroConfig
@@ -163,7 +165,6 @@ UNPORTED_BLOCKS = {
     "autotuning": (_enabled, "the auxiliary subsystems (item 11)"),
     "wandb": (_enabled, "no slice: use tensorboard or csv_monitor"),
     "comms_logger": (_enabled, "the distributed and ZeRO slice (item 9)"),
-    "amp": (_enabled, "no slice: use bf16 or fp16"),
     "parallel": (_parallel, "the distributed and ZeRO slice (item 9)"),
     "pipeline": (_nonempty, "the pipeline slice (item 10)"),
     "aio": (_nonempty, "the offload slice (item 11)"),
@@ -182,7 +183,7 @@ PORTED_KEYS = {
     "scheduler", "zero_optimization", "seed", "fault_tolerance",
     "checkpoint", "progressive_layer_drop", "activation_checkpointing",
     "tensorboard", "csv_monitor", "tracing", "memory_breakdown",
-    "dump_state",
+    "dump_state", "amp",
 }
 
 
@@ -233,6 +234,10 @@ class DeepSpeedConfig:
         self.wall_clock_breakdown = get("wall_clock_breakdown", False)
         self.fp16 = FP16Config.from_dict(get("fp16"), "fp16")
         self.bf16 = BF16Config.from_dict(get("bf16", get("bfloat16")), "bf16")
+        if _enabled(get("amp")):
+            logger.warning("amp (apex mixed precision) has no counterpart "
+                           "here; use bf16 (recommended) or fp16. Ignoring "
+                           "the amp block.")
         self.optimizer = OptimizerConfig.from_dict(get("optimizer"),
                                                    "optimizer") \
             if get("optimizer") else None

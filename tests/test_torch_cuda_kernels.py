@@ -133,7 +133,7 @@ def test_ragged_kernel_matches_plain(cuda, dtype, int8, D, Hkv, G, window,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 80, 96, 256])
 @pytest.mark.parametrize("B,H,Tq,Tk,causal,window", [
     (2, 3, 256, 256, True, None), (2, 3, 200, 200, True, None),
     (2, 3, 100, 100, False, None), (2, 3, 256, 256, True, 48),
@@ -218,7 +218,9 @@ def test_fused_adam_kernel_matches_plain(cuda, adam_w_mode, write_update):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("int8", [False, True], ids=["cache", "int8cache"])
-@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8)])
+@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (128, 1, 8),
+                                     (80, 2, 3), (96, 1, 24), (256, 1, 8),
+                                     (256, 2, 16), (64, 1, 71)])
 @pytest.mark.parametrize("S,cidx,window", [
     (200, 0, None), (200, 130, None), (77, 76, None), (300, 250, 64),
     (2048, 1023, None), (2048, 1024, None), (2048, 1025, None),
@@ -1031,7 +1033,9 @@ def test_paged_wrappers_count_one_launch_per_call(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (64, 1, 8)])
+@pytest.mark.parametrize("D,Hkv,G", [(128, 2, 4), (64, 3, 1), (64, 1, 8),
+                                     (80, 1, 3), (96, 2, 2), (256, 2, 4),
+                                     (64, 1, 71)])
 @pytest.mark.parametrize("T,window,pad", [
     (256, None, 70), (200, None, 70), (130, 48, 70), (1000, None, 300),
     (1024, 16, 200)])

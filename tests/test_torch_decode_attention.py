@@ -21,7 +21,8 @@ import torch
 from deepspeed_tpu.models.layers import _quantize_kv as jax_quantize_kv
 from deepspeed_tpu.ops.pallas.decode_attention import \
     decode_attention as jax_decode
-from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
+from deepspeed_tpu_torch.ops.decode_attention import (_check_kernel_args,
+                                                      decode_attention,
                                                       decode_attention_plain,
                                                       decode_splits)
 
@@ -35,6 +36,15 @@ CASES = {
     "window_past_start": (2, 4, 2, 48, 16, 10, 24, False, 16),
     "int8_cache": (2, 8, 2, 64, 16, 45, None, True, 16),
     "int8_window_uneven": (2, 4, 1, 70, 16, 66, 20, True, 32),
+    # Phi-2's, GPT-NeoX-20B's and GPT-J-6B's / Gemma's head dims
+    "d80": (2, 2, 1, 64, 80, 40, None, False, 16),
+    "d96_window": (2, 4, 2, 96, 96, 80, 24, False, 32),
+    "d256": (1, 2, 2, 70, 256, 66, None, False, 16),
+    "d256_int8_gqa8": (1, 8, 1, 64, 256, 37, None, True, 16),
+    # groups of 16 and 71 (Falcon-7B) on one kv head
+    "g16_one_kv_head": (2, 16, 1, 64, 64, 45, None, False, 16),
+    "g71_one_kv_head": (1, 71, 1, 50, 64, 49, None, False, 16),
+    "g71_one_kv_head_int8": (1, 71, 1, 64, 64, 30, 24, True, 32),
 }
 
 
@@ -120,6 +130,58 @@ def test_wrapper_raises_instead_of_falling_back():
         decode_attention(args[0], args[1].to("meta"), args[2], 3)
     with pytest.raises(ValueError, match="k_scale and v_scale"):
         decode_attention(*args, 3, k_scale=torch.zeros(1, 2, 16))
+    # what a CUDA tensor may hand K4 (the device check bypassed): head
+    # dims 64, 80, 96, 128 and 256, any whole group, bf16, fp32, int8
+    mask = torch.ones(1, 8, dtype=torch.int32)
+    for D in (64, 80, 96, 128, 256):
+        for H, Hkv in ((2, 2), (8, 1), (16, 1), (71, 1), (142, 2)):
+            for dtype in (torch.bfloat16, torch.float32):
+                qq = torch.zeros(1, H, D, dtype=dtype)
+                kv = torch.zeros(1, Hkv, 8, D, dtype=dtype)
+                _check_kernel_args(qq, kv, kv, None, None, mask, None)
+                sc = torch.ones(1, Hkv, 8)
+                kv8 = kv.to(torch.int8)
+                _check_kernel_args(qq, kv8, kv8, sc, sc, mask, None)
+    kv = torch.zeros(1, 2, 8, 80)
+    with pytest.raises(ValueError, match="must be whole"):
+        _check_kernel_args(torch.zeros(1, 3, 80), kv, kv, None, None, mask,
+                           None)
+    for D in (32, 72, 112, 192):
+        kv = torch.zeros(1, 1, 8, D)
+        with pytest.raises(ValueError, match="head_dim"):
+            _check_kernel_args(torch.zeros(1, 2, D), kv, kv, None, None,
+                               mask, None)
+
+
+def test_paged_and_sparse_kernels_name_their_queue_step():
+    """K6, K7a/K7b and K9 stay at head dims 64 and 128 (pages of 16,
+    blocks of 64 and 128): at D 256 each refuses with a message that names
+    ROADMAP.md Queue 2 and its step, before any kernel runs (the device
+    check bypassed)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import ragged_attention as ra
+    from deepspeed_tpu_torch.ops.decode_attention import _check_paged_args
+
+    q = torch.zeros(4, 8, 256, dtype=torch.bfloat16)
+    pages = torch.zeros(6, 2, 16, 256, dtype=torch.bfloat16)
+    tables = torch.zeros(4, 3, dtype=torch.int32)
+    lens = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="Queue 2, step 3"):
+        _check_paged_args("paged_decode_attention", q, pages, pages, tables,
+                          (lens,), None, None, None, max_group=8)
+    with pytest.raises(ValueError, match="Queue 2, step 3"):
+        _check_paged_args("paged_prefill_attention", q[:, None], pages,
+                          pages, tables, (lens, lens), None, None, None,
+                          tile_rows=64)
+    with pytest.raises(ValueError, match="Queue 2, step 3"):
+        ra._check_kernel_args(q, pages, pages, tables, (lens,) * 4, None,
+                              None, None)
+    x = torch.zeros(1, 128, 2, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Queue 2, step 4"):
+        bsa._check_kernel_domain("block_sparse_attention_fwd", x, x, x, 64)
+    x = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Queue 2, step 4"):
+        bsa._check_kernel_domain("block_sparse_attention_fwd", x, x, x, 32)
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +200,9 @@ def _emulate_split_decode(q, k, v, cidx, mask, window, per, slice_keys,
                           k_scale=None, v_scale=None, split_p=False):
     """The kernel's algorithm in fp32: the key axis cut into splits of
     ``per`` tiles; inside a split, state slices of ``slice_keys`` keys of
-    every tile (64: the CUDA-core kernel's one running state; 16: the
+    every tile (64: the CUDA-core kernel's one running state, and the
+    multi-tile tensor-core kernel's, whose warps each take one m16 tile of
+    a group of more than 16 heads over all 64 keys; 16: the single-tile
     tensor-core kernel's four warps) walk the split's visible tiles with a
     running max (log2 units), sum and accumulator; the slices merge at
     the end of the split, then the splits merge through their lse in
@@ -224,15 +288,23 @@ def _emulate_split_decode(q, k, v, cidx, mask, window, per, slice_keys,
 
 
 SPLIT_CASES = {
-    # name: (cache_index, window, mask edit, int8)
+    # name: (cache_index, window, mask edit, int8[, (B, H, Hkv, D)])
     "cache_index_empties_splits": (100, None, None, False),
     "window_empties_splits": (300, 70, None, False),
     "masked_range_empties_splits": (300, None, (64, 192), False),
     "row_sees_no_key": (250, None, "row0", False),
     "int8_cache": (290, 100, (130, 140), True),
+    # the new tile plans: D 256 (Q read from shared memory, one fp32
+    # stage), D 80 and 96, and groups of more than 16 (the multi-tile
+    # tensor-core kernel; the CUDA-core kernel's blocks of 8 heads)
+    "d256_window": (300, 70, None, False, (2, 2, 1, 256)),
+    "g71_d64_masked_range": (290, None, (130, 200), False, (1, 71, 1, 64)),
+    "g24_d96_row_sees_no_key": (250, None, "row0", False, (2, 24, 1, 96)),
+    "g16_d80_int8": (250, 100, (64, 80), True, (1, 16, 1, 80)),
 }
 SPLIT_PARAMS = [(case, per, kernel) for case in sorted(SPLIT_CASES)
-                for per in (1, 2, 3)
+                for per in ((1, 2, 3) if len(SPLIT_CASES[case]) == 4
+                            else (2,))
                 for kernel in ("cuda_core", "tensor_core")
                 if not (SPLIT_CASES[case][3] and kernel == "tensor_core")]
 
@@ -243,11 +315,15 @@ def test_split_decode_merges_to_the_plain_version(case, per, kernel):
     5-tile cache) against the plain version and the JAX Pallas kernel
     (interpret mode), fp32 at 1e-5: splits emptied by the cache index, a
     window or an all-masked key range, a row that sees no key, an int8
-    cache. The tensor-core kernel's rounding points (bf16 inputs, P.V as
-    bf16(P) + bf16(P - bf16(P))) stay inside K4's bf16 tolerance,
-    2**-7 |plain| + 1e-3."""
-    cidx, window, edit, int8 = SPLIT_CASES[case]
-    B, H, Hkv, S, D = 2, 8, 2, 5 * TILE - 7, 16
+    cache; and at head dims 80, 96 and 256 and groups of 16, 24 and 71 on
+    one kv head. The tensor-core kernels' rounding points (bf16 inputs,
+    P.V as bf16(P) + bf16(P - bf16(P))) stay inside K4's bf16 tolerance,
+    2**-7 |plain| + 1e-3, with the single-tile kernel's four 16-key
+    slices for a group of at most 16 and the multi-tile kernel's one
+    64-key state for a larger one."""
+    cidx, window, edit, int8 = SPLIT_CASES[case][:4]
+    B, H, Hkv, D = (SPLIT_CASES[case] + ((2, 8, 2, 16),))[4]
+    S = 5 * TILE - 7
     q, k, v, mask, scales = _inputs(B, H, Hkv, S, D, int8, seed=41)
     if edit == "row0":
         mask[0] = 0
@@ -259,8 +335,9 @@ def test_split_decode_merges_to_the_plain_version(case, per, kernel):
     tc = kernel == "tensor_core"
     if tc:      # the kernel reads bf16 q, K and V
         tq, tk, tv = _bf16(tq), _bf16(tk), _bf16(tv)
+    slice_keys = 16 if tc and H // Hkv <= 16 else TILE
     got = _emulate_split_decode(tq, tk, tv, cidx, tmask, window, per,
-                                16 if tc else TILE, split_p=tc, **t)
+                                slice_keys, split_p=tc, **t)
     plain = decode_attention_plain(tq, tk, tv, cidx, key_mask=tmask,
                                    window=window, **t)
     if tc:

@@ -24,11 +24,18 @@ from deepspeed_tpu.ops.pallas.flash_attention import (_reference_attention,
 from deepspeed_tpu_torch.ops import flash_attention as fa
 
 CASES = {
+    # name: (B, Tq, Tk, causal, window[, head dim, default 64])
     "causal": (2, 128, 128, True, None),
     "full": (1, 128, 128, False, None),
     "uneven_tiles": (1, 96, 96, True, None),
     "tq_lt_tk": (1, 32, 128, True, None),
     "window": (2, 128, 128, True, 32),
+    # Phi-2's, GPT-NeoX-20B's and GPT-J-6B's head dims
+    "causal_d80": (1, 128, 128, True, None, 80),
+    "full_d96": (1, 96, 96, False, None, 96),
+    "window_d96": (2, 64, 64, True, 24, 96),
+    "causal_d256": (1, 128, 128, True, None, 256),
+    "tq_lt_tk_d256": (1, 32, 96, True, None, 256),
 }
 
 
@@ -43,8 +50,8 @@ def _inputs(B, Tq, Tk, H=2, D=64, seed=0):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_and_grads_match_the_jax_kernel(case):
-    B, Tq, Tk, causal, window = CASES[case]
-    q, k, v, do = _inputs(B, Tq, Tk)
+    B, Tq, Tk, causal, window, D = (CASES[case] + (64,))[:6]
+    q, k, v, do = _inputs(B, Tq, Tk, D=D)
     block = 32 if window else 64
 
     def jax_loss(q, k, v):
@@ -123,14 +130,37 @@ def test_wrappers_raise_instead_of_falling_back():
     assert [f.launches for f in (fa.flash_attention_fwd,
                                  fa.flash_attention_bwd_dq,
                                  fa.flash_attention_bwd_dkv)] == before
+    # what a CUDA tensor may hand the kernels (the device check bypassed):
+    # head dims 64, 80, 96, 128 and 256 in bf16 or fp32, any whole group
+    for D in (64, 80, 96, 128, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, 8, 6, D, dtype=dtype)
+            kv = torch.zeros(1, 8, 2, D, dtype=dtype)
+            fa._check_kernel_domain("fwd", q, q, q)
+            fa._check_kernel_domain("masked", q, kv, kv)
+    for D in (32, 72, 112, 192, 512):
+        q = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_kernel_domain("fwd", q, q, q)
+    q = torch.zeros(1, 8, 6, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or"):
+        fa._check_kernel_domain("fwd", q.half(), q.half(), q.half())
+    # a group that is not whole raises before any device is looked at
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        fa.flash_attention_fwd_masked(q, q[:, :, :4], q[:, :, :4],
+                                      torch.ones(1, 8, dtype=torch.int32))
 
 
 MASKED = {
-    # name: (B, T, H, Hkv, window, block)
+    # name: (B, T, H, Hkv, window, block[, head dim, default 64])
     "gqa4_left_padded": (3, 96, 8, 2, None, 32),
     "mha_left_padded": (2, 64, 2, 2, None, 64),
     "gqa_window": (3, 96, 4, 2, 24, 32),
     "uneven_tiles": (2, 80, 4, 1, None, 64),
+    # a group of 3 at the new head dims
+    "gqa3_d80": (2, 64, 3, 1, None, 32, 80),
+    "gqa3_d96_window": (2, 96, 6, 2, 40, 32, 96),
+    "gqa3_d256": (2, 64, 3, 1, None, 64, 256),
 }
 
 
@@ -151,12 +181,12 @@ def test_masked_gqa_forward_matches_the_jax_kernel(case):
     positions (query rows whose own key is unmasked) agree with the Pallas
     kernel in interpret mode and the JAX reference at 1e-5; pad rows see
     no key and come back zero with lse = -inf."""
-    B, T, H, Hkv, window, block = MASKED[case]
-    q, k, v, mask = _masked_inputs(B, T, H, Hkv)
+    B, T, H, Hkv, window, block, D = (MASKED[case] + (64,))[:7]
+    q, k, v, mask = _masked_inputs(B, T, H, Hkv, D=D)
     kern = np.asarray(jfa(q, k, v, causal=True, block_q=block, block_k=block,
                           interpret=True, force_pallas=True, window=window,
                           key_mask=jnp.asarray(mask)))
-    ref = np.asarray(_reference_attention(q, k, v, True, 1.0 / 8.0,
+    ref = np.asarray(_reference_attention(q, k, v, True, 1.0 / math.sqrt(D),
                                           window=window,
                                           key_mask=jnp.asarray(mask)))
     tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
@@ -236,10 +266,12 @@ def _emulate_tc_forward(q, k, v, sm_scale, BN=64):
     return out.transpose(1, 2).to(q.dtype), lse
 
 
-def _emulate_tc_backward(q, k, v, out, lse, do, sm_scale, BT=64):
+def _emulate_tc_backward(q, k, v, out, lse, do, sm_scale, KN=64, BQ=64):
     """The bf16 dQ and dK/dV kernels' rounding points: P and dS in fp32
     from bf16 inputs, each rounded to bf16 before its product, fp32 sums
-    over key tiles (dQ) and query tiles (dK/dV) in the kernels' order."""
+    over key tiles of ``KN`` (dQ) and query tiles of ``BQ`` (dK/dV) in the
+    kernels' order. dK and dV come from one walk or, at D 256, from two
+    walks that recompute the same P: the sums do not change."""
     qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
     B, H, T, D = qf.shape
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
@@ -249,9 +281,11 @@ def _emulate_tc_backward(q, k, v, out, lse, do, sm_scale, BT=64):
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
     pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
     dq, dk, dv = (torch.zeros(B, H, T, D) for _ in range(3))
-    for t0 in range(0, T, BT):
-        t = slice(t0, t0 + BT)
+    for t0 in range(0, T, KN):
+        t = slice(t0, t0 + KN)
         dq += dsb[..., t] @ kf[:, :, t]
+    for t0 in range(0, T, BQ):
+        t = slice(t0, t0 + BQ)
         dk += dsb[:, :, t].transpose(-1, -2) @ qf[:, :, t]
         dv += pb[:, :, t].transpose(-1, -2) @ dof[:, :, t]
     return tuple((g * c).transpose(1, 2).to(q.dtype)
@@ -267,26 +301,38 @@ def _within_bf16_tolerance(got, want, name):
         f"{name}: max |err| {err.max():.3e}"
 
 
+#: the bf16 kernels' tile plans by head dim: (T, dQ's key tile, dK/dV's
+#: query tile); the forward's key tile is 64 at every D
+TC_PLANS = {64: (1024, 64, 64), 80: (256, 64, 32), 96: (192, 64, 32),
+            256: (256, 32, 32)}
+
+
 def test_tensor_core_rounding_points_stay_inside_the_bf16_tolerance():
     """Rounding P and dS to bf16 before their products (what the bf16
     tensor-core kernels do) keeps the forward and the three gradients
     inside the card's bf16 tolerance, against the plain versions and
     against the JAX kernel in interpret mode, at the training shape
-    (T 1024, D 64, causal) cut to B 1, H 2."""
+    (T 1024, D 64, causal) cut to B 1, H 2, and at D 80, 96 and 256
+    (T 192-256) with those head dims' tile plans (``TC_PLANS``)."""
+    for D, (T, kn, bq) in TC_PLANS.items():
+        _check_tc_rounding(D, T, kn, bq)
+
+
+def _check_tc_rounding(D, T, kn, bq):
     rs = np.random.RandomState(11)
-    q, k, v, do = (torch.from_numpy(rs.randn(1, 1024, 2, 64).astype(
+    q, k, v, do = (torch.from_numpy(rs.randn(1, T, 2, D).astype(
         np.float32)).bfloat16() for _ in range(4))
-    scale = 1.0 / 8.0
+    scale = 1.0 / math.sqrt(D)
     out, lse = _emulate_tc_forward(q, k, v, scale)
-    grads = _emulate_tc_backward(q, k, v, out, lse, do, scale)
+    grads = _emulate_tc_backward(q, k, v, out, lse, do, scale, KN=kn, BQ=bq)
 
     ref_out, ref_lse = fa.flash_attention_plain(q, k, v, True, scale)
     ref_grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
                                              scale)
-    _within_bf16_tolerance(out.float(), ref_out.float(), "out vs plain")
+    _within_bf16_tolerance(out.float(), ref_out.float(), f"D {D} out vs plain")
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
-        _within_bf16_tolerance(g.float(), r.float(), f"{name} vs plain")
+        _within_bf16_tolerance(g.float(), r.float(), f"D {D} {name} vs plain")
 
     jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
                        for t in (q, k, v, do))
@@ -299,7 +345,7 @@ def test_tensor_core_rounding_points_stay_inside_the_bf16_tolerance():
     (_, jout), jgrads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2),
                                            has_aux=True)(jq, jk, jv)
     _within_bf16_tolerance(out.float(), jout.astype(jnp.float32),
-                           "out vs JAX")
+                           f"D {D} out vs JAX")
     for name, g, r in zip(("dq", "dk", "dv"), grads, jgrads):
         _within_bf16_tolerance(g.float(), r.astype(jnp.float32),
-                               f"{name} vs JAX")
+                               f"D {D} {name} vs JAX")

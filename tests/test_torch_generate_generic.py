@@ -7,7 +7,8 @@ fp32 from the same left-padded numpy prompts. For OPT (learned positions
 at +2, ReLU), BLOOM (ALiBi, embedding LN), GPT-NeoX (a quarter rotary,
 the parallel residual), GPT-J (interleaved rotary, one shared LN, a
 biased head), GPT-Neo with local and all-global layers, Falcon
-(multi-query) and Phi: the tokens equal the JAX engine's with and
+(multi-query) and Phi, and Phi and GPT-J again at head dims 80 and 256:
+the tokens equal the JAX engine's with and
 without ``prefill_flash_from_empty``, and the K4 and masked K1 wrappers
 are called exactly where the config is eligible (no ALiBi, no
 ``attention_layers``), once per layer a decode step and a prefill. The
@@ -82,6 +83,12 @@ GENERIC = {
                  parallel_residual=True, shared_parallel_ln=True,
                  lm_head_bias=True), True),
 }
+# Phi-2's head dim (80, rotary on 0.4 of it) and GPT-J-6B's (256, rotary
+# on a quarter), two heads each
+GENERIC["phi_d80"] = (dict(GENERIC["phi"][0], hidden_size=160,
+                           num_attention_heads=2, rotary_pct=0.4), True)
+GENERIC["gptj_d256"] = (dict(GENERIC["gptj"][0], hidden_size=512,
+                             num_attention_heads=2, rotary_pct=0.25), True)
 
 
 @pytest.mark.parametrize("flash", [False, True],

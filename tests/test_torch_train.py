@@ -150,6 +150,39 @@ def test_unported_knobs_raise(case):
                                            **UNPORTED[case]}, device="cpu")
 
 
+def test_amp_block_is_ignored_with_a_warning_as_in_jax(one_device_mesh,
+                                                       monkeypatch):
+    """Both configs accept an enabled ``amp`` block with a warning, and two
+    steps with it take the losses of two steps without it, in both
+    engines."""
+    from deepspeed_tpu.runtime import config as jax_config_mod
+    from deepspeed_tpu_torch.runtime import config as config_mod
+
+    warned = {"jax": [], "port": []}
+    monkeypatch.setattr(jax_config_mod.logger, "warning",
+                        lambda msg, *a, **k: warned["jax"].append(msg))
+    monkeypatch.setattr(config_mod.logger, "warning",
+                        lambda msg, *a, **k: warned["port"].append(msg))
+    amp = {"amp": {"enabled": True}}
+    base = CASES["adamw_gas_clip_warmup"][1]
+    for cls, key in ((JaxDSConfig, "jax"), (DeepSpeedConfig, "port")):
+        before = len(warned[key])
+        cls({"train_batch_size": 1, **amp})
+        assert [m for m in warned[key][before:] if "amp" in m], key
+    losses = {}
+    for name, config in (("plain", base), ("amp", {**base, **amp})):
+        jeng, (peng, *_), cfg = _engines({}, config, one_device_mesh)
+        losses[name] = [
+            (float(jeng.train_batch(batch={"input_ids": ids,
+                                           "labels": ids})),
+             float(peng.train_batch(batch={"input_ids": ids,
+                                           "labels": ids})))
+            for ids in _batches(cfg.vocab_size, n=2)]
+    assert losses["amp"] == losses["plain"]
+    for want, got in losses["amp"]:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 def test_unported_initialize_arguments_raise():
     """An ``mpu`` names the distributed slice; a padded training batch
     (its ``attention_mask``) trains."""
