@@ -365,30 +365,40 @@ def achieved(bound_ms, bound_by, ms):
     return f"{gbps}{100 * bound_ms / ms:.1f}% of the bound"
 
 
-def ragged_case(rows, int8, seed, device="cuda", heads=(H, HKV, D)):
+def pool_shape(bs):
+    """``(pages, table width)`` of a pool of ``bs``-token pages holding the
+    serving cell's ``N_PAGES * BS`` tokens, its rows ``NB * BS`` keys."""
+    return N_PAGES * BS // bs, -(-NB * BS // bs)
+
+
+def ragged_case(rows, int8, seed, device="cuda", heads=(H, HKV, D), bs=BS,
+                dtype=torch.bfloat16):
     """A pool and packed batch on ``device``. ``rows``: R entries of
     ``(query_len, chunk_start)`` (query_len 0 = idle row; decode rows are
     ``(1, context - 1)``). Every row owns distinct pages covering its
-    context; the rest of its table is the sentinel ``N_PAGES``. The packed
-    batch is padded to ``T_PACKED`` tokens that no row claims. ``heads``:
-    (query heads, kv heads, head dim), Llama-3-8B's by default."""
+    context; the rest of its table is the sentinel (the pool's page
+    count). The packed batch is padded to ``T_PACKED`` tokens that no row
+    claims. ``heads``: (query heads, kv heads, head dim), Llama-3-8B's by
+    default; pages of ``bs`` tokens (:func:`pool_shape`); q and a float
+    pool in ``dtype``."""
     Hq, Hkv, Dh = heads
+    n_pages, nb = pool_shape(bs)
     assert len(rows) == R
     g = torch.Generator(device=device).manual_seed(seed)
-    bt = torch.full((R, NB), N_PAGES, dtype=torch.int32)
+    bt = torch.full((R, nb), n_pages, dtype=torch.int32)
     qs, ql, cs, cl = (torch.zeros(R, dtype=torch.int32) for _ in range(4))
-    perm = np.random.RandomState(seed).permutation(N_PAGES)
+    perm = np.random.RandomState(seed).permutation(n_pages)
     used = cursor = 0
     for r, (n, start) in enumerate(rows):
         if n == 0:
             continue
-        pages = -(-(start + n) // BS)
+        pages = -(-(start + n) // bs)
         bt[r, :pages] = torch.from_numpy(perm[used:used + pages].astype(np.int32))
         used += pages
         qs[r], ql[r], cs[r], cl[r] = cursor, n, start, start + n
         cursor += n
-    assert cursor <= T_PACKED and used <= N_PAGES
-    shape = (N_PAGES, Hkv, BS, Dh)
+    assert cursor <= T_PACKED and used <= n_pages
+    shape = (n_pages, Hkv, bs, Dh)
     if int8:
         k = torch.randint(-127, 128, shape, generator=g, device=device,
                           dtype=torch.int8)
@@ -397,11 +407,11 @@ def ragged_case(rows, int8, seed, device="cuda", heads=(H, HKV, D)):
         ks = torch.rand(shape[:3], generator=g, device=device) / 64
         vs = torch.rand(shape[:3], generator=g, device=device) / 64
     else:
-        k = torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
-        v = torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
+        k = torch.randn(shape, generator=g, device=device, dtype=dtype)
+        v = torch.randn(shape, generator=g, device=device, dtype=dtype)
         ks = vs = None
     q = torch.randn((T_PACKED, Hq, Dh), generator=g, device=device,
-                    dtype=torch.bfloat16)
+                    dtype=dtype)
     desc = [t.to(device) for t in (bt, qs, ql, cs, cl)]
     return (q, k, v, *desc), dict(k_scale=ks, v_scale=vs)
 
@@ -409,13 +419,13 @@ def ragged_case(rows, int8, seed, device="cuda", heads=(H, HKV, D)):
 def ragged_bound(args, kw, window):
     """``(ms, "bytes" | "operations")``: least time for the function on
     these inputs: the larger of the bytes it must move (each visible K/V
-    page once per kv head, scales, the q rows that some row claims, the
-    whole output, descriptors) over HBM bandwidth and its FLOPs (QK^T and
-    PV over visible keys) over the bf16 peak."""
+    page once per kv head, at the pool's page size, scales, the q rows that
+    some row claims, the whole output, descriptors) over HBM bandwidth and
+    its FLOPs (QK^T and PV over visible keys) over the peak of q's type."""
     q, k, v, bt, qs, ql, cs, cl = args
-    Hq, Hkv, Dh = q.shape[1], k.shape[1], k.shape[3]
+    Hq, Hkv, bs, Dh = q.shape[1], k.shape[1], k.shape[2], k.shape[3]
     elem = k.element_size()
-    page_bytes = Hkv * BS * Dh * elem * 2 + (Hkv * BS * 4 * 2
+    page_bytes = Hkv * bs * Dh * elem * 2 + (Hkv * bs * 4 * 2
                                              if kw["k_scale"] is not None
                                              else 0)
     token_bytes = Hq * Dh * q.element_size()
@@ -426,12 +436,13 @@ def ragged_bound(args, kw, window):
         if n == 0 or clen == 0:
             continue
         lo = 0 if window is None else max(0, start - window + 1)
-        nbytes += (-(-clen // BS) - lo // BS) * page_bytes
+        nbytes += (-(-clen // bs) - lo // bs) * page_bytes
         pos = np.arange(start, start + n)
         first = pos - (window - 1) if window is not None else 0 * pos
         keys = np.minimum(pos, clen - 1) - np.maximum(first, 0) + 1
         flops += int(keys.sum()) * Hq * Dh * 4
-    return bound(nbytes, flops, BF16_FLOP_PER_S)
+    return bound(nbytes, flops, BF16_FLOP_PER_S
+                 if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
 
 
 RAGGED_CASES = {
@@ -451,20 +462,40 @@ RAGGED_CASES = {
 }
 
 
-#: K6's variants: (int8 pool, window, (query heads, kv heads, head dim));
-#: gpt2_d64 has GPT-2 125M's heads (12 of 64, no GQA)
+#: K6's variants: (int8 pool, window, (query heads, kv heads, head dim)[,
+#: page size, dtype of q and a float pool]); gpt2_d64 has GPT-2 125M's
+#: heads (12 of 64, no GQA); the rest of the JAX kernel's domain:
+#: Gemma-7B's (16 of 256) and Gemma-2B's (8 of 256 on 1) heads, Qwen2-7B's
+#: group of 7 (28 on 4), Phi-2's D 80, GPT-NeoX-20B-like D 96 at a group
+#: of 8, fp32 and int8 at D 256, pages of 8, 32 and 24
 RAGGED_VARIANTS = {"bf16": (False, None, (H, HKV, D)),
                    "int8": (True, None, (H, HKV, D)),
                    "window256": (False, 256, (H, HKV, D)),
-                   "gpt2_d64": (False, None, (12, 12, 64))}
+                   "gpt2_d64": (False, None, (12, 12, 64)),
+                   "gemma7b_d256": (False, None, (16, 16, 256)),
+                   "qwen2_7b_g7": (False, None, (28, 4, 128)),
+                   "gemma2b_d256_g8": (False, None, (8, 1, 256)),
+                   "d80": (False, None, (32, 32, 80)),
+                   "d96_g8": (False, None, (64, 8, 96)),
+                   "fp32_d256": (False, None, (16, 16, 256), BS,
+                                 torch.float32),
+                   "int8_d256": (True, None, (16, 16, 256)),
+                   "bs8": (False, None, (H, HKV, D), 8),
+                   "bs32": (False, None, (H, HKV, D), 32),
+                   "bs24": (False, None, (H, HKV, D), 24)}
+
+
+def parity_tolerance(dtype):
+    """``(rtol, atol)`` of a paged kernel against its plain version: fp32
+    1e-5 (summation order only); bf16 one bf16 ulp (both are bf16 roundings
+    of fp32 results that differ only in summation order)."""
+    return (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-3)
 
 
 def check_ragged_attention():
-    """K6 against its plain version: bf16 pool, int8 pool, window=256, and
-    GPT-2's heads (D 64).
-    Tolerance: both outputs are bf16 roundings of fp32 results that
-    differ only in summation order (~1e-6 relative), so they agree to one
-    bf16 ulp: |kernel - plain| <= 2**-7 * |plain| + 1e-3."""
+    """K6 against its plain version on every ``RAGGED_VARIANTS`` variant
+    at every ``RAGGED_CASES`` case. Tolerance: :func:`parity_tolerance`
+    (bf16: |kernel - plain| <= 2**-7 * |plain| + 1e-3)."""
     from deepspeed_tpu_torch.ops.decode_attention import _sm_count
     from deepspeed_tpu_torch.ops.ragged_attention import (
         launch_params, ragged_paged_attention, ragged_paged_attention_plain)
@@ -472,16 +503,19 @@ def check_ragged_attention():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
-    for variant, (int8, window, heads) in RAGGED_VARIANTS.items():
+    for variant, (int8, window, heads, *rest) in RAGGED_VARIANTS.items():
+        bs, dtype = (list(rest) + [BS, torch.bfloat16][len(rest):])[:2]
+        rtol, atol = parity_tolerance(dtype)
         for name, rows in RAGGED_CASES.items():
             args, kw = ragged_case(rows, int8, seed=len(results) + 1,
-                                   heads=heads)
+                                   heads=heads, bs=bs, dtype=dtype)
             kw = dict(kw, window=window)
             got = ragged_paged_attention(*args, **kw)
             ref = ragged_paged_attention_plain(*args, **kw)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs()
-            ok = bool((err <= 2 ** -7 * ref.float().abs() + 1e-3).all())
+            ok = bool((err <= rtol * ref.float().abs() + atol).all()) and \
+                bool(torch.isfinite(got).all())
             ms = cuda_time_ms(lambda: ragged_paged_attention(*args, **kw))
             plain_ms = cuda_time_ms(
                 lambda: ragged_paged_attention_plain(*args, **kw), reps=5,
@@ -491,12 +525,16 @@ def check_ragged_attention():
             results[key] = dict(max_abs_err=float(err.max()), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound,
                                 bound_by=bound_by)
-            lp = launch_params(T_PACKED, R, NB, heads[1], _sm_count(0))
-            log(f"parity ragged_paged_attention {key}: ok={ok} "
-                f"max_abs_err={float(err.max()):.3e} kernel_ms={ms:.4f} "
+            lp = launch_params(T_PACKED, R, args[3].shape[1], bs, heads[1],
+                               _sm_count(0))
+            log(f"parity ragged_paged_attention {key} (H {heads[0]} Hkv "
+                f"{heads[1]} D {heads[2]} pages of {bs} "
+                f"{str(dtype)[6:]}): ok={ok} "
+                f"max_abs_err={float(err.max()):.3e} (tolerance "
+                f"{rtol:g}*|plain|+{atol:g}) kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
                 f"({bound_by}) | route {paged_route(args[0], args[1])}, "
-                f"grid {lp['grid']} blocks, {lp['splits']} splits of "
+                f"grid up to {lp['grid']} blocks, {lp['splits']} splits of "
                 f"{lp['per']} 64-key tiles | {achieved(bound, bound_by, ms)}")
             if not ok:
                 raise AssertionError(f"ragged_paged_attention {key} "
@@ -512,6 +550,24 @@ PAGED_CHUNK = 64
 PAGED_DECODE_MAIN = "bf16"
 PAGED_PREFILL_MAIN = "behind_prefix512"
 _DECODE_CONTEXTS = (2048, 1536, 1100, 777, 512, 300, 64, 17)
+#: the rest of the JAX paged kernels' domain, as decode and prefill
+#: cases: name: ((Hq, Hkv, Dh, dtype, int8 pool, window), (page size,) or
+#: () for 16)
+_PAGED_DOMAIN = {
+    "gemma7b_d256": ((16, 16, 256, torch.bfloat16, False, None), ()),
+    "qwen2_7b_g7": ((28, 4, 128, torch.bfloat16, False, None), ()),
+    "gemma2b_d256_g8": ((8, 1, 256, torch.bfloat16, False, None), ()),
+    "d80": ((32, 32, 80, torch.bfloat16, False, None), ()),
+    "d96_g8": ((64, 8, 96, torch.bfloat16, False, None), ()),
+    "g64": ((64, 1, 128, torch.bfloat16, False, None), ()),
+    "fp32_d256": ((16, 16, 256, torch.float32, False, None), ()),
+    "int8_d256": ((16, 16, 256, torch.bfloat16, True, None), ()),
+    "int8_bs12": ((H, HKV, D, torch.bfloat16, True, None), (12,)),
+    "window256_d256": ((16, 16, 256, torch.bfloat16, False, 256), ()),
+    "bs8": ((H, HKV, D, torch.bfloat16, False, None), (8,)),
+    "bs32": ((H, HKV, D, torch.bfloat16, False, None), (32,)),
+    "bs24": ((H, HKV, D, torch.bfloat16, False, None), (24,)),
+}
 PAGED_CASES = {
     # name: (T, Hq, Hkv, Dh, dtype, int8 pool, window, rows); rows are
     # (chunk_start, context_len) per sequence, None = an idle slot (a
@@ -532,6 +588,8 @@ PAGED_CASES = {
         "gpt2_d64": (1, 12, 12, 64, torch.bfloat16, False, None,
                      [(c - 1, c) for c in (1024, 960, 777, 512, 300, 128,
                                            64, 17)]),
+        **{name: (1, *shape, [(c - 1, c) for c in _DECODE_CONTEXTS], *bs)
+           for name, (shape, bs) in _PAGED_DOMAIN.items()},
     },
     "prefill": {
         "start0": (PAGED_CHUNK, H, HKV, D, torch.bfloat16, False, None,
@@ -551,32 +609,35 @@ PAGED_CASES = {
         "gpt2_d64_behind_prefix512": (PAGED_CHUNK, 12, 12, 64,
                                       torch.bfloat16, False, None,
                                       [(512, 576)]),
+        **{name: (PAGED_CHUNK, *shape, [(512, 576)], *bs)
+           for name, (shape, bs) in _PAGED_DOMAIN.items()},
     },
 }
 
 
-def paged_case(T, Hq, Hkv, Dh, dtype, int8, rows, seed):
-    """q ``[B, T, Hq, Dh]``, a pool of ``N_PAGES`` pages, a table ``NB``
-    wide whose rows own distinct seeded pages covering their context (the
-    rest is the sentinel ``N_PAGES``), and the chunk starts and context
-    lengths."""
+def paged_case(T, Hq, Hkv, Dh, dtype, int8, rows, seed, bs=BS):
+    """q ``[B, T, Hq, Dh]``, a pool of ``bs``-token pages and a table whose
+    rows own distinct seeded pages covering their context (the rest is the
+    sentinel, the pool's page count; sizes from :func:`pool_shape`), and
+    the chunk starts and context lengths."""
+    n_pages, nb = pool_shape(bs)
     g = torch.Generator(device="cuda").manual_seed(seed)
     B = len(rows)
-    bt = torch.full((B, NB), N_PAGES, dtype=torch.int32)
+    bt = torch.full((B, nb), n_pages, dtype=torch.int32)
     cs = torch.zeros(B, dtype=torch.int32)
     cl = torch.ones(B, dtype=torch.int32)
-    perm = np.random.RandomState(seed).permutation(N_PAGES)
+    perm = np.random.RandomState(seed).permutation(n_pages)
     used = 0
     for b, row in enumerate(rows):
         if row is None:
             continue
         cs[b], cl[b] = row
-        pages = -(-row[1] // BS)
+        pages = -(-row[1] // bs)
         bt[b, :pages] = torch.from_numpy(perm[used:used + pages]
                                          .astype(np.int32))
         used += pages
-    assert used <= N_PAGES
-    shape = (N_PAGES, Hkv, BS, Dh)
+    assert used <= n_pages
+    shape = (n_pages, Hkv, bs, Dh)
     if int8:
         k, v = (torch.randint(-127, 128, shape, generator=g, device="cuda",
                               dtype=torch.int8) for _ in range(2))
@@ -590,16 +651,17 @@ def paged_case(T, Hq, Hkv, Dh, dtype, int8, rows, seed):
     return q, k, v, bt.cuda(), cs.cuda(), cl.cuda(), scales
 
 
-def paged_bound(T, Hq, Hkv, Dh, dtype, int8, window, rows):
+def paged_bound(T, Hq, Hkv, Dh, dtype, int8, window, rows, bs=BS):
     """``(ms, "bytes" | "operations")``: least time for the function on
     these inputs. Bytes: the K/V (and scales) of every key some row of the
     chunk sees, once per kv head, the q rows inside the context, the whole
-    output, the table and the descriptors, over HBM bandwidth. FLOPs: 4 D
-    per (query head, visible key) of every row, at the peak of q's type."""
+    output, the table (its width at ``bs``-token pages) and the
+    descriptors, over HBM bandwidth. FLOPs: 4 D per (query head, visible
+    key) of every row, at the peak of q's type."""
     e = torch.tensor([], dtype=dtype).element_size()
     key_bytes = Hkv * (2 * Dh * (1 if int8 else e) + (8 if int8 else 0))
     B = len(rows)
-    nbytes = B * T * Hq * Dh * e + 4 * (B * NB + 2 * B)
+    nbytes = B * T * Hq * Dh * e + 4 * (B * pool_shape(bs)[1] + 2 * B)
     pairs = 0
     for row in rows:
         start, clen = row if row is not None else (0, 1)
@@ -627,11 +689,13 @@ def check_paged_attention():
 
     results = {"decode": {}, "prefill": {}}
     for kind, cases in PAGED_CASES.items():
-        for name, (T, Hq, Hkv, Dh, dtype, int8, window, rows) in \
+        for name, (T, Hq, Hkv, Dh, dtype, int8, window, rows, *bs) in \
                 cases.items():
+            bs = bs[0] if bs else BS
             q, k, v, bt, cs, cl, scales = paged_case(
                 T, Hq, Hkv, Dh, dtype, int8, rows,
-                seed=len(results[kind]) + (61 if kind == "decode" else 71))
+                seed=len(results[kind]) + (61 if kind == "decode" else 71),
+                bs=bs)
             kw = dict(window=window, **scales)
             if kind == "decode":
                 args = (q[:, 0].contiguous(), k, v, bt, cl)
@@ -645,8 +709,7 @@ def check_paged_attention():
             ref = plain(*args, **kw)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs()
-            rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else \
-                (2 ** -7, 1e-3)
+            rtol, atol = parity_tolerance(dtype)
             if not bool((err <= rtol * ref.float().abs() + atol).all()) \
                     or not bool(torch.isfinite(got).all()):
                 raise AssertionError(
@@ -655,25 +718,29 @@ def check_paged_attention():
             ms = cuda_time_ms(lambda: kernel(*args, **kw))
             plain_ms = cuda_time_ms(lambda: plain(*args, **kw), reps=5,
                                     warmup=1)
-            bms, by = paged_bound(T, Hq, Hkv, Dh, dtype, int8, window, rows)
+            bms, by = paged_bound(T, Hq, Hkv, Dh, dtype, int8, window, rows,
+                                  bs)
             results[kind][name] = dict(
                 max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
+            nb = bt.shape[1]
             if kind == "decode":
-                splits, per = da.paged_splits(len(rows), Hkv, NB,
-                                              da._sm_count(0))
-                grid = (len(rows), Hkv, splits)
+                lp = da.decode_launch(len(rows), Hq, Hkv, nb, bs, dtype,
+                                      da._sm_count(0))
+                grid = (len(rows), Hkv * lp["chunks"], lp["splits"])
             else:
-                lp = da.prefill_launch(len(rows), T, Hq, Hkv, NB, dtype,
+                lp = da.prefill_launch(len(rows), T, Hq, Hkv, nb, bs, dtype,
                                        da._sm_count(0))
-                splits, per = lp["splits"], lp["per"]
-                grid = (len(rows) * lp["tiles"], Hkv, splits)
+                grid = (len(rows) * lp["tiles"], Hkv * lp["chunks"],
+                        lp["splits"])
+            splits, per = lp["splits"], lp["per"]
             launch = (f" | route {paged_route(q, k)}, grid {grid}, {splits} "
                       f"splits of {per} 64-key tiles | "
                       f"{achieved(bms, by, ms)}")
             log(f"parity paged_{kind}_attention {name} (B {len(rows)} T {T} "
                 f"H {Hq} Hkv {Hkv} D {Dh} {str(dtype)[6:]} int8 {int8} "
-                f"window {window} (chunk_start, context) {rows}): ok "
+                f"pages of {bs} window {window} (chunk_start, context) "
+                f"{rows}): ok "
                 f"max_abs_err={float(err.max()):.3e} (tolerance "
                 f"{rtol:g}*|plain|+{atol:g}) | kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.3f} bound_ms={bms:.4f} ({by}) "
@@ -5798,6 +5865,242 @@ def check_generic():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serving families: Gemma-7B and Qwen2-7B on both engines
+# ---------------------------------------------------------------------------
+
+#: Gemma-7B's published configuration (google/gemma-7b config.json): 28
+#: layers, hidden 3072, 16 heads of 256 on 16 kv heads, FFN 24576, vocab
+#: 256000, GeGLU (tanh), tied embeddings scaled by sqrt(hidden)
+GEMMA_7B = dict(vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+                num_hidden_layers=28, num_attention_heads=16,
+                num_key_value_heads=16, head_dim_override=256,
+                mlp_activation="gelu_tanh", embed_scale=3072 ** 0.5,
+                tie_word_embeddings=True, max_position_embeddings=8192,
+                rms_norm_eps=1e-6)
+#: Qwen2-7B's (Qwen/Qwen2-7B config.json): 28 layers, hidden 3584, 28 heads
+#: of 128 on 4 kv heads (a group of 7), FFN 18944, vocab 152064, q/k/v
+#: biases, rope_theta 1e6
+QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+                num_hidden_layers=28, num_attention_heads=28,
+                num_key_value_heads=4, attention_qkv_bias=True,
+                rope_theta=1e6, max_position_embeddings=32768,
+                rms_norm_eps=1e-6)
+#: the runs of each family: (name, mixed_step, enable_cuda_graph, page
+#: size, prefix cache, traffic: "serve" (the serve cell's 16 requests) or
+#: "shared" (4 x 4 requests on shared 512-token prefixes), the run whose
+#: tokens it must repeat)
+FAMILY_RUNS = {
+    "gemma_7b": (GEMMA_7B, (
+        ("unified_uncaptured", True, False, 16, False, "serve", None),
+        ("unified_captured", True, True, 16, False, "serve",
+         "unified_uncaptured"),
+        ("two_program", False, False, 16, True, "shared", None))),
+    "qwen2_7b": (QWEN2_7B, (
+        ("unified_uncaptured_bs32", True, False, 32, True, "shared", None),
+        ("unified_captured_bs32", True, True, 32, True, "shared",
+         "unified_uncaptured_bs32"),
+        ("two_program_bs8", False, False, 8, True, "shared", None))),
+}
+
+
+def family_scfg(mixed, block_size, prefix_cache):
+    """The serving cell's engine (8 slots, 2048-token rows, the serve
+    cell's 16384 tokens of pool, a 256-token budget) at ``block_size``:
+    bucketed widths on the unified step, 64-token chunks on the
+    two-program engine."""
+    scfg = dict(max_batch_size=8, block_size=block_size,
+                num_blocks=N_PAGES * BS // block_size, max_model_len=2048,
+                prefill_token_budget=256, trace=True, trace_capacity=1 << 16,
+                prefix_cache=prefix_cache, mixed_step=mixed)
+    if mixed:
+        scfg["mixed_step_buckets"] = True
+    else:
+        scfg["prefill_chunk_tokens"] = PAGED_CHUNK
+    return scfg
+
+
+def family_run(label, cfg, params, run, device="cuda"):
+    """One of ``FAMILY_RUNS``' runs: serve its traffic, log tokens/s, TTFT
+    p50, mean step ms and peak memory, check the gates (every request
+    finished, no page leaked, no row flagged, K6 = layers x steps on the
+    device, or K7a = layers x decode forwards and K7b = layers x chunk
+    forwards; with the prefix cache at least 12 hits). Returns the tokens
+    and the kernels' launches."""
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
+
+    name, mixed, graphed, bs, cached, traffic, _ = run
+    L = cfg.num_hidden_layers
+    phases = None
+    if traffic == "shared":
+        phases = shared_prefix_phases(cfg.vocab_size, 4, 4, 512, (64, 512),
+                                      (32, 64), 0)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    srv, rids, res, wall, launches = serve(
+        cfg, 0, 16, (64, 1536), (32, 64), family_scfg(mixed, bs, cached),
+        torch.bfloat16, device=device, params=params, phases=phases,
+        engine_kw=dict(enable_cuda_graph=graphed))
+    m = srv.metrics
+    steps = len(step_widths(srv)) if mixed else m.steps
+    tokens = [(res[r].state, res[r].finish_reason, res[r].tokens)
+              for r in rids]
+    finished = sum(st == "finished" for st, _, _ in tokens)
+    generated = sum(len(t) for _, _, t in tokens)
+    ttft = float(np.median([res[r].ttft_s for r in rids]))
+    runs_k6 = kernel_runs(device) if device == "cuda" else 0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if device == "cuda" else float("nan")
+    log(f"families {label} {name}: x{L} layers bf16, "
+        f"{'unified' if mixed else 'two-program'} engine, enable_cuda_graph "
+        f"{graphed}, pages of {bs}, prefix_cache {cached}, {len(rids)} "
+        f"requests, {finished} finished, {steps} steps, wall {wall:.3f} s, "
+        f"generated {generated} tokens = {generated / wall:.1f} tok/s, "
+        f"ttft_p50 {ttft:.3f} s, mean step {1e3 * wall / max(steps, 1):.2f} "
+        f"ms, prefix hits {m.prefix_hits} ({m.cached_prefill_tokens} cached "
+        f"tokens), graphs {len(srv._graphs)}, K6 runs on the device "
+        f"{runs_k6}, wrapper launches {launches}, peak memory {peak:.1f} GiB")
+    srv.block_pool.check_consistent()
+    problems = []
+    if finished != len(rids):
+        problems.append(f"{len(rids) - finished} requests did not finish")
+    if srv.block_pool.used_count:
+        problems.append(f"{srv.block_pool.used_count} pages leaked")
+    if m.logit_quarantines:
+        problems.append(f"{m.logit_quarantines} rows flagged NaN/Inf")
+    if cached and m.prefix_hits < 12:
+        problems.append(f"{m.prefix_hits} prefix hits < 12")
+    if mixed:
+        want = {"ragged_paged_attention": L * steps}
+        if device == "cuda" and runs_k6 != L * steps:
+            problems.append(f"K6 ran {runs_k6} times on the device, not "
+                            f"{L} x {steps} steps")
+        if not graphed and launches["ragged_paged_attention"] != L * steps:
+            problems.append(f"K6 launches {launches} != {want}")
+        launches = {"ragged_paged_attention": runs_k6 if device == "cuda"
+                    else launches["ragged_paged_attention"]}
+    else:
+        want = {"ragged_paged_attention": 0,
+                "paged_decode_attention": L * srv.decode_calls,
+                "paged_prefill_attention": L * srv.prefill_chunk_calls,
+                "flash_attention_fwd_masked": 0}
+        if launches != want or not srv.decode_calls or \
+                not srv.prefill_chunk_calls:
+            problems.append(f"launches {launches} != {want}")
+        launches = {k: v for k, v in launches.items() if v}
+    if problems:
+        raise AssertionError(f"families {label} {name}: "
+                             + "; ".join(problems))
+    del srv, res
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return tokens, launches
+
+
+def check_family_twin(label, over, device="cuda"):
+    """A 2-layer fp32 twin of a family at its published width, served as
+    ``check_small_reference`` serves its model (6 seeded requests) by the
+    unified engine and by the two-program engine with the prefix cache
+    (shared-prefix traffic), each once on the kernels and once with the
+    model's kernel wrappers swapped for their plain versions: identical
+    greedy tokens, and the kernel route's K6 (device), K7a and K7b runs."""
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.ragged_attention import kernel_runs
+
+    cfg = LlamaConfig(**dict(over, num_hidden_layers=2))
+    params = LlamaForCausalLM(cfg).init_params(seed=3, dtype=torch.float32,
+                                               device=device)
+    phases = shared_prefix_phases(cfg.vocab_size, 2, 3, 48, (3, 40), (4, 12),
+                                  5)
+    bs = 16 if label == "gemma_7b" else 32
+    engines = {
+        "unified": dict(max_batch_size=4, block_size=bs, num_blocks=1024 // bs,
+                        max_model_len=128, prefill_token_budget=32),
+        "two_program": dict(max_batch_size=4, block_size=8, num_blocks=128,
+                            max_model_len=128, mixed_step=False,
+                            prefix_cache=True, prefill_chunk_tokens=16,
+                            prefill_token_budget=32),
+    }
+    launches = {}
+    for engine, scfg in engines.items():
+        tokens, counts = {}, {}
+        for route in ("kernel", "plain"):
+            with plain_route() if route == "plain" else \
+                    contextlib.nullcontext():
+                kwargs = dict(phases=phases) if engine == "two_program" \
+                    else {}
+                srv, rids, res, _, counts[route] = serve(
+                    cfg, 3, 6, (5, 90), (4, 12), dict(scfg, trace=True),
+                    torch.float32, device=device, params=params, **kwargs)
+            tokens[route] = [(res[r].state, res[r].tokens) for r in rids]
+            if route == "kernel" and device == "cuda":
+                counts[route]["ragged_paged_attention"] = kernel_runs(device)
+            srv.block_pool.check_consistent()
+            if srv.block_pool.used_count:
+                raise AssertionError(f"families {label} fp32 twin {engine}: "
+                                     f"{srv.block_pool.used_count} pages "
+                                     f"leaked")
+        ran = {n for n, c in counts["kernel"].items() if c}
+        expected = {"ragged_paged_attention"} if engine == "unified" else \
+            {"paged_decode_attention", "paged_prefill_attention"}
+        ok = tokens["kernel"] == tokens["plain"] and \
+            all(st == "finished" for st, _ in tokens["kernel"]) and \
+            ran == expected and not any(counts["plain"].values())
+        log(f"families {label} fp32 twin (2 layers at published width), "
+            f"{engine} engine, kernels vs plain versions, "
+            f"{len(tokens['kernel'])} requests: tokens identical="
+            f"{tokens['kernel'] == tokens['plain']} ok={ok} (launches "
+            f"{counts['kernel']} / {counts['plain']})")
+        if not ok:
+            raise AssertionError(f"families {label} fp32 twin {engine}: "
+                                 f"kernels and plain versions disagree or a "
+                                 f"route launched the wrong kernels")
+        launches[f"{label}_fp32_twin_{engine}"] = {
+            k: v for k, v in counts["kernel"].items() if v}
+    del params
+    return launches
+
+
+def check_families(device="cuda"):
+    """The ``families`` phase: (g) Gemma-7B and (h) Qwen2-7B at their
+    published widths and depths from random bf16 weights (seed 0), each
+    through ``FAMILY_RUNS`` (the unified engine uncaptured and captured at
+    bucketed widths, whose tokens must be equal, and the two-program
+    engine with the prefix cache; Qwen2 at pages of 32 and 8), then its
+    2-layer fp32 twin (:func:`check_family_twin`). Returns the launches of
+    each serving kernel by run."""
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    launches = {}
+    for label, (over, runs) in FAMILY_RUNS.items():
+        cfg = LlamaConfig(**over)
+        t = time.perf_counter()
+        params = LlamaForCausalLM(cfg).init_params(
+            seed=0, dtype=torch.bfloat16, device=device)
+        log(f"families {label}: {sum(p.numel() for p in params.values()):,} "
+            f"parameters made in {time.perf_counter() - t:.1f} s")
+        tokens = {}
+        for run in runs:
+            tokens[run[0]], launches[f"{label}_{run[0]}"] = family_run(
+                label, cfg, params, run, device)
+            twin = run[6]
+            if twin is not None and tokens[run[0]] != tokens[twin]:
+                raise AssertionError(f"families {label} {run[0]}: tokens or "
+                                     f"finish reasons differ from {twin}")
+            if twin is not None:
+                log(f"families {label} {run[0]}: tokens identical to {twin}")
+        del params
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        launches.update(check_family_twin(label, over, device))
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5848,6 +6151,7 @@ def main() -> int:
     sparse_launches = phase(check_long_context)
     hf_runs = phase(check_hf_inject, serve_runs["uncaptured"]["tokens"])
     generic_runs = phase(check_generic)
+    family_runs = phase(check_families)
 
     def generic_run_launches(name):
         """A kernel's launches in each generic families run that ran it."""
@@ -6020,6 +6324,9 @@ def main() -> int:
             **main_case))
     for entry in kernels:
         entry["generic_launches"] = generic_run_launches(entry["name"])
+        entry["families_launches"] = {
+            run: counts[entry["name"]] for run, counts in family_runs.items()
+            if counts.get(entry["name"])}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@
 // per-row segments (query_start, query_len); token t of row r sits at
 // position chunk_start[r] + t and attends its row's kv positions p with
 // p <= pos, p < context_lens[r] and, with a window, pos - p < window. Query
-// head kvh*G + g reads kv head kvh. Softmax runs in fp32; a token that sees
-// no key, and a token no row claims, comes back as zeros.
+// head kvh*G + g reads kv head kvh, for any whole group G; the pool's pages
+// hold any number bs of tokens, D is 64, 80, 96, 128 or 256. Softmax runs in
+// fp32; a token that sees no key, and a token no row claims, comes back as
+// zeros.
 //
 // Bound: bytes. A step reads every visible K/V page of every row once per
 // kv head, plus q and the output; the arithmetic per byte is far below the
@@ -29,15 +31,17 @@
 //    on which block ran an item or when, so the result is bitwise
 //    deterministic.
 // 2. No per-page barriers or serial softmax: an item walks 64-key tiles
-//    (four pages gathered through the table) through a 2-stage cp.async
-//    ring, and the online softmax runs in the mma accumulator fragments
-//    (bf16) or one warp per row (fp32).
+//    (gathered key by key through the table, any page size) through a
+//    cp.async ring, and the online softmax runs in the mma accumulator
+//    fragments (bf16) or one warp per row (fp32).
 // 3. Decode rows do not waste a 32-row tile: a row of a few tokens
 //    (tokens x G heads <= 16, e.g. one decode token, or a speculative
 //    verify row) is one narrow item on K4's mapping, its rows padded to 16
-//    and the four warps on different pages of each tile; longer rows are
-//    cut into chunk tiles on K1's mapping, 64 / G tokens x G heads = 64
-//    rows, a warp per 16.
+//    and the four warps on different 16-key slices of each tile; longer
+//    rows, and any row of a group over 16, are cut into chunk tiles on
+//    K1's mapping, floor(64 / G) tokens x G heads, a warp per 16 rows (a
+//    group over 64 heads: one token a tile, its heads in chunks of at most
+//    64).
 // 4. Tensor cores for bf16 q (mma.sync m16n8k16, Q and P in registers)
 //    over a bf16 pool, or an int8 pool whose codes are converted to bf16
 //    exactly in shared memory (the scales stay fp32: K's on the score, V's
@@ -48,7 +52,7 @@
 //    class) and each packed token's split range; a persistent grid of
 //    `grid` blocks (two per SM) runs items b, then the next from an
 //    atomic queue head, so a block that finishes early takes more.
-//    The launch depends on T, R, nb, Hkv, D and the SM count only, never
+//    The launch depends on T, R, nb, bs, Hkv, D and the SM count only, never
 //    on the descriptors' values, so a captured CUDA graph replays for new
 //    ones. merge_kernel writes zeros for every token no row claims, so the
 //    wrapper's output needs no fill. Three launches: the plan, the walk,
@@ -76,7 +80,7 @@ struct Ragged {
 
 // tokens of row r inside the packed axis (0 for an idle row), and its query
 // tile: all of them if they make a narrow item (tokens x G <= narrow_rows),
-// else chunk_rows / G tokens
+// else chunk_rows / gc tokens (one where the group is cut into chunks)
 __device__ __forceinline__ int row_tokens(const Ragged& g, int r) {
   const int qs = g.qs[r];
   const int ql = g.ql[r];
@@ -91,7 +95,13 @@ __device__ __forceinline__ bool narrow_row(const Pool& p, const Ragged& g,
 
 __device__ __forceinline__ int row_tile(const Pool& p, const Ragged& g,
                                         int nq) {
-  return narrow_row(p, g, nq) ? max(nq, 1) : g.chunk_rows / p.G;
+  return narrow_row(p, g, nq) ? max(nq, 1) : g.chunk_rows / p.gc;
+}
+
+// work items of one (query tile, split) of a row: one per kv head, times
+// the head chunks of a chunk item
+__device__ __forceinline__ int heads_items(const Pool& p, bool narrow) {
+  return narrow ? p.Hkv : p.Hkv * p.nch;
 }
 
 __device__ __forceinline__ int warp_sum_int(int x) {
@@ -115,11 +125,11 @@ __device__ __forceinline__ void tile_splits(const Pool& p, int pos0, int ntok,
 }
 
 // One block lays out the work: every row's items (its query tiles' splits
-// times Hkv), chunk rows first (the heavier items), as order and prefix;
-// each claimed token's split range as info; the queue head at the grid
-// size (block b's first item is b). A warp
-// counts a row (its lanes take the row's query tiles), PLAN_ROWS rows a
-// round, and thread 0 appends them in row order.
+// times Hkv, times the head chunks of a chunk row), chunk rows first (the
+// heavier items), as order and prefix; each claimed token's split range as
+// info; the queue head at the grid size (block b's first item is b). A
+// warp counts a row (its lanes take the row's query tiles), PLAN_ROWS rows
+// a round, and thread 0 appends them in row order.
 __global__ void __launch_bounds__(PLAN_THREADS) ragged_plan_kernel(Pool p,
                                                                    Ragged g) {
   __shared__ int items_s[PLAN_ROWS];  // a round's item counts, -1: not now
@@ -149,9 +159,11 @@ __global__ void __launch_bounds__(PLAN_THREADS) ragged_plan_kernel(Pool p,
               g.info[qs + tok + j] = (s_lo << 16) | n;
         }
         items = warp_sum_int(items);
+        const bool narrow = narrow_row(p, g, nq);
         if (lane == 0)
-          items_s[i] = narrow_row(p, g, nq) == (pass == 1) ? items * p.Hkv
-                                                           : -1;
+          items_s[i] = narrow == (pass == 1)
+                           ? items * heads_items(p, narrow)
+                           : -1;
       }
       __syncthreads();
       if (threadIdx.x == 0)
@@ -193,12 +205,17 @@ __global__ void __launch_bounds__(THREADS) ragged_walk_kernel(Pool p,
       if (le != ~0u) break;
     }
     const int r = g.order[a];
+    const int nq = row_tokens(g, r);
+    const bool narrow = narrow_row(p, g, nq);
+    const int heads = heads_items(p, narrow);
     int j = item - g.prefix[a];
     Item it;
     it.row = r;
-    it.kvh = j % p.Hkv;
-    j /= p.Hkv;
-    const int nq = row_tokens(g, r);
+    const int kc = j % heads;  // kv head (x head chunk)
+    j /= heads;
+    it.kvh = narrow ? kc : kc / p.nch;
+    it.g0 = narrow ? 0 : kc % p.nch * p.gc;
+    it.gn = narrow ? p.G : min(p.gc, p.G - it.g0);
     const int qt = row_tile(p, g, nq);
     it.clen = g.cl[r];
     int s_lo = 0, n = 0, tok = 0;
@@ -214,7 +231,7 @@ __global__ void __launch_bounds__(THREADS) ragged_walk_kernel(Pool p,
     it.t0 = max(s * p.per, it.lo / BK);
     it.t1 = min((s + 1) * p.per, it.hi / BK + 1);
     it.slot = n == 1 ? -1 : s;
-    run_item<QT, KT, D>(p, it, narrow_row(p, g, nq), smem);
+    run_item<QT, KT, D>(p, it, narrow, smem);
     if (threadIdx.x == 0) taken = atomicAdd(g.next, 1);
     __syncthreads();  // the next item reuses shared memory
     item = taken;
@@ -223,64 +240,56 @@ __global__ void __launch_bounds__(THREADS) ragged_walk_kernel(Pool p,
 }
 
 template <typename QT, typename KT, int D>
-cudaError_t launch(const Pool& p, const Ragged& g, int grid,
-                   cudaStream_t stream) {
-  ragged_plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(p, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr int bytes = item_smem<QT, KT, D>();
-  err = allow_smem<ragged_walk_kernel<QT, KT, D>>(bytes);
-  if (err != cudaSuccess) return err;
-  ragged_walk_kernel<QT, KT, D><<<grid, THREADS, bytes, stream>>>(p, g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  merge_kernel<QT><<<merge_grid(g.T, p.H), MERGE_THREADS, 0, stream>>>(
-      p, g.info, D);
-  return cudaGetLastError();
-}
-
-template <typename QT>
-cudaError_t launch_kv(const Pool& p, Ragged g, int kv_int8, int D, int grid,
-                      cudaStream_t stream) {
-  if (kv_int8) {
-    g.chunk_rows = chunk_rows<QT, int8_t>();
-    g.narrow_rows = narrow_rows<QT, int8_t>();
-    return D == 64 ? launch<QT, int8_t, 64>(p, g, grid, stream)
-                   : launch<QT, int8_t, 128>(p, g, grid, stream);
+struct Walk {
+  // the plan, the walk, the merge
+  static cudaError_t run(Pool p, Ragged g, cudaStream_t stream) {
+    g.chunk_rows = chunk_rows<QT, KT>();
+    g.narrow_rows = narrow_rows<QT, KT>();
+    head_chunks(p.G, g.chunk_rows, p.nch, p.gc);
+    constexpr int bytes = item_smem<QT, KT, D>();
+    cudaError_t err = allow_smem<ragged_walk_kernel<QT, KT, D>>(bytes);
+    if (err != cudaSuccess) return err;
+    ragged_plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(p, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ragged_walk_kernel<QT, KT, D><<<g.grid, THREADS, bytes, stream>>>(p, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    merge_kernel<QT, D><<<merge_grid(g.T, p.H), MERGE_THREADS, 0, stream>>>(
+        p, g.info);
+    return cudaGetLastError();
   }
-  g.chunk_rows = chunk_rows<QT, QT>();
-  g.narrow_rows = narrow_rows<QT, QT>();
-  return D == 64 ? launch<QT, QT, 64>(p, g, grid, stream)
-                 : launch<QT, QT, 128>(p, g, grid, stream);
-}
+};
 
 }  // namespace
 
 // C entry for ctypes. q/out: [T, H, D] (q_bf16: bf16, else fp32);
-// k/v pages: [N, Hkv, 16, D] in q's type, or int8 with fp32 scales
-// [N, Hkv, 16] (kv_int8); block_tables int32 [R, nb]; query_start,
+// k/v pages: [N, Hkv, bs, D] in q's type, or int8 with fp32 scales
+// [N, Hkv, bs] (kv_int8), for D 64, 80, 96, 128 or 256 and any page size
+// bs; Hkv divides H (any group); block_tables int32 [R, nb]; query_start,
 // query_len, chunk_start, context_lens int32 [R]; window <= 0: none.
-// A row's key axis is cut into `splits` ranges of `per` 64-key tiles, and
-// `grid` blocks take the work items (the wrapper derives all three from
-// the shapes and the card). iscratch: int32 [2R + 2 + T]; fscratch: fp32
-// [T * H * splits * (D + 2)]. runs: int32 [1] or null; each launch adds
-// one to it on the device when it runs (a CUDA graph's replays included).
-// Every element of out is written. The caller validates shapes. Returns cudaGetLastError() after the launches
-// (0 = launched).
+// A row's key axis (nb * bs keys) is cut into `splits` ranges of `per`
+// 64-key tiles, and `grid` blocks take the work items (the wrapper
+// derives all three from the shapes and the card). iscratch: int32
+// [2R + 2 + T]; fscratch: fp32 [T * H * splits * (D + 2)]. runs: int32 [1]
+// or null; each launch adds one to it on the device when it runs (a CUDA
+// graph's replays included). Every element of out is written. The caller
+// validates shapes. Returns cudaGetLastError() after the launches (0 =
+// launched).
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* query_start, const void* query_len, const void* chunk_start,
     const void* context_lens, void* out, void* iscratch, void* fscratch,
-    void* runs, int T, int H, int Hkv, int D, int N, int R, int nb, float sm_scale,
-    int window, int q_bf16, int kv_int8, int splits, int per, int grid,
-    void* stream) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (nb * PAGE + BK - 1) / BK;
-  if (T <= 0 || R <= 0 || R > 65535 || N <= 0 || nb <= 0 || Hkv <= 0 ||
-      H % Hkv != 0 || TC_ROWS % (H / Hkv) != 0 || CC_ROWS % (H / Hkv) != 0 ||
-      per <= 0 || splits != (tiles + per - 1) / per || splits > 65535 ||
-      grid <= 0)
+    void* runs, int T, int H, int Hkv, int D, int N, int R, int nb, int bs,
+    float sm_scale, int window, int q_bf16, int kv_int8, int splits, int per,
+    int grid, void* stream) {
+  if (!head_dim_ok(D) || T <= 0 || R <= 0 || R > 65535 || N <= 0 ||
+      nb <= 0 || bs <= 0 || static_cast<long long>(nb) * bs > 0x3FFFFFFFLL ||
+      Hkv <= 0 || H <= 0 || H % Hkv != 0 || per <= 0 || grid <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (nb * bs + BK - 1) / BK;
+  if (splits != (tiles + per - 1) / per || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Pool p;
   p.q = q;
@@ -298,6 +307,10 @@ extern "C" int ragged_paged_attention(
   p.nb = nb;
   p.G = H / Hkv;
   p.window = window;
+  p.bs = bs;
+  p.shift = page_shift(bs);
+  p.nch = 1;
+  p.gc = p.G;
   p.nsplit = splits;
   p.per = per;
   p.sl2 = sm_scale * LOG2E;
@@ -316,7 +329,11 @@ extern "C" int ragged_paged_attention(
   g.grid = grid;
   g.chunk_rows = g.narrow_rows = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      q_bf16 ? launch_kv<__nv_bfloat16>(p, g, kv_int8, D, grid, s)
-             : launch_kv<float>(p, g, kv_int8, D, grid, s));
+  const cudaError_t err =
+      q_bf16 ? (kv_int8 ? by_head_dim<Walk, __nv_bfloat16, int8_t>(D, p, g, s)
+                        : by_head_dim<Walk, __nv_bfloat16, __nv_bfloat16>(
+                              D, p, g, s))
+             : (kv_int8 ? by_head_dim<Walk, float, int8_t>(D, p, g, s)
+                        : by_head_dim<Walk, float, float>(D, p, g, s));
+  return static_cast<int>(err);
 }

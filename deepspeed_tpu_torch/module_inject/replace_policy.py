@@ -275,8 +275,8 @@ class HFGemmaLayerPolicy(HFLlamaLayerPolicy):
     explicit head_dim, gelu-tanh MLP, sqrt(hidden) embedding scaling,
     tied embeddings, and zero-centred RMSNorm weights (HF computes ``x *
     (1 + w)``; ``1 + w`` is folded into the port's scale at conversion).
-    The port's attention kernels take head dims 64 and 128: Gemma-2B/7B's
-    256 runs on the CPU only."""
+    Gemma-2B/7B's head dim 256 runs on the card through every attention
+    kernel of the generate and serving paths."""
 
     hf_model_types = ("GemmaForCausalLM", "gemma", "GemmaModel")
 

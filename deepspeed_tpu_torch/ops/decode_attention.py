@@ -16,10 +16,11 @@ Their bound on an H100 is bytes: the visible part of each row's K/V (and
 int8 scales) read once, against 3.35 TB/s. K4 cuts the key axis into
 :func:`decode_splits` ranges of whole tiles, one block each, and merges
 their partials in the same call; K7a does the same over the block table's
-capacity (:func:`paged_splits`), and K7b over the same capacity with its
+capacity (:func:`decode_launch`), and K7b over the same capacity with its
 query tiles counted in (:func:`prefill_launch`); both run the walk they
-share with K6 (``csrc/paged_common.cuh``). The design notes are at the top
-of the CUDA sources.
+share with K6 (``csrc/paged_common.cuh``), for any page size, head dims
+:data:`KERNEL_HEAD_DIMS` and any whole GQA group. The design notes are at
+the top of the CUDA sources.
 """
 
 import ctypes
@@ -30,19 +31,18 @@ import torch
 
 from . import _build, _runs
 
-#: head dims K4 is compiled for; it takes any whole GQA group
+#: head dims K4 and the paged kernels (K7a, K7b) are compiled for: those
+#: of every published model the JAX package serves; each takes any whole
+#: GQA group, the paged ones any page size
 KERNEL_HEAD_DIMS = (64, 80, 96, 128, 256)
-#: head dims of the paged kernels (K7a, K7b); the rest of their domain is
-#: ROADMAP.md Queue 2, step 3
-PAGED_HEAD_DIMS = (64, 128)
-#: most query heads one kv head may serve in K7a
-PAGED_MAX_GROUP = 8
-#: pool page size the paged kernels are compiled for
-KERNEL_BLOCK_SIZE = 16
-#: query rows (tokens x G) of one K7b block, by q's dtype: the walk's
-#: chunk item, 64 rows on the tensor cores (bf16 q), 32 on the CUDA cores
-#: (fp32 q); G must divide them
+#: query rows (tokens x heads) of the paged walk's chunk item, by q's
+#: dtype: 64 on the tensor cores (bf16 q), 32 on the CUDA cores (fp32 q);
+#: a chunk holds floor(rows / G) tokens, and a group over the rows is cut
+#: into head chunks of one token (:func:`head_chunks`)
 KERNEL_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+#: most rows of the walk's narrow item (one K7a token of a group up to
+#: this many heads), by q's dtype
+KERNEL_NARROW_ROWS = {torch.bfloat16: 16, torch.float32: 8}
 #: keys of one K4 tile: a split is a whole number of tiles
 KERNEL_KEY_TILE = 64
 #: K4's and the paged walks' (K6, K7a) blocks the split count aims for
@@ -70,26 +70,55 @@ def _split_tiles(B: int, Hkv: int, S: int, sm_count: int):
     return -(-tiles // per), per
 
 
-def paged_splits(rows: int, Hkv: int, nb: int, sm_count: int):
+def paged_splits(rows: int, Hkv: int, nb: int, bs: int, sm_count: int):
     """``(splits, per)`` of the paged walks (K6, K7a): a block table of
-    ``nb`` pages (``nb * 16`` keys, the capacity, never a context length)
-    cut by :func:`decode_splits`' rule into ``splits`` ranges of ``per``
-    whole ``KERNEL_KEY_TILE``-key tiles, for ``rows`` table rows."""
-    return _split_tiles(rows, Hkv, nb * KERNEL_BLOCK_SIZE, sm_count)
+    ``nb`` pages of ``bs`` tokens (``nb * bs`` keys, the capacity, never a
+    context length) cut by :func:`decode_splits`' rule into ``splits``
+    ranges of ``per`` whole ``KERNEL_KEY_TILE``-key tiles, for ``rows``
+    table rows (rows times head chunks, where a group is cut)."""
+    return _split_tiles(rows, Hkv, nb * bs, sm_count)
 
 
-def prefill_launch(B: int, T: int, H: int, Hkv: int, nb: int,
+def head_chunks(G: int, rows: int):
+    """``(chunks, heads)``: a chunk item of ``rows`` rows takes a group of
+    ``G`` query heads whole where it fits (``(1, G)``), else in the fewest
+    chunks of at most ``rows`` heads, ``heads`` each (the last may hold
+    fewer), one token an item."""
+    chunks = -(-G // rows)
+    return chunks, -(-G // chunks)
+
+
+def decode_launch(B: int, H: int, Hkv: int, nb: int, bs: int,
+                  dtype: torch.dtype, sm_count: int):
+    """K7a's launch for ``B`` sequences, ``H`` query heads over ``Hkv`` kv
+    heads, a table of ``nb`` pages of ``bs`` tokens, q of ``dtype``:
+    ``narrow`` (the group fits ``KERNEL_NARROW_ROWS[dtype]`` rows: one
+    narrow item a (sequence, kv head, split), else a chunk item of one
+    token a head chunk), ``chunks`` head chunks a kv head, and
+    :func:`paged_splits`' ``splits`` and ``per`` for ``B * chunks`` rows of
+    work. The grid is ``(B, Hkv * chunks, splits)``."""
+    G = H // Hkv
+    narrow = G <= KERNEL_NARROW_ROWS[dtype]
+    chunks = 1 if narrow else head_chunks(G, KERNEL_TILE_ROWS[dtype])[0]
+    splits, per = paged_splits(B * chunks, Hkv, nb, bs, sm_count)
+    return dict(narrow=narrow, chunks=chunks, splits=splits, per=per)
+
+
+def prefill_launch(B: int, T: int, H: int, Hkv: int, nb: int, bs: int,
                    dtype: torch.dtype, sm_count: int):
     """K7b's launch for ``B`` chunks of ``T`` tokens, ``H`` query heads
-    over ``Hkv`` kv heads, a table of ``nb`` pages, q of ``dtype``:
-    ``tiles`` query tiles a chunk (``KERNEL_TILE_ROWS[dtype] // G`` tokens
-    each), and :func:`paged_splits`' ``splits`` and ``per`` for ``B *
-    tiles`` rows of work. The grid is ``(B * tiles, Hkv, splits)``. Shapes
-    only: ``chunk_start`` and ``context_lens`` never change it."""
-    tokens = KERNEL_TILE_ROWS[dtype] // (H // Hkv)
-    tiles = -(-T // tokens)
-    splits, per = paged_splits(B * tiles, Hkv, nb, sm_count)
-    return dict(tiles=tiles, splits=splits, per=per)
+    over ``Hkv`` kv heads, a table of ``nb`` pages of ``bs`` tokens, q of
+    ``dtype``: ``chunks`` head chunks a kv head (:func:`head_chunks`),
+    ``tiles`` query tiles a chunk (``KERNEL_TILE_ROWS[dtype] // heads``
+    tokens each), and :func:`paged_splits`' ``splits`` and ``per`` for
+    ``B * tiles * chunks`` rows of work. The grid is ``(B * tiles, Hkv *
+    chunks, splits)``. Shapes only: ``chunk_start`` and ``context_lens``
+    never change it."""
+    rows = KERNEL_TILE_ROWS[dtype]
+    chunks, heads = head_chunks(H // Hkv, rows)
+    tiles = -(-T // (rows // heads))
+    splits, per = paged_splits(B * tiles * chunks, Hkv, nb, bs, sm_count)
+    return dict(tiles=tiles, chunks=chunks, splits=splits, per=per)
 
 
 @functools.lru_cache(maxsize=None)
@@ -356,22 +385,21 @@ def _paged_entries():
     P, I = ctypes.c_void_p, ctypes.c_int
     dec = lib.paged_decode_attention
     # q k v k_scale v_scale tables context_lens out scratch | B H Hkv D N
-    # nb | sm_scale window q_bf16 kv_int8 splits per | runs stream
-    dec.argtypes = [P] * 9 + [I] * 6 + [ctypes.c_float, I, I, I, I, I, P, P]
+    # nb bs | sm_scale window q_bf16 kv_int8 splits per | runs stream
+    dec.argtypes = [P] * 9 + [I] * 7 + [ctypes.c_float, I, I, I, I, I, P, P]
     pre = lib.paged_prefill_attention
     # q k v k_scale v_scale tables chunk_start context_lens out scratch |
-    # B T H Hkv D N nb | sm_scale window q_bf16 kv_int8 splits per | runs
-    # stream
-    pre.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, I, I, I, I, I, P, P]
+    # B T H Hkv D N nb bs | sm_scale window q_bf16 kv_int8 splits per |
+    # runs stream
+    pre.argtypes = [P] * 10 + [I] * 8 + [ctypes.c_float, I, I, I, I, I, P, P]
     dec.restype = pre.restype = I
     return dec, pre
 
 
 def _check_paged_args(name, q, k_pages, v_pages, block_tables, descriptors,
-                      k_scale, v_scale, window, max_group=None,
-                      tile_rows=None):
+                      k_scale, v_scale, window):
     """Raise on anything the paged kernels do not take; returns
-    ``(B, H, D, N, Hkv, nb)``."""
+    ``(B, H, D, N, Hkv, nb, bs)``."""
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: q must be bf16 or fp32, got {q.dtype}")
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
@@ -379,18 +407,20 @@ def _check_paged_args(name, q, k_pages, v_pages, block_tables, descriptors,
         raise ValueError(f"{name}: k_pages and v_pages must both be "
                          f"[N, Hkv, bs, D]")
     N, Hkv, bs, Dk = k_pages.shape
-    if Dk != D or D not in PAGED_HEAD_DIMS or bs != KERNEL_BLOCK_SIZE:
+    if Dk != D or D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: the kernel takes head_dim in "
-                         f"{PAGED_HEAD_DIMS} and pages of "
-                         f"{KERNEL_BLOCK_SIZE} tokens, got head_dim "
-                         f"{D}/{Dk}, block_size {bs} (the rest is "
-                         f"ROADMAP.md Queue 2, step 3)")
-    G = H // max(Hkv, 1)
-    if H % Hkv or (max_group and G > max_group) \
-            or (tile_rows and tile_rows % G):
-        raise ValueError(f"{name}: query heads {H} over kv heads {Hkv} is "
-                         f"a group the kernel does not take (ROADMAP.md "
-                         f"Queue 2, step 3)")
+                         f"{KERNEL_HEAD_DIMS}, got head_dim {D}/{Dk} (no "
+                         f"published model the JAX package serves has "
+                         f"another; ROADMAP.md Queue 2)")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"{name}: query heads {H} over kv heads {Hkv}: "
+                         f"the group must be whole")
+    if bs < 1:
+        raise ValueError(f"{name}: pages must hold at least one token")
+    rows = KERNEL_TILE_ROWS[q.dtype]
+    if Hkv * head_chunks(H // Hkv, rows)[0] > 65535:
+        raise ValueError(f"{name}: {Hkv} kv heads x head chunks exceed "
+                         f"the grid")
     int8 = k_scale is not None
     want = torch.int8 if int8 else q.dtype
     if k_pages.dtype != want or v_pages.dtype != want:
@@ -421,7 +451,7 @@ def _check_paged_args(name, q, k_pages, v_pages, block_tables, descriptors,
                              f"aligned")
     if window is not None and int(window) <= 0:
         raise ValueError("window must be a positive int or None")
-    return B, H, D, N, Hkv, block_tables.shape[1]
+    return B, H, D, N, Hkv, block_tables.shape[1], bs
 
 
 def _paged_device(name, tensors, k_scale, v_scale):
@@ -450,13 +480,15 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
     current stream (the split walk over the block table and its merge, in
     one C call) and add one to ``paged_decode_attention.launches`` (and
     the kernel to its device run count, ``_runs.kernel_runs``); CPU
-    tensors take the plain version; anything else raises. The split count
-    comes from the table's width and the card (:func:`paged_splits`), never
-    from ``context_lens``, so the launch is the same for every value of
-    the descriptors and a captured CUDA graph replays for new ones. bf16 q
-    runs on the tensor cores (P.V as bf16(P) + bf16(P - bf16(P))), over a
-    bf16 pool or an int8 one (its codes are exact in bf16, its scales stay
-    fp32); fp32 q in exact fp32 on CUDA cores. The bound
+    tensors take the plain version; anything else raises. The launch comes
+    from the table's width, the page size, the group and the card
+    (:func:`decode_launch`), never from ``context_lens``, so it is the same
+    for every value of the descriptors and a captured CUDA graph replays
+    for new ones. bf16 q runs on the tensor cores (P.V as bf16(P) +
+    bf16(P - bf16(P))), over a bf16 pool or an int8 one (its codes are
+    exact in bf16, its scales stay fp32); fp32 q in exact fp32 on CUDA
+    cores. Head dims :data:`KERNEL_HEAD_DIMS`, any whole group, any page
+    size. The bound
     is bytes: the visible pages over 3.35 TB/s; the design notes are at
     the top of ``csrc/paged_attention.cu``."""
     dev = _paged_device("paged_decode_attention",
@@ -469,10 +501,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
             v_scale=v_scale)
     if q.dim() != 3:
         raise ValueError(f"q must be [B, H, D], got {tuple(q.shape)}")
-    B, H, D, N, Hkv, nb = _check_paged_args(
+    B, H, D, N, Hkv, nb, bs = _check_paged_args(
         "paged_decode_attention", q, k_pages, v_pages, block_tables,
-        (context_lens,), k_scale, v_scale, window,
-        max_group=PAGED_MAX_GROUP)
+        (context_lens,), k_scale, v_scale, window)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -482,7 +513,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
         sm_scale = 1.0 / D ** 0.5
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
         else (None, None)
-    splits, per = paged_splits(B, Hkv, nb, _sm_count(out.device.index))
+    lp = decode_launch(B, H, Hkv, nb, bs, q.dtype,
+                       _sm_count(out.device.index))
+    splits = lp["splits"]
     # per (sequence, query head, split): D accumulators, then m and l
     scratch = torch.empty(B * H * splits * (D + 2) if splits > 1 else 0,
                           dtype=torch.float32, device=dev)
@@ -491,9 +524,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if splits > 1 else None, B, H, Hkv, D, N, nb,
-            float(sm_scale), 0 if window is None else int(window),
+            bs, float(sm_scale), 0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
-            splits, per,
+            splits, lp["per"],
             _runs.counter("paged_decode_attention", dev).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -516,9 +549,10 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
     from the shapes and the card (:func:`prefill_launch`), never from
     ``chunk_start`` or ``context_lens``, so a captured CUDA graph replays
     for new descriptors. bf16 q runs on the tensor cores as K7a does, a
-    query tile of 64 / G tokens x G heads; fp32 q in exact fp32 on CUDA
-    cores, 32 / G tokens a tile. Every output element is written (zeros
-    for rows at or past the context)."""
+    query tile of floor(64 / G) tokens x G heads; fp32 q in exact fp32 on
+    CUDA cores, floor(32 / G) tokens a tile; a larger group takes one token
+    a tile in head chunks (:func:`head_chunks`). Every output element is
+    written (zeros for rows at or past the context)."""
     dev = _paged_device("paged_prefill_attention",
                         (q, k_pages, v_pages, block_tables, chunk_start,
                          context_lens), k_scale, v_scale)
@@ -529,10 +563,9 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
             v_scale=v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
-    B, H, D, N, Hkv, nb = _check_paged_args(
+    B, H, D, N, Hkv, nb, bs = _check_paged_args(
         "paged_prefill_attention", q, k_pages, v_pages, block_tables,
-        (chunk_start, context_lens), k_scale, v_scale, window,
-        tile_rows=KERNEL_TILE_ROWS.get(q.dtype))
+        (chunk_start, context_lens), k_scale, v_scale, window)
     T = q.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -543,7 +576,8 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
         sm_scale = 1.0 / D ** 0.5
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
         else (None, None)
-    lp = prefill_launch(B, T, H, Hkv, nb, q.dtype, _sm_count(out.device.index))
+    lp = prefill_launch(B, T, H, Hkv, nb, bs, q.dtype,
+                        _sm_count(out.device.index))
     splits = lp["splits"]
     # per (token, query head, split): D accumulators, then m and l
     scratch = torch.empty(B * T * H * splits * (D + 2) if splits > 1 else 0,
@@ -554,7 +588,7 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, chunk_start,
             block_tables.data_ptr(), chunk_start.data_ptr(),
             context_lens.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if splits > 1 else None, B, T, H, Hkv, D, N,
-            nb, float(sm_scale), 0 if window is None else int(window),
+            nb, bs, float(sm_scale), 0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
             splits, lp["per"],
             _runs.counter("paged_prefill_attention", dev).data_ptr(),

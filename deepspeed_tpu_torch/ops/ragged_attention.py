@@ -25,28 +25,22 @@ from typing import Optional
 import torch
 
 from . import _build, _runs
-from .decode_attention import _sm_count, paged_splits
+from .decode_attention import (KERNEL_HEAD_DIMS, KERNEL_TILE_ROWS,
+                               _sm_count, head_chunks, paged_splits)
 
-#: pool page size the kernel is compiled for
-KERNEL_BLOCK_SIZE = 16
-#: head dims the kernel is compiled for; the rest of the JAX kernel's
-#: domain is ROADMAP.md Queue 2, step 3
-KERNEL_HEAD_DIMS = (64, 128)
-#: query rows of a chunk item on the CUDA cores (q_tile tokens x G heads);
-#: the group size must divide it (the tensor cores' 64 rows too)
-KERNEL_TILE_ROWS = 32
 #: persistent blocks per SM that take the work items
 BLOCKS_PER_SM = 2
 
 
-def launch_params(T: int, R: int, nb: int, Hkv: int, sm_count: int):
+def launch_params(T: int, R: int, nb: int, bs: int, Hkv: int,
+                  sm_count: int):
     """The kernel's launch for a packed width ``T``, ``R`` table rows of
-    ``nb`` pages and ``Hkv`` kv heads on a card of ``sm_count`` SMs:
-    ``splits`` ranges of ``per`` 64-key tiles of a row's key axis
-    (:func:`paged_splits`), and ``grid`` persistent blocks (at most
-    :data:`BLOCKS_PER_SM` an SM, at most one per possible item). Shapes
-    only: the descriptors' values never change it."""
-    splits, per = paged_splits(R, Hkv, nb, sm_count)
+    ``nb`` pages of ``bs`` tokens and ``Hkv`` kv heads on a card of
+    ``sm_count`` SMs: ``splits`` ranges of ``per`` 64-key tiles of a row's
+    ``nb * bs`` keys (:func:`paged_splits`), and ``grid`` persistent blocks
+    (at most :data:`BLOCKS_PER_SM` an SM, at most one per possible item).
+    Shapes only: the descriptors' values never change it."""
+    splits, per = paged_splits(R, Hkv, nb, bs, sm_count)
     grid = min(BLOCKS_PER_SM * sm_count, max(1, T * Hkv * splits))
     return dict(splits=splits, per=per, grid=grid)
 
@@ -114,9 +108,9 @@ def _entry():
     fn = _build.load("ragged_attention").ragged_paged_attention
     P, I = ctypes.c_void_p, ctypes.c_int
     # q k v k_scale v_scale tables qs ql cs cl out iscratch fscratch runs
-    # | T H Hkv D N R nb | sm_scale window q_bf16 kv_int8 splits per grid
-    # | stream
-    fn.argtypes = [P] * 14 + [I] * 7 + [ctypes.c_float] + [I] * 6 + [P]
+    # | T H Hkv D N R nb bs | sm_scale window q_bf16 kv_int8 splits per
+    # grid | stream
+    fn.argtypes = [P] * 14 + [I] * 8 + [ctypes.c_float] + [I] * 6 + [P]
     fn.restype = I
     return fn
 
@@ -131,15 +125,19 @@ def _check_kernel_args(q, k_pages, v_pages, block_tables, descriptors,
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError("k_pages and v_pages must both be [N, Hkv, bs, D]")
     N, Hkv, bs, Dk = k_pages.shape
-    if Dk != D or D not in KERNEL_HEAD_DIMS or bs != KERNEL_BLOCK_SIZE:
-        raise ValueError(f"the kernel takes head_dim in {KERNEL_HEAD_DIMS} "
-                         f"and pages of {KERNEL_BLOCK_SIZE} tokens, got "
-                         f"head_dim {D}/{Dk}, block_size {bs} (the rest is "
-                         f"ROADMAP.md Queue 2, step 3)")
-    if H % Hkv or KERNEL_TILE_ROWS % (H // Hkv):
+    if Dk != D or D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got head_dim {D}/{Dk} (no published model the "
+                         f"JAX package serves has another; ROADMAP.md "
+                         f"Queue 2)")
+    if Hkv < 1 or H % Hkv:
         raise ValueError(f"query heads {H} over kv heads {Hkv}: the group "
-                         f"size must divide {KERNEL_TILE_ROWS} (ROADMAP.md "
-                         f"Queue 2, step 3)")
+                         f"must be whole")
+    if bs < 1:
+        raise ValueError("pages must hold at least one token")
+    if Hkv * head_chunks(H // Hkv, KERNEL_TILE_ROWS[q.dtype])[0] > 65535:
+        raise ValueError(f"{Hkv} kv heads x head chunks exceed the kernel's "
+                         f"item count")
     int8 = k_scale is not None
     want = torch.int8 if int8 else q.dtype
     if k_pages.dtype != want or v_pages.dtype != want:
@@ -184,7 +182,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
     captured CUDA graph replays for new descriptor values. bf16 q runs on
     the tensor cores (P.V as bf16(P) + bf16(P - bf16(P))), over a bf16
     pool or an int8 one (its codes are exact in bf16, its scales stay
-    fp32); fp32 q in exact fp32 on CUDA cores."""
+    fp32); fp32 q in exact fp32 on CUDA cores. Head dims
+    :data:`KERNEL_HEAD_DIMS`, any whole GQA group, any page size."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale (int8 pool) or "
                          "neither")
@@ -207,7 +206,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
     _check_kernel_args(q, k_pages, v_pages, block_tables, descriptors,
                        k_scale, v_scale, window)
     T, H, D = q.shape
-    N, Hkv = k_pages.shape[:2]
+    N, Hkv, bs = k_pages.shape[:3]
     R, nb = block_tables.shape
     if T == 0 or R == 0 or N == 0 or nb == 0:
         return torch.zeros_like(q)
@@ -216,7 +215,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
         sm_scale = 1.0 / D ** 0.5
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None \
         else (None, None)
-    lp = launch_params(T, R, nb, Hkv, _sm_count(out.device.index))
+    lp = launch_params(T, R, nb, bs, Hkv, _sm_count(out.device.index))
     # the item layout (queue head, order, prefix, each token's splits),
     # then per (token, query head, split) D accumulators, m and l
     iscratch = torch.empty(2 * R + 2 + T, dtype=torch.int32, device=dev)
@@ -228,7 +227,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, query_start,
             block_tables.data_ptr(), *(d.data_ptr() for d in descriptors),
             out.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(),
             _runs.counter("ragged_paged_attention", dev).data_ptr(), T, H,
-            Hkv, D, N, R, nb, float(sm_scale),
+            Hkv, D, N, R, nb, bs, float(sm_scale),
             0 if window is None else int(window),
             int(q.dtype == torch.bfloat16), int(k_scale is not None),
             lp["splits"], lp["per"], lp["grid"],

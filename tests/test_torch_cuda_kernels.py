@@ -53,28 +53,29 @@ RAGGED_LAYOUTS = {
 }
 
 
-def _ragged_tables(layout_rows, N, nb, rs):
+def _ragged_tables(layout_rows, N, nb, rs, bs=16):
     """Block tables and descriptors for rows of (query_len, chunk_start):
-    each live row owns distinct seeded pages covering its context (never
-    page N - 1), the rest of its table is the sentinel N."""
+    each live row owns distinct seeded pages of ``bs`` tokens covering its
+    context (never page N - 1), the rest of its table is the sentinel N."""
     R = len(layout_rows)
     bt = np.full((R, nb), N, np.int32)
     qs, ql, cs, cl = (np.zeros(R, np.int32) for _ in range(4))
     pages, cursor = iter(rs.permutation(N - 1)), 0
     for r, (n, start) in enumerate(layout_rows):
         if n:
-            for i in range(-(-(start + n) // 16)):
+            for i in range(-(-(start + n) // bs)):
                 bt[r, i] = next(pages)
             qs[r], ql[r], cs[r], cl[r] = cursor, n, start, start + n
             cursor += n
     return bt, qs, ql, cs, cl, cursor
 
 
-def _pool(dev, dtype, int8, N, Hkv, D, g, owned=None):
-    """A seeded pool; pages outside ``owned`` (page N - 1, where sentinel
-    entries clamp, stays finite) hold NaN, or NaN scales in an int8 pool,
-    so a kernel that reads a page it must not poisons its rows."""
-    shape = (N, Hkv, 16, D)
+def _pool(dev, dtype, int8, N, Hkv, D, g, owned=None, bs=16):
+    """A seeded pool of ``N`` pages of ``bs`` tokens; pages outside
+    ``owned`` (page N - 1, where sentinel entries clamp, stays finite) hold
+    NaN, or NaN scales in an int8 pool, so a kernel that reads a page it
+    must not poisons its rows."""
+    shape = (N, Hkv, bs, D)
     if int8:
         k, v = (torch.randint(-127, 128, shape, generator=g, device=dev,
                               dtype=torch.int8) for _ in range(2))
@@ -95,14 +96,19 @@ def _pool(dev, dtype, int8, N, Hkv, D, g, owned=None):
     return k, v, scales
 
 
-def _case(dev, dtype, int8, D, Hkv, G, seed=0, layout="small"):
+def _case(dev, dtype, int8, D, Hkv, G, seed=0, layout="small", bs=16):
     """Decode rows, chunk rows, idle rows, sentinel tails, padding, and a
-    pool whose unused pages hold NaN."""
+    pool whose unused pages hold NaN. Pages of ``bs`` tokens: the table
+    keeps the layout's ``nb * 16`` keys, the pool 8 pages beyond the rows'."""
     rs = np.random.RandomState(seed)
     N, nb, rows = RAGGED_LAYOUTS[layout]
-    bt, qs, ql, cs, cl, cursor = _ragged_tables(rows, N, nb, rs)
+    if bs != 16:
+        nb = -(-nb * 16 // bs)
+        N = sum(-(-(start + n) // bs) for n, start in rows if n) + 8
+    bt, qs, ql, cs, cl, cursor = _ragged_tables(rows, N, nb, rs, bs)
     g = torch.Generator(device=dev).manual_seed(seed)
-    k, v, scales = _pool(dev, dtype, int8, N, Hkv, D, g, owned=bt[bt < N])
+    k, v, scales = _pool(dev, dtype, int8, N, Hkv, D, g, owned=bt[bt < N],
+                         bs=bs)
     q = torch.randn((cursor + 5, Hkv * G, D), generator=g, device=dev,
                     dtype=dtype)
     desc = [torch.from_numpy(a).to(dev) for a in (bt, qs, ql, cs, cl)]
@@ -727,18 +733,18 @@ def test_fp32_route_sums_splits_in_order(cuda):
     assert not got[1:].any()
 
 
-def _paged_case(dev, dtype, int8, D, Hkv, G, T, seed=0, nb=10):
+def _paged_case(dev, dtype, int8, D, Hkv, G, T, seed=0, nb=10, bs=16):
     """A pool whose unused pages hold NaN (a kernel that touches a page it
     must not read poisons its row), a table with sentinel tails, and
     sequences with a partial last page, a mid-prompt chunk, an idle row
     (context 1 behind a sentinel row: it reads the clamped last page), an
-    empty row and a row that fills the table (nb * 16 keys: 2048 at
-    nb 128)."""
+    empty row and a row that fills the table (nb * bs keys: 2048 at
+    nb 128 of 16)."""
     rs = np.random.RandomState(seed)
-    N, bs = nb + 38, 16
     #            (chunk_start, context_len) per sequence
     rows = [(0, T), (70, 70 + T), (33, 33 + max(1, T // 2)), (0, 1), (0, 0),
             (nb * bs - T, nb * bs)]
+    N = max(nb + 38, sum(-(-c // bs) for _, c in rows) + 8)
     B = len(rows)
     bt = np.full((B, nb), N, np.int32)
     pages = iter(rs.permutation(N - 1))     # page N - 1 stays unowned
@@ -1029,6 +1035,124 @@ def test_paged_wrappers_count_one_launch_per_call(cuda):
                 paged_decode_attention.launches,
                 paged_prefill_attention.launches) == \
             (before[0] + n, before[1] + n, before[2] + n)
+
+
+# the rest of the JAX kernels' domain on the card: (D, Hkv, G, page size):
+# Gemma-7B's and Gemma-2B's D 256, Qwen2's groups of 7 and 6, Phi-2's D
+# 80, GPT-NeoX-20B's D 96, a group of 64 and one of 71 (head chunks on
+# both routes), a group of 16 at D 256, pages of 1 to 128 tokens that
+# divide 64, are multiples of it, or neither (12, 24)
+PAGED_DOMAIN = [(256, 2, 1, 16), (256, 1, 8, 16), (256, 2, 2, 8),
+                (256, 1, 16, 24), (80, 2, 1, 24), (96, 2, 8, 32),
+                (128, 2, 7, 12), (128, 1, 6, 64), (128, 1, 64, 16),
+                (64, 1, 71, 128), (64, 2, 4, 1), (128, 2, 7, 8)]
+PAGED_DOMAIN_IDS = [f"d{D}_kv{Hkv}_g{G}_bs{bs}"
+                    for D, Hkv, G, bs in PAGED_DOMAIN]
+
+
+def _tol(dtype):
+    fp32 = dtype == torch.float32
+    return dict(rtol=1e-5 if fp32 else 2 ** -7, atol=1e-5 if fp32 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
+@pytest.mark.parametrize("D,Hkv,G,bs", PAGED_DOMAIN, ids=PAGED_DOMAIN_IDS)
+@pytest.mark.parametrize("window", [None, 24])
+def test_ragged_kernel_takes_the_whole_domain(cuda, dtype, int8, D, Hkv, G,
+                                              bs, window):
+    """K6 against its plain version at every head dim, group and page size
+    of the domain (the small layout's rows: decode rows, chunk rows, a
+    narrow row of 3 tokens, idle rows, sentinel tails), with NaN in every
+    page no row owns."""
+    args, scales = _case(cuda, dtype, int8, D, Hkv, G, bs=bs)
+    before = ragged_paged_attention.launches
+    got = ragged_paged_attention(*args, window=window, **scales)
+    ref = ragged_paged_attention_plain(*args, window=window, **scales)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), ref.float(), **_tol(dtype))
+    assert torch.isfinite(got).all() and not got[-5:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8pool"])
+@pytest.mark.parametrize("D,Hkv,G,bs", PAGED_DOMAIN, ids=PAGED_DOMAIN_IDS)
+@pytest.mark.parametrize("window", [None, 24])
+def test_paged_kernels_take_the_whole_domain(cuda, dtype, int8, D, Hkv, G,
+                                             bs, window):
+    """K7a and K7b against their plain versions at every head dim, group
+    and page size of the domain: a table of about 320 keys, chunks at 0,
+    mid-page behind a prefix and at the table's end, a padded tail, an
+    idle and an empty row, the chunk of one token (K7a's function)."""
+    nb = max(2, -(-320 // bs))
+    q, k, v, bt, cs, cl, scales = _paged_case(cuda, dtype, int8, D, Hkv, G,
+                                              37, nb=nb, bs=bs)
+    before = (paged_decode_attention.launches,
+              paged_prefill_attention.launches)
+    dec = paged_decode_attention(q[:, 0].contiguous(), k, v, bt, cl,
+                                 window=window, **scales)
+    ref = paged_decode_attention_plain(q[:, 0].contiguous(), k, v, bt, cl,
+                                       window=window, **scales)
+    got = paged_prefill_attention(q, k, v, bt, cs, cl, window=window,
+                                  **scales)
+    pref = paged_prefill_attention_plain(q, k, v, bt, cs, cl, window=window,
+                                         **scales)
+    one = paged_prefill_attention(q[:, :1].contiguous(), k, v, bt, cl - 1,
+                                  cl, window=window, **scales)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches,
+            paged_prefill_attention.launches) == (before[0] + 1,
+                                                  before[1] + 2)
+    for out in (dec, got, one):
+        assert torch.isfinite(out).all()
+    assert not dec[4].any() and not got[2, 18:].any()
+    torch.testing.assert_close(dec.float(), ref.float(), **_tol(dtype))
+    torch.testing.assert_close(got.float(), pref.float(), **_tol(dtype))
+    torch.testing.assert_close(one[:, 0].float(), dec.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,Hkv,G,bs", [(256, 2, 1, 8), (128, 2, 7, 24),
+                                        (64, 1, 71, 16)],
+                         ids=["d256_bs8", "g7_bs24", "g71_bs16"])
+def test_paged_walks_of_the_domain_are_deterministic_and_replay(
+        cuda, dtype, D, Hkv, G, bs):
+    """At D 256, a group of 7 with pages of 24 and a group of 71 (head
+    chunks), K6, K7a and K7b give bitwise equal outputs on repeated calls,
+    and one captured CUDA graph of each replays for new descriptors."""
+    args, scales = _case(cuda, dtype, False, D, Hkv, G, layout="long",
+                         bs=bs)
+    first = ragged_paged_attention(*args)
+    assert torch.equal(first, ragged_paged_attention(*args))
+    nb = -(-2048 // bs)
+    q, k, v, bt, cs, cl, _ = _paged_case(cuda, dtype, False, D, Hkv, G, 64,
+                                         nb=nb, bs=bs)
+    qd = q[:, 0].contiguous()
+    for call in (lambda: paged_decode_attention(qd, k, v, bt, cl),
+                 lambda: paged_prefill_attention(q, k, v, bt, cs, cl)):
+        a = call()
+        assert torch.equal(a, call())
+    torch.cuda.synchronize()
+    graphs = []
+    for call in (lambda: paged_decode_attention(qd, k, v, bt, cl),
+                 lambda: paged_prefill_attention(q, k, v, bt, cs, cl)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        graphs.append((graph, out))
+    cs.copy_(torch.clamp(cs - 40, min=0))
+    cl.copy_(torch.clamp(cl - 40, min=0))
+    for (graph, out), plain in zip(graphs, (
+            lambda: paged_decode_attention_plain(qd, k, v, bt, cl),
+            lambda: paged_prefill_attention_plain(q, k, v, bt, cs, cl))):
+        graph.replay()
+        torch.testing.assert_close(out.float(), plain().float(),
+                                   **_tol(dtype))
+
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -154,28 +154,13 @@ def test_wrapper_raises_instead_of_falling_back():
 
 
 def test_paged_and_sparse_kernels_name_their_queue_step():
-    """K6, K7a/K7b and K9 stay at head dims 64 and 128 (pages of 16,
-    blocks of 64 and 128): at D 256 each refuses with a message that names
-    ROADMAP.md Queue 2 and its step, before any kernel runs (the device
-    check bypassed)."""
+    """K9 stays at head dims 64 and 128 and blocks of 64 and 128: outside
+    them it refuses with a message that names ROADMAP.md Queue 2 and its
+    step, before any kernel runs (the device check bypassed). K6 and K7
+    take their JAX kernels' whole domain
+    (``tests/test_torch_paged_attention.py``)."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
-    from deepspeed_tpu_torch.ops import ragged_attention as ra
-    from deepspeed_tpu_torch.ops.decode_attention import _check_paged_args
 
-    q = torch.zeros(4, 8, 256, dtype=torch.bfloat16)
-    pages = torch.zeros(6, 2, 16, 256, dtype=torch.bfloat16)
-    tables = torch.zeros(4, 3, dtype=torch.int32)
-    lens = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="Queue 2, step 3"):
-        _check_paged_args("paged_decode_attention", q, pages, pages, tables,
-                          (lens,), None, None, None, max_group=8)
-    with pytest.raises(ValueError, match="Queue 2, step 3"):
-        _check_paged_args("paged_prefill_attention", q[:, None], pages,
-                          pages, tables, (lens, lens), None, None, None,
-                          tile_rows=64)
-    with pytest.raises(ValueError, match="Queue 2, step 3"):
-        ra._check_kernel_args(q, pages, pages, tables, (lens,) * 4, None,
-                              None, None)
     x = torch.zeros(1, 128, 2, 256, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Queue 2, step 4"):
         bsa._check_kernel_domain("block_sparse_attention_fwd", x, x, x, 64)

@@ -20,6 +20,8 @@ kernels and the port give zeros: those rows are compared with the Pallas
 kernel only.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,14 +84,27 @@ def _scales(pool, conv):
 
 
 CASES = {
-    # name: (H, Hkv, window, int8)
+    # name: (H, Hkv, window, int8[, shape]); shape: D (default 16) and the
+    # page size bs (default 8)
     "gqa": (8, 2, None, False),
     "mha": (4, 4, None, False),
     "window5": (8, 2, 5, False),
     "window_wide": (8, 2, 19, False),
     "int8_pool": (8, 2, None, True),
     "int8_window": (4, 2, 6, True),
+    # Gemma's head dim, Qwen2's groups of 7 and 6, pages of 24 and 32
+    "d256": (4, 2, None, False, dict(D=256)),
+    "d256_int8_window": (4, 2, 6, True, dict(D=256)),
+    "g7_bs24": (14, 2, None, False, dict(bs=24)),
+    "g6_bs32_int8": (12, 2, None, True, dict(bs=32)),
 }
+
+
+def _case(case):
+    """``(H, Hkv, window, int8, D, bs)`` of a CASES entry."""
+    H, Hkv, window, int8, *shape = CASES[case]
+    shape = shape[0] if shape else {}
+    return H, Hkv, window, int8, shape.get("D", 16), shape.get("bs", 8)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -98,9 +113,9 @@ def test_paged_decode_plain_matches_jax(case):
     the XLA reference: context lengths 1, a partial last page, a full
     page boundary, the whole table, and an idle sentinel row (context 1,
     no page: it reads the clamped last page in all three)."""
-    H, Hkv, window, int8 = CASES[case]
-    D, lens = 16, [1, 13, 16, 48, 1, 29]
-    pool, bt, rs = build_pool(3, lens, Hkv, D, int8=int8, idle=(4,))
+    H, Hkv, window, int8, D, bs = _case(case)
+    lens = [1, 13, 16, 48, 1, 29]
+    pool, bt, rs = build_pool(3, lens, Hkv, D, bs=bs, int8=int8, idle=(4,))
     q = rs.randn(len(lens), H, D).astype(np.float32)
     clen = np.asarray(lens, np.int32)
     jpool = {n: jnp.asarray(a) for n, a in pool.items()}
@@ -120,14 +135,14 @@ def test_paged_decode_plain_matches_jax(case):
     np.testing.assert_allclose(got, ref, **TOL)
 
 
-def _prefill_inputs(case_seed, H, Hkv, int8, T=8):
+def _prefill_inputs(case_seed, H, Hkv, int8, T=8, D=16, bs=8):
     """Chunks at 0, mid-prompt behind a cached prefix, with a padded tail
     (3 of T rows valid), of one valid row, and an empty sequence."""
-    D = 16
     starts = np.asarray([0, 10, 21, 16, 0], np.int32)
     valid = np.asarray([T, T, 3, 1, 0], np.int32)
     clen = (starts + valid).astype(np.int32)
-    pool, bt, rs = build_pool(case_seed, list(clen), Hkv, D, int8=int8)
+    pool, bt, rs = build_pool(case_seed, list(clen), Hkv, D, bs=bs,
+                              int8=int8)
     q = rs.randn(len(starts), T, H, D).astype(np.float32)
     return pool, bt, q, starts, valid, clen
 
@@ -137,8 +152,9 @@ def test_paged_prefill_plain_matches_jax(case):
     """K7b's plain version against the Pallas kernel (interpret mode) on
     every row (the padded tail and the empty sequence return zeros in
     both) and against the XLA reference on the valid rows."""
-    H, Hkv, window, int8 = CASES[case]
-    pool, bt, q, starts, valid, clen = _prefill_inputs(5, H, Hkv, int8)
+    H, Hkv, window, int8, D, bs = _case(case)
+    pool, bt, q, starts, valid, clen = _prefill_inputs(5, H, Hkv, int8, D=D,
+                                                       bs=bs)
     T = q.shape[1]
     jpool = {n: jnp.asarray(a) for n, a in pool.items()}
     kern = np.asarray(jax_paged_prefill(
@@ -167,8 +183,9 @@ def test_split_versions_agree_with_the_unified_one(case):
     """Row for row, both plain versions compute what the unified ragged
     version computes on the same pool: a decode row is a segment of one
     token at context_len - 1, a chunk a segment of its valid rows."""
-    H, Hkv, window, int8 = CASES[case]
-    pool, bt, q, starts, valid, clen = _prefill_inputs(7, H, Hkv, int8)
+    H, Hkv, window, int8, D, bs = _case(case)
+    pool, bt, q, starts, valid, clen = _prefill_inputs(7, H, Hkv, int8, D=D,
+                                                       bs=bs)
     B, T = q.shape[:2]
     tp = {n: torch.from_numpy(a) for n, a in pool.items()}
     sc = _scales(pool, torch.from_numpy)
@@ -195,9 +212,9 @@ def test_chunk_of_one_token_is_a_decode_step(case):
     """``paged_prefill_attention`` at chunk length 1 equals
     ``paged_decode_attention`` on the same pool, in the port and against
     the JAX decode kernel."""
-    H, Hkv, window, int8 = CASES[case]
-    D, lens = 16, [9, 16, 33]
-    pool, bt, rs = build_pool(9, lens, Hkv, D, int8=int8)
+    H, Hkv, window, int8, D, bs = _case(case)
+    lens = [9, 16, 33]
+    pool, bt, rs = build_pool(9, lens, Hkv, D, bs=bs, int8=int8)
     q = rs.randn(len(lens), H, D).astype(np.float32)
     clen = np.asarray(lens, np.int32)
     args = (torch.from_numpy(pool["k"]), torch.from_numpy(pool["v"]),
@@ -270,45 +287,58 @@ def test_rows_that_see_no_key_return_zeros_not_nan():
 # test_torch_ragged_attention.py
 # ---------------------------------------------------------------------------
 
-from test_torch_ragged_attention import (PAGE, TILE, _bf16, finish,  # noqa: E402
-                                         key_range, merge_states,
-                                         order_sensitive_pool, walk_item)
+from test_torch_ragged_attention import (CHUNK_ROWS, NARROW_ROWS,  # noqa: E402
+                                         PAGE, TILE, _bf16, finish,
+                                         head_chunks, key_range,
+                                         merge_states, order_sensitive_pool,
+                                         walk_item)
 
 
 def emulate_paged_decode(q, k_pages, v_pages, bt, clen, per, window=None,
                          route="cuda_core", rounding=False, k_scale=None,
                          v_scale=None):
-    """K7a's kernel in fp32: grid (B, Hkv, splits) over the table's
-    capacity cut into splits of ``per`` 64-key tiles; a split past the
-    context or outside the window writes an empty partial; the others walk
-    their visible tiles (the ragged walk's item of one token at
-    context_len - 1); the merge combines every split in order (with one
-    split the block writes the output)."""
+    """K7a's kernel in fp32: grid (B, Hkv x head chunks, splits) over the
+    table's capacity (nb * bs keys) cut into splits of ``per`` 64-key
+    tiles; a split past the context or outside the window writes an empty
+    partial; the others walk their visible tiles (the ragged walk's item
+    of one token at context_len - 1: a narrow item where the group fits the
+    route's narrow rows, else a chunk item of each head chunk); the merge
+    combines every split in order (with one split the block writes the
+    output)."""
     B, H, D = q.shape
-    Hkv = k_pages.shape[1]
+    Hkv, bs = k_pages.shape[1:3]
     G = H // Hkv
     nb = bt.shape[1]
-    splits = -(-(-(-nb * PAGE // TILE)) // per)
+    narrow = G <= NARROW_ROWS[route]
+    chunks = [(0, G)] if narrow else [
+        (c * gc, min(gc, G - c * gc))
+        for nch, gc in [head_chunks(G, CHUNK_ROWS[route])]
+        for c in range(nch)]
+    splits = -(-(-(-nb * bs // TILE)) // per)
     out = torch.zeros(B, H, D)
     for b in range(B):
         cl = int(clen[b])
-        lo, hi = key_range(cl - 1, 1, cl, nb, window)
+        lo, hi = key_range(cl - 1, 1, cl, nb, window, bs)
         for kvh in range(Hkv):
-            parts = []
-            for s in range(splits):
-                t0 = max(s * per, lo // TILE)
-                t1 = min((s + 1) * per, hi // TILE + 1) if hi >= lo else 0
-                if t0 >= t1:
-                    parts.append((torch.full((G,), -np.inf), torch.zeros(G),
-                                  torch.zeros(G, D)))
-                    continue
-                it = dict(row=b, kvh=kvh, tok0=b, ntok=1, pos0=cl - 1,
-                          clen=cl, lo=lo, hi=hi, t0=t0, t1=t1, narrow=True)
-                parts.append(walk_item(q, k_pages, v_pages, bt, it, G,
-                                       window, route, rounding, k_scale,
-                                       v_scale))
-            _, l, acc = merge_states(parts)
-            out[b, kvh * G:(kvh + 1) * G] = finish(l, acc)
+            for g0, gn in chunks:
+                parts = []
+                for s in range(splits):
+                    t0 = max(s * per, lo // TILE)
+                    t1 = min((s + 1) * per, hi // TILE + 1) if hi >= lo \
+                        else 0
+                    if t0 >= t1:
+                        parts.append((torch.full((gn,), -np.inf),
+                                      torch.zeros(gn), torch.zeros(gn, D)))
+                        continue
+                    it = dict(row=b, kvh=kvh, g0=g0, gn=gn, tok0=b, ntok=1,
+                              pos0=cl - 1, clen=cl, lo=lo, hi=hi, t0=t0,
+                              t1=t1, narrow=narrow)
+                    parts.append(walk_item(q, k_pages, v_pages, bt, it, G,
+                                           window, route, rounding, k_scale,
+                                           v_scale))
+                _, l, acc = merge_states(parts)
+                h0 = kvh * G + g0
+                out[b, h0:h0 + gn] = finish(l, acc)
     return out
 
 
@@ -317,11 +347,18 @@ def emulate_paged_decode(q, k_pages, v_pages, bt, clen, per, window=None,
 # whole table
 DECODE_LENS = [1, 13, 64, 200, 1, 0, 320]
 DECODE_SPLIT_CASES = {
-    # name: (window, int8)
+    # name: (window, int8[, shape]); shape: H, Hkv and the page size bs
+    # (default 8 query heads over 2 kv heads, pages of 16)
     "contexts_empty_splits": (None, False),
     "window_empties_splits": (70, False),
     "int8_pool": (None, True),
     "int8_window": (33, True),
+    # a group of 7 on pages of 8; a group of 64 (head chunks of 32 on the
+    # CUDA cores, one chunk item of 64 rows on the tensor cores) on pages
+    # of 24; a group of 71 (chunks of 24 and 36) on an int8 pool of 12
+    "g7_bs8": (None, False, dict(H=14, bs=8)),
+    "g64_bs24_window": (70, False, dict(H=64, Hkv=1, bs=24)),
+    "g71_bs12_int8": (None, True, dict(H=71, Hkv=1, bs=12)),
 }
 DECODE_SPLIT_PARAMS = [(case, per, route)
                        for case in sorted(DECODE_SPLIT_CASES)
@@ -330,11 +367,26 @@ DECODE_SPLIT_PARAMS = [(case, per, route)
 
 
 def _decode_split_setup(case, seed=31):
-    window, int8 = DECODE_SPLIT_CASES[case]
-    pool, bt, rs = build_pool(seed, DECODE_LENS, 2, 16, bs=PAGE, n_pool=48,
-                              nb=20, int8=int8, idle=(4,))
-    q = rs.randn(len(DECODE_LENS), 8, 16).astype(np.float32)
+    window, int8, *shape = DECODE_SPLIT_CASES[case]
+    shape = shape[0] if shape else {}
+    H, Hkv, bs = shape.get("H", 8), shape.get("Hkv", 2), \
+        shape.get("bs", PAGE)
+    pool, bt, rs = build_pool(seed, DECODE_LENS, Hkv, 16, bs=bs,
+                              n_pool=768 // bs, nb=-(-320 // bs), int8=int8,
+                              idle=(4,))
+    q = rs.randn(len(DECODE_LENS), H, 16).astype(np.float32)
     return q, pool, bt, np.asarray(DECODE_LENS, np.int32), window
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_split_kernel(case):
+    """The JAX Pallas kernel (interpret mode) on a case's inputs, once a
+    case: it depends on neither the split nor the route."""
+    q, pool, bt, clen, window = _decode_split_setup(case)
+    return np.asarray(jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
+        jnp.asarray(bt), jnp.asarray(clen), interpret=True, window=window,
+        **_scales(pool, jnp.asarray)))
 
 
 @pytest.mark.parametrize("case,per,route", DECODE_SPLIT_PARAMS)
@@ -354,11 +406,8 @@ def test_split_paged_decode_merges_to_the_plain_version(case, per, route):
                                          window=window, **scales)
     torch.testing.assert_close(got, plain, **TOL)
     assert not got[5].any(), "a row that sees no key is zeros"
-    kern = np.asarray(jax_paged_decode(
-        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
-        jnp.asarray(bt), jnp.asarray(clen), interpret=True, window=window,
-        **_scales(pool, jnp.asarray)))
-    np.testing.assert_allclose(got.numpy(), kern, **TOL)
+    np.testing.assert_allclose(got.numpy(), _decode_split_kernel(case),
+                               **TOL)
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
@@ -395,42 +444,63 @@ def test_paged_decode_merges_splits_in_order(route):
 
 def test_paged_splits_come_from_the_table_width():
     """K7a's split count and tiles a split at the two-program decode's
-    shapes (B 8, Hkv 8, a 128-page table) on 132 and 114 SMs; whole
-    tiles, every split non-empty, from shapes only."""
-    assert paged_splits(8, 8, 128, 132) == (5, 7)
-    assert paged_splits(8, 8, 128, 114) == (4, 8)
-    assert paged_splits(1, 1, 128, 132) == (32, 1)
-    for B, Hkv, nb, sm in ((8, 8, 128, 132), (3, 2, 10, 114), (1, 1, 1, 132)):
-        splits, per = paged_splits(B, Hkv, nb, sm)
-        tiles = -(-nb * PAGE // TILE)
+    shapes (B 8, Hkv 8, a 128-page table of 16-token pages) on 132 and 114
+    SMs, and for other page sizes (the keys are nb * bs); whole tiles,
+    every split non-empty, from shapes only. ``decode_launch`` cuts a
+    group over the narrow item's rows into head chunks, each a row of
+    work."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_launch
+
+    assert paged_splits(8, 8, 128, 16, 132) == (5, 7)
+    assert paged_splits(8, 8, 128, 16, 114) == (4, 8)
+    assert paged_splits(1, 1, 128, 16, 132) == (32, 1)
+    assert paged_splits(8, 8, 256, 8, 132) == (5, 7)
+    assert paged_splits(8, 8, 64, 32, 132) == (5, 7)
+    for B, Hkv, nb, bs, sm in ((8, 8, 128, 16, 132), (3, 2, 10, 16, 114),
+                               (1, 1, 1, 16, 132), (8, 4, 86, 24, 132),
+                               (8, 4, 171, 12, 114), (2, 1, 300, 1, 132),
+                               (8, 16, 16, 128, 132)):
+        splits, per = paged_splits(B, Hkv, nb, bs, sm)
+        tiles = -(-nb * bs // TILE)
         assert (splits - 1) * per < tiles <= splits * per
+    bf16, fp32 = torch.bfloat16, torch.float32
+    assert decode_launch(8, 32, 8, 128, 16, bf16, 132) == \
+        dict(narrow=True, chunks=1, splits=5, per=7)
+    # Qwen2-7B's group of 7 and Gemma-2B's of 8 stay narrow on the tensor
+    # cores; 8 is the CUDA cores' last narrow group
+    assert decode_launch(8, 28, 4, 128, 16, bf16, 132)["narrow"]
+    assert decode_launch(8, 8, 1, 256, 8, fp32, 132)["narrow"]
+    # Falcon-7B's 71 heads on one kv head: chunks of 36 and 35 (tensor
+    # cores), of 24, 24 and 23 (CUDA cores)
+    assert decode_launch(8, 71, 1, 128, 16, bf16, 132) == \
+        dict(narrow=False, chunks=2, splits=16, per=2)
+    assert decode_launch(8, 71, 1, 128, 16, fp32, 132)["chunks"] == 3
 
 
 # ---------------------------------------------------------------------------
 # K7b's grid (B x query tiles, Hkv, splits) over the same walk
 # ---------------------------------------------------------------------------
 
-from test_torch_ragged_attention import CHUNK_ROWS  # noqa: E402
-
-
 def emulate_paged_prefill(q, k_pages, v_pages, bt, cs, clen, per,
                           window=None, route="cuda_core", rounding=False,
                           k_scale=None, v_scale=None, order=None):
-    """K7b's kernel in fp32: block (b * tiles + i, kvh, s) takes tokens
-    ``[i * qt, i * qt + qt)`` of chunk b (``qt`` = the route's chunk rows
-    / G), clipped to the context, as one chunk item of split s (the ragged
-    walk's item); tokens at or past the context, and splits that see no
-    tile of the item, give empty partials; the merge combines every split
-    of a token in split order (``order`` permutes it, to show that it
-    matters). With one split the block writes the output itself, which is
-    the merge of one state."""
+    """K7b's kernel in fp32: block (b * tiles + i, kvh * chunks + c, s)
+    takes tokens ``[i * qt, i * qt + qt)`` of chunk b (``qt`` = the route's
+    chunk rows // heads, one token where the group is cut into head
+    chunks) and head chunk c, clipped to the context, as one chunk item of
+    split s (the ragged walk's item); tokens at or past the context, and
+    splits that see no tile of the item, give empty partials; the merge
+    combines every split of a token in split order (``order`` permutes it,
+    to show that it matters). With one split the block writes the output
+    itself, which is the merge of one state."""
     B, T, H, D = q.shape
-    Hkv = k_pages.shape[1]
+    Hkv, bs = k_pages.shape[1:3]
     G = H // Hkv
     nb = bt.shape[1]
-    qt = CHUNK_ROWS[route] // G
+    nch, gc = head_chunks(G, CHUNK_ROWS[route])
+    qt = CHUNK_ROWS[route] // gc
     tiles = -(-T // qt)
-    splits = -(-(-(-nb * PAGE // TILE)) // per)
+    splits = -(-(-(-nb * bs // TILE)) // per)
     flat = q.reshape(B * T, H, D)
     out = torch.zeros(B * T, H, D)
     for b in range(B):
@@ -440,30 +510,36 @@ def emulate_paged_prefill(q, k_pages, v_pages, bt, cs, clen, per,
             first = i * qt
             ntok = max(0, min(qt, valid - first))
             width = min(qt, T - first)
-            lo, hi = key_range(start + first, ntok, cl, nb, window)
+            lo, hi = key_range(start + first, ntok, cl, nb, window, bs)
             for kvh in range(Hkv):
-                parts = []
-                for s in range(splits):
-                    m = torch.full((width * G,), -np.inf)
-                    l, acc = torch.zeros(width * G), torch.zeros(width * G, D)
-                    t0 = max(s * per, lo // TILE)
-                    t1 = min((s + 1) * per, hi // TILE + 1)
-                    if ntok and hi >= lo and t0 < t1:
-                        it = dict(row=b, kvh=kvh, tok0=b * T + first,
-                                  ntok=ntok, pos0=start + first, clen=cl,
-                                  lo=lo, hi=hi, t0=t0, t1=t1, narrow=False)
-                        wm, wl, wacc = walk_item(flat, k_pages, v_pages, bt,
-                                                 it, G, window, route,
-                                                 rounding, k_scale, v_scale)
-                        m[:ntok * G], l[:ntok * G] = wm, wl
-                        acc[:ntok * G] = wacc
-                    parts.append((m, l, acc))
-                if order is not None:
-                    parts = [parts[s] for s in order]
-                _, l, acc = merge_states(parts)
-                rows = slice(b * T + first, b * T + first + width)
-                out[rows, kvh * G:(kvh + 1) * G] = \
-                    finish(l, acc).reshape(width, G, D)
+                for c in range(nch):
+                    g0 = c * gc
+                    gn = min(gc, G - g0)
+                    parts = []
+                    for s in range(splits):
+                        m = torch.full((width * gn,), -np.inf)
+                        l = torch.zeros(width * gn)
+                        acc = torch.zeros(width * gn, D)
+                        t0 = max(s * per, lo // TILE)
+                        t1 = min((s + 1) * per, hi // TILE + 1)
+                        if ntok and hi >= lo and t0 < t1:
+                            it = dict(row=b, kvh=kvh, g0=g0, gn=gn,
+                                      tok0=b * T + first, ntok=ntok,
+                                      pos0=start + first, clen=cl, lo=lo,
+                                      hi=hi, t0=t0, t1=t1, narrow=False)
+                            wm, wl, wacc = walk_item(
+                                flat, k_pages, v_pages, bt, it, G, window,
+                                route, rounding, k_scale, v_scale)
+                            m[:ntok * gn], l[:ntok * gn] = wm, wl
+                            acc[:ntok * gn] = wacc
+                        parts.append((m, l, acc))
+                    if order is not None:
+                        parts = [parts[s] for s in order]
+                    _, l, acc = merge_states(parts)
+                    rows = slice(b * T + first, b * T + first + width)
+                    h0 = kvh * G + g0
+                    out[rows, h0:h0 + gn] = \
+                        finish(l, acc).reshape(width, gn, D)
     return out.reshape(B, T, H, D)
 
 
@@ -474,11 +550,17 @@ def emulate_paged_prefill(q, k_pages, v_pages, bt, cs, clen, per,
 PREFILL_T = 40
 PREFILL_ROWS = [(0, 40), (150, 190), (270, 293), (0, 1), (0, 0), (290, 320)]
 PREFILL_SPLIT_CASES = {
-    # name: (window, int8)
+    # name: (window, int8[, shape]) as DECODE_SPLIT_CASES: 9 tokens x 7
+    # heads (4 x 7 on the CUDA cores) a query tile on pages of 8; a group of
+    # 64 (one token a tile, head chunks of 32 on the CUDA cores) on pages
+    # of 24; a group of 6 on an int8 pool of 32-token pages
     "mid_page_and_tails": (None, False),
     "window_empties_splits": (70, False),
     "int8_pool": (None, True),
     "int8_window": (33, True),
+    "g7_bs8": (None, False, dict(H=14, bs=8)),
+    "g64_bs24_window": (70, False, dict(H=64, Hkv=1, bs=24)),
+    "g6_bs32_int8": (None, True, dict(H=12, bs=32)),
 }
 PREFILL_SPLIT_PARAMS = [(case, per, route)
                         for case in sorted(PREFILL_SPLIT_CASES)
@@ -487,13 +569,28 @@ PREFILL_SPLIT_PARAMS = [(case, per, route)
 
 
 def _prefill_split_setup(case, seed=41):
-    window, int8 = PREFILL_SPLIT_CASES[case]
+    window, int8, *shape = PREFILL_SPLIT_CASES[case]
+    shape = shape[0] if shape else {}
+    H, Hkv, bs = shape.get("H", 8), shape.get("Hkv", 2), \
+        shape.get("bs", PAGE)
     cs, cl = (np.asarray([r[i] for r in PREFILL_ROWS], np.int32)
               for i in (0, 1))
-    pool, bt, rs = build_pool(seed, list(cl), 2, 16, bs=PAGE, n_pool=64,
-                              nb=20, int8=int8, idle=(3,))
-    q = rs.randn(len(cl), PREFILL_T, 8, 16).astype(np.float32)
+    pool, bt, rs = build_pool(seed, list(cl), Hkv, 16, bs=bs,
+                              n_pool=1024 // bs, nb=-(-320 // bs),
+                              int8=int8, idle=(3,))
+    q = rs.randn(len(cl), PREFILL_T, H, 16).astype(np.float32)
     return q, pool, bt, cs, cl, window
+
+
+@functools.lru_cache(maxsize=None)
+def _prefill_split_kernel(case):
+    """The JAX Pallas kernel (interpret mode) on a case's inputs, once a
+    case."""
+    q, pool, bt, cs, cl, window = _prefill_split_setup(case)
+    return np.asarray(jax_paged_prefill(
+        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
+        jnp.asarray(bt), jnp.asarray(cs), jnp.asarray(cl), force_pallas=True,
+        interpret=True, window=window, **_scales(pool, jnp.asarray)))
 
 
 @pytest.mark.parametrize("case,per,route", PREFILL_SPLIT_PARAMS)
@@ -515,11 +612,8 @@ def test_split_paged_prefill_merges_to_the_plain_version(case, per, route):
     torch.testing.assert_close(got, plain, **TOL)
     live = np.arange(PREFILL_T)[None] < (cl - cs)[:, None]
     assert not got.numpy()[~live].any(), "rows past the context are zeros"
-    kern = np.asarray(jax_paged_prefill(
-        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
-        jnp.asarray(bt), jnp.asarray(cs), jnp.asarray(cl), force_pallas=True,
-        interpret=True, window=window, **_scales(pool, jnp.asarray)))
-    np.testing.assert_allclose(got.numpy(), kern, **TOL)
+    np.testing.assert_allclose(got.numpy(), _prefill_split_kernel(case),
+                               **TOL)
 
 
 @pytest.mark.parametrize("case", sorted(PREFILL_SPLIT_CASES))
@@ -569,32 +663,88 @@ def test_paged_prefill_merges_splits_in_order(route):
 
 
 def test_paged_prefill_launch_comes_from_the_shapes_alone():
-    """K7b's launch (query tiles, splits, tiles a split) at the
+    """K7b's launch (head chunks, query tiles, splits, tiles a split) at the
     two-program prefill's shapes (B 1, T 64, H 32 over Hkv 8, a 128-page
-    table) on 132 and 114 SMs, bf16 and fp32: a function of the shapes and
-    the SM count, with no descriptor among its arguments."""
+    table of 16-token pages) on 132 and 114 SMs, bf16 and fp32, and at
+    other groups and page sizes: a function of the shapes and the SM count,
+    with no descriptor among its arguments."""
     import inspect
 
     from deepspeed_tpu_torch.ops.decode_attention import prefill_launch
 
     assert list(inspect.signature(prefill_launch).parameters) == \
-        ["B", "T", "H", "Hkv", "nb", "dtype", "sm_count"]
+        ["B", "T", "H", "Hkv", "nb", "bs", "dtype", "sm_count"]
     bf16, fp32 = torch.bfloat16, torch.float32
-    assert prefill_launch(1, 64, 32, 8, 128, bf16, 132) == \
-        dict(tiles=4, splits=8, per=4)
-    assert prefill_launch(1, 64, 32, 8, 128, bf16, 114) == \
-        dict(tiles=4, splits=8, per=4)
-    assert prefill_launch(1, 64, 32, 8, 128, fp32, 132) == \
-        dict(tiles=8, splits=5, per=7)
-    assert prefill_launch(3, 40, 8, 4, 128, fp32, 132) == \
-        dict(tiles=3, splits=8, per=4)
-    for B, T, H, Hkv, nb, dt, sm in ((1, 64, 32, 8, 128, bf16, 132),
-                                     (8, 512, 32, 8, 512, bf16, 132),
-                                     (1, 1, 8, 8, 1, fp32, 114),
-                                     (2, 37, 8, 1, 10, fp32, 132)):
-        lp = prefill_launch(B, T, H, Hkv, nb, dt, sm)
-        tokens = {bf16: 64, fp32: 32}[dt] // (H // Hkv)
+    assert prefill_launch(1, 64, 32, 8, 128, 16, bf16, 132) == \
+        dict(tiles=4, chunks=1, splits=8, per=4)
+    assert prefill_launch(1, 64, 32, 8, 128, 16, bf16, 114) == \
+        dict(tiles=4, chunks=1, splits=8, per=4)
+    assert prefill_launch(1, 64, 32, 8, 128, 16, fp32, 132) == \
+        dict(tiles=8, chunks=1, splits=5, per=7)
+    assert prefill_launch(3, 40, 8, 4, 128, 16, fp32, 132) == \
+        dict(tiles=3, chunks=1, splits=8, per=4)
+    # Qwen2-7B's group of 7: 9 tokens a tile (63 of 64 rows); Gemma-7B's
+    # pages of 16 at 16 heads; a group of 64 on the CUDA cores: 2 head
+    # chunks of one token; pages of 8 halve the keys of a 128-page table
+    assert prefill_launch(1, 64, 28, 4, 128, 16, bf16, 132)["tiles"] == 8
+    assert prefill_launch(1, 64, 64, 1, 128, 16, fp32, 132)["chunks"] == 2
+    assert prefill_launch(1, 64, 64, 1, 128, 16, bf16, 132)["tiles"] == 64
+    assert prefill_launch(1, 64, 32, 8, 128, 8, bf16, 132) == \
+        dict(tiles=4, chunks=1, splits=8, per=2)
+    for B, T, H, Hkv, nb, bs, dt, sm in (
+            (1, 64, 32, 8, 128, 16, bf16, 132),
+            (8, 512, 32, 8, 512, 16, bf16, 132),
+            (1, 1, 8, 8, 1, 16, fp32, 114),
+            (2, 37, 8, 1, 10, 16, fp32, 132),
+            (1, 64, 28, 4, 86, 24, bf16, 132),
+            (2, 33, 71, 1, 171, 12, fp32, 114),
+            (1, 64, 16, 16, 256, 8, bf16, 132)):
+        lp = prefill_launch(B, T, H, Hkv, nb, bs, dt, sm)
+        rows = {bf16: 64, fp32: 32}[dt]
+        chunks = -(-(H // Hkv) // rows)
+        tokens = rows // -(-(H // Hkv) // chunks)
+        assert lp["chunks"] == chunks
         assert (lp["tiles"] - 1) * tokens < T <= lp["tiles"] * tokens
-        tiles = -(-nb * PAGE // TILE)
+        tiles = -(-nb * bs // TILE)
         assert (lp["splits"] - 1) * lp["per"] < tiles <= \
             lp["splits"] * lp["per"]
+
+
+def test_paged_kernels_accept_the_whole_domain_and_refuse_the_rest():
+    """What a CUDA tensor may hand K6, K7a and K7b (the device check
+    bypassed): head dims 64, 80, 96, 128 and 256, any whole group up to 71
+    and beyond, pages of 1 to 128 tokens (12 and 24 too), bf16 and fp32
+    q, bf16/fp32 and int8 pools. A group that is not whole, head dims 32,
+    72, 112 and 192, and fp16 are refused, the head dims naming ROADMAP.md
+    Queue 2."""
+    from deepspeed_tpu_torch.ops import ragged_attention as ra
+    from deepspeed_tpu_torch.ops.decode_attention import _check_paged_args
+
+    lens = torch.zeros(2, dtype=torch.int32)
+
+    def check(H, Hkv, D, bs, dtype, int8=False):
+        q = torch.zeros(2, H, D, dtype=dtype)
+        pages = torch.zeros(3, Hkv, bs, D,
+                            dtype=torch.int8 if int8 else dtype)
+        sc = torch.ones(3, Hkv, bs) if int8 else None
+        tables = torch.zeros(2, 4, dtype=torch.int32)
+        _check_paged_args("paged_decode_attention", q, pages, pages, tables,
+                          (lens,), sc, sc, None)
+        _check_paged_args("paged_prefill_attention", q[:, None], pages,
+                          pages, tables, (lens, lens), sc, sc, None)
+        ra._check_kernel_args(q, pages, pages, tables, (lens,) * 4, sc, sc,
+                              None)
+
+    for D in (64, 80, 96, 128, 256):
+        for H, Hkv in ((16, 16), (28, 4), (12, 2), (8, 1), (64, 1),
+                       (71, 1), (142, 2)):
+            for bs in (1, 8, 12, 16, 24, 32, 64, 128):
+                for dtype in (torch.bfloat16, torch.float32):
+                    check(H, Hkv, D, bs, dtype, int8=(bs + D) % 3 == 0)
+    with pytest.raises(ValueError, match="must be whole"):
+        check(7, 2, 128, 16, torch.bfloat16)
+    for D in (32, 72, 112, 192):
+        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+            check(8, 2, D, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        check(8, 2, 128, 16, torch.float16)

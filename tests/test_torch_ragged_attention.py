@@ -14,6 +14,8 @@ by summation order, i.e. a few fp32 ulps of values of order one, so
 ``atol = rtol = 1e-5`` holds with a wide margin.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +99,12 @@ CASES = {
     "gqa4_fp32": dict(setup={}, window=None),
     "int8_pool": dict(setup={"int8": True}, window=None),
     "window6": dict(setup={}, window=6),
+    # Gemma's head dim, Qwen2's groups of 7 and 6, pages of 24 and 32
+    "d256": dict(setup={"D": 256, "H": 4}, window=None),
+    "d256_int8_window5": dict(setup={"D": 256, "int8": True}, window=5),
+    "g7_bs24": dict(setup={"H": 14, "bs": 24, "nb": 2}, window=None),
+    "g6_bs32_int8": dict(setup={"H": 12, "bs": 32, "nb": 1, "int8": True},
+                         window=None),
 }
 
 
@@ -159,7 +167,7 @@ def test_rows_without_query_or_context_return_zeros():
 # test_torch_paged_attention.py), emulated
 # ---------------------------------------------------------------------------
 
-PAGE, TILE = 16, 64                 # csrc/paged_common.cuh
+PAGE, TILE = 16, 64        # the default page size; csrc/paged_common.cuh
 CHUNK_ROWS = {"tensor_core": 64, "cuda_core": 32}
 NARROW_ROWS = {"tensor_core": 16, "cuda_core": 8}
 LOG2E = 1.4426950408889634
@@ -169,60 +177,83 @@ def _bf16(x):
     return x.bfloat16().float()
 
 
-def key_range(pos0, ntok, clen, nb, window):
-    """Keys [lo, hi] some token at pos0 .. pos0 + ntok - 1 sees."""
-    hi = min(pos0 + ntok, clen, nb * PAGE) - 1
+def key_range(pos0, ntok, clen, nb, window, bs=PAGE):
+    """Keys [lo, hi] some token at pos0 .. pos0 + ntok - 1 sees in a table
+    of ``nb`` pages of ``bs`` tokens."""
+    hi = min(pos0 + ntok, clen, nb * bs) - 1
     lo = max(0, pos0 - window + 1) if window else 0
     return lo, hi
 
 
-def plan_items(desc, T, G, Hkv, nb, per, window, route):
+def head_chunks(G, rows):
+    """A chunk item's head chunks of a group and the heads of each: the
+    whole group where it fits ``rows``, else the fewest equal chunks."""
+    chunks = -(-G // rows)
+    return chunks, -(-G // chunks)
+
+
+def plan_items(desc, T, G, Hkv, nb, per, window, route, bs=PAGE):
     """ragged_plan_kernel: the work items (chunk rows first, then the
     narrow rows, whose tokens x G heads fit one narrow item; within a row
-    query tile, split, kv head) and each claimed token's split range
-    ``(s_lo, n)``."""
+    query tile, split, kv head, head chunk) and each claimed token's split
+    range ``(s_lo, n)``. A chunk row's tiles hold floor(rows / heads)
+    tokens; a group over the route's chunk rows is cut into head chunks of
+    one token a tile."""
     bt, qs, ql, cs, cl = (np.asarray(d).tolist() for d in desc)
     chunk, narrow, info = [], [], {}
+    nch, gc = head_chunks(G, CHUNK_ROWS[route])
     for r in range(len(qs)):
         nq = 0 if ql[r] <= 0 or cl[r] <= 0 or not 0 <= qs[r] < T \
             else min(ql[r], T - qs[r])
         one = nq * G <= NARROW_ROWS[route]
-        qt = max(nq, 1) if one else CHUNK_ROWS[route] // G
+        qt = max(nq, 1) if one else CHUNK_ROWS[route] // gc
+        chunks = [(0, G)] if one else \
+            [(c * gc, min(gc, G - c * gc)) for c in range(nch)]
         for tok in range(0, nq, qt):
             ntok = min(qt, nq - tok)
-            lo, hi = key_range(cs[r] + tok, ntok, cl[r], nb, window)
+            lo, hi = key_range(cs[r] + tok, ntok, cl[r], nb, window, bs)
             s_lo = lo // TILE // per
             n = hi // TILE // per - s_lo + 1 if hi >= lo else 0
             for j in range(ntok):
                 info[qs[r] + tok + j] = (s_lo, n)
             for s in range(s_lo, s_lo + n):
                 for kvh in range(Hkv):
-                    (narrow if one else chunk).append(dict(
-                        row=r, kvh=kvh, tok0=qs[r] + tok, ntok=ntok,
-                        pos0=cs[r] + tok, clen=cl[r], lo=lo, hi=hi,
-                        t0=max(s * per, lo // TILE),
-                        t1=min((s + 1) * per, hi // TILE + 1),
-                        slot=-1 if n == 1 else s, narrow=one))
+                    for g0, gn in chunks:
+                        (narrow if one else chunk).append(dict(
+                            row=r, kvh=kvh, g0=g0, gn=gn, tok0=qs[r] + tok,
+                            ntok=ntok, pos0=cs[r] + tok, clen=cl[r], lo=lo,
+                            hi=hi, t0=max(s * per, lo // TILE),
+                            t1=min((s + 1) * per, hi // TILE + 1),
+                            slot=-1 if n == 1 else s, narrow=one))
     return chunk + narrow, info
+
+
+def item_heads(it, G):
+    """The query heads of an item's rows' head index ``g0 .. g0 + gn``
+    (the whole group where the item carries no chunk)."""
+    g0, gn = it.get("g0", 0), it.get("gn", G)
+    return it["kvh"] * G + g0, gn
 
 
 def walk_item(q, k_pages, v_pages, bt, it, G, window, route, rounding,
               k_scale=None, v_scale=None):
-    """One block's item in fp32: its split's 64-key tiles gathered page by
-    page through the table (pages with no key in [lo, hi] read as zeros,
-    entries clamped to page N - 1), an online softmax in log2 units per
-    state slice (tensor-core narrow items: the four warps' 16-key pages,
-    merged in warp order at the end; otherwise the whole tile), P.V over
-    V rows zeroed outside [lo, hi] (an int8 pool: P times the V scale,
-    selected to 0 there). ``rounding``: the tensor cores' bf16 rounding
-    points, P.V as bf16(P) + bf16(P - bf16(P)). Returns the rows' ``(m,
-    l, acc)``, row g = token g // G, head kvh * G + g % G."""
-    N, _, _, D = k_pages.shape
+    """One block's item in fp32: its split's 64-key tiles gathered key by
+    key through the table (key k in table entry k // bs, row k % bs; keys
+    outside [lo, hi] read as zeros; entries clamped to page N - 1), an
+    online softmax in log2 units per state slice (tensor-core narrow items:
+    the four warps' 16-key slices, merged in warp order at the end;
+    otherwise the whole tile), P.V over those V rows (an int8 pool: P times
+    the V scale, selected to 0 outside [lo, hi]). ``rounding``: the tensor
+    cores' bf16 rounding points, P.V as bf16(P) + bf16(P - bf16(P)).
+    Returns the rows' ``(m, l, acc)``, row g = token g // gn, head
+    kvh * G + g0 + g % gn."""
+    N, _, bs, D = k_pages.shape
     nb = bt.shape[1]
     sl2 = D ** -0.5 * LOG2E
-    heads = slice(it["kvh"] * G, (it["kvh"] + 1) * G)
-    Q = q[it["tok0"]:it["tok0"] + it["ntok"], heads].float().reshape(-1, D)
-    pos = it["pos0"] + torch.arange(Q.shape[0]) // G
+    h0, gn = item_heads(it, G)
+    Q = q[it["tok0"]:it["tok0"] + it["ntok"], h0:h0 + gn].float() \
+        .reshape(-1, D)
+    pos = it["pos0"] + torch.arange(Q.shape[0]) // gn
     width = 16 if route == "tensor_core" and it["narrow"] else TILE
     states = [(torch.full((Q.shape[0],), -np.inf), torch.zeros(Q.shape[0]),
                torch.zeros(Q.shape[0], D)) for _ in range(TILE // width)]
@@ -230,22 +261,20 @@ def walk_item(q, k_pages, v_pages, bt, it, G, window, route, rounding,
         keys = t * TILE + torch.arange(TILE)
         Kt, Vt = torch.zeros(TILE, D), torch.zeros(TILE, D)
         ks, vs = torch.zeros(TILE), torch.zeros(TILE)
-        for pg in range(TILE // PAGE):
-            first = t * TILE + pg * PAGE
-            if first > it["hi"] or first + PAGE - 1 < it["lo"]:
-                continue                            # zero-filled, not read
-            page = t * TILE // PAGE + pg
-            pid = int(bt[it["row"], page]) if page < nb else N - 1
-            pid = pid if 0 <= pid < N else N - 1
-            rows = slice(pg * PAGE, (pg + 1) * PAGE)
-            Kt[rows] = k_pages[pid, it["kvh"]].float()
-            Vt[rows] = v_pages[pid, it["kvh"]].float()
-            if k_scale is not None:
-                ks[rows] = k_scale[pid, it["kvh"]].float()
-                vs[rows] = v_scale[pid, it["kvh"]].float()
         inr = (keys >= it["lo"]) & (keys <= it["hi"])
+        read = keys[inr]                            # the rest zero-filled
+        page = read // bs
+        pid = torch.from_numpy(np.asarray(bt)[it["row"]]).long()[
+            page.clamp(max=nb - 1)]
+        pid = torch.where((page < nb) & (pid >= 0) & (pid < N), pid,
+                          torch.full_like(pid, N - 1))
+        Kt[inr] = k_pages[pid, it["kvh"], read % bs].float()
+        Vt[inr] = v_pages[pid, it["kvh"], read % bs].float()
+        if k_scale is not None:
+            ks[inr] = k_scale[pid, it["kvh"], read % bs].float()
+            vs[inr] = v_scale[pid, it["kvh"], read % bs].float()
         seen = (keys[None] <= pos[:, None]) & (keys[None] < it["clen"]) \
-            & (keys[None] < nb * PAGE) & inr[None]
+            & (keys[None] < nb * bs) & inr[None]
         if window:
             seen &= pos[:, None] - keys[None] < window
         for w, (m, l, acc) in enumerate(states):
@@ -298,18 +327,19 @@ def emulate_ragged(q, k_pages, v_pages, desc, per, window=None,
     tokens whose tile spans n >= 2 splits in split order; tokens no row
     claims (or whose tile sees no key) stay zeros."""
     T, H, D = q.shape
-    Hkv = k_pages.shape[1]
+    Hkv, bs = k_pages.shape[1:3]
     G = H // Hkv
     bt = np.asarray(desc[0])
     items, info = plan_items(desc, T, G, Hkv, bt.shape[1], per, window,
-                             route)
+                             route, bs)
     out = torch.zeros(T, H, D)
     parts = {}
     for it in items:
         m, l, acc = walk_item(q, k_pages, v_pages, bt, it, G, window, route,
                               rounding, k_scale, v_scale)
-        for g in range(it["ntok"] * G):
-            tok, head = it["tok0"] + g // G, it["kvh"] * G + g % G
+        h0, gn = item_heads(it, G)
+        for g in range(it["ntok"] * gn):
+            tok, head = it["tok0"] + g // gn, h0 + g % gn
             if it["slot"] < 0:
                 out[tok, head] = finish(l[g:g + 1], acc[g:g + 1])[0]
             else:
@@ -330,26 +360,53 @@ SPLIT_ROWS = [("decode", 300, 1), ("chunk", 150, 40), ("idle", 0, 0),
               ("decode", 0, 1), ("chunk", 0, 70), ("decode", 470, 1),
               ("chunk", 200, 3), ("chunk", 90, 2)]
 SPLIT_CASES = {
-    # name: (rows, window, int8, edit)
+    # name: (rows, window, int8, edit[, shape]); shape: H, Hkv, D and the
+    # page size (default 8 query heads over 2 kv heads of 16, pages of 16)
     "mixed": (SPLIT_ROWS, None, False, None),
     "decode_rows": ([("decode", c, 1) for c in (63, 64, 255, 256, 400, 511)],
                     None, False, None),
     "window_empties_splits": (SPLIT_ROWS, 70, False, None),
     "row_sees_no_key": (SPLIT_ROWS, 20, False, "no_key"),
     "int8_pool": (SPLIT_ROWS, None, True, None),
+    # a group of 7 (9 tokens a 64-row tile, 4 a 32-row one) on pages of 8;
+    # a group of 6 on pages of 24, which neither divide 64 nor are
+    # multiples of it; a group of 64 and one of 71 (head chunks of 32 and
+    # 36) on pages of 32 and 12; D 256 on an int8 pool
+    "g7_bs8": (SPLIT_ROWS[:4], None, False, None, dict(H=14, bs=8)),
+    "g6_bs24_window": (SPLIT_ROWS[:4], 70, False, None, dict(H=12, bs=24)),
+    "g64_bs32": (SPLIT_ROWS[:4], None, False, None,
+                 dict(H=64, Hkv=1, bs=32)),
+    "g71_bs12_int8": (SPLIT_ROWS[:4], None, True, None,
+                      dict(H=71, Hkv=1, bs=12)),
+    "d256_int8": (SPLIT_ROWS[:2], None, True, None,
+                  dict(H=2, Hkv=1, D=256)),
 }
 SPLIT_PARAMS = [(case, per, route) for case in sorted(SPLIT_CASES)
                 for per in (1, 2) for route in ("cuda_core", "tensor_core")]
 
 
 def _split_setup(case, seed=23):
-    rows, window, int8, edit = SPLIT_CASES[case]
-    q, pool, desc, segs = mixed_setup(seed, rows, bs=PAGE, n_pool=128, nb=32,
-                                      int8=int8)
+    rows, window, int8, edit, *shape = SPLIT_CASES[case]
+    shape = dict(shape[0]) if shape else {}
+    bs = shape.pop("bs", PAGE)
+    q, pool, desc, segs = mixed_setup(seed, rows, bs=bs, n_pool=2048 // bs,
+                                      nb=-(-512 // bs), int8=int8, **shape)
     if edit == "no_key":
         desc[4][0] = 10     # decode row 0 at 300 keeps 10 keys: outside
         #                     its 20-key window, it sees none
     return q, pool, desc, segs, window
+
+
+@functools.lru_cache(maxsize=None)
+def _split_kernel(case):
+    """The JAX Pallas kernel (interpret mode) on a case's inputs, once a
+    case: it depends on neither the split nor the route."""
+    q, pool, desc, _, window = _split_setup(case)
+    return np.asarray(jax_ragged(
+        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
+        *(jnp.asarray(d) for d in desc), interpret=True, force_pallas=True,
+        window=window, **{n: jnp.asarray(pool[n]) for n in
+                          ("k_scale", "v_scale") if n in pool}))
 
 
 @pytest.mark.parametrize("case,per,route", SPLIT_PARAMS)
@@ -375,13 +432,9 @@ def test_split_walk_merges_to_the_plain_version(case, per, route):
     if SPLIT_CASES[case][3] == "no_key":
         assert not got[segs[0][0]].any(), "a row that sees no key is zeros"
         return
-    kern = np.asarray(jax_ragged(
-        jnp.asarray(q), jnp.asarray(pool["k"]), jnp.asarray(pool["v"]),
-        *(jnp.asarray(d) for d in desc), interpret=True, force_pallas=True,
-        window=window, **{n: jnp.asarray(s.numpy())
-                          for n, s in scales.items()}))
-    np.testing.assert_allclose(got.numpy()[claimed], kern[claimed],
-                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy()[claimed],
+                               _split_kernel(case)[claimed], rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("case", ["mixed", "window_empties_splits",
@@ -445,16 +498,26 @@ def test_launch_comes_from_the_shapes_alone():
     import inspect
 
     assert list(inspect.signature(launch_params).parameters) == \
-        ["T", "R", "nb", "Hkv", "sm_count"]
-    assert launch_params(263, 8, 128, 8, 132) == \
+        ["T", "R", "nb", "bs", "Hkv", "sm_count"]
+    assert launch_params(263, 8, 128, 16, 8, 132) == \
         dict(splits=5, per=7, grid=264)
-    assert launch_params(263, 8, 128, 8, 114) == \
+    assert launch_params(263, 8, 128, 16, 8, 114) == \
         dict(splits=4, per=8, grid=228)
-    for T, R, nb, Hkv, sm in ((263, 8, 128, 8, 132), (7, 3, 10, 2, 114),
-                              (1, 1, 1, 1, 132), (4096, 64, 512, 8, 132),
-                              (1, 1, 1024, 1, 132)):
-        lp = launch_params(T, R, nb, Hkv, sm)
-        tiles = -(-nb * PAGE // TILE)
+    # the keys are nb * bs: pages of 8 halve them, of 32 double them
+    assert launch_params(263, 8, 128, 8, 8, 132) == \
+        dict(splits=4, per=4, grid=264)
+    assert launch_params(263, 8, 64, 32, 8, 132) == \
+        dict(splits=5, per=7, grid=264)
+    for T, R, nb, bs, Hkv, sm in ((263, 8, 128, 16, 8, 132),
+                                  (7, 3, 10, 16, 2, 114),
+                                  (1, 1, 1, 16, 1, 132),
+                                  (4096, 64, 512, 16, 8, 132),
+                                  (1, 1, 1024, 16, 1, 132),
+                                  (263, 8, 86, 24, 4, 132),
+                                  (263, 8, 171, 12, 4, 114),
+                                  (9, 2, 300, 1, 1, 132)):
+        lp = launch_params(T, R, nb, bs, Hkv, sm)
+        tiles = -(-nb * bs // TILE)
         assert (lp["splits"] - 1) * lp["per"] < tiles <= \
             lp["splits"] * lp["per"]
         assert 1 <= lp["grid"] <= 2 * sm

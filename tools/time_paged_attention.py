@@ -10,8 +10,9 @@ Imports ``deepspeed_tpu_torch`` and ``chip_smoke.py`` from ``--root``
 its ``chip_smoke.cuda_time_ms`` (CUDA events, the L2 cache flushed before
 each run, the median of ``--reps``): K6 at every ``RAGGED_CASES`` case of
 that tree's ``chip_smoke.py`` with a bf16 pool, an int8 pool and a
-256-token window, then K7a and K7b at every ``PAGED_CASES`` case, each
-beside its bound (``ragged_bound`` / ``paged_bound``). The inputs come
+256-token window, then K7a and K7b at every ``PAGED_CASES`` case (with its
+page size where the case names one), each beside its bound
+(``ragged_bound`` / ``paged_bound``). The inputs come
 from the seeds ``chip_smoke.py`` uses, so every tree sees the same ones.
 With ``--kernels`` each case also gets the device time of every kernel
 its C call launches (K6: the item layout, the walk, the merge; K7a and
@@ -100,13 +101,16 @@ def time_paged(cs, tree, reps, kernels, match):
     from deepspeed_tpu_torch.ops import decode_attention as da
 
     for kind, cases in cs.PAGED_CASES.items():
-        for i, (name, (T, Hq, Hkv, Dh, dtype, int8, window, rows)) in \
+        for i, (name, (T, Hq, Hkv, Dh, dtype, int8, window, rows, *bs)) in \
                 enumerate(cases.items()):
             if not re.search(match, f"paged_{kind}/{name}"):
                 continue
+            # a case's optional page size (trees before pages of any size
+            # have none)
+            size = dict(bs=bs[0]) if bs else {}
             q, k, v, bt, cst, cl, scales = cs.paged_case(
                 T, Hq, Hkv, Dh, dtype, int8, rows,
-                seed=i + (61 if kind == "decode" else 71))
+                seed=i + (61 if kind == "decode" else 71), **size)
             kw = dict(window=window, **scales)
             if kind == "decode":
                 args = (q[:, 0].contiguous(), k, v, bt, cl)
@@ -116,7 +120,7 @@ def time_paged(cs, tree, reps, kernels, match):
                 kernel = da.paged_prefill_attention
             ms = cs.cuda_time_ms(lambda: kernel(*args, **kw), reps=reps)
             bound, by = cs.paged_bound(T, Hq, Hkv, Dh, dtype, int8, window,
-                                       rows)
+                                       rows, **size)
             extra = dict(kernel_us=kernel_us(lambda: kernel(*args, **kw),
                                              reps)) if kernels else {}
             emit(tree, f"paged_{kind}/{name}", ms=ms, bound_ms=bound,
