@@ -1021,7 +1021,10 @@ def check_flash_attention():
 def sparse_config(name, H, block):
     """The long-context layouts of the JAX package's
     ``tools/bench_longctx.py`` (BSLongformer window 7 + global block 0,
-    BigBird 3 random + window 3 + 1 global), and a per-head Fixed one."""
+    BigBird 3 random + window 3 + 1 global), a per-head Fixed one, and
+    ``fixed_ds``: DeepSpeed's default sparse-attention config (Fixed, 4
+    local blocks and 1 global one, bidirectional, one pattern for every
+    head; DeepSpeed's JSON block defaults to a block of 16)."""
     from deepspeed_tpu_torch.ops import sparse_attention as sa
 
     if name == "bslongformer":
@@ -1032,6 +1035,9 @@ def sparse_config(name, H, block):
         return sa.BigBirdSparsityConfig(
             num_heads=H, block=block, num_random_blocks=3,
             num_sliding_window_blocks=3, num_global_blocks=1)
+    if name == "fixed_ds":
+        return sa.FixedSparsityConfig(num_heads=H, block=block,
+                                      num_local_blocks=4, num_global_blocks=1)
     return sa.FixedSparsityConfig(
         num_heads=H, block=block, num_local_blocks=4, num_global_blocks=1,
         different_layout_per_head=True, num_different_global_patterns=2)
@@ -1039,6 +1045,9 @@ def sparse_config(name, H, block):
 
 # the long-context path: Llama-3-8B's 32 query heads of 128, block 128
 SPARSE_MAIN = "bslongformer_t16384"
+# DeepSpeed's default config at BERT-Large's 16 heads of 64: the main case
+# of the 16-row strips (blocks that are not a multiple of 64)
+SPARSE_STRIPS = "fixed_ds_default_t4096"
 SPARSE_CASES = {
     # name: (B, T, H, D, dtype, block, layout, causal)
     SPARSE_MAIN: (1, 16384, H, D, torch.bfloat16, 128, "bslongformer", True),
@@ -1051,9 +1060,27 @@ SPARSE_CASES = {
                                 "bigbird", False),
     "fixed_per_head_t4096": (1, 4096, H, D, torch.bfloat16, 128,
                              "fixed_per_head", True),
+    # fine blocks (the strips), block 256, and the head dims of K1/K2
+    SPARSE_STRIPS: (4, 4096, 16, 64, torch.bfloat16, 16, "fixed_ds", False),
+    "bigbird_block32_t16384": (1, 16384, H, D, torch.bfloat16, 32, "bigbird",
+                               True),
+    "bslongformer_block48_t6144": (1, 6144, H, D, torch.bfloat16, 48,
+                                   "bslongformer", True),
+    "bslongformer_block256_t16384": (1, 16384, H, D, torch.bfloat16, 256,
+                                     "bslongformer", True),
+    "d80_phi2_t8192": (1, 8192, 32, 80, torch.bfloat16, 64, "bslongformer",
+                       True),
+    "d96_neox_t8192": (1, 8192, 64, 96, torch.bfloat16, 128, "bigbird",
+                       False),
+    "d256_gemma_t8192": (1, 8192, 16, 256, torch.bfloat16, 128,
+                         "bslongformer", True),
+    "fp32_d256_block16": (1, 2048, 8, 256, torch.float32, 16,
+                          "fixed_per_head", True),
+    "fp32_d80_block32": (2, 2048, 8, 80, torch.float32, 32, "bigbird", False),
 }
-# FlexAttention (compiled) is timed at the main width only: one compile
-SPARSE_FLEX = (SPARSE_MAIN, "bigbird_t16384")
+# FlexAttention (compiled) is timed at the main width and at DeepSpeed's
+# default config only: a compile each (the others time SDPA)
+SPARSE_FLEX = (SPARSE_MAIN, "bigbird_t16384", SPARSE_STRIPS)
 
 
 def sparse_pairs(layout, block, causal):
@@ -1144,11 +1171,25 @@ def flex_times(qt, kt, vt, dot, want, layout, block, causal):
     functorch_config.donated_buffer = False
 
     B, Hh, T, _ = qt.shape
-    nb = T // block
     lay = torch.as_tensor(np.asarray(layout) != 0, device="cuda")
-    diag = torch.eye(nb, dtype=torch.bool, device="cuda")[None]
-    full, part = (lay & ~diag, lay & diag) if causal else \
-        (lay, torch.zeros_like(lay))
+    # FlexAttention's kernels take blocks of 128: a finer layout's blocks
+    # are grouped into 128 x 128 ones, full where every fine block of one
+    # is seen (and it is off the diagonal), partial where some are, and
+    # its mask_mod reads the fine layout
+    coarse = block if block % 128 == 0 else 128
+    if coarse % block or T % coarse:
+        raise ValueError(f"block {block} does not group into FlexAttention "
+                         f"blocks of {coarse} over T {T}")
+    f = coarse // block
+    nc = T // coarse
+    if f > 1:
+        grid = lay.reshape(Hh, nc, f, nc, f)
+        seen_any, seen_all = grid.any(4).any(2), grid.all(4).all(2)
+    else:
+        seen_any = seen_all = lay
+    diag = torch.eye(nc, dtype=torch.bool, device="cuda")[None]
+    full = seen_all & ~diag if causal else seen_all
+    part = seen_any & ~full
 
     def lists(m):
         cnt = m.sum(-1).to(torch.int32)
@@ -1163,7 +1204,7 @@ def flex_times(qt, kt, vt, dot, want, layout, block, causal):
     kv_num, kv_idx = lists(part)
     full_num, full_idx = lists(full)
     bm = BlockMask.from_kv_blocks(kv_num, kv_idx, full_num, full_idx,
-                                  BLOCK_SIZE=block, mask_mod=layout_mod)
+                                  BLOCK_SIZE=coarse, mask_mod=layout_mod)
     flex = torch.compile(flex_attention, dynamic=False)
     t = time.perf_counter()
     out = flex(qt, kt, vt, block_mask=bm)
@@ -1186,11 +1227,11 @@ def flex_times(qt, kt, vt, dot, want, layout, block, causal):
 
 def work_list_summary(walks, block):
     """A ``_Walks``' work list in words: its items (one block each per
-    64-row slice and batch row), how many of them belong to split walks,
-    and the longest item in 64-row tiles."""
+    64-row slice and batch row, or one warp each per 16-row strip), how
+    many of them belong to split walks, and the longest item in keys."""
     split = int((walks.work[:, 4] >= 0).sum())
     return (f"{walks.work.shape[0]} items ({split} split), longest "
-            f"{walks.longest * block // 64} tiles")
+            f"{walks.longest * block} keys")
 
 
 def check_block_sparse_attention():
@@ -1209,9 +1250,12 @@ def check_block_sparse_attention():
         g = torch.Generator(device="cuda").manual_seed(len(results) + 91)
         q, k, v, do = (torch.randn(B, T, Hh, Dh, generator=g, device="cuda",
                                    dtype=dtype) for _ in range(4))
-        layout = bsa._causal_layout(
-            sparse_config(name, Hh, block).make_layout(T), causal)
+        # the layout as sparse_attention holds it: made once, cut once,
+        # read-only, so the wrappers find its lists by identity
+        layout = bsa._cut(bsa._config_layout(sparse_config(name, Hh, block),
+                                             T), causal)
         args = (layout, block, causal)
+        route = bsa.kernel_route(dtype, block)
         out, lse = bsa.block_sparse_attention_fwd(q, k, v, *args)
         dq = bsa.block_sparse_attention_bwd_dq(q, k, v, out, lse, do, *args)
         dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, out, lse, do,
@@ -1269,23 +1313,25 @@ def check_block_sparse_attention():
         bounds = sparse_bounds(B, T, Hh, Dh, dtype, *args)
         _, cnt = bsa.layout_indices(layout)
         _, qcnt = bsa.layout_indices(np.swapaxes(layout, 1, 2))
-        walks = bsa._indices(layout, causal, q.device)
+        walks = bsa._indices(layout, causal, q.device, block)
         results[case] = {}
         for part, names in (("fwd", ("out", "lse")), ("dq", ("dq",)),
                             ("dkv", ("dk", "dv"))):
             kind = "fwd" if part == "fwd" else "bwd"
             results[case][part] = dict(
-                max_abs_err=max(errs[n] for n in names), ms=ms[part],
+                route=route, max_abs_err=max(errs[n] for n in names),
+                ms=ms[part],
                 plain_ms=plain_ms[part], bound_ms=bounds[part][0],
                 bound_by=bounds[part][1],
                 library_ms=lib.get(f"flex_{kind}", lib.get(f"sdpa_{kind}")),
                 flex_ms=lib.get(f"flex_{kind}"),
                 sdpa_ms=lib.get(f"sdpa_{kind}"))
         log(f"parity block_sparse_attention {case} (B {B} T {T} H {Hh} D {Dh} "
-            f"{str(dtype)[6:]} block {block} {name} causal {causal}; block "
-            f"degree mean {cnt.mean():.2f} max {cnt.max()}, transposed max "
-            f"{qcnt.max()}; {sparse_pairs(layout, block, causal)} pairs per "
-            f"batch row; bf16 work lists, C {bsa.SPLIT_BLOCKS} blocks: "
+            f"{str(dtype)[6:]} block {block} {name} causal {causal}; route "
+            f"{route}; block degree mean {cnt.mean():.2f} max {cnt.max()}, "
+            f"transposed max {qcnt.max()}; "
+            f"{sparse_pairs(layout, block, causal)} pairs per batch row; "
+            f"bf16 work lists, C {bsa._split(block)} blocks: "
             + ", ".join(f"{kind} {work_list_summary(w, block)}" for kind, w
                         in zip(("rows", "columns"), walks))
             + "): ok max_abs_err " + " ".join(
@@ -1318,6 +1364,14 @@ def host_ms(fn, reps=20):
 
 LONGCTX_T = (4096, 8192, 16384)
 LONGCTX_LAYOUTS = ("bslongformer", "bigbird")
+# the fine-block runs (the 16-row strips): DeepSpeed's default config at
+# BERT-Large's heads, non-causal as its bidirectional layout is, beside
+# non-causal flash; BigBird at a block of 32 at Llama-3-8B's heads
+LONGCTX_FINE = {
+    # name: (B, T, H, D, block, layout, causal)
+    SPARSE_STRIPS: (4, 4096, 16, 64, 16, "fixed_ds", False),
+    "bigbird_block32_t16384": (1, 16384, H, D, 32, "bigbird", True),
+}
 
 
 def causal_block_fraction(layout):
@@ -1335,11 +1389,13 @@ def check_long_context():
     port: ``sparse_attention`` (bf16, B 1, H 32, D 128, causal, block 128)
     at T 4096, 8192 and 16384 with both layouts, one forward and one
     backward each (loss ``(out * dout).sum()``), beside causal
-    ``flash_attention`` (K1/K2) on the same q/k/v. Asserts finite
-    gradients and exact launch counts (K9: 6 of each; K1 forward and K2:
-    one per yardstick call), then times both forward and backward, and
-    the host time of one ``sparse_attention`` forward call. Returns the K9
-    launches."""
+    ``flash_attention`` (K1/K2) on the same q/k/v; then the
+    ``LONGCTX_FINE`` runs at blocks of 16 and 32, each beside flash with
+    its causality. Asserts finite gradients and exact launch counts (K9:
+    one of each pass a run, 6 on the 64-row slices and 2 on the strips;
+    K1 forward and K2: one per yardstick call), then times both forward and
+    backward, and the host time of one ``sparse_attention`` forward call.
+    Returns the K9 launches of each route."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
@@ -1349,9 +1405,9 @@ def check_long_context():
     k12 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
            fa.flash_attention_bwd_dkv)
 
-    def inputs(T):
-        g = torch.Generator(device="cuda").manual_seed(T)
-        return [torch.randn(1, T, H, D, generator=g, device="cuda",
+    def inputs(B, T, Hh, Dh):
+        g = torch.Generator(device="cuda").manual_seed(T + Hh + Dh)
+        return [torch.randn(B, T, Hh, Dh, generator=g, device="cuda",
                             dtype=torch.bfloat16) for _ in range(4)]
 
     def fwd_bwd(fn, q, k, v, do):
@@ -1359,39 +1415,55 @@ def check_long_context():
         (fn(*leaves) * do).sum().backward()
         return [t.grad for t in leaves]
 
+    # every run: (label, (B, T, H, D), block, layout, causal)
+    runs = [(f"T {T} {name}", (1, T, H, D), 128, name, True)
+            for T in LONGCTX_T for name in LONGCTX_LAYOUTS]
+    runs += [(case, (B, T, Hh, Dh), block, name, causal)
+             for case, (B, T, Hh, Dh, block, name, causal)
+             in LONGCTX_FINE.items()]
     for f in k9 + k12:
         f.launches = 0
+    for f in k9:
+        f.route_launches.clear()
     flash_calls = 0
-    for T in LONGCTX_T:
-        q, k, v, do = inputs(T)
-        for name in LONGCTX_LAYOUTS:
-            cfg = sparse_config(name, H, 128)
-            grads = fwd_bwd(lambda *x: sparse_attention(
-                *x, sparsity_config=cfg, causal=True), q, k, v, do)
-            if not all(bool(torch.isfinite(g).all()) for g in grads):
-                raise AssertionError(f"long context T {T} {name}: a "
-                                     f"gradient is not finite")
-        grads = fwd_bwd(lambda *x: fa.flash_attention(*x, causal=True),
-                        q, k, v, do)
-        flash_calls += 1
+    flash_shapes = []
+    for label, shape, block, name, causal in runs:
+        q, k, v, do = inputs(*shape)
+        cfg = sparse_config(name, shape[2], block)
+        grads = fwd_bwd(lambda *x: sparse_attention(
+            *x, sparsity_config=cfg, causal=causal), q, k, v, do)
         if not all(bool(torch.isfinite(g).all()) for g in grads):
-            raise AssertionError(f"long context T {T} flash: a gradient is "
-                                 f"not finite")
+            raise AssertionError(f"long context {label}: a gradient is not "
+                                 f"finite")
+        if (shape, causal) not in flash_shapes:
+            flash_shapes.append((shape, causal))
+            grads = fwd_bwd(lambda *x: fa.flash_attention(*x, causal=causal),
+                            q, k, v, do)
+            flash_calls += 1
+            if not all(bool(torch.isfinite(g).all()) for g in grads):
+                raise AssertionError(f"long context {label} flash: a "
+                                     f"gradient is not finite")
         del q, k, v, do, grads
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in k9 + k12}
-    runs = len(LONGCTX_T) * len(LONGCTX_LAYOUTS)
-    want = {**{f.__name__: runs for f in k9},
+    routes = {f.__name__: dict(f.route_launches) for f in k9}
+    want = {**{f.__name__: len(runs) for f in k9},
             **{f.__name__: flash_calls for f in k12}}
-    if launches != want:
-        raise AssertionError(f"long context: launches {launches} != {want}")
-    log(f"long context: {runs} sparse_attention forward + backward runs, "
-        f"{flash_calls} flash yardsticks, launches {launches}")
+    want_routes = {f.__name__: {"tiles": len(runs) - len(LONGCTX_FINE),
+                                "strips": len(LONGCTX_FINE)} for f in k9}
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"long context: launches {launches}, routes "
+                             f"{routes} != {want}, {want_routes}")
+    log(f"long context: {len(runs)} sparse_attention forward + backward "
+        f"runs, {flash_calls} flash yardsticks, launches {launches}, K9 "
+        f"routes {routes}")
 
-    for T in LONGCTX_T:
-        q, k, v, do = inputs(T)
+    def timed(label, shape, block, name, causal, reps, flash=None):
+        """``(flash_ms, flash_bwd_ms, sparse record)`` of one run: forward
+        and backward ms of ``sparse_attention`` (and of flash unless
+        given), the host ms of one forward call."""
+        q, k, v, do = inputs(*shape)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        reps = 25 if T < 16384 else 5
 
         def times(fn):
             with torch.no_grad():
@@ -1401,31 +1473,47 @@ def check_long_context():
                 out, leaves, do, retain_graph=True), reps=reps)
             return fwd, bwd
 
-        flash_ms, flash_bwd_ms = times(
-            lambda *x: fa.flash_attention(*x, causal=True))
-        rec = {"metric": "longctx_attention", "seq": T, "heads": H,
-               "head_dim": D, "flash_ms": flash_ms,
-               "flash_bwd_ms": flash_bwd_ms, "layouts": {}}
-        for name in LONGCTX_LAYOUTS:
-            cfg = sparse_config(name, H, 128)
-            frac = causal_block_fraction(cfg.make_layout(T))
-            sparse_ms, sparse_bwd_ms = times(lambda *x: sparse_attention(
-                *x, sparsity_config=cfg, causal=True))
-            rec["layouts"][name] = {
-                "sparse_ms": sparse_ms, "sparse_bwd_ms": sparse_bwd_ms,
-                "sparse_host_ms": host_ms(lambda: sparse_attention(
-                    q, k, v, sparsity_config=cfg, causal=True)),
-                "sparse_speedup_vs_flash": flash_ms / sparse_ms,
-                "sparse_bwd_speedup_vs_flash": flash_bwd_ms / sparse_bwd_ms,
-                "causal_nnz_fraction": frac,
-                "theoretical_speedup": 1.0 / frac,
-                "realization": flash_ms / sparse_ms * frac,
-                "bwd_realization": flash_bwd_ms / sparse_bwd_ms * frac}
-        log("long context " + json.dumps(rec))
+        if flash is None:
+            flash = times(lambda *x: fa.flash_attention(*x, causal=causal))
+        cfg = sparse_config(name, shape[2], block)
+        layout = cfg.make_layout(shape[1])
+        frac = causal_block_fraction(layout) if causal else \
+            float(np.asarray(layout, bool).mean())
+        sparse_ms, sparse_bwd_ms = times(lambda *x: sparse_attention(
+            *x, sparsity_config=cfg, causal=causal))
+        rec = {"sparse_ms": sparse_ms, "sparse_bwd_ms": sparse_bwd_ms,
+               "sparse_host_ms": host_ms(lambda: sparse_attention(
+                   q, k, v, sparsity_config=cfg, causal=causal)),
+               "sparse_speedup_vs_flash": flash[0] / sparse_ms,
+               "sparse_bwd_speedup_vs_flash": flash[1] / sparse_bwd_ms,
+               ("causal_nnz_fraction" if causal else "nnz_fraction"): frac,
+               "theoretical_speedup": 1.0 / frac,
+               "realization": flash[0] / sparse_ms * frac,
+               "bwd_realization": flash[1] / sparse_bwd_ms * frac}
         del q, k, v, do, leaves
         gc.collect()
         torch.cuda.empty_cache()
-    return {f.__name__: launches[f.__name__] for f in k9}
+        return flash, rec
+
+    for T in LONGCTX_T:
+        reps = 25 if T < 16384 else 5
+        flash = None
+        rec = {"metric": "longctx_attention", "seq": T, "heads": H,
+               "head_dim": D, "layouts": {}}
+        for name in LONGCTX_LAYOUTS:
+            flash, rec["layouts"][name] = timed(
+                f"T {T} {name}", (1, T, H, D), 128, name, True, reps, flash)
+        rec["flash_ms"], rec["flash_bwd_ms"] = flash
+        log("long context " + json.dumps(rec))
+    for case, (B, T, Hh, Dh, block, name, causal) in LONGCTX_FINE.items():
+        flash, sparse = timed(case, (B, T, Hh, Dh), block, name, causal,
+                              25 if T < 16384 else 5)
+        log("long context " + json.dumps(
+            {"metric": "longctx_attention", "case": case, "batch": B,
+             "seq": T, "heads": Hh, "head_dim": Dh, "block": block,
+             "layout": name, "causal": causal, "flash_ms": flash[0],
+             "flash_bwd_ms": flash[1], "layouts": {name: sparse}}))
+    return routes
 
 
 # ---------------------------------------------------------------------------
@@ -6307,21 +6395,31 @@ def main() -> int:
         replaces="deepspeed_tpu/ops/pallas/quant_matmul.py:151",
         launches=tf32_launches,
         **dict(quant[GEMV_TF32_MAIN], max_abs_err=max(errs))))
-    # K9: launches of the long-context path's six forward + backward runs
+    # K9: launches of the long-context path's eight forward + backward
+    # runs, by route: the 64-row slices (six runs at block 128; with the
+    # fp32 kernels of the same source, held at the main case) and the
+    # 16-row strips (two runs at blocks of 16 and 32, held at DeepSpeed's
+    # default config)
     sparse_src = "deepspeed_tpu/ops/pallas/block_sparse_attention.py"
-    for name, part, line in (("block_sparse_attention_fwd", "fwd", 55),
-                             ("block_sparse_attention_bwd_dq", "dq", 103),
-                             ("block_sparse_attention_bwd_dkv", "dkv", 143)):
-        main_case = dict(sparse[SPARSE_MAIN][part])
-        for extra in ("flex_ms", "sdpa_ms"):
-            main_case.pop(extra)
-        main_case["max_abs_err"] = max(r[part]["max_abs_err"]
-                                       for r in sparse.values())
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
-            replaces=f"{sparse_src}:{line}", launches=sparse_launches[name],
-            **main_case))
+    for route, case, source in (
+            ("tiles", SPARSE_MAIN, "block_sparse_attention.cu"),
+            ("strips", SPARSE_STRIPS, "block_sparse_strips.cu")):
+        for name, part, line in (
+                ("block_sparse_attention_fwd", "fwd", 55),
+                ("block_sparse_attention_bwd_dq", "dq", 103),
+                ("block_sparse_attention_bwd_dkv", "dkv", 143)):
+            main_case = dict(sparse[case][part])
+            for extra in ("flex_ms", "sdpa_ms", "route"):
+                main_case.pop(extra)
+            main_case["max_abs_err"] = max(
+                r[part]["max_abs_err"] for r in sparse.values()
+                if (r[part]["route"] == "strips") == (route == "strips"))
+            kernels.append(dict(
+                name=name if route == "tiles"
+                else name.replace("attention", "strips"),
+                route="cuda", source=f"deepspeed_tpu_torch/csrc/{source}",
+                replaces=f"{sparse_src}:{line}",
+                launches=sparse_launches[name].get(route, 0), **main_case))
     for entry in kernels:
         entry["generic_launches"] = generic_run_launches(entry["name"])
         entry["families_launches"] = {

@@ -20,6 +20,10 @@
 // P = exp(S - lse): dV = P^T dO, dP = dO V^T, dS = P (dP - delta) with
 // delta = rowsum(dO * O) (a torch reduction in the wrapper), dQ = scale dS
 // K, dK = scale dS^T Q. A row that sees no key gets zeros and lse = -inf.
+// Head dims 64, 80, 96, 128 and 256. This file holds the bf16 kernels for
+// blocks that are a multiple of 64 and the fp32 kernels for every block
+// that is a multiple of 16; bf16 at the other multiples of 16 is
+// block_sparse_strips.cu. What both share is block_sparse_common.cuh.
 //
 // Bound. At the main shape (B 1, T 16384, H 32, D 128, bf16, block 128,
 // causal BSLongformer window 7 + global block 0: 7.6% of the causal
@@ -45,17 +49,24 @@
 //   folded in). P, dS, P^T and dS^T are rounded to bf16 and become A
 //   fragments in registers: the C layout of an m16n8 pair is the A layout
 //   of the next k-step, so nothing goes through shared memory.
-// - Tiles are bf16 in XOR-swizzled shared memory, fed by a 2-stage ring of
-//   16-byte cp.async copies: the next tile is in flight while this one is
-//   multiplied. dK/dV walks query tiles of 64 rows at D 64 and of 32 at
-//   D 128 (its dK and dV accumulators take 128 registers a thread there);
-//   their lse and delta come through the same ring.
+// - Tiles are bf16 in shared memory (XOR-swizzled rows at D 64, 128 and
+//   256, rows of D + 8 at D 80 and 96: tc_common.cuh tile_ld, swz), fed by
+//   a 2-stage ring of 16-byte cp.async copies: the next tile is in flight
+//   while this one is multiplied. dK/dV walks query tiles of 64 rows at
+//   D 64 and of 32 at the other head dims (its dK and dV accumulators take
+//   80-128 registers a thread there); their lse and delta come through the
+//   same ring.
+// - D 256, as in flash_attention.cu: the forward reads each k-step's Q
+//   fragment from shared memory (the warp's 16 x 256 output accumulator
+//   takes 128 registers), dQ walks key tiles of 32, and dK/dV runs its walk
+//   twice in one C call, DV_ONLY then DK_ONLY, one 128-register
+//   accumulator each (5/4 of the dK/dV work, no atomics).
 // - The item's active blocks (at most C of them) are copied into shared
 //   memory once, at the start; tile addresses and the causal bounds come
 //   from there. Causality keeps a prefix of the ascending walk (forward,
-//   dQ: key tiles at or before the own slice) or a suffix (dK/dV: query
-//   tiles at or after it); only the diagonal tile (one per 64-row slice,
-//   two for dK/dV's 32-row query tiles at D 128) is masked per element.
+//   dQ: key tiles at or before the own slice's last row) or a suffix
+//   (dK/dV: query tiles at or after the own keys); only the tiles across
+//   the diagonal are masked per element.
 // - Load balance (the TPU grid pads every row to the largest degree and
 //   needs none; here a block with a long walk would finish last). The
 //   wrapper cuts every walk longer than C = 16 active blocks
@@ -79,91 +90,66 @@
 //
 // fp32 inputs keep the first design (fwd_kernel, dq_kernel, dkv_kernel):
 // exact fp32 FMA on CUDA cores, which the 2e-5 fp32 tolerance needs (TF32
-// cannot meet it). One block per (64-row slice, batch x head) walks its
-// whole list from device memory through a 2-stage cp.async double buffer;
-// tiles are kept in shared memory as fp32 rows padded by 16 bytes, each
-// thread holds a 4 x 4 block of scores and a 4 x D/16 block of the
-// accumulators, P goes through shared memory, and tiles past the causal
-// diagonal are skipped. It does not use the work list.
+// cannot meet it). One block per (TS-row slice, batch x head) walks its
+// whole list from device memory through a 2-stage cp.async double buffer
+// of TS-row tiles: TS = 64 where the block is a multiple of 64 and D <=
+// 128, else 16 (a D 256 tile of 64 fp32 rows is 66.6 KB, and finer blocks
+// need finer tiles). Tiles are kept in shared memory as fp32 rows padded
+// by 16 bytes; each thread holds a TS/16 x TS/16 block of scores and a
+// TS/16 x D/16 block of the accumulators, P goes through shared memory,
+// and tiles past the causal diagonal are skipped. It does not use the
+// work list.
 //
 // Each kernel raises its shared-memory limit once per device
 // (allow_smem), not on every launch. PERF.md has the times.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "tc_common.cuh"
+#include "block_sparse_common.cuh"
 
 namespace {
 
-constexpr int BT = 64;        // rows of a query or key tile
-constexpr int THREADS = 256;  // fp32: 16 x 16, ty picks 4 rows, tx 4 columns
-constexpr int PS = BT + 4;    // stride of a 64-wide fp32 score tile
+constexpr int BT = 64;        // rows of a bf16 slice (and of its key tiles)
+constexpr int THREADS = 256;  // fp32: 16 x 16, ty picks rows, tx columns
 constexpr int TC_THREADS = 128;     // bf16: 4 warps of 16 rows
-constexpr int MERGE_THREADS = 256;  // the merge of split walks
-constexpr int WORK = 5;   // ints of a work item: head, list row, first entry,
-                          // entries, slot (-1: the item is the whole walk)
-constexpr int MERGE = 4;  // ints of a split walk: head, list row, first
-                          // slot, slots (one per item, in the walk's order)
 
-// a tile of 64 rows of D elements of type E in shared memory
-template <typename E, int D>
+// a tile of ROWS rows of D elements of type E in shared memory
+template <typename E, int D, int ROWS>
 struct Tile {
   static constexpr int CH = 16 / static_cast<int>(sizeof(E));  // per 16 B
   static constexpr int LD = D + CH;            // row stride: 16 B of padding
-  static constexpr int ELEMS = BT * LD;
+  static constexpr int ELEMS = ROWS * LD;
   static constexpr int BYTES = ELEMS * static_cast<int>(sizeof(E));
-};
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;    // backward only
-  const float* lse;    // [B, H, T]; backward only
-  const float* delta;  // [B, H, T]; backward only
-  void* out;           // forward: out; dq kernel: dq; dkv kernel: dk
-  void* out2;          // dkv kernel: dv
-  float* lse_out;      // forward only
-  const int* idx;      // [H, nb, A] active blocks of each row of the lists
-  const int* cnt;      // [H, nb]
-  const int* work;     // bf16: [n_work, WORK] items, longest first
-  const int* merge;    // bf16: [n_merge, MERGE] the split walks
-  float* scratch;      // bf16: the split items' fp32 partials
-  int B, H, T, nb, A, block, causal;
-  int n_work, n_merge, max_blocks;  // max_blocks: the longest item
-  float sm_scale;
 };
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
-// N consecutive floats at p (16-byte aligned)
+// N consecutive floats at p (16-byte aligned when N % 4 == 0)
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* o) {
-  static_assert(N % 4 == 0, "fp32 rows are read 4 at a time");
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int c = 0; c < N / 4; ++c) {
-    const float4 x = reinterpret_cast<const float4*>(p)[c];
-    o[4 * c] = x.x;
-    o[4 * c + 1] = x.y;
-    o[4 * c + 2] = x.z;
-    o[4 * c + 3] = x.w;
+    for (int c = 0; c < N / 4; ++c) {
+      const float4 x = reinterpret_cast<const float4*>(p)[c];
+      o[4 * c] = x.x;
+      o[4 * c + 1] = x.y;
+      o[4 * c + 2] = x.z;
+      o[4 * c + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; ++c) o[c] = p[c];
   }
 }
 
-// start copying rows [row0, row0 + 64) of head h, batch b of a [B, T, H, D]
+// start copying rows [row0, row0 + TS) of head h, batch b of a [B, T, H, D]
 // tensor into a shared tile (16-byte pieces; the wrapper aligns the base)
-template <typename E, int D>
+template <typename E, int D, int TS>
 __device__ __forceinline__ void load_tile_async(E* dst, const void* src, int b,
                                                 int h, int row0, int T,
                                                 int H) {
-  using L = Tile<E, D>;
+  using L = Tile<E, D, TS>;
   constexpr int PER_ROW = D / L::CH;
   const E* s = static_cast<const E*>(src);
-  for (int c = threadIdx.x; c < BT * PER_ROW; c += THREADS) {
+  for (int c = threadIdx.x; c < TS * PER_ROW; c += THREADS) {
     const int r = c / PER_ROW;
     const int e = (c % PER_ROW) * L::CH;
     cp16(saddr(dst + r * L::LD + e),
@@ -175,49 +161,52 @@ __device__ __forceinline__ void load_tile_async(E* dst, const void* src, int b,
 // fp32: the CUDA-core kernels
 // ---------------------------------------------------------------------------
 
-// s[i][j] = sum_d X[4 ty + i][d] * Y[tx + 16 j][d] over two shared tiles
-template <typename E, int D>
-__device__ __forceinline__ void tile_scores(float s[4][4], const E* X,
-                                            const E* Y, int ty, int tx) {
-  using L = Tile<E, D>;
+// s[i][j] = sum_d X[RI ty + i][d] * Y[tx + 16 j][d] over two shared tiles
+// (RI = TS / 16 rows and columns a thread)
+template <typename E, int D, int TS>
+__device__ __forceinline__ void tile_scores(float s[TS / 16][TS / 16],
+                                            const E* X, const E* Y, int ty,
+                                            int tx) {
+  using L = Tile<E, D, TS>;
+  constexpr int RI = TS / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) s[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += L::CH) {
-    float a[4][L::CH];
+    float a[RI][L::CH];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      load_vec<L::CH>(X + (4 * ty + i) * L::LD + d, a[i]);
+    for (int i = 0; i < RI; ++i)
+      load_vec<L::CH>(X + (RI * ty + i) * L::LD + d, a[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RI; ++j) {
       float y[L::CH];
       load_vec<L::CH>(Y + (tx + 16 * j) * L::LD + d, y);
 #pragma unroll
       for (int c = 0; c < L::CH; ++c)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = fmaf(a[i][c], y[c], s[i][j]);
+        for (int i = 0; i < RI; ++i) s[i][j] = fmaf(a[i][c], y[c], s[i][j]);
     }
   }
 }
 
-// acc[i][n] += sum_c P[4 ty + i][c] * Z[c][tx D/16 + n] over the 64 c of a
-// tile; P is an fp32 score tile of stride PS, Z a shared tile
-template <typename E, int D>
-__device__ __forceinline__ void tile_accumulate(float acc[4][D / 16],
+// acc[i][n] += sum_c P[RI ty + i][c] * Z[c][tx D/16 + n] over the TS c of a
+// tile; P is an fp32 score tile of stride TS + 4, Z a shared tile
+template <typename E, int D, int TS>
+__device__ __forceinline__ void tile_accumulate(float acc[TS / 16][D / 16],
                                                 const float* P, const E* Z,
                                                 int ty, int tx) {
-  using L = Tile<E, D>;
-  constexpr int N = D / 16;
+  using L = Tile<E, D, TS>;
+  constexpr int N = D / 16, RI = TS / 16, PS = TS + 4;
 #pragma unroll 4
-  for (int c = 0; c < BT; ++c) {
-    float p[4], z[N];
+  for (int c = 0; c < TS; ++c) {
+    float p[RI], z[N];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(4 * ty + i) * PS + c];
+    for (int i = 0; i < RI; ++i) p[i] = P[(RI * ty + i) * PS + c];
     load_vec<N>(Z + c * L::LD + tx * N, z);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int n = 0; n < N; ++n) acc[i][n] = fmaf(p[i], z[n], acc[i][n]);
   }
@@ -225,19 +214,21 @@ __device__ __forceinline__ void tile_accumulate(float acc[4][D / 16],
 
 // the first row of the walk's tile t: entry t / spb of the list, slice
 // t % spb of that block
+template <int TS>
 __device__ __forceinline__ int tile_row0(const Params& p, const int* list,
                                          int spb, int t) {
-  return __ldg(list + t / spb) * p.block + (t % spb) * BT;
+  return __ldg(list + t / spb) * p.block + (t % spb) * TS;
 }
 
 // the first tile at or after t of a walk of n that causality lets
 // through: for the forward and dQ (transposed = false) key tiles at or
 // before the own rows' tile, for dK/dV query tiles at or after it
+template <int TS>
 __device__ __forceinline__ int next_tile(const Params& p, const int* list,
                                          int spb, int n, int t, int own0,
                                          bool transposed) {
   for (; t < n && p.causal; ++t) {
-    const int o0 = tile_row0(p, list, spb, t);
+    const int o0 = tile_row0<TS>(p, list, spb, t);
     if (transposed ? o0 >= own0 : o0 <= own0) break;
   }
   return t;
@@ -255,18 +246,12 @@ __device__ __forceinline__ float row_max(float v) {
   return v;
 }
 
-// a saved lse as the exponent's offset: -inf (a row that saw no key)
-// becomes +inf so that its probabilities are 0, not NaN
-__device__ __forceinline__ float lse_offset(float lse) {
-  return lse == -INFINITY ? INFINITY : lse;
-}
-
-template <typename E, int D>
+template <typename E, int D, int TS>
 __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
-  using L = Tile<E, D>;
-  constexpr int N = D / 16;
-  const int spb = p.block / BT;
-  const int row0 = blockIdx.x * BT;
+  using L = Tile<E, D, TS>;
+  constexpr int N = D / 16, RI = TS / 16, PS = TS + 4;
+  const int spb = p.block / TS;
+  const int row0 = blockIdx.x * TS;
   const int qb = blockIdx.x / spb;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -280,19 +265,19 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
 
   const int* list = p.idx + (static_cast<size_t>(h) * p.nb + qb) * p.A;
   const int n = __ldg(p.cnt + h * p.nb + qb) * spb;
-  int t = next_tile(p, list, spb, n, 0, row0, false);
-  load_tile_async<E, D>(qs, p.q, b, h, row0, p.T, p.H);
+  int t = next_tile<TS>(p, list, spb, n, 0, row0, false);
+  load_tile_async<E, D, TS>(qs, p.q, b, h, row0, p.T, p.H);
   if (t < n) {
-    const int c0 = tile_row0(p, list, spb, t);
-    load_tile_async<E, D>(ring, p.k, b, h, c0, p.T, p.H);
-    load_tile_async<E, D>(ring + L::ELEMS, p.v, b, h, c0, p.T, p.H);
+    const int c0 = tile_row0<TS>(p, list, spb, t);
+    load_tile_async<E, D, TS>(ring, p.k, b, h, c0, p.T, p.H);
+    load_tile_async<E, D, TS>(ring + L::ELEMS, p.v, b, h, c0, p.T, p.H);
   }
   cp_commit();
 
-  float acc[4][N];
-  float m_run[4], l_run[4];
+  float acc[RI][N];
+  float m_run[RI], l_run[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.f;
 #pragma unroll
@@ -301,38 +286,38 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
 
   int stage = 0;
   while (t < n) {
-    const int c0 = tile_row0(p, list, spb, t);
+    const int c0 = tile_row0<TS>(p, list, spb, t);
     cp_wait<0>();
     __syncthreads();  // tile t landed; the other stage and ps are free
-    const int tn = next_tile(p, list, spb, n, t + 1, row0, false);
+    const int tn = next_tile<TS>(p, list, spb, n, t + 1, row0, false);
     if (tn < n) {
       E* nxt = ring + 2 * (stage ^ 1) * L::ELEMS;
-      const int n0 = tile_row0(p, list, spb, tn);
-      load_tile_async<E, D>(nxt, p.k, b, h, n0, p.T, p.H);
-      load_tile_async<E, D>(nxt + L::ELEMS, p.v, b, h, n0, p.T, p.H);
+      const int n0 = tile_row0<TS>(p, list, spb, tn);
+      load_tile_async<E, D, TS>(nxt, p.k, b, h, n0, p.T, p.H);
+      load_tile_async<E, D, TS>(nxt + L::ELEMS, p.v, b, h, n0, p.T, p.H);
     }
     cp_commit();
     const E* ks = ring + 2 * stage * L::ELEMS;
     const E* vs = ks + L::ELEMS;
     const bool diag = p.causal && c0 == row0;
-    float s[4][4];
-    tile_scores<E, D>(s, qs, ks, ty, tx);
+    float s[RI][RI];
+    tile_scores<E, D, TS>(s, qs, ks, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = !diag || tx + 16 * j <= 4 * ty + i ? s[i][j] * p.sm_scale
-                                                      : -INFINITY;
+      for (int j = 0; j < RI; ++j) {
+        s[i][j] = !diag || tx + 16 * j <= RI * ty + i ? s[i][j] * p.sm_scale
+                                                       : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m_run[i], row_max(mx));
       const float alpha = m_run[i] == -INFINITY ? 0.f : expf(m_run[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float pj = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        ps[(4 * ty + i) * PS + tx + 16 * j] = pj;
+        ps[(RI * ty + i) * PS + tx + 16 * j] = pj;
         sum += pj;
       }
       l_run[i] = l_run[i] * alpha + row_sum(sum);
@@ -341,7 +326,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
       for (int j = 0; j < N; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-    tile_accumulate<E, D>(acc, ps, vs, ty, tx);
+    tile_accumulate<E, D, TS>(acc, ps, vs, ty, tx);
     stage ^= 1;
     t = tn;
   }
@@ -349,8 +334,8 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
 
   E* out = static_cast<E*>(p.out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + 4 * ty + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = row0 + RI * ty + i;
     const float l = l_run[i];
     const float inv = l == 0.f ? 0.f : 1.f / l;
     E* dst = out + ((static_cast<size_t>(b) * p.T + row) * p.H + h) * D +
@@ -363,12 +348,12 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   }
 }
 
-template <typename E, int D>
+template <typename E, int D, int TS>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
-  using L = Tile<E, D>;
-  constexpr int N = D / 16;
-  const int spb = p.block / BT;
-  const int row0 = blockIdx.x * BT;
+  using L = Tile<E, D, TS>;
+  constexpr int N = D / 16, RI = TS / 16, PS = TS + 4;
+  const int spb = p.block / TS;
+  const int row0 = blockIdx.x * TS;
   const int qb = blockIdx.x / spb;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -383,21 +368,22 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
 
   const int* list = p.idx + (static_cast<size_t>(h) * p.nb + qb) * p.A;
   const int n = __ldg(p.cnt + h * p.nb + qb) * spb;
-  int t = next_tile(p, list, spb, n, 0, row0, false);
-  load_tile_async<E, D>(qs, p.q, b, h, row0, p.T, p.H);
-  load_tile_async<E, D>(dos, p.dout, b, h, row0, p.T, p.H);
+  int t = next_tile<TS>(p, list, spb, n, 0, row0, false);
+  load_tile_async<E, D, TS>(qs, p.q, b, h, row0, p.T, p.H);
+  load_tile_async<E, D, TS>(dos, p.dout, b, h, row0, p.T, p.H);
   if (t < n) {
-    const int c0 = tile_row0(p, list, spb, t);
-    load_tile_async<E, D>(ring, p.k, b, h, c0, p.T, p.H);
-    load_tile_async<E, D>(ring + L::ELEMS, p.v, b, h, c0, p.T, p.H);
+    const int c0 = tile_row0<TS>(p, list, spb, t);
+    load_tile_async<E, D, TS>(ring, p.k, b, h, c0, p.T, p.H);
+    load_tile_async<E, D, TS>(ring + L::ELEMS, p.v, b, h, c0, p.T, p.H);
   }
   cp_commit();
 
-  float lse[4], delta[4];
-  float acc[4][N];
+  float lse[RI], delta[RI];
+  float acc[RI][N];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t at = static_cast<size_t>(blockIdx.y) * p.T + row0 + 4 * ty + i;
+  for (int i = 0; i < RI; ++i) {
+    const size_t at =
+        static_cast<size_t>(blockIdx.y) * p.T + row0 + RI * ty + i;
     lse[i] = lse_offset(p.lse[at]);
     delta[i] = p.delta[at];
 #pragma unroll
@@ -406,34 +392,34 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
 
   int stage = 0;
   while (t < n) {
-    const int c0 = tile_row0(p, list, spb, t);
+    const int c0 = tile_row0<TS>(p, list, spb, t);
     cp_wait<0>();
     __syncthreads();
-    const int tn = next_tile(p, list, spb, n, t + 1, row0, false);
+    const int tn = next_tile<TS>(p, list, spb, n, t + 1, row0, false);
     if (tn < n) {
       E* nxt = ring + 2 * (stage ^ 1) * L::ELEMS;
-      const int n0 = tile_row0(p, list, spb, tn);
-      load_tile_async<E, D>(nxt, p.k, b, h, n0, p.T, p.H);
-      load_tile_async<E, D>(nxt + L::ELEMS, p.v, b, h, n0, p.T, p.H);
+      const int n0 = tile_row0<TS>(p, list, spb, tn);
+      load_tile_async<E, D, TS>(nxt, p.k, b, h, n0, p.T, p.H);
+      load_tile_async<E, D, TS>(nxt + L::ELEMS, p.v, b, h, n0, p.T, p.H);
     }
     cp_commit();
     const E* ks = ring + 2 * stage * L::ELEMS;
     const E* vs = ks + L::ELEMS;
     const bool diag = p.causal && c0 == row0;
-    float s[4][4], dp[4][4];
-    tile_scores<E, D>(s, qs, ks, ty, tx);
-    tile_scores<E, D>(dp, dos, vs, ty, tx);
+    float s[RI][RI], dp[RI][RI];
+    tile_scores<E, D, TS>(s, qs, ks, ty, tx);
+    tile_scores<E, D, TS>(dp, dos, vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pij = !diag || tx + 16 * j <= 4 * ty + i
+      for (int j = 0; j < RI; ++j) {
+        const float pij = !diag || tx + 16 * j <= RI * ty + i
                               ? expf(s[i][j] * p.sm_scale - lse[i])
                               : 0.f;
-        dss[(4 * ty + i) * PS + tx + 16 * j] = pij * (dp[i][j] - delta[i]);
+        dss[(RI * ty + i) * PS + tx + 16 * j] = pij * (dp[i][j] - delta[i]);
       }
     __syncthreads();
-    tile_accumulate<E, D>(acc, dss, ks, ty, tx);
+    tile_accumulate<E, D, TS>(acc, dss, ks, ty, tx);
     stage ^= 1;
     t = tn;
   }
@@ -441,8 +427,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
 
   E* dq = static_cast<E*>(p.out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + 4 * ty + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = row0 + RI * ty + i;
     E* dst = dq + ((static_cast<size_t>(b) * p.T + row) * p.H + h) * D +
              tx * N;
 #pragma unroll
@@ -450,12 +436,12 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   }
 }
 
-template <typename E, int D>
+template <typename E, int D, int TS>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
-  using L = Tile<E, D>;
-  constexpr int N = D / 16;
-  const int spb = p.block / BT;
-  const int c0 = blockIdx.x * BT;
+  using L = Tile<E, D, TS>;
+  constexpr int N = D / 16, RI = TS / 16, PS = TS + 4;
+  const int spb = p.block / TS;
+  const int c0 = blockIdx.x * TS;
   const int kb = blockIdx.x / spb;
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -467,83 +453,83 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   E* vs = ks + L::ELEMS;
   E* ring = vs + L::ELEMS;  // stage s: Q at ring + 2 s ELEMS, then dO
   float* pt = reinterpret_cast<float*>(ring + 4 * L::ELEMS);  // P^T, dS^T
-  float* rows = pt + BT * PS;  // stage s: lse at rows + 2 s BT, then delta
+  float* rows = pt + TS * PS;  // stage s: lse at rows + 2 s TS, then delta
 
-  // rows of the shared tile as 16 pieces of 16 bytes: lse, then delta
+  // rows of the shared tile as TS / 4 pieces of 16 bytes: lse, then delta
   auto load_stats = [&](float* dst, int r0) {
     const size_t at = static_cast<size_t>(blockIdx.y) * p.T + r0;
-    if (tid < 16)
+    if (tid < TS / 4)
       cp16(saddr(dst + 4 * tid), p.lse + at + 4 * tid, true);
-    else if (tid < 32)
-      cp16(saddr(dst + BT + 4 * (tid - 16)), p.delta + at + 4 * (tid - 16),
-           true);
+    else if (tid < TS / 2)
+      cp16(saddr(dst + TS + 4 * (tid - TS / 4)),
+           p.delta + at + 4 * (tid - TS / 4), true);
   };
 
   const int* list = p.idx + (static_cast<size_t>(h) * p.nb + kb) * p.A;
   const int n = __ldg(p.cnt + h * p.nb + kb) * spb;
-  int t = next_tile(p, list, spb, n, 0, c0, true);
-  load_tile_async<E, D>(ks, p.k, b, h, c0, p.T, p.H);
-  load_tile_async<E, D>(vs, p.v, b, h, c0, p.T, p.H);
+  int t = next_tile<TS>(p, list, spb, n, 0, c0, true);
+  load_tile_async<E, D, TS>(ks, p.k, b, h, c0, p.T, p.H);
+  load_tile_async<E, D, TS>(vs, p.v, b, h, c0, p.T, p.H);
   if (t < n) {
-    const int r0 = tile_row0(p, list, spb, t);
-    load_tile_async<E, D>(ring, p.q, b, h, r0, p.T, p.H);
-    load_tile_async<E, D>(ring + L::ELEMS, p.dout, b, h, r0, p.T, p.H);
+    const int r0 = tile_row0<TS>(p, list, spb, t);
+    load_tile_async<E, D, TS>(ring, p.q, b, h, r0, p.T, p.H);
+    load_tile_async<E, D, TS>(ring + L::ELEMS, p.dout, b, h, r0, p.T, p.H);
     load_stats(rows, r0);
   }
   cp_commit();
 
-  float dk[4][N], dv[4][N];
+  float dk[RI][N], dv[RI][N];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   int stage = 0;
   while (t < n) {
-    const int r0 = tile_row0(p, list, spb, t);
+    const int r0 = tile_row0<TS>(p, list, spb, t);
     cp_wait<0>();
     __syncthreads();
-    const int tn = next_tile(p, list, spb, n, t + 1, c0, true);
+    const int tn = next_tile<TS>(p, list, spb, n, t + 1, c0, true);
     if (tn < n) {
       E* nxt = ring + 2 * (stage ^ 1) * L::ELEMS;
-      const int n0 = tile_row0(p, list, spb, tn);
-      load_tile_async<E, D>(nxt, p.q, b, h, n0, p.T, p.H);
-      load_tile_async<E, D>(nxt + L::ELEMS, p.dout, b, h, n0, p.T, p.H);
-      load_stats(rows + 2 * BT * (stage ^ 1), n0);
+      const int n0 = tile_row0<TS>(p, list, spb, tn);
+      load_tile_async<E, D, TS>(nxt, p.q, b, h, n0, p.T, p.H);
+      load_tile_async<E, D, TS>(nxt + L::ELEMS, p.dout, b, h, n0, p.T, p.H);
+      load_stats(rows + 2 * TS * (stage ^ 1), n0);
     }
     cp_commit();
     const E* qs = ring + 2 * stage * L::ELEMS;
     const E* dos = qs + L::ELEMS;
-    const float* lse_s = rows + 2 * BT * stage;
-    const float* delta_s = lse_s + BT;
+    const float* lse_s = rows + 2 * TS * stage;
+    const float* delta_s = lse_s + TS;
     const bool diag = p.causal && r0 == c0;
-    // transposed tiles: row index i is a key (c0 + 4 ty + i), column j a
+    // transposed tiles: row index i is a key (c0 + RI ty + i), column j a
     // query (r0 + tx + 16 j)
-    float st[4][4], dpt[4][4];
-    tile_scores<E, D>(st, ks, qs, ty, tx);
-    tile_scores<E, D>(dpt, vs, dos, ty, tx);
+    float st[RI][RI], dpt[RI][RI];
+    tile_scores<E, D, TS>(st, ks, qs, ty, tx);
+    tile_scores<E, D, TS>(dpt, vs, dos, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int r = tx + 16 * j;
-        st[i][j] = !diag || 4 * ty + i <= r
+        st[i][j] = !diag || RI * ty + i <= r
                        ? expf(st[i][j] * p.sm_scale - lse_offset(lse_s[r]))
                        : 0.f;
-        pt[(4 * ty + i) * PS + r] = st[i][j];
+        pt[(RI * ty + i) * PS + r] = st[i][j];
       }
     __syncthreads();
-    tile_accumulate<E, D>(dv, pt, dos, ty, tx);
+    tile_accumulate<E, D, TS>(dv, pt, dos, ty, tx);
     __syncthreads();  // every read of P^T is done: dS^T takes its place
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int r = tx + 16 * j;
-        pt[(4 * ty + i) * PS + r] = st[i][j] * (dpt[i][j] - delta_s[r]);
+        pt[(RI * ty + i) * PS + r] = st[i][j] * (dpt[i][j] - delta_s[r]);
       }
     __syncthreads();
-    tile_accumulate<E, D>(dk, pt, qs, ty, tx);
+    tile_accumulate<E, D, TS>(dk, pt, qs, ty, tx);
     stage ^= 1;
     t = tn;
   }
@@ -552,9 +538,9 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   E* dkp = static_cast<E*>(p.out);
   E* dvp = static_cast<E*>(p.out2);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const size_t at =
-        ((static_cast<size_t>(b) * p.T + c0 + 4 * ty + i) * p.H + h) * D +
+        ((static_cast<size_t>(b) * p.T + c0 + RI * ty + i) * p.H + h) * D +
         tx * N;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -602,21 +588,18 @@ __device__ __forceinline__ void load_list(int* blk, const Params& p,
   for (int i = threadIdx.x; i < it.n; i += blockDim.x) blk[i] = list[i];
 }
 
-// element offset of (batch b, row, head h) in a [B, T, H, D] tensor
-template <int D>
-__device__ __forceinline__ size_t at_row(const Params& p, int b, int row,
-                                         int h) {
-  return ((static_cast<size_t>(b) * p.T + row) * p.H + h) * D;
-}
-
+// Up to D 128 the warp's Q rows stay in registers (QREG); at D 256 they
+// would take 64 registers beside the 128 of the output accumulator, so
+// each k-step's Q fragment is read from shared memory instead.
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS) tc_fwd_kernel(Params p) {
-  constexpr int KT = D / 16, NS = BT / 8, ND = D / 8;
+  constexpr int KT = D / 16, NS = BT / 8, ND = D / 8, LD = tile_ld<D>();
+  constexpr bool QREG = D <= 128;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
-  bf16_t* ks = qs + BT * D;      // [2][BT][D]
-  bf16_t* vs = ks + 2 * BT * D;  // [2][BT][D]
-  int* blk = reinterpret_cast<int*>(vs + 2 * BT * D);
+  bf16_t* ks = qs + BT * LD;      // [2][BT][LD]
+  bf16_t* vs = ks + 2 * BT * LD;  // [2][BT][LD]
+  int* blk = reinterpret_cast<int*>(vs + 2 * BT * LD);
 
   const Item it = work_item(p);
   const int spb = p.block / BT;
@@ -641,10 +624,12 @@ __global__ void __launch_bounds__(TC_THREADS) tc_fwd_kernel(Params p) {
   cp_commit();
   cp_wait<1>();
   __syncthreads();
-  uint32_t qf[KT][4];
+  uint32_t qf[QREG ? KT : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldsm(qf[kk], a_addr<D>(qs, warp * 16, kk, lane));
+    for (int kk = 0; kk < KT; ++kk)
+      ldsm(qf[kk], a_addr<D>(qs, warp * 16, kk, lane));
+  }
 
   float o[ND][4];
 #pragma unroll
@@ -659,16 +644,16 @@ __global__ void __launch_bounds__(TC_THREADS) tc_fwd_kernel(Params p) {
   for (int t = 0; t < n; ++t) {
     if (t + 1 < n) {
       const int c1 = key0(t + 1);
-      load_rows<D, BT, TC_THREADS>(ks + (stage ^ 1) * BT * D, p.k, it.b,
+      load_rows<D, BT, TC_THREADS>(ks + (stage ^ 1) * BT * LD, p.k, it.b,
                                    it.h, c1, p.T, p.H);
-      load_rows<D, BT, TC_THREADS>(vs + (stage ^ 1) * BT * D, p.v, it.b,
+      load_rows<D, BT, TC_THREADS>(vs + (stage ^ 1) * BT * LD, p.v, it.b,
                                    it.h, c1, p.T, p.H);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16_t* kt = ks + stage * BT * D;
-    const bf16_t* vt = vs + stage * BT * D;
+    const bf16_t* kt = ks + stage * BT * LD;
+    const bf16_t* vt = vs + stage * BT * LD;
 
     float s[NS][4];
 #pragma unroll
@@ -676,14 +661,22 @@ __global__ void __launch_bounds__(TC_THREADS) tc_fwd_kernel(Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm(qa, a_addr<D>(qs, warp * 16, kk, lane));
+      }
 #pragma unroll
       for (int nj = 0; nj < NS / 2; ++nj) {
         uint32_t kb[4];
         ldsm(kb, b_addr<D>(kt, nj * 16, kk, lane));
-        mma(s[2 * nj], qf[kk], kb[0], kb[1]);
-        mma(s[2 * nj + 1], qf[kk], kb[2], kb[3]);
+        mma(s[2 * nj], qa, kb[0], kb[1]);
+        mma(s[2 * nj + 1], qa, kb[2], kb[3]);
       }
+    }
 
     const bool diag = p.causal && key0(t) == row0;
     float mx[2] = {m_run[0], m_run[1]};
@@ -773,18 +766,20 @@ __global__ void __launch_bounds__(TC_THREADS) tc_fwd_kernel(Params p) {
   }
 }
 
-template <int D>
+// KN keys a tile: 64, or 32 at D 256, where dQ's accumulator takes 128
+// registers and the S and dP tiles of 64 keys would take 64 more
+template <int D, int KN>
 __global__ void __launch_bounds__(TC_THREADS) tc_dq_kernel(Params p) {
-  constexpr int KT = D / 16, NS = BT / 8, ND = D / 8;
+  constexpr int KT = D / 16, NS = KN / 8, ND = D / 8, LD = tile_ld<D>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(tc_smem);
-  bf16_t* dos = qs + BT * D;
-  bf16_t* ks = dos + BT * D;     // [2][BT][D]
-  bf16_t* vs = ks + 2 * BT * D;  // [2][BT][D]
-  int* blk = reinterpret_cast<int*>(vs + 2 * BT * D);
+  bf16_t* dos = qs + BT * LD;
+  bf16_t* ks = dos + BT * LD;     // [2][KN][LD]
+  bf16_t* vs = ks + 2 * KN * LD;  // [2][KN][LD]
+  int* blk = reinterpret_cast<int*>(vs + 2 * KN * LD);
 
   const Item it = work_item(p);
-  const int spb = p.block / BT;
+  const int kpb = p.block / KN;  // key tiles of a block
   const int row0 = it.tile * BT;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -793,13 +788,15 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dq_kernel(Params p) {
   load_rows<D, BT, TC_THREADS>(dos, p.dout, it.b, it.h, row0, p.T, p.H);
   __syncthreads();  // the list
 
-  auto key0 = [&](int t) { return blk[t / spb] * p.block + (t % spb) * BT; };
-  int n = it.n * spb;
+  // key tile t: tile t % kpb of block t / kpb; causality keeps the tiles
+  // that start at or before the slice's last row, a prefix of the walk
+  auto key0 = [&](int t) { return blk[t / kpb] * p.block + (t % kpb) * KN; };
+  int n = it.n * kpb;
   if (p.causal)
-    while (n > 0 && key0(n - 1) > row0) --n;
+    while (n > 0 && key0(n - 1) > row0 + BT - 1) --n;
   if (n > 0) {
-    load_rows<D, BT, TC_THREADS>(ks, p.k, it.b, it.h, key0(0), p.T, p.H);
-    load_rows<D, BT, TC_THREADS>(vs, p.v, it.b, it.h, key0(0), p.T, p.H);
+    load_rows<D, KN, TC_THREADS>(ks, p.k, it.b, it.h, key0(0), p.T, p.H);
+    load_rows<D, KN, TC_THREADS>(vs, p.v, it.b, it.h, key0(0), p.T, p.H);
   }
   cp_commit();
 
@@ -822,16 +819,16 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dq_kernel(Params p) {
   for (int t = 0; t < n; ++t) {
     if (t + 1 < n) {
       const int c1 = key0(t + 1);
-      load_rows<D, BT, TC_THREADS>(ks + (stage ^ 1) * BT * D, p.k, it.b,
+      load_rows<D, KN, TC_THREADS>(ks + (stage ^ 1) * KN * LD, p.k, it.b,
                                    it.h, c1, p.T, p.H);
-      load_rows<D, BT, TC_THREADS>(vs + (stage ^ 1) * BT * D, p.v, it.b,
+      load_rows<D, KN, TC_THREADS>(vs + (stage ^ 1) * KN * LD, p.v, it.b,
                                    it.h, c1, p.T, p.H);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16_t* kt = ks + stage * BT * D;
-    const bf16_t* vt = vs + stage * BT * D;
+    const bf16_t* kt = ks + stage * KN * LD;
+    const bf16_t* vt = vs + stage * KN * LD;
 
     float s[NS][4], dp[NS][4];
 #pragma unroll
@@ -855,14 +852,17 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dq_kernel(Params p) {
       }
     }
 
-    const bool diag = p.causal && key0(t) == row0;
+    // the tile crosses the diagonal where a key comes after a row: key
+    // key0 + c is hidden from row row0 + r when c > r + (row0 - key0)
+    const int off = row0 - key0(t);
+    const bool diag = p.causal && KN - 1 > off;
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float pe = ex2(fmaf(s[j][e], sl2, -lse2[e >> 1]));
         if (diag && j * 8 + 2 * (lane & 3) + (e & 1) >
-                        warp * 16 + (lane >> 2) + 8 * (e >> 1))
+                        warp * 16 + (lane >> 2) + 8 * (e >> 1) + off)
           pe = 0.f;
         s[j][e] = pe * (dp[j][e] - dl[e >> 1]);  // dS
       }
@@ -906,17 +906,25 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dq_kernel(Params p) {
   }
 }
 
-template <int D, int BQ>
+// PART: BOTH computes dK and dV in one walk; at D 256 their accumulators
+// would take 256 registers a lane, so the C call runs the walk twice,
+// DV_ONLY (S^T, P^T, dV) then DK_ONLY (S^T, dP^T, dS^T, dK): each pass
+// holds one 128-register accumulator and writes its half of the outputs
+// (or of a split item's partial), and neither needs atomics.
+enum Part { BOTH = 0, DV_ONLY = 1, DK_ONLY = 2 };
+
+template <int D, int BQ, int PART>
 __global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
-  constexpr int KT = D / 16, NQ = BQ / 8, ND = D / 8;
+  constexpr int KT = D / 16, NQ = BQ / 8, ND = D / 8, LD = tile_ld<D>();
+  constexpr bool WANT_DK = PART != DV_ONLY, WANT_DV = PART != DK_ONLY;
   static_assert(2 * BQ <= TC_THREADS, "one thread per lse and delta value");
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16_t* ks = reinterpret_cast<bf16_t*>(tc_smem);
-  bf16_t* vs = ks + BT * D;
-  bf16_t* qs = vs + BT * D;       // [2][BQ][D]
-  bf16_t* dos = qs + 2 * BQ * D;  // [2][BQ][D]
-  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * D);  // [2][BQ] lse
-  float* dls = ls + 2 * BQ;                                // [2][BQ] delta
+  bf16_t* vs = ks + BT * LD;
+  bf16_t* qs = vs + BT * LD;       // [2][BQ][LD]
+  bf16_t* dos = qs + 2 * BQ * LD;  // [2][BQ][LD]
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ] lse
+  float* dls = ls + 2 * BQ;                                 // [2][BQ] delta
   int* blk = reinterpret_cast<int*>(dls + 2 * BQ);
 
   const Item it = work_item(p);
@@ -936,9 +944,9 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
   auto row0 = [&](int t) { return blk[t / qpb] * p.block + (t % qpb) * BQ; };
   auto load_q = [&](int t, int st) {
     const int r0 = row0(t);
-    load_rows<D, BQ, TC_THREADS>(qs + st * BQ * D, p.q, it.b, it.h, r0, p.T,
+    load_rows<D, BQ, TC_THREADS>(qs + st * BQ * LD, p.q, it.b, it.h, r0, p.T,
                                  p.H);
-    load_rows<D, BQ, TC_THREADS>(dos + st * BQ * D, p.dout, it.b, it.h, r0,
+    load_rows<D, BQ, TC_THREADS>(dos + st * BQ * LD, p.dout, it.b, it.h, r0,
                                  p.T, p.H);
     const size_t at = bh * p.T + r0 + (tid % BQ);
     if (tid < BQ)
@@ -953,11 +961,15 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
   if (t0 < n) load_q(t0, 0);
   cp_commit();
 
-  float dk[ND][4], dv[ND][4];
+  float dk[WANT_DK ? ND : 1][4], dv[WANT_DV ? ND : 1][4];
 #pragma unroll
-  for (int d = 0; d < ND; ++d)
+  for (int d = 0; d < (WANT_DK ? ND : 1); ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[d][e] = 0.f;
+#pragma unroll
+  for (int d = 0; d < (WANT_DV ? ND : 1); ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[d][e] = 0.f;
   const float sl2 = p.sm_scale * LOG2E;
   int stage = 0;
 
@@ -966,8 +978,8 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16_t* qt = qs + stage * BQ * D;
-    const bf16_t* dot = dos + stage * BQ * D;
+    const bf16_t* qt = qs + stage * BQ * LD;
+    const bf16_t* dot = dos + stage * BQ * LD;
     const float* lt = ls + stage * BQ;
     const float* dlt = dls + stage * BQ;
     const int r0 = row0(t);
@@ -982,16 +994,18 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
     for (int kk = 0; kk < KT; ++kk) {
       uint32_t ka[4], va[4];
       ldsm(ka, a_addr<D>(ks, warp * 16, kk, lane));
-      ldsm(va, a_addr<D>(vs, warp * 16, kk, lane));
+      if constexpr (WANT_DK) ldsm(va, a_addr<D>(vs, warp * 16, kk, lane));
 #pragma unroll
       for (int nj = 0; nj < NQ / 2; ++nj) {
         uint32_t qb[4], db[4];
         ldsm(qb, b_addr<D>(qt, nj * 16, kk, lane));
         mma(st[2 * nj], ka, qb[0], qb[1]);
         mma(st[2 * nj + 1], ka, qb[2], qb[3]);
-        ldsm(db, b_addr<D>(dot, nj * 16, kk, lane));
-        mma(dpt[2 * nj], va, db[0], db[1]);
-        mma(dpt[2 * nj + 1], va, db[2], db[3]);
+        if constexpr (WANT_DK) {
+          ldsm(db, b_addr<D>(dot, nj * 16, kk, lane));
+          mma(dpt[2 * nj], va, db[0], db[1]);
+          mma(dpt[2 * nj + 1], va, db[2], db[3]);
+        }
       }
     }
 
@@ -1017,12 +1031,16 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
 #pragma unroll
       for (int dj = 0; dj < ND / 2; ++dj) {
         uint32_t db[4], qb[4];
-        ldsm_t(db, bt_addr<D>(dot, kk * 16, dj, lane));
-        mma(dv[2 * dj], ap, db[0], db[1]);
-        mma(dv[2 * dj + 1], ap, db[2], db[3]);
-        ldsm_t(qb, bt_addr<D>(qt, kk * 16, dj, lane));
-        mma(dk[2 * dj], as, qb[0], qb[1]);
-        mma(dk[2 * dj + 1], as, qb[2], qb[3]);
+        if constexpr (WANT_DV) {
+          ldsm_t(db, bt_addr<D>(dot, kk * 16, dj, lane));
+          mma(dv[2 * dj], ap, db[0], db[1]);
+          mma(dv[2 * dj + 1], ap, db[2], db[3]);
+        }
+        if constexpr (WANT_DK) {
+          ldsm_t(qb, bt_addr<D>(qt, kk * 16, dj, lane));
+          mma(dk[2 * dj], as, qb[0], qb[1]);
+          mma(dk[2 * dj + 1], as, qb[2], qb[3]);
+        }
       }
     }
     __syncthreads();
@@ -1043,125 +1061,26 @@ __global__ void __launch_bounds__(TC_THREADS) tc_dkv_kernel(Params p) {
       float* dst = part + r * D + 2 * (lane & 3);
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
-        *reinterpret_cast<float2*>(dst + 8 * d) =
-            make_float2(dk[d][2 * i], dk[d][2 * i + 1]);
-        *reinterpret_cast<float2*>(dst + BT * D + 8 * d) =
-            make_float2(dv[d][2 * i], dv[d][2 * i + 1]);
+        if constexpr (WANT_DK)
+          *reinterpret_cast<float2*>(dst + 8 * d) =
+              make_float2(dk[d][2 * i], dk[d][2 * i + 1]);
+        if constexpr (WANT_DV)
+          *reinterpret_cast<float2*>(dst + BT * D + 8 * d) =
+              make_float2(dv[d][2 * i], dv[d][2 * i + 1]);
       }
       continue;
     }
     const size_t at = at_row<D>(p, it.b, c0 + r, it.h) + 2 * (lane & 3);
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + at + 8 * d) =
-          __floats2bfloat162_rn(dk[d][2 * i] * p.sm_scale,
-                                dk[d][2 * i + 1] * p.sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + at + 8 * d) =
-          __floats2bfloat162_rn(dv[d][2 * i], dv[d][2 * i + 1]);
+      if constexpr (WANT_DK)
+        *reinterpret_cast<__nv_bfloat162*>(dkp + at + 8 * d) =
+            __floats2bfloat162_rn(dk[d][2 * i] * p.sm_scale,
+                                  dk[d][2 * i + 1] * p.sm_scale);
+      if constexpr (WANT_DV)
+        *reinterpret_cast<__nv_bfloat162*>(dvp + at + 8 * d) =
+            __floats2bfloat162_rn(dv[d][2 * i], dv[d][2 * i + 1]);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the merge of split walks: one block per (split walk, slice, batch row)
-// ---------------------------------------------------------------------------
-
-struct Split {
-  int b, h, row0, n;
-  size_t part0, stride;  // index of the first partial; between two items
-};
-
-__device__ __forceinline__ Split split_walk(const Params& p) {
-  const int spb = p.block / BT;
-  const int j = blockIdx.x / p.B;
-  const int s = j % spb;
-  const int* e = p.merge + static_cast<size_t>(j / spb) * MERGE;
-  Split w;
-  w.b = blockIdx.x % p.B;
-  w.h = e[0];
-  w.row0 = (e[1] * spb + s) * BT;
-  w.n = e[3];
-  // partial of slot c: (c * spb + s) * B + b, as work_item numbers it
-  w.part0 = (static_cast<size_t>(e[2]) * spb + s) * p.B + w.b;
-  w.stride = static_cast<size_t>(spb) * p.B;
-  return w;
-}
-
-// four fp32 values -> four bf16 at dst (8-byte aligned)
-__device__ __forceinline__ void store4(bf16_t* dst, float4 x, float c) {
-  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
-  d[0] = __floats2bfloat162_rn(x.x * c, x.y * c);
-  d[1] = __floats2bfloat162_rn(x.z * c, x.w * c);
-}
-
-// the forward's partials through their maxima: out = sum_c 2^(m_c - M) O_c
-// / L, L = sum_c 2^(m_c - M) l_c, lse = M ln 2 + log L; a row no item saw
-// (M = -inf) keeps zeros and lse = -inf
-template <int D>
-__global__ void __launch_bounds__(MERGE_THREADS) merge_fwd_kernel(Params p) {
-  constexpr int PART = BT * (D + 2);
-  __shared__ float m_s[BT], inv_s[BT];
-  const Split w = split_walk(p);
-  const float* part = p.scratch + w.part0 * PART;
-  const size_t stride = w.stride * PART;
-  const int tid = threadIdx.x;
-  if (tid < BT) {
-    float m = -INFINITY, l = 0.f;
-    for (int c = 0; c < w.n; ++c)
-      m = fmaxf(m, part[c * stride + BT * D + tid]);
-    if (m != -INFINITY)
-      for (int c = 0; c < w.n; ++c)
-        l += part[c * stride + BT * D + BT + tid] *
-             exp2f(part[c * stride + BT * D + tid] - m);
-    m_s[tid] = m;
-    inv_s[tid] = l == 0.f ? 0.f : 1.f / l;
-    p.lse_out[(static_cast<size_t>(w.b) * p.H + w.h) * p.T + w.row0 + tid] =
-        l == 0.f ? -INFINITY : m * LN2 + logf(l);
-  }
-  __syncthreads();
-  bf16_t* out = static_cast<bf16_t*>(p.out);
-  for (int x = tid; x < BT * D / 4; x += MERGE_THREADS) {
-    const int r = x / (D / 4);
-    const int d = (x % (D / 4)) * 4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m_s[r] != -INFINITY)
-      for (int c = 0; c < w.n; ++c) {
-        const float* pc = part + c * stride;
-        const float a = exp2f(pc[BT * D + r] - m_s[r]);
-        const float4 o = *reinterpret_cast<const float4*>(pc + r * D + d);
-        acc.x += a * o.x;
-        acc.y += a * o.y;
-        acc.z += a * o.z;
-        acc.w += a * o.w;
-      }
-    store4(out + at_row<D>(p, w.b, w.row0 + r, w.h) + d, acc, inv_s[r]);
-  }
-}
-
-// dQ (NOUT 1) or dK and dV (NOUT 2): the partials summed in the items'
-// order; dQ and dK take the softmax scale
-template <int D, int NOUT>
-__global__ void __launch_bounds__(MERGE_THREADS) merge_sum_kernel(Params p) {
-  constexpr int PART = NOUT * BT * D;
-  const Split w = split_walk(p);
-  const float* part = p.scratch + w.part0 * PART;
-  const size_t stride = w.stride * PART;
-  for (int x = threadIdx.x; x < NOUT * BT * D / 4; x += MERGE_THREADS) {
-    const int o = x / (BT * D / 4);
-    const int r = x % (BT * D / 4) / (D / 4);
-    const int d = (x % (D / 4)) * 4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = 0; c < w.n; ++c) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          part + c * stride + o * BT * D + r * D + d);
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    bf16_t* dst = static_cast<bf16_t*>(o == 0 ? p.out : p.out2);
-    store4(dst + at_row<D>(p, w.b, w.row0 + r, w.h) + d, acc,
-           o == 0 ? p.sm_scale : 1.f);
   }
 }
 
@@ -1169,38 +1088,21 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_sum_kernel(Params p) {
 // launch
 // ---------------------------------------------------------------------------
 
-enum Which { FWD = 0, DQ = 1, DKV = 2 };
-
-// a launch with more than 48 KB of dynamic shared memory needs the opt-in
-// (raised to the card's limit, once per kernel and device); the merge
-// kernels' static arrays would not leave room for it
-template <void (*K)(Params)>
-int run(const Params& p, dim3 grid, int threads, int bytes,
-        cudaStream_t stream) {
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = allow_smem<K>(MAX_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  K<<<grid, threads, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// fp32: the CUDA-core kernels, grid (64-row slice, batch x head)
-template <int D>
+// fp32: the CUDA-core kernels, grid (TS-row slice, batch x head)
+template <int D, int TS>
 int launch_fp32(Which which, const Params& p, cudaStream_t stream) {
-  constexpr int tile = Tile<float, D>::BYTES;
-  constexpr int score = BT * PS * 4;
-  const dim3 grid(p.T / BT, p.B * p.H);
+  constexpr int tile = Tile<float, D, TS>::BYTES;
+  constexpr int score = TS * (TS + 4) * 4;
+  const dim3 grid(p.T / TS, p.B * p.H);
   if (which == FWD)  // Q + 2 stages of K, V
-    return run<fwd_kernel<float, D>>(p, grid, THREADS, 5 * tile + score,
-                                     stream);
+    return run<fwd_kernel<float, D, TS>>(p, grid, THREADS, 5 * tile + score,
+                                         stream);
   if (which == DQ)   // Q, dO + 2 stages of K, V
-    return run<dq_kernel<float, D>>(p, grid, THREADS, 6 * tile + score,
-                                    stream);
+    return run<dq_kernel<float, D, TS>>(p, grid, THREADS, 6 * tile + score,
+                                        stream);
   // K, V + 2 stages of Q, dO, lse and delta
-  return run<dkv_kernel<float, D>>(p, grid, THREADS,
-                                   6 * tile + score + 4 * BT * 4, stream);
+  return run<dkv_kernel<float, D, TS>>(p, grid, THREADS,
+                                       6 * tile + score + 4 * TS * 4, stream);
 }
 
 // bf16: the tensor-core kernels over the work list, then the merge of the
@@ -1208,77 +1110,60 @@ int launch_fp32(Which which, const Params& p, cudaStream_t stream) {
 template <int D>
 int launch_bf16(Which which, const Params& p, cudaStream_t stream) {
   constexpr int E = static_cast<int>(sizeof(bf16_t));
-  const long long spb_b = static_cast<long long>(p.block / BT) * p.B;
-  const long long items = p.n_work * spb_b;
-  const long long splits = p.n_merge * spb_b;
-  if (p.work == nullptr || p.n_work <= 0 || p.max_blocks < 0 ||
-      items > INT_MAX || splits > INT_MAX ||
-      (p.n_merge > 0 && (p.merge == nullptr || p.scratch == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int LD = tile_ld<D>();
+  if (!work_list_ok(p, BT)) return static_cast<int>(cudaErrorInvalidValue);
   const int list = (p.max_blocks * 4 + 15) / 16 * 16;
-  const dim3 grid(static_cast<unsigned>(items));
-  const dim3 merge_grid(static_cast<unsigned>(splits));
+  const dim3 grid(static_cast<unsigned>(
+      static_cast<long long>(p.n_work) * (p.block / BT) * p.B));
   int err;
   if (which == FWD) {  // Q + 2 stages of K, V
-    err = run<tc_fwd_kernel<D>>(p, grid, TC_THREADS, 5 * BT * D * E + list,
+    err = run<tc_fwd_kernel<D>>(p, grid, TC_THREADS, 5 * BT * LD * E + list,
                                 stream);
-    if (err == 0 && splits > 0)
-      err = run<merge_fwd_kernel<D>>(p, merge_grid, MERGE_THREADS, 0, stream);
   } else if (which == DQ) {  // Q, dO + 2 stages of K, V
-    err = run<tc_dq_kernel<D>>(p, grid, TC_THREADS, 6 * BT * D * E + list,
-                               stream);
-    if (err == 0 && splits > 0)
-      err = run<merge_sum_kernel<D, 1>>(p, merge_grid, MERGE_THREADS, 0,
-                                        stream);
+    constexpr int KN = D == 256 ? 32 : BT;
+    err = run<tc_dq_kernel<D, KN>>(
+        p, grid, TC_THREADS, (2 * BT * LD + 4 * KN * LD) * E + list, stream);
   } else {  // K, V + 2 stages of Q, dO, lse and delta
     constexpr int BQ = D == 64 ? 64 : 32;
-    err = run<tc_dkv_kernel<D, BQ>>(
-        p, grid, TC_THREADS, (2 * BT * D + 4 * BQ * D) * E + 4 * BQ * 4 + list,
-        stream);
-    if (err == 0 && splits > 0)
-      err = run<merge_sum_kernel<D, 2>>(p, merge_grid, MERGE_THREADS, 0,
-                                        stream);
+    constexpr int bytes = (2 * BT * LD + 4 * BQ * LD) * E + 4 * BQ * 4;
+    if constexpr (D <= 128) {
+      err = run<tc_dkv_kernel<D, BQ, BOTH>>(p, grid, TC_THREADS,
+                                            bytes + list, stream);
+    } else {
+      err = run<tc_dkv_kernel<D, BQ, DV_ONLY>>(p, grid, TC_THREADS,
+                                               bytes + list, stream);
+      if (err == 0)
+        err = run<tc_dkv_kernel<D, BQ, DK_ONLY>>(p, grid, TC_THREADS,
+                                                 bytes + list, stream);
+    }
   }
-  return err;
+  return err != 0 ? err : run_merge<D, BT>(which, p, stream);
 }
+
+// bf16: the 64-row slices (the block a multiple of 64); fp32: slices of
+// 64 rows where the block allows and a 64-row tile fits (D <= 128), else
+// of 16
+template <int D>
+struct Launch {
+  static int launch(Which which, const Params& p, cudaStream_t stream,
+                    int bf16) {
+    if (bf16) {
+      if (p.block % BT != 0) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_bf16<D>(which, p, stream);
+    }
+    if constexpr (D <= 128)
+      if (p.block % 64 == 0) return launch_fp32<D, 64>(which, p, stream);
+    return launch_fp32<D, 16>(which, p, stream);
+  }
+};
 
 int dispatch(Which which, Params& p, int D, int bf16, void* stream) {
-  if ((D != 64 && D != 128) || p.block <= 0 || p.block % BT != 0 ||
-      p.T % p.block != 0 || p.B * p.H > 65535 || p.A <= 0)
+  if (p.block <= 0 || p.block % 16 != 0 || p.T % p.block != 0 ||
+      p.B * p.H > 65535 || p.A <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   p.nb = p.T / p.block;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return D == 64 ? launch_bf16<64>(which, p, s)
-                   : launch_bf16<128>(which, p, s);
-  return D == 64 ? launch_fp32<64>(which, p, s)
-                 : launch_fp32<128>(which, p, s);
-}
-
-Params make(const void* q, const void* k, const void* v, const int* idx,
-            const int* cnt, int B, int H, int T, int block, int A, int causal,
-            float sm_scale, const int* work, int n_work, const int* merge,
-            int n_merge, int max_blocks, float* scratch) {
-  Params p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.idx = idx;
-  p.cnt = cnt;
-  p.B = B;
-  p.H = H;
-  p.T = T;
-  p.block = block;
-  p.A = A;
-  p.causal = causal;
-  p.sm_scale = sm_scale;
-  p.work = work;
-  p.n_work = n_work;
-  p.merge = merge;
-  p.n_merge = n_merge;
-  p.max_blocks = max_blocks;
-  p.scratch = scratch;
-  return p;
+  return by_head_dim<Launch>(D, which, p, static_cast<cudaStream_t>(stream),
+                             bf16);
 }
 
 }  // namespace
@@ -1288,17 +1173,17 @@ Params make(const void* q, const void* k, const void* v, const int* idx,
 // 16-byte aligned; idx int32 [H, T / block, A] with cnt int32
 // [H, T / block]: the active key blocks of each query block (forward, dQ)
 // or the active query blocks of each key block (dK/dV), ascending; block a
-// multiple of 64 dividing T; D is 64 or 128. The last six arguments are
-// the work list of the same lists, which the bf16 kernels walk (the fp32
-// kernels ignore them): work int32 [n_work, 5] (head, list row, first
-// entry, entries, slot or -1), longest first, covering every entry of
-// every row once; merge int32 [n_merge, 4] (head, list row, first slot,
-// slots) for each walk cut into several items; max_blocks the most
-// entries an item holds; scratch fp32, slots * (block / 64) * B * 64 *
-// (D + 2) floats for the forward, * D for dQ, * 2 D for dK/dV, or null
-// when n_merge is 0. Every output element is written; the merge runs
-// inside the same call. Each returns cudaGetLastError() after its last
-// launch (0 = launched).
+// multiple of 64 dividing T for bf16, of 16 for fp32; D is 64, 80, 96, 128
+// or 256. The last six arguments are the work list of the same lists,
+// which the bf16 kernels walk (the fp32 kernels ignore them): work int32
+// [n_work, 5] (head, list row, first entry, entries, slot or -1), longest
+// first, covering every entry of every row once; merge int32 [n_merge, 4]
+// (head, list row, first slot, slots) for each walk cut into several
+// items; max_blocks the most entries an item holds; scratch fp32, slots *
+// block * B * (D + 2) floats for the forward, * D for dQ, * 2 D for dK/dV,
+// or null when n_merge is 0. Every output element is written; the merge
+// runs inside the same call. Each returns cudaGetLastError() after its
+// last launch (0 = launched).
 extern "C" int block_sparse_attention_fwd(
     const void* q, const void* k, const void* v, const int* kv_idx,
     const int* kv_cnt, void* out, float* lse, int B, int H, int T, int D,

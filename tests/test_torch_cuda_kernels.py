@@ -1243,7 +1243,7 @@ def test_block_sparse_kernels_match_plain(cuda, dtype, D, block, causal,
     if causal:
         layout = layout * np.tril(np.ones(layout.shape[1:], np.int64))
     if name == "bigbird_split":
-        rows, cols = bsa._indices(layout, causal, cuda)
+        rows, cols = bsa._indices(layout, causal, cuda, block)
         assert rows.slots > 0 and cols.slots > 0
     g = torch.Generator(device=cuda).manual_seed(D + block + int(causal))
     q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=cuda,
@@ -1273,14 +1273,69 @@ def test_block_sparse_kernels_match_plain(cuda, dtype, D, block, causal,
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
+@pytest.mark.parametrize("block", [16, 32, 48, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_block_sparse_kernels_take_the_whole_domain(cuda, dtype, D, block,
+                                                    causal):
+    """The rest of the TPU kernel's domain: blocks of 16, 32 and 48 (the
+    16-row strips in bf16, 16-row CUDA-core tiles in fp32), 256 (four
+    64-row slices) at every head dim, against the plain versions (BigBird,
+    8 blocks; at a block of 16 also C + 8 blocks, so that the strips'
+    walks of the global column are split in two and merged). Tolerance:
+    fp32 2e-5, bf16 as K1's; it holds one element, not a sum's length:
+    at 4 C blocks (a column summing 8192 bf16-rounded products) one near-
+    zero dK element of 3.1M exceeded it by 0.0025, within the bf16 noise
+    of such a sum, so the split is held at the shortest walk that
+    splits."""
+    B, H = 2, 3
+    for nb in (8, bsa._split(block) + 8) if block == 16 else (8,):
+        T = nb * block
+        layout = _sparse_layout("bigbird", H, block, T)
+        if causal:
+            layout = layout * np.tril(np.ones(layout.shape[1:], np.int64))
+        g = torch.Generator(device=cuda).manual_seed(D + block + nb)
+        q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=cuda,
+                                   dtype=dtype) for _ in range(4))
+        route = bsa.kernel_route(dtype, block)
+        routes = [f.route_launches[route] for f in (
+            bsa.block_sparse_attention_fwd, bsa.block_sparse_attention_bwd_dq,
+            bsa.block_sparse_attention_bwd_dkv)]
+        out, lse = bsa.block_sparse_attention_fwd(q, k, v, layout, block,
+                                                  causal)
+        dq = bsa.block_sparse_attention_bwd_dq(q, k, v, out, lse, do, layout,
+                                               block, causal)
+        dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, out, lse, do,
+                                                    layout, block, causal)
+        ref_out, ref_lse = bsa.block_sparse_attention_fwd_plain(
+            q, k, v, layout, block, causal)
+        ref_dq = bsa.block_sparse_attention_bwd_dq_plain(
+            q, k, v, out, lse, do, layout, block, causal)
+        ref_dk, ref_dv = bsa.block_sparse_attention_bwd_dkv_plain(
+            q, k, v, out, lse, do, layout, block, causal)
+        torch.cuda.synchronize()
+        assert [f.route_launches[route] for f in (
+            bsa.block_sparse_attention_fwd, bsa.block_sparse_attention_bwd_dq,
+            bsa.block_sparse_attention_bwd_dkv)] == [c + 1 for c in routes]
+        fp32 = dtype == torch.float32
+        tol = dict(rtol=2e-5 if fp32 else 2 ** -7,
+                   atol=2e-5 if fp32 else 2e-2)
+        torch.testing.assert_close(out.float(), ref_out.float(), **tol)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+        for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
 def test_block_sparse_kernels_are_deterministic(cuda, D, block):
     """Two runs of the bf16 fwd, dq and dkv kernels on split walks
     (non-causal BigBird at nb = 4 C) give bitwise equal outputs: the split
     items write their own partials and the merge sums them in a fixed
     order, with no atomics."""
-    T = 4 * bsa.SPLIT_BLOCKS * block
+    T = 4 * bsa._split(block) * block
     layout = _sparse_layout("bigbird", 2, block, T)
     g = torch.Generator(device=cuda).manual_seed(D + block)
     q, k, v, do = (torch.randn(1, T, 2, D, generator=g, device=cuda,
@@ -1337,14 +1392,15 @@ def test_sparse_attention_gradients_through_the_kernels(cuda, causal):
 
 def test_block_sparse_kernels_refuse_what_they_do_not_cover(cuda):
     """Head dims, blocks and dtypes outside the kernels' range raise on
-    CUDA tensors; nothing falls back to the plain version."""
+    CUDA tensors (a head dim of 72, a block of 8); nothing falls back to
+    the plain version."""
     ones = lambda H, nb: np.ones((H, nb, nb), np.int64)
-    q = torch.zeros(1, 256, 2, 32, device=cuda)
+    q = torch.zeros(1, 256, 2, 72, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         bsa.block_sparse_attention_fwd(q, q, q, ones(2, 4), 64)
     q = torch.zeros(1, 256, 2, 64, device=cuda)
-    with pytest.raises(ValueError, match="block"):
-        bsa.block_sparse_attention_fwd(q, q, q, ones(2, 8), 32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        bsa.block_sparse_attention_fwd(q, q, q, ones(2, 32), 8)
     with pytest.raises(ValueError, match="bf16 or"):
         h = q.half()
         bsa.block_sparse_attention_fwd(h, h, h, ones(2, 4), 64)

@@ -154,19 +154,24 @@ def test_wrapper_raises_instead_of_falling_back():
 
 
 def test_paged_and_sparse_kernels_name_their_queue_step():
-    """K9 stays at head dims 64 and 128 and blocks of 64 and 128: outside
-    them it refuses with a message that names ROADMAP.md Queue 2 and its
-    step, before any kernel runs (the device check bypassed). K6 and K7
-    take their JAX kernels' whole domain
+    """K9 takes its JAX kernels' domain as far as the tensor cores' tiles
+    allow (head dims 64, 80, 96, 128, 256; every block that is a multiple
+    of 16): outside it, it refuses before any kernel runs (the device
+    check bypassed) with a message that says why and names no queue step,
+    since none is left. K6 and K7 take their JAX kernels' whole domain
     (``tests/test_torch_paged_attention.py``)."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 
     x = torch.zeros(1, 128, 2, 256, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Queue 2, step 4"):
+    bsa._check_kernel_domain("block_sparse_attention_fwd", x, x, x, 16)
+    x = torch.zeros(1, 128, 2, 72, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim in") as err:
         bsa._check_kernel_domain("block_sparse_attention_fwd", x, x, x, 64)
+    assert "Queue" not in str(err.value)
     x = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Queue 2, step 4"):
-        bsa._check_kernel_domain("block_sparse_attention_fwd", x, x, x, 32)
+    with pytest.raises(ValueError, match="m16n8k16") as err:
+        bsa._check_kernel_domain("block_sparse_attention_fwd", x, x, x, 8)
+    assert "Queue" not in str(err.value)
 
 
 # ---------------------------------------------------------------------------

@@ -313,7 +313,8 @@ def test_lists_and_config_layouts_are_built_once(monkeypatch):
     work_lists = []
     build = bsa._work_list
     monkeypatch.setattr(bsa, "_work_list",
-                        lambda cnt: work_lists.append(cnt) or build(cnt))
+                        lambda cnt, *split: work_lists.append(cnt)
+                        or build(cnt, *split))
     for _ in range(3):
         psa.sparse_attention(q, q, q, sparsity_config=cfg)
     assert len(bsa._indices_cache) == 1 and len(bsa._layout_cache) == 1

@@ -20,7 +20,9 @@ in every run.
 """
 
 import argparse
+import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -41,15 +43,41 @@ def _chip_smoke():
     return mod
 
 
-def host_ms(bsa, layout, causal, reps=50):
+def layout_of(bsa, cs, name, Hh, block, T, causal):
+    """The case's causally cut layout as the tree's ``sparse_attention``
+    holds it (read-only and cached where the tree does so)."""
+    cfg = cs.sparse_config(name, Hh, block)
+    if hasattr(bsa, "_cut"):
+        return bsa._cut(bsa._config_layout(cfg, T), causal)
+    return bsa._causal_layout(cfg.make_layout(T), causal)
+
+
+def lists(bsa, layout, causal, block):
+    """``bsa._indices`` of either signature (the block joined it when the
+    strips came)."""
+    extra = (block,) if "block" in inspect.signature(
+        bsa._indices).parameters else ()
+    return bsa._indices(layout, causal, "cuda", *extra)
+
+
+def host_ms(bsa, cs, case, reps=50):
     """Median host ms of the per-call work before the first launch."""
-    bsa._indices(bsa._causal_layout(layout, causal), causal, "cuda")
+    B, T, Hh, Dh, dtype, block, name, causal = case
     times = []
-    for _ in range(reps):
+    for _ in range(reps + 1):
         t = time.perf_counter()
-        bsa._indices(bsa._causal_layout(layout, causal), causal, "cuda")
+        lists(bsa, layout_of(bsa, cs, name, Hh, block, T, causal), causal,
+              block)
         times.append(1e3 * (time.perf_counter() - t))
-    return statistics.median(times)
+    return statistics.median(times[1:])
+
+
+def digest(tensors):
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def time_sparse(cs, bsa, cases, reps):
@@ -60,11 +88,14 @@ def time_sparse(cs, bsa, cases, reps):
         g = torch.Generator(device="cuda").manual_seed(i + 91)
         q, k, v, do = (torch.randn(B, T, Hh, Dh, generator=g, device="cuda",
                                    dtype=dtype) for _ in range(4))
-        raw = cs.sparse_config(name, Hh, block).make_layout(T)
-        layout = bsa._causal_layout(raw, causal)
+        layout = layout_of(bsa, cs, name, Hh, block, T, causal)
         args = (layout, block, causal)
         out, lse = bsa.block_sparse_attention_fwd(q, k, v, *args)
         delta = bsa._delta(out, do)
+        dq = bsa.block_sparse_attention_bwd_dq(q, k, v, out, lse, do, *args,
+                                               delta=delta)
+        dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, out, lse, do,
+                                                    *args, delta=delta)
         rec = {"tree": ROOT_ARG, "case": case, "ms": {
             "fwd": cs.cuda_time_ms(
                 lambda: bsa.block_sparse_attention_fwd(q, k, v, *args),
@@ -74,9 +105,10 @@ def time_sparse(cs, bsa, cases, reps):
             "dkv": cs.cuda_time_ms(
                 lambda: bsa.block_sparse_attention_bwd_dkv(
                     q, k, v, out, lse, do, *args, delta=delta), reps=reps)},
-            "host_ms": host_ms(bsa, raw, causal)}
+            "host_ms": host_ms(bsa, cs, cs.SPARSE_CASES[case]),
+            "digest": digest((out, lse, dq, dk, dv))}
         print(json.dumps(rec), flush=True)
-        del q, k, v, do, out, lse, delta
+        del q, k, v, do, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
 
 
@@ -122,7 +154,9 @@ def main() -> int:
     cs = _chip_smoke()
     print(f"device: {cs.nvidia_smi()} | {torch.cuda.get_device_name(0)} | "
           f"tree {ROOT_ARG}", flush=True)
-    _build.build(["block_sparse_attention", "flash_attention"])
+    _build.build([n for n in ("block_sparse_attention",
+                              "block_sparse_strips", "flash_attention")
+                  if n in _build.sources()])
     cases = set(cs.SPARSE_CASES) if args.cases is None \
         else set(args.cases.split(","))
     time_sparse(cs, bsa, cases, args.reps)
