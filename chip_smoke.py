@@ -251,8 +251,36 @@ Phases, each printed on its own line; any failure exits non-zero:
    two-program engine (K6, K7a/K7b once per layer per forward, no page
    leaked), each run's tokens equal to a bf16 engine's on
    ``dequantize_params(quantize_params(w))``; peak memory and mean step
-   printed beside the bf16 engine's;
-12. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
+   printed beside the bf16 engine's; then the serving families
+   (``check_families``: Gemma-7B and Qwen2-7B on both engines, PR 22);
+12. megatron: Megatron-LM's GPT-345M (24 layers, hidden 1024, 16 heads of
+   64, 1024 positions, vocabulary 50304) with random bf16 weights under
+   Megatron's names, written as two TP shards (``mp_rank_00`` /
+   ``mp_rank_01``, version 2.0) and loaded through
+   ``MegatronLayerPolicy.from_megatron_checkpoint`` onto the generic
+   decoder with ``prefill_flash_from_empty``: ``generate`` at batch 8,
+   prompts 128-512, 32 greedy new tokens; the weights and tokens equal
+   those of the model converted from the unsharded state dict; K4 24 x 31
+   and the masked K1 24 launched;
+13. mixtral: Mixtral-8x7B at full width, 8 of its 32 layers (random bf16
+   weights, 23.6 GB), through ``init_inference`` -> ``generate`` with the
+   flash prefill, batch 8, prompts 128-512, 32 greedy new tokens,
+   uncaptured and captured (identical tokens; K4 8 x 31, the masked K1 8);
+   the cached decode against a full forward (bf16, positions whose
+   routing flipped at a near-tie counted and left out); the two MoE
+   routes on layer 0 at T 1 against each other; the decode step with each
+   route (touched experts, JAX's rule; dense, forced) at B 1 and B 8,
+   captured; prefill ms, decode step ms and peak memory printed;
+14. moe train: (a) Mixtral-8x7B widths at 2 layers, 1 x 2048 tokens, AdamW
+   in bf16, captured: 5 steps, K1 2 x 2 x 2, K2 2 x 2 + 2 x 2 and K3 2 in
+   the first (eager warm-up and capture), K1 4 / K2 2 + 2 / K3 1 on the
+   device in a replay, finite losses, a positive aux term; step ms, model
+   TFLOP/s and peak memory printed; (b) two ``moe.MoE`` layers at
+   DeepSpeed-MoE 350M+MoE-128's widths (hidden 1024, FFN 4096, 128
+   experts, capacity factor 1.0), 8192 tokens a step, with k 1 (RTS) and
+   k 2, captured: ``exp_counts`` summing to k x tokens, no expert over its
+   capacity, finite losses, K3 once a replay;
+15. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line. A kernel's ``launches`` are its
    wrapper's count over its path's uncaptured run (a wrapper counts where
    it launches; a graph replays its kernels without it), except K6's,
@@ -267,7 +295,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    K7b's wrapper counts over those phases' uncaptured runs (item 5 (d),
    (e)) and, for K6, its device runs over all their runs;
    ``generic_launches`` are the wrappers' counts of each generic families
-   run that ran the kernel (item 11). Each of these kernels adds one to its device count
+   run that ran the kernel (item 11); ``megatron_launches``,
+   ``mixtral_launches`` and ``moe_train_launches`` those of items 12-14. Each of these kernels adds one to its device count
    (``deepspeed_tpu_torch/ops/_runs.py``) when it runs.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -6189,6 +6218,658 @@ def check_families(device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Megatron-LM, Mixtral-8x7B and the GShard MoE layer
+# ---------------------------------------------------------------------------
+
+#: Megatron-LM's GPT-345M (the Megatron-LM README's 345M GPT): 24 layers,
+#: hidden 1024, 16 heads of 64, 1024 positions, GPT-2's vocabulary padded
+#: to 50304
+MEGATRON_345M = dict(layers=24, hidden=1024, heads=16, positions=1024,
+                     vocab=50304)
+#: the generate runs of the MoE phases: batch, prompt lengths, new tokens
+MOE_GEN_B, MOE_GEN_PROMPT, MOE_GEN_NEW = 8, (128, 512), 32
+
+
+def megatron_state_dict(layers, hidden, heads, positions, vocab, seed=0,
+                        device="cuda"):
+    """A Megatron GPT state dict under Megatron's names (version 2.0: the
+    fused QKV rows head-interleaved ``[H, 3, D]``), random bf16 weights
+    N(0, 0.02) from a seeded generator, LayerNorms 1 and biases 0, on the
+    host."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16,
+                           device=device).normal_(0.0, 0.02, generator=g)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=device)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.bfloat16, device=device)
+
+    emb, tp = "language_model.embedding.", "language_model.transformer."
+    sd = {f"{emb}word_embeddings.weight": normal(vocab, hidden),
+          f"{emb}position_embeddings.weight": normal(positions, hidden),
+          f"{tp}final_layernorm.weight": ones(hidden),
+          f"{tp}final_layernorm.bias": zeros(hidden)}
+    for i in range(layers):
+        p = f"{tp}layers.{i}."
+        sd.update({
+            f"{p}input_layernorm.weight": ones(hidden),
+            f"{p}input_layernorm.bias": zeros(hidden),
+            f"{p}attention.query_key_value.weight": normal(3 * hidden,
+                                                           hidden),
+            f"{p}attention.query_key_value.bias": normal(3 * hidden),
+            f"{p}attention.dense.weight": normal(hidden, hidden),
+            f"{p}attention.dense.bias": zeros(hidden),
+            f"{p}post_attention_layernorm.weight": ones(hidden),
+            f"{p}post_attention_layernorm.bias": zeros(hidden),
+            f"{p}mlp.dense_h_to_4h.weight": normal(4 * hidden, hidden),
+            f"{p}mlp.dense_h_to_4h.bias": normal(4 * hidden),
+            f"{p}mlp.dense_4h_to_h.weight": normal(hidden, 4 * hidden),
+            f"{p}mlp.dense_4h_to_h.bias": zeros(hidden)})
+    return {k: v.cpu() for k, v in sd.items()}
+
+
+def check_megatron(device="cuda"):
+    """The ``megatron`` phase: GPT-345M's random bf16 weights written as
+    two TP shards (``mp_rank_00`` / ``mp_rank_01``, Megatron's names,
+    version 2.0) in a temporary directory, loaded through
+    ``MegatronLayerPolicy.from_megatron_checkpoint`` (the reshape loader
+    merges them) onto the generic decoder with
+    ``prefill_flash_from_empty``, and served by ``init_inference(...).
+    generate``: batch 8, left-padded prompts of 128-512 tokens, 32 greedy
+    new tokens. Held to the same model converted from the unsharded state
+    dict: identical weights and tokens. The launch counts are set to 0
+    just before the sharded model's counted generate and read just after:
+    K4 24 x 31, the masked K1 24. Returns them."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.checkpoint.reshape import split_state_dict
+    from deepspeed_tpu_torch.models.transformer import TransformerLMHeadModel
+    from deepspeed_tpu_torch.module_inject.replace_policy import \
+        MegatronLayerPolicy
+
+    m = MEGATRON_345M
+    t0 = time.perf_counter()
+    full = megatron_state_dict(m["layers"], m["hidden"], m["heads"],
+                               m["positions"], m["vocab"], device=device)
+    tmp = tempfile.mkdtemp(prefix="megatron_")
+    try:
+        files = []
+        as_np = {k: v.float().numpy() for k, v in full.items()}
+        for rank in range(2):
+            shard = split_state_dict(as_np, num_ranks=2, rank=rank)
+            path = os.path.join(tmp, f"mp_rank_{rank:02d}_model_states.pt")
+            torch.save({"module": {k: torch.from_numpy(v).to(torch.bfloat16)
+                                   for k, v in shard.items()}}, path)
+            files.append(path)
+        del as_np
+        write_s = time.perf_counter() - t0
+        t = time.perf_counter()
+        model, sd = MegatronLayerPolicy.from_megatron_checkpoint(
+            files, num_attention_heads=m["heads"], dtype=torch.bfloat16,
+            device=device)
+        load_s = time.perf_counter() - t
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref_model, ref_sd = MegatronLayerPolicy.convert_state_dict(
+        m["heads"], full, dtype=torch.bfloat16, device=device)
+    del full
+    cfg = dataclasses.replace(model.config, prefill_flash_from_empty=True)
+    problems = []
+    if (cfg.num_hidden_layers, cfg.hidden_size, cfg.head_dim,
+            cfg.max_position_embeddings, cfg.vocab_size) != (
+            m["layers"], m["hidden"], m["hidden"] // m["heads"],
+            m["positions"], m["vocab"]):
+        problems.append(f"inferred config {cfg}")
+    if set(sd) != set(ref_sd) or not all(torch.equal(sd[n], ref_sd[n])
+                                         for n in sd):
+        problems.append("the sharded load's weights differ from the "
+                        "unsharded state dict's")
+    ids, mask = left_padded_prompts(m["vocab"], MOE_GEN_B, *MOE_GEN_PROMPT,
+                                    seed=24)
+    tokens, runs = {}, {}
+    for name, weights in (("sharded", sd), ("unsharded", ref_sd)):
+        engine = dt.init_inference(TransformerLMHeadModel(cfg),
+                                   params=weights, dtype=torch.bfloat16,
+                                   device=device)
+        engine.generate(ids, attention_mask=mask, max_new_tokens=1)
+        engine.profile_model_time()
+        engine.generate(ids, attention_mask=mask, max_new_tokens=1)
+        zero_generic_launches()
+        out = engine.generate(ids, attention_mask=mask,
+                              max_new_tokens=MOE_GEN_NEW)
+        launches = generic_launches()
+        prefill_s, total_s = engine.model_times()
+        tokens[name] = out.cpu().tolist()
+        runs[name] = dict(launches=launches, prefill_ms=1e3 * prefill_s,
+                          decode_ms=1e3 * (total_s - prefill_s)
+                          / (MOE_GEN_NEW - 1))
+        del engine
+    L = cfg.num_hidden_layers
+    got = runs["sharded"]["launches"]
+    want = dict(got, decode_attention=L * (MOE_GEN_NEW - 1),
+                flash_attention_fwd_masked=L)
+    if got != want:
+        problems.append(f"launches {got} != {want}")
+    if tokens["sharded"] != tokens["unsharded"]:
+        problems.append("tokens differ from the unsharded model's")
+    if np.asarray(tokens["sharded"]).shape != (MOE_GEN_B, MOE_GEN_NEW):
+        problems.append("output shape")
+    log(f"megatron: GPT-345M ({L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads of {cfg.head_dim}, "
+        f"{cfg.max_position_embeddings} positions, vocab {cfg.vocab_size}, "
+        f"bf16) from two TP shards (written {write_s:.1f} s, loaded "
+        f"{load_s:.1f} s): generate batch {MOE_GEN_B}, prompts "
+        f"{int(mask.sum(1).min())}-{int(mask.sum(1).max())}, "
+        f"{MOE_GEN_NEW} new: prefill {runs['sharded']['prefill_ms']:.2f} "
+        f"ms, decode step {runs['sharded']['decode_ms']:.3f} ms, tokens "
+        f"identical to the unsharded state dict's="
+        f"{tokens['sharded'] == tokens['unsharded']}, launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    if problems:
+        raise AssertionError("megatron: " + "; ".join(problems))
+    return got
+
+
+def dense_combine(topk_w, topk_idx, E):
+    """``[B, E]`` combine weights of a top-k routing, zero outside it."""
+    onehot = topk_idx[..., None] == torch.arange(E, device=topk_idx.device)
+    return (topk_w[..., None] * onehot.float()).sum(dim=1)
+
+
+def route_forcing(dense):
+    """A context that sends one-token-a-row MoE blocks down the dense
+    route (``dense``) or leaves JAX's rule (the touched-expert route)."""
+    from deepspeed_tpu_torch.models import mixtral
+
+    @contextlib.contextmanager
+    def ctx():
+        if not dense:
+            yield
+            return
+        touched = mixtral.touched_experts
+
+        def every(x, w1, w3, w2, topk_w, topk_idx):
+            return mixtral.every_expert(
+                x, w1, w3, w2, dense_combine(topk_w, topk_idx, w1.shape[0]))
+
+        mixtral.touched_experts = every
+        try:
+            yield
+        finally:
+            mixtral.touched_experts = touched
+    return ctx()
+
+
+#: (mixtral) the cached decode against the full forward, bf16: each
+#: position's logits within this relative L2 error (over the vocabulary)
+#: of the full forward's, at every position whose routing (each layer's
+#: top-2) was the same on both paths. bf16 keeps 8 significant bits; a
+#: layer rounds the residual stream's update at about ten points
+#: (attention, the experts' h and y, the combine, the norms), so 8 layers
+#: make some 80 roundings of ~2^-9 in a random walk, ~2% of the hidden
+#: state; a wrong cache row, mask or expert moves the logits by their own
+#: size
+MIXTRAL_LOGIT_REL = 0.05
+#: the two MoE routes on one layer at T 1, bf16: max |diff| over the
+#: dense route's max |out| (each sums its experts in another order)
+MIXTRAL_ROUTE_TOL = 2e-2
+
+
+def routing_recorder(model):
+    """Hooks on every layer's MoE block recording its router's top-k
+    expert sets ``[B, T, K]`` (sorted) in call order; returns (records,
+    handles)."""
+    records = []
+
+    def hook(mod, args):
+        logits = torch.nn.functional.linear(args[0], mod.gate.weight)
+        records.append(logits.float().topk(mod.top_k, dim=-1).indices.sort(
+            dim=-1).values)
+
+    handles = [layer.block_sparse_moe.register_forward_pre_hook(hook)
+               for layer in model.model.layers]
+    return records, handles
+
+
+def check_mixtral_decode_parity(engine, cfg, device="cuda"):
+    """The cached decode's logits against a full forward over the same
+    tokens (the JAX test's check, at full width and bf16): 2 prompts of
+    96 tokens, 8 decode steps, the decode's MoE blocks on JAX's route
+    (touched experts) and again forced onto the dense one. A position
+    where some layer routed the token to another expert pair on the two
+    paths (a bf16 near-tie) is counted and left out; at least half must
+    route alike, and the rest be within ``MIXTRAL_LOGIT_REL``."""
+    model = engine.module
+    B, P, N = 2, 96, 8
+    rs = np.random.RandomState(5)
+    ids = torch.as_tensor(rs.randint(1, cfg.vocab_size, (B, P + N)),
+                          device=device)
+    L = cfg.num_hidden_layers
+    with torch.inference_mode():
+        rec, handles = routing_recorder(model)
+        full = model(ids)
+        full_routes = torch.stack(rec)             # [L, B, P + N, K]
+        want = full[:, P - 1:P + N - 1].float()    # the compared positions
+        del full
+        problems = []
+        for route in ("touched", "dense"):
+            rec.clear()
+            with route_forcing(route == "dense"):
+                cache = model.init_cache(B, P + N, dtype=torch.bfloat16,
+                                         device=device)
+                key_mask = torch.zeros((B, P + N), dtype=torch.int32,
+                                       device=device)
+                key_mask[:, :P] = 1
+                logits, cache = model(
+                    ids[:, :P], cache=cache,
+                    cache_index=torch.tensor(0, device=device),
+                    attention_mask=key_mask)
+                cached = [logits[:, -1]]
+                for t in range(P, P + N - 1):
+                    key_mask[:, t] = 1
+                    step, cache = model(
+                        ids[:, t:t + 1], cache=cache,
+                        cache_index=torch.tensor(t, device=device),
+                        attention_mask=key_mask)
+                    cached.append(step[:, 0])
+            routes = torch.cat([torch.stack(rec[:L])] + [
+                torch.stack(rec[L * (s + 1):L * (s + 2)])
+                for s in range(N - 1)], dim=2)     # [L, B, P + N - 1, K]
+            same = (routes == full_routes[:, :, :P + N - 1]).all(dim=-1) \
+                .all(dim=0)                        # [B, P + N - 1]
+            alike = same[:, P - 1:]
+            got = torch.stack(cached, dim=1).float()
+            rel = (got - want).norm(dim=-1) / want.norm(dim=-1)  # [B, N]
+            worst = float(rel[alike].max()) if alike.any() else float("nan")
+            max_abs = float((got - want).abs().amax(dim=-1)[alike].max()) \
+                if alike.any() else float("nan")
+            ok = float(alike.float().mean()) >= 0.5 and \
+                worst <= MIXTRAL_LOGIT_REL
+            log(f"mixtral parity ({route} route in the decode): cached "
+                f"decode vs full forward (2 prompts x 96 tokens, 8 steps, "
+                f"bf16): relative L2 error {worst:.4f} at most (tol "
+                f"{MIXTRAL_LOGIT_REL}), max |diff| {max_abs:.4f} (logit std "
+                f"{float(want.std()):.4f}), at {int(alike.sum())} of "
+                f"{alike.numel()} positions routed alike (prompt positions "
+                f"{int(same[:, :P].sum())} of {same[:, :P].numel()}); "
+                f"ok={ok}")
+            if not ok:
+                problems.append(route)
+        for h in handles:
+            h.remove()
+    if problems:
+        raise AssertionError(f"mixtral: cached decode disagrees with the "
+                             f"full forward ({', '.join(problems)} route)")
+
+
+def check_mixtral_routes(engine, cfg, device="cuda"):
+    """The two MoE routes on layer 0's experts at T 1, B 8, on one
+    routing: the touched-expert route's output within
+    ``MIXTRAL_ROUTE_TOL`` of the dense route's; then each route's time at
+    B 1 and B 8 (CUDA events, L2 flushed). Returns the times."""
+    from deepspeed_tpu_torch.models import mixtral
+
+    moe = engine.module.model.layers[0].block_sparse_moe
+    E, K, H = cfg.num_local_experts, cfg.num_experts_per_tok, \
+        cfg.hidden_size
+    out = {}
+    g = torch.Generator(device=device).manual_seed(3)
+    for B in (1, 8):
+        x = torch.randn((B, H), generator=g, device=device,
+                        dtype=torch.bfloat16)
+        with torch.inference_mode():
+            probs = torch.nn.functional.linear(x, moe.gate.weight).float() \
+                .softmax(dim=-1)
+            topk_w, topk_idx = probs.topk(K, dim=-1)
+            topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True)
+            combine = dense_combine(topk_w, topk_idx, E)
+
+            def touched():
+                return mixtral.touched_experts(x, moe.w1, moe.w3, moe.w2,
+                                               topk_w, topk_idx)
+
+            def dense():
+                return mixtral.every_expert(x, moe.w1, moe.w3, moe.w2,
+                                            combine)
+
+            a, b = touched(), dense()
+            rel = float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max())
+            out[B] = dict(touched_ms=cuda_time_ms(touched, reps=10),
+                          dense_ms=cuda_time_ms(dense, reps=10),
+                          rel_err=rel)
+        log(f"mixtral routes: layer 0, T 1, B {B}: touched-expert "
+            f"{out[B]['touched_ms']:.3f} ms, dense {out[B]['dense_ms']:.3f} "
+            f"ms, max |diff| / max |dense| {rel:.2e} (tol "
+            f"{MIXTRAL_ROUTE_TOL})")
+        if not rel <= MIXTRAL_ROUTE_TOL:
+            raise AssertionError(f"mixtral: the MoE routes disagree at "
+                                 f"B {B}")
+    return out
+
+
+#: (mixtral) Mixtral-8x7B's depth on the card: 8 of its 32 layers (23.7
+#: GB of bf16 weights; all 32 need about 93 GB)
+MIXTRAL_LAYERS = 8
+
+
+def check_mixtral(device="cuda"):
+    """The ``mixtral`` phase: Mixtral-8x7B at full width
+    (``MixtralConfig.mixtral_8x7b``), ``MIXTRAL_LAYERS`` layers, random
+    bf16 weights from seed 0, with ``prefill_flash_from_empty``, through
+    ``init_inference`` -> ``generate``: batch 8, left-padded prompts of
+    128-512 tokens (bucket 512), 32 greedy new tokens, uncaptured and with
+    the decode step captured (identical tokens). The launch counts are set
+    to 0 just before the uncaptured counted generate and read just after:
+    K4 L x 31, the masked K1 L. Then the cached decode against the full
+    forward, the two MoE routes against each other, and the decode step
+    with each route (JAX's rule: touched experts; forced: dense) at B 1
+    and B 8, captured. Prints prefill ms, decode step ms and peak memory.
+    Returns the counted launches."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import MixtralConfig, MixtralForCausalLM
+
+    cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=MIXTRAL_LAYERS,
+                                     prefill_flash_from_empty=True)
+    L = cfg.num_hidden_layers
+    base = memory_base(device)
+    t = time.perf_counter()
+    params = MixtralForCausalLM(cfg).init_params(seed=0,
+                                                 dtype=torch.bfloat16,
+                                                 device=device)
+    n_params = sum(p.numel() for p in params.values())
+    log(f"mixtral: 8x7B widths x{L} layers, {n_params:,} parameters "
+        f"({2 * n_params / 1e9:.1f} GB bf16) made in "
+        f"{time.perf_counter() - t:.1f} s")
+    engines = {graph: dt.init_inference(
+        MixtralForCausalLM(cfg), params=params, dtype=torch.bfloat16,
+        device=device, enable_cuda_graph=graph) for graph in (False, True)}
+    del params
+    ids, mask = left_padded_prompts(cfg.vocab_size, MOE_GEN_B,
+                                    *MOE_GEN_PROMPT, seed=8)
+    runs, problems = {}, []
+    for graph, engine in engines.items():
+        name = "captured" if graph else "uncaptured"
+        zero_generic_launches()
+        out, _, prefill_s, total_s, counts, capture, finite = generate_run(
+            cfg, torch.bfloat16, None, ids, mask, MOE_GEN_NEW,
+            device=device, engine=engine)
+        runs[name] = dict(tokens=out.cpu().tolist(), prefill_ms=1e3 *
+                          prefill_s, decode_ms=1e3 * (total_s - prefill_s)
+                          / (MOE_GEN_NEW - 1), counts=counts,
+                          capture=capture, finite=finite)
+        if not finite or tuple(out.shape) != (MOE_GEN_B, MOE_GEN_NEW):
+            problems.append(f"{name}: shape {tuple(out.shape)} or a "
+                            f"logit not finite")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30 \
+        if device == "cuda" else 0.0
+    k4, k1m = runs["uncaptured"]["counts"][0], runs["uncaptured"]["counts"][2]
+    launches = {"decode_attention": k4, "flash_attention_fwd_masked": k1m}
+    if (k4, k1m) != (L * (MOE_GEN_NEW - 1), L):
+        problems.append(f"uncaptured launches K4 {k4}, masked K1 {k1m} != "
+                        f"{L * (MOE_GEN_NEW - 1)}, {L}")
+    if runs["captured"]["capture"][0] != 2 * L:
+        problems.append(f"capturing warm-up K4 "
+                        f"{runs['captured']['capture'][0]} != {2 * L}")
+    if runs["captured"]["tokens"] != runs["uncaptured"]["tokens"]:
+        problems.append("captured tokens differ from uncaptured ones")
+    log(f"mixtral generate: batch {MOE_GEN_B}, prompts "
+        f"{int(mask.sum(1).min())}-{int(mask.sum(1).max())} (bucket 512), "
+        f"{MOE_GEN_NEW} new: prefill {runs['uncaptured']['prefill_ms']:.2f}"
+        f" ms, decode step uncaptured {runs['uncaptured']['decode_ms']:.3f} "
+        f"ms, captured {runs['captured']['decode_ms']:.3f} ms, peak memory "
+        f"{peak:.1f} GiB (weights {2 * n_params / 2 ** 30:.1f} GiB), "
+        f"tokens identical={runs['captured']['tokens'] == runs['uncaptured']['tokens']}, "
+        f"launches K4 {k4} masked K1 {k1m}")
+    if problems:
+        raise AssertionError("mixtral: " + "; ".join(problems))
+    check_mixtral_decode_parity(engines[False], cfg, device)
+    route_ms = check_mixtral_routes(engines[False], cfg, device)
+    # the decode step with each route, captured, at B 1 and B 8 (an
+    # engine a route, so each captures its own step; the weights shared)
+    steps = {}
+    weights = engines[False].module.state_dict()
+    for B in (1, 8):
+        for dense in (False, True):
+            with route_forcing(dense):
+                engine = dt.init_inference(
+                    MixtralForCausalLM(cfg), params=weights,
+                    dtype=torch.bfloat16, device=device,
+                    enable_cuda_graph=True)
+                b_ids, b_mask = ids[:B], mask[:B]
+                engine.generate(b_ids, attention_mask=b_mask,
+                                max_new_tokens=MOE_GEN_NEW)
+                engine.profile_model_time()
+                engine.generate(b_ids, attention_mask=b_mask,
+                                max_new_tokens=1)
+                engine.generate(b_ids, attention_mask=b_mask,
+                                max_new_tokens=MOE_GEN_NEW)
+                prefill_s, total_s = engine.model_times()
+                steps[(B, "dense" if dense else "touched")] = \
+                    1e3 * (total_s - prefill_s) / (MOE_GEN_NEW - 1)
+                del engine
+                gc.collect()
+        log(f"mixtral decode step, captured, B {B}: touched-expert route "
+            f"{steps[(B, 'touched')]:.3f} ms, dense route "
+            f"{steps[(B, 'dense')]:.3f} ms (layer 0 alone: "
+            f"{route_ms[B]['touched_ms']:.3f} / "
+            f"{route_ms[B]['dense_ms']:.3f} ms)")
+    del engines, weights
+    return launches
+
+
+#: (moe train a) Mixtral-8x7B widths, 2 layers, one micro-batch of 2048
+#: tokens, AdamW in bf16 with clipping
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 2048, 4
+MOE_TRAIN_CONFIG = {"train_batch_size": 1, "bf16": {"enabled": True},
+                    "optimizer": {"type": "AdamW",
+                                  "params": {"lr": 1e-4,
+                                             "weight_decay": 0.1}},
+                    "gradient_clipping": 1.0, "steps_per_print": 0}
+#: (moe train b) DeepSpeed-MoE's 350M+MoE-128 widths (Rajbhandari et al.
+#: 2022): hidden 1024, FFN 4096, 128 experts, capacity factor 1.0; tokens
+#: a step
+MOE_LAYER = dict(hidden=1024, ffn=4096, experts=128, tokens=8192)
+MOE_LAYER_STEPS = 3
+
+
+def check_mixtral_training(device="cuda"):
+    """(a) Mixtral-8x7B widths at ``MOE_TRAIN_LAYERS`` layers (seed 0)
+    through ``initialize`` -> ``train_batch``, captured: one micro-batch
+    of ``MOE_TRAIN_SEQ`` tokens, ``MOE_TRAIN_STEPS`` steps; the wrappers'
+    counts are set to 0 before the first step (which runs eagerly and is
+    captured) and read after it: K1 2 L (forward and recompute), K2 L + L,
+    K3 2 (once a pass); a replayed step's device runs: K1 2 L, K2 L + L,
+    K3 1. Finite losses, a positive aux term. Prints the step ms, model
+    TFLOP/s (6 N tokens with N every expert's weights, the dense route's
+    count, plus attention) and peak memory."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import MixtralConfig, MixtralForCausalLM
+
+    cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=MOE_TRAIN_LAYERS)
+    L = cfg.num_hidden_layers
+    names = list(train_kernels())
+    base = memory_base(device)
+    engine, *_ = dt.initialize(model=MixtralForCausalLM(cfg),
+                               config=dict(MOE_TRAIN_CONFIG), device=device)
+    n_params = sum(p.numel() for p in engine.master.values())
+    rs = np.random.RandomState(2)
+    ids = rs.randint(0, cfg.vocab_size, (1, MOE_TRAIN_SEQ))
+    batch = {"input_ids": ids, "labels": ids}
+    zero_generic_launches()
+    losses = [engine.train_batch(batch=batch)]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wrappers = {n: generic_launches()[n] for n in names}
+    step_s, busy, wall, peak, runs = steady_state(
+        lambda: losses.append(engine.train_batch(batch=batch)),
+        MOE_TRAIN_STEPS - 1, device, base, names)
+    aux = []
+    hook = engine.module.model.register_forward_hook(
+        lambda mod, args, out: aux.append(float(out[1])))
+    engine.eval_batch({k: torch.as_tensor(v) for k, v in batch.items()})
+    hook.remove()
+    losses = [float(x) for x in losses]
+    flops = model_flops_per_step(n_params, 1, MOE_TRAIN_SEQ, L,
+                                 cfg.hidden_size)
+    want_wrappers = {"flash_attention_fwd": 2 * 2 * L,
+                     "flash_attention_bwd_dq": 2 * L,
+                     "flash_attention_bwd_dkv": 2 * L, "fused_adam": 2}
+    want_runs = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                 "flash_attention_bwd_dkv": L, "fused_adam": 1}
+    log(f"moe train (a): mixtral 8x7B widths x{L} layers "
+        f"({n_params / 1e9:.2f} B params, AdamW, bf16, clip 1.0, captured), "
+        f"1 x {MOE_TRAIN_SEQ} tokens: step {1e3 * step_s:.2f} ms, model "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s (every expert counted, the "
+        f"dense route's FLOPs), device busy {busy:.1f} of {wall:.1f} ms, "
+        f"peak memory {peak / 2 ** 30:.1f} GiB, losses "
+        f"{[round(x, 4) for x in losses]}, aux {aux[0]:.4f}, launches "
+        f"(first step: eager warm-up + capture) {wrappers}, device runs of "
+        f"a replay {runs}")
+    problems = []
+    if not all(np.isfinite(losses)) or not aux[0] > 0:
+        problems.append("a loss not finite or the aux term not positive")
+    if wrappers != want_wrappers:
+        problems.append(f"launches {wrappers} != {want_wrappers}")
+    if device == "cuda" and runs != want_runs:
+        problems.append(f"device runs {runs} != {want_runs}")
+    if problems:
+        raise AssertionError("moe train (a): " + "; ".join(problems))
+    del engine
+    return wrappers
+
+
+class MoENet(torch.nn.Module):
+    """A small model with two GShard ``MoE`` layers (the shape of the JAX
+    tests' ``SimpleMoEModel``): linear, ReLU, MoE, MoE, linear, MSE plus
+    0.01 of each layer's aux loss."""
+
+    def __init__(self, hidden, ffn, experts, k, dtype):
+        super().__init__()
+        from deepspeed_tpu_torch import moe
+
+        self.inp = torch.nn.Linear(hidden, hidden)
+        self.moes = torch.nn.ModuleList(
+            moe.MoE(hidden, moe.ExpertMLP(hidden, ffn, dtype=dtype),
+                    num_experts=experts, k=k, capacity_factor=1.0,
+                    eval_capacity_factor=1.0, min_capacity=4, use_rts=True)
+            for _ in range(2))
+        self.out = torch.nn.Linear(hidden, 1)
+
+    def forward(self, x, y):
+        # the engine binds its weights in the compute dtype
+        h = torch.relu(self.inp(x.to(self.inp.weight.dtype)))
+        aux = 0.0
+        for layer in self.moes:
+            h, l_aux, _ = layer(h)
+            aux = aux + l_aux
+        loss = ((self.out(h).squeeze(-1).float() - y) ** 2).mean()
+        return loss + 0.01 * aux
+
+
+def check_moe_layer_training(device="cuda"):
+    """(b) ``moe.MoE`` at DeepSpeed-MoE 350M+MoE-128's widths: ``MoENet``
+    (two MoE layers, 128 ``ExpertMLP`` experts each, bf16) through
+    ``initialize`` -> ``train_batch`` on AdamW, captured, with k 1 (RTS
+    on) and k 2, ``MOE_LAYER_STEPS`` steps of ``MOE_LAYER['tokens']``
+    tokens each. The wrappers' counts are set to 0 before the first step
+    (eager warm-up + capture) and read after it: K3 2; a replay's device
+    runs: K3 1. Then one eager forward with the gate's outputs recorded:
+    ``exp_counts`` sum to the routed tokens (k x tokens), no expert's
+    dispatched tokens exceed its capacity, and the losses are finite.
+    Returns the launches by k."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.moe import TopKGate
+    from deepspeed_tpu_torch.moe.sharded_moe import _capacity
+
+    m = MOE_LAYER
+    S = m["tokens"]
+    out = {}
+    for k in (1, 2):
+        base = memory_base(device)
+        with torch.device(device):
+            net = MoENet(m["hidden"], m["ffn"], m["experts"], k,
+                         torch.bfloat16)
+        engine, *_ = dt.initialize(model=net, config={
+            "train_batch_size": S, "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+            "steps_per_print": 0}, device=device)
+        n_params = sum(p.numel() for p in engine.master.values())
+        g = torch.Generator(device=device).manual_seed(k)
+        batch = {"x": torch.randn((S, m["hidden"]), generator=g,
+                                  device=device),
+                 "y": torch.randn((S,), generator=g, device=device)}
+        zero_generic_launches()
+        losses = [engine.train_batch(batch=batch)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wrappers = {"fused_adam": generic_launches()["fused_adam"]}
+        step_s, busy, wall, peak, runs = steady_state(
+            lambda: losses.append(engine.train_batch(batch=batch)),
+            MOE_LAYER_STEPS - 1, device, base, ["fused_adam"])
+        # one eager forward, the gates' outputs recorded
+        gated = []
+        hooks = [mod.register_forward_hook(
+            lambda mod, args, res: gated.append(res))
+            for mod in net.modules() if isinstance(mod, TopKGate)]
+        engine.eval_batch(batch)
+        for h in hooks:
+            h.remove()
+        losses = [float(x) for x in losses]
+        capacity = _capacity(S, m["experts"], 1.0 * k, 4)
+        problems = []
+        for l_aux, combine, dispatch, counts in gated:
+            held = dispatch.sum(dim=(0, 2))
+            if int(counts.sum()) != k * S or int(held.max()) > capacity or \
+                    not bool(torch.isfinite(l_aux)):
+                problems.append(f"exp_counts sum {int(counts.sum())} (want "
+                                f"{k * S}), most held {int(held.max())} "
+                                f"(capacity {capacity})")
+        if len(gated) != 2:
+            problems.append(f"{len(gated)} gates ran, not 2")
+        if not all(np.isfinite(losses)):
+            problems.append("a loss is not finite")
+        if wrappers != {"fused_adam": 2} or (
+                device == "cuda" and runs != {"fused_adam": 1}):
+            problems.append(f"K3 launches {wrappers}, device runs {runs}")
+        log(f"moe train (b): moe.MoE x2 at 350M+MoE-128 widths (hidden "
+            f"{m['hidden']}, FFN {m['ffn']}, {m['experts']} experts, k {k}"
+            f"{', RTS' if k == 1 else ''}, capacity factor 1.0: capacity "
+            f"{capacity}; {n_params / 1e9:.2f} B params, AdamW, bf16, "
+            f"captured), {S} tokens a step: step {1e3 * step_s:.2f} ms, "
+            f"device busy {busy:.1f} of {wall:.1f} ms, peak memory "
+            f"{peak / 2 ** 30:.1f} GiB, losses "
+            f"{[round(x, 4) for x in losses]}, most tokens an expert held "
+            f"{[int(r[2].sum(dim=(0, 2)).max()) for r in gated]}, K3 "
+            f"launches {wrappers['fused_adam']}, device runs of a replay "
+            f"{runs}")
+        if problems:
+            raise AssertionError(f"moe train (b) k {k}: "
+                                 + "; ".join(problems))
+        out[k] = wrappers
+        del engine, net, gated
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_train(device="cuda"):
+    """The ``moe train`` phase: (a) then (b). Returns the launches of (a)
+    and of (b) by k."""
+    a = check_mixtral_training(device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"mixtral": a, "moe_layer": check_moe_layer_training(device)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6240,6 +6921,9 @@ def main() -> int:
     hf_runs = phase(check_hf_inject, serve_runs["uncaptured"]["tokens"])
     generic_runs = phase(check_generic)
     family_runs = phase(check_families)
+    megatron_runs = phase(check_megatron)
+    mixtral_runs = phase(check_mixtral)
+    moe_runs = phase(check_moe_train)
 
     def generic_run_launches(name):
         """A kernel's launches in each generic families run that ran it."""
@@ -6425,6 +7109,16 @@ def main() -> int:
         entry["families_launches"] = {
             run: counts[entry["name"]] for run, counts in family_runs.items()
             if counts.get(entry["name"])}
+        # the MoE phases' paths: Megatron's and Mixtral's generate (the
+        # masked K1, K4), Mixtral's training (K1, K2, K3) and the moe.MoE
+        # training by k (K3)
+        name = entry["name"]
+        entry["megatron_launches"] = megatron_runs.get(name, 0)
+        entry["mixtral_launches"] = mixtral_runs.get(name, 0)
+        entry["moe_train_launches"] = {
+            "mixtral": moe_runs["mixtral"].get(name, 0),
+            **{f"moe_layer_k{k}": runs.get(name, 0)
+               for k, runs in moe_runs["moe_layer"].items()}}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

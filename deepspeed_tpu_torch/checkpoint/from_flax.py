@@ -1,5 +1,5 @@
-"""Convert between a JAX (flax) Llama, GPT-2 or generic transformer param
-tree and the port's ``state_dict``.
+"""Convert between a JAX (flax) Llama, Mixtral, GPT-2 or generic
+transformer param tree and the port's ``state_dict``.
 
 The tree holds numpy arrays (``jax.device_get`` of the JAX package's
 params); nothing here imports JAX. Layout of the tree:
@@ -19,6 +19,10 @@ params); nothing here imports JAX. Layout of the tree:
   ``h/block`` (scanned) or ``h_{i}``, with ``ln_1``/``ln_2`` LayerNorms
   (``scale``, ``bias``) and the ``attn/c_attn``, ``attn/c_proj``,
   ``mlp/c_fc``, ``mlp/c_proj`` Denses; the port names them as HF does;
+- a Mixtral tree has no ``mlp``: its ``block_sparse_moe`` holds the
+  router Dense ``gate`` and the stacked experts ``w1``, ``w3`` ``[E, H,
+  I]`` and ``w2`` ``[E, I, H]``, which the port keeps in that layout
+  (``[L, E, ...]`` scanned);
 - a generic transformer's tree (``models/transformer.py``, and the
   ``layer/...`` tree of ``DeepSpeedTransformerLayer``) maps path for path:
   the port's names are its flax paths (a LayerNorm's ``scale`` and an
@@ -43,6 +47,8 @@ import torch
 _PROJ = {"self_attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
          "mlp": ("gate_proj", "up_proj", "down_proj")}
 _NORMS = ("input_layernorm", "post_attention_layernorm")
+#: a Mixtral layer's stacked expert weights (kept in the flax layout)
+_EXPERTS = ("w1", "w2", "w3")
 #: the generic transformer's LayerNorms and embeddings (by module name)
 _GENERIC_NORMS = ("ln_attn", "ln_mlp", "embed_ln", "final_ln", "mlm_ln")
 _GENERIC_EMBEDS = ("embed_positions", "token_type_embeddings")
@@ -72,12 +78,12 @@ def _dense(sd, name: str, dense) -> None:
 def flax_to_torch_state_dict(params_np: Dict[str, Any],
                              config) -> Dict[str, torch.Tensor]:
     """``params_np``: the flax ``params`` tree (numpy leaves) of a JAX
-    ``LlamaForCausalLM``, ``GPT2LMHeadModel``, generic
-    ``TransformerLMHeadModel`` / ``TransformerForMaskedLM`` or
+    ``LlamaForCausalLM``, ``MixtralForCausalLM``, ``GPT2LMHeadModel``,
+    generic ``TransformerLMHeadModel`` / ``TransformerForMaskedLM`` or
     ``DeepSpeedTransformerLayer``; ``config``: the port's config of that
-    model (``LlamaConfig``, ``GPT2Config``, ``TransformerConfig`` or
-    ``DeepSpeedTransformerConfig``), which picks the mapping. Returns the
-    port model's ``state_dict``."""
+    model (``LlamaConfig``, ``MixtralConfig``, ``GPT2Config``,
+    ``TransformerConfig`` or ``DeepSpeedTransformerConfig``), which picks
+    the mapping. Returns the port model's ``state_dict``."""
     from ..models import GPT2Config
     from ..models.transformer import TransformerConfig
     from ..ops.transformer import DeepSpeedTransformerConfig
@@ -101,7 +107,13 @@ def flax_to_torch_state_dict(params_np: Dict[str, Any],
             sd[pre + norm + ".weight"] = _t(layer[norm]["scale"])
         for group, names in _PROJ.items():
             for name in names:
-                _dense(sd, f"{pre}{group}.{name}", layer[group][name])
+                if group in layer:
+                    _dense(sd, f"{pre}{group}.{name}", layer[group][name])
+        if "block_sparse_moe" in layer:
+            moe = layer["block_sparse_moe"]
+            _dense(sd, f"{pre}block_sparse_moe.gate", moe["gate"])
+            for w in _EXPERTS:
+                sd[f"{pre}block_sparse_moe.{w}"] = _t(moe[w])
     if not config.tie_word_embeddings:
         sd["lm_head.weight"] = _t(params_np["lm_head"]["kernel"]).T \
             .contiguous()
@@ -225,6 +237,8 @@ def _flax_suffix(name: str) -> Tuple[str, bool]:
         return "mlm_bias", False
     if attr == "bias":
         return f"{path}/bias", False
+    if attr in _EXPERTS:
+        return f"{path}/{attr}", False
     if attr != "weight":
         raise ValueError(f"no flax leaf for {name!r} (quantized or unknown "
                          f"parameters are not checkpointed this way)")
@@ -280,9 +294,9 @@ class LeafView:
 def flax_leaves(tensors: Dict[str, torch.Tensor], config
                 ) -> List[Tuple[str, LeafView]]:
     """The flax params of a fp ``state_dict`` (``tensors``, by the port's
-    names, of a Llama, GPT-2 or generic transformer; ``config`` gives the
-    family and ``scan_layers``), as ``(path, LeafView)``
-    pairs in the order ``jax.tree_util`` flattens the flax tree (sorted
+    names, of a Llama, Mixtral, GPT-2 or generic transformer; ``config``
+    gives the family and ``scan_layers``), as ``(path, LeafView)`` pairs
+    in the order ``jax.tree_util`` flattens the flax tree (sorted
     keys at every level). Paths are ``/``-joined, as the JAX package
     names its leaves."""
     from ..models import GPT2Config

@@ -146,7 +146,7 @@ class DeepSpeedInferenceConfig:
 
 #: (field, accepted value, slice, ROADMAP.md Queue 1 item)
 _LATER = (
-    ("ep_size", 1, "MoE models", "10"),
+    ("ep_size", 1, "distributed", "9"),
     ("quantized_psum_block", 256, "distributed", "9"),
     ("allow_unsafe_tp", False, "distributed", "9"),
 )

@@ -417,6 +417,11 @@ class InferenceEngine:
                 advance(lg)
         return out.clone()
 
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The bound weights by ``state_dict`` name (the JAX engine's
+        ``module_state_dict`` returns its param tree)."""
+        return self.module.state_dict()
+
     def capture(self, fn):
         """``(graph, output)``: ``fn()`` captured as a CUDA graph. Every
         live graph of the engine, and of a serving engine built on it,
@@ -447,12 +452,14 @@ class InferenceEngine:
 
 
 def _is_port_model(model) -> bool:
-    from ..models import GPT2LMHeadModel, LlamaForCausalLM
+    from ..models import (GPT2LMHeadModel, LlamaForCausalLM,
+                          MixtralForCausalLM)
     from ..models.transformer import (TransformerForMaskedLM,
                                       TransformerLMHeadModel)
 
     return isinstance(model, (GPT2LMHeadModel, LlamaForCausalLM,
-                              TransformerLMHeadModel, TransformerForMaskedLM))
+                              MixtralForCausalLM, TransformerLMHeadModel,
+                              TransformerForMaskedLM))
 
 
 def init_inference(model=None, config=None, mp_size: Optional[int] = None,
@@ -462,9 +469,10 @@ def init_inference(model=None, config=None, mp_size: Optional[int] = None,
     """Bind weights to a model and return the engine. ``model`` may be
 
     - a port model (:class:`~deepspeed_tpu_torch.models.llama.
-      LlamaForCausalLM`, :class:`~deepspeed_tpu_torch.models.gpt2.
-      GPT2LMHeadModel`) with ``params`` (its ``state_dict``) or
-      ``checkpoint=`` (a ``save_pytree`` directory);
+      LlamaForCausalLM`, :class:`~deepspeed_tpu_torch.models.mixtral.
+      MixtralForCausalLM`, :class:`~deepspeed_tpu_torch.models.gpt2.
+      GPT2LMHeadModel`, the generic transformer) with ``params`` (its
+      ``state_dict``) or ``checkpoint=`` (a ``save_pytree`` directory);
     - an HF torch model (any other ``nn.Module``): module injection
       (``module_inject.replace_transformer_layer``, with the config's
       ``injection_policy`` or the matched one) converts it to a port model

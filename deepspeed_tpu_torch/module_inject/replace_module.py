@@ -31,9 +31,9 @@ def replace_transformer_layer(model, policy: Optional[Any] = None
         if policy is None:
             raise ValueError(
                 f"No injection policy for {type(model).__name__}; known: "
-                "GPT2, Llama/Mistral, Qwen2, Gemma, OPT, BLOOM, GPT-NeoX, "
-                "BERT, GPT-J, GPT-Neo, Falcon, Phi (Mixtral arrives with "
-                "ROADMAP.md Queue 1, item 10). Pass policy= explicitly.")
+                "GPT2, Llama/Mistral, Qwen2, Gemma, Mixtral, OPT, BLOOM, "
+                "GPT-NeoX, BERT, GPT-J, GPT-Neo, Falcon, Phi. Pass policy= "
+                "explicitly.")
     elif isinstance(policy, type):
         policy = policy()
     if not isinstance(policy, DSPolicy):

@@ -21,17 +21,21 @@ rows, Falcon's ``[kv, q per group + 2, D]`` rows) onto three, split along
 its rows. Their configs follow the JAX policies field for field, with the
 same refusals.
 
+Mixtral converts to ``models.mixtral``; its per-expert HF tensors land in
+one stacked tensor a layer (:class:`StackSlot`). Megatron-LM checkpoints
+(``MegatronLayerPolicy``, called by name, as in the JAX package) go onto
+the generic decoder from their state dict, after the TP shards are merged
+by ``checkpoint.reshape.ShardedCheckpointLoader``.
+
 The registry keeps the JAX package's order and class names, so
-``match_policy`` picks the same class in both packages. Mixtral, whose
-target (the JAX ``models/mixtral.py``) is not ported yet, is registered
-too; converting it raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+``match_policy`` picks the same class in both packages.
 """
 
 import functools
 import re
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 #: HF buffers that are not weights (causal masks, rotary tables)
@@ -65,7 +69,8 @@ class DSPolicy:
         pairs for a tensor that becomes several (a fused QKV), or None for
         a tensor the port model has no place for and does not need (a tied
         head, a mask buffer). ``transform`` is "", a key of
-        :func:`convert_tensor`, or a function of the tensor. ``hc`` is the
+        :func:`convert_tensor`, a function of the tensor, or a
+        :class:`StackSlot`. ``hc`` is the
         HF config. A name that maps to no tensor of the port model makes
         :func:`convert_shards` raise."""
         raise NotImplementedError
@@ -109,6 +114,16 @@ def convert_tensor(t: torch.Tensor, transform: Union[str, Callable],
     return t
 
 
+class StackSlot:
+    """A ``map_name`` transform that puts its tensor, after ``transform``
+    (a :func:`convert_tensor` transform), at ``index`` of a port tensor
+    stacked from ``count`` HF tensors (Mixtral's experts)."""
+
+    def __init__(self, index: int, count: int,
+                 transform: Union[str, Callable] = ""):
+        self.index, self.count, self.transform = index, count, transform
+
+
 def convert_shards(policy, hc, shards, dtype=None, device=None):
     """``(port model, state_dict)`` from an HF config and an iterable of
     state-dict fragments, converted as they come: each tensor is moved,
@@ -121,6 +136,8 @@ def convert_shards(policy, hc, shards, dtype=None, device=None):
     model = policy.build(hc)
     want = set(model.state_dict().keys())
     out: Dict[str, torch.Tensor] = {}
+    #: a stacked port tensor's slots written so far
+    slots: Dict[str, set] = {}
     for shard in shards:
         for name in list(shard):
             target = policy.map_name(model, name, hc)
@@ -134,10 +151,24 @@ def convert_shards(policy, hc, shards, dtype=None, device=None):
                         f"{policy.__name__}: the HF tensor {name!r} maps to "
                         f"{port_name!r}, which {type(model).__name__} does "
                         f"not have")
-                out[port_name] = convert_tensor(t, transform, dtype, device)
+                if isinstance(transform, StackSlot):
+                    part = convert_tensor(t, transform.transform, dtype,
+                                          device)
+                    if port_name not in out:
+                        out[port_name] = part.new_empty(
+                            (transform.count,) + tuple(part.shape))
+                        slots[port_name] = set()
+                    out[port_name][transform.index].copy_(part)
+                    slots[port_name].add(transform.index)
+                    del part
+                else:
+                    out[port_name] = convert_tensor(t, transform, dtype,
+                                                    device)
             del t
         del shard     # a file's mapping goes before the next is opened
     missing = sorted(want - set(out))
+    missing += sorted(f"{name}[{i}]" for name, done in slots.items()
+                      for i in range(out[name].shape[0]) if i not in done)
     if missing:
         raise KeyError(f"{policy.__name__}: the HF weights lack "
                        f"{missing[:8]}{' ...' if len(missing) > 8 else ''}")
@@ -333,28 +364,55 @@ class HFQwen2LayerPolicy(HFLlamaLayerPolicy):
         return HFLlamaLayerPolicy._window(hc)
 
 
-class _UnportedPolicy(DSPolicy):
-    """A family whose target model is not in the port yet: it matches as
-    in the JAX package, and converting raises naming the item that brings
-    the target."""
+class HFMixtralLayerPolicy(DSPolicy):
+    """HF ``MixtralForCausalLM`` -> ``models.mixtral.MixtralForCausalLM``:
+    the Llama names for attention and norms, the router ``gate`` as it
+    is, and each layer's experts ``experts.{e}.w1`` / ``w3`` (``[I, H]``)
+    and ``w2`` (``[H, I]``) stacked into ``block_sparse_moe.w1`` / ``w3``
+    ``[E, H, I]`` and ``w2`` ``[E, I, H]`` (each transposed into its
+    expert's slot as it is read). The routing is HF's, so logits match
+    HF's token for token."""
 
-    #: the JAX package's target module
-    target = "models/mixtral.py"
+    hf_model_types = ("MixtralForCausalLM", "mixtral", "MixtralModel")
+
+    _EXPERT = re.compile(
+        r"^(model\.layers\.\d+\.block_sparse_moe)\.experts\.(\d+)\."
+        r"(w[123])\.weight$")
 
     @classmethod
     def build(cls, hc):
-        raise NotImplementedError(
-            f"{cls.__name__} converts to the JAX package's {cls.target}, "
-            f"which arrives with the MoE part of the model-families slice "
-            f"of the port (ROADMAP.md Queue 1, item 10)")
+        from ..models.mixtral import MixtralConfig, MixtralForCausalLM
+
+        return MixtralForCausalLM(MixtralConfig(
+            sliding_window=HFLlamaLayerPolicy._window(hc),
+            vocab_size=hc.vocab_size, hidden_size=hc.hidden_size,
+            intermediate_size=hc.intermediate_size,
+            num_hidden_layers=hc.num_hidden_layers,
+            num_attention_heads=hc.num_attention_heads,
+            num_key_value_heads=hc.num_key_value_heads,
+            max_position_embeddings=hc.max_position_embeddings,
+            rms_norm_eps=hc.rms_norm_eps,
+            rope_theta=_rope_theta(hc, "rope_theta", 1e6),
+            num_local_experts=hc.num_local_experts,
+            num_experts_per_tok=hc.num_experts_per_tok,
+            router_aux_loss_coef=getattr(hc, "router_aux_loss_coef", 0.02),
+            tie_word_embeddings=getattr(hc, "tie_word_embeddings", False),
+            remat=False))
 
     @classmethod
     def map_name(cls, model, name: str, hc=None):
-        raise NotImplementedError(cls.__name__)
-
-
-class HFMixtralLayerPolicy(_UnportedPolicy):
-    hf_model_types = ("MixtralForCausalLM", "mixtral", "MixtralModel")
+        if name == "lm_head.weight":
+            return None if model.config.tie_word_embeddings else (name, "")
+        if not name.startswith("model."):
+            name = "model." + name               # a MixtralModel's tensors
+        if name.endswith(_NOT_WEIGHTS):
+            return None
+        m = cls._EXPERT.match(name)
+        if m is not None:
+            return (f"{m.group(1)}.{m.group(3)}",
+                    StackSlot(int(m.group(2)),
+                              model.config.num_local_experts, "transpose"))
+        return name, ""
 
 
 _ACTS = {"gelu": "gelu", "gelu_new": "gelu_new", "relu": "relu"}
@@ -862,10 +920,11 @@ def _rope_params(hc) -> dict:
         getattr(hc, "rope_scaling", None) or {}
 
 
-def _rope_theta(hc, field: str) -> float:
+def _rope_theta(hc, field: str, default: float = 10000.0) -> float:
     """The rotary base from ``field`` (transformers 4), else from
-    ``rope_parameters`` (transformers 5 moves it there), else 10000; a
-    RoPE type other than the plain one raises (the JAX package has none)."""
+    ``rope_parameters`` (transformers 5 moves it there), else ``default``;
+    a RoPE type other than the plain one raises (the JAX package has
+    none)."""
     params = _rope_params(hc)
     kind = params.get("rope_type", params.get("type", "default"))
     if kind != "default":
@@ -873,7 +932,7 @@ def _rope_theta(hc, field: str) -> float:
             f"RoPE type {kind!r} ({params!r}) is not mapped: the port runs "
             f"plain RoPE, as the JAX package does")
     theta = getattr(hc, field, None) or params.get("rope_theta")
-    return float(theta or 10000.0)
+    return float(theta or default)
 
 
 def _rotary_pct(hc, default: float = 1.0) -> float:
@@ -907,6 +966,158 @@ def _split_fused_qkv(w: torch.Tensor, b: Optional[torch.Tensor],
         b = b.reshape(n_heads, 3, head_dim)
         biases = [b[:, j].reshape(hidden_out) for j in range(3)]
     return kernels, biases
+
+
+class _MegatronSource(NamedTuple):
+    """What a Megatron state dict gives in place of an HF config: the
+    state dict, the head count, the layout flags and its name prefixes."""
+
+    sd: Dict[str, torch.Tensor]
+    heads: int
+    scan_layers: bool
+    qkv_version: float
+    layers: str        # the transformer's prefix, up to ``layers.``
+    embedding: str     # the embedding block's prefix
+
+
+def _megatron_qkv(t: torch.Tensor, cfg, interleaved: bool, j: int):
+    """Part ``j`` (q, k, v) of a Megatron fused QKV weight ``[3 * H * D,
+    in]`` or bias ``[3 * H * D]`` in the ``nn.Linear`` layout, through
+    :func:`_split_fused_qkv`."""
+    w = t if t.dim() == 2 else t[:, None]
+    kernel = _split_fused_qkv(w, None, cfg.num_attention_heads, cfg.head_dim,
+                              interleaved=interleaved)[0][j]
+    return kernel.t() if t.dim() == 2 else kernel.reshape(-1)
+
+
+class MegatronLayerPolicy(_GenericTransformerPolicy):
+    """Megatron-LM GPT -> the generic decoder (``models/transformer.py``).
+    The reference's ``MegatronLayerPolicy`` (``replace_policy.py:281``)
+    targets ``ParallelTransformerLayer``; here, as in the JAX package, the
+    unit is the Megatron STATE DICT: TP-sharded ``mp_rank_XX`` files are
+    merged first by ``checkpoint.reshape.ShardedCheckpointLoader``
+    (:meth:`from_megatron_checkpoint`), then mapped onto the generic
+    graph.
+
+    Megatron GPT: learned absolute positions, GELU, pre-LN with a final
+    LayerNorm, the head tied to the word embeddings, a fused
+    ``query_key_value``. Both the classic ``language_model.transformer.
+    layers.N`` and the newer ``language_model.encoder.layers.N`` names are
+    read; tensors the graph has no place for are left out, as the JAX
+    policy reads only what it needs.
+
+    The fused QKV's rows depend on the checkpoint version (reference
+    ``state_dict_factory.py:243``): version 1.0/2.0 rows are
+    head-interleaved ``[H, 3, D]`` (a rank-major merge keeps each head's
+    block), version 0 rows contiguous ``[Q; K; V]``; ``qkv_version`` must
+    match the files. Not in the registry: ``match_policy`` never picks
+    it."""
+
+    hf_model_types = ()
+    LAYER = _modules([("attention.dense", "attn.o_proj"),
+                      ("mlp.dense_h_to_4h", "mlp.fc_in"),
+                      ("mlp.dense_4h_to_h", "mlp.fc_out"),
+                      ("input_layernorm", "ln_attn"),
+                      ("post_attention_layernorm", "ln_mlp")])
+
+    @staticmethod
+    def _prefix(sd) -> str:
+        for p in ("language_model.transformer.", "language_model.encoder.",
+                  "transformer.", "encoder."):
+            if any(k.startswith(p + "layers.0.") for k in sd):
+                return p
+        raise KeyError("no Megatron transformer layers found in state dict "
+                       "(expected language_model.{transformer|encoder}."
+                       "layers.N.*)")
+
+    @staticmethod
+    def _embedding_prefix(sd) -> str:
+        for p in ("language_model.embedding.", "embedding."):
+            if any(k.startswith(p) for k in sd):
+                return p
+        raise KeyError("no Megatron embedding block in state dict")
+
+    @classmethod
+    def infer_config(cls, sd, num_attention_heads: int,
+                     scan_layers: bool = True, norm_eps: float = 1e-5):
+        """The generic decoder's config from the weights' shapes (a
+        Megatron checkpoint carries no HF config; only the head count is
+        not recoverable)."""
+        from ..models.transformer import TransformerConfig
+
+        tp = cls._prefix(sd)
+        ep = cls._embedding_prefix(sd)
+        vocab, hidden = sd[f"{ep}word_embeddings.weight"].shape
+        max_pos = sd[f"{ep}position_embeddings.weight"].shape[0]
+        n_layers = 1 + max(
+            int(k.split("layers.")[1].split(".")[0])
+            for k in sd if k.startswith(f"{tp}layers."))
+        inter = sd[f"{tp}layers.0.mlp.dense_h_to_4h.weight"].shape[0]
+        return TransformerConfig(
+            vocab_size=vocab, hidden_size=hidden, intermediate_size=inter,
+            num_hidden_layers=n_layers,
+            num_attention_heads=num_attention_heads,
+            max_position_embeddings=max_pos, pos_embedding="learned",
+            activation="gelu", norm_eps=norm_eps, pre_layernorm=True,
+            final_layernorm=True, tie_word_embeddings=True,
+            scan_layers=scan_layers)
+
+    @classmethod
+    def convert_config(cls, hc: _MegatronSource):
+        return cls.infer_config(hc.sd, hc.heads, hc.scan_layers)
+
+    @classmethod
+    def map_name(cls, model, name: str, hc: _MegatronSource = None):
+        top = {f"{hc.embedding}word_embeddings.weight":
+               "model.embed_tokens.weight",
+               f"{hc.embedding}position_embeddings.weight":
+               "model.embed_positions.weight",
+               f"{hc.layers}final_layernorm.weight": "model.final_ln.weight",
+               f"{hc.layers}final_layernorm.bias": "model.final_ln.bias"}
+        if name in top:
+            return top[name], ""
+        m = re.match(rf"^{re.escape(hc.layers)}layers\.(\d+)\.(.+)$", name)
+        if m is None:
+            return None
+        pre, suffix = f"model.layers.{m.group(1)}.", m.group(2)
+        if suffix.startswith("attention.query_key_value."):
+            attr = suffix.rpartition(".")[2]
+            return [(f"{pre}attn.{p}_proj.{attr}",
+                     functools.partial(_megatron_qkv, cfg=model.config,
+                                       interleaved=hc.qkv_version != 0, j=j))
+                    for j, p in enumerate("qkv")]
+        target = cls.LAYER.get(suffix)
+        return None if target is None else (pre + target, "")
+
+    @classmethod
+    def convert_state_dict(cls, hf_config, sd, scan_layers: bool = True,
+                           qkv_version: float = 2.0, dtype=None, device=None):
+        """``(TransformerLMHeadModel, state_dict)`` from a merged Megatron
+        state dict (torch tensors or numpy arrays); ``hf_config`` is the
+        head count, as in the JAX policy."""
+        sd = {k: torch.from_numpy(np.asarray(v)) if not torch.is_tensor(v)
+              else v for k, v in sd.items()}
+        hc = _MegatronSource(sd, int(hf_config), scan_layers,
+                             float(qkv_version), cls._prefix(sd),
+                             cls._embedding_prefix(sd))
+        return convert_shards(cls, hc, [dict(sd)], dtype, device)
+
+    @classmethod
+    def from_megatron_checkpoint(cls, ckpt_files, num_attention_heads: int,
+                                 version: float = 2.0,
+                                 scan_layers: bool = True, dtype=None,
+                                 device=None):
+        """``(model, state_dict)`` from Megatron ``mp_rank_XX`` files at any
+        TP degree, merged by the reshape loader's QKV-aware merge (the
+        merged layout per ``version`` drives the Q/K/V split)."""
+        from ..checkpoint.reshape import ShardedCheckpointLoader
+
+        loader = ShardedCheckpointLoader(list(ckpt_files), version=version)
+        sd = loader.load(mp_world_size=1, mp_rank=0)
+        return cls.convert_state_dict(num_attention_heads, sd,
+                                      scan_layers=scan_layers,
+                                      qkv_version=version, dtype=dtype,
+                                      device=device)
 
 
 #: every registered policy, in the JAX package's order

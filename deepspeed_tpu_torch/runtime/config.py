@@ -183,7 +183,7 @@ PORTED_KEYS = {
     "scheduler", "zero_optimization", "seed", "fault_tolerance",
     "checkpoint", "progressive_layer_drop", "activation_checkpointing",
     "tensorboard", "csv_monitor", "tracing", "memory_breakdown",
-    "dump_state", "amp",
+    "dump_state", "amp", "moe",
 }
 
 
@@ -263,6 +263,10 @@ class DeepSpeedConfig:
         self.csv_monitor = CSVConfig.from_dict(get("csv_monitor"),
                                                "csv_monitor")
         self.tracing = TracingConfig.from_dict(get("tracing"), "tracing")
+        # the JAX engine reads only ``replicate_tokens`` (its token layout
+        # over the expert mesh axis), which changes nothing on one device;
+        # other keys are accepted and unread, as there
+        self.moe = dict(get("moe") or {})
         # parsed and acted on by neither package
         self.memory_breakdown = get("memory_breakdown", False)
         self.dump_state = get("dump_state", False)

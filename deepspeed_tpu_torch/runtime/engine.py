@@ -43,9 +43,11 @@ K3's place, its groups re-pointed at the masters, the engine keeping the
 device step count beside it. Progressive layer drop computes theta from
 the device step count inside the step and hands it, with the engine's
 device generator (registered with each captured graph, so every replay
-draws anew), to a model that accepts ``pld_theta``. The TensorBoard and
-CSV monitors get the JAX engine's events after each step; the
-``tracing`` block switches on the process-global tracer.
+draws anew), to a model that accepts ``pld_theta``. Every MoE gate
+(``moe.TopKGate``) of the module draws its Gumbel noise, RTS priorities
+and jitter from the engine's gating generator, registered the same way.
+The TensorBoard and CSV monitors get the JAX engine's events after each
+step; the ``tracing`` block switches on the process-global tracer.
 
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``, the JAX engine's
 ``engine.py:1191-1305``): the state goes to disk under the JAX
@@ -90,6 +92,7 @@ from torch import nn
 
 from ..inference.engine import resolve_device
 from ..models.layers import copy_into
+from ..moe.layer import set_gating_generator
 from ..monitor.monitor import MonitorMaster
 from ..monitor.perf import PerfAccounting, spec, train_step_flops
 from ..monitor.registry import MetricsRegistry
@@ -109,6 +112,13 @@ _LAYER_INDEX = re.compile(r"(^|\.)layers\.\d+\.")
 
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
            "fp32": torch.float32}
+
+
+def _derived_seed(seed: int, stream: int) -> int:
+    """A seed for the engine's ``stream``-th generator, mixed from the
+    config's seed (the engine's counterpart of ``jax.random.fold_in``)."""
+    return int(np.random.SeedSequence([seed, stream]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -170,6 +180,16 @@ class DeepSpeedEngine:
         #: a captured step registers so each replay draws anew
         self.generator = torch.Generator(device=self.device).manual_seed(
             self._config.seed)
+        #: the MoE gates' draws (Gumbel, RTS, jitter): a generator of its
+        #: own, seeded from (seed, 1) as the JAX engine derives the gates'
+        #: key ``fold_in(base, 1)``, set on every ``TopKGate`` of the
+        #: module (None when it has none) and registered with each
+        #: captured step
+        self.gating_generator = torch.Generator(
+            device=self.device).manual_seed(_derived_seed(self._config.seed,
+                                                          1))
+        if not set_gating_generator(model, self.gating_generator):
+            self.gating_generator = None
 
         self.lr_scheduler = self._build_lr_scheduler()
         #: the device step count of a client optimizer (FusedAdam keeps
@@ -221,6 +241,11 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # construction helpers
     # ------------------------------------------------------------------
+
+    def _generators(self):
+        """The engine's generators that a step draws from."""
+        return [g for g in (self.generator, self.gating_generator)
+                if g is not None]
 
     def _build_lr_scheduler(self):
         if self.client_lr_scheduler is not None:
@@ -505,8 +530,10 @@ class DeepSpeedEngine:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        # each replay advances the generator (PLD's draws, a loss_fn's)
-        graph.register_generator_state(self.generator)
+        # each replay advances the generators (PLD's draws, a loss_fn's,
+        # the MoE gates')
+        for gen in self._generators():
+            graph.register_generator_state(gen)
         with torch.cuda.graph(graph, pool=self._graph_pool):
             outputs = self._train_step(inputs)
         self._graphs[key] = (graph, inputs, outputs,
@@ -632,12 +659,13 @@ class DeepSpeedEngine:
                                               cfg.hidden_size)}
         from torch.utils.flop_counter import FlopCounterMode
 
-        state = self.generator.get_state()
+        states = [gen.get_state() for gen in self._generators()]
         with FlopCounterMode(display=False) as counter:
             loss = self._loss({k: v[0] for k, v in batch.items()})
             torch.autograd.grad(loss.float(), self._trainable,
                                 allow_unused=True)
-        self.generator.set_state(state)
+        for gen, state in zip(self._generators(), states):
+            gen.set_state(state)
         # rebind without a graph: the counted one holds the masters'
         # gradient accumulators on this stream
         with torch.no_grad():

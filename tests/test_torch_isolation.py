@@ -52,8 +52,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not {f: m for f, m in bad.items() if m}
     # the training subset's host modules, the module-injection slice, the
     # serving engine's drafter and host KV tier, the generic transformer,
-    # its layer and the legacy quantization are among the files checked
+    # its layer, the legacy quantization, Mixtral and the MoE layer are
+    # among the files checked
     for mod in ("checkpointing.py", "runtime/dataloader.py",
+                "models/mixtral.py", "moe/__init__.py", "moe/experts.py",
+                "moe/layer.py", "moe/sharded_moe.py", "moe/utils.py",
+                "version.py",
                 "inference/serving/speculative.py",
                 "inference/serving/kv_tiers.py",
                 "runtime/progressive_layer_drop.py", "monitor/monitor.py",

@@ -16,8 +16,9 @@ local layers, Falcon multi-query and the new architecture, Phi):
 - BERT (``TransformerForMaskedLM``) gives HF's and the JAX model's MLM
   logits at 1e-4 under a padding mask and token types;
 - Phi's refusals and Falcon's fused-QKV splits are the JAX policies';
-- Mixtral, whose target the port does not have yet, matches the same
-  policy in both packages and raises naming ROADMAP.md item 10.
+- Mixtral, whose target stood outside the port until it was ported,
+  matches the same policy in both packages and converts to HF's logits
+  (its parity with JAX: ``tests/test_torch_mixtral.py``).
 
 HF checkpoint directories (``save_pretrained`` of a tiny Llama, GPT-2 and
 one model of each generic family, sharded safetensors and ``.bin``): both
@@ -265,11 +266,17 @@ UNPORTED = {
 
 @pytest.mark.parametrize("policy", sorted(UNPORTED))
 def test_unported_families_match_as_in_jax_and_name_item_10(policy):
+    """The family item 10 brought (Mixtral) matches the same policy in
+    both packages and now converts: HF's logits at fp32 1e-5."""
     hf = UNPORTED[policy]()
     assert type(match_policy(hf)).__name__ == \
         type(jax_match(hf)).__name__ == policy
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dt.init_inference(hf, dtype="fp32", device="cpu")
+    eng = dt.init_inference(hf.eval(), dtype="fp32", device="cpu")
+    ids = _ids(T=12, seed=3)
+    with torch.no_grad():
+        ref = hf(torch.tensor(ids)).logits.numpy()
+    np.testing.assert_allclose(eng.forward(ids).numpy(), ref, rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_bert_mlm_logits_match_hf_and_jax(hf_models):

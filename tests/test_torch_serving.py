@@ -463,7 +463,7 @@ def test_every_jax_config_field_is_accepted_at_its_jax_default():
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"ep_size": 2}, "10"), ({"mp_size": 2}, "9"),
+    ({"ep_size": 2}, "9"), ({"mp_size": 2}, "9"),
     ({"quantized_collectives": True}, "9"),
     ({"quantized_psum_block": 128}, "9"),
     ({"allow_unsafe_tp": True}, "9")])
@@ -520,9 +520,9 @@ def test_inference_knobs_of_later_slices_raise(knob, tmp_path):
     params = model.init_params()
     if "checkpoint" in knob:
         # a save_pytree directory (tests/test_torch_checkpoint.py) and an
-        # HF checkpoint directory of a ported family load
-        # (tests/test_torch_module_inject.py); one of a family whose model
-        # the port does not have yet (Mixtral) raises
+        # HF checkpoint directory of every family load
+        # (tests/test_torch_module_inject.py, tests/test_torch_mixtral.py);
+        # a Mixtral directory served with expert parallelism raises
         import os
 
         os.environ.setdefault("USE_TF", "0")
@@ -533,6 +533,6 @@ def test_inference_knobs_of_later_slices_raise(knob, tmp_path):
             num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, num_local_experts=4,
             num_experts_per_tok=2).save_pretrained(tmp_path)
-        knob, params = {"checkpoint": str(tmp_path)}, None
+        knob, params = {"checkpoint": str(tmp_path), "ep_size": 2}, None
     with pytest.raises(NotImplementedError, match="slice of the port"):
         dt.init_inference(model, params=params, device="cpu", **knob)
