@@ -147,7 +147,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    within 5% of the hand count over the host's wall time of the same
    steps;
 7b. train subset: the rest of the training path on the same Llama-400M
-   (bench config, captured): (a) micro-batch 8 x 1024, gas 8, under the
+   cut to 12 of its 24 layers (bench config, captured): (a) micro-batch 8 x 1024, gas 8, under the
    remat policies and losses of bench.py's leading candidates (nothing;
    dots; dots with loss_chunk 2048; offload_dots_no_batch with
    loss_chunk 2048), 2 warm-up + 3 timed steps and one profiled step
@@ -280,7 +280,32 @@ Phases, each printed on its own line; any failure exits non-zero:
    experts, capacity factor 1.0), 8192 tokens a step, with k 1 (RTS) and
    k 2, captured: ``exp_counts`` summing to k x tokens, no expert over its
    capacity, finite losses, K3 once a replay;
-15. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
+15. host ops: the host libraries (``csrc/host/``, built with g++ beside
+   the kernels) on one 4096 x 14336 fp32 leaf: the SIMD AdamW step (with
+   its bf16 output) and Adagrad step against their plain versions (max
+   error within 1e-6 of the largest value), timed beside them with the
+   host's torch copy rate as the bound; the aio handle's pwrite / pread
+   (O_DIRECT) beside a plain write / read of the same bytes;
+16. offload train: Llama-3-8B's widths through ``initialize`` ->
+   ``train_batch`` with ``offload_optimizer: cpu`` (AdamW on the host,
+   stage 2, bf16, clipping 1.0, 1 x 2048 tokens, the ``dots`` remat, the
+   device grad step captured): all 32 layers if the host holds 14 bytes a
+   parameter, else the deepest whole-layer cut that fits (printed); 3
+   steps, finite falling losses, the first loss equal to the same grad
+   step run uncaptured, one leaf's new master equal to the plain AdamW's,
+   K1 4L / K2 2L + 2L in the first step and K1 2L / K2 L + L on the device
+   in a replay, K3 none; the step split (grad step, D2H, host step, H2D),
+   the copies' GB/s, the host step's GB/s, the device peak (under 80 GB)
+   and the resident set printed;
+17. infinity: ``ZeroInfinityEngine`` through ``initialize`` on a
+   ``PipelineModule`` (embedding, N Llama-3-8B-width decoder layers, the
+   head) with ``offload_param: cpu`` in blocks of 2 at N 4 and N 8: steps
+   with and without the copy stream's prefetch, a block's H2D GB/s, the
+   device peak at N 8 within 5% of N 4's, K1 2N / K2 N + N a step; then
+   one full-NVMe step at N 4 on the local disk (the swap files' bytes,
+   the moments' bytes each way counted at the aio handles, a lower bound
+   on their GB/s);
+18. a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": {...}}`` line. A kernel's ``launches`` are its
    wrapper's count over its path's uncaptured run (a wrapper counts where
    it launches; a graph replays its kernels without it), except K6's,
@@ -296,7 +321,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    (e)) and, for K6, its device runs over all their runs;
    ``generic_launches`` are the wrappers' counts of each generic families
    run that ran the kernel (item 11); ``megatron_launches``,
-   ``mixtral_launches`` and ``moe_train_launches`` those of items 12-14. Each of these kernels adds one to its device count
+   ``mixtral_launches`` and ``moe_train_launches`` those of items 12-14,
+   ``offload_launches`` (the first step's) and ``infinity_launches`` (by
+   run) those of items 16-17. Each of these kernels adds one to its device count
    (``deepspeed_tpu_torch/ops/_runs.py``) when it runs.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -4031,6 +4058,10 @@ def check_training(cfg=None, device="cuda"):
 #: of bench.py's leading candidates and their neighbours: (name, remat
 #: policy, loss chunk)
 SUBSET_MICRO, SUBSET_GAS = 8, 8
+#: the train subset runs Llama-400M cut to 12 of its 24 layers, so that the
+#: script with its offload phases stays inside its time (the full depth
+#: trains in the ``train`` phase)
+SUBSET_LAYERS = 12
 SUBSET_ROUTES = (("nothing", "nothing", 0), ("dots", "dots", 0),
                  ("dots,lc2048", "dots", 2048),
                  ("offload_dots_no_batch,lc2048", "offload_dots_no_batch",
@@ -4354,7 +4385,8 @@ def check_train_subset(cfg=None, device="cuda"):
     from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = cfg or LlamaConfig.llama_400m(max_position_embeddings=TRAIN_SEQ,
-                                        remat=True)
+                                        remat=True,
+                                        num_hidden_layers=SUBSET_LAYERS)
     L = cfg.num_hidden_layers
     problems, graph_runs = [], {}
     cuda = device == "cuda"
@@ -6870,6 +6902,624 @@ def check_moe_train(device="cuda"):
     return {"mixtral": a, "moe_layer": check_moe_layer_training(device)}
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-Offload, ZeRO-Infinity and the host ops (items 15-17)
+# ---------------------------------------------------------------------------
+
+def host_info():
+    """The host's CPU model, core count and memory (``/proc``): the
+    numbers every host-side figure stands beside."""
+    model = "unknown"
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    return {"cpu": model, "cores": os.cpu_count(),
+            "mem_total_gib": round(_meminfo("MemTotal") / 2 ** 30, 2)}
+
+
+def _meminfo(key):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise KeyError(key)
+
+
+def host_memory_available():
+    """Bytes the process may still take: ``MemAvailable``, or less where
+    the cgroup's limit (v2 ``memory.max`` less ``memory.current``) is
+    lower. Returns (bytes, {source: bytes})."""
+    seen = {"MemAvailable": _meminfo("MemAvailable")}
+    try:
+        with open("/sys/fs/cgroup/memory.max") as f:
+            limit = f.read().strip()
+        with open("/sys/fs/cgroup/memory.current") as f:
+            used = int(f.read().strip())
+        if limit != "max":
+            seen["cgroup"] = int(limit) - used
+    except OSError:
+        pass
+    return min(seen.values()), seen
+
+
+def host_copy_gbs(nbytes=2 ** 30, reps=5):
+    """The host's memory rate as a torch copy of ``nbytes`` fp32 (GB/s of
+    bytes read plus bytes written, the best of ``reps``)."""
+    src = torch.randn(nbytes // 4)
+    dst = torch.empty_like(src)
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        dst.copy_(src)
+        best = min(best, time.perf_counter() - t)
+    return 2 * nbytes / best / 1e9
+
+
+#: one fp32 leaf of Llama-3-8B's MLP (4096 x 14336), the host ops' shape
+HOST_LEAF = (4096, 14336)
+HOST_OPS_RTOL = 1e-6
+HOST_OPS_REPS = 3
+
+
+def _close(got, want, rtol):
+    """max |got - want| within ``rtol`` of max |want| (an elementwise
+    relative bound fails where a value crosses 0)."""
+    err = float((got - want).abs().max())
+    return err, err <= rtol * float(want.abs().max())
+
+
+def check_host_ops():
+    """(c) The host libraries on one ``HOST_LEAF`` fp32 leaf: a
+    ``DeepSpeedCPUAdam`` step (AdamW, with the fused bf16 output) and a
+    ``DeepSpeedCPUAdagrad`` step against their plain versions on the same
+    inputs (max error within 1e-6 of the largest value; the bf16 outputs
+    within one bf16 step), timed (best of ``HOST_OPS_REPS``) beside the
+    plain versions, with their bytes over the host's measured copy rate as
+    the bound; then the async-IO handle's ``pwrite`` / ``pread`` of the
+    leaf (O_DIRECT where the file system takes it; the bytes read back
+    bitwise) beside a plain Python write / read of the same bytes. Returns
+    the host copy rate (GB/s) and the lines' numbers."""
+    from deepspeed_tpu_torch.ops.adagrad import (DeepSpeedCPUAdagrad,
+                                                 cpu_adagrad_step_plain)
+    from deepspeed_tpu_torch.ops.adam import (DeepSpeedCPUAdam,
+                                              cpu_adam_step_plain)
+    from deepspeed_tpu_torch.ops.aio import aio_handle, uring_available
+
+    info = host_info()
+    copy_gbs = host_copy_gbs()
+    log(f"host ops: host {json.dumps(info)}; torch copy {copy_gbs:.2f} GB/s "
+        f"(read + write, 1 GiB fp32)")
+    n = HOST_LEAF[0] * HOST_LEAF[1]
+    gen = torch.Generator().manual_seed(5)
+    p0 = torch.randn(n, generator=gen) * 0.02
+    g0 = torch.randn(n, generator=gen) * 1e-3
+    out = {}
+    problems = []
+
+    def best(fn, reps=HOST_OPS_REPS):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return min(times)
+
+    # Adam: 16 bytes read (p, g, m, v), 14 written (p, m, v, bf16)
+    adam_kw = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
+    p, m, v = p0.clone(), torch.zeros(n), torch.zeros(n)
+    bf = torch.empty(n, dtype=torch.bfloat16)
+    opt = DeepSpeedCPUAdam([p], adamw_mode=True, **adam_kw)
+    opt.step_leaf(p, g0, m, v, 1, adam_kw["lr"], bf)
+    pp, pm, pv = p0.clone(), torch.zeros(n), torch.zeros(n)
+    pbf = torch.empty(n, dtype=torch.bfloat16)
+    cpu_adam_step_plain(pp, g0, pm, pv, 1, adam_kw["lr"], adam_kw["betas"],
+                        adam_kw["eps"], adam_kw["weight_decay"], True, pbf)
+    checks = {"adam p": _close(p, pp, HOST_OPS_RTOL),
+              "adam m": _close(m, pm, HOST_OPS_RTOL),
+              "adam v": _close(v, pv, HOST_OPS_RTOL),
+              "adam bf16": _close(bf.float(), pbf.float(), 2 ** -8)}
+    s_c = best(lambda: opt.step_leaf(p, g0, m, v, 2, adam_kw["lr"], bf))
+    s_p = best(lambda: cpu_adam_step_plain(
+        pp, g0, pm, pv, 2, adam_kw["lr"], adam_kw["betas"], adam_kw["eps"],
+        adam_kw["weight_decay"], True, pbf), 1)
+    nbytes = 30 * n
+    out["cpu_adam"] = {"ms": 1e3 * s_c, "plain_ms": 1e3 * s_p,
+                       "bytes": nbytes, "gbs": nbytes / s_c / 1e9,
+                       "bound_ms": 1e3 * nbytes / (copy_gbs * 1e9),
+                       "max_abs_err": checks["adam p"][0]}
+    # Adagrad: 12 bytes read (p, g, h), 10 written (p, h, bf16)
+    h = torch.zeros(n)
+    p = p0.clone()
+    ada = DeepSpeedCPUAdagrad([p], lr=1e-2, eps=1e-10, weight_decay=0.1,
+                              num_threads=os.cpu_count())
+    ada.step_leaf(p, g0, h, 1e-2, bf)
+    pp, ph = p0.clone(), torch.zeros(n)
+    cpu_adagrad_step_plain(pp, g0, ph, 1e-2, 1e-10, 0.1, pbf)
+    checks.update({"adagrad p": _close(p, pp, HOST_OPS_RTOL),
+                   "adagrad h": _close(h, ph, HOST_OPS_RTOL),
+                   "adagrad bf16": _close(bf.float(), pbf.float(), 2 ** -8)})
+    s_c = best(lambda: ada.step_leaf(p, g0, h, 1e-2, bf))
+    s_p = best(lambda: cpu_adagrad_step_plain(pp, g0, ph, 1e-2, 1e-10, 0.1,
+                                              pbf), 1)
+    nbytes = 22 * n
+    out["cpu_adagrad"] = {"ms": 1e3 * s_c, "plain_ms": 1e3 * s_p,
+                          "bytes": nbytes, "gbs": nbytes / s_c / 1e9,
+                          "bound_ms": 1e3 * nbytes / (copy_gbs * 1e9),
+                          "max_abs_err": checks["adagrad p"][0]}
+    problems += [f"{k}: max error {e:.3g}" for k, (e, ok) in checks.items()
+                 if not ok]
+    # aio: the leaf to a file and back
+    d = tempfile.mkdtemp(prefix="chip_smoke_aio_")
+    path = os.path.join(d, "leaf.bin")
+    nbytes = 4 * n
+    try:
+        handle = aio_handle(block_size=1 << 20, queue_depth=32,
+                            num_threads=4, use_o_direct=True)
+        back = torch.empty(n)
+        s_w = best(lambda: handle.pwrite(p0, path))
+        s_r = best(lambda: handle.pread(back, path))
+        if not torch.equal(back, p0):
+            problems.append("aio read back other bytes")
+        plain_path = os.path.join(d, "plain.bin")
+        raw = p0.numpy().tobytes()
+
+        def write_plain():
+            with open(plain_path, "wb") as f:
+                f.write(raw)
+                f.flush()
+                os.fsync(f.fileno())
+
+        buf = bytearray(nbytes)
+
+        def read_plain():
+            with open(plain_path, "rb") as f:
+                f.readinto(buf)
+
+        s_pw, s_pr = best(write_plain), best(read_plain)
+        out["aio"] = {"backend": handle.backend,
+                      "uring_available": uring_available(),
+                      "o_direct": True, "bytes": nbytes,
+                      "pwrite_ms": 1e3 * s_w, "pread_ms": 1e3 * s_r,
+                      "pwrite_gbs": nbytes / s_w / 1e9,
+                      "pread_gbs": nbytes / s_r / 1e9,
+                      "plain_write_fsync_ms": 1e3 * s_pw,
+                      "plain_read_ms": 1e3 * s_pr,
+                      "plain_write_gbs": nbytes / s_pw / 1e9,
+                      "plain_read_gbs": nbytes / s_pr / 1e9}
+        handle.close()
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    for name, rec in out.items():
+        log(f"host ops {name} {json.dumps(rec)}")
+    if problems:
+        raise AssertionError("host ops: " + "; ".join(problems))
+    return copy_gbs, out
+
+
+#: (a) ZeRO-Offload on Llama-3-8B's widths: AdamW on the host, stage 2,
+#: bf16, clipping 1.0, one sequence of OFFLOAD_SEQ tokens a step, captured
+OFFLOAD_CONFIG = {
+    "train_batch_size": 1,
+    "optimizer": {"type": "AdamW",
+                  "params": {"lr": 1e-4, "weight_decay": 0.1}},
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+    "zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "cpu", "pin_memory": True}},
+    "steps_per_print": 0, "seed": 0}
+OFFLOAD_SEQ = 2048
+OFFLOAD_STEPS = 3
+#: host bytes a trained parameter takes under offload at gas 1: the fp32
+#: master, two fp32 moments and one pinned bf16 buffer (the gradient, then
+#: the new weight)
+OFFLOAD_HOST_BYTES = 14
+#: host memory left to the rest of the process (the runtime, the host
+#: step's fp32 scratch of the largest leaf, earlier phases' leftovers)
+OFFLOAD_HOST_RESERVE = 12 * 2 ** 30
+#: the leaf held against the plain host Adam
+OFFLOAD_LEAF = "model.layers.0.self_attn.q_proj.weight"
+
+
+def llama_param_split(cfg):
+    """(parameters of one decoder layer, parameters outside the layers) of
+    a Llama config, counted on the meta device."""
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+
+    one = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=1))
+    layer = edges = 0
+    for name, p in one.named_parameters():
+        if ".layers.0." in name:
+            layer += p.numel()
+        else:
+            edges += p.numel()
+    return layer, edges
+
+
+def offload_depth(cfg, available):
+    """The deepest whole-layer cut of ``cfg`` whose offload state fits in
+    ``available`` host bytes (``cfg``'s own depth when all fit)."""
+    layer, edges = llama_param_split(cfg)
+    room = available - OFFLOAD_HOST_RESERVE - OFFLOAD_HOST_BYTES * edges
+    return max(0, min(cfg.num_hidden_layers,
+                      int(room // (OFFLOAD_HOST_BYTES * layer))))
+
+
+def check_offload_train(copy_gbs, device="cuda"):
+    """(a) ``initialize`` -> ``train_batch`` on Llama-3-8B's widths with
+    ``offload_optimizer: cpu``: all 32 layers if the host holds ~14 bytes
+    a parameter, else the deepest whole-layer cut that fits (printed).
+    The device grad step (K1 forward and recompute, K2) is captured; the
+    gradients go to pinned host buffers, the host AdamW steps the fp32
+    masters and writes the bf16 weights the card reads back. The first
+    step's loss is held to the same grad step run uncaptured (1e-4
+    relative), one leaf's new master to the plain AdamW on the gradient
+    the host took (1e-6 of its largest value); the losses finite and
+    falling over ``OFFLOAD_STEPS`` steps; K1 4L / K2 2L + 2L launched in
+    the first step (eager warm-up and capture), K1 2L / K2 L + L on the
+    device in each replay, K3 never. Prints the step split (device grad
+    step, D2H, host optimizer, H2D), each copy's GB/s, the host step's GB/s
+    beside the host's copy rate, the device peak and the resident set."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.adam import cpu_adam_step_plain
+
+    full = LlamaConfig.llama3_8b(remat_policy="dots")
+    available, seen = host_memory_available()
+    L = offload_depth(full, available)
+    layer, edges = llama_param_split(full)
+    log(f"offload train: host memory available {available / 2 ** 30:.1f} "
+        f"GiB ({ {k: round(v / 2 ** 30, 1) for k, v in seen.items()} }); "
+        f"{OFFLOAD_HOST_BYTES} B a parameter: {L} of "
+        f"{full.num_hidden_layers} layers fit "
+        f"({(edges + L * layer) / 1e9:.2f} B parameters; all 32 would take "
+        f"{OFFLOAD_HOST_BYTES * (edges + 32 * layer) / 2 ** 30:.1f} GiB)")
+    if L < 1:
+        raise AssertionError("offload train: the host holds no layer")
+    cfg = dataclasses.replace(full, num_hidden_layers=L)
+    names = ["flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "fused_adam"]
+    base = memory_base(device)
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        engine, *_ = dt.initialize(model=LlamaForCausalLM(cfg),
+                                   config=dict(OFFLOAD_CONFIG), device=device)
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in engine._trainable)
+        rs = np.random.RandomState(7)
+        ids = rs.randint(0, cfg.vocab_size, (1, OFFLOAD_SEQ))
+        batch = {"input_ids": ids, "labels": ids}
+        # the same grad step, uncaptured, before the first train step
+        (plain_loss,) = engine._offload_grad_step(engine._shape_batch(batch))
+        plain_loss = float(plain_loss)
+        li = engine._trainable_names.index(OFFLOAD_LEAF)
+        opt = engine._host_opt
+        seen_leaf = {}
+        host_step = opt.step
+
+        def spy(grads, **kw):
+            if not seen_leaf:
+                seen_leaf["g"] = grads[li].float().clone()
+                seen_leaf["m"] = opt.master[li].clone()
+            return host_step(grads, **kw)
+
+        opt.step = spy
+        cuda = device == "cuda"
+        zero_generic_launches()
+        losses, times = [], []
+        for s in range(OFFLOAD_STEPS):
+            losses.append(float(engine.train_batch(batch=batch)))
+            times.append(dict(engine.offload_times))
+            if s == 0:
+                first = {n: generic_launches()[n] for n in names}
+                first_norm = engine.get_global_grad_norm()
+                first_master = opt.master[li].clone()
+                if cuda:
+                    reset_device_runs(names)
+        replay_runs = {n: r / (OFFLOAD_STEPS - 1)
+                       for n, r in device_runs(names).items()} if cuda \
+            else {}
+        opt.step = host_step
+        peak = torch.cuda.max_memory_allocated() - base \
+            if device == "cuda" else 0
+    # the plain AdamW on the leaf's gradient as the host took it
+    clip = OFFLOAD_CONFIG["gradient_clipping"]
+    g = seen_leaf["g"]
+    if first_norm > clip:
+        g = torch.from_numpy(g.numpy() * np.float32(
+            clip / (first_norm + 1e-6)))
+    want = seen_leaf["m"].clone()
+    kw = OFFLOAD_CONFIG["optimizer"]["params"]
+    cpu_adam_step_plain(want, g, torch.zeros_like(want),
+                        torch.zeros_like(want), 1, kw["lr"],
+                        weight_decay=kw["weight_decay"], adamw_mode=True)
+    leaf_err, leaf_ok = _close(first_master, want, HOST_OPS_RTOL)
+    steady = {k: statistics.mean(t[k] for t in times[1:])
+              for k in times[0]}
+    grad_bytes = 2 * n_params
+    host_bytes = 30 * n_params
+    rec = {"layers": L, "of_layers": full.num_hidden_layers,
+           "params_b": n_params / 1e9, "init_s": init_s,
+           "losses": losses, "uncaptured_first_loss": plain_loss,
+           "step_s": sum(steady.values()),
+           "split_s": steady, "first_step_split_s": times[0],
+           "d2h_gbs": grad_bytes / steady["d2h"] / 1e9,
+           "h2d_gbs": grad_bytes / steady["h2d"] / 1e9,
+           "host_step_gbs": host_bytes / steady["host_step"] / 1e9,
+           "host_copy_gbs": copy_gbs,
+           "device_peak_gib": peak / 2 ** 30,
+           "rss_peak_gib": rss.peak / 2 ** 30,
+           "rss_start_gib": rss.start / 2 ** 30,
+           "leaf_max_abs_err": leaf_err,
+           "first_step_launches": first, "replay_device_runs": replay_runs}
+    log(f"offload train {json.dumps(rec)}")
+    problems = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses not finite and falling: {losses}")
+    if abs(losses[0] - plain_loss) > 1e-4 * abs(plain_loss):
+        problems.append(f"first loss {losses[0]} != the uncaptured "
+                        f"{plain_loss}")
+    if not leaf_ok:
+        problems.append(f"{OFFLOAD_LEAF}: the host step is {leaf_err:.3g} "
+                        f"from the plain AdamW")
+    want_first = {"flash_attention_fwd": 4 * L,
+                  "flash_attention_bwd_dq": 2 * L,
+                  "flash_attention_bwd_dkv": 2 * L, "fused_adam": 0}
+    if first != want_first:
+        problems.append(f"launches {first} != {want_first}")
+    want_runs = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                 "flash_attention_bwd_dkv": L, "fused_adam": 0}
+    if device == "cuda" and replay_runs != want_runs:
+        problems.append(f"device runs a replay {replay_runs} != {want_runs}")
+    if device == "cuda" and peak >= 80e9:
+        problems.append(f"device peak {peak / 1e9:.1f} GB")
+    if problems:
+        raise AssertionError("offload train: " + "; ".join(problems))
+    del engine
+    gc.collect()
+    return {"layers": L, "launches": first, "replay_device_runs": replay_runs}
+
+
+class InfinityEmbed(torch.nn.Module):
+    """The token embedding of a streamed Llama."""
+
+    def __init__(self, vocab, hidden):
+        super().__init__()
+        self.embed_tokens = torch.nn.Embedding(vocab, hidden)
+
+    def forward(self, ids):
+        return self.embed_tokens(ids)
+
+
+class InfinityLayer(torch.nn.Module):
+    """The port's ``LlamaBlock`` as a pipeline layer: it computes its
+    positions (0 .. T - 1) and their RoPE tables from its input."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        from deepspeed_tpu_torch.models.llama import LlamaBlock
+
+        self.cfg = cfg
+        self.block = LlamaBlock(cfg)
+
+    def forward(self, x):
+        from deepspeed_tpu_torch.models.layers import rotary_embedding
+
+        B, T, _ = x.shape
+        pos = torch.arange(T, device=x.device)[None].expand(B, T)
+        cos, sin = rotary_embedding(pos, self.cfg.head_dim,
+                                    self.cfg.rope_theta, dtype=x.dtype)
+        return self.block(x, cos, sin, None, None)
+
+
+class InfinityHead(torch.nn.Module):
+    """The final norm and the LM head."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        from deepspeed_tpu_torch.models.layers import RMSNorm
+
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.lm_head = torch.nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                       bias=False)
+
+    def forward(self, x):
+        return self.lm_head(self.norm(x))
+
+
+#: (b) ZeRO-Infinity: the body streamed from pinned host memory in blocks
+#: of two layers; AdamW on the host; one sequence of INFINITY_SEQ tokens
+INFINITY_CONFIG = {
+    "train_batch_size": 1,
+    "optimizer": {"type": "AdamW",
+                  "params": {"lr": 1e-4, "weight_decay": 0.1}},
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+    "zero_optimization": {"stage": 3, "offload_param": {
+        "device": "cpu", "pin_memory": True, "block_layers": 2},
+        "offload_optimizer": {"device": "cpu"}},
+    "steps_per_print": 0, "seed": 0}
+INFINITY_SEQ = 2048
+INFINITY_DEPTHS = (4, 8)
+#: the device peak at the deeper body within this share of the shallower
+INFINITY_PEAK_TOL = 0.05
+
+
+def infinity_engine(cfg, n_layers, config, device="cuda"):
+    """A ``ZeroInfinityEngine`` through ``initialize`` on a
+    ``PipelineModule`` of the embedding, ``n_layers`` ``InfinityLayer``s
+    and the head (random weights from seed 0, made on the device)."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.layers import cross_entropy_loss
+    from deepspeed_tpu_torch.pipe import LayerSpec, PipelineModule
+
+    torch.manual_seed(0)
+    with torch.device(device):
+        module = PipelineModule(
+            [LayerSpec(InfinityEmbed, cfg.vocab_size, cfg.hidden_size),
+             *[LayerSpec(InfinityLayer, cfg) for _ in range(n_layers)],
+             LayerSpec(InfinityHead, cfg)],
+            num_stages=1, loss_fn=cross_entropy_loss)
+    engine, *_ = dt.initialize(model=module, config=dict(config),
+                               device=device)
+    del module
+    gc.collect()
+    return engine
+
+
+def infinity_steps(engine, batch, n, prefetch):
+    """``n`` steps; returns the losses, each step's timings and the h2d
+    bytes, and the device peak over them."""
+    engine.prefetch = prefetch
+    engine.track_device_memory = True
+    losses, timings, peak = [], [], 0
+    for _ in range(n):
+        losses.append(float(engine.train_batch(batch=batch)))
+        timings.append(dict(engine.timings, h2d_bytes=engine.h2d_bytes))
+        peak = max(peak, engine.last_peak_device_bytes)
+    return losses, timings, peak
+
+
+def check_infinity(device="cuda"):
+    """(b) ``ZeroInfinityEngine`` (through ``initialize`` with a
+    ``PipelineModule``) on Llama-3-8B's widths: an embedding, N decoder
+    layers and the head, ``offload_param: cpu`` with blocks of 2, at N in
+    ``INFINITY_DEPTHS``: 2 steps with the copy stream's prefetch (the first
+    a warm-up), 1 without; finite losses, the device peak at the deepest N
+    within 5% of the shallowest's (the streamed body's size does not reach
+    the card). Then one full-NVMe step at the shallowest N (both offload
+    devices ``nvme`` on the local disk under ``TMPDIR``): the moments'
+    bytes read and written, counted at the aio handles (both moments of
+    every master, each way), with a lower bound on their GB/s, and the
+    swap files' size. K1 (forward and
+    recompute) and K2 launched N times each a step. Returns the wrappers'
+    counts by run."""
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b()
+    rs = np.random.RandomState(8)
+    ids = rs.randint(0, cfg.vocab_size, (1, INFINITY_SEQ))
+    batch = {"inputs": torch.as_tensor(ids), "labels": torch.as_tensor(ids)}
+    names = ["flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv"]
+    runs, peaks, problems = {}, {}, []
+    for N in INFINITY_DEPTHS:
+        t0 = time.perf_counter()
+        engine = infinity_engine(cfg, N, INFINITY_CONFIG, device)
+        init_s = time.perf_counter() - t0
+        zero_generic_launches()
+        on_losses, on_t, on_peak = infinity_steps(engine, batch, 2, True)
+        counts = {n: generic_launches()[n] for n in names}
+        off_losses, off_t, off_peak = infinity_steps(engine, batch, 1, False)
+        # one block's copy to the card alone: the pinned H2D rate
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        sync()
+        t = time.perf_counter()
+        engine._fetch(0, 0, False)
+        sync()
+        block_s = time.perf_counter() - t
+        block_bytes = sum(x.numel() * x.element_size()
+                          for x in engine.host_blocks[0].values())
+        losses = on_losses + off_losses
+        peaks[N] = max(on_peak, off_peak)
+        runs[f"n{N}"] = counts
+        rec = {"layers": N, "block_layers": engine.block_layers,
+               "body_gb": engine.body_param_bytes() / 1e9,
+               "resident_gb": engine.device_resident_bytes() / 1e9,
+               "init_s": init_s, "losses": losses,
+               "step_prefetch": on_t[1], "step_no_prefetch": off_t[0],
+               "h2d_block_gbs": block_bytes / block_s / 1e9,
+               "streamed_bytes_a_step": on_t[1]["h2d_bytes"],
+               "device_peak_gib": peaks[N] / 2 ** 30,
+               "peak_prefetch_gib": on_peak / 2 ** 30,
+               "peak_no_prefetch_gib": off_peak / 2 ** 30,
+               "launches_2_steps": counts, "rss_gib": _rss_bytes() / 2 ** 30}
+        log(f"infinity {json.dumps(rec)}")
+        if not all(np.isfinite(losses)):
+            problems.append(f"N {N}: losses {losses}")
+        want = {n: 2 * 2 * N if n == "flash_attention_fwd" else 2 * N
+                for n in names}
+        if counts != want:
+            problems.append(f"N {N}: launches {counts} != {want}")
+        del engine
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    lo, hi = peaks[INFINITY_DEPTHS[0]], peaks[INFINITY_DEPTHS[-1]]
+    log(f"infinity peak N {INFINITY_DEPTHS[0]} {lo / 2 ** 30:.3f} GiB, N "
+        f"{INFINITY_DEPTHS[-1]} {hi / 2 ** 30:.3f} GiB: ratio {hi / lo:.4f}")
+    if hi > (1 + INFINITY_PEAK_TOL) * lo:
+        problems.append(f"device peak grew {hi / lo:.3f}x with the body")
+    # full NVMe: the body, the masters, the moments and the grads on disk
+    swap = tempfile.mkdtemp(prefix="chip_smoke_nvme_")
+    try:
+        config = json.loads(json.dumps(INFINITY_CONFIG))
+        zc = config["zero_optimization"]
+        zc["offload_param"].update(device="nvme", nvme_path=swap)
+        zc["offload_optimizer"] = {"device": "nvme",
+                                   "nvme_path": os.path.join(swap, "opt")}
+        N = INFINITY_DEPTHS[0]
+        t0 = time.perf_counter()
+        engine = infinity_engine(cfg, N, config, device)
+        init_s = time.perf_counter() - t0
+        zero_generic_launches()
+        io0 = engine._host_opt.swap_io()
+        losses, t, peak = infinity_steps(engine, batch, 1, True)
+        io = {k: v - io0[k] for k, v in engine._host_opt.swap_io().items()}
+        runs["nvme"] = {n: generic_launches()[n] for n in names}
+        n_all = sum(m.numel() for m in engine._host_opt.master)
+        n_body = engine.body_param_bytes() // 2
+        on_disk = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(swap) for f in fs)
+        # the moments' IO, counted at the aio handles: bytes over the
+        # seconds from submission to the fencing wait (a lower bound on
+        # the rate: the ops end inside that span). The memory-mapped
+        # masters, the body's fp32 grads and its bf16 staging go through
+        # the page cache, which this file system gives no counts for: their
+        # bytes are the layout's (masters read and written, grads written
+        # then read, staging read by the stream and rewritten), no rate
+        mapped = 8 * n_all + 8 * n_body + 4 * n_body
+        rec = {"layers": N, "init_s": init_s, "losses": losses,
+               "step": t[0], "swap_bytes_on_disk": on_disk,
+               "moment_io": io,
+               "moment_read_gbs_at_least":
+                   io["read_bytes"] / io["read_inflight_s"] / 1e9,
+               "moment_write_gbs_at_least":
+                   io["write_bytes"] / io["write_inflight_s"] / 1e9,
+               "memmap_bytes_touched_layout": mapped,
+               "device_peak_gib": peak / 2 ** 30,
+               "launches": runs["nvme"]}
+        log(f"infinity full nvme {json.dumps(rec)}")
+        if not all(np.isfinite(losses)):
+            problems.append(f"full nvme: losses {losses}")
+        if io["read_bytes"] != 8 * n_all or io["write_bytes"] != 8 * n_all:
+            problems.append(f"full nvme: moment io {io} != {8 * n_all} "
+                            f"bytes each way")
+        del engine
+        gc.collect()
+    finally:
+        import shutil
+
+        shutil.rmtree(swap, ignore_errors=True)
+    if problems:
+        raise AssertionError("infinity: " + "; ".join(problems))
+    return runs
+
+
+def check_offload():
+    """Items 15-17: the host ops, ZeRO-Offload on Llama-3-8B's widths,
+    ZeRO-Infinity. Returns the K1/K2 launches of (a) and (b) and the host
+    ops' numbers."""
+    copy_gbs, host = check_host_ops()
+    gc.collect()
+    a = check_offload_train(copy_gbs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = check_infinity()
+    return {"offload": a, "infinity": b, "host_ops": host}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6883,6 +7533,10 @@ def main() -> int:
     t = time.perf_counter()
     _build.build()
     log(f"build: {', '.join(_build.sources())} in "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _build.build_host()
+    log(f"build host: {', '.join(_build.HOST_LIBS)} (g++) in "
         f"{time.perf_counter() - t:.1f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6924,6 +7578,7 @@ def main() -> int:
     megatron_runs = phase(check_megatron)
     mixtral_runs = phase(check_mixtral)
     moe_runs = phase(check_moe_train)
+    offload_runs = phase(check_offload)
 
     def generic_run_launches(name):
         """A kernel's launches in each generic families run that ran it."""
@@ -7119,6 +7774,13 @@ def main() -> int:
             "mixtral": moe_runs["mixtral"].get(name, 0),
             **{f"moe_layer_k{k}": runs.get(name, 0)
                for k, runs in moe_runs["moe_layer"].items()}}
+        # ZeRO-Offload's first step (eager warm-up and capture) and
+        # ZeRO-Infinity's runs (N 4, N 8: two steps each; full NVMe: one)
+        entry["offload_launches"] = \
+            offload_runs["offload"]["launches"].get(name, 0)
+        entry["infinity_launches"] = {
+            run: counts.get(name, 0)
+            for run, counts in offload_runs["infinity"].items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,217 @@
+// Async file I/O for NVMe/SSD parameter + optimizer-state swapping.
+// TPU-native counterpart of the reference's csrc/aio/ stack
+// (deepspeed_py_aio_handle.cpp / deepspeed_aio_thread.cpp: libaio O_DIRECT
+// with a submit/complete thread pool backing ZeRO-Infinity).
+//
+// Two backends sit behind the C ABI (shared scaffolding in
+// ds_aio_backend.h): this worker-thread pool over pwrite/pread, and the
+// io_uring ring in ds_aio_uring.cpp. With use_o_direct, aligned chunks
+// bypass the page cache via O_DIRECT through per-thread 4 KiB-aligned
+// bounce buffers — the reference's pinned-buffer pattern
+// (deepspeed_aio_common) — and unaligned tails fall back to a buffered fd
+// on the same file. The C ABI mirrors the reference handle surface
+// (block_size, queue_depth, single_submit, overlap_events, num_threads).
+
+#include <stdlib.h>
+#include <string.h>
+#include <unistd.h>
+
+#include <cstdint>
+#include <deque>
+#include <thread>
+#include <vector>
+
+#include "ds_aio_backend.h"
+
+namespace {
+
+struct Op {
+  bool write;
+  char* buf;
+  int64_t nbytes;
+  int64_t offset;
+  DsAioGroup* group;
+};
+
+class PoolBackend : public DsAioGroupBackend {
+ public:
+  PoolBackend(int64_t block_size, int num_threads, bool o_direct)
+      : DsAioGroupBackend(block_size, o_direct),
+        num_threads_(num_threads > 0 ? num_threads : 1) {
+    for (int i = 0; i < num_threads_; ++i)
+      workers_.emplace_back([this] { worker(); });
+  }
+
+  const char* name() const override { return "pool"; }
+
+  ~PoolBackend() override {
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      shutdown_ = true;
+    }
+    cv_.notify_all();
+    for (auto& t : workers_) t.join();
+  }
+
+ protected:
+  // split into per-thread sub-ops so one big tensor uses the whole pool;
+  // boundaries aligned to the block size for the O_DIRECT path
+  int64_t split_bytes(int64_t nbytes) const override {
+    int64_t sub = (nbytes + num_threads_ - 1) / num_threads_;
+    if (block_size_ > 0)
+      sub = ((sub + block_size_ - 1) / block_size_) * block_size_;
+    return sub;
+  }
+
+  void enqueue_chunks(bool write, char* buf, int64_t nbytes, int64_t offset,
+                      int64_t split, DsAioGroup* group) override {
+    for (int64_t off = 0; off < nbytes; off += split) {
+      int64_t len = off + split <= nbytes ? split : nbytes - off;
+      queue_.push_back(Op{write, buf + off, len, offset + off, group});
+    }
+  }
+
+ private:
+  void worker() {
+    // per-thread aligned bounce buffer for the O_DIRECT path (the
+    // reference's pinned buffer); lazily sized to block_size
+    char* bounce = nullptr;
+    int64_t bounce_size = 0;
+    for (;;) {
+      Op op;
+      {
+        std::unique_lock<std::mutex> lk(mu_);
+        cv_.wait(lk, [&] { return shutdown_ || !queue_.empty(); });
+        if (shutdown_ && queue_.empty()) {
+          free(bounce);
+          return;
+        }
+        op = queue_.front();
+        queue_.pop_front();
+      }
+      bool ok = true;
+      int64_t done = 0;
+      while (done < op.nbytes) {
+        int64_t chunk = op.nbytes - done;
+        if (block_size_ > 0 && chunk > block_size_) chunk = block_size_;
+        int64_t pos = op.offset + done;
+        bool direct = op.group->fd_direct >= 0 &&
+                      pos % kDirectAlign == 0 && chunk % kDirectAlign == 0;
+        ssize_t r;
+        if (direct) {
+          if (bounce_size < chunk) {
+            free(bounce);
+            bounce = nullptr;
+            if (posix_memalign(reinterpret_cast<void**>(&bounce),
+                               kDirectAlign, chunk) != 0) {
+              bounce_size = 0;
+              direct = false;
+            } else {
+              bounce_size = chunk;
+            }
+          }
+        }
+        if (direct) {
+          if (op.write) {
+            memcpy(bounce, op.buf + done, chunk);
+            r = pwrite(op.group->fd_direct, bounce, chunk, pos);
+          } else {
+            r = pread(op.group->fd_direct, bounce, chunk, pos);
+            if (r > 0) memcpy(op.buf + done, bounce, r);
+          }
+        } else {
+          r = op.write ? pwrite(op.group->fd, op.buf + done, chunk, pos)
+                       : pread(op.group->fd, op.buf + done, chunk, pos);
+        }
+        if (r <= 0) {
+          ok = false;
+          break;
+        }
+        done += r;
+      }
+      complete_one(op.group, ok);
+    }
+  }
+
+  int num_threads_;
+  std::vector<std::thread> workers_;
+  std::deque<Op> queue_;  // guarded by mu_
+};
+
+}  // namespace
+
+extern "C" {
+
+// backend: 0 = auto, 1 = pool, 2 = io_uring (NULL if unavailable).
+// auto currently resolves to the pool: the AIO_r04.json sweep measured the
+// pool ahead of uring at every point on this host's disk (both saturate the
+// device at their best; callers' num_threads tuning only means something on
+// the pool). Flip auto to prefer uring when a sweep shows it winning on
+// real NVMe.
+void* ds_aio_handle_create3(int64_t block_size, int queue_depth,
+                            int single_submit, int overlap_events,
+                            int num_threads, int use_o_direct, int backend) {
+  (void)single_submit;
+  (void)overlap_events;
+  if (backend == 2) {
+    return ds_aio_make_uring(block_size > 0 ? block_size : (1 << 20),
+                             queue_depth > 0 ? queue_depth : 32,
+                             use_o_direct != 0);
+  }
+  return new PoolBackend(block_size, num_threads, use_o_direct != 0);
+}
+
+void* ds_aio_handle_create2(int64_t block_size, int queue_depth,
+                            int single_submit, int overlap_events,
+                            int num_threads, int use_o_direct) {
+  // historic entry point: the pool backend (round-3 artifacts were measured
+  // through it; keep its behavior pinned)
+  return ds_aio_handle_create3(block_size, queue_depth, single_submit,
+                               overlap_events, num_threads, use_o_direct, 1);
+}
+
+void* ds_aio_handle_create(int64_t block_size, int queue_depth,
+                           int single_submit, int overlap_events,
+                           int num_threads) {
+  return ds_aio_handle_create2(block_size, queue_depth, single_submit,
+                               overlap_events, num_threads, 0);
+}
+
+int ds_aio_uring_available(void) {
+  DsAioBackend* u = ds_aio_make_uring(1 << 20, 4, false);
+  if (u == nullptr) return 0;
+  delete u;
+  return 1;
+}
+
+const char* ds_aio_backend_name(void* handle) {
+  return static_cast<DsAioBackend*>(handle)->name();
+}
+
+void ds_aio_handle_destroy(void* handle) {
+  delete static_cast<DsAioBackend*>(handle);
+}
+
+// Synchronous when async_op == 0; otherwise returns the number of sub-ops
+// queued (complete with ds_aio_wait).
+int64_t ds_aio_pread(void* handle, const char* path, void* buffer,
+                     int64_t nbytes, int64_t offset, int async_op) {
+  return static_cast<DsAioBackend*>(handle)->submit(false, path, buffer,
+                                                    nbytes, offset,
+                                                    async_op != 0);
+}
+
+int64_t ds_aio_pwrite(void* handle, const char* path, void* buffer,
+                      int64_t nbytes, int64_t offset, int async_op) {
+  return static_cast<DsAioBackend*>(handle)->submit(true, path, buffer,
+                                                    nbytes, offset,
+                                                    async_op != 0);
+}
+
+// Block until all queued ops finish; returns completed count since the last
+// wait, or -1 if any async group errored since the last wait.
+int64_t ds_aio_wait(void* handle) {
+  return static_cast<DsAioBackend*>(handle)->wait();
+}
+
+}  // extern "C"

@@ -96,3 +96,86 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(_target(name))
         return lib
+
+
+# ---------------------------------------------------------------------------
+# host libraries: the SIMD CPU optimizers and the async-IO module
+# ---------------------------------------------------------------------------
+
+HOST_CSRC = os.path.join(CSRC, "host")
+#: library name -> (sources, headers they include), under ``csrc/host/``
+HOST_LIBS = {
+    "cpu_adam": (["cpu_adam.cpp"], ["bf16.h"]),
+    "cpu_adagrad": (["cpu_adagrad.cpp"], ["bf16.h"]),
+    "aio": (["ds_aio.cpp", "ds_aio_uring.cpp"], ["ds_aio_backend.h"]),
+}
+#: the JAX package's flags (its ``csrc/Makefile``), so both packages' host
+#: libraries compute the same bits
+HOST_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+              "-pthread", "-Wall"]
+
+
+def _cxx() -> str:
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or $CXX) found: the host "
+                           "libraries of deepspeed_tpu_torch (cpu_adam, "
+                           "cpu_adagrad, aio) build with one")
+    return cxx
+
+
+def host_lib_path(name: str) -> str:
+    return os.path.join(BUILD, f"libds_{name}.so")
+
+
+def _host_stale(name: str) -> bool:
+    """True when the library is missing or older than any of its sources
+    or headers (the staleness rule of the JAX package's op builder)."""
+    lib = host_lib_path(name)
+    if not os.path.exists(lib):
+        return True
+    srcs, headers = HOST_LIBS[name]
+    built = os.path.getmtime(lib)
+    return any(os.path.getmtime(os.path.join(HOST_CSRC, f)) > built
+               for f in srcs + headers)
+
+
+def build_host(names=None) -> None:
+    """Compile the named host libraries (default: all) that are stale with
+    ``g++``, all started together; raises ``RuntimeError`` with the
+    compiler output when a build fails or no compiler exists."""
+    names = list(HOST_LIBS) if names is None else list(names)
+    os.makedirs(BUILD, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not _host_stale(name):
+            continue
+        out = host_lib_path(name)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_cxx(), *HOST_FLAGS, "-o", tmp,
+               *(os.path.join(HOST_CSRC, s) for s in HOST_LIBS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("g++ failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` (``cpu_adam``, ``cpu_adagrad``,
+    ``aio``), built first if needed."""
+    key = "host:" + name
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            build_host([name])
+            lib = _libs[key] = ctypes.CDLL(host_lib_path(name))
+        return lib

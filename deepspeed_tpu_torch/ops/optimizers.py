@@ -1,10 +1,12 @@
 """Optimizers and their registry.
 
-Counterpart of ``deepspeed_tpu/ops/optimizers.py``. Both optimizers update
-lists of fp32 tensors in place through kernel K3 (``ops/fused_adam.py``):
-one launch over the whole list on CUDA, the plain version on the CPU. The
-device decides, so the JAX config's ``pallas=True`` is accepted and
-changes nothing. ``step(grads, grad_scale, skip)`` takes the gradients, an
+Counterpart of ``deepspeed_tpu/ops/optimizers.py``. The Adam family
+(``FusedAdam``, ``FusedLamb``) updates lists of fp32 tensors in place
+through kernel K3 (``ops/fused_adam.py``): one launch over the whole list
+on CUDA, the plain version on the CPU. The device decides, so the JAX
+config's ``pallas=True`` is accepted and changes nothing. ``Adagrad`` (no
+Pallas kernel in the JAX package) runs plain ``torch._foreach`` ops.
+``step(grads, grad_scale, skip)`` takes the gradients, an
 optional fp32 device scalar that multiplies them first (the engine's clip
 factor, computed on the card) and an optional device bool that skips the
 step (the fp16 overflow): params, moments and count then stay as they
@@ -165,6 +167,52 @@ class FusedLamb(_AdamBase):
                 p.copy_(new if skip is None else torch.where(skip, p, new))
 
 
+class Adagrad:
+    """Adagrad as the JAX package builds it (``ops/optimizers.py``
+    ``Adagrad``: ``optax.adagrad`` after ``add_decayed_weights``): the
+    decay added to the gradient, the sum of squares from 0.1 (optax's
+    ``initial_accumulator_value``), the update ``g * rsqrt(sum + eps)``
+    (0 where the sum is 0) scaled by the lr at the count before the step.
+    The JAX package has no Pallas kernel for it: plain ``torch._foreach``
+    ops on the device, captured with the rest of the step. The count moves
+    as the Adam family's."""
+
+    def __init__(self, params, lr: ScalarOrSchedule = 1e-2,
+                 eps: float = 1e-10, weight_decay: float = 0.0,
+                 initial_accumulator_value: float = 0.1, **_):
+        self.params = list(params)
+        self.lr = lr
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        device = self.params[0].device if self.params else None
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.sum_of_squares = [
+            torch.full_like(p, float(initial_accumulator_value),
+                            dtype=torch.float32) for p in self.params]
+
+    lr_at = _AdamBase.lr_at
+    _advance = _AdamBase._advance
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor],
+             grad_scale: Optional[torch.Tensor] = None,
+             skip: Optional[torch.Tensor] = None) -> None:
+        lr = self.lr_at(self.count)
+        g = [x.float() for x in grads]
+        if grad_scale is not None:
+            torch._foreach_mul_(g, grad_scale)
+        if self.weight_decay:
+            torch._foreach_add_(g, self.params, alpha=self.weight_decay)
+        sums = torch._foreach_addcmul(self.sum_of_squares, g, g)
+        for p, h, new_h, gi in zip(self.params, self.sum_of_squares, sums, g):
+            inv = torch.where(new_h > 0, torch.rsqrt(new_h + self.eps),
+                              torch.zeros_like(new_h))
+            new_p = p - lr * (inv * gi)
+            p.copy_(new_p if skip is None else torch.where(skip, p, new_p))
+            h.copy_(new_h if skip is None else torch.where(skip, h, new_h))
+        self._advance(skip)
+
+
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 LAMB_OPTIMIZER = "lamb"
@@ -190,7 +238,7 @@ def get_optimizer(name: str, params: List[torch.Tensor],
     if key == LAMB_OPTIMIZER:
         return FusedLamb(params, lr, groups=groups, **p)
     if key == ADAGRAD_OPTIMIZER:
-        raise unported("the Adagrad optimizer", "the optimizer slice (item 6)")
+        return Adagrad(params, lr, **p)
     if key in ONEBIT_OPTIMIZERS:
         raise unported(f"the {name} optimizer", "the auxiliary subsystems "
                        "(item 11)")

@@ -4,8 +4,9 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` (``DeepSpeedConfig``):
 one JSON file or dict sets the batch triangulation (train = micro x gas x
 dp), precision, optimizer, scheduler, clipping, progressive layer drop,
 the activation-checkpointing block, the TensorBoard and CSV monitors,
-tracing and the reporting knobs. This slice trains on one device
-(dp = 1). Every block it does not implement raises
+tracing, the ZeRO block with its offload blocks, the ``aio`` block and
+the reporting knobs (``PipelineEngine`` reads the ``pipeline`` block).
+This slice trains on one device (dp = 1). Every block it does not implement raises
 ``NotImplementedError`` when it is switched on, naming the ``ROADMAP.md``
 Queue 1 entry that brings it; keys that neither package knows raise
 ``ValueError``. ``memory_breakdown`` and ``dump_state`` are parsed and, as
@@ -112,6 +113,18 @@ class ActivationCheckpointingConfig(ConfigBlock):
 
 
 @dataclasses.dataclass
+class AIOConfig(ConfigBlock):
+    """The async-IO handle's knobs (the JAX ``AIOConfig``), read by the
+    NVMe swap of ``runtime/zero/offload.py``."""
+
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+
+
+@dataclasses.dataclass
 class TensorBoardConfig(ConfigBlock):
     enabled: bool = False
     output_path: str = ""
@@ -166,8 +179,9 @@ UNPORTED_BLOCKS = {
     "wandb": (_enabled, "no slice: use tensorboard or csv_monitor"),
     "comms_logger": (_enabled, "the distributed and ZeRO slice (item 9)"),
     "parallel": (_parallel, "the distributed and ZeRO slice (item 9)"),
-    "pipeline": (_nonempty, "the pipeline slice (item 10)"),
-    "aio": (_nonempty, "the offload slice (item 11)"),
+    "pipeline": (lambda v: int((v or {}).get("stages", 1)) > 1,
+                 "the distributed and ZeRO slice (item 9): a pipeline of "
+                 "more than one stage needs as many devices"),
     "prescale_gradients": (bool, "the distributed and ZeRO slice (item 9)"),
     "gradient_predivide_factor": (lambda v: v != 1.0,
                                   "the distributed and ZeRO slice (item 9)"),
@@ -183,7 +197,7 @@ PORTED_KEYS = {
     "scheduler", "zero_optimization", "seed", "fault_tolerance",
     "checkpoint", "progressive_layer_drop", "activation_checkpointing",
     "tensorboard", "csv_monitor", "tracing", "memory_breakdown",
-    "dump_state", "amp", "moe",
+    "dump_state", "amp", "moe", "aio",
 }
 
 
@@ -263,6 +277,7 @@ class DeepSpeedConfig:
         self.csv_monitor = CSVConfig.from_dict(get("csv_monitor"),
                                                "csv_monitor")
         self.tracing = TracingConfig.from_dict(get("tracing"), "tracing")
+        self.aio = AIOConfig.from_dict(get("aio"), "aio")
         # the JAX engine reads only ``replicate_tokens`` (its token layout
         # over the expert mesh axis), which changes nothing on one device;
         # other keys are accepted and unread, as there

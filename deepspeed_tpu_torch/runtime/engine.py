@@ -36,6 +36,23 @@ The micro-step API (``engine(batch)``, ``backward``, ``step``) queues
 microbatches and runs ``train_batch`` at the accumulation boundary, as the
 JAX engine does.
 
+ZeRO-Offload (``zero_optimization.offload_optimizer`` ``cpu`` or
+``nvme``; the JAX engine's ``engine.py:203-262`` and
+``_offload_train_batch``): the device holds compute-dtype weights only
+and runs no optimizer (no K3). Its step is the forward and backward and
+the loss: at gas 1 it leaves the gradients in the compute dtype, at gas > 1
+it adds them up in fp32 and divides by gas (captured under ``cuda_graph``
+as the fused step is). The gradients go to pinned host buffers, the host
+optimizer (``runtime/zero/offload.py``: SIMD Adam or Adagrad over fp32
+masters, the moments on NVMe for ``nvme``) steps, and the new weights go
+back into the bound parameters (bf16 rounded by the host kernel itself).
+fp16 grads leave the device scaled; the host unscales, an overflow skips
+the step and moves the loss-scale automaton. ``offload_times`` holds the
+last step's split (device grad step, D2H, host optimizer, H2D, seconds).
+A save adds the host state as ``{tag}.host_optimizer.npz`` beside the
+universal directory (whose params are the fp32 masters); a universal
+restore copies the checkpoint's fp32 masters and resets the moments.
+
 The model is a port model or any ``nn.Module`` (the JAX engine takes any
 flax module): its ``forward(**batch)`` gives the loss, or a ``loss_fn(
 module, batch, generator)`` does. A client ``torch.optim.Optimizer`` takes
@@ -98,7 +115,7 @@ from ..monitor.perf import PerfAccounting, spec, train_step_flops
 from ..monitor.registry import MetricsRegistry
 from ..monitor.tracing import ENV_TRACE_DIR, get_tracer
 from ..monitor.tracing import configure as configure_tracing
-from ..ops.optimizers import FusedAdam, get_optimizer
+from ..ops.optimizers import Adagrad, FusedAdam, get_optimizer
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from .config import DeepSpeedConfig
@@ -106,6 +123,8 @@ from .config_utils import unported
 from .fp16.loss_scaler import create_loss_scaler, update_scale
 from .lr_schedules import get_lr_schedule
 from .progressive_layer_drop import ProgressiveLayerDrop
+from ..ops._host import host_buffers
+from .zero.config import offload_on
 
 #: the layer index in a state_dict name (``model.layers.3.mlp...``)
 _LAYER_INDEX = re.compile(r"(^|\.)layers\.\d+\.")
@@ -119,6 +138,19 @@ def _derived_seed(seed: int, stream: int) -> int:
     config's seed (the engine's counterpart of ``jax.random.fold_in``)."""
     return int(np.random.SeedSequence([seed, stream]).generate_state(
         1, np.uint64)[0] >> np.uint64(1))
+
+
+def load_config_dict(config):
+    """A config path or dict as a dict (duplicate JSON keys raise)."""
+    if isinstance(config, (str, os.PathLike)):
+        import json
+
+        from .config_utils import dict_raise_error_on_duplicate_keys
+
+        with open(config) as f:
+            return json.load(
+                f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
+    return config
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -163,18 +195,31 @@ class DeepSpeedEngine:
         self.fp16_enabled = self._config.fp16.enabled
         self.bfloat16_enabled = self._config.bf16.enabled
         self._graphed = bool(cuda_graph) and self.device.type == "cuda"
+        self._offload = offload_on(self._config.zero_config.offload_optimizer)
+        if self._offload and optimizer is not None:
+            raise ValueError("offload_optimizer steps the config's optimizer "
+                             "on the host; a client optimizer is not "
+                             "supported with it")
+        if self._offload and self._config.progressive_layer_drop.enabled:
+            raise ValueError("progressive_layer_drop is not supported with "
+                             "offload_optimizer (the host-optimizer grad "
+                             "step does not thread pld_theta)")
 
         # ---- fp32 masters ------------------------------------------------
         self.master = self._init_masters(model_parameters)
         self._trainable_names = [n for n, p in self.master.items()
                                  if p.requires_grad]
         self._trainable = [self.master[n] for n in self._trainable_names]
-        # the gradient buffers: allocated once, zeroed in place each step,
-        # so a captured step (and K3's table of pointers) sees the same
-        # memory every time
-        for p in self._trainable:
-            p.grad = torch.zeros_like(p)
-        self._grads = [p.grad for p in self._trainable]
+        self.lr_scheduler = self._build_lr_scheduler()
+        if self._offload:
+            self._init_offload()
+        else:
+            # the gradient buffers: allocated once, zeroed in place each
+            # step, so a captured step (and K3's table of pointers) sees
+            # the same memory every time
+            for p in self._trainable:
+                p.grad = torch.zeros_like(p)
+            self._grads = [p.grad for p in self._trainable]
         #: the engine's random numbers (PLD's keep decisions, a loss_fn's
         #: dropout): a generator on the device, seeded from the config, that
         #: a captured step registers so each replay draws anew
@@ -191,12 +236,11 @@ class DeepSpeedEngine:
         if not set_gating_generator(model, self.gating_generator):
             self.gating_generator = None
 
-        self.lr_scheduler = self._build_lr_scheduler()
         #: the device step count of a client optimizer (FusedAdam keeps
         #: its own, ``optimizer.count``)
         self._count = None
         self._client_lrs = None
-        self.optimizer = self._build_optimizer()
+        self.optimizer = None if self._offload else self._build_optimizer()
         self._scaler = create_loss_scaler(self._config.fp16,
                                           device=self.device) \
             if self.fp16_enabled else None
@@ -300,6 +344,62 @@ class DeepSpeedEngine:
             master[name] = p
         return master
 
+    def _init_offload(self) -> None:
+        """ZeRO-Offload's state: the host optimizer over the trainable
+        masters (moved to host memory a tensor at a time), the device's
+        compute-dtype weights (``_dev_params``, bound to the module), the
+        static device gradient buffers a captured grad step writes, and the
+        pinned host buffers of the two copies."""
+        from .zero.offload import HostOffloadOptimizer
+
+        dt, dev = self.compute_dtype, self.device
+        pin = dev.type == "cuda"
+        gas = self.gradient_accumulation_steps
+        self._dev_params = {}
+        host = {}
+        for name in list(self.master):
+            p = self.master[name]
+            if p.is_floating_point():
+                self._dev_params[name] = p.detach().to(dt).requires_grad_(
+                    p.requires_grad)
+                if p.requires_grad:
+                    host[name] = p.detach().to("cpu")
+            else:
+                self._dev_params[name] = p
+            del p
+            self.master[name] = None     # frees the device fp32 copy
+        opt = self._config.optimizer
+        self._host_opt = HostOffloadOptimizer(
+            [host.pop(n) for n in self._trainable_names],
+            opt.type if opt else "AdamW", opt.params if opt else {},
+            self._config.zero_config.offload_optimizer,
+            gradient_clipping=self._config.gradient_clipping,
+            lr_scheduler=self.lr_scheduler)
+        # the engine's masters are the host optimizer's, by name
+        for name, flat in zip(self._trainable_names, self._host_opt.master):
+            self.master[name] = flat.view(self._dev_params[name].shape)
+        for name, p in self._dev_params.items():
+            if self.master[name] is None:
+                self.master[name] = p.detach().to("cpu") \
+                    if p.is_floating_point() else p
+        self._trainable = [self._dev_params[n] for n in self._trainable_names]
+        # at gas 1 the gradients stay in the compute dtype (the JAX grad
+        # step's dtype); at gas > 1 they add up in fp32
+        gdt = dt if gas == 1 else torch.float32
+        self._grads = [torch.zeros(p.shape, dtype=gdt, device=dev)
+                       for p in self._trainable]
+
+        sizes = [p.numel() for p in self._trainable]
+        self._host_grads = host_buffers(sizes, gdt, pin)
+        #: the new compute-dtype weights on their way to the card (bf16:
+        #: written by the host kernel's fused rounding). At gas 1 they are
+        #: the gradients' own buffers, which the host step widens a leaf at
+        #: a time before it overwrites them: 14 host bytes a parameter
+        #: (fp32 master, two moments, one bf16 buffer)
+        self._staging = self._host_grads if gdt == dt else \
+            host_buffers(sizes, dt, pin)
+        self.offload_times: Dict[str, float] = {}
+
     def _build_optimizer(self):
         if self.client_optimizer is not None:
             return self._adopt_client_optimizer(self.client_optimizer)
@@ -359,7 +459,10 @@ class DeepSpeedEngine:
     @property
     def step_count(self) -> torch.Tensor:
         """The device step count (int32 0-d): K3's count, or the engine's
-        beside a client optimizer. Skipped steps do not count."""
+        beside a client optimizer (under offload the host optimizer's, as
+        a CPU tensor). Skipped steps do not count."""
+        if self._offload:
+            return torch.tensor(self._host_opt.step_count, dtype=torch.int32)
         return self._count if self._count is not None else \
             self.optimizer.count
 
@@ -413,7 +516,11 @@ class DeepSpeedEngine:
 
     def _bind_params(self) -> None:
         """Bind the masters cast to the compute dtype (a differentiable
-        cast when grad mode is on)."""
+        cast when grad mode is on); under offload the device's
+        compute-dtype weights themselves."""
+        if self._offload:
+            _bind(self.module, self._dev_params)
+            return
         dt = self.compute_dtype
         _bind(self.module, {n: p.to(dt) if p.is_floating_point() else p
                             for n, p in self.master.items()})
@@ -499,15 +606,85 @@ class DeepSpeedEngine:
         self.optimizer.step()
         self._count.add_(1)
 
-    def _graphed_step(self, batch: Dict[str, torch.Tensor]
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """:meth:`_train_step` as a CUDA graph for the batch's signature:
-        the first step of a signature runs eagerly on a side stream and is
-        then captured; later steps copy the batch into the graph's inputs
+    def _offload_grad_step(self, batch: Dict[str, torch.Tensor]
+                           ) -> Tuple[torch.Tensor]:
+        """ZeRO-Offload's device step (the JAX ``_compile_grad_step``): the
+        loss (times the fp16 scale) goes backward through the bound
+        compute-dtype weights; at gas 1 the gradients are copied into the
+        static buffers in the compute dtype, at gas > 1 they are summed in
+        fp32 and divided by gas. Returns the mean loss (a device scalar)."""
+        gas = self.gradient_accumulation_steps
+        scale = self._scaler.cur_scale if self.fp16_enabled else None
+        total = None
+        for i in range(gas):
+            loss = self._loss({k: v[i] for k, v in batch.items()}).float()
+            grads = torch.autograd.grad(
+                loss if scale is None else loss * scale, self._trainable)
+            if gas == 1:
+                torch._foreach_copy_(self._grads, grads)
+            elif i == 0:
+                torch._foreach_copy_(self._grads, [g.float() for g in grads])
+            else:
+                torch._foreach_add_(self._grads, [g.float() for g in grads])
+            total = loss.detach() if total is None \
+                else total + loss.detach()
+        if gas > 1:
+            torch._foreach_div_(self._grads, float(gas))
+        return (total / gas,)
+
+    def _offload_train_step(self, batch: Dict[str, torch.Tensor]
+                            ) -> Tuple[torch.Tensor, float]:
+        """One ZeRO-Offload step (the JAX ``_offload_train_batch``): the
+        device grad step (replayed from its graph when captured), the
+        gradients to the pinned host buffers, the host optimizer, the new
+        weights back. Its split lands in ``offload_times``."""
+        cuda = self.device.type == "cuda"
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter()
+
+        t0 = sync()
+        (loss,) = self._graphed_step(batch, self._offload_grad_step) \
+            if self._graphed else self._offload_grad_step(batch)
+        t1 = sync()
+        for host, grad in zip(self._host_grads, self._grads):
+            host.copy_(grad.reshape(-1), non_blocking=True)
+        t2 = sync()
+        scale = float(self._scaler.cur_scale) if self.fp16_enabled else 1.0
+        bf16 = self.compute_dtype == torch.bfloat16
+        masters, overflow, norm = self._host_opt.step(
+            self._host_grads, loss_scale=scale,
+            bf16_out=self._staging if bf16 else None)
+        t3 = time.perf_counter()
+        if self.fp16_enabled:
+            flag = torch.tensor(overflow, device=self.device)
+            self._scaler.copy_(update_scale(self._scaler, flag))
+        if overflow:
+            self._skipped.add_(1)
+        else:
+            for stage, master, p in zip(self._staging, masters,
+                                        self._trainable):
+                if not bf16:
+                    stage.copy_(master)
+                with torch.no_grad():
+                    p.view(-1).copy_(stage, non_blocking=True)
+        t4 = sync()
+        self.offload_times = {"grad_step": t1 - t0, "d2h": t2 - t1,
+                              "host_step": t3 - t2, "h2d": t4 - t3}
+        return loss, norm
+
+    def _graphed_step(self, batch: Dict[str, torch.Tensor], step=None
+                      ) -> Tuple[torch.Tensor, ...]:
+        """:meth:`_train_step` (or ``step``) as a CUDA graph for the
+        batch's signature: the first step of a signature runs eagerly on a
+        side stream and is then captured; later steps copy the batch into the graph's inputs
         and replay. Returns copies of the graph's outputs (a replay
         overwrites them)."""
         key = tuple((k, tuple(v.shape), v.dtype)
                     for k, v in sorted(batch.items()))
+        step = step or self._train_step
         entry = self._graphs.get(key)
         if entry is not None:
             graph, inputs, outputs, _ = entry
@@ -520,7 +697,7 @@ class DeepSpeedEngine:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = self._train_step(inputs)
+            out = step(inputs)
             # the casts bound to the module hold the warm-up's autograd
             # graph, whose gradient accumulators belong to this stream:
             # rebind without a graph, so the capture makes its own
@@ -535,7 +712,7 @@ class DeepSpeedEngine:
         for gen in self._generators():
             graph.register_generator_state(gen)
         with torch.cuda.graph(graph, pool=self._graph_pool):
-            outputs = self._train_step(inputs)
+            outputs = step(inputs)
         self._graphs[key] = (graph, inputs, outputs,
                              getattr(self.optimizer, "table", None))
         return out
@@ -593,8 +770,11 @@ class DeepSpeedEngine:
         # the span covers the step's enqueue (reading the loss here would
         # wait for the device every step just to trace)
         t_step0 = time.perf_counter() if tr.enabled else 0.0
-        loss, self._last_grad_norm = self._graphed_step(batch) \
-            if self._graphed else self._train_step(batch)
+        if self._offload:
+            loss, self._last_grad_norm = self._offload_train_step(batch)
+        else:
+            loss, self._last_grad_norm = self._graphed_step(batch) \
+                if self._graphed else self._train_step(batch)
         if tr.enabled:
             tr.complete("train_step", t_step0, time.perf_counter(),
                         cat="train", args={"step": self.global_steps})
@@ -775,6 +955,8 @@ class DeepSpeedEngine:
         return int(self._skipped)
 
     def get_lr(self):
+        if self._offload:
+            return [self._host_opt.current_lr()]
         if self._count is not None:
             return [float(g["lr"]) for g in self.optimizer.param_groups]
         if self.lr_scheduler is None:
@@ -807,6 +989,9 @@ class DeepSpeedEngine:
         sched = self.lr_scheduler is not None
         if params.get("pallas"):  # FusedAdamState(count, mu, nu) alone
             adam, counts = "", ()
+        elif kind == "adagrad":  # [decay,] (rss, lr)
+            adam = "1/0/" if params.get("weight_decay") else "0/"
+            counts = (adam[:-2] + "1/",) if sched else ()
         elif kind == "lamb":  # adam, decay, trust ratio, lr
             adam, counts = "0/", ("3/",) if sched else ()
         elif kind == "adamw" or params.get("adam_w_mode", True):
@@ -852,6 +1037,24 @@ class DeepSpeedEngine:
         def count():
             return torch.zeros_like(opt.count) if for_load else opt.count
 
+        if self._offload:
+            # the JAX offload TrainState: no optax state on the device;
+            # the params are the host fp32 masters
+            self._loaded_step = torch.zeros((), dtype=torch.int32)
+            leaves = [("step", self._loaded_step if for_load
+                       else self.step_count)]
+            leaves += tree("params", self.master)
+            leaves += self._scaler_and_skips()
+            return NamedLeaves(leaves)
+        if isinstance(opt, Adagrad):
+            # optax's ScaleByRssState has no count: the step carries it
+            leaves = [("step", opt.count)]
+            leaves += tree("params", self.master)
+            leaves += tree(f"opt_state/{adam}sum_of_squares",
+                           dict(zip(names, opt.sum_of_squares)))
+            leaves += [(f"opt_state/{c}count", count()) for c in counts]
+            leaves += self._scaler_and_skips()
+            return NamedLeaves(leaves)
         leaves = [("step", count())]
         leaves += tree("params", self.master)
         leaves.append((f"opt_state/{adam}count", opt.count))
@@ -859,11 +1062,66 @@ class DeepSpeedEngine:
         leaves += tree(f"opt_state/{adam}nu",
                        dict(zip(names, opt.exp_avg_sq)))
         leaves += [(f"opt_state/{c}count", count()) for c in counts]
+        leaves += self._scaler_and_skips()
+        return NamedLeaves(leaves)
+
+    def _scaler_and_skips(self):
+        leaves = []
         if self._scaler is not None:
             leaves += [(f"loss_scale/{f}", getattr(self._scaler, f))
                        for f in ("cur_scale", "cur_iter", "cur_hysteresis")]
         leaves.append(("skipped_steps", self._skipped))
-        return NamedLeaves(leaves)
+        return leaves
+
+    def _host_optimizer_path(self, save_dir: str, tag: str) -> str:
+        return os.path.join(save_dir, f"{tag}.host_optimizer.npz")
+
+    def _save_host_optimizer(self, save_dir: str, tag: str) -> None:
+        """The host masters, moments and count beside the save (the JAX
+        engine's ``{tag}.host_optimizer.npz``), written before the
+        manifest so that it covers them."""
+        os.makedirs(save_dir, exist_ok=True)
+        sd = self._host_opt.state_dict()
+        np.savez(self._host_optimizer_path(save_dir, tag), step=sd["step"],
+                 **{f"master_{i}": m.numpy()
+                    for i, m in enumerate(sd["master"])},
+                 **{f"moment_{mi}_{li}": buf.numpy()
+                    for mi, bank in enumerate(sd["moments"])
+                    for li, buf in enumerate(bank)})
+
+    def _after_offload_load(self, load_dir: str, tag: Optional[str],
+                            universal: bool,
+                            load_optimizer_states: bool) -> None:
+        """The host state after a load wrote the params into the masters:
+        the sidecar's masters, moments and count when there is one (and
+        the optimizer states are asked for); else, as the JAX engine does
+        for a universal restore or a save without it, the moments reset.
+        Then the device weights are the masters in the compute dtype."""
+        opt = self._host_opt
+        path = None
+        if not universal:
+            if tag is None:
+                with open(os.path.join(load_dir, "latest")) as f:
+                    tag = f.read().strip()
+            path = self._host_optimizer_path(load_dir, tag)
+        if path is not None and load_optimizer_states and \
+                os.path.exists(path):
+            z = np.load(path)
+            n = len(opt.master)
+            opt.load_state_dict({
+                "step": int(z["step"]),
+                "master": [z[f"master_{i}"] for i in range(n)],
+                "moments": [[z[f"moment_{mi}_{li}"] for li in range(n)]
+                            for mi in range(len(opt._moments))]})
+        else:
+            opt.reset_optimizer_state()
+            if universal:
+                log_dist("[load_checkpoint] universal restore on an offload "
+                         "engine: fp32 masters copied from the checkpoint, "
+                         "optimizer moments reset", ranks=[0])
+        with torch.no_grad():
+            for p, m in zip(self._trainable, opt.master):
+                p.copy_(m.view(p.shape))
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[Dict] = None,
@@ -881,6 +1139,8 @@ class DeepSpeedEngine:
                             skipped_steps=self.get_skipped_steps())
         ft = self._config.fault_tolerance
         t_save0 = time.perf_counter()
+        if self._offload:
+            self._save_host_optimizer(save_dir, tag)
         save_train_state(save_dir, tag, self._state_leaves(), client_state,
                          save_latest=save_latest,
                          save_retries=ft.save_retries if ft.enabled else 0,
@@ -927,6 +1187,9 @@ class DeepSpeedEngine:
                 load_dir, tag, template,
                 load_optimizer_states=load_optimizer_states, verify=False)
             self.global_steps = int(client_state.get("global_steps", 0))
+        if self._offload:
+            self._after_offload_load(load_dir, tag, bool(load_universal),
+                                     load_optimizer_states)
         self.micro_steps = self.global_steps * self.gradient_accumulation_steps
         return load_dir, client_state
 
@@ -1015,11 +1278,17 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = args.deepspeed_config
     if mpu is not None:
         raise unported("an mpu", "the distributed and ZeRO slice (item 9)")
-    engine = DeepSpeedEngine(model, config=config,
-                             model_parameters=model_parameters,
-                             lr_scheduler=lr_scheduler, device=device,
-                             cuda_graph=cuda_graph, optimizer=optimizer,
-                             loss_fn=loss_fn)
+    from ..pipe.module import PipelineModule
+
+    if isinstance(model, PipelineModule):
+        engine = _pipeline_engine(model, config, model_parameters, loss_fn,
+                                  optimizer, lr_scheduler, device, cuda_graph)
+    else:
+        engine = DeepSpeedEngine(model, config=config,
+                                 model_parameters=model_parameters,
+                                 lr_scheduler=lr_scheduler, device=device,
+                                 cuda_graph=cuda_graph, optimizer=optimizer,
+                                 loss_fn=loss_fn)
     dataloader = None
     if training_data is not None:
         from .dataloader import DeepSpeedDataLoader
@@ -1028,3 +1297,35 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                                          batch_size=engine.micro_batch_size,
                                          collate_fn=collate_fn)
     return engine, engine.optimizer, dataloader, engine.lr_scheduler
+
+
+def _pipeline_engine(model, config, model_parameters, loss_fn, optimizer,
+                     lr_scheduler, device, cuda_graph):
+    """A ``PipelineModule``'s engine (the JAX ``engine.py:1369-1410``):
+    with ``offload_param`` on a one-stage module the ``ZeroInfinityEngine``
+    streams its body, else the ``PipelineEngine``."""
+    from ..pipe.engine import PipelineEngine
+    from .zero.config import DeepSpeedZeroConfig
+
+    bad = [k for k, v in {"model_parameters": model_parameters,
+                          "loss_fn": loss_fn}.items() if v is not None]
+    if bad:
+        raise ValueError(
+            f"initialize(model=PipelineModule) does not accept {bad}: the "
+            "pipeline module owns its params and loss (use "
+            "engine.load_checkpoint to restore weights)")
+    cfg = load_config_dict(config) or {}
+    zcfg = DeepSpeedZeroConfig.from_dict(cfg.get("zero_optimization"),
+                                         "zero_optimization")
+    if offload_on(zcfg.offload_param) and model.num_stages == 1:
+        from .zero.infinity import ZeroInfinityEngine
+
+        if optimizer is not None:
+            raise ValueError("ZeroInfinityEngine builds its own host "
+                             "optimizer from the config; a client optimizer "
+                             "is not supported with offload_param")
+        return ZeroInfinityEngine(model, config=cfg,
+                                  lr_scheduler=lr_scheduler, device=device)
+    return PipelineEngine(model, config=cfg, device=device,
+                          cuda_graph=cuda_graph, optimizer=optimizer,
+                          lr_scheduler=lr_scheduler)

@@ -55,6 +55,7 @@ from deepspeed_tpu_torch.inference.serving.scheduler import Request, \
     RequestState
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.utils import fault_injection as faults
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = [pytest.mark.serving, pytest.mark.chaos]
 

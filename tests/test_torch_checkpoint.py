@@ -65,6 +65,7 @@ from deepspeed_tpu_torch.checkpoint.from_flax import (flax_to_torch_state_dict,
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.utils import zero_to_fp32
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SEQ = 4, 16

@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.models import MixtralConfig, MixtralForCausalLM
 from deepspeed_tpu_torch.models import layers as tlayers
 from deepspeed_tpu_torch.models import transformer as tt
 from tests.test_torch_train import BERT, _mlm_batches
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: the next step's loss after a cross-package load (fp32)
 LOSS_TOL = 1e-6

@@ -25,6 +25,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (_check_kernel_args,
                                                       decode_attention,
                                                       decode_attention_plain,
                                                       decode_splits)
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = {
     # name: (B, H, Hkv, S, D, cache_index, window, int8, block_k)

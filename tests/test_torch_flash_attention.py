@@ -22,6 +22,7 @@ import torch
 from deepspeed_tpu.ops.pallas.flash_attention import (_reference_attention,
                                                       flash_attention as jfa)
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = {
     # name: (B, Tq, Tk, causal, window[, head dim, default 64])

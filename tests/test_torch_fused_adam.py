@@ -21,7 +21,7 @@ from deepspeed_tpu.ops.pallas.fused_adam import (_run_leaf,
                                                  scale_by_fused_adam,
                                                  scale_by_fused_lamb)
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam, fused_adam_plain
-from deepspeed_tpu_torch.ops.optimizers import (FusedAdam, FusedLamb,
+from deepspeed_tpu_torch.ops.optimizers import (Adagrad, FusedAdam, FusedLamb,
                                                 get_optimizer)
 from deepspeed_tpu_torch.runtime.lr_schedules import WarmupDecayLR
 
@@ -154,8 +154,7 @@ def test_registry_and_knobs_that_raise():
     assert not get_optimizer("Adam", ps, {"adam_w_mode": False}).adam_w_mode
     assert isinstance(get_optimizer("AdamW", ps, {"pallas": True}), FusedAdam)
     assert isinstance(get_optimizer("Lamb", ps, {}), FusedLamb)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        get_optimizer("Adagrad", ps, {})
+    assert isinstance(get_optimizer("Adagrad", ps, {}), Adagrad)
     with pytest.raises(NotImplementedError, match="Queue 1"):
         get_optimizer("OneBitAdam", ps, {})
     with pytest.raises(ValueError, match="AMSGrad"):

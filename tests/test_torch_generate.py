@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.quant import quantize_state_dict
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.models import layers as layers_mod
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _params(over):

@@ -28,6 +28,7 @@ import torch
 import deepspeed_tpu as jds
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

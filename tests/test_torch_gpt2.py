@@ -41,6 +41,7 @@ import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
 from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
 from deepspeed_tpu_torch.models import layers as layers_mod
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _params(**over):

@@ -52,8 +52,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not {f: m for f, m in bad.items() if m}
     # the training subset's host modules, the module-injection slice, the
     # serving engine's drafter and host KV tier, the generic transformer,
-    # its layer, the legacy quantization, Mixtral and the MoE layer are
-    # among the files checked
+    # its layer, the legacy quantization, Mixtral, the MoE layer, the host
+    # ops, the pipeline container and engine, ZeRO-Offload and
+    # ZeRO-Infinity are among the files checked
     for mod in ("checkpointing.py", "runtime/dataloader.py",
                 "models/mixtral.py", "moe/__init__.py", "moe/experts.py",
                 "moe/layer.py", "moe/sharded_moe.py", "moe/utils.py",
@@ -64,7 +65,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "models/gpt2.py", "module_inject/replace_policy.py",
                 "module_inject/replace_module.py", "models/transformer.py",
                 "ops/transformer.py", "compression/__init__.py",
-                "compression/quantization.py"):
+                "compression/quantization.py", "ops/_host.py",
+                "ops/adam/cpu_adam.py", "ops/adagrad/cpu_adagrad.py",
+                "ops/aio/handle.py", "pipe/module.py", "pipe/schedule.py",
+                "pipe/engine.py", "runtime/zero/offload.py",
+                "runtime/zero/infinity.py"):
         assert os.path.join("deepspeed_tpu_torch", mod) in bad, mod
     # the exact-name rule: the port's own name starts with the JAX
     # package's and must not trip it
@@ -91,6 +96,35 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
                           serving_config=dt.ServingConfig(
                               block_size=8, num_blocks=8, max_model_len=32))
     assert srv.device.type == "cpu" and srv.pool["k"].device.type == "cpu"
+
+
+def test_offload_pipeline_and_infinity_engines_need_cuda_unless_cpu(
+        monkeypatch):
+    """ZeRO-Offload, the one-stage ``PipelineEngine`` and the
+    ``ZeroInfinityEngine`` run on the card unless ``device="cpu"``."""
+    from deepspeed_tpu_torch.models.layers import cross_entropy_loss
+    from deepspeed_tpu_torch.pipe import LayerSpec, PipelineModule
+    from torch_pipe_twins import Block, EmbedIn, HeadOut
+
+    def module():
+        return PipelineModule([LayerSpec(EmbedIn, 16, 8),
+                               *[LayerSpec(Block, 8) for _ in range(2)],
+                               LayerSpec(HeadOut, 16, 8)],
+                              num_stages=1, loss_fn=cross_entropy_loss)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = {"train_batch_size": 2, "optimizer": {"type": "AdamW"}}
+    offload = dict(base, zero_optimization={
+        "stage": 2, "offload_optimizer": {"device": "cpu"}})
+    stream = dict(base, zero_optimization={
+        "offload_param": {"device": "cpu", "block_layers": 1}})
+    for model, config in ((_tiny()[0], offload), (module(), base),
+                          (module(), stream)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dt.initialize(model=model, config=config)
+    engine, *_ = dt.initialize(model=module(), config=stream, device="cpu")
+    assert type(engine).__name__ == "ZeroInfinityEngine"
+    assert engine.device.type == "cpu"
 
 
 def test_kernel_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):

@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.inference.serving import kv_tiers as port_tiers
 from deepspeed_tpu_torch.inference.serving import scheduler as sched_mod
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.utils import fault_injection as faults
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

@@ -23,6 +23,7 @@ from deepspeed_tpu.inference.engine import (_sample_logits as jax_sample,
 from deepspeed_tpu.models import layers as jl
 from deepspeed_tpu_torch.inference.engine import _sample_logits, next_pow2
 from deepspeed_tpu_torch.models import layers as tl
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _packed_append_inputs(seed, int8):

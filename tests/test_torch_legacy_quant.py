@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.compression import quantization as tq
 from deepspeed_tpu_torch.models import (GPT2Config, LlamaConfig,
                                         LlamaForCausalLM)
 from deepspeed_tpu_torch.models import transformer as tt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.module_inject.replace_policy import \
     MegatronLayerPolicy
 from tests.unit.test_megatron_policy import (HEADS, INTER, LAYERS, MAXPOS,
                                              VOCAB, _megatron_sd)
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: fp32 logits
 TOL = 1e-5

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 os.environ.setdefault("USE_TF", "0")
 transformers = pytest.importorskip("transformers")

@@ -29,6 +29,7 @@ without weights raises ``FileNotFoundError`` in both.
 
 import json
 import os
+from torch_threads import one_torch_thread  # noqa: F401
 
 os.environ.setdefault("USE_TF", "0")   # transformers without TensorFlow
 

@@ -32,6 +32,7 @@ import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch import moe
 from deepspeed_tpu_torch.moe import sharded_moe as sm
 from deepspeed_tpu_torch.moe.layer import set_gating_generator
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: fp32 gate math and module outputs, and training losses
 GATE_TOL, OUT_TOL, TRAIN_TOL = 1e-6, 1e-5, 1e-4

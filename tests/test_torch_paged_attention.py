@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_prefill_attention, paged_prefill_attention_plain, paged_splits)
 from deepspeed_tpu_torch.ops.ragged_attention import \
     ragged_paged_attention_plain
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

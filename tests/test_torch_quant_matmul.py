@@ -26,6 +26,7 @@ import torch
 from deepspeed_tpu.ops.pallas import int8_matmul as jax_i8
 from deepspeed_tpu.ops.pallas import quant_matmul as jax_qm
 from deepspeed_tpu_torch.ops import quant_matmul as qm
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _w(K, N, seed):

@@ -28,6 +28,7 @@ from deepspeed_tpu.ops.pallas.ragged_attention import (
     _reference_ragged, ragged_paged_attention as jax_ragged)
 from deepspeed_tpu_torch.ops.ragged_attention import (
     launch_params, ragged_paged_attention, ragged_paged_attention_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (kind, start, qlen): decode rows sit at position ``start`` (context
 # start + 1), chunks span [start, start + qlen), idle rows hold nothing

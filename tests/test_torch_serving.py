@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.models import layers as layers_mod
 from deepspeed_tpu_torch.ops.ragged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SETTINGS = dict(max_batch_size=4, block_size=8, num_blocks=48,
                 max_model_len=64, prefill_chunk_tokens=8,

@@ -28,6 +28,7 @@ from deepspeed_tpu.models import LlamaForCausalLM as JaxLlama
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAMILIES = {
     # Gemma: 4 heads of 256 on 2 kv heads over a hidden width of 64,

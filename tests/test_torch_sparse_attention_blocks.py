@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import sparse_attention as psa
 
 from test_torch_sparse_attention import CONFIGS, _config
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOG2E = 1.4426950408889634
 

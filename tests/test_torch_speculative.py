@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
 from deepspeed_tpu_torch.inference.serving.speculative import (
     Drafter, PromptLookupDrafter)
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.serving
 

@@ -59,6 +59,7 @@ from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, FP16Config
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 5
 BATCH, SEQ = 4, 16
@@ -119,11 +120,6 @@ def test_config_checks(tmp_path):
 
 
 UNPORTED = {
-    "zero_stage1": {"zero_optimization": {"stage": 1}},
-    "offload_optimizer": {"zero_optimization": {
-        "offload_optimizer": {"device": "cpu"}}},
-    "offload_param": {"zero_optimization": {"offload_param": {
-        "device": "cpu"}}},
     "overlap_grad_sync": {"zero_optimization": {"overlap_grad_sync": True}},
     "sparse_gradients": {"sparse_gradients": True},
     "curriculum_learning": {"curriculum_learning": {"enabled": True}},
@@ -137,7 +133,6 @@ UNPORTED = {
     # the block itself is ported; its heartbeat acts under elasticity
     "fault_tolerance": {"fault_tolerance": {"heartbeat_interval": 5},
                         "elasticity": {"enabled": True}},
-    "adagrad": {"optimizer": {"type": "Adagrad", "params": {}}},
     "onebit": {"optimizer": {"type": "OneBitAdam", "params": {}}},
 }
 
@@ -148,6 +143,31 @@ def test_unported_knobs_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         dt.initialize(model=model, config={"train_batch_size": 2,
                                            **UNPORTED[case]}, device="cpu")
+
+
+#: knobs that raised until the offload slice: ZeRO stages 1-3 (nothing to
+#: shard on one device), the offload blocks (``offload_param`` on a model
+#: that is not a ``PipelineModule`` is accepted and unread, as in JAX) and
+#: the Adagrad optimizer
+PORTED_SINCE_OFFLOAD = {
+    "zero_stage1": {"zero_optimization": {"stage": 1}},
+    "offload_optimizer": {"zero_optimization": {
+        "offload_optimizer": {"device": "cpu"}}},
+    "offload_param": {"zero_optimization": {"offload_param": {
+        "device": "cpu"}}},
+    "adagrad": {"optimizer": {"type": "Adagrad", "params": {}}},
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED_SINCE_OFFLOAD))
+def test_knobs_that_raised_before_the_offload_slice_train(case):
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    engine, *_ = dt.initialize(model=model, config={
+        "train_batch_size": 2, **PORTED_SINCE_OFFLOAD[case]}, device="cpu")
+    ids = np.random.RandomState(0).randint(0, 64, (2, 8))
+    loss = engine.train_batch(batch={"input_ids": ids, "labels": ids})
+    assert np.isfinite(float(loss))
+    assert (engine.optimizer is None) == (case == "offload_optimizer")
 
 
 def test_amp_block_is_ignored_with_a_warning_as_in_jax(one_device_mesh,
@@ -320,6 +340,19 @@ CASES = {
     "lamb_scanned": ({"scan_layers": True}, _LAMB),
     # LAMB with unscanned layers: one trust ratio a tensor in both
     "lamb_unscanned": ({"scan_layers": False}, _LAMB),
+    # Adagrad (optax's, after the decay) under a schedule and clipping
+    "adagrad_decay_warmup": (
+        {},
+        {"train_batch_size": BATCH,
+         "optimizer": {"type": "Adagrad",
+                       "params": {"lr": 1e-2, "eps": 1e-10,
+                                  "weight_decay": 0.01}},
+         "scheduler": {"type": "WarmupLR",
+                       "params": {"warmup_min_lr": 1e-3,
+                                  "warmup_max_lr": 1e-2,
+                                  "warmup_num_steps": 3,
+                                  "warmup_type": "linear"}},
+         "gradient_clipping": 0.05, "steps_per_print": 0}),
 }
 
 

@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from tests.unit.simple_model import SimpleModel, batch_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 5
 HIDDEN = 16

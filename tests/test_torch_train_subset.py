@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.models import layers
 from deepspeed_tpu_torch.models import llama as llama_mod
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
+from torch_threads import one_torch_thread  # noqa: F401
 
 POLICIES = ["nothing", "dots", "dots_no_batch", "offload_dots_no_batch"]
 B, T = 2, 12

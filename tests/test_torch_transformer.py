@@ -31,6 +31,7 @@ from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.checkpoint.from_flax import (flax_to_torch_state_dict,
                                                       torch_to_flax)
 from deepspeed_tpu_torch.models import transformer as tt
+from torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(vocab_size=96, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,

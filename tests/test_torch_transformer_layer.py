@@ -26,6 +26,7 @@ from deepspeed_tpu.ops import DeepSpeedTransformerLayer as JaxLayer
 from deepspeed_tpu_torch.checkpoint.from_flax import flax_to_torch_state_dict
 from deepspeed_tpu_torch.ops import (DeepSpeedTransformerConfig,
                                      DeepSpeedTransformerLayer)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
